@@ -9,16 +9,30 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build of the hand-written CUDA kernels from ``horovod_tpu_torch/ops/csrc``;
-3. kernel phase: the forward, dQ and dK/dV flash-attention kernels against
-   their plain PyTorch versions on the same inputs (BERT-Large shape in
-   bf16; a causal, ragged, offset case with fully masked rows and a
-   nonzero lse cotangent; a float32 case), with times beside the bound;
+2. build of the hand-written CUDA kernels from ``horovod_tpu_torch/ops/csrc``
+   (one ``nvcc`` per source, all started together);
+3. kernel phase: every kernel against its plain PyTorch version on the same
+   inputs, with times beside the bound and the library yardstick:
+   - the multi-tile forward, dQ and dK/dV flash-attention kernels
+     (BERT-Large S=512 shape in bf16; a causal, ragged, offset case with
+     fully masked rows and a nonzero lse cotangent; a float32 case);
+   - the single-tile forward and fused backward (BERT-Large phase-1 shape,
+     S=128, in bf16; causal 96 x 128 with offsets, masked rows and a
+     nonzero lse cotangent; float32 causal with an offset; bf16 at D=128);
+   - the 1x1-conv filter gradient (ResNet-50 stage-1 bottleneck 64 -> 256;
+     the stride-2 projection shortcut 256 -> 512; float32 with a ragged K);
 4. training phase: synchronous data-parallel BERT-Large training through
    ``init`` / ``DistributedOptimizer`` / ``broadcast_parameters`` with the
-   1-rank NCCL bucketed allreduce forced on, launch counters showing that
-   every attention call went through the three kernels, and a small-input
-   agreement check of the flash model against dense attention.
+   1-rank NCCL bucketed allreduce forced on, on two paths: sequence 512
+   (multi-tile kernels) and sequence 128, the phase-1 pretraining length
+   (single-tile kernels). Launch counters show that every attention call of
+   a path went through its own kernels and none through the other route's;
+   each path is profiled;
+5. ``conv1x1`` phase: forward and backward of ``conv1x1`` through autograd
+   at the two ResNet-50 shapes, with one filter-gradient launch per
+   backward, dx and dw held against the plain counterpart;
+6. agreement: the flash model against dense attention on small float32
+   inputs, on each attention route.
 
 The second-last lines are the ``kernels`` JSON line and the card line;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -47,11 +61,32 @@ PEAK_BYTES_PER_S = 3.35e12
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 TOL_LSE = 1e-3
 
-BERT_BATCH = 8        # sequences per step: B*H = 128 attention rows
-BERT_SEQ = 512
-BERT_PREDICTIONS = 76  # masked positions per sequence
+# Kernel vs plain version of the 1x1-conv filter gradient: both sum exact
+# bf16 products (or float32 FMAs) in fp32, in another order, over up to
+# 401,408 rows: max |kernel - plain| <= TOL_DW[dtype] * max |plain|.
+TOL_DW = {"bfloat16": 1e-3, "float32": 1e-4}
+
 WARMUP_STEPS = 2
 TIMED_STEPS = 5
+
+ATTENTION_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv", "flash_fwd_single",
+                     "flash_dqkv")
+# BERT-Large training paths: name, sequences per step, sequence length,
+# masked positions per sequence, the attention kernels the path must run
+# (24 launches per step each; every other kernel launches 0 times).
+BERT_PATHS = (
+    # The S=512 fine-tuning/benchmark length (bench.py): B*H = 128.
+    ("bert_large_s512", 8, 512, 76, ("flash_fwd", "flash_dq", "flash_dkv")),
+    # Phase-1 pretraining (max_seq_length=128, max_predictions_per_seq=20,
+    # google-research/bert): B*H = 1024, 8192 tokens per step.
+    ("bert_large_s128", 64, 128, 20, ("flash_fwd_single", "flash_dqkv")),
+)
+# ResNet-50's 1x1 convolutions for the filter-gradient kernel: name, N, H, W
+# (input), Cin, Cout, strides.
+CONV_SHAPES = (
+    ("resnet50_stage1_64to256", 128, 56, 56, 64, 256, (1, 1)),
+    ("resnet50_shortcut_s2_256to512", 128, 56, 56, 256, 512, (2, 2)),
+)
 
 
 def card_line() -> str:
@@ -118,13 +153,28 @@ def _bounds(name, BH, Sq, Sk, D, dtype_name, causal, q_offset, k_offset):
     q_bytes = BH * Sq * D * item
     k_bytes = BH * Sk * D * item
     rows = BH * Sq * 4
-    products = {"flash_fwd": 2, "flash_dq": 3, "flash_dkv": 4}[name]
+    products = {"flash_fwd": 2, "flash_dq": 3, "flash_dkv": 4,
+                "flash_fwd_single": 2, "flash_dqkv": 5}[name]
     moved = {
         "flash_fwd": 2 * q_bytes + 2 * k_bytes + rows,            # q,k,v,o,lse
         "flash_dq": 3 * q_bytes + 2 * k_bytes + 3 * rows,         # q,do,dq,k,v
         "flash_dkv": 2 * q_bytes + 4 * k_bytes + 3 * rows,        # q,do,k,v,dk,dv
+        "flash_fwd_single": 2 * q_bytes + 2 * k_bytes + rows,     # q,k,v,o,lse
+        # q,do,dq; k,v,dk,dv; lse,delta,g_lse
+        "flash_dqkv": 3 * q_bytes + 4 * k_bytes + 3 * rows,
     }[name]
-    flops = 2.0 * products * pairs * D
+    return _bound(2.0 * products * pairs * D, moved, dtype_name)
+
+
+def _dw_bounds(K, ci, co, dtype_name):
+    """The filter gradient reads x [K, Cin] and dy [K, Cout] once and writes
+    dw [Cin, Cout] in fp32: 2 K Cin Cout operations."""
+    item = 2 if dtype_name == "bfloat16" else 4
+    return _bound(2.0 * K * ci * co, K * (ci + co) * item + ci * co * 4,
+                  dtype_name)
+
+
+def _bound(flops, moved, dtype_name):
     t_ops = flops / PEAK_FLOPS[dtype_name]
     t_bytes = moved / PEAK_BYTES_PER_S
     if t_ops >= t_bytes:
@@ -132,25 +182,70 @@ def _bounds(name, BH, Sq, Sk, D, dtype_name, causal, q_offset, k_offset):
     return t_bytes * 1e3, "bytes", flops, moved
 
 
+def _hold(case, name, got, want, tolerance, lse_index=None):
+    """Each output of a kernel within ``tolerance`` (a fraction of the
+    largest plain value; lse absolute) of its plain version; return the
+    largest error and the per-output line."""
+    err, checks = 0.0, []
+    for i, (g, w) in enumerate(zip(got, want)):
+        e = (g.float() - w.float()).abs().max().item()
+        if i == lse_index:  # lse, fp32 both sides
+            limit = TOL_LSE
+        else:
+            limit = tolerance * max(w.float().abs().max().item(), 1e-30)
+        if not e <= limit:
+            raise AssertionError(
+                f"{case} {name} output {i}: max abs err {e:.3e} > "
+                f"{limit:.3e}")
+        err = max(err, e)
+        checks.append(f"{e:.2e} <= {limit:.2e}")
+    return err, (f"kernel {case} {name}: max_abs_err {err:.3e} (per output: "
+                 f"{', '.join(checks)})")
+
+
+def _timing(kern, plain, bounds, library_ms):
+    ms = time_ms(kern)
+    plain_ms = time_ms(plain)
+    bound_ms, bound_by, flops, moved = bounds
+    return (dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                 bound_by=bound_by, library_ms=library_ms),
+            f" ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} "
+            f"({bound_by}; {flops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB) "
+            f"{flops / ms / 1e9:.1f} TFLOP/s {moved / ms / 1e6:.1f} GB/s "
+            f"library_ms {library_ms}")
+
+
 def kernel_phase():
-    """Hold each kernel against its plain version; return the BERT-Large
-    case's measurements keyed by kernel name."""
+    """Hold each flash-attention kernel against its plain version; return
+    the timed cases' measurements keyed by kernel name."""
     import torch
     import torch.nn.functional as F
 
     from horovod_tpu_torch.ops import attention as A
 
+    (_, b512, s512, _, _), (_, b128, s128, _, _) = BERT_PATHS
+    bf16, f32 = torch.bfloat16, torch.float32
     cases = [
-        # name, B, H, Sq, Sk, D, dtype, causal, q_offset, k_offset, g_lse
-        ("bert_large_bf16", BERT_BATCH, 16, BERT_SEQ, BERT_SEQ, 64,
-         torch.bfloat16, False, 0, 0, False),
-        ("causal_ragged_bf16", 2, 3, 200, 264, 64, torch.bfloat16, True, 0,
-         40, True),
-        ("float32", 2, 4, 200, 136, 64, torch.float32, True, 70, 0, True),
+        # name, B, H, Sq, Sk, D, dtype, causal, q_offset, k_offset, g_lse,
+        # timed. Sq, Sk <= A.SINGLE_TILE_MAX take the single-tile kernels.
+        ("bert_large_bf16", b512, 16, s512, s512, 64, bf16, False, 0, 0,
+         False, True),
+        ("causal_ragged_bf16", 2, 3, 200, 264, 64, bf16, True, 0, 40, True,
+         False),
+        ("float32", 2, 4, 200, 136, 64, f32, True, 70, 0, True, False),
+        ("bert_large_s128_bf16", b128, 16, s128, s128, 64, bf16, False, 0, 0,
+         False, True),
+        ("causal_single_bf16", 2, 3, 96, 128, 64, bf16, True, 0, 40, True,
+         False),
+        ("float32_single", 2, 4, 128, 128, 64, f32, True, 16, 0, True,
+         False),
+        ("d128_single_bf16", 2, 4, 128, 128, 128, bf16, False, 0, 0, True,
+         False),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
-    bert = {}
-    for (case, B, H, Sq, Sk, D, dtype, causal, qo, ko, with_glse) in cases:
+    measured = {}
+    for (case, B, H, Sq, Sk, D, dtype, causal, qo, ko, with_glse,
+         timed) in cases:
         BH = B * H
         dname = str(dtype).split(".")[-1]
 
@@ -165,70 +260,113 @@ def kernel_phase():
         glse = (rnd(BH, Sq, dt=torch.float32) if with_glse
                 else torch.zeros(BH, Sq, device="cuda"))
         bwd_args = (q, k, v, do, lse_ref, delta, glse, causal, qo, ko)
-        runs = {
-            "flash_fwd": (lambda: A.flash_fwd(q, k, v, causal, qo, ko),
-                          lambda: A.flash_fwd_plain(q, k, v, causal, qo, ko)),
-            "flash_dq": (lambda: (A.flash_dq(*bwd_args),),
-                         lambda: (A.flash_dq_plain(*bwd_args),)),
-            "flash_dkv": (lambda: A.flash_dkv(*bwd_args),
-                          lambda: A.flash_dkv_plain(*bwd_args)),
-        }
-        for name, (kern, plain) in runs.items():
-            got = kern()
-            want = plain()
-            torch.cuda.synchronize()
-            err, checks = 0.0, []
-            for i, (g, w) in enumerate(zip(got, want)):
-                e = (g.float() - w.float()).abs().max().item()
-                if name == "flash_fwd" and i == 1:  # lse, fp32 both sides
-                    limit = TOL_LSE
-                else:
-                    limit = TOL[dname] * max(w.float().abs().max().item(),
-                                             1e-30)
-                if not e <= limit:
-                    raise AssertionError(
-                        f"{case} {name} output {i}: max abs err {e:.3e} "
-                        f"> {limit:.3e}")
-                err = max(err, e)
-                checks.append(f"{e:.2e} <= {limit:.2e}")
-            line = (f"kernel {case} {name}: max_abs_err {err:.3e} (per "
-                    f"output: {', '.join(checks)})")
-            if name == "flash_fwd":
-                empty = int((want[1] == A.LSE_MASKED).sum().item())
-                if empty != int((got[1] == A.LSE_MASKED).sum().item()):
-                    raise AssertionError(f"{case}: masked-row sentinels differ")
-                line += f" (fully masked rows: {empty})"
-            if case == "bert_large_bf16":
-                ms = time_ms(kern)
-                plain_ms = time_ms(plain)
-                bound_ms, bound_by, flops, moved = _bounds(
-                    name, BH, Sq, Sk, D, dname, causal, qo, ko)
-                library_ms = None
-                if name == "flash_fwd":
-                    q4, k4, v4 = (t.view(B, H, -1, D) for t in (q, k, v))
-                    library_ms = time_ms(
-                        lambda: F.scaled_dot_product_attention(q4, k4, v4))
-                bert[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                  bound_ms=bound_ms, bound_by=bound_by,
-                                  library_ms=library_ms)
-                line += (f" ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
-                         f"{bound_ms:.4f} ({bound_by}; {flops / 1e9:.2f} "
-                         f"GFLOP, {moved / 1e6:.1f} MB) "
-                         f"{flops / ms / 1e9:.1f} TFLOP/s library_ms "
-                         f"{library_ms}")
-            print(line)
-        if case == "bert_large_bf16":
-            # The library's backward computes dQ, dK and dV in one call: a
-            # yardstick for the dQ + dK/dV pair, not for either alone.
+        fwd_args = (q, k, v, causal, qo, ko)
+        if Sq <= A.SINGLE_TILE_MAX and Sk <= A.SINGLE_TILE_MAX:
+            runs = {
+                "flash_fwd_single": (
+                    lambda: A.flash_fwd_single(*fwd_args),
+                    lambda: A.flash_fwd_single_plain(*fwd_args)),
+                "flash_dqkv": (lambda: A.flash_dqkv(*bwd_args),
+                               lambda: A.flash_dqkv_plain(*bwd_args)),
+            }
+        else:
+            runs = {
+                "flash_fwd": (lambda: A.flash_fwd(*fwd_args),
+                              lambda: A.flash_fwd_plain(*fwd_args)),
+                "flash_dq": (lambda: (A.flash_dq(*bwd_args),),
+                             lambda: (A.flash_dq_plain(*bwd_args),)),
+                "flash_dkv": (lambda: A.flash_dkv(*bwd_args),
+                              lambda: A.flash_dkv_plain(*bwd_args)),
+            }
+        library = {}
+        if timed:
+            # The library's forward, and its backward: one call computing
+            # dQ, dK and dV, the fused kernel's function and a yardstick
+            # for the dQ + dK/dV pair (not for either alone).
             q4, k4, v4 = (t.view(B, H, -1, D).detach().requires_grad_()
                           for t in (q, k, v))
+            fwd_ms = time_ms(
+                lambda: F.scaled_dot_product_attention(q4, k4, v4))
             out4 = F.scaled_dot_product_attention(q4, k4, v4)
             do4 = do.view(B, H, -1, D)
             bwd_ms = time_ms(lambda: torch.autograd.grad(
                 out4, (q4, k4, v4), do4, retain_graph=True))
-            print(f"library sdpa backward (dQ+dK+dV in one call): "
-                  f"{bwd_ms:.4f} ms")
-    return bert
+            print(f"library {case}: sdpa forward {fwd_ms:.4f} ms, sdpa "
+                  f"backward (dQ+dK+dV in one call) {bwd_ms:.4f} ms")
+            library = {"flash_fwd": fwd_ms, "flash_fwd_single": fwd_ms,
+                       "flash_dqkv": bwd_ms}
+        for name, (kern, plain) in runs.items():
+            got = kern()
+            want = plain()
+            torch.cuda.synchronize()
+            fwd = name in ("flash_fwd", "flash_fwd_single")
+            err, line = _hold(case, name, got, want, TOL[dname],
+                              lse_index=1 if fwd else None)
+            if fwd:
+                empty = int((want[1] == A.LSE_MASKED).sum().item())
+                if empty != int((got[1] == A.LSE_MASKED).sum().item()):
+                    raise AssertionError(f"{case}: masked-row sentinels differ")
+                line += f" (fully masked rows: {empty})"
+            if timed:
+                numbers, text = _timing(
+                    kern, plain,
+                    _bounds(name, BH, Sq, Sk, D, dname, causal, qo, ko),
+                    library.get(name))
+                measured[name] = dict(max_abs_err=err, **numbers)
+                line += text
+            print(line)
+        if timed and "flash_dqkv" in runs:
+            # The other route on the same inputs: what the single-tile
+            # kernels save over the multi-tile ones at this shape.
+            fwd_ms = time_ms(lambda: A.flash_fwd(*fwd_args))
+            bwd_ms = time_ms(lambda: (A.flash_dq(*bwd_args),
+                                      A.flash_dkv(*bwd_args)))
+            print(f"route {case}: multi-tile flash_fwd {fwd_ms:.4f} ms, "
+                  f"flash_dq + flash_dkv {bwd_ms:.4f} ms on the same inputs")
+    return measured
+
+
+def dw_kernel_phase():
+    """Hold the 1x1-conv filter-gradient kernel against its plain version;
+    return the timed case's measurements."""
+    import torch
+
+    from horovod_tpu_torch.ops import conv_backward as C
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(*shape, bf16, i == 0) for i, shape in enumerate(CONV_SHAPES)]
+    # K = 5 * 37 * 41 = 7585 rows: no multiple of any tile; Cin = 72 and
+    # Cout = 40 leave ragged channel tiles too.
+    cases.append(("float32_ragged", 5, 37, 41, 72, 40, (1, 1), f32, False))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    measured = {}
+    for case, N, H, W, ci, co, strides, dtype, timed in cases:
+        dname = str(dtype).split(".")[-1]
+        x = torch.randn(N, H, W, ci, generator=gen, device="cuda").to(dtype)
+        xs = x[:, ::strides[0], ::strides[1], :]  # read in place, no copy
+        K = xs.shape[:3].numel()
+        dy = torch.randn(K, co, generator=gen, device="cuda").to(dtype)
+        kern = lambda: (C.dw_1x1(xs, dy),)  # noqa: E731
+        plain = lambda: (C.dw_1x1_plain(xs, dy),)  # noqa: E731
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err, line = _hold(case, "dw_1x1", got, want, TOL_DW[dname])
+        line += f" (K {K}, {ci} -> {co}, strides {strides})"
+        bounds = _dw_bounds(K, ci, co, dname)
+        if timed:
+            # One library call for the same function: cuBLAS, bf16 in and
+            # out (the kernel returns fp32).
+            x2d = xs.reshape(K, ci)
+            library_ms = time_ms(lambda: torch.matmul(x2d.T, dy))
+            numbers, text = _timing(kern, plain, bounds, library_ms)
+            measured["dw_1x1"] = dict(max_abs_err=err, **numbers)
+            line += text + " (library output bf16)"
+        else:
+            ms = time_ms(kern)
+            line += (f" ms {ms:.4f} bound_ms {bounds[0]:.4f} ({bounds[1]}; "
+                     f"{bounds[3] / 1e6:.1f} MB)")
+        print(line)
+    return measured
 
 
 def _bert_batch(cfg, B, S, P, seed, device):
@@ -252,21 +390,20 @@ def _bert_loss(model, batch):
     return mlm_loss(logits, plabels, lmask)
 
 
-def training_phase(card):
-    """BERT-Large data-parallel training through the port's entry points;
-    returns the kernels' launch counts from this run."""
+def training_phase(card, path):
+    """BERT-Large data-parallel training on one path of ``BERT_PATHS``
+    through the port's entry points (``init`` has run); returns the kernels'
+    launch counts from this run."""
     import dataclasses
+    import gc
 
     import torch
 
-    # A one-rank world would short-circuit the wire; force the bf16 casts,
-    # the bucket packing and the NCCL allreduce to run.
-    os.environ["HOROVOD_FORCE_WIRE_MACHINERY"] = "1"
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models import bert as bert_mod
     from horovod_tpu_torch.ops import _kernels
 
-    hvd.init()
+    name, batch_size, seq, predictions, kernels = path
     dev = hvd.device()
     cfg = dataclasses.replace(bert_mod.BERT_LARGE, dropout_rate=0.0)
     torch.manual_seed(0)
@@ -280,7 +417,7 @@ def training_phase(card):
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
     hvd.broadcast_optimizer_state(opt, root_rank=0)
     step = hvd.make_train_step(model, _bert_loss, opt)
-    batch = _bert_batch(cfg, BERT_BATCH, BERT_SEQ, BERT_PREDICTIONS, 0, dev)
+    batch = _bert_batch(cfg, batch_size, seq, predictions, 0, dev)
 
     for k in _kernels.KERNELS:
         k.launches = 0
@@ -294,28 +431,90 @@ def training_phase(card):
             times.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(loss))
     launches = {k.name: k.launches for k in _kernels.KERNELS}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     steps = WARMUP_STEPS + TIMED_STEPS
-    for name, n in launches.items():
-        if n != cfg.num_layers * steps:
+    for kname, n in launches.items():
+        want = cfg.num_layers * steps if kname in kernels else 0
+        if n != want:
             raise AssertionError(
-                f"{name} launched {n} times in {steps} steps; expected "
-                f"{cfg.num_layers * steps} (one per layer per step)")
+                f"{name}: {kname} launched {n} times in {steps} steps; "
+                f"expected {want} (this path runs {', '.join(kernels)} once "
+                "per layer per step and no other kernel)")
     if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"non-finite loss: {losses}")
+        raise AssertionError(f"{name}: non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"loss did not fall on a repeated batch: {losses}")
+        raise AssertionError(
+            f"{name}: loss did not fall on a repeated batch: {losses}")
     step_ms = statistics.median(times)
-    tokens = BERT_BATCH * BERT_SEQ
-    print(f"train: BERT-Large {n_params / 1e6:.1f}M params, batch "
-          f"{BERT_BATCH}x{BERT_SEQ}, {len(opt._buckets)} allreduce buckets "
-          f"(bf16 wire), losses {[round(x, 4) for x in losses]}")
-    print(f"train: step_ms median {step_ms:.2f} (steps {[round(t, 2) for t in times]}), "
-          f"tokens/s {tokens / step_ms * 1e3:.0f}, max_memory_allocated "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
-    print(f"train: launches per kernel {launches} over {steps} steps")
-    profile_steps(step, batch, card, step_ms)
+    tokens = batch_size * seq
+    print(f"train {name}: BERT-Large {n_params / 1e6:.1f}M params, batch "
+          f"{batch_size}x{seq}, {predictions} predictions per sequence, "
+          f"{len(opt._buckets)} allreduce buckets (bf16 wire), losses "
+          f"{[round(x, 4) for x in losses]}")
+    print(f"train {name}: step_ms median {step_ms:.2f} (steps "
+          f"{[round(t, 2) for t in times]}), tokens/s "
+          f"{tokens / step_ms * 1e3:.0f}, max_memory_allocated "
+          f"{peak_gib:.2f} GiB on {card}")
+    print(f"train {name}: launches per kernel {launches} over {steps} steps")
+    profile_steps(name, step, batch, card, step_ms)
     opt.remove_hooks()
+    del model, opt, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def conv_phase(card):
+    """``conv1x1`` forward and backward through autograd at the ResNet-50
+    shapes: one filter-gradient launch per backward; dx and dw against the
+    plain counterpart (plain products and ``dw_1x1_plain``). Returns the
+    launch count."""
+    import torch
+
+    from horovod_tpu_torch.ops import _kernels
+    from horovod_tpu_torch.ops import conv_backward as C
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    _kernels.DW_1X1.launches = 0
+    results = []
+    for case, N, H, W, ci, co, strides in CONV_SHAPES:
+        x = torch.randn(N, H, W, ci, generator=gen, device="cuda").to(
+            torch.bfloat16).requires_grad_()
+        w = (torch.randn(1, 1, ci, co, generator=gen, device="cuda")
+             / math.sqrt(ci)).to(torch.bfloat16).requires_grad_()
+        out = C.conv1x1(x, w, strides)
+        dy = torch.randn(out.shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        out.backward(dy)
+        results.append((case, N, H, W, co, x, w, dy, strides, out))
+    torch.cuda.synchronize()
+    launches = _kernels.DW_1X1.launches
+    if launches != len(CONV_SHAPES):
+        raise AssertionError(
+            f"conv1x1: dw_1x1 launched {launches} times in "
+            f"{len(CONV_SHAPES)} backward passes; expected one per backward")
+    for case, N, H, W, co, x, w, dy, strides, out in results:
+        want_out = C._conv1x1_forward(x.detach(), w.detach(), strides)
+        dx, dw = C.conv1x1_backward(x.detach(), w.detach(), dy, strides,
+                                    C.dw_1x1_plain)
+        if not (torch.equal(out, want_out) and torch.equal(x.grad, dx)):
+            raise AssertionError(f"conv1x1 {case}: output or dx differs "
+                                 "from the plain products")
+        want_shape = (N, -(-H // strides[0]), -(-W // strides[1]), co)
+        if tuple(out.shape) != want_shape:
+            raise AssertionError(f"conv1x1 {case}: output shape "
+                                 f"{tuple(out.shape)}, expected {want_shape}")
+        if not (torch.isfinite(w.grad).all() and w.grad.dtype == w.dtype
+                and w.grad.shape == w.shape):
+            raise AssertionError(f"conv1x1 {case}: dw {w.grad.dtype} "
+                                 f"{tuple(w.grad.shape)} not finite")
+        err, line = _hold(f"conv1x1 {case}", "dw", (w.grad,), (dw,),
+                          TOL["bfloat16"])
+        print(f"{line}; output and dx equal to the plain products; output "
+              f"{tuple(out.shape)} on {card}")
+    print(f"conv1x1: dw_1x1 launched {launches} times in "
+          f"{len(CONV_SHAPES)} backward passes")
     return launches
 
 
@@ -323,13 +522,16 @@ _CATEGORIES = (  # first match wins; by lower-cased kernel name
     ("flash_fwd", ("flash_fwd_kernel",)),
     ("flash_dq", ("flash_dq_kernel",)),
     ("flash_dkv", ("flash_dkv_kernel",)),
+    ("flash_fwd_single", ("flash_fwd_single_kernel",)),
+    ("flash_dqkv", ("flash_dqkv_kernel",)),
+    ("dw_1x1", ("dw_1x1_partial_kernel", "dw_1x1_reduce_kernel")),
     ("matmul", ("gemm", "nvjet", "xmma", "cutlass", "gemv")),
     ("nccl", ("nccl",)),
     ("optimizer", ("multi_tensor_apply",)),
 )
 
 
-def profile_steps(step, batch, card, step_ms, n=2):
+def profile_steps(path, step, batch, card, step_ms, n=2):
     """Device time per step by kernel category over ``n`` profiled steps;
     the device's idle share of the unprofiled step (``step_ms``)."""
     import torch
@@ -361,8 +563,8 @@ def profile_steps(step, batch, card, step_ms, n=2):
         if cat == "other":
             other[e.name[:60]] = other.get(e.name[:60], 0.0) + (end - start) / 1e3
     if not spans:
-        print("profile: the profiler recorded no device events; device "
-              "breakdown not measured")
+        print(f"profile {path}: the profiler recorded no device events; "
+              "device breakdown not measured")
         return
     busy_us, cur_start, cur_end = 0.0, None, None
     for start, end in sorted(spans):
@@ -378,33 +580,38 @@ def profile_steps(step, batch, card, step_ms, n=2):
                      sorted(per_cat.items(), key=lambda kv: -kv[1]))
     top = "; ".join(f"{name} {t / n:.2f}" for name, t in
                     sorted(other.items(), key=lambda kv: -kv[1])[:8])
-    print(f"profile: per step device ms by category: {cats}")
-    print(f"profile: largest 'other' kernels, ms per step: {top}")
-    print(f"profile: device busy {busy_ms / n:.2f} ms per step; idle share "
+    print(f"profile {path}: per step device ms by category: {cats}")
+    print(f"profile {path}: largest 'other' kernels, ms per step: {top}")
+    print(f"profile {path}: device busy {busy_ms / n:.2f} ms per step; idle share "
           f"of the unprofiled {step_ms:.2f} ms step "
           f"{max(0.0, 1 - busy_ms / n / step_ms):.3f} (under the profiler "
           f"the step took {wall_ms / n:.2f} ms) on {card}")
 
 
-def agreement_phase():
+def agreement_phase(seq, kernels):
     """The flash model against the same weights with dense attention on a
-    small float32 input: logits, loss and every parameter gradient."""
+    small float32 input of ``seq`` tokens: logits, loss and every parameter
+    gradient; ``kernels`` (the route of that length) must have run."""
     import copy
     import dataclasses
 
     import torch
 
     from horovod_tpu_torch.models import bert as bert_mod
+    from horovod_tpu_torch.ops import _kernels
 
     cfg = dataclasses.replace(bert_mod.BERT_TINY, dropout_rate=0.0,
-                              dtype=torch.float32)
+                              dtype=torch.float32,
+                              max_position_embeddings=256)
     torch.manual_seed(1)
     with torch.device("cuda"):
         flash = bert_mod.Bert(cfg, attention_fn=bert_mod.flash_attention_fn)
     dense = copy.deepcopy(flash)
     for layer in dense.layers:
         layer.attention.attention_fn = bert_mod.default_attention
-    batch = _bert_batch(cfg, 2, 96, 12, 1, "cuda")
+    batch = _bert_batch(cfg, 2, seq, 12, 1, "cuda")
+    for k in _kernels.KERNELS:
+        k.launches = 0
     results = []
     for model in (flash, dense):
         loss = _bert_loss(model, batch)
@@ -413,6 +620,10 @@ def agreement_phase():
         results.append((loss.detach(), logits.detach(),
                         [p.grad for p in model.parameters()]))
     (l1, z1, g1), (l2, z2, g2) = results
+    ran = sorted(k.name for k in _kernels.KERNELS if k.launches)
+    if ran != sorted(kernels):
+        raise AssertionError(f"agree S={seq}: kernels {ran} ran; expected "
+                             f"{sorted(kernels)}")
     # Each tensor: max |flash - dense| <= 1e-4 * max |dense| + 1e-6 (the
     # absolute floor covers gradients that are zero in exact arithmetic,
     # such as the key projection's bias); worst is the largest err/limit.
@@ -423,9 +634,10 @@ def agreement_phase():
         raise AssertionError(
             f"flash vs dense attention model: worst err/limit {worst:.3e}, "
             f"loss {l1.item()} vs {l2.item()}")
-    print(f"agree: BERT_TINY float32 flash vs dense attention: loss "
-          f"{l1.item():.6f} vs {l2.item():.6f}; logits and {len(g1)} grads "
-          f"within 1e-4 relative + 1e-6, worst err/limit {worst:.3f}")
+    print(f"agree S={seq} ({', '.join(kernels)}): BERT_TINY float32 flash "
+          f"vs dense attention: loss {l1.item():.6f} vs {l2.item():.6f}; "
+          f"logits and {len(g1)} grads within 1e-4 relative + 1e-6, worst "
+          f"err/limit {worst:.3f}")
 
 
 def main() -> int:
@@ -448,18 +660,28 @@ def main() -> int:
     print(f"card: {card}")
     build_phase()
     measured = kernel_phase()
-    launches = training_phase(card)
-    agreement_phase()
+    measured.update(dw_kernel_phase())
+    # A one-rank world would short-circuit the wire; force the bf16 casts,
+    # the bucket packing and the NCCL allreduce to run.
+    os.environ["HOROVOD_FORCE_WIRE_MACHINERY"] = "1"
+    import horovod_tpu_torch as hvd
     from horovod_tpu_torch.ops import _kernels
 
+    hvd.init()
+    launches = {}
+    for path in BERT_PATHS:
+        counts = training_phase(card, path)
+        launches.update({k: counts[k] for k in path[4]})
+    launches["dw_1x1"] = conv_phase(card)
+    agreement_phase(96, ("flash_fwd_single", "flash_dqkv"))
+    agreement_phase(160, ("flash_fwd", "flash_dq", "flash_dkv"))
+
     kernels = [dict(name=k.name, route="cuda",
-                    source="horovod_tpu_torch/ops/csrc/flash_attention.cu",
+                    source=f"horovod_tpu_torch/ops/csrc/{k.source}",
                     replaces=k.replaces, launches=launches[k.name],
                     **measured[k.name]) for k in _kernels.KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
-    import horovod_tpu_torch as hvd
-
     hvd.shutdown()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,13 +10,21 @@ the public functions, as in the JAX package. Semantics are the same:
 - Causal masking uses global positions ``q_offset + i >= k_offset + j``;
   causal attention with ``Sq != Sk`` and both offsets 0 raises.
 
-Each of the three kernels (forward, dQ, dK/dV) has a wrapper here that
-launches the hand-written CUDA kernel (``csrc/flash_attention.cu``) for
-CUDA tensors and computes the plain PyTorch version beside it for CPU
-tensors. The plain versions (``*_plain``) are also what the kernels are
-held against on the card. Tile sizes are the kernel's own choice, so any
-sequence length works; the TPU kernels' block-divisibility rule does not
-apply.
+Two routes, chosen once per call from the sequence lengths:
+
+- ``Sq <= SINGLE_TILE_MAX and Sk <= SINGLE_TILE_MAX``: the single-tile
+  forward (direct softmax) and the fused backward that computes
+  S -> P -> dP -> dS once and writes dQ, dK and dV
+  (``csrc/flash_attention_single.cu``);
+- otherwise the multi-tile forward (online softmax), dQ and dK/dV kernels
+  (``csrc/flash_attention.cu``).
+
+Both routes compute one function. Each kernel has a wrapper here that
+launches the hand-written CUDA kernel for CUDA tensors and computes the
+plain PyTorch version beside it for CPU tensors. The plain versions
+(``*_plain``) are also what the kernels are held against on the card. Tile
+sizes are the kernels' own choice, so any sequence length works; the TPU
+kernels' block-divisibility rule does not apply.
 """
 
 from __future__ import annotations
@@ -31,6 +39,10 @@ NEG_INF = -1e30
 # logsumexp sentinel for fully-masked rows: exp(s - BIG) == 0 for any
 # representable s, so backward P/dq come out exactly 0 for those rows.
 LSE_MASKED = 1e30
+# Longest Q or K/V sequence the single-tile kernels take: the whole K and V
+# of one head, and a 128 x 128 fp32 score tile, fit one block's shared
+# memory on Hopper. The port's own Hopper rule, not the TPU's _auto_block.
+SINGLE_TILE_MAX = 128
 
 _KERNEL_DTYPES = {torch.float32: _kernels.DTYPE_F32,
                   torch.bfloat16: _kernels.DTYPE_BF16}
@@ -88,7 +100,7 @@ def blockwise_attention_reference(q, k, v, causal=False, block_size=128,
 
 
 # ---------------------------------------------------------------------------
-# Plain versions of the three kernels ([BH, S, D] operands, fp32 math, P and
+# Plain versions of the kernels ([BH, S, D] operands, fp32 math, P and
 # dS rounded to the operand dtype before the products, as in the kernels).
 # ---------------------------------------------------------------------------
 
@@ -112,7 +124,11 @@ def _scores(q, k, causal, q_offset, k_offset):
 
 
 def flash_fwd_plain(q, k, v, causal=False, q_offset=0, k_offset=0):
-    """Forward: ``(o [BH, Sq, D], lse [BH, Sq] fp32)``."""
+    """Forward: ``(o [BH, Sq, D], lse [BH, Sq] fp32)``.
+
+    A direct softmax over the whole row, which is the function of both
+    forward kernels: it is the plain version of the multi-tile forward and,
+    as ``flash_fwd_single_plain``, of the single-tile forward."""
     s, mask, _ = _scores(q, k, causal, q_offset, k_offset)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
@@ -124,6 +140,9 @@ def flash_fwd_plain(q, k, v, causal=False, q_offset=0, k_offset=0):
     o = torch.matmul(p.to(v.dtype).float(), v.float()) / safe_l[..., None]
     lse = torch.where(empty, LSE_MASKED, m[..., 0] + torch.log(safe_l))
     return o.to(q.dtype), lse
+
+
+flash_fwd_single_plain = flash_fwd_plain
 
 
 def _probs_and_dscores(q, k, v, do, lse, delta, glse, causal, q_offset,
@@ -155,6 +174,19 @@ def flash_dkv_plain(q, k, v, do, lse, delta, glse, causal=False, q_offset=0,
     dk = scale * torch.matmul(ds.to(q.dtype).float().transpose(-1, -2),
                               q.float())
     return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_dqkv_plain(q, k, v, do, lse, delta, glse, causal=False, q_offset=0,
+                     k_offset=0):
+    """The fused backward: the S -> P -> dP -> dS chain once, then
+    ``(dq, dk, dv)``."""
+    p, ds, scale = _probs_and_dscores(q, k, v, do, lse, delta, glse, causal,
+                                      q_offset, k_offset)
+    ds = ds.to(q.dtype).float()
+    dq = scale * torch.matmul(ds, k.float())
+    dk = scale * torch.matmul(ds.transpose(-1, -2), q.float())
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -216,11 +248,11 @@ def _aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def flash_fwd(q, k, v, causal=False, q_offset=0, k_offset=0):
-    """Forward kernel: q [BH, Sq, D], k/v [BH, Sk, D] ->
-    ``(o [BH, Sq, D], lse [BH, Sq] fp32)``."""
+def _forward(kernel, plain, q, k, v, causal, q_offset, k_offset):
+    """A forward kernel's wrapper: the plain version for CPU tensors, else
+    one launch of ``kernel``."""
     if q.device.type == "cpu":
-        return flash_fwd_plain(q, k, v, causal, q_offset, k_offset)
+        return plain(q, k, v, causal, q_offset, k_offset)
     code, BH, D = _check_kernel_operands((q, k, v))
     Sq, Sk = q.shape[1], k.shape[1]
     if Sk != v.shape[1]:
@@ -228,10 +260,17 @@ def flash_fwd(q, k, v, causal=False, q_offset=0, k_offset=0):
     o = torch.empty_like(q)
     lse = torch.empty(BH, Sq, dtype=torch.float32, device=q.device)
     _launch(
-        _kernels.FLASH_FWD, q.device, q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), o.data_ptr(), lse.data_ptr(), BH, Sq, Sk, D, code,
-        int(causal), q_offset, k_offset, 1.0 / math.sqrt(D))
+        kernel, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        o.data_ptr(), lse.data_ptr(), BH, Sq, Sk, D, code, int(causal),
+        q_offset, k_offset, 1.0 / math.sqrt(D))
     return o, lse
+
+
+def flash_fwd(q, k, v, causal=False, q_offset=0, k_offset=0):
+    """Forward kernel: q [BH, Sq, D], k/v [BH, Sk, D] ->
+    ``(o [BH, Sq, D], lse [BH, Sq] fp32)``."""
+    return _forward(_kernels.FLASH_FWD, flash_fwd_plain, q, k, v, causal,
+                    q_offset, k_offset)
 
 
 def flash_dq(q, k, v, do, lse, delta, glse, causal=False, q_offset=0,
@@ -269,15 +308,58 @@ def flash_dkv(q, k, v, do, lse, delta, glse, causal=False, q_offset=0,
     return dk, dv
 
 
+def _check_single_tile(Sq, Sk):
+    if Sq > SINGLE_TILE_MAX or Sk > SINGLE_TILE_MAX:
+        raise ValueError(
+            f"the single-tile kernels take at most {SINGLE_TILE_MAX} rows of "
+            f"Q and of K/V; got Sq={Sq}, Sk={Sk} (use flash_fwd / flash_dq / "
+            "flash_dkv)")
+
+
+def flash_fwd_single(q, k, v, causal=False, q_offset=0, k_offset=0):
+    """Single-tile forward kernel (Sq, Sk <= SINGLE_TILE_MAX): q [BH, Sq, D],
+    k/v [BH, Sk, D] -> ``(o [BH, Sq, D], lse [BH, Sq] fp32)``."""
+    _check_single_tile(q.shape[1], k.shape[1])
+    return _forward(_kernels.FLASH_FWD_SINGLE, flash_fwd_single_plain, q, k,
+                    v, causal, q_offset, k_offset)
+
+
+def flash_dqkv(q, k, v, do, lse, delta, glse, causal=False, q_offset=0,
+               k_offset=0):
+    """Fused single-tile backward kernel (Sq, Sk <= SINGLE_TILE_MAX); lse,
+    delta, glse are [BH, Sq] fp32. Returns ``(dq, dk, dv)``."""
+    Sq, Sk = q.shape[1], k.shape[1]
+    _check_single_tile(Sq, Sk)
+    if q.device.type == "cpu":
+        return flash_dqkv_plain(q, k, v, do, lse, delta, glse, causal,
+                                q_offset, k_offset)
+    code, BH, D = _check_kernel_operands((q, k, v, do), (lse, delta, glse))
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    _launch(
+        _kernels.FLASH_DQKV, q.device, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        glse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH, Sq,
+        Sk, D, code, int(causal), q_offset, k_offset, 1.0 / math.sqrt(D))
+    return dq, dk, dv
+
+
 class _FlashAttention(torch.autograd.Function):
-    """(out, lse) over [BH, S, D] operands; backward runs the dQ and dK/dV
-    kernels from the saved (out, lse) residuals."""
+    """(out, lse) over [BH, S, D] operands. The route is picked once in
+    forward and kept for backward: the single-tile forward and fused
+    backward, or the multi-tile forward and the dQ and dK/dV kernels, both
+    run from the saved (out, lse) residuals."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, q_offset, k_offset):
-        out, lse = flash_fwd(q, k, v, causal, q_offset, k_offset)
+        single = (q.shape[1] <= SINGLE_TILE_MAX
+                  and k.shape[1] <= SINGLE_TILE_MAX)
+        fwd = flash_fwd_single if single else flash_fwd
+        out, lse = fwd(q, k, v, causal, q_offset, k_offset)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (causal, q_offset, k_offset)
+        ctx.single = single
         ctx.set_materialize_grads(False)
         return out, lse
 
@@ -290,8 +372,11 @@ class _FlashAttention(torch.autograd.Function):
         # delta_i = rowsum(dO_i * O_i): a cheap elementwise reduce, left to
         # PyTorch as the JAX package leaves it to XLA.
         delta = (g.float() * out.float()).sum(dim=-1)
-        dq = flash_dq(q, k, v, g, lse, delta, g_lse, *ctx.args)
-        dk, dv = flash_dkv(q, k, v, g, lse, delta, g_lse, *ctx.args)
+        if ctx.single:
+            dq, dk, dv = flash_dqkv(q, k, v, g, lse, delta, g_lse, *ctx.args)
+        else:
+            dq = flash_dq(q, k, v, g, lse, delta, g_lse, *ctx.args)
+            dk, dv = flash_dkv(q, k, v, g, lse, delta, g_lse, *ctx.args)
         return dq, dk, dv, None, None, None
 
 

@@ -1,0 +1,165 @@
+"""1x1 convolution whose filter gradient is a hand-written CUDA kernel.
+
+Port of ``horovod_tpu/ops/conv_backward.py``. The public face keeps the JAX
+package's layouts: ``x`` is NHWC and ``w`` is HWIO ``[1, 1, Cin, Cout]``,
+so weights pass between the two packages as they are (no converter is
+needed). As there, :func:`conv1x1` is an opt-in entry point: no model of
+the port calls it.
+
+- Forward: ``out = x_s @ w[0, 0]`` over the strided view ``x_s`` of ``x``,
+  accumulated in fp32 and returned in ``x.dtype``.
+- ``dx = dy @ w[0, 0]^T``, accumulated in fp32 and returned in
+  ``x.dtype``, scattered into zeros for strided convolutions. The forward
+  and dx are plain products that the JAX package left to XLA; here they
+  are ``torch.matmul`` in float32.
+- ``dw = x_s^T dy`` in fp32 is :func:`dw_1x1`, the kernel
+  (``csrc/conv1x1_dw.cu``), cast to ``w.dtype``.
+
+:func:`dw_1x1` launches the kernel for CUDA tensors and computes its plain
+version, :func:`dw_1x1_plain`, for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _kernels
+
+_KERNEL_DTYPES = {torch.float32: _kernels.DTYPE_F32,
+                  torch.bfloat16: _kernels.DTYPE_BF16}
+_TILE = 64  # channels of one output tile, and rows per step (conv1x1_dw.cu)
+_BLOCKS_PER_SM = 4  # the split of K aims at this many blocks per SM
+
+
+def dw_1x1_plain(x2d, dy2d):
+    """``x2d^T dy2d`` in fp32: ``x2d [K, Cin]`` (or an NHWC view whose rows
+    are the K rows), ``dy2d [K, Cout]`` -> ``dw [Cin, Cout]`` float32."""
+    x2d = x2d.reshape(-1, x2d.shape[-1])
+    return torch.matmul(x2d.float().transpose(0, 1), dy2d.float())
+
+
+def _row_strides(x):
+    """(H, W, sn, sh, sw) that map row k of ``x`` to its first channel."""
+    if x.dim() == 2:
+        return 1, x.shape[0], 0, 0, x.stride(0)
+    _, H, W, _ = x.shape
+    sn, sh, sw, _ = x.stride()
+    return H, W, sn, sh, sw
+
+
+def dw_1x1(x2d, dy2d):
+    """Filter gradient of a 1x1 conv: ``x2d [K, Cin]``, ``dy2d [K, Cout]``
+    -> ``dw [Cin, Cout]`` float32.
+
+    ``x2d`` may also be an NHWC view ``[N, H, W, Cin]`` with unit channel
+    stride, such as the strided slice of a stride-2 convolution: the kernel
+    reads its rows in place, with no copy.
+    """
+    if x2d.device.type == "cpu":
+        return dw_1x1_plain(x2d, dy2d)
+    if x2d.device.type != "cuda":
+        raise ValueError(
+            f"dw_1x1 takes CPU or CUDA tensors; got {x2d.device}")
+    dtype = x2d.dtype
+    if dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"dw_1x1 takes bfloat16 or float32; got {dtype}")
+    if x2d.dim() not in (2, 4) or dy2d.dim() != 2:
+        raise ValueError(
+            f"dw_1x1 takes x [K, Cin] or [N, H, W, Cin] and dy [K, Cout]; "
+            f"got {tuple(x2d.shape)} and {tuple(dy2d.shape)}")
+    ci, co = x2d.shape[-1], dy2d.shape[1]
+    K = x2d.numel() // ci if ci else 0
+    vec = 16 // x2d.element_size()
+    if (dy2d.dtype != dtype or dy2d.device != x2d.device
+            or dy2d.shape[0] != K):
+        raise ValueError(
+            f"dy must be [{K}, Cout] in {dtype} on {x2d.device}; got "
+            f"{dy2d.dtype} {tuple(dy2d.shape)} on {dy2d.device}")
+    H, W, sn, sh, sw = _row_strides(x2d)
+    if (K == 0 or ci % vec or co % vec or x2d.stride(-1) != 1
+            or any(s % vec for s in (sn, sh, sw)) or x2d.data_ptr() % 16
+            or not dy2d.is_contiguous() or dy2d.data_ptr() % 16):
+        raise ValueError(
+            f"dw_1x1 needs K > 0, Cin and Cout multiples of {vec}, unit "
+            f"channel stride, row strides that are multiples of {vec}, a "
+            "contiguous dy and 16-byte aligned operands; got "
+            f"x {tuple(x2d.shape)} strides {x2d.stride()}, dy "
+            f"{tuple(dy2d.shape)}")
+    if K >= 2**31:
+        raise ValueError(f"dw_1x1 takes fewer than 2**31 rows; got {K}")
+    tiles = math.ceil(ci / _TILE) * math.ceil(co / _TILE)
+    sms = torch.cuda.get_device_properties(x2d.device).multi_processor_count
+    nsplit = max(1, min(math.ceil(_BLOCKS_PER_SM * sms / tiles),
+                        math.ceil(K / _TILE), 65535))
+    rows = math.ceil(math.ceil(K / nsplit) / _TILE) * _TILE
+    nsplit = math.ceil(K / rows)
+    out = torch.empty(ci, co, dtype=torch.float32, device=x2d.device)
+    part = (torch.empty(nsplit, ci, co, dtype=torch.float32,
+                        device=x2d.device) if nsplit > 1 else out)
+    with torch.cuda.device(x2d.device):
+        _kernels.launch(
+            _kernels.DW_1X1, x2d.data_ptr(), dy2d.data_ptr(),
+            part.data_ptr(), out.data_ptr(), K, ci, co, nsplit, rows, H, W,
+            sn, sh, sw, _KERNEL_DTYPES[dtype],
+            torch.cuda.current_stream(x2d.device).cuda_stream)
+    return out
+
+
+def _strided(x, strides):
+    if tuple(strides) == (1, 1):
+        return x
+    return x[:, ::strides[0], ::strides[1], :]
+
+
+def _conv1x1_forward(x, w, strides):
+    out = torch.matmul(_strided(x, strides).float(), w[0, 0].float())
+    return out.to(x.dtype)
+
+
+def conv1x1_backward(x, w, dy, strides=(1, 1), dw_fn=dw_1x1):
+    """``(dx, dw)`` of :func:`conv1x1` for the output cotangent ``dy``;
+    ``dw_fn`` computes the filter gradient (the kernel by default,
+    :func:`dw_1x1_plain` for the plain counterpart)."""
+    xs = _strided(x, strides)
+    co = dy.shape[-1]
+    dy2 = dy.reshape(-1, co).contiguous()
+    dxs = torch.matmul(dy2.float(), w[0, 0].float().transpose(0, 1))
+    dxs = dxs.reshape(xs.shape).to(x.dtype)
+    if tuple(strides) == (1, 1):
+        dx = dxs
+    else:
+        dx = torch.zeros_like(x)
+        dx[:, ::strides[0], ::strides[1], :] = dxs
+    dw = dw_fn(xs, dy2)
+    return dx, dw.to(w.dtype)[None, None]
+
+
+class _Conv1x1(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, strides):
+        ctx.save_for_backward(x, w)
+        ctx.strides = strides
+        return _conv1x1_forward(x, w, strides)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = conv1x1_backward(x, w, dy, ctx.strides)
+        return dx, dw, None
+
+
+def conv1x1(x, w, strides=(1, 1)):
+    """1x1 convolution, NHWC ``x [N, H, W, Cin]`` with HWIO
+    ``w [1, 1, Cin, Cout]`` -> ``[N, H', W', Cout]``, differentiable, with
+    the filter gradient computed by the :func:`dw_1x1` kernel."""
+    if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[:2]) != (1, 1):
+        raise ValueError(
+            f"conv1x1 takes NHWC x and [1, 1, Cin, Cout] w; got "
+            f"{tuple(x.shape)} and {tuple(w.shape)}")
+    if x.dtype != w.dtype:
+        raise ValueError(
+            f"conv1x1 operands must share a dtype; got x={x.dtype}, "
+            f"w={w.dtype}")
+    return _Conv1x1.apply(x, w, tuple(int(s) for s in strides))

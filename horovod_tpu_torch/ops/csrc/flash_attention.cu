@@ -1,19 +1,21 @@
-// Flash attention for Hopper (sm_90a): forward, dQ and dK/dV kernels.
+// Flash attention for Hopper (sm_90a): the multi-tile forward, dQ and dK/dV
+// kernels. horovod_tpu_torch/ops/attention.py routes here when Sq or Sk is
+// above SINGLE_TILE_MAX (128 rows); shorter sequences go to the single-tile
+// kernels of flash_attention_single.cu.
 //
 // Replaces the Pallas TPU kernels of horovod_tpu/ops/attention.py:
-//   flash_fwd_kernel  <- _flash_fwd_kernel (:138); also computes the function
-//                        of _flash_fwd_single_kernel (:310), because on this
-//                        card a 512-long sequence spans several 64-row tiles.
+//   flash_fwd_kernel  <- _flash_fwd_kernel (:138)
 //   flash_dq_kernel   <- _flash_dq_kernel (:198)
-//   flash_dkv_kernel  <- _flash_dkv_kernel (:252); with flash_dq_kernel it also
-//                        computes the function of _flash_dqkv_fused_kernel (:343).
+//   flash_dkv_kernel  <- _flash_dkv_kernel (:252)
 //
-// What bounds them: at BERT-Large shape (B*H = 128, S = 512, D = 64, bf16)
-// each kernel does ~8.6-17 GFLOP of tensor-core products against ~34-50 MB
-// of device-memory traffic, so all three sit above the card's ridge point
-// (~295 FLOP per byte) and are bound by tensor-core operations. The score
-// matrix is S^2 per head and is the one thing that must never reach device
-// memory.
+// What bounds them, against the H100 SXM data-sheet peaks (989 TFLOP/s bf16,
+// 3.35 TB/s, at its 700 W limit): at the BERT-Large S = 512 shape
+// (B*H = 128, D = 64, bf16) the forward does 8.59 GFLOP over 33.8 MB, about
+// 254 FLOP per byte, below the card's ridge point (~295 FLOP per byte), so it
+// is bound by bytes; dQ (12.88 GFLOP over 42.7 MB) and dK/dV (17.18 GFLOP
+// over 51.1 MB) sit above the ridge and are bound by tensor-core operations.
+// The score matrix is S^2 per head and is the one thing that must never reach
+// device memory.
 //
 // What the design does about it: the TPU's sequential grid axis becomes a
 // loop inside one thread block. A block owns a 64-row tile (a Q tile for the
@@ -37,25 +39,15 @@
 // C interface: every entry point launches on the given stream, does not
 // synchronise, and returns the cudaError_t of the launch (0 on success).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-#include <type_traits>
+#include "flash_common.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
-using namespace nvcuda;
 
 constexpr int BQ = 64;  // rows of a Q tile
 constexpr int BK = 64;  // rows of a K/V tile
 constexpr int NWARPS = 4;
 constexpr int NTHREADS = NWARPS * 32;
 constexpr int WROWS = 16;  // rows owned by one warp (NWARPS * WROWS == 64)
-constexpr float NEG_INF = -1e30f;
-constexpr float LSE_MASKED = 1e30f;
 
 static_assert(NWARPS * WROWS == BQ && BQ == BK, "one 16-row slice per warp");
 
@@ -69,96 +61,6 @@ struct Layout {
   static constexpr int LDO = D + 8;                      // fp32 accumulators
 };
 
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// Copy rows [row0, row0 + 64) of a row-major [nrows, D] matrix into shared
-// memory (leading dimension ld), 16 bytes per thread, zero past the end.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* dst, int ld, const T* __restrict__ src,
-                                          int row0, int nrows) {
-  constexpr int VEC = 16 / (int)sizeof(T);
-  constexpr int CHUNKS = D / VEC;
-  for (int idx = threadIdx.x; idx < 64 * CHUNKS; idx += NTHREADS) {
-    const int r = idx / CHUNKS;
-    const int c = (idx % CHUNKS) * VEC;
-    const int gr = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (gr < nrows) val = *reinterpret_cast<const uint4*>(src + (size_t)gr * D + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-  }
-}
-
-// Copy 64 per-row fp32 values starting at row0, zero past the end.
-__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src,
-                                          int row0, int nrows) {
-  for (int r = threadIdx.x; r < 64; r += NTHREADS)
-    dst[r] = (row0 + r < nrows) ? src[row0 + r] : 0.f;
-}
-
-// One warp: C[16 x N] (+)= A[16 x K] * B[K x N], fp32 C row-major in shared
-// memory. A_T: A is stored transposed (A(i, k) = A[k * lda + i]). B_T: B is
-// stored as [N][K] (B(k, n) = B[n * ldb + k]).
-template <bool A_T, bool B_T, int N, int K>
-__device__ __forceinline__ void warp_gemm(const bf16* A, int lda, const bf16* B, int ldb,
-                                          float* C, int ldc, bool accumulate) {
-  using LA = typename std::conditional<A_T, wmma::col_major, wmma::row_major>::type;
-  using LB = typename std::conditional<B_T, wmma::col_major, wmma::row_major>::type;
-#pragma unroll
-  for (int n0 = 0; n0 < N; n0 += 16) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-    if (accumulate)
-      wmma::load_matrix_sync(c, C + n0, ldc, wmma::mem_row_major);
-    else
-      wmma::fill_fragment(c, 0.f);
-#pragma unroll
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> b;
-      wmma::load_matrix_sync(a, A_T ? A + k0 * lda : A + k0, lda);
-      wmma::load_matrix_sync(b, B_T ? B + n0 * ldb + k0 : B + k0 * ldb + n0, ldb);
-      wmma::mma_sync(c, a, b, c);
-    }
-    wmma::store_matrix_sync(C + n0, c, ldc, wmma::mem_row_major);
-  }
-}
-
-// float32 operands: full-precision FMA (the tensor cores' TF32 would round
-// the operands to 10 mantissa bits).
-template <bool A_T, bool B_T, int N, int K>
-__device__ __forceinline__ void warp_gemm(const float* A, int lda, const float* B, int ldb,
-                                          float* C, int ldc, bool accumulate) {
-  const int lane = threadIdx.x & 31;
-  for (int idx = lane; idx < 16 * N; idx += 32) {
-    const int i = idx / N;
-    const int n = idx % N;
-    float acc = accumulate ? C[i * ldc + n] : 0.f;
-#pragma unroll 8
-    for (int k = 0; k < K; ++k) {
-      const float a = A_T ? A[k * lda + i] : A[i * lda + k];
-      const float b = B_T ? B[n * ldb + k] : B[k * ldb + n];
-      acc = fmaf(a, b, acc);
-    }
-    C[i * ldc + n] = acc;
-  }
-}
-
 // Key rows [0, kend) can be visible to Q rows [q0, q0 + 64).
 __device__ __forceinline__ int key_end(int Sk, int q0, int causal, int q_offset, int k_offset) {
   if (!causal) return Sk;
@@ -171,11 +73,6 @@ __device__ __forceinline__ int query_begin(int k0, int causal, int q_offset, int
   if (!causal) return 0;
   const int first = k_offset + k0 - q_offset;
   return first > 0 ? (first / BQ) * BQ : 0;
-}
-
-__device__ __forceinline__ bool visible(int qi, int kj, int Sq, int Sk, int causal,
-                                        int q_offset, int k_offset) {
-  return qi < Sq && kj < Sk && (!causal || q_offset + qi >= k_offset + kj);
 }
 
 // ---------------------------------------------------------------------------
@@ -207,7 +104,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const T* kb = k + (size_t)bh * Sk * D;
   const T* vb = v + (size_t)bh * Sk * D;
 
-  load_tile<T, D>(sQ, L::LDT, qb, q0, Sq);
+  load_tile<T, D, BQ, NTHREADS>(sQ, L::LDT, qb, q0, Sq);
   for (int i = threadIdx.x; i < BQ * L::LDO; i += NTHREADS) sO[i] = 0.f;
   for (int i = threadIdx.x; i < BQ; i += NTHREADS) {
     sM[i] = NEG_INF;
@@ -217,8 +114,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   for (int k0 = 0; k0 < kend; k0 += BK) {
     __syncthreads();  // every warp is done with the previous K, V and P
-    load_tile<T, D>(sK, L::LDT, kb, k0, Sk);
-    load_tile<T, D>(sV, L::LDT, vb, k0, Sk);
+    load_tile<T, D, BK, NTHREADS>(sK, L::LDT, kb, k0, Sk);
+    load_tile<T, D, BK, NTHREADS>(sV, L::LDT, vb, k0, Sk);
     __syncthreads();
 
     warp_gemm<false, true, BK, D>(sQ + r0 * L::LDT, L::LDT, sK, L::LDT, sS + r0 * L::LDS,
@@ -319,18 +216,18 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   const size_t qoff = (size_t)bh * Sq * D;
   const size_t koff = (size_t)bh * Sk * D;
 
-  load_tile<T, D>(sQ, L::LDT, q + qoff, q0, Sq);
-  load_tile<T, D>(sdO, L::LDT, dout + qoff, q0, Sq);
-  load_rows(sLse, lse + (size_t)bh * Sq, q0, Sq);
-  load_rows(sDelta, delta + (size_t)bh * Sq, q0, Sq);
-  load_rows(sGlse, glse + (size_t)bh * Sq, q0, Sq);
+  load_tile<T, D, BQ, NTHREADS>(sQ, L::LDT, q + qoff, q0, Sq);
+  load_tile<T, D, BQ, NTHREADS>(sdO, L::LDT, dout + qoff, q0, Sq);
+  load_rows<BQ, NTHREADS>(sLse, lse + (size_t)bh * Sq, q0, Sq);
+  load_rows<BQ, NTHREADS>(sDelta, delta + (size_t)bh * Sq, q0, Sq);
+  load_rows<BQ, NTHREADS>(sGlse, glse + (size_t)bh * Sq, q0, Sq);
   for (int i = threadIdx.x; i < BQ * L::LDO; i += NTHREADS) sdQ[i] = 0.f;
   const int kend = key_end(Sk, q0, causal, q_offset, k_offset);
 
   for (int k0 = 0; k0 < kend; k0 += BK) {
     __syncthreads();
-    load_tile<T, D>(sK, L::LDT, k + koff, k0, Sk);
-    load_tile<T, D>(sV, L::LDT, v + koff, k0, Sk);
+    load_tile<T, D, BK, NTHREADS>(sK, L::LDT, k + koff, k0, Sk);
+    load_tile<T, D, BK, NTHREADS>(sV, L::LDT, v + koff, k0, Sk);
     __syncthreads();
 
     warp_gemm<false, true, BK, D>(sQ + r0 * L::LDT, L::LDT, sK, L::LDT, sS + r0 * L::LDS,
@@ -389,8 +286,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const size_t qoff = (size_t)bh * Sq * D;
   const size_t koff = (size_t)bh * Sk * D;
 
-  load_tile<T, D>(sK, L::LDT, k + koff, k0, Sk);
-  load_tile<T, D>(sV, L::LDT, v + koff, k0, Sk);
+  load_tile<T, D, BK, NTHREADS>(sK, L::LDT, k + koff, k0, Sk);
+  load_tile<T, D, BK, NTHREADS>(sV, L::LDT, v + koff, k0, Sk);
   for (int i = threadIdx.x; i < BK * L::LDO; i += NTHREADS) {
     sdK[i] = 0.f;
     sdV[i] = 0.f;
@@ -398,11 +295,11 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   for (int q0 = query_begin(k0, causal, q_offset, k_offset); q0 < Sq; q0 += BQ) {
     __syncthreads();  // every warp is done with the previous Q, dO, P, dS
-    load_tile<T, D>(sQ, L::LDT, q + qoff, q0, Sq);
-    load_tile<T, D>(sdO, L::LDT, dout + qoff, q0, Sq);
-    load_rows(sLse, lse + (size_t)bh * Sq, q0, Sq);
-    load_rows(sDelta, delta + (size_t)bh * Sq, q0, Sq);
-    load_rows(sGlse, glse + (size_t)bh * Sq, q0, Sq);
+    load_tile<T, D, BQ, NTHREADS>(sQ, L::LDT, q + qoff, q0, Sq);
+    load_tile<T, D, BQ, NTHREADS>(sdO, L::LDT, dout + qoff, q0, Sq);
+    load_rows<BQ, NTHREADS>(sLse, lse + (size_t)bh * Sq, q0, Sq);
+    load_rows<BQ, NTHREADS>(sDelta, delta + (size_t)bh * Sq, q0, Sq);
+    load_rows<BQ, NTHREADS>(sGlse, glse + (size_t)bh * Sq, q0, Sq);
     __syncthreads();
 
     // Scores for this warp's 16 Q rows against the block's 64 keys.
@@ -455,8 +352,6 @@ constexpr size_t dkv_smem() {
          3 * BQ * sizeof(float);
 }
 
-constexpr size_t SMEM_LIMIT = 232448;  // bytes a block may use on sm_90
-
 template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH,
                        int Sq, int Sk, float scale, int causal, int qo, int ko,
@@ -506,35 +401,6 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
-// dtype codes shared with horovod_tpu_torch/ops/_kernels.py.
-constexpr int DTYPE_F32 = 0;
-constexpr int DTYPE_BF16 = 1;
-
-// Dispatch on (dtype, head dim). float32 stops at D = 64: its D = 128 tiles
-// would not fit in one block's shared memory.
-#define HVD_DISPATCH(DTYPE, D, CALL)                                 \
-  do {                                                               \
-    if ((DTYPE) == DTYPE_BF16) {                                     \
-      using T = bf16;                                                \
-      switch (D) {                                                   \
-        case 16: { constexpr int HD = 16; return CALL; }             \
-        case 32: { constexpr int HD = 32; return CALL; }             \
-        case 64: { constexpr int HD = 64; return CALL; }             \
-        case 128: { constexpr int HD = 128; return CALL; }           \
-        default: return cudaErrorInvalidValue;                       \
-      }                                                              \
-    } else if ((DTYPE) == DTYPE_F32) {                               \
-      using T = float;                                               \
-      switch (D) {                                                   \
-        case 16: { constexpr int HD = 16; return CALL; }             \
-        case 32: { constexpr int HD = 32; return CALL; }             \
-        case 64: { constexpr int HD = 64; return CALL; }             \
-        default: return cudaErrorInvalidValue;                       \
-      }                                                              \
-    }                                                                \
-    return cudaErrorInvalidValue;                                    \
-  } while (0)
-
 }  // namespace
 
 extern "C" {
@@ -566,6 +432,8 @@ int hvd_flash_dkv(const void* q, const void* k, const void* v, const void* dout,
                                        (cudaStream_t)stream)));
 }
 
-const char* hvd_flash_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+// The message of any entry point's error code, for every source of the
+// library (horovod_tpu_torch/ops/_kernels.py raises it).
+const char* hvd_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 }  // extern "C"

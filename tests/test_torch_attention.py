@@ -6,8 +6,11 @@ kernel; the JAX side runs its Pallas kernels in interpret mode, so these
 tests hold the port's arithmetic to the TPU kernels' function: explicit
 small blocks reach JAX's multi-tile kernels (forward, dQ, dK/dV), default
 blocks on a one-tile sequence reach the single-tile forward and the fused
-backward. Inputs are made by numpy from a seed. Tolerance: float32, 1e-5
-absolute and relative (the two sides sum in different orders).
+backward (checked from the ``(BH,)`` grids in the jaxpr). The port routes
+sequences of at most ``SINGLE_TILE_MAX`` rows to its single-tile kernels
+and longer ones to its multi-tile kernels; both routes are held to JAX.
+Inputs are made by numpy from a seed. Tolerance: float32, 1e-5 absolute
+and relative (the two sides sum in different orders).
 
 The ``cuda`` tests hold the hand-written kernels against the plain
 versions on the card; they skip where there is no GPU.
@@ -33,7 +36,16 @@ CASES = [
     # Rows 0..15 see no key (q_offset + i < k_offset + j for every j).
     ("causal_offsets_masked_rows", (1, 2, 32, 48, 16), True, 0, 16, 16),
     ("causal_single_tile_offsets", (1, 1, 32, 48, 32), True, 16, 0, None),
+    # Single-tile cases at the port's cap, through JAX's default blocks.
+    ("single_tile_s128", (1, 2, 128, 128, 64), False, 0, 0, None),
+    # Rows 0..39 see no key; g_lse is nonzero in every case.
+    ("causal_single_tile_masked_rows", (1, 2, 96, 128, 16), True, 0, 40,
+     None),
 ]
+# Cases whose JAX side takes the single-tile kernels (Sq == block_q and
+# Sk == block_k, horovod_tpu/ops/attention.py:399 and :469).
+SINGLE_TILE_CASES = ("single_tile", "causal_single_tile_offsets",
+                     "single_tile_s128", "causal_single_tile_masked_rows")
 
 
 def _inputs(shape, seed):
@@ -59,6 +71,31 @@ def _jax_run(q, k, v, g, g_lse, causal, q_offset, k_offset, block):
     return [np.asarray(a) for a in (out, lse, dq, dk, dv)]
 
 
+def _pallas_grids(q, k, v, g, g_lse, causal, q_offset, k_offset, block):
+    """The grid of every pallas_call in JAX's forward and backward."""
+    def fwd_bwd(q, k, v, g, g_lse):
+        _, vjp = jax.vjp(lambda q, k, v: jax_attn.flash_attention_lse(
+            q, k, v, causal=causal, block_q=block, block_k=block,
+            q_offset=q_offset, k_offset=k_offset, interpret=True), q, k, v)
+        return vjp((g, g_lse))
+
+    def walk(jaxpr, grids):
+        for eqn in jaxpr.eqns:
+            if eqn.primitive.name == "pallas_call":
+                grids.append(tuple(eqn.params["grid_mapping"].grid))
+            for param in eqn.params.values():
+                for sub in (param if isinstance(param, (list, tuple))
+                            else [param]):
+                    inner = getattr(sub, "jaxpr", sub)
+                    inner = getattr(inner, "jaxpr", inner)
+                    if hasattr(inner, "eqns"):
+                        walk(inner, grids)
+        return grids
+
+    args = [jnp.asarray(a) for a in (q, k, v, g, g_lse)]
+    return walk(jax.make_jaxpr(fwd_bwd)(*args).jaxpr, [])
+
+
 def _port_run(q, k, v, g, g_lse, causal, q_offset, k_offset):
     qt, kt, vt = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
     out, lse = port.flash_attention_lse(qt, kt, vt, causal=causal,
@@ -78,6 +115,50 @@ def test_forward_lse_and_grads_match_pallas(name, shape, causal, q_offset,
     got = _port_run(*args, causal, q_offset, k_offset)
     for label, g, w in zip(("out", "lse", "dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(g, w, err_msg=f"{name}: {label}", **TOL)
+    if name in SINGLE_TILE_CASES:
+        # One single-tile forward and one fused backward, grid (BH,).
+        B, H = shape[:2]
+        assert _pallas_grids(*args, causal, q_offset, k_offset, block) == [
+            (B * H,), (B * H,)]
+
+
+def test_port_multi_tile_route_matches_jax_single_tile_kernels():
+    """S = 129 is one row past the port's cap: the port takes its
+    multi-tile kernels, JAX (blocks of 129) its single-tile ones. Both
+    compute one function."""
+    args = _inputs((1, 2, 129, 129, 16), seed=11)
+    assert _pallas_grids(*args, False, 0, 0, 129) == [(2,), (2,)]
+    want = _jax_run(*args, False, 0, 0, 129)
+    got = _port_run(*args, False, 0, 0)
+    for label, g, w in zip(("out", "lse", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g, w, err_msg=label, **TOL)
+
+
+@pytest.mark.parametrize("S,single", [(128, True), (129, False),
+                                      (96, True)])
+def test_route_follows_the_single_tile_cap(monkeypatch, S, single):
+    calls = []
+    for name in ("flash_fwd", "flash_dq", "flash_dkv", "flash_fwd_single",
+                 "flash_dqkv"):
+        def spy(*a, _name=name, _fn=getattr(port, name), **kw):
+            calls.append(_name)
+            return _fn(*a, **kw)
+        monkeypatch.setattr(port, name, spy)
+    q, k, v, g, g_lse = _inputs((1, 1, S, S, 8), seed=13)
+    _port_run(q, k, v, g, g_lse, True, 0, 0)
+    want = (["flash_fwd_single", "flash_dqkv"] if single
+            else ["flash_fwd", "flash_dq", "flash_dkv"])
+    assert calls == want
+
+
+def test_single_tile_wrappers_refuse_longer_sequences():
+    q = torch.zeros(1, port.SINGLE_TILE_MAX + 1, 8)
+    k = torch.zeros(1, 16, 8)
+    rows = torch.zeros(1, port.SINGLE_TILE_MAX + 1)
+    with pytest.raises(ValueError, match="at most 128"):
+        port.flash_fwd_single(q, k, k)
+    with pytest.raises(ValueError, match="at most 128"):
+        port.flash_dqkv(q, k, k, q, rows, rows, rows)
 
 
 def test_fully_masked_rows_give_zero_output_and_sentinel():
@@ -95,6 +176,20 @@ def test_gradient_through_lse_only():
     q, k, v, _, g_lse = _inputs((1, 2, 32, 32, 16), seed=5)
     g = np.zeros_like(q)
     want = _jax_run(q, k, v, g, g_lse, False, 0, 0, 16)
+    got = _port_run(q, k, v, g, g_lse, False, 0, 0)
+    for g_arr, w_arr in zip(got[2:], want[2:]):
+        np.testing.assert_allclose(g_arr, w_arr, **TOL)
+    assert np.abs(got[2]).max() > 0 and np.all(got[4] == 0.0)
+
+
+def test_gradient_through_lse_only_single_tile():
+    """The same through JAX's fused single-tile backward and the port's
+    single-tile route."""
+    q, k, v, _, g_lse = _inputs((1, 2, 64, 64, 16), seed=6)
+    g = np.zeros_like(q)
+    assert _pallas_grids(q, k, v, g, g_lse, False, 0, 0, None) == [(2,),
+                                                                   (2,)]
+    want = _jax_run(q, k, v, g, g_lse, False, 0, 0, None)
     got = _port_run(q, k, v, g, g_lse, False, 0, 0)
     for g_arr, w_arr in zip(got[2:], want[2:]):
         np.testing.assert_allclose(g_arr, w_arr, **TOL)
@@ -156,6 +251,12 @@ def test_cpu_tensors_take_the_plain_version_without_a_launch():
     for a, b in zip(port.flash_dkv(qr, kr, vr, do, lse, delta, glse),
                     port.flash_dkv_plain(qr, kr, vr, do, lse, delta, glse)):
         assert torch.equal(a, b)
+    single = port.flash_fwd_single(qr, kr, vr)
+    for a, b in zip(single, port.flash_fwd_single_plain(qr, kr, vr)):
+        assert torch.equal(a, b)
+    for a, b in zip(port.flash_dqkv(qr, kr, vr, do, lse, delta, glse),
+                    port.flash_dqkv_plain(qr, kr, vr, do, lse, delta, glse)):
+        assert torch.equal(a, b)
     assert [kern.launches for kern in _kernels.KERNELS] == before
 
 
@@ -163,6 +264,11 @@ def test_other_devices_raise_instead_of_falling_back():
     t = torch.empty(2, 16, 16, device="meta")
     with pytest.raises(ValueError, match="CPU or CUDA"):
         port.flash_fwd(t, t, t)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        port.flash_fwd_single(t, t, t)
+    rows = torch.empty(2, 16, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        port.flash_dqkv(t, t, t, t, rows, rows, rows)
 
 
 @pytest.fixture
@@ -198,3 +304,35 @@ def test_kernels_match_plain_versions_on_the_card(cuda_device, dtype, causal,
         err = (got.float() - want.float()).abs().max().item()
         assert err <= tol * want.float().abs().max().item()
     assert (lse - lse_ref).abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D,Sq,Sk,causal,q_offset,k_offset", [
+    (torch.bfloat16, 64, 128, 128, False, 0, 0),
+    (torch.bfloat16, 128, 128, 128, False, 0, 0),
+    (torch.bfloat16, 16, 96, 128, True, 0, 40),
+    (torch.float32, 64, 128, 128, True, 16, 0),
+    (torch.float32, 32, 50, 70, False, 0, 0)])
+def test_single_tile_kernels_match_plain_versions_on_the_card(
+        cuda_device, dtype, D, Sq, Sk, causal, q_offset, k_offset):
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    BH = 6
+
+    def rnd(*shape, dt=dtype):
+        return torch.randn(*shape, generator=gen, device=cuda_device).to(dt)
+
+    q, k, v, do = rnd(BH, Sq, D), rnd(BH, Sk, D), rnd(BH, Sk, D), rnd(BH, Sq, D)
+    glse = rnd(BH, Sq, dt=torch.float32)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    o, lse = port.flash_fwd_single(q, k, v, causal, q_offset, k_offset)
+    o_ref, lse_ref = port.flash_fwd_single_plain(q, k, v, causal, q_offset,
+                                                 k_offset)
+    delta = (do.float() * o_ref.float()).sum(-1)
+    args = (q, k, v, do, lse_ref, delta, glse, causal, q_offset, k_offset)
+    pairs = [(o, o_ref), *zip(port.flash_dqkv(*args),
+                              port.flash_dqkv_plain(*args))]
+    for got, want in pairs:
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= tol * want.float().abs().max().item()
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    assert torch.equal(lse == port.LSE_MASKED, lse_ref == port.LSE_MASKED)
