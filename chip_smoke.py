@@ -10,12 +10,14 @@ and prints no result line):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build of the hand-written CUDA kernels from ``horovod_tpu_torch/ops/csrc``
-   (one ``nvcc`` per source, all started together);
+   (one ``nvcc`` per source, all started together); no Hopper (wgmma)
+   instance may spill or have its wgmma serialized;
 3. kernel phase: every kernel against its plain PyTorch version on the same
    inputs, with times beside the bound and the library yardstick:
    - the multi-tile forward, dQ and dK/dV flash-attention kernels
      (BERT-Large S=512 shape in bf16; a causal, ragged, offset case with
-     fully masked rows and a nonzero lse cotangent; a float32 case);
+     fully masked rows and a nonzero lse cotangent at D=64, D=128 and
+     D=16; a causal D=32 case with a query offset; a float32 case);
    - the single-tile forward and fused backward (BERT-Large phase-1 shape,
      S=128, in bf16; causal 96 x 128 with offsets, masked rows and a
      nonzero lse cotangent; float32 causal with an offset; bf16 at D=128);
@@ -43,6 +45,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -97,11 +100,20 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps=20, warmup=3):
+# Cycles the card spins before each timed call (about 2 ms at the H100's
+# 1.98 GHz boost clock): time for the host to queue the L2 flush, the two
+# events and the call before the device reaches them.
+SLEEP_CYCLES = 4_000_000
+
+
+def time_ms(fn, reps=20, warmup=3, sleep_cycles=SLEEP_CYCLES):
     """Median over ``reps`` of one call's CUDA-event time, with the 50 MB
     L2 flushed before each call (the backward finds its saved activations
     cold; the forward's operands were just written, but one setting for
-    all three keeps them comparable)."""
+    all three keeps them comparable). The device sleeps ``sleep_cycles``
+    first, so the events time the device's work and not the host's launch
+    overhead, which for a call of tens of microseconds would otherwise
+    dominate; ``sleep_cycles=0`` times without the sleep."""
     import torch
 
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device="cuda")
@@ -109,6 +121,8 @@ def time_ms(fn, reps=20, warmup=3):
         fn()
     times = []
     for _ in range(reps):
+        if sleep_cycles:
+            torch.cuda._sleep(sleep_cycles)
         flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -120,6 +134,36 @@ def time_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
+# The Hopper (wgmma) instances: flash_fwd_kernel<D> and flash_dkv_kernel<D>.
+HOPPER_INSTANCES = tuple(f"{k}<{d}>" for k in ("flash_fwd_kernel",
+                                               "flash_dkv_kernel")
+                         for d in (16, 32, 64, 128))
+_HOPPER_NAME = re.compile(r"(flash_(?:fwd|dkv)_kernel)ILi(\d+)E")
+
+
+def hopper_build_report(log):
+    """From nvcc's ``-Xptxas -v`` output: the registers per thread at entry
+    of each Hopper instance, and the instances' faults: spills, or ptxas's
+    note that their wgmma are serialized. Either means the consumers lost
+    the register budget that setmaxnreg gives them."""
+    regs, faults, entry = {}, [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            found = _HOPPER_NAME.search(line)
+            entry = f"{found.group(1)}<{found.group(2)}>" if found else None
+        elif entry and "Used" in line and "registers" in line:
+            regs[entry] = int(line.split("Used ")[1].split()[0])
+        elif entry and "spill" in line and not line.strip().endswith(
+                "0 bytes spill stores, 0 bytes spill loads"):
+            faults.append(f"{entry}: {line.strip()}")
+        if "Potential Performance Loss" in line and "wgmma" in line:
+            found = _HOPPER_NAME.search(line)
+            if found:
+                faults.append(f"{found.group(1)}<{found.group(2)}>: "
+                              f"{line.split('Loss:', 1)[1].strip()}")
+    return regs, faults
+
+
 def build_phase():
     from horovod_tpu_torch.ops import _kernels
 
@@ -127,14 +171,22 @@ def build_phase():
     path = _kernels.build()
     seconds = time.perf_counter() - t0
     print(f"build: {os.path.relpath(path)} in {seconds:.1f} s")
-    log = _kernels.build_log().splitlines()
-    regs = [int(w.split()[0]) for line in log if "Used" in line
+    log = _kernels.build_log()
+    lines = log.splitlines()
+    regs = [int(w.split()[0]) for line in lines if "Used" in line
             for w in line.split("Used ")[1:] if "registers" in w]
-    spills = [line.strip() for line in log
+    spills = [line.strip() for line in lines
               if "spill" in line and not line.strip().endswith(
                   "0 bytes spill stores, 0 bytes spill loads")]
     print(f"build: {len(regs)} kernel instances, registers per thread "
           f"{min(regs)}-{max(regs)}, spills: {spills or 'none'}")
+    hopper, faults = hopper_build_report(log)
+    if sorted(hopper) != sorted(HOPPER_INSTANCES) or faults:
+        raise AssertionError(
+            f"build: Hopper instances {sorted(hopper)} (expected "
+            f"{list(HOPPER_INSTANCES)}); spills or serialized wgmma: {faults}")
+    print(f"build: Hopper instances, registers per thread at entry: {hopper}; "
+          "no spills, no serialized wgmma")
     return seconds
 
 
@@ -232,6 +284,15 @@ def kernel_phase():
          False, True),
         ("causal_ragged_bf16", 2, 3, 200, 264, 64, bf16, True, 0, 40, True,
          False),
+        # The Hopper kernels at the other head dims: D = 128 (two 64-column
+        # TMA boxes, 32-row dK/dV stages), D = 32 (64-byte swizzle) and
+        # D = 16 (32-byte swizzle, n16 wgmma for P V, P^T dO and dS^T Q).
+        ("d128_causal_ragged_bf16", 2, 3, 200, 264, 128, bf16, True, 0, 40,
+         True, False),
+        ("d32_causal_bf16", 2, 3, 320, 384, 32, bf16, True, 64, 0, True,
+         False),
+        ("d16_causal_ragged_bf16", 2, 3, 200, 264, 16, bf16, True, 0, 40,
+         True, False),
         ("float32", 2, 4, 200, 136, 64, f32, True, 70, 0, True, False),
         ("bert_large_s128_bf16", b128, 16, s128, s128, 64, bf16, False, 0, 0,
          False, True),
@@ -519,9 +580,9 @@ def conv_phase(card):
 
 
 _CATEGORIES = (  # first match wins; by lower-cased kernel name
-    ("flash_fwd", ("flash_fwd_kernel",)),
+    ("flash_fwd", ("flash_fwd_kernel", "flash_fwd_f32_kernel")),
     ("flash_dq", ("flash_dq_kernel",)),
-    ("flash_dkv", ("flash_dkv_kernel",)),
+    ("flash_dkv", ("flash_dkv_kernel", "flash_dkv_f32_kernel")),
     ("flash_fwd_single", ("flash_fwd_single_kernel",)),
     ("flash_dqkv", ("flash_dqkv_kernel",)),
     ("dw_1x1", ("dw_1x1_partial_kernel", "dw_1x1_reduce_kernel")),

@@ -4,9 +4,9 @@
 // kernels of flash_attention_single.cu.
 //
 // Replaces the Pallas TPU kernels of horovod_tpu/ops/attention.py:
-//   flash_fwd_kernel  <- _flash_fwd_kernel (:138)
-//   flash_dq_kernel   <- _flash_dq_kernel (:198)
-//   flash_dkv_kernel  <- _flash_dkv_kernel (:252)
+//   flash_fwd_kernel  (bf16), flash_fwd_f32_kernel  <- _flash_fwd_kernel (:138)
+//   flash_dq_kernel                                 <- _flash_dq_kernel (:198)
+//   flash_dkv_kernel  (bf16), flash_dkv_f32_kernel  <- _flash_dkv_kernel (:252)
 //
 // What bounds them, against the H100 SXM data-sheet peaks (989 TFLOP/s bf16,
 // 3.35 TB/s, at its 700 W limit): at the BERT-Large S = 512 shape
@@ -14,21 +14,46 @@
 // 254 FLOP per byte, below the card's ridge point (~295 FLOP per byte), so it
 // is bound by bytes; dQ (12.88 GFLOP over 42.7 MB) and dK/dV (17.18 GFLOP
 // over 51.1 MB) sit above the ridge and are bound by tensor-core operations.
-// The score matrix is S^2 per head and is the one thing that must never reach
-// device memory.
+// Either way the products must run at a large share of the tensor cores'
+// rate, which on Hopper only wgmma reaches, and the score matrix (S^2 per
+// head) must never reach device memory.
 //
-// What the design does about it: the TPU's sequential grid axis becomes a
-// loop inside one thread block. A block owns a 64-row tile (a Q tile for the
-// forward and dQ kernels, a K/V tile for the dK/dV kernel), keeps its fp32
-// accumulators in shared memory, and streams the other operand through shared
-// memory 64 rows at a time, so scores and probabilities live only in shared
-// memory. The dQ / dK-dV split of the TPU version is kept: each output tile
-// has exactly one owner block, so no atomics are needed. Products take the
-// stored dtype (bf16 on tensor cores through WMMA 16x16x16 fragments, fp32
-// accumulation; float32 on the FMA units), and P and dS are rounded to the
-// operand dtype before the PV, P^T dO, dS K and dS^T Q products, as the TPU
-// kernels do. This is the simple first version: no TMA, no wgmma, no
-// pipelining of loads against compute.
+// What the design does about it. The TPU's sequential grid axis becomes a
+// loop inside one thread block, and each output tile has one owner, so no
+// atomics are needed. bf16, the training path (flash_fwd_kernel,
+// flash_dkv_kernel):
+//   - Persistent blocks, one per SM, walk the work tiles: the forward's
+//     (bh, 128 Q rows), dK/dV's (bh, 128 keys). A block is three
+//     warpgroups: two consumers of 64 rows each, and a producer whose first
+//     warp keeps TMA loads in flight and which gives its registers to the
+//     consumers (setmaxnreg). The producer runs ahead into the next work
+//     tile, its resident operand (Q; K and V) into a second buffer and its
+//     streamed tiles into a ring of stages with full/empty mbarriers (four;
+//     two for dK/dV at D = 128), so only a block's first work tile waits for
+//     device memory.
+//   - Operand tiles arrive by TMA in the swizzled format of sm90.cuh, from a
+//     3-D tensor map (D, S, BH): rows past the sequence end read as zeros and
+//     never as the next head's rows.
+//   - Every product is a wgmma: S = Q K^T from shared memory (SS); O += P V
+//     with P in registers (RS). Scores, the online-softmax state (a thread
+//     holds 2 rows; row max and sum take two shuffles in its quad; exp2 with
+//     the scale folded into one FMA), P and the accumulators O, dK, dV live
+//     in registers. The two consumer warpgroups interleave, so one's softmax
+//     runs while the other's products do.
+//   - Forward: K/V stages of 128 rows (64 at D = 128, for shared memory). O
+//     leaves through shared memory and a TMA store that runs on while the
+//     next work tile starts.
+//   - dK/dV: Q and dO tiles of 64 rows (32 at D = 128, for registers) stream
+//     with their lse and g_lse - delta rows past the resident K and V, in
+//     the transposed form: S^T = K Q^T and dP^T = V dO^T (SS), then
+//     dV += P^T dO and dK += dS^T Q (RS, dO and Q MN-major). dK and dV
+//     leave through shared memory and TMA stores, as O does.
+// float32 (flash_fwd_f32_kernel, flash_dkv_f32_kernel) and dQ
+// (flash_dq_kernel) keep the first version: 64-row tiles, four warps, fp32
+// accumulators in shared memory, WMMA 16x16x16 (bf16 dQ) or FMA (float32: TF32
+// would round operands to 10 mantissa bits), synchronous loads.
+// P and dS are rounded to the operand dtype before the PV, P^T dO, dS K and
+// dS^T Q products, as the TPU kernels do.
 //
 // Semantics (identical to the TPU kernels): causal masking on global
 // positions q_offset + i >= k_offset + j; a row with no visible key gives
@@ -37,11 +62,573 @@
 // masked, so any sequence length works.
 //
 // C interface: every entry point launches on the given stream, does not
-// synchronise, and returns the cudaError_t of the launch (0 on success).
+// synchronise, and returns the cudaError_t of the launch (0 on success), or
+// HVD_ERR_TENSOR_MAP + the CUresult if a tensor map cannot be encoded.
+
+#include <math.h>
+#include <stdio.h>
 
 #include "flash_common.cuh"
+#include "sm90.cuh"
 
 namespace {
+
+// Key rows [0, kend) can be visible to Q rows [q0, q0 + rows).
+__device__ __forceinline__ int key_end(int Sk, int q0, int rows, int causal, int q_offset,
+                                       int k_offset) {
+  if (!causal) return Sk;
+  const int last = q_offset - k_offset + q0 + rows;  // one past the last visible key
+  return last < Sk ? (last > 0 ? last : 0) : Sk;
+}
+
+// First start of a bq-row Q tile whose rows can see key row k0 or later.
+__device__ __forceinline__ int query_begin(int k0, int bq, int causal, int q_offset,
+                                           int k_offset) {
+  if (!causal) return 0;
+  const int first = k_offset + k0 - q_offset;
+  return first > 0 ? (first / bq) * bq : 0;
+}
+
+// ===========================================================================
+// bf16 on Hopper: warp-specialized wgmma kernels.
+// ===========================================================================
+
+constexpr int WG = 128;            // threads of a warpgroup
+constexpr int CONSUMER_WGS = 2;    // each owns 64 rows of the block's tile
+constexpr int CONSUMER_WARPS = CONSUMER_WGS * 4;
+constexpr int SM90_THREADS = (CONSUMER_WGS + 1) * WG;  // + the producer warpgroup
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;  // 24 * 128 + 240 * 256 = 168 * 384
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+constexpr int FWD_BQ = 128;  // Q rows of a forward work tile
+constexpr int FWD_STAGES = 4;
+
+// Shared memory of the forward, byte offsets from a 1024-aligned base: two Q
+// buffers (the next work tile's Q loads while the current one runs), the
+// K/V ring, and each consumer warpgroup's bf16 output tile on its way out
+// by TMA. BK: K/V rows of a ring stage, 128, or 64 at D = 128, where four
+// 128-row stages would not fit beside the rest.
+template <int D>
+struct FwdSmem {
+  static constexpr int BK = D == 128 ? 64 : 128;
+  static constexpr int TILE_Q = FWD_BQ * D * 2;
+  static constexpr int TILE_KV = BK * D * 2;
+  static constexpr int TILE_O = 64 * D * 2;
+  static constexpr int Q = 0;                           // + buffer * TILE_Q
+  static constexpr int K = Q + 2 * TILE_Q;              // + stage * TILE_KV
+  static constexpr int V = K + FWD_STAGES * TILE_KV;    // + stage * TILE_KV
+  static constexpr int O = V + FWD_STAGES * TILE_KV;    // + warpgroup * TILE_O
+  static constexpr int BAR = O + CONSUMER_WGS * TILE_O;  // full[S], empty[S], q_full[2], q_empty[2]
+  static constexpr int BYTES = BAR + (2 * FWD_STAGES + 4) * 8 + 1024;  // + alignment slack
+};
+
+// Online softmax of one K tile on a consumer thread's registers: the scores
+// sc (the m64 x BK accumulator) become P, as bf16 A fragments p; the running
+// max m (log2 units) and the partial row sums l move on, and corr is the
+// factor that rescales the output accumulator of the thread's two rows
+// (row0, row0 + 8). MASK: the tile holds keys past Sk or causally hidden
+// keys for some of those rows. The scale folds into one FMA before exp2.
+template <int BK, bool MASK>
+__device__ __forceinline__ void softmax_tile(const float (&sc)[BK / 2], float (&m)[2],
+                                             float (&l)[2], float (&corr)[2],
+                                             uint32_t (&p)[BK / 16][4], int row0, int k0, int Sk,
+                                             float sl2, int causal, int q_offset, int k_offset,
+                                             int tq) {
+  auto hidden = [&](int i) {
+    const int kj = k0 + 8 * (i >> 2) + 2 * tq + (i & 1);
+    return kj >= Sk || (causal && q_offset + row0 + 8 * ((i >> 1) & 1) < k_offset + kj);
+  };
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i)
+    if (!MASK || !hidden(i)) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+  float neg_m[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    const float m_new = fmaxf(m[h], mx[h] * sl2);  // m starts at NEG_INF (finite)
+    corr[h] = exp2f(m[h] - m_new);
+    m[h] = m_new;
+    neg_m[h] = -m_new;
+    l[h] *= corr[h];
+  }
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = 8 * kk + 2 * r, h = r & 1;
+      float e0 = exp2f(fmaf(sc[i], sl2, neg_m[h]));
+      float e1 = exp2f(fmaf(sc[i + 1], sl2, neg_m[h]));
+      if (MASK) {
+        e0 = hidden(i) ? 0.f : e0;
+        e1 = hidden(i + 1) ? 0.f : e1;
+      }
+      l[h] += e0 + e1;
+      p[kk][r] = pack_bf16(e0, e1);
+    }
+}
+
+// Forward, persistent: a grid of one block per SM walks the work tiles
+// (bh, 128 Q rows) in turn; o [BH, Sq, D] bf16, lse [BH, Sq] fp32. The
+// producer runs ahead into the next work tile (its Q into the other buffer,
+// its K/V tiles into the ring) while the consumers finish the current one.
+template <int D>
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o,
+                 float* __restrict__ lse, int BH, int Sq, int Sk, float scale, int causal,
+                 int q_offset, int k_offset) {
+  using F = TileFormat<D>;
+  using L = FwdSmem<D>;
+  constexpr int BK = L::BK;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t full_bar = base + L::BAR;                 // stage s at + 8 s
+  const uint32_t empty_bar = full_bar + 8 * FWD_STAGES;    // stage s at + 8 s
+  const uint32_t q_full_bar = empty_bar + 8 * FWD_STAGES;  // buffer b at + 8 b
+  const uint32_t q_empty_bar = q_full_bar + 16;            // buffer b at + 8 b
+
+  const int qtiles = (Sq + FWD_BQ - 1) / FWD_BQ;
+  const int nwork = BH * qtiles;  // consecutive work tiles share a head's K/V in L2
+  // K tiles that the rows of work tile w can see (causal tiles past them are skipped).
+  auto ntiles = [&](int w) {
+    return (key_end(Sk, (w % qtiles) * FWD_BQ, FWD_BQ, causal, q_offset, k_offset) + BK - 1) /
+           BK;
+  };
+  const int wg = threadIdx.x / WG;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < FWD_STAGES; ++s) {
+      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(empty_bar + 8 * s, CONSUMER_WARPS);
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(q_full_bar + 8 * b, 1);
+      mbar_init(q_empty_bar + 8 * b, CONSUMER_WARPS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == CONSUMER_WGS) {
+    // Producer, one thread: per work tile its Q, then its K/V tiles.
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x == CONSUMER_WGS * WG) {
+      int kt = 0;  // K/V tiles loaded so far: the ring position
+      int it = 0;
+      for (int w = blockIdx.x; w < nwork; w += gridDim.x, ++it) {
+        const int bh = w / qtiles;
+        const int qb = it & 1;
+        const uint32_t q_bar = q_full_bar + 8 * qb;
+        mbar_wait(q_empty_bar + 8 * qb, ((it >> 1) & 1) ^ 1);
+        mbar_arrive_expect_tx(q_bar, L::TILE_Q);
+        for (int b = 0; b < F::NB; ++b)
+          tma_load_3d(base + L::Q + qb * L::TILE_Q + b * FWD_BQ * F::ROW_BYTES, &tm_q, q_bar,
+                      b * F::CB, (w % qtiles) * FWD_BQ, bh);
+        const int n = ntiles(w);
+        for (int t = 0; t < n; ++t, ++kt) {
+          const int s = kt % FWD_STAGES;
+          const uint32_t bar = full_bar + 8 * s;
+          mbar_wait(empty_bar + 8 * s, ((kt / FWD_STAGES) & 1) ^ 1);
+          mbar_arrive_expect_tx(bar, 2 * L::TILE_KV);
+          const uint32_t sK = base + L::K + s * L::TILE_KV;
+          const uint32_t sV = base + L::V + s * L::TILE_KV;
+          for (int b = 0; b < F::NB; ++b) {
+            tma_load_3d(sK + b * BK * F::ROW_BYTES, &tm_k, bar, b * F::CB, t * BK, bh);
+            tma_load_3d(sV + b * BK * F::ROW_BYTES, &tm_v, bar, b * F::CB, t * BK, bh);
+          }
+        }
+      }
+    }
+  } else {
+    // Consumer warpgroup wg: rows [64 wg, 64 wg + 64) of each work tile.
+    reg_alloc<CONSUMER_REGS>();
+    const int tid = threadIdx.x % WG;
+    const int lane = tid & 31;
+    const int tq = lane & 3;
+    const float sl2 = scale * LOG2E;
+    int kt = 0;
+    int it = 0;
+    for (int w = blockIdx.x; w < nwork; w += gridDim.x, ++it) {
+      const int bh = w / qtiles;
+      const int row_first = (w % qtiles) * FWD_BQ + wg * 64;
+      const int row0 = row_first + (tid >> 5) * 16 + (lane >> 2);  // and row0 + 8
+      const int n = ntiles(w);
+      const int qb = it & 1;
+      const uint32_t sQ = base + L::Q + qb * L::TILE_Q;
+      float acc[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      float m[2] = {NEG_INF, NEG_INF};
+      float l[2] = {0.f, 0.f};
+
+      mbar_wait(q_full_bar + 8 * qb, (it >> 1) & 1);
+      for (int t = 0; t < n; ++t, ++kt) {
+        const int s = kt % FWD_STAGES;
+        const uint32_t sK = base + L::K + s * L::TILE_KV;
+        const uint32_t sV = base + L::V + s * L::TILE_KV;
+        mbar_wait(full_bar + 8 * s, (kt / FWD_STAGES) & 1);
+
+        // S = Q K^T (SS, both K-major).
+        float sc[BK / 2];
+        wgmma_fence();
+        Wgmma<BK>::template ss_init<0>(sc, F::kmajor(sQ, FWD_BQ, wg * 64, 0),
+                                       F::kmajor(sK, BK, 0, 0));
+#pragma unroll
+        for (int kk = 1; kk < D / 16; ++kk)
+          Wgmma<BK>::template ss<0>(sc, F::kmajor(sQ, FWD_BQ, wg * 64, kk),
+                                    F::kmajor(sK, BK, 0, kk));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        if (t == n - 1) {  // the last read of this Q
+          __syncwarp();
+          if (lane == 0) mbar_arrive(q_empty_bar + 8 * qb);
+        }
+
+        float corr[2];
+        uint32_t p[BK / 16][4];
+        if (t * BK + BK > Sk || (causal && q_offset + row_first < k_offset + t * BK + BK - 1))
+          softmax_tile<BK, true>(sc, m, l, corr, p, row0, t * BK, Sk, sl2, causal, q_offset,
+                                 k_offset, tq);
+        else
+          softmax_tile<BK, false>(sc, m, l, corr, p, row0, t * BK, Sk, sl2, causal, q_offset,
+                                  k_offset, tq);
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+
+        // O += P V (RS: P from registers, V MN-major).
+        fence_regs(acc);
+        fence_regs(p);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          Wgmma<D>::template rs<1>(acc, p[kk], F::mnmajor(sV, BK, kk));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty_bar + 8 * s);
+      }
+      if (n == 0) {  // nothing visible: Q was never read
+        __syncwarp();
+        if (lane == 0) mbar_arrive(q_empty_bar + 8 * qb);
+      }
+
+      // O / l in bf16 through the warpgroup's output tile and one TMA store
+      // per box (rows past Sq are not written); the store runs on while the
+      // next work tile starts. lse goes out directly.
+      const uint32_t sO = base + L::O + wg * L::TILE_O;
+      if (tid == 0) bulk_wait_read<0>();  // the last work tile's store has read sO
+      named_sync(1 + wg, WG);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+        const bool empty = l[h] == 0.f;
+        const float inv = empty ? 0.f : 1.f / l[h];
+        const int r = row0 - row_first + 8 * h;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          const int i = 4 * j + 2 * h;
+          st_shared_u32(sO + F::offset(64, r, 8 * j + 2 * tq),
+                        pack_bf16(acc[i] * inv, acc[i + 1] * inv));
+        }
+        const int qi = row0 + 8 * h;
+        if (tq == 0 && qi < Sq)
+          lse[(size_t)bh * Sq + qi] = empty ? LSE_MASKED : m[h] * LN2 + logf(l[h]);
+      }
+      fence_async_smem();
+      named_sync(1 + wg, WG);
+      if (tid == 0) {
+        for (int b = 0; b < F::NB; ++b)
+          tma_store_3d(&tm_o, sO + b * 64 * F::ROW_BYTES, b * F::CB, row_first, bh);
+        bulk_commit();
+      }
+    }
+    if (tid == 0) bulk_wait_read<0>();  // shared memory outlives the last store's reads
+  }
+}
+
+constexpr int DKV_BK = 128;  // keys of a dK/dV work tile
+
+// Shared memory of dK/dV, byte offsets from a 1024-aligned base: two K/V
+// buffers (the next work tile's K and V load while the current one runs),
+// the ring of Q / dO tiles with their row vectors, and each consumer
+// warpgroup's bf16 dK and dV tiles on their way out by TMA. BQ: Q rows of a
+// ring stage; at D = 128 the 64 + 64 floats of dK and dV per thread leave
+// registers for a 32-row stage only, and shared memory for two stages.
+template <int D>
+struct DkvSmem {
+  static constexpr int BQ = D == 128 ? 32 : 64;
+  static constexpr int STAGES = D == 128 ? 2 : 4;
+  static constexpr int TILE_KV = DKV_BK * D * 2;
+  static constexpr int TILE_Q = BQ * D * 2;
+  static constexpr int TILE_O = 64 * D * 2;
+  static constexpr int ROWS = 2 * BQ * 4;  // lse * log2(e), then g_lse - delta
+  static constexpr int K = 0;                        // + buffer * 2 * TILE_KV
+  static constexpr int V = K + TILE_KV;              // + buffer * 2 * TILE_KV
+  static constexpr int Q = 4 * TILE_KV;              // + stage * TILE_Q
+  static constexpr int DO = Q + STAGES * TILE_Q;     // + stage * TILE_Q
+  static constexpr int OUT = DO + STAGES * TILE_Q;   // dK, dV of warpgroup w at + 2 w TILE_O
+  static constexpr int ROW = OUT + 4 * TILE_O;       // + stage * ROWS
+  static constexpr int BAR = ROW + STAGES * ROWS;    // full[S], empty[S], kv_full[2], kv_empty[2]
+  static constexpr int BYTES = BAR + (2 * STAGES + 4) * 8 + 1024;  // + alignment slack
+};
+
+// P^T and dS^T of one Q tile on a consumer thread's registers (keys key0 and
+// key0 + 8, Q columns q0 + c): P^T = exp(S^T scale - lse[c]), dS^T =
+// P^T (dP^T + g_lse[c] - delta[c]), in place and as bf16 A fragments.
+template <int BQ, bool MASK>
+__device__ __forceinline__ void dkv_probs(float (&st)[BQ / 2], float (&dpt)[BQ / 2],
+                                          const float* rows, uint32_t (&pf)[BQ / 16][4],
+                                          uint32_t (&dsf)[BQ / 16][4], int key0, int q0,
+                                          float sl2, int q_offset, int k_offset, int tq) {
+#pragma unroll
+  for (int i = 0; i < BQ / 2; ++i) {
+    const int c = 8 * (i >> 2) + 2 * tq + (i & 1);
+    float pv = exp2f(fmaf(st[i], sl2, -rows[c]));
+    if (MASK && q_offset + q0 + c < k_offset + key0 + 8 * ((i >> 1) & 1)) pv = 0.f;
+    st[i] = pv;
+    dpt[i] = pv * (dpt[i] + rows[BQ + c]);
+  }
+#pragma unroll
+  for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      pf[kk][r] = pack_bf16(st[8 * kk + 2 * r], st[8 * kk + 2 * r + 1]);
+      dsf[kk][r] = pack_bf16(dpt[8 * kk + 2 * r], dpt[8 * kk + 2 * r + 1]);
+    }
+}
+
+// dK/dV, persistent: a grid of one block per SM walks the work tiles (bh,
+// 128 keys) in turn and loops over the Q tiles that can see them.
+// dV = sum_i P_ij^T dO_i; dK = scale * sum_i dS_ij^T Q_i.
+template <int D>
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                 const __grid_constant__ CUtensorMap tm_dk,
+                 const __grid_constant__ CUtensorMap tm_dv, const float* __restrict__ lse,
+                 const float* __restrict__ delta, const float* __restrict__ glse, int BH, int Sq,
+                 int Sk, float scale, int causal, int q_offset, int k_offset) {
+  using F = TileFormat<D>;
+  using L = DkvSmem<D>;
+  constexpr int BQ = L::BQ;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* const smem = smem_raw + (base - raw);  // the same base, generic
+  const uint32_t full_bar = base + L::BAR;                  // stage s at + 8 s
+  const uint32_t empty_bar = full_bar + 8 * L::STAGES;     // stage s at + 8 s
+  const uint32_t kv_full_bar = empty_bar + 8 * L::STAGES;  // buffer b at + 8 b
+  const uint32_t kv_empty_bar = kv_full_bar + 16;           // buffer b at + 8 b
+
+  const int ktiles = (Sk + DKV_BK - 1) / DKV_BK;
+  const int nwork = BH * ktiles;  // consecutive work tiles share a head's Q and dO in L2
+  // The first Q tile that can see work tile w's keys, and the number of Q tiles.
+  auto qbegin = [&](int w) {
+    return query_begin((w % ktiles) * DKV_BK, BQ, causal, q_offset, k_offset);
+  };
+  auto ntiles = [&](int w) {
+    const int q0 = qbegin(w);
+    return q0 < Sq ? (Sq - q0 + BQ - 1) / BQ : 0;
+  };
+  const int wg = threadIdx.x / WG;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(full_bar + 8 * s, 32);  // the producer warp's lanes (row vectors, then TMA)
+      mbar_init(empty_bar + 8 * s, CONSUMER_WARPS);
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(kv_full_bar + 8 * b, 1);
+      mbar_init(kv_empty_bar + 8 * b, CONSUMER_WARPS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == CONSUMER_WGS) {
+    // Producer, first warp: per work tile its K and V, then the ring of Q /
+    // dO tiles and their row vectors.
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x / 32 == CONSUMER_WGS * 4) {
+      const int lane = threadIdx.x & 31;
+      int qt = 0;  // Q tiles loaded so far: the ring position
+      int it = 0;
+      for (int w = blockIdx.x; w < nwork; w += gridDim.x, ++it) {
+        const int bh = w / ktiles;
+        const int kb = it & 1;
+        mbar_wait(kv_empty_bar + 8 * kb, ((it >> 1) & 1) ^ 1);
+        if (lane == 0) {
+          const uint32_t bar = kv_full_bar + 8 * kb;
+          const uint32_t sK = base + L::K + kb * 2 * L::TILE_KV;
+          const uint32_t sV = base + L::V + kb * 2 * L::TILE_KV;
+          const int k0 = (w % ktiles) * DKV_BK;
+          mbar_arrive_expect_tx(bar, 2 * L::TILE_KV);
+          for (int b = 0; b < F::NB; ++b) {
+            tma_load_3d(sK + b * DKV_BK * F::ROW_BYTES, &tm_k, bar, b * F::CB, k0, bh);
+            tma_load_3d(sV + b * DKV_BK * F::ROW_BYTES, &tm_v, bar, b * F::CB, k0, bh);
+          }
+        }
+        const float* lse_b = lse + (size_t)bh * Sq;
+        const float* delta_b = delta + (size_t)bh * Sq;
+        const float* glse_b = glse + (size_t)bh * Sq;
+        const int n = ntiles(w);
+        for (int t = 0; t < n; ++t, ++qt) {
+          const int s = qt % L::STAGES;
+          const int q0 = qbegin(w) + t * BQ;
+          const uint32_t bar = full_bar + 8 * s;
+          mbar_wait(empty_bar + 8 * s, ((qt / L::STAGES) & 1) ^ 1);
+          // Rows past Sq get lse = LSE_MASKED: their P is exactly 0.
+          float* rows = reinterpret_cast<float*>(smem + L::ROW + s * L::ROWS);
+          for (int r = lane; r < BQ; r += 32) {
+            const int qi = q0 + r;
+            const bool in = qi < Sq;
+            rows[r] = in ? lse_b[qi] * LOG2E : LSE_MASKED;
+            rows[BQ + r] = in ? glse_b[qi] - delta_b[qi] : 0.f;
+          }
+          if (lane == 0) {
+            mbar_arrive_expect_tx(bar, 2 * L::TILE_Q);
+            const uint32_t sQ = base + L::Q + s * L::TILE_Q;
+            const uint32_t sdO = base + L::DO + s * L::TILE_Q;
+            for (int b = 0; b < F::NB; ++b) {
+              tma_load_3d(sQ + b * BQ * F::ROW_BYTES, &tm_q, bar, b * F::CB, q0, bh);
+              tma_load_3d(sdO + b * BQ * F::ROW_BYTES, &tm_do, bar, b * F::CB, q0, bh);
+            }
+          } else {
+            mbar_arrive(bar);
+          }
+        }
+      }
+    }
+  } else {
+    // Consumer warpgroup wg: keys [64 wg, 64 wg + 64) of each work tile.
+    reg_alloc<CONSUMER_REGS>();
+    const int tid = threadIdx.x % WG;
+    const int lane = tid & 31;
+    const int tq = lane & 3;
+    const float sl2 = scale * LOG2E;
+    int qt = 0;
+    int it = 0;
+    for (int w = blockIdx.x; w < nwork; w += gridDim.x, ++it) {
+      const int bh = w / ktiles;
+      const int key_first = (w % ktiles) * DKV_BK + wg * 64;
+      const int key0 = key_first + (tid >> 5) * 16 + (lane >> 2);  // and key0 + 8
+      const int n = ntiles(w);
+      const int kb = it & 1;
+      const uint32_t sK = base + L::K + kb * 2 * L::TILE_KV;
+      const uint32_t sV = base + L::V + kb * 2 * L::TILE_KV;
+      float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) {
+        dk_acc[i] = 0.f;
+        dv_acc[i] = 0.f;
+      }
+
+      mbar_wait(kv_full_bar + 8 * kb, (it >> 1) & 1);
+      for (int t = 0; t < n; ++t, ++qt) {
+        const int s = qt % L::STAGES;
+        const int q0 = qbegin(w) + t * BQ;
+        const uint32_t sQ = base + L::Q + s * L::TILE_Q;
+        const uint32_t sdO = base + L::DO + s * L::TILE_Q;
+        mbar_wait(full_bar + 8 * s, (qt / L::STAGES) & 1);
+
+        // S^T = K Q^T and dP^T = V dO^T (SS, all K-major).
+        float st[BQ / 2], dpt[BQ / 2];
+        wgmma_fence();
+        Wgmma<BQ>::template ss_init<0>(st, F::kmajor(sK, DKV_BK, wg * 64, 0),
+                                       F::kmajor(sQ, BQ, 0, 0));
+#pragma unroll
+        for (int kk = 1; kk < D / 16; ++kk)
+          Wgmma<BQ>::template ss<0>(st, F::kmajor(sK, DKV_BK, wg * 64, kk),
+                                    F::kmajor(sQ, BQ, 0, kk));
+        Wgmma<BQ>::template ss_init<0>(dpt, F::kmajor(sV, DKV_BK, wg * 64, 0),
+                                       F::kmajor(sdO, BQ, 0, 0));
+#pragma unroll
+        for (int kk = 1; kk < D / 16; ++kk)
+          Wgmma<BQ>::template ss<0>(dpt, F::kmajor(sV, DKV_BK, wg * 64, kk),
+                                    F::kmajor(sdO, BQ, 0, kk));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(st);
+        fence_regs(dpt);
+        if (t == n - 1) {  // the last read of this K and V
+          __syncwarp();
+          if (lane == 0) mbar_arrive(kv_empty_bar + 8 * kb);
+        }
+
+        const float* rows = reinterpret_cast<const float*>(smem + L::ROW + s * L::ROWS);
+        uint32_t pf[BQ / 16][4], dsf[BQ / 16][4];
+        if (causal && q_offset + q0 < k_offset + key_first + 63)
+          dkv_probs<BQ, true>(st, dpt, rows, pf, dsf, key0, q0, sl2, q_offset, k_offset, tq);
+        else
+          dkv_probs<BQ, false>(st, dpt, rows, pf, dsf, key0, q0, sl2, q_offset, k_offset, tq);
+
+        // dV += P^T dO and dK += dS^T Q (RS, dO and Q MN-major).
+        fence_regs(dk_acc);
+        fence_regs(dv_acc);
+        fence_regs(pf);
+        fence_regs(dsf);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          Wgmma<D>::template rs<1>(dv_acc, pf[kk], F::mnmajor(sdO, BQ, kk));
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          Wgmma<D>::template rs<1>(dk_acc, dsf[kk], F::mnmajor(sQ, BQ, kk));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dk_acc);
+        fence_regs(dv_acc);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty_bar + 8 * s);
+      }
+      if (n == 0) {  // no Q row sees these keys: K and V were never read
+        __syncwarp();
+        if (lane == 0) mbar_arrive(kv_empty_bar + 8 * kb);
+      }
+
+      // dK and dV in bf16 through the warpgroup's output tiles and TMA
+      // stores, which run on while the next work tile starts. Keys past Sk
+      // are not written (so they needed no mask above).
+      const uint32_t sdK = base + L::OUT + 2 * wg * L::TILE_O;
+      const uint32_t sdV = sdK + L::TILE_O;
+      if (tid == 0) bulk_wait_read<0>();  // the last work tile's stores have read them
+      named_sync(1 + wg, WG);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = key0 - key_first + 8 * h;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          const int i = 4 * j + 2 * h;
+          const uint32_t at = F::offset(64, r, 8 * j + 2 * tq);
+          st_shared_u32(sdK + at, pack_bf16(scale * dk_acc[i], scale * dk_acc[i + 1]));
+          st_shared_u32(sdV + at, pack_bf16(dv_acc[i], dv_acc[i + 1]));
+        }
+      }
+      fence_async_smem();
+      named_sync(1 + wg, WG);
+      if (tid == 0) {
+        for (int b = 0; b < F::NB; ++b) {
+          tma_store_3d(&tm_dk, sdK + b * 64 * F::ROW_BYTES, b * F::CB, key_first, bh);
+          tma_store_3d(&tm_dv, sdV + b * 64 * F::ROW_BYTES, b * F::CB, key_first, bh);
+        }
+        bulk_commit();
+      }
+    }
+    if (tid == 0) bulk_wait_read<0>();  // shared memory outlives the last stores' reads
+  }
+}
+
+// ===========================================================================
+// float32 forward and dK/dV, and dQ: the first version (64-row tiles in
+// shared memory, four warps of 16 rows).
+// ===========================================================================
 
 constexpr int BQ = 64;  // rows of a Q tile
 constexpr int BK = 64;  // rows of a K/V tile
@@ -61,29 +648,14 @@ struct Layout {
   static constexpr int LDO = D + 8;                      // fp32 accumulators
 };
 
-// Key rows [0, kend) can be visible to Q rows [q0, q0 + 64).
-__device__ __forceinline__ int key_end(int Sk, int q0, int causal, int q_offset, int k_offset) {
-  if (!causal) return Sk;
-  const int last = q_offset - k_offset + q0 + BQ;  // one past the last visible key
-  return last < Sk ? (last > 0 ? last : 0) : Sk;
-}
-
-// First Q tile start whose rows can see key rows [k0, k0 + 64).
-__device__ __forceinline__ int query_begin(int k0, int causal, int q_offset, int k_offset) {
-  if (!causal) return 0;
-  const int first = k_offset + k0 - q_offset;
-  return first > 0 ? (first / BQ) * BQ : 0;
-}
-
-// ---------------------------------------------------------------------------
-// Forward: one block per (bh, Q tile); loop over K/V tiles with an online
-// softmax. o [BH, Sq, D], lse [BH, Sq] fp32.
-// ---------------------------------------------------------------------------
-template <typename T, int D>
+// Forward, float32: one block per (bh, Q tile); loop over K/V tiles with an
+// online softmax. o [BH, Sq, D], lse [BH, Sq] fp32.
+template <int D>
 __global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, float scale,
-                 int causal, int q_offset, int k_offset) {
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                     int Sq, int Sk, float scale, int causal, int q_offset, int k_offset) {
+  using T = float;
   using L = Layout<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
@@ -110,7 +682,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     sM[i] = NEG_INF;
     sL[i] = 0.f;
   }
-  const int kend = key_end(Sk, q0, causal, q_offset, k_offset);
+  const int kend = key_end(Sk, q0, BQ, causal, q_offset, k_offset);
 
   for (int k0 = 0; k0 < kend; k0 += BK) {
     __syncthreads();  // every warp is done with the previous K, V and P
@@ -133,8 +705,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       const float p0 = ok0 ? expf(s0 - m_new) : 0.f;
       const float p1 = ok1 ? expf(s1 - m_new) : 0.f;
       const float psum = warp_sum(p0 + p1);
-      sP[r * L::LDP + lane] = from_f<T>(p0);
-      sP[r * L::LDP + lane + 32] = from_f<T>(p1);
+      sP[r * L::LDP + lane] = p0;
+      sP[r * L::LDP + lane + 32] = p1;
       for (int c = lane; c < D; c += 32) sO[r * L::LDO + c] *= corr;
       if (lane == 0) {
         sM[r] = m_new;
@@ -154,7 +726,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const float l = sL[r];
     const bool empty = l == 0.f;
     const float safe_l = empty ? 1.f : l;
-    for (int c = lane; c < D; c += 32) ob[(size_t)qi * D + c] = from_f<T>(sO[r * L::LDO + c] / safe_l);
+    for (int c = lane; c < D; c += 32) ob[(size_t)qi * D + c] = sO[r * L::LDO + c] / safe_l;
     if (lane == 0) lse[(size_t)bh * Sq + qi] = empty ? LSE_MASKED : sM[r] + logf(safe_l);
   }
 }
@@ -222,7 +794,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   load_rows<BQ, NTHREADS>(sDelta, delta + (size_t)bh * Sq, q0, Sq);
   load_rows<BQ, NTHREADS>(sGlse, glse + (size_t)bh * Sq, q0, Sq);
   for (int i = threadIdx.x; i < BQ * L::LDO; i += NTHREADS) sdQ[i] = 0.f;
-  const int kend = key_end(Sk, q0, causal, q_offset, k_offset);
+  const int kend = key_end(Sk, q0, BQ, causal, q_offset, k_offset);
 
   for (int k0 = 0; k0 < kend; k0 += BK) {
     __syncthreads();
@@ -251,17 +823,17 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   }
 }
 
-// ---------------------------------------------------------------------------
-// dK/dV: one block per (bh, K tile); loop over Q tiles.
+// dK/dV, float32: one block per (bh, K tile); loop over Q tiles.
 // dV = sum_i P_ij^T dO_i; dK = scale * sum_i dS_ij^T Q_i.
-// ---------------------------------------------------------------------------
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NTHREADS)
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const T* __restrict__ dout, const float* __restrict__ lse,
-                 const float* __restrict__ delta, const float* __restrict__ glse,
-                 T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, float scale,
-                 int causal, int q_offset, int k_offset) {
+flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     const float* __restrict__ glse, float* __restrict__ dk,
+                     float* __restrict__ dv, int Sq, int Sk, float scale, int causal,
+                     int q_offset, int k_offset) {
+  using T = float;
   using L = Layout<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sK = reinterpret_cast<T*>(smem);
@@ -293,7 +865,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     sdV[i] = 0.f;
   }
 
-  for (int q0 = query_begin(k0, causal, q_offset, k_offset); q0 < Sq; q0 += BQ) {
+  for (int q0 = query_begin(k0, BQ, causal, q_offset, k_offset); q0 < Sq; q0 += BQ) {
     __syncthreads();  // every warp is done with the previous Q, dO, P, dS
     load_tile<T, D, BQ, NTHREADS>(sQ, L::LDT, q + qoff, q0, Sq);
     load_tile<T, D, BQ, NTHREADS>(sdO, L::LDT, dout + qoff, q0, Sq);
@@ -324,11 +896,15 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int kj = k0 + r;
     if (kj >= Sk) break;
     for (int c = lane; c < D; c += 32) {
-      dk[koff + (size_t)kj * D + c] = from_f<T>(scale * sdK[r * L::LDO + c]);
-      dv[koff + (size_t)kj * D + c] = from_f<T>(sdV[r * L::LDO + c]);
+      dk[koff + (size_t)kj * D + c] = scale * sdK[r * L::LDO + c];
+      dv[koff + (size_t)kj * D + c] = sdV[r * L::LDO + c];
     }
   }
 }
+
+// ===========================================================================
+// Launchers.
+// ===========================================================================
 
 template <typename T, int D>
 constexpr size_t fwd_smem() {
@@ -352,53 +928,88 @@ constexpr size_t dkv_smem() {
          3 * BQ * sizeof(float);
 }
 
-template <typename T, int D>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH,
-                       int Sq, int Sk, float scale, int causal, int qo, int ko,
-                       cudaStream_t stream) {
-  constexpr size_t smem = fwd_smem<T, D>();
+// Streaming multiprocessors of the current device: the grid of a persistent
+// kernel.
+int sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return err;
+}
+
+// Allow `smem` bytes of dynamic shared memory for `kernel`, then launch it.
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStream_t stream,
+           Args... args) {
   if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Sq + BQ - 1) / BQ, BH);
-  flash_fwd_kernel<T, D><<<grid, NTHREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, Sq, Sk, scale, causal, qo, ko);
+  kernel<<<grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
-cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
-                      const void* lse, const void* delta, const void* glse, void* dq, int BH,
-                      int Sq, int Sk, float scale, int causal, int qo, int ko,
-                      cudaStream_t stream) {
-  constexpr size_t smem = dq_smem<T, D>();
-  if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(flash_dq_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Sq + BQ - 1) / BQ, BH);
-  flash_dq_kernel<T, D><<<grid, NTHREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
-      (const float*)delta, (const float*)glse, (T*)dq, Sq, Sk, scale, causal, qo, ko);
-  return cudaGetLastError();
+int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int Sq,
+               int Sk, float scale, int causal, int qo, int ko, cudaStream_t stream) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    CUtensorMap mq, mk, mv, mo;
+    int err;
+    if ((err = make_tile_map<D>(&mq, q, Sq, BH, FWD_BQ)) ||
+        (err = make_tile_map<D>(&mk, k, Sk, BH, FwdSmem<D>::BK)) ||
+        (err = make_tile_map<D>(&mv, v, Sk, BH, FwdSmem<D>::BK)) ||
+        (err = make_tile_map<D>(&mo, o, Sq, BH, 64)))
+      return err;
+    const int nwork = BH * ((Sq + FWD_BQ - 1) / FWD_BQ);
+    int sms = 0;
+    if ((err = sm_count(&sms))) return err;
+    return launch(flash_fwd_kernel<D>, dim3(nwork < sms ? nwork : sms), SM90_THREADS,
+                  FwdSmem<D>::BYTES, stream, mq, mk, mv, mo, (float*)lse, BH, Sq, Sk,
+                  scale, causal, qo, ko);
+  } else {
+    return launch(flash_fwd_f32_kernel<D>, dim3((Sq + BQ - 1) / BQ, BH), NTHREADS,
+                  fwd_smem<T, D>(), stream, (const T*)q, (const T*)k, (const T*)v, (T*)o,
+                  (float*)lse, Sq, Sk, scale, causal, qo, ko);
+  }
 }
 
 template <typename T, int D>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-                       const void* lse, const void* delta, const void* glse, void* dk, void* dv,
-                       int BH, int Sq, int Sk, float scale, int causal, int qo, int ko,
-                       cudaStream_t stream) {
-  constexpr size_t smem = dkv_smem<T, D>();
-  if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(flash_dkv_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Sk + BK - 1) / BK, BH);
-  flash_dkv_kernel<T, D><<<grid, NTHREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
-      (const float*)delta, (const float*)glse, (T*)dk, (T*)dv, Sq, Sk, scale, causal, qo, ko);
-  return cudaGetLastError();
+int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+              const void* delta, const void* glse, void* dq, int BH, int Sq, int Sk,
+              float scale, int causal, int qo, int ko, cudaStream_t stream) {
+  return launch(flash_dq_kernel<T, D>, dim3((Sq + BQ - 1) / BQ, BH), NTHREADS, dq_smem<T, D>(),
+                stream, (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+                (const float*)lse, (const float*)delta, (const float*)glse, (T*)dq, Sq, Sk,
+                scale, causal, qo, ko);
+}
+
+template <typename T, int D>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+               const void* delta, const void* glse, void* dk, void* dv, int BH, int Sq, int Sk,
+               float scale, int causal, int qo, int ko, cudaStream_t stream) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    constexpr int bq = DkvSmem<D>::BQ;
+    CUtensorMap mq, mk, mv, mdo, mdk, mdv;
+    int err;
+    if ((err = make_tile_map<D>(&mq, q, Sq, BH, bq)) ||
+        (err = make_tile_map<D>(&mk, k, Sk, BH, DKV_BK)) ||
+        (err = make_tile_map<D>(&mv, v, Sk, BH, DKV_BK)) ||
+        (err = make_tile_map<D>(&mdo, dout, Sq, BH, bq)) ||
+        (err = make_tile_map<D>(&mdk, dk, Sk, BH, 64)) ||
+        (err = make_tile_map<D>(&mdv, dv, Sk, BH, 64)))
+      return err;
+    const int nwork = BH * ((Sk + DKV_BK - 1) / DKV_BK);
+    int sms = 0;
+    if ((err = sm_count(&sms))) return err;
+    return launch(flash_dkv_kernel<D>, dim3(nwork < sms ? nwork : sms), SM90_THREADS,
+                  DkvSmem<D>::BYTES, stream, mq, mk, mv, mdo, mdk, mdv, (const float*)lse,
+                  (const float*)delta, (const float*)glse, BH, Sq, Sk, scale, causal, qo, ko);
+  } else {
+    return launch(flash_dkv_f32_kernel<D>, dim3((Sk + BK - 1) / BK, BH), NTHREADS,
+                  dkv_smem<T, D>(), stream, (const T*)q, (const T*)k, (const T*)v,
+                  (const T*)dout, (const float*)lse, (const float*)delta, (const float*)glse,
+                  (T*)dk, (T*)dv, Sq, Sk, scale, causal, qo, ko);
+  }
 }
 
 }  // namespace
@@ -409,8 +1020,8 @@ int hvd_flash_fwd(const void* q, const void* k, const void* v, void* o, void* ls
                   int Sq, int Sk, int D, int dtype, int causal, int q_offset, int k_offset,
                   float scale, void* stream) {
   HVD_DISPATCH(dtype, D,
-               (int)(launch_fwd<T, HD>(q, k, v, o, lse, BH, Sq, Sk, scale, causal, q_offset,
-                                       k_offset, (cudaStream_t)stream)));
+               (launch_fwd<T, HD>(q, k, v, o, lse, BH, Sq, Sk, scale, causal, q_offset,
+                                  k_offset, (cudaStream_t)stream)));
 }
 
 int hvd_flash_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -418,8 +1029,8 @@ int hvd_flash_dq(const void* q, const void* k, const void* v, const void* dout,
                  int Sk, int D, int dtype, int causal, int q_offset, int k_offset, float scale,
                  void* stream) {
   HVD_DISPATCH(dtype, D,
-               (int)(launch_dq<T, HD>(q, k, v, dout, lse, delta, glse, dq, BH, Sq, Sk, scale,
-                                      causal, q_offset, k_offset, (cudaStream_t)stream)));
+               (launch_dq<T, HD>(q, k, v, dout, lse, delta, glse, dq, BH, Sq, Sk, scale,
+                                 causal, q_offset, k_offset, (cudaStream_t)stream)));
 }
 
 int hvd_flash_dkv(const void* q, const void* k, const void* v, const void* dout,
@@ -427,13 +1038,20 @@ int hvd_flash_dkv(const void* q, const void* k, const void* v, const void* dout,
                   int BH, int Sq, int Sk, int D, int dtype, int causal, int q_offset,
                   int k_offset, float scale, void* stream) {
   HVD_DISPATCH(dtype, D,
-               (int)(launch_dkv<T, HD>(q, k, v, dout, lse, delta, glse, dk, dv, BH, Sq, Sk,
-                                       scale, causal, q_offset, k_offset,
-                                       (cudaStream_t)stream)));
+               (launch_dkv<T, HD>(q, k, v, dout, lse, delta, glse, dk, dv, BH, Sq, Sk, scale,
+                                  causal, q_offset, k_offset, (cudaStream_t)stream)));
 }
 
 // The message of any entry point's error code, for every source of the
 // library (horovod_tpu_torch/ops/_kernels.py raises it).
-const char* hvd_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+const char* hvd_error_string(int err) {
+  if (err >= HVD_ERR_TENSOR_MAP) {
+    static thread_local char msg[96];
+    snprintf(msg, sizeof(msg), "cuTensorMapEncodeTiled failed with CUresult %d",
+             err - HVD_ERR_TENSOR_MAP);
+    return msg;
+  }
+  return cudaGetErrorString((cudaError_t)err);
+}
 
 }  // extern "C"

@@ -16,6 +16,10 @@ The ``cuda`` tests hold the hand-written kernels against the plain
 versions on the card; they skip where there is no GPU.
 """
 
+import importlib.util
+import os
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -271,6 +275,100 @@ def test_other_devices_raise_instead_of_falling_back():
         port.flash_dqkv(t, t, t, t, rows, rows, rows)
 
 
+def test_build_hash_covers_every_csrc_file():
+    """Every source and header under csrc/ feeds the build's content hash,
+    so an edit to any of them rebuilds the library on the card."""
+    on_disk = {f for f in os.listdir(_kernels.CSRC_DIR)
+               if f.endswith((".cu", ".cuh"))}
+    assert on_disk == set(_kernels.SOURCES) | set(_kernels.HEADERS)
+    assert not set(_kernels.SOURCES) & set(_kernels.HEADERS)
+
+
+def _global_functions():
+    """Names of the __global__ functions in csrc/*.cu."""
+    names = set()
+    for f in _kernels.SOURCES:
+        with open(os.path.join(_kernels.CSRC_DIR, f)) as src:
+            names.update(re.findall(
+                r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+                r"(\w+)\s*\(", src.read()))
+    return names
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (its top-level imports are the standard
+    library's)."""
+    path = os.path.join(os.path.dirname(__file__), os.pardir, "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_profile_categories_name_kernels_in_the_sources():
+    """chip_smoke.py attributes device time to the port's kernels by
+    substrings of the kernel names: each of them must name a __global__
+    function of the sources, or the profile would book that kernel's time
+    as "other"."""
+    smoke = _chip_smoke()
+    kernels = _global_functions()
+    assert {"flash_fwd_kernel", "flash_dkv_kernel"} <= kernels
+    categories = dict(smoke._CATEGORIES)
+    for kern in _kernels.KERNELS:
+        for key in categories[kern.name]:
+            assert key in kernels, (kern.name, key)
+    # Every kernel of the library falls into some port category.
+    for name in kernels:
+        hits = [c for c, keys in smoke._CATEGORIES
+                if any(k in name.lower() for k in keys)]
+        assert hits and hits[0] in {k.name for k in _kernels.KERNELS}, name
+
+
+def _ptxas_entry(mangled, spills="0 bytes spill stores, 0 bytes spill loads",
+                 registers=168):
+    """One kernel's lines in nvcc's -Xptxas -v output."""
+    return (f"ptxas info    : Compiling entry function '{mangled}' for "
+            f"'sm_90a'\nptxas info    : Function properties for {mangled}\n"
+            f"    0 bytes stack frame, {spills}\nptxas info    : Used "
+            f"{registers} registers, used 16 barriers, 400 bytes cmem[0]\n")
+
+
+def test_build_report_flags_spills_and_serialized_wgmma_of_hopper_kernels():
+    """chip_smoke.py's build phase fails when a Hopper (wgmma) instance
+    spills or ptxas serializes its wgmma; other kernels' lines do not
+    count against it."""
+    smoke = _chip_smoke()
+
+    def hopper(kernel, d):
+        name = f"{kernel}ILi{d}EEEv14CUtensorMap_stS1_S1_S1_Pfiiifiii"
+        return f"_ZN12_GLOBAL__N_1{len(kernel)}{name}"
+
+    instances = [(k, d) for k in ("flash_fwd_kernel", "flash_dkv_kernel")
+                 for d in (16, 32, 64, 128)]
+    others = (_ptxas_entry("_ZN12_GLOBAL__N_115flash_dq_kernelI13__nv_"
+                           "bfloat16Li64EEEvPKT_", "8 bytes spill stores, "
+                           "8 bytes spill loads", 255)
+              + _ptxas_entry("_ZN12_GLOBAL__N_120flash_fwd_f32_kernelILi64"
+                             "EEEvPKfS2_S2_PfS3_iiifiii", registers=96))
+    clean = others + "".join(_ptxas_entry(hopper(k, d)) for k, d in instances)
+    regs, faults = smoke.hopper_build_report(clean)
+    assert sorted(regs) == sorted(smoke.HOPPER_INSTANCES)
+    assert set(regs.values()) == {168} and faults == []
+
+    spilled = clean.replace(
+        _ptxas_entry(hopper("flash_dkv_kernel", 128)),
+        _ptxas_entry(hopper("flash_dkv_kernel", 128), "240 bytes spill "
+                     "stores, 252 bytes spill loads"))
+    serialized = clean + (
+        "ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async "
+        "instructions are serialized due to insufficient register resources "
+        f"for the wgmma pipeline in the function '{hopper('flash_fwd_kernel', 32)}'\n")
+    for log, culprit in ((spilled, "flash_dkv_kernel<128>"),
+                         (serialized, "flash_fwd_kernel<32>")):
+        _, faults = smoke.hopper_build_report(log)
+        assert len(faults) == 1 and faults[0].startswith(culprit), faults
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -280,13 +378,23 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,causal,q_offset,k_offset", [
-    (torch.bfloat16, False, 0, 0), (torch.bfloat16, True, 0, 24),
-    (torch.float32, True, 30, 0)])
-def test_kernels_match_plain_versions_on_the_card(cuda_device, dtype, causal,
-                                                  q_offset, k_offset):
+@pytest.mark.parametrize("dtype,D,Sq,Sk,causal,q_offset,k_offset", [
+    (torch.bfloat16, 64, 130, 96, False, 0, 0),
+    (torch.bfloat16, 64, 130, 96, True, 0, 24),
+    (torch.float32, 64, 130, 96, True, 30, 0),
+    # The Hopper kernels at every head dim, on lengths that are no multiple
+    # of their 64- or 128-row tiles, causal with offsets.
+    (torch.bfloat16, 16, 200, 264, True, 0, 40),
+    (torch.bfloat16, 32, 200, 264, True, 0, 40),
+    (torch.bfloat16, 64, 200, 264, True, 0, 40),
+    (torch.bfloat16, 128, 200, 264, True, 0, 40),
+    (torch.bfloat16, 128, 264, 200, True, 64, 0),
+    (torch.bfloat16, 32, 300, 300, False, 0, 0)])
+def test_kernels_match_plain_versions_on_the_card(cuda_device, dtype, D, Sq,
+                                                  Sk, causal, q_offset,
+                                                  k_offset):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
-    BH, Sq, Sk, D = 6, 130, 96, 64
+    BH = 6
 
     def rnd(*shape, dt=dtype):
         return torch.randn(*shape, generator=gen, device=cuda_device).to(dt)
@@ -304,6 +412,7 @@ def test_kernels_match_plain_versions_on_the_card(cuda_device, dtype, causal,
         err = (got.float() - want.float()).abs().max().item()
         assert err <= tol * want.float().abs().max().item()
     assert (lse - lse_ref).abs().max().item() <= 1e-3
+    assert torch.equal(lse == port.LSE_MASKED, lse_ref == port.LSE_MASKED)
 
 
 @pytest.mark.cuda
