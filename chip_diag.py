@@ -5,12 +5,14 @@
     python3 chip_diag.py ab OTHER_CHECKOUT
     python3 chip_diag.py watchdog
 
-``ab`` times the multi-tile flash-attention kernels (flash_fwd, flash_dq,
-flash_dkv) of OTHER_CHECKOUT and of this checkout at chip_smoke.py's
-BERT-Large S=512 shape (B*H = 128, S = 512, D = 64, bf16, non-causal).
-Each checkout runs in a process of its own, in the order other, this,
-this, other. Each process times every kernel, and the SDPA forward and
-backward, by three methods, all with the L2 flushed before each call:
+``ab`` times the flash-attention kernels of OTHER_CHECKOUT and of this
+checkout at chip_smoke.py's BERT-Large path shapes (D = 64, bf16,
+non-causal): the multi-tile ones (flash_fwd, flash_dq, flash_dkv) and the
+SDPA forward and backward at S=512 (B*H = 128), the single-tile forward
+(flash_fwd_single) and the SDPA forward at S=128 (B*H = 1024). Each
+checkout runs in a process of its own, in the order other, this, this,
+other. Each process times every call by three methods, all with the L2
+flushed before each call:
 
 - ``spin_ms``: ``chip_smoke.time_ms`` of this checkout, with the card spun
   before each call, so the CUDA events time device work;
@@ -39,7 +41,8 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-CALLS = ("flash_fwd", "flash_dq", "flash_dkv", "sdpa_fwd", "sdpa_bwd")
+CALLS = ("flash_fwd", "flash_dq", "flash_dkv", "sdpa_fwd", "sdpa_bwd",
+         "flash_fwd_single", "sdpa_fwd_s128")
 METHODS = ("spin_ms", "no_spin_ms", "device_ms")
 
 
@@ -94,11 +97,14 @@ def _worker(tree, label):
         raise RuntimeError(f"imported {A.__file__}, not the checkout {tree}")
     smoke = _smoke()
     _kernels.build()
-    _, B, S, _, _ = smoke.BERT_PATHS[0]
+    (_, B, S, _, _), (_, B1, S1, _, _) = smoke.BERT_PATHS
     H, D = 16, 64
     gen = torch.Generator(device="cuda").manual_seed(0)
     q, k, v, do = (torch.randn(B * H, S, D, generator=gen, device="cuda")
                    .to(torch.bfloat16) for _ in range(4))
+    q1, k1, v1 = (torch.randn(B1 * H, S1, D, generator=gen, device="cuda")
+                  .to(torch.bfloat16) for _ in range(3))
+    q14, k14, v14 = (t.view(B1, H, S1, D) for t in (q1, k1, v1))
     o, lse = A.flash_fwd_plain(q, k, v)
     delta = (do.float() * o.float()).sum(-1)
     bwd = (q, k, v, do, lse, delta, torch.zeros_like(delta), False, 0, 0)
@@ -113,6 +119,10 @@ def _worker(tree, label):
         "sdpa_fwd": lambda: F.scaled_dot_product_attention(q4, k4, v4),
         "sdpa_bwd": lambda: torch.autograd.grad(out4, (q4, k4, v4), do4,
                                                 retain_graph=True),
+        "flash_fwd_single": lambda: A.flash_fwd_single(q1, k1, v1, False, 0,
+                                                       0),
+        "sdpa_fwd_s128": lambda: F.scaled_dot_product_attention(q14, k14,
+                                                                v14),
     }
     result = {name: {"spin_ms": smoke.time_ms(fn),
                      "no_spin_ms": smoke.time_ms(fn, sleep_cycles=0),

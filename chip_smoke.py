@@ -11,7 +11,8 @@ and prints no result line):
 1. the card's name and power limit (``nvidia-smi``);
 2. build of the hand-written CUDA kernels from ``horovod_tpu_torch/ops/csrc``
    (one ``nvcc`` per source, all started together); no Hopper (wgmma)
-   instance may spill or have its wgmma serialized;
+   instance (the bf16 forward, dQ, dK/dV and single-tile forward at D=16,
+   32, 64, 128) may spill or have its wgmma serialized;
 3. kernel phase: every kernel against its plain PyTorch version on the same
    inputs, with times beside the bound and the library yardstick:
    - the multi-tile forward, dQ and dK/dV flash-attention kernels
@@ -20,7 +21,9 @@ and prints no result line):
      D=16; a causal D=32 case with a query offset; a float32 case);
    - the single-tile forward and fused backward (BERT-Large phase-1 shape,
      S=128, in bf16; causal 96 x 128 with offsets, masked rows and a
-     nonzero lse cotangent; float32 causal with an offset; bf16 at D=128);
+     nonzero lse cotangent; float32 causal with an offset; bf16 at D=128;
+     causal bf16 at D=16 and D=32; a causal ragged 77 x 100 case with a key
+     offset);
    - the 1x1-conv filter gradient (ResNet-50 stage-1 bottleneck 64 -> 256;
      the stride-2 projection shortcut 256 -> 512; float32 with a ragged K);
 4. training phase: synchronous data-parallel BERT-Large training through
@@ -134,11 +137,15 @@ def time_ms(fn, reps=20, warmup=3, sleep_cycles=SLEEP_CYCLES):
     return statistics.median(times)
 
 
-# The Hopper (wgmma) instances: flash_fwd_kernel<D> and flash_dkv_kernel<D>.
+# The Hopper (wgmma) instances: the bf16 kernels of both attention routes at
+# every head dim (the float32 kernels are named *_f32_kernel).
 HOPPER_INSTANCES = tuple(f"{k}<{d}>" for k in ("flash_fwd_kernel",
-                                               "flash_dkv_kernel")
+                                               "flash_dq_kernel",
+                                               "flash_dkv_kernel",
+                                               "flash_fwd_single_kernel")
                          for d in (16, 32, 64, 128))
-_HOPPER_NAME = re.compile(r"(flash_(?:fwd|dkv)_kernel)ILi(\d+)E")
+_HOPPER_NAME = re.compile(
+    r"(flash_(?:fwd_single|fwd|dq|dkv)_kernel)ILi(\d+)E")
 
 
 def hopper_build_report(log):
@@ -301,6 +308,14 @@ def kernel_phase():
         ("float32_single", 2, 4, 128, 128, 64, f32, True, 16, 0, True,
          False),
         ("d128_single_bf16", 2, 4, 128, 128, 128, bf16, False, 0, 0, True,
+         False),
+        # The single-tile Hopper forward at the other head dims, and on
+        # lengths that are no multiple of 16 (rows 0..22 see no key).
+        ("d16_single_causal_bf16", 2, 3, 128, 128, 16, bf16, True, 0, 0,
+         True, False),
+        ("d32_single_causal_bf16", 2, 3, 112, 128, 32, bf16, True, 16, 0,
+         True, False),
+        ("ragged_single_bf16", 2, 3, 77, 100, 64, bf16, True, 0, 23, True,
          False),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -581,9 +596,10 @@ def conv_phase(card):
 
 _CATEGORIES = (  # first match wins; by lower-cased kernel name
     ("flash_fwd", ("flash_fwd_kernel", "flash_fwd_f32_kernel")),
-    ("flash_dq", ("flash_dq_kernel",)),
+    ("flash_dq", ("flash_dq_kernel", "flash_dq_f32_kernel")),
     ("flash_dkv", ("flash_dkv_kernel", "flash_dkv_f32_kernel")),
-    ("flash_fwd_single", ("flash_fwd_single_kernel",)),
+    ("flash_fwd_single", ("flash_fwd_single_kernel",
+                          "flash_fwd_single_f32_kernel")),
     ("flash_dqkv", ("flash_dqkv_kernel",)),
     ("dw_1x1", ("dw_1x1_partial_kernel", "dw_1x1_reduce_kernel")),
     ("matmul", ("gemm", "nvjet", "xmma", "cutlass", "gemv")),

@@ -28,7 +28,7 @@ CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
 SOURCES = ("flash_attention.cu", "flash_attention_single.cu",
            "conv1x1_dw.cu")
-HEADERS = ("flash_common.cuh", "sm90.cuh")
+HEADERS = ("flash_common.cuh", "flash_hopper.cuh", "sm90.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo", "-Xcompiler", "-fPIC",

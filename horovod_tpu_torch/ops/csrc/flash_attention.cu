@@ -5,7 +5,7 @@
 //
 // Replaces the Pallas TPU kernels of horovod_tpu/ops/attention.py:
 //   flash_fwd_kernel  (bf16), flash_fwd_f32_kernel  <- _flash_fwd_kernel (:138)
-//   flash_dq_kernel                                 <- _flash_dq_kernel (:198)
+//   flash_dq_kernel   (bf16), flash_dq_f32_kernel   <- _flash_dq_kernel (:198)
 //   flash_dkv_kernel  (bf16), flash_dkv_f32_kernel  <- _flash_dkv_kernel (:252)
 //
 // What bounds them, against the H100 SXM data-sheet peaks (989 TFLOP/s bf16,
@@ -21,16 +21,16 @@
 // What the design does about it. The TPU's sequential grid axis becomes a
 // loop inside one thread block, and each output tile has one owner, so no
 // atomics are needed. bf16, the training path (flash_fwd_kernel,
-// flash_dkv_kernel):
-//   - Persistent blocks, one per SM, walk the work tiles: the forward's
-//     (bh, 128 Q rows), dK/dV's (bh, 128 keys). A block is three
+// flash_dq_kernel, flash_dkv_kernel):
+//   - Persistent blocks, one per SM, walk the work tiles: the forward's and
+//     dQ's (bh, 128 Q rows), dK/dV's (bh, 128 keys). A block is three
 //     warpgroups: two consumers of 64 rows each, and a producer whose first
 //     warp keeps TMA loads in flight and which gives its registers to the
-//     consumers (setmaxnreg). The producer runs ahead into the next work
-//     tile, its resident operand (Q; K and V) into a second buffer and its
-//     streamed tiles into a ring of stages with full/empty mbarriers (four;
-//     two for dK/dV at D = 128), so only a block's first work tile waits for
-//     device memory.
+//     consumers (setmaxnreg; flash_hopper.cuh). The producer runs ahead into
+//     the next work tile, its resident operands (Q; Q and dO; K and V) into
+//     a second buffer and its streamed tiles into a ring of stages with
+//     full/empty mbarriers (four; two for dQ and dK/dV at D = 128), so only
+//     a block's first work tile waits for device memory.
 //   - Operand tiles arrive by TMA in the swizzled format of sm90.cuh, from a
 //     3-D tensor map (D, S, BH): rows past the sequence end read as zeros and
 //     never as the next head's rows.
@@ -43,15 +43,23 @@
 //   - Forward: K/V stages of 128 rows (64 at D = 128, for shared memory). O
 //     leaves through shared memory and a TMA store that runs on while the
 //     next work tile starts.
+//   - dQ: the forward's structure with the softmax statistics given. Q and
+//     dO stay resident; K/V stages of 64 rows stream past them (for
+//     registers: S and dP take 32 floats each, dQ up to 64), ending at the
+//     last key a causal row can see. S = Q K^T and dP = dO V^T (SS), then
+//     P = exp2(S scale log2(e) - lse log2(e)) and dS = P (dP + g_lse -
+//     delta) in registers, each thread's two rows of lse and g_lse - delta
+//     loaded one work tile ahead; dQ += dS K (RS, K MN-major) accumulates
+//     in registers across the K/V tiles, and scale dQ leaves as O does.
 //   - dK/dV: Q and dO tiles of 64 rows (32 at D = 128, for registers) stream
 //     with their lse and g_lse - delta rows past the resident K and V, in
 //     the transposed form: S^T = K Q^T and dP^T = V dO^T (SS), then
 //     dV += P^T dO and dK += dS^T Q (RS, dO and Q MN-major). dK and dV
 //     leave through shared memory and TMA stores, as O does.
-// float32 (flash_fwd_f32_kernel, flash_dkv_f32_kernel) and dQ
-// (flash_dq_kernel) keep the first version: 64-row tiles, four warps, fp32
-// accumulators in shared memory, WMMA 16x16x16 (bf16 dQ) or FMA (float32: TF32
-// would round operands to 10 mantissa bits), synchronous loads.
+// float32 (flash_fwd_f32_kernel, flash_dq_f32_kernel, flash_dkv_f32_kernel)
+// keeps the first version: 64-row tiles, four warps, fp32 accumulators in
+// shared memory, FMA products (TF32 would round operands to 10 mantissa
+// bits), synchronous loads.
 // P and dS are rounded to the operand dtype before the PV, P^T dO, dS K and
 // dS^T Q products, as the TPU kernels do.
 //
@@ -68,8 +76,7 @@
 #include <math.h>
 #include <stdio.h>
 
-#include "flash_common.cuh"
-#include "sm90.cuh"
+#include "flash_hopper.cuh"
 
 namespace {
 
@@ -93,15 +100,6 @@ __device__ __forceinline__ int query_begin(int k0, int bq, int causal, int q_off
 // bf16 on Hopper: warp-specialized wgmma kernels.
 // ===========================================================================
 
-constexpr int WG = 128;            // threads of a warpgroup
-constexpr int CONSUMER_WGS = 2;    // each owns 64 rows of the block's tile
-constexpr int CONSUMER_WARPS = CONSUMER_WGS * 4;
-constexpr int SM90_THREADS = (CONSUMER_WGS + 1) * WG;  // + the producer warpgroup
-constexpr int PRODUCER_REGS = 24;
-constexpr int CONSUMER_REGS = 240;  // 24 * 128 + 240 * 256 = 168 * 384
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
-
 constexpr int FWD_BQ = 128;  // Q rows of a forward work tile
 constexpr int FWD_STAGES = 4;
 
@@ -123,53 +121,6 @@ struct FwdSmem {
   static constexpr int BAR = O + CONSUMER_WGS * TILE_O;  // full[S], empty[S], q_full[2], q_empty[2]
   static constexpr int BYTES = BAR + (2 * FWD_STAGES + 4) * 8 + 1024;  // + alignment slack
 };
-
-// Online softmax of one K tile on a consumer thread's registers: the scores
-// sc (the m64 x BK accumulator) become P, as bf16 A fragments p; the running
-// max m (log2 units) and the partial row sums l move on, and corr is the
-// factor that rescales the output accumulator of the thread's two rows
-// (row0, row0 + 8). MASK: the tile holds keys past Sk or causally hidden
-// keys for some of those rows. The scale folds into one FMA before exp2.
-template <int BK, bool MASK>
-__device__ __forceinline__ void softmax_tile(const float (&sc)[BK / 2], float (&m)[2],
-                                             float (&l)[2], float (&corr)[2],
-                                             uint32_t (&p)[BK / 16][4], int row0, int k0, int Sk,
-                                             float sl2, int causal, int q_offset, int k_offset,
-                                             int tq) {
-  auto hidden = [&](int i) {
-    const int kj = k0 + 8 * (i >> 2) + 2 * tq + (i & 1);
-    return kj >= Sk || (causal && q_offset + row0 + 8 * ((i >> 1) & 1) < k_offset + kj);
-  };
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int i = 0; i < BK / 2; ++i)
-    if (!MASK || !hidden(i)) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
-  float neg_m[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-    const float m_new = fmaxf(m[h], mx[h] * sl2);  // m starts at NEG_INF (finite)
-    corr[h] = exp2f(m[h] - m_new);
-    m[h] = m_new;
-    neg_m[h] = -m_new;
-    l[h] *= corr[h];
-  }
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = 8 * kk + 2 * r, h = r & 1;
-      float e0 = exp2f(fmaf(sc[i], sl2, neg_m[h]));
-      float e1 = exp2f(fmaf(sc[i + 1], sl2, neg_m[h]));
-      if (MASK) {
-        e0 = hidden(i) ? 0.f : e0;
-        e1 = hidden(i + 1) ? 0.f : e1;
-      }
-      l[h] += e0 + e1;
-      p[kk][r] = pack_bf16(e0, e1);
-    }
-}
 
 // Forward, persistent: a grid of one block per SM walks the work tiles
 // (bh, 128 Q rows) in turn; o [BH, Sq, D] bf16, lse [BH, Sq] fp32. The
@@ -348,6 +299,239 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
           tma_store_3d(&tm_o, sO + b * 64 * F::ROW_BYTES, b * F::CB, row_first, bh);
         bulk_commit();
       }
+    }
+    if (tid == 0) bulk_wait_read<0>();  // shared memory outlives the last store's reads
+  }
+}
+
+constexpr int DQ_BQ = 128;  // Q rows of a dQ work tile
+constexpr int DQ_BK = 64;   // K/V rows of a dQ ring stage
+
+// Shared memory of dQ, byte offsets from a 1024-aligned base: two Q / dO
+// buffers (the next work tile's Q and dO load while the current one runs),
+// the K/V ring, and each consumer warpgroup's bf16 dQ tile on its way out by
+// TMA. Four stages, two at D = 128, where 32 KB stages share the 227 KB with
+// 128 KB of Q / dO buffers and 32 KB of output tiles.
+template <int D>
+struct DqSmem {
+  static constexpr int STAGES = D == 128 ? 2 : 4;
+  static constexpr int TILE_Q = DQ_BQ * D * 2;
+  static constexpr int TILE_KV = DQ_BK * D * 2;
+  static constexpr int TILE_O = 64 * D * 2;
+  static constexpr int Q = 0;                          // + buffer * 2 * TILE_Q
+  static constexpr int DO = Q + TILE_Q;                // + buffer * 2 * TILE_Q
+  static constexpr int K = 4 * TILE_Q;                 // + stage * 2 * TILE_KV
+  static constexpr int V = K + TILE_KV;                // + stage * 2 * TILE_KV
+  static constexpr int O = K + 2 * STAGES * TILE_KV;   // + warpgroup * TILE_O
+  static constexpr int BAR = O + CONSUMER_WGS * TILE_O;  // full[S], empty[S], q_full[2], q_empty[2]
+  static constexpr int BYTES = BAR + (2 * STAGES + 4) * 8 + 1024;  // + alignment slack
+};
+
+// dS of one K/V tile on a consumer thread's registers (rows row0 and
+// row0 + 8, keys k0 + c): P = exp2(S scale log2(e) - lse2[h]), dS =
+// P (dP + gd[h]), as the bf16 A fragments of dQ += dS K. lse2 is lse
+// log2(e), gd is g_lse - delta. MASK: the tile holds keys past Sk (zero
+// rows of K, but their P need not be finite) or causally hidden keys for
+// some of those rows.
+template <int BK, bool MASK>
+__device__ __forceinline__ void dq_dscores(const float (&st)[BK / 2], const float (&dp)[BK / 2],
+                                           const float (&lse2)[2], const float (&gd)[2],
+                                           uint32_t (&dsf)[BK / 16][4], int row0, int k0, int Sk,
+                                           float sl2, int causal, int q_offset, int k_offset,
+                                           int tq) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = 8 * kk + 2 * r, h = r & 1;
+      float ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float p = exp2f(fmaf(st[i + e], sl2, -lse2[h]));
+        if (MASK) {
+          const int kj = k0 + 8 * (i >> 2) + 2 * tq + e;
+          if (kj >= Sk || (causal && q_offset + row0 + 8 * h < k_offset + kj)) p = 0.f;
+        }
+        ds[e] = p * (dp[i + e] + gd[h]);
+      }
+      dsf[kk][r] = pack_bf16(ds[0], ds[1]);
+    }
+}
+
+// dQ, persistent: a grid of one block per SM walks the work tiles (bh,
+// 128 Q rows) in turn and loops over the K/V tiles their rows can see.
+// dQ = scale * sum_j dS_ij K_j.
+template <int D>
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                const __grid_constant__ CUtensorMap tm_dq, const float* __restrict__ lse,
+                const float* __restrict__ delta, const float* __restrict__ glse, int BH, int Sq,
+                int Sk, float scale, int causal, int q_offset, int k_offset) {
+  using F = TileFormat<D>;
+  using L = DqSmem<D>;
+  constexpr int BK = DQ_BK;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t full_bar = base + L::BAR;                 // stage s at + 8 s
+  const uint32_t empty_bar = full_bar + 8 * L::STAGES;     // stage s at + 8 s
+  const uint32_t q_full_bar = empty_bar + 8 * L::STAGES;   // buffer b at + 8 b
+  const uint32_t q_empty_bar = q_full_bar + 16;            // buffer b at + 8 b
+
+  const int qtiles = (Sq + DQ_BQ - 1) / DQ_BQ;
+  const int nwork = BH * qtiles;  // consecutive work tiles share a head's K/V in L2
+  // K/V tiles that the rows of work tile w can see (causal tiles past them are skipped).
+  auto ntiles = [&](int w) {
+    return (key_end(Sk, (w % qtiles) * DQ_BQ, DQ_BQ, causal, q_offset, k_offset) + BK - 1) / BK;
+  };
+  const int wg = threadIdx.x / WG;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(empty_bar + 8 * s, CONSUMER_WARPS);
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(q_full_bar + 8 * b, 1);
+      mbar_init(q_empty_bar + 8 * b, CONSUMER_WARPS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == CONSUMER_WGS) {
+    // Producer, one thread: per work tile its Q and dO, then its K/V tiles.
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x == CONSUMER_WGS * WG) {
+      int kt = 0;  // K/V tiles loaded so far: the ring position
+      int it = 0;
+      for (int w = blockIdx.x; w < nwork; w += gridDim.x, ++it) {
+        const int bh = w / qtiles;
+        const int q0 = (w % qtiles) * DQ_BQ;
+        const int qb = it & 1;
+        const uint32_t q_bar = q_full_bar + 8 * qb;
+        const uint32_t sQ = base + L::Q + qb * 2 * L::TILE_Q;
+        const uint32_t sdO = base + L::DO + qb * 2 * L::TILE_Q;
+        mbar_wait(q_empty_bar + 8 * qb, ((it >> 1) & 1) ^ 1);
+        mbar_arrive_expect_tx(q_bar, 2 * L::TILE_Q);
+        for (int b = 0; b < F::NB; ++b) {
+          tma_load_3d(sQ + b * DQ_BQ * F::ROW_BYTES, &tm_q, q_bar, b * F::CB, q0, bh);
+          tma_load_3d(sdO + b * DQ_BQ * F::ROW_BYTES, &tm_do, q_bar, b * F::CB, q0, bh);
+        }
+        const int n = ntiles(w);
+        for (int t = 0; t < n; ++t, ++kt) {
+          const int s = kt % L::STAGES;
+          const uint32_t bar = full_bar + 8 * s;
+          mbar_wait(empty_bar + 8 * s, ((kt / L::STAGES) & 1) ^ 1);
+          mbar_arrive_expect_tx(bar, 2 * L::TILE_KV);
+          const uint32_t sK = base + L::K + s * 2 * L::TILE_KV;
+          const uint32_t sV = base + L::V + s * 2 * L::TILE_KV;
+          for (int b = 0; b < F::NB; ++b) {
+            tma_load_3d(sK + b * BK * F::ROW_BYTES, &tm_k, bar, b * F::CB, t * BK, bh);
+            tma_load_3d(sV + b * BK * F::ROW_BYTES, &tm_v, bar, b * F::CB, t * BK, bh);
+          }
+        }
+      }
+    }
+  } else {
+    // Consumer warpgroup wg: rows [64 wg, 64 wg + 64) of each work tile.
+    reg_alloc<CONSUMER_REGS>();
+    const int tid = threadIdx.x % WG;
+    const int lane = tid & 31;
+    const int tq = lane & 3;
+    const int r = (tid >> 5) * 16 + (lane >> 2);  // this thread's rows r, r + 8 of the 64
+    const float sl2 = scale * LOG2E;
+    // lse log2(e) and g_lse - delta of this thread's two rows of work tile
+    // w; rows past Sq get lse2 = LSE_MASKED, so their P is exactly 0.
+    auto fetch_rows = [&](int w, float (&lse2)[2], float (&gd)[2]) {
+      const int bh = w / qtiles;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int qi = (w % qtiles) * DQ_BQ + wg * 64 + r + 8 * h;
+        const size_t at = (size_t)bh * Sq + qi;
+        lse2[h] = qi < Sq ? lse[at] * LOG2E : LSE_MASKED;
+        gd[h] = qi < Sq ? glse[at] - delta[at] : 0.f;
+      }
+    };
+    float lse2_next[2] = {LSE_MASKED, LSE_MASKED}, gd_next[2] = {0.f, 0.f};
+    if ((int)blockIdx.x < nwork) fetch_rows(blockIdx.x, lse2_next, gd_next);
+    int kt = 0;
+    int it = 0;
+    for (int w = blockIdx.x; w < nwork; w += gridDim.x, ++it) {
+      const int bh = w / qtiles;
+      const int row_first = (w % qtiles) * DQ_BQ + wg * 64;
+      const int row0 = row_first + r;  // and row0 + 8
+      const int n = ntiles(w);
+      const int qb = it & 1;
+      const uint32_t sQ = base + L::Q + qb * 2 * L::TILE_Q;
+      const uint32_t sdO = base + L::DO + qb * 2 * L::TILE_Q;
+      // The rows of this work tile, and the next one's on their way.
+      const float lse2[2] = {lse2_next[0], lse2_next[1]};
+      const float gd[2] = {gd_next[0], gd_next[1]};
+      if (w + (int)gridDim.x < nwork) fetch_rows(w + gridDim.x, lse2_next, gd_next);
+      float dq[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+      mbar_wait(q_full_bar + 8 * qb, (it >> 1) & 1);
+      for (int t = 0; t < n; ++t, ++kt) {
+        const int s = kt % L::STAGES;
+        const uint32_t sK = base + L::K + s * 2 * L::TILE_KV;
+        const uint32_t sV = base + L::V + s * 2 * L::TILE_KV;
+        mbar_wait(full_bar + 8 * s, (kt / L::STAGES) & 1);
+
+        // S = Q K^T and dP = dO V^T (SS, all K-major).
+        float st[BK / 2], dp[BK / 2];
+        wgmma_fence();
+        Wgmma<BK>::template ss_init<0>(st, F::kmajor(sQ, DQ_BQ, wg * 64, 0),
+                                       F::kmajor(sK, BK, 0, 0));
+#pragma unroll
+        for (int kk = 1; kk < D / 16; ++kk)
+          Wgmma<BK>::template ss<0>(st, F::kmajor(sQ, DQ_BQ, wg * 64, kk),
+                                    F::kmajor(sK, BK, 0, kk));
+        Wgmma<BK>::template ss_init<0>(dp, F::kmajor(sdO, DQ_BQ, wg * 64, 0),
+                                       F::kmajor(sV, BK, 0, 0));
+#pragma unroll
+        for (int kk = 1; kk < D / 16; ++kk)
+          Wgmma<BK>::template ss<0>(dp, F::kmajor(sdO, DQ_BQ, wg * 64, kk),
+                                    F::kmajor(sV, BK, 0, kk));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(st);
+        fence_regs(dp);
+        if (t == n - 1) {  // the last read of this Q and dO
+          __syncwarp();
+          if (lane == 0) mbar_arrive(q_empty_bar + 8 * qb);
+        }
+
+        uint32_t dsf[BK / 16][4];
+        if (t * BK + BK > Sk || (causal && q_offset + row_first < k_offset + t * BK + BK - 1))
+          dq_dscores<BK, true>(st, dp, lse2, gd, dsf, row0, t * BK, Sk, sl2, causal, q_offset,
+                               k_offset, tq);
+        else
+          dq_dscores<BK, false>(st, dp, lse2, gd, dsf, row0, t * BK, Sk, sl2, causal, q_offset,
+                                k_offset, tq);
+
+        // dQ += dS K (RS: dS from registers, K MN-major).
+        fence_regs(dq);
+        fence_regs(dsf);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          Wgmma<D>::template rs<1>(dq, dsf[kk], F::mnmajor(sK, BK, kk));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty_bar + 8 * s);
+      }
+      if (n == 0) {  // no key visible: Q and dO were never read, and dQ is 0
+        __syncwarp();
+        if (lane == 0) mbar_arrive(q_empty_bar + 8 * qb);
+      }
+
+      const float mul[2] = {scale, scale};
+      store_out<D>(&tm_dq, base + L::O + wg * L::TILE_O, dq, mul, r, tq, tid, wg, row_first, bh);
     }
     if (tid == 0) bulk_wait_read<0>();  // shared memory outlives the last store's reads
   }
@@ -626,8 +810,8 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 }
 
 // ===========================================================================
-// float32 forward and dK/dV, and dQ: the first version (64-row tiles in
-// shared memory, four warps of 16 rows).
+// float32: the first version (64-row tiles in shared memory, four warps of
+// 16 rows).
 // ===========================================================================
 
 constexpr int BQ = 64;  // rows of a Q tile
@@ -755,17 +939,16 @@ __device__ __forceinline__ void probs_and_dscores(
   }
 }
 
-// ---------------------------------------------------------------------------
-// dQ: one block per (bh, Q tile); loop over K/V tiles.
+// dQ, float32: one block per (bh, Q tile); loop over K/V tiles.
 // dQ = scale * sum_j dS_ij K_j.
-// ---------------------------------------------------------------------------
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NTHREADS)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                const T* __restrict__ dout, const float* __restrict__ lse,
-                const float* __restrict__ delta, const float* __restrict__ glse,
-                T* __restrict__ dq, int Sq, int Sk, float scale, int causal, int q_offset,
-                int k_offset) {
+flash_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    const float* __restrict__ glse, float* __restrict__ dq, int Sq, int Sk,
+                    float scale, int causal, int q_offset, int k_offset) {
+  using T = float;
   using L = Layout<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
@@ -819,7 +1002,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   for (int r = r0; r < r0 + WROWS; ++r) {
     const int qi = q0 + r;
     if (qi >= Sq) break;
-    for (int c = lane; c < D; c += 32) dqb[(size_t)qi * D + c] = from_f<T>(scale * sdQ[r * L::LDO + c]);
+    for (int c = lane; c < D; c += 32) dqb[(size_t)qi * D + c] = scale * sdQ[r * L::LDO + c];
   }
 }
 
@@ -928,27 +1111,6 @@ constexpr size_t dkv_smem() {
          3 * BQ * sizeof(float);
 }
 
-// Streaming multiprocessors of the current device: the grid of a persistent
-// kernel.
-int sm_count(int* sms) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  return err;
-}
-
-// Allow `smem` bytes of dynamic shared memory for `kernel`, then launch it.
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStream_t stream,
-           Args... args) {
-  if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, threads, smem, stream>>>(args...);
-  return cudaGetLastError();
-}
-
 template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int Sq,
                int Sk, float scale, int causal, int qo, int ko, cudaStream_t stream) {
@@ -977,10 +1139,27 @@ template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, const void* glse, void* dq, int BH, int Sq, int Sk,
               float scale, int causal, int qo, int ko, cudaStream_t stream) {
-  return launch(flash_dq_kernel<T, D>, dim3((Sq + BQ - 1) / BQ, BH), NTHREADS, dq_smem<T, D>(),
-                stream, (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-                (const float*)lse, (const float*)delta, (const float*)glse, (T*)dq, Sq, Sk,
-                scale, causal, qo, ko);
+  if constexpr (std::is_same<T, bf16>::value) {
+    CUtensorMap mq, mk, mv, mdo, mdq;
+    int err;
+    if ((err = make_tile_map<D>(&mq, q, Sq, BH, DQ_BQ)) ||
+        (err = make_tile_map<D>(&mk, k, Sk, BH, DQ_BK)) ||
+        (err = make_tile_map<D>(&mv, v, Sk, BH, DQ_BK)) ||
+        (err = make_tile_map<D>(&mdo, dout, Sq, BH, DQ_BQ)) ||
+        (err = make_tile_map<D>(&mdq, dq, Sq, BH, 64)))
+      return err;
+    const int nwork = BH * ((Sq + DQ_BQ - 1) / DQ_BQ);
+    int sms = 0;
+    if ((err = sm_count(&sms))) return err;
+    return launch(flash_dq_kernel<D>, dim3(nwork < sms ? nwork : sms), SM90_THREADS,
+                  DqSmem<D>::BYTES, stream, mq, mk, mv, mdo, mdq, (const float*)lse,
+                  (const float*)delta, (const float*)glse, BH, Sq, Sk, scale, causal, qo, ko);
+  } else {
+    return launch(flash_dq_f32_kernel<D>, dim3((Sq + BQ - 1) / BQ, BH), NTHREADS,
+                  dq_smem<T, D>(), stream, (const T*)q, (const T*)k, (const T*)v,
+                  (const T*)dout, (const float*)lse, (const float*)delta, (const float*)glse,
+                  (T*)dq, Sq, Sk, scale, causal, qo, ko);
+  }
 }
 
 template <typename T, int D>

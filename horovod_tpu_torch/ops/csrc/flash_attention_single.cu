@@ -4,7 +4,8 @@
 // longer sequences to the multi-tile kernels of flash_attention.cu).
 //
 // Replaces the Pallas TPU kernels of horovod_tpu/ops/attention.py:
-//   flash_fwd_single_kernel <- _flash_fwd_single_kernel (:310)
+//   flash_fwd_single_kernel (bf16), flash_fwd_single_f32_kernel
+//                           <- _flash_fwd_single_kernel (:310)
 //   flash_dqkv_kernel       <- _flash_dqkv_fused_kernel (:343)
 //
 // What bounds them, against the H100 SXM data-sheet peaks (989 TFLOP/s bf16,
@@ -19,10 +20,23 @@
 // What the design does about it: the whole K and V of one (batch, head) sit
 // in shared memory, so nothing is streamed twice and no running max or
 // rescale is needed.
-//   Forward: one block per (bh, 64-row Q tile), four warps of 16 Q rows.
-//     Scores are computed once: m = rowmax, p = exp(s - m), l = rowsum,
-//     o = (p in the operand dtype) V / l. The fp32 output reuses the score
-//     buffer, so a bf16 D = 64 block needs 102 KB and two blocks share an SM.
+//   Forward, bf16 (flash_fwd_single_kernel): the Hopper design of the
+//     multi-tile forward (flash_attention.cu, flash_hopper.cuh) with one
+//     work tile per head. Persistent blocks, one per SM, walk the heads; a
+//     producer thread loads each head's Q, K and V whole by TMA (128-row
+//     boxes; rows past Sq or Sk read as zeros) into a ring of whole-head
+//     buffers (four, two at D = 128), so the next heads' bytes arrive while
+//     the current one computes, which is what a kernel bound by bytes needs.
+//     Two consumer warpgroups own 64 Q rows each: S = Q K^T is one SS wgmma
+//     chain (n128); the direct softmax runs on the accumulator registers
+//     (row max and sum by quad shuffles, exp2 with the scale in one FMA, no
+//     correction factor); O = P V is an RS wgmma with V MN-major; O / l
+//     leaves through shared memory by a TMA store that runs on into the next
+//     head, and lse is written directly.
+//   Forward, float32 (flash_fwd_single_f32_kernel): the first version, one
+//     block per (bh, 64-row Q tile), four warps of 16 Q rows. Scores are
+//     computed once: m = rowmax, p = exp(s - m), l = rowsum, o = p V / l.
+//     The fp32 output reuses the score buffer.
 //   Backward: one block per bh, eight warps. K and V stay resident; Q, dO and
 //     their row vectors come in 32-row chunks. Per chunk the block computes
 //     S = Q K^T and dP = dO V^T (16 x 16 tiles spread over the warps), then
@@ -32,11 +46,12 @@
 //     owner and no atomics are needed. fp32 S and dP of a whole 128 x 128
 //     tile next to dK and dV in fp32 would not fit 227 KB at D = 128; the
 //     32-row chunks keep a bf16 D = 128 block at 142 KB.
-// Products take the stored dtype (bf16 on tensor cores through WMMA 16x16x16
-// fragments, fp32 accumulation; float32 on the FMA units), and P and dS are
-// rounded to the operand dtype before the PV, P^T dO, dS K and dS^T Q
-// products, as the TPU kernels do. This is the simple first version: no TMA,
-// no wgmma, no pipelining of loads against compute.
+// Products take the stored dtype (bf16 on tensor cores, fp32 accumulation:
+// wgmma in the forward, WMMA 16x16x16 fragments in the backward; float32 on
+// the FMA units), and P and dS are rounded to the operand dtype before the
+// PV, P^T dO, dS K and dS^T Q products, as the TPU kernels do. The backward
+// and the float32 forward are the simple first version: no TMA, no wgmma,
+// no pipelining of loads against compute.
 //
 // Semantics (identical to the TPU kernels): causal masking on global
 // positions q_offset + i >= k_offset + j; a row with no visible key gives
@@ -44,14 +59,15 @@
 // 128 works: rows and keys past the end are masked.
 //
 // C interface: every entry point launches on the given stream, does not
-// synchronise, and returns the cudaError_t of the launch (0 on success).
+// synchronise, and returns the cudaError_t of the launch (0 on success), or
+// HVD_ERR_TENSOR_MAP + the CUresult if a tensor map cannot be encoded.
 
-#include "flash_common.cuh"
+#include "flash_hopper.cuh"
 
 namespace {
 
 constexpr int SMAX = 128;  // most rows of Q or of K/V
-constexpr int FWD_BQ = 64;  // Q rows of one forward block
+constexpr int FWD_BQ = 64;  // Q rows of one float32 forward block
 constexpr int FWD_THREADS = 128;  // four warps of 16 rows
 constexpr int QC = 32;  // Q rows of one backward chunk
 constexpr int BWD_WARPS = 8;  // each owns 16 of the SMAX key rows
@@ -71,13 +87,159 @@ struct SingleLayout {
 };
 
 // ---------------------------------------------------------------------------
-// Forward: o [BH, Sq, D], lse [BH, Sq] fp32.
+// Forward, bf16 on Hopper: o [BH, Sq, D] bf16, lse [BH, Sq] fp32.
 // ---------------------------------------------------------------------------
-template <typename T, int D>
-__global__ void __launch_bounds__(FWD_THREADS)
-flash_fwd_single_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+
+// Shared memory of the forward, byte offsets from a 1024-aligned base: a
+// ring of whole-head buffers (Q, K and V of one bh, SMAX rows each), and
+// each consumer warpgroup's bf16 output tile on its way out by TMA. Four
+// buffers, two at D = 128, where one buffer is 96 KB.
+template <int D>
+struct FwdSingleSmem {
+  static constexpr int STAGES = D == 128 ? 2 : 4;
+  static constexpr int TILE = SMAX * D * 2;             // one operand of one head
+  static constexpr int STAGE = 3 * TILE;                // Q, K, V at + 0, TILE, 2 TILE
+  static constexpr int TILE_O = 64 * D * 2;
+  static constexpr int O = STAGES * STAGE;              // + warpgroup * TILE_O
+  static constexpr int BAR = O + CONSUMER_WGS * TILE_O;  // full[S], empty[S]
+  static constexpr int BYTES = BAR + 2 * STAGES * 8 + 1024;  // + alignment slack
+};
+
+// Persistent: a grid of one block per SM walks the heads in turn. The
+// producer runs ahead into the next heads' buffers while the consumers
+// finish the current one.
+template <int D>
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+flash_fwd_single_kernel(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        const __grid_constant__ CUtensorMap tm_o, float* __restrict__ lse, int BH,
                         int Sq, int Sk, float scale, int causal, int q_offset, int k_offset) {
+  using F = TileFormat<D>;
+  using L = FwdSingleSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t full_bar = base + L::BAR;               // buffer s at + 8 s
+  const uint32_t empty_bar = full_bar + 8 * L::STAGES;   // buffer s at + 8 s
+  const int wg = threadIdx.x / WG;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(empty_bar + 8 * s, CONSUMER_WARPS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == CONSUMER_WGS) {
+    // Producer, one thread: per head its Q, K and V.
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x == CONSUMER_WGS * WG) {
+      int it = 0;
+      for (int bh = blockIdx.x; bh < BH; bh += gridDim.x, ++it) {
+        const int s = it % L::STAGES;
+        const uint32_t bar = full_bar + 8 * s;
+        const uint32_t sQ = base + s * L::STAGE;
+        mbar_wait(empty_bar + 8 * s, ((it / L::STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(bar, L::STAGE);
+        for (int b = 0; b < F::NB; ++b) {
+          const uint32_t box = sQ + b * SMAX * F::ROW_BYTES;
+          tma_load_3d(box, &tm_q, bar, b * F::CB, 0, bh);
+          tma_load_3d(box + L::TILE, &tm_k, bar, b * F::CB, 0, bh);
+          tma_load_3d(box + 2 * L::TILE, &tm_v, bar, b * F::CB, 0, bh);
+        }
+      }
+    }
+  } else {
+    // Consumer warpgroup wg: Q rows [64 wg, 64 wg + 64) of each head.
+    reg_alloc<CONSUMER_REGS>();
+    const int tid = threadIdx.x % WG;
+    const int lane = tid & 31;
+    const int tq = lane & 3;
+    const int row_first = wg * 64;
+    const int r = (tid >> 5) * 16 + (lane >> 2);  // this thread's rows r, r + 8 of the 64
+    const int row0 = row_first + r;
+    const float sl2 = scale * LOG2E;
+    // Keys past Sk, or causally hidden keys of these rows: the same for every head.
+    const bool masked = Sk < SMAX || (causal && q_offset + row_first < k_offset + SMAX - 1);
+    int it = 0;
+    for (int bh = blockIdx.x; bh < BH; bh += gridDim.x, ++it) {
+      const int s = it % L::STAGES;
+      const uint32_t sQ = base + s * L::STAGE;
+      const uint32_t sK = sQ + L::TILE;
+      const uint32_t sV = sK + L::TILE;
+      mbar_wait(full_bar + 8 * s, (it / L::STAGES) & 1);
+
+      // S = Q K^T (SS, both K-major).
+      float sc[SMAX / 2];
+      wgmma_fence();
+      Wgmma<SMAX>::template ss_init<0>(sc, F::kmajor(sQ, SMAX, row_first, 0),
+                                       F::kmajor(sK, SMAX, 0, 0));
+#pragma unroll
+      for (int kk = 1; kk < D / 16; ++kk)
+        Wgmma<SMAX>::template ss<0>(sc, F::kmajor(sQ, SMAX, row_first, kk),
+                                    F::kmajor(sK, SMAX, 0, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      // The direct softmax: one tile, from m = NEG_INF and l = 0.
+      float m[2] = {NEG_INF, NEG_INF};
+      float l[2] = {0.f, 0.f};
+      float corr[2];
+      uint32_t p[SMAX / 16][4];
+      if (masked)
+        softmax_tile<SMAX, true>(sc, m, l, corr, p, row0, 0, Sk, sl2, causal, q_offset, k_offset,
+                                 tq);
+      else
+        softmax_tile<SMAX, false>(sc, m, l, corr, p, row0, 0, Sk, sl2, causal, q_offset,
+                                  k_offset, tq);
+
+      // O = P V (RS: P from registers, V MN-major).
+      float acc[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      fence_regs(acc);
+      fence_regs(p);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < SMAX / 16; ++kk)
+        Wgmma<D>::template rs<1>(acc, p[kk], F::mnmajor(sV, SMAX, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_bar + 8 * s);
+
+      // O / l out by TMA (rows past Sq are not written); lse directly.
+      float inv[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+        const bool empty = l[h] == 0.f;
+        inv[h] = empty ? 0.f : 1.f / l[h];
+        const int qi = row0 + 8 * h;
+        if (tq == 0 && qi < Sq)
+          lse[(size_t)bh * Sq + qi] = empty ? LSE_MASKED : m[h] * LN2 + logf(l[h]);
+      }
+      store_out<D>(&tm_o, base + L::O + wg * L::TILE_O, acc, inv, r, tq, tid, wg, row_first, bh);
+    }
+    if (tid == 0) bulk_wait_read<0>();  // shared memory outlives the last store's reads
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Forward, float32: o [BH, Sq, D], lse [BH, Sq] fp32.
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(FWD_THREADS)
+flash_fwd_single_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, float* __restrict__ o,
+                            float* __restrict__ lse, int Sq, int Sk, float scale, int causal,
+                            int q_offset, int k_offset) {
+  using T = float;
   using L = SingleLayout<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
@@ -118,7 +280,7 @@ flash_fwd_single_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int h = 0; h < SMAX / 32; ++h) {
       const int c = lane + 32 * h;
       const float p = visible(qi, c, Sq, Sk, causal, q_offset, k_offset) ? expf(s[h] - m) : 0.f;
-      sP[r * L::LDP + c] = from_f<T>(p);
+      sP[r * L::LDP + c] = p;
       sum += p;
     }
     const float l = warp_sum(sum);
@@ -138,7 +300,7 @@ flash_fwd_single_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + r;
     if (qi >= Sq) break;
     const float safe_l = sL[r] == 0.f ? 1.f : sL[r];
-    for (int c = lane; c < D; c += 32) ob[(size_t)qi * D + c] = from_f<T>(sO[r * L::LDO + c] / safe_l);
+    for (int c = lane; c < D; c += 32) ob[(size_t)qi * D + c] = sO[r * L::LDO + c] / safe_l;
   }
 }
 
@@ -270,37 +432,42 @@ constexpr size_t dqkv_smem() {
 }
 
 template <typename T, int D>
-cudaError_t launch_fwd_single(const void* q, const void* k, const void* v, void* o, void* lse,
-                              int BH, int Sq, int Sk, float scale, int causal, int qo, int ko,
-                              cudaStream_t stream) {
-  constexpr size_t smem = fwd_single_smem<T, D>();
-  static_assert(smem <= SMEM_LIMIT, "forward tiles exceed a block's shared memory");
+int launch_fwd_single(const void* q, const void* k, const void* v, void* o, void* lse, int BH,
+                      int Sq, int Sk, float scale, int causal, int qo, int ko,
+                      cudaStream_t stream) {
   if (Sq < 1 || Sk < 1 || Sq > SMAX || Sk > SMAX) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_single_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((Sq + FWD_BQ - 1) / FWD_BQ, BH);
-  flash_fwd_single_kernel<T, D><<<grid, FWD_THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, Sq, Sk, scale, causal, qo, ko);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, bf16>::value) {
+    static_assert(FwdSingleSmem<D>::BYTES <= SMEM_LIMIT, "forward buffers exceed shared memory");
+    CUtensorMap mq, mk, mv, mo;
+    int err;
+    if ((err = make_tile_map<D>(&mq, q, Sq, BH, SMAX)) ||
+        (err = make_tile_map<D>(&mk, k, Sk, BH, SMAX)) ||
+        (err = make_tile_map<D>(&mv, v, Sk, BH, SMAX)) ||
+        (err = make_tile_map<D>(&mo, o, Sq, BH, 64)))
+      return err;
+    int sms = 0;
+    if ((err = sm_count(&sms))) return err;
+    return launch(flash_fwd_single_kernel<D>, dim3(BH < sms ? BH : sms), SM90_THREADS,
+                  FwdSingleSmem<D>::BYTES, stream, mq, mk, mv, mo, (float*)lse, BH, Sq, Sk,
+                  scale, causal, qo, ko);
+  } else {
+    static_assert(fwd_single_smem<T, D>() <= SMEM_LIMIT, "forward tiles exceed shared memory");
+    return launch(flash_fwd_single_f32_kernel<D>, dim3((Sq + FWD_BQ - 1) / FWD_BQ, BH),
+                  FWD_THREADS, fwd_single_smem<T, D>(), stream, (const T*)q, (const T*)k,
+                  (const T*)v, (T*)o, (float*)lse, Sq, Sk, scale, causal, qo, ko);
+  }
 }
 
 template <typename T, int D>
-cudaError_t launch_dqkv(const void* q, const void* k, const void* v, const void* dout,
-                        const void* lse, const void* delta, const void* glse, void* dq, void* dk,
-                        void* dv, int BH, int Sq, int Sk, float scale, int causal, int qo, int ko,
-                        cudaStream_t stream) {
-  constexpr size_t smem = dqkv_smem<T, D>();
-  static_assert(smem <= SMEM_LIMIT, "backward tiles exceed a block's shared memory");
+int launch_dqkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                const void* delta, const void* glse, void* dq, void* dk, void* dv, int BH, int Sq,
+                int Sk, float scale, int causal, int qo, int ko, cudaStream_t stream) {
+  static_assert(dqkv_smem<T, D>() <= SMEM_LIMIT, "backward tiles exceed shared memory");
   if (Sq < 1 || Sk < 1 || Sq > SMAX || Sk > SMAX) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(flash_dqkv_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  flash_dqkv_kernel<T, D><<<BH, BWD_THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
-      (const float*)delta, (const float*)glse, (T*)dq, (T*)dk, (T*)dv, Sq, Sk, scale, causal, qo,
-      ko);
-  return cudaGetLastError();
+  return launch(flash_dqkv_kernel<T, D>, dim3(BH), BWD_THREADS, dqkv_smem<T, D>(), stream,
+                (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
+                (const float*)delta, (const float*)glse, (T*)dq, (T*)dk, (T*)dv, Sq, Sk, scale,
+                causal, qo, ko);
 }
 
 }  // namespace
@@ -311,8 +478,8 @@ int hvd_flash_fwd_single(const void* q, const void* k, const void* v, void* o, v
                          int Sq, int Sk, int D, int dtype, int causal, int q_offset,
                          int k_offset, float scale, void* stream) {
   HVD_DISPATCH(dtype, D,
-               (int)(launch_fwd_single<T, HD>(q, k, v, o, lse, BH, Sq, Sk, scale, causal,
-                                              q_offset, k_offset, (cudaStream_t)stream)));
+               (launch_fwd_single<T, HD>(q, k, v, o, lse, BH, Sq, Sk, scale, causal, q_offset,
+                                         k_offset, (cudaStream_t)stream)));
 }
 
 int hvd_flash_dqkv(const void* q, const void* k, const void* v, const void* dout,
@@ -320,9 +487,8 @@ int hvd_flash_dqkv(const void* q, const void* k, const void* v, const void* dout
                    void* dv, int BH, int Sq, int Sk, int D, int dtype, int causal, int q_offset,
                    int k_offset, float scale, void* stream) {
   HVD_DISPATCH(dtype, D,
-               (int)(launch_dqkv<T, HD>(q, k, v, dout, lse, delta, glse, dq, dk, dv, BH, Sq, Sk,
-                                        scale, causal, q_offset, k_offset,
-                                        (cudaStream_t)stream)));
+               (launch_dqkv<T, HD>(q, k, v, dout, lse, delta, glse, dq, dk, dv, BH, Sq, Sk, scale,
+                                   causal, q_offset, k_offset, (cudaStream_t)stream)));
 }
 
 }  // extern "C"

@@ -1,0 +1,127 @@
+// What the Hopper (sm_90a) flash-attention kernels of flash_attention.cu and
+// flash_attention_single.cu share: the warp-specialized block (two consumer
+// warpgroups of 64 rows each, and a producer warpgroup that gives its
+// registers to them), the softmax of a score tile on the consumers'
+// accumulator registers, the epilogue that sends a consumer's output tile
+// out through shared memory by TMA, and the launch of a grid.
+//
+// Everything sits in an anonymous namespace, as in flash_common.cuh.
+
+#pragma once
+
+#include <math.h>
+
+#include "flash_common.cuh"
+#include "sm90.cuh"
+
+namespace {
+
+constexpr int WG = 128;            // threads of a warpgroup
+constexpr int CONSUMER_WGS = 2;    // each owns 64 rows of the block's tile
+constexpr int CONSUMER_WARPS = CONSUMER_WGS * 4;
+constexpr int SM90_THREADS = (CONSUMER_WGS + 1) * WG;  // + the producer warpgroup
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;  // 24 * 128 + 240 * 256 = 168 * 384
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// Online softmax of one K tile on a consumer thread's registers: the scores
+// sc (the m64 x BK accumulator) become P, as bf16 A fragments p; the running
+// max m (log2 units) and the partial row sums l move on, and corr is the
+// factor that rescales the output accumulator of the thread's two rows
+// (row0, row0 + 8). MASK: the tile holds keys past Sk or causally hidden
+// keys for some of those rows. The scale folds into one FMA before exp2.
+// With m = NEG_INF and l = 0 on entry it is the direct softmax of one tile.
+template <int BK, bool MASK>
+__device__ __forceinline__ void softmax_tile(const float (&sc)[BK / 2], float (&m)[2],
+                                             float (&l)[2], float (&corr)[2],
+                                             uint32_t (&p)[BK / 16][4], int row0, int k0, int Sk,
+                                             float sl2, int causal, int q_offset, int k_offset,
+                                             int tq) {
+  auto hidden = [&](int i) {
+    const int kj = k0 + 8 * (i >> 2) + 2 * tq + (i & 1);
+    return kj >= Sk || (causal && q_offset + row0 + 8 * ((i >> 1) & 1) < k_offset + kj);
+  };
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i)
+    if (!MASK || !hidden(i)) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+  float neg_m[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    const float m_new = fmaxf(m[h], mx[h] * sl2);  // m starts at NEG_INF (finite)
+    corr[h] = exp2f(m[h] - m_new);
+    m[h] = m_new;
+    neg_m[h] = -m_new;
+    l[h] *= corr[h];
+  }
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = 8 * kk + 2 * r, h = r & 1;
+      float e0 = exp2f(fmaf(sc[i], sl2, neg_m[h]));
+      float e1 = exp2f(fmaf(sc[i + 1], sl2, neg_m[h]));
+      if (MASK) {
+        e0 = hidden(i) ? 0.f : e0;
+        e1 = hidden(i + 1) ? 0.f : e1;
+      }
+      l[h] += e0 + e1;
+      p[kk][r] = pack_bf16(e0, e1);
+    }
+}
+
+// A consumer warpgroup's epilogue: its 64 x D accumulator acc (this thread
+// holds rows r and r + 8 of the tile), row half h scaled by mul[h], goes in
+// bf16 into the warpgroup's output tile sO and leaves by one TMA store per
+// box to rows [row_first, row_first + 64) of head bh; rows past the
+// tensor's end are not written. The store runs on while the next work tile
+// starts: the next call first waits until it has read sO.
+template <int D>
+__device__ __forceinline__ void store_out(const CUtensorMap* map, uint32_t sO,
+                                          const float (&acc)[D / 2], const float (&mul)[2], int r,
+                                          int tq, int tid, int wg, int row_first, int bh) {
+  using F = TileFormat<D>;
+  if (tid == 0) bulk_wait_read<0>();
+  named_sync(1 + wg, WG);
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int i = 4 * j + 2 * h;
+      st_shared_u32(sO + F::offset(64, r + 8 * h, 8 * j + 2 * tq),
+                    pack_bf16(acc[i] * mul[h], acc[i + 1] * mul[h]));
+    }
+  fence_async_smem();
+  named_sync(1 + wg, WG);
+  if (tid == 0) {
+    for (int b = 0; b < F::NB; ++b)
+      tma_store_3d(map, sO + b * 64 * F::ROW_BYTES, b * F::CB, row_first, bh);
+    bulk_commit();
+  }
+}
+
+// Streaming multiprocessors of the current device: the grid of a persistent
+// kernel.
+int sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return err;
+}
+
+// Allow `smem` bytes of dynamic shared memory for `kernel`, then launch it.
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, dim3 grid, int threads, size_t smem, cudaStream_t stream,
+           Args... args) {
+  if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+}  // namespace

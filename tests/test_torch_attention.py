@@ -312,7 +312,9 @@ def test_profile_categories_name_kernels_in_the_sources():
     as "other"."""
     smoke = _chip_smoke()
     kernels = _global_functions()
-    assert {"flash_fwd_kernel", "flash_dkv_kernel"} <= kernels
+    assert {"flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
+            "flash_fwd_single_kernel", "flash_dq_f32_kernel",
+            "flash_fwd_single_f32_kernel"} <= kernels
     categories = dict(smoke._CATEGORIES)
     for kern in _kernels.KERNELS:
         for key in categories[kern.name]:
@@ -343,28 +345,43 @@ def test_build_report_flags_spills_and_serialized_wgmma_of_hopper_kernels():
         name = f"{kernel}ILi{d}EEEv14CUtensorMap_stS1_S1_S1_Pfiiifiii"
         return f"_ZN12_GLOBAL__N_1{len(kernel)}{name}"
 
-    instances = [(k, d) for k in ("flash_fwd_kernel", "flash_dkv_kernel")
+    instances = [(k, d) for k in ("flash_fwd_kernel", "flash_dq_kernel",
+                                  "flash_dkv_kernel",
+                                  "flash_fwd_single_kernel")
                  for d in (16, 32, 64, 128)]
-    others = (_ptxas_entry("_ZN12_GLOBAL__N_115flash_dq_kernelI13__nv_"
-                           "bfloat16Li64EEEvPKT_", "8 bytes spill stores, "
-                           "8 bytes spill loads", 255)
+    others = (_ptxas_entry("_ZN12_GLOBAL__N_119flash_dq_f32_kernelILi64EEE"
+                           "vPKfS2_S2_S2_S2_S2_S2_Pfiifiii", "8 bytes spill "
+                           "stores, 8 bytes spill loads", 255)
               + _ptxas_entry("_ZN12_GLOBAL__N_120flash_fwd_f32_kernelILi64"
-                             "EEEvPKfS2_S2_PfS3_iiifiii", registers=96))
+                             "EEEvPKfS2_S2_PfS3_iiifiii", registers=96)
+              + _ptxas_entry("_ZN12_GLOBAL__N_127flash_fwd_single_f32_kernel"
+                             "ILi32EEEvPKfS2_S2_PfS3_iiifiii", "4 bytes spill "
+                             "stores, 4 bytes spill loads", 128))
     clean = others + "".join(_ptxas_entry(hopper(k, d)) for k, d in instances)
     regs, faults = smoke.hopper_build_report(clean)
     assert sorted(regs) == sorted(smoke.HOPPER_INSTANCES)
+    assert len(regs) == 16
     assert set(regs.values()) == {168} and faults == []
 
-    spilled = clean.replace(
-        _ptxas_entry(hopper("flash_dkv_kernel", 128)),
-        _ptxas_entry(hopper("flash_dkv_kernel", 128), "240 bytes spill "
-                     "stores, 252 bytes spill loads"))
-    serialized = clean + (
-        "ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async "
-        "instructions are serialized due to insufficient register resources "
-        f"for the wgmma pipeline in the function '{hopper('flash_fwd_kernel', 32)}'\n")
-    for log, culprit in ((spilled, "flash_dkv_kernel<128>"),
-                         (serialized, "flash_fwd_kernel<32>")):
+    def spill(log, kernel, d):
+        return log.replace(
+            _ptxas_entry(hopper(kernel, d)),
+            _ptxas_entry(hopper(kernel, d), "240 bytes spill stores, 252 "
+                         "bytes spill loads"))
+
+    def serialize(log, kernel, d):
+        return log + (
+            "ptxas info    : (C7512) Potential Performance Loss: "
+            "wgmma.mma_async instructions are serialized due to insufficient "
+            "register resources for the wgmma pipeline in the function "
+            f"'{hopper(kernel, d)}'\n")
+
+    for log, culprit in (
+            (spill(clean, "flash_dkv_kernel", 128), "flash_dkv_kernel<128>"),
+            (spill(clean, "flash_dq_kernel", 64), "flash_dq_kernel<64>"),
+            (serialize(clean, "flash_fwd_kernel", 32), "flash_fwd_kernel<32>"),
+            (serialize(clean, "flash_fwd_single_kernel", 128),
+             "flash_fwd_single_kernel<128>")):
         _, faults = smoke.hopper_build_report(log)
         assert len(faults) == 1 and faults[0].startswith(culprit), faults
 
@@ -389,7 +406,11 @@ def cuda_device():
     (torch.bfloat16, 64, 200, 264, True, 0, 40),
     (torch.bfloat16, 128, 200, 264, True, 0, 40),
     (torch.bfloat16, 128, 264, 200, True, 64, 0),
-    (torch.bfloat16, 32, 300, 300, False, 0, 0)])
+    (torch.bfloat16, 32, 300, 300, False, 0, 0),
+    # chip_smoke.py's single-tile shapes through the multi-tile kernels.
+    (torch.bfloat16, 16, 128, 128, True, 0, 0),
+    (torch.bfloat16, 32, 112, 128, True, 16, 0),
+    (torch.bfloat16, 64, 77, 100, True, 0, 23)])
 def test_kernels_match_plain_versions_on_the_card(cuda_device, dtype, D, Sq,
                                                   Sk, causal, q_offset,
                                                   k_offset):
@@ -421,7 +442,12 @@ def test_kernels_match_plain_versions_on_the_card(cuda_device, dtype, D, Sq,
     (torch.bfloat16, 128, 128, 128, False, 0, 0),
     (torch.bfloat16, 16, 96, 128, True, 0, 40),
     (torch.float32, 64, 128, 128, True, 16, 0),
-    (torch.float32, 32, 50, 70, False, 0, 0)])
+    (torch.float32, 32, 50, 70, False, 0, 0),
+    # The Hopper forward at D = 16 and 32, causal; lengths that are no
+    # multiple of 16, rows 0..22 seeing no key.
+    (torch.bfloat16, 16, 128, 128, True, 0, 0),
+    (torch.bfloat16, 32, 112, 128, True, 16, 0),
+    (torch.bfloat16, 64, 77, 100, True, 0, 23)])
 def test_single_tile_kernels_match_plain_versions_on_the_card(
         cuda_device, dtype, D, Sq, Sk, causal, q_offset, k_offset):
     gen = torch.Generator(device=cuda_device).manual_seed(1)
