@@ -5,11 +5,15 @@
     python3 chip_diag.py ab OTHER_CHECKOUT
     python3 chip_diag.py watchdog
 
-``ab`` times the flash-attention kernels of OTHER_CHECKOUT and of this
-checkout at chip_smoke.py's BERT-Large path shapes (D = 64, bf16,
-non-causal): the multi-tile ones (flash_fwd, flash_dq, flash_dkv) and the
-SDPA forward and backward at S=512 (B*H = 128), the single-tile forward
-(flash_fwd_single) and the SDPA forward at S=128 (B*H = 1024). Each
+``ab`` times the kernels of OTHER_CHECKOUT and of this checkout at
+chip_smoke.py's shapes: at its BERT-Large path shapes (D = 64, bf16,
+non-causal) the multi-tile attention kernels (flash_fwd, flash_dq,
+flash_dkv) and the SDPA forward and backward at S=512 (B*H = 128); the
+single-tile forward and fused backward (flash_fwd_single, flash_dqkv), the
+SDPA forward and backward, and flash_dq + flash_dkv on flash_dqkv's inputs
+at S=128 (B*H = 1024); and the 1x1-conv filter gradient (dw_1x1) beside
+cuBLAS's x^T dy at both ResNet-50 shapes of chip_smoke.py (the shortcut's
+cuBLAS call reads a contiguous copy of its strided x). Each
 checkout runs in a process of its own, in the order other, this, this,
 other. Each process times every call by three methods, all with the L2
 flushed before each call:
@@ -42,7 +46,9 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CALLS = ("flash_fwd", "flash_dq", "flash_dkv", "sdpa_fwd", "sdpa_bwd",
-         "flash_fwd_single", "sdpa_fwd_s128")
+         "flash_fwd_single", "sdpa_fwd_s128", "flash_dqkv", "sdpa_bwd_s128",
+         "flash_dq_dkv_s128", "dw_1x1_stage1", "cublas_stage1",
+         "dw_1x1_shortcut", "cublas_shortcut")
 METHODS = ("spin_ms", "no_spin_ms", "device_ms")
 
 
@@ -92,6 +98,7 @@ def _worker(tree, label):
     sys.path.insert(0, tree)
     from horovod_tpu_torch.ops import _kernels
     from horovod_tpu_torch.ops import attention as A
+    from horovod_tpu_torch.ops import conv_backward as C
 
     if not A.__file__.startswith(tree + os.sep):
         raise RuntimeError(f"imported {A.__file__}, not the checkout {tree}")
@@ -105,6 +112,26 @@ def _worker(tree, label):
     q1, k1, v1 = (torch.randn(B1 * H, S1, D, generator=gen, device="cuda")
                   .to(torch.bfloat16) for _ in range(3))
     q14, k14, v14 = (t.view(B1, H, S1, D) for t in (q1, k1, v1))
+    q14g, k14g, v14g = (t.detach().requires_grad_() for t in (q14, k14, v14))
+    do1 = torch.randn(B1 * H, S1, D, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    o1, lse1 = A.flash_fwd_single_plain(q1, k1, v1)
+    delta1 = (do1.float() * o1.float()).sum(-1)
+    bwd1 = (q1, k1, v1, do1, lse1, delta1, torch.zeros_like(delta1), False,
+            0, 0)
+    out14 = F.scaled_dot_product_attention(q14g, k14g, v14g)
+    do14 = do1.view(B1, H, S1, D)
+    conv = {}
+    for name, N, Hc, Wc, ci, co, strides in smoke.CONV_SHAPES:
+        x = torch.randn(N, Hc, Wc, ci, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        xs = x[:, ::strides[0], ::strides[1], :]
+        K = xs.shape[:3].numel()
+        dy = torch.randn(K, co, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        conv[name] = (xs, xs.contiguous().reshape(K, ci), dy)
+    (xs1, x2d1, dy1), (xs2, x2d2, dy2) = (conv[c[0]]
+                                          for c in smoke.CONV_SHAPES)
     o, lse = A.flash_fwd_plain(q, k, v)
     delta = (do.float() * o.float()).sum(-1)
     bwd = (q, k, v, do, lse, delta, torch.zeros_like(delta), False, 0, 0)
@@ -123,6 +150,14 @@ def _worker(tree, label):
                                                        0),
         "sdpa_fwd_s128": lambda: F.scaled_dot_product_attention(q14, k14,
                                                                 v14),
+        "flash_dqkv": lambda: A.flash_dqkv(*bwd1),
+        "sdpa_bwd_s128": lambda: torch.autograd.grad(
+            out14, (q14g, k14g, v14g), do14, retain_graph=True),
+        "flash_dq_dkv_s128": lambda: (A.flash_dq(*bwd1), A.flash_dkv(*bwd1)),
+        "dw_1x1_stage1": lambda: C.dw_1x1(xs1, dy1),
+        "cublas_stage1": lambda: torch.matmul(x2d1.T, dy1),
+        "dw_1x1_shortcut": lambda: C.dw_1x1(xs2, dy2),
+        "cublas_shortcut": lambda: torch.matmul(x2d2.T, dy2),
     }
     result = {name: {"spin_ms": smoke.time_ms(fn),
                      "no_spin_ms": smoke.time_ms(fn, sleep_cycles=0),

@@ -11,8 +11,9 @@ and prints no result line):
 1. the card's name and power limit (``nvidia-smi``);
 2. build of the hand-written CUDA kernels from ``horovod_tpu_torch/ops/csrc``
    (one ``nvcc`` per source, all started together); no Hopper (wgmma)
-   instance (the bf16 forward, dQ, dK/dV and single-tile forward at D=16,
-   32, 64, 128) may spill or have its wgmma serialized;
+   instance (the bf16 forward, dQ, dK/dV, single-tile forward and fused
+   backward at D=16, 32, 64, 128, and the bf16 filter gradient) may spill
+   or have its wgmma serialized;
 3. kernel phase: every kernel against its plain PyTorch version on the same
    inputs, with times beside the bound and the library yardstick:
    - the multi-tile forward, dQ and dK/dV flash-attention kernels
@@ -25,7 +26,10 @@ and prints no result line):
      causal bf16 at D=16 and D=32; a causal ragged 77 x 100 case with a key
      offset);
    - the 1x1-conv filter gradient (ResNet-50 stage-1 bottleneck 64 -> 256;
-     the stride-2 projection shortcut 256 -> 512; float32 with a ragged K);
+     the stride-2 projection shortcut 256 -> 512, timed beside its own
+     cuBLAS call; bf16 with a ragged K and ragged channel tiles; bf16 on a
+     stride-2 view with an odd H; float32 with a ragged K); two bf16 calls
+     on the same inputs must agree bit for bit;
 4. training phase: synchronous data-parallel BERT-Large training through
    ``init`` / ``DistributedOptimizer`` / ``broadcast_parameters`` with the
    1-rank NCCL bucketed allreduce forced on, on two paths: sequence 512
@@ -138,14 +142,27 @@ def time_ms(fn, reps=20, warmup=3, sleep_cycles=SLEEP_CYCLES):
 
 
 # The Hopper (wgmma) instances: the bf16 kernels of both attention routes at
-# every head dim (the float32 kernels are named *_f32_kernel).
+# every head dim, and the bf16 1x1-conv filter gradient (the float32
+# kernels are named *_f32_kernel).
 HOPPER_INSTANCES = tuple(f"{k}<{d}>" for k in ("flash_fwd_kernel",
                                                "flash_dq_kernel",
                                                "flash_dkv_kernel",
-                                               "flash_fwd_single_kernel")
-                         for d in (16, 32, 64, 128))
+                                               "flash_fwd_single_kernel",
+                                               "flash_dqkv_kernel")
+                         for d in (16, 32, 64, 128)) + ("dw_1x1_kernel",)
 _HOPPER_NAME = re.compile(
-    r"(flash_(?:fwd_single|fwd|dq|dkv)_kernel)ILi(\d+)E")
+    r"(flash_(?:fwd_single|fwd|dqkv|dq|dkv)_kernel)ILi(\d+)E"
+    r"|\d(dw_1x1_kernel)E")
+
+
+def _hopper_instance(line):
+    """The Hopper instance a line of ptxas output names, or None."""
+    found = _HOPPER_NAME.search(line)
+    if not found:
+        return None
+    if found.group(3):
+        return found.group(3)
+    return f"{found.group(1)}<{found.group(2)}>"
 
 
 def hopper_build_report(log):
@@ -156,17 +173,16 @@ def hopper_build_report(log):
     regs, faults, entry = {}, [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            found = _HOPPER_NAME.search(line)
-            entry = f"{found.group(1)}<{found.group(2)}>" if found else None
+            entry = _hopper_instance(line)
         elif entry and "Used" in line and "registers" in line:
             regs[entry] = int(line.split("Used ")[1].split()[0])
         elif entry and "spill" in line and not line.strip().endswith(
                 "0 bytes spill stores, 0 bytes spill loads"):
             faults.append(f"{entry}: {line.strip()}")
         if "Potential Performance Loss" in line and "wgmma" in line:
-            found = _HOPPER_NAME.search(line)
-            if found:
-                faults.append(f"{found.group(1)}<{found.group(2)}>: "
+            culprit = _hopper_instance(line)
+            if culprit:
+                faults.append(f"{culprit}: "
                               f"{line.split('Loss:', 1)[1].strip()}")
     return regs, faults
 
@@ -404,16 +420,24 @@ def kernel_phase():
 
 def dw_kernel_phase():
     """Hold the 1x1-conv filter-gradient kernel against its plain version;
-    return the timed case's measurements."""
+    return the stage-1 case's measurements."""
     import torch
 
     from horovod_tpu_torch.ops import conv_backward as C
 
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = [(*shape, bf16, i == 0) for i, shape in enumerate(CONV_SHAPES)]
-    # K = 5 * 37 * 41 = 7585 rows: no multiple of any tile; Cin = 72 and
-    # Cout = 40 leave ragged channel tiles too.
-    cases.append(("float32_ragged", 5, 37, 41, 72, 40, (1, 1), f32, False))
+    # name, N, H, W, Cin, Cout, strides, dtype, timed (the first case's
+    # numbers are the kernel's line of the JSON).
+    cases = [(*shape, bf16, True) for shape in CONV_SHAPES]
+    cases += [
+        # K = 5 * 37 * 41 = 7585 rows: no multiple of any tile; Cin = 72
+        # and Cout = 40 leave ragged channel tiles too.
+        ("bf16_ragged", 5, 37, 41, 72, 40, (1, 1), bf16, False),
+        # Odd H: the stride-2 view's images do not follow each other
+        # evenly (a 4-D row grid), and W' = 15 needs padded boxes.
+        ("bf16_stride2_odd_h", 4, 37, 30, 64, 128, (2, 2), bf16, False),
+        ("float32_ragged", 5, 37, 41, 72, 40, (1, 1), f32, False),
+    ]
     gen = torch.Generator(device="cuda").manual_seed(1)
     measured = {}
     for case, N, H, W, ci, co, strides, dtype, timed in cases:
@@ -425,18 +449,29 @@ def dw_kernel_phase():
         kern = lambda: (C.dw_1x1(xs, dy),)  # noqa: E731
         plain = lambda: (C.dw_1x1_plain(xs, dy),)  # noqa: E731
         got, want = kern(), plain()
+        again = kern()
         torch.cuda.synchronize()
         err, line = _hold(case, "dw_1x1", got, want, TOL_DW[dname])
-        line += f" (K {K}, {ci} -> {co}, strides {strides})"
+        if not torch.equal(got[0], again[0]):
+            raise AssertionError(f"{case} dw_1x1: two calls on the same "
+                                 "inputs differ")
+        line += (f" (K {K}, {ci} -> {co}, strides {strides}; a second call "
+                 "equal bit for bit)")
         bounds = _dw_bounds(K, ci, co, dname)
         if timed:
             # One library call for the same function: cuBLAS, bf16 in and
-            # out (the kernel returns fp32).
-            x2d = xs.reshape(K, ci)
+            # out (the kernel returns fp32). A strided view would make
+            # matmul copy it inside the timing, so the library reads a
+            # contiguous copy of x made before.
+            x2d = xs.reshape(K, ci) if xs.is_contiguous() else (
+                xs.contiguous().reshape(K, ci))
             library_ms = time_ms(lambda: torch.matmul(x2d.T, dy))
             numbers, text = _timing(kern, plain, bounds, library_ms)
-            measured["dw_1x1"] = dict(max_abs_err=err, **numbers)
-            line += text + " (library output bf16)"
+            if not measured:
+                measured["dw_1x1"] = dict(max_abs_err=err, **numbers)
+            line += text + " (library output bf16" + (
+                "" if xs.is_contiguous() else
+                "; library reads a contiguous copy of x, the copy untimed") + ")"
         else:
             ms = time_ms(kern)
             line += (f" ms {ms:.4f} bound_ms {bounds[0]:.4f} ({bounds[1]}; "
@@ -600,8 +635,9 @@ _CATEGORIES = (  # first match wins; by lower-cased kernel name
     ("flash_dkv", ("flash_dkv_kernel", "flash_dkv_f32_kernel")),
     ("flash_fwd_single", ("flash_fwd_single_kernel",
                           "flash_fwd_single_f32_kernel")),
-    ("flash_dqkv", ("flash_dqkv_kernel",)),
-    ("dw_1x1", ("dw_1x1_partial_kernel", "dw_1x1_reduce_kernel")),
+    ("flash_dqkv", ("flash_dqkv_kernel", "flash_dqkv_f32_kernel")),
+    ("dw_1x1", ("dw_1x1_kernel", "dw_1x1_partial_f32_kernel",
+                "dw_1x1_reduce_kernel")),
     ("matmul", ("gemm", "nvjet", "xmma", "cutlass", "gemv")),
     ("nccl", ("nccl",)),
     ("optimizer", ("multi_tensor_apply",)),

@@ -74,7 +74,7 @@ FLASH_DQKV = Kernel(
     "flash_dqkv", "hvd_flash_dqkv", (_P,) * 10 + (_I,) * 8 + (_F, _P),
     "flash_attention_single.cu", "horovod_tpu/ops/attention.py:343")
 DW_1X1 = Kernel(
-    "dw_1x1", "hvd_dw_1x1", (_P,) * 4 + (_I,) * 7 + (_L,) * 3 + (_I, _P),
+    "dw_1x1", "hvd_dw_1x1", (_P,) * 4 + (_I,) * 10 + (_L,) * 3 + (_I, _P),
     "conv1x1_dw.cu", "horovod_tpu/ops/conv_backward.py:43")
 KERNELS = (FLASH_FWD, FLASH_DQ, FLASH_DKV, FLASH_FWD_SINGLE, FLASH_DQKV,
            DW_1X1)

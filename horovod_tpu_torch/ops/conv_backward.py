@@ -21,6 +21,7 @@ version, :func:`dw_1x1_plain`, for CPU tensors.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -29,8 +30,14 @@ from . import _kernels
 
 _KERNEL_DTYPES = {torch.float32: _kernels.DTYPE_F32,
                   torch.bfloat16: _kernels.DTYPE_BF16}
-_TILE = 64  # channels of one output tile, and rows per step (conv1x1_dw.cu)
-_BLOCKS_PER_SM = 4  # the split of K aims at this many blocks per SM
+# float32 kernel: channels of one output tile, and rows per step.
+_TILE = 64
+_BLOCKS_PER_SM = 4  # its split of K aims at this many blocks per SM
+# bf16 kernel: a block tile's input and output channels, the most rows of a
+# TMA box dimension, and wgmma's depth in rows.
+_CI_TILE, _CO_TILE = 64, 256
+_BOX_MAX = 256
+_DEPTH = 16
 
 
 def dw_1x1_plain(x2d, dy2d):
@@ -40,13 +47,67 @@ def dw_1x1_plain(x2d, dy2d):
     return torch.matmul(x2d.float().transpose(0, 1), dy2d.float())
 
 
-def _row_strides(x):
-    """(H, W, sn, sh, sw) that map row k of ``x`` to its first channel."""
-    if x.dim() == 2:
-        return 1, x.shape[0], 0, 0, x.stride(0)
-    _, H, W, _ = x.shape
-    sn, sh, sw, _ = x.stride()
-    return H, W, sn, sh, sw
+@dataclasses.dataclass(frozen=True)
+class RowGrid:
+    """The rows of ``x`` as a grid ``(Nd, Hd, Wd)``, W fastest: row
+    ``k = (n Hd + h) Wd + w`` starts ``n sn + h sh + w sw`` elements after
+    ``x``'s first element. The kernels read ``x`` through it in place."""
+
+    Wd: int
+    Hd: int
+    Nd: int
+    sw: int
+    sh: int
+    sn: int
+
+
+def row_grid(shape, strides):
+    """The :class:`RowGrid` of an ``[K, C]`` or ``[N, H, W, C]`` tensor of
+    this shape and these element strides: one grid row of K rows where the
+    rows are evenly spaced, else ``(N H, W)`` where images follow each other
+    evenly, else ``(N, H, W)``."""
+    if len(shape) == 2:
+        return RowGrid(1, shape[0], 1, strides[0], strides[0],
+                       shape[0] * strides[0])
+    N, H, W, _ = shape
+    sn, sh, sw, _ = strides
+    K = N * H * W
+    dims = [(n, st) for n, st in ((N, sn), (H, sh), (W, sw)) if n > 1]
+    if all(outer == n * st for (_, outer), (n, st) in zip(dims, dims[1:])):
+        rs = dims[-1][1] if dims else sw
+        return RowGrid(1, K, 1, rs, rs, K * rs)
+    if H == 1:  # the images are the grid rows
+        sh = sn
+    if N == 1 or sn == H * sh:
+        return RowGrid(W, N * H, 1, sw, sh, N * H * sh)
+    return RowGrid(W, H, N, sw, sh, sn)
+
+
+def box_rows(Wd):
+    """``(hb, rows)`` of the bf16 kernel's boxes for grid rows of ``Wd``: a
+    box of x is ``hb`` whole grid rows (``Wd hb`` rows of K), padded to
+    ``rows``, a multiple of wgmma's depth of 16. The largest ``hb`` whose
+    rows need no padding and number 64 to 112 (three stages of 112 rows
+    kept the most bytes in flight on an H100); where there is none, about
+    128 rows with padding (at most 256, the box limit)."""
+    if not 1 <= Wd <= _BOX_MAX:
+        raise ValueError(
+            f"the bf16 dw_1x1 kernel reads at most {_BOX_MAX} rows of W at a "
+            f"time; got W = {Wd}")
+    for hb in range(112 // Wd, 0, -1):
+        if Wd * hb % _DEPTH == 0 and Wd * hb >= 64:
+            return hb, Wd * hb
+    hb = max(1, 128 // Wd)
+    return hb, -(-Wd * hb // _DEPTH) * _DEPTH
+
+
+def split_boxes(nboxes, tiles, sms):
+    """``(split, nsplit)``: the boxes of K go in ``nsplit`` ranges of
+    ``split`` boxes (the last may be shorter), so that ``nsplit * tiles``
+    work items come to about one per SM."""
+    want = max(1, min(nboxes, sms // tiles))
+    split = -(-nboxes // want)
+    return split, -(-nboxes // split)
 
 
 def dw_1x1(x2d, dy2d):
@@ -77,9 +138,10 @@ def dw_1x1(x2d, dy2d):
         raise ValueError(
             f"dy must be [{K}, Cout] in {dtype} on {x2d.device}; got "
             f"{dy2d.dtype} {tuple(dy2d.shape)} on {dy2d.device}")
-    H, W, sn, sh, sw = _row_strides(x2d)
+    grid = row_grid(tuple(x2d.shape), x2d.stride())
     if (K == 0 or ci % vec or co % vec or x2d.stride(-1) != 1
-            or any(s % vec for s in (sn, sh, sw)) or x2d.data_ptr() % 16
+            or any(s % vec for s in (grid.sn, grid.sh, grid.sw))
+            or x2d.data_ptr() % 16
             or not dy2d.is_contiguous() or dy2d.data_ptr() % 16):
         raise ValueError(
             f"dw_1x1 needs K > 0, Cin and Cout multiples of {vec}, unit "
@@ -89,20 +151,28 @@ def dw_1x1(x2d, dy2d):
             f"{tuple(dy2d.shape)}")
     if K >= 2**31:
         raise ValueError(f"dw_1x1 takes fewer than 2**31 rows; got {K}")
-    tiles = math.ceil(ci / _TILE) * math.ceil(co / _TILE)
     sms = torch.cuda.get_device_properties(x2d.device).multi_processor_count
-    nsplit = max(1, min(math.ceil(_BLOCKS_PER_SM * sms / tiles),
-                        math.ceil(K / _TILE), 65535))
-    rows = math.ceil(math.ceil(K / nsplit) / _TILE) * _TILE
-    nsplit = math.ceil(K / rows)
+    if dtype == torch.bfloat16:
+        hb, rows = box_rows(grid.Wd)
+        tiles = math.ceil(ci / _CI_TILE) * math.ceil(co / _CO_TILE)
+        split, nsplit = split_boxes(grid.Nd * math.ceil(grid.Hd / hb), tiles,
+                                    sms)
+    else:
+        hb, rows = 0, 0
+        tiles = math.ceil(ci / _TILE) * math.ceil(co / _TILE)
+        nsplit = max(1, min(math.ceil(_BLOCKS_PER_SM * sms / tiles),
+                            math.ceil(K / _TILE), 65535))
+        split = math.ceil(math.ceil(K / nsplit) / _TILE) * _TILE
+        nsplit = math.ceil(K / split)
     out = torch.empty(ci, co, dtype=torch.float32, device=x2d.device)
     part = (torch.empty(nsplit, ci, co, dtype=torch.float32,
                         device=x2d.device) if nsplit > 1 else out)
     with torch.cuda.device(x2d.device):
         _kernels.launch(
             _kernels.DW_1X1, x2d.data_ptr(), dy2d.data_ptr(),
-            part.data_ptr(), out.data_ptr(), K, ci, co, nsplit, rows, H, W,
-            sn, sh, sw, _KERNEL_DTYPES[dtype],
+            part.data_ptr(), out.data_ptr(), K, ci, co, nsplit, split, hb,
+            rows, grid.Wd, grid.Hd, grid.Nd, grid.sw, grid.sh, grid.sn,
+            _KERNEL_DTYPES[dtype],
             torch.cuda.current_stream(x2d.device).cuda_stream)
     return out
 

@@ -1,8 +1,9 @@
 // Device helpers shared by the port's CUDA kernels (flash_attention.cu,
 // flash_attention_single.cu, conv1x1_dw.cu): dtype conversion, warp
-// reductions, tile loads into shared memory, one warp's 16-row matrix
-// product and register accumulator, the causal visibility rule, and the
-// (dtype, head dim) dispatch of the C entry points.
+// reductions, tile loads into shared memory, one warp's 16-row float32
+// matrix product and register accumulator (the float32 first versions of
+// the kernels), the causal visibility rule, and the (dtype, head dim)
+// dispatch of the C entry points.
 //
 // Everything sits in an anonymous namespace: each translation unit gets its
 // own copy, so the sources link into one library without clashes.
@@ -11,7 +12,6 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -19,7 +19,6 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
 
 constexpr float NEG_INF = -1e30f;
 constexpr float LSE_MASKED = 1e30f;
@@ -33,8 +32,6 @@ template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -75,33 +72,8 @@ __device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ 
 
 // One warp: C[16 x N] (+)= A[16 x K] * B[K x N], fp32 C row-major in shared
 // memory. A_T: A is stored transposed (A(i, k) = A[k * lda + i]). B_T: B is
-// stored as [N][K] (B(k, n) = B[n * ldb + k]).
-template <bool A_T, bool B_T, int N, int K>
-__device__ __forceinline__ void warp_gemm(const bf16* A, int lda, const bf16* B, int ldb,
-                                          float* C, int ldc, bool accumulate) {
-  using LA = typename std::conditional<A_T, wmma::col_major, wmma::row_major>::type;
-  using LB = typename std::conditional<B_T, wmma::col_major, wmma::row_major>::type;
-#pragma unroll
-  for (int n0 = 0; n0 < N; n0 += 16) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-    if (accumulate)
-      wmma::load_matrix_sync(c, C + n0, ldc, wmma::mem_row_major);
-    else
-      wmma::fill_fragment(c, 0.f);
-#pragma unroll
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> b;
-      wmma::load_matrix_sync(a, A_T ? A + k0 * lda : A + k0, lda);
-      wmma::load_matrix_sync(b, B_T ? B + n0 * ldb + k0 : B + k0 * ldb + n0, ldb);
-      wmma::mma_sync(c, a, b, c);
-    }
-    wmma::store_matrix_sync(C + n0, c, ldc, wmma::mem_row_major);
-  }
-}
-
-// float32 operands: full-precision FMA (the tensor cores' TF32 would round
-// the operands to 10 mantissa bits).
+// stored as [N][K] (B(k, n) = B[n * ldb + k]). float32 operands on the FMA
+// units (the tensor cores' TF32 would round them to 10 mantissa bits).
 template <bool A_T, bool B_T, int N, int K>
 __device__ __forceinline__ void warp_gemm(const float* A, int lda, const float* B, int ldb,
                                           float* C, int ldc, bool accumulate) {
@@ -122,42 +94,11 @@ __device__ __forceinline__ void warp_gemm(const float* A, int lda, const float* 
 
 // One warp's fp32 accumulator C[16 x N], held in registers across calls:
 // C += A^T B, where A is stored [K][16] (A^T(i, k) = A[k * lda + i]) and B is
-// row-major [K x N], both in shared memory. The flash backward keeps dK and dV
-// of 16 key rows in it; the 1x1-conv filter gradient keeps 16 input channels.
+// row-major [K x N], both in shared memory. The float32 flash backward keeps
+// dK and dV of 16 key rows in it; the float32 1x1-conv filter gradient keeps
+// 16 input channels.
 template <typename T, int N>
 struct RowAcc;
-
-template <int N>
-struct RowAcc<bf16, N> {
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> f[N / 16];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int n = 0; n < N / 16; ++n) wmma::fill_fragment(f[n], 0.f);
-  }
-
-  template <int K>
-  __device__ __forceinline__ void add_at_b(const bf16* A, int lda, const bf16* B, int ldb) {
-#pragma unroll
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
-      wmma::load_matrix_sync(a, A + k0 * lda, lda);
-#pragma unroll
-      for (int n = 0; n < N / 16; ++n) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, B + k0 * ldb + n * 16, ldb);
-        wmma::mma_sync(f[n], a, b, f[n]);
-      }
-    }
-  }
-
-  // C row-major in shared memory (ldc a multiple of 4, C 32-byte aligned).
-  __device__ __forceinline__ void store(float* C, int ldc) const {
-#pragma unroll
-    for (int n = 0; n < N / 16; ++n)
-      wmma::store_matrix_sync(C + n * 16, f[n], ldc, wmma::mem_row_major);
-  }
-};
 
 template <int N>
 struct RowAcc<float, N> {

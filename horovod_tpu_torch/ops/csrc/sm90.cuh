@@ -4,8 +4,9 @@
 // wait, mbarrier init / arrive / expect-tx / parity wait (with a timeout that
 // ends the kernel with an error), the TMA tile load and store
 // (cp.async.bulk.tensor), register rebalancing (setmaxnreg), and
-// on the host the encoding of a CUtensorMap for a [BH, S, D] bf16 tensor,
-// with no link against libcuda (its entry point comes through the runtime).
+// on the host the encoding of a bf16 CUtensorMap (any rank; a [BH, S, D]
+// tensor in the tile format below), with no link against libcuda (its
+// entry point comes through the runtime).
 //
 // The layout every helper agrees on (TileFormat below): a tile of R rows
 // and D bf16 columns is stored as D / CB boxes of CB = min(D, 64) columns,
@@ -121,13 +122,16 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[KS][4]) {
 // registers: d[N / 2] per thread, in the wgmma accumulator layout (warp w of
 // the warpgroup holds rows 16 w + lane / 4 and + 8; element i is column
 // 8 (i / 4) + 2 (lane % 4) + (i % 2) of the second row when (i / 2) % 2).
-//   ss: D += A B, A and B from shared memory (descriptors a, b; A K-major).
+//   ss: D += A B, A and B from shared memory (descriptors a, b).
 //   ss_init: D = A B; D is only written, so the compiler does not treat its
 //       earlier contents as an input of the product.
 //   rs: D += A B, A from registers: four 32-bit words of bf16 pairs in the
 //       mma A layout, which is the accumulator layout of 16 columns.
-// TRANS_B = 0: B K-major; 1: B MN-major. The kernels use ss and ss_init at
-// N = 32, 64, 128 and rs at N = 16, 32, 64, 128.
+// TRANS_B = 0: B K-major; 1: B MN-major. TRANS_A (ss only; the rs A is
+// always the register layout) = 0: A K-major; 1: A MN-major, with the
+// descriptor of TileFormat::mnmajor, as for B: the 64 rows of A are the
+// columns of one 64-column box. The kernels use ss and ss_init at N = 16,
+// 32, 64, 128 and rs at N = 16, 32, 64, 128.
 template <int N>
 struct Wgmma;
 
@@ -150,15 +154,16 @@ struct Wgmma;
 // The members of Wgmma<N>, whose accumulator is N / 2 floats: REGS and DOPS
 // are its register list and operand macro from above, and "%" I<k> names
 // operand N / 2 + k, the k-th after the accumulator. SS: a, b, scale-d
-// (0: D = A B; 1: D += A B), trans-b. RS: four A words, b, scale-d, trans-b.
-#define HVD_WGMMA_SS(NAME, C, SCALE, N, REGS, DOPS, I0, I1, I2, I3)                     \
-  template <int TRANS_B>                                                                 \
+// (0: D = A B; 1: D += A B), trans-b, trans-a. RS: four A words, b,
+// scale-d, trans-b.
+#define HVD_WGMMA_SS(NAME, C, SCALE, N, REGS, DOPS, I0, I1, I2, I3, I4)                 \
+  template <int TRANS_B, int TRANS_A = 0>                                                \
   static __device__ __forceinline__ void NAME(float (&d)[N / 2], uint64_t a, uint64_t b) { \
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" I2 ", 0;\n"                         \
                  "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" REGS         \
-                 "}, %" I0 ", %" I1 ", p, 1, 1, 0, %" I3 ";\n}\n"                         \
+                 "}, %" I0 ", %" I1 ", p, 1, 1, %" I4 ", %" I3 ";\n}\n"                   \
                  : DOPS(C, 0)                                                            \
-                 : "l"(a), "l"(b), "r"(SCALE), "n"(TRANS_B));                            \
+                 : "l"(a), "l"(b), "r"(SCALE), "n"(TRANS_B), "n"(TRANS_A));              \
   }
 #define HVD_WGMMA_RS(N, REGS, DOPS, I0, I1, I2, I3, I4, I5, I6)                              \
   template <int TRANS_B>                                                                     \
@@ -173,24 +178,26 @@ struct Wgmma;
 
 template <>
 struct Wgmma<16> {
+  HVD_WGMMA_SS(ss, "+f", 1, 16, HVD_REGS8, HVD_D8, "8", "9", "10", "11", "12")
+  HVD_WGMMA_SS(ss_init, "=f", 0, 16, HVD_REGS8, HVD_D8, "8", "9", "10", "11", "12")
   HVD_WGMMA_RS(16, HVD_REGS8, HVD_D8, "8", "9", "10", "11", "12", "13", "14")
 };
 template <>
 struct Wgmma<32> {
-  HVD_WGMMA_SS(ss, "+f", 1, 32, HVD_REGS16, HVD_D16, "16", "17", "18", "19")
-  HVD_WGMMA_SS(ss_init, "=f", 0, 32, HVD_REGS16, HVD_D16, "16", "17", "18", "19")
+  HVD_WGMMA_SS(ss, "+f", 1, 32, HVD_REGS16, HVD_D16, "16", "17", "18", "19", "20")
+  HVD_WGMMA_SS(ss_init, "=f", 0, 32, HVD_REGS16, HVD_D16, "16", "17", "18", "19", "20")
   HVD_WGMMA_RS(32, HVD_REGS16, HVD_D16, "16", "17", "18", "19", "20", "21", "22")
 };
 template <>
 struct Wgmma<64> {
-  HVD_WGMMA_SS(ss, "+f", 1, 64, HVD_REGS32, HVD_D32, "32", "33", "34", "35")
-  HVD_WGMMA_SS(ss_init, "=f", 0, 64, HVD_REGS32, HVD_D32, "32", "33", "34", "35")
+  HVD_WGMMA_SS(ss, "+f", 1, 64, HVD_REGS32, HVD_D32, "32", "33", "34", "35", "36")
+  HVD_WGMMA_SS(ss_init, "=f", 0, 64, HVD_REGS32, HVD_D32, "32", "33", "34", "35", "36")
   HVD_WGMMA_RS(64, HVD_REGS32, HVD_D32, "32", "33", "34", "35", "36", "37", "38")
 };
 template <>
 struct Wgmma<128> {
-  HVD_WGMMA_SS(ss, "+f", 1, 128, HVD_REGS64, HVD_D64, "64", "65", "66", "67")
-  HVD_WGMMA_SS(ss_init, "=f", 0, 128, HVD_REGS64, HVD_D64, "64", "65", "66", "67")
+  HVD_WGMMA_SS(ss, "+f", 1, 128, HVD_REGS64, HVD_D64, "64", "65", "66", "67", "68")
+  HVD_WGMMA_SS(ss_init, "=f", 0, 128, HVD_REGS64, HVD_D64, "64", "65", "66", "67", "68")
   HVD_WGMMA_RS(128, HVD_REGS64, HVD_D64, "64", "65", "66", "67", "68", "69", "70")
 };
 
@@ -277,6 +284,24 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// The same for a 2-D tensor map (c0, c1) and a 4-D one (c0, c1, c2, c3).
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // TMA: copy shared memory at src into the box at coordinates (c0, c1, c2)
 // of a 3-D tensor map (elements outside the tensor are not written), as one
 // bulk async-group; bulk_commit closes the group, bulk_wait_read<N> waits
@@ -304,6 +329,12 @@ __device__ __forceinline__ void fence_async_smem() {
 
 __device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+__device__ __forceinline__ void st_shared_bf16(uint32_t addr, float v) {
+  const __nv_bfloat16 h = __float2bfloat16_rn(v);
+  asm volatile("st.shared.b16 [%0], %1;\n" ::"r"(addr),
+               "h"(*reinterpret_cast<const unsigned short*>(&h))
+               : "memory");
 }
 
 // Barrier `id` (1..15; 0 is __syncthreads) over `threads` threads.
@@ -341,27 +372,36 @@ inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return fn;
 }
 
-// The tensor map of a contiguous [BH, S, D] bf16 tensor whose box is one
-// TileFormat<D> box: CB columns by box_rows rows of one bh. Rows past S read
-// as zeros, never as the next head's rows. Returns 0 or HVD_ERR_TENSOR_MAP +
-// the CUresult.
-template <int D>
-int make_tile_map(CUtensorMap* map, const void* base, int S, int BH, int box_rows) {
-  using F = TileFormat<D>;
+// The tensor map of a bf16 tensor of rank `rank` (2 to 5): dims[0] is the
+// contiguous one, strides[i] the byte stride of dims[i + 1], box the box
+// dims; row_bytes (box[0] * 2 = 128, 64 or 32) picks the swizzle. Elements
+// outside the dims read as zeros. Returns 0 or HVD_ERR_TENSOR_MAP + the
+// CUresult.
+inline int make_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+                    const cuuint64_t* strides, const cuuint32_t* box, int row_bytes) {
   const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return HVD_ERR_TENSOR_MAP + (int)CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)F::CB, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swizzle = F::ROW_BYTES == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : F::ROW_BYTES == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                          : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+  const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = row_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                       : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
                             dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : HVD_ERR_TENSOR_MAP + (int)r;
+}
+
+// The tensor map of a contiguous [BH, S, D] bf16 tensor whose box is one
+// TileFormat<D> box: CB columns by box_rows rows of one bh. Rows past S read
+// as zeros, never as the next head's rows.
+template <int D>
+int make_tile_map(CUtensorMap* map, const void* base, int S, int BH, int box_rows) {
+  using F = TileFormat<D>;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)F::CB, (cuuint32_t)box_rows, 1};
+  return make_map(map, base, 3, dims, strides, box, F::ROW_BYTES);
 }
 
 }  // namespace

@@ -335,20 +335,73 @@ def _ptxas_entry(mangled, spills="0 bytes spill stores, 0 bytes spill loads",
             f"{registers} registers, used 16 barriers, 400 bytes cmem[0]\n")
 
 
+_HOPPER_INSTANCES = [(k, d) for k in ("flash_fwd_kernel", "flash_dq_kernel",
+                                       "flash_dkv_kernel",
+                                       "flash_fwd_single_kernel",
+                                       "flash_dqkv_kernel")
+                     for d in (16, 32, 64, 128)] + [("dw_1x1_kernel", None)]
+
+
+def _hopper_mangled(kernel, d):
+    """The mangled name nvcc gives a Hopper instance (d None: no template)."""
+    if d is None:
+        return (f"_ZN12_GLOBAL__N_1{len(kernel)}{kernel}E14CUtensorMap_stS0_"
+                "Pfiiiiiiiiiii")
+    name = f"{kernel}ILi{d}EEEv14CUtensorMap_stS1_S1_S1_Pfiiifiii"
+    return f"_ZN12_GLOBAL__N_1{len(kernel)}{name}"
+
+
+def _hopper_log():
+    """A clean ptxas log of every Hopper instance, beside float32 kernels
+    that spill (which do not count against the build)."""
+    return (_ptxas_entry("_ZN12_GLOBAL__N_125dw_1x1_partial_f32_kernelEPKfS1"
+                         "_Pfiiiiiixxx", "8 bytes spill stores, 8 bytes "
+                         "spill loads", 255)
+            + _ptxas_entry("_ZN12_GLOBAL__N_121flash_dqkv_f32_kernelILi64E"
+                           "EEvPKfS2_S2_S2_S2_S2_S2_PfS3_S3_iifiii",
+                           "4 bytes spill stores, 4 bytes spill loads", 128)
+            + "".join(_ptxas_entry(_hopper_mangled(k, d))
+                      for k, d in _HOPPER_INSTANCES))
+
+
+@pytest.mark.parametrize("kernel,d,fault", [
+    ("flash_dqkv_kernel", 16, "spill"),
+    ("flash_dqkv_kernel", 64, "spill"),
+    ("flash_dqkv_kernel", 128, "serialize"),
+    ("flash_dqkv_kernel", 32, "serialize"),
+    ("dw_1x1_kernel", None, "spill"),
+    ("dw_1x1_kernel", None, "serialize")])
+def test_build_report_names_the_redesigned_hopper_culprit(kernel, d, fault):
+    """The fused backward's and the filter gradient's Hopper instances are
+    in the build phase's list, and a spill or serialized wgmma in one of
+    them fails it, naming that instance alone."""
+    smoke = _chip_smoke()
+    clean = _hopper_log()
+    regs, faults = smoke.hopper_build_report(clean)
+    assert sorted(regs) == sorted(smoke.HOPPER_INSTANCES) and faults == []
+    mangled = _hopper_mangled(kernel, d)
+    if fault == "spill":
+        log = clean.replace(_ptxas_entry(mangled), _ptxas_entry(
+            mangled, "240 bytes spill stores, 252 bytes spill loads"))
+    else:
+        log = clean + (
+            "ptxas info    : (C7512) Potential Performance Loss: "
+            "wgmma.mma_async instructions are serialized due to insufficient "
+            f"register resources for the wgmma pipeline in the function "
+            f"'{mangled}'\n")
+    _, faults = smoke.hopper_build_report(log)
+    culprit = kernel if d is None else f"{kernel}<{d}>"
+    assert len(faults) == 1 and faults[0].startswith(culprit + ":"), faults
+
+
 def test_build_report_flags_spills_and_serialized_wgmma_of_hopper_kernels():
     """chip_smoke.py's build phase fails when a Hopper (wgmma) instance
     spills or ptxas serializes its wgmma; other kernels' lines do not
     count against it."""
     smoke = _chip_smoke()
 
-    def hopper(kernel, d):
-        name = f"{kernel}ILi{d}EEEv14CUtensorMap_stS1_S1_S1_Pfiiifiii"
-        return f"_ZN12_GLOBAL__N_1{len(kernel)}{name}"
-
-    instances = [(k, d) for k in ("flash_fwd_kernel", "flash_dq_kernel",
-                                  "flash_dkv_kernel",
-                                  "flash_fwd_single_kernel")
-                 for d in (16, 32, 64, 128)]
+    hopper = _hopper_mangled
+    instances = _HOPPER_INSTANCES
     others = (_ptxas_entry("_ZN12_GLOBAL__N_119flash_dq_f32_kernelILi64EEE"
                            "vPKfS2_S2_S2_S2_S2_S2_Pfiifiii", "8 bytes spill "
                            "stores, 8 bytes spill loads", 255)
@@ -360,7 +413,7 @@ def test_build_report_flags_spills_and_serialized_wgmma_of_hopper_kernels():
     clean = others + "".join(_ptxas_entry(hopper(k, d)) for k, d in instances)
     regs, faults = smoke.hopper_build_report(clean)
     assert sorted(regs) == sorted(smoke.HOPPER_INSTANCES)
-    assert len(regs) == 16
+    assert len(regs) == 21
     assert set(regs.values()) == {168} and faults == []
 
     def spill(log, kernel, d):

@@ -12,6 +12,8 @@ The ``cuda`` tests hold the hand-written kernel against its plain version on
 the card; they skip where there is no GPU.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -148,3 +150,88 @@ def test_kernel_matches_plain_version_on_the_card(cuda_device, dtype, shape,
     assert torch.equal(xg.grad, dx)
     assert (wg.grad.float() - dw.float()).abs().max().item() <= (
         2e-2 if dtype == torch.bfloat16 else 1e-4) * dw.float().abs().max().item()
+
+
+# The bf16 kernel's plan, held on the CPU: the tensor map's row grid must
+# address exactly the view's elements, and the boxes of the K split must
+# hold every row once, each beside its own row of dy.
+_VIEWS = {
+    "2d": ((300, 16), None),
+    "contiguous_nhwc": ((2, 5, 7, 16), (1, 1)),
+    "stride2_even_h": ((2, 8, 6, 16), (2, 2)),
+    "stride2_odd_h": ((3, 7, 10, 8), (2, 2)),
+    "stride2_odd_h_odd_w": ((2, 9, 11, 24), (2, 2)),
+    "one_row_per_image": ((4, 1, 6, 8), (1, 2)),
+    "wide_rows_stride2_h": ((2, 4, 150, 8), (2, 1)),
+    "narrow_w_sliced": ((2, 6, 8, 16), (1, 3)),
+}
+
+
+def _view(name):
+    shape, strides = _VIEWS[name]
+    flat = torch.arange(2 * math.prod(shape), dtype=torch.float64)
+    x = flat[3 * 8:3 * 8 + math.prod(shape)].view(shape)
+    if strides is not None:
+        x = x[:, ::strides[0], ::strides[1], :]
+    return flat, x
+
+
+@pytest.mark.parametrize("name", sorted(_VIEWS))
+def test_row_grid_addresses_exactly_the_elements_of_the_view(name):
+    flat, x = _view(name)
+    C = x.shape[-1]
+    rows = x.reshape(-1, C)  # row k of K, as the kernel must see it
+    g = port.row_grid(tuple(x.shape), x.stride())
+    assert g.Wd * g.Hd * g.Nd == rows.shape[0]
+    n, h, w = torch.meshgrid(torch.arange(g.Nd), torch.arange(g.Hd),
+                             torch.arange(g.Wd), indexing="ij")
+    start = x.storage_offset() + n * g.sn + h * g.sh + w * g.sw
+    got = flat[start.reshape(-1, 1) + torch.arange(C)]
+    assert torch.equal(got, rows)
+    # Every stride of the map is a whole number of 16-byte bf16 rows.
+    assert all(s % 8 == 0 for s in (g.sw, g.sh, g.sn))
+
+
+def _box_k_rows(grid, hb, b):
+    """The K rows that box ``b`` of the bf16 kernel holds, as its producer
+    loads them (``csrc/conv1x1_dw.cu``): grid rows [h0, h0 + hb) of image n,
+    beside dy's rows from (n Hd + h0) Wd on; grid rows past Hd read as
+    zeros."""
+    hpb = -(-grid.Hd // hb)
+    n, h0 = divmod(b, hpb)
+    h0 *= hb
+    first = (n * grid.Hd + h0) * grid.Wd
+    return range(first, (n * grid.Hd + min(grid.Hd, h0 + hb)) * grid.Wd)
+
+
+@pytest.mark.parametrize("name", sorted(_VIEWS))
+def test_box_split_covers_every_row_once(name):
+    _, x = _view(name)
+    g = port.row_grid(tuple(x.shape), x.stride())
+    K = g.Wd * g.Hd * g.Nd
+    hb, rows = port.box_rows(g.Wd)
+    assert rows % 16 == 0 and g.Wd * hb <= rows <= 256
+    nboxes = g.Nd * math.ceil(g.Hd / hb)
+    for tiles, sms in ((1, 132), (8, 132), (3, 7), (200, 132)):
+        split, nsplit = port.split_boxes(nboxes, tiles, sms)
+        assert (nsplit - 1) * split < nboxes <= nsplit * split
+        seen = []
+        for sp in range(nsplit):
+            for b in range(sp * split, min(nboxes, (sp + 1) * split)):
+                krows = _box_k_rows(g, hb, b)
+                assert len(krows) <= g.Wd * hb
+                seen.extend(krows)
+        assert sorted(seen) == list(range(K)), (tiles, sms)
+
+
+@pytest.mark.parametrize("Wd", [1, 7, 14, 15, 28, 41, 56, 129, 256])
+def test_box_rows_are_whole_wgmma_steps(Wd):
+    hb, rows = port.box_rows(Wd)
+    assert rows % 16 == 0 and Wd * hb <= rows <= 256
+    if Wd in (1, 7, 14, 28, 56):  # the ResNet-50 widths need no padding
+        assert rows == Wd * hb and 64 <= rows <= 128
+
+
+def test_box_rows_refuse_rows_wider_than_a_box():
+    with pytest.raises(ValueError, match="at most 256"):
+        port.box_rows(257)
