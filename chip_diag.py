@@ -11,9 +11,11 @@ non-causal) the multi-tile attention kernels (flash_fwd, flash_dq,
 flash_dkv) and the SDPA forward and backward at S=512 (B*H = 128); the
 single-tile forward and fused backward (flash_fwd_single, flash_dqkv), the
 SDPA forward and backward, and flash_dq + flash_dkv on flash_dqkv's inputs
-at S=128 (B*H = 1024); and the 1x1-conv filter gradient (dw_1x1) beside
-cuBLAS's x^T dy at both ResNet-50 shapes of chip_smoke.py (the shortcut's
-cuBLAS call reads a contiguous copy of its strided x). Each
+at S=128 (B*H = 1024); the float16 instances of those five kernels at the
+same two shapes (``*_f16``; printed only, for a checkout that has them);
+and the 1x1-conv filter gradient (dw_1x1) beside cuBLAS's x^T dy at both
+ResNet-50 shapes of chip_smoke.py (the shortcut's cuBLAS call reads a
+contiguous copy of its strided x). Each
 checkout runs in a process of its own, in the order other, this, this,
 other. Each process times every call by three methods, all with the L2
 flushed before each call:
@@ -48,7 +50,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CALLS = ("flash_fwd", "flash_dq", "flash_dkv", "sdpa_fwd", "sdpa_bwd",
          "flash_fwd_single", "sdpa_fwd_s128", "flash_dqkv", "sdpa_bwd_s128",
          "flash_dq_dkv_s128", "dw_1x1_stage1", "cublas_stage1",
-         "dw_1x1_shortcut", "cublas_shortcut")
+         "dw_1x1_shortcut", "cublas_shortcut", "flash_fwd_f16", "flash_dq_f16",
+         "flash_dkv_f16", "flash_fwd_single_f16", "flash_dqkv_f16")
 METHODS = ("spin_ms", "no_spin_ms", "device_ms")
 
 
@@ -159,6 +162,17 @@ def _worker(tree, label):
         "dw_1x1_shortcut": lambda: C.dw_1x1(xs2, dy2),
         "cublas_shortcut": lambda: torch.matmul(x2d2.T, dy2),
     }
+    if torch.float16 in A._KERNEL_DTYPES:  # the float16 instances
+        # q, k, v, dO in float16; lse, delta and g_lse stay float32.
+        h, h1 = ([*(t.half() for t in args[:4]), *args[4:7]]
+                 for args in (bwd, bwd1))
+        calls.update({
+            "flash_fwd_f16": lambda: A.flash_fwd(*h[:3]),
+            "flash_dq_f16": lambda: A.flash_dq(*h),
+            "flash_dkv_f16": lambda: A.flash_dkv(*h),
+            "flash_fwd_single_f16": lambda: A.flash_fwd_single(*h1[:3]),
+            "flash_dqkv_f16": lambda: A.flash_dqkv(*h1),
+        })
     result = {name: {"spin_ms": smoke.time_ms(fn),
                      "no_spin_ms": smoke.time_ms(fn, sleep_cycles=0),
                      "device_ms": _device_ms(fn)}
@@ -186,7 +200,13 @@ def ab(other):
     for name in CALLS:
         for method in METHODS:
             o, t = (sum(r[name][method] for r in runs[label]) / 2
+                    if all(name in r for r in runs[label]) else None
                     for label in ("other", "this"))
+            if o is None or t is None:
+                print(f"ab {name} {method}: other "
+                      f"{'n/a' if o is None else f'{o:.4f} ms'}, this "
+                      f"{'n/a' if t is None else f'{t:.4f} ms'}")
+                continue
             print(f"ab {name} {method}: other {o:.4f} ms, this {t:.4f} ms, "
                   f"other / this {o / t:.2f}")
     print(f"card: {runs['this'][0]['card']}")

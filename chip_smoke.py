@@ -6,30 +6,36 @@ Run from the root of a checkout, with one card visible:
     python3 chip_smoke.py
 
 Phases, each of which raises on failure (the script then exits non-zero
-and prints no result line):
+and prints no result line); each prints its seconds:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build of the hand-written CUDA kernels from ``horovod_tpu_torch/ops/csrc``
-   (one ``nvcc`` per source, all started together); no Hopper (wgmma)
-   instance (the bf16 forward, dQ, dK/dV, single-tile forward and fused
-   backward at D=16, 32, 64, 128, and the bf16 filter gradient) may spill
-   or have its wgmma serialized;
+   (one ``nvcc`` per source, all started together); none of the 42 Hopper
+   (wgmma) instances (the bf16 and float16 forward, dQ, dK/dV, single-tile
+   forward and fused backward at D=16, 32, 64, 128, and the bf16 and
+   float16 filter gradient) may spill or have its wgmma serialized;
 3. kernel phase: every kernel against its plain PyTorch version on the same
    inputs, with times beside the bound and the library yardstick:
    - the multi-tile forward, dQ and dK/dV flash-attention kernels
-     (BERT-Large S=512 shape in bf16; a causal, ragged, offset case with
-     fully masked rows and a nonzero lse cotangent at D=64, D=128 and
-     D=16; a causal D=32 case with a query offset; a float32 case);
+     (BERT-Large S=512 shape in bf16 and in float16; a causal, ragged,
+     offset case with fully masked rows and a nonzero lse cotangent at
+     D=64 in bf16 and float16, and in bf16 at D=128, D=16 and D=96, which
+     is zero-padded to the D=128 instance; a causal D=32 case with a query
+     offset; float32 cases at D=64 and D=128; B*H = 65,600 at S=129, past
+     the grid's 65,535, in float32 and bf16);
    - the single-tile forward and fused backward (BERT-Large phase-1 shape,
-     S=128, in bf16; causal 96 x 128 with offsets, masked rows and a
-     nonzero lse cotangent; float32 causal with an offset; bf16 at D=128;
-     causal bf16 at D=16 and D=32; a causal ragged 77 x 100 case with a key
-     offset);
-   - the 1x1-conv filter gradient (ResNet-50 stage-1 bottleneck 64 -> 256;
-     the stride-2 projection shortcut 256 -> 512, timed beside its own
-     cuBLAS call; bf16 with a ragged K and ragged channel tiles; bf16 on a
-     stride-2 view with an odd H; float32 with a ragged K); two bf16 calls
-     on the same inputs must agree bit for bit;
+     S=128, in bf16 and in float16; causal 96 x 128 with offsets, masked
+     rows and a nonzero lse cotangent; float32 causal with an offset at
+     D=64 and D=128; bf16 at D=128; causal bf16 at D=16 and D=32; a causal
+     ragged 77 x 100 case with a key offset at D=64 and at D=48, padded to
+     the D=64 instance; B*H = 65,600 at S=16 in float32 and bf16);
+   - the 1x1-conv filter gradient (ResNet-50 stage-1 bottleneck 64 -> 256
+     in bf16 and float16; the stride-2 projection shortcut 256 -> 512,
+     timed beside its own cuBLAS call; bf16 with a ragged K and ragged
+     channel tiles; bf16 on a stride-2 view with an odd H; bf16 with
+     3 -> 12 channels, zero-padded to whole 16-byte rows; a stride-2 view
+     whose rows are 300 wide, past a TMA box; float32 with a ragged K); two
+     calls on the same inputs must agree bit for bit;
 4. training phase: synchronous data-parallel BERT-Large training through
    ``init`` / ``DistributedOptimizer`` / ``broadcast_parameters`` with the
    1-rank NCCL bucketed allreduce forced on, on two paths: sequence 512
@@ -37,11 +43,20 @@ and prints no result line):
    (single-tile kernels). Launch counters show that every attention call of
    a path went through its own kernels and none through the other route's;
    each path is profiled;
-5. ``conv1x1`` phase: forward and backward of ``conv1x1`` through autograd
+5. ResNet-50 phase: bench.py's headline configuration (ResNet-50, 1000
+   classes, batch 128 at 224x224, bf16 compute in ``channels_last``, SGD
+   0.1 with momentum 0.9 under ``DistributedOptimizer`` with the bf16
+   wire), 2 warm-up and 5 timed steps, then a profile; the loss must be
+   finite and fall on the repeated batch, and none of the six kernels may
+   launch (no Pallas counterpart is on this path);
+6. LeNet phase: 5 steps at 28x28x1, batch 64; the loss must fall;
+7. ``conv1x1`` phase: forward and backward of ``conv1x1`` through autograd
    at the two ResNet-50 shapes, with one filter-gradient launch per
    backward, dx and dw held against the plain counterpart;
-6. agreement: the flash model against dense attention on small float32
-   inputs, on each attention route.
+8. agreement: the flash model against dense attention on small float32
+   inputs, on each attention route; and ResNet-50 in float32 on the card
+   against the CPU on the same weights (2 images at 64x64): logits in both
+   modes, and the running statistics after one training-mode forward.
 
 The second-last lines are the ``kernels`` JSON line and the card line;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -58,23 +73,26 @@ import subprocess
 import sys
 import time
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, float32 on
-# the FMA units (the float32 kernel path does not use TF32), memory rate.
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 and float16 tensor cores,
+# float32 on the FMA units (the float32 kernel path does not use TF32),
+# memory rate.
+PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 PEAK_BYTES_PER_S = 3.35e12
+ITEM_BYTES = {"bfloat16": 2, "float16": 2, "float32": 4}
 
 # Kernel vs plain version on the same inputs: max |kernel - plain| must
 # stay within TOL[dtype] * max |plain| (lse: absolute TOL_LSE). bf16 outputs
 # are rounded to 8 mantissa bits and P/dS round to bf16 at points that can
-# differ by one ulp between the two summation orders; float32 differs only
-# by summation order.
-TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# differ by one ulp between the two summation orders; float16 keeps 11
+# significant bits against bf16's 8; float32 differs only by summation
+# order.
+TOL = {"bfloat16": 2e-2, "float16": 5e-3, "float32": 1e-4}
 TOL_LSE = 1e-3
 
 # Kernel vs plain version of the 1x1-conv filter gradient: both sum exact
 # bf16 products (or float32 FMAs) in fp32, in another order, over up to
 # 401,408 rows: max |kernel - plain| <= TOL_DW[dtype] * max |plain|.
-TOL_DW = {"bfloat16": 1e-3, "float32": 1e-4}
+TOL_DW = {"bfloat16": 1e-3, "float16": 1e-3, "float32": 1e-4}
 
 WARMUP_STEPS = 2
 TIMED_STEPS = 5
@@ -91,6 +109,11 @@ BERT_PATHS = (
     # google-research/bert): B*H = 1024, 8192 tokens per step.
     ("bert_large_s128", 64, 128, 20, ("flash_fwd_single", "flash_dqkv")),
 )
+# ResNet-50 training as bench.py's headline runs it (bench.py:561-619):
+# batch 128 per card at 224x224, 1000 classes, SGD 0.1 with momentum 0.9,
+# bf16 wire; its analytic cost, 3 x 2 x 4.089 GMAC per image (bench.py:378).
+RESNET_BATCH, RESNET_IMAGE, RESNET_CLASSES = 128, 224, 1000
+RESNET50_TRAIN_FLOPS_PER_IMAGE = 3 * 2 * 4.089e9
 # ResNet-50's 1x1 convolutions for the filter-gradient kernel: name, N, H, W
 # (input), Cin, Cout, strides.
 CONV_SHAPES = (
@@ -141,18 +164,20 @@ def time_ms(fn, reps=20, warmup=3, sleep_cycles=SLEEP_CYCLES):
     return statistics.median(times)
 
 
-# The Hopper (wgmma) instances: the bf16 kernels of both attention routes at
-# every head dim, and the bf16 1x1-conv filter gradient (the float32
-# kernels are named *_f32_kernel).
-HOPPER_INSTANCES = tuple(f"{k}<{d}>" for k in ("flash_fwd_kernel",
-                                               "flash_dq_kernel",
-                                               "flash_dkv_kernel",
-                                               "flash_fwd_single_kernel",
-                                               "flash_dqkv_kernel")
-                         for d in (16, 32, 64, 128)) + ("dw_1x1_kernel",)
+# The Hopper (wgmma) instances: the bf16 and float16 kernels of both
+# attention routes at every head dim, and the bf16 and float16 1x1-conv
+# filter gradient (the float32 kernels are named *_f32_kernel). nvcc's
+# mangled names carry the element type: 13__nv_bfloat16 or 6__half.
+HOPPER_TYPES = {"__nv_bfloat16": "bf16", "__half": "f16"}
+HOPPER_INSTANCES = tuple(
+    f"{k}<{t}, {d}>" for k in ("flash_fwd_kernel", "flash_dq_kernel",
+                               "flash_dkv_kernel", "flash_fwd_single_kernel",
+                               "flash_dqkv_kernel")
+    for t in HOPPER_TYPES.values() for d in (16, 32, 64, 128)) + tuple(
+        f"dw_1x1_kernel<{t}>" for t in HOPPER_TYPES.values())
 _HOPPER_NAME = re.compile(
-    r"(flash_(?:fwd_single|fwd|dqkv|dq|dkv)_kernel)ILi(\d+)E"
-    r"|\d(dw_1x1_kernel)E")
+    r"(flash_(?:fwd_single|fwd|dqkv|dq|dkv)_kernel)I\d+(__nv_bfloat16|__half)"
+    r"Li(\d+)E|\d(dw_1x1_kernel)I\d+(__nv_bfloat16|__half)E")
 
 
 def _hopper_instance(line):
@@ -160,9 +185,10 @@ def _hopper_instance(line):
     found = _HOPPER_NAME.search(line)
     if not found:
         return None
-    if found.group(3):
-        return found.group(3)
-    return f"{found.group(1)}<{found.group(2)}>"
+    if found.group(4):
+        return f"{found.group(4)}<{HOPPER_TYPES[found.group(5)]}>"
+    return (f"{found.group(1)}<{HOPPER_TYPES[found.group(2)]}, "
+            f"{found.group(3)}>")
 
 
 def hopper_build_report(log):
@@ -224,7 +250,7 @@ def _bounds(name, BH, Sq, Sk, D, dtype_name, causal, q_offset, k_offset):
     """Least time for the work: bytes once in and out over the memory rate,
     products' operations over the dtype's peak; the larger of the two."""
     pairs = BH * _visible_pairs(Sq, Sk, causal, q_offset, k_offset)
-    item = 2 if dtype_name == "bfloat16" else 4
+    item = ITEM_BYTES[dtype_name]
     q_bytes = BH * Sq * D * item
     k_bytes = BH * Sk * D * item
     rows = BH * Sq * 4
@@ -244,7 +270,7 @@ def _bounds(name, BH, Sq, Sk, D, dtype_name, causal, q_offset, k_offset):
 def _dw_bounds(K, ci, co, dtype_name):
     """The filter gradient reads x [K, Cin] and dy [K, Cout] once and writes
     dw [Cin, Cout] in fp32: 2 K Cin Cout operations."""
-    item = 2 if dtype_name == "bfloat16" else 4
+    item = ITEM_BYTES[dtype_name]
     return _bound(2.0 * K * ci * co, K * (ci + co) * item + ci * co * 4,
                   dtype_name)
 
@@ -299,45 +325,74 @@ def kernel_phase():
     from horovod_tpu_torch.ops import attention as A
 
     (_, b512, s512, _, _), (_, b128, s128, _, _) = BERT_PATHS
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     cases = [
         # name, B, H, Sq, Sk, D, dtype, causal, q_offset, k_offset, g_lse,
-        # timed. Sq, Sk <= A.SINGLE_TILE_MAX take the single-tile kernels.
+        # timing ("json": timed, with the library yardstick, into the
+        # kernels line; "ms": time printed; "": not timed). Sq, Sk <=
+        # A.SINGLE_TILE_MAX take the single-tile kernels.
         ("bert_large_bf16", b512, 16, s512, s512, 64, bf16, False, 0, 0,
-         False, True),
+         False, "json"),
         ("causal_ragged_bf16", 2, 3, 200, 264, 64, bf16, True, 0, 40, True,
-         False),
+         ""),
         # The Hopper kernels at the other head dims: D = 128 (two 64-column
         # TMA boxes, 32-row dK/dV stages), D = 32 (64-byte swizzle) and
         # D = 16 (32-byte swizzle, n16 wgmma for P V, P^T dO and dS^T Q).
         ("d128_causal_ragged_bf16", 2, 3, 200, 264, 128, bf16, True, 0, 40,
-         True, False),
+         True, ""),
         ("d32_causal_bf16", 2, 3, 320, 384, 32, bf16, True, 64, 0, True,
-         False),
+         ""),
         ("d16_causal_ragged_bf16", 2, 3, 200, 264, 16, bf16, True, 0, 40,
-         True, False),
-        ("float32", 2, 4, 200, 136, 64, f32, True, 70, 0, True, False),
+         True, ""),
+        # D = 96 has no instance: zero-padded to D = 128.
+        ("d96_causal_ragged_bf16", 2, 3, 200, 264, 96, bf16, True, 0, 40,
+         True, "ms"),
+        # The float16 instances (wgmma's .f16 kind).
+        ("bert_large_f16", b512, 16, s512, s512, 64, f16, False, 0, 0,
+         False, "ms"),
+        ("causal_ragged_f16", 2, 3, 200, 264, 64, f16, True, 0, 40, True,
+         ""),
+        ("float32", 2, 4, 200, 136, 64, f32, True, 70, 0, True, ""),
+        ("d128_float32", 2, 4, 200, 136, 128, f32, True, 70, 0, True, "ms"),
+        # B*H past the 65,535 blocks of grid.y (the float32 kernels loop
+        # over the rest; the Hopper kernels are persistent).
+        ("bh65600_float32", 65600, 1, 129, 129, 16, f32, False, 0, 0, True,
+         "ms"),
+        ("bh65600_bf16", 65600, 1, 129, 129, 16, bf16, False, 0, 0, True,
+         "ms"),
         ("bert_large_s128_bf16", b128, 16, s128, s128, 64, bf16, False, 0, 0,
-         False, True),
+         False, "json"),
+        ("bert_large_s128_f16", b128, 16, s128, s128, 64, f16, False, 0, 0,
+         False, "ms"),
         ("causal_single_bf16", 2, 3, 96, 128, 64, bf16, True, 0, 40, True,
-         False),
-        ("float32_single", 2, 4, 128, 128, 64, f32, True, 16, 0, True,
-         False),
+         ""),
+        ("float32_single", 2, 4, 128, 128, 64, f32, True, 16, 0, True, ""),
+        ("d128_float32_single", 2, 4, 128, 128, 128, f32, True, 16, 0, True,
+         "ms"),
         ("d128_single_bf16", 2, 4, 128, 128, 128, bf16, False, 0, 0, True,
-         False),
+         ""),
         # The single-tile Hopper forward at the other head dims, and on
         # lengths that are no multiple of 16 (rows 0..22 see no key).
         ("d16_single_causal_bf16", 2, 3, 128, 128, 16, bf16, True, 0, 0,
-         True, False),
+         True, ""),
         ("d32_single_causal_bf16", 2, 3, 112, 128, 32, bf16, True, 16, 0,
-         True, False),
+         True, ""),
         ("ragged_single_bf16", 2, 3, 77, 100, 64, bf16, True, 0, 23, True,
-         False),
+         ""),
+        ("ragged_single_f16", 2, 3, 77, 100, 64, f16, True, 0, 23, True, ""),
+        # D = 48: zero-padded to D = 64.
+        ("d48_ragged_single_bf16", 2, 3, 77, 100, 48, bf16, True, 0, 23,
+         True, "ms"),
+        ("bh65600_single_float32", 65600, 1, 16, 16, 16, f32, False, 0, 0,
+         True, "ms"),
+        ("bh65600_single_bf16", 65600, 1, 16, 16, 16, bf16, False, 0, 0,
+         True, "ms"),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
     measured = {}
     for (case, B, H, Sq, Sk, D, dtype, causal, qo, ko, with_glse,
-         timed) in cases:
+         timing) in cases:
+        timed = timing == "json"
         BH = B * H
         dname = str(dtype).split(".")[-1]
 
@@ -406,6 +461,11 @@ def kernel_phase():
                     library.get(name))
                 measured[name] = dict(max_abs_err=err, **numbers)
                 line += text
+            elif timing == "ms":
+                bounds = _bounds(name, BH, Sq, Sk, D, dname, causal, qo, ko)
+                line += (f" ms {time_ms(kern):.4f} bound_ms {bounds[0]:.4f} "
+                         f"({bounds[1]}; {bounds[2] / 1e9:.2f} GFLOP, "
+                         f"{bounds[3] / 1e6:.1f} MB)")
             print(line)
         if timed and "flash_dqkv" in runs:
             # The other route on the same inputs: what the single-tile
@@ -425,7 +485,7 @@ def dw_kernel_phase():
 
     from horovod_tpu_torch.ops import conv_backward as C
 
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     # name, N, H, W, Cin, Cout, strides, dtype, timed (the first case's
     # numbers are the kernel's line of the JSON).
     cases = [(*shape, bf16, True) for shape in CONV_SHAPES]
@@ -436,6 +496,12 @@ def dw_kernel_phase():
         # Odd H: the stride-2 view's images do not follow each other
         # evenly (a 4-D row grid), and W' = 15 needs padded boxes.
         ("bf16_stride2_odd_h", 4, 37, 30, 64, 128, (2, 2), bf16, False),
+        # 3 -> 12 channels: no whole 16-byte row; x and dy go into
+        # zero-padded 8- and 16-channel copies.
+        ("bf16_cin3_cout12", 8, 32, 32, 3, 12, (1, 1), bf16, False),
+        # W' = 300 rows: wider than a TMA box, so the view is copied.
+        ("bf16_stride2_w300", 2, 16, 600, 64, 128, (2, 2), bf16, False),
+        ("float16_stage1", *CONV_SHAPES[0][1:], f16, False),
         ("float32_ragged", 5, 37, 41, 72, 40, (1, 1), f32, False),
     ]
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -501,6 +567,27 @@ def _bert_loss(model, batch):
     return mlm_loss(logits, plabels, lmask)
 
 
+def _train(name, step, batch, steps):
+    """``steps`` steps on the repeated ``batch``: (losses, host ms of the
+    steps after the warm-up ones), each step ended by a synchronize."""
+    import torch
+
+    losses, times = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        loss = step(batch)
+        torch.cuda.synchronize()
+        if i >= WARMUP_STEPS:
+            times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{name}: non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(
+            f"{name}: loss did not fall on a repeated batch: {losses}")
+    return losses, times
+
+
 def training_phase(card, path):
     """BERT-Large data-parallel training on one path of ``BERT_PATHS``
     through the port's entry points (``init`` has run); returns the kernels'
@@ -533,18 +620,11 @@ def training_phase(card, path):
     for k in _kernels.KERNELS:
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    losses, times = [], []
-    for i in range(WARMUP_STEPS + TIMED_STEPS):
-        t0 = time.perf_counter()
-        loss = step(batch)
-        torch.cuda.synchronize()
-        if i >= WARMUP_STEPS:
-            times.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(loss))
+    steps = WARMUP_STEPS + TIMED_STEPS
+    losses, times = _train(name, step, batch, steps)
     launches = {k.name: k.launches for k in _kernels.KERNELS}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
-    steps = WARMUP_STEPS + TIMED_STEPS
     for kname, n in launches.items():
         want = cfg.num_layers * steps if kname in kernels else 0
         if n != want:
@@ -552,11 +632,6 @@ def training_phase(card, path):
                 f"{name}: {kname} launched {n} times in {steps} steps; "
                 f"expected {want} (this path runs {', '.join(kernels)} once "
                 "per layer per step and no other kernel)")
-    if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"{name}: non-finite loss: {losses}")
-    if not losses[-1] < losses[0]:
-        raise AssertionError(
-            f"{name}: loss did not fall on a repeated batch: {losses}")
     step_ms = statistics.median(times)
     tokens = batch_size * seq
     print(f"train {name}: BERT-Large {n_params / 1e6:.1f}M params, batch "
@@ -574,6 +649,108 @@ def training_phase(card, path):
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def resnet_phase(card):
+    """ResNet-50 data-parallel training at bench.py's headline
+    configuration through the port's entry points (``init`` has run); no
+    kernel of the library may launch."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.lenet import cross_entropy_loss
+    from horovod_tpu_torch.models.resnet import ResNet50
+    from horovod_tpu_torch.ops import _kernels
+
+    torch.backends.cudnn.benchmark = True
+    print(f"resnet50: torch.backends.cudnn.benchmark = "
+          f"{torch.backends.cudnn.benchmark}")
+    dev = hvd.device()
+    torch.manual_seed(0)
+    model = ResNet50(num_classes=RESNET_CLASSES, dtype=torch.bfloat16,
+                     device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+        named_parameters=model.named_parameters(),
+        compression=hvd.Compression.bf16)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+
+    def loss_fn(model, batch):
+        x, y = batch
+        return cross_entropy_loss(model(x), y, RESNET_CLASSES)
+
+    step = hvd.make_train_step(model, loss_fn, opt)
+    rng = np.random.RandomState(0)  # as bench.py:570-572 makes the batch
+    x = rng.rand(RESNET_BATCH, RESNET_IMAGE, RESNET_IMAGE, 3).astype(
+        np.float32)
+    y = rng.randint(0, RESNET_CLASSES, size=(RESNET_BATCH,)).astype(np.int32)
+    batch = (torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+
+    for k in _kernels.KERNELS:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    steps = WARMUP_STEPS + TIMED_STEPS
+    losses, times = _train("resnet50", step, batch, steps)
+    launches = {k.name: k.launches for k in _kernels.KERNELS}
+    if any(launches.values()):
+        raise AssertionError(
+            f"resnet50: kernels launched {launches}; this path runs no "
+            "kernel of the library")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = statistics.median(times)
+    images_s = RESNET_BATCH / step_ms * 1e3
+    mfu = images_s * RESNET50_TRAIN_FLOPS_PER_IMAGE / PEAK_FLOPS["bfloat16"]
+    print(f"train resnet50: ResNet-50 {n_params / 1e6:.1f}M params, batch "
+          f"{RESNET_BATCH}x{RESNET_IMAGE}x{RESNET_IMAGE}x3, bf16 compute, "
+          f"channels_last, SGD 0.1 momentum 0.9, {len(opt._buckets)} "
+          f"allreduce buckets (bf16 wire), losses "
+          f"{[round(v, 4) for v in losses]}")
+    print(f"train resnet50: step_ms median {step_ms:.2f} (steps "
+          f"{[round(t, 2) for t in times]}), images/s {images_s:.1f}, MFU "
+          f"{mfu:.4f} (24.53 GFLOP per image over 989 TFLOP/s), "
+          f"max_memory_allocated {peak_gib:.2f} GiB on {card}")
+    print(f"train resnet50: launches per kernel {launches} over {steps} "
+          "steps")
+    profile_steps("resnet50", step, batch, card, step_ms)
+    opt.remove_hooks()
+    del model, opt, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lenet_phase(card):
+    """LeNet data-parallel training on MNIST-sized inputs; the loss must
+    fall."""
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.lenet import LeNet, cross_entropy_loss
+
+    dev = hvd.device()
+    torch.manual_seed(0)
+    model = LeNet(device=dev)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+        named_parameters=model.named_parameters())
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+
+    def loss_fn(model, batch):
+        x, y = batch
+        return cross_entropy_loss(model(x), y)
+
+    step = hvd.make_train_step(model, loss_fn, opt)
+    rng = np.random.RandomState(0)
+    batch = (torch.from_numpy(rng.rand(64, 28, 28, 1).astype(np.float32)).to(
+        dev), torch.from_numpy(rng.randint(0, 10, size=64)).to(dev))
+    losses, _ = _train("lenet", step, batch, 5)
+    print(f"train lenet: 5 steps at 64x28x28x1, losses "
+          f"{[round(v, 4) for v in losses]} on {card}")
+    opt.remove_hooks()
 
 
 def conv_phase(card):
@@ -638,6 +815,11 @@ _CATEGORIES = (  # first match wins; by lower-cased kernel name
     ("flash_dqkv", ("flash_dqkv_kernel", "flash_dqkv_f32_kernel")),
     ("dw_1x1", ("dw_1x1_kernel", "dw_1x1_partial_f32_kernel",
                 "dw_1x1_reduce_kernel")),
+    # cuDNN's convolutions (implicit-GEMM xmma/cutlass kernels named for
+    # fprop, dgrad and wgrad), ahead of matmul, whose keys they would match.
+    ("conv", ("fprop", "dgrad", "wgrad", "conv", "implicit_gemm",
+              "implicit_convolve")),
+    ("batchnorm", ("bn_fw", "bn_bw", "batch_norm")),
     ("matmul", ("gemm", "nvjet", "xmma", "cutlass", "gemv")),
     ("nccl", ("nccl",)),
     ("optimizer", ("multi_tensor_apply",)),
@@ -753,6 +935,64 @@ def agreement_phase(seq, kernels):
           f"err/limit {worst:.3f}")
 
 
+def resnet_agreement_phase():
+    """ResNet-50 in float32 on the card (TF32 off) against the CPU on the
+    same weights, 2 images at 64x64: logits in evaluation and training mode
+    within 2e-3 of the largest logit, and the running statistics after the
+    training-mode forward within 1e-4. BN scales and biases are drawn at
+    random so that every block's branch counts."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from horovod_tpu_torch.models import resnet as R
+
+    gen = torch.Generator().manual_seed(3)
+    cpu = R.ResNet50(num_classes=RESNET_CLASSES)
+    cpu.reset_parameters(gen)
+    with torch.no_grad():
+        for m in cpu.modules():
+            if isinstance(m, R.BatchNorm):
+                m.weight.copy_(1 + 0.2 * torch.randn(m.weight.shape,
+                                                     generator=gen))
+                m.bias.copy_(0.2 * torch.randn(m.bias.shape, generator=gen))
+    card = copy.deepcopy(cpu).cuda()
+    x = torch.from_numpy(np.random.RandomState(5).rand(2, 64, 64, 3).astype(
+        np.float32))
+    worst = {}
+    for mode in ("eval", "train"):
+        outs = []
+        for model, dev in ((cpu, "cpu"), (card, "cuda")):
+            getattr(model, mode)()
+            with torch.no_grad():
+                outs.append(model(x.to(dev)).cpu())
+        want, got = outs
+        err = (got - want).abs().max().item()
+        limit = 2e-3 * want.abs().max().item()
+        if not err <= limit:
+            raise AssertionError(f"resnet50 card vs cpu {mode} logits: max "
+                                 f"abs err {err:.3e} > {limit:.3e}")
+        worst[f"{mode} logits"] = err / limit
+    stats = [(k, v, card.state_dict()[k].cpu())
+             for k, v in cpu.state_dict().items() if "running" in k]
+    err = max((b - a).abs().max().item() for _, a, b in stats)
+    if not err <= 1e-4:
+        raise AssertionError(f"resnet50 card vs cpu: running statistics "
+                             f"differ by {err:.3e} > 1e-4")
+    print(f"agree resnet50: float32 card (TF32 off, channels_last, cuDNN) vs "
+          f"CPU, 2 images at 64x64: logits within 2e-3 of the largest "
+          f"(err/limit {worst}); {len(stats)} running statistics after one "
+          f"training-mode forward within 1e-4 (max abs err {err:.3e})")
+
+
+def _phase(name, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -769,11 +1009,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_start = time.perf_counter()
     card = card_line()
     print(f"card: {card}")
-    build_phase()
-    measured = kernel_phase()
-    measured.update(dw_kernel_phase())
+    _phase("build", build_phase)
+    measured = _phase("kernels", kernel_phase)
+    measured.update(_phase("dw_kernels", dw_kernel_phase))
     # A one-rank world would short-circuit the wire; force the bf16 casts,
     # the bucket packing and the NCCL allreduce to run.
     os.environ["HOROVOD_FORCE_WIRE_MACHINERY"] = "1"
@@ -783,11 +1024,16 @@ def main() -> int:
     hvd.init()
     launches = {}
     for path in BERT_PATHS:
-        counts = training_phase(card, path)
+        counts = _phase(path[0], training_phase, card, path)
         launches.update({k: counts[k] for k in path[4]})
-    launches["dw_1x1"] = conv_phase(card)
-    agreement_phase(96, ("flash_fwd_single", "flash_dqkv"))
-    agreement_phase(160, ("flash_fwd", "flash_dq", "flash_dkv"))
+    _phase("resnet50", resnet_phase, card)
+    _phase("lenet", lenet_phase, card)
+    launches["dw_1x1"] = _phase("conv1x1", conv_phase, card)
+    _phase("agree", agreement_phase, 96, ("flash_fwd_single", "flash_dqkv"))
+    _phase("agree", agreement_phase, 160,
+           ("flash_fwd", "flash_dq", "flash_dkv"))
+    _phase("agree_resnet50", resnet_agreement_phase)
+    print(f"phase all: {time.perf_counter() - t_start:.1f} s")
 
     kernels = [dict(name=k.name, route="cuda",
                     source=f"horovod_tpu_torch/ops/csrc/{k.source}",

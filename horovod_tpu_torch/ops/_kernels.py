@@ -38,6 +38,7 @@ NVCC_FLAGS = (
 # dtype codes of the C interface (csrc/flash_common.cuh).
 DTYPE_F32 = 0
 DTYPE_BF16 = 1
+DTYPE_F16 = 2
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -23,8 +23,15 @@ Both routes compute one function. Each kernel has a wrapper here that
 launches the hand-written CUDA kernel for CUDA tensors and computes the
 plain PyTorch version beside it for CPU tensors. The plain versions
 (``*_plain``) are also what the kernels are held against on the card. Tile
-sizes are the kernels' own choice, so any sequence length works; the TPU
-kernels' block-divisibility rule does not apply.
+sizes are the kernels' own choice, so any sequence length and any number of
+heads works; the TPU kernels' block-divisibility rule does not apply.
+
+The kernels take float32, bfloat16 and float16, with instances at head dims
+16, 32, 64 and 128. A head dim between those goes to the next instance
+(:func:`kernel_head_dim`): q, k, v and dO are zero-padded to it, the scale
+stays ``1/sqrt(D)`` of the true D, and the outputs are sliced back
+(:func:`padded_heads`). A head dim above 128 raises: no instance of that
+width fits the Hopper kernels' shared memory yet.
 """
 
 from __future__ import annotations
@@ -45,9 +52,10 @@ LSE_MASKED = 1e30
 SINGLE_TILE_MAX = 128
 
 _KERNEL_DTYPES = {torch.float32: _kernels.DTYPE_F32,
-                  torch.bfloat16: _kernels.DTYPE_BF16}
-_KERNEL_HEAD_DIMS = {torch.float32: (16, 32, 64),
-                     torch.bfloat16: (16, 32, 64, 128)}
+                  torch.bfloat16: _kernels.DTYPE_BF16,
+                  torch.float16: _kernels.DTYPE_F16}
+# Head dims of the kernels' instances, every dtype.
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 
 
 def _attend_block(q, k, v, m, l, o, mask=None, scale=1.0):
@@ -113,8 +121,9 @@ def _visible(Sq, Sk, causal, q_offset, k_offset, device):
     return qpos[:, None] >= kpos[None, :]
 
 
-def _scores(q, k, causal, q_offset, k_offset):
-    scale = 1.0 / math.sqrt(q.shape[-1])
+def _scores(q, k, causal, q_offset, k_offset, scale=None):
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     mask = _visible(q.shape[1], k.shape[1], causal, q_offset, k_offset,
                     q.device)
@@ -123,13 +132,15 @@ def _scores(q, k, causal, q_offset, k_offset):
     return s, mask, scale
 
 
-def flash_fwd_plain(q, k, v, causal=False, q_offset=0, k_offset=0):
-    """Forward: ``(o [BH, Sq, D], lse [BH, Sq] fp32)``.
+def flash_fwd_plain(q, k, v, causal=False, q_offset=0, k_offset=0,
+                    scale=None):
+    """Forward: ``(o [BH, Sq, D], lse [BH, Sq] fp32)``; ``scale`` defaults
+    to ``1/sqrt(D)``.
 
     A direct softmax over the whole row, which is the function of both
     forward kernels: it is the plain version of the multi-tile forward and,
     as ``flash_fwd_single_plain``, of the single-tile forward."""
-    s, mask, _ = _scores(q, k, causal, q_offset, k_offset)
+    s, mask, _ = _scores(q, k, causal, q_offset, k_offset, scale)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     if mask is not None:
@@ -146,8 +157,8 @@ flash_fwd_single_plain = flash_fwd_plain
 
 
 def _probs_and_dscores(q, k, v, do, lse, delta, glse, causal, q_offset,
-                       k_offset):
-    s, mask, scale = _scores(q, k, causal, q_offset, k_offset)
+                       k_offset, scale):
+    s, mask, scale = _scores(q, k, causal, q_offset, k_offset, scale)
     p = torch.exp(s - lse[..., None])
     if mask is not None:
         p = torch.where(mask, p, 0.0)
@@ -157,19 +168,19 @@ def _probs_and_dscores(q, k, v, do, lse, delta, glse, causal, q_offset,
 
 
 def flash_dq_plain(q, k, v, do, lse, delta, glse, causal=False, q_offset=0,
-                   k_offset=0):
+                   k_offset=0, scale=None):
     """dQ = scale * dS K with dS = P * (dO V^T - delta + g_lse)."""
     _, ds, scale = _probs_and_dscores(q, k, v, do, lse, delta, glse, causal,
-                                      q_offset, k_offset)
+                                      q_offset, k_offset, scale)
     dq = scale * torch.matmul(ds.to(q.dtype).float(), k.float())
     return dq.to(q.dtype)
 
 
 def flash_dkv_plain(q, k, v, do, lse, delta, glse, causal=False, q_offset=0,
-                    k_offset=0):
+                    k_offset=0, scale=None):
     """dV = P^T dO and dK = scale * dS^T Q."""
     p, ds, scale = _probs_and_dscores(q, k, v, do, lse, delta, glse, causal,
-                                      q_offset, k_offset)
+                                      q_offset, k_offset, scale)
     dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
     dk = scale * torch.matmul(ds.to(q.dtype).float().transpose(-1, -2),
                               q.float())
@@ -177,11 +188,11 @@ def flash_dkv_plain(q, k, v, do, lse, delta, glse, causal=False, q_offset=0,
 
 
 def flash_dqkv_plain(q, k, v, do, lse, delta, glse, causal=False, q_offset=0,
-                     k_offset=0):
+                     k_offset=0, scale=None):
     """The fused backward: the S -> P -> dP -> dS chain once, then
     ``(dq, dk, dv)``."""
     p, ds, scale = _probs_and_dscores(q, k, v, do, lse, delta, glse, causal,
-                                      q_offset, k_offset)
+                                      q_offset, k_offset, scale)
     ds = ds.to(q.dtype).float()
     dq = scale * torch.matmul(ds, k.float())
     dk = scale * torch.matmul(ds.transpose(-1, -2), q.float())
@@ -195,25 +206,55 @@ def flash_dqkv_plain(q, k, v, do, lse, delta, glse, causal=False, q_offset=0,
 # ---------------------------------------------------------------------------
 
 
+def kernel_head_dim(D: int) -> int:
+    """The head dim of the kernel instance that computes head dim ``D``: the
+    smallest of :data:`KERNEL_HEAD_DIMS` that is at least ``D``."""
+    for d in KERNEL_HEAD_DIMS:
+        if 1 <= D <= d:
+            return d
+    raise ValueError(
+        f"flash attention kernels take head dims 1 to {KERNEL_HEAD_DIMS[-1]} "
+        f"(instances at {KERNEL_HEAD_DIMS}; a dim between them is "
+        f"zero-padded to the next); got {D}: a wider instance would not fit "
+        "the Hopper kernels' shared memory")
+
+
+def padded_heads(fn, seq, rows, causal, q_offset, k_offset):
+    """``fn(*seq, *rows, causal, q_offset, k_offset, scale)`` at the kernel
+    instance's head dim: the [BH, S, D] operands ``seq`` are zero-padded
+    from D to :func:`kernel_head_dim` (D), ``scale`` is ``1/sqrt(D)`` of the
+    true D, and [BH, S, D'] outputs are sliced back to D (contiguous). The
+    padded columns add exact zeros to every dot product, so the scores, lse,
+    P and dS are those of the unpadded operands; ``rows`` ([BH, S] vectors)
+    pass as they are."""
+    D = seq[0].shape[-1]
+    Dk = kernel_head_dim(D)
+    if Dk != D:
+        seq = [torch.nn.functional.pad(t, (0, Dk - D)) for t in seq]
+    out = fn(*seq, *rows, causal, q_offset, k_offset, 1.0 / math.sqrt(D))
+    if Dk == D:
+        return out
+
+    def back(t):
+        return t[..., :D].contiguous() if t.dim() == 3 else t
+
+    return tuple(back(t) for t in out) if isinstance(out, tuple) else back(out)
+
+
 def _check_kernel_operands(seq_tensors, row_tensors=()):
     """Validate [BH, S, D] operands and [BH, S] fp32 row vectors for a
-    kernel launch; return (dtype code, BH, D)."""
+    kernel launch on the card; return (dtype code, BH, D)."""
     q = seq_tensors[0]
-    if q.device.type != "cuda":
-        raise ValueError(
-            f"flash attention kernels take CPU or CUDA tensors; got "
-            f"{q.device}")
     dtype = q.dtype
     if dtype not in _KERNEL_DTYPES:
         raise TypeError(
-            f"flash attention kernels take bfloat16 or float32; got {dtype}")
+            f"flash attention kernels take float32, bfloat16 or float16; got "
+            f"{dtype}")
     BH, _, D = q.shape
-    if D not in _KERNEL_HEAD_DIMS[dtype]:
+    if D not in KERNEL_HEAD_DIMS:
         raise ValueError(
-            f"flash attention kernels take head dims "
-            f"{_KERNEL_HEAD_DIMS[dtype]} for {dtype}; got {D}")
-    if BH > 65535:
-        raise ValueError(f"batch*heads={BH} exceeds the grid limit 65535")
+            f"flash attention kernels take head dims {KERNEL_HEAD_DIMS}; got "
+            f"{D}")
     for t in seq_tensors:
         if t.dim() != 3 or t.shape[0] != BH or t.shape[2] != D:
             raise ValueError(
@@ -248,37 +289,34 @@ def _aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _forward(kernel, plain, q, k, v, causal, q_offset, k_offset):
-    """A forward kernel's wrapper: the plain version for CPU tensors, else
-    one launch of ``kernel``."""
-    if q.device.type == "cpu":
-        return plain(q, k, v, causal, q_offset, k_offset)
-    code, BH, D = _check_kernel_operands((q, k, v))
-    Sq, Sk = q.shape[1], k.shape[1]
-    if Sk != v.shape[1]:
-        raise ValueError("k and v must have the same sequence length")
-    o = torch.empty_like(q)
-    lse = torch.empty(BH, Sq, dtype=torch.float32, device=q.device)
-    _launch(
-        kernel, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        o.data_ptr(), lse.data_ptr(), BH, Sq, Sk, D, code, int(causal),
-        q_offset, k_offset, 1.0 / math.sqrt(D))
-    return o, lse
+def _check_device(t):
+    if t.device.type != "cuda":
+        raise ValueError(
+            f"flash attention kernels take CPU or CUDA tensors; got "
+            f"{t.device}")
 
 
-def flash_fwd(q, k, v, causal=False, q_offset=0, k_offset=0):
-    """Forward kernel: q [BH, Sq, D], k/v [BH, Sk, D] ->
-    ``(o [BH, Sq, D], lse [BH, Sq] fp32)``."""
-    return _forward(_kernels.FLASH_FWD, flash_fwd_plain, q, k, v, causal,
-                    q_offset, k_offset)
+def _fwd_launch(kernel):
+    """One launch of a forward kernel at an instance's head dim."""
+
+    def run(q, k, v, causal, q_offset, k_offset, scale):
+        code, BH, D = _check_kernel_operands((q, k, v))
+        Sq, Sk = q.shape[1], k.shape[1]
+        if Sk != v.shape[1]:
+            raise ValueError("k and v must have the same sequence length")
+        o = torch.empty_like(q)
+        lse = torch.empty(BH, Sq, dtype=torch.float32, device=q.device)
+        _launch(
+            kernel, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            o.data_ptr(), lse.data_ptr(), BH, Sq, Sk, D, code, int(causal),
+            q_offset, k_offset, scale)
+        return o, lse
+
+    return run
 
 
-def flash_dq(q, k, v, do, lse, delta, glse, causal=False, q_offset=0,
-             k_offset=0):
-    """dQ kernel; lse, delta, glse are [BH, Sq] fp32."""
-    if q.device.type == "cpu":
-        return flash_dq_plain(q, k, v, do, lse, delta, glse, causal,
-                              q_offset, k_offset)
+def _dq_launch(q, k, v, do, lse, delta, glse, causal, q_offset, k_offset,
+               scale):
     code, BH, D = _check_kernel_operands((q, k, v, do), (lse, delta, glse))
     Sq, Sk = q.shape[1], k.shape[1]
     dq = torch.empty_like(q)
@@ -286,16 +324,12 @@ def flash_dq(q, k, v, do, lse, delta, glse, causal=False, q_offset=0,
         _kernels.FLASH_DQ, q.device, q.data_ptr(), k.data_ptr(),
         v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         glse.data_ptr(), dq.data_ptr(), BH, Sq, Sk, D, code, int(causal),
-        q_offset, k_offset, 1.0 / math.sqrt(D))
+        q_offset, k_offset, scale)
     return dq
 
 
-def flash_dkv(q, k, v, do, lse, delta, glse, causal=False, q_offset=0,
-              k_offset=0):
-    """dK/dV kernel; returns ``(dk, dv)`` shaped like k and v."""
-    if q.device.type == "cpu":
-        return flash_dkv_plain(q, k, v, do, lse, delta, glse, causal,
-                               q_offset, k_offset)
+def _dkv_launch(q, k, v, do, lse, delta, glse, causal, q_offset, k_offset,
+                scale):
     code, BH, D = _check_kernel_operands((q, k, v, do), (lse, delta, glse))
     Sq, Sk = q.shape[1], k.shape[1]
     dk = torch.empty_like(k)
@@ -304,8 +338,55 @@ def flash_dkv(q, k, v, do, lse, delta, glse, causal=False, q_offset=0,
         _kernels.FLASH_DKV, q.device, q.data_ptr(), k.data_ptr(),
         v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         glse.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH, Sq, Sk, D, code,
-        int(causal), q_offset, k_offset, 1.0 / math.sqrt(D))
+        int(causal), q_offset, k_offset, scale)
     return dk, dv
+
+
+def _dqkv_launch(q, k, v, do, lse, delta, glse, causal, q_offset, k_offset,
+                 scale):
+    code, BH, D = _check_kernel_operands((q, k, v, do), (lse, delta, glse))
+    Sq, Sk = q.shape[1], k.shape[1]
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    _launch(
+        _kernels.FLASH_DQKV, q.device, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        glse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH, Sq,
+        Sk, D, code, int(causal), q_offset, k_offset, scale)
+    return dq, dk, dv
+
+
+def flash_fwd(q, k, v, causal=False, q_offset=0, k_offset=0):
+    """Forward kernel: q [BH, Sq, D], k/v [BH, Sk, D] ->
+    ``(o [BH, Sq, D], lse [BH, Sq] fp32)``."""
+    if q.device.type == "cpu":
+        return flash_fwd_plain(q, k, v, causal, q_offset, k_offset)
+    _check_device(q)
+    return padded_heads(_fwd_launch(_kernels.FLASH_FWD), (q, k, v), (),
+                        causal, q_offset, k_offset)
+
+
+def flash_dq(q, k, v, do, lse, delta, glse, causal=False, q_offset=0,
+             k_offset=0):
+    """dQ kernel; lse, delta, glse are [BH, Sq] fp32."""
+    if q.device.type == "cpu":
+        return flash_dq_plain(q, k, v, do, lse, delta, glse, causal,
+                              q_offset, k_offset)
+    _check_device(q)
+    return padded_heads(_dq_launch, (q, k, v, do), (lse, delta, glse),
+                        causal, q_offset, k_offset)
+
+
+def flash_dkv(q, k, v, do, lse, delta, glse, causal=False, q_offset=0,
+              k_offset=0):
+    """dK/dV kernel; returns ``(dk, dv)`` shaped like k and v."""
+    if q.device.type == "cpu":
+        return flash_dkv_plain(q, k, v, do, lse, delta, glse, causal,
+                               q_offset, k_offset)
+    _check_device(q)
+    return padded_heads(_dkv_launch, (q, k, v, do), (lse, delta, glse),
+                        causal, q_offset, k_offset)
 
 
 def _check_single_tile(Sq, Sk):
@@ -320,29 +401,24 @@ def flash_fwd_single(q, k, v, causal=False, q_offset=0, k_offset=0):
     """Single-tile forward kernel (Sq, Sk <= SINGLE_TILE_MAX): q [BH, Sq, D],
     k/v [BH, Sk, D] -> ``(o [BH, Sq, D], lse [BH, Sq] fp32)``."""
     _check_single_tile(q.shape[1], k.shape[1])
-    return _forward(_kernels.FLASH_FWD_SINGLE, flash_fwd_single_plain, q, k,
-                    v, causal, q_offset, k_offset)
+    if q.device.type == "cpu":
+        return flash_fwd_single_plain(q, k, v, causal, q_offset, k_offset)
+    _check_device(q)
+    return padded_heads(_fwd_launch(_kernels.FLASH_FWD_SINGLE), (q, k, v), (),
+                        causal, q_offset, k_offset)
 
 
 def flash_dqkv(q, k, v, do, lse, delta, glse, causal=False, q_offset=0,
                k_offset=0):
     """Fused single-tile backward kernel (Sq, Sk <= SINGLE_TILE_MAX); lse,
     delta, glse are [BH, Sq] fp32. Returns ``(dq, dk, dv)``."""
-    Sq, Sk = q.shape[1], k.shape[1]
-    _check_single_tile(Sq, Sk)
+    _check_single_tile(q.shape[1], k.shape[1])
     if q.device.type == "cpu":
         return flash_dqkv_plain(q, k, v, do, lse, delta, glse, causal,
                                 q_offset, k_offset)
-    code, BH, D = _check_kernel_operands((q, k, v, do), (lse, delta, glse))
-    dq = torch.empty_like(q)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    _launch(
-        _kernels.FLASH_DQKV, q.device, q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        glse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH, Sq,
-        Sk, D, code, int(causal), q_offset, k_offset, 1.0 / math.sqrt(D))
-    return dq, dk, dv
+    _check_device(q)
+    return padded_heads(_dqkv_launch, (q, k, v, do), (lse, delta, glse),
+                        causal, q_offset, k_offset)
 
 
 class _FlashAttention(torch.autograd.Function):

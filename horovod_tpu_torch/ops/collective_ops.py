@@ -136,18 +136,68 @@ def grouped_allreduce(tensors: Sequence[torch.Tensor],
                            process_set=ps)
 
 
+# The dtypes a rank can name to the others in allgather's shape exchange, in
+# one order on every rank.
+_DTYPES = tuple(sorted({v for v in vars(torch).values()
+                        if isinstance(v, torch.dtype)}, key=str))
+# Trailing dims listed in that exchange; beyond them, their product and the
+# rank of the tensor still have to agree.
+_HEAD_DIMS = 16
+
+
+def _shape_head(t: torch.Tensor) -> torch.Tensor:
+    """``[dtype, ndim, dim 0, trailing numel, trailing dims..., -1...]``."""
+    trailing = list(t.shape[1:_HEAD_DIMS + 1])
+    head = [_DTYPES.index(t.dtype), t.dim(), t.shape[0], t.shape[1:].numel(),
+            *trailing, *[-1] * (_HEAD_DIMS - len(trailing))]
+    return torch.tensor(head, dtype=torch.int64, device=t.device)
+
+
+def _describe(head) -> str:
+    dims = ", ".join(str(d) for d in [head[2], *head[4:]] if d >= 0)
+    more = ", ..." if head[1] > _HEAD_DIMS + 1 else ""
+    return f"[{dims}{more}] {_DTYPES[head[0]]}"
+
+
 def allgather(tensor, process_set=None,
               name: str | None = None) -> torch.Tensor:
-    """Concatenate every rank's tensor along dim 0 (equal shapes)."""
+    """Concatenate every rank's tensor along dim 0 on every rank.
+
+    Ranks may send different dim-0 sizes, 0 included (the reference's
+    ``allgather_v``); the trailing dims and the dtype must agree. One small
+    ``all_gather`` of every rank's shape and dtype comes first: if they
+    disagree, every rank raises ``ValueError`` naming the shapes. Equal
+    sizes then take one ``all_gather``; ragged ones are padded to the
+    largest dim 0, gathered, and compacted.
+    """
     del name
     ps = _resolve_process_set(process_set)
     _check_device(tensor)
     if tensor.dim() == 0:
         raise ValueError("allgather needs a tensor with at least one dim")
     t = tensor.detach().contiguous()
-    parts = [torch.empty_like(t) for _ in range(ps.size())]
-    dist.all_gather(parts, t)
-    return torch.cat(parts, dim=0)
+    head = _shape_head(t)
+    heads = [torch.empty_like(head) for _ in range(ps.size())]
+    dist.all_gather(heads, head)
+    heads = [h.tolist() for h in heads]
+    for r, h in enumerate(heads):
+        if h[:2] + h[3:] != heads[0][:2] + heads[0][3:]:
+            raise ValueError(
+                "allgather needs the same trailing dims and dtype on every "
+                f"rank; rank 0 sends {_describe(heads[0])}, rank {r} sends "
+                f"{_describe(h)}")
+    sizes = [h[2] for h in heads]
+    if len(set(sizes)) == 1:
+        if sizes[0] == 0:
+            return t.clone()
+        parts = [torch.empty_like(t) for _ in sizes]
+        dist.all_gather(parts, t)
+        return torch.cat(parts, dim=0)
+    buf = t.new_zeros((max(sizes), *t.shape[1:]))
+    buf[:t.shape[0]] = t
+    parts = [torch.empty_like(buf) for _ in sizes]
+    dist.all_gather(parts, buf)
+    return torch.cat([p[:n] for p, n in zip(parts, sizes)], dim=0)
 
 
 def broadcast(tensor, root_rank: int, process_set=None,

@@ -29,12 +29,13 @@ import torch
 from . import _kernels
 
 _KERNEL_DTYPES = {torch.float32: _kernels.DTYPE_F32,
-                  torch.bfloat16: _kernels.DTYPE_BF16}
+                  torch.bfloat16: _kernels.DTYPE_BF16,
+                  torch.float16: _kernels.DTYPE_F16}
 # float32 kernel: channels of one output tile, and rows per step.
 _TILE = 64
 _BLOCKS_PER_SM = 4  # its split of K aims at this many blocks per SM
-# bf16 kernel: a block tile's input and output channels, the most rows of a
-# TMA box dimension, and wgmma's depth in rows.
+# bf16 and float16 kernels: a block tile's input and output channels, the
+# most rows of a TMA box dimension, and wgmma's depth in rows.
 _CI_TILE, _CO_TILE = 64, 256
 _BOX_MAX = 256
 _DEPTH = 16
@@ -110,13 +111,55 @@ def split_boxes(nboxes, tiles, sms):
     return split, -(-nboxes // split)
 
 
+def _in_place(x) -> bool:
+    """Whether the kernels can read ``x`` ([K, C] or NHWC) where it lies:
+    16-byte aligned, unit channel stride, C and every row stride whole
+    16-byte vectors, and, for the 2-byte kernels, grid rows no wider than a
+    TMA box."""
+    vec = 16 // x.element_size()
+    grid = row_grid(tuple(x.shape), x.stride())
+    return (x.shape[-1] % vec == 0 and x.stride(-1) == 1
+            and x.data_ptr() % 16 == 0
+            and all(s % vec == 0 for s in (grid.sn, grid.sh, grid.sw))
+            and (x.element_size() == 4 or grid.Wd <= _BOX_MAX))
+
+
+def _padded(t, cols):
+    """The rows of ``t`` ([K, C] or NHWC) in a contiguous zero-filled
+    ``[K, cols]`` buffer: one copy."""
+    buf = t.new_zeros(*t.shape[:-1], cols)
+    buf[..., :t.shape[-1]] = t
+    return buf.reshape(-1, cols)
+
+
+def dw_operands(x2d, dy2d):
+    """The operands the kernel reads for ``x2d`` and ``dy2d``: each as it
+    lies where the kernel can read it in place, else a copy, zero-padded to
+    whole 16-byte vectors of channels (8 values at 2 bytes, 4 at float32);
+    dw of the padded channels is zero and is sliced off."""
+    vec = 16 // x2d.element_size()
+    ci, co = x2d.shape[-1], dy2d.shape[1]
+    if not _in_place(x2d):
+        x2d = _padded(x2d, -(-ci // vec) * vec)
+    if co % vec or not dy2d.is_contiguous() or dy2d.data_ptr() % 16:
+        dy2d = _padded(dy2d, -(-co // vec) * vec)
+    return x2d, dy2d
+
+
 def dw_1x1(x2d, dy2d):
     """Filter gradient of a 1x1 conv: ``x2d [K, Cin]``, ``dy2d [K, Cout]``
-    -> ``dw [Cin, Cout]`` float32.
+    -> ``dw [Cin, Cout]`` float32, for float32, bfloat16 and float16
+    operands (the 2-byte kernels multiply on the tensor cores and sum in
+    fp32, as the reference does).
 
-    ``x2d`` may also be an NHWC view ``[N, H, W, Cin]`` with unit channel
-    stride, such as the strided slice of a stride-2 convolution: the kernel
-    reads its rows in place, with no copy.
+    ``x2d`` may also be an NHWC view ``[N, H, W, Cin]``, such as the strided
+    slice of a stride-2 convolution: the kernel reads its rows in place,
+    with no copy, where it can (:func:`dw_operands`). Two cases take a copy
+    first, and the kernel reads the copy: channel counts that are no whole
+    16-byte vector (x and dy go into zero-padded ``[K, C']`` buffers and dw
+    is sliced back), and, in the 2-byte kernels, a strided view whose rows
+    are wider than a 256-row TMA box (x is copied contiguous, one grid row
+    of K rows).
     """
     if x2d.device.type == "cpu":
         return dw_1x1_plain(x2d, dy2d)
@@ -125,34 +168,37 @@ def dw_1x1(x2d, dy2d):
             f"dw_1x1 takes CPU or CUDA tensors; got {x2d.device}")
     dtype = x2d.dtype
     if dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"dw_1x1 takes bfloat16 or float32; got {dtype}")
+        raise TypeError(
+            f"dw_1x1 takes float32, bfloat16 or float16; got {dtype}")
     if x2d.dim() not in (2, 4) or dy2d.dim() != 2:
         raise ValueError(
             f"dw_1x1 takes x [K, Cin] or [N, H, W, Cin] and dy [K, Cout]; "
             f"got {tuple(x2d.shape)} and {tuple(dy2d.shape)}")
     ci, co = x2d.shape[-1], dy2d.shape[1]
     K = x2d.numel() // ci if ci else 0
-    vec = 16 // x2d.element_size()
     if (dy2d.dtype != dtype or dy2d.device != x2d.device
             or dy2d.shape[0] != K):
         raise ValueError(
             f"dy must be [{K}, Cout] in {dtype} on {x2d.device}; got "
             f"{dy2d.dtype} {tuple(dy2d.shape)} on {dy2d.device}")
-    grid = row_grid(tuple(x2d.shape), x2d.stride())
-    if (K == 0 or ci % vec or co % vec or x2d.stride(-1) != 1
-            or any(s % vec for s in (grid.sn, grid.sh, grid.sw))
-            or x2d.data_ptr() % 16
-            or not dy2d.is_contiguous() or dy2d.data_ptr() % 16):
+    if K == 0 or ci == 0 or co == 0:
         raise ValueError(
-            f"dw_1x1 needs K > 0, Cin and Cout multiples of {vec}, unit "
-            f"channel stride, row strides that are multiples of {vec}, a "
-            "contiguous dy and 16-byte aligned operands; got "
-            f"x {tuple(x2d.shape)} strides {x2d.stride()}, dy "
-            f"{tuple(dy2d.shape)}")
+            f"dw_1x1 needs K, Cin and Cout > 0; got x {tuple(x2d.shape)}, "
+            f"dy {tuple(dy2d.shape)}")
     if K >= 2**31:
         raise ValueError(f"dw_1x1 takes fewer than 2**31 rows; got {K}")
+    x2d, dy2d = dw_operands(x2d, dy2d)
+    out = _dw_launch(x2d, dy2d, K)
+    return out if out.shape == (ci, co) else out[:ci, :co].contiguous()
+
+
+def _dw_launch(x2d, dy2d, K):
+    """One launch on operands the kernel reads in place."""
+    dtype = x2d.dtype
+    ci, co = x2d.shape[-1], dy2d.shape[1]
+    grid = row_grid(tuple(x2d.shape), x2d.stride())
     sms = torch.cuda.get_device_properties(x2d.device).multi_processor_count
-    if dtype == torch.bfloat16:
+    if dtype != torch.float32:
         hb, rows = box_rows(grid.Wd)
         tiles = math.ceil(ci / _CI_TILE) * math.ceil(co / _CO_TILE)
         split, nsplit = split_boxes(grid.Nd * math.ceil(grid.Hd / hb), tiles,

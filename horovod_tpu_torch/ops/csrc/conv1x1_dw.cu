@@ -3,8 +3,8 @@
 //
 // Replaces the Pallas TPU kernel horovod_tpu/ops/conv_backward.py:_dw_kernel
 // (:43), launched by dw_1x1 (:57) from conv1x1's backward (:119):
-//   dw_1x1_kernel (bf16), dw_1x1_partial_f32_kernel (float32), each with
-//   dw_1x1_reduce_kernel.
+//   dw_1x1_kernel (bf16 and float16), dw_1x1_partial_f32_kernel (float32),
+//   each with dw_1x1_reduce_kernel.
 //
 // What bounds it, against the H100 SXM data-sheet peaks (989 TFLOP/s bf16,
 // 3.35 TB/s, at its 700 W limit): every row of x and dy is read once and the
@@ -16,7 +16,8 @@
 // What the design does about it. The TPU kernel streams K through one
 // sequential accumulator in VMEM. On Hopper the K axis is split instead, and
 // each piece is read from device memory once, with its loads kept in flight:
-//   - bf16 (dw_1x1_kernel): persistent warp-specialized blocks (flash_hopper.cuh:
+//   - bf16 and float16 (dw_1x1_kernel<T>, the same code on wgmma's .bf16
+//     or .f16 kind): persistent warp-specialized blocks (flash_hopper.cuh:
 //     a producer warpgroup that gives its registers to two consumer
 //     warpgroups) walk the work items (K range, block tile); a block tile is
 //     64 input by 256 output channels, each consumer warpgroup owning 128
@@ -45,8 +46,9 @@
 // dependent launch, which the bf16 kernel lets go once its tiles are out,
 // so its launch overlaps that kernel's last tiles. The wrapper
 // (horovod_tpu_torch/ops/conv_backward.py) plans the geometry of x's rows
-// and the split of K. Channel counts must be multiples of 8 (bf16) or 4
-// (float32) for 16-byte rows.
+// and the split of K. Channel counts must be multiples of 8 (2-byte types) or
+// 4 (float32) for 16-byte rows; the wrapper pads other counts with zero
+// channels.
 //
 // C interface: the entry point launches on the given stream, does not
 // synchronise, and returns the cudaError_t of the launches (0 on success),
@@ -57,7 +59,7 @@
 namespace {
 
 // ===========================================================================
-// bf16 on Hopper.
+// bf16 and float16 on Hopper.
 // ===========================================================================
 
 constexpr int DW_CI = 64;    // input channels of a block tile: one box of x
@@ -76,6 +78,7 @@ __host__ __device__ constexpr int dw_stage_bytes(int rows) { return (1 + DW_CO /
 // part + sp * Cin * Cout. The reduction of the partials is a programmatic
 // dependent launch, let go once a block's tiles are out; it waits for this
 // grid to finish.
+template <typename T>
 __global__ void __launch_bounds__(SM90_THREADS, 1)
 dw_1x1_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_dy,
               float* __restrict__ part, int Cin, int Cout, int Wd, int Hd, int hb, int rows,
@@ -158,7 +161,8 @@ dw_1x1_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ 
         fence_regs(acc);
         wgmma_fence();
         for (int kk = 0; kk < rows / 16; ++kk)
-          Wgmma<128>::ss<1, 1>(acc, FX::mnmajor(sX, rows, kk), FY::mnmajor(sY, rows, kk));
+          Wgmma<128, T>::template ss<1, 1>(acc, FX::mnmajor(sX, rows, kk),
+                                           FY::mnmajor(sY, rows, kk));
         wgmma_commit();
         // The previous stage's products are done: its buffers go back
         // (with one stage, this stage's, once they are done).
@@ -310,7 +314,7 @@ int launch_dw(const void* x, const void* dy, void* part, void* out, int K, int C
       (long long)Wd * Hd * Nd != K)
     return cudaErrorInvalidValue;
   int err;
-  if constexpr (std::is_same<T, bf16>::value) {
+  if constexpr (!std::is_same<T, float>::value) {
     const int hpb = (Hd + hb - 1) / hb;
     const long long nboxes = (long long)hpb * Nd;
     if (hb < 1 || hb > 256 || Wd > 256 || rows % 16 || rows < Wd * hb || rows > 256 ||
@@ -320,13 +324,14 @@ int launch_dw(const void* x, const void* dy, void* part, void* out, int K, int C
     // hb whole W-rows; dy: (Cout, K), boxes of 64 channels by `rows` rows.
     CUtensorMap mx, mdy;
     const cuuint64_t xdims[4] = {(cuuint64_t)Cin, (cuuint64_t)Wd, (cuuint64_t)Hd, (cuuint64_t)Nd};
-    const cuuint64_t xstrides[3] = {(cuuint64_t)sw * 2, (cuuint64_t)sh * 2, (cuuint64_t)sn * 2};
+    const cuuint64_t xstrides[3] = {(cuuint64_t)sw * sizeof(T), (cuuint64_t)sh * sizeof(T),
+                                    (cuuint64_t)sn * sizeof(T)};
     const cuuint32_t xbox[4] = {64, (cuuint32_t)Wd, (cuuint32_t)hb, 1};
     const cuuint64_t ydims[2] = {(cuuint64_t)Cout, (cuuint64_t)K};
-    const cuuint64_t ystrides[1] = {(cuuint64_t)Cout * 2};
+    const cuuint64_t ystrides[1] = {(cuuint64_t)Cout * sizeof(T)};
     const cuuint32_t ybox[2] = {64, (cuuint32_t)rows};
-    if ((err = make_map(&mx, x, 4, xdims, xstrides, xbox, 128)) ||
-        (err = make_map(&mdy, dy, 2, ydims, ystrides, ybox, 128)))
+    if ((err = make_map<T>(&mx, x, 4, xdims, xstrides, xbox, 128)) ||
+        (err = make_map<T>(&mdy, dy, 2, ydims, ystrides, ybox, 128)))
       return err;
     int stages = (int)((SMEM_LIMIT - 1024 - 16 * DW_MAX_STAGES) / dw_stage_bytes(rows));
     stages = stages < DW_MAX_STAGES ? stages : DW_MAX_STAGES;
@@ -334,7 +339,7 @@ int launch_dw(const void* x, const void* dy, void* part, void* out, int K, int C
     const int nwork = nsplit * ((Cin + DW_CI - 1) / DW_CI) * ((Cout + DW_CO - 1) / DW_CO);
     int sms = 0;
     if ((err = sm_count(&sms))) return err;
-    err = launch(dw_1x1_kernel, dim3(nwork < sms ? nwork : sms), SM90_THREADS, smem, stream, mx,
+    err = launch(dw_1x1_kernel<T>, dim3(nwork < sms ? nwork : sms), SM90_THREADS, smem, stream, mx,
                  mdy, (float*)(nsplit == 1 ? out : part), Cin, Cout, Wd, Hd, hb, rows,
                  (int)nboxes, split, nsplit, stages);
   } else {
@@ -369,6 +374,9 @@ int hvd_dw_1x1(const void* x, const void* dy, void* part, void* out, int K, int 
   if (dtype == DTYPE_BF16)
     return launch_dw<bf16>(x, dy, part, out, K, Cin, Cout, nsplit, split, hb, rows, Wd, Hd, Nd,
                            sw, sh, sn, (cudaStream_t)stream);
+  if (dtype == DTYPE_F16)
+    return launch_dw<f16>(x, dy, part, out, K, Cin, Cout, nsplit, split, hb, rows, Wd, Hd, Nd,
+                          sw, sh, sn, (cudaStream_t)stream);
   if (dtype == DTYPE_F32)
     return launch_dw<float>(x, dy, part, out, K, Cin, Cout, nsplit, split, hb, rows, Wd, Hd, Nd,
                             sw, sh, sn, (cudaStream_t)stream);

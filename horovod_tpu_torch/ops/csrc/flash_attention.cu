@@ -4,9 +4,9 @@
 // kernels of flash_attention_single.cu.
 //
 // Replaces the Pallas TPU kernels of horovod_tpu/ops/attention.py:
-//   flash_fwd_kernel  (bf16), flash_fwd_f32_kernel  <- _flash_fwd_kernel (:138)
-//   flash_dq_kernel   (bf16), flash_dq_f32_kernel   <- _flash_dq_kernel (:198)
-//   flash_dkv_kernel  (bf16), flash_dkv_f32_kernel  <- _flash_dkv_kernel (:252)
+//   flash_fwd_kernel  (bf16, f16), flash_fwd_f32_kernel  <- _flash_fwd_kernel (:138)
+//   flash_dq_kernel   (bf16, f16), flash_dq_f32_kernel   <- _flash_dq_kernel (:198)
+//   flash_dkv_kernel  (bf16, f16), flash_dkv_f32_kernel  <- _flash_dkv_kernel (:252)
 //
 // What bounds them, against the H100 SXM data-sheet peaks (989 TFLOP/s bf16,
 // 3.35 TB/s, at its 700 W limit): at the BERT-Large S = 512 shape
@@ -20,8 +20,10 @@
 //
 // What the design does about it. The TPU's sequential grid axis becomes a
 // loop inside one thread block, and each output tile has one owner, so no
-// atomics are needed. bf16, the training path (flash_fwd_kernel,
-// flash_dq_kernel, flash_dkv_kernel):
+// atomics are needed. bf16 and float16, the training path (flash_fwd_kernel,
+// flash_dq_kernel, flash_dkv_kernel, templated on the 2-byte type T, which
+// picks wgmma's .bf16 or .f16 kind, the tensor maps' data type and the
+// rounding of P, dS and the outputs):
 //   - Persistent blocks, one per SM, walk the work tiles: the forward's and
 //     dQ's (bh, 128 Q rows), dK/dV's (bh, 128 keys). A block is three
 //     warpgroups: two consumers of 64 rows each, and a producer whose first
@@ -58,8 +60,9 @@
 //     leave through shared memory and TMA stores, as O does.
 // float32 (flash_fwd_f32_kernel, flash_dq_f32_kernel, flash_dkv_f32_kernel)
 // keeps the first version: 64-row tiles, four warps, fp32 accumulators in
-// shared memory, FMA products (TF32 would round operands to 10 mantissa
-// bits), synchronous loads.
+// shared memory (dK/dV: in registers), FMA products (TF32 would round
+// operands to 10 mantissa bits), synchronous loads, a block per (tile, head)
+// with heads past grid.y's 65535 taken in a loop; D = 16 to 128.
 // P and dS are rounded to the operand dtype before the PV, P^T dO, dS K and
 // dS^T Q products, as the TPU kernels do.
 //
@@ -97,7 +100,7 @@ __device__ __forceinline__ int query_begin(int k0, int bq, int causal, int q_off
 }
 
 // ===========================================================================
-// bf16 on Hopper: warp-specialized wgmma kernels.
+// bf16 and float16 on Hopper: warp-specialized wgmma kernels.
 // ===========================================================================
 
 constexpr int FWD_BQ = 128;  // Q rows of a forward work tile
@@ -123,10 +126,10 @@ struct FwdSmem {
 };
 
 // Forward, persistent: a grid of one block per SM walks the work tiles
-// (bh, 128 Q rows) in turn; o [BH, Sq, D] bf16, lse [BH, Sq] fp32. The
+// (bh, 128 Q rows) in turn; o [BH, Sq, D] in T, lse [BH, Sq] fp32. The
 // producer runs ahead into the next work tile (its Q into the other buffer,
 // its K/V tiles into the ring) while the consumers finish the current one.
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(SM90_THREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o,
@@ -226,11 +229,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         // S = Q K^T (SS, both K-major).
         float sc[BK / 2];
         wgmma_fence();
-        Wgmma<BK>::template ss_init<0>(sc, F::kmajor(sQ, FWD_BQ, wg * 64, 0),
+        Wgmma<BK, T>::template ss_init<0>(sc, F::kmajor(sQ, FWD_BQ, wg * 64, 0),
                                        F::kmajor(sK, BK, 0, 0));
 #pragma unroll
         for (int kk = 1; kk < D / 16; ++kk)
-          Wgmma<BK>::template ss<0>(sc, F::kmajor(sQ, FWD_BQ, wg * 64, kk),
+          Wgmma<BK, T>::template ss<0>(sc, F::kmajor(sQ, FWD_BQ, wg * 64, kk),
                                     F::kmajor(sK, BK, 0, kk));
         wgmma_commit();
         wgmma_wait<0>();
@@ -243,10 +246,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         float corr[2];
         uint32_t p[BK / 16][4];
         if (t * BK + BK > Sk || (causal && q_offset + row_first < k_offset + t * BK + BK - 1))
-          softmax_tile<BK, true>(sc, m, l, corr, p, row0, t * BK, Sk, sl2, causal, q_offset,
+          softmax_tile<T, BK, true>(sc, m, l, corr, p, row0, t * BK, Sk, sl2, causal, q_offset,
                                  k_offset, tq);
         else
-          softmax_tile<BK, false>(sc, m, l, corr, p, row0, t * BK, Sk, sl2, causal, q_offset,
+          softmax_tile<T, BK, false>(sc, m, l, corr, p, row0, t * BK, Sk, sl2, causal, q_offset,
                                   k_offset, tq);
 #pragma unroll
         for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
@@ -257,7 +260,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk)
-          Wgmma<D>::template rs<1>(acc, p[kk], F::mnmajor(sV, BK, kk));
+          Wgmma<D, T>::template rs<1>(acc, p[kk], F::mnmajor(sV, BK, kk));
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(acc);
@@ -286,7 +289,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         for (int j = 0; j < D / 8; ++j) {
           const int i = 4 * j + 2 * h;
           st_shared_u32(sO + F::offset(64, r, 8 * j + 2 * tq),
-                        pack_bf16(acc[i] * inv, acc[i + 1] * inv));
+                        pack2<T>(acc[i] * inv, acc[i + 1] * inv));
         }
         const int qi = row0 + 8 * h;
         if (tq == 0 && qi < Sq)
@@ -333,7 +336,7 @@ struct DqSmem {
 // log2(e), gd is g_lse - delta. MASK: the tile holds keys past Sk (zero
 // rows of K, but their P need not be finite) or causally hidden keys for
 // some of those rows.
-template <int BK, bool MASK>
+template <typename T, int BK, bool MASK>
 __device__ __forceinline__ void dq_dscores(const float (&st)[BK / 2], const float (&dp)[BK / 2],
                                            const float (&lse2)[2], const float (&gd)[2],
                                            uint32_t (&dsf)[BK / 16][4], int row0, int k0, int Sk,
@@ -354,14 +357,14 @@ __device__ __forceinline__ void dq_dscores(const float (&st)[BK / 2], const floa
         }
         ds[e] = p * (dp[i + e] + gd[h]);
       }
-      dsf[kk][r] = pack_bf16(ds[0], ds[1]);
+      dsf[kk][r] = pack2<T>(ds[0], ds[1]);
     }
 }
 
 // dQ, persistent: a grid of one block per SM walks the work tiles (bh,
 // 128 Q rows) in turn and loops over the K/V tiles their rows can see.
 // dQ = scale * sum_j dS_ij K_j.
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(SM90_THREADS, 1)
 flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
@@ -483,17 +486,17 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
         // S = Q K^T and dP = dO V^T (SS, all K-major).
         float st[BK / 2], dp[BK / 2];
         wgmma_fence();
-        Wgmma<BK>::template ss_init<0>(st, F::kmajor(sQ, DQ_BQ, wg * 64, 0),
+        Wgmma<BK, T>::template ss_init<0>(st, F::kmajor(sQ, DQ_BQ, wg * 64, 0),
                                        F::kmajor(sK, BK, 0, 0));
 #pragma unroll
         for (int kk = 1; kk < D / 16; ++kk)
-          Wgmma<BK>::template ss<0>(st, F::kmajor(sQ, DQ_BQ, wg * 64, kk),
+          Wgmma<BK, T>::template ss<0>(st, F::kmajor(sQ, DQ_BQ, wg * 64, kk),
                                     F::kmajor(sK, BK, 0, kk));
-        Wgmma<BK>::template ss_init<0>(dp, F::kmajor(sdO, DQ_BQ, wg * 64, 0),
+        Wgmma<BK, T>::template ss_init<0>(dp, F::kmajor(sdO, DQ_BQ, wg * 64, 0),
                                        F::kmajor(sV, BK, 0, 0));
 #pragma unroll
         for (int kk = 1; kk < D / 16; ++kk)
-          Wgmma<BK>::template ss<0>(dp, F::kmajor(sdO, DQ_BQ, wg * 64, kk),
+          Wgmma<BK, T>::template ss<0>(dp, F::kmajor(sdO, DQ_BQ, wg * 64, kk),
                                     F::kmajor(sV, BK, 0, kk));
         wgmma_commit();
         wgmma_wait<0>();
@@ -506,10 +509,10 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
 
         uint32_t dsf[BK / 16][4];
         if (t * BK + BK > Sk || (causal && q_offset + row_first < k_offset + t * BK + BK - 1))
-          dq_dscores<BK, true>(st, dp, lse2, gd, dsf, row0, t * BK, Sk, sl2, causal, q_offset,
+          dq_dscores<T, BK, true>(st, dp, lse2, gd, dsf, row0, t * BK, Sk, sl2, causal, q_offset,
                                k_offset, tq);
         else
-          dq_dscores<BK, false>(st, dp, lse2, gd, dsf, row0, t * BK, Sk, sl2, causal, q_offset,
+          dq_dscores<T, BK, false>(st, dp, lse2, gd, dsf, row0, t * BK, Sk, sl2, causal, q_offset,
                                 k_offset, tq);
 
         // dQ += dS K (RS: dS from registers, K MN-major).
@@ -518,7 +521,7 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk)
-          Wgmma<D>::template rs<1>(dq, dsf[kk], F::mnmajor(sK, BK, kk));
+          Wgmma<D, T>::template rs<1>(dq, dsf[kk], F::mnmajor(sK, BK, kk));
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dq);
@@ -531,7 +534,7 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
       }
 
       const float mul[2] = {scale, scale};
-      store_out<D>(&tm_dq, base + L::O + wg * L::TILE_O, dq, mul, r, tq, tid, wg, row_first, bh);
+      store_out<T, D>(&tm_dq, base + L::O + wg * L::TILE_O, dq, mul, r, tq, tid, wg, row_first, bh);
     }
     if (tid == 0) bulk_wait_read<0>();  // shared memory outlives the last store's reads
   }
@@ -566,7 +569,7 @@ struct DkvSmem {
 // P^T and dS^T of one Q tile on a consumer thread's registers (keys key0 and
 // key0 + 8, Q columns q0 + c): P^T = exp(S^T scale - lse[c]), dS^T =
 // P^T (dP^T + g_lse[c] - delta[c]), in place and as bf16 A fragments.
-template <int BQ, bool MASK>
+template <typename T, int BQ, bool MASK>
 __device__ __forceinline__ void dkv_probs(float (&st)[BQ / 2], float (&dpt)[BQ / 2],
                                           const float* rows, uint32_t (&pf)[BQ / 16][4],
                                           uint32_t (&dsf)[BQ / 16][4], int key0, int q0,
@@ -583,15 +586,15 @@ __device__ __forceinline__ void dkv_probs(float (&st)[BQ / 2], float (&dpt)[BQ /
   for (int kk = 0; kk < BQ / 16; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      pf[kk][r] = pack_bf16(st[8 * kk + 2 * r], st[8 * kk + 2 * r + 1]);
-      dsf[kk][r] = pack_bf16(dpt[8 * kk + 2 * r], dpt[8 * kk + 2 * r + 1]);
+      pf[kk][r] = pack2<T>(st[8 * kk + 2 * r], st[8 * kk + 2 * r + 1]);
+      dsf[kk][r] = pack2<T>(dpt[8 * kk + 2 * r], dpt[8 * kk + 2 * r + 1]);
     }
 }
 
 // dK/dV, persistent: a grid of one block per SM walks the work tiles (bh,
 // 128 keys) in turn and loops over the Q tiles that can see them.
 // dV = sum_i P_ij^T dO_i; dK = scale * sum_i dS_ij^T Q_i.
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(SM90_THREADS, 1)
 flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
@@ -725,17 +728,17 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         // S^T = K Q^T and dP^T = V dO^T (SS, all K-major).
         float st[BQ / 2], dpt[BQ / 2];
         wgmma_fence();
-        Wgmma<BQ>::template ss_init<0>(st, F::kmajor(sK, DKV_BK, wg * 64, 0),
+        Wgmma<BQ, T>::template ss_init<0>(st, F::kmajor(sK, DKV_BK, wg * 64, 0),
                                        F::kmajor(sQ, BQ, 0, 0));
 #pragma unroll
         for (int kk = 1; kk < D / 16; ++kk)
-          Wgmma<BQ>::template ss<0>(st, F::kmajor(sK, DKV_BK, wg * 64, kk),
+          Wgmma<BQ, T>::template ss<0>(st, F::kmajor(sK, DKV_BK, wg * 64, kk),
                                     F::kmajor(sQ, BQ, 0, kk));
-        Wgmma<BQ>::template ss_init<0>(dpt, F::kmajor(sV, DKV_BK, wg * 64, 0),
+        Wgmma<BQ, T>::template ss_init<0>(dpt, F::kmajor(sV, DKV_BK, wg * 64, 0),
                                        F::kmajor(sdO, BQ, 0, 0));
 #pragma unroll
         for (int kk = 1; kk < D / 16; ++kk)
-          Wgmma<BQ>::template ss<0>(dpt, F::kmajor(sV, DKV_BK, wg * 64, kk),
+          Wgmma<BQ, T>::template ss<0>(dpt, F::kmajor(sV, DKV_BK, wg * 64, kk),
                                     F::kmajor(sdO, BQ, 0, kk));
         wgmma_commit();
         wgmma_wait<0>();
@@ -749,9 +752,9 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         const float* rows = reinterpret_cast<const float*>(smem + L::ROW + s * L::ROWS);
         uint32_t pf[BQ / 16][4], dsf[BQ / 16][4];
         if (causal && q_offset + q0 < k_offset + key_first + 63)
-          dkv_probs<BQ, true>(st, dpt, rows, pf, dsf, key0, q0, sl2, q_offset, k_offset, tq);
+          dkv_probs<T, BQ, true>(st, dpt, rows, pf, dsf, key0, q0, sl2, q_offset, k_offset, tq);
         else
-          dkv_probs<BQ, false>(st, dpt, rows, pf, dsf, key0, q0, sl2, q_offset, k_offset, tq);
+          dkv_probs<T, BQ, false>(st, dpt, rows, pf, dsf, key0, q0, sl2, q_offset, k_offset, tq);
 
         // dV += P^T dO and dK += dS^T Q (RS, dO and Q MN-major).
         fence_regs(dk_acc);
@@ -761,10 +764,10 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BQ / 16; ++kk)
-          Wgmma<D>::template rs<1>(dv_acc, pf[kk], F::mnmajor(sdO, BQ, kk));
+          Wgmma<D, T>::template rs<1>(dv_acc, pf[kk], F::mnmajor(sdO, BQ, kk));
 #pragma unroll
         for (int kk = 0; kk < BQ / 16; ++kk)
-          Wgmma<D>::template rs<1>(dk_acc, dsf[kk], F::mnmajor(sQ, BQ, kk));
+          Wgmma<D, T>::template rs<1>(dk_acc, dsf[kk], F::mnmajor(sQ, BQ, kk));
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dk_acc);
@@ -791,8 +794,8 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         for (int j = 0; j < D / 8; ++j) {
           const int i = 4 * j + 2 * h;
           const uint32_t at = F::offset(64, r, 8 * j + 2 * tq);
-          st_shared_u32(sdK + at, pack_bf16(scale * dk_acc[i], scale * dk_acc[i + 1]));
-          st_shared_u32(sdV + at, pack_bf16(dv_acc[i], dv_acc[i + 1]));
+          st_shared_u32(sdK + at, pack2<T>(scale * dk_acc[i], scale * dk_acc[i + 1]));
+          st_shared_u32(sdV + at, pack2<T>(dv_acc[i], dv_acc[i + 1]));
         }
       }
       fence_async_smem();
@@ -833,12 +836,14 @@ struct Layout {
 };
 
 // Forward, float32: one block per (bh, Q tile); loop over K/V tiles with an
-// online softmax. o [BH, Sq, D], lse [BH, Sq] fp32.
+// online softmax. o [BH, Sq, D], lse [BH, Sq] fp32. At D = 128 the tiles
+// take 176,640 bytes of shared memory.
 template <int D>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
-                     int Sq, int Sk, float scale, int causal, int q_offset, int k_offset) {
+                     int BH, int Sq, int Sk, float scale, int causal, int q_offset,
+                     int k_offset) {
   using T = float;
   using L = Layout<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -851,67 +856,71 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* sM = sO + BQ * L::LDO;
   float* sL = sM + BQ;
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int r0 = warp * WROWS;
-  const T* qb = q + (size_t)bh * Sq * D;
-  const T* kb = k + (size_t)bh * Sk * D;
-  const T* vb = v + (size_t)bh * Sk * D;
+  // grid.y holds at most 65535 heads: a block takes heads blockIdx.y,
+  // blockIdx.y + gridDim.y, ...
+  for (int bh = blockIdx.y; bh < BH; bh += gridDim.y) {
+    __syncthreads();  // the previous head is done with shared memory
+    const int q0 = blockIdx.x * BQ;
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int r0 = warp * WROWS;
+    const T* qb = q + (size_t)bh * Sq * D;
+    const T* kb = k + (size_t)bh * Sk * D;
+    const T* vb = v + (size_t)bh * Sk * D;
 
-  load_tile<T, D, BQ, NTHREADS>(sQ, L::LDT, qb, q0, Sq);
-  for (int i = threadIdx.x; i < BQ * L::LDO; i += NTHREADS) sO[i] = 0.f;
-  for (int i = threadIdx.x; i < BQ; i += NTHREADS) {
-    sM[i] = NEG_INF;
-    sL[i] = 0.f;
-  }
-  const int kend = key_end(Sk, q0, BQ, causal, q_offset, k_offset);
+    load_tile<T, D, BQ, NTHREADS>(sQ, L::LDT, qb, q0, Sq);
+    for (int i = threadIdx.x; i < BQ * L::LDO; i += NTHREADS) sO[i] = 0.f;
+    for (int i = threadIdx.x; i < BQ; i += NTHREADS) {
+      sM[i] = NEG_INF;
+      sL[i] = 0.f;
+    }
+    const int kend = key_end(Sk, q0, BQ, causal, q_offset, k_offset);
 
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    __syncthreads();  // every warp is done with the previous K, V and P
-    load_tile<T, D, BK, NTHREADS>(sK, L::LDT, kb, k0, Sk);
-    load_tile<T, D, BK, NTHREADS>(sV, L::LDT, vb, k0, Sk);
+    for (int k0 = 0; k0 < kend; k0 += BK) {
+      __syncthreads();  // every warp is done with the previous K, V and P
+      load_tile<T, D, BK, NTHREADS>(sK, L::LDT, kb, k0, Sk);
+      load_tile<T, D, BK, NTHREADS>(sV, L::LDT, vb, k0, Sk);
+      __syncthreads();
+
+      warp_gemm<false, true, BK, D>(sQ + r0 * L::LDT, L::LDT, sK, L::LDT, sS + r0 * L::LDS,
+                                    L::LDS, false);
+      __syncwarp();
+      for (int r = r0; r < r0 + WROWS; ++r) {
+        const int qi = q0 + r;
+        const bool ok0 = visible(qi, k0 + lane, Sq, Sk, causal, q_offset, k_offset);
+        const bool ok1 = visible(qi, k0 + lane + 32, Sq, Sk, causal, q_offset, k_offset);
+        const float s0 = ok0 ? sS[r * L::LDS + lane] * scale : NEG_INF;
+        const float s1 = ok1 ? sS[r * L::LDS + lane + 32] * scale : NEG_INF;
+        const float m_prev = sM[r];
+        const float m_new = fmaxf(m_prev, warp_max(fmaxf(s0, s1)));
+        const float corr = expf(m_prev - m_new);
+        const float p0 = ok0 ? expf(s0 - m_new) : 0.f;
+        const float p1 = ok1 ? expf(s1 - m_new) : 0.f;
+        const float psum = warp_sum(p0 + p1);
+        sP[r * L::LDP + lane] = p0;
+        sP[r * L::LDP + lane + 32] = p1;
+        for (int c = lane; c < D; c += 32) sO[r * L::LDO + c] *= corr;
+        if (lane == 0) {
+          sM[r] = m_new;
+          sL[r] = sL[r] * corr + psum;
+        }
+      }
+      __syncwarp();
+      warp_gemm<false, false, D, BK>(sP + r0 * L::LDP, L::LDP, sV, L::LDT, sO + r0 * L::LDO,
+                                     L::LDO, true);
+    }
     __syncthreads();
 
-    warp_gemm<false, true, BK, D>(sQ + r0 * L::LDT, L::LDT, sK, L::LDT, sS + r0 * L::LDS,
-                                  L::LDS, false);
-    __syncwarp();
+    T* ob = o + (size_t)bh * Sq * D;
     for (int r = r0; r < r0 + WROWS; ++r) {
       const int qi = q0 + r;
-      const bool ok0 = visible(qi, k0 + lane, Sq, Sk, causal, q_offset, k_offset);
-      const bool ok1 = visible(qi, k0 + lane + 32, Sq, Sk, causal, q_offset, k_offset);
-      const float s0 = ok0 ? sS[r * L::LDS + lane] * scale : NEG_INF;
-      const float s1 = ok1 ? sS[r * L::LDS + lane + 32] * scale : NEG_INF;
-      const float m_prev = sM[r];
-      const float m_new = fmaxf(m_prev, warp_max(fmaxf(s0, s1)));
-      const float corr = expf(m_prev - m_new);
-      const float p0 = ok0 ? expf(s0 - m_new) : 0.f;
-      const float p1 = ok1 ? expf(s1 - m_new) : 0.f;
-      const float psum = warp_sum(p0 + p1);
-      sP[r * L::LDP + lane] = p0;
-      sP[r * L::LDP + lane + 32] = p1;
-      for (int c = lane; c < D; c += 32) sO[r * L::LDO + c] *= corr;
-      if (lane == 0) {
-        sM[r] = m_new;
-        sL[r] = sL[r] * corr + psum;
-      }
+      if (qi >= Sq) break;
+      const float l = sL[r];
+      const bool empty = l == 0.f;
+      const float safe_l = empty ? 1.f : l;
+      for (int c = lane; c < D; c += 32) ob[(size_t)qi * D + c] = sO[r * L::LDO + c] / safe_l;
+      if (lane == 0) lse[(size_t)bh * Sq + qi] = empty ? LSE_MASKED : sM[r] + logf(safe_l);
     }
-    __syncwarp();
-    warp_gemm<false, false, D, BK>(sP + r0 * L::LDP, L::LDP, sV, L::LDT, sO + r0 * L::LDO,
-                                   L::LDO, true);
-  }
-  __syncthreads();
-
-  T* ob = o + (size_t)bh * Sq * D;
-  for (int r = r0; r < r0 + WROWS; ++r) {
-    const int qi = q0 + r;
-    if (qi >= Sq) break;
-    const float l = sL[r];
-    const bool empty = l == 0.f;
-    const float safe_l = empty ? 1.f : l;
-    for (int c = lane; c < D; c += 32) ob[(size_t)qi * D + c] = sO[r * L::LDO + c] / safe_l;
-    if (lane == 0) lse[(size_t)bh * Sq + qi] = empty ? LSE_MASKED : sM[r] + logf(safe_l);
   }
 }
 
@@ -940,14 +949,15 @@ __device__ __forceinline__ void probs_and_dscores(
 }
 
 // dQ, float32: one block per (bh, Q tile); loop over K/V tiles.
-// dQ = scale * sum_j dS_ij K_j.
+// dQ = scale * sum_j dS_ij K_j. At D = 128 the tiles take 230,144 bytes of
+// shared memory, just inside the 232,448 a block may use.
 template <int D>
 __global__ void __launch_bounds__(NTHREADS)
 flash_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    const float* __restrict__ glse, float* __restrict__ dq, int Sq, int Sk,
-                    float scale, int causal, int q_offset, int k_offset) {
+                    const float* __restrict__ glse, float* __restrict__ dq, int BH, int Sq,
+                    int Sk, float scale, int causal, int q_offset, int k_offset) {
   using T = float;
   using L = Layout<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -963,61 +973,69 @@ flash_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* sDelta = sLse + BQ;
   float* sGlse = sDelta + BQ;
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int r0 = warp * WROWS;
-  const size_t qoff = (size_t)bh * Sq * D;
-  const size_t koff = (size_t)bh * Sk * D;
+  // grid.y holds at most 65535 heads: a block takes heads blockIdx.y,
+  // blockIdx.y + gridDim.y, ...
+  for (int bh = blockIdx.y; bh < BH; bh += gridDim.y) {
+    __syncthreads();  // the previous head is done with shared memory
+    const int q0 = blockIdx.x * BQ;
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int r0 = warp * WROWS;
+    const size_t qoff = (size_t)bh * Sq * D;
+    const size_t koff = (size_t)bh * Sk * D;
 
-  load_tile<T, D, BQ, NTHREADS>(sQ, L::LDT, q + qoff, q0, Sq);
-  load_tile<T, D, BQ, NTHREADS>(sdO, L::LDT, dout + qoff, q0, Sq);
-  load_rows<BQ, NTHREADS>(sLse, lse + (size_t)bh * Sq, q0, Sq);
-  load_rows<BQ, NTHREADS>(sDelta, delta + (size_t)bh * Sq, q0, Sq);
-  load_rows<BQ, NTHREADS>(sGlse, glse + (size_t)bh * Sq, q0, Sq);
-  for (int i = threadIdx.x; i < BQ * L::LDO; i += NTHREADS) sdQ[i] = 0.f;
-  const int kend = key_end(Sk, q0, BQ, causal, q_offset, k_offset);
+    load_tile<T, D, BQ, NTHREADS>(sQ, L::LDT, q + qoff, q0, Sq);
+    load_tile<T, D, BQ, NTHREADS>(sdO, L::LDT, dout + qoff, q0, Sq);
+    load_rows<BQ, NTHREADS>(sLse, lse + (size_t)bh * Sq, q0, Sq);
+    load_rows<BQ, NTHREADS>(sDelta, delta + (size_t)bh * Sq, q0, Sq);
+    load_rows<BQ, NTHREADS>(sGlse, glse + (size_t)bh * Sq, q0, Sq);
+    for (int i = threadIdx.x; i < BQ * L::LDO; i += NTHREADS) sdQ[i] = 0.f;
+    const int kend = key_end(Sk, q0, BQ, causal, q_offset, k_offset);
 
-  for (int k0 = 0; k0 < kend; k0 += BK) {
+    for (int k0 = 0; k0 < kend; k0 += BK) {
+      __syncthreads();
+      load_tile<T, D, BK, NTHREADS>(sK, L::LDT, k + koff, k0, Sk);
+      load_tile<T, D, BK, NTHREADS>(sV, L::LDT, v + koff, k0, Sk);
+      __syncthreads();
+
+      warp_gemm<false, true, BK, D>(sQ + r0 * L::LDT, L::LDT, sK, L::LDT, sS + r0 * L::LDS,
+                                    L::LDS, false);
+      warp_gemm<false, true, BK, D>(sdO + r0 * L::LDT, L::LDT, sV, L::LDT, sdP + r0 * L::LDS,
+                                    L::LDS, false);
+      __syncwarp();
+      probs_and_dscores<T, L::LDS, L::LDP>(sS, sdP, sLse, sDelta, sGlse, nullptr, sdS, r0, q0,
+                                           k0, Sq, Sk, scale, causal, q_offset, k_offset);
+      __syncwarp();
+      warp_gemm<false, false, D, BK>(sdS + r0 * L::LDP, L::LDP, sK, L::LDT, sdQ + r0 * L::LDO,
+                                     L::LDO, true);
+    }
     __syncthreads();
-    load_tile<T, D, BK, NTHREADS>(sK, L::LDT, k + koff, k0, Sk);
-    load_tile<T, D, BK, NTHREADS>(sV, L::LDT, v + koff, k0, Sk);
-    __syncthreads();
 
-    warp_gemm<false, true, BK, D>(sQ + r0 * L::LDT, L::LDT, sK, L::LDT, sS + r0 * L::LDS,
-                                  L::LDS, false);
-    warp_gemm<false, true, BK, D>(sdO + r0 * L::LDT, L::LDT, sV, L::LDT, sdP + r0 * L::LDS,
-                                  L::LDS, false);
-    __syncwarp();
-    probs_and_dscores<T, L::LDS, L::LDP>(sS, sdP, sLse, sDelta, sGlse, nullptr, sdS, r0, q0,
-                                         k0, Sq, Sk, scale, causal, q_offset, k_offset);
-    __syncwarp();
-    warp_gemm<false, false, D, BK>(sdS + r0 * L::LDP, L::LDP, sK, L::LDT, sdQ + r0 * L::LDO,
-                                   L::LDO, true);
-  }
-  __syncthreads();
-
-  T* dqb = dq + qoff;
-  for (int r = r0; r < r0 + WROWS; ++r) {
-    const int qi = q0 + r;
-    if (qi >= Sq) break;
-    for (int c = lane; c < D; c += 32) dqb[(size_t)qi * D + c] = scale * sdQ[r * L::LDO + c];
+    T* dqb = dq + qoff;
+    for (int r = r0; r < r0 + WROWS; ++r) {
+      const int qi = q0 + r;
+      if (qi >= Sq) break;
+      for (int c = lane; c < D; c += 32) dqb[(size_t)qi * D + c] = scale * sdQ[r * L::LDO + c];
+    }
   }
 }
 
 // dK/dV, float32: one block per (bh, K tile); loop over Q tiles.
-// dV = sum_i P_ij^T dO_i; dK = scale * sum_i dS_ij^T Q_i.
+// dV = sum_i P_ij^T dO_i; dK = scale * sum_i dS_ij^T Q_i. Each warp holds
+// the dK and dV of its 16 key rows in registers (RowAcc), which keeps the
+// shared memory of D = 128 at 213,760 bytes; they leave through staging
+// tiles in the Q buffer.
 template <int D>
 __global__ void __launch_bounds__(NTHREADS)
 flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      const float* __restrict__ glse, float* __restrict__ dk,
-                     float* __restrict__ dv, int Sq, int Sk, float scale, int causal,
+                     float* __restrict__ dv, int BH, int Sq, int Sk, float scale, int causal,
                      int q_offset, int k_offset) {
   using T = float;
   using L = Layout<T, D>;
+  static_assert(L::LDO <= L::LDT, "a warp's staging tile fits its rows of the Q buffer");
   extern __shared__ __align__(128) unsigned char smem[];
   T* sK = reinterpret_cast<T*>(smem);
   T* sV = sK + BK * L::LDT;
@@ -1027,61 +1045,64 @@ flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* sdP = sS + BQ * L::LDS;
   T* sP = reinterpret_cast<T*>(sdP + BQ * L::LDS);
   T* sdS = sP + BQ * L::LDP;
-  float* sdK = reinterpret_cast<float*>(sdS + BQ * L::LDP);
-  float* sdV = sdK + BK * L::LDO;
-  float* sLse = sdV + BK * L::LDO;
+  float* sLse = reinterpret_cast<float*>(sdS + BQ * L::LDP);
   float* sDelta = sLse + BQ;
   float* sGlse = sDelta + BQ;
 
-  const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * BK;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int r0 = warp * WROWS;
-  const size_t qoff = (size_t)bh * Sq * D;
-  const size_t koff = (size_t)bh * Sk * D;
+  // grid.y holds at most 65535 heads: a block takes heads blockIdx.y,
+  // blockIdx.y + gridDim.y, ...
+  for (int bh = blockIdx.y; bh < BH; bh += gridDim.y) {
+    __syncthreads();  // the previous head is done with shared memory
+    const int k0 = blockIdx.x * BK;
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int r0 = warp * WROWS;
+    const size_t qoff = (size_t)bh * Sq * D;
+    const size_t koff = (size_t)bh * Sk * D;
 
-  load_tile<T, D, BK, NTHREADS>(sK, L::LDT, k + koff, k0, Sk);
-  load_tile<T, D, BK, NTHREADS>(sV, L::LDT, v + koff, k0, Sk);
-  for (int i = threadIdx.x; i < BK * L::LDO; i += NTHREADS) {
-    sdK[i] = 0.f;
-    sdV[i] = 0.f;
-  }
+    load_tile<T, D, BK, NTHREADS>(sK, L::LDT, k + koff, k0, Sk);
+    load_tile<T, D, BK, NTHREADS>(sV, L::LDT, v + koff, k0, Sk);
+    RowAcc<T, D> acc_dv, acc_dk;
+    acc_dv.zero();
+    acc_dk.zero();
 
-  for (int q0 = query_begin(k0, BQ, causal, q_offset, k_offset); q0 < Sq; q0 += BQ) {
-    __syncthreads();  // every warp is done with the previous Q, dO, P, dS
-    load_tile<T, D, BQ, NTHREADS>(sQ, L::LDT, q + qoff, q0, Sq);
-    load_tile<T, D, BQ, NTHREADS>(sdO, L::LDT, dout + qoff, q0, Sq);
-    load_rows<BQ, NTHREADS>(sLse, lse + (size_t)bh * Sq, q0, Sq);
-    load_rows<BQ, NTHREADS>(sDelta, delta + (size_t)bh * Sq, q0, Sq);
-    load_rows<BQ, NTHREADS>(sGlse, glse + (size_t)bh * Sq, q0, Sq);
-    __syncthreads();
+    for (int q0 = query_begin(k0, BQ, causal, q_offset, k_offset); q0 < Sq; q0 += BQ) {
+      __syncthreads();  // every warp is done with the previous Q, dO, P, dS
+      load_tile<T, D, BQ, NTHREADS>(sQ, L::LDT, q + qoff, q0, Sq);
+      load_tile<T, D, BQ, NTHREADS>(sdO, L::LDT, dout + qoff, q0, Sq);
+      load_rows<BQ, NTHREADS>(sLse, lse + (size_t)bh * Sq, q0, Sq);
+      load_rows<BQ, NTHREADS>(sDelta, delta + (size_t)bh * Sq, q0, Sq);
+      load_rows<BQ, NTHREADS>(sGlse, glse + (size_t)bh * Sq, q0, Sq);
+      __syncthreads();
 
-    // Scores for this warp's 16 Q rows against the block's 64 keys.
-    warp_gemm<false, true, BK, D>(sQ + r0 * L::LDT, L::LDT, sK, L::LDT, sS + r0 * L::LDS,
-                                  L::LDS, false);
-    warp_gemm<false, true, BK, D>(sdO + r0 * L::LDT, L::LDT, sV, L::LDT, sdP + r0 * L::LDS,
-                                  L::LDS, false);
-    __syncwarp();
-    probs_and_dscores<T, L::LDS, L::LDP>(sS, sdP, sLse, sDelta, sGlse, sP, sdS, r0, q0, k0,
-                                         Sq, Sk, scale, causal, q_offset, k_offset);
-    __syncthreads();  // the transposed products read every warp's rows
+      // Scores for this warp's 16 Q rows against the block's 64 keys.
+      warp_gemm<false, true, BK, D>(sQ + r0 * L::LDT, L::LDT, sK, L::LDT, sS + r0 * L::LDS,
+                                    L::LDS, false);
+      warp_gemm<false, true, BK, D>(sdO + r0 * L::LDT, L::LDT, sV, L::LDT, sdP + r0 * L::LDS,
+                                    L::LDS, false);
+      __syncwarp();
+      probs_and_dscores<T, L::LDS, L::LDP>(sS, sdP, sLse, sDelta, sGlse, sP, sdS, r0, q0, k0,
+                                           Sq, Sk, scale, causal, q_offset, k_offset);
+      __syncthreads();  // the transposed products read every warp's rows
 
-    // This warp's 16 key rows: contraction over the 64 Q rows.
-    warp_gemm<true, false, D, BQ>(sP + r0, L::LDP, sdO, L::LDT, sdV + r0 * L::LDO, L::LDO,
-                                  true);
-    warp_gemm<true, false, D, BQ>(sdS + r0, L::LDP, sQ, L::LDT, sdK + r0 * L::LDO, L::LDO,
-                                  true);
-  }
-  __syncthreads();
-
-  for (int r = r0; r < r0 + WROWS; ++r) {
-    const int kj = k0 + r;
-    if (kj >= Sk) break;
-    for (int c = lane; c < D; c += 32) {
-      dk[koff + (size_t)kj * D + c] = scale * sdK[r * L::LDO + c];
-      dv[koff + (size_t)kj * D + c] = sdV[r * L::LDO + c];
+      // This warp's 16 key rows: contraction over the 64 Q rows.
+      acc_dv.template add_at_b<BQ>(sP + r0, L::LDP, sdO, L::LDT);
+      acc_dk.template add_at_b<BQ>(sdS + r0, L::LDP, sQ, L::LDT);
     }
+    __syncthreads();  // the Q buffer becomes the warps' staging tiles
+
+    float* st = sQ + r0 * L::LDT;
+    auto write = [&](const RowAcc<T, D>& acc, T* out, float mul) {
+      acc.store(st, L::LDO);
+      __syncwarp();
+      for (int e = lane; e < WROWS * D; e += 32) {
+        const int kj = k0 + r0 + e / D;
+        if (kj < Sk) out[koff + (size_t)kj * D + e % D] = mul * st[(e / D) * L::LDO + e % D];
+      }
+      __syncwarp();
+    };
+    write(acc_dv, dv, 1.f);
+    write(acc_dk, dk, scale);
   }
 }
 
@@ -1107,31 +1128,35 @@ template <typename T, int D>
 constexpr size_t dkv_smem() {
   using L = Layout<T, D>;
   return (size_t)(2 * BQ + 2 * BK) * L::LDT * sizeof(T) + 2 * BQ * L::LDS * sizeof(float) +
-         2 * BQ * L::LDP * sizeof(T) + 2 * BK * L::LDO * sizeof(float) +
-         3 * BQ * sizeof(float);
+         2 * BQ * L::LDP * sizeof(T) + 3 * BQ * sizeof(float);
 }
+
+// Blocks along grid.y: one per head, at most 65535 (the kernels loop over
+// the rest).
+inline unsigned head_blocks(int BH) { return BH < 65535 ? (unsigned)BH : 65535u; }
 
 template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int Sq,
                int Sk, float scale, int causal, int qo, int ko, cudaStream_t stream) {
-  if constexpr (std::is_same<T, bf16>::value) {
+  if constexpr (!std::is_same<T, float>::value) {
     CUtensorMap mq, mk, mv, mo;
     int err;
-    if ((err = make_tile_map<D>(&mq, q, Sq, BH, FWD_BQ)) ||
-        (err = make_tile_map<D>(&mk, k, Sk, BH, FwdSmem<D>::BK)) ||
-        (err = make_tile_map<D>(&mv, v, Sk, BH, FwdSmem<D>::BK)) ||
-        (err = make_tile_map<D>(&mo, o, Sq, BH, 64)))
+    if ((err = make_tile_map<T, D>(&mq, q, Sq, BH, FWD_BQ)) ||
+        (err = make_tile_map<T, D>(&mk, k, Sk, BH, FwdSmem<D>::BK)) ||
+        (err = make_tile_map<T, D>(&mv, v, Sk, BH, FwdSmem<D>::BK)) ||
+        (err = make_tile_map<T, D>(&mo, o, Sq, BH, 64)))
       return err;
     const int nwork = BH * ((Sq + FWD_BQ - 1) / FWD_BQ);
     int sms = 0;
     if ((err = sm_count(&sms))) return err;
-    return launch(flash_fwd_kernel<D>, dim3(nwork < sms ? nwork : sms), SM90_THREADS,
+    return launch(flash_fwd_kernel<T, D>, dim3(nwork < sms ? nwork : sms), SM90_THREADS,
                   FwdSmem<D>::BYTES, stream, mq, mk, mv, mo, (float*)lse, BH, Sq, Sk,
                   scale, causal, qo, ko);
   } else {
-    return launch(flash_fwd_f32_kernel<D>, dim3((Sq + BQ - 1) / BQ, BH), NTHREADS,
+    static_assert(fwd_smem<T, D>() <= SMEM_LIMIT, "forward tiles exceed shared memory");
+    return launch(flash_fwd_f32_kernel<D>, dim3((Sq + BQ - 1) / BQ, head_blocks(BH)), NTHREADS,
                   fwd_smem<T, D>(), stream, (const T*)q, (const T*)k, (const T*)v, (T*)o,
-                  (float*)lse, Sq, Sk, scale, causal, qo, ko);
+                  (float*)lse, BH, Sq, Sk, scale, causal, qo, ko);
   }
 }
 
@@ -1139,26 +1164,27 @@ template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, const void* glse, void* dq, int BH, int Sq, int Sk,
               float scale, int causal, int qo, int ko, cudaStream_t stream) {
-  if constexpr (std::is_same<T, bf16>::value) {
+  if constexpr (!std::is_same<T, float>::value) {
     CUtensorMap mq, mk, mv, mdo, mdq;
     int err;
-    if ((err = make_tile_map<D>(&mq, q, Sq, BH, DQ_BQ)) ||
-        (err = make_tile_map<D>(&mk, k, Sk, BH, DQ_BK)) ||
-        (err = make_tile_map<D>(&mv, v, Sk, BH, DQ_BK)) ||
-        (err = make_tile_map<D>(&mdo, dout, Sq, BH, DQ_BQ)) ||
-        (err = make_tile_map<D>(&mdq, dq, Sq, BH, 64)))
+    if ((err = make_tile_map<T, D>(&mq, q, Sq, BH, DQ_BQ)) ||
+        (err = make_tile_map<T, D>(&mk, k, Sk, BH, DQ_BK)) ||
+        (err = make_tile_map<T, D>(&mv, v, Sk, BH, DQ_BK)) ||
+        (err = make_tile_map<T, D>(&mdo, dout, Sq, BH, DQ_BQ)) ||
+        (err = make_tile_map<T, D>(&mdq, dq, Sq, BH, 64)))
       return err;
     const int nwork = BH * ((Sq + DQ_BQ - 1) / DQ_BQ);
     int sms = 0;
     if ((err = sm_count(&sms))) return err;
-    return launch(flash_dq_kernel<D>, dim3(nwork < sms ? nwork : sms), SM90_THREADS,
+    return launch(flash_dq_kernel<T, D>, dim3(nwork < sms ? nwork : sms), SM90_THREADS,
                   DqSmem<D>::BYTES, stream, mq, mk, mv, mdo, mdq, (const float*)lse,
                   (const float*)delta, (const float*)glse, BH, Sq, Sk, scale, causal, qo, ko);
   } else {
-    return launch(flash_dq_f32_kernel<D>, dim3((Sq + BQ - 1) / BQ, BH), NTHREADS,
+    static_assert(dq_smem<T, D>() <= SMEM_LIMIT, "dQ tiles exceed shared memory");
+    return launch(flash_dq_f32_kernel<D>, dim3((Sq + BQ - 1) / BQ, head_blocks(BH)), NTHREADS,
                   dq_smem<T, D>(), stream, (const T*)q, (const T*)k, (const T*)v,
                   (const T*)dout, (const float*)lse, (const float*)delta, (const float*)glse,
-                  (T*)dq, Sq, Sk, scale, causal, qo, ko);
+                  (T*)dq, BH, Sq, Sk, scale, causal, qo, ko);
   }
 }
 
@@ -1166,28 +1192,29 @@ template <typename T, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                const void* delta, const void* glse, void* dk, void* dv, int BH, int Sq, int Sk,
                float scale, int causal, int qo, int ko, cudaStream_t stream) {
-  if constexpr (std::is_same<T, bf16>::value) {
+  if constexpr (!std::is_same<T, float>::value) {
     constexpr int bq = DkvSmem<D>::BQ;
     CUtensorMap mq, mk, mv, mdo, mdk, mdv;
     int err;
-    if ((err = make_tile_map<D>(&mq, q, Sq, BH, bq)) ||
-        (err = make_tile_map<D>(&mk, k, Sk, BH, DKV_BK)) ||
-        (err = make_tile_map<D>(&mv, v, Sk, BH, DKV_BK)) ||
-        (err = make_tile_map<D>(&mdo, dout, Sq, BH, bq)) ||
-        (err = make_tile_map<D>(&mdk, dk, Sk, BH, 64)) ||
-        (err = make_tile_map<D>(&mdv, dv, Sk, BH, 64)))
+    if ((err = make_tile_map<T, D>(&mq, q, Sq, BH, bq)) ||
+        (err = make_tile_map<T, D>(&mk, k, Sk, BH, DKV_BK)) ||
+        (err = make_tile_map<T, D>(&mv, v, Sk, BH, DKV_BK)) ||
+        (err = make_tile_map<T, D>(&mdo, dout, Sq, BH, bq)) ||
+        (err = make_tile_map<T, D>(&mdk, dk, Sk, BH, 64)) ||
+        (err = make_tile_map<T, D>(&mdv, dv, Sk, BH, 64)))
       return err;
     const int nwork = BH * ((Sk + DKV_BK - 1) / DKV_BK);
     int sms = 0;
     if ((err = sm_count(&sms))) return err;
-    return launch(flash_dkv_kernel<D>, dim3(nwork < sms ? nwork : sms), SM90_THREADS,
+    return launch(flash_dkv_kernel<T, D>, dim3(nwork < sms ? nwork : sms), SM90_THREADS,
                   DkvSmem<D>::BYTES, stream, mq, mk, mv, mdo, mdk, mdv, (const float*)lse,
                   (const float*)delta, (const float*)glse, BH, Sq, Sk, scale, causal, qo, ko);
   } else {
-    return launch(flash_dkv_f32_kernel<D>, dim3((Sk + BK - 1) / BK, BH), NTHREADS,
+    static_assert(dkv_smem<T, D>() <= SMEM_LIMIT, "dK/dV tiles exceed shared memory");
+    return launch(flash_dkv_f32_kernel<D>, dim3((Sk + BK - 1) / BK, head_blocks(BH)), NTHREADS,
                   dkv_smem<T, D>(), stream, (const T*)q, (const T*)k, (const T*)v,
                   (const T*)dout, (const float*)lse, (const float*)delta, (const float*)glse,
-                  (T*)dk, (T*)dv, Sq, Sk, scale, causal, qo, ko);
+                  (T*)dk, (T*)dv, BH, Sq, Sk, scale, causal, qo, ko);
   }
 }
 

@@ -4,9 +4,9 @@
 // longer sequences to the multi-tile kernels of flash_attention.cu).
 //
 // Replaces the Pallas TPU kernels of horovod_tpu/ops/attention.py:
-//   flash_fwd_single_kernel (bf16), flash_fwd_single_f32_kernel
+//   flash_fwd_single_kernel (bf16, f16), flash_fwd_single_f32_kernel
 //                           <- _flash_fwd_single_kernel (:310)
-//   flash_dqkv_kernel       (bf16), flash_dqkv_f32_kernel
+//   flash_dqkv_kernel       (bf16, f16), flash_dqkv_f32_kernel
 //                           <- _flash_dqkv_fused_kernel (:343)
 //
 // What bounds them, against the H100 SXM data-sheet peaks (989 TFLOP/s bf16,
@@ -63,11 +63,14 @@
 //     and dP = dO V^T (16 x 16 tiles spread over the warps), then P and dS,
 //     then writes dQ = scale dS K for the chunk. Each warp owns 16 key rows
 //     and accumulates their dV = P^T dO and dK = scale dS^T Q across chunks.
-// Products take the stored dtype (bf16 on tensor cores by wgmma, fp32
-// accumulation; float32 on the FMA units), and P and dS are rounded to the
-// operand dtype before the PV, P^T dO, dS K and dS^T Q products, as the TPU
-// kernels do. The float32 kernels are the simple first version: no TMA, no
-// tensor cores, no pipelining of loads against compute.
+// The Hopper kernels are templated on the 2-byte type T (bf16 or float16:
+// wgmma's kind, the tensor maps' data type, the rounding of P, dS and the
+// outputs). Products take the stored dtype (bf16 or float16 on tensor cores
+// by wgmma, fp32 accumulation; float32 on the FMA units), and P and dS are
+// rounded to the operand dtype before the PV, P^T dO, dS K and dS^T Q
+// products, as the TPU kernels do. The float32 kernels are the simple first
+// version: no TMA, no tensor cores, no pipelining of loads against compute;
+// the forward loops over heads past grid.y's 65535.
 //
 // Semantics (identical to the TPU kernels): causal masking on global
 // positions q_offset + i >= k_offset + j; a row with no visible key gives
@@ -98,7 +101,6 @@ template <typename T, int D>
 struct SingleLayout {
   static constexpr int LDT = D + 32 / (int)sizeof(T);      // operand tiles
   static constexpr int LDS = SMAX + 8;                      // fp32 scores
-  static constexpr int LDP = SMAX + 32 / (int)sizeof(T);    // P / dS in T
   static constexpr int LDO = D + 8;                         // fp32 outputs
 };
 
@@ -124,7 +126,7 @@ struct FwdSingleSmem {
 // Persistent: a grid of one block per SM walks the heads in turn. The
 // producer runs ahead into the next heads' buffers while the consumers
 // finish the current one.
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(SM90_THREADS, 1)
 flash_fwd_single_kernel(const __grid_constant__ CUtensorMap tm_q,
                         const __grid_constant__ CUtensorMap tm_k,
@@ -190,11 +192,11 @@ flash_fwd_single_kernel(const __grid_constant__ CUtensorMap tm_q,
       // S = Q K^T (SS, both K-major).
       float sc[SMAX / 2];
       wgmma_fence();
-      Wgmma<SMAX>::template ss_init<0>(sc, F::kmajor(sQ, SMAX, row_first, 0),
+      Wgmma<SMAX, T>::template ss_init<0>(sc, F::kmajor(sQ, SMAX, row_first, 0),
                                        F::kmajor(sK, SMAX, 0, 0));
 #pragma unroll
       for (int kk = 1; kk < D / 16; ++kk)
-        Wgmma<SMAX>::template ss<0>(sc, F::kmajor(sQ, SMAX, row_first, kk),
+        Wgmma<SMAX, T>::template ss<0>(sc, F::kmajor(sQ, SMAX, row_first, kk),
                                     F::kmajor(sK, SMAX, 0, kk));
       wgmma_commit();
       wgmma_wait<0>();
@@ -206,10 +208,10 @@ flash_fwd_single_kernel(const __grid_constant__ CUtensorMap tm_q,
       float corr[2];
       uint32_t p[SMAX / 16][4];
       if (masked)
-        softmax_tile<SMAX, true>(sc, m, l, corr, p, row0, 0, Sk, sl2, causal, q_offset, k_offset,
+        softmax_tile<T, SMAX, true>(sc, m, l, corr, p, row0, 0, Sk, sl2, causal, q_offset, k_offset,
                                  tq);
       else
-        softmax_tile<SMAX, false>(sc, m, l, corr, p, row0, 0, Sk, sl2, causal, q_offset,
+        softmax_tile<T, SMAX, false>(sc, m, l, corr, p, row0, 0, Sk, sl2, causal, q_offset,
                                   k_offset, tq);
 
       // O = P V (RS: P from registers, V MN-major).
@@ -221,7 +223,7 @@ flash_fwd_single_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < SMAX / 16; ++kk)
-        Wgmma<D>::template rs<1>(acc, p[kk], F::mnmajor(sV, SMAX, kk));
+        Wgmma<D, T>::template rs<1>(acc, p[kk], F::mnmajor(sV, SMAX, kk));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -240,83 +242,89 @@ flash_fwd_single_kernel(const __grid_constant__ CUtensorMap tm_q,
         if (tq == 0 && qi < Sq)
           lse[(size_t)bh * Sq + qi] = empty ? LSE_MASKED : m[h] * LN2 + logf(l[h]);
       }
-      store_out<D>(&tm_o, base + L::O + wg * L::TILE_O, acc, inv, r, tq, tid, wg, row_first, bh);
+      store_out<T, D>(&tm_o, base + L::O + wg * L::TILE_O, acc, inv, r, tq, tid, wg, row_first, bh);
     }
     if (tid == 0) bulk_wait_read<0>();  // shared memory outlives the last store's reads
   }
 }
 
 // ---------------------------------------------------------------------------
-// Forward, float32: o [BH, Sq, D], lse [BH, Sq] fp32.
+// Forward, float32: o [BH, Sq, D], lse [BH, Sq] fp32. Each warp's P replaces
+// its scores in place, and its output rows replace its rows of Q, which no
+// other warp reads: at D = 128 the tiles take 209,152 bytes of shared memory.
 // ---------------------------------------------------------------------------
 template <int D>
 __global__ void __launch_bounds__(FWD_THREADS)
 flash_fwd_single_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                             const float* __restrict__ v, float* __restrict__ o,
-                            float* __restrict__ lse, int Sq, int Sk, float scale, int causal,
-                            int q_offset, int k_offset) {
+                            float* __restrict__ lse, int BH, int Sq, int Sk, float scale,
+                            int causal, int q_offset, int k_offset) {
   using T = float;
   using L = SingleLayout<T, D>;
+  static_assert(L::LDO <= L::LDT, "a warp's output rows fit its rows of Q");
   extern __shared__ __align__(128) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);
+  T* sQ = reinterpret_cast<T*>(smem);  // Q, then the output
   T* sK = sQ + FWD_BQ * L::LDT;
   T* sV = sK + SMAX * L::LDT;
-  float* sS = reinterpret_cast<float*>(sV + SMAX * L::LDT);  // scores, then the output
-  T* sP = reinterpret_cast<T*>(sS + FWD_BQ * L::LDS);
-  float* sL = reinterpret_cast<float*>(sP + FWD_BQ * L::LDP);
+  float* sS = reinterpret_cast<float*>(sV + SMAX * L::LDT);  // scores, then P
+  float* sL = sS + FWD_BQ * L::LDS;
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * FWD_BQ;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int r0 = warp * 16;
+  // grid.y holds at most 65535 heads: a block takes heads blockIdx.y,
+  // blockIdx.y + gridDim.y, ...
+  for (int bh = blockIdx.y; bh < BH; bh += gridDim.y) {
+    __syncthreads();  // the previous head is done with shared memory
+    const int q0 = blockIdx.x * FWD_BQ;
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int r0 = warp * 16;
 
-  load_tile<T, D, FWD_BQ, FWD_THREADS>(sQ, L::LDT, q + (size_t)bh * Sq * D, q0, Sq);
-  load_tile<T, D, SMAX, FWD_THREADS>(sK, L::LDT, k + (size_t)bh * Sk * D, 0, Sk);
-  load_tile<T, D, SMAX, FWD_THREADS>(sV, L::LDT, v + (size_t)bh * Sk * D, 0, Sk);
-  __syncthreads();
+    load_tile<T, D, FWD_BQ, FWD_THREADS>(sQ, L::LDT, q + (size_t)bh * Sq * D, q0, Sq);
+    load_tile<T, D, SMAX, FWD_THREADS>(sK, L::LDT, k + (size_t)bh * Sk * D, 0, Sk);
+    load_tile<T, D, SMAX, FWD_THREADS>(sV, L::LDT, v + (size_t)bh * Sk * D, 0, Sk);
+    __syncthreads();
 
-  warp_gemm<false, true, SMAX, D>(sQ + r0 * L::LDT, L::LDT, sK, L::LDT, sS + r0 * L::LDS,
-                                  L::LDS, false);
-  __syncwarp();
-  for (int r = r0; r < r0 + 16; ++r) {
-    const int qi = q0 + r;
-    float s[SMAX / 32];
-    float mx = NEG_INF;
+    warp_gemm<false, true, SMAX, D>(sQ + r0 * L::LDT, L::LDT, sK, L::LDT, sS + r0 * L::LDS,
+                                    L::LDS, false);
+    __syncwarp();
+    for (int r = r0; r < r0 + 16; ++r) {
+      const int qi = q0 + r;
+      float s[SMAX / 32];
+      float mx = NEG_INF;
 #pragma unroll
-    for (int h = 0; h < SMAX / 32; ++h) {
-      const int c = lane + 32 * h;
-      s[h] = visible(qi, c, Sq, Sk, causal, q_offset, k_offset) ? sS[r * L::LDS + c] * scale
-                                                                : NEG_INF;
-      mx = fmaxf(mx, s[h]);
-    }
-    const float m = warp_max(mx);
-    float sum = 0.f;
+      for (int h = 0; h < SMAX / 32; ++h) {
+        const int c = lane + 32 * h;
+        s[h] = visible(qi, c, Sq, Sk, causal, q_offset, k_offset) ? sS[r * L::LDS + c] * scale
+                                                                  : NEG_INF;
+        mx = fmaxf(mx, s[h]);
+      }
+      const float m = warp_max(mx);
+      float sum = 0.f;
 #pragma unroll
-    for (int h = 0; h < SMAX / 32; ++h) {
-      const int c = lane + 32 * h;
-      const float p = visible(qi, c, Sq, Sk, causal, q_offset, k_offset) ? expf(s[h] - m) : 0.f;
-      sP[r * L::LDP + c] = p;
-      sum += p;
+      for (int h = 0; h < SMAX / 32; ++h) {
+        const int c = lane + 32 * h;
+        const float p = visible(qi, c, Sq, Sk, causal, q_offset, k_offset) ? expf(s[h] - m) : 0.f;
+        sS[r * L::LDS + c] = p;
+        sum += p;
+      }
+      const float l = warp_sum(sum);
+      if (lane == 0) {
+        sL[r] = l;
+        if (qi < Sq) lse[(size_t)bh * Sq + qi] = l == 0.f ? LSE_MASKED : m + logf(l);
+      }
     }
-    const float l = warp_sum(sum);
-    if (lane == 0) {
-      sL[r] = l;
-      if (qi < Sq) lse[(size_t)bh * Sq + qi] = l == 0.f ? LSE_MASKED : m + logf(l);
-    }
-  }
-  __syncthreads();  // every warp is done with the scores: the output reuses them
+    __syncwarp();  // the warp's P is in place; its Q rows are read no more
 
-  float* sO = sS;
-  warp_gemm<false, false, D, SMAX>(sP + r0 * L::LDP, L::LDP, sV, L::LDT, sO + r0 * L::LDO,
-                                   L::LDO, false);
-  __syncwarp();
-  T* ob = o + (size_t)bh * Sq * D;
-  for (int r = r0; r < r0 + 16; ++r) {
-    const int qi = q0 + r;
-    if (qi >= Sq) break;
-    const float safe_l = sL[r] == 0.f ? 1.f : sL[r];
-    for (int c = lane; c < D; c += 32) ob[(size_t)qi * D + c] = sO[r * L::LDO + c] / safe_l;
+    float* sO = sQ;
+    warp_gemm<false, false, D, SMAX>(sS + r0 * L::LDS, L::LDS, sV, L::LDT, sO + r0 * L::LDO,
+                                     L::LDO, false);
+    __syncwarp();
+    T* ob = o + (size_t)bh * Sq * D;
+    for (int r = r0; r < r0 + 16; ++r) {
+      const int qi = q0 + r;
+      if (qi >= Sq) break;
+      const float safe_l = sL[r] == 0.f ? 1.f : sL[r];
+      for (int c = lane; c < D; c += 32) ob[(size_t)qi * D + c] = sO[r * L::LDO + c] / safe_l;
+    }
   }
 }
 
@@ -364,7 +372,7 @@ constexpr int DS_BARRIER = 3;
 // Sk (zero rows of K and V, but dS K reads their dS, so it must be 0) or
 // causally hidden keys; set before exp2 is taken into account, so a
 // non-finite exp2 never meets the mask. Rows past Sq have lse = LSE_MASKED.
-template <int BQ, bool MASK>
+template <typename T, int BQ, bool MASK>
 __device__ __forceinline__ void dqkv_probs(const float (&st)[BQ / 2], const float (&dpt)[BQ / 2],
                                            const float* rows, uint32_t (&pf)[BQ / 16][4],
                                            uint32_t (&dsf)[BQ / 16][4], int key0, int q0, int Sk,
@@ -384,15 +392,15 @@ __device__ __forceinline__ void dqkv_probs(const float (&st)[BQ / 2], const floa
         if (MASK && (key >= Sk || (causal && q_offset + q0 + c < k_offset + key))) p[e] = 0.f;
         ds[e] = p[e] * (dpt[i] + rows[BQ + c]);
       }
-      pf[kk][r] = pack_bf16(p[0], p[1]);
-      dsf[kk][r] = pack_bf16(ds[0], ds[1]);
+      pf[kk][r] = pack2<T>(p[0], p[1]);
+      dsf[kk][r] = pack2<T>(ds[0], ds[1]);
     }
 }
 
 // Persistent: a grid of one block per SM walks the heads in turn and loops
 // over their Q stages. dV = sum_i P_ij^T dO_i; dK = scale sum_i dS_ij^T Q_i;
 // dQ = scale sum_j dS_ij K_j.
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(SM90_THREADS, 1)
 flash_dqkv_kernel(const __grid_constant__ CUtensorMap tm_q,
                   const __grid_constant__ CUtensorMap tm_k,
@@ -516,17 +524,17 @@ flash_dqkv_kernel(const __grid_constant__ CUtensorMap tm_q,
         // S^T = K Q^T and dP^T = V dO^T (SS, all K-major).
         float st[BQ / 2], dpt[BQ / 2];
         wgmma_fence();
-        Wgmma<BQ>::template ss_init<0>(st, F::kmajor(sK, SMAX, key_first, 0),
+        Wgmma<BQ, T>::template ss_init<0>(st, F::kmajor(sK, SMAX, key_first, 0),
                                        F::kmajor(sQ, BQ, 0, 0));
 #pragma unroll
         for (int kk = 1; kk < D / 16; ++kk)
-          Wgmma<BQ>::template ss<0>(st, F::kmajor(sK, SMAX, key_first, kk),
+          Wgmma<BQ, T>::template ss<0>(st, F::kmajor(sK, SMAX, key_first, kk),
                                     F::kmajor(sQ, BQ, 0, kk));
-        Wgmma<BQ>::template ss_init<0>(dpt, F::kmajor(sV, SMAX, key_first, 0),
+        Wgmma<BQ, T>::template ss_init<0>(dpt, F::kmajor(sV, SMAX, key_first, 0),
                                        F::kmajor(sdO, BQ, 0, 0));
 #pragma unroll
         for (int kk = 1; kk < D / 16; ++kk)
-          Wgmma<BQ>::template ss<0>(dpt, F::kmajor(sV, SMAX, key_first, kk),
+          Wgmma<BQ, T>::template ss<0>(dpt, F::kmajor(sV, SMAX, key_first, kk),
                                     F::kmajor(sdO, BQ, 0, kk));
         wgmma_commit();
         wgmma_wait<0>();
@@ -536,10 +544,10 @@ flash_dqkv_kernel(const __grid_constant__ CUtensorMap tm_q,
         const float* rows = reinterpret_cast<const float*>(smem + L::ROW + s * L::ROWS);
         uint32_t pf[BQ / 16][4], dsf[BQ / 16][4];
         if (key_first + 64 > Sk || (causal && q_offset + q0 < k_offset + key_first + 63))
-          dqkv_probs<BQ, true>(st, dpt, rows, pf, dsf, key0, q0, Sk, sl2, causal, q_offset,
+          dqkv_probs<T, BQ, true>(st, dpt, rows, pf, dsf, key0, q0, Sk, sl2, causal, q_offset,
                                k_offset, tq);
         else
-          dqkv_probs<BQ, false>(st, dpt, rows, pf, dsf, key0, q0, Sk, sl2, causal, q_offset,
+          dqkv_probs<T, BQ, false>(st, dpt, rows, pf, dsf, key0, q0, Sk, sl2, causal, q_offset,
                                 k_offset, tq);
 
         // This warpgroup's 64 rows of dS^T into the stage's dS^T tile (the
@@ -561,10 +569,10 @@ flash_dqkv_kernel(const __grid_constant__ CUtensorMap tm_q,
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BQ / 16; ++kk)
-          Wgmma<D>::template rs<1>(dv_acc, pf[kk], F::mnmajor(sdO, BQ, kk));
+          Wgmma<D, T>::template rs<1>(dv_acc, pf[kk], F::mnmajor(sdO, BQ, kk));
 #pragma unroll
         for (int kk = 0; kk < BQ / 16; ++kk)
-          Wgmma<D>::template rs<1>(dk_acc, dsf[kk], F::mnmajor(sQ, BQ, kk));
+          Wgmma<D, T>::template rs<1>(dk_acc, dsf[kk], F::mnmajor(sQ, BQ, kk));
         wgmma_commit();
 
         // Both warpgroups' dS^T rows are in the tile.
@@ -575,11 +583,11 @@ flash_dqkv_kernel(const __grid_constant__ CUtensorMap tm_q,
           float dqt[BQ / 2];
           const uint32_t sKb = sK + wg * SMAX * F::ROW_BYTES;
           wgmma_fence();
-          Wgmma<BQ>::template ss_init<1, 1>(dqt, F::mnmajor(sKb, SMAX, 0),
+          Wgmma<BQ, T>::template ss_init<1, 1>(dqt, F::mnmajor(sKb, SMAX, 0),
                                             FQ::mnmajor(sDS, SMAX, 0));
 #pragma unroll
           for (int kk = 1; kk < SMAX / 16; ++kk)
-            Wgmma<BQ>::template ss<1, 1>(dqt, F::mnmajor(sKb, SMAX, kk),
+            Wgmma<BQ, T>::template ss<1, 1>(dqt, F::mnmajor(sKb, SMAX, kk),
                                          FQ::mnmajor(sDS, SMAX, kk));
           wgmma_commit();
           wgmma_wait<0>();
@@ -595,7 +603,7 @@ flash_dqkv_kernel(const __grid_constant__ CUtensorMap tm_q,
           named_sync(1 + wg, WG);
 #pragma unroll
           for (int i = 0; i < BQ / 2; ++i)
-            st_shared_bf16(sdQ + FO::offset(BQ, 8 * (i >> 2) + 2 * tq + (i & 1),
+            st_shared_16<T>(sdQ + FO::offset(BQ, 8 * (i >> 2) + 2 * tq + (i & 1),
                                             r + 8 * ((i >> 1) & 1)),
                            scale * dqt[i]);
           fence_async_smem();
@@ -610,11 +618,11 @@ flash_dqkv_kernel(const __grid_constant__ CUtensorMap tm_q,
           if (wg == (qt & 1)) {
             float dq[D / 2];
             wgmma_fence();
-            Wgmma<D>::template ss_init<1, 1>(dq, FQ::mnmajor(sDS, SMAX, 0),
+            Wgmma<D, T>::template ss_init<1, 1>(dq, FQ::mnmajor(sDS, SMAX, 0),
                                              F::mnmajor(sK, SMAX, 0));
 #pragma unroll
             for (int kk = 1; kk < SMAX / 16; ++kk)
-              Wgmma<D>::template ss<1, 1>(dq, FQ::mnmajor(sDS, SMAX, kk),
+              Wgmma<D, T>::template ss<1, 1>(dq, FQ::mnmajor(sDS, SMAX, kk),
                                           F::mnmajor(sK, SMAX, kk));
             wgmma_commit();
             wgmma_wait<0>();
@@ -624,7 +632,7 @@ flash_dqkv_kernel(const __grid_constant__ CUtensorMap tm_q,
             __syncwarp();
             if (lane == 0) mbar_arrive(empty_bar + 8 * s);
             const float mul[2] = {scale, scale};
-            store_out<D>(&tm_dq, base + L::DQ + wg * L::TILE_DQ, dq, mul, r, tq, tid, wg, q0,
+            store_out<T, D>(&tm_dq, base + L::DQ + wg * L::TILE_DQ, dq, mul, r, tq, tid, wg, q0,
                          bh);
           } else {
             wgmma_wait<0>();
@@ -652,8 +660,8 @@ flash_dqkv_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int j = 0; j < D / 8; ++j) {
           const int i = 4 * j + 2 * h;
           const uint32_t at = F::offset(64, r + 8 * h, 8 * j + 2 * tq);
-          st_shared_u32(sdK + at, pack_bf16(scale * dk_acc[i], scale * dk_acc[i + 1]));
-          st_shared_u32(sdV + at, pack_bf16(dv_acc[i], dv_acc[i + 1]));
+          st_shared_u32(sdK + at, pack2<T>(scale * dk_acc[i], scale * dk_acc[i + 1]));
+          st_shared_u32(sdV + at, pack2<T>(dv_acc[i], dv_acc[i + 1]));
         }
       fence_async_smem();
       named_sync(1 + wg, WG);
@@ -670,7 +678,10 @@ flash_dqkv_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // ---------------------------------------------------------------------------
-// Fused backward, float32: dq [BH, Sq, D], dk and dv [BH, Sk, D].
+// Fused backward, float32: dq [BH, Sq, D], dk and dv [BH, Sk, D]. P and dS
+// replace S and dP in place, and dQ's 16 x 16 tiles pass through a small
+// staging tile of each warp: at D = 128 the block takes 217,472 bytes of
+// shared memory.
 // ---------------------------------------------------------------------------
 template <int D>
 __global__ void __launch_bounds__(BWD_THREADS)
@@ -688,11 +699,10 @@ flash_dqkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // Chunk buffers; after the last chunk, each warp's dK/dV staging tile.
   T* sQ = sV + SMAX * L::LDT;
   T* sdO = sQ + QC * L::LDT;
-  float* sS = reinterpret_cast<float*>(sdO + QC * L::LDT);
-  float* sdP = sS + QC * L::LDS;
-  T* sP = reinterpret_cast<T*>(sdP + QC * L::LDS);
-  T* sdS = sP + QC * L::LDP;
-  float* sLse = reinterpret_cast<float*>(sdS + QC * L::LDP);
+  float* sS = reinterpret_cast<float*>(sdO + QC * L::LDT);  // S, then P
+  float* sdP = sS + QC * L::LDS;                             // dP, then dS
+  float* sDQ = sdP + QC * L::LDS;  // a 16 x 16 dQ tile of each warp
+  float* sLse = sDQ + BWD_WARPS * 256;
   float* sDelta = sLse + QC;
   float* sGlse = sDelta + QC;
 
@@ -739,30 +749,33 @@ flash_dqkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         p = expf(sS[r * L::LDS + c] * scale - sLse[r]);
         ds = p * (sdP[r * L::LDS + c] - sDelta[r] + sGlse[r]);
       }
-      sP[r * L::LDP + c] = from_f<T>(p);
-      sdS[r * L::LDP + c] = from_f<T>(ds);
+      sS[r * L::LDS + c] = p;
+      sdP[r * L::LDS + c] = ds;
     }
     __syncthreads();
+    const float* sP = sS;
+    const float* sdS = sdP;
 
-    // dQ of the chunk, tile by tile, staged in the score buffer (free now).
+    // dQ of the chunk, tile by tile, through the warp's staging tile.
     constexpr int NQT = (QC / 16) * (D / 16);
+    float* st = sDQ + warp * 256;
     for (int t = warp; t < NQT; t += BWD_WARPS) {
       const int rs = t / (D / 16);
       const int cs = t % (D / 16);
-      float* st = sS + rs * 16 * L::LDS + cs * 16;
-      warp_gemm<false, false, 16, SMAX>(sdS + rs * 16 * L::LDP, L::LDP, sK + cs * 16, L::LDT, st,
-                                        L::LDS, false);
+      warp_gemm<false, false, 16, SMAX>(sdS + rs * 16 * L::LDS, L::LDS, sK + cs * 16, L::LDT, st,
+                                        16, false);
       __syncwarp();
       for (int e = lane; e < 256; e += 32) {
         const int qi = q0 + rs * 16 + e / 16;
-        if (qi < Sq) dq[qoff + (size_t)qi * D + cs * 16 + e % 16] = from_f<T>(scale * st[(e / 16) * L::LDS + e % 16]);
+        if (qi < Sq) dq[qoff + (size_t)qi * D + cs * 16 + e % 16] = from_f<T>(scale * st[e]);
       }
+      __syncwarp();  // the tile is read before the next one overwrites it
     }
 
     // This warp's 16 key rows: contraction over the chunk's Q rows.
     if (key0 < Sk) {
-      acc_dv.template add_at_b<QC>(sP + key0, L::LDP, sdO, L::LDT);
-      acc_dk.template add_at_b<QC>(sdS + key0, L::LDP, sQ, L::LDT);
+      acc_dv.template add_at_b<QC>(sP + key0, L::LDS, sdO, L::LDT);
+      acc_dk.template add_at_b<QC>(sdS + key0, L::LDS, sQ, L::LDT);
     }
   }
   __syncthreads();  // the chunk buffers become staging tiles
@@ -786,14 +799,14 @@ template <typename T, int D>
 constexpr size_t fwd_single_smem() {
   using L = SingleLayout<T, D>;
   return (size_t)(FWD_BQ + 2 * SMAX) * L::LDT * sizeof(T) + FWD_BQ * L::LDS * sizeof(float) +
-         FWD_BQ * L::LDP * sizeof(T) + FWD_BQ * sizeof(float);
+         FWD_BQ * sizeof(float);
 }
 
 template <typename T, int D>
 constexpr size_t dqkv_smem() {
   using L = SingleLayout<T, D>;
   constexpr size_t chunk = (size_t)2 * QC * L::LDT * sizeof(T) + 2 * QC * L::LDS * sizeof(float) +
-                           2 * QC * L::LDP * sizeof(T) + 3 * QC * sizeof(float);
+                           BWD_WARPS * 256 * sizeof(float) + 3 * QC * sizeof(float);
   constexpr size_t staging = (size_t)BWD_WARPS * 16 * L::LDO * sizeof(float);
   return (size_t)2 * SMAX * L::LDT * sizeof(T) + (chunk > staging ? chunk : staging);
 }
@@ -803,25 +816,27 @@ int launch_fwd_single(const void* q, const void* k, const void* v, void* o, void
                       int Sq, int Sk, float scale, int causal, int qo, int ko,
                       cudaStream_t stream) {
   if (Sq < 1 || Sk < 1 || Sq > SMAX || Sk > SMAX) return cudaErrorInvalidValue;
-  if constexpr (std::is_same<T, bf16>::value) {
+  if constexpr (!std::is_same<T, float>::value) {
     static_assert(FwdSingleSmem<D>::BYTES <= SMEM_LIMIT, "forward buffers exceed shared memory");
     CUtensorMap mq, mk, mv, mo;
     int err;
-    if ((err = make_tile_map<D>(&mq, q, Sq, BH, SMAX)) ||
-        (err = make_tile_map<D>(&mk, k, Sk, BH, SMAX)) ||
-        (err = make_tile_map<D>(&mv, v, Sk, BH, SMAX)) ||
-        (err = make_tile_map<D>(&mo, o, Sq, BH, 64)))
+    if ((err = make_tile_map<T, D>(&mq, q, Sq, BH, SMAX)) ||
+        (err = make_tile_map<T, D>(&mk, k, Sk, BH, SMAX)) ||
+        (err = make_tile_map<T, D>(&mv, v, Sk, BH, SMAX)) ||
+        (err = make_tile_map<T, D>(&mo, o, Sq, BH, 64)))
       return err;
     int sms = 0;
     if ((err = sm_count(&sms))) return err;
-    return launch(flash_fwd_single_kernel<D>, dim3(BH < sms ? BH : sms), SM90_THREADS,
+    return launch(flash_fwd_single_kernel<T, D>, dim3(BH < sms ? BH : sms), SM90_THREADS,
                   FwdSingleSmem<D>::BYTES, stream, mq, mk, mv, mo, (float*)lse, BH, Sq, Sk,
                   scale, causal, qo, ko);
   } else {
     static_assert(fwd_single_smem<T, D>() <= SMEM_LIMIT, "forward tiles exceed shared memory");
-    return launch(flash_fwd_single_f32_kernel<D>, dim3((Sq + FWD_BQ - 1) / FWD_BQ, BH),
-                  FWD_THREADS, fwd_single_smem<T, D>(), stream, (const T*)q, (const T*)k,
-                  (const T*)v, (T*)o, (float*)lse, Sq, Sk, scale, causal, qo, ko);
+    // grid.y: one block per head, at most 65535 (the kernel loops over the rest).
+    return launch(flash_fwd_single_f32_kernel<D>,
+                  dim3((Sq + FWD_BQ - 1) / FWD_BQ, BH < 65535 ? BH : 65535), FWD_THREADS,
+                  fwd_single_smem<T, D>(), stream, (const T*)q, (const T*)k, (const T*)v,
+                  (T*)o, (float*)lse, BH, Sq, Sk, scale, causal, qo, ko);
   }
 }
 
@@ -830,22 +845,22 @@ int launch_dqkv(const void* q, const void* k, const void* v, const void* dout, c
                 const void* delta, const void* glse, void* dq, void* dk, void* dv, int BH, int Sq,
                 int Sk, float scale, int causal, int qo, int ko, cudaStream_t stream) {
   if (Sq < 1 || Sk < 1 || Sq > SMAX || Sk > SMAX) return cudaErrorInvalidValue;
-  if constexpr (std::is_same<T, bf16>::value) {
+  if constexpr (!std::is_same<T, float>::value) {
     using L = DqkvSmem<D>;
     static_assert(L::BYTES <= SMEM_LIMIT, "backward buffers exceed shared memory");
     CUtensorMap mq, mk, mv, mdo, mdq, mdk, mdv;
     int err;
-    if ((err = make_tile_map<D>(&mq, q, Sq, BH, L::BQ)) ||
-        (err = make_tile_map<D>(&mk, k, Sk, BH, SMAX)) ||
-        (err = make_tile_map<D>(&mv, v, Sk, BH, SMAX)) ||
-        (err = make_tile_map<D>(&mdo, dout, Sq, BH, L::BQ)) ||
-        (err = make_tile_map<D>(&mdq, dq, Sq, BH, D == 128 ? L::BQ : 64)) ||
-        (err = make_tile_map<D>(&mdk, dk, Sk, BH, 64)) ||
-        (err = make_tile_map<D>(&mdv, dv, Sk, BH, 64)))
+    if ((err = make_tile_map<T, D>(&mq, q, Sq, BH, L::BQ)) ||
+        (err = make_tile_map<T, D>(&mk, k, Sk, BH, SMAX)) ||
+        (err = make_tile_map<T, D>(&mv, v, Sk, BH, SMAX)) ||
+        (err = make_tile_map<T, D>(&mdo, dout, Sq, BH, L::BQ)) ||
+        (err = make_tile_map<T, D>(&mdq, dq, Sq, BH, D == 128 ? L::BQ : 64)) ||
+        (err = make_tile_map<T, D>(&mdk, dk, Sk, BH, 64)) ||
+        (err = make_tile_map<T, D>(&mdv, dv, Sk, BH, 64)))
       return err;
     int sms = 0;
     if ((err = sm_count(&sms))) return err;
-    return launch(flash_dqkv_kernel<D>, dim3(BH < sms ? BH : sms), SM90_THREADS, L::BYTES, stream,
+    return launch(flash_dqkv_kernel<T, D>, dim3(BH < sms ? BH : sms), SM90_THREADS, L::BYTES, stream,
                   mq, mk, mv, mdo, mdq, mdk, mdv, (const float*)lse, (const float*)delta,
                   (const float*)glse, BH, Sq, Sk, scale, causal, qo, ko);
   } else {

@@ -11,6 +11,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -19,6 +20,7 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 constexpr float NEG_INF = -1e30f;
 constexpr float LSE_MASKED = 1e30f;
@@ -27,6 +29,7 @@ constexpr size_t SMEM_LIMIT = 232448;  // bytes a block may use on sm_90
 // dtype codes shared with horovod_tpu_torch/ops/_kernels.py.
 constexpr int DTYPE_F32 = 0;
 constexpr int DTYPE_BF16 = 1;
+constexpr int DTYPE_F16 = 2;
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
@@ -136,27 +139,27 @@ __device__ __forceinline__ bool visible(int qi, int kj, int Sq, int Sk, int caus
   return qi < Sq && kj < Sk && (!causal || q_offset + qi >= k_offset + kj);
 }
 
-// Dispatch on (dtype, head dim). float32 stops at D = 64: its D = 128 tiles
-// would not fit in one block's shared memory.
+// Dispatch on (dtype, head dim): bf16 and float16 (the Hopper kernels) and
+// float32 (the first versions) at D = 16, 32, 64 and 128.
+#define HVD_DISPATCH_D(D, CALL)                                      \
+  switch (D) {                                                       \
+    case 16: { constexpr int HD = 16; return CALL; }                 \
+    case 32: { constexpr int HD = 32; return CALL; }                 \
+    case 64: { constexpr int HD = 64; return CALL; }                 \
+    case 128: { constexpr int HD = 128; return CALL; }               \
+    default: return cudaErrorInvalidValue;                           \
+  }
 #define HVD_DISPATCH(DTYPE, D, CALL)                                 \
   do {                                                               \
     if ((DTYPE) == DTYPE_BF16) {                                     \
       using T = bf16;                                                \
-      switch (D) {                                                   \
-        case 16: { constexpr int HD = 16; return CALL; }             \
-        case 32: { constexpr int HD = 32; return CALL; }             \
-        case 64: { constexpr int HD = 64; return CALL; }             \
-        case 128: { constexpr int HD = 128; return CALL; }           \
-        default: return cudaErrorInvalidValue;                       \
-      }                                                              \
+      HVD_DISPATCH_D(D, CALL)                                        \
+    } else if ((DTYPE) == DTYPE_F16) {                               \
+      using T = f16;                                                 \
+      HVD_DISPATCH_D(D, CALL)                                        \
     } else if ((DTYPE) == DTYPE_F32) {                               \
       using T = float;                                               \
-      switch (D) {                                                   \
-        case 16: { constexpr int HD = 16; return CALL; }             \
-        case 32: { constexpr int HD = 32; return CALL; }             \
-        case 64: { constexpr int HD = 64; return CALL; }             \
-        default: return cudaErrorInvalidValue;                       \
-      }                                                              \
+      HVD_DISPATCH_D(D, CALL)                                        \
     }                                                                \
     return cudaErrorInvalidValue;                                    \
   } while (0)

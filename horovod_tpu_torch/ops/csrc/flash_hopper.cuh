@@ -26,13 +26,14 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
 // Online softmax of one K tile on a consumer thread's registers: the scores
-// sc (the m64 x BK accumulator) become P, as bf16 A fragments p; the running
-// max m (log2 units) and the partial row sums l move on, and corr is the
-// factor that rescales the output accumulator of the thread's two rows
-// (row0, row0 + 8). MASK: the tile holds keys past Sk or causally hidden
-// keys for some of those rows. The scale folds into one FMA before exp2.
+// sc (the m64 x BK accumulator) become P, as A fragments p of the 2-byte
+// operand type T (bf16 or float16); the running max m (log2 units) and the
+// partial row sums l move on, and corr is the factor that rescales the
+// output accumulator of the thread's two rows (row0, row0 + 8). MASK: the
+// tile holds keys past Sk or causally hidden keys for some of those rows.
+// The scale folds into one FMA before exp2.
 // With m = NEG_INF and l = 0 on entry it is the direct softmax of one tile.
-template <int BK, bool MASK>
+template <typename T, int BK, bool MASK>
 __device__ __forceinline__ void softmax_tile(const float (&sc)[BK / 2], float (&m)[2],
                                              float (&l)[2], float (&corr)[2],
                                              uint32_t (&p)[BK / 16][4], int row0, int k0, int Sk,
@@ -69,17 +70,17 @@ __device__ __forceinline__ void softmax_tile(const float (&sc)[BK / 2], float (&
         e1 = hidden(i + 1) ? 0.f : e1;
       }
       l[h] += e0 + e1;
-      p[kk][r] = pack_bf16(e0, e1);
+      p[kk][r] = pack2<T>(e0, e1);
     }
 }
 
 // A consumer warpgroup's epilogue: its 64 x D accumulator acc (this thread
 // holds rows r and r + 8 of the tile), row half h scaled by mul[h], goes in
-// bf16 into the warpgroup's output tile sO and leaves by one TMA store per
+// T into the warpgroup's output tile sO and leaves by one TMA store per
 // box to rows [row_first, row_first + 64) of head bh; rows past the
 // tensor's end are not written. The store runs on while the next work tile
 // starts: the next call first waits until it has read sO.
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void store_out(const CUtensorMap* map, uint32_t sO,
                                           const float (&acc)[D / 2], const float (&mul)[2], int r,
                                           int tq, int tid, int wg, int row_first, int bh) {
@@ -92,7 +93,7 @@ __device__ __forceinline__ void store_out(const CUtensorMap* map, uint32_t sO,
     for (int j = 0; j < D / 8; ++j) {
       const int i = 4 * j + 2 * h;
       st_shared_u32(sO + F::offset(64, r + 8 * h, 8 * j + 2 * tq),
-                    pack_bf16(acc[i] * mul[h], acc[i + 1] * mul[h]));
+                    pack2<T>(acc[i] * mul[h], acc[i + 1] * mul[h]));
     }
   fence_async_smem();
   named_sync(1 + wg, WG);

@@ -1,15 +1,17 @@
 // Hopper (sm_90a) device helpers shared by the port's CUDA kernels: the
-// wgmma shared-memory descriptor and the bf16 wgmma.mma_async wrappers (A
-// from shared memory or from registers), the warpgroup fence, commit and
-// wait, mbarrier init / arrive / expect-tx / parity wait (with a timeout that
-// ends the kernel with an error), the TMA tile load and store
-// (cp.async.bulk.tensor), register rebalancing (setmaxnreg), and
-// on the host the encoding of a bf16 CUtensorMap (any rank; a [BH, S, D]
+// wgmma shared-memory descriptor and the bf16 and float16 wgmma.mma_async
+// wrappers (A from shared memory or from registers), the warpgroup fence,
+// commit and wait, mbarrier init / arrive / expect-tx / parity wait (with a
+// timeout that ends the kernel with an error), the TMA tile load and store
+// (cp.async.bulk.tensor), register rebalancing (setmaxnreg), and on the host
+// the encoding of a bf16 or float16 CUtensorMap (any rank; a [BH, S, D]
 // tensor in the tile format below), with no link against libcuda (its
-// entry point comes through the runtime).
+// entry point comes through the runtime). The two 2-byte types share every
+// layout and wgmma shape; only the instruction's type, the tensor map's data
+// type and the float -> 2-byte rounding differ.
 //
 // The layout every helper agrees on (TileFormat below): a tile of R rows
-// and D bf16 columns is stored as D / CB boxes of CB = min(D, 64) columns,
+// and D 2-byte columns is stored as D / CB boxes of CB = min(D, 64) columns,
 // box after box, each box R rows of CB * 2 bytes with the hardware swizzle
 // of that row width (128, 64 or 32 bytes). TMA writes it in this form and
 // wgmma reads it both ways: K-major (contraction over the D columns, as
@@ -23,9 +25,12 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <cudaTypedefs.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -37,8 +42,18 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+// Two floats rounded to the 2-byte type T (bf16 or float16), packed into
+// one 32-bit word, lo in the low half.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
@@ -55,7 +70,7 @@ __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
 }
 
-// The smem tile format of the header note, for D bf16 columns.
+// The smem tile format of the header note, for D 2-byte columns.
 template <int D>
 struct TileFormat {
   static constexpr int CB = D < 64 ? D : 64;   // columns of one box
@@ -118,21 +133,22 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[KS][4]) {
     for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[k][r])::"memory");
 }
 
-// D[64 x N] (+)= A[64 x 16] B[16 x N], bf16 operands, fp32 accumulator in
+// D[64 x N] (+)= A[64 x 16] B[16 x N], operands of the 2-byte type T (bf16
+// or float16, wgmma's .bf16 or .f16 kind), fp32 accumulator in
 // registers: d[N / 2] per thread, in the wgmma accumulator layout (warp w of
 // the warpgroup holds rows 16 w + lane / 4 and + 8; element i is column
 // 8 (i / 4) + 2 (lane % 4) + (i % 2) of the second row when (i / 2) % 2).
 //   ss: D += A B, A and B from shared memory (descriptors a, b).
 //   ss_init: D = A B; D is only written, so the compiler does not treat its
 //       earlier contents as an input of the product.
-//   rs: D += A B, A from registers: four 32-bit words of bf16 pairs in the
+//   rs: D += A B, A from registers: four 32-bit words of T pairs in the
 //       mma A layout, which is the accumulator layout of 16 columns.
 // TRANS_B = 0: B K-major; 1: B MN-major. TRANS_A (ss only; the rs A is
 // always the register layout) = 0: A K-major; 1: A MN-major, with the
 // descriptor of TileFormat::mnmajor, as for B: the 64 rows of A are the
 // columns of one 64-column box. The kernels use ss and ss_init at N = 16,
 // 32, 64, 128 and rs at N = 16, 32, 64, 128.
-template <int N>
+template <int N, typename T>
 struct Wgmma;
 
 // The accumulator's asm operands d[i .. i + n) with constraint C ("+f": read
@@ -151,56 +167,50 @@ struct Wgmma;
   HVD_REGS32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
              "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
 
-// The members of Wgmma<N>, whose accumulator is N / 2 floats: REGS and DOPS
-// are its register list and operand macro from above, and "%" I<k> names
-// operand N / 2 + k, the k-th after the accumulator. SS: a, b, scale-d
-// (0: D = A B; 1: D += A B), trans-b, trans-a. RS: four A words, b,
-// scale-d, trans-b.
-#define HVD_WGMMA_SS(NAME, C, SCALE, N, REGS, DOPS, I0, I1, I2, I3, I4)                 \
+// The members of Wgmma<N, T>, whose accumulator is N / 2 floats: TY is the
+// PTX name of T, REGS and DOPS are its register list and operand macro from
+// above, and "%" I<k> names operand N / 2 + k, the k-th after the
+// accumulator. SS: a, b, scale-d (0: D = A B; 1: D += A B), trans-b,
+// trans-a. RS: four A words, b, scale-d, trans-b.
+#define HVD_WGMMA_SS(NAME, C, SCALE, N, TY, REGS, DOPS, I0, I1, I2, I3, I4)             \
   template <int TRANS_B, int TRANS_A = 0>                                                \
   static __device__ __forceinline__ void NAME(float (&d)[N / 2], uint64_t a, uint64_t b) { \
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" I2 ", 0;\n"                         \
-                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" REGS         \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY " {" REGS     \
                  "}, %" I0 ", %" I1 ", p, 1, 1, %" I4 ", %" I3 ";\n}\n"                   \
                  : DOPS(C, 0)                                                            \
                  : "l"(a), "l"(b), "r"(SCALE), "n"(TRANS_B), "n"(TRANS_A));              \
   }
-#define HVD_WGMMA_RS(N, REGS, DOPS, I0, I1, I2, I3, I4, I5, I6)                              \
+#define HVD_WGMMA_RS(N, TY, REGS, DOPS, I0, I1, I2, I3, I4, I5, I6)                          \
   template <int TRANS_B>                                                                     \
   static __device__ __forceinline__ void rs(float (&d)[N / 2], const uint32_t (&a)[4],       \
                                             uint64_t b) {                                    \
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" I5 ", 0;\n"                             \
-                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" REGS             \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY " {" REGS         \
                  "}, {%" I0 ", %" I1 ", %" I2 ", %" I3 "}, %" I4 ", p, 1, 1, %" I6 ";\n}\n"   \
                  : DOPS("+f", 0)                                                             \
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TRANS_B)); \
   }
 
-template <>
-struct Wgmma<16> {
-  HVD_WGMMA_SS(ss, "+f", 1, 16, HVD_REGS8, HVD_D8, "8", "9", "10", "11", "12")
-  HVD_WGMMA_SS(ss_init, "=f", 0, 16, HVD_REGS8, HVD_D8, "8", "9", "10", "11", "12")
-  HVD_WGMMA_RS(16, HVD_REGS8, HVD_D8, "8", "9", "10", "11", "12", "13", "14")
-};
-template <>
-struct Wgmma<32> {
-  HVD_WGMMA_SS(ss, "+f", 1, 32, HVD_REGS16, HVD_D16, "16", "17", "18", "19", "20")
-  HVD_WGMMA_SS(ss_init, "=f", 0, 32, HVD_REGS16, HVD_D16, "16", "17", "18", "19", "20")
-  HVD_WGMMA_RS(32, HVD_REGS16, HVD_D16, "16", "17", "18", "19", "20", "21", "22")
-};
-template <>
-struct Wgmma<64> {
-  HVD_WGMMA_SS(ss, "+f", 1, 64, HVD_REGS32, HVD_D32, "32", "33", "34", "35", "36")
-  HVD_WGMMA_SS(ss_init, "=f", 0, 64, HVD_REGS32, HVD_D32, "32", "33", "34", "35", "36")
-  HVD_WGMMA_RS(64, HVD_REGS32, HVD_D32, "32", "33", "34", "35", "36", "37", "38")
-};
-template <>
-struct Wgmma<128> {
-  HVD_WGMMA_SS(ss, "+f", 1, 128, HVD_REGS64, HVD_D64, "64", "65", "66", "67", "68")
-  HVD_WGMMA_SS(ss_init, "=f", 0, 128, HVD_REGS64, HVD_D64, "64", "65", "66", "67", "68")
-  HVD_WGMMA_RS(128, HVD_REGS64, HVD_D64, "64", "65", "66", "67", "68", "69", "70")
-};
+// Wgmma<N, bf16> and Wgmma<N, float16>.
+#define HVD_WGMMA_T(T, TY, N, REGS, DOPS, I0, I1, I2, I3, I4, I5, I6)        \
+  template <>                                                                \
+  struct Wgmma<N, T> {                                                       \
+    HVD_WGMMA_SS(ss, "+f", 1, N, TY, REGS, DOPS, I0, I1, I2, I3, I4)         \
+    HVD_WGMMA_SS(ss_init, "=f", 0, N, TY, REGS, DOPS, I0, I1, I2, I3, I4)    \
+    HVD_WGMMA_RS(N, TY, REGS, DOPS, I0, I1, I2, I3, I4, I5, I6)              \
+  };
+#define HVD_WGMMA(...)                          \
+  HVD_WGMMA_T(__nv_bfloat16, "bf16", __VA_ARGS__) \
+  HVD_WGMMA_T(__half, "f16", __VA_ARGS__)
 
+HVD_WGMMA(16, HVD_REGS8, HVD_D8, "8", "9", "10", "11", "12", "13", "14")
+HVD_WGMMA(32, HVD_REGS16, HVD_D16, "16", "17", "18", "19", "20", "21", "22")
+HVD_WGMMA(64, HVD_REGS32, HVD_D32, "32", "33", "34", "35", "36", "37", "38")
+HVD_WGMMA(128, HVD_REGS64, HVD_D64, "64", "65", "66", "67", "68", "69", "70")
+
+#undef HVD_WGMMA
+#undef HVD_WGMMA_T
 #undef HVD_WGMMA_RS
 #undef HVD_WGMMA_SS
 #undef HVD_REGS64
@@ -330,11 +340,11 @@ __device__ __forceinline__ void fence_async_smem() {
 __device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
-__device__ __forceinline__ void st_shared_bf16(uint32_t addr, float v) {
-  const __nv_bfloat16 h = __float2bfloat16_rn(v);
-  asm volatile("st.shared.b16 [%0], %1;\n" ::"r"(addr),
-               "h"(*reinterpret_cast<const unsigned short*>(&h))
-               : "memory");
+// One float rounded to the 2-byte type T, stored at addr.
+template <typename T>
+__device__ __forceinline__ void st_shared_16(uint32_t addr, float v) {
+  const uint16_t h = (uint16_t)(pack2<T>(v, 0.f) & 0xFFFFu);
+  asm volatile("st.shared.b16 [%0], %1;\n" ::"r"(addr), "h"(h) : "memory");
 }
 
 // Barrier `id` (1..15; 0 is __syncthreads) over `threads` threads.
@@ -372,36 +382,44 @@ inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return fn;
 }
 
-// The tensor map of a bf16 tensor of rank `rank` (2 to 5): dims[0] is the
-// contiguous one, strides[i] the byte stride of dims[i + 1], box the box
-// dims; row_bytes (box[0] * 2 = 128, 64 or 32) picks the swizzle. Elements
-// outside the dims read as zeros. Returns 0 or HVD_ERR_TENSOR_MAP + the
-// CUresult.
-inline int make_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                    const cuuint64_t* strides, const cuuint32_t* box, int row_bytes) {
+// The tensor-map data type of a 2-byte element type.
+template <typename T>
+constexpr CUtensorMapDataType tma_type() {
+  return std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+
+// The tensor map of a tensor of 2-byte elements T of rank `rank` (2 to 5):
+// dims[0] is the contiguous one, strides[i] the byte stride of dims[i + 1],
+// box the box dims; row_bytes (box[0] * 2 = 128, 64 or 32) picks the
+// swizzle. Elements outside the dims read as zeros. Returns 0 or
+// HVD_ERR_TENSOR_MAP + the CUresult.
+template <typename T>
+int make_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+             const cuuint64_t* strides, const cuuint32_t* box, int row_bytes) {
   const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return HVD_ERR_TENSOR_MAP + (int)CUDA_ERROR_NOT_FOUND;
   const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
   const CUtensorMapSwizzle swizzle = row_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
                                      : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                        : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+  const CUresult r = encode(map, tma_type<T>(), rank, const_cast<void*>(base),
                             dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : HVD_ERR_TENSOR_MAP + (int)r;
 }
 
-// The tensor map of a contiguous [BH, S, D] bf16 tensor whose box is one
+// The tensor map of a contiguous [BH, S, D] tensor of T whose box is one
 // TileFormat<D> box: CB columns by box_rows rows of one bh. Rows past S read
 // as zeros, never as the next head's rows.
-template <int D>
+template <typename T, int D>
 int make_tile_map(CUtensorMap* map, const void* base, int S, int BH, int box_rows) {
   using F = TileFormat<D>;
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
   const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
   const cuuint32_t box[3] = {(cuuint32_t)F::CB, (cuuint32_t)box_rows, 1};
-  return make_map(map, base, 3, dims, strides, box, F::ROW_BYTES);
+  return make_map<T>(map, base, 3, dims, strides, box, F::ROW_BYTES);
 }
 
 }  // namespace

@@ -12,8 +12,10 @@ and longer ones to its multi-tile kernels; both routes are held to JAX.
 Inputs are made by numpy from a seed. Tolerance: float32, 1e-5 absolute
 and relative (the two sides sum in different orders).
 
-The ``cuda`` tests hold the hand-written kernels against the plain
-versions on the card; they skip where there is no GPU.
+Head dims without a kernel instance go to the next one, zero-padded
+(``padded_heads``); the plan is held here on the plain versions, to 1e-6.
+The kernels against their plain versions on the card are in
+``tests/test_torch_cuda.py``.
 """
 
 import importlib.util
@@ -335,20 +337,29 @@ def _ptxas_entry(mangled, spills="0 bytes spill stores, 0 bytes spill loads",
             f"{registers} registers, used 16 barriers, 400 bytes cmem[0]\n")
 
 
-_HOPPER_INSTANCES = [(k, d) for k in ("flash_fwd_kernel", "flash_dq_kernel",
-                                       "flash_dkv_kernel",
-                                       "flash_fwd_single_kernel",
-                                       "flash_dqkv_kernel")
-                     for d in (16, 32, 64, 128)] + [("dw_1x1_kernel", None)]
+# nvcc's mangled names of the two element types.
+_TYPES = {"bf16": "13__nv_bfloat16", "f16": "6__half"}
+_HOPPER_INSTANCES = [(k, d, t) for k in ("flash_fwd_kernel", "flash_dq_kernel",
+                                          "flash_dkv_kernel",
+                                          "flash_fwd_single_kernel",
+                                          "flash_dqkv_kernel")
+                     for t in _TYPES for d in (16, 32, 64, 128)] + [
+                         ("dw_1x1_kernel", None, t) for t in _TYPES]
 
 
-def _hopper_mangled(kernel, d):
-    """The mangled name nvcc gives a Hopper instance (d None: no template)."""
+def _hopper_mangled(kernel, d, t="bf16"):
+    """The mangled name nvcc gives a Hopper instance of element type t
+    (d None: the filter gradient, templated on the type alone)."""
     if d is None:
-        return (f"_ZN12_GLOBAL__N_1{len(kernel)}{kernel}E14CUtensorMap_stS0_"
-                "Pfiiiiiiiiiii")
-    name = f"{kernel}ILi{d}EEEv14CUtensorMap_stS1_S1_S1_Pfiiifiii"
+        return (f"_ZN12_GLOBAL__N_1{len(kernel)}{kernel}I{_TYPES[t]}EEv14"
+                "CUtensorMap_stS2_Pfiiiiiiiiiii")
+    name = (f"{kernel}I{_TYPES[t]}Li{d}EEEv14CUtensorMap_stS2_S2_S2_"
+            "Pfiiifiii")
     return f"_ZN12_GLOBAL__N_1{len(kernel)}{name}"
+
+
+def _instance(kernel, d, t):
+    return f"{kernel}<{t}>" if d is None else f"{kernel}<{t}, {d}>"
 
 
 def _hopper_log():
@@ -360,8 +371,8 @@ def _hopper_log():
             + _ptxas_entry("_ZN12_GLOBAL__N_121flash_dqkv_f32_kernelILi64E"
                            "EEvPKfS2_S2_S2_S2_S2_S2_PfS3_S3_iifiii",
                            "4 bytes spill stores, 4 bytes spill loads", 128)
-            + "".join(_ptxas_entry(_hopper_mangled(k, d))
-                      for k, d in _HOPPER_INSTANCES))
+            + "".join(_ptxas_entry(_hopper_mangled(k, d, t))
+                      for k, d, t in _HOPPER_INSTANCES))
 
 
 @pytest.mark.parametrize("kernel,d,fault", [
@@ -372,14 +383,32 @@ def _hopper_log():
     ("dw_1x1_kernel", None, "spill"),
     ("dw_1x1_kernel", None, "serialize")])
 def test_build_report_names_the_redesigned_hopper_culprit(kernel, d, fault):
-    """The fused backward's and the filter gradient's Hopper instances are
-    in the build phase's list, and a spill or serialized wgmma in one of
-    them fails it, naming that instance alone."""
+    """The fused backward's and the filter gradient's bf16 Hopper instances
+    are in the build phase's list, and a spill or serialized wgmma in one
+    of them fails it, naming that instance alone."""
+    _check_culprit(kernel, d, "bf16", fault)
+
+
+@pytest.mark.parametrize("kernel,d,fault", [
+    ("flash_dqkv_kernel", 16, "spill"),
+    ("flash_dqkv_kernel", 64, "spill"),
+    ("flash_dqkv_kernel", 128, "serialize"),
+    ("flash_fwd_kernel", 32, "serialize"),
+    ("flash_dkv_kernel", 128, "spill"),
+    ("dw_1x1_kernel", None, "spill"),
+    ("dw_1x1_kernel", None, "serialize")])
+def test_build_report_names_the_float16_hopper_culprit(kernel, d, fault):
+    """The same for the float16 instances: the culprit is named with its
+    type, and its bf16 twin is not."""
+    _check_culprit(kernel, d, "f16", fault)
+
+
+def _check_culprit(kernel, d, t, fault):
     smoke = _chip_smoke()
     clean = _hopper_log()
     regs, faults = smoke.hopper_build_report(clean)
     assert sorted(regs) == sorted(smoke.HOPPER_INSTANCES) and faults == []
-    mangled = _hopper_mangled(kernel, d)
+    mangled = _hopper_mangled(kernel, d, t)
     if fault == "spill":
         log = clean.replace(_ptxas_entry(mangled), _ptxas_entry(
             mangled, "240 bytes spill stores, 252 bytes spill loads"))
@@ -390,7 +419,7 @@ def test_build_report_names_the_redesigned_hopper_culprit(kernel, d, fault):
             f"register resources for the wgmma pipeline in the function "
             f"'{mangled}'\n")
     _, faults = smoke.hopper_build_report(log)
-    culprit = kernel if d is None else f"{kernel}<{d}>"
+    culprit = _instance(kernel, d, t)
     assert len(faults) == 1 and faults[0].startswith(culprit + ":"), faults
 
 
@@ -410,117 +439,73 @@ def test_build_report_flags_spills_and_serialized_wgmma_of_hopper_kernels():
               + _ptxas_entry("_ZN12_GLOBAL__N_127flash_fwd_single_f32_kernel"
                              "ILi32EEEvPKfS2_S2_PfS3_iiifiii", "4 bytes spill "
                              "stores, 4 bytes spill loads", 128))
-    clean = others + "".join(_ptxas_entry(hopper(k, d)) for k, d in instances)
+    clean = others + "".join(_ptxas_entry(hopper(k, d, t))
+                             for k, d, t in instances)
     regs, faults = smoke.hopper_build_report(clean)
     assert sorted(regs) == sorted(smoke.HOPPER_INSTANCES)
-    assert len(regs) == 21
+    assert len(regs) == 42
     assert set(regs.values()) == {168} and faults == []
 
-    def spill(log, kernel, d):
+    def spill(log, kernel, d, t):
         return log.replace(
-            _ptxas_entry(hopper(kernel, d)),
-            _ptxas_entry(hopper(kernel, d), "240 bytes spill stores, 252 "
+            _ptxas_entry(hopper(kernel, d, t)),
+            _ptxas_entry(hopper(kernel, d, t), "240 bytes spill stores, 252 "
                          "bytes spill loads"))
 
-    def serialize(log, kernel, d):
+    def serialize(log, kernel, d, t):
         return log + (
             "ptxas info    : (C7512) Potential Performance Loss: "
             "wgmma.mma_async instructions are serialized due to insufficient "
             "register resources for the wgmma pipeline in the function "
-            f"'{hopper(kernel, d)}'\n")
+            f"'{hopper(kernel, d, t)}'\n")
 
     for log, culprit in (
-            (spill(clean, "flash_dkv_kernel", 128), "flash_dkv_kernel<128>"),
-            (spill(clean, "flash_dq_kernel", 64), "flash_dq_kernel<64>"),
-            (serialize(clean, "flash_fwd_kernel", 32), "flash_fwd_kernel<32>"),
-            (serialize(clean, "flash_fwd_single_kernel", 128),
-             "flash_fwd_single_kernel<128>")):
+            (spill(clean, "flash_dkv_kernel", 128, "bf16"),
+             "flash_dkv_kernel<bf16, 128>"),
+            (spill(clean, "flash_dq_kernel", 64, "f16"),
+             "flash_dq_kernel<f16, 64>"),
+            (serialize(clean, "flash_fwd_kernel", 32, "bf16"),
+             "flash_fwd_kernel<bf16, 32>"),
+            (serialize(clean, "flash_fwd_single_kernel", 128, "f16"),
+             "flash_fwd_single_kernel<f16, 128>")):
         _, faults = smoke.hopper_build_report(log)
         assert len(faults) == 1 and faults[0].startswith(culprit), faults
 
 
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (the kernels are CUDA C++ for "
-                    "sm_90a and have no CPU mode)")
-    return torch.device("cuda")
+@pytest.mark.parametrize("D,want", [(8, 16), (16, 16), (48, 64), (96, 128),
+                                    (128, 128)])
+def test_kernel_head_dim_is_the_next_instance(D, want):
+    assert port.kernel_head_dim(D) == want
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,D,Sq,Sk,causal,q_offset,k_offset", [
-    (torch.bfloat16, 64, 130, 96, False, 0, 0),
-    (torch.bfloat16, 64, 130, 96, True, 0, 24),
-    (torch.float32, 64, 130, 96, True, 30, 0),
-    # The Hopper kernels at every head dim, on lengths that are no multiple
-    # of their 64- or 128-row tiles, causal with offsets.
-    (torch.bfloat16, 16, 200, 264, True, 0, 40),
-    (torch.bfloat16, 32, 200, 264, True, 0, 40),
-    (torch.bfloat16, 64, 200, 264, True, 0, 40),
-    (torch.bfloat16, 128, 200, 264, True, 0, 40),
-    (torch.bfloat16, 128, 264, 200, True, 64, 0),
-    (torch.bfloat16, 32, 300, 300, False, 0, 0),
-    # chip_smoke.py's single-tile shapes through the multi-tile kernels.
-    (torch.bfloat16, 16, 128, 128, True, 0, 0),
-    (torch.bfloat16, 32, 112, 128, True, 16, 0),
-    (torch.bfloat16, 64, 77, 100, True, 0, 23)])
-def test_kernels_match_plain_versions_on_the_card(cuda_device, dtype, D, Sq,
-                                                  Sk, causal, q_offset,
-                                                  k_offset):
-    gen = torch.Generator(device=cuda_device).manual_seed(0)
-    BH = 6
-
-    def rnd(*shape, dt=dtype):
-        return torch.randn(*shape, generator=gen, device=cuda_device).to(dt)
-
-    q, k, v, do = rnd(BH, Sq, D), rnd(BH, Sk, D), rnd(BH, Sk, D), rnd(BH, Sq, D)
-    glse = rnd(BH, Sq, dt=torch.float32)
-    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
-    o, lse = port.flash_fwd(q, k, v, causal, q_offset, k_offset)
-    o_ref, lse_ref = port.flash_fwd_plain(q, k, v, causal, q_offset, k_offset)
-    delta = (do.float() * o_ref.float()).sum(-1)
-    args = (q, k, v, do, lse_ref, delta, glse, causal, q_offset, k_offset)
-    pairs = [(o, o_ref), (port.flash_dq(*args), port.flash_dq_plain(*args)),
-             *zip(port.flash_dkv(*args), port.flash_dkv_plain(*args))]
-    for got, want in pairs:
-        err = (got.float() - want.float()).abs().max().item()
-        assert err <= tol * want.float().abs().max().item()
-    assert (lse - lse_ref).abs().max().item() <= 1e-3
-    assert torch.equal(lse == port.LSE_MASKED, lse_ref == port.LSE_MASKED)
+@pytest.mark.parametrize("D", [160, 256])
+def test_head_dims_above_the_widest_instance_raise(D):
+    with pytest.raises(ValueError, match="1 to 128"):
+        port.kernel_head_dim(D)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,D,Sq,Sk,causal,q_offset,k_offset", [
-    (torch.bfloat16, 64, 128, 128, False, 0, 0),
-    (torch.bfloat16, 128, 128, 128, False, 0, 0),
-    (torch.bfloat16, 16, 96, 128, True, 0, 40),
-    (torch.float32, 64, 128, 128, True, 16, 0),
-    (torch.float32, 32, 50, 70, False, 0, 0),
-    # The Hopper forward at D = 16 and 32, causal; lengths that are no
-    # multiple of 16, rows 0..22 seeing no key.
-    (torch.bfloat16, 16, 128, 128, True, 0, 0),
-    (torch.bfloat16, 32, 112, 128, True, 16, 0),
-    (torch.bfloat16, 64, 77, 100, True, 0, 23)])
-def test_single_tile_kernels_match_plain_versions_on_the_card(
-        cuda_device, dtype, D, Sq, Sk, causal, q_offset, k_offset):
-    gen = torch.Generator(device=cuda_device).manual_seed(1)
-    BH = 6
-
-    def rnd(*shape, dt=dtype):
-        return torch.randn(*shape, generator=gen, device=cuda_device).to(dt)
-
-    q, k, v, do = rnd(BH, Sq, D), rnd(BH, Sk, D), rnd(BH, Sk, D), rnd(BH, Sq, D)
-    glse = rnd(BH, Sq, dt=torch.float32)
-    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
-    o, lse = port.flash_fwd_single(q, k, v, causal, q_offset, k_offset)
-    o_ref, lse_ref = port.flash_fwd_single_plain(q, k, v, causal, q_offset,
-                                                 k_offset)
-    delta = (do.float() * o_ref.float()).sum(-1)
-    args = (q, k, v, do, lse_ref, delta, glse, causal, q_offset, k_offset)
-    pairs = [(o, o_ref), *zip(port.flash_dqkv(*args),
-                              port.flash_dqkv_plain(*args))]
-    for got, want in pairs:
-        err = (got.float() - want.float()).abs().max().item()
-        assert err <= tol * want.float().abs().max().item()
-    assert (lse - lse_ref).abs().max().item() <= 1e-3
-    assert torch.equal(lse == port.LSE_MASKED, lse_ref == port.LSE_MASKED)
+@pytest.mark.parametrize("D", [8, 48, 96])
+def test_padded_head_dim_plan_equals_the_plain_version(D):
+    """Zero-padding q, k, v and dO from D to the instance's head dim, with
+    the scale of the true D, and slicing back gives the plain version at D:
+    forward (out, lse) and the three gradients, on both routes' plain
+    versions."""
+    args = _inputs((1, 2, 40, 56, D), seed=D)
+    q, k, v, g = (torch.from_numpy(a).reshape(2, -1, D) for a in args[:4])
+    glse = torch.from_numpy(args[4]).reshape(2, 40)
+    causal = (True, 16, 0)
+    tol = dict(rtol=1e-6, atol=1e-6)
+    want = port.flash_fwd_plain(q, k, v, *causal)
+    got = port.padded_heads(port.flash_fwd_plain, (q, k, v), (), *causal)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.is_contiguous()
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **tol)
+    rows = (want[1], (g * want[0]).sum(-1), glse)
+    for plain in (port.flash_dq_plain, port.flash_dkv_plain,
+                  port.flash_dqkv_plain):
+        want = plain(q, k, v, g, *rows, *causal)
+        got = port.padded_heads(plain, (q, k, v, g), rows, *causal)
+        for a, b in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert a.shape == b.shape
+            np.testing.assert_allclose(a.numpy(), b.numpy(), **tol)

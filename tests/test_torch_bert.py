@@ -239,6 +239,7 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "import sys\n"
         "import horovod_tpu_torch\n"
         "import horovod_tpu_torch.models.bert, horovod_tpu_torch.models.convert\n"
+        "import horovod_tpu_torch.models.resnet, horovod_tpu_torch.models.lenet\n"
         "import horovod_tpu_torch.ops._kernels, horovod_tpu_torch.optimizer\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'horovod_tpu'))\n"

@@ -6,7 +6,9 @@ Two gloo ranks run every collective once (one spawn for the module; a
 parallel). Rank r's result is compared with row r of the JAX package's
 stacked-rank result on a 2-device process set, on the same numpy inputs.
 Tolerance: float32, 1e-6 relative (a two-term sum has one rounding on
-either side; Product and the scale factors add one more each).
+either side; Product and the scale factors add one more each). Ragged
+``allgather`` (ranks sending different dim-0 sizes, the reference's
+``allgather_v``) is held to ``np.concatenate`` of the ranks' tensors.
 """
 
 import multiprocessing as mp
@@ -35,6 +37,20 @@ def _data():
     }
 
 
+def _ragged():
+    """Per-rank tensors for allgather: ragged dim 0, an empty rank, and a
+    rank whose trailing dims disagree."""
+    rng = np.random.RandomState(1)
+    return {
+        "ragged": [rng.randn(2, 3).astype(np.float32),
+                   rng.randn(3, 3).astype(np.float32)],
+        "empty": [rng.randn(2, 3).astype(np.float32),
+                  np.zeros((0, 3), np.float32)],
+        "mismatch": [rng.randn(2, 3).astype(np.float32),
+                     rng.randn(3, 4).astype(np.float32)],
+    }
+
+
 def _worker(rank, init_file, out_dir):
     """One rank: run every collective, save its results."""
     os.environ["HOROVOD_NUM_PROCESSES"] = str(WORLD)
@@ -53,6 +69,12 @@ def _worker(rank, init_file, out_dir):
                 postscale_factor=post).numpy()
             assert torch.equal(x, torch.from_numpy(src[rank]))  # not in place
     res["allgather"] = hvd.allgather(torch.from_numpy(d["x"][rank])).numpy()
+    for case, parts in _ragged().items():
+        try:
+            res[f"allgather.{case}"] = hvd.allgather(
+                torch.from_numpy(parts[rank])).numpy()
+        except ValueError as e:
+            res[f"allgather.{case}.error"] = np.array(str(e))
     for root in range(WORLD):
         res[f"broadcast.{root}"] = hvd.broadcast(
             torch.from_numpy(d["x"][rank]), root_rank=root).numpy()
@@ -126,6 +148,25 @@ def test_allgather_matches_jax(port_results, jax_pair):
     want = np.asarray(jhvd.allgather(_data()["x"], process_set=ps))
     for r, res in enumerate(port_results):
         np.testing.assert_array_equal(res["allgather"], want[r])
+
+
+@pytest.mark.parametrize("case", ["ragged", "empty"])
+def test_ragged_allgather_concatenates_on_every_rank(port_results, case):
+    parts = _ragged()[case]
+    want = np.concatenate(parts)
+    assert want.shape == (5 if case == "ragged" else 2, 3)
+    for res in port_results:
+        np.testing.assert_array_equal(res[f"allgather.{case}"], want)
+
+
+def test_allgather_with_mismatched_trailing_dims_raises_on_every_rank(
+        port_results):
+    # Both processes went on to the later collectives and exited 0
+    # (port_results checks the exit codes).
+    for res in port_results:
+        assert "allgather.mismatch" not in res
+        msg = str(res["allgather.mismatch.error"])
+        assert "[2, 3] torch.float32" in msg and "[3, 4] torch.float32" in msg
 
 
 @pytest.mark.parametrize("root", range(WORLD))

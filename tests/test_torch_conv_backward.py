@@ -8,8 +8,10 @@ a seed and go through both in float32. Tolerances are those of
 (Cin terms); 1e-3 for dw and dx, whose sums over many rows are taken in
 another order on each side.
 
-The ``cuda`` tests hold the hand-written kernel against its plain version on
-the card; they skip where there is no GPU.
+The kernel against its plain version on the card is in
+``tests/test_torch_cuda.py``; the kernel's plans (the row grid of a view,
+its boxes, and the copies made for channel counts that are no whole
+16-byte row and for rows wider than a TMA box) are held here.
 """
 
 import math
@@ -112,46 +114,6 @@ def test_other_devices_raise_instead_of_falling_back():
         port.dw_1x1(x, torch.empty(64, 32, device="meta"))
 
 
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (the kernel is CUDA C++ for "
-                    "sm_90a and has no CPU mode)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,shape,cout,strides", [
-    (torch.bfloat16, (4, 14, 14, 64), 256, (1, 1)),
-    (torch.bfloat16, (4, 14, 14, 256), 512, (2, 2)),
-    (torch.float32, (3, 7, 11, 72), 40, (1, 1))])
-def test_kernel_matches_plain_version_on_the_card(cuda_device, dtype, shape,
-                                                  cout, strides):
-    gen = torch.Generator(device=cuda_device).manual_seed(2)
-    x = torch.randn(*shape, generator=gen, device=cuda_device).to(dtype)
-    w = (0.1 * torch.randn(1, 1, shape[-1], cout, generator=gen,
-                           device=cuda_device)).to(dtype)
-    xs = x[:, ::strides[0], ::strides[1], :]
-    dy = torch.randn(xs.shape[:3].numel(), cout, generator=gen,
-                     device=cuda_device).to(dtype)
-    before = _kernels.DW_1X1.launches
-    got = port.dw_1x1(xs, dy)
-    want = port.dw_1x1_plain(xs, dy)
-    assert _kernels.DW_1X1.launches == before + 1
-    # Both sum in fp32 over the same products, in another order.
-    tol = 1e-4 if dtype == torch.float32 else 1e-3
-    assert (got - want).abs().max().item() <= tol * want.abs().max().item()
-    xg = x.detach().requires_grad_()
-    wg = w.detach().requires_grad_()
-    out = port.conv1x1(xg, wg, strides)
-    out.backward(dy.reshape(out.shape))
-    dx, dw = port.conv1x1_backward(x, w, dy.reshape(out.shape), strides,
-                                   port.dw_1x1_plain)
-    assert torch.equal(xg.grad, dx)
-    assert (wg.grad.float() - dw.float()).abs().max().item() <= (
-        2e-2 if dtype == torch.bfloat16 else 1e-4) * dw.float().abs().max().item()
-
-
 # The bf16 kernel's plan, held on the CPU: the tensor map's row grid must
 # address exactly the view's elements, and the boxes of the K split must
 # hold every row once, each beside its own row of dy.
@@ -235,3 +197,50 @@ def test_box_rows_are_whole_wgmma_steps(Wd):
 def test_box_rows_refuse_rows_wider_than_a_box():
     with pytest.raises(ValueError, match="at most 256"):
         port.box_rows(257)
+
+
+# Views the 2-byte kernels cannot read in place: name -> (shape, strides,
+# Cout). int16 stands for the 2-byte types: its values address exactly.
+_COPIED = {
+    "cin3_cout12": ((4, 5, 6, 3), (1, 1), 12),
+    "cin12_stride2": ((2, 6, 8, 12), (2, 2), 20),
+    "w300_stride2": ((1, 4, 600, 8), (2, 2), 16),
+    "w300_stride2_cin3": ((2, 4, 600, 3), (2, 2), 5),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_COPIED))
+def test_copy_plans_address_exactly_the_elements_of_the_view(name):
+    shape, strides, cout = _COPIED[name]
+    flat = torch.arange(8 + math.prod(shape), dtype=torch.int16)
+    x = flat[8:8 + math.prod(shape)].view(shape)[:, ::strides[0],
+                                                 ::strides[1], :]
+    C = x.shape[-1]
+    rows = x.reshape(-1, C)
+    dy = torch.arange(rows.shape[0] * cout, dtype=torch.int16).reshape(
+        -1, cout)
+    xk, dyk = port.dw_operands(x, dy)
+    assert xk is not x and xk.is_contiguous()
+    # The copies: every row of the view once, zero channels to a whole
+    # 16-byte row, read by the kernel in place (one grid row of K rows).
+    assert xk.shape[-1] % 8 == 0 and dyk.shape[1] % 8 == 0
+    assert xk.shape[-1] - C < 8 and dyk.shape[1] - cout < 8
+    g = port.row_grid(tuple(xk.shape), xk.stride())
+    assert g.Wd <= 256 and g.Wd * g.Hd * g.Nd == rows.shape[0]
+    n, h, w = torch.meshgrid(torch.arange(g.Nd), torch.arange(g.Hd),
+                             torch.arange(g.Wd), indexing="ij")
+    start = xk.storage_offset() + n * g.sn + h * g.sh + w * g.sw
+    got = xk.reshape(-1)[start.reshape(-1, 1) + torch.arange(xk.shape[-1])]
+    assert torch.equal(got[:, :C], rows) and not got[:, C:].any()
+    assert torch.equal(dyk[:, :cout], dy) and not dyk[:, cout:].any()
+
+
+@pytest.mark.parametrize("name", ["contiguous_nhwc", "stride2_even_h",
+                                  "stride2_odd_h", "wide_rows_stride2_h"])
+def test_views_the_kernel_reads_in_place_are_not_copied(name):
+    shape, strides = _VIEWS[name]
+    x = torch.zeros(shape, dtype=torch.bfloat16)
+    x = x[:, ::strides[0], ::strides[1], :]
+    dy = torch.zeros(x.shape[:3].numel(), 64, dtype=torch.bfloat16)
+    xk, dyk = port.dw_operands(x, dy)
+    assert xk is x and dyk is dy

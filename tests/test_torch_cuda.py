@@ -1,0 +1,196 @@
+"""The port's hand-written CUDA kernels against their plain PyTorch versions
+on the card.
+
+Every test here needs an NVIDIA GPU and ``nvcc`` (the kernels are CUDA C++
+for ``sm_90a`` and have no CPU mode): they carry the ``cuda`` marker and
+skip where there is no card. The file imports neither jax nor the JAX
+package, so it runs on a machine that has only PyTorch, without the
+suite's ``conftest.py`` (which starts the JAX package's world):
+
+    python -m pytest --noconftest tests/test_torch_cuda.py
+
+Tolerances, as a share of the largest plain value: bf16 2e-2 and float16
+5e-3 for the attention kernels (outputs, P and dS are rounded to 8 or 11
+significant bits at points that can differ by one ulp between the two
+summation orders), float32 1e-4; lse 1e-3 absolute. The filter gradient
+sums exact products in fp32 on both sides: 1e-3 for 2-byte operands, 1e-4
+for float32.
+"""
+
+import pytest
+import torch
+
+from horovod_tpu_torch.ops import _kernels
+from horovod_tpu_torch.ops import attention as port
+from horovod_tpu_torch.ops import conv_backward as conv
+
+TOL = {torch.bfloat16: 2e-2, torch.float16: 5e-3, torch.float32: 1e-4}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels are CUDA C++ for "
+                    "sm_90a and have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _hold(pairs, dtype):
+    for got, want in pairs:
+        assert got.shape == want.shape and got.dtype == want.dtype
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= TOL[dtype] * want.float().abs().max().item()
+
+
+def _attention_operands(device, seed, BH, Sq, Sk, D, dtype):
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape, dt=dtype):
+        return torch.randn(*shape, generator=gen, device=device).to(dt)
+
+    q, k, v, do = rnd(BH, Sq, D), rnd(BH, Sk, D), rnd(BH, Sk, D), rnd(BH, Sq, D)
+    return q, k, v, do, rnd(BH, Sq, dt=torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D,Sq,Sk,causal,q_offset,k_offset", [
+    (torch.bfloat16, 64, 130, 96, False, 0, 0),
+    (torch.bfloat16, 64, 130, 96, True, 0, 24),
+    (torch.float32, 64, 130, 96, True, 30, 0),
+    # The Hopper kernels at every head dim, on lengths that are no multiple
+    # of their 64- or 128-row tiles, causal with offsets.
+    (torch.bfloat16, 16, 200, 264, True, 0, 40),
+    (torch.bfloat16, 32, 200, 264, True, 0, 40),
+    (torch.bfloat16, 64, 200, 264, True, 0, 40),
+    (torch.bfloat16, 128, 200, 264, True, 0, 40),
+    (torch.bfloat16, 128, 264, 200, True, 64, 0),
+    (torch.bfloat16, 32, 300, 300, False, 0, 0),
+    # chip_smoke.py's single-tile shapes through the multi-tile kernels.
+    (torch.bfloat16, 16, 128, 128, True, 0, 0),
+    (torch.bfloat16, 32, 112, 128, True, 16, 0),
+    (torch.bfloat16, 64, 77, 100, True, 0, 23),
+    # float16, float32 at D = 128, and head dims zero-padded to the next
+    # instance.
+    (torch.float16, 64, 200, 264, True, 0, 40),
+    (torch.float16, 128, 264, 200, False, 0, 0),
+    (torch.float32, 128, 200, 136, True, 70, 0),
+    (torch.bfloat16, 96, 200, 264, True, 0, 40),
+    (torch.bfloat16, 48, 130, 96, False, 0, 0),
+    (torch.float32, 8, 130, 96, True, 30, 0)])
+def test_kernels_match_plain_versions_on_the_card(cuda_device, dtype, D, Sq,
+                                                  Sk, causal, q_offset,
+                                                  k_offset):
+    q, k, v, do, glse = _attention_operands(cuda_device, 0, 6, Sq, Sk, D,
+                                            dtype)
+    o, lse = port.flash_fwd(q, k, v, causal, q_offset, k_offset)
+    o_ref, lse_ref = port.flash_fwd_plain(q, k, v, causal, q_offset, k_offset)
+    delta = (do.float() * o_ref.float()).sum(-1)
+    args = (q, k, v, do, lse_ref, delta, glse, causal, q_offset, k_offset)
+    _hold([(o, o_ref), (port.flash_dq(*args), port.flash_dq_plain(*args)),
+           *zip(port.flash_dkv(*args), port.flash_dkv_plain(*args))], dtype)
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    assert torch.equal(lse == port.LSE_MASKED, lse_ref == port.LSE_MASKED)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D,Sq,Sk,causal,q_offset,k_offset", [
+    (torch.bfloat16, 64, 128, 128, False, 0, 0),
+    (torch.bfloat16, 128, 128, 128, False, 0, 0),
+    (torch.bfloat16, 16, 96, 128, True, 0, 40),
+    (torch.float32, 64, 128, 128, True, 16, 0),
+    (torch.float32, 32, 50, 70, False, 0, 0),
+    # The Hopper forward at D = 16 and 32, causal; lengths that are no
+    # multiple of 16, rows 0..22 seeing no key.
+    (torch.bfloat16, 16, 128, 128, True, 0, 0),
+    (torch.bfloat16, 32, 112, 128, True, 16, 0),
+    (torch.bfloat16, 64, 77, 100, True, 0, 23),
+    # float16, float32 at D = 128, and head dims zero-padded to the next
+    # instance.
+    (torch.float16, 64, 128, 128, False, 0, 0),
+    (torch.float16, 128, 77, 100, True, 0, 23),
+    (torch.float32, 128, 128, 128, True, 16, 0),
+    (torch.bfloat16, 48, 77, 100, True, 0, 23),
+    (torch.float16, 96, 128, 128, False, 0, 0)])
+def test_single_tile_kernels_match_plain_versions_on_the_card(
+        cuda_device, dtype, D, Sq, Sk, causal, q_offset, k_offset):
+    q, k, v, do, glse = _attention_operands(cuda_device, 1, 6, Sq, Sk, D,
+                                            dtype)
+    o, lse = port.flash_fwd_single(q, k, v, causal, q_offset, k_offset)
+    o_ref, lse_ref = port.flash_fwd_single_plain(q, k, v, causal, q_offset,
+                                                 k_offset)
+    delta = (do.float() * o_ref.float()).sum(-1)
+    args = (q, k, v, do, lse_ref, delta, glse, causal, q_offset, k_offset)
+    _hold([(o, o_ref), *zip(port.flash_dqkv(*args),
+                            port.flash_dqkv_plain(*args))], dtype)
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    assert torch.equal(lse == port.LSE_MASKED, lse_ref == port.LSE_MASKED)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [16, 129])
+def test_more_heads_than_a_grid_dimension_holds(cuda_device, dtype, S):
+    """B*H = 65,600 heads, past the 65,535 blocks of grid.y, on each route
+    (S = 16: single-tile; S = 129: multi-tile)."""
+    BH, D = 65600, 16
+    q, k, v, do, glse = _attention_operands(cuda_device, 2, BH, S, S, D,
+                                            dtype)
+    single = S <= port.SINGLE_TILE_MAX
+    fwd = port.flash_fwd_single if single else port.flash_fwd
+    o, lse = fwd(q, k, v)
+    o_ref, lse_ref = port.flash_fwd_plain(q, k, v)
+    delta = (do.float() * o_ref.float()).sum(-1)
+    args = (q, k, v, do, lse_ref, delta, glse)
+    if single:
+        grads = zip(port.flash_dqkv(*args), port.flash_dqkv_plain(*args))
+    else:
+        grads = [(port.flash_dq(*args), port.flash_dq_plain(*args)),
+                 *zip(port.flash_dkv(*args), port.flash_dkv_plain(*args))]
+    _hold([(o, o_ref), *grads], dtype)
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_head_dims_above_128_raise_on_the_card(cuda_device):
+    q = torch.zeros(2, 16, 160, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="1 to 128"):
+        port.flash_fwd(q, q, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape,cout,strides", [
+    (torch.bfloat16, (4, 14, 14, 64), 256, (1, 1)),
+    (torch.bfloat16, (4, 14, 14, 256), 512, (2, 2)),
+    (torch.float32, (3, 7, 11, 72), 40, (1, 1)),
+    # float16; channel counts that are no whole 16-byte row (zero-padded
+    # copies); a stride-2 view whose rows are 300 wide (copied).
+    (torch.float16, (4, 14, 14, 64), 256, (1, 1)),
+    (torch.bfloat16, (8, 32, 32, 3), 12, (1, 1)),
+    (torch.float32, (3, 7, 11, 6), 10, (2, 2)),
+    (torch.bfloat16, (2, 16, 600, 64), 128, (2, 2))])
+def test_kernel_matches_plain_version_on_the_card(cuda_device, dtype, shape,
+                                                  cout, strides):
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    x = torch.randn(*shape, generator=gen, device=cuda_device).to(dtype)
+    w = (0.1 * torch.randn(1, 1, shape[-1], cout, generator=gen,
+                           device=cuda_device)).to(dtype)
+    xs = x[:, ::strides[0], ::strides[1], :]
+    dy = torch.randn(xs.shape[:3].numel(), cout, generator=gen,
+                     device=cuda_device).to(dtype)
+    before = _kernels.DW_1X1.launches
+    got = conv.dw_1x1(xs, dy)
+    want = conv.dw_1x1_plain(xs, dy)
+    assert _kernels.DW_1X1.launches == before + 1
+    assert got.shape == (shape[-1], cout) and got.dtype == torch.float32
+    # Both sum in fp32 over the same products, in another order.
+    tol = 1e-4 if dtype == torch.float32 else 1e-3
+    assert (got - want).abs().max().item() <= tol * want.abs().max().item()
+    xg = x.detach().requires_grad_()
+    wg = w.detach().requires_grad_()
+    out = conv.conv1x1(xg, wg, strides)
+    out.backward(dy.reshape(out.shape))
+    dx, dw = conv.conv1x1_backward(x, w, dy.reshape(out.shape), strides,
+                                   conv.dw_1x1_plain)
+    assert torch.equal(xg.grad, dx)
+    assert (wg.grad.float() - dw.float()).abs().max().item() <= (
+        TOL[dtype]) * dw.float().abs().max().item()
