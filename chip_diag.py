@@ -4,6 +4,7 @@
 
     python3 chip_diag.py ab OTHER_CHECKOUT
     python3 chip_diag.py watchdog
+    python3 chip_diag.py collectives [--cpu]
 
 ``ab`` times the kernels of OTHER_CHECKOUT and of this checkout at
 chip_smoke.py's shapes: at its BERT-Large path shapes (D = 64, bf16,
@@ -34,14 +35,26 @@ mean of each checkout's two processes and the ratio other / this.
 ``mbar_wait``, on an mbarrier phase that never completes, and checks that
 the kernel ends with an error once the wait's timeout has passed instead of
 hanging. The kernel faults on purpose, so it runs in a process of its own.
+
+``collectives`` runs the eager surface across ranks, one process per card
+(every visible card, at least two) over NCCL, or with ``--cpu`` four
+processes over gloo: allreduce and reducescatter with every reduce op,
+alltoall with equal chunks and with a split table (empty chunks
+included), ragged allgather, broadcast, the grouped forms, async forms
+with poll and synchronize, subsets {0, 1} and {1, ..., n-1} (members'
+collectives, a non-member's refusal, removal), allgather_object and
+masked_average. Every rank holds each result to a numpy reference made
+from the same seeded inputs (float32 sums against float64, 1e-5).
 """
 
 from __future__ import annotations
 
 import importlib.util
 import json
+import multiprocessing as mp
 import os
 import re
+import socket
 import subprocess
 import sys
 import time
@@ -266,11 +279,176 @@ def watchdog():
     return 0
 
 
+def _collectives_rank(rank, n, device, init_method):
+    """One rank of ``collectives``: raises AssertionError on a result that
+    differs from the numpy reference; prints how many it held."""
+    import faulthandler
+
+    import numpy as np
+    import torch
+
+    # A rank stuck in a collective prints its stack and exits, so a hang
+    # ends the check with the culprit named instead of at the call's limit.
+    faulthandler.dump_traceback_later(240, exit=True)
+    os.environ.update(HOROVOD_NUM_PROCESSES=str(n),
+                      HOROVOD_PROCESS_ID=str(rank),
+                      HOROVOD_LOCAL_RANK=str(rank), HOROVOD_LOCAL_SIZE=str(n))
+    sys.path.insert(0, HERE)
+    import horovod_tpu_torch as hvd
+
+    hvd.init(device=device, init_method=init_method)
+    dev = hvd.device()
+    rng = np.random.RandomState(7)
+    x = rng.randn(n, 4 * n, 3)
+    p = 1.0 + 0.1 * rng.randn(n, 4 * n, 3)
+    y = rng.randn(n, 2 * (n - 1), 2)  # dim 0 divisible by 2 and n - 1
+    ragged = [rng.randn(r + 1, 5) for r in range(n)]
+    table = rng.randint(0, 4, size=(n, n))
+    table[0, 1] = 0  # an empty chunk, whatever the draw
+    v = [rng.randn(int(table[r].sum()), 2) for r in range(n)]
+    held = []
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    def hold(name, got, want):
+        got = got.detach().cpu().double().numpy()
+        want = np.asarray(want, np.float64)
+        if got.shape != want.shape or not np.allclose(got, want, rtol=1e-5,
+                                                      atol=1e-5):
+            raise AssertionError(f"rank {rank} {name}: got {got.shape} "
+                                 f"{got.ravel()[:4]}, want {want.shape} "
+                                 f"{want.ravel()[:4]}")
+        held.append(name)
+
+    def refused(name, call, needle):
+        try:
+            call()
+        except ValueError as e:
+            if needle not in str(e):
+                raise
+            held.append(name)
+        else:
+            raise AssertionError(f"rank {rank} {name}: no ValueError")
+
+    reduced = {"sum": x.sum(0), "average": x.mean(0), "min": x.min(0),
+               "max": x.max(0), "product": p.prod(0)}
+    mine = slice(4 * rank, 4 * rank + 4)
+    for op, want in reduced.items():
+        src = p if op == "product" else x
+        hold(f"allreduce {op}", hvd.allreduce(t(src[rank]), op=op), want)
+        hold(f"reducescatter {op}", hvd.reducescatter(t(src[rank]), op=op),
+             want[mine])
+    hold("alltoall", hvd.alltoall(t(x[rank])),
+         np.concatenate([x[j][mine] for j in range(n)]))
+    offsets = np.concatenate([np.zeros((n, 1), int), table.cumsum(1)], 1)
+    sent_to_me = np.concatenate([v[j][offsets[j, rank]:offsets[j, rank + 1]]
+                                 for j in range(n)])
+    out, received = hvd.alltoall(t(v[rank]), splits=table)
+    hold("alltoall splits", out, sent_to_me)
+    hold("alltoall received splits", received, table[:, rank])
+    hold("allgather ragged", hvd.allgather(t(ragged[rank])),
+         np.concatenate(ragged))
+    hold("broadcast", hvd.broadcast(t(x[rank]), root_rank=n - 1), x[n - 1])
+    for i, got in enumerate(hvd.grouped_reducescatter(
+            [t(x[rank]), t(p[rank])], op=hvd.Sum)):
+        hold(f"grouped_reducescatter {i}", got, (x, p)[i].sum(0)[mine])
+
+    inplace = t(x[rank])
+    handles = [hvd.allreduce_async_(inplace, op=hvd.Sum),
+               hvd.alltoall_async(t(v[rank]), splits=table),
+               hvd.reducescatter_async(t(x[rank])),
+               hvd.grouped_allgather_async([t(ragged[rank]), t(y[rank])])]
+    deadline = time.monotonic() + 120
+    while not all(hvd.poll(h) for h in handles):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"rank {rank}: poll never saw the async "
+                                 "ops complete")
+    got = [hvd.synchronize(h) for h in handles]
+    if got[0] is not inplace:
+        raise AssertionError(f"rank {rank}: allreduce_async_ not in place")
+    hold("allreduce_async_", got[0], reduced["sum"])
+    hold("alltoall_async splits", got[1][0], sent_to_me)
+    hold("reducescatter_async", got[2], reduced["average"][mine])
+    hold("grouped_allgather_async 0", got[3][0], np.concatenate(ragged))
+    hold("grouped_allgather_async 1", got[3][1], np.concatenate(list(y)))
+
+    subsets = ([0, 1], list(range(1, n)))
+    sets = [hvd.add_process_set(s) for s in subsets]
+    for s, ps in zip(subsets, sets):
+        if rank not in s:
+            refused(f"non-member {s}", lambda: hvd.allreduce(
+                t(y[rank]), process_set=ps), "is not a member")
+            continue
+        i, k = s.index(rank), len(s)
+        part = slice(i * y.shape[1] // k, (i + 1) * y.shape[1] // k)
+        hold(f"allreduce {s}", hvd.allreduce(t(y[rank]), op=hvd.Sum,
+                                             process_set=ps), y[s].sum(0))
+        hold(f"reducescatter {s}", hvd.reducescatter(
+            t(y[rank]), op=hvd.Sum, process_set=ps), y[s].sum(0)[part])
+        hold(f"alltoall {s}", hvd.alltoall(t(y[rank]), process_set=ps),
+             np.concatenate([y[j][part] for j in s]))
+        hold(f"broadcast {s}", hvd.broadcast(t(y[rank]), root_rank=s[-1],
+                                             process_set=ps), y[s[-1]])
+        if hvd.allgather_object({"r": rank}, process_set=ps) != [
+                {"r": j} for j in s]:
+            raise AssertionError(f"rank {rank}: allgather_object on {s}")
+    if not hvd.remove_process_set(sets[0]):
+        raise AssertionError(f"rank {rank}: remove_process_set")
+    mask = np.array([float(r != 1) for r in range(n)])
+    hold("masked_average", hvd.masked_average(t(y[rank]), mask[rank]),
+         (y * mask[:, None, None]).sum(0) / mask.sum())
+    if hvd.allgather_object(rank) != list(range(n)):
+        raise AssertionError(f"rank {rank}: allgather_object")
+    hvd.barrier()
+    print(f"rank {rank}: {len(held)} results held to the numpy reference "
+          f"over {dist_backend(device)}", flush=True)
+    hvd.shutdown()
+
+
+def dist_backend(device):
+    return "nccl" if device == "cuda" else "gloo"
+
+
+def collectives(cpu):
+    import torch
+
+    n = 4 if cpu else torch.cuda.device_count()
+    if n < 2:
+        print("collectives: needs at least two cards (or --cpu)",
+              file=sys.stderr)
+        return 1
+    with socket.socket() as sock:  # a free port on this machine
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    device = "cpu" if cpu else "cuda"
+    ctx = mp.get_context("spawn")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_collectives_rank,
+                         args=(r, n, device, f"tcp://localhost:{port}"))
+             for r in range(n)]
+    for proc in procs:
+        proc.start()
+    for proc in procs:
+        proc.join(timeout=600)
+    for proc in procs:
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+    codes = [proc.exitcode for proc in procs]
+    print(f"collectives: {n} ranks over {dist_backend(device)}, exit codes "
+          f"{codes}, {time.perf_counter() - t0:.1f} s"
+          + ("" if cpu else f", cards: {_smoke().card_line()}"))
+    return 0 if codes == [0] * n else 1
+
+
 def main() -> int:
     args = sys.argv[1:]
     if args[:1] == ["_worker"] and len(args) == 3:
         _worker(args[1], args[2])
         return 0
+    if args in (["collectives"], ["collectives", "--cpu"]):
+        return collectives(args[1:] == ["--cpu"])
     import torch
 
     if not torch.cuda.is_available():

@@ -10,10 +10,11 @@ and prints no result line); each prints its seconds:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build of the hand-written CUDA kernels from ``horovod_tpu_torch/ops/csrc``
-   (one ``nvcc`` per source, all started together); none of the 42 Hopper
+   (one ``nvcc`` per source, all started together); none of the 48 Hopper
    (wgmma) instances (the bf16 and float16 forward, dQ, dK/dV, single-tile
-   forward and fused backward at D=16, 32, 64, 128, and the bf16 and
-   float16 filter gradient) may spill or have its wgmma serialized;
+   forward and fused backward at D=16, 32, 64, 128, the forward, dQ and
+   dK/dV at D=256, and the bf16 and float16 filter gradient) may spill or
+   have its wgmma serialized;
 3. kernel phase: every kernel against its plain PyTorch version on the same
    inputs, with times beside the bound and the library yardstick:
    - the multi-tile forward, dQ and dK/dV flash-attention kernels
@@ -29,6 +30,10 @@ and prints no result line); each prints its seconds:
      D=64 and D=128; bf16 at D=128; causal bf16 at D=16 and D=32; a causal
      ragged 77 x 100 case with a key offset at D=64 and at D=48, padded to
      the D=64 instance; B*H = 65,600 at S=16 in float32 and bf16);
+   - the multi-tile kernels at head dim 256: a Gemma-like layer (B*H =
+     128, S=512) in bf16 (timed beside SDPA), float16 and float32; S=128
+     with B*H = 1024 (the multi-tile route: no single-tile kernel has a
+     D=256 instance); D=200, zero-padded to 256, causal and ragged;
    - the 1x1-conv filter gradient (ResNet-50 stage-1 bottleneck 64 -> 256
      in bf16 and float16; the stride-2 projection shortcut 256 -> 512,
      timed beside its own cuBLAS call; bf16 with a ragged K and ragged
@@ -36,24 +41,36 @@ and prints no result line); each prints its seconds:
      3 -> 12 channels, zero-padded to whole 16-byte rows; a stride-2 view
      whose rows are 300 wide, past a TMA box; float32 with a ragged K); two
      calls on the same inputs must agree bit for bit;
-4. training phase: synchronous data-parallel BERT-Large training through
+4. wide-heads phase: causal bf16 attention layers at D=256 (S=512 and
+   S=128) through ``flash_attention_lse``, forward and backward: the
+   launch counters show the D=256 forward, dQ and dK/dV ran once per layer
+   and no single-tile kernel did; D=257 raises naming 256;
+5. training phase: synchronous data-parallel BERT-Large training through
    ``init`` / ``DistributedOptimizer`` / ``broadcast_parameters`` with the
    1-rank NCCL bucketed allreduce forced on, on two paths: sequence 512
    (multi-tile kernels) and sequence 128, the phase-1 pretraining length
    (single-tile kernels). Launch counters show that every attention call of
    a path went through its own kernels and none through the other route's;
-   each path is profiled;
-5. ResNet-50 phase: bench.py's headline configuration (ResNet-50, 1000
+   each path is profiled; then, at S=512, three steps with ``num_groups=4``
+   and ``HOROVOD_NONFINITE_ACTION=skip``, the second with a NaN gradient,
+   which must leave every parameter and AdamW state tensor bit for bit as
+   it was;
+6. ResNet-50 phase: bench.py's headline configuration (ResNet-50, 1000
    classes, batch 128 at 224x224, bf16 compute in ``channels_last``, SGD
    0.1 with momentum 0.9 under ``DistributedOptimizer`` with the bf16
    wire), 2 warm-up and 5 timed steps, then a profile; the loss must be
    finite and fall on the repeated batch, and none of the six kernels may
    launch (no Pallas counterpart is on this path);
-6. LeNet phase: 5 steps at 28x28x1, batch 64; the loss must fall;
-7. ``conv1x1`` phase: forward and backward of ``conv1x1`` through autograd
+7. LeNet phase: 5 steps at 28x28x1, batch 64; the loss must fall;
+8. ``conv1x1`` phase: forward and backward of ``conv1x1`` through autograd
    at the two ResNet-50 shapes, with one filter-gradient launch per
    backward, dx and dw held against the plain counterpart;
-8. agreement: the flash model against dense attention on small float32
+9. collectives phase: at world size 1 over NCCL, on BERT-Large's gradient
+   leaves (335M float32 values), reducescatter, alltoall with and without
+   splits, the grouped forms, every async form with poll and synchronize,
+   allgather_object and masked_average, each held to the one-rank result
+   and timed; ``add_process_set([0])`` must raise (the global set's ranks);
+10. agreement: the flash model against dense attention on small float32
    inputs, on each attention route; and ResNet-50 in float32 on the card
    against the CPU on the same weights (2 images at 64x64): logits in both
    modes, and the running statistics after one training-mode forward.
@@ -165,15 +182,20 @@ def time_ms(fn, reps=20, warmup=3, sleep_cycles=SLEEP_CYCLES):
 
 
 # The Hopper (wgmma) instances: the bf16 and float16 kernels of both
-# attention routes at every head dim, and the bf16 and float16 1x1-conv
-# filter gradient (the float32 kernels are named *_f32_kernel). nvcc's
-# mangled names carry the element type: 13__nv_bfloat16 or 6__half.
+# attention routes at head dims 16 to 128, the multi-tile ones also at 256,
+# and the bf16 and float16 1x1-conv filter gradient (the float32 kernels
+# are named *_f32_kernel). nvcc's mangled names carry the element type:
+# 13__nv_bfloat16 or 6__half.
 HOPPER_TYPES = {"__nv_bfloat16": "bf16", "__half": "f16"}
+MULTI_TILE_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel",
+                      "flash_dkv_kernel")
 HOPPER_INSTANCES = tuple(
-    f"{k}<{t}, {d}>" for k in ("flash_fwd_kernel", "flash_dq_kernel",
-                               "flash_dkv_kernel", "flash_fwd_single_kernel",
-                               "flash_dqkv_kernel")
+    f"{k}<{t}, {d}>"
+    for k in MULTI_TILE_KERNELS + ("flash_fwd_single_kernel",
+                                   "flash_dqkv_kernel")
     for t in HOPPER_TYPES.values() for d in (16, 32, 64, 128)) + tuple(
+        f"{k}<{t}, 256>" for k in MULTI_TILE_KERNELS
+        for t in HOPPER_TYPES.values()) + tuple(
         f"dw_1x1_kernel<{t}>" for t in HOPPER_TYPES.values())
 _HOPPER_NAME = re.compile(
     r"(flash_(?:fwd_single|fwd|dqkv|dq|dkv)_kernel)I\d+(__nv_bfloat16|__half)"
@@ -318,7 +340,8 @@ def _timing(kern, plain, bounds, library_ms):
 
 def kernel_phase():
     """Hold each flash-attention kernel against its plain version; return
-    the timed cases' measurements keyed by kernel name."""
+    the timed cases' measurements keyed by kernel name (``flash_*_d256``
+    for the D = 256 instances)."""
     import torch
     import torch.nn.functional as F
 
@@ -329,8 +352,10 @@ def kernel_phase():
     cases = [
         # name, B, H, Sq, Sk, D, dtype, causal, q_offset, k_offset, g_lse,
         # timing ("json": timed, with the library yardstick, into the
-        # kernels line; "ms": time printed; "": not timed). Sq, Sk <=
-        # A.SINGLE_TILE_MAX take the single-tile kernels.
+        # kernels line; "d256": the same as flash_*_d256; "sdpa": timed
+        # beside the library, printed; "ms": time printed; "": not timed).
+        # A.single_tile_route picks the route: Sq, Sk <=
+        # A.SINGLE_TILE_MAX and D <= 128 take the single-tile kernels.
         ("bert_large_bf16", b512, 16, s512, s512, 64, bf16, False, 0, 0,
          False, "json"),
         ("causal_ragged_bf16", 2, 3, 200, 264, 64, bf16, True, 0, 40, True,
@@ -387,12 +412,35 @@ def kernel_phase():
          True, "ms"),
         ("bh65600_single_bf16", 65600, 1, 16, 16, 16, bf16, False, 0, 0,
          True, "ms"),
+        # Head dim 256 (instances for D = 129 to 256, multi-tile route
+        # only): a Gemma-like attention layer (8 sequences of 512, 16 heads
+        # of 256; B*H = 128), timed beside SDPA ("d256": into the kernels
+        # line as flash_*_d256); S = 128 with B*H = 1024, which takes the
+        # multi-tile kernels too; D = 200 zero-padded to 256, causal and
+        # ragged; each in bf16, float16 and float32.
+        ("gemma_d256_bf16", 8, 16, 512, 512, 256, bf16, False, 0, 0, False,
+         "d256"),
+        ("gemma_d256_f16", 8, 16, 512, 512, 256, f16, False, 0, 0, False,
+         "ms"),
+        ("gemma_d256_float32", 8, 16, 512, 512, 256, f32, True, 0, 0, True,
+         ""),
+        ("d256_s128_bf16", 64, 16, 128, 128, 256, bf16, False, 0, 0, False,
+         "sdpa"),
+        ("d256_s128_f16", 64, 16, 128, 128, 256, f16, True, 0, 0, True, ""),
+        ("d256_s128_float32", 8, 16, 128, 128, 256, f32, False, 0, 0, True,
+         ""),
+        ("d200_causal_ragged_bf16", 2, 3, 200, 264, 200, bf16, True, 0, 40,
+         True, "ms"),
+        ("d200_causal_ragged_f16", 2, 3, 200, 264, 200, f16, True, 0, 40,
+         True, ""),
+        ("d200_causal_ragged_float32", 2, 3, 200, 264, 200, f32, True, 0, 40,
+         True, ""),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
     measured = {}
     for (case, B, H, Sq, Sk, D, dtype, causal, qo, ko, with_glse,
          timing) in cases:
-        timed = timing == "json"
+        timed = timing in ("json", "d256", "sdpa")
         BH = B * H
         dname = str(dtype).split(".")[-1]
 
@@ -408,7 +456,7 @@ def kernel_phase():
                 else torch.zeros(BH, Sq, device="cuda"))
         bwd_args = (q, k, v, do, lse_ref, delta, glse, causal, qo, ko)
         fwd_args = (q, k, v, causal, qo, ko)
-        if Sq <= A.SINGLE_TILE_MAX and Sk <= A.SINGLE_TILE_MAX:
+        if A.single_tile_route(Sq, Sk, D):
             runs = {
                 "flash_fwd_single": (
                     lambda: A.flash_fwd_single(*fwd_args),
@@ -459,7 +507,9 @@ def kernel_phase():
                     kern, plain,
                     _bounds(name, BH, Sq, Sk, D, dname, causal, qo, ko),
                     library.get(name))
-                measured[name] = dict(max_abs_err=err, **numbers)
+                if timing != "sdpa":
+                    key = name if timing == "json" else f"{name}_d256"
+                    measured[key] = dict(max_abs_err=err, **numbers)
                 line += text
             elif timing == "ms":
                 bounds = _bounds(name, BH, Sq, Sk, D, dname, causal, qo, ko)
@@ -467,7 +517,7 @@ def kernel_phase():
                          f"({bounds[1]}; {bounds[2] / 1e9:.2f} GFLOP, "
                          f"{bounds[3] / 1e6:.1f} MB)")
             print(line)
-        if timed and "flash_dqkv" in runs:
+        if timing == "json" and "flash_dqkv" in runs:
             # The other route on the same inputs: what the single-tile
             # kernels save over the multi-tile ones at this shape.
             fwd_ms = time_ms(lambda: A.flash_fwd(*fwd_args))
@@ -883,6 +933,246 @@ def profile_steps(path, step, batch, card, step_ms, n=2):
           f"the step took {wall_ms / n:.2f} ms) on {card}")
 
 
+# The head-dim-256 path: a Gemma-like stack of attention layers (8
+# sequences of 512, 16 heads of 256) through flash_attention_lse, forward
+# and backward, then the same at S = 128 (64 sequences), which takes the
+# multi-tile kernels too.
+WIDE_LAYERS = 4
+WIDE_SHAPES = ((8, 16, 512, 256), (64, 16, 128, 256))
+
+
+def wide_heads_phase():
+    """Head dims above 128 through the entry point: each layer launches the
+    D = 256 forward, dQ and dK/dV once and no single-tile kernel; the
+    outputs are finite and D = 257 raises naming 256. Returns the launch
+    counts of this path."""
+    import torch
+
+    from horovod_tpu_torch.ops import _kernels
+    from horovod_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    layers = [[torch.randn(B, H, S, D, generator=gen, device="cuda",
+                           dtype=torch.bfloat16).requires_grad_()
+               for _ in range(3)]
+              for B, H, S, D in WIDE_SHAPES for _ in range(WIDE_LAYERS)]
+    for k in _kernels.KERNELS:
+        k.launches = 0
+    for q, k, v in layers:
+        out, lse = A.flash_attention_lse(q, k, v, causal=True)
+        (out.float().square().sum() + lse.sum()).backward()
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in _kernels.KERNELS}
+    want = len(layers)
+    if launches != {"flash_fwd": want, "flash_dq": want, "flash_dkv": want,
+                    "flash_fwd_single": 0, "flash_dqkv": 0, "dw_1x1": 0}:
+        raise AssertionError(f"wide heads: launches {launches}; expected "
+                             f"{want} of each multi-tile kernel and no other")
+    for q, k, v in layers:
+        if not all(torch.isfinite(t.grad).all() for t in (q, k, v)):
+            raise AssertionError("wide heads: non-finite gradients")
+    t = torch.zeros(1, 1, 16, 257, device="cuda", dtype=torch.bfloat16)
+    try:
+        A.flash_attention(t, t, t)
+    except ValueError as e:
+        if "256" not in str(e):
+            raise
+        refusal = str(e)
+    else:
+        raise AssertionError("wide heads: D = 257 did not raise")
+    print(f"wide heads: {len(layers)} causal bf16 attention layers at "
+          f"{WIDE_SHAPES} (B, H, S, D) through flash_attention_lse, forward "
+          f"and backward: launches {launches}; D = 257 raised: {refusal}")
+    return {f"{k}_d256": n for k, n in launches.items()
+            if k in ("flash_fwd", "flash_dq", "flash_dkv")}
+
+
+def collectives_phase(card):
+    """Every eager collective, async form and helper at world size 1 over
+    NCCL, on BERT-Large's gradient leaves (full width, float32), each held
+    to what a one-rank world returns, each timed."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import bert as bert_mod
+
+    with torch.device("meta"):
+        shapes = [p.shape for p in
+                  bert_mod.Bert(bert_mod.BERT_LARGE).parameters()]
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    grads = [torch.randn(s, generator=gen, device="cuda") for s in shapes]
+    numel = sum(g.numel() for g in grads)
+    big = max(grads, key=lambda g: g.numel())
+
+    def same(name, got, want):
+        got, want = list(got), list(want)
+        if len(got) != len(want) or not all(
+                torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"collectives {name}: differs from the "
+                                 "one-rank result")
+
+    def timed(name, fn):
+        print(f"collective {name}: {time_ms(fn, reps=5, warmup=1):.3f} ms "
+              f"on {card}")
+
+    for op in (hvd.Average, hvd.Sum, hvd.Min, hvd.Max, hvd.Product):
+        same(f"reducescatter {op}",
+             hvd.grouped_reducescatter(grads, op=op, prescale_factor=2.0,
+                                       postscale_factor=0.5), grads)
+    timed(f"grouped_reducescatter of {len(grads)} leaves ({numel} values)",
+          lambda: hvd.grouped_reducescatter(grads))
+    same("alltoall", [hvd.alltoall(g) for g in grads], grads)
+    timed("alltoall of each leaf", lambda: [hvd.alltoall(g) for g in grads])
+    pairs = [hvd.alltoall(g, splits=[g.shape[0]]) for g in grads]
+    same("alltoall with splits", [o for o, _ in pairs], grads)
+    if any(r.tolist() != [g.shape[0]] for (_, r), g in zip(pairs, grads)):
+        raise AssertionError("collectives alltoall: received splits")
+    timed("alltoall with splits of each leaf",
+          lambda: [hvd.alltoall(g, splits=[g.shape[0]]) for g in grads])
+    same("grouped_allgather", hvd.grouped_allgather(grads), grads)
+    timed("grouped_allgather", lambda: hvd.grouped_allgather(grads))
+    timed("grouped_allreduce", lambda: hvd.grouped_allreduce(grads))
+
+    inplace = big.clone()
+    handles = {
+        "allreduce_async_": (hvd.allreduce_async_(inplace, op=hvd.Sum),
+                             inplace),
+        "allreduce_async": (hvd.allreduce_async(big), big),
+        "allgather_async": (hvd.allgather_async(big), big),
+        "broadcast_async": (hvd.broadcast_async(big, root_rank=0), big),
+        "broadcast_async_": (hvd.broadcast_async_(big.clone(), 0), big),
+        "alltoall_async": (hvd.alltoall_async(big), big),
+        "reducescatter_async": (hvd.reducescatter_async(big), big),
+        "grouped_allreduce_async": (hvd.grouped_allreduce_async(grads),
+                                    grads),
+        "grouped_allgather_async": (hvd.grouped_allgather_async(grads),
+                                    grads),
+        "grouped_reducescatter_async": (
+            hvd.grouped_reducescatter_async(grads), grads),
+    }
+    splits_handle = hvd.alltoall_async(big, splits=[big.shape[0]])
+    deadline = time.monotonic() + 60
+    while not all(hvd.poll(h) for h in [splits_handle, *(
+            h for h, _ in handles.values())]):
+        if time.monotonic() > deadline:
+            raise AssertionError("collectives: poll never saw the async "
+                                 "ops complete")
+    for name, (h, want) in handles.items():
+        got = hvd.synchronize(h)
+        if name == "allreduce_async_" and got is not inplace:
+            raise AssertionError("collectives allreduce_async_: not in place")
+        same(name, got if isinstance(got, list) else [got],
+             want if isinstance(want, list) else [want])
+    out, received = hvd.synchronize(splits_handle)
+    same("alltoall_async with splits", [out], [big])
+    if received.tolist() != [big.shape[0]]:
+        raise AssertionError("collectives alltoall_async: received splits")
+    try:
+        hvd.synchronize(handles["allreduce_async"][0])
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("collectives: a synchronized handle was known")
+    timed("allreduce_async + synchronize of the largest leaf",
+          lambda: hvd.synchronize(hvd.allreduce_async(big)))
+    timed("grouped_allreduce_async + poll + synchronize",
+          lambda: (lambda h: (hvd.poll(h), hvd.synchronize(h)))(
+              hvd.grouped_allreduce_async(grads)))
+
+    obj = {"rank": hvd.rank(), "shapes": [tuple(s) for s in shapes[:3]]}
+    if hvd.allgather_object(obj) != [obj]:
+        raise AssertionError("collectives allgather_object")
+    timed("allgather_object", lambda: hvd.allgather_object(obj))
+    same("masked_average", [hvd.masked_average(big, 1.0),
+                            hvd.masked_average(big, 0.0)],
+         [big, torch.zeros_like(big)])
+    timed("masked_average of every leaf",
+          lambda: hvd.masked_average(grads, 1.0))
+    try:
+        hvd.add_process_set([0])
+    except ValueError as e:
+        dup = str(e)
+    else:
+        raise AssertionError("add_process_set([0]) did not raise on a "
+                             "one-rank world")
+    print(f"collectives: world size {hvd.size()} over NCCL, "
+          f"{len(grads)} BERT-Large gradient leaves ({numel} float32 "
+          "values): reducescatter (5 ops, scaled), alltoall with and "
+          "without splits, grouped forms, 11 async forms with poll and "
+          "synchronize, allgather_object and masked_average equal to the "
+          f"one-rank results; add_process_set([0]) raised: {dup}")
+
+
+def guarded_phase(card):
+    """BERT-Large S = 512 with num_groups=4 and HOROVOD_NONFINITE_ACTION=
+    skip: three steps, the second with a NaN gradient; after it every
+    parameter and AdamW state tensor equals its value before, bit for bit,
+    and the third (clean) step moves them."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import bert as bert_mod
+
+    name, batch_size, seq, predictions, _ = BERT_PATHS[0]
+    dev = hvd.device()
+    cfg = dataclasses.replace(bert_mod.BERT_LARGE, dropout_rate=0.0)
+    torch.manual_seed(0)
+    with torch.device(dev):
+        model = bert_mod.Bert(cfg, attention_fn=bert_mod.flash_attention_fn)
+    params = list(model.parameters())
+    os.environ["HOROVOD_NONFINITE_ACTION"] = "skip"
+    try:
+        opt = hvd.DistributedOptimizer(
+            torch.optim.AdamW(params, lr=1e-4, weight_decay=1e-4),
+            compression=hvd.Compression.bf16, num_groups=4)
+    finally:
+        del os.environ["HOROVOD_NONFINITE_ACTION"]
+    poison = {"on": False}
+    hook = params[5].register_hook(
+        lambda g: torch.full_like(g, float("nan")) if poison["on"] else g)
+    step = hvd.make_train_step(model, _bert_loss, opt)
+    batch = _bert_batch(cfg, batch_size, seq, predictions, 0, dev)
+
+    def snapshot():
+        state = [v for p in params for v in opt.state[p].values()
+                 if torch.is_tensor(v)]
+        return [t.detach().clone() for t in params + state]
+
+    losses = [float(step(batch))]
+    before = snapshot()
+    poison["on"] = True
+    losses.append(float(step(batch)))
+    poison["on"] = False
+    held = snapshot()
+    losses.append(float(step(batch)))
+    torch.cuda.synchronize()
+    after = snapshot()
+    if not all(torch.equal(a, b) for a, b in zip(before, held)):
+        raise AssertionError("guarded: the skipped step changed a parameter "
+                             "or an AdamW state tensor")
+    if all(torch.equal(a, b) for a, b in zip(held, after)):
+        raise AssertionError("guarded: the clean step after the skip moved "
+                             "nothing")
+    if opt.nonfinite_steps != 1 or not math.isfinite(losses[2]):
+        raise AssertionError(f"guarded: {opt.nonfinite_steps} detections, "
+                             f"losses {losses}")
+    print(f"guarded {name}: num_groups=4 gives {len(opt._buckets)} "
+          f"allreduce buckets per step (bf16 wire; "
+          f"{sum(len(b) for b in opt._buckets)} leaves); "
+          f"HOROVOD_NONFINITE_ACTION=skip with a NaN gradient on step 2: "
+          f"{len(before)} parameter and AdamW state tensors equal bit for bit "
+          f"after it, moved by step 3; losses {[round(x, 4) for x in losses]} "
+          f"on {card}")
+    hook.remove()
+    opt.remove_hooks()
+    del model, opt, step, batch, before, held, after
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def agreement_phase(seq, kernels):
     """The flash model against the same weights with dense attention on a
     small float32 input of ``seq`` tokens: logits, loss and every parameter
@@ -1015,6 +1305,7 @@ def main() -> int:
     _phase("build", build_phase)
     measured = _phase("kernels", kernel_phase)
     measured.update(_phase("dw_kernels", dw_kernel_phase))
+    launches = _phase("wide_heads", wide_heads_phase)
     # A one-rank world would short-circuit the wire; force the bf16 casts,
     # the bucket packing and the NCCL allreduce to run.
     os.environ["HOROVOD_FORCE_WIRE_MACHINERY"] = "1"
@@ -1022,23 +1313,28 @@ def main() -> int:
     from horovod_tpu_torch.ops import _kernels
 
     hvd.init()
-    launches = {}
     for path in BERT_PATHS:
         counts = _phase(path[0], training_phase, card, path)
         launches.update({k: counts[k] for k in path[4]})
+    _phase("guarded", guarded_phase, card)
     _phase("resnet50", resnet_phase, card)
     _phase("lenet", lenet_phase, card)
     launches["dw_1x1"] = _phase("conv1x1", conv_phase, card)
+    _phase("collectives", collectives_phase, card)
     _phase("agree", agreement_phase, 96, ("flash_fwd_single", "flash_dqkv"))
     _phase("agree", agreement_phase, 160,
            ("flash_fwd", "flash_dq", "flash_dkv"))
     _phase("agree_resnet50", resnet_agreement_phase)
     print(f"phase all: {time.perf_counter() - t_start:.1f} s")
 
-    kernels = [dict(name=k.name, route="cuda",
+    # Each kernel, then the D = 256 instances of the multi-tile three.
+    rows = [(k.name, k) for k in _kernels.KERNELS] + [
+        (f"{k.name}_d256", k)
+        for k in (_kernels.FLASH_FWD, _kernels.FLASH_DQ, _kernels.FLASH_DKV)]
+    kernels = [dict(name=name, route="cuda",
                     source=f"horovod_tpu_torch/ops/csrc/{k.source}",
-                    replaces=k.replaces, launches=launches[k.name],
-                    **measured[k.name]) for k in _kernels.KERNELS]
+                    replaces=k.replaces, launches=launches[name],
+                    **measured[name]) for name, k in rows]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     hvd.shutdown()

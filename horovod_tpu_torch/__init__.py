@@ -1,35 +1,56 @@
 """horovod_tpu_torch: the PyTorch/CUDA port of horovod_tpu.
 
 Synchronous data-parallel training on NVIDIA GPUs, with the JAX package's
-semantics: ``init()``, eager collectives, a ``DistributedOptimizer`` that
-averages gradients with a bucketed allreduce during backward, and
-``broadcast_parameters``. The flash-attention kernels that the JAX package
-wrote in Pallas for the TPU are hand-written CUDA kernels for Hopper here
-(``ops/csrc``). Imports torch, never jax or ``horovod_tpu``.
+semantics: ``init()``, eager collectives (sync and async, on the world or
+on process sets), a ``DistributedOptimizer`` that averages gradients with
+a bucketed allreduce during backward, and ``broadcast_parameters``. The
+flash-attention kernels that the JAX package wrote in Pallas for the TPU
+are hand-written CUDA kernels for Hopper here (``ops/csrc``). Imports
+torch, never jax or ``horovod_tpu``.
 
 Entry points run on the card unless the caller asks for the CPU
 (``init(device="cpu")``, which forms a gloo world).
 """
 
-from .basics import (device, init, is_initialized, local_rank, local_size,
-                     rank, shutdown, size)
+from .basics import (ccl_built, cross_rank, cross_size, cuda_built,
+                     ddl_built, device, gloo_built, gloo_enabled, init,
+                     is_homogeneous, is_initialized, local_rank, local_size,
+                     mpi_built, mpi_enabled, mpi_threads_supported,
+                     nccl_built, process_count, process_rank, rank,
+                     rocm_built, shutdown, size)
 from .compression import Compression
 from .exceptions import HorovodInternalError, HorovodTpuError, NotInitializedError
-from .functions import (broadcast_object, broadcast_optimizer_state,
-                        broadcast_parameters)
-from .ops.collective_ops import (Average, Max, Min, Product, Sum, allgather,
-                                 allreduce, barrier, broadcast,
-                                 grouped_allreduce)
+from .functions import (allgather_object, broadcast_object,
+                        broadcast_optimizer_state, broadcast_parameters,
+                        masked_average)
+from .ops.collective_ops import (
+    Average, Max, Min, Product, Sum, allgather, allgather_async, allreduce,
+    allreduce_async, allreduce_async_, alltoall, alltoall_async, barrier,
+    broadcast, broadcast_async, broadcast_async_, grouped_allgather,
+    grouped_allgather_async, grouped_allreduce, grouped_allreduce_async,
+    grouped_reducescatter, grouped_reducescatter_async, poll, reducescatter,
+    reducescatter_async, synchronize)
 from .optimizer import DistributedOptimizer, resolve_sync_mode
 from .parallel.data_parallel import make_train_step
-from .process_sets import ProcessSet, global_process_set
+from .process_sets import (ProcessSet, add_process_set, get_process_set_ids,
+                           global_process_set, remove_process_set)
 
 __all__ = [
     "init", "shutdown", "is_initialized", "rank", "size", "local_rank",
-    "local_size", "device", "Compression", "HorovodTpuError",
-    "HorovodInternalError", "NotInitializedError", "broadcast_object",
-    "broadcast_optimizer_state", "broadcast_parameters", "Average", "Sum",
-    "Min", "Max", "Product", "allreduce", "grouped_allreduce", "allgather",
-    "broadcast", "barrier", "DistributedOptimizer", "resolve_sync_mode",
+    "local_size", "cross_rank", "cross_size", "process_rank",
+    "process_count", "is_homogeneous", "device", "mpi_enabled", "mpi_built",
+    "mpi_threads_supported", "gloo_enabled", "gloo_built", "nccl_built",
+    "cuda_built", "rocm_built", "ddl_built", "ccl_built", "Compression",
+    "HorovodTpuError", "HorovodInternalError", "NotInitializedError",
+    "allgather_object", "broadcast_object", "broadcast_optimizer_state",
+    "broadcast_parameters", "masked_average", "Average", "Sum", "Min", "Max",
+    "Product", "allreduce", "allreduce_async", "allreduce_async_",
+    "grouped_allreduce", "grouped_allreduce_async", "allgather",
+    "allgather_async", "grouped_allgather", "grouped_allgather_async",
+    "broadcast", "broadcast_async", "broadcast_async_", "alltoall",
+    "alltoall_async", "reducescatter", "reducescatter_async",
+    "grouped_reducescatter", "grouped_reducescatter_async", "synchronize",
+    "poll", "barrier", "DistributedOptimizer", "resolve_sync_mode",
     "make_train_step", "ProcessSet", "global_process_set",
+    "add_process_set", "remove_process_set", "get_process_set_ids",
 ]

@@ -1,12 +1,13 @@
 """Lifecycle and world facts: ``init()``, ``rank()``, ``size()``, ...
 
-Port of ``horovod_tpu/basics.py`` (``init`` :175, ``shutdown`` :218) to
-``torch.distributed``. One process drives one device, as in the
-reference Horovod: the world facts come from the launcher's env contract
-(``HOROVOD_NUM_PROCESSES``, ``HOROVOD_PROCESS_ID``, ``HOROVOD_LOCAL_RANK``,
-``HOROVOD_LOCAL_SIZE``; ``horovod_tpu/process_world.py``), and the
-collectives run over NCCL on the card, or over gloo when the caller asks
-for the CPU.
+Port of ``horovod_tpu/basics.py`` (``init`` :175, ``shutdown`` :218, the
+world facts and build flags :330-421) to ``torch.distributed``. One
+process drives one device, as in the reference Horovod: the world facts
+come from the launcher's env contract (``HOROVOD_NUM_PROCESSES``,
+``HOROVOD_PROCESS_ID``, ``HOROVOD_LOCAL_RANK``, ``HOROVOD_LOCAL_SIZE``,
+``HOROVOD_CROSS_RANK``, ``HOROVOD_CROSS_SIZE``;
+``horovod_tpu/process_world.py``), and the collectives run over NCCL on
+the card, or over gloo when the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ class _State:
         self.size = 1
         self.local_rank = 0
         self.local_size = 1
+        self.cross_rank = 0
+        self.cross_size = 1
         self.device: torch.device | None = None
 
     def require_init(self) -> "_State":
@@ -102,6 +105,12 @@ def init(device=None, init_method: str | None = None) -> None:
             owns = True
         _state.rank, _state.size = rank, size
         _state.local_rank, _state.local_size = local_rank, local_size
+        # Hosts: the launcher's numbers, else hosts of local_size ranks each
+        # in rank order.
+        _state.cross_rank = env.get_int(env.CROSS_RANK,
+                                        rank // max(local_size, 1))
+        _state.cross_size = env.get_int(env.CROSS_SIZE,
+                                        -(-size // max(local_size, 1)))
         _state.device = device
         _state.owns_group = owns
         _state.initialized = True
@@ -146,3 +155,73 @@ def local_size() -> int:
 def device() -> torch.device:
     """The device this rank's collectives and tensors run on."""
     return _state.require_init().device
+
+
+def cross_rank() -> int:
+    """This rank's host index."""
+    return _state.require_init().cross_rank
+
+
+def cross_size() -> int:
+    """Number of hosts."""
+    return _state.require_init().cross_size
+
+
+def process_rank() -> int:
+    """This process's index (one process per device: the rank)."""
+    return _state.require_init().rank
+
+
+def process_count() -> int:
+    """Number of processes (one per device: the world size)."""
+    return _state.require_init().size
+
+
+def is_homogeneous() -> bool:
+    """True if every host has the same number of local ranks."""
+    st = _state.require_init()
+    return st.size == st.local_size * st.cross_size
+
+
+# -- Build and capability flags (parity: HorovodBasics' *_built / *_enabled),
+# answered for this build: torch.distributed's NCCL and gloo backends, no MPI.
+
+
+def mpi_enabled() -> bool:
+    return False
+
+
+def mpi_built() -> bool:
+    return False
+
+
+def mpi_threads_supported() -> bool:
+    return False
+
+
+def gloo_enabled() -> bool:
+    return dist.is_gloo_available()
+
+
+def gloo_built() -> bool:
+    return dist.is_gloo_available()
+
+
+def nccl_built() -> bool:
+    return dist.is_nccl_available()
+
+
+def cuda_built() -> bool:
+    return torch.version.cuda is not None
+
+
+def rocm_built() -> bool:
+    return torch.version.hip is not None
+
+
+def ddl_built() -> bool:
+    return False
+
+
+def ccl_built() -> bool:
+    return False

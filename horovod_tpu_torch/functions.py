@@ -1,18 +1,22 @@
-"""State-sync helpers: push rank-root's state to every rank at (re)start.
+"""State-sync helpers: push rank-root's state to every rank at (re)start,
+gather objects, and average over the ranks that have data.
 
 Port of ``horovod_tpu/functions.py``: ``broadcast_parameters`` (:30),
-``broadcast_optimizer_state`` (:46) and ``broadcast_object`` (:52).
-One-process worlds return at once, as in the JAX package.
+``broadcast_optimizer_state`` (:46), ``broadcast_object`` (:52),
+``allgather_object`` (:99) and ``masked_average`` (:180). One-process
+worlds return at once from the broadcasts, as in the JAX package.
 """
 
 from __future__ import annotations
 
+import pickle
 from typing import Any
 
 import torch
 import torch.distributed as dist
 
 from . import basics
+from .ops.collective_ops import Sum, _resolve_process_set, allgather, allreduce
 
 
 def _check_root(root_rank: int) -> None:
@@ -60,3 +64,52 @@ def broadcast_optimizer_state(optimizer, root_rank: int = 0) -> None:
         return
     optimizer.load_state_dict(
         broadcast_object(optimizer.state_dict(), root_rank))
+
+
+def allgather_object(obj: Any, process_set=None,
+                     name: str | None = None) -> list:
+    """One picklable object per rank of the set, gathered into a list in
+    set-rank order on every member: each rank's pickle is a byte tensor
+    through the ragged :func:`allgather`, beside an allgather of the
+    pickles' sizes."""
+    del name
+    ps = _resolve_process_set(process_set)
+    dev = basics.device()
+    payload = torch.frombuffer(bytearray(pickle.dumps(obj)),
+                               dtype=torch.uint8).to(dev)
+    sizes = allgather(torch.tensor([payload.numel()], dtype=torch.int64,
+                                   device=dev), process_set=ps).tolist()
+    data = allgather(payload, process_set=ps).cpu()
+    out, offset = [], 0
+    for n in sizes:
+        out.append(pickle.loads(data[offset:offset + n].numpy().tobytes()))
+        offset += n
+    return out
+
+
+def masked_average(value, mask, process_set=None):
+    """Mean of ``value`` over the ranks whose ``mask`` is nonzero:
+    ``allreduce(value * mask, Sum) / max(allreduce(mask, Sum), 1)``.
+
+    The per-process form of the reference's traced idiom: a rank that has
+    run out of data passes ``mask=0`` and contributes nothing. ``value``
+    is a tensor or a list, tuple or dict of tensors; each leaf keeps its
+    dtype. The count sums in float32 (exact to 2^24 ranks), each leaf in
+    float32 (float64 for float64 leaves), as the reference does.
+    """
+    ps = _resolve_process_set(process_set)
+    mask = torch.as_tensor(mask, device=basics.device())
+    count = allreduce(mask.to(torch.float32), op=Sum, process_set=ps)
+    safe = torch.clamp(count, min=1.0)
+
+    def one(v):
+        acc = torch.float64 if v.dtype == torch.float64 else torch.float32
+        num = allreduce((v * mask.to(v.dtype)).to(acc), op=Sum,
+                        process_set=ps)
+        return (num / safe.to(acc)).to(v.dtype)
+
+    if isinstance(value, dict):
+        return {k: one(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return type(value)(one(v) for v in value)
+    return one(value)

@@ -10,28 +10,40 @@ the public functions, as in the JAX package. Semantics are the same:
 - Causal masking uses global positions ``q_offset + i >= k_offset + j``;
   causal attention with ``Sq != Sk`` and both offsets 0 raises.
 
-Two routes, chosen once per call from the sequence lengths:
+Two routes, chosen once per call from the sequence lengths and the head
+dim (:func:`single_tile_route`):
 
-- ``Sq <= SINGLE_TILE_MAX and Sk <= SINGLE_TILE_MAX``: the single-tile
-  forward (direct softmax) and the fused backward that computes
-  S -> P -> dP -> dS once and writes dQ, dK and dV
+- ``Sq <= SINGLE_TILE_MAX and Sk <= SINGLE_TILE_MAX`` and ``D <= 128``:
+  the single-tile forward (direct softmax) and the fused backward that
+  computes S -> P -> dP -> dS once and writes dQ, dK and dV
   (``csrc/flash_attention_single.cu``);
 - otherwise the multi-tile forward (online softmax), dQ and dK/dV kernels
-  (``csrc/flash_attention.cu``).
+  (``csrc/flash_attention.cu``). Head dims 129 to 256 take this route at
+  every sequence length: the single-tile kernels have no D = 256 instance,
+  and the multi-tile ones mask rows and keys past the end, so short
+  sequences are right there too.
 
 Both routes compute one function. Each kernel has a wrapper here that
 launches the hand-written CUDA kernel for CUDA tensors and computes the
 plain PyTorch version beside it for CPU tensors. The plain versions
 (``*_plain``) are also what the kernels are held against on the card. Tile
 sizes are the kernels' own choice, so any sequence length and any number of
-heads works; the TPU kernels' block-divisibility rule does not apply.
+heads works; the TPU kernels' block-divisibility rule does not apply. The
+JAX package picks its route by its own blocks (``_auto_block``): it runs
+S = 512 as one tile, which the port splits, and a head dim above 128 on
+its single-tile kernels where the sequence fits one block. The two
+packages agree in value, not in route.
 
 The kernels take float32, bfloat16 and float16, with instances at head dims
-16, 32, 64 and 128. A head dim between those goes to the next instance
-(:func:`kernel_head_dim`): q, k, v and dO are zero-padded to it, the scale
-stays ``1/sqrt(D)`` of the true D, and the outputs are sliced back
-(:func:`padded_heads`). A head dim above 128 raises: no instance of that
-width fits the Hopper kernels' shared memory yet.
+16, 32, 64 and 128 on both routes and 256 on the multi-tile route
+(:data:`KERNEL_HEAD_DIMS`, :data:`SINGLE_TILE_HEAD_DIMS`). A head dim
+between those goes to the next instance (:func:`kernel_head_dim`): q, k, v
+and dO are zero-padded to it, the scale stays ``1/sqrt(D)`` of the true D,
+and the outputs are sliced back (:func:`padded_heads`). A head dim above
+256 raises, on every device: the outputs' accumulators of a wider instance
+would not fit the Hopper kernels' registers. (The design that would lift
+the limit: outputs in column slices of at most 256, each pass recomputing
+the scores, with the contractions streamed over all of D.)
 """
 
 from __future__ import annotations
@@ -54,8 +66,17 @@ SINGLE_TILE_MAX = 128
 _KERNEL_DTYPES = {torch.float32: _kernels.DTYPE_F32,
                   torch.bfloat16: _kernels.DTYPE_BF16,
                   torch.float16: _kernels.DTYPE_F16}
-# Head dims of the kernels' instances, every dtype.
-KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+# Head dims of the kernels' instances, every dtype: the multi-tile kernels,
+# and the single-tile ones.
+KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
+SINGLE_TILE_HEAD_DIMS = (16, 32, 64, 128)
+
+
+def single_tile_route(Sq: int, Sk: int, D: int) -> bool:
+    """Whether attention of ``Sq`` rows over ``Sk`` keys at head dim ``D``
+    takes the single-tile kernels (else the multi-tile ones)."""
+    return (Sq <= SINGLE_TILE_MAX and Sk <= SINGLE_TILE_MAX
+            and D <= SINGLE_TILE_HEAD_DIMS[-1])
 
 
 def _attend_block(q, k, v, m, l, o, mask=None, scale=1.0):
@@ -206,29 +227,31 @@ def flash_dqkv_plain(q, k, v, do, lse, delta, glse, causal=False, q_offset=0,
 # ---------------------------------------------------------------------------
 
 
-def kernel_head_dim(D: int) -> int:
+def kernel_head_dim(D: int, dims=KERNEL_HEAD_DIMS) -> int:
     """The head dim of the kernel instance that computes head dim ``D``: the
-    smallest of :data:`KERNEL_HEAD_DIMS` that is at least ``D``."""
-    for d in KERNEL_HEAD_DIMS:
+    smallest of ``dims`` (a route's instances, :data:`KERNEL_HEAD_DIMS` or
+    :data:`SINGLE_TILE_HEAD_DIMS`) that is at least ``D``."""
+    for d in dims:
         if 1 <= D <= d:
             return d
     raise ValueError(
-        f"flash attention kernels take head dims 1 to {KERNEL_HEAD_DIMS[-1]} "
-        f"(instances at {KERNEL_HEAD_DIMS}; a dim between them is "
-        f"zero-padded to the next); got {D}: a wider instance would not fit "
-        "the Hopper kernels' shared memory")
+        f"flash attention kernels take head dims 1 to {dims[-1]} "
+        f"(instances at {dims}; a dim between them is zero-padded to the "
+        f"next); got {D}: the output accumulators of a wider instance would "
+        "not fit the Hopper kernels' registers")
 
 
-def padded_heads(fn, seq, rows, causal, q_offset, k_offset):
+def padded_heads(fn, seq, rows, causal, q_offset, k_offset,
+                 dims=KERNEL_HEAD_DIMS):
     """``fn(*seq, *rows, causal, q_offset, k_offset, scale)`` at the kernel
     instance's head dim: the [BH, S, D] operands ``seq`` are zero-padded
-    from D to :func:`kernel_head_dim` (D), ``scale`` is ``1/sqrt(D)`` of the
-    true D, and [BH, S, D'] outputs are sliced back to D (contiguous). The
-    padded columns add exact zeros to every dot product, so the scores, lse,
-    P and dS are those of the unpadded operands; ``rows`` ([BH, S] vectors)
-    pass as they are."""
+    from D to :func:`kernel_head_dim` (D, dims), ``scale`` is ``1/sqrt(D)``
+    of the true D, and [BH, S, D'] outputs are sliced back to D
+    (contiguous). The padded columns add exact zeros to every dot product,
+    so the scores, lse, P and dS are those of the unpadded operands;
+    ``rows`` ([BH, S] vectors) pass as they are."""
     D = seq[0].shape[-1]
-    Dk = kernel_head_dim(D)
+    Dk = kernel_head_dim(D, dims)
     if Dk != D:
         seq = [torch.nn.functional.pad(t, (0, Dk - D)) for t in seq]
     out = fn(*seq, *rows, causal, q_offset, k_offset, 1.0 / math.sqrt(D))
@@ -241,9 +264,11 @@ def padded_heads(fn, seq, rows, causal, q_offset, k_offset):
     return tuple(back(t) for t in out) if isinstance(out, tuple) else back(out)
 
 
-def _check_kernel_operands(seq_tensors, row_tensors=()):
-    """Validate [BH, S, D] operands and [BH, S] fp32 row vectors for a
-    kernel launch on the card; return (dtype code, BH, D)."""
+def _check_kernel_operands(seq_tensors, row_tensors=(),
+                           dims=KERNEL_HEAD_DIMS):
+    """Validate [BH, S, D] operands (D one of the route's instances
+    ``dims``) and [BH, S] fp32 row vectors for a kernel launch on the card;
+    return (dtype code, BH, D)."""
     q = seq_tensors[0]
     dtype = q.dtype
     if dtype not in _KERNEL_DTYPES:
@@ -251,10 +276,9 @@ def _check_kernel_operands(seq_tensors, row_tensors=()):
             f"flash attention kernels take float32, bfloat16 or float16; got "
             f"{dtype}")
     BH, _, D = q.shape
-    if D not in KERNEL_HEAD_DIMS:
+    if D not in dims:
         raise ValueError(
-            f"flash attention kernels take head dims {KERNEL_HEAD_DIMS}; got "
-            f"{D}")
+            f"flash attention kernels take head dims {dims}; got {D}")
     for t in seq_tensors:
         if t.dim() != 3 or t.shape[0] != BH or t.shape[2] != D:
             raise ValueError(
@@ -296,11 +320,11 @@ def _check_device(t):
             f"{t.device}")
 
 
-def _fwd_launch(kernel):
-    """One launch of a forward kernel at an instance's head dim."""
+def _fwd_launch(kernel, dims):
+    """One launch of a forward kernel at one of its instances' head dims."""
 
     def run(q, k, v, causal, q_offset, k_offset, scale):
-        code, BH, D = _check_kernel_operands((q, k, v))
+        code, BH, D = _check_kernel_operands((q, k, v), dims=dims)
         Sq, Sk = q.shape[1], k.shape[1]
         if Sk != v.shape[1]:
             raise ValueError("k and v must have the same sequence length")
@@ -344,7 +368,8 @@ def _dkv_launch(q, k, v, do, lse, delta, glse, causal, q_offset, k_offset,
 
 def _dqkv_launch(q, k, v, do, lse, delta, glse, causal, q_offset, k_offset,
                  scale):
-    code, BH, D = _check_kernel_operands((q, k, v, do), (lse, delta, glse))
+    code, BH, D = _check_kernel_operands((q, k, v, do), (lse, delta, glse),
+                                         SINGLE_TILE_HEAD_DIMS)
     Sq, Sk = q.shape[1], k.shape[1]
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
@@ -363,8 +388,8 @@ def flash_fwd(q, k, v, causal=False, q_offset=0, k_offset=0):
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, causal, q_offset, k_offset)
     _check_device(q)
-    return padded_heads(_fwd_launch(_kernels.FLASH_FWD), (q, k, v), (),
-                        causal, q_offset, k_offset)
+    return padded_heads(_fwd_launch(_kernels.FLASH_FWD, KERNEL_HEAD_DIMS),
+                        (q, k, v), (), causal, q_offset, k_offset)
 
 
 def flash_dq(q, k, v, do, lse, delta, glse, causal=False, q_offset=0,
@@ -404,8 +429,9 @@ def flash_fwd_single(q, k, v, causal=False, q_offset=0, k_offset=0):
     if q.device.type == "cpu":
         return flash_fwd_single_plain(q, k, v, causal, q_offset, k_offset)
     _check_device(q)
-    return padded_heads(_fwd_launch(_kernels.FLASH_FWD_SINGLE), (q, k, v), (),
-                        causal, q_offset, k_offset)
+    return padded_heads(
+        _fwd_launch(_kernels.FLASH_FWD_SINGLE, SINGLE_TILE_HEAD_DIMS),
+        (q, k, v), (), causal, q_offset, k_offset, SINGLE_TILE_HEAD_DIMS)
 
 
 def flash_dqkv(q, k, v, do, lse, delta, glse, causal=False, q_offset=0,
@@ -418,19 +444,19 @@ def flash_dqkv(q, k, v, do, lse, delta, glse, causal=False, q_offset=0,
                                 q_offset, k_offset)
     _check_device(q)
     return padded_heads(_dqkv_launch, (q, k, v, do), (lse, delta, glse),
-                        causal, q_offset, k_offset)
+                        causal, q_offset, k_offset, SINGLE_TILE_HEAD_DIMS)
 
 
 class _FlashAttention(torch.autograd.Function):
     """(out, lse) over [BH, S, D] operands. The route is picked once in
-    forward and kept for backward: the single-tile forward and fused
-    backward, or the multi-tile forward and the dQ and dK/dV kernels, both
-    run from the saved (out, lse) residuals."""
+    forward (:func:`single_tile_route`) and kept for backward: the
+    single-tile forward and fused backward, or the multi-tile forward and
+    the dQ and dK/dV kernels, both run from the saved (out, lse)
+    residuals."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, q_offset, k_offset):
-        single = (q.shape[1] <= SINGLE_TILE_MAX
-                  and k.shape[1] <= SINGLE_TILE_MAX)
+        single = single_tile_route(q.shape[1], k.shape[1], q.shape[2])
         fwd = flash_fwd_single if single else flash_fwd
         out, lse = fwd(q, k, v, causal, q_offset, k_offset)
         ctx.save_for_backward(q, k, v, out, lse)
@@ -457,8 +483,11 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def _prepare_flash(q, k, v, causal, q_offset, k_offset):
-    """Shared validation for the flash entry points."""
+    """Shared validation for the flash entry points. The head dim is held to
+    the kernels' range on every device, so the CPU refuses what the card
+    would."""
     Sq, Sk = q.shape[2], k.shape[2]
+    kernel_head_dim(q.shape[-1])
     if not (q.dtype == k.dtype == v.dtype):
         raise ValueError(
             f"flash attention operands must share a dtype; got "

@@ -58,11 +58,19 @@
 //     the transposed form: S^T = K Q^T and dP^T = V dO^T (SS), then
 //     dV += P^T dO and dK += dS^T Q (RS, dO and Q MN-major). dK and dV
 //     leave through shared memory and TMA stores, as O does.
+// Head dim 256 (instances for D = 129 to 256, zero-padded): the same three
+// kernels with one resident buffer, two stages and outputs stored straight
+// from registers, since the operand tiles double: the forward's 64-row K/V
+// stages, dQ's 32-row ones, and dK/dV over one half of D's output columns
+// per work tile, recomputing S^T and dP^T for each half (the 256 columns of
+// dK and dV do not fit the consumers' registers at once). The *Smem
+// layouts give the numbers.
 // float32 (flash_fwd_f32_kernel, flash_dq_f32_kernel, flash_dkv_f32_kernel)
-// keeps the first version: 64-row tiles, four warps, fp32 accumulators in
-// shared memory (dK/dV: in registers), FMA products (TF32 would round
-// operands to 10 mantissa bits), synchronous loads, a block per (tile, head)
-// with heads past grid.y's 65535 taken in a loop; D = 16 to 128.
+// keeps the first version: 64-row tiles (32 at D = 256), four warps (two),
+// fp32 accumulators in shared memory (dK/dV: in registers, by column
+// halves at D = 256), FMA products (TF32 would round operands to 10
+// mantissa bits), synchronous loads, a block per (tile, head) with heads
+// past grid.y's 65535 taken in a loop; D = 16 to 256.
 // P and dS are rounded to the operand dtype before the PV, P^T dO, dS K and
 // dS^T Q products, as the TPU kernels do.
 //
@@ -104,45 +112,55 @@ __device__ __forceinline__ int query_begin(int k0, int bq, int causal, int q_off
 // ===========================================================================
 
 constexpr int FWD_BQ = 128;  // Q rows of a forward work tile
-constexpr int FWD_STAGES = 4;
 
-// Shared memory of the forward, byte offsets from a 1024-aligned base: two Q
-// buffers (the next work tile's Q loads while the current one runs), the
-// K/V ring, and each consumer warpgroup's bf16 output tile on its way out
-// by TMA. BK: K/V rows of a ring stage, 128, or 64 at D = 128, where four
-// 128-row stages would not fit beside the rest.
+// Shared memory of the forward, byte offsets from a 1024-aligned base: the Q
+// buffers (two: the next work tile's Q loads while the current one runs),
+// the K/V ring of STAGES stages, and each consumer warpgroup's output tile
+// on its way out by TMA. BK: K/V rows of a ring stage, 128, or 64 at
+// D = 128, where four 128-row stages would not fit beside the rest. At
+// D = 256 a 128-row Q tile is 64 KB and a 64-row K + V stage 64 KB, so one
+// Q buffer and two stages take 192 KB, and O leaves straight from registers
+// (TMA_OUT false; 64 KB of output tiles would not fit beside them); the
+// 128 fp32 registers of the O accumulator, 32 of S and 16 of P fit the
+// consumers' 240.
 template <int D>
 struct FwdSmem {
-  static constexpr int BK = D == 128 ? 64 : 128;
+  static constexpr int BK = D >= 128 ? 64 : 128;
+  static constexpr int STAGES = D == 256 ? 2 : 4;
+  static constexpr int Q_BUFS = D == 256 ? 1 : 2;
+  static constexpr bool TMA_OUT = D != 256;
   static constexpr int TILE_Q = FWD_BQ * D * 2;
   static constexpr int TILE_KV = BK * D * 2;
-  static constexpr int TILE_O = 64 * D * 2;
-  static constexpr int Q = 0;                           // + buffer * TILE_Q
-  static constexpr int K = Q + 2 * TILE_Q;              // + stage * TILE_KV
-  static constexpr int V = K + FWD_STAGES * TILE_KV;    // + stage * TILE_KV
-  static constexpr int O = V + FWD_STAGES * TILE_KV;    // + warpgroup * TILE_O
+  static constexpr int TILE_O = TMA_OUT ? 64 * D * 2 : 0;
+  static constexpr int Q = 0;                            // + buffer * TILE_Q
+  static constexpr int K = Q + Q_BUFS * TILE_Q;          // + stage * TILE_KV
+  static constexpr int V = K + STAGES * TILE_KV;         // + stage * TILE_KV
+  static constexpr int O = V + STAGES * TILE_KV;         // + warpgroup * TILE_O
   static constexpr int BAR = O + CONSUMER_WGS * TILE_O;  // full[S], empty[S], q_full[2], q_empty[2]
-  static constexpr int BYTES = BAR + (2 * FWD_STAGES + 4) * 8 + 1024;  // + alignment slack
+  static constexpr int BYTES = BAR + (2 * STAGES + 4) * 8 + 1024;  // + alignment slack
 };
 
 // Forward, persistent: a grid of one block per SM walks the work tiles
-// (bh, 128 Q rows) in turn; o [BH, Sq, D] in T, lse [BH, Sq] fp32. The
-// producer runs ahead into the next work tile (its Q into the other buffer,
-// its K/V tiles into the ring) while the consumers finish the current one.
+// (bh, 128 Q rows) in turn; o [BH, Sq, D] in T (written through tm_o, or at
+// D = 256 through the pointer o), lse [BH, Sq] fp32. The producer runs
+// ahead into the next work tile (its Q into the other buffer, its K/V
+// tiles into the ring) while the consumers finish the current one.
 template <typename T, int D>
 __global__ void __launch_bounds__(SM90_THREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o,
-                 float* __restrict__ lse, int BH, int Sq, int Sk, float scale, int causal,
-                 int q_offset, int k_offset) {
+                 T* __restrict__ o, float* __restrict__ lse, int BH, int Sq, int Sk, float scale,
+                 int causal, int q_offset, int k_offset) {
   using F = TileFormat<D>;
   using L = FwdSmem<D>;
   constexpr int BK = L::BK;
+  constexpr int STAGES = L::STAGES;
+  constexpr int QB = L::Q_BUFS;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t full_bar = base + L::BAR;                 // stage s at + 8 s
-  const uint32_t empty_bar = full_bar + 8 * FWD_STAGES;    // stage s at + 8 s
-  const uint32_t q_full_bar = empty_bar + 8 * FWD_STAGES;  // buffer b at + 8 b
+  const uint32_t empty_bar = full_bar + 8 * STAGES;        // stage s at + 8 s
+  const uint32_t q_full_bar = empty_bar + 8 * STAGES;      // buffer b at + 8 b
   const uint32_t q_empty_bar = q_full_bar + 16;            // buffer b at + 8 b
 
   const int qtiles = (Sq + FWD_BQ - 1) / FWD_BQ;
@@ -155,7 +173,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   const int wg = threadIdx.x / WG;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < FWD_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(full_bar + 8 * s, 1);
       mbar_init(empty_bar + 8 * s, CONSUMER_WARPS);
     }
@@ -175,18 +193,18 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       int it = 0;
       for (int w = blockIdx.x; w < nwork; w += gridDim.x, ++it) {
         const int bh = w / qtiles;
-        const int qb = it & 1;
+        const int qb = it % QB;
         const uint32_t q_bar = q_full_bar + 8 * qb;
-        mbar_wait(q_empty_bar + 8 * qb, ((it >> 1) & 1) ^ 1);
+        mbar_wait(q_empty_bar + 8 * qb, ((it / QB) & 1) ^ 1);
         mbar_arrive_expect_tx(q_bar, L::TILE_Q);
         for (int b = 0; b < F::NB; ++b)
           tma_load_3d(base + L::Q + qb * L::TILE_Q + b * FWD_BQ * F::ROW_BYTES, &tm_q, q_bar,
                       b * F::CB, (w % qtiles) * FWD_BQ, bh);
         const int n = ntiles(w);
         for (int t = 0; t < n; ++t, ++kt) {
-          const int s = kt % FWD_STAGES;
+          const int s = kt % STAGES;
           const uint32_t bar = full_bar + 8 * s;
-          mbar_wait(empty_bar + 8 * s, ((kt / FWD_STAGES) & 1) ^ 1);
+          mbar_wait(empty_bar + 8 * s, ((kt / STAGES) & 1) ^ 1);
           mbar_arrive_expect_tx(bar, 2 * L::TILE_KV);
           const uint32_t sK = base + L::K + s * L::TILE_KV;
           const uint32_t sV = base + L::V + s * L::TILE_KV;
@@ -211,7 +229,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       const int row_first = (w % qtiles) * FWD_BQ + wg * 64;
       const int row0 = row_first + (tid >> 5) * 16 + (lane >> 2);  // and row0 + 8
       const int n = ntiles(w);
-      const int qb = it & 1;
+      const int qb = it % QB;
       const uint32_t sQ = base + L::Q + qb * L::TILE_Q;
       float acc[D / 2];
 #pragma unroll
@@ -219,12 +237,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       float m[2] = {NEG_INF, NEG_INF};
       float l[2] = {0.f, 0.f};
 
-      mbar_wait(q_full_bar + 8 * qb, (it >> 1) & 1);
+      mbar_wait(q_full_bar + 8 * qb, (it / QB) & 1);
       for (int t = 0; t < n; ++t, ++kt) {
-        const int s = kt % FWD_STAGES;
+        const int s = kt % STAGES;
         const uint32_t sK = base + L::K + s * L::TILE_KV;
         const uint32_t sV = base + L::V + s * L::TILE_KV;
-        mbar_wait(full_bar + 8 * s, (kt / FWD_STAGES) & 1);
+        mbar_wait(full_bar + 8 * s, (kt / STAGES) & 1);
 
         // S = Q K^T (SS, both K-major).
         float sc[BK / 2];
@@ -272,35 +290,51 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         if (lane == 0) mbar_arrive(q_empty_bar + 8 * qb);
       }
 
-      // O / l in bf16 through the warpgroup's output tile and one TMA store
-      // per box (rows past Sq are not written); the store runs on while the
-      // next work tile starts. lse goes out directly.
-      const uint32_t sO = base + L::O + wg * L::TILE_O;
-      if (tid == 0) bulk_wait_read<0>();  // the last work tile's store has read sO
-      named_sync(1 + wg, WG);
+      if constexpr (L::TMA_OUT) {
+        // O / l in T through the warpgroup's output tile and one TMA store
+        // per box (rows past Sq are not written); the store runs on while
+        // the next work tile starts. lse goes out directly.
+        const uint32_t sO = base + L::O + wg * L::TILE_O;
+        if (tid == 0) bulk_wait_read<0>();  // the last work tile's store has read sO
+        named_sync(1 + wg, WG);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-        const bool empty = l[h] == 0.f;
-        const float inv = empty ? 0.f : 1.f / l[h];
-        const int r = row0 - row_first + 8 * h;
+        for (int h = 0; h < 2; ++h) {
+          l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+          l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+          const bool empty = l[h] == 0.f;
+          const float inv = empty ? 0.f : 1.f / l[h];
+          const int r = row0 - row_first + 8 * h;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
-          const int i = 4 * j + 2 * h;
-          st_shared_u32(sO + F::offset(64, r, 8 * j + 2 * tq),
-                        pack2<T>(acc[i] * inv, acc[i + 1] * inv));
+          for (int j = 0; j < D / 8; ++j) {
+            const int i = 4 * j + 2 * h;
+            st_shared_u32(sO + F::offset(64, r, 8 * j + 2 * tq),
+                          pack2<T>(acc[i] * inv, acc[i + 1] * inv));
+          }
+          const int qi = row0 + 8 * h;
+          if (tq == 0 && qi < Sq)
+            lse[(size_t)bh * Sq + qi] = empty ? LSE_MASKED : m[h] * LN2 + logf(l[h]);
         }
-        const int qi = row0 + 8 * h;
-        if (tq == 0 && qi < Sq)
-          lse[(size_t)bh * Sq + qi] = empty ? LSE_MASKED : m[h] * LN2 + logf(l[h]);
-      }
-      fence_async_smem();
-      named_sync(1 + wg, WG);
-      if (tid == 0) {
-        for (int b = 0; b < F::NB; ++b)
-          tma_store_3d(&tm_o, sO + b * 64 * F::ROW_BYTES, b * F::CB, row_first, bh);
-        bulk_commit();
+        fence_async_smem();
+        named_sync(1 + wg, WG);
+        if (tid == 0) {
+          for (int b = 0; b < F::NB; ++b)
+            tma_store_3d(&tm_o, sO + b * 64 * F::ROW_BYTES, b * F::CB, row_first, bh);
+          bulk_commit();
+        }
+      } else {
+        // O / l in T straight from registers; lse as above.
+        float inv[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+          l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+          const bool empty = l[h] == 0.f;
+          inv[h] = empty ? 0.f : 1.f / l[h];
+          const int qi = row0 + 8 * h;
+          if (tq == 0 && qi < Sq)
+            lse[(size_t)bh * Sq + qi] = empty ? LSE_MASKED : m[h] * LN2 + logf(l[h]);
+        }
+        store_rows<T, D>(o + (size_t)bh * Sq * D, D, acc, inv, row0, Sq, tq);
       }
     }
     if (tid == 0) bulk_wait_read<0>();  // shared memory outlives the last store's reads
@@ -308,22 +342,27 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 }
 
 constexpr int DQ_BQ = 128;  // Q rows of a dQ work tile
-constexpr int DQ_BK = 64;   // K/V rows of a dQ ring stage
 
-// Shared memory of dQ, byte offsets from a 1024-aligned base: two Q / dO
-// buffers (the next work tile's Q and dO load while the current one runs),
-// the K/V ring, and each consumer warpgroup's bf16 dQ tile on its way out by
-// TMA. Four stages, two at D = 128, where 32 KB stages share the 227 KB with
-// 128 KB of Q / dO buffers and 32 KB of output tiles.
+// Shared memory of dQ, byte offsets from a 1024-aligned base: the Q / dO
+// buffers (two: the next work tile's Q and dO load while the current one
+// runs), the K/V ring, and each consumer warpgroup's dQ tile on its way out
+// by TMA. BK: K/V rows of a ring stage. Four stages, two at D = 128, where
+// 32 KB stages share the 227 KB with 128 KB of Q / dO buffers and 32 KB of
+// output tiles. At D = 256 one Q / dO buffer is 128 KB: one buffer, two
+// 32-row K/V stages (64 KB), and dQ straight from registers (TMA_OUT
+// false); the consumers hold dQ in 128 fp32 registers, S and dP in 16 each.
 template <int D>
 struct DqSmem {
-  static constexpr int STAGES = D == 128 ? 2 : 4;
+  static constexpr int BK = D == 256 ? 32 : 64;
+  static constexpr int STAGES = D >= 128 ? 2 : 4;
+  static constexpr int Q_BUFS = D == 256 ? 1 : 2;
+  static constexpr bool TMA_OUT = D != 256;
   static constexpr int TILE_Q = DQ_BQ * D * 2;
-  static constexpr int TILE_KV = DQ_BK * D * 2;
-  static constexpr int TILE_O = 64 * D * 2;
+  static constexpr int TILE_KV = BK * D * 2;
+  static constexpr int TILE_O = TMA_OUT ? 64 * D * 2 : 0;
   static constexpr int Q = 0;                          // + buffer * 2 * TILE_Q
   static constexpr int DO = Q + TILE_Q;                // + buffer * 2 * TILE_Q
-  static constexpr int K = 4 * TILE_Q;                 // + stage * 2 * TILE_KV
+  static constexpr int K = Q_BUFS * 2 * TILE_Q;        // + stage * 2 * TILE_KV
   static constexpr int V = K + TILE_KV;                // + stage * 2 * TILE_KV
   static constexpr int O = K + 2 * STAGES * TILE_KV;   // + warpgroup * TILE_O
   static constexpr int BAR = O + CONSUMER_WGS * TILE_O;  // full[S], empty[S], q_full[2], q_empty[2]
@@ -363,17 +402,20 @@ __device__ __forceinline__ void dq_dscores(const float (&st)[BK / 2], const floa
 
 // dQ, persistent: a grid of one block per SM walks the work tiles (bh,
 // 128 Q rows) in turn and loops over the K/V tiles their rows can see.
-// dQ = scale * sum_j dS_ij K_j.
+// dQ = scale * sum_j dS_ij K_j, written through tm_dq, or at D = 256
+// through the pointer dq_out.
 template <typename T, int D>
 __global__ void __launch_bounds__(SM90_THREADS, 1)
 flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
-                const __grid_constant__ CUtensorMap tm_dq, const float* __restrict__ lse,
-                const float* __restrict__ delta, const float* __restrict__ glse, int BH, int Sq,
-                int Sk, float scale, int causal, int q_offset, int k_offset) {
+                const __grid_constant__ CUtensorMap tm_dq, T* __restrict__ dq_out,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                const float* __restrict__ glse, int BH, int Sq, int Sk, float scale, int causal,
+                int q_offset, int k_offset) {
   using F = TileFormat<D>;
   using L = DqSmem<D>;
-  constexpr int BK = DQ_BK;
+  constexpr int BK = L::BK;
+  constexpr int QB = L::Q_BUFS;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t full_bar = base + L::BAR;                 // stage s at + 8 s
@@ -411,11 +453,11 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
       for (int w = blockIdx.x; w < nwork; w += gridDim.x, ++it) {
         const int bh = w / qtiles;
         const int q0 = (w % qtiles) * DQ_BQ;
-        const int qb = it & 1;
+        const int qb = it % QB;
         const uint32_t q_bar = q_full_bar + 8 * qb;
         const uint32_t sQ = base + L::Q + qb * 2 * L::TILE_Q;
         const uint32_t sdO = base + L::DO + qb * 2 * L::TILE_Q;
-        mbar_wait(q_empty_bar + 8 * qb, ((it >> 1) & 1) ^ 1);
+        mbar_wait(q_empty_bar + 8 * qb, ((it / QB) & 1) ^ 1);
         mbar_arrive_expect_tx(q_bar, 2 * L::TILE_Q);
         for (int b = 0; b < F::NB; ++b) {
           tma_load_3d(sQ + b * DQ_BQ * F::ROW_BYTES, &tm_q, q_bar, b * F::CB, q0, bh);
@@ -465,7 +507,7 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
       const int row_first = (w % qtiles) * DQ_BQ + wg * 64;
       const int row0 = row_first + r;  // and row0 + 8
       const int n = ntiles(w);
-      const int qb = it & 1;
+      const int qb = it % QB;
       const uint32_t sQ = base + L::Q + qb * 2 * L::TILE_Q;
       const uint32_t sdO = base + L::DO + qb * 2 * L::TILE_Q;
       // The rows of this work tile, and the next one's on their way.
@@ -476,7 +518,7 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
 
-      mbar_wait(q_full_bar + 8 * qb, (it >> 1) & 1);
+      mbar_wait(q_full_bar + 8 * qb, (it / QB) & 1);
       for (int t = 0; t < n; ++t, ++kt) {
         const int s = kt % L::STAGES;
         const uint32_t sK = base + L::K + s * 2 * L::TILE_KV;
@@ -534,7 +576,11 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
       }
 
       const float mul[2] = {scale, scale};
-      store_out<T, D>(&tm_dq, base + L::O + wg * L::TILE_O, dq, mul, r, tq, tid, wg, row_first, bh);
+      if constexpr (L::TMA_OUT)
+        store_out<T, D>(&tm_dq, base + L::O + wg * L::TILE_O, dq, mul, r, tq, tid, wg, row_first,
+                        bh);
+      else
+        store_rows<T, D>(dq_out + (size_t)bh * Sq * D, D, dq, mul, row0, Sq, tq);
     }
     if (tid == 0) bulk_wait_read<0>();  // shared memory outlives the last store's reads
   }
@@ -542,23 +588,34 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
 
 constexpr int DKV_BK = 128;  // keys of a dK/dV work tile
 
-// Shared memory of dK/dV, byte offsets from a 1024-aligned base: two K/V
-// buffers (the next work tile's K and V load while the current one runs),
-// the ring of Q / dO tiles with their row vectors, and each consumer
-// warpgroup's bf16 dK and dV tiles on their way out by TMA. BQ: Q rows of a
-// ring stage; at D = 128 the 64 + 64 floats of dK and dV per thread leave
+// Shared memory of dK/dV, byte offsets from a 1024-aligned base: the K/V
+// buffers (two: the next work tile's K and V load while the current one
+// runs), the ring of Q / dO tiles with their row vectors, and each consumer
+// warpgroup's dK and dV tiles on their way out by TMA. BQ: Q rows of a ring
+// stage; at D = 128 the 64 + 64 floats of dK and dV per thread leave
 // registers for a 32-row stage only, and shared memory for two stages.
+// OW: the output columns of a work tile. At D = 256, dK and dV of all 256
+// columns would take 128 + 128 fp32 registers per thread, which do not
+// fit: a work tile computes OW = 128 columns of each (64 + 64 registers, as
+// at D = 128), and the two halves of D are two work tiles that each
+// recompute S^T and dP^T over all of D (1.5x the operations of one pass).
+// There one K/V buffer is 128 KB: one buffer, two 32-row stages (64 KB),
+// and dK, dV straight from registers (TMA_OUT false).
 template <int D>
 struct DkvSmem {
-  static constexpr int BQ = D == 128 ? 32 : 64;
-  static constexpr int STAGES = D == 128 ? 2 : 4;
+  static constexpr int OW = D == 256 ? 128 : D;
+  static constexpr int HALVES = D / OW;
+  static constexpr int BQ = D >= 128 ? 32 : 64;
+  static constexpr int STAGES = D >= 128 ? 2 : 4;
+  static constexpr int KV_BUFS = D == 256 ? 1 : 2;
+  static constexpr bool TMA_OUT = D != 256;
   static constexpr int TILE_KV = DKV_BK * D * 2;
   static constexpr int TILE_Q = BQ * D * 2;
-  static constexpr int TILE_O = 64 * D * 2;
+  static constexpr int TILE_O = TMA_OUT ? 64 * D * 2 : 0;
   static constexpr int ROWS = 2 * BQ * 4;  // lse * log2(e), then g_lse - delta
   static constexpr int K = 0;                        // + buffer * 2 * TILE_KV
   static constexpr int V = K + TILE_KV;              // + buffer * 2 * TILE_KV
-  static constexpr int Q = 4 * TILE_KV;              // + stage * TILE_Q
+  static constexpr int Q = KV_BUFS * 2 * TILE_KV;    // + stage * TILE_Q
   static constexpr int DO = Q + STAGES * TILE_Q;     // + stage * TILE_Q
   static constexpr int OUT = DO + STAGES * TILE_Q;   // dK, dV of warpgroup w at + 2 w TILE_O
   static constexpr int ROW = OUT + 4 * TILE_O;       // + stage * ROWS
@@ -592,19 +649,24 @@ __device__ __forceinline__ void dkv_probs(float (&st)[BQ / 2], float (&dpt)[BQ /
 }
 
 // dK/dV, persistent: a grid of one block per SM walks the work tiles (bh,
-// 128 keys) in turn and loops over the Q tiles that can see them.
-// dV = sum_i P_ij^T dO_i; dK = scale * sum_i dS_ij^T Q_i.
+// 128 keys, half of D at D = 256) in turn and loops over the Q tiles that
+// can see them. dV = sum_i P_ij^T dO_i; dK = scale * sum_i dS_ij^T Q_i,
+// written through tm_dk and tm_dv, or at D = 256 through the pointers
+// dk_out and dv_out.
 template <typename T, int D>
 __global__ void __launch_bounds__(SM90_THREADS, 1)
 flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
                  const __grid_constant__ CUtensorMap tm_dk,
-                 const __grid_constant__ CUtensorMap tm_dv, const float* __restrict__ lse,
+                 const __grid_constant__ CUtensorMap tm_dv, T* __restrict__ dk_out,
+                 T* __restrict__ dv_out, const float* __restrict__ lse,
                  const float* __restrict__ delta, const float* __restrict__ glse, int BH, int Sq,
                  int Sk, float scale, int causal, int q_offset, int k_offset) {
   using F = TileFormat<D>;
   using L = DkvSmem<D>;
   constexpr int BQ = L::BQ;
+  constexpr int OW = L::OW;
+  constexpr int KB = L::KV_BUFS;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -615,10 +677,14 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   const uint32_t kv_empty_bar = kv_full_bar + 16;           // buffer b at + 8 b
 
   const int ktiles = (Sk + DKV_BK - 1) / DKV_BK;
-  const int nwork = BH * ktiles;  // consecutive work tiles share a head's Q and dO in L2
+  // Work tile w: head w / (ktiles HALVES), key tile (w / HALVES) % ktiles,
+  // columns half w % HALVES. Consecutive work tiles share a head's Q and dO
+  // in L2 (at D = 256 the two halves of one key tile are neighbours).
+  const int nwork = BH * ktiles * L::HALVES;
+  auto key_tile = [&](int w) { return (w / L::HALVES) % ktiles; };
   // The first Q tile that can see work tile w's keys, and the number of Q tiles.
   auto qbegin = [&](int w) {
-    return query_begin((w % ktiles) * DKV_BK, BQ, causal, q_offset, k_offset);
+    return query_begin(key_tile(w) * DKV_BK, BQ, causal, q_offset, k_offset);
   };
   auto ntiles = [&](int w) {
     const int q0 = qbegin(w);
@@ -648,14 +714,14 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
       int qt = 0;  // Q tiles loaded so far: the ring position
       int it = 0;
       for (int w = blockIdx.x; w < nwork; w += gridDim.x, ++it) {
-        const int bh = w / ktiles;
-        const int kb = it & 1;
-        mbar_wait(kv_empty_bar + 8 * kb, ((it >> 1) & 1) ^ 1);
+        const int bh = w / (ktiles * L::HALVES);
+        const int kb = it % KB;
+        mbar_wait(kv_empty_bar + 8 * kb, ((it / KB) & 1) ^ 1);
         if (lane == 0) {
           const uint32_t bar = kv_full_bar + 8 * kb;
           const uint32_t sK = base + L::K + kb * 2 * L::TILE_KV;
           const uint32_t sV = base + L::V + kb * 2 * L::TILE_KV;
-          const int k0 = (w % ktiles) * DKV_BK;
+          const int k0 = key_tile(w) * DKV_BK;
           mbar_arrive_expect_tx(bar, 2 * L::TILE_KV);
           for (int b = 0; b < F::NB; ++b) {
             tma_load_3d(sK + b * DKV_BK * F::ROW_BYTES, &tm_k, bar, b * F::CB, k0, bh);
@@ -703,21 +769,22 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     int qt = 0;
     int it = 0;
     for (int w = blockIdx.x; w < nwork; w += gridDim.x, ++it) {
-      const int bh = w / ktiles;
-      const int key_first = (w % ktiles) * DKV_BK + wg * 64;
+      const int bh = w / (ktiles * L::HALVES);
+      const int half = w % L::HALVES;  // output columns [half OW, half OW + OW)
+      const int key_first = key_tile(w) * DKV_BK + wg * 64;
       const int key0 = key_first + (tid >> 5) * 16 + (lane >> 2);  // and key0 + 8
       const int n = ntiles(w);
-      const int kb = it & 1;
+      const int kb = it % KB;
       const uint32_t sK = base + L::K + kb * 2 * L::TILE_KV;
       const uint32_t sV = base + L::V + kb * 2 * L::TILE_KV;
-      float dk_acc[D / 2], dv_acc[D / 2];
+      float dk_acc[OW / 2], dv_acc[OW / 2];
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) {
+      for (int i = 0; i < OW / 2; ++i) {
         dk_acc[i] = 0.f;
         dv_acc[i] = 0.f;
       }
 
-      mbar_wait(kv_full_bar + 8 * kb, (it >> 1) & 1);
+      mbar_wait(kv_full_bar + 8 * kb, (it / KB) & 1);
       for (int t = 0; t < n; ++t, ++qt) {
         const int s = qt % L::STAGES;
         const int q0 = qbegin(w) + t * BQ;
@@ -756,18 +823,20 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         else
           dkv_probs<T, BQ, false>(st, dpt, rows, pf, dsf, key0, q0, sl2, q_offset, k_offset, tq);
 
-        // dV += P^T dO and dK += dS^T Q (RS, dO and Q MN-major).
+        // dV += P^T dO and dK += dS^T Q (RS, dO and Q MN-major), over the
+        // work tile's output columns.
         fence_regs(dk_acc);
         fence_regs(dv_acc);
         fence_regs(pf);
         fence_regs(dsf);
         wgmma_fence();
+        const int box0 = half * OW / F::CB;
 #pragma unroll
         for (int kk = 0; kk < BQ / 16; ++kk)
-          Wgmma<D, T>::template rs<1>(dv_acc, pf[kk], F::mnmajor(sdO, BQ, kk));
+          Wgmma<OW, T>::template rs<1>(dv_acc, pf[kk], F::mnmajor(sdO, BQ, kk, box0));
 #pragma unroll
         for (int kk = 0; kk < BQ / 16; ++kk)
-          Wgmma<D, T>::template rs<1>(dk_acc, dsf[kk], F::mnmajor(sQ, BQ, kk));
+          Wgmma<OW, T>::template rs<1>(dk_acc, dsf[kk], F::mnmajor(sQ, BQ, kk, box0));
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dk_acc);
@@ -780,32 +849,40 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         if (lane == 0) mbar_arrive(kv_empty_bar + 8 * kb);
       }
 
-      // dK and dV in bf16 through the warpgroup's output tiles and TMA
-      // stores, which run on while the next work tile starts. Keys past Sk
-      // are not written (so they needed no mask above).
-      const uint32_t sdK = base + L::OUT + 2 * wg * L::TILE_O;
-      const uint32_t sdV = sdK + L::TILE_O;
-      if (tid == 0) bulk_wait_read<0>();  // the last work tile's stores have read them
-      named_sync(1 + wg, WG);
+      // dK and dV in T through the warpgroup's output tiles and TMA
+      // stores, which run on while the next work tile starts, or at D = 256
+      // straight from registers. Keys past Sk are not written (so they
+      // needed no mask above).
+      if constexpr (L::TMA_OUT) {
+        const uint32_t sdK = base + L::OUT + 2 * wg * L::TILE_O;
+        const uint32_t sdV = sdK + L::TILE_O;
+        if (tid == 0) bulk_wait_read<0>();  // the last work tile's stores have read them
+        named_sync(1 + wg, WG);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = key0 - key_first + 8 * h;
+        for (int h = 0; h < 2; ++h) {
+          const int r = key0 - key_first + 8 * h;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
-          const int i = 4 * j + 2 * h;
-          const uint32_t at = F::offset(64, r, 8 * j + 2 * tq);
-          st_shared_u32(sdK + at, pack2<T>(scale * dk_acc[i], scale * dk_acc[i + 1]));
-          st_shared_u32(sdV + at, pack2<T>(dv_acc[i], dv_acc[i + 1]));
+          for (int j = 0; j < D / 8; ++j) {
+            const int i = 4 * j + 2 * h;
+            const uint32_t at = F::offset(64, r, 8 * j + 2 * tq);
+            st_shared_u32(sdK + at, pack2<T>(scale * dk_acc[i], scale * dk_acc[i + 1]));
+            st_shared_u32(sdV + at, pack2<T>(dv_acc[i], dv_acc[i + 1]));
+          }
         }
-      }
-      fence_async_smem();
-      named_sync(1 + wg, WG);
-      if (tid == 0) {
-        for (int b = 0; b < F::NB; ++b) {
-          tma_store_3d(&tm_dk, sdK + b * 64 * F::ROW_BYTES, b * F::CB, key_first, bh);
-          tma_store_3d(&tm_dv, sdV + b * 64 * F::ROW_BYTES, b * F::CB, key_first, bh);
+        fence_async_smem();
+        named_sync(1 + wg, WG);
+        if (tid == 0) {
+          for (int b = 0; b < F::NB; ++b) {
+            tma_store_3d(&tm_dk, sdK + b * 64 * F::ROW_BYTES, b * F::CB, key_first, bh);
+            tma_store_3d(&tm_dv, sdV + b * 64 * F::ROW_BYTES, b * F::CB, key_first, bh);
+          }
+          bulk_commit();
         }
-        bulk_commit();
+      } else {
+        const size_t at = (size_t)bh * Sk * D + half * OW;
+        const float mul_k[2] = {scale, scale}, mul_v[2] = {1.f, 1.f};
+        store_rows<T, OW>(dk_out + at, D, dk_acc, mul_k, key0, Sk, tq);
+        store_rows<T, OW>(dv_out + at, D, dv_acc, mul_v, key0, Sk, tq);
       }
     }
     if (tid == 0) bulk_wait_read<0>();  // shared memory outlives the last stores' reads
@@ -814,38 +891,46 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 
 // ===========================================================================
 // float32: the first version (64-row tiles in shared memory, four warps of
-// 16 rows).
+// 16 rows; at D = 256 32-row tiles and two warps, for shared memory).
 // ===========================================================================
 
-constexpr int BQ = 64;  // rows of a Q tile
-constexpr int BK = 64;  // rows of a K/V tile
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int WROWS = 16;  // rows owned by one warp (NWARPS * WROWS == 64)
+constexpr int WROWS = 16;  // rows owned by one warp
 
-static_assert(NWARPS * WROWS == BQ && BQ == BK, "one 16-row slice per warp");
+template <int D>
+struct F32Tile {
+  static constexpr int B = D == 256 ? 32 : 64;  // rows of a Q tile and of a K/V tile
+  static constexpr int THREADS = B / WROWS * 32;  // one 16-row slice per warp
+  static constexpr int KPL = B / 32;  // keys of a K/V tile per lane of a warp
+  // dK/dV: output columns a block accumulates in registers (RowAcc), and
+  // the blocks per K/V tile that split D between them, each recomputing S
+  // and dP (at D = 256, 128 + 128 floats per lane would not fit).
+  static constexpr int OW = D == 256 ? 128 : D;
+  static constexpr int HALVES = D / OW;
+};
 
-// Leading dimensions in shared memory, padded by 32 bytes: every WMMA
-// fragment pointer stays 256-bit aligned and rows fall on different banks.
+// Leading dimensions in shared memory, padded by 32 bytes: rows fall on
+// different banks.
 template <typename T, int D>
 struct Layout {
-  static constexpr int LDT = D + 32 / (int)sizeof(T);   // operand tiles
-  static constexpr int LDS = BK + 8;                     // fp32 scores
-  static constexpr int LDP = BK + 32 / (int)sizeof(T);   // P / dS in T
-  static constexpr int LDO = D + 8;                      // fp32 accumulators
+  static constexpr int LDT = D + 32 / (int)sizeof(T);              // operand tiles
+  static constexpr int LDS = F32Tile<D>::B + 8;                     // fp32 scores
+  static constexpr int LDP = F32Tile<D>::B + 32 / (int)sizeof(T);   // P / dS in T
+  static constexpr int LDO = D + 8;                                 // fp32 accumulators
 };
 
 // Forward, float32: one block per (bh, Q tile); loop over K/V tiles with an
 // online softmax. o [BH, Sq, D], lse [BH, Sq] fp32. At D = 128 the tiles
-// take 176,640 bytes of shared memory.
+// take 176,640 bytes of shared memory, at D = 256 145,664.
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(F32Tile<D>::THREADS)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
                      int BH, int Sq, int Sk, float scale, int causal, int q_offset,
                      int k_offset) {
   using T = float;
   using L = Layout<T, D>;
+  constexpr int BQ = F32Tile<D>::B, BK = BQ, NTHREADS = F32Tile<D>::THREADS;
+  constexpr int KPL = F32Tile<D>::KPL;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
   T* sK = sQ + BQ * L::LDT;
@@ -887,18 +972,26 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       __syncwarp();
       for (int r = r0; r < r0 + WROWS; ++r) {
         const int qi = q0 + r;
-        const bool ok0 = visible(qi, k0 + lane, Sq, Sk, causal, q_offset, k_offset);
-        const bool ok1 = visible(qi, k0 + lane + 32, Sq, Sk, causal, q_offset, k_offset);
-        const float s0 = ok0 ? sS[r * L::LDS + lane] * scale : NEG_INF;
-        const float s1 = ok1 ? sS[r * L::LDS + lane + 32] * scale : NEG_INF;
+        bool ok[KPL];
+        float sv[KPL];
+        float mx = NEG_INF;
+#pragma unroll
+        for (int e = 0; e < KPL; ++e) {
+          ok[e] = visible(qi, k0 + lane + 32 * e, Sq, Sk, causal, q_offset, k_offset);
+          sv[e] = ok[e] ? sS[r * L::LDS + lane + 32 * e] * scale : NEG_INF;
+          mx = fmaxf(mx, sv[e]);
+        }
         const float m_prev = sM[r];
-        const float m_new = fmaxf(m_prev, warp_max(fmaxf(s0, s1)));
+        const float m_new = fmaxf(m_prev, warp_max(mx));
         const float corr = expf(m_prev - m_new);
-        const float p0 = ok0 ? expf(s0 - m_new) : 0.f;
-        const float p1 = ok1 ? expf(s1 - m_new) : 0.f;
-        const float psum = warp_sum(p0 + p1);
-        sP[r * L::LDP + lane] = p0;
-        sP[r * L::LDP + lane + 32] = p1;
+        float psum = 0.f;
+#pragma unroll
+        for (int e = 0; e < KPL; ++e) {
+          const float p = ok[e] ? expf(sv[e] - m_new) : 0.f;
+          psum += p;
+          sP[r * L::LDP + lane + 32 * e] = p;
+        }
+        psum = warp_sum(psum);
         for (int c = lane; c < D; c += 32) sO[r * L::LDO + c] *= corr;
         if (lane == 0) {
           sM[r] = m_new;
@@ -924,9 +1017,10 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// P and dS for one warp's 16 rows of a (Q tile, K tile) pair, written to
-// shared memory in the operand dtype. Rows index Q, columns index K.
-template <typename T, int LDS, int LDP>
+// P and dS for one warp's 16 rows of a (Q tile, K tile of KPL * 32 keys)
+// pair, written to shared memory in the operand dtype. Rows index Q,
+// columns index K.
+template <typename T, int KPL, int LDS, int LDP>
 __device__ __forceinline__ void probs_and_dscores(
     const float* sS, const float* sdP, const float* sLse, const float* sDelta,
     const float* sGlse, T* sP, T* sdS, int r0, int q0, int k0, int Sq, int Sk, float scale,
@@ -937,7 +1031,7 @@ __device__ __forceinline__ void probs_and_dscores(
     const float lse_r = sLse[r];
     const float g_r = sGlse[r] - sDelta[r];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+    for (int h = 0; h < KPL; ++h) {
       const int c = lane + 32 * h;
       const bool ok = visible(qi, k0 + c, Sq, Sk, causal, q_offset, k_offset);
       const float p = ok ? expf(sS[r * LDS + c] * scale - lse_r) : 0.f;
@@ -950,9 +1044,10 @@ __device__ __forceinline__ void probs_and_dscores(
 
 // dQ, float32: one block per (bh, Q tile); loop over K/V tiles.
 // dQ = scale * sum_j dS_ij K_j. At D = 128 the tiles take 230,144 bytes of
-// shared memory, just inside the 232,448 a block may use.
+// shared memory, just inside the 232,448 a block may use; at D = 256
+// 184,704.
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(F32Tile<D>::THREADS)
 flash_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
@@ -960,6 +1055,7 @@ flash_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     int Sk, float scale, int causal, int q_offset, int k_offset) {
   using T = float;
   using L = Layout<T, D>;
+  constexpr int BQ = F32Tile<D>::B, BK = BQ, NTHREADS = F32Tile<D>::THREADS;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
   T* sdO = sQ + BQ * L::LDT;
@@ -1003,8 +1099,9 @@ flash_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       warp_gemm<false, true, BK, D>(sdO + r0 * L::LDT, L::LDT, sV, L::LDT, sdP + r0 * L::LDS,
                                     L::LDS, false);
       __syncwarp();
-      probs_and_dscores<T, L::LDS, L::LDP>(sS, sdP, sLse, sDelta, sGlse, nullptr, sdS, r0, q0,
-                                           k0, Sq, Sk, scale, causal, q_offset, k_offset);
+      probs_and_dscores<T, F32Tile<D>::KPL, L::LDS, L::LDP>(sS, sdP, sLse, sDelta, sGlse,
+                                                             nullptr, sdS, r0, q0, k0, Sq, Sk,
+                                                             scale, causal, q_offset, k_offset);
       __syncwarp();
       warp_gemm<false, false, D, BK>(sdS + r0 * L::LDP, L::LDP, sK, L::LDT, sdQ + r0 * L::LDO,
                                      L::LDO, true);
@@ -1020,13 +1117,14 @@ flash_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// dK/dV, float32: one block per (bh, K tile); loop over Q tiles.
-// dV = sum_i P_ij^T dO_i; dK = scale * sum_i dS_ij^T Q_i. Each warp holds
-// the dK and dV of its 16 key rows in registers (RowAcc), which keeps the
-// shared memory of D = 128 at 213,760 bytes; they leave through staging
-// tiles in the Q buffer.
+// dK/dV, float32: one block per (bh, K tile, column half); loop over Q
+// tiles. dV = sum_i P_ij^T dO_i; dK = scale * sum_i dS_ij^T Q_i. Each warp
+// holds the dK and dV of its 16 key rows, over the block's OW columns, in
+// registers (RowAcc), which keeps the shared memory of D = 128 at 213,760
+// bytes (D = 256: 156,032); they leave through staging tiles in the Q
+// buffer.
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(F32Tile<D>::THREADS)
 flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
@@ -1035,6 +1133,8 @@ flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      int q_offset, int k_offset) {
   using T = float;
   using L = Layout<T, D>;
+  constexpr int BQ = F32Tile<D>::B, BK = BQ, NTHREADS = F32Tile<D>::THREADS;
+  constexpr int OW = F32Tile<D>::OW, HALVES = F32Tile<D>::HALVES;
   static_assert(L::LDO <= L::LDT, "a warp's staging tile fits its rows of the Q buffer");
   extern __shared__ __align__(128) unsigned char smem[];
   T* sK = reinterpret_cast<T*>(smem);
@@ -1053,7 +1153,8 @@ flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // blockIdx.y + gridDim.y, ...
   for (int bh = blockIdx.y; bh < BH; bh += gridDim.y) {
     __syncthreads();  // the previous head is done with shared memory
-    const int k0 = blockIdx.x * BK;
+    const int k0 = blockIdx.x / HALVES * BK;
+    const int c0 = blockIdx.x % HALVES * OW;  // the block's output columns [c0, c0 + OW)
     const int warp = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
     const int r0 = warp * WROWS;
@@ -1062,7 +1163,7 @@ flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     load_tile<T, D, BK, NTHREADS>(sK, L::LDT, k + koff, k0, Sk);
     load_tile<T, D, BK, NTHREADS>(sV, L::LDT, v + koff, k0, Sk);
-    RowAcc<T, D> acc_dv, acc_dk;
+    RowAcc<T, OW> acc_dv, acc_dk;
     acc_dv.zero();
     acc_dk.zero();
 
@@ -1081,23 +1182,25 @@ flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       warp_gemm<false, true, BK, D>(sdO + r0 * L::LDT, L::LDT, sV, L::LDT, sdP + r0 * L::LDS,
                                     L::LDS, false);
       __syncwarp();
-      probs_and_dscores<T, L::LDS, L::LDP>(sS, sdP, sLse, sDelta, sGlse, sP, sdS, r0, q0, k0,
-                                           Sq, Sk, scale, causal, q_offset, k_offset);
+      probs_and_dscores<T, F32Tile<D>::KPL, L::LDS, L::LDP>(sS, sdP, sLse, sDelta, sGlse, sP,
+                                                             sdS, r0, q0, k0, Sq, Sk, scale,
+                                                             causal, q_offset, k_offset);
       __syncthreads();  // the transposed products read every warp's rows
 
-      // This warp's 16 key rows: contraction over the 64 Q rows.
-      acc_dv.template add_at_b<BQ>(sP + r0, L::LDP, sdO, L::LDT);
-      acc_dk.template add_at_b<BQ>(sdS + r0, L::LDP, sQ, L::LDT);
+      // This warp's 16 key rows: contraction over the BQ Q rows.
+      acc_dv.template add_at_b<BQ>(sP + r0, L::LDP, sdO + c0, L::LDT);
+      acc_dk.template add_at_b<BQ>(sdS + r0, L::LDP, sQ + c0, L::LDT);
     }
     __syncthreads();  // the Q buffer becomes the warps' staging tiles
 
     float* st = sQ + r0 * L::LDT;
-    auto write = [&](const RowAcc<T, D>& acc, T* out, float mul) {
+    auto write = [&](const RowAcc<T, OW>& acc, T* out, float mul) {
       acc.store(st, L::LDO);
       __syncwarp();
-      for (int e = lane; e < WROWS * D; e += 32) {
-        const int kj = k0 + r0 + e / D;
-        if (kj < Sk) out[koff + (size_t)kj * D + e % D] = mul * st[(e / D) * L::LDO + e % D];
+      for (int e = lane; e < WROWS * OW; e += 32) {
+        const int kj = k0 + r0 + e / OW;
+        if (kj < Sk)
+          out[koff + (size_t)kj * D + c0 + e % OW] = mul * st[(e / OW) * L::LDO + e % OW];
       }
       __syncwarp();
     };
@@ -1113,6 +1216,7 @@ flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <typename T, int D>
 constexpr size_t fwd_smem() {
   using L = Layout<T, D>;
+  constexpr int BQ = F32Tile<D>::B, BK = BQ;
   return (size_t)(BQ + 2 * BK) * L::LDT * sizeof(T) + BQ * L::LDS * sizeof(float) +
          BQ * L::LDP * sizeof(T) + BQ * L::LDO * sizeof(float) + 2 * BQ * sizeof(float);
 }
@@ -1120,6 +1224,7 @@ constexpr size_t fwd_smem() {
 template <typename T, int D>
 constexpr size_t dq_smem() {
   using L = Layout<T, D>;
+  constexpr int BQ = F32Tile<D>::B, BK = BQ;
   return (size_t)(2 * BQ + 2 * BK) * L::LDT * sizeof(T) + 2 * BQ * L::LDS * sizeof(float) +
          BQ * L::LDP * sizeof(T) + BQ * L::LDO * sizeof(float) + 3 * BQ * sizeof(float);
 }
@@ -1127,6 +1232,7 @@ constexpr size_t dq_smem() {
 template <typename T, int D>
 constexpr size_t dkv_smem() {
   using L = Layout<T, D>;
+  constexpr int BQ = F32Tile<D>::B, BK = BQ;
   return (size_t)(2 * BQ + 2 * BK) * L::LDT * sizeof(T) + 2 * BQ * L::LDS * sizeof(float) +
          2 * BQ * L::LDP * sizeof(T) + 3 * BQ * sizeof(float);
 }
@@ -1150,13 +1256,14 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, 
     int sms = 0;
     if ((err = sm_count(&sms))) return err;
     return launch(flash_fwd_kernel<T, D>, dim3(nwork < sms ? nwork : sms), SM90_THREADS,
-                  FwdSmem<D>::BYTES, stream, mq, mk, mv, mo, (float*)lse, BH, Sq, Sk,
+                  FwdSmem<D>::BYTES, stream, mq, mk, mv, mo, (T*)o, (float*)lse, BH, Sq, Sk,
                   scale, causal, qo, ko);
   } else {
+    using Tile = F32Tile<D>;
     static_assert(fwd_smem<T, D>() <= SMEM_LIMIT, "forward tiles exceed shared memory");
-    return launch(flash_fwd_f32_kernel<D>, dim3((Sq + BQ - 1) / BQ, head_blocks(BH)), NTHREADS,
-                  fwd_smem<T, D>(), stream, (const T*)q, (const T*)k, (const T*)v, (T*)o,
-                  (float*)lse, BH, Sq, Sk, scale, causal, qo, ko);
+    return launch(flash_fwd_f32_kernel<D>, dim3((Sq + Tile::B - 1) / Tile::B, head_blocks(BH)),
+                  Tile::THREADS, fwd_smem<T, D>(), stream, (const T*)q, (const T*)k, (const T*)v,
+                  (T*)o, (float*)lse, BH, Sq, Sk, scale, causal, qo, ko);
   }
 }
 
@@ -1168,8 +1275,8 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
     CUtensorMap mq, mk, mv, mdo, mdq;
     int err;
     if ((err = make_tile_map<T, D>(&mq, q, Sq, BH, DQ_BQ)) ||
-        (err = make_tile_map<T, D>(&mk, k, Sk, BH, DQ_BK)) ||
-        (err = make_tile_map<T, D>(&mv, v, Sk, BH, DQ_BK)) ||
+        (err = make_tile_map<T, D>(&mk, k, Sk, BH, DqSmem<D>::BK)) ||
+        (err = make_tile_map<T, D>(&mv, v, Sk, BH, DqSmem<D>::BK)) ||
         (err = make_tile_map<T, D>(&mdo, dout, Sq, BH, DQ_BQ)) ||
         (err = make_tile_map<T, D>(&mdq, dq, Sq, BH, 64)))
       return err;
@@ -1177,12 +1284,13 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
     int sms = 0;
     if ((err = sm_count(&sms))) return err;
     return launch(flash_dq_kernel<T, D>, dim3(nwork < sms ? nwork : sms), SM90_THREADS,
-                  DqSmem<D>::BYTES, stream, mq, mk, mv, mdo, mdq, (const float*)lse,
+                  DqSmem<D>::BYTES, stream, mq, mk, mv, mdo, mdq, (T*)dq, (const float*)lse,
                   (const float*)delta, (const float*)glse, BH, Sq, Sk, scale, causal, qo, ko);
   } else {
+    using Tile = F32Tile<D>;
     static_assert(dq_smem<T, D>() <= SMEM_LIMIT, "dQ tiles exceed shared memory");
-    return launch(flash_dq_f32_kernel<D>, dim3((Sq + BQ - 1) / BQ, head_blocks(BH)), NTHREADS,
-                  dq_smem<T, D>(), stream, (const T*)q, (const T*)k, (const T*)v,
+    return launch(flash_dq_f32_kernel<D>, dim3((Sq + Tile::B - 1) / Tile::B, head_blocks(BH)),
+                  Tile::THREADS, dq_smem<T, D>(), stream, (const T*)q, (const T*)k, (const T*)v,
                   (const T*)dout, (const float*)lse, (const float*)delta, (const float*)glse,
                   (T*)dq, BH, Sq, Sk, scale, causal, qo, ko);
   }
@@ -1203,16 +1311,19 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
         (err = make_tile_map<T, D>(&mdk, dk, Sk, BH, 64)) ||
         (err = make_tile_map<T, D>(&mdv, dv, Sk, BH, 64)))
       return err;
-    const int nwork = BH * ((Sk + DKV_BK - 1) / DKV_BK);
+    const int nwork = BH * ((Sk + DKV_BK - 1) / DKV_BK) * DkvSmem<D>::HALVES;
     int sms = 0;
     if ((err = sm_count(&sms))) return err;
     return launch(flash_dkv_kernel<T, D>, dim3(nwork < sms ? nwork : sms), SM90_THREADS,
-                  DkvSmem<D>::BYTES, stream, mq, mk, mv, mdo, mdk, mdv, (const float*)lse,
-                  (const float*)delta, (const float*)glse, BH, Sq, Sk, scale, causal, qo, ko);
+                  DkvSmem<D>::BYTES, stream, mq, mk, mv, mdo, mdk, mdv, (T*)dk, (T*)dv,
+                  (const float*)lse, (const float*)delta, (const float*)glse, BH, Sq, Sk, scale,
+                  causal, qo, ko);
   } else {
+    using Tile = F32Tile<D>;
     static_assert(dkv_smem<T, D>() <= SMEM_LIMIT, "dK/dV tiles exceed shared memory");
-    return launch(flash_dkv_f32_kernel<D>, dim3((Sk + BK - 1) / BK, head_blocks(BH)), NTHREADS,
-                  dkv_smem<T, D>(), stream, (const T*)q, (const T*)k, (const T*)v,
+    return launch(flash_dkv_f32_kernel<D>,
+                  dim3((Sk + Tile::B - 1) / Tile::B * Tile::HALVES, head_blocks(BH)),
+                  Tile::THREADS, dkv_smem<T, D>(), stream, (const T*)q, (const T*)k, (const T*)v,
                   (const T*)dout, (const float*)lse, (const float*)delta, (const float*)glse,
                   (T*)dk, (T*)dv, BH, Sq, Sk, scale, causal, qo, ko);
   }
@@ -1225,8 +1336,8 @@ extern "C" {
 int hvd_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH,
                   int Sq, int Sk, int D, int dtype, int causal, int q_offset, int k_offset,
                   float scale, void* stream) {
-  HVD_DISPATCH(dtype, D,
-               (launch_fwd<T, HD>(q, k, v, o, lse, BH, Sq, Sk, scale, causal, q_offset,
+  HVD_DISPATCH_WIDE(dtype, D,
+                    (launch_fwd<T, HD>(q, k, v, o, lse, BH, Sq, Sk, scale, causal, q_offset,
                                   k_offset, (cudaStream_t)stream)));
 }
 
@@ -1234,8 +1345,8 @@ int hvd_flash_dq(const void* q, const void* k, const void* v, const void* dout,
                  const void* lse, const void* delta, const void* glse, void* dq, int BH, int Sq,
                  int Sk, int D, int dtype, int causal, int q_offset, int k_offset, float scale,
                  void* stream) {
-  HVD_DISPATCH(dtype, D,
-               (launch_dq<T, HD>(q, k, v, dout, lse, delta, glse, dq, BH, Sq, Sk, scale,
+  HVD_DISPATCH_WIDE(dtype, D,
+                    (launch_dq<T, HD>(q, k, v, dout, lse, delta, glse, dq, BH, Sq, Sk, scale,
                                  causal, q_offset, k_offset, (cudaStream_t)stream)));
 }
 
@@ -1243,8 +1354,8 @@ int hvd_flash_dkv(const void* q, const void* k, const void* v, const void* dout,
                   const void* lse, const void* delta, const void* glse, void* dk, void* dv,
                   int BH, int Sq, int Sk, int D, int dtype, int causal, int q_offset,
                   int k_offset, float scale, void* stream) {
-  HVD_DISPATCH(dtype, D,
-               (launch_dkv<T, HD>(q, k, v, dout, lse, delta, glse, dk, dv, BH, Sq, Sk, scale,
+  HVD_DISPATCH_WIDE(dtype, D,
+                    (launch_dkv<T, HD>(q, k, v, dout, lse, delta, glse, dk, dv, BH, Sq, Sk, scale,
                                   causal, q_offset, k_offset, (cudaStream_t)stream)));
 }
 

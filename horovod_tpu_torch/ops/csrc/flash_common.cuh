@@ -140,28 +140,39 @@ __device__ __forceinline__ bool visible(int qi, int kj, int Sq, int Sk, int caus
 }
 
 // Dispatch on (dtype, head dim): bf16 and float16 (the Hopper kernels) and
-// float32 (the first versions) at D = 16, 32, 64 and 128.
-#define HVD_DISPATCH_D(D, CALL)                                      \
+// float32 (the first versions) at D = 16, 32, 64 and 128; HVD_DISPATCH_WIDE
+// (the multi-tile kernels) also at D = 256.
+#define HVD_CASES_D(CALL)                                            \
+  case 16: { constexpr int HD = 16; return CALL; }                   \
+  case 32: { constexpr int HD = 32; return CALL; }                   \
+  case 64: { constexpr int HD = 64; return CALL; }                   \
+  case 128: { constexpr int HD = 128; return CALL; }
+#define HVD_SWITCH_D(D, CALL)                                        \
   switch (D) {                                                       \
-    case 16: { constexpr int HD = 16; return CALL; }                 \
-    case 32: { constexpr int HD = 32; return CALL; }                 \
-    case 64: { constexpr int HD = 64; return CALL; }                 \
-    case 128: { constexpr int HD = 128; return CALL; }               \
+    HVD_CASES_D(CALL)                                                \
     default: return cudaErrorInvalidValue;                           \
   }
-#define HVD_DISPATCH(DTYPE, D, CALL)                                 \
+#define HVD_SWITCH_D_WIDE(D, CALL)                                   \
+  switch (D) {                                                       \
+    HVD_CASES_D(CALL)                                                \
+    case 256: { constexpr int HD = 256; return CALL; }               \
+    default: return cudaErrorInvalidValue;                           \
+  }
+#define HVD_DISPATCH_BY(SWITCH, DTYPE, D, CALL)                      \
   do {                                                               \
     if ((DTYPE) == DTYPE_BF16) {                                     \
       using T = bf16;                                                \
-      HVD_DISPATCH_D(D, CALL)                                        \
+      SWITCH(D, CALL)                                                \
     } else if ((DTYPE) == DTYPE_F16) {                               \
       using T = f16;                                                 \
-      HVD_DISPATCH_D(D, CALL)                                        \
+      SWITCH(D, CALL)                                                \
     } else if ((DTYPE) == DTYPE_F32) {                               \
       using T = float;                                               \
-      HVD_DISPATCH_D(D, CALL)                                        \
+      SWITCH(D, CALL)                                                \
     }                                                                \
     return cudaErrorInvalidValue;                                    \
   } while (0)
+#define HVD_DISPATCH(DTYPE, D, CALL) HVD_DISPATCH_BY(HVD_SWITCH_D, DTYPE, D, CALL)
+#define HVD_DISPATCH_WIDE(DTYPE, D, CALL) HVD_DISPATCH_BY(HVD_SWITCH_D_WIDE, DTYPE, D, CALL)
 
 }  // namespace

@@ -2,8 +2,9 @@
 // flash_attention_single.cu share: the warp-specialized block (two consumer
 // warpgroups of 64 rows each, and a producer warpgroup that gives its
 // registers to them), the softmax of a score tile on the consumers'
-// accumulator registers, the epilogue that sends a consumer's output tile
-// out through shared memory by TMA, and the launch of a grid.
+// accumulator registers, the epilogues that send a consumer's output tile
+// out through shared memory by TMA or straight from registers, and the
+// launch of a grid.
 //
 // Everything sits in an anonymous namespace, as in flash_common.cuh.
 
@@ -101,6 +102,26 @@ __device__ __forceinline__ void store_out(const CUtensorMap* map, uint32_t sO,
     for (int b = 0; b < F::NB; ++b)
       tma_store_3d(map, sO + b * 64 * F::ROW_BYTES, b * F::CB, row_first, bh);
     bulk_commit();
+  }
+}
+
+// The epilogue of a tile too wide to stage in shared memory beside the
+// operands (D = 256): a consumer's 64 x W accumulator acc (this thread holds
+// rows row and row + 8 of the output), row half h scaled by mul[h], goes in
+// T straight from registers to those rows of out, a row-major matrix of
+// nrows rows with ld elements per row; rows past nrows are not written.
+template <typename T, int W>
+__device__ __forceinline__ void store_rows(T* out, int ld, const float (&acc)[W / 2],
+                                           const float (&mul)[2], int row, int nrows, int tq) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row + 8 * h >= nrows) continue;
+    uint32_t* dst = reinterpret_cast<uint32_t*>(out + (size_t)(row + 8 * h) * ld);
+#pragma unroll
+    for (int j = 0; j < W / 8; ++j) {
+      const int i = 4 * j + 2 * h;
+      dst[4 * j + tq] = pack2<T>(acc[i] * mul[h], acc[i + 1] * mul[h]);
+    }
   }
 }
 

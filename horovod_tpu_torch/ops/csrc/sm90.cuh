@@ -77,7 +77,8 @@ struct TileFormat {
   static constexpr int NB = D / CB;            // boxes
   static constexpr int ROW_BYTES = CB * 2;     // = the swizzle width
   static constexpr int GROUP_BYTES = 8 * ROW_BYTES;  // one 8-row swizzle atom
-  static_assert(D == 16 || D == 32 || D == 64 || D == 128, "head dims 16, 32, 64, 128");
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128 || D == 256,
+                "head dims 16, 32, 64, 128, 256");
 
   // K-major operand: rows [row0, row0 + M or N) of a tile of R rows, columns
   // [16 kk, 16 kk + 16). Stepping along K moves the start inside the swizzle
@@ -96,11 +97,11 @@ struct TileFormat {
     return (uint32_t)((c / CB) * R * ROW_BYTES) + (a ^ (((a >> 7) & (ROW_BYTES / 16 - 1)) << 4));
   }
 
-  // MN-major operand over all D columns: rows [16 kk, 16 kk + 16) of a tile
-  // of R rows are the contraction. LBO steps from box to box along D, SBO
-  // from one 8-row group to the next.
-  static __device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int R, int kk) {
-    const uint32_t addr = tile + (uint32_t)(kk * 16 * ROW_BYTES);
+  // MN-major operand over the columns from box box0 on: rows [16 kk,
+  // 16 kk + 16) of a tile of R rows are the contraction. LBO steps from box
+  // to box along D, SBO from one 8-row group to the next.
+  static __device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int R, int kk, int box0 = 0) {
+    const uint32_t addr = tile + (uint32_t)(box0 * R * ROW_BYTES + kk * 16 * ROW_BYTES);
     return wgmma_desc(addr, (uint32_t)(R * ROW_BYTES), GROUP_BYTES, ROW_BYTES);
   }
 };
@@ -147,7 +148,7 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[KS][4]) {
 // always the register layout) = 0: A K-major; 1: A MN-major, with the
 // descriptor of TileFormat::mnmajor, as for B: the 64 rows of A are the
 // columns of one 64-column box. The kernels use ss and ss_init at N = 16,
-// 32, 64, 128 and rs at N = 16, 32, 64, 128.
+// 32, 64, 128 and rs at N = 16, 32, 64, 128, 256.
 template <int N, typename T>
 struct Wgmma;
 
@@ -159,6 +160,7 @@ struct Wgmma;
 #define HVD_D16(C, i) HVD_D8(C, i), HVD_D8(C, i + 8)
 #define HVD_D32(C, i) HVD_D16(C, i), HVD_D16(C, i + 16)
 #define HVD_D64(C, i) HVD_D32(C, i), HVD_D32(C, i + 32)
+#define HVD_D128(C, i) HVD_D64(C, i), HVD_D64(C, i + 64)
 #define HVD_REGS8 "%0, %1, %2, %3, %4, %5, %6, %7"
 #define HVD_REGS16 HVD_REGS8 ", %8, %9, %10, %11, %12, %13, %14, %15"
 #define HVD_REGS32 \
@@ -166,6 +168,13 @@ struct Wgmma;
 #define HVD_REGS64                                                                              \
   HVD_REGS32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
              "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define HVD_REGS128 \
+  HVD_REGS64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, " \
+             "%76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, " \
+             "%88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, " \
+             "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+             "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, " \
+             "%124, %125, %126, %127"
 
 // The members of Wgmma<N, T>, whose accumulator is N / 2 floats: TY is the
 // PTX name of T, REGS and DOPS are its register list and operand macro from
@@ -208,15 +217,18 @@ HVD_WGMMA(16, HVD_REGS8, HVD_D8, "8", "9", "10", "11", "12", "13", "14")
 HVD_WGMMA(32, HVD_REGS16, HVD_D16, "16", "17", "18", "19", "20", "21", "22")
 HVD_WGMMA(64, HVD_REGS32, HVD_D32, "32", "33", "34", "35", "36", "37", "38")
 HVD_WGMMA(128, HVD_REGS64, HVD_D64, "64", "65", "66", "67", "68", "69", "70")
+HVD_WGMMA(256, HVD_REGS128, HVD_D128, "128", "129", "130", "131", "132", "133", "134")
 
 #undef HVD_WGMMA
 #undef HVD_WGMMA_T
 #undef HVD_WGMMA_RS
 #undef HVD_WGMMA_SS
+#undef HVD_REGS128
 #undef HVD_REGS64
 #undef HVD_REGS32
 #undef HVD_REGS16
 #undef HVD_REGS8
+#undef HVD_D128
 #undef HVD_D64
 #undef HVD_D32
 #undef HVD_D16

@@ -24,10 +24,11 @@ def make_train_step(model: torch.nn.Module,
     ``DistributedOptimizer(backward_passes_per_step=k)`` the update (and
     ``zero_grad``) happens on every k-th call, as the JAX step leaves the
     parameters unchanged between accumulation boundaries. The returned loss
-    is the one computed before the update, averaged across ranks when
-    ``loss_is_averaged``.
+    is the one computed before the update, averaged across the ranks of
+    the optimizer's process set when ``loss_is_averaged``.
     """
     k = getattr(optimizer, "backward_passes_per_step", 1)
+    process_set = getattr(optimizer, "_ps", None)
     calls = 0
 
     def step(batch):
@@ -40,7 +41,7 @@ def make_train_step(model: torch.nn.Module,
             optimizer.zero_grad(set_to_none=True)
         loss = loss.detach()
         if loss_is_averaged:
-            loss = allreduce(loss, op=Average)
+            loss = allreduce(loss, op=Average, process_set=process_set)
         return loss
 
     return step

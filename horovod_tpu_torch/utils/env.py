@@ -18,12 +18,21 @@ SYNC_MODE = "HOROVOD_SYNC_MODE"
 # "1" keeps the compression / bucketing / collective path on a one-rank
 # world instead of short-circuiting it (measures the framework's overhead).
 FORCE_WIRE_MACHINERY = "HOROVOD_FORCE_WIRE_MACHINERY"
+# The non-finite tripwire over the reduced gradients: warn, skip or abort
+# (unset: no check).
+NONFINITE_ACTION = "HOROVOD_NONFINITE_ACTION"
+# Leveled logging (utils/logging.py).
+LOG_LEVEL = "HOROVOD_LOG_LEVEL"
+LOG_HIDE_TIME = "HOROVOD_LOG_HIDE_TIME"
 
 # World facts written by the launcher for each worker process.
 NUM_PROCESSES = "HOROVOD_NUM_PROCESSES"
 PROCESS_ID = "HOROVOD_PROCESS_ID"
 LOCAL_RANK = "HOROVOD_LOCAL_RANK"
 LOCAL_SIZE = "HOROVOD_LOCAL_SIZE"
+# Host index and host count, where the launcher knows them.
+CROSS_RANK = "HOROVOD_CROSS_RANK"
+CROSS_SIZE = "HOROVOD_CROSS_SIZE"
 # host:port of rank 0's rendezvous for a multi-process world.
 COORDINATOR_ADDR = "HOROVOD_COORDINATOR_ADDR"
 

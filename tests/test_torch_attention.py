@@ -14,6 +14,9 @@ and relative (the two sides sum in different orders).
 
 Head dims without a kernel instance go to the next one, zero-padded
 (``padded_heads``); the plan is held here on the plain versions, to 1e-6.
+Head dims 129 to 256 take the port's multi-tile route at every sequence
+length (the D = 256 instances); the JAX package runs them through its own
+kernels by its blocks, single-tile at S = 64: the two agree in value.
 The kernels against their plain versions on the card are in
 ``tests/test_torch_cuda.py``.
 """
@@ -47,11 +50,19 @@ CASES = [
     # Rows 0..39 see no key; g_lse is nonzero in every case.
     ("causal_single_tile_masked_rows", (1, 2, 96, 128, 16), True, 0, 40,
      None),
+    # Head dims above 128 (the D = 256 instances; 200 is zero-padded to
+    # 256) on both sequence regimes: the port's multi-tile route against
+    # JAX's single-tile kernels (S = 64) and its multi-tile ones (S = 160).
+    ("d256_s64", (1, 2, 64, 64, 256), False, 0, 0, None),
+    ("d256_causal_s160", (1, 2, 160, 160, 256), True, 0, 0, 32),
+    ("d200_causal_s64", (1, 2, 64, 64, 200), True, 0, 0, None),
+    ("d200_s160", (1, 2, 160, 160, 200), False, 0, 0, 32),
 ]
 # Cases whose JAX side takes the single-tile kernels (Sq == block_q and
 # Sk == block_k, horovod_tpu/ops/attention.py:399 and :469).
 SINGLE_TILE_CASES = ("single_tile", "causal_single_tile_offsets",
-                     "single_tile_s128", "causal_single_tile_masked_rows")
+                     "single_tile_s128", "causal_single_tile_masked_rows",
+                     "d256_s64", "d200_causal_s64")
 
 
 def _inputs(shape, seed):
@@ -155,6 +166,24 @@ def test_route_follows_the_single_tile_cap(monkeypatch, S, single):
     want = (["flash_fwd_single", "flash_dqkv"] if single
             else ["flash_fwd", "flash_dq", "flash_dkv"])
     assert calls == want
+
+
+@pytest.mark.parametrize("D", [129, 200, 256])
+@pytest.mark.parametrize("S", [64, 160])
+def test_head_dims_above_128_take_the_multi_tile_route(monkeypatch, S, D):
+    """No single-tile kernel has a D = 256 instance: head dims 129 to 256
+    plan the multi-tile kernels at every sequence length."""
+    assert not port.single_tile_route(S, S, D)
+    assert port.single_tile_route(64, 64, 128)
+    calls = []
+    for name in ("flash_fwd", "flash_dq", "flash_dkv", "flash_fwd_single",
+                 "flash_dqkv"):
+        def spy(*a, _name=name, _fn=getattr(port, name), **kw):
+            calls.append(_name)
+            return _fn(*a, **kw)
+        monkeypatch.setattr(port, name, spy)
+    _port_run(*_inputs((1, 1, S, S, D), seed=D), False, 0, 0)
+    assert calls == ["flash_fwd", "flash_dq", "flash_dkv"]
 
 
 def test_single_tile_wrappers_refuse_longer_sequences():
@@ -344,6 +373,10 @@ _HOPPER_INSTANCES = [(k, d, t) for k in ("flash_fwd_kernel", "flash_dq_kernel",
                                           "flash_fwd_single_kernel",
                                           "flash_dqkv_kernel")
                      for t in _TYPES for d in (16, 32, 64, 128)] + [
+                         (k, 256, t) for k in ("flash_fwd_kernel",
+                                               "flash_dq_kernel",
+                                               "flash_dkv_kernel")
+                         for t in _TYPES] + [
                          ("dw_1x1_kernel", None, t) for t in _TYPES]
 
 
@@ -396,7 +429,10 @@ def test_build_report_names_the_redesigned_hopper_culprit(kernel, d, fault):
     ("flash_fwd_kernel", 32, "serialize"),
     ("flash_dkv_kernel", 128, "spill"),
     ("dw_1x1_kernel", None, "spill"),
-    ("dw_1x1_kernel", None, "serialize")])
+    ("dw_1x1_kernel", None, "serialize"),
+    ("flash_fwd_kernel", 256, "spill"),
+    ("flash_dq_kernel", 256, "serialize"),
+    ("flash_dkv_kernel", 256, "spill")])
 def test_build_report_names_the_float16_hopper_culprit(kernel, d, fault):
     """The same for the float16 instances: the culprit is named with its
     type, and its bf16 twin is not."""
@@ -443,7 +479,7 @@ def test_build_report_flags_spills_and_serialized_wgmma_of_hopper_kernels():
                              for k, d, t in instances)
     regs, faults = smoke.hopper_build_report(clean)
     assert sorted(regs) == sorted(smoke.HOPPER_INSTANCES)
-    assert len(regs) == 42
+    assert len(regs) == 48
     assert set(regs.values()) == {168} and faults == []
 
     def spill(log, kernel, d, t):
@@ -467,24 +503,42 @@ def test_build_report_flags_spills_and_serialized_wgmma_of_hopper_kernels():
             (serialize(clean, "flash_fwd_kernel", 32, "bf16"),
              "flash_fwd_kernel<bf16, 32>"),
             (serialize(clean, "flash_fwd_single_kernel", 128, "f16"),
-             "flash_fwd_single_kernel<f16, 128>")):
+             "flash_fwd_single_kernel<f16, 128>"),
+            (spill(clean, "flash_dkv_kernel", 256, "f16"),
+             "flash_dkv_kernel<f16, 256>"),
+            (serialize(clean, "flash_fwd_kernel", 256, "bf16"),
+             "flash_fwd_kernel<bf16, 256>")):
         _, faults = smoke.hopper_build_report(log)
         assert len(faults) == 1 and faults[0].startswith(culprit), faults
 
 
 @pytest.mark.parametrize("D,want", [(8, 16), (16, 16), (48, 64), (96, 128),
-                                    (128, 128)])
+                                    (128, 128), (129, 256), (200, 256),
+                                    (256, 256)])
 def test_kernel_head_dim_is_the_next_instance(D, want):
     assert port.kernel_head_dim(D) == want
 
 
-@pytest.mark.parametrize("D", [160, 256])
+@pytest.mark.parametrize("D", [257, 512])
 def test_head_dims_above_the_widest_instance_raise(D):
-    with pytest.raises(ValueError, match="1 to 128"):
+    """D > 256 raises naming the limit, from the plan and from the public
+    entry points on the CPU too (no plain-version fallback)."""
+    with pytest.raises(ValueError, match="1 to 256"):
         port.kernel_head_dim(D)
+    t = torch.zeros(1, 1, 8, D)
+    with pytest.raises(ValueError, match="1 to 256"):
+        port.flash_attention(t, t, t)
 
 
-@pytest.mark.parametrize("D", [8, 48, 96])
+def test_single_tile_instances_stop_at_128():
+    """The single-tile route's own plan has no D = 256 instance: its
+    wrappers refuse D > 128 on the card, naming 128."""
+    assert port.kernel_head_dim(100, port.SINGLE_TILE_HEAD_DIMS) == 128
+    with pytest.raises(ValueError, match="1 to 128"):
+        port.kernel_head_dim(129, port.SINGLE_TILE_HEAD_DIMS)
+
+
+@pytest.mark.parametrize("D", [8, 48, 96, 200])
 def test_padded_head_dim_plan_equals_the_plain_version(D):
     """Zero-padding q, k, v and dO from D to the instance's head dim, with
     the scale of the true D, and slicing back gives the plain version at D:

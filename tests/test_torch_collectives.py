@@ -117,12 +117,15 @@ def port_results(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def jax_pair():
-    """A 2-device process set of the JAX package's 8-device CPU world."""
+    """A 2-device process set of the JAX package's 8-device CPU world (one
+    that another test module left registered is used as it is)."""
     import horovod_tpu as jhvd
+    from test_torch_optimizer import _jax_set
 
-    ps = jhvd.add_process_set([0, 1])
+    ps, own = _jax_set([0, 1])
     yield jhvd, ps
-    jhvd.remove_process_set(ps)
+    if own:
+        jhvd.remove_process_set(ps)
 
 
 def test_world_facts(port_results):

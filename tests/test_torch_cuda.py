@@ -76,7 +76,16 @@ def _attention_operands(device, seed, BH, Sq, Sk, D, dtype):
     (torch.float32, 128, 200, 136, True, 70, 0),
     (torch.bfloat16, 96, 200, 264, True, 0, 40),
     (torch.bfloat16, 48, 130, 96, False, 0, 0),
-    (torch.float32, 8, 130, 96, True, 30, 0)])
+    (torch.float32, 8, 130, 96, True, 30, 0),
+    # The D = 256 instances (head dims 129 to 256): ragged and causal with
+    # offsets, a short sequence, float16 and float32, and D = 200 padded.
+    (torch.bfloat16, 256, 200, 264, True, 0, 40),
+    (torch.bfloat16, 256, 264, 200, True, 64, 0),
+    (torch.bfloat16, 256, 77, 100, True, 0, 23),
+    (torch.float16, 256, 264, 200, False, 0, 0),
+    (torch.float32, 256, 200, 136, True, 70, 0),
+    (torch.bfloat16, 200, 130, 96, False, 0, 0),
+    (torch.float32, 160, 77, 100, True, 0, 23)])
 def test_kernels_match_plain_versions_on_the_card(cuda_device, dtype, D, Sq,
                                                   Sk, causal, q_offset,
                                                   k_offset):
@@ -152,9 +161,33 @@ def test_more_heads_than_a_grid_dimension_holds(cuda_device, dtype, S):
 
 @pytest.mark.cuda
 def test_head_dims_above_128_raise_on_the_card(cuda_device):
+    """Head dims above the widest instance raise, naming it: 256 on the
+    multi-tile kernels, 128 on the single-tile ones."""
+    q = torch.zeros(2, 16, 257, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="1 to 256"):
+        port.flash_fwd(q, q, q)
     q = torch.zeros(2, 16, 160, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="1 to 128"):
-        port.flash_fwd(q, q, q)
+        port.flash_fwd_single(q, q, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [64, 160])
+def test_wide_heads_run_the_multi_tile_kernels_on_the_card(cuda_device, S):
+    """flash_attention_lse at D = 256 launches the forward, dQ and dK/dV
+    kernels once each, and no single-tile kernel, at either length."""
+    q, k, v, do, glse = _attention_operands(cuda_device, 3, 2, S, S, 256,
+                                            torch.bfloat16)
+    q, k, v = (t.view(1, 2, S, 256).requires_grad_() for t in (q, k, v))
+    before = {kern.name: kern.launches for kern in _kernels.KERNELS}
+    out, lse = port.flash_attention_lse(q, k, v, causal=True)
+    torch.autograd.backward([out, lse], [do.view(1, 2, S, 256),
+                                         glse.view(1, 2, S)])
+    ran = {kern.name: kern.launches - before[kern.name]
+           for kern in _kernels.KERNELS}
+    assert ran == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1,
+                   "flash_fwd_single": 0, "flash_dqkv": 0, "dw_1x1": 0}
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
 
 
 @pytest.mark.cuda

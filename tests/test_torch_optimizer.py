@@ -8,7 +8,11 @@ module, every configuration in turn); JAX trains it with
 per-step batches, split by rank. Compared: the averaged loss of every call
 and the parameters after the last update. Tolerance: 1e-4 relative
 (float32 trajectories of three updates; the two frameworks sum in
-different orders).
+different orders). The same spawn trains under
+``HOROVOD_NONFINITE_ACTION=skip`` with one rank's batch poisoned by a NaN
+on the second step, held to the JAX package's trajectory under the same
+setting. ``num_groups`` bucket plans are held to the plans the JAX
+package's gradient reduction hands its fused allreduce.
 """
 
 import multiprocessing as mp
@@ -37,6 +41,13 @@ def _problem():
     batches = [(rng.randn(16, 8).astype(np.float32),
                 rng.randn(16).astype(np.float32)) for _ in range(6)]
     return leaves, batches
+
+
+def _poisoned(batches):
+    """The batches with rank 1's rows of the second one made NaN."""
+    out = [(x.copy(), y.copy()) for x, y in batches]
+    out[1][0][8:] = np.nan
+    return out
 
 
 def _torch_loss(model, batch):
@@ -80,8 +91,42 @@ def _worker(rank, init_file, out_dir, leaves, batches):
         for key in leaves:
             res[f"{name}.{key}"] = model[key].detach().numpy().copy()
         opt.remove_hooks()
+    _skip_run(hvd, rank, leaves, _poisoned(batches), res)
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
     hvd.shutdown()
+
+
+def _skip_run(hvd, rank, leaves, batches, res):
+    """Three steps under HOROVOD_NONFINITE_ACTION=skip, the second with a
+    NaN in rank 1's rows: that step leaves every parameter and momentum
+    buffer as it was, bit for bit, and the third moves them."""
+    os.environ["HOROVOD_NONFINITE_ACTION"] = "skip"
+    model = _Params(leaves)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=LR, momentum=MOMENTUM))
+    del os.environ["HOROVOD_NONFINITE_ACTION"]
+    step = hvd.make_train_step(model, _torch_loss, opt)
+    rows = slice(rank * 8, rank * 8 + 8)
+
+    def snapshot():
+        return [t.detach().clone() for t in model.parameters()] + [
+            opt.state[p]["momentum_buffer"].clone()
+            for p in model.parameters()]
+
+    losses, states = [], []
+    for x, y in batches[:3]:
+        losses.append(float(step((torch.from_numpy(x[rows]),
+                                  torch.from_numpy(y[rows])))))
+        states.append(snapshot())
+    res["skip.loss"] = np.array(losses)
+    res["skip.held"] = np.array(all(
+        torch.equal(a, b) for a, b in zip(states[0], states[1])))
+    res["skip.moved"] = np.array(not all(
+        torch.equal(a, b) for a, b in zip(states[1], states[2])))
+    res["skip.detections"] = np.array(opt.nonfinite_steps)
+    for key in leaves:
+        res[f"skip.{key}"] = model[key].detach().numpy().copy()
+    opt.remove_hooks()
 
 
 @pytest.fixture(scope="module")
@@ -109,7 +154,22 @@ def port_results(problem, tmp_path_factory):
     return [dict(np.load(tmp / f"rank{r}.npz")) for r in range(WORLD)]
 
 
-def _jax_trajectory(leaves, batches, comp, k, calls):
+def _jax_set(ranks):
+    """The JAX world's process set over ``ranks``, and whether it was
+    registered here: a set that another test module left registered is
+    used as it is."""
+    import horovod_tpu as jhvd
+    from horovod_tpu import process_sets
+
+    for ps in list(process_sets._table.values()):
+        if ps.ranks == list(ranks):
+            return ps, False
+    return jhvd.add_process_set(list(ranks)), True
+
+
+def _jax_trajectory(leaves, batches, comp, k, calls, ps=None):
+    """The JAX package's trajectory on a two-device process set: ``ps``, or
+    the set over devices 0 and 1."""
     import jax.numpy as jnp
     import optax
 
@@ -118,7 +178,9 @@ def _jax_trajectory(leaves, batches, comp, k, calls):
     from test_overlap import _mlp_problem
 
     params, _, loss_fn = _mlp_problem()
-    ps = jhvd.add_process_set([0, 1])
+    own = False
+    if ps is None:
+        ps, own = _jax_set([0, 1])
     try:
         opt = jhvd.DistributedOptimizer(
             optax.sgd(LR, momentum=MOMENTUM),
@@ -138,7 +200,8 @@ def _jax_trajectory(leaves, batches, comp, k, calls):
                  for layer, sub in p.items() for name, arr in sub.items()}
         return np.array(losses), final
     finally:
-        jhvd.remove_process_set(ps)
+        if own:
+            jhvd.remove_process_set(ps)
 
 
 @pytest.mark.parametrize("name,comp,k,calls", CONFIGS,
@@ -154,6 +217,104 @@ def test_trajectory_matches_jax(problem, port_results, name, comp, k,
                                        err_msg=f"{name}: {key}", **TOL)
     # The parameters moved: the comparison is not of two initial states.
     assert not np.allclose(final["layer0/w"], leaves["layer0/w"])
+
+
+def test_skip_trajectory_matches_jax(problem, port_results, monkeypatch):
+    """HOROVOD_NONFINITE_ACTION=skip with a poisoned step: both packages
+    drop that step's update (its loss is NaN on both) and agree after."""
+    leaves, batches = problem
+    monkeypatch.setenv("HOROVOD_NONFINITE_ACTION", "skip")
+    losses, final = _jax_trajectory(leaves, _poisoned(batches), "none", 1, 3)
+    assert np.isnan(losses[1]) and np.isfinite(losses[[0, 2]]).all()
+    for res in port_results:
+        assert bool(res["skip.held"]) and bool(res["skip.moved"])
+        assert int(res["skip.detections"]) == 1
+        np.testing.assert_allclose(res["skip.loss"], losses, **TOL)
+        for key, want in final.items():
+            np.testing.assert_allclose(res[f"skip.{key}"], want,
+                                       err_msg=f"skip: {key}", **TOL)
+
+
+@pytest.mark.parametrize("num_groups,comp", [(1, "none"), (3, "none"),
+                                             (4, "bf16"), (100, "none")])
+def test_num_groups_bucket_plan_matches_jax(problem, monkeypatch, num_groups,
+                                            comp):
+    """num_groups caps each bucket at total / num_groups bytes of the wire:
+    the port's buckets equal the ones the JAX package's _reduce_grads
+    plans for the same leaves."""
+    import jax.numpy as jnp
+
+    import horovod_tpu as jhvd
+    import horovod_tpu.optimizer as jopt
+    import horovod_tpu_torch as hvd
+    from horovod_tpu.ops.fusion import bucket_leaves as jax_buckets
+
+    leaves, _ = problem
+    plans = []
+
+    def planned(wire, op, axis_name, threshold_bytes, **kw):
+        plans.append(jax_buckets(wire, threshold_bytes))
+        return wire
+
+    monkeypatch.setattr(jopt, "fused_allreduce", planned)
+    jopt._reduce_grads([jnp.asarray(v) for v in leaves.values()],
+                       jhvd.Average, "hvd", getattr(jhvd.Compression, comp),
+                       1.0, 1.0, None, num_groups, world_size=2)
+    for key in [k for k in os.environ if k.startswith("HOROVOD_")]:
+        monkeypatch.delenv(key)
+    hvd.init(device="cpu")
+    try:
+        model = _Params(leaves)
+        params = list(model.parameters())
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(params, lr=LR), num_groups=num_groups,
+            compression=getattr(hvd.Compression, comp))
+        got = [[next(i for i, q in enumerate(params) if q is p) for p in b]
+               for b in opt._buckets]
+    finally:
+        hvd.shutdown()
+    assert len(plans) == 1 and got == plans[0]
+
+
+def test_nonfinite_warn_and_abort():
+    """warn logs, counts and steps; abort raises HorovodInternalError before
+    the step; unset checks nothing. One rank, on the short-circuit path and
+    with the wire forced on."""
+    import subprocess
+    import sys
+
+    code = (
+        "import os, torch, horovod_tpu_torch as hvd\n"
+        "hvd.init(device='cpu')\n"
+        "def run(action, force):\n"
+        "    os.environ.pop('HOROVOD_NONFINITE_ACTION', None)\n"
+        "    if action:\n"
+        "        os.environ['HOROVOD_NONFINITE_ACTION'] = action\n"
+        "    os.environ['HOROVOD_FORCE_WIRE_MACHINERY'] = force\n"
+        "    w = torch.nn.Parameter(torch.tensor([1.0, 2.0]))\n"
+        "    opt = hvd.DistributedOptimizer(torch.optim.SGD([w], lr=1.0))\n"
+        "    (w * torch.tensor([float('nan'), 1.0])).sum().backward()\n"
+        "    try:\n"
+        "        opt.step()\n"
+        "    except hvd.HorovodInternalError as e:\n"
+        "        return 'raised', opt.nonfinite_steps, w.detach().clone()\n"
+        "    return 'stepped', opt.nonfinite_steps, w.detach().clone()\n"
+        "for force in ('0', '1'):\n"
+        "    out, n, w = run('warn', force)\n"
+        "    assert out == 'stepped' and n == 1 and torch.isnan(w[0]), (out, n, w)\n"
+        "    out, n, w = run('abort', force)\n"
+        "    assert out == 'raised' and n == 1 and torch.equal(w, torch.tensor([1.0, 2.0]))\n"
+        "    out, n, w = run('skip', force)\n"
+        "    assert out == 'stepped' and n == 1 and torch.equal(w, torch.tensor([1.0, 2.0]))\n"
+        "    out, n, w = run(None, force)\n"
+        "    assert out == 'stepped' and n == 0 and torch.isnan(w[0])\n"
+        "hvd.shutdown()\n")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("HOROVOD_")}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stderr.count("non-finite reduced gradients") == 6
 
 
 def test_single_rank_short_circuit_applies_only_the_scales():
