@@ -5,6 +5,7 @@
     python3 chip_diag.py ab OTHER_CHECKOUT
     python3 chip_diag.py watchdog
     python3 chip_diag.py collectives [--cpu]
+    python3 chip_diag.py fsdp_gathers
 
 ``ab`` times the kernels of OTHER_CHECKOUT and of this checkout at
 chip_smoke.py's shapes: at its BERT-Large path shapes (D = 64, bf16,
@@ -36,6 +37,18 @@ mean of each checkout's two processes and the ratio other / this.
 the kernel ends with an error once the wait's timeout has passed instead of
 hanging. The kernel faults on purpose, so it runs in a process of its own.
 
+``fsdp_gathers`` times chip_smoke.py's BERT-Large S = 512 x 8 under
+``sync_mode="fsdp"`` (AdamW, bf16 wire, one card with the wire forced on)
+with four placements of the parameter gathers, in the order A B C D D C B
+A, twice: A every segment gathered before the forward (``opt.gather()``)
+and the model run through ``torch.func.functional_call``, as the port ran
+fsdp before its gathers were placed just in time; B ``make_train_step``
+with ``HOROVOD_FSDP_RESHARD_AFTER_FORWARD=0`` (one gather up front, no
+saved-tensor hook); C and D ``make_train_step`` just in time with 1 and 4
+segments. Each run takes 13 steps (3 untimed); it prints each placement's
+step medians, peak memory above what was held before the run, and its
+last loss.
+
 ``collectives`` runs the eager surface across ranks, one process per card
 (every visible card, at least two) over NCCL, or with ``--cpu`` four
 processes over gloo: allreduce and reducescatter with every reduce op,
@@ -44,7 +57,21 @@ included), ragged allgather, broadcast, the grouped forms, async forms
 with poll and synchronize, subsets {0, 1} and {1, ..., n-1} (members'
 collectives, a non-member's refusal, removal), allgather_object and
 masked_average. Every rank holds each result to a numpy reference made
-from the same seeded inputs (float32 sums against float64, 1e-5).
+from the same seeded inputs (float32 sums against float64, 1e-5). Then
+BERT-Large (``--cpu``: BERT_TINY) trains 3 AdamW steps from the same weights
+under each sync mode, each rank on its own batch: sharded and fsdp over the
+float32 wire with SGD and momentum, held to the allreduce run by
+chip_smoke.py's check (the parameters' gap to the allreduce run within
+``MODE_GAP_BOUND`` of the allreduce run's update, losses within
+``MODE_LOSS_RTOL``), with a control (sharded, one bucket's gradients
+dropped) that must fail it; then with AdamW sharded and fsdp over the
+float32 wire and allreduce, sharded and fsdp over the int8 wire, whose
+quantizations differ by mode, held to the float32 AdamW allreduce run on
+their losses (``MODE_LOSS_RTOL``; int8 2e-2 relative). Each rank prints
+its
+optimizer-state bytes (about 1/n of the allreduce run's in the sharded
+modes, or the check fails), fsdp's resident parameter bytes, step time and
+peak memory per mode.
 """
 
 from __future__ import annotations
@@ -403,7 +430,143 @@ def _collectives_rank(rank, n, device, init_method):
     hvd.barrier()
     print(f"rank {rank}: {len(held)} results held to the numpy reference "
           f"over {dist_backend(device)}", flush=True)
+    _sync_mode_trajectories(hvd, rank, n, device)
     hvd.shutdown()
+
+
+# The sync modes across ranks: steps per run, AdamW's learning rate, and
+# the int8 runs' bound on a loss (the float32-wire runs take chip_smoke.py's
+# MODE_GAP_BOUND and MODE_LOSS_RTOL).
+MODE_STEPS, MODE_LR = 3, 1e-4
+INT8_LOSS_RTOL = 2e-2
+
+
+def _sync_mode_trajectories(hvd, rank, n, device):
+    """BERT-Large (BERT_TINY with --cpu) at S = 128, 8 sequences per rank,
+    from the same weights under allreduce, sharded and fsdp: with SGD and
+    momentum on the float32 wire, each mode's parameters and losses held to
+    the allreduce run's by ``chip_smoke._hold_mode``, beside the control
+    that must fail it; with AdamW on the float32 and the int8 wire, the
+    losses, and per rank the optimizer-state bytes, the fsdp resident
+    parameter bytes, the step time and the peak memory over the steps
+    (above what the rank held before the run)."""
+    import dataclasses
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from horovod_tpu_torch.models import bert as bert_mod
+
+    cuda = device == "cuda"
+    base = bert_mod.BERT_LARGE if cuda else bert_mod.BERT_TINY
+    cfg = dataclasses.replace(base, dropout_rate=0.0)
+    dev = hvd.device()
+    rng = np.random.RandomState(100 + rank)
+    B, S, P = 8, 128, 20
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, S))).to(dev)
+    pos = torch.from_numpy(np.stack([rng.choice(S, P, replace=False)
+                                     for _ in range(B)])).to(dev)
+    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, P))).to(dev)
+    mask = torch.ones(B, P, dtype=torch.int64, device=dev)
+
+    def loss_fn(model, batch):
+        _, logits = model(batch[0], masked_positions=batch[1])
+        return bert_mod.mlm_loss(logits, batch[2], batch[3])
+
+    smoke = _smoke()
+    initial = []
+
+    def run(mode, comp, prepare=None, sgd=False):
+        held = torch.cuda.memory_allocated() if cuda else 0
+        torch.manual_seed(0)
+        with torch.device(dev):
+            model = bert_mod.Bert(cfg, attention_fn=bert_mod.flash_attention_fn)
+        if not initial:
+            initial.extend(p.detach().clone() for p in model.parameters())
+        total = sum(p.numel() * p.element_size() for p in model.parameters())
+        inner = (torch.optim.SGD(model.parameters(), lr=smoke.MODE_SGD_LR,
+                                 momentum=smoke.MODE_SGD_MOMENTUM) if sgd
+                 else torch.optim.AdamW(model.parameters(), lr=MODE_LR,
+                                        weight_decay=1e-4))
+        opt = hvd.DistributedOptimizer(
+            inner, compression=getattr(hvd.Compression, comp),
+            sync_mode=mode)
+        step = hvd.make_train_step(model, loss_fn, opt)
+        if prepare is not None:
+            prepare(model, opt, step)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for _ in range(MODE_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(step((ids, pos, labels, mask))))
+            if cuda:
+                torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = ((torch.cuda.max_memory_allocated() - held) / 2**30 if cuda
+                else None)
+        params = (opt.full_parameters() if mode == "fsdp"
+                  else [p.detach().clone() for p in model.parameters()])
+        state = sum(v.numel() * v.element_size() for st in opt.state.values()
+                    for v in st.values() if torch.is_tensor(v) and v.dim())
+        facts = dict(
+            step_ms=statistics.median(times[1:]), state_bytes=state,
+            total_param_bytes=total,
+            peak_gib=peak,
+            resident_param_bytes=(hvd.resident_param_bytes(opt)
+                                  if mode == "fsdp" else total))
+        opt.remove_hooks()
+        del model, opt, step
+        if cuda:
+            torch.cuda.empty_cache()
+        return losses, params, facts
+
+    ref_losses, ref, _ = run("allreduce", "none", sgd=True)
+    report = {}
+    for mode in ("sharded", "fsdp"):
+        losses, params, _ = run(mode, "none", sgd=True)
+        gap, _, largest = smoke._hold_mode(f"rank {rank} {mode} sgd", params,
+                                           losses, ref, ref_losses, initial)
+        report[f"{mode}/sgd"] = dict(gap=gap, largest_difference=largest)
+    losses, params, _ = run("sharded", "none", sgd=True,
+                            prepare=smoke._drop_a_bucket)
+    try:
+        smoke._hold_mode(f"rank {rank} control", params, losses, ref,
+                         ref_losses, initial)
+    except AssertionError as e:
+        report["control"] = str(e)
+    else:
+        raise AssertionError(f"rank {rank}: a sharded run that drops a "
+                             "bucket's gradients passed the check")
+    del params, ref
+    ref_losses, params, report["allreduce/none"] = run("allreduce", "none")
+    del params
+    for mode, comp in (("sharded", "none"), ("fsdp", "none"),
+                       ("allreduce", "int8"), ("sharded", "int8"),
+                       ("fsdp", "int8")):
+        losses, params, facts = run(mode, comp)
+        report[f"{mode}/{comp}"] = facts
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"rank {rank} {mode}/{comp}: losses "
+                                 f"{losses}")
+        rtol = INT8_LOSS_RTOL if comp == "int8" else smoke.MODE_LOSS_RTOL
+        if not all(abs(a - b) <= rtol * abs(b)
+                   for a, b in zip(losses, ref_losses)):
+            raise AssertionError(f"rank {rank} {mode}/{comp}: losses "
+                                 f"{losses} vs allreduce {ref_losses}")
+        if mode != "allreduce" and comp == "none" and not (
+                facts["state_bytes"] <= report["allreduce/none"]
+                ["state_bytes"] / n + 8 * 1024 * 1024):
+            raise AssertionError(f"rank {rank} {mode}: optimizer state "
+                                 f"{facts['state_bytes']} bytes is not about "
+                                 f"1/{n} of the whole")
+        del params
+    print(f"rank {rank}: sync modes over {n} ranks, {cfg.num_layers} layers "
+          f"x {cfg.hidden_size}, S={S} x {B} per rank, {MODE_STEPS} steps "
+          "a run: the SGD runs' parameters and losses and the AdamW runs' "
+          "losses held to the allreduce run's; "
+          f"per rank {json.dumps(report)}", flush=True)
 
 
 def dist_backend(device):
@@ -442,6 +605,76 @@ def collectives(cpu):
     return 0 if codes == [0] * n else 1
 
 
+def fsdp_gathers():
+    import gc
+    import statistics
+
+    import torch
+
+    smoke = _smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = smoke.card_line()
+    smoke.build_phase()
+    os.environ["HOROVOD_FORCE_WIRE_MACHINERY"] = "1"
+    sys.path.insert(0, HERE)
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops.collective_ops import Average, allreduce
+
+    hvd.init()
+    smoke.WARMUP_STEPS = 3
+
+    class Loss(torch.nn.Module):
+        def __init__(self, model):
+            super().__init__()
+            self.model = model
+
+        def forward(self, batch):
+            return smoke._bert_loss(self.model, batch)
+
+    def all_at_once(model, opt, step):
+        names_of = {id(p): n for n, p in model.named_parameters()}
+        names = [f"model.{names_of[id(p)]}" for p in opt._params]
+        module = Loss(model)
+
+        def run(batch):
+            full = opt.gather()
+            loss = torch.func.functional_call(module, dict(zip(names, full)),
+                                              (batch,))
+            loss.backward()
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+            return allreduce(loss.detach(), op=Average)
+
+        return run
+
+    placements = {"A all at once": ("1", "4", all_at_once),
+                  "B up front": ("0", "4", None),
+                  "C just in time, 1 segment": ("1", "1", None),
+                  "D just in time, 4 segments": ("1", "4", None)}
+    names = list(placements)
+    results = {}
+    for name in (names + names[::-1]) * 2:
+        reshard, segments, prepare = placements[name]
+        os.environ["HOROVOD_FSDP_RESHARD_AFTER_FORWARD"] = reshard
+        os.environ["HOROVOD_FSDP_SEGMENTS"] = segments
+        model, opt, losses, ms, peak = smoke._bert_mode_run(
+            card, f"fsdp {name}", "fsdp", hvd.Compression.bf16, steps=13,
+            prepare=prepare)
+        results.setdefault(name, []).append((ms, peak, losses[-1]))
+        opt.remove_hooks()
+        del model, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name, runs in results.items():
+        print(f"fsdp_gathers {name}: step medians "
+              f"{[round(r[0], 2) for r in runs]} ms (median "
+              f"{statistics.median(r[0] for r in runs):.2f}), peak "
+              f"{[round(r[1], 3) for r in runs]} GiB, last loss "
+              f"{[round(r[2], 5) for r in runs]} on {card}")
+    hvd.shutdown()
+    return 0
+
+
 def main() -> int:
     args = sys.argv[1:]
     if args[:1] == ["_worker"] and len(args) == 3:
@@ -458,6 +691,8 @@ def main() -> int:
         return ab(args[1])
     if args == ["watchdog"]:
         return watchdog()
+    if args == ["fsdp_gathers"]:
+        return fsdp_gathers()
     print(__doc__, file=sys.stderr)
     return 2
 

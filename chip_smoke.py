@@ -14,7 +14,7 @@ and prints no result line); each prints its seconds:
    (wgmma) instances (the bf16 and float16 forward, dQ, dK/dV, single-tile
    forward and fused backward at D=16, 32, 64, 128, the forward, dQ and
    dK/dV at D=256, and the bf16 and float16 filter gradient) may spill or
-   have its wgmma serialized;
+   have its wgmma serialized, nor any of the 9 wide-head instances spill;
 3. kernel phase: every kernel against its plain PyTorch version on the same
    inputs, with times beside the bound and the library yardstick:
    - the multi-tile forward, dQ and dK/dV flash-attention kernels
@@ -44,7 +44,13 @@ and prints no result line); each prints its seconds:
 4. wide-heads phase: causal bf16 attention layers at D=256 (S=512 and
    S=128) through ``flash_attention_lse``, forward and backward: the
    launch counters show the D=256 forward, dQ and dK/dV ran once per layer
-   and no single-tile kernel did; D=257 raises naming 256;
+   and no other kernel did; then the ``wide`` phase: the three wide-head
+   kernels (head dims above 256) against their plain versions in bf16,
+   float16 and float32 at D=512 (B*H=32, S=512; bf16 timed beside its
+   bound and the first SDPA backend that takes D=512, named), D=320 causal
+   and ragged (200 rows over 300 keys, 40 of them seeing none) and D=1024,
+   and 4 causal bf16 layers at D=512 through ``flash_attention_lse``, each
+   launching each wide kernel once and no other kernel;
 5. training phase: synchronous data-parallel BERT-Large training through
    ``init`` / ``DistributedOptimizer`` / ``broadcast_parameters`` with the
    1-rank NCCL bucketed allreduce forced on, on two paths: sequence 512
@@ -70,7 +76,25 @@ and prints no result line); each prints its seconds:
    splits, the grouped forms, every async form with poll and synchronize,
    allgather_object and masked_average, each held to the one-rank result
    and timed; ``add_process_set([0])`` must raise (the global set's ranks);
-10. agreement: the flash model against dense attention on small float32
+10. sync modes: BERT-Large S=512 x 8 (full width, 24 layers, 5 steps
+   from the same weights and batch) under sharded and fsdp (4 segments),
+   each held to the allreduce run that computes the same function: with
+   SGD and momentum its parameters (within ``MODE_GAP_BOUND`` of the
+   reference's update) and losses (within ``MODE_LOSS_RTOL``), on the
+   float32 wire against the allreduce
+   run, beside a control (a sharded run that drops one bucket's gradients)
+   that must fail the check, and on the bf16 wire against the allreduce
+   run rounded to bf16 after each step (sharded) or with its forward on
+   the parameters rounded to bf16 (fsdp); with AdamW on the bf16 wire,
+   timed and profiled, its losses; fsdp with 1 segment for its peak memory
+   beside 4; the optimizer-state bytes per rank (the whole at world size
+   1) and fsdp's resident parameter bytes;
+   the int8 wire in allreduce mode (losses fall; one step's gradients
+   round-trip within a quantum of each block; ``_sround`` equal on card
+   and CPU); a 2-layer BERT-Large saved under sharded and resumed under
+   allreduce, and the other way round, equal to an uninterrupted run;
+   each with its step time and its peak memory above what was held before;
+11. agreement: the flash model against dense attention on small float32
    inputs, on each attention route; and ResNet-50 in float32 on the card
    against the CPU on the same weights (2 images at 64x64): logits in both
    modes, and the running statistics after one training-mode forward.
@@ -235,6 +259,28 @@ def hopper_build_report(log):
     return regs, faults
 
 
+_WIDE_NAME = re.compile(
+    r"(flash_(?:fwd|dq|dkv)_wide_kernel)I(f|6__half|13__nv_bfloat16)E")
+WIDE_TYPES = {"f": "f32", "6__half": "f16", "13__nv_bfloat16": "bf16"}
+
+
+def wide_build_report(log):
+    """From nvcc's ``-Xptxas -v`` output: the registers per thread of each
+    wide-head instance (3 kernels x 3 types), and their spills."""
+    regs, faults, entry = {}, [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            found = _WIDE_NAME.search(line)
+            entry = (f"{found.group(1)}<{WIDE_TYPES[found.group(2)]}>"
+                     if found else None)
+        elif entry and "Used" in line and "registers" in line:
+            regs[entry] = int(line.split("Used ")[1].split()[0])
+        elif entry and "spill" in line and not line.strip().endswith(
+                "0 bytes spill stores, 0 bytes spill loads"):
+            faults.append(f"{entry}: {line.strip()}")
+    return regs, faults
+
+
 def build_phase():
     from horovod_tpu_torch.ops import _kernels
 
@@ -258,6 +304,12 @@ def build_phase():
             f"{list(HOPPER_INSTANCES)}); spills or serialized wgmma: {faults}")
     print(f"build: Hopper instances, registers per thread at entry: {hopper}; "
           "no spills, no serialized wgmma")
+    wide, faults = wide_build_report(log)
+    if len(wide) != 9 or faults:
+        raise AssertionError(f"build: wide-head instances {sorted(wide)} "
+                             f"(expected 9); spills: {faults}")
+    print(f"build: wide-head instances, registers per thread: {wide}; no "
+          "spills")
     return seconds
 
 
@@ -863,6 +915,9 @@ _CATEGORIES = (  # first match wins; by lower-cased kernel name
     ("flash_fwd_single", ("flash_fwd_single_kernel",
                           "flash_fwd_single_f32_kernel")),
     ("flash_dqkv", ("flash_dqkv_kernel", "flash_dqkv_f32_kernel")),
+    ("flash_fwd_wide", ("flash_fwd_wide_kernel",)),
+    ("flash_dq_wide", ("flash_dq_wide_kernel",)),
+    ("flash_dkv_wide", ("flash_dkv_wide_kernel",)),
     ("dw_1x1", ("dw_1x1_kernel", "dw_1x1_partial_f32_kernel",
                 "dw_1x1_reduce_kernel")),
     # cuDNN's convolutions (implicit-GEMM xmma/cutlass kernels named for
@@ -943,9 +998,8 @@ WIDE_SHAPES = ((8, 16, 512, 256), (64, 16, 128, 256))
 
 def wide_heads_phase():
     """Head dims above 128 through the entry point: each layer launches the
-    D = 256 forward, dQ and dK/dV once and no single-tile kernel; the
-    outputs are finite and D = 257 raises naming 256. Returns the launch
-    counts of this path."""
+    D = 256 forward, dQ and dK/dV once and no other kernel; the outputs are
+    finite. Returns the launch counts of this path."""
     import torch
 
     from horovod_tpu_torch.ops import _kernels
@@ -964,27 +1018,161 @@ def wide_heads_phase():
     torch.cuda.synchronize()
     launches = {k.name: k.launches for k in _kernels.KERNELS}
     want = len(layers)
-    if launches != {"flash_fwd": want, "flash_dq": want, "flash_dkv": want,
-                    "flash_fwd_single": 0, "flash_dqkv": 0, "dw_1x1": 0}:
+    expected = {k.name: 0 for k in _kernels.KERNELS}
+    expected.update(flash_fwd=want, flash_dq=want, flash_dkv=want)
+    if launches != expected:
         raise AssertionError(f"wide heads: launches {launches}; expected "
                              f"{want} of each multi-tile kernel and no other")
     for q, k, v in layers:
         if not all(torch.isfinite(t.grad).all() for t in (q, k, v)):
             raise AssertionError("wide heads: non-finite gradients")
-    t = torch.zeros(1, 1, 16, 257, device="cuda", dtype=torch.bfloat16)
-    try:
-        A.flash_attention(t, t, t)
-    except ValueError as e:
-        if "256" not in str(e):
-            raise
-        refusal = str(e)
-    else:
-        raise AssertionError("wide heads: D = 257 did not raise")
     print(f"wide heads: {len(layers)} causal bf16 attention layers at "
           f"{WIDE_SHAPES} (B, H, S, D) through flash_attention_lse, forward "
-          f"and backward: launches {launches}; D = 257 raised: {refusal}")
+          f"and backward: launches {launches}")
     return {f"{k}_d256": n for k, n in launches.items()
             if k in ("flash_fwd", "flash_dq", "flash_dkv")}
+
+
+# Head dims above 256 (the wide-head kernels): name, B*H, Sq, Sk, D, causal,
+# q_offset, k_offset, timed. D = 512 at B*H = 32, S = 512 is timed into the
+# kernels line; D = 320 is causal and ragged (200 rows over 300 keys, rows
+# 0..39 seeing none) and D = 1024 a launch at 4 x 128, each in bf16, float16
+# and float32.
+WIDE_CASES = (
+    ("wide_d512", 32, 512, 512, 512, False, 0, 0, True),
+    ("wide_d320_causal_ragged", 6, 200, 300, 320, True, 0, 40, False),
+    ("wide_d1024", 4, 128, 128, 1024, True, 0, 0, False),
+)
+# The wide-head path: a stack of causal bf16 attention layers at D = 512
+# through flash_attention_lse (B, H, S, D).
+WIDE_PATH_LAYERS = 4
+WIDE_PATH_SHAPE = (2, 16, 512, 512)
+WIDE_KERNELS = ("flash_fwd_wide", "flash_dq_wide", "flash_dkv_wide")
+
+
+def _sdpa_backend(q4, k4, v4, do4):
+    """The first of SDPA's backends that takes these inputs, with its
+    forward and backward ms: ``(name, fwd_ms, bwd_ms, refusals)``; name
+    None when none does."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    refusals = []
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel(backend):
+                F.scaled_dot_product_attention(q4, k4, v4)
+                torch.cuda.synchronize()
+        except RuntimeError as e:
+            refusals.append(f"{backend.name}: {str(e).splitlines()[0][:80]}")
+            continue
+        with sdpa_kernel(backend):
+            fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4))
+            out4 = F.scaled_dot_product_attention(q4, k4, v4)
+            bwd_ms = time_ms(lambda: torch.autograd.grad(
+                out4, (q4, k4, v4), do4, retain_graph=True))
+        return backend.name, fwd_ms, bwd_ms, refusals
+    return None, None, None, refusals
+
+
+def wide_phase():
+    """The three wide-head kernels against their plain versions in bf16,
+    float16 and float32 (``WIDE_CASES``), the D = 512 bf16 case timed
+    beside its bound and SDPA; then the wide-head path, with the counters
+    set to 0 just before it: every layer launches each wide kernel once
+    and no other kernel. Returns (measurements, launches)."""
+    import torch
+
+    from horovod_tpu_torch.ops import _kernels
+    from horovod_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    measured = {}
+    for (case, BH, Sq, Sk, D, causal, qo, ko, timed) in WIDE_CASES:
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
+            dname = str(dtype).split(".")[-1]
+
+            def rnd(*shape, dt=dtype):
+                return torch.randn(*shape, generator=gen, device="cuda",
+                                   dtype=torch.float32).to(dt)
+
+            q, k, v, do = rnd(BH, Sq, D), rnd(BH, Sk, D), rnd(BH, Sk, D), \
+                rnd(BH, Sq, D)
+            o_ref, lse_ref = A.flash_fwd_plain(q, k, v, causal, qo, ko)
+            delta = (do.float() * o_ref.float()).sum(-1)
+            glse = rnd(BH, Sq, dt=torch.float32)
+            bwd_args = (q, k, v, do, lse_ref, delta, glse, causal, qo, ko)
+            fwd_args = (q, k, v, causal, qo, ko)
+            runs = {
+                "flash_fwd_wide": (lambda: A.flash_fwd(*fwd_args),
+                                   lambda: A.flash_fwd_plain(*fwd_args)),
+                "flash_dq_wide": (lambda: (A.flash_dq(*bwd_args),),
+                                  lambda: (A.flash_dq_plain(*bwd_args),)),
+                "flash_dkv_wide": (lambda: A.flash_dkv(*bwd_args),
+                                   lambda: A.flash_dkv_plain(*bwd_args)),
+            }
+            library = {}
+            if timed and dtype == torch.bfloat16:
+                B, H = 1, BH
+                q4, k4, v4 = (t.view(B, H, -1, D).detach().requires_grad_()
+                              for t in (q, k, v))
+                backend, fwd_ms, bwd_ms, refusals = _sdpa_backend(
+                    q4, k4, v4, do.view(B, H, -1, D))
+                print(f"library {case} {dname}: SDPA backend {backend} "
+                      f"(forward {fwd_ms} ms, backward dQ+dK+dV {bwd_ms} "
+                      f"ms); refused by: {refusals or 'none'}")
+                library = {"flash_fwd_wide": fwd_ms}
+            for name, (kern, plain) in runs.items():
+                got = kern()
+                want = plain()
+                torch.cuda.synchronize()
+                fwd = name == "flash_fwd_wide"
+                err, line = _hold(f"{case}_{dname}", name, got, want,
+                                  TOL[dname], lse_index=1 if fwd else None)
+                if fwd:
+                    empty = int((want[1] == A.LSE_MASKED).sum().item())
+                    if empty != int((got[1] == A.LSE_MASKED).sum().item()):
+                        raise AssertionError(
+                            f"{case}: masked-row sentinels differ")
+                    line += f" (fully masked rows: {empty})"
+                bounds = _bounds(name[:-len("_wide")], BH, Sq, Sk, D, dname,
+                                 causal, qo, ko)
+                if timed and dtype == torch.bfloat16:
+                    numbers, text = _timing(kern, plain, bounds,
+                                            library.get(name))
+                    measured[name] = dict(max_abs_err=err, **numbers)
+                    line += text
+                elif timed:
+                    line += (f" ms {time_ms(kern):.4f} bound_ms "
+                             f"{bounds[0]:.4f} ({bounds[1]})")
+                print(line)
+    B, H, S, D = WIDE_PATH_SHAPE
+    layers = [[torch.randn(B, H, S, D, generator=gen, device="cuda",
+                           dtype=torch.bfloat16).requires_grad_()
+               for _ in range(3)] for _ in range(WIDE_PATH_LAYERS)]
+    for kern in _kernels.KERNELS:
+        kern.launches = 0
+    for q, k, v in layers:
+        out, lse = A.flash_attention_lse(q, k, v, causal=True)
+        (out.float().square().sum() + lse.sum()).backward()
+    torch.cuda.synchronize()
+    launches = {kern.name: kern.launches for kern in _kernels.KERNELS}
+    expected = {kern.name: 0 for kern in _kernels.KERNELS}
+    expected.update({name: WIDE_PATH_LAYERS for name in WIDE_KERNELS})
+    if launches != expected:
+        raise AssertionError(f"wide: launches {launches}; expected "
+                             f"{WIDE_PATH_LAYERS} of each wide kernel and no "
+                             "other")
+    for q, k, v in layers:
+        if not all(torch.isfinite(t.grad).all() for t in (q, k, v)):
+            raise AssertionError("wide: non-finite gradients")
+    print(f"wide: {WIDE_PATH_LAYERS} causal bf16 attention layers at "
+          f"{WIDE_PATH_SHAPE} (B, H, S, D) through flash_attention_lse, "
+          f"forward and backward: launches {launches}")
+    return measured, {name: launches[name] for name in WIDE_KERNELS}
 
 
 def collectives_phase(card):
@@ -1101,6 +1289,493 @@ def collectives_phase(card):
           "without splits, grouped forms, 11 async forms with poll and "
           "synchronize, allgather_object and masked_average equal to the "
           f"one-rank results; add_process_set([0]) raised: {dup}")
+
+
+# The sync modes' BERT-Large runs: steps per run (the first WARMUP_STEPS
+# untimed), the profiled steps the timed runs take after them, and the
+# learning rates of the two optimizers the phase runs.
+MODE_STEPS = 5
+MODE_PROFILED_STEPS = 2
+MODE_LR = 1e-4
+MODE_SGD_LR, MODE_SGD_MOMENTUM = 1e-2, 0.9
+# Each sync mode is held to a reference run that computes the same function
+# from the same weights and batch: its parameters' gap ||p - p_ref|| /
+# ||p_ref - p0|| over all parameters (p0 the initial weights; the
+# denominator is what the reference's updates moved) within MODE_GAP_BOUND,
+# and every loss within MODE_LOSS_RTOL of the reference's. The references
+# are allreduce runs: on the float32 wire as they are; on the bf16 wire
+# with the parameters rounded to bf16 after every step for the sharded mode
+# (which gathers its updated parameters through the wire), and with the
+# forward reading them rounded to bf16 for fsdp (which gathers them through
+# the wire for the forward, and keeps float32 shards). A control run
+# (sharded, float32 wire, one bucket's reduced gradients dropped) must fail
+# the check.
+#
+# The parameters are held on SGD with momentum. Correct runs measured gaps
+# of 0.0068 to 0.0076 (0 for sharded on the bf16 wire), the control 0.197,
+# on one H100 80GB HBM3 at 700 W; the bound sits 4x above the first and
+# 6.6x below the second. No single parameter is held: the
+# attention key biases, whose gradient is zero but for rounding, move by
+# their rounding alone, and differ by more than their own move between any
+# two runs (1.2 to 1.3 of it). AdamW divides each gradient by its own
+# magnitude, so it turns such differences into moves of up to lr wherever
+# a gradient is near zero: correct AdamW runs measured gaps of 0.048 to
+# 0.222 against the control's 0.276, so the AdamW runs (the timed ones) are
+# held on their losses.
+MODE_GAP_BOUND = 0.03
+MODE_LOSS_RTOL = 1e-3
+FSDP_SEGMENTS = 4
+# The checkpoint phase: BERT-Large at full width cut to 2 layers, the plain
+# float32 wire. What a load restores (parameters, AdamW state) must equal
+# what was saved bit for bit; the resumed run's parameters after step 4
+# must lie within 1e-5 of the uninterrupted run's plus 2 lr per step (its
+# embedding gradients are summed with atomics, in an order that changes
+# from run to run, and AdamW turns a near-zero gradient's rounding into a
+# move of up to lr), and its losses within 1e-3.
+CKPT_LAYERS = 2
+CKPT_STEPS = 4
+
+
+def _bert_mode_run(card, name, mode, compression, steps=MODE_STEPS,
+                   num_layers=None, profile=False, prepare=None, sgd=False):
+    """BERT-Large S = 512 x 8 (``BERT_PATHS[0]``) from seed 0, AdamW (with
+    ``sgd``: SGD with momentum), under ``sync_mode=mode`` and
+    ``compression``: ``steps`` steps on one batch,
+    the counters set to 0 just before them. The multi-tile attention
+    kernels must launch once per layer per step and no other kernel.
+    With ``profile``, two more steps are profiled (``profile_steps``).
+    ``prepare(model, opt, step)`` may return a step to run in its place.
+    Returns (model, optimizer, losses, step ms, peak GiB); the peak is
+    what the run allocated above what was allocated before it was built.
+    With ``steps=0``: the model and optimizer as built."""
+    import dataclasses
+
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import bert as bert_mod
+    from horovod_tpu_torch.ops import _kernels
+
+    _, batch_size, seq, predictions, kernels = BERT_PATHS[0]
+    dev = hvd.device()
+    held = torch.cuda.memory_allocated()
+    cfg = dataclasses.replace(bert_mod.BERT_LARGE, dropout_rate=0.0,
+                              num_layers=num_layers
+                              or bert_mod.BERT_LARGE.num_layers)
+    torch.manual_seed(0)
+    with torch.device(dev):
+        model = bert_mod.Bert(cfg, attention_fn=bert_mod.flash_attention_fn)
+    inner = (torch.optim.SGD(model.parameters(), lr=MODE_SGD_LR,
+                             momentum=MODE_SGD_MOMENTUM) if sgd
+             else torch.optim.AdamW(model.parameters(), lr=MODE_LR,
+                                    weight_decay=1e-4))
+    opt = hvd.DistributedOptimizer(inner, compression=compression,
+                                   sync_mode=mode)
+    step = hvd.make_train_step(model, _bert_loss, opt)
+    if prepare is not None:
+        step = prepare(model, opt, step) or step
+    batch = _bert_batch(cfg, batch_size, seq, predictions, 0, dev)
+    if not steps:
+        return model, opt, [], None, None
+    for k in _kernels.KERNELS:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = _train(name, step, batch, steps)
+    launches = {k.name: k.launches for k in _kernels.KERNELS}
+    for kname, n in launches.items():
+        want = cfg.num_layers * steps if kname in kernels else 0
+        if n != want:
+            raise AssertionError(f"{name}: {kname} launched {n} times in "
+                                 f"{steps} steps; expected {want}")
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    step_ms = statistics.median(times) if times else float("nan")
+    print(f"{name}: BERT-Large ({cfg.num_layers} layers) S={seq} x "
+          f"{batch_size}, sync_mode={mode}, {compression.__name__}, "
+          f"losses {[round(x, 5) for x in losses]}, step_ms median "
+          f"{step_ms:.2f} (steps {[round(t, 2) for t in times]}), "
+          f"max_memory_allocated {peak:.2f} GiB on {card}; launches per "
+          f"kernel {launches}")
+    if profile:
+        profile_steps(name, step, batch, card, step_ms,
+                      n=MODE_PROFILED_STEPS)
+    return model, opt, losses, step_ms, peak
+
+
+def _state_bytes(opt) -> int:
+    """Bytes of the optimizer state this rank holds (per-parameter
+    tensors)."""
+    import torch
+
+    return sum(v.numel() * v.element_size() for st in opt.state.values()
+               for v in st.values() if torch.is_tensor(v) and v.dim() > 0)
+
+
+def _gap(params, ref, initial):
+    """||params - ref|| / ||ref - initial|| over all parameters, the
+    parameter whose own such ratio is the largest (index, ratio), and the
+    largest difference of any one value."""
+    num = den = largest = 0.0
+    worst = (0, 0.0)
+    for i, (p, r, q) in enumerate(zip(params, ref, initial)):
+        diff = p.float() - r.float()
+        d = diff.square().sum().item()
+        u = (r.float() - q.float()).square().sum().item()
+        num, den = num + d, den + u
+        largest = max(largest, diff.abs().max().item())
+        if u > 0 and (d / u) ** 0.5 > worst[1]:
+            worst = (i, (d / u) ** 0.5)
+    return (num / den) ** 0.5, worst, largest
+
+
+def _hold_mode(name, params, losses, ref_params, ref_losses, initial,
+          parameters=True):
+    """The sync-mode check (``MODE_GAP_BOUND``, ``MODE_LOSS_RTOL``; the
+    losses of the run's timed steps against the reference's first ones;
+    with ``parameters=False`` the losses alone); returns ``_gap``'s three
+    numbers."""
+    gap, worst, largest = _gap(params, ref_params, initial)
+    ref_losses = ref_losses[:len(losses)]
+    far = [(a, b) for a, b in zip(losses, ref_losses)
+           if not abs(a - b) <= MODE_LOSS_RTOL * abs(b)]
+    if (parameters and not gap <= MODE_GAP_BOUND or far
+            or len(losses) != len(ref_losses)):
+        raise AssertionError(
+            f"{name}: parameters {gap:.4g} of the reference's update away "
+            f"(bound {MODE_GAP_BOUND}), losses {losses} against "
+            f"{ref_losses}")
+    return gap, worst, largest
+
+
+def _rounded_to_bf16(model, opt, step):
+    """The allreduce step with the parameters rounded to bf16 after each
+    update: what the sharded mode's bf16-wire allgather does to them."""
+    import torch
+
+    def rounded(batch):
+        loss = step(batch)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.copy_(p.to(torch.bfloat16))
+        return loss
+
+    return rounded
+
+
+def _forward_on_bf16(model, opt, step):
+    """The allreduce step with the forward and backward on the parameters
+    rounded to bf16 and the update on their float32 values: what the fsdp
+    mode's bf16-wire gather does."""
+    import torch
+
+    params = list(model.parameters())
+    masters = []
+
+    def rounded(batch):
+        with torch.no_grad():
+            masters[:] = [p.detach().clone() for p in params]
+            for p in params:
+                p.copy_(p.to(torch.bfloat16))
+        return step(batch)
+
+    update = opt.step
+
+    def on_masters(closure=None):
+        with torch.no_grad():
+            for p, m in zip(params, masters):
+                p.copy_(m)
+        return update(closure)
+
+    opt.step = on_masters
+    return rounded
+
+
+def _drop_a_bucket(model, opt, step):
+    """The control: a sharded optimizer that loses one bucket's reduced
+    gradients (a middle bucket, of encoder weights) every step."""
+    import torch
+
+    bucket = opt._buckets[len(opt._buckets) // 2]
+    lost = {opt._index[id(p)] for p in bucket}
+    reduced = opt._grad_shards
+
+    def without_bucket():
+        return [torch.zeros_like(g) if i in lost else g
+                for i, g in enumerate(reduced())]
+
+    opt._grad_shards = without_bucket
+    return None
+
+
+def sync_modes_phase(card):
+    """BERT-Large at full width under the sharded and fsdp
+    (``FSDP_SEGMENTS`` segments) modes, each held to the allreduce run that
+    computes the same function from the same weights and batch
+    (``_hold_mode``; on the bf16 wire with its parameters rounded as each
+    mode's wire rounds them, ``_rounded_to_bf16`` and ``_forward_on_bf16``).
+    With SGD and momentum, on the float32 and the bf16 wire, parameters and
+    losses, beside a control that must fail the check; with AdamW on the
+    bf16 wire, timed and profiled, the losses (the gaps are printed). fsdp
+    with one segment runs for its peak memory beside four. Returns the
+    AdamW runs' step ms, peak GiB and optimizer-state bytes."""
+    import gc
+
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.optimizer import sync_mode_of
+
+    def free(model, opt):
+        opt.remove_hooks()
+        del model, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def params_of(model, opt):
+        return (opt.full_parameters() if sync_mode_of(opt) == "fsdp"
+                else [p.detach().clone() for p in model.parameters()])
+
+    def run(name, mode, comp, **kw):
+        model, opt, losses, ms, peak = _bert_mode_run(card, name, mode, comp,
+                                                      **kw)
+        out = (params_of(model, opt), losses, ms, peak, _state_bytes(opt),
+               hvd.resident_param_bytes(opt) if mode == "fsdp" else None)
+        free(model, opt)
+        return out
+
+    none, bf16 = hvd.Compression.none, hvd.Compression.bf16
+    initial, names = [], []
+
+    def keep_initial(model, opt, step):
+        initial.extend(p.detach().clone() for p in model.parameters())
+        names.extend(n for n, _ in model.named_parameters())
+
+    os.environ["HOROVOD_FSDP_SEGMENTS"] = str(FSDP_SEGMENTS)
+    held, shown, stats = {}, {}, {}
+    try:
+        ref, ref_losses, *_ = run("sync allreduce sgd f32", "allreduce", none,
+                                  sgd=True, prepare=keep_initial)
+        for mode in ("sharded", "fsdp"):
+            params, losses, *_ = run(f"sync {mode} sgd f32", mode, none,
+                                     sgd=True)
+            held[f"{mode} sgd f32"] = _hold_mode(
+                f"sync {mode} sgd f32", params, losses, ref, ref_losses,
+                initial)
+        params, losses, *_ = run("sync control sgd f32", "sharded", none,
+                                 sgd=True, prepare=_drop_a_bucket)
+        try:
+            _hold_mode("sync control", params, losses, ref, ref_losses,
+                       initial)
+        except AssertionError as e:
+            control = str(e)
+        else:
+            raise AssertionError("sync control: a sharded run that drops a "
+                                 "bucket's gradients passed the check")
+        del ref, params
+        for mode, prepare in (("sharded", _rounded_to_bf16),
+                              ("fsdp", _forward_on_bf16)):
+            ref, ref_losses, *_ = run(f"sync allreduce as {mode} sgd",
+                                      "allreduce", bf16, sgd=True,
+                                      prepare=prepare)
+            params, losses, *_ = run(f"sync {mode} sgd", mode, bf16, sgd=True)
+            held[f"{mode} sgd bf16"] = _hold_mode(
+                f"sync {mode} sgd bf16", params, losses, ref, ref_losses,
+                initial)
+            del ref, params
+
+        # AdamW, bf16 wire: the timed runs.
+        _, _, ms, peak, state, _ = run("sync allreduce", "allreduce", bf16,
+                                       profile=True)
+        stats["allreduce"] = (ms, peak, state)
+        steps = MODE_STEPS + MODE_PROFILED_STEPS
+        for mode, prepare in (("sharded", _rounded_to_bf16),
+                              ("fsdp", _forward_on_bf16)):
+            ref, ref_losses, *_ = run(f"sync allreduce as {mode}",
+                                      "allreduce", bf16, steps=steps,
+                                      prepare=prepare)
+            params, losses, ms, peak, state, resident = run(
+                f"sync {mode}", mode, bf16, profile=True)
+            shown[mode] = _hold_mode(f"sync {mode}", params, losses, ref,
+                                     ref_losses, initial, parameters=False)
+            stats[mode] = (ms, peak, state)
+            extra = (f", resident_param_bytes {resident}" if resident
+                     else "")
+            print(f"sync {mode}: optimizer state {state} bytes on this rank "
+                  f"against {stats['allreduce'][2]} in allreduce mode{extra}"
+                  ": at world size 1 the shard is the whole, so no memory "
+                  "is saved here (chip_diag.py collectives measures it "
+                  "across cards)")
+            del ref, params
+        os.environ["HOROVOD_FSDP_SEGMENTS"] = "1"
+        *_, peak1, _, _ = run("sync fsdp 1 segment", "fsdp", bf16)
+    finally:
+        del os.environ["HOROVOD_FSDP_SEGMENTS"]
+    for run_name, (gap, (i, worst), largest) in held.items():
+        print(f"sync {run_name}: held to its reference, gap {gap:.6g} (bound "
+              f"{MODE_GAP_BOUND}); largest single parameter {names[i]} at "
+              f"{worst:.6g}, largest difference of one value {largest:.6g}")
+    print(f"sync control (one bucket's gradients dropped) failed the check "
+          f"as it must: {control}")
+    for mode, (gap, (i, worst), largest) in shown.items():
+        print(f"sync {mode} (AdamW): losses held to its reference; "
+              f"parameters not held (AdamW scales last-bit differences up "
+              f"to lr): gap {gap:.6g}, largest single parameter {names[i]} "
+              f"at {worst:.6g}, largest difference of one value "
+              f"{largest:.6g}")
+    print(f"sync fsdp peak above what the phase held: {stats['fsdp'][1]:.3f} "
+          f"GiB with {FSDP_SEGMENTS} segments, {peak1:.3f} GiB with 1, "
+          f"allreduce {stats['allreduce'][1]:.3f}, sharded "
+          f"{stats['sharded'][1]:.3f} on {card}")
+    return stats
+
+
+def int8_phase(card):
+    """BERT-Large in allreduce mode with ``Compression.int8``: losses finite
+    and falling on the repeated batch; on one step's gradients the wire's
+    round trip (one rank: quantize, dequantize) stays within one quantum of
+    each block's scale; ``_sround`` on the card equals the CPU's bit for
+    bit."""
+    import gc
+
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import quantization as Q
+
+    model, opt, losses, ms, peak = _bert_mode_run(
+        card, "int8 allreduce", "allreduce", hvd.Compression.int8,
+        profile=True)
+    _, batch_size, seq, predictions, _ = BERT_PATHS[0]
+    batch = _bert_batch(model.config, batch_size, seq, predictions, 0,
+                        hvd.device())
+    opt.zero_grad(set_to_none=True)
+    _bert_loss(model, batch).backward()
+    flat = torch.cat([p.grad.reshape(-1).float()
+                      for p in model.parameters()])
+    opt.zero_grad(set_to_none=True)
+    got = Q.int8_allreduce_flat(flat, hvd.global_process_set, "average",
+                                salt=opt._updates)
+    pad = (-flat.numel()) % Q.BLOCK
+    blocks = torch.nn.functional.pad(flat, (0, pad)).view(-1, Q.BLOCK)
+    err = torch.nn.functional.pad((got - flat).abs(), (0, pad)).view(
+        -1, Q.BLOCK).amax(dim=1)
+    scale = blocks.abs().amax(dim=1) / 127.0
+    ratio = (err / torch.where(scale > 0, scale,
+                               torch.ones_like(scale))).max().item()
+    if not (ratio <= 1.0 and torch.isfinite(got).all()):
+        raise AssertionError(f"int8: round trip error {ratio:.3f} of a "
+                             "block's quantum")
+    n = min(1 << 22, flat.numel() // Q.BLOCK * Q.BLOCK)
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    sample = flat[:n] / safe[:n // Q.BLOCK].repeat_interleave(Q.BLOCK)
+    card_q = Q._sround(sample, 12345)
+    cpu_q = Q._sround(sample.cpu(), 12345)
+    if not torch.equal(card_q.cpu(), cpu_q):
+        raise AssertionError("int8: _sround on the card differs from the CPU")
+    print(f"int8: {flat.numel()} gradient values of one step in "
+          f"{blocks.shape[0]} blocks of {Q.BLOCK}: round trip within "
+          f"{ratio:.4f} of each block's quantum; _sround on {sample.numel()} "
+          "scaled values equal on the card and the CPU, bit for bit")
+    opt.remove_hooks()
+    del model, opt, flat, blocks, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ms, peak
+
+
+def _full_state(opt):
+    """The optimizer's state in the monolithic layout, on the CPU (a
+    collective in the sharded modes)."""
+    import torch
+
+    from horovod_tpu_torch.optimizer import (init_sharded_state,
+                                             sync_mode_of, unshard_opt_state)
+
+    if sync_mode_of(opt) == "allreduce":
+        state = opt.state_dict()
+    else:
+        state = unshard_opt_state(opt, init_sharded_state(opt))
+    return {i: {k: v.detach().cpu() for k, v in st.items()
+                if torch.is_tensor(v)} for i, st in state["state"].items()}
+
+
+def checkpoint_phase(card):
+    """BERT-Large at full width cut to ``CKPT_LAYERS`` layers, float32
+    wire: saved after 2 of ``CKPT_STEPS`` steps under sharded and resumed
+    under allreduce, and the other way round. The load restores the saved
+    parameters and AdamW state bit for bit, and the resumed run ends as
+    the uninterrupted allreduce run does (``CKPT_STEPS``' bound)."""
+    import gc
+    import shutil
+
+    import torch
+
+    import horovod_tpu_torch as hvd
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    ckpt_dir = os.path.join(here, "build", "chip_smoke_ckpt")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    none = hvd.Compression.none
+    try:
+        model, opt, ref_losses, _, _ = _bert_mode_run(
+            card, "ckpt uninterrupted allreduce", "allreduce", none,
+            CKPT_STEPS, CKPT_LAYERS)
+        ref = [p.detach().clone() for p in model.parameters()]
+        opt.remove_hooks()
+        results = []
+        for first, second in (("sharded", "allreduce"),
+                              ("allreduce", "sharded")):
+            path = os.path.join(ckpt_dir, f"{first}.ckpt")
+            model, opt, _, _, _ = _bert_mode_run(
+                card, f"ckpt {first} to step 2", first, none, 2, CKPT_LAYERS)
+            hvd.save_state_on_rank_0(path, opt, model, step=2)
+            saved = ([p.detach().cpu().clone() for p in model.parameters()],
+                     _full_state(opt))
+            opt.remove_hooks()
+            model, opt, _, _, _ = _bert_mode_run(
+                card, f"ckpt {second} (state replaced below)", second, none,
+                0, CKPT_LAYERS)
+            obj = hvd.load_state_and_broadcast(path, opt, model)
+            state = _full_state(opt)
+            exact = all(torch.equal(p.detach().cpu(), q) for p, q in zip(
+                model.parameters(), saved[0])) and state.keys() == saved[
+                    1].keys() and all(
+                torch.equal(state[i][k], v) for i, st in saved[1].items()
+                for k, v in st.items())
+            if not exact:
+                raise AssertionError(f"ckpt {first} -> {second}: the load did "
+                                     "not restore the saved parameters and "
+                                     "optimizer state bit for bit")
+            step = hvd.make_train_step(model, _bert_loss, opt)
+            _, batch_size, seq, predictions, _ = BERT_PATHS[0]
+            batch = _bert_batch(model.config, batch_size, seq, predictions,
+                                0, hvd.device())
+            losses = [float(step(batch)) for _ in range(CKPT_STEPS - 2)]
+            torch.cuda.synchronize()
+            ratio = max(((p - r).abs() / (1e-5 * r.abs() + 2 * MODE_LR
+                                          * CKPT_STEPS)).max().item()
+                        for p, r in zip(model.parameters(), ref))
+            if not (ratio <= 1.0 and all(
+                    abs(a - b) <= 1e-3 * abs(b)
+                    for a, b in zip(losses, ref_losses[2:]))):
+                raise AssertionError(
+                    f"ckpt {first} -> {second}: losses {losses} against "
+                    f"{ref_losses[2:]}, parameters at {ratio:.3f} of their "
+                    "bound")
+            results.append(
+                f"{first} -> {second} (saved at step {obj['step']}, "
+                f"{os.path.getsize(path)} bytes): restored bit for bit, "
+                f"losses {[round(x, 5) for x in losses]} against "
+                f"{[round(x, 5) for x in ref_losses[2:]]}, parameters at "
+                f"{ratio:.3f} of their bound")
+            opt.remove_hooks()
+            del model, opt
+            gc.collect()
+            torch.cuda.empty_cache()
+        print(f"checkpoint: BERT-Large {CKPT_LAYERS} layers, saved after 2 "
+              f"of {CKPT_STEPS} steps and resumed in the other mode: "
+              f"{'; '.join(results)}")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
 
 
 def guarded_phase(card):
@@ -1306,6 +1981,9 @@ def main() -> int:
     measured = _phase("kernels", kernel_phase)
     measured.update(_phase("dw_kernels", dw_kernel_phase))
     launches = _phase("wide_heads", wide_heads_phase)
+    wide_measured, wide_launches = _phase("wide", wide_phase)
+    measured.update(wide_measured)
+    launches.update(wide_launches)
     # A one-rank world would short-circuit the wire; force the bf16 casts,
     # the bucket packing and the NCCL allreduce to run.
     os.environ["HOROVOD_FORCE_WIRE_MACHINERY"] = "1"
@@ -1321,6 +1999,14 @@ def main() -> int:
     _phase("lenet", lenet_phase, card)
     launches["dw_1x1"] = _phase("conv1x1", conv_phase, card)
     _phase("collectives", collectives_phase, card)
+    modes = _phase("sync_modes", sync_modes_phase, card)
+    modes["int8"] = (*_phase("int8", int8_phase, card), None)
+    _phase("checkpoint", checkpoint_phase, card)
+    print("sync modes, BERT-Large S=512 x 8 at world size 1 (step ms median, "
+          "max_memory_allocated GiB, optimizer-state bytes on this rank): "
+          + "; ".join(f"{m} {ms:.2f} ms, {peak:.2f} GiB, {state}"
+                      for m, (ms, peak, state) in modes.items())
+          + f" on {card}")
     _phase("agree", agreement_phase, 96, ("flash_fwd_single", "flash_dqkv"))
     _phase("agree", agreement_phase, 160,
            ("flash_fwd", "flash_dq", "flash_dkv"))

@@ -3,7 +3,10 @@
 Synchronous data-parallel training on NVIDIA GPUs, with the JAX package's
 semantics: ``init()``, eager collectives (sync and async, on the world or
 on process sets), a ``DistributedOptimizer`` that averages gradients with
-a bucketed allreduce during backward, and ``broadcast_parameters``. The
+a bucketed allreduce during backward (or an int8 exchange), or shards the
+optimizer state (``sync_mode="sharded"``) or the parameters too
+(``"fsdp"``), ``broadcast_parameters``, and rank-0 checkpoints that resume
+across modes and world sizes (``checkpoint``). The
 flash-attention kernels that the JAX package wrote in Pallas for the TPU
 are hand-written CUDA kernels for Hopper here (``ops/csrc``). Imports
 torch, never jax or ``horovod_tpu``.
@@ -18,8 +21,13 @@ from .basics import (ccl_built, cross_rank, cross_size, cuda_built,
                      mpi_built, mpi_enabled, mpi_threads_supported,
                      nccl_built, process_count, process_rank, rank,
                      rocm_built, shutdown, size)
+from . import checkpoint
+from .checkpoint import (load_and_broadcast, load_state_and_broadcast,
+                         save_on_rank_0, save_state_on_rank_0)
 from .compression import Compression
-from .exceptions import HorovodInternalError, HorovodTpuError, NotInitializedError
+from .exceptions import (CheckpointCorruptError, HorovodInternalError,
+                         HorovodTpuError, NotInitializedError,
+                         SyncModeIneligibleError)
 from .functions import (allgather_object, broadcast_object,
                         broadcast_optimizer_state, broadcast_parameters,
                         masked_average)
@@ -30,8 +38,14 @@ from .ops.collective_ops import (
     grouped_allgather_async, grouped_allreduce, grouped_allreduce_async,
     grouped_reducescatter, grouped_reducescatter_async, poll, reducescatter,
     reducescatter_async, synchronize)
-from .optimizer import DistributedOptimizer, resolve_sync_mode
+from .optimizer import (DistributedOptimizer, gather_sharded_state,
+                        init_sharded_state, load_sharded_state,
+                        reshard_opt_state,
+                        resolve_sync_mode, unshard_opt_state)
 from .parallel.data_parallel import make_train_step
+from .parallel.param_sharding import (ShardedParams, reshard_params,
+                                      resident_param_bytes, shard_params,
+                                      unshard_params)
 from .process_sets import (ProcessSet, add_process_set, get_process_set_ids,
                            global_process_set, remove_process_set)
 
@@ -51,6 +65,13 @@ __all__ = [
     "alltoall_async", "reducescatter", "reducescatter_async",
     "grouped_reducescatter", "grouped_reducescatter_async", "synchronize",
     "poll", "barrier", "DistributedOptimizer", "resolve_sync_mode",
-    "make_train_step", "ProcessSet", "global_process_set",
+    "init_sharded_state", "gather_sharded_state", "unshard_opt_state",
+    "reshard_opt_state",
+    "load_sharded_state", "make_train_step", "ShardedParams",
+    "shard_params", "unshard_params", "reshard_params",
+    "resident_param_bytes", "ProcessSet", "global_process_set",
     "add_process_set", "remove_process_set", "get_process_set_ids",
+    "SyncModeIneligibleError", "CheckpointCorruptError", "checkpoint",
+    "save_on_rank_0", "load_and_broadcast", "save_state_on_rank_0",
+    "load_state_and_broadcast",
 ]

@@ -27,7 +27,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
 SOURCES = ("flash_attention.cu", "flash_attention_single.cu",
-           "conv1x1_dw.cu")
+           "flash_attention_wide.cu", "conv1x1_dw.cu")
 HEADERS = ("flash_common.cuh", "flash_hopper.cuh", "sm90.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -74,11 +74,22 @@ FLASH_FWD_SINGLE = Kernel(
 FLASH_DQKV = Kernel(
     "flash_dqkv", "hvd_flash_dqkv", (_P,) * 10 + (_I,) * 8 + (_F, _P),
     "flash_attention_single.cu", "horovod_tpu/ops/attention.py:343")
+# The wide-head route (head dims above 256): the same C signatures as the
+# multi-tile forward, dQ and dK/dV, at any head dim that is a multiple of 32.
+FLASH_FWD_WIDE = Kernel(
+    "flash_fwd_wide", "hvd_flash_fwd_wide", (_P,) * 5 + (_I,) * 8 + (_F, _P),
+    "flash_attention_wide.cu", "horovod_tpu/ops/attention.py:138")
+FLASH_DQ_WIDE = Kernel(
+    "flash_dq_wide", "hvd_flash_dq_wide", (_P,) * 8 + (_I,) * 8 + (_F, _P),
+    "flash_attention_wide.cu", "horovod_tpu/ops/attention.py:198")
+FLASH_DKV_WIDE = Kernel(
+    "flash_dkv_wide", "hvd_flash_dkv_wide", (_P,) * 9 + (_I,) * 8 + (_F, _P),
+    "flash_attention_wide.cu", "horovod_tpu/ops/attention.py:252")
 DW_1X1 = Kernel(
     "dw_1x1", "hvd_dw_1x1", (_P,) * 4 + (_I,) * 10 + (_L,) * 3 + (_I, _P),
     "conv1x1_dw.cu", "horovod_tpu/ops/conv_backward.py:43")
 KERNELS = (FLASH_FWD, FLASH_DQ, FLASH_DKV, FLASH_FWD_SINGLE, FLASH_DQKV,
-           DW_1X1)
+           FLASH_FWD_WIDE, FLASH_DQ_WIDE, FLASH_DKV_WIDE, DW_1X1)
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

@@ -10,20 +10,25 @@ the public functions, as in the JAX package. Semantics are the same:
 - Causal masking uses global positions ``q_offset + i >= k_offset + j``;
   causal attention with ``Sq != Sk`` and both offsets 0 raises.
 
-Two routes, chosen once per call from the sequence lengths and the head
-dim (:func:`single_tile_route`):
+Three routes, chosen once per call from the sequence lengths and the head
+dim (:func:`single_tile_route`, :func:`wide_route`):
 
 - ``Sq <= SINGLE_TILE_MAX and Sk <= SINGLE_TILE_MAX`` and ``D <= 128``:
   the single-tile forward (direct softmax) and the fused backward that
   computes S -> P -> dP -> dS once and writes dQ, dK and dV
   (``csrc/flash_attention_single.cu``);
+- ``D > 256``, at every sequence length: the wide-head forward, dQ and
+  dK/dV kernels (``csrc/flash_attention_wide.cu``), whose registers and
+  shared memory do not grow with D: the scores are streamed over D in
+  chunks, and each output is written in column slices that recompute the
+  scores they need;
 - otherwise the multi-tile forward (online softmax), dQ and dK/dV kernels
   (``csrc/flash_attention.cu``). Head dims 129 to 256 take this route at
   every sequence length: the single-tile kernels have no D = 256 instance,
   and the multi-tile ones mask rows and keys past the end, so short
   sequences are right there too.
 
-Both routes compute one function. Each kernel has a wrapper here that
+All routes compute one function. Each kernel has a wrapper here that
 launches the hand-written CUDA kernel for CUDA tensors and computes the
 plain PyTorch version beside it for CPU tensors. The plain versions
 (``*_plain``) are also what the kernels are held against on the card. Tile
@@ -31,19 +36,16 @@ sizes are the kernels' own choice, so any sequence length and any number of
 heads works; the TPU kernels' block-divisibility rule does not apply. The
 JAX package picks its route by its own blocks (``_auto_block``): it runs
 S = 512 as one tile, which the port splits, and a head dim above 128 on
-its single-tile kernels where the sequence fits one block. The two
-packages agree in value, not in route.
+its single-tile kernels where the sequence fits one block. The packages
+agree in value, not in route.
 
 The kernels take float32, bfloat16 and float16, with instances at head dims
 16, 32, 64 and 128 on both routes and 256 on the multi-tile route
-(:data:`KERNEL_HEAD_DIMS`, :data:`SINGLE_TILE_HEAD_DIMS`). A head dim
-between those goes to the next instance (:func:`kernel_head_dim`): q, k, v
-and dO are zero-padded to it, the scale stays ``1/sqrt(D)`` of the true D,
-and the outputs are sliced back (:func:`padded_heads`). A head dim above
-256 raises, on every device: the outputs' accumulators of a wider instance
-would not fit the Hopper kernels' registers. (The design that would lift
-the limit: outputs in column slices of at most 256, each pass recomputing
-the scores, with the contractions streamed over all of D.)
+(:data:`KERNEL_HEAD_DIMS`, :data:`SINGLE_TILE_HEAD_DIMS`), and any multiple
+of :data:`WIDE_CHUNK` above 256 on the wide-head route. A head dim between
+those goes to the next one (:func:`kernel_head_dim`): q, k, v and dO are
+zero-padded to it, the scale stays ``1/sqrt(D)`` of the true D, and the
+outputs are sliced back (:func:`padded_heads`).
 """
 
 from __future__ import annotations
@@ -70,6 +72,9 @@ _KERNEL_DTYPES = {torch.float32: _kernels.DTYPE_F32,
 # and the single-tile ones.
 KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 SINGLE_TILE_HEAD_DIMS = (16, 32, 64, 128)
+# Head dims above KERNEL_HEAD_DIMS[-1] take the wide-head kernels, which
+# stream D in chunks of this many columns: D is zero-padded to a multiple.
+WIDE_CHUNK = 32
 
 
 def single_tile_route(Sq: int, Sk: int, D: int) -> bool:
@@ -77,6 +82,12 @@ def single_tile_route(Sq: int, Sk: int, D: int) -> bool:
     takes the single-tile kernels (else the multi-tile ones)."""
     return (Sq <= SINGLE_TILE_MAX and Sk <= SINGLE_TILE_MAX
             and D <= SINGLE_TILE_HEAD_DIMS[-1])
+
+
+def wide_route(D: int) -> bool:
+    """Whether head dim ``D`` takes the wide-head kernels (above the widest
+    multi-tile instance), at any sequence length."""
+    return D > KERNEL_HEAD_DIMS[-1]
 
 
 def _attend_block(q, k, v, m, l, o, mask=None, scale=1.0):
@@ -230,15 +241,18 @@ def flash_dqkv_plain(q, k, v, do, lse, delta, glse, causal=False, q_offset=0,
 def kernel_head_dim(D: int, dims=KERNEL_HEAD_DIMS) -> int:
     """The head dim of the kernel instance that computes head dim ``D``: the
     smallest of ``dims`` (a route's instances, :data:`KERNEL_HEAD_DIMS` or
-    :data:`SINGLE_TILE_HEAD_DIMS`) that is at least ``D``."""
+    :data:`SINGLE_TILE_HEAD_DIMS`) that is at least ``D``; above
+    :data:`KERNEL_HEAD_DIMS`, the wide-head route's multiple of
+    :data:`WIDE_CHUNK`."""
     for d in dims:
         if 1 <= D <= d:
             return d
+    if dims == KERNEL_HEAD_DIMS and D > dims[-1]:
+        return -(-D // WIDE_CHUNK) * WIDE_CHUNK
     raise ValueError(
-        f"flash attention kernels take head dims 1 to {dims[-1]} "
-        f"(instances at {dims}; a dim between them is zero-padded to the "
-        f"next); got {D}: the output accumulators of a wider instance would "
-        "not fit the Hopper kernels' registers")
+        f"flash attention kernels take head dims 1 to {dims[-1]} on this "
+        f"route (instances at {dims}; a dim between them is zero-padded to "
+        f"the next); got {D}")
 
 
 def padded_heads(fn, seq, rows, causal, q_offset, k_offset,
@@ -267,8 +281,9 @@ def padded_heads(fn, seq, rows, causal, q_offset, k_offset,
 def _check_kernel_operands(seq_tensors, row_tensors=(),
                            dims=KERNEL_HEAD_DIMS):
     """Validate [BH, S, D] operands (D one of the route's instances
-    ``dims``) and [BH, S] fp32 row vectors for a kernel launch on the card;
-    return (dtype code, BH, D)."""
+    ``dims``; ``dims=None``: the wide-head route, a multiple of
+    :data:`WIDE_CHUNK` above 256) and [BH, S] fp32 row vectors for a kernel
+    launch on the card; return (dtype code, BH, D)."""
     q = seq_tensors[0]
     dtype = q.dtype
     if dtype not in _KERNEL_DTYPES:
@@ -276,7 +291,13 @@ def _check_kernel_operands(seq_tensors, row_tensors=(),
             f"flash attention kernels take float32, bfloat16 or float16; got "
             f"{dtype}")
     BH, _, D = q.shape
-    if D not in dims:
+    if dims is None:
+        if not wide_route(D) or D % WIDE_CHUNK:
+            raise ValueError(
+                f"the wide-head kernels take head dims above "
+                f"{KERNEL_HEAD_DIMS[-1]} that are multiples of {WIDE_CHUNK}; "
+                f"got {D}")
+    elif D not in dims:
         raise ValueError(
             f"flash attention kernels take head dims {dims}; got {D}")
     for t in seq_tensors:
@@ -339,31 +360,43 @@ def _fwd_launch(kernel, dims):
     return run
 
 
-def _dq_launch(q, k, v, do, lse, delta, glse, causal, q_offset, k_offset,
-               scale):
-    code, BH, D = _check_kernel_operands((q, k, v, do), (lse, delta, glse))
-    Sq, Sk = q.shape[1], k.shape[1]
-    dq = torch.empty_like(q)
-    _launch(
-        _kernels.FLASH_DQ, q.device, q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        glse.data_ptr(), dq.data_ptr(), BH, Sq, Sk, D, code, int(causal),
-        q_offset, k_offset, scale)
-    return dq
+def _dq_launch(kernel, dims):
+    """One launch of a dQ kernel at one of its instances' head dims."""
+
+    def run(q, k, v, do, lse, delta, glse, causal, q_offset, k_offset,
+            scale):
+        code, BH, D = _check_kernel_operands((q, k, v, do),
+                                             (lse, delta, glse), dims)
+        Sq, Sk = q.shape[1], k.shape[1]
+        dq = torch.empty_like(q)
+        _launch(
+            kernel, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), glse.data_ptr(),
+            dq.data_ptr(), BH, Sq, Sk, D, code, int(causal), q_offset,
+            k_offset, scale)
+        return dq
+
+    return run
 
 
-def _dkv_launch(q, k, v, do, lse, delta, glse, causal, q_offset, k_offset,
-                scale):
-    code, BH, D = _check_kernel_operands((q, k, v, do), (lse, delta, glse))
-    Sq, Sk = q.shape[1], k.shape[1]
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    _launch(
-        _kernels.FLASH_DKV, q.device, q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        glse.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH, Sq, Sk, D, code,
-        int(causal), q_offset, k_offset, scale)
-    return dk, dv
+def _dkv_launch(kernel, dims):
+    """One launch of a dK/dV kernel at one of its instances' head dims."""
+
+    def run(q, k, v, do, lse, delta, glse, causal, q_offset, k_offset,
+            scale):
+        code, BH, D = _check_kernel_operands((q, k, v, do),
+                                             (lse, delta, glse), dims)
+        Sq, Sk = q.shape[1], k.shape[1]
+        dk = torch.empty_like(k)
+        dv = torch.empty_like(v)
+        _launch(
+            kernel, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), glse.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), BH, Sq, Sk, D, code, int(causal),
+            q_offset, k_offset, scale)
+        return dk, dv
+
+    return run
 
 
 def _dqkv_launch(q, k, v, do, lse, delta, glse, causal, q_offset, k_offset,
@@ -382,36 +415,52 @@ def _dqkv_launch(q, k, v, do, lse, delta, glse, causal, q_offset, k_offset,
     return dq, dk, dv
 
 
+def _multi_tile(fwd_kernel, wide_kernel, launcher, D):
+    """The launch of the multi-tile route's kernel at head dim ``D``, or of
+    the wide-head route's above 256."""
+    if wide_route(D):
+        return launcher(wide_kernel, None)
+    return launcher(fwd_kernel, KERNEL_HEAD_DIMS)
+
+
 def flash_fwd(q, k, v, causal=False, q_offset=0, k_offset=0):
     """Forward kernel: q [BH, Sq, D], k/v [BH, Sk, D] ->
-    ``(o [BH, Sq, D], lse [BH, Sq] fp32)``."""
+    ``(o [BH, Sq, D], lse [BH, Sq] fp32)``; D > 256 takes the wide-head
+    kernel."""
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, causal, q_offset, k_offset)
     _check_device(q)
-    return padded_heads(_fwd_launch(_kernels.FLASH_FWD, KERNEL_HEAD_DIMS),
-                        (q, k, v), (), causal, q_offset, k_offset)
+    run = _multi_tile(_kernels.FLASH_FWD, _kernels.FLASH_FWD_WIDE,
+                      _fwd_launch, q.shape[-1])
+    return padded_heads(run, (q, k, v), (), causal, q_offset, k_offset)
 
 
 def flash_dq(q, k, v, do, lse, delta, glse, causal=False, q_offset=0,
              k_offset=0):
-    """dQ kernel; lse, delta, glse are [BH, Sq] fp32."""
+    """dQ kernel; lse, delta, glse are [BH, Sq] fp32; D > 256 takes the
+    wide-head kernel."""
     if q.device.type == "cpu":
         return flash_dq_plain(q, k, v, do, lse, delta, glse, causal,
                               q_offset, k_offset)
     _check_device(q)
-    return padded_heads(_dq_launch, (q, k, v, do), (lse, delta, glse),
-                        causal, q_offset, k_offset)
+    run = _multi_tile(_kernels.FLASH_DQ, _kernels.FLASH_DQ_WIDE, _dq_launch,
+                      q.shape[-1])
+    return padded_heads(run, (q, k, v, do), (lse, delta, glse), causal,
+                        q_offset, k_offset)
 
 
 def flash_dkv(q, k, v, do, lse, delta, glse, causal=False, q_offset=0,
               k_offset=0):
-    """dK/dV kernel; returns ``(dk, dv)`` shaped like k and v."""
+    """dK/dV kernel; returns ``(dk, dv)`` shaped like k and v; D > 256
+    takes the wide-head kernel."""
     if q.device.type == "cpu":
         return flash_dkv_plain(q, k, v, do, lse, delta, glse, causal,
                                q_offset, k_offset)
     _check_device(q)
-    return padded_heads(_dkv_launch, (q, k, v, do), (lse, delta, glse),
-                        causal, q_offset, k_offset)
+    run = _multi_tile(_kernels.FLASH_DKV, _kernels.FLASH_DKV_WIDE,
+                      _dkv_launch, q.shape[-1])
+    return padded_heads(run, (q, k, v, do), (lse, delta, glse), causal,
+                        q_offset, k_offset)
 
 
 def _check_single_tile(Sq, Sk):
@@ -450,9 +499,9 @@ def flash_dqkv(q, k, v, do, lse, delta, glse, causal=False, q_offset=0,
 class _FlashAttention(torch.autograd.Function):
     """(out, lse) over [BH, S, D] operands. The route is picked once in
     forward (:func:`single_tile_route`) and kept for backward: the
-    single-tile forward and fused backward, or the multi-tile forward and
-    the dQ and dK/dV kernels, both run from the saved (out, lse)
-    residuals."""
+    single-tile forward and fused backward, or the multi-tile (or, above
+    D = 256, wide-head) forward and the dQ and dK/dV kernels, both run
+    from the saved (out, lse) residuals."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, q_offset, k_offset):
@@ -484,8 +533,8 @@ class _FlashAttention(torch.autograd.Function):
 
 def _prepare_flash(q, k, v, causal, q_offset, k_offset):
     """Shared validation for the flash entry points. The head dim is held to
-    the kernels' range on every device, so the CPU refuses what the card
-    would."""
+    the kernels' range (any D >= 1) on every device, so the CPU refuses what
+    the card would."""
     Sq, Sk = q.shape[2], k.shape[2]
     kernel_head_dim(q.shape[-1])
     if not (q.dtype == k.dtype == v.dtype):

@@ -58,6 +58,9 @@ _TORCH_OPS = {
 _reduce_scatter = (dist.reduce_scatter_single
                    if hasattr(dist, "reduce_scatter_single")
                    else dist.reduce_scatter_tensor)
+# The same for the allgather of one tensor into a flat output.
+_all_gather = (dist.all_gather_single if hasattr(dist, "all_gather_single")
+               else dist.all_gather_into_tensor)
 
 
 def _resolve_op(op, average):

@@ -13,8 +13,18 @@ import os
 # Tensor fusion: bucket cap in bytes (reference default 64 MiB).
 FUSION_THRESHOLD = "HOROVOD_FUSION_THRESHOLD"
 DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024
-# Gradient sync mode: allreduce (the only mode ported so far), sharded, fsdp.
+# Gradient sync mode: allreduce, sharded (ZeRO-1) or fsdp (ZeRO-3).
 SYNC_MODE = "HOROVOD_SYNC_MODE"
+# Contiguous leaf segments of a step's parameters (default 4), and the fsdp
+# mode's own count of per-segment parameter gathers (unset: the former).
+OVERLAP_SEGMENTS = "HOROVOD_OVERLAP_SEGMENTS"
+FSDP_SEGMENTS = "HOROVOD_FSDP_SEGMENTS"
+# "0" makes the fsdp mode gather all parameters up front in one segment
+# (default "1": a gather per segment, just before its layers run).
+FSDP_RESHARD_AFTER_FORWARD = "HOROVOD_FSDP_RESHARD_AFTER_FORWARD"
+# Rank-0 checkpoint writes: attempts and the first backoff in seconds.
+CHECKPOINT_RETRIES = "HOROVOD_CHECKPOINT_RETRIES"
+CHECKPOINT_RETRY_BACKOFF = "HOROVOD_CHECKPOINT_RETRY_BACKOFF"
 # "1" keeps the compression / bucketing / collective path on a one-rank
 # world instead of short-circuiting it (measures the framework's overhead).
 FORCE_WIRE_MACHINERY = "HOROVOD_FORCE_WIRE_MACHINERY"
@@ -43,6 +53,16 @@ def get_int(name: str, default: int) -> int:
         return default
     try:
         return int(val)
+    except ValueError:
+        return default
+
+
+def get_float(name: str, default: float) -> float:
+    val = os.environ.get(name)
+    if val is None or not val.strip():
+        return default
+    try:
+        return float(val)
     except ValueError:
         return default
 

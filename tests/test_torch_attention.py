@@ -521,13 +521,18 @@ def test_kernel_head_dim_is_the_next_instance(D, want):
 
 @pytest.mark.parametrize("D", [257, 512])
 def test_head_dims_above_the_widest_instance_raise(D):
-    """D > 256 raises naming the limit, from the plan and from the public
-    entry points on the CPU too (no plain-version fallback)."""
+    """D > 256 no longer raises: it takes the wide-head route, zero-padded
+    to a multiple of WIDE_CHUNK, and the public entry point on the CPU
+    computes the plain version at D. Only D < 1 raises, naming the range."""
+    assert port.wide_route(D)
+    assert port.kernel_head_dim(D) == -(-D // port.WIDE_CHUNK) * port.WIDE_CHUNK
+    t = torch.from_numpy(np.random.RandomState(D).randn(1, 2, 8, D).astype(
+        np.float32))
+    out = port.flash_attention(t, t, t)
+    want, _ = port.flash_fwd_plain(*(x.reshape(2, 8, D) for x in (t, t, t)))
+    assert torch.allclose(out.reshape(2, 8, D), want, rtol=1e-5, atol=1e-6)
     with pytest.raises(ValueError, match="1 to 256"):
-        port.kernel_head_dim(D)
-    t = torch.zeros(1, 1, 8, D)
-    with pytest.raises(ValueError, match="1 to 256"):
-        port.flash_attention(t, t, t)
+        port.kernel_head_dim(0)
 
 
 def test_single_tile_instances_stop_at_128():

@@ -241,6 +241,8 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "import horovod_tpu_torch.models.bert, horovod_tpu_torch.models.convert\n"
         "import horovod_tpu_torch.models.resnet, horovod_tpu_torch.models.lenet\n"
         "import horovod_tpu_torch.ops._kernels, horovod_tpu_torch.optimizer\n"
+        "import horovod_tpu_torch.ops.quantization, horovod_tpu_torch.checkpoint\n"
+        "import horovod_tpu_torch.parallel.param_sharding\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'horovod_tpu'))\n"
         "assert not bad, bad\n")

@@ -85,7 +85,15 @@ def _attention_operands(device, seed, BH, Sq, Sk, D, dtype):
     (torch.float16, 256, 264, 200, False, 0, 0),
     (torch.float32, 256, 200, 136, True, 70, 0),
     (torch.bfloat16, 200, 130, 96, False, 0, 0),
-    (torch.float32, 160, 77, 100, True, 0, 23)])
+    (torch.float32, 160, 77, 100, True, 0, 23),
+    # The wide-head kernels (D > 256) in each dtype: ragged, causal with
+    # offsets and rows that see no key, D = 300 zero-padded to 320, and a
+    # D = 1024 launch.
+    (torch.bfloat16, 320, 200, 264, True, 0, 40),
+    (torch.float16, 512, 264, 200, True, 64, 0),
+    (torch.float32, 512, 130, 96, False, 0, 0),
+    (torch.bfloat16, 300, 77, 100, True, 0, 23),
+    (torch.float16, 1024, 64, 64, True, 0, 0)])
 def test_kernels_match_plain_versions_on_the_card(cuda_device, dtype, D, Sq,
                                                   Sk, causal, q_offset,
                                                   k_offset):
@@ -161,33 +169,55 @@ def test_more_heads_than_a_grid_dimension_holds(cuda_device, dtype, S):
 
 @pytest.mark.cuda
 def test_head_dims_above_128_raise_on_the_card(cuda_device):
-    """Head dims above the widest instance raise, naming it: 256 on the
-    multi-tile kernels, 128 on the single-tile ones."""
+    """The single-tile kernels refuse head dims above their widest instance
+    on the card, naming 128; the multi-tile entry takes D = 257 on the
+    wide-head kernels (zero-padded to 288) instead of raising."""
     q = torch.zeros(2, 16, 257, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="1 to 256"):
-        port.flash_fwd(q, q, q)
+    before = _kernels.FLASH_FWD_WIDE.launches
+    o, lse = port.flash_fwd(q, q, q)
+    assert o.shape == q.shape and _kernels.FLASH_FWD_WIDE.launches == before + 1
     q = torch.zeros(2, 16, 160, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="1 to 128"):
         port.flash_fwd_single(q, q, q)
+
+
+def _launches_by_attention(cuda_device, S, D):
+    """Kernel launches of one flash_attention_lse forward and backward."""
+    q, k, v, do, glse = _attention_operands(cuda_device, 3, 2, S, S, D,
+                                            torch.bfloat16)
+    q, k, v = (t.view(1, 2, S, D).requires_grad_() for t in (q, k, v))
+    before = {kern.name: kern.launches for kern in _kernels.KERNELS}
+    out, lse = port.flash_attention_lse(q, k, v, causal=True)
+    torch.autograd.backward([out, lse], [do.view(1, 2, S, D),
+                                         glse.view(1, 2, S)])
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+    return {kern.name: kern.launches - before[kern.name]
+            for kern in _kernels.KERNELS}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("S", [64, 160])
 def test_wide_heads_run_the_multi_tile_kernels_on_the_card(cuda_device, S):
     """flash_attention_lse at D = 256 launches the forward, dQ and dK/dV
-    kernels once each, and no single-tile kernel, at either length."""
-    q, k, v, do, glse = _attention_operands(cuda_device, 3, 2, S, S, 256,
-                                            torch.bfloat16)
-    q, k, v = (t.view(1, 2, S, 256).requires_grad_() for t in (q, k, v))
-    before = {kern.name: kern.launches for kern in _kernels.KERNELS}
-    out, lse = port.flash_attention_lse(q, k, v, causal=True)
-    torch.autograd.backward([out, lse], [do.view(1, 2, S, 256),
-                                         glse.view(1, 2, S)])
-    ran = {kern.name: kern.launches - before[kern.name]
-           for kern in _kernels.KERNELS}
+    kernels once each, and no single-tile or wide-head kernel, at either
+    length."""
+    ran = _launches_by_attention(cuda_device, S, 256)
     assert ran == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1,
-                   "flash_fwd_single": 0, "flash_dqkv": 0, "dw_1x1": 0}
-    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+                   "flash_fwd_single": 0, "flash_dqkv": 0,
+                   "flash_fwd_wide": 0, "flash_dq_wide": 0,
+                   "flash_dkv_wide": 0, "dw_1x1": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,D", [(64, 320), (160, 512)])
+def test_heads_above_256_run_the_wide_kernels_on_the_card(cuda_device, S, D):
+    """flash_attention_lse at D > 256 launches the three wide-head kernels
+    once each and no other kernel."""
+    ran = _launches_by_attention(cuda_device, S, D)
+    assert ran == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+                   "flash_fwd_single": 0, "flash_dqkv": 0,
+                   "flash_fwd_wide": 1, "flash_dq_wide": 1,
+                   "flash_dkv_wide": 1, "dw_1x1": 0}
 
 
 @pytest.mark.cuda

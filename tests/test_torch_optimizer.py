@@ -352,15 +352,56 @@ def test_single_rank_short_circuit_applies_only_the_scales():
 
 
 def test_sync_modes_not_yet_ported_raise(monkeypatch):
+    """The sync modes resolve from the argument, then ``HOROVOD_SYNC_MODE``,
+    then the default; every mode of the reference is ported, and an unknown
+    one (``zero3``) still raises listing the valid ones."""
     from horovod_tpu_torch.optimizer import resolve_sync_mode
 
     monkeypatch.delenv("HOROVOD_SYNC_MODE", raising=False)
     assert resolve_sync_mode() == "allreduce"
+    for mode in ("allreduce", "sharded", "fsdp"):
+        assert resolve_sync_mode(mode) == mode
+        monkeypatch.setenv("HOROVOD_SYNC_MODE", mode.upper())
+        assert resolve_sync_mode() == mode
     monkeypatch.setenv("HOROVOD_SYNC_MODE", "fsdp")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        resolve_sync_mode()
-    for mode in ("sharded", "fsdp"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            resolve_sync_mode(mode)
+    assert resolve_sync_mode("sharded") == "sharded"
     with pytest.raises(ValueError, match="expected one of"):
         resolve_sync_mode("zero3")
+    monkeypatch.setenv("HOROVOD_SYNC_MODE", "zero3")
+    with pytest.raises(ValueError, match="expected one of"):
+        resolve_sync_mode()
+
+
+def test_int8_builds_an_optimizer():
+    """Compression.int8 builds a DistributedOptimizer (one gloo rank, the
+    wire forced on): a step quantizes and dequantizes the gradient, within
+    one quantum of each block's scale; as a plain compressor it raises."""
+    import subprocess
+    import sys
+
+    code = (
+        "import os, torch\n"
+        "os.environ['HOROVOD_FORCE_WIRE_MACHINERY'] = '1'\n"
+        "import horovod_tpu_torch as hvd\n"
+        "hvd.init(device='cpu')\n"
+        "w = torch.nn.Parameter(torch.zeros(3000))\n"
+        "opt = hvd.DistributedOptimizer(torch.optim.SGD([w], lr=1.0),\n"
+        "                               compression=hvd.Compression.int8)\n"
+        "g = torch.linspace(-2.0, 3.0, 3000)\n"
+        "(w * g).sum().backward()\n"
+        "opt.step()\n"
+        "quantum = 3.0 / 127\n"
+        "assert (w.grad - g).abs().max().item() <= quantum, w.grad\n"
+        "assert torch.equal(w.detach(), -w.grad) and opt._updates == 1\n"
+        "try:\n"
+        "    hvd.Compression.int8.compress(g)\n"
+        "except ValueError as e:\n"
+        "    assert 'DistributedOptimizer' in str(e)\n"
+        "else:\n"
+        "    raise AssertionError('int8 compress did not raise')\n"
+        "hvd.shutdown()\n")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("HOROVOD_")}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

@@ -1,0 +1,118 @@
+"""Head dims above 256 (the port's wide-head route) against the JAX
+package's flash attention.
+
+The reference takes any head dim (``horovod_tpu/ops/attention.py:
+_prepare_flash`` sets no limit). The port sends D > 256 to its wide-head
+kernels (``csrc/flash_attention_wide.cu``), zero-padded to a multiple of
+``WIDE_CHUNK`` with the scale of the true D; on the CPU the wrappers
+compute the kernels' plain versions. Here forward (out, lse), dQ, dK, dV
+and the lse cotangent's share of them are held to
+``flash_attention_lse`` of the JAX package in interpret mode, on the same
+seeded numpy inputs, at D = 320 and 512, S = 64 and 160, causal with
+offsets (rows that see no key included) and not. Tolerance: float32,
+1e-5 absolute and relative (the two sides sum in different orders over up
+to 512 columns). The kernels against their plain versions on the card are
+in ``tests/test_torch_cuda.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from horovod_tpu_torch.ops import attention as port
+from test_torch_attention import _inputs, _jax_run, _port_run
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+# name, (B, H, Sq, Sk, D), causal, q_offset, k_offset, JAX block (None: auto)
+CASES = [
+    ("d320_s64", (1, 2, 64, 64, 320), False, 0, 0, None),
+    ("d512_s64_causal", (1, 2, 64, 64, 512), True, 0, 0, None),
+    ("d320_s160_causal_offsets", (1, 2, 160, 160, 320), True, 0, 32, 32),
+    ("d512_s160", (2, 1, 160, 160, 512), False, 0, 0, 32),
+    # Rows 0..15 see no key.
+    ("d512_causal_masked_rows", (1, 1, 64, 80, 512), True, 0, 16, 16),
+    ("d320_causal_q_offset", (1, 2, 64, 160, 320), True, 96, 0, 32),
+]
+
+
+@pytest.mark.parametrize("name,shape,causal,q_offset,k_offset,block", CASES,
+                         ids=[c[0] for c in CASES])
+def test_wide_heads_match_pallas(name, shape, causal, q_offset, k_offset,
+                                 block):
+    assert port.wide_route(shape[-1])
+    args = _inputs(shape, seed=len(name))
+    want = _jax_run(*args, causal, q_offset, k_offset, block)
+    got = _port_run(*args, causal, q_offset, k_offset)
+    for label, g, w in zip(("out", "lse", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g, w, err_msg=f"{name}: {label}", **TOL)
+
+
+@pytest.mark.parametrize("D", [257, 300, 320, 1000])
+def test_wide_plan_pads_to_the_chunk_and_equals_the_plain_version(D):
+    """The wide route's plan: D zero-padded to the next multiple of
+    WIDE_CHUNK with the scale of the true D, outputs sliced back, equals
+    the plain version at D (forward and the three gradients), to TOL: the
+    padded zeros are exact, the order of the sums over D is not."""
+    Dk = port.kernel_head_dim(D)
+    assert Dk % port.WIDE_CHUNK == 0 and D <= Dk < D + port.WIDE_CHUNK
+    rng = np.random.RandomState(D)
+    q, k, v, do = (torch.from_numpy(rng.randn(2, 24, D).astype(np.float32))
+                   for _ in range(4))
+    glse = torch.from_numpy(rng.randn(2, 24).astype(np.float32))
+    o, lse = port.padded_heads(port.flash_fwd_plain, (q, k, v), (), True, 0,
+                               0)
+    o_ref, lse_ref = port.flash_fwd_plain(q, k, v, True)
+    delta = (do * o_ref).sum(-1)
+    rows = (lse_ref, delta, glse)
+    dq = port.padded_heads(port.flash_dq_plain, (q, k, v, do), rows, True, 0,
+                           0)
+    dk, dv = port.padded_heads(port.flash_dkv_plain, (q, k, v, do), rows,
+                               True, 0, 0)
+    for got, want in ((o, o_ref), (lse, lse_ref),
+                      (dq, port.flash_dq_plain(q, k, v, do, *rows, True)),
+                      *zip((dk, dv), port.flash_dkv_plain(q, k, v, do, *rows,
+                                                          True))):
+        assert got.shape == want.shape and got.is_contiguous()
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+def test_wide_operand_check_takes_chunk_multiples_above_256():
+    """The wide kernels' operand check (run before a launch on the card):
+    head dims above 256 that are multiples of WIDE_CHUNK, nothing else."""
+    for D, ok in ((288, True), (1024, True), (300, False), (256, False)):
+        t = torch.zeros(1, 4, D)
+        if ok:
+            assert port._check_kernel_operands((t, t, t), dims=None)[2] == D
+        else:
+            with pytest.raises(ValueError, match="wide-head kernels"):
+                port._check_kernel_operands((t, t, t), dims=None)
+
+
+def test_build_report_counts_wide_instances_and_spills():
+    """chip_smoke.py's build check of the wide-head instances, on ptxas
+    lines shaped like nvcc's (mangled names as the card's build prints
+    them): 9 instances with their registers, and a spill named."""
+    from test_torch_attention import _chip_smoke
+
+    smoke = _chip_smoke()
+    prefix = "_ZN56_GLOBAL__N__0aa40730_23_flash_attention_wide_cu_a3104e78"
+    types = {"f": "f32", "6__half": "f16", "13__nv_bfloat16": "bf16"}
+    lines = []
+    for n, kern in ((21, "flash_fwd_wide_kernel"), (20, "flash_dq_wide_kernel"),
+                    (21, "flash_dkv_wide_kernel")):
+        for mangled in types:
+            spill = ("8 bytes spill stores, 8 bytes spill loads"
+                     if kern == "flash_dq_wide_kernel" and mangled == "f"
+                     else "0 bytes spill stores, 0 bytes spill loads")
+            lines += [
+                f"ptxas info    : Compiling entry function "
+                f"'{prefix}{n}{kern}I{mangled}EEvPKT_' for 'sm_90a'",
+                f"    0 bytes stack frame, {spill}",
+                "ptxas info    : Used 128 registers, used 1 barriers"]
+    regs, faults = smoke.wide_build_report("\n".join(lines))
+    assert sorted(regs) == sorted(
+        f"{k}<{t}>" for k in ("flash_fwd_wide_kernel", "flash_dq_wide_kernel",
+                              "flash_dkv_wide_kernel") for t in types.values())
+    assert set(regs.values()) == {128}
+    assert len(faults) == 1 and faults[0].startswith("flash_dq_wide_kernel<f32>")
