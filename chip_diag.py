@@ -17,7 +17,11 @@ at S=128 (B*H = 1024); the float16 instances of those five kernels at the
 same two shapes (``*_f16``; printed only, for a checkout that has them);
 and the 1x1-conv filter gradient (dw_1x1) beside cuBLAS's x^T dy at both
 ResNet-50 shapes of chip_smoke.py (the shortcut's cuBLAS call reads a
-contiguous copy of its strided x). Each
+contiguous copy of its strided x); the multi-tile kernels at D = 256
+(``*_d256``: B*H = 128, S = 512, bf16); and the wide-head route at
+D = 512, B*H = 32, S = 512: the three wide kernels in bf16 (``*_wide``)
+and float32 (``*_wide_f32``) beside the SDPA forward and backward at that
+shape (``sdpa_*_d512``). Each
 checkout runs in a process of its own, in the order other, this, this,
 other. Each process times every call by three methods, all with the L2
 flushed before each call:
@@ -91,7 +95,11 @@ CALLS = ("flash_fwd", "flash_dq", "flash_dkv", "sdpa_fwd", "sdpa_bwd",
          "flash_fwd_single", "sdpa_fwd_s128", "flash_dqkv", "sdpa_bwd_s128",
          "flash_dq_dkv_s128", "dw_1x1_stage1", "cublas_stage1",
          "dw_1x1_shortcut", "cublas_shortcut", "flash_fwd_f16", "flash_dq_f16",
-         "flash_dkv_f16", "flash_fwd_single_f16", "flash_dqkv_f16")
+         "flash_dkv_f16", "flash_fwd_single_f16", "flash_dqkv_f16",
+         "flash_fwd_d256", "flash_dq_d256", "flash_dkv_d256",
+         "flash_fwd_wide", "flash_dq_wide", "flash_dkv_wide", "sdpa_fwd_d512",
+         "sdpa_bwd_d512", "flash_fwd_wide_f32", "flash_dq_wide_f32",
+         "flash_dkv_wide_f32")
 METHODS = ("spin_ms", "no_spin_ms", "device_ms")
 
 
@@ -213,6 +221,33 @@ def _worker(tree, label):
             "flash_fwd_single_f16": lambda: A.flash_fwd_single(*h1[:3]),
             "flash_dqkv_f16": lambda: A.flash_dqkv(*h1),
         })
+    # D = 256 (B*H = 128, S = 512) and the wide-head route at D = 512 (B*H
+    # = 32, S = 512) in bf16 beside SDPA, and its float32 instances.
+    for tag, BHw, Dw in (("d256", 128, 256), ("wide", 32, 512)):
+        qw, kw, vw, dow = (torch.randn(BHw, S, Dw, generator=gen,
+                                       device="cuda").to(torch.bfloat16)
+                           for _ in range(4))
+        ow, lsew = A.flash_fwd_plain(qw, kw, vw)
+        deltaw = (dow.float() * ow.float()).sum(-1)
+        for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+            if sfx and tag != "wide":
+                continue
+            a = [t.to(dt) for t in (qw, kw, vw, dow)]
+            bw = (*a, lsew, deltaw, torch.zeros_like(deltaw), False, 0, 0)
+            calls.update({
+                f"flash_fwd_{tag}{sfx}": (lambda a=a: A.flash_fwd(*a[:3])),
+                f"flash_dq_{tag}{sfx}": (lambda bw=bw: A.flash_dq(*bw)),
+                f"flash_dkv_{tag}{sfx}": (lambda bw=bw: A.flash_dkv(*bw))})
+        if tag == "wide":
+            q4w, k4w, v4w = (t.view(1, BHw, S, Dw).detach().requires_grad_()
+                             for t in (qw, kw, vw))
+            out4w = F.scaled_dot_product_attention(q4w, k4w, v4w)
+            do4w = dow.view(1, BHw, S, Dw)
+            calls.update({
+                "sdpa_fwd_d512": lambda: F.scaled_dot_product_attention(
+                    q4w, k4w, v4w),
+                "sdpa_bwd_d512": lambda: torch.autograd.grad(
+                    out4w, (q4w, k4w, v4w), do4w, retain_graph=True)})
     result = {name: {"spin_ms": smoke.time_ms(fn),
                      "no_spin_ms": smoke.time_ms(fn, sleep_cycles=0),
                      "device_ms": _device_ms(fn)}

@@ -106,13 +106,16 @@ __device__ __forceinline__ void store_out(const CUtensorMap* map, uint32_t sO,
 }
 
 // The epilogue of a tile too wide to stage in shared memory beside the
-// operands (D = 256): a consumer's 64 x W accumulator acc (this thread holds
-// rows row and row + 8 of the output), row half h scaled by mul[h], goes in
-// T straight from registers to those rows of out, a row-major matrix of
-// nrows rows with ld elements per row; rows past nrows are not written.
+// operands (D = 256, and the wide-head kernels): a consumer's 64 x W
+// accumulator acc (this thread holds rows row and row + 8 of the output),
+// row half h scaled by mul[h], goes in T straight from registers to
+// columns [0, ncols) of those rows of out, a row-major matrix of nrows rows
+// with ld elements per row; rows past nrows and columns past ncols (even)
+// are not written.
 template <typename T, int W>
 __device__ __forceinline__ void store_rows(T* out, int ld, const float (&acc)[W / 2],
-                                           const float (&mul)[2], int row, int nrows, int tq) {
+                                           const float (&mul)[2], int row, int nrows, int tq,
+                                           int ncols = W) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (row + 8 * h >= nrows) continue;
@@ -120,7 +123,7 @@ __device__ __forceinline__ void store_rows(T* out, int ld, const float (&acc)[W 
 #pragma unroll
     for (int j = 0; j < W / 8; ++j) {
       const int i = 4 * j + 2 * h;
-      dst[4 * j + tq] = pack2<T>(acc[i] * mul[h], acc[i + 1] * mul[h]);
+      if (8 * j + 2 * tq < ncols) dst[4 * j + tq] = pack2<T>(acc[i] * mul[h], acc[i + 1] * mul[h]);
     }
   }
 }

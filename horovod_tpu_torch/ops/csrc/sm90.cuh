@@ -364,6 +364,14 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// Arrive at barrier `id` without waiting: the other side of a named_sync
+// of the same id and thread count (a producer-consumer hand-off between
+// warpgroups). The caller makes its shared-memory writes visible first
+// (__threadfence_block).
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // Register rebalancing between warpgroups (every warp of the warpgroup runs
 // it; the kernel's roles must split in one if/else that never rejoins).
 template <int N>

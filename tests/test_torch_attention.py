@@ -377,12 +377,16 @@ _HOPPER_INSTANCES = [(k, d, t) for k in ("flash_fwd_kernel", "flash_dq_kernel",
                                                "flash_dq_kernel",
                                                "flash_dkv_kernel")
                          for t in _TYPES] + [
-                         ("dw_1x1_kernel", None, t) for t in _TYPES]
+                         (k, None, t) for k in ("flash_fwd_wide_kernel",
+                                                "flash_dkv_wide_kernel",
+                                                "dw_1x1_kernel")
+                         for t in _TYPES]
 
 
 def _hopper_mangled(kernel, d, t="bf16"):
     """The mangled name nvcc gives a Hopper instance of element type t
-    (d None: the filter gradient, templated on the type alone)."""
+    (d None: the filter gradient or a wide-head kernel, templated on the
+    type alone)."""
     if d is None:
         return (f"_ZN12_GLOBAL__N_1{len(kernel)}{kernel}I{_TYPES[t]}EEv14"
                 "CUtensorMap_stS2_Pfiiiiiiiiiii")
@@ -414,11 +418,16 @@ def _hopper_log():
     ("flash_dqkv_kernel", 128, "serialize"),
     ("flash_dqkv_kernel", 32, "serialize"),
     ("dw_1x1_kernel", None, "spill"),
-    ("dw_1x1_kernel", None, "serialize")])
+    ("dw_1x1_kernel", None, "serialize"),
+    ("flash_fwd_wide_kernel", None, "spill"),
+    ("flash_fwd_wide_kernel", None, "serialize"),
+    ("flash_dkv_wide_kernel", None, "spill"),
+    ("flash_dkv_wide_kernel", None, "serialize")])
 def test_build_report_names_the_redesigned_hopper_culprit(kernel, d, fault):
-    """The fused backward's and the filter gradient's bf16 Hopper instances
-    are in the build phase's list, and a spill or serialized wgmma in one
-    of them fails it, naming that instance alone."""
+    """The fused backward's, the filter gradient's and the wide-head
+    forward's and dK/dV's bf16 Hopper instances are in the build phase's
+    list, and a spill or serialized wgmma in one of them fails it, naming
+    that instance alone."""
     _check_culprit(kernel, d, "bf16", fault)
 
 
@@ -432,7 +441,9 @@ def test_build_report_names_the_redesigned_hopper_culprit(kernel, d, fault):
     ("dw_1x1_kernel", None, "serialize"),
     ("flash_fwd_kernel", 256, "spill"),
     ("flash_dq_kernel", 256, "serialize"),
-    ("flash_dkv_kernel", 256, "spill")])
+    ("flash_dkv_kernel", 256, "spill"),
+    ("flash_fwd_wide_kernel", None, "serialize"),
+    ("flash_dkv_wide_kernel", None, "spill")])
 def test_build_report_names_the_float16_hopper_culprit(kernel, d, fault):
     """The same for the float16 instances: the culprit is named with its
     type, and its bf16 twin is not."""
@@ -479,7 +490,7 @@ def test_build_report_flags_spills_and_serialized_wgmma_of_hopper_kernels():
                              for k, d, t in instances)
     regs, faults = smoke.hopper_build_report(clean)
     assert sorted(regs) == sorted(smoke.HOPPER_INSTANCES)
-    assert len(regs) == 48
+    assert len(regs) == 52
     assert set(regs.values()) == {168} and faults == []
 
     def spill(log, kernel, d, t):

@@ -167,6 +167,52 @@ def test_more_heads_than_a_grid_dimension_holds(cuda_device, dtype, S):
     assert (lse - lse_ref).abs().max().item() <= 1e-3
 
 
+def _hold_wide_hopper(cuda_device, seed, BH, Sq, Sk, D, dtype, causal,
+                      q_offset, k_offset):
+    """The wgmma wide-head forward and dK/dV (bf16, float16) against their
+    plain versions, each launched once."""
+    q, k, v, do, glse = _attention_operands(cuda_device, seed, BH, Sq, Sk, D,
+                                            dtype)
+    fwd, dkv = _kernels.FLASH_FWD_WIDE.launches, _kernels.FLASH_DKV_WIDE.launches
+    o, lse = port.flash_fwd(q, k, v, causal, q_offset, k_offset)
+    o_ref, lse_ref = port.flash_fwd_plain(q, k, v, causal, q_offset, k_offset)
+    delta = (do.float() * o_ref.float()).sum(-1)
+    args = (q, k, v, do, lse_ref, delta, glse, causal, q_offset, k_offset)
+    _hold([(o, o_ref), *zip(port.flash_dkv(*args),
+                            port.flash_dkv_plain(*args))], dtype)
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    assert torch.equal(lse == port.LSE_MASKED, lse_ref == port.LSE_MASKED)
+    assert _kernels.FLASH_FWD_WIDE.launches == fwd + 1
+    assert _kernels.FLASH_DKV_WIDE.launches == dkv + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D,Sq,Sk,causal,q_offset,k_offset", [
+    # D = 288: its last 64-column box half past D (zero-filled by TMA).
+    (288, 77, 100, True, 0, 23),
+    # Causal and ragged, rows 0..39 seeing no key; one pass with the second
+    # warpgroup's columns mostly past D.
+    (320, 200, 300, True, 0, 40),
+    (512, 264, 200, False, 0, 0),
+    (512, 130, 96, True, 64, 0),
+    # Two forward passes and four dK/dV passes.
+    (1024, 128, 128, True, 0, 0)])
+def test_wide_hopper_kernels_match_plain_versions_on_the_card(
+        cuda_device, dtype, D, Sq, Sk, causal, q_offset, k_offset):
+    _hold_wide_hopper(cuda_device, 4, 6, Sq, Sk, D, dtype, causal, q_offset,
+                      k_offset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_wide_hopper_kernels_walk_more_heads_than_a_grid_dimension(
+        cuda_device, dtype):
+    """B*H = 65,600 at S = 24, D = 320: the persistent grid (one block per
+    SM) loops over 65,600 work tiles of each kernel."""
+    _hold_wide_hopper(cuda_device, 5, 65600, 24, 24, 320, dtype, True, 0, 0)
+
+
 @pytest.mark.cuda
 def test_head_dims_above_128_raise_on_the_card(cuda_device):
     """The single-tile kernels refuse head dims above their widest instance

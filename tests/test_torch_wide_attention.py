@@ -90,29 +90,39 @@ def test_wide_operand_check_takes_chunk_multiples_above_256():
 
 
 def test_build_report_counts_wide_instances_and_spills():
-    """chip_smoke.py's build check of the wide-head instances, on ptxas
+    """chip_smoke.py's build checks of the wide-head instances, on ptxas
     lines shaped like nvcc's (mangled names as the card's build prints
-    them): 9 instances with their registers, and a spill named."""
+    them): the 5 that stay SIMT (dQ in every dtype, the float32 forward and
+    dK/dV) with their registers and a spill named, and the 4 bf16 and
+    float16 forward and dK/dV instances in the Hopper (wgmma) report, not
+    in the SIMT one."""
     from test_torch_attention import _chip_smoke
 
     smoke = _chip_smoke()
     prefix = "_ZN56_GLOBAL__N__0aa40730_23_flash_attention_wide_cu_a3104e78"
     types = {"f": "f32", "6__half": "f16", "13__nv_bfloat16": "bf16"}
     lines = []
-    for n, kern in ((21, "flash_fwd_wide_kernel"), (20, "flash_dq_wide_kernel"),
-                    (21, "flash_dkv_wide_kernel")):
-        for mangled in types:
+    simt, hopper = [], []
+    for kern in ("flash_fwd_wide", "flash_dq_wide", "flash_dkv_wide"):
+        for mangled, t in types.items():
+            on_hopper = kern != "flash_dq_wide" and t != "f32"
+            name = kern + ("_kernel" if on_hopper or kern == "flash_dq_wide"
+                           else "_f32_kernel")
+            (hopper if on_hopper else simt).append(f"{name}<{t}>")
             spill = ("8 bytes spill stores, 8 bytes spill loads"
-                     if kern == "flash_dq_wide_kernel" and mangled == "f"
+                     if kern == "flash_dq_wide" and t == "f32"
                      else "0 bytes spill stores, 0 bytes spill loads")
             lines += [
                 f"ptxas info    : Compiling entry function "
-                f"'{prefix}{n}{kern}I{mangled}EEvPKT_' for 'sm_90a'",
+                f"'{prefix}{len(name)}{name}I{mangled}EEvPKT_' for 'sm_90a'",
                 f"    0 bytes stack frame, {spill}",
-                "ptxas info    : Used 128 registers, used 1 barriers"]
-    regs, faults = smoke.wide_build_report("\n".join(lines))
-    assert sorted(regs) == sorted(
-        f"{k}<{t}>" for k in ("flash_fwd_wide_kernel", "flash_dq_wide_kernel",
-                              "flash_dkv_wide_kernel") for t in types.values())
+                "ptxas info    : Used {} registers, used 1 barriers".format(
+                    168 if on_hopper else 128)]
+    log = "\n".join(lines)
+    regs, faults = smoke.wide_build_report(log)
+    assert sorted(regs) == sorted(simt) == sorted(smoke.WIDE_SIMT_INSTANCES)
     assert set(regs.values()) == {128}
     assert len(faults) == 1 and faults[0].startswith("flash_dq_wide_kernel<f32>")
+    hopper_regs, hopper_faults = smoke.hopper_build_report(log)
+    assert sorted(hopper_regs) == sorted(hopper) and len(hopper) == 4
+    assert set(hopper_regs.values()) == {168} and hopper_faults == []
