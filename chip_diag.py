@@ -18,10 +18,14 @@ same two shapes (``*_f16``; printed only, for a checkout that has them);
 and the 1x1-conv filter gradient (dw_1x1) beside cuBLAS's x^T dy at both
 ResNet-50 shapes of chip_smoke.py (the shortcut's cuBLAS call reads a
 contiguous copy of its strided x); the multi-tile kernels at D = 256
-(``*_d256``: B*H = 128, S = 512, bf16); and the wide-head route at
-D = 512, B*H = 32, S = 512: the three wide kernels in bf16 (``*_wide``)
-and float32 (``*_wide_f32``) beside the SDPA forward and backward at that
-shape (``sdpa_*_d512``). Each
+(``*_d256``: B*H = 128, S = 512) and the wide-head route at D = 512
+(``*_wide``: B*H = 32, S = 512), each in bf16 and float32 (``*_f32``)
+beside the SDPA forward and backward at that shape in the same dtype
+(``sdpa_*_d256``, ``sdpa_*_d512``, ``*_f32``); and the float32 instances
+at D = 64 (``flash_fwd_f32``, ``flash_dq_f32``, ``flash_dkv_f32`` at
+S = 512; ``flash_fwd_single_f32``, ``flash_dqkv_f32`` at S = 128) beside
+SDPA in float32 (``sdpa_*_f32``, ``sdpa_*_s128_f32``). After the times it
+prints each float32 row's bound at the float32 FMA peak. Each
 checkout runs in a process of its own, in the order other, this, this,
 other. Each process times every call by three methods, all with the L2
 flushed before each call:
@@ -99,7 +103,27 @@ CALLS = ("flash_fwd", "flash_dq", "flash_dkv", "sdpa_fwd", "sdpa_bwd",
          "flash_fwd_d256", "flash_dq_d256", "flash_dkv_d256",
          "flash_fwd_wide", "flash_dq_wide", "flash_dkv_wide", "sdpa_fwd_d512",
          "sdpa_bwd_d512", "flash_fwd_wide_f32", "flash_dq_wide_f32",
-         "flash_dkv_wide_f32")
+         "flash_dkv_wide_f32", "sdpa_fwd_d256", "sdpa_bwd_d256",
+         "flash_fwd_f32", "flash_dq_f32", "flash_dkv_f32", "sdpa_fwd_f32",
+         "sdpa_bwd_f32", "flash_fwd_single_f32", "flash_dqkv_f32",
+         "sdpa_fwd_s128_f32", "sdpa_bwd_s128_f32", "flash_fwd_d256_f32",
+         "flash_dq_d256_f32", "flash_dkv_d256_f32", "sdpa_fwd_d256_f32",
+         "sdpa_bwd_d256_f32", "sdpa_fwd_d512_f32", "sdpa_bwd_d512_f32")
+# The float32 rows' shapes (name: kernel, B*H, S, D) for their bounds at the
+# float32 FMA peak, printed by ab beside the times.
+F32_BOUNDS = {
+    "flash_fwd_f32": ("flash_fwd", 128, 512, 64),
+    "flash_dq_f32": ("flash_dq", 128, 512, 64),
+    "flash_dkv_f32": ("flash_dkv", 128, 512, 64),
+    "flash_fwd_single_f32": ("flash_fwd_single", 1024, 128, 64),
+    "flash_dqkv_f32": ("flash_dqkv", 1024, 128, 64),
+    "flash_fwd_d256_f32": ("flash_fwd", 128, 512, 256),
+    "flash_dq_d256_f32": ("flash_dq", 128, 512, 256),
+    "flash_dkv_d256_f32": ("flash_dkv", 128, 512, 256),
+    "flash_fwd_wide_f32": ("flash_fwd", 32, 512, 512),
+    "flash_dq_wide_f32": ("flash_dq", 32, 512, 512),
+    "flash_dkv_wide_f32": ("flash_dkv", 32, 512, 512),
+}
 METHODS = ("spin_ms", "no_spin_ms", "device_ms")
 
 
@@ -222,7 +246,15 @@ def _worker(tree, label):
             "flash_dqkv_f16": lambda: A.flash_dqkv(*h1),
         })
     # D = 256 (B*H = 128, S = 512) and the wide-head route at D = 512 (B*H
-    # = 32, S = 512) in bf16 beside SDPA, and its float32 instances.
+    # = 32, S = 512), each in bf16 and float32 beside SDPA in the same dtype.
+    def sdpa_calls(name, args4, do4):
+        g4 = [t.detach().requires_grad_() for t in args4]
+        out = F.scaled_dot_product_attention(*g4)
+        return {f"sdpa_fwd_{name}": lambda: F.scaled_dot_product_attention(
+                    *args4),
+                f"sdpa_bwd_{name}": lambda: torch.autograd.grad(
+                    out, g4, do4, retain_graph=True)}
+
     for tag, BHw, Dw in (("d256", 128, 256), ("wide", 32, 512)):
         qw, kw, vw, dow = (torch.randn(BHw, S, Dw, generator=gen,
                                        device="cuda").to(torch.bfloat16)
@@ -230,24 +262,31 @@ def _worker(tree, label):
         ow, lsew = A.flash_fwd_plain(qw, kw, vw)
         deltaw = (dow.float() * ow.float()).sum(-1)
         for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "_f32")):
-            if sfx and tag != "wide":
-                continue
             a = [t.to(dt) for t in (qw, kw, vw, dow)]
             bw = (*a, lsew, deltaw, torch.zeros_like(deltaw), False, 0, 0)
             calls.update({
                 f"flash_fwd_{tag}{sfx}": (lambda a=a: A.flash_fwd(*a[:3])),
                 f"flash_dq_{tag}{sfx}": (lambda bw=bw: A.flash_dq(*bw)),
                 f"flash_dkv_{tag}{sfx}": (lambda bw=bw: A.flash_dkv(*bw))})
-        if tag == "wide":
-            q4w, k4w, v4w = (t.view(1, BHw, S, Dw).detach().requires_grad_()
-                             for t in (qw, kw, vw))
-            out4w = F.scaled_dot_product_attention(q4w, k4w, v4w)
-            do4w = dow.view(1, BHw, S, Dw)
-            calls.update({
-                "sdpa_fwd_d512": lambda: F.scaled_dot_product_attention(
-                    q4w, k4w, v4w),
-                "sdpa_bwd_d512": lambda: torch.autograd.grad(
-                    out4w, (q4w, k4w, v4w), do4w, retain_graph=True)})
+            calls.update(sdpa_calls(
+                f"d{Dw}{sfx}", [t.view(1, BHw, S, Dw) for t in a[:3]],
+                a[3].view(1, BHw, S, Dw)))
+    # The float32 instances at D = 64 (BERT-Large S = 512 and S = 128
+    # shapes) beside SDPA in float32.
+    f32, f32_1 = ([t.float() for t in args[:4]] for args in (bwd, bwd1))
+    b32 = (*f32, *bwd[4:7], False, 0, 0)
+    b32_1 = (*f32_1, *bwd1[4:7], False, 0, 0)
+    calls.update({
+        "flash_fwd_f32": lambda: A.flash_fwd(*f32[:3]),
+        "flash_dq_f32": lambda: A.flash_dq(*b32),
+        "flash_dkv_f32": lambda: A.flash_dkv(*b32),
+        "flash_fwd_single_f32": lambda: A.flash_fwd_single(*f32_1[:3]),
+        "flash_dqkv_f32": lambda: A.flash_dqkv(*b32_1)})
+    calls.update(sdpa_calls("f32", [t.view(B, H, S, D) for t in f32[:3]],
+                            f32[3].view(B, H, S, D)))
+    calls.update(sdpa_calls(
+        "s128_f32", [t.view(B1, H, S1, D) for t in f32_1[:3]],
+        f32_1[3].view(B1, H, S1, D)))
     result = {name: {"spin_ms": smoke.time_ms(fn),
                      "no_spin_ms": smoke.time_ms(fn, sleep_cycles=0),
                      "device_ms": _device_ms(fn)}
@@ -284,6 +323,12 @@ def ab(other):
                 continue
             print(f"ab {name} {method}: other {o:.4f} ms, this {t:.4f} ms, "
                   f"other / this {o / t:.2f}")
+    smoke = _smoke()
+    for name, (kernel, BH, S, D) in F32_BOUNDS.items():
+        ms, by, flops, moved = smoke._bounds(kernel, BH, S, S, D, "float32",
+                                             False, 0, 0)
+        print(f"bound {name}: {ms:.4f} ms ({by}: {flops / 1e9:.2f} GFLOP, "
+              f"{moved / 1e6:.1f} MB)")
     print(f"card: {runs['this'][0]['card']}")
     return 0
 

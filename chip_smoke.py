@@ -10,13 +10,13 @@ and prints no result line); each prints its seconds:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build of the hand-written CUDA kernels from ``horovod_tpu_torch/ops/csrc``
-   (one ``nvcc`` per source, all started together); none of the 52 Hopper
+   (one ``nvcc`` per source, all started together); none of the 54 Hopper
    (wgmma) instances (the bf16 and float16 forward, dQ, dK/dV, single-tile
    forward and fused backward at D=16, 32, 64, 128, the forward, dQ and
-   dK/dV at D=256, the wide-head forward and dK/dV, and the bf16 and
+   dK/dV at D=256, the wide-head forward, dQ and dK/dV, and the bf16 and
    float16 filter gradient) may spill or have its wgmma serialized, nor
-   any of the 5 SIMT wide-head instances (dQ in every dtype, the float32
-   forward and dK/dV) spill;
+   any of the 3 SIMT wide-head instances (the float32 forward, dQ and
+   dK/dV) spill;
 3. kernel phase: every kernel against its plain PyTorch version on the same
    inputs, with times beside the bound and the library yardstick:
    - the multi-tile forward, dQ and dK/dV flash-attention kernels
@@ -209,7 +209,7 @@ def time_ms(fn, reps=20, warmup=3, sleep_cycles=SLEEP_CYCLES):
 
 # The Hopper (wgmma) instances: the bf16 and float16 kernels of both
 # attention routes at head dims 16 to 128, the multi-tile ones also at 256,
-# the wide-head forward and dK/dV (any D above 256), and the bf16 and
+# the wide-head forward, dQ and dK/dV (any D above 256), and the bf16 and
 # float16 1x1-conv filter gradient (the float32 kernels are named
 # *_f32_kernel). nvcc's mangled names carry the element type:
 # 13__nv_bfloat16 or 6__half.
@@ -223,12 +223,12 @@ HOPPER_INSTANCES = tuple(
     for t in HOPPER_TYPES.values() for d in (16, 32, 64, 128)) + tuple(
         f"{k}<{t}, 256>" for k in MULTI_TILE_KERNELS
         for t in HOPPER_TYPES.values()) + tuple(
-        f"{k}<{t}>" for k in ("flash_fwd_wide_kernel", "flash_dkv_wide_kernel",
-                              "dw_1x1_kernel")
+        f"{k}<{t}>" for k in ("flash_fwd_wide_kernel", "flash_dq_wide_kernel",
+                              "flash_dkv_wide_kernel", "dw_1x1_kernel")
         for t in HOPPER_TYPES.values())
 _HOPPER_NAME = re.compile(
     r"(flash_(?:fwd_single|fwd|dqkv|dq|dkv)_kernel)I\d+(__nv_bfloat16|__half)"
-    r"Li(\d+)E|\d(dw_1x1_kernel|flash_(?:fwd|dkv)_wide_kernel)"
+    r"Li(\d+)E|\d(dw_1x1_kernel|flash_(?:fwd|dq|dkv)_wide_kernel)"
     r"I\d+(__nv_bfloat16|__half)E")
 
 
@@ -265,15 +265,13 @@ def hopper_build_report(log):
     return regs, faults
 
 
-# The wide-head instances that stay SIMT: dQ in every dtype, the float32
-# forward and dK/dV.
+# The wide-head instances that stay SIMT: the float32 forward, dQ and
+# dK/dV.
 _WIDE_NAME = re.compile(
-    r"(flash_(?:fwd_wide_f32|dq_wide|dkv_wide_f32)_kernel)"
-    r"I(f|6__half|13__nv_bfloat16)E")
-WIDE_TYPES = {"f": "f32", "6__half": "f16", "13__nv_bfloat16": "bf16"}
+    r"(flash_(?:fwd|dq|dkv)_wide_f32_kernel)I(f)E")
+WIDE_TYPES = {"f": "f32"}
 WIDE_SIMT_INSTANCES = (
-    "flash_fwd_wide_f32_kernel<f32>", "flash_dq_wide_kernel<f32>",
-    "flash_dq_wide_kernel<f16>", "flash_dq_wide_kernel<bf16>",
+    "flash_fwd_wide_f32_kernel<f32>", "flash_dq_wide_f32_kernel<f32>",
     "flash_dkv_wide_f32_kernel<f32>")
 
 
@@ -930,7 +928,7 @@ _CATEGORIES = (  # first match wins; by lower-cased kernel name
                           "flash_fwd_single_f32_kernel")),
     ("flash_dqkv", ("flash_dqkv_kernel", "flash_dqkv_f32_kernel")),
     ("flash_fwd_wide", ("flash_fwd_wide_kernel", "flash_fwd_wide_f32_kernel")),
-    ("flash_dq_wide", ("flash_dq_wide_kernel",)),
+    ("flash_dq_wide", ("flash_dq_wide_kernel", "flash_dq_wide_f32_kernel")),
     ("flash_dkv_wide", ("flash_dkv_wide_kernel", "flash_dkv_wide_f32_kernel")),
     ("dw_1x1", ("dw_1x1_kernel", "dw_1x1_partial_f32_kernel",
                 "dw_1x1_reduce_kernel")),

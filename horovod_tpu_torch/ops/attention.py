@@ -19,11 +19,11 @@ dim (:func:`single_tile_route`, :func:`wide_route`):
   (``csrc/flash_attention_single.cu``);
 - ``D > 256``, at every sequence length: the wide-head forward, dQ and
   dK/dV kernels (``csrc/flash_attention_wide.cu``), whose shared memory
-  does not grow with D: in bf16 and float16 the forward and dK/dV stream
-  every operand in 64-column boxes by TMA into wgmma and hold 256 output
+  does not grow with D: in bf16 and float16 all three stream every
+  operand in 64-column boxes by TMA into wgmma and hold 256 output
   columns per warpgroup in registers (one pass over the keys up to
-  D = 512 in the forward, 256 columns a pass in dK/dV); dQ, and the
-  float32 instances, stream the scores over D in chunks and write each
+  D = 512 in the forward and dQ, 256 columns a pass in dK/dV); the
+  float32 instances stream the scores over D in chunks and write each
   output in column slices that recompute the scores they need;
 - otherwise the multi-tile forward (online softmax), dQ and dK/dV kernels
   (``csrc/flash_attention.cu``). Head dims 129 to 256 take this route at

@@ -40,8 +40,9 @@
 //     with P in registers (RS). Scores, the online-softmax state (a thread
 //     holds 2 rows; row max and sum take two shuffles in its quad; exp2 with
 //     the scale folded into one FMA), P and the accumulators O, dK, dV live
-//     in registers. The two consumer warpgroups interleave, so one's softmax
-//     runs while the other's products do.
+//     in registers. The two consumer warpgroups run on the same stages with
+//     nothing ordering them; named barriers that made them take turns at
+//     the tensor cores measured slower (the D = 256 forward, PERF.md).
 //   - Forward: K/V stages of 128 rows (64 at D = 128, for shared memory). O
 //     leaves through shared memory and a TMA store that runs on while the
 //     next work tile starts.
@@ -58,13 +59,14 @@
 //     the transposed form: S^T = K Q^T and dP^T = V dO^T (SS), then
 //     dV += P^T dO and dK += dS^T Q (RS, dO and Q MN-major). dK and dV
 //     leave through shared memory and TMA stores, as O does.
-// Head dim 256 (instances for D = 129 to 256, zero-padded): the same three
-// kernels with one resident buffer, two stages and outputs stored straight
-// from registers, since the operand tiles double: the forward's 64-row K/V
-// stages, dQ's 32-row ones, and dK/dV over one half of D's output columns
-// per work tile, recomputing S^T and dP^T for each half (the 256 columns of
-// dK and dV do not fit the consumers' registers at once). The *Smem
-// layouts give the numbers.
+// Head dim 256 (instances for D = 129 to 256, zero-padded): outputs leave
+// straight from registers, 16 bytes a thread (store_rows), since the
+// operand tiles double. The forward keeps two Q buffers and streams K and
+// V as separate 64-row items of a three-item ring (S = Q K^T starts once K
+// has landed). dQ and dK/dV keep one resident buffer and two stages: dQ's 32-row K/V stages, and dK/dV over one half of D's
+// output columns per work tile, recomputing S^T and dP^T for each half (the
+// 256 columns of dK and dV do not fit the consumers' registers at once).
+// The *Smem layouts give the numbers.
 // float32 (flash_fwd_f32_kernel, flash_dq_f32_kernel, flash_dkv_f32_kernel)
 // keeps the first version: 64-row tiles (32 at D = 256), four warps (two),
 // fp32 accumulators in shared memory (dK/dV: in registers, by column
@@ -113,49 +115,229 @@ __device__ __forceinline__ int query_begin(int k0, int bq, int causal, int q_off
 
 constexpr int FWD_BQ = 128;  // Q rows of a forward work tile
 
-// Shared memory of the forward, byte offsets from a 1024-aligned base: the Q
-// buffers (two: the next work tile's Q loads while the current one runs),
-// the K/V ring of STAGES stages, and each consumer warpgroup's output tile
-// on its way out by TMA. BK: K/V rows of a ring stage, 128, or 64 at
-// D = 128, where four 128-row stages would not fit beside the rest. At
-// D = 256 a 128-row Q tile is 64 KB and a 64-row K + V stage 64 KB, so one
-// Q buffer and two stages take 192 KB, and O leaves straight from registers
-// (TMA_OUT false; 64 KB of output tiles would not fit beside them); the
-// 128 fp32 registers of the O accumulator, 32 of S and 16 of P fit the
-// consumers' 240.
+// Shared memory of the forward at D = 16 to 128, byte offsets from a
+// 1024-aligned base: the Q buffers (two: the next work tile's Q loads while
+// the current one runs), the K/V ring of STAGES stages, and each consumer
+// warpgroup's output tile on its way out by TMA. BK: K/V rows of a ring
+// stage, 128, or 64 at D = 128, where four 128-row stages would not fit
+// beside the rest.
 template <int D>
 struct FwdSmem {
   static constexpr int BK = D >= 128 ? 64 : 128;
-  static constexpr int STAGES = D == 256 ? 2 : 4;
-  static constexpr int Q_BUFS = D == 256 ? 1 : 2;
-  static constexpr bool TMA_OUT = D != 256;
+  static constexpr int STAGES = 4;
   static constexpr int TILE_Q = FWD_BQ * D * 2;
   static constexpr int TILE_KV = BK * D * 2;
-  static constexpr int TILE_O = TMA_OUT ? 64 * D * 2 : 0;
+  static constexpr int TILE_O = 64 * D * 2;
   static constexpr int Q = 0;                            // + buffer * TILE_Q
-  static constexpr int K = Q + Q_BUFS * TILE_Q;          // + stage * TILE_KV
+  static constexpr int K = Q + 2 * TILE_Q;               // + stage * TILE_KV
   static constexpr int V = K + STAGES * TILE_KV;         // + stage * TILE_KV
   static constexpr int O = V + STAGES * TILE_KV;         // + warpgroup * TILE_O
   static constexpr int BAR = O + CONSUMER_WGS * TILE_O;  // full[S], empty[S], q_full[2], q_empty[2]
   static constexpr int BYTES = BAR + (2 * STAGES + 4) * 8 + 1024;  // + alignment slack
 };
 
-// Forward, persistent: a grid of one block per SM walks the work tiles
-// (bh, 128 Q rows) in turn; o [BH, Sq, D] in T (written through tm_o, or at
-// D = 256 through the pointer o), lse [BH, Sq] fp32. The producer runs
-// ahead into the next work tile (its Q into the other buffer, its K/V
-// tiles into the ring) while the consumers finish the current one.
+// At D = 256 a 128-row Q tile is 64 KB and a 64-row K or V tile 32 KB. Two
+// Q buffers (the next work tile's Q loads while the current one runs) and a
+// ring of three items, K and V apart (each with its own full/empty
+// barriers, so S = Q K^T starts as soon as K has landed, and K's slot takes
+// the next item while the softmax and P V run), take 224 KB. O leaves
+// straight from registers (store_rows, 16 bytes a thread): 64 KB of
+// output tiles would not fit beside the rest.
+template <>
+struct FwdSmem<256> {
+  static constexpr int BK = 64;
+  static constexpr int ITEMS = 3;
+  static constexpr int TILE_Q = FWD_BQ * 256 * 2;
+  static constexpr int TILE_KV = BK * 256 * 2;
+  static constexpr int Q = 0;                       // + buffer * TILE_Q
+  static constexpr int KV = Q + 2 * TILE_Q;         // + item slot * TILE_KV
+  static constexpr int BAR = KV + ITEMS * TILE_KV;  // full[I], empty[I], q_full[2], q_empty[2]
+  static constexpr int BYTES = BAR + (2 * ITEMS + 4) * 8 + 1024;  // + alignment slack
+};
+static_assert(FwdSmem<128>::BYTES <= (int)SMEM_LIMIT, "D = 128 forward exceeds shared memory");
+static_assert(FwdSmem<256>::BYTES <= (int)SMEM_LIMIT, "D = 256 forward exceeds shared memory");
+
+// The D = 256 forward's work, called by flash_fwd_kernel<T, 256>: the work
+// tiles of D <= 128, with K(t) and V(t) as ring items 2t and 2t + 1. Per key
+// tile a consumer warpgroup runs S = Q K(t)^T, the softmax, then
+// O += P V(t), as at D <= 128. (Issuing S(t + 1) before the softmax of S(t),
+// or having the warpgroups take turns at the tensor cores, measured slower:
+// PERF.md.)
+template <typename T>
+__device__ __forceinline__ void flash_fwd_256(const CUtensorMap* tm_q, const CUtensorMap* tm_k,
+                                              const CUtensorMap* tm_v, T* __restrict__ o,
+                                              float* __restrict__ lse, int BH, int Sq, int Sk,
+                                              float scale, int causal, int q_offset,
+                                              int k_offset) {
+  constexpr int D = 256;
+  using F = TileFormat<D>;
+  using L = FwdSmem<D>;
+  constexpr int BK = L::BK;
+  constexpr int ITEMS = L::ITEMS;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t full_bar = base + L::BAR;            // item slot s at + 8 s
+  const uint32_t empty_bar = full_bar + 8 * ITEMS;    // item slot s at + 8 s
+  const uint32_t q_full_bar = empty_bar + 8 * ITEMS;  // buffer b at + 8 b
+  const uint32_t q_empty_bar = q_full_bar + 16;       // buffer b at + 8 b
+
+  const int qtiles = (Sq + FWD_BQ - 1) / FWD_BQ;
+  const int nwork = BH * qtiles;  // consecutive work tiles share a head's K/V in L2
+  auto ntiles = [&](int w) {
+    return (key_end(Sk, (w % qtiles) * FWD_BQ, FWD_BQ, causal, q_offset, k_offset) + BK - 1) /
+           BK;
+  };
+  // Ring item `it` (K or V of one key tile) sits in slot it % ITEMS, at
+  // phase (it / ITEMS) % 2.
+  auto slot = [&](int it) { return base + L::KV + (uint32_t)((it % ITEMS) * L::TILE_KV); };
+  const int wg = threadIdx.x / WG;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ITEMS; ++s) {
+      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(empty_bar + 8 * s, CONSUMER_WARPS);
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(q_full_bar + 8 * b, 1);
+      mbar_init(q_empty_bar + 8 * b, CONSUMER_WARPS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == CONSUMER_WGS) {
+    // Producer, one thread: per work tile its Q, then K(t) and V(t) for
+    // each key tile.
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x == CONSUMER_WGS * WG) {
+      int it = 0;  // ring items loaded so far
+      int wt = 0;  // work tiles so far
+      for (int w = blockIdx.x; w < nwork; w += gridDim.x, ++wt) {
+        const int bh = w / qtiles;
+        const int qb = wt & 1;
+        const uint32_t q_bar = q_full_bar + 8 * qb;
+        mbar_wait(q_empty_bar + 8 * qb, ((wt >> 1) & 1) ^ 1);
+        mbar_arrive_expect_tx(q_bar, L::TILE_Q);
+        for (int b = 0; b < F::NB; ++b)
+          tma_load_3d(base + L::Q + qb * L::TILE_Q + b * FWD_BQ * F::ROW_BYTES, tm_q, q_bar,
+                      b * F::CB, (w % qtiles) * FWD_BQ, bh);
+        const int n = ntiles(w);
+        for (int t = 0; t < 2 * n; ++t, ++it) {
+          const int s = it % ITEMS;
+          const uint32_t bar = full_bar + 8 * s;
+          mbar_wait(empty_bar + 8 * s, ((it / ITEMS) & 1) ^ 1);
+          mbar_arrive_expect_tx(bar, L::TILE_KV);
+          for (int b = 0; b < F::NB; ++b)
+            tma_load_3d(slot(it) + b * BK * F::ROW_BYTES, (t & 1) ? tm_v : tm_k, bar, b * F::CB,
+                        (t >> 1) * BK, bh);
+        }
+      }
+    }
+  } else {
+    // Consumer warpgroup wg: rows [64 wg, 64 wg + 64) of each work tile.
+    reg_alloc<CONSUMER_REGS>();
+    const int tid = threadIdx.x % WG;
+    const int lane = tid & 31;
+    const int tq = lane & 3;
+    const float sl2 = scale * LOG2E;
+    auto release = [&](uint32_t bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    int it = 0;
+    int wt = 0;
+    for (int w = blockIdx.x; w < nwork; w += gridDim.x, ++wt) {
+      const int bh = w / qtiles;
+      const int row_first = (w % qtiles) * FWD_BQ + wg * 64;
+      const int row0 = row_first + (tid >> 5) * 16 + (lane >> 2);  // and row0 + 8
+      const int n = ntiles(w);
+      const int qb = wt & 1;
+      const uint32_t sQ = base + L::Q + qb * L::TILE_Q;
+      float acc[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      float m[2] = {NEG_INF, NEG_INF};
+      float l[2] = {0.f, 0.f};
+
+      mbar_wait(q_full_bar + 8 * qb, (wt >> 1) & 1);
+      for (int t = 0; t < n; ++t, it += 2) {
+        // S = Q K(t)^T (SS, both K-major).
+        float sc[BK / 2];
+        mbar_wait(full_bar + 8 * (it % ITEMS), (it / ITEMS) & 1);
+        const uint32_t sK = slot(it);
+        wgmma_fence();
+        Wgmma<BK, T>::template ss_init<0>(sc, F::kmajor(sQ, FWD_BQ, wg * 64, 0),
+                                          F::kmajor(sK, BK, 0, 0));
+#pragma unroll
+        for (int kk = 1; kk < D / 16; ++kk)
+          Wgmma<BK, T>::template ss<0>(sc, F::kmajor(sQ, FWD_BQ, wg * 64, kk),
+                                       F::kmajor(sK, BK, 0, kk));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        release(empty_bar + 8 * (it % ITEMS));
+        if (t == n - 1) release(q_empty_bar + 8 * qb);  // the last read of this Q
+
+        float corr[2];
+        uint32_t p[BK / 16][4];
+        if (t * BK + BK > Sk || (causal && q_offset + row_first < k_offset + t * BK + BK - 1))
+          softmax_tile<T, BK, true>(sc, m, l, corr, p, row0, t * BK, Sk, sl2, causal, q_offset,
+                                    k_offset, tq);
+        else
+          softmax_tile<T, BK, false>(sc, m, l, corr, p, row0, t * BK, Sk, sl2, causal, q_offset,
+                                     k_offset, tq);
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+
+        // O += P V(t) (RS: P from registers, V MN-major).
+        const int vt = it + 1;
+        mbar_wait(full_bar + 8 * (vt % ITEMS), (vt / ITEMS) & 1);
+        fence_regs(acc);
+        fence_regs(p);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          Wgmma<D, T>::template rs<1>(acc, p[kk], F::mnmajor(slot(vt), BK, kk));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        release(empty_bar + 8 * (vt % ITEMS));
+      }
+      if (n == 0) release(q_empty_bar + 8 * qb);  // nothing visible: Q was never read
+
+      // O / l in T straight from registers; lse directly.
+      float inv[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+        const bool empty = l[h] == 0.f;
+        inv[h] = empty ? 0.f : 1.f / l[h];
+        const int qi = row0 + 8 * h;
+        if (tq == 0 && qi < Sq)
+          lse[(size_t)bh * Sq + qi] = empty ? LSE_MASKED : m[h] * LN2 + logf(l[h]);
+      }
+      store_rows<T, D>(o + (size_t)bh * Sq * D, D, acc, inv, row0, Sq, tq);
+    }
+  }
+}
+
+// The forward's work at D = 16 to 128, called by flash_fwd_kernel<T, D>:
+// per K/V stage S = Q K^T, the softmax, then O += P V; O leaves through
+// tm_o. The producer runs ahead into the next work tile (its Q into the
+// other buffer, its K/V tiles into the ring) while the consumers finish
+// the current one.
 template <typename T, int D>
-__global__ void __launch_bounds__(SM90_THREADS, 1)
-flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-                 const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o,
-                 T* __restrict__ o, float* __restrict__ lse, int BH, int Sq, int Sk, float scale,
-                 int causal, int q_offset, int k_offset) {
+__device__ __forceinline__ void flash_fwd_tiles(const CUtensorMap* tm_q, const CUtensorMap* tm_k,
+                                                const CUtensorMap* tm_v, const CUtensorMap* tm_o,
+                                                float* __restrict__ lse, int BH, int Sq, int Sk,
+                                                float scale, int causal, int q_offset,
+                                                int k_offset) {
   using F = TileFormat<D>;
   using L = FwdSmem<D>;
   constexpr int BK = L::BK;
   constexpr int STAGES = L::STAGES;
-  constexpr int QB = L::Q_BUFS;
+  constexpr int QB = 2;  // Q buffers
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t full_bar = base + L::BAR;                 // stage s at + 8 s
@@ -198,7 +380,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         mbar_wait(q_empty_bar + 8 * qb, ((it / QB) & 1) ^ 1);
         mbar_arrive_expect_tx(q_bar, L::TILE_Q);
         for (int b = 0; b < F::NB; ++b)
-          tma_load_3d(base + L::Q + qb * L::TILE_Q + b * FWD_BQ * F::ROW_BYTES, &tm_q, q_bar,
+          tma_load_3d(base + L::Q + qb * L::TILE_Q + b * FWD_BQ * F::ROW_BYTES, tm_q, q_bar,
                       b * F::CB, (w % qtiles) * FWD_BQ, bh);
         const int n = ntiles(w);
         for (int t = 0; t < n; ++t, ++kt) {
@@ -209,8 +391,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
           const uint32_t sK = base + L::K + s * L::TILE_KV;
           const uint32_t sV = base + L::V + s * L::TILE_KV;
           for (int b = 0; b < F::NB; ++b) {
-            tma_load_3d(sK + b * BK * F::ROW_BYTES, &tm_k, bar, b * F::CB, t * BK, bh);
-            tma_load_3d(sV + b * BK * F::ROW_BYTES, &tm_v, bar, b * F::CB, t * BK, bh);
+            tma_load_3d(sK + b * BK * F::ROW_BYTES, tm_k, bar, b * F::CB, t * BK, bh);
+            tma_load_3d(sV + b * BK * F::ROW_BYTES, tm_v, bar, b * F::CB, t * BK, bh);
           }
         }
       }
@@ -290,55 +472,55 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
         if (lane == 0) mbar_arrive(q_empty_bar + 8 * qb);
       }
 
-      if constexpr (L::TMA_OUT) {
-        // O / l in T through the warpgroup's output tile and one TMA store
-        // per box (rows past Sq are not written); the store runs on while
-        // the next work tile starts. lse goes out directly.
-        const uint32_t sO = base + L::O + wg * L::TILE_O;
-        if (tid == 0) bulk_wait_read<0>();  // the last work tile's store has read sO
-        named_sync(1 + wg, WG);
+      // O / l in T through the warpgroup's output tile and one TMA store
+      // per box (rows past Sq are not written); the store runs on while the
+      // next work tile starts. lse goes out directly.
+      const uint32_t sO = base + L::O + wg * L::TILE_O;
+      if (tid == 0) bulk_wait_read<0>();  // the last work tile's store has read sO
+      named_sync(1 + wg, WG);
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-          l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-          const bool empty = l[h] == 0.f;
-          const float inv = empty ? 0.f : 1.f / l[h];
-          const int r = row0 - row_first + 8 * h;
+      for (int h = 0; h < 2; ++h) {
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+        const bool empty = l[h] == 0.f;
+        const float inv = empty ? 0.f : 1.f / l[h];
+        const int r = row0 - row_first + 8 * h;
 #pragma unroll
-          for (int j = 0; j < D / 8; ++j) {
-            const int i = 4 * j + 2 * h;
-            st_shared_u32(sO + F::offset(64, r, 8 * j + 2 * tq),
-                          pack2<T>(acc[i] * inv, acc[i + 1] * inv));
-          }
-          const int qi = row0 + 8 * h;
-          if (tq == 0 && qi < Sq)
-            lse[(size_t)bh * Sq + qi] = empty ? LSE_MASKED : m[h] * LN2 + logf(l[h]);
+        for (int j = 0; j < D / 8; ++j) {
+          const int i = 4 * j + 2 * h;
+          st_shared_u32(sO + F::offset(64, r, 8 * j + 2 * tq),
+                        pack2<T>(acc[i] * inv, acc[i + 1] * inv));
         }
-        fence_async_smem();
-        named_sync(1 + wg, WG);
-        if (tid == 0) {
-          for (int b = 0; b < F::NB; ++b)
-            tma_store_3d(&tm_o, sO + b * 64 * F::ROW_BYTES, b * F::CB, row_first, bh);
-          bulk_commit();
-        }
-      } else {
-        // O / l in T straight from registers; lse as above.
-        float inv[2];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-          l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-          const bool empty = l[h] == 0.f;
-          inv[h] = empty ? 0.f : 1.f / l[h];
-          const int qi = row0 + 8 * h;
-          if (tq == 0 && qi < Sq)
-            lse[(size_t)bh * Sq + qi] = empty ? LSE_MASKED : m[h] * LN2 + logf(l[h]);
-        }
-        store_rows<T, D>(o + (size_t)bh * Sq * D, D, acc, inv, row0, Sq, tq);
+        const int qi = row0 + 8 * h;
+        if (tq == 0 && qi < Sq)
+          lse[(size_t)bh * Sq + qi] = empty ? LSE_MASKED : m[h] * LN2 + logf(l[h]);
+      }
+      fence_async_smem();
+      named_sync(1 + wg, WG);
+      if (tid == 0) {
+        for (int b = 0; b < F::NB; ++b)
+          tma_store_3d(tm_o, sO + b * 64 * F::ROW_BYTES, b * F::CB, row_first, bh);
+        bulk_commit();
       }
     }
     if (tid == 0) bulk_wait_read<0>();  // shared memory outlives the last store's reads
   }
+}
+
+// Forward, persistent: a grid of one block per SM walks the work tiles
+// (bh, 128 Q rows) in turn; o [BH, Sq, D] in T (written through tm_o, or at
+// D = 256 through the pointer o), lse [BH, Sq] fp32.
+template <typename T, int D>
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o,
+                 T* __restrict__ o, float* __restrict__ lse, int BH, int Sq, int Sk, float scale,
+                 int causal, int q_offset, int k_offset) {
+  if constexpr (D == 256)
+    flash_fwd_256<T>(&tm_q, &tm_k, &tm_v, o, lse, BH, Sq, Sk, scale, causal, q_offset, k_offset);
+  else
+    flash_fwd_tiles<T, D>(&tm_q, &tm_k, &tm_v, &tm_o, lse, BH, Sq, Sk, scale, causal, q_offset,
+                          k_offset);
 }
 
 constexpr int DQ_BQ = 128;  // Q rows of a dQ work tile

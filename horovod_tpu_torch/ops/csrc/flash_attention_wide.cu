@@ -7,15 +7,16 @@
 // registers across the whole of D, which stops at D = 256. Here the shared
 // memory a block holds does not grow with D.
 //
-// bf16 and float16 forward and dK/dV (flash_fwd_wide_kernel,
-// flash_dkv_wide_kernel): Hopper kernels on the pattern of
-// flash_attention.cu (flash_hopper.cuh, sm90.cuh). What bounds them, against
-// the H100 SXM data-sheet peaks at its 700 W limit (989 TFLOP/s bf16,
-// 3.35 TB/s): at B*H = 32, S = 512, D = 512 the forward needs 17.18 GFLOP
-// over 67.2 MB (0.0174 ms of operations, 0.0201 ms of bytes: at the ridge
-// point) and dK/dV 34.36 GFLOP over 100.9 MB (bound by operations). Either
-// way the products must run on the tensor cores, which only wgmma reaches
-// at rate, and the scores must never reach device memory. So:
+// bf16 and float16 forward, dQ and dK/dV (flash_fwd_wide_kernel,
+// flash_dq_wide_kernel, flash_dkv_wide_kernel): Hopper kernels on the
+// pattern of flash_attention.cu (flash_hopper.cuh, sm90.cuh). What bounds
+// them, against the H100 SXM data-sheet peaks at its 700 W limit (989
+// TFLOP/s bf16, 3.35 TB/s): at B*H = 32, S = 512, D = 512 the forward needs
+// 17.18 GFLOP over 67.2 MB (0.0174 ms of operations, 0.0201 ms of bytes: at
+// the ridge point), dQ 25.77 GFLOP over 84.1 MB and dK/dV 34.36 GFLOP over
+// 100.9 MB (both bound by operations). Either way the products must run on
+// the tensor cores, which only wgmma reaches at rate, and the scores must
+// never reach device memory. So:
 //   - Persistent blocks, one per SM, walk the work tiles; a block is two
 //     consumer warpgroups and a producer warp that keeps TMA loads in flight
 //     and gives its registers to the consumers (setmaxnreg).
@@ -34,6 +35,16 @@
 //     softmax. The duplicated S costs 1.5x the needed operations at D = 512
 //     (2.5x at D = 1024), on the tensor cores, in exchange for no exchange of
 //     scores between the warpgroups.
+//   - dQ, work tile (bh, 64 Q rows, 512 output columns), looping over the
+//     key tiles the rows can see: warpgroup 0 computes S = Q K^T and P,
+//     warpgroup 1 dP = dO V^T (SS, over the whole of D, a stage per 64
+//     columns of Q, K, dO and V). P goes to warpgroup 1 in fp32 through
+//     shared memory (named barriers), which forms dS = P (dP - delta +
+//     g_lse), rounds it to T and writes it to shared memory in the format
+//     of a K-major box; then each warpgroup adds dS K of its 256 columns to
+//     dQ in 128 fp32 registers (SS: dS K-major, K MN-major, 64 keys x 256
+//     columns a stage). At D <= 512 that is exactly the three needed
+//     products (ceil(D / 512) passes above, each with its own S and dP).
 //   - dK/dV, work tile (bh, 64 keys, 256 output columns): warpgroup 0
 //     computes S^T = K Q^T and P^T, and holds dV of the columns; warpgroup 1
 //     computes dP^T = V dO^T and holds dK. Per Q tile of 64 rows, P^T goes
@@ -43,14 +54,16 @@
 //     64 rows x 256 columns a stage). ceil(D / 256) passes, each computing
 //     S^T and dP^T once (split between the warpgroups): 1.5x the needed
 //     operations at D = 512 (2.5x at D = 1024).
-//   - Outputs leave straight from registers, columns past D not written.
+//   - Outputs leave straight from registers, 16 bytes a thread (store_rows),
+//     columns past D not written.
 // P and dS are rounded to the operand dtype before their products, as the
 // TPU kernels do.
 //
-// float32 (flash_fwd_wide_f32_kernel, flash_dkv_wide_f32_kernel) and dQ in
-// every dtype (flash_dq_wide_kernel) keep the first version, SIMT on the FMA
-// units in fp32, whose registers and shared memory (49,408 / 50,432 /
-// 98,816 bytes for the forward, dQ and dK/dV) are the same at any D:
+// float32 (flash_fwd_wide_f32_kernel, flash_dq_wide_f32_kernel,
+// flash_dkv_wide_f32_kernel) keeps the first version, SIMT on the FMA units
+// in fp32 (TF32 would not hold 1e-4), whose registers and shared memory
+// (49,408 / 50,432 / 98,816 bytes for the forward, dQ and dK/dV) are the
+// same at any D:
 //   - the scores S = Q K^T (and dP = dO V^T) are contractions over D,
 //     streamed through shared memory in chunks of W_KC columns into a
 //     64 x 64 fp32 tile held in registers (16 values per thread);
@@ -60,8 +73,7 @@
 //     which P = exp(S - lse) is final and a slice is O_slice = P V_slice
 //     with no rescaling. dQ_slice = scale * dS K_slice and, per key tile,
 //     dV_slice = P^T dO_slice, dK_slice = scale * dS^T Q_slice.
-// The operand dtype is converted to fp32 as it is loaded; P and dS stay in
-// fp32. D must be a multiple of W_KC.
+// P and dS stay in fp32. D must be a multiple of W_KC.
 //
 // Every kernel: D zero-padded by the wrapper to a multiple of W_KC with the
 // scale of the true D (attention.py:padded_heads); any B*H, ragged Sq and
@@ -85,18 +97,13 @@ constexpr int W_CHUNK = W_BM * W_LDC;  // floats of one chunk buffer
 constexpr int W_SLICE = W_BN * W_SL;   // floats of one slice buffer
 constexpr int W_TILE = W_BM * W_LDP;   // floats of one P / dS tile
 
+// The SIMT kernels' element conversions (their only instances are float32).
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f(f16 x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T of_f(float x);
 template <>
 __device__ __forceinline__ float of_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 of_f<bf16>(float x) { return __float2bfloat16(x); }
-template <>
-__device__ __forceinline__ f16 of_f<f16>(float x) { return __float2half(x); }
 
 // Rows [row0, row0 + ROWS) and columns [col0, col0 + W) of a row-major
 // [nrows, D] matrix into fp32 shared memory (leading dim ld), 16 bytes per
@@ -321,11 +328,11 @@ __global__ void __launch_bounds__(W_THREADS)
   }
 }
 
-// dQ: one block per (Q tile, head). dQ = scale * dS K with
+// dQ, float32: one block per (Q tile, head). dQ = scale * dS K with
 // dS = P * (dO V^T - delta + g_lse); lse, delta, glse [BH, Sq] fp32.
 template <typename T>
 __global__ void __launch_bounds__(W_THREADS)
-    flash_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+    flash_dq_wide_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          const float* __restrict__ glse, T* __restrict__ dq, int BH, int Sq,
@@ -456,24 +463,9 @@ int launch_wide(Kernel kernel, int rows, int BH, int D, size_t smem, cudaStream_
   return cudaGetLastError();
 }
 
-#define HVD_DISPATCH_T(DTYPE, CALL)        \
-  do {                                     \
-    if ((DTYPE) == DTYPE_BF16) {           \
-      using T = bf16;                      \
-      return CALL;                         \
-    } else if ((DTYPE) == DTYPE_F16) {     \
-      using T = f16;                       \
-      return CALL;                         \
-    } else if ((DTYPE) == DTYPE_F32) {     \
-      using T = float;                     \
-      return CALL;                         \
-    }                                      \
-    return cudaErrorInvalidValue;          \
-  } while (0)
-
 // ===========================================================================
-// bf16 and float16 on Hopper: the forward and dK/dV, warp-specialized wgmma
-// kernels fed by TMA through one ring of stages.
+// bf16 and float16 on Hopper: the forward, dQ and dK/dV, warp-specialized
+// wgmma kernels fed by TMA through one ring of stages.
 // ===========================================================================
 
 constexpr int H_ROWS = 64;                       // rows of a work tile and of a streamed tile
@@ -512,6 +504,30 @@ static_assert(DKV_H_BYTES <= (int)SMEM_LIMIT, "wide dK/dV ring exceeds shared me
 // PT_FULL + b when buffer b is written, PT_FREE + b when it has been read.
 constexpr int PT_FULL = 1;
 constexpr int PT_FREE = 3;
+
+// dQ: the ring of DQ_H_STAGES stages, one 64 x 64 fp32 P tile on its way
+// from warpgroup 0 to warpgroup 1, one 64 x 64 dS tile in T (the format of
+// an S item's box: K-major, 128 B swizzle) that both warpgroups read, then
+// the barriers. A key tile's items, in order: ceil(D / 64) S items (64 rows
+// by 64 columns of Q, K, dO and V: four boxes) and one product item per
+// consumer warpgroup (64 keys of K by its 256 output columns: four boxes).
+// At D = 512 a key tile is ten items, at D = 1024 eighteen (two passes);
+// the ring is the same at every D.
+constexpr int DQ_H_STAGES = 6;
+constexpr int DQ_H_P = DQ_H_STAGES * H_STAGE;
+constexpr int DQ_H_DS = DQ_H_P + H_ROWS * H_ROWS * 4;
+constexpr int DQ_H_BAR = DQ_H_DS + H_BOX_BYTES;
+constexpr int DQ_H_BYTES = DQ_H_BAR + 2 * DQ_H_STAGES * 8 + 1024;  // + alignment slack
+static_assert(DQ_H_BYTES <= (int)SMEM_LIMIT, "wide dQ ring exceeds shared memory");
+static_assert(DQ_H_DS % 1024 == 0, "the dS tile starts on a 1024-byte boundary");
+
+// Named barriers of dQ's exchange, over both consumer warpgroups: P_FULL
+// once warpgroup 0 has written P, DS_FULL once warpgroup 1 has written dS.
+// One buffer each is enough: warpgroup 0 writes the next P only after
+// DS_FULL (warpgroup 1 has read this P), and warpgroup 1 the next dS only
+// after P_FULL, which warpgroup 0 reaches after its product over this dS.
+constexpr int P_FULL = 1;
+constexpr int DS_FULL = 2;
 
 // How many of the 64-column boxes at col0, col0 + 64, ... (at most n) start
 // inside D: the ones a stage loads. The rest of its columns are past D;
@@ -907,6 +923,197 @@ flash_dkv_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// dQ, persistent: a grid of one block per SM walks the work tiles (bh,
+// 64 Q rows, pass of 512 output columns) and loops over the key tiles their
+// rows can see. Per key tile warpgroup 0 computes S = Q K^T and P,
+// warpgroup 1 dP = dO V^T and, from P, dS rounded to T into shared memory;
+// then each adds dS K of its own 256 columns to dQ. dq = scale * sum_j
+// dS_j K_j, [BH, Sq, D] in T.
+template <typename T>
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+flash_dq_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_do, T* __restrict__ dq,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     const float* __restrict__ glse, int BH, int Sq, int Sk, int D,
+                     float scale, int causal, int q_offset, int k_offset) {
+  using FS = TileFormat<H_BOX>;  // an S item's boxes (Q, K, dO, V) and the dS tile
+  using FV = TileFormat<H_OUT>;  // a product item: K, 64 keys x 256 columns
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* const smem = smem_raw + (base - raw);  // the same base, generic
+  const Ring ring = make_ring(base, DQ_H_BAR, DQ_H_STAGES);
+  __syncthreads();
+
+  const int qtiles = (Sq + H_ROWS - 1) / H_ROWS;
+  const int passes = (D + CONSUMER_WGS * H_OUT - 1) / (CONSUMER_WGS * H_OUT);
+  const int chunks = (D + H_BOX - 1) / H_BOX;
+  // Work tile w: pass w % passes, Q tile (w / passes) % qtiles, head
+  // w / (passes qtiles); neighbours share a head's K and V in L2.
+  const int nwork = BH * qtiles * passes;
+  const int wg = threadIdx.x / WG;
+
+  if (wg == CONSUMER_WGS) {
+    // Producer, one thread: per key tile its S items, then its product
+    // items.
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x == CONSUMER_WGS * WG) {
+      int it = 0;
+      for (int w = blockIdx.x; w < nwork; w += gridDim.x) {
+        const int pass = w % passes;
+        const int q0 = (w / passes) % qtiles * H_ROWS;
+        const int bh = w / (passes * qtiles);
+        const int n = key_tiles(q0, Sq, Sk, causal, q_offset, k_offset);
+        for (int t = 0; t < n; ++t) {
+          const int k0 = t * H_ROWS;
+          for (int j = 0; j < chunks; ++j, ++it) {
+            const uint32_t tile = ring.fill(it, 4 * H_BOX_BYTES);
+            const uint32_t bar = ring.bar(it);
+            tma_load_3d(tile, &tm_q, bar, H_BOX * j, q0, bh);
+            tma_load_3d(tile + H_BOX_BYTES, &tm_k, bar, H_BOX * j, k0, bh);
+            tma_load_3d(tile + 2 * H_BOX_BYTES, &tm_do, bar, H_BOX * j, q0, bh);
+            tma_load_3d(tile + 3 * H_BOX_BYTES, &tm_v, bar, H_BOX * j, k0, bh);
+          }
+          for (int u = 0; u < CONSUMER_WGS; ++u, ++it) {
+            const int col0 = (CONSUMER_WGS * pass + u) * H_OUT;
+            const int nb = boxes_in(D, col0, H_OUT / H_BOX);
+            const uint32_t tile = ring.fill(it, nb * H_BOX_BYTES);
+            for (int b = 0; b < nb; ++b)
+              tma_load_3d(tile + b * H_BOX_BYTES, &tm_k, ring.bar(it), col0 + H_BOX * b, k0,
+                          bh);
+          }
+        }
+      }
+    }
+  } else {
+    // Consumer warpgroup wg: all 64 rows of each work tile, output columns
+    // [256 wg, 256 wg + 256) of its pass; warpgroup 0 S and P, warpgroup 1
+    // dP and dS.
+    reg_alloc<CONSUMER_REGS>();
+    const int tid = threadIdx.x % WG;
+    const int lane = tid & 31;
+    const int tq = lane & 3;
+    const int r = (tid >> 5) * 16 + (lane >> 2);  // this thread's rows r, r + 8 of the 64
+    const float sl2 = scale * LOG2E;
+    float* const sp = reinterpret_cast<float*>(smem + DQ_H_P);
+    const uint32_t sds = base + DQ_H_DS;
+    int it = 0;
+    for (int w = blockIdx.x; w < nwork; w += gridDim.x) {
+      const int pass = w % passes;
+      const int q0 = (w / passes) % qtiles * H_ROWS;
+      const int bh = w / (passes * qtiles);
+      const int row0 = q0 + r;  // and row0 + 8
+      const int col0 = (CONSUMER_WGS * pass + wg) * H_OUT;
+      const int n = key_tiles(q0, Sq, Sk, causal, q_offset, k_offset);
+      // This thread's two rows: lse log2(e) for warpgroup 0, g_lse - delta
+      // for warpgroup 1. Rows past Sq get lse = LSE_MASKED: their P is
+      // exactly 0.
+      float rv[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int qi = row0 + 8 * h;
+        const size_t at = (size_t)bh * Sq + qi;
+        if (wg == 0)
+          rv[h] = qi < Sq ? lse[at] * LOG2E : LSE_MASKED;
+        else
+          rv[h] = qi < Sq ? glse[at] - delta[at] : 0.f;
+      }
+      float acc[H_OUT / 2];
+#pragma unroll
+      for (int i = 0; i < H_OUT / 2; ++i) acc[i] = 0.f;
+
+      for (int t = 0; t < n; ++t) {
+        const int k0 = t * H_ROWS;
+        // S = Q K^T (warpgroup 0) or dP = dO V^T (warpgroup 1), SS, both
+        // K-major, one commit group per S item.
+        float sc[H_ROWS / 2];
+#pragma unroll
+        for (int i = 0; i < H_ROWS / 2; ++i) sc[i] = 0.f;
+        for (int j = 0; j < chunks; ++j, ++it) {
+          const uint32_t a = ring.tile(it) + (wg == 0 ? 0 : 2 * H_BOX_BYTES);
+          ring.wait(it);
+          fence_regs(sc);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < H_BOX / 16; ++kk)
+            Wgmma<H_ROWS, T>::template ss<0>(sc, FS::kmajor(a, H_ROWS, 0, kk),
+                                             FS::kmajor(a + H_BOX_BYTES, H_ROWS, 0, kk));
+          wgmma_commit();
+          if (j > 0) {
+            wgmma_wait<1>();
+            ring.release(it - 1, lane);
+          }
+        }
+        wgmma_wait<0>();
+        fence_regs(sc);
+        ring.release(it - 1, lane);
+
+        // P goes from warpgroup 0 to warpgroup 1 in fp32 (thread tid's
+        // element i at i WG + tid: no bank conflicts), which forms dS =
+        // P (dP + g_lse - delta) and writes it in T as the A operand of
+        // both warpgroups' products. Keys past Sk read zero rows of K but
+        // get P = 0, so that dS stays finite.
+        if (wg == 0) {
+          const bool mask =
+              k0 + H_ROWS > Sk || (causal && q_offset + q0 < k_offset + k0 + H_ROWS - 1);
+#pragma unroll
+          for (int i = 0; i < H_ROWS / 2; ++i) {
+            const int kj = k0 + 8 * (i >> 2) + 2 * tq + (i & 1);
+            const int h = (i >> 1) & 1;
+            float pv = exp2f(fmaf(sc[i], sl2, -rv[h]));
+            if (mask && (kj >= Sk || (causal && q_offset + row0 + 8 * h < k_offset + kj)))
+              pv = 0.f;
+            sp[i * WG + tid] = pv;
+          }
+          __threadfence_block();
+          named_arrive(P_FULL, 2 * WG);
+        } else {
+          named_sync(P_FULL, 2 * WG);
+#pragma unroll
+          for (int j = 0; j < H_ROWS / 8; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int i = 4 * j + 2 * h;
+              const float d0 = sp[i * WG + tid] * (sc[i] + rv[h]);
+              const float d1 = sp[(i + 1) * WG + tid] * (sc[i + 1] + rv[h]);
+              st_shared_u32(sds + FS::offset(H_ROWS, r + 8 * h, 8 * j + 2 * tq),
+                            pack2<T>(d0, d1));
+            }
+          fence_async_smem();  // the writes, visible to wgmma
+        }
+        named_sync(DS_FULL, 2 * WG);
+
+        // dQ += dS K over this warpgroup's product item (SS: dS K-major, K
+        // MN-major); the other warpgroup's item is waited for and released.
+        for (int u = 0; u < CONSUMER_WGS; ++u, ++it) {
+          ring.wait(it);
+          if (u == wg) {
+            const uint32_t tile = ring.tile(it);
+            fence_regs(acc);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < H_ROWS / 16; ++kk)
+              Wgmma<H_OUT, T>::template ss<1>(acc, FS::kmajor(sds, H_ROWS, 0, kk),
+                                              FV::mnmajor(tile, H_ROWS, kk));
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(acc);
+          }
+          ring.release(it, lane);
+        }
+      }
+
+      // scale dQ in T straight from registers; columns past D and rows past
+      // Sq are not written.
+      const float mul[2] = {scale, scale};
+      store_rows<T, H_OUT>(dq + (size_t)bh * Sq * D + col0, D, acc, mul, row0, Sq, tq,
+                           D - col0);
+    }
+  }
+}
+
 // The tensor map of a contiguous [BH, S, D] tensor of T in 64 x 64 boxes
 // (128-byte rows, the 128 B swizzle); rows past S and columns past D read as
 // zeros. D must be a multiple of 8 (16-byte rows).
@@ -964,6 +1171,28 @@ int launch_dkv_hopper(const void* q, const void* k, const void* v, const void* d
                 BH, Sq, Sk, D, scale, causal, qo, ko);
 }
 
+template <typename T>
+int launch_dq_hopper(const void* q, const void* k, const void* v, const void* dout,
+                     const void* lse, const void* delta, const void* glse, void* dq, int BH,
+                     int Sq, int Sk, int D, float scale, int causal, int qo, int ko,
+                     cudaStream_t stream) {
+  if (D <= 0 || D % 8) return cudaErrorInvalidValue;
+  if (Sq == 0 || BH == 0) return cudaSuccess;
+  if (Sk == 0)  // no key: dQ is 0 (and a tensor map cannot have an empty dim)
+    return cudaMemsetAsync(dq, 0, (size_t)BH * Sq * D * sizeof(T), stream);
+  CUtensorMap mq, mk, mv, mdo;
+  dim3 grid;
+  int err;
+  const int passes = (D + CONSUMER_WGS * H_OUT - 1) / (CONSUMER_WGS * H_OUT);
+  if ((err = wide_map<T>(&mq, q, Sq, BH, D)) || (err = wide_map<T>(&mk, k, Sk, BH, D)) ||
+      (err = wide_map<T>(&mv, v, Sk, BH, D)) || (err = wide_map<T>(&mdo, dout, Sq, BH, D)) ||
+      (err = persistent_grid(BH * ((Sq + H_ROWS - 1) / H_ROWS) * passes, &grid)))
+    return err;
+  return launch(flash_dq_wide_kernel<T>, grid, SM90_THREADS, DQ_H_BYTES, stream, mq, mk, mv, mdo,
+                (T*)dq, (const float*)lse, (const float*)delta, (const float*)glse, BH, Sq, Sk,
+                D, scale, causal, qo, ko);
+}
+
 }  // namespace
 
 extern "C" {
@@ -989,12 +1218,19 @@ int hvd_flash_dq_wide(const void* q, const void* k, const void* v, const void* d
                       const void* lse, const void* delta, const void* glse, void* dq, int BH,
                       int Sq, int Sk, int D, int dtype, int causal, int q_offset, int k_offset,
                       float scale, void* stream) {
-  HVD_DISPATCH_T(dtype,
-                 (launch_wide(flash_dq_wide_kernel<T>, Sq, BH, D, DQ_WIDE_SMEM,
-                              (cudaStream_t)stream, (const T*)q, (const T*)k, (const T*)v,
-                              (const T*)dout, (const float*)lse, (const float*)delta,
-                              (const float*)glse, (T*)dq, BH, Sq, Sk, D, scale, causal, q_offset,
-                              k_offset)));
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == DTYPE_BF16)
+    return launch_dq_hopper<bf16>(q, k, v, dout, lse, delta, glse, dq, BH, Sq, Sk, D, scale,
+                                  causal, q_offset, k_offset, st);
+  if (dtype == DTYPE_F16)
+    return launch_dq_hopper<f16>(q, k, v, dout, lse, delta, glse, dq, BH, Sq, Sk, D, scale,
+                                 causal, q_offset, k_offset, st);
+  if (dtype == DTYPE_F32)
+    return launch_wide(flash_dq_wide_f32_kernel<float>, Sq, BH, D, DQ_WIDE_SMEM, st,
+                       (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+                       (const float*)lse, (const float*)delta, (const float*)glse, (float*)dq,
+                       BH, Sq, Sk, D, scale, causal, q_offset, k_offset);
+  return cudaErrorInvalidValue;
 }
 
 int hvd_flash_dkv_wide(const void* q, const void* k, const void* v, const void* dout,

@@ -110,20 +110,43 @@ __device__ __forceinline__ void store_out(const CUtensorMap* map, uint32_t sO,
 // accumulator acc (this thread holds rows row and row + 8 of the output),
 // row half h scaled by mul[h], goes in T straight from registers to
 // columns [0, ncols) of those rows of out, a row-major matrix of nrows rows
-// with ld elements per row; rows past nrows and columns past ncols (even)
-// are not written.
+// with ld elements per row; rows past nrows and columns past ncols are not
+// written. ncols and ld are multiples of 8, out 16-byte aligned. Each quad
+// (the four threads of two rows) transposes its 4 x 4 words of a
+// 32-column group by two rounds of shuffles, so that each thread stores 8
+// contiguous columns of one row in one 16-byte store: a quarter of the
+// store instructions of 4-byte stores, each filling whole 32-byte sectors
+// (the D = 256 forward's epilogue was its largest cost with 4-byte stores;
+// PERF.md).
 template <typename T, int W>
 __device__ __forceinline__ void store_rows(T* out, int ld, const float (&acc)[W / 2],
                                            const float (&mul)[2], int row, int nrows, int tq,
                                            int ncols = W) {
+  const bool odd = tq & 1, high = tq & 2;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    if (row + 8 * h >= nrows) continue;
-    uint32_t* dst = reinterpret_cast<uint32_t*>(out + (size_t)(row + 8 * h) * ld);
 #pragma unroll
-    for (int j = 0; j < W / 8; ++j) {
-      const int i = 4 * j + 2 * h;
-      if (8 * j + 2 * tq < ncols) dst[4 * j + tq] = pack2<T>(acc[i] * mul[h], acc[i + 1] * mul[h]);
+    for (int g = 0; g < W / 32; ++g) {
+      uint32_t w[4];  // w[x]: columns 8 (4 g + x) + 2 tq, + 1
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int i = 4 * (4 * g + x) + 2 * h;
+        w[x] = pack2<T>(acc[i] * mul[h], acc[i + 1] * mul[h]);
+      }
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {  // words whose column parity differs from the lane's
+        const uint32_t r = __shfl_xor_sync(0xffffffffu, odd ? w[2 * k] : w[2 * k + 1], 1);
+        if (odd) w[2 * k] = r; else w[2 * k + 1] = r;
+      }
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {  // words whose column bit 1 differs from the lane's
+        const uint32_t r = __shfl_xor_sync(0xffffffffu, high ? w[k] : w[k + 2], 2);
+        if (high) w[k] = r; else w[k + 2] = r;
+      }
+      // w[x] is now quad thread x's word of column group 4 g + tq.
+      if (row + 8 * h < nrows && 8 * (4 * g + tq) < ncols)
+        *reinterpret_cast<uint4*>(out + (size_t)(row + 8 * h) * ld + 8 * (4 * g + tq)) =
+            make_uint4(w[0], w[1], w[2], w[3]);
     }
   }
 }

@@ -378,6 +378,7 @@ _HOPPER_INSTANCES = [(k, d, t) for k in ("flash_fwd_kernel", "flash_dq_kernel",
                                                "flash_dkv_kernel")
                          for t in _TYPES] + [
                          (k, None, t) for k in ("flash_fwd_wide_kernel",
+                                                "flash_dq_wide_kernel",
                                                 "flash_dkv_wide_kernel",
                                                 "dw_1x1_kernel")
                          for t in _TYPES]
@@ -422,12 +423,14 @@ def _hopper_log():
     ("flash_fwd_wide_kernel", None, "spill"),
     ("flash_fwd_wide_kernel", None, "serialize"),
     ("flash_dkv_wide_kernel", None, "spill"),
-    ("flash_dkv_wide_kernel", None, "serialize")])
+    ("flash_dkv_wide_kernel", None, "serialize"),
+    ("flash_dq_wide_kernel", None, "spill"),
+    ("flash_dq_wide_kernel", None, "serialize")])
 def test_build_report_names_the_redesigned_hopper_culprit(kernel, d, fault):
     """The fused backward's, the filter gradient's and the wide-head
-    forward's and dK/dV's bf16 Hopper instances are in the build phase's
-    list, and a spill or serialized wgmma in one of them fails it, naming
-    that instance alone."""
+    forward's, dQ's and dK/dV's bf16 Hopper instances are in the build
+    phase's list, and a spill or serialized wgmma in one of them fails it,
+    naming that instance alone."""
     _check_culprit(kernel, d, "bf16", fault)
 
 
@@ -443,7 +446,8 @@ def test_build_report_names_the_redesigned_hopper_culprit(kernel, d, fault):
     ("flash_dq_kernel", 256, "serialize"),
     ("flash_dkv_kernel", 256, "spill"),
     ("flash_fwd_wide_kernel", None, "serialize"),
-    ("flash_dkv_wide_kernel", None, "spill")])
+    ("flash_dkv_wide_kernel", None, "spill"),
+    ("flash_dq_wide_kernel", None, "serialize")])
 def test_build_report_names_the_float16_hopper_culprit(kernel, d, fault):
     """The same for the float16 instances: the culprit is named with its
     type, and its bf16 twin is not."""
@@ -490,7 +494,7 @@ def test_build_report_flags_spills_and_serialized_wgmma_of_hopper_kernels():
                              for k, d, t in instances)
     regs, faults = smoke.hopper_build_report(clean)
     assert sorted(regs) == sorted(smoke.HOPPER_INSTANCES)
-    assert len(regs) == 52
+    assert len(regs) == 54
     assert set(regs.values()) == {168} and faults == []
 
     def spill(log, kernel, d, t):

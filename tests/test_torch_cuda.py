@@ -83,8 +83,10 @@ def _attention_operands(device, seed, BH, Sq, Sk, D, dtype):
     (torch.bfloat16, 256, 264, 200, True, 64, 0),
     (torch.bfloat16, 256, 77, 100, True, 0, 23),
     (torch.float16, 256, 264, 200, False, 0, 0),
+    (torch.float16, 256, 200, 264, True, 0, 40),
     (torch.float32, 256, 200, 136, True, 70, 0),
     (torch.bfloat16, 200, 130, 96, False, 0, 0),
+    (torch.float16, 200, 130, 96, False, 0, 0),
     (torch.float32, 160, 77, 100, True, 0, 23),
     # The wide-head kernels (D > 256) in each dtype: ragged, causal with
     # offsets and rows that see no key, D = 300 zero-padded to 320, and a
@@ -169,21 +171,23 @@ def test_more_heads_than_a_grid_dimension_holds(cuda_device, dtype, S):
 
 def _hold_wide_hopper(cuda_device, seed, BH, Sq, Sk, D, dtype, causal,
                       q_offset, k_offset):
-    """The wgmma wide-head forward and dK/dV (bf16, float16) against their
-    plain versions, each launched once."""
+    """The wgmma wide-head forward, dQ and dK/dV (bf16, float16) against
+    their plain versions, with a nonzero lse cotangent, each launched
+    once."""
     q, k, v, do, glse = _attention_operands(cuda_device, seed, BH, Sq, Sk, D,
                                             dtype)
-    fwd, dkv = _kernels.FLASH_FWD_WIDE.launches, _kernels.FLASH_DKV_WIDE.launches
+    wide = (_kernels.FLASH_FWD_WIDE, _kernels.FLASH_DQ_WIDE,
+            _kernels.FLASH_DKV_WIDE)
+    before = [kern.launches for kern in wide]
     o, lse = port.flash_fwd(q, k, v, causal, q_offset, k_offset)
     o_ref, lse_ref = port.flash_fwd_plain(q, k, v, causal, q_offset, k_offset)
     delta = (do.float() * o_ref.float()).sum(-1)
     args = (q, k, v, do, lse_ref, delta, glse, causal, q_offset, k_offset)
-    _hold([(o, o_ref), *zip(port.flash_dkv(*args),
-                            port.flash_dkv_plain(*args))], dtype)
+    _hold([(o, o_ref), (port.flash_dq(*args), port.flash_dq_plain(*args)),
+           *zip(port.flash_dkv(*args), port.flash_dkv_plain(*args))], dtype)
     assert (lse - lse_ref).abs().max().item() <= 1e-3
     assert torch.equal(lse == port.LSE_MASKED, lse_ref == port.LSE_MASKED)
-    assert _kernels.FLASH_FWD_WIDE.launches == fwd + 1
-    assert _kernels.FLASH_DKV_WIDE.launches == dkv + 1
+    assert [kern.launches for kern in wide] == [n + 1 for n in before]
 
 
 @pytest.mark.cuda
@@ -211,6 +215,23 @@ def test_wide_hopper_kernels_walk_more_heads_than_a_grid_dimension(
     """B*H = 65,600 at S = 24, D = 320: the persistent grid (one block per
     SM) loops over 65,600 work tiles of each kernel."""
     _hold_wide_hopper(cuda_device, 5, 65600, 24, 24, 320, dtype, True, 0, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_d256_kernels_with_a_part_full_last_wave(cuda_device, dtype):
+    """B*H = 70 at S = 512, D = 256: 280 work tiles of the forward and dQ,
+    so the persistent grid's last of three rounds over 132 SMs is
+    part-full."""
+    q, k, v, do, glse = _attention_operands(cuda_device, 7, 70, 512, 512,
+                                            256, dtype)
+    o, lse = port.flash_fwd(q, k, v, True)
+    o_ref, lse_ref = port.flash_fwd_plain(q, k, v, True)
+    delta = (do.float() * o_ref.float()).sum(-1)
+    args = (q, k, v, do, lse_ref, delta, glse, True)
+    _hold([(o, o_ref), (port.flash_dq(*args), port.flash_dq_plain(*args)),
+           *zip(port.flash_dkv(*args), port.flash_dkv_plain(*args))], dtype)
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
 
 
 @pytest.mark.cuda

@@ -92,10 +92,10 @@ def test_wide_operand_check_takes_chunk_multiples_above_256():
 def test_build_report_counts_wide_instances_and_spills():
     """chip_smoke.py's build checks of the wide-head instances, on ptxas
     lines shaped like nvcc's (mangled names as the card's build prints
-    them): the 5 that stay SIMT (dQ in every dtype, the float32 forward and
-    dK/dV) with their registers and a spill named, and the 4 bf16 and
-    float16 forward and dK/dV instances in the Hopper (wgmma) report, not
-    in the SIMT one."""
+    them): the 3 that stay SIMT (the float32 forward, dQ and dK/dV) with
+    their registers and a spill named, and the 6 bf16 and float16
+    forward, dQ and dK/dV instances in the Hopper (wgmma) report, not in
+    the SIMT one."""
     from test_torch_attention import _chip_smoke
 
     smoke = _chip_smoke()
@@ -105,9 +105,8 @@ def test_build_report_counts_wide_instances_and_spills():
     simt, hopper = [], []
     for kern in ("flash_fwd_wide", "flash_dq_wide", "flash_dkv_wide"):
         for mangled, t in types.items():
-            on_hopper = kern != "flash_dq_wide" and t != "f32"
-            name = kern + ("_kernel" if on_hopper or kern == "flash_dq_wide"
-                           else "_f32_kernel")
+            on_hopper = t != "f32"
+            name = kern + ("_kernel" if on_hopper else "_f32_kernel")
             (hopper if on_hopper else simt).append(f"{name}<{t}>")
             spill = ("8 bytes spill stores, 8 bytes spill loads"
                      if kern == "flash_dq_wide" and t == "f32"
@@ -122,7 +121,8 @@ def test_build_report_counts_wide_instances_and_spills():
     regs, faults = smoke.wide_build_report(log)
     assert sorted(regs) == sorted(simt) == sorted(smoke.WIDE_SIMT_INSTANCES)
     assert set(regs.values()) == {128}
-    assert len(faults) == 1 and faults[0].startswith("flash_dq_wide_kernel<f32>")
+    assert len(faults) == 1 and faults[0].startswith(
+        "flash_dq_wide_f32_kernel<f32>")
     hopper_regs, hopper_faults = smoke.hopper_build_report(log)
-    assert sorted(hopper_regs) == sorted(hopper) and len(hopper) == 4
+    assert sorted(hopper_regs) == sorted(hopper) and len(hopper) == 6
     assert set(hopper_regs.values()) == {168} and hopper_faults == []
