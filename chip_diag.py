@@ -21,14 +21,17 @@ contiguous copy of its strided x); the multi-tile kernels at D = 256
 (``*_d256``: B*H = 128, S = 512) and the wide-head route at D = 512
 (``*_wide``: B*H = 32, S = 512), each in bf16 and float32 (``*_f32``)
 beside the SDPA forward and backward at that shape in the same dtype
-(``sdpa_*_d256``, ``sdpa_*_d512``, ``*_f32``); and the float32 instances
-at D = 64 (``flash_fwd_f32``, ``flash_dq_f32``, ``flash_dkv_f32`` at
-S = 512; ``flash_fwd_single_f32``, ``flash_dqkv_f32`` at S = 128) beside
-SDPA in float32 (``sdpa_*_f32``, ``sdpa_*_s128_f32``). After the times it
-prints each float32 row's bound at the float32 FMA peak. Each
-checkout runs in a process of its own, in the order other, this, this,
-other. Each process times every call by three methods, all with the L2
-flushed before each call:
+(``sdpa_*_d256``, ``sdpa_*_d512``, ``*_f32``; the float32 rows on full
+float32 values, the bf16 rows on the same values rounded to bf16); and
+the float32 instances at D = 64 (``flash_fwd_f32``, ``flash_dq_f32``,
+``flash_dkv_f32`` at S = 512; ``flash_fwd_single_f32``,
+``flash_dqkv_f32`` at S = 128) beside SDPA in float32 (``sdpa_*_f32``,
+``sdpa_*_s128_f32``). After the times it prints each float32 row's bound
+at the float32 FMA peak, and for the 3xTF32 kernels (dQ and dK/dV at
+D = 256) also their bound at the TF32 peak, then the kernels of SDPA's
+float32 backward at D = 256. Each checkout runs in a process of its own,
+in the order other, this, this, other. Each process times every call by
+three methods, all with the L2 flushed before each call:
 
 - ``spin_ms``: ``chip_smoke.time_ms`` of this checkout, with the card spun
   before each call, so the CUDA events time device work;
@@ -255,14 +258,15 @@ def _worker(tree, label):
                 f"sdpa_bwd_{name}": lambda: torch.autograd.grad(
                     out, g4, do4, retain_graph=True)}
 
+    # The float32 rows take full float32 values, which TF32 does not hold
+    # exactly, and the bf16 rows those values rounded to bf16.
     for tag, BHw, Dw in (("d256", 128, 256), ("wide", 32, 512)):
-        qw, kw, vw, dow = (torch.randn(BHw, S, Dw, generator=gen,
-                                       device="cuda").to(torch.bfloat16)
-                           for _ in range(4))
-        ow, lsew = A.flash_fwd_plain(qw, kw, vw)
-        deltaw = (dow.float() * ow.float()).sum(-1)
+        full = [torch.randn(BHw, S, Dw, generator=gen, device="cuda")
+                for _ in range(4)]
         for dt, sfx in ((torch.bfloat16, ""), (torch.float32, "_f32")):
-            a = [t.to(dt) for t in (qw, kw, vw, dow)]
+            a = [t.to(dt) for t in full]
+            ow, lsew = A.flash_fwd_plain(*a[:3])
+            deltaw = (a[3].float() * ow.float()).sum(-1)
             bw = (*a, lsew, deltaw, torch.zeros_like(deltaw), False, 0, 0)
             calls.update({
                 f"flash_fwd_{tag}{sfx}": (lambda a=a: A.flash_fwd(*a[:3])),
@@ -291,8 +295,13 @@ def _worker(tree, label):
                      "no_spin_ms": smoke.time_ms(fn, sleep_cycles=0),
                      "device_ms": _device_ms(fn)}
               for name, fn in calls.items()}
+    # The kernels of SDPA's float32 backward at D = 256, by device time.
+    sdpa_kernels = {}
+    for n, us in _device_events(calls["sdpa_bwd_d256_f32"], 1):
+        sdpa_kernels[n] = sdpa_kernels.get(n, 0.0) + us / 1e3
     print(json.dumps({"checkout": label, "path": tree,
-                      "card": smoke.card_line(), **result}))
+                      "card": smoke.card_line(),
+                      "sdpa_bwd_d256_f32_kernels": sdpa_kernels, **result}))
 
 
 def ab(other):
@@ -327,8 +336,18 @@ def ab(other):
     for name, (kernel, BH, S, D) in F32_BOUNDS.items():
         ms, by, flops, moved = smoke._bounds(kernel, BH, S, S, D, "float32",
                                              False, 0, 0)
-        print(f"bound {name}: {ms:.4f} ms ({by}: {flops / 1e9:.2f} GFLOP, "
-              f"{moved / 1e6:.1f} MB)")
+        line = (f"bound {name}: {ms:.4f} ms ({by}: {flops / 1e9:.2f} GFLOP, "
+                f"{moved / 1e6:.1f} MB) at the FMA peak")
+        if (kernel, D) in smoke.TF32X3:
+            ms3, by3, flops3, _ = smoke._bounds_3xtf32(kernel, BH, S, S, D,
+                                                       False, 0, 0)
+            line += (f"; {ms3:.4f} ms ({by3}: {flops3 / 1e9:.2f} GFLOP of "
+                     "TF32) in 3xTF32, the bound the kernel is held to")
+        print(line)
+    kernels = runs["this"][0]["sdpa_bwd_d256_f32_kernels"]
+    print("sdpa_bwd_d256_f32 kernels (device ms of one call): "
+          + "; ".join(f"{n} {ms:.4f}" for n, ms in
+                      sorted(kernels.items(), key=lambda kv: -kv[1])))
     print(f"card: {runs['this'][0]['card']}")
     return 0
 

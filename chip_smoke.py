@@ -10,13 +10,14 @@ and prints no result line); each prints its seconds:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build of the hand-written CUDA kernels from ``horovod_tpu_torch/ops/csrc``
-   (one ``nvcc`` per source, all started together); none of the 54 Hopper
-   (wgmma) instances (the bf16 and float16 forward, dQ, dK/dV, single-tile
+   (one ``nvcc`` per source, all started together); none of the 56 Hopper
+   instances (the bf16 and float16 forward, dQ, dK/dV, single-tile
    forward and fused backward at D=16, 32, 64, 128, the forward, dQ and
    dK/dV at D=256, the wide-head forward, dQ and dK/dV, and the bf16 and
-   float16 filter gradient) may spill or have its wgmma serialized, nor
-   any of the 3 SIMT wide-head instances (the float32 forward, dQ and
-   dK/dV) spill;
+   float16 filter gradient on wgmma; the float32 dQ and dK/dV at D=256 in
+   3xTF32 on mma.sync) may spill or have its wgmma serialized, nor any of
+   the 3 SIMT wide-head instances (the float32 forward, dQ and dK/dV)
+   spill;
 3. kernel phase: every kernel against its plain PyTorch version on the same
    inputs, with times beside the bound and the library yardstick:
    - the multi-tile forward, dQ and dK/dV flash-attention kernels
@@ -35,7 +36,12 @@ and prints no result line); each prints its seconds:
    - the multi-tile kernels at head dim 256: a Gemma-like layer (B*H =
      128, S=512) in bf16 (timed beside SDPA), float16 and float32; S=128
      with B*H = 1024 (the multi-tile route: no single-tile kernel has a
-     D=256 instance); D=200, zero-padded to 256, causal and ragged;
+     D=256 instance); D=200, zero-padded to 256, causal and ragged; the
+     Gemma-like layer in full float32, non-causal, timed beside the float32
+     SDPA backward with both bounds of the 3xTF32 dQ and dK/dV (FMA and
+     TF32), and each kernel's largest error against a float64 version of
+     the function beside the float32 plain version's and SDPA's (at most
+     ``F64_ERR_RATIO`` times the plain version's);
    - the 1x1-conv filter gradient (ResNet-50 stage-1 bottleneck 64 -> 256
      in bf16 and float16; the stride-2 projection shortcut 256 -> 512,
      timed beside its own cuBLAS call; bf16 with a ragged K and ragged
@@ -46,9 +52,10 @@ and prints no result line); each prints its seconds:
 4. wide-heads phase: causal bf16 attention layers at D=256 (S=512 and
    S=128) through ``flash_attention_lse``, forward and backward: the
    launch counters show the D=256 forward, dQ and dK/dV ran once per layer
-   and no other kernel did; then the ``wide`` phase: the three wide-head
-   kernels (head dims above 256) against their plain versions in bf16,
-   float16 and float32 at D=512 (B*H=32, S=512; bf16 timed beside its
+   and no other kernel did; the same for float32 layers at the Gemma-like
+   shape (the 3xTF32 dQ and dK/dV); then the ``wide`` phase: the three
+   wide-head kernels (head dims above 256) against their plain versions in
+   bf16, float16 and float32 at D=512 (B*H=32, S=512; bf16 timed beside its
    bound and the first SDPA backend that takes D=512, named), D=320 causal
    and ragged (200 rows over 300 keys, 40 of them seeing none) and D=1024,
    and 4 causal bf16 layers at D=512 through ``flash_attention_lse``, each
@@ -117,9 +124,19 @@ import sys
 import time
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 and float16 tensor cores,
-# float32 on the FMA units (the float32 kernel path does not use TF32),
-# memory rate.
+# float32 on the FMA units (the float32 kernels but dQ and dK/dV at D = 256
+# run there), memory rate.
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
+# The TF32 tensor-core peak. The float32 dQ and dK/dV kernels at D = 256 do
+# every product as three TF32 products (3xTF32): their bound is three times
+# the products' operations at this rate (``_bounds_3xtf32``).
+PEAK_TF32 = 495e12
+# The float32 kernels that run in 3xTF32: (kernel, head dim of the instance).
+TF32X3 = {("flash_dq", 256), ("flash_dkv", 256)}
+# A 3xTF32 kernel's largest error against a float64 version of the function,
+# on full-float32 inputs, may be at most this many times the float32 plain
+# version's (one TF32 product, 10 mantissa bits, is about 500 times it).
+F64_ERR_RATIO = 4.0
 PEAK_BYTES_PER_S = 3.35e12
 ITEM_BYTES = {"bfloat16": 2, "float16": 2, "float32": 4}
 
@@ -207,12 +224,13 @@ def time_ms(fn, reps=20, warmup=3, sleep_cycles=SLEEP_CYCLES):
     return statistics.median(times)
 
 
-# The Hopper (wgmma) instances: the bf16 and float16 kernels of both
+# The Hopper instances: on wgmma, the bf16 and float16 kernels of both
 # attention routes at head dims 16 to 128, the multi-tile ones also at 256,
 # the wide-head forward, dQ and dK/dV (any D above 256), and the bf16 and
-# float16 1x1-conv filter gradient (the float32 kernels are named
-# *_f32_kernel). nvcc's mangled names carry the element type:
-# 13__nv_bfloat16 or 6__half.
+# float16 1x1-conv filter gradient (the SIMT float32 kernels are named
+# *_f32_kernel); on mma.sync in 3xTF32, the float32 dQ and dK/dV at D = 256
+# (*_3xtf32_kernel, no template). nvcc's mangled names carry the element
+# type: 13__nv_bfloat16 or 6__half.
 HOPPER_TYPES = {"__nv_bfloat16": "bf16", "__half": "f16"}
 MULTI_TILE_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel",
                       "flash_dkv_kernel")
@@ -225,11 +243,12 @@ HOPPER_INSTANCES = tuple(
         for t in HOPPER_TYPES.values()) + tuple(
         f"{k}<{t}>" for k in ("flash_fwd_wide_kernel", "flash_dq_wide_kernel",
                               "flash_dkv_wide_kernel", "dw_1x1_kernel")
-        for t in HOPPER_TYPES.values())
+        for t in HOPPER_TYPES.values()) + (
+        "flash_dq_3xtf32_kernel", "flash_dkv_3xtf32_kernel")
 _HOPPER_NAME = re.compile(
     r"(flash_(?:fwd_single|fwd|dqkv|dq|dkv)_kernel)I\d+(__nv_bfloat16|__half)"
     r"Li(\d+)E|\d(dw_1x1_kernel|flash_(?:fwd|dq|dkv)_wide_kernel)"
-    r"I\d+(__nv_bfloat16|__half)E")
+    r"I\d+(__nv_bfloat16|__half)E|\d(flash_(?:dq|dkv)_3xtf32_kernel)E")
 
 
 def _hopper_instance(line):
@@ -237,6 +256,8 @@ def _hopper_instance(line):
     found = _HOPPER_NAME.search(line)
     if not found:
         return None
+    if found.group(6):
+        return found.group(6)
     if found.group(4):
         return f"{found.group(4)}<{HOPPER_TYPES[found.group(5)]}>"
     return (f"{found.group(1)}<{HOPPER_TYPES[found.group(2)]}, "
@@ -353,6 +374,62 @@ def _bounds(name, BH, Sq, Sk, D, dtype_name, causal, q_offset, k_offset):
     return _bound(2.0 * products * pairs * D, moved, dtype_name)
 
 
+def _bounds_3xtf32(name, BH, Sq, Sk, D, causal, q_offset, k_offset):
+    """The least time of a 3xTF32 kernel (``TF32X3``): its bytes as
+    ``_bounds`` counts them, its operations three TF32 products for each
+    float32 product at ``PEAK_TF32``. Returns what ``_bounds`` returns, the
+    operations tripled."""
+    _, _, flops, moved = _bounds(name, BH, Sq, Sk, D, "float32", causal,
+                                 q_offset, k_offset)
+    t_ops, t_bytes = 3 * flops / PEAK_TF32, moved / PEAK_BYTES_PER_S
+    if t_ops >= t_bytes:
+        return t_ops * 1e3, "operations", 3 * flops, moved
+    return t_bytes * 1e3, "bytes", 3 * flops, moved
+
+
+def _f64_check(case, q, k, v, do, got, plain, causal, q_offset, k_offset):
+    """Each float32 backward output's largest error against a float64
+    version of the function on the same float32 inputs (lse and delta in
+    float64 too; no lse cotangent), beside the float32 plain version's and
+    SDPA's (causal: top-left, offsets 0). ``got`` and ``plain`` are (dq,
+    dk, dv) on fp32 lse and delta; a kernel's error may be at most
+    ``F64_ERR_RATIO`` times the plain version's."""
+    import torch
+    import torch.nn.functional as F
+
+    from horovod_tpu_torch.ops import attention as A
+
+    BH, Sq, D = q.shape
+    scale = 1.0 / math.sqrt(D)
+    q64, k64, v64, do64 = (t.double() for t in (q, k, v, do))
+    s = q64 @ k64.transpose(-1, -2) * scale
+    mask = A._visible(Sq, k.shape[1], causal, q_offset, k_offset, q.device)
+    if mask is not None:
+        s = torch.where(mask, s, -math.inf)
+    p = torch.softmax(s, dim=-1)
+    delta = ((p @ v64) * do64).sum(-1, keepdim=True)
+    ds = p * (do64 @ v64.transpose(-1, -2) - delta)
+    want = (scale * ds @ k64, scale * ds.transpose(-1, -2) @ q64,
+            p.transpose(-1, -2) @ do64)
+    g4 = [t.view(1, BH, -1, D).detach().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*g4, is_causal=causal)
+    sdpa = torch.autograd.grad(out, g4, do.view(1, BH, Sq, D))
+    lines = []
+    for i, name in enumerate(("dq", "dk", "dv")):
+        errs = [(t[i].reshape(want[i].shape).double() - want[i]).abs().max()
+                .item() for t in (got, plain, sdpa)]
+        lines.append(f"{name} kernel {errs[0]:.3e}, float32 plain "
+                     f"{errs[1]:.3e}, sdpa {errs[2]:.3e}")
+        if not errs[0] <= F64_ERR_RATIO * errs[1]:
+            raise AssertionError(
+                f"{case} {name}: error against float64 {errs[0]:.3e} > "
+                f"{F64_ERR_RATIO} x the float32 plain version's "
+                f"{errs[1]:.3e}")
+    print(f"float64 {case}: largest error against float64 on full-float32 "
+          f"inputs: {'; '.join(lines)} (at most {F64_ERR_RATIO} x the plain "
+          "version's)")
+
+
 def _dw_bounds(K, ci, co, dtype_name):
     """The filter gradient reads x [K, Cin] and dy [K, Cout] once and writes
     dw [Cin, Cout] in fp32: 2 K Cin Cout operations."""
@@ -390,16 +467,20 @@ def _hold(case, name, got, want, tolerance, lse_index=None):
                  f"{', '.join(checks)})")
 
 
-def _timing(kern, plain, bounds, library_ms):
+def _timing(kern, plain, bounds, library_ms, fma_bound=None):
+    """Time the kernel and its plain version; ``fma_bound``: a 3xTF32
+    kernel's bound at the float32 FMA peak, printed beside its own."""
     ms = time_ms(kern)
     plain_ms = time_ms(plain)
     bound_ms, bound_by, flops, moved = bounds
+    fma = (f" (at the FMA peak {fma_bound:.4f})" if fma_bound is not None
+           else "")
     return (dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                  bound_by=bound_by, library_ms=library_ms),
             f" ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} "
-            f"({bound_by}; {flops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB) "
-            f"{flops / ms / 1e9:.1f} TFLOP/s {moved / ms / 1e6:.1f} GB/s "
-            f"library_ms {library_ms}")
+            f"({bound_by}; {flops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB)"
+            f"{fma} {flops / ms / 1e9:.1f} TFLOP/s {moved / ms / 1e6:.1f} "
+            f"GB/s library_ms {library_ms}")
 
 
 def kernel_phase():
@@ -416,8 +497,10 @@ def kernel_phase():
     cases = [
         # name, B, H, Sq, Sk, D, dtype, causal, q_offset, k_offset, g_lse,
         # timing ("json": timed, with the library yardstick, into the
-        # kernels line; "d256": the same as flash_*_d256; "sdpa": timed
-        # beside the library, printed; "ms": time printed; "": not timed).
+        # kernels line; "d256": the same as flash_*_d256; "f32": dQ and
+        # dK/dV the same as flash_*_d256_float32, with the float64 check;
+        # "sdpa": timed beside the library, printed; "ms": time printed;
+        # "": not timed).
         # A.single_tile_route picks the route: Sq, Sk <=
         # A.SINGLE_TILE_MAX and D <= 128 take the single-tile kernels.
         ("bert_large_bf16", b512, 16, s512, s512, 64, bf16, False, 0, 0,
@@ -499,12 +582,15 @@ def kernel_phase():
          True, ""),
         ("d200_causal_ragged_float32", 2, 3, 200, 264, 200, f32, True, 0, 40,
          True, ""),
+        # The Gemma-like layer in full float32 (the 3xTF32 dQ and dK/dV).
+        ("gemma_d256_float32_full", 8, 16, 512, 512, 256, f32, False, 0, 0,
+         False, "f32"),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
     measured = {}
     for (case, B, H, Sq, Sk, D, dtype, causal, qo, ko, with_glse,
          timing) in cases:
-        timed = timing in ("json", "d256", "sdpa")
+        timed = timing in ("json", "d256", "sdpa", "f32")
         BH = B * H
         dname = str(dtype).split(".")[-1]
 
@@ -567,11 +653,19 @@ def kernel_phase():
                     raise AssertionError(f"{case}: masked-row sentinels differ")
                 line += f" (fully masked rows: {empty})"
             if timed:
-                numbers, text = _timing(
-                    kern, plain,
-                    _bounds(name, BH, Sq, Sk, D, dname, causal, qo, ko),
-                    library.get(name))
-                if timing != "sdpa":
+                bounds = _bounds(name, BH, Sq, Sk, D, dname, causal, qo, ko)
+                fma = None
+                if (dname == "float32"
+                        and (name, A.kernel_head_dim(D)) in TF32X3):
+                    fma = bounds[0]
+                    bounds = _bounds_3xtf32(name, BH, Sq, Sk, D, causal, qo,
+                                            ko)
+                numbers, text = _timing(kern, plain, bounds,
+                                        library.get(name), fma)
+                if timing == "f32" and fma is not None:
+                    measured[f"{name}_d256_float32"] = dict(max_abs_err=err,
+                                                            **numbers)
+                elif timing in ("json", "d256"):
                     key = name if timing == "json" else f"{name}_d256"
                     measured[key] = dict(max_abs_err=err, **numbers)
                 line += text
@@ -581,6 +675,11 @@ def kernel_phase():
                          f"({bounds[1]}; {bounds[2] / 1e9:.2f} GFLOP, "
                          f"{bounds[3] / 1e6:.1f} MB)")
             print(line)
+        if timing == "f32":
+            got = (A.flash_dq(*bwd_args), *A.flash_dkv(*bwd_args))
+            plain = (A.flash_dq_plain(*bwd_args),
+                     *A.flash_dkv_plain(*bwd_args))
+            _f64_check(case, q, k, v, do, got, plain, causal, qo, ko)
         if timing == "json" and "flash_dqkv" in runs:
             # The other route on the same inputs: what the single-tile
             # kernels save over the multi-tile ones at this shape.
@@ -922,8 +1021,10 @@ def conv_phase(card):
 
 _CATEGORIES = (  # first match wins; by lower-cased kernel name
     ("flash_fwd", ("flash_fwd_kernel", "flash_fwd_f32_kernel")),
-    ("flash_dq", ("flash_dq_kernel", "flash_dq_f32_kernel")),
-    ("flash_dkv", ("flash_dkv_kernel", "flash_dkv_f32_kernel")),
+    ("flash_dq", ("flash_dq_kernel", "flash_dq_f32_kernel",
+                  "flash_dq_3xtf32_kernel")),
+    ("flash_dkv", ("flash_dkv_kernel", "flash_dkv_f32_kernel",
+                   "flash_dkv_3xtf32_kernel")),
     ("flash_fwd_single", ("flash_fwd_single_kernel",
                           "flash_fwd_single_f32_kernel")),
     ("flash_dqkv", ("flash_dqkv_kernel", "flash_dqkv_f32_kernel")),
@@ -1006,12 +1107,16 @@ def profile_steps(path, step, batch, card, step_ms, n=2):
 # multi-tile kernels too.
 WIDE_LAYERS = 4
 WIDE_SHAPES = ((8, 16, 512, 256), (64, 16, 128, 256))
+# Then float32 layers at the Gemma-like shape: the 3xTF32 dQ and dK/dV.
+F32_LAYERS = 2
 
 
 def wide_heads_phase():
     """Head dims above 128 through the entry point: each layer launches the
-    D = 256 forward, dQ and dK/dV once and no other kernel; the outputs are
-    finite. Returns the launch counts of this path."""
+    D = 256 forward, dQ and dK/dV once and no other kernel, in bf16 and then
+    in float32 (the counters set to 0 before each); the outputs are finite.
+    Returns the launch counts of this path (``flash_*_d256`` for bf16,
+    ``flash_dq_d256_float32`` and ``flash_dkv_d256_float32``)."""
     import torch
 
     from horovod_tpu_torch.ops import _kernels
@@ -1041,8 +1146,35 @@ def wide_heads_phase():
     print(f"wide heads: {len(layers)} causal bf16 attention layers at "
           f"{WIDE_SHAPES} (B, H, S, D) through flash_attention_lse, forward "
           f"and backward: launches {launches}")
-    return {f"{k}_d256": n for k, n in launches.items()
-            if k in ("flash_fwd", "flash_dq", "flash_dkv")}
+    counts = {f"{k}_d256": n for k, n in launches.items()
+              if k in ("flash_fwd", "flash_dq", "flash_dkv")}
+    B, H, S, D = WIDE_SHAPES[0]
+    layers = [[torch.randn(B, H, S, D, generator=gen, device="cuda")
+               .requires_grad_() for _ in range(3)]
+              for _ in range(F32_LAYERS)]
+    for k in _kernels.KERNELS:
+        k.launches = 0
+    for q, k, v in layers:
+        out, lse = A.flash_attention_lse(q, k, v, causal=True)
+        (out.square().sum() + lse.sum()).backward()
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in _kernels.KERNELS}
+    expected = {k.name: 0 for k in _kernels.KERNELS}
+    expected.update(flash_fwd=F32_LAYERS, flash_dq=F32_LAYERS,
+                    flash_dkv=F32_LAYERS)
+    if launches != expected:
+        raise AssertionError(f"wide heads float32: launches {launches}; "
+                             f"expected {F32_LAYERS} of each multi-tile "
+                             "kernel and no other")
+    for q, k, v in layers:
+        if not all(torch.isfinite(t.grad).all() for t in (q, k, v)):
+            raise AssertionError("wide heads float32: non-finite gradients")
+    print(f"wide heads: {F32_LAYERS} causal float32 attention layers at "
+          f"{(B, H, S, D)} (B, H, S, D), forward and backward (the 3xTF32 "
+          f"dQ and dK/dV): launches {launches}")
+    counts.update(flash_dq_d256_float32=launches["flash_dq"],
+                  flash_dkv_d256_float32=launches["flash_dkv"])
+    return counts
 
 
 # Head dims above 256 (the wide-head kernels): name, B*H, Sq, Sk, D, causal,
@@ -2025,14 +2157,17 @@ def main() -> int:
     _phase("agree_resnet50", resnet_agreement_phase)
     print(f"phase all: {time.perf_counter() - t_start:.1f} s")
 
-    # Each kernel, then the D = 256 instances of the multi-tile three.
-    rows = [(k.name, k) for k in _kernels.KERNELS] + [
-        (f"{k.name}_d256", k)
-        for k in (_kernels.FLASH_FWD, _kernels.FLASH_DQ, _kernels.FLASH_DKV)]
+    # Each kernel, then the D = 256 instances of the multi-tile three, then
+    # the float32 dQ and dK/dV at D = 256 (their own source).
+    rows = [(k.name, k, k.source) for k in _kernels.KERNELS] + [
+        (f"{k.name}_d256", k, k.source)
+        for k in (_kernels.FLASH_FWD, _kernels.FLASH_DQ, _kernels.FLASH_DKV)
+    ] + [(f"{k.name}_d256_float32", k, "flash_attention_3xtf32.cu")
+         for k in (_kernels.FLASH_DQ, _kernels.FLASH_DKV)]
     kernels = [dict(name=name, route="cuda",
-                    source=f"horovod_tpu_torch/ops/csrc/{k.source}",
+                    source=f"horovod_tpu_torch/ops/csrc/{source}",
                     replaces=k.replaces, launches=launches[name],
-                    **measured[name]) for name, k in rows]
+                    **measured[name]) for name, k, source in rows]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     hvd.shutdown()

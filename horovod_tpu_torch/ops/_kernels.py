@@ -27,7 +27,8 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
 SOURCES = ("flash_attention.cu", "flash_attention_single.cu",
-           "flash_attention_wide.cu", "conv1x1_dw.cu")
+           "flash_attention_wide.cu", "flash_attention_3xtf32.cu",
+           "conv1x1_dw.cu")
 HEADERS = ("flash_common.cuh", "flash_hopper.cuh", "sm90.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

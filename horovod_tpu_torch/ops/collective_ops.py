@@ -103,17 +103,46 @@ def _check_device(tensor: torch.Tensor) -> None:
 
 
 def _scale_(t: torch.Tensor, factor: float) -> None:
-    # The factor is rounded to the tensor's dtype first, as the JAX package
-    # multiplies by jnp.asarray(factor, x.dtype).
-    if factor != 1.0:
+    """Multiply ``t`` by ``factor`` in place, keeping its dtype.
+
+    A float tensor is multiplied by the factor rounded to its dtype, as the
+    JAX package multiplies by ``jnp.asarray(factor, x.dtype)``. An integer
+    tensor is scaled in float64 and rounded to nearest, half away from zero,
+    as the reference's per-process runtime does (``llround(x * factor)``,
+    ``horovod_tpu/runtime/cpp/transport.cc:147 ScaleBuffer``); not
+    ``torch.round``, which rounds half to even.
+    """
+    if factor == 1.0:
+        return
+    if t.is_floating_point() or t.is_complex():
         t.mul_(torch.tensor(factor, dtype=t.dtype, device=t.device))
+        return
+    y = t.double().mul_(factor)
+    sign = y.sign()
+    t.copy_(y.abs_().add_(0.5).floor_().mul_(sign))
 
 
 def _divide_(t: torch.Tensor, n: int) -> None:
+    """Average's divisor: a float tensor divides by ``n``; an integer one is
+    scaled by ``1 / n`` as :func:`_scale_` scales, as the reference's
+    runtime applies Average (``runtime.cc:272``)."""
     if t.is_floating_point():
         t.div_(n)
     else:
-        t.div_(n, rounding_mode="trunc")
+        _scale_(t, 1.0 / n)
+
+
+def _average_and_postscale_(t: torch.Tensor, op: str, postscale_factor: float,
+                            n: int) -> None:
+    """A reducescatter's finish: a float tensor takes one multiply by
+    ``postscale / n`` for Average (the reference's reducescatter), an
+    integer one Average's ``1 / n`` and then the postscale, rounded apart
+    (``ScaleBuffer`` twice)."""
+    if op == Average and not t.is_floating_point():
+        _divide_(t, n)
+        _scale_(t, postscale_factor)
+    else:
+        _scale_(t, postscale_factor / n if op == Average else postscale_factor)
 
 
 def start_allreduce(t: torch.Tensor, op: str, prescale_factor: float,
@@ -308,15 +337,8 @@ def _launch_reducescatter(tensor, op, prescale_factor, postscale_factor,
         out = t[ps.rank() * rows:(ps.rank() + 1) * rows]
 
     def finish():
-        # As the reference: one multiply by postscale / n for a float
-        # Average; integers divide (truncating), as allreduce does.
         work.wait()
-        if op == Average and not out.is_floating_point():
-            _divide_(out, n)
-            _scale_(out, postscale_factor)
-        else:
-            _scale_(out, postscale_factor / n if op == Average
-                    else postscale_factor)
+        _average_and_postscale_(out, op, postscale_factor, n)
         return out
 
     return _Launched([work], finish)

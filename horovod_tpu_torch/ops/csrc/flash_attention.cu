@@ -68,13 +68,16 @@
 // 256 columns of dK and dV do not fit the consumers' registers at once).
 // The *Smem layouts give the numbers.
 // float32 (flash_fwd_f32_kernel, flash_dq_f32_kernel, flash_dkv_f32_kernel)
-// keeps the first version: 64-row tiles (32 at D = 256), four warps (two),
-// fp32 accumulators in shared memory (dK/dV: in registers, by column
-// halves at D = 256), FMA products (TF32 would round operands to 10
-// mantissa bits), synchronous loads, a block per (tile, head) with heads
-// past grid.y's 65535 taken in a loop; D = 16 to 256.
+// keeps the first version at D = 16 to 128 and in the forward at D = 256:
+// 64-row tiles (32 in the forward at D = 256), four warps (two), fp32
+// accumulators in shared memory (dK/dV: in registers), FMA products (one
+// TF32 product would round operands to 10 mantissa bits), synchronous
+// loads, a block per (tile, head) with heads past grid.y's 65535 taken in a
+// loop. dQ and dK/dV at D = 256 run on the tensor cores in 3xTF32, which
+// holds float32's tolerance (flash_attention_3xtf32.cu: launch_dq_3xtf32,
+// launch_dkv_3xtf32).
 // P and dS are rounded to the operand dtype before the PV, P^T dO, dS K and
-// dS^T Q products, as the TPU kernels do.
+// dS^T Q products, as the TPU kernels do (float32: not rounded).
 //
 // Semantics (identical to the TPU kernels): causal masking on global
 // positions q_offset + i >= k_offset + j; a row with no visible key gives
@@ -90,6 +93,16 @@
 #include <stdio.h>
 
 #include "flash_hopper.cuh"
+
+// float32 at D = 256 (flash_attention_3xtf32.cu).
+int launch_dq_3xtf32(const void* q, const void* k, const void* v, const void* dout,
+                     const void* lse, const void* delta, const void* glse, void* dq, int BH,
+                     int Sq, int Sk, float scale, int causal, int qo, int ko,
+                     cudaStream_t stream);
+int launch_dkv_3xtf32(const void* q, const void* k, const void* v, const void* dout,
+                      const void* lse, const void* delta, const void* glse, void* dk, void* dv,
+                      int BH, int Sq, int Sk, float scale, int causal, int qo, int ko,
+                      cudaStream_t stream);
 
 namespace {
 
@@ -1073,7 +1086,8 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 
 // ===========================================================================
 // float32: the first version (64-row tiles in shared memory, four warps of
-// 16 rows; at D = 256 32-row tiles and two warps, for shared memory).
+// 16 rows; the forward at D = 256: 32-row tiles and two warps, for shared
+// memory). dQ and dK/dV at D = 256: flash_attention_3xtf32.cu.
 // ===========================================================================
 
 constexpr int WROWS = 16;  // rows owned by one warp
@@ -1083,11 +1097,6 @@ struct F32Tile {
   static constexpr int B = D == 256 ? 32 : 64;  // rows of a Q tile and of a K/V tile
   static constexpr int THREADS = B / WROWS * 32;  // one 16-row slice per warp
   static constexpr int KPL = B / 32;  // keys of a K/V tile per lane of a warp
-  // dK/dV: output columns a block accumulates in registers (RowAcc), and
-  // the blocks per K/V tile that split D between them, each recomputing S
-  // and dP (at D = 256, 128 + 128 floats per lane would not fit).
-  static constexpr int OW = D == 256 ? 128 : D;
-  static constexpr int HALVES = D / OW;
 };
 
 // Leading dimensions in shared memory, padded by 32 bytes: rows fall on
@@ -1226,8 +1235,7 @@ __device__ __forceinline__ void probs_and_dscores(
 
 // dQ, float32: one block per (bh, Q tile); loop over K/V tiles.
 // dQ = scale * sum_j dS_ij K_j. At D = 128 the tiles take 230,144 bytes of
-// shared memory, just inside the 232,448 a block may use; at D = 256
-// 184,704.
+// shared memory, just inside the 232,448 a block may use.
 template <int D>
 __global__ void __launch_bounds__(F32Tile<D>::THREADS)
 flash_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -1299,12 +1307,11 @@ flash_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// dK/dV, float32: one block per (bh, K tile, column half); loop over Q
-// tiles. dV = sum_i P_ij^T dO_i; dK = scale * sum_i dS_ij^T Q_i. Each warp
-// holds the dK and dV of its 16 key rows, over the block's OW columns, in
-// registers (RowAcc), which keeps the shared memory of D = 128 at 213,760
-// bytes (D = 256: 156,032); they leave through staging tiles in the Q
-// buffer.
+// dK/dV, float32: one block per (bh, K tile); loop over Q tiles. dV =
+// sum_i P_ij^T dO_i; dK = scale * sum_i dS_ij^T Q_i. Each warp holds the dK
+// and dV of its 16 key rows in registers (RowAcc), which keeps the shared
+// memory of D = 128 at 213,760 bytes; they leave through staging tiles in
+// the Q buffer.
 template <int D>
 __global__ void __launch_bounds__(F32Tile<D>::THREADS)
 flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -1316,7 +1323,6 @@ flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   using T = float;
   using L = Layout<T, D>;
   constexpr int BQ = F32Tile<D>::B, BK = BQ, NTHREADS = F32Tile<D>::THREADS;
-  constexpr int OW = F32Tile<D>::OW, HALVES = F32Tile<D>::HALVES;
   static_assert(L::LDO <= L::LDT, "a warp's staging tile fits its rows of the Q buffer");
   extern __shared__ __align__(128) unsigned char smem[];
   T* sK = reinterpret_cast<T*>(smem);
@@ -1335,8 +1341,7 @@ flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // blockIdx.y + gridDim.y, ...
   for (int bh = blockIdx.y; bh < BH; bh += gridDim.y) {
     __syncthreads();  // the previous head is done with shared memory
-    const int k0 = blockIdx.x / HALVES * BK;
-    const int c0 = blockIdx.x % HALVES * OW;  // the block's output columns [c0, c0 + OW)
+    const int k0 = blockIdx.x * BK;
     const int warp = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
     const int r0 = warp * WROWS;
@@ -1345,7 +1350,7 @@ flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     load_tile<T, D, BK, NTHREADS>(sK, L::LDT, k + koff, k0, Sk);
     load_tile<T, D, BK, NTHREADS>(sV, L::LDT, v + koff, k0, Sk);
-    RowAcc<T, OW> acc_dv, acc_dk;
+    RowAcc<T, D> acc_dv, acc_dk;
     acc_dv.zero();
     acc_dk.zero();
 
@@ -1370,19 +1375,19 @@ flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       __syncthreads();  // the transposed products read every warp's rows
 
       // This warp's 16 key rows: contraction over the BQ Q rows.
-      acc_dv.template add_at_b<BQ>(sP + r0, L::LDP, sdO + c0, L::LDT);
-      acc_dk.template add_at_b<BQ>(sdS + r0, L::LDP, sQ + c0, L::LDT);
+      acc_dv.template add_at_b<BQ>(sP + r0, L::LDP, sdO, L::LDT);
+      acc_dk.template add_at_b<BQ>(sdS + r0, L::LDP, sQ, L::LDT);
     }
     __syncthreads();  // the Q buffer becomes the warps' staging tiles
 
     float* st = sQ + r0 * L::LDT;
-    auto write = [&](const RowAcc<T, OW>& acc, T* out, float mul) {
+    auto write = [&](const RowAcc<T, D>& acc, T* out, float mul) {
       acc.store(st, L::LDO);
       __syncwarp();
-      for (int e = lane; e < WROWS * OW; e += 32) {
-        const int kj = k0 + r0 + e / OW;
+      for (int e = lane; e < WROWS * D; e += 32) {
+        const int kj = k0 + r0 + e / D;
         if (kj < Sk)
-          out[koff + (size_t)kj * D + c0 + e % OW] = mul * st[(e / OW) * L::LDO + e % OW];
+          out[koff + (size_t)kj * D + e % D] = mul * st[(e / D) * L::LDO + e % D];
       }
       __syncwarp();
     };
@@ -1468,6 +1473,9 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
     return launch(flash_dq_kernel<T, D>, dim3(nwork < sms ? nwork : sms), SM90_THREADS,
                   DqSmem<D>::BYTES, stream, mq, mk, mv, mdo, mdq, (T*)dq, (const float*)lse,
                   (const float*)delta, (const float*)glse, BH, Sq, Sk, scale, causal, qo, ko);
+  } else if constexpr (D == 256) {
+    return launch_dq_3xtf32(q, k, v, dout, lse, delta, glse, dq, BH, Sq, Sk, scale, causal, qo,
+                            ko, stream);
   } else {
     using Tile = F32Tile<D>;
     static_assert(dq_smem<T, D>() <= SMEM_LIMIT, "dQ tiles exceed shared memory");
@@ -1500,11 +1508,13 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
                   DkvSmem<D>::BYTES, stream, mq, mk, mv, mdo, mdk, mdv, (T*)dk, (T*)dv,
                   (const float*)lse, (const float*)delta, (const float*)glse, BH, Sq, Sk, scale,
                   causal, qo, ko);
+  } else if constexpr (D == 256) {
+    return launch_dkv_3xtf32(q, k, v, dout, lse, delta, glse, dk, dv, BH, Sq, Sk, scale, causal,
+                             qo, ko, stream);
   } else {
     using Tile = F32Tile<D>;
     static_assert(dkv_smem<T, D>() <= SMEM_LIMIT, "dK/dV tiles exceed shared memory");
-    return launch(flash_dkv_f32_kernel<D>,
-                  dim3((Sk + Tile::B - 1) / Tile::B * Tile::HALVES, head_blocks(BH)),
+    return launch(flash_dkv_f32_kernel<D>, dim3((Sk + Tile::B - 1) / Tile::B, head_blocks(BH)),
                   Tile::THREADS, dkv_smem<T, D>(), stream, (const T*)q, (const T*)k, (const T*)v,
                   (const T*)dout, (const float*)lse, (const float*)delta, (const float*)glse,
                   (T*)dk, (T*)dv, BH, Sq, Sk, scale, causal, qo, ko);

@@ -195,22 +195,6 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-// K/V tiles that rows [q0, q0 + W_BM) of Q can see.
-__device__ __forceinline__ int key_tiles(int q0, int Sq, int Sk, int causal, int qo, int ko) {
-  const int n = (Sk + W_BN - 1) / W_BN;
-  if (!causal) return n;
-  const int kmax = qo + min(q0 + W_BM, Sq) - 1 - ko;  // last visible key
-  if (kmax < 0) return 0;
-  return min(n, kmax / W_BN + 1);
-}
-
-// First Q tile whose rows can see a key of the K/V tile at k0.
-__device__ __forceinline__ int first_query_tile(int k0, int causal, int qo, int ko) {
-  if (!causal) return 0;
-  const int qmin = ko + k0 - qo;  // first row that sees key k0
-  return qmin <= 0 ? 0 : qmin / W_BM;
-}
-
 // acc[i][j] += sum_kk L(row i, kk) R(kk, col j), with L read from a 64 x 64
 // fp32 tile (transposed when LT) and R from a [64][W_SL] slice.
 template <bool LT>
@@ -538,50 +522,6 @@ __device__ __forceinline__ int boxes_in(int D, int col0, int n) {
   return b < 0 ? 0 : (b > n ? n : b);
 }
 
-// The ring: item `it` sits in stage it % stages, at phase (it / stages) % 2.
-struct Ring {
-  uint32_t base, full, empty;
-  int stages;
-  __device__ __forceinline__ uint32_t tile(int it) const {
-    return base + (uint32_t)((it % stages) * H_STAGE);
-  }
-  __device__ __forceinline__ uint32_t bar(int it) const { return full + 8 * (it % stages); }
-  // Consumer: wait until item `it` has landed; release it (every consumer
-  // warp, once its reads are done).
-  __device__ __forceinline__ void wait(int it) const {
-    mbar_wait(bar(it), (it / stages) & 1);
-  }
-  __device__ __forceinline__ void release(int it, int lane) const {
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty + 8 * (it % stages));
-  }
-  // Producer: wait until item `it`'s stage is free, expect `bytes` on its
-  // full barrier (none: complete the phase at once), return the stage.
-  __device__ __forceinline__ uint32_t fill(int it, uint32_t bytes) const {
-    mbar_wait(empty + 8 * (it % stages), ((it / stages) & 1) ^ 1);
-    if (bytes)
-      mbar_arrive_expect_tx(bar(it), bytes);
-    else
-      mbar_arrive(bar(it));
-    return tile(it);
-  }
-};
-
-// The ring of `stages` stages at base, barriers at base + bar_offset, set
-// up by thread 0 (the caller then syncs the block).
-__device__ __forceinline__ Ring make_ring(uint32_t base, int bar_offset, int stages) {
-  const Ring ring{base, base + (uint32_t)bar_offset, base + (uint32_t)bar_offset + 8u * stages,
-                  stages};
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < stages; ++s) {
-      mbar_init(ring.full + 8 * s, 1);
-      mbar_init(ring.empty + 8 * s, CONSUMER_WARPS);
-    }
-    mbar_fence_init();
-  }
-  return ring;
-}
-
 // Forward, persistent: a grid of one block per SM walks the work tiles
 // (bh, 64 Q rows, pass of 512 output columns); o [BH, Sq, D] in T, lse
 // [BH, Sq] fp32 (written by the first pass).
@@ -596,7 +536,7 @@ flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
   using FV = TileFormat<H_OUT>;  // a V item: 64 keys x 256 columns
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const Ring ring = make_ring(base, FWD_H_BAR, FWD_H_STAGES);
+  const Ring<H_STAGE> ring = make_ring<H_STAGE>(base, FWD_H_BAR, FWD_H_STAGES);
   __syncthreads();
 
   const int qtiles = (Sq + H_ROWS - 1) / H_ROWS;
@@ -751,7 +691,7 @@ flash_dkv_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   unsigned char* const smem = smem_raw + (base - raw);  // the same base, generic
-  const Ring ring = make_ring(base, DKV_H_BAR, DKV_H_STAGES);
+  const Ring<H_STAGE> ring = make_ring<H_STAGE>(base, DKV_H_BAR, DKV_H_STAGES);
   __syncthreads();
 
   const int ktiles = (Sk + H_ROWS - 1) / H_ROWS;
@@ -944,7 +884,7 @@ flash_dq_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   unsigned char* const smem = smem_raw + (base - raw);  // the same base, generic
-  const Ring ring = make_ring(base, DQ_H_BAR, DQ_H_STAGES);
+  const Ring<H_STAGE> ring = make_ring<H_STAGE>(base, DQ_H_BAR, DQ_H_STAGES);
   __syncthreads();
 
   const int qtiles = (Sq + H_ROWS - 1) / H_ROWS;

@@ -1,10 +1,12 @@
-// What the Hopper (sm_90a) flash-attention kernels of flash_attention.cu and
-// flash_attention_single.cu share: the warp-specialized block (two consumer
+// What the Hopper (sm_90a) flash-attention kernels of flash_attention.cu,
+// flash_attention_single.cu, flash_attention_wide.cu and
+// flash_attention_3xtf32.cu share: the warp-specialized block (two consumer
 // warpgroups of 64 rows each, and a producer warpgroup that gives its
 // registers to them), the softmax of a score tile on the consumers'
 // accumulator registers, the epilogues that send a consumer's output tile
-// out through shared memory by TMA or straight from registers, and the
-// launch of a grid.
+// out through shared memory by TMA or straight from registers, the tiles a
+// row or key tile can see, the ring of TMA stages of the persistent
+// kernels, and the launch of a grid.
 //
 // Everything sits in an anonymous namespace, as in flash_common.cuh.
 
@@ -149,6 +151,75 @@ __device__ __forceinline__ void store_rows(T* out, int ld, const float (&acc)[W 
             make_uint4(w[0], w[1], w[2], w[3]);
     }
   }
+}
+
+// Rows of a work tile and of a streamed tile in the persistent kernels of
+// flash_attention_wide.cu and flash_attention_3xtf32.cu.
+constexpr int SEQ_TILE = 64;
+
+// K/V tiles of SEQ_TILE keys that rows [q0, q0 + SEQ_TILE) of Q can see.
+__device__ __forceinline__ int key_tiles(int q0, int Sq, int Sk, int causal, int qo, int ko) {
+  const int n = (Sk + SEQ_TILE - 1) / SEQ_TILE;
+  if (!causal) return n;
+  const int kmax = qo + min(q0 + SEQ_TILE, Sq) - 1 - ko;  // last visible key
+  if (kmax < 0) return 0;
+  return min(n, kmax / SEQ_TILE + 1);
+}
+
+// First Q tile of SEQ_TILE rows whose rows can see a key of the K/V tile at
+// k0.
+__device__ __forceinline__ int first_query_tile(int k0, int causal, int qo, int ko) {
+  if (!causal) return 0;
+  const int qmin = ko + k0 - qo;  // first row that sees key k0
+  return qmin <= 0 ? 0 : qmin / SEQ_TILE;
+}
+
+// A ring of stages of STAGE bytes that one producer thread fills by TMA and
+// the CONSUMER_WARPS consumer warps read: item `it` sits in stage
+// it % stages, at phase (it / stages) % 2.
+template <int STAGE>
+struct Ring {
+  uint32_t base, full, empty;
+  int stages;
+  __device__ __forceinline__ uint32_t tile(int it) const {
+    return base + (uint32_t)((it % stages) * STAGE);
+  }
+  __device__ __forceinline__ uint32_t bar(int it) const { return full + 8 * (it % stages); }
+  // Consumer: wait until item `it` has landed; release it (every consumer
+  // warp, once its reads are done).
+  __device__ __forceinline__ void wait(int it) const {
+    mbar_wait(bar(it), (it / stages) & 1);
+  }
+  __device__ __forceinline__ void release(int it, int lane) const {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * (it % stages));
+  }
+  // Producer: wait until item `it`'s stage is free, expect `bytes` on its
+  // full barrier (none: complete the phase at once), return the stage.
+  __device__ __forceinline__ uint32_t fill(int it, uint32_t bytes) const {
+    mbar_wait(empty + 8 * (it % stages), ((it / stages) & 1) ^ 1);
+    if (bytes)
+      mbar_arrive_expect_tx(bar(it), bytes);
+    else
+      mbar_arrive(bar(it));
+    return tile(it);
+  }
+};
+
+// The ring of `stages` stages at base, barriers at base + bar_offset, set
+// up by thread 0 (the caller then syncs the block).
+template <int STAGE>
+__device__ __forceinline__ Ring<STAGE> make_ring(uint32_t base, int bar_offset, int stages) {
+  const Ring<STAGE> ring{base, base + (uint32_t)bar_offset,
+                         base + (uint32_t)bar_offset + 8u * stages, stages};
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(ring.full + 8 * s, 1);
+      mbar_init(ring.empty + 8 * s, CONSUMER_WARPS);
+    }
+    mbar_fence_init();
+  }
+  return ring;
 }
 
 // Streaming multiprocessors of the current device: the grid of a persistent

@@ -4,7 +4,7 @@
 // commit and wait, mbarrier init / arrive / expect-tx / parity wait (with a
 // timeout that ends the kernel with an error), the TMA tile load and store
 // (cp.async.bulk.tensor), register rebalancing (setmaxnreg), and on the host
-// the encoding of a bf16 or float16 CUtensorMap (any rank; a [BH, S, D]
+// the encoding of a bf16, float16 or float32 CUtensorMap (any rank; a [BH, S, D]
 // tensor in the tile format below), with no link against libcuda (its
 // entry point comes through the runtime). The two 2-byte types share every
 // layout and wgmma shape; only the instruction's type, the tensor map's data
@@ -402,17 +402,18 @@ inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return fn;
 }
 
-// The tensor-map data type of a 2-byte element type.
+// The tensor-map data type of an element type: bf16, float16 or float32.
 template <typename T>
 constexpr CUtensorMapDataType tma_type() {
-  return std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return std::is_same<T, float>::value    ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+         : std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                          : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 }
 
-// The tensor map of a tensor of 2-byte elements T of rank `rank` (2 to 5):
-// dims[0] is the contiguous one, strides[i] the byte stride of dims[i + 1],
-// box the box dims; row_bytes (box[0] * 2 = 128, 64 or 32) picks the
-// swizzle. Elements outside the dims read as zeros. Returns 0 or
+// The tensor map of a tensor of elements T (bf16, float16 or float32) of
+// rank `rank` (2 to 5): dims[0] is the contiguous one, strides[i] the byte
+// stride of dims[i + 1], box the box dims; row_bytes (box[0] times the
+// element size: 128, 64 or 32) picks the swizzle. Elements outside the dims read as zeros. Returns 0 or
 // HVD_ERR_TENSOR_MAP + the CUresult.
 template <typename T>
 int make_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,

@@ -259,13 +259,14 @@ def start_shard_reducescatter(tensors: Sequence[torch.Tensor], shard_sizes,
 def finish_shard_reducescatter(row: torch.Tensor, work, op: str,
                                postscale_factor: float,
                                world_size: int) -> torch.Tensor:
-    """Wait for a bucket's reduce-scatter and scale its row: one multiply
-    by ``postscale / n`` for Average, ``postscale`` for Sum."""
-    from .collective_ops import Average, _scale_
+    """Wait for a bucket's reduce-scatter and scale its row: for a float
+    row one multiply by ``postscale / n`` for Average, ``postscale`` for
+    Sum; an integer row rounds Average's ``1 / n`` and the postscale apart
+    (``collective_ops._average_and_postscale_``)."""
+    from .collective_ops import _average_and_postscale_
 
     work.wait()
-    _scale_(row, postscale_factor / world_size if op == Average
-            else postscale_factor)
+    _average_and_postscale_(row, op, postscale_factor, world_size)
     return row
 
 

@@ -381,13 +381,18 @@ _HOPPER_INSTANCES = [(k, d, t) for k in ("flash_fwd_kernel", "flash_dq_kernel",
                                                 "flash_dq_wide_kernel",
                                                 "flash_dkv_wide_kernel",
                                                 "dw_1x1_kernel")
-                         for t in _TYPES]
+                         for t in _TYPES] + [
+                         (k, None, None) for k in ("flash_dq_3xtf32_kernel",
+                                                   "flash_dkv_3xtf32_kernel")]
 
 
 def _hopper_mangled(kernel, d, t="bf16"):
     """The mangled name nvcc gives a Hopper instance of element type t
     (d None: the filter gradient or a wide-head kernel, templated on the
-    type alone)."""
+    type alone; t None too: the float32 3xTF32 kernels, no template)."""
+    if t is None:
+        return (f"_ZN12_GLOBAL__N_1{len(kernel)}{kernel}E14CUtensorMap_stS0_"
+                "S0_S0_PfPKfS3_S3_iiifiii")
     if d is None:
         return (f"_ZN12_GLOBAL__N_1{len(kernel)}{kernel}I{_TYPES[t]}EEv14"
                 "CUtensorMap_stS2_Pfiiiiiiiiiii")
@@ -397,6 +402,8 @@ def _hopper_mangled(kernel, d, t="bf16"):
 
 
 def _instance(kernel, d, t):
+    if t is None:
+        return kernel
     return f"{kernel}<{t}>" if d is None else f"{kernel}<{t}, {d}>"
 
 
@@ -425,13 +432,15 @@ def _hopper_log():
     ("flash_dkv_wide_kernel", None, "spill"),
     ("flash_dkv_wide_kernel", None, "serialize"),
     ("flash_dq_wide_kernel", None, "spill"),
-    ("flash_dq_wide_kernel", None, "serialize")])
+    ("flash_dq_wide_kernel", None, "serialize"),
+    ("flash_dq_3xtf32_kernel", None, "spill"),
+    ("flash_dkv_3xtf32_kernel", None, "spill")])
 def test_build_report_names_the_redesigned_hopper_culprit(kernel, d, fault):
     """The fused backward's, the filter gradient's and the wide-head
-    forward's, dQ's and dK/dV's bf16 Hopper instances are in the build
-    phase's list, and a spill or serialized wgmma in one of them fails it,
-    naming that instance alone."""
-    _check_culprit(kernel, d, "bf16", fault)
+    forward's, dQ's and dK/dV's bf16 Hopper instances, and the float32
+    3xTF32 dQ and dK/dV, are in the build phase's list, and a spill or
+    serialized wgmma in one of them fails it, naming that instance alone."""
+    _check_culprit(kernel, d, None if "3xtf32" in kernel else "bf16", fault)
 
 
 @pytest.mark.parametrize("kernel,d,fault", [
@@ -494,7 +503,7 @@ def test_build_report_flags_spills_and_serialized_wgmma_of_hopper_kernels():
                              for k, d, t in instances)
     regs, faults = smoke.hopper_build_report(clean)
     assert sorted(regs) == sorted(smoke.HOPPER_INSTANCES)
-    assert len(regs) == 54
+    assert len(regs) == 56
     assert set(regs.values()) == {168} and faults == []
 
     def spill(log, kernel, d, t):

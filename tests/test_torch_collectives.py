@@ -13,8 +13,10 @@ either side; Product and the scale factors add one more each). Ragged
 
 import multiprocessing as mp
 import os
+import socket
 import subprocess
 import sys
+import textwrap
 
 import numpy as np
 import pytest
@@ -49,6 +51,98 @@ def _ragged():
         "mismatch": [rng.randn(2, 3).astype(np.float32),
                      rng.randn(3, 4).astype(np.float32)],
     }
+
+
+# Integer Average and scale factors, held to the reference's per-process
+# path: two NativeWorld processes (horovod_tpu/runtime), whose ScaleBuffer
+# (runtime/cpp/transport.cc:147) rounds llround(x * factor) in float64 and
+# keeps the dtype, once for the prescale, once for Average's 1 / n and once
+# for the postscale (runtime.cc:268-276; reducescatter :414). The JAX
+# package's stacked-rank path is no reference here, as it disagrees with the
+# per-process one in two places: its integer Average is lax.pmean's float32
+# mean (horovod_tpu/ops/collective_ops.py:172), and its reducescatter rounds
+# postscale / n to the integer dtype, so an Average gives zeros (:218-223).
+# Each case: name, collective, op, prescale, postscale, then rank 0's and
+# rank 1's values.
+INT_CASES = (
+    ("allreduce_average_int32", "allreduce", "average", 1.0, 1.0,
+     np.array([0, 1, 2], np.int32), np.array([3, 4, 5], np.int32)),
+    ("allreduce_average_int64", "allreduce", "average", 1.0, 1.0,
+     np.array([-3, -1, 4, 2**40 + 1], np.int64),
+     np.array([0, -2, -1, 2**40], np.int64)),
+    ("allreduce_sum_prescale_0.5", "allreduce", "sum", 0.5, 1.0,
+     np.array([0, 1, 2], np.int32), np.array([3, 4, 5], np.int32)),
+    ("allreduce_sum_postscale_2.5", "allreduce", "sum", 1.0, 2.5,
+     np.array([0, 1, 2], np.int32), np.array([3, 4, 5], np.int32)),
+    ("allreduce_async__sum_prescale_0.5", "allreduce_async_", "sum", 0.5,
+     1.0, np.array([-3, 1, 7], np.int32), np.array([0, 4, -5], np.int32)),
+    ("grouped_allreduce_average", "grouped_allreduce", "average", 1.0, 1.0,
+     np.array([0, 1, 2, 7, -9], np.int32),
+     np.array([3, 4, 5, -2, 6], np.int32)),
+    ("reducescatter_average", "reducescatter", "average", 1.0, 1.0,
+     np.array([1, 2, 3, 4], np.int32), np.array([6, 7, 8, 9], np.int32)),
+    ("reducescatter_async_average", "reducescatter_async", "average", 1.0,
+     1.0, np.array([1, -2, 3, 5], np.int64),
+     np.array([6, -7, 8, 0], np.int64)),
+)
+# The grouped case splits its values into two tensors at this index.
+GROUPED_SPLIT = 2
+
+
+def _port_int_case(hvd, rank, kind, op, pre, post, values):
+    x = torch.from_numpy(values[rank].copy())
+    if kind == "allreduce":
+        return [hvd.allreduce(x, op=op, prescale_factor=pre,
+                              postscale_factor=post)]
+    if kind == "allreduce_async_":
+        out = hvd.synchronize(hvd.allreduce_async_(
+            x, op=op, prescale_factor=pre, postscale_factor=post))
+        assert out is x  # in place, dtype kept
+        return [out]
+    if kind == "grouped_allreduce":
+        return hvd.grouped_allreduce(
+            [x[:GROUPED_SPLIT], x[GROUPED_SPLIT:]], op=op,
+            prescale_factor=pre, postscale_factor=post)
+    if kind == "reducescatter":
+        return [hvd.reducescatter(x, op=op, prescale_factor=pre,
+                                  postscale_factor=post)]
+    return [hvd.synchronize(hvd.reducescatter_async(x, op=op))]
+
+
+NATIVE_WORKER = textwrap.dedent("""
+    import os, sys
+    import numpy as np
+    sys.path.insert(0, os.environ["REPO_ROOT"])
+    sys.path.insert(0, os.environ["TEST_DIR"])
+    from horovod_tpu.runtime import NativeWorld
+    from test_torch_collectives import GROUPED_SPLIT, INT_CASES
+
+    rank = int(os.environ["TEST_RANK"])
+    w = NativeWorld(rank, 2, "127.0.0.1", int(os.environ["TEST_PORT"]),
+                    timeout_s=30.0)
+    res = {}
+    for name, kind, op, pre, post, *values in INT_CASES:
+        x = values[rank].copy()
+        if kind == "allreduce":
+            out = [w.allreduce(x, name, op=op, prescale_factor=pre,
+                               postscale_factor=post)]
+        elif kind == "allreduce_async_":
+            out = [w.synchronize(w.allreduce_async_(
+                x, name, op=op, prescale_factor=pre,
+                postscale_factor=post))]
+        elif kind == "grouped_allreduce":
+            out = w.grouped_allreduce(
+                [x[:GROUPED_SPLIT], x[GROUPED_SPLIT:]], name, op=op,
+                prescale_factor=pre, postscale_factor=post)
+        elif kind == "reducescatter":
+            out = [w.reducescatter(x, name, op=op)]
+        else:
+            out = [w.synchronize(w.reducescatter_async(x, name, op=op))]
+        for i, t in enumerate(out):
+            res[f"{name}.{i}"] = np.asarray(t)
+    np.savez(os.path.join(os.environ["OUT_DIR"], f"native{rank}.npz"), **res)
+    w.shutdown()
+""")
 
 
 def _worker(rank, init_file, out_dir):
@@ -91,6 +185,14 @@ def _worker(rank, init_file, out_dir):
                             prescale_factor=0.5, issue_reversed=True)
     for i, t in enumerate(fused):
         res[f"fused.{i}"] = t.numpy()
+    for name, kind, op, pre, post, *values in INT_CASES:
+        for i, t in enumerate(_port_int_case(hvd, rank, kind, op, pre, post,
+                                             values)):
+            res[f"{name}.{i}"] = t.numpy()
+    res["reducescatter.float32"] = hvd.reducescatter(
+        torch.from_numpy(d["x"][rank][:WORLD]), op=hvd.Average,
+        prescale_factor=2.0,
+        postscale_factor=0.5).numpy()
     hvd.barrier()
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
     hvd.shutdown()
@@ -113,6 +215,35 @@ def port_results(tmp_path_factory):
     assert not alive and all(p.exitcode == 0 for p in procs), (
         [p.exitcode for p in procs])
     return [dict(np.load(tmp / f"rank{r}.npz")) for r in range(WORLD)]
+
+
+@pytest.fixture(scope="module")
+def native_results(tmp_path_factory):
+    """Every INT_CASES collective run by two NativeWorld processes over
+    localhost TCP, as tests/test_native_runtime.py starts them."""
+    tmp = tmp_path_factory.mktemp("native_collectives")
+    script = tmp / "native_worker.py"
+    script.write_text(NATIVE_WORKER)
+    with socket.socket() as sock:
+        sock.bind(("", 0))
+        port = sock.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(
+        [sys.executable, str(script)],
+        env=dict(os.environ, REPO_ROOT=os.path.dirname(here), TEST_DIR=here,
+                 TEST_RANK=str(r), TEST_PORT=str(port), OUT_DIR=str(tmp)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(WORLD)]
+    outs = []
+    for r, p in enumerate(procs):
+        try:
+            outs.append(p.communicate(timeout=120))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise AssertionError(f"native rank {r} timed out")
+    assert all(p.returncode == 0 for p in procs), outs
+    return [dict(np.load(tmp / f"native{r}.npz")) for r in range(WORLD)]
 
 
 @pytest.fixture(scope="module")
@@ -194,6 +325,85 @@ def test_grouped_and_fused_allreduce_match_jax(port_results, jax_pair):
                                        **TOL)
             np.testing.assert_allclose(res[f"fused.{i}"], summed[i][r],
                                        **TOL)
+
+
+@pytest.mark.parametrize("case", INT_CASES, ids=[c[0] for c in INT_CASES])
+def test_integer_scaling_matches_native_runtime(port_results, native_results,
+                                                case):
+    name = case[0]
+    for port, native in zip(port_results, native_results):
+        keys = sorted(k for k in native if k.startswith(name + "."))
+        assert keys and keys == sorted(k for k in port
+                                       if k.startswith(name + "."))
+        for k in keys:
+            assert port[k].dtype == native[k].dtype == case[5].dtype, k
+            np.testing.assert_array_equal(port[k], native[k], err_msg=k)
+
+
+def test_integer_average_rounds_half_away_from_zero(port_results):
+    """The values the reference's runtime gives (ROADMAP's C4 record):
+    [0, 1, 2] and [3, 4, 5] average to [2, 3, 4], as they sum to it with a
+    prescale of 0.5; [1, 2, 3, 4] and [6, 7, 8, 9] reduce-scatter to
+    [4, 5] and [6, 7]."""
+    for r, res in enumerate(port_results):
+        for name in ("allreduce_average_int32",
+                     "allreduce_sum_prescale_0.5"):
+            np.testing.assert_array_equal(res[f"{name}.0"], [2, 3, 4])
+        np.testing.assert_array_equal(res["allreduce_sum_postscale_2.5.0"],
+                                      [8, 13, 18])
+        np.testing.assert_array_equal(res["reducescatter_average.0"],
+                                      [[4, 5], [6, 7]][r])
+        np.testing.assert_array_equal(res["allreduce_average_int64.0"],
+                                      [-2, -2, 2, 2**40 + 1])
+
+
+@pytest.mark.parametrize("pre,post", SCALES)
+def test_float_average_is_bitwise_unchanged(port_results, pre, post):
+    """Float tensors keep their single multiplies by factors rounded to the
+    dtype: allreduce (x0 pre + x1 pre) / n * post, reducescatter
+    (x0 pre + x1 pre) * (post / n), each step in float32."""
+    x = [torch.from_numpy(a) for a in _data()["x"]]
+
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32)
+
+    summed = x[0] * f32(pre) + x[1] * f32(pre)
+    want = summed / WORLD * f32(post)
+    rs_sum = x[0][:WORLD] * f32(2.0) + x[1][:WORLD] * f32(2.0)
+    want_rs = rs_sum * f32(0.5 / WORLD)
+    for r, res in enumerate(port_results):
+        assert torch.equal(torch.from_numpy(
+            res[f"allreduce.average.{pre}.{post}"]), want)
+        assert torch.equal(torch.from_numpy(res["reducescatter.float32"]),
+                           want_rs[r:r + 1])
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.uint8, torch.int32,
+                                   torch.int64])
+def test_integer_scale_helpers(dtype):
+    """The in-place helpers every integer path shares: float64 scale, round
+    half away from zero, dtype kept; Average's 1 / n and the postscale
+    rounded apart."""
+    from horovod_tpu_torch.ops.collective_ops import (
+        _average_and_postscale_, _divide_, _scale_)
+
+    values = [0, 1, 3, 5, 7, 9, 40]
+    if dtype.is_signed:
+        values += [-1, -3, -5, -7]
+    t = torch.tensor(values, dtype=dtype)
+    _scale_(t, 0.5)
+    want = [int(np.sign(v) * np.floor(abs(v) * 0.5 + 0.5)) for v in values]
+    assert t.dtype == dtype and t.tolist() == want
+    t = torch.tensor(values, dtype=dtype)
+    _divide_(t, 2)
+    assert t.tolist() == want
+    t = torch.tensor(values, dtype=dtype)
+    _average_and_postscale_(t, "average", 3.0, 2)
+    assert t.dtype == dtype and t.tolist() == [
+        int(np.sign(w) * np.floor(abs(w) * 3.0 + 0.5)) for w in want]
+    t = torch.tensor(values, dtype=dtype)
+    _average_and_postscale_(t, "sum", 1.0, 2)
+    assert t.tolist() == values
 
 
 @pytest.mark.parametrize("sizes,threshold", [

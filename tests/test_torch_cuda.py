@@ -112,6 +112,21 @@ def test_kernels_match_plain_versions_on_the_card(cuda_device, dtype, D, Sq,
 
 
 @pytest.mark.cuda
+def test_float32_dq_dkv_at_head_dim_256_and_the_gemma_shape(cuda_device):
+    """The 3xTF32 dQ and dK/dV (float32, D = 256) at a Gemma-like layer's
+    shape, B*H = 128, S = 512: every work tile of a full grid, held to the
+    plain versions at float32's 1e-4."""
+    q, k, v, do, glse = _attention_operands(cuda_device, 3, 128, 512, 512,
+                                            256, torch.float32)
+    o_ref, lse_ref = port.flash_fwd_plain(q, k, v)
+    delta = (do * o_ref).sum(-1)
+    args = (q, k, v, do, lse_ref, delta, glse, False, 0, 0)
+    _hold([(port.flash_dq(*args), port.flash_dq_plain(*args)),
+           *zip(port.flash_dkv(*args), port.flash_dkv_plain(*args))],
+          torch.float32)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,D,Sq,Sk,causal,q_offset,k_offset", [
     (torch.bfloat16, 64, 128, 128, False, 0, 0),
     (torch.bfloat16, 128, 128, 128, False, 0, 0),
