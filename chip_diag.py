@@ -26,10 +26,12 @@ float32 values, the bf16 rows on the same values rounded to bf16); and
 the float32 instances at D = 64 (``flash_fwd_f32``, ``flash_dq_f32``,
 ``flash_dkv_f32`` at S = 512; ``flash_fwd_single_f32``,
 ``flash_dqkv_f32`` at S = 128) beside SDPA in float32 (``sdpa_*_f32``,
-``sdpa_*_s128_f32``). After the times it prints each float32 row's bound
-at the float32 FMA peak, and for the 3xTF32 kernels (dQ and dK/dV at
-D = 256) also their bound at the TF32 peak, then the kernels of SDPA's
-float32 backward at D = 256. Each checkout runs in a process of its own,
+``sdpa_*_s128_f32``), on full float32 values. After the times it prints
+each float32 row's bound at the float32 FMA peak, and for the 3xTF32
+kernels (the forwards; dQ and dK/dV at D = 256: chip_smoke.py's
+``TF32X3``) also their bound at the TF32 peak, then the kernels of SDPA's
+float32 backward at D = 256 and of its float32 forward at D = 256 and
+D = 64 (``SDPA_KERNELS``). Each checkout runs in a process of its own,
 in the order other, this, this, other. Each process times every call by
 three methods, all with the L2 flushed before each call:
 
@@ -128,6 +130,9 @@ F32_BOUNDS = {
     "flash_dkv_wide_f32": ("flash_dkv", 32, 512, 512),
 }
 METHODS = ("spin_ms", "no_spin_ms", "device_ms")
+# The SDPA calls whose kernels ab prints by device time: the float32
+# backward at D = 256 and the float32 forward at D = 256 and D = 64.
+SDPA_KERNELS = ("sdpa_bwd_d256_f32", "sdpa_fwd_d256_f32", "sdpa_fwd_f32")
 
 
 def _smoke():
@@ -276,10 +281,16 @@ def _worker(tree, label):
                 f"d{Dw}{sfx}", [t.view(1, BHw, S, Dw) for t in a[:3]],
                 a[3].view(1, BHw, S, Dw)))
     # The float32 instances at D = 64 (BERT-Large S = 512 and S = 128
-    # shapes) beside SDPA in float32.
-    f32, f32_1 = ([t.float() for t in args[:4]] for args in (bwd, bwd1))
-    b32 = (*f32, *bwd[4:7], False, 0, 0)
-    b32_1 = (*f32_1, *bwd1[4:7], False, 0, 0)
+    # shapes) beside SDPA in float32, on full float32 values.
+    def full_f32(BHs, Ss):
+        a = [torch.randn(BHs, Ss, D, generator=gen, device="cuda")
+             for _ in range(4)]
+        o_a, lse_a = A.flash_fwd_plain(*a[:3])
+        return a, (*a, lse_a, (a[3] * o_a).sum(-1), torch.zeros_like(lse_a),
+                   False, 0, 0)
+
+    f32, b32 = full_f32(B * H, S)
+    f32_1, b32_1 = full_f32(B1 * H, S1)
     calls.update({
         "flash_fwd_f32": lambda: A.flash_fwd(*f32[:3]),
         "flash_dq_f32": lambda: A.flash_dq(*b32),
@@ -295,13 +306,16 @@ def _worker(tree, label):
                      "no_spin_ms": smoke.time_ms(fn, sleep_cycles=0),
                      "device_ms": _device_ms(fn)}
               for name, fn in calls.items()}
-    # The kernels of SDPA's float32 backward at D = 256, by device time.
+    # The kernels of SDPA's float32 backward at D = 256 and of its float32
+    # forward at D = 256 and D = 64, by device time.
     sdpa_kernels = {}
-    for n, us in _device_events(calls["sdpa_bwd_d256_f32"], 1):
-        sdpa_kernels[n] = sdpa_kernels.get(n, 0.0) + us / 1e3
+    for call in SDPA_KERNELS:
+        sdpa_kernels[call] = {}
+        for n, us in _device_events(calls[call], 1):
+            sdpa_kernels[call][n] = sdpa_kernels[call].get(n, 0.0) + us / 1e3
     print(json.dumps({"checkout": label, "path": tree,
                       "card": smoke.card_line(),
-                      "sdpa_bwd_d256_f32_kernels": sdpa_kernels, **result}))
+                      "sdpa_kernels": sdpa_kernels, **result}))
 
 
 def ab(other):
@@ -344,10 +358,10 @@ def ab(other):
             line += (f"; {ms3:.4f} ms ({by3}: {flops3 / 1e9:.2f} GFLOP of "
                      "TF32) in 3xTF32, the bound the kernel is held to")
         print(line)
-    kernels = runs["this"][0]["sdpa_bwd_d256_f32_kernels"]
-    print("sdpa_bwd_d256_f32 kernels (device ms of one call): "
-          + "; ".join(f"{n} {ms:.4f}" for n, ms in
-                      sorted(kernels.items(), key=lambda kv: -kv[1])))
+    for call, kernels in runs["this"][0]["sdpa_kernels"].items():
+        print(f"{call} kernels (device ms of one call): "
+              + "; ".join(f"{n} {ms:.4f}" for n, ms in
+                          sorted(kernels.items(), key=lambda kv: -kv[1])))
     print(f"card: {runs['this'][0]['card']}")
     return 0
 

@@ -10,14 +10,15 @@ and prints no result line); each prints its seconds:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build of the hand-written CUDA kernels from ``horovod_tpu_torch/ops/csrc``
-   (one ``nvcc`` per source, all started together); none of the 56 Hopper
+   (one ``nvcc`` per source, all started together); none of the 63 Hopper
    instances (the bf16 and float16 forward, dQ, dK/dV, single-tile
    forward and fused backward at D=16, 32, 64, 128, the forward, dQ and
    dK/dV at D=256, the wide-head forward, dQ and dK/dV, and the bf16 and
-   float16 filter gradient on wgmma; the float32 dQ and dK/dV at D=256 in
-   3xTF32 on mma.sync) may spill or have its wgmma serialized, nor any of
-   the 3 SIMT wide-head instances (the float32 forward, dQ and dK/dV)
-   spill;
+   float16 filter gradient on wgmma; in 3xTF32 on mma.sync the float32
+   forwards, multi-tile at D=32 to 256 and single-tile at D=32 to 128, and
+   the float32 dQ and dK/dV at D=256) may spill or have its wgmma
+   serialized, nor any of the 3 SIMT wide-head instances (the float32
+   forward, dQ and dK/dV) spill;
 3. kernel phase: every kernel against its plain PyTorch version on the same
    inputs, with times beside the bound and the library yardstick:
    - the multi-tile forward, dQ and dK/dV flash-attention kernels
@@ -38,10 +39,13 @@ and prints no result line); each prints its seconds:
      with B*H = 1024 (the multi-tile route: no single-tile kernel has a
      D=256 instance); D=200, zero-padded to 256, causal and ragged; the
      Gemma-like layer in full float32, non-causal, timed beside the float32
-     SDPA backward with both bounds of the 3xTF32 dQ and dK/dV (FMA and
-     TF32), and each kernel's largest error against a float64 version of
-     the function beside the float32 plain version's and SDPA's (at most
-     ``F64_ERR_RATIO`` times the plain version's);
+     SDPA forward and backward with both bounds of the 3xTF32 forward, dQ
+     and dK/dV (FMA and TF32), and each kernel's largest error against a
+     float64 version of the function (O and lse; dQ, dK, dV) beside the
+     float32 plain version's and SDPA's (at most ``F64_ERR_RATIO`` times the
+     plain version's); the same for the 3xTF32 forwards at the two
+     BERT-Large shapes in full float32 (S=512, B*H = 128 and S=128, B*H =
+     1024, D=64);
    - the 1x1-conv filter gradient (ResNet-50 stage-1 bottleneck 64 -> 256
      in bf16 and float16; the stride-2 projection shortcut 256 -> 512,
      timed beside its own cuBLAS call; bf16 with a ragged K and ragged
@@ -53,7 +57,9 @@ and prints no result line); each prints its seconds:
    S=128) through ``flash_attention_lse``, forward and backward: the
    launch counters show the D=256 forward, dQ and dK/dV ran once per layer
    and no other kernel did; the same for float32 layers at the Gemma-like
-   shape (the 3xTF32 dQ and dK/dV); then the ``wide`` phase: the three
+   shape (the 3xTF32 forward, dQ and dK/dV) and at BERT-Large's S=512 and
+   S=128 shapes (the 3xTF32 forwards of both routes), each with a profile
+   that names the forward kernel it ran; then the ``wide`` phase: the three
    wide-head kernels (head dims above 256) against their plain versions in
    bf16, float16 and float32 at D=512 (B*H=32, S=512; bf16 timed beside its
    bound and the first SDPA backend that takes D=512, named), D=320 causal
@@ -124,15 +130,18 @@ import sys
 import time
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 and float16 tensor cores,
-# float32 on the FMA units (the float32 kernels but dQ and dK/dV at D = 256
+# float32 on the FMA units (the float32 kernels other than those of TF32X3
 # run there), memory rate.
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
-# The TF32 tensor-core peak. The float32 dQ and dK/dV kernels at D = 256 do
-# every product as three TF32 products (3xTF32): their bound is three times
-# the products' operations at this rate (``_bounds_3xtf32``).
+# The TF32 tensor-core peak. The float32 forwards and the float32 dQ and
+# dK/dV at D = 256 do every product as three TF32 products (3xTF32): their
+# bound is three times the products' operations at this rate
+# (``_bounds_3xtf32``).
 PEAK_TF32 = 495e12
 # The float32 kernels that run in 3xTF32: (kernel, head dim of the instance).
-TF32X3 = {("flash_dq", 256), ("flash_dkv", 256)}
+TF32X3 = {("flash_dq", 256), ("flash_dkv", 256)} | {
+    ("flash_fwd", d) for d in (32, 64, 128, 256)} | {
+    ("flash_fwd_single", d) for d in (32, 64, 128)}
 # A 3xTF32 kernel's largest error against a float64 version of the function,
 # on full-float32 inputs, may be at most this many times the float32 plain
 # version's (one TF32 product, 10 mantissa bits, is about 500 times it).
@@ -228,9 +237,10 @@ def time_ms(fn, reps=20, warmup=3, sleep_cycles=SLEEP_CYCLES):
 # attention routes at head dims 16 to 128, the multi-tile ones also at 256,
 # the wide-head forward, dQ and dK/dV (any D above 256), and the bf16 and
 # float16 1x1-conv filter gradient (the SIMT float32 kernels are named
-# *_f32_kernel); on mma.sync in 3xTF32, the float32 dQ and dK/dV at D = 256
-# (*_3xtf32_kernel, no template). nvcc's mangled names carry the element
-# type: 13__nv_bfloat16 or 6__half.
+# *_f32_kernel); on mma.sync in 3xTF32, the float32 forwards (templated on
+# the head dim alone) and dQ and dK/dV at D = 256 (*_3xtf32_kernel, no
+# template). nvcc's mangled names carry the element type: 13__nv_bfloat16
+# or 6__half.
 HOPPER_TYPES = {"__nv_bfloat16": "bf16", "__half": "f16"}
 MULTI_TILE_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel",
                       "flash_dkv_kernel")
@@ -244,11 +254,14 @@ HOPPER_INSTANCES = tuple(
         f"{k}<{t}>" for k in ("flash_fwd_wide_kernel", "flash_dq_wide_kernel",
                               "flash_dkv_wide_kernel", "dw_1x1_kernel")
         for t in HOPPER_TYPES.values()) + (
-        "flash_dq_3xtf32_kernel", "flash_dkv_3xtf32_kernel")
+        "flash_dq_3xtf32_kernel", "flash_dkv_3xtf32_kernel") + tuple(
+        f"{k}_3xtf32_kernel<{d}>" for k, d in sorted(TF32X3)
+        if k.startswith("flash_fwd"))
 _HOPPER_NAME = re.compile(
     r"(flash_(?:fwd_single|fwd|dqkv|dq|dkv)_kernel)I\d+(__nv_bfloat16|__half)"
     r"Li(\d+)E|\d(dw_1x1_kernel|flash_(?:fwd|dq|dkv)_wide_kernel)"
-    r"I\d+(__nv_bfloat16|__half)E|\d(flash_(?:dq|dkv)_3xtf32_kernel)E")
+    r"I\d+(__nv_bfloat16|__half)E|\d(flash_(?:dq|dkv)_3xtf32_kernel)E"
+    r"|\d(flash_fwd(?:_single)?_3xtf32_kernel)ILi(\d+)E")
 
 
 def _hopper_instance(line):
@@ -256,6 +269,8 @@ def _hopper_instance(line):
     found = _HOPPER_NAME.search(line)
     if not found:
         return None
+    if found.group(7):
+        return f"{found.group(7)}<{found.group(8)}>"
     if found.group(6):
         return found.group(6)
     if found.group(4):
@@ -387,13 +402,40 @@ def _bounds_3xtf32(name, BH, Sq, Sk, D, causal, q_offset, k_offset):
     return t_bytes * 1e3, "bytes", 3 * flops, moved
 
 
+def _runs_3xtf32(name, D):
+    """Whether the float32 kernel ``name`` at head dim ``D`` runs a 3xTF32
+    instance (``TF32X3``): the instance's head dim is the next of its
+    route's float32 instances."""
+    import torch
+
+    from horovod_tpu_torch.ops import attention as A
+
+    single = name in ("flash_fwd_single", "flash_dqkv")
+    dims = A.SINGLE_TILE_HEAD_DIMS if single else A.KERNEL_HEAD_DIMS
+    if name in ("flash_fwd", "flash_fwd_single"):
+        dims = A.forward_head_dims(torch.float32, dims)
+    return (name, A.kernel_head_dim(D, dims)) in TF32X3
+
+
+def _kernel_bounds(name, BH, Sq, Sk, D, dname, causal, q_offset, k_offset):
+    """``_bounds`` of a kernel, or for a 3xTF32 kernel ``_bounds_3xtf32``
+    with its bound at the float32 FMA peak beside it: ``(bounds,
+    fma_bound_ms or None)``."""
+    bounds = _bounds(name, BH, Sq, Sk, D, dname, causal, q_offset, k_offset)
+    if dname == "float32" and _runs_3xtf32(name, D):
+        return (_bounds_3xtf32(name, BH, Sq, Sk, D, causal, q_offset,
+                               k_offset), bounds[0])
+    return bounds, None
+
+
 def _f64_check(case, q, k, v, do, got, plain, causal, q_offset, k_offset):
-    """Each float32 backward output's largest error against a float64
-    version of the function on the same float32 inputs (lse and delta in
-    float64 too; no lse cotangent), beside the float32 plain version's and
-    SDPA's (causal: top-left, offsets 0). ``got`` and ``plain`` are (dq,
-    dk, dv) on fp32 lse and delta; a kernel's error may be at most
-    ``F64_ERR_RATIO`` times the plain version's."""
+    """Each float32 output's largest error against a float64 version of the
+    function on the same float32 inputs, beside the float32 plain version's
+    and SDPA's (causal: top-left, offsets 0). The forward (``do`` None):
+    ``got`` and ``plain`` are (o, lse), rows that see no key left out (SDPA
+    returns no lse). The backward: (dq, dk, dv) on fp32 lse and delta (lse
+    and delta in float64 for the reference; no lse cotangent). A kernel's
+    error may be at most ``F64_ERR_RATIO`` times the plain version's."""
     import torch
     import torch.nn.functional as F
 
@@ -401,25 +443,41 @@ def _f64_check(case, q, k, v, do, got, plain, causal, q_offset, k_offset):
 
     BH, Sq, D = q.shape
     scale = 1.0 / math.sqrt(D)
-    q64, k64, v64, do64 = (t.double() for t in (q, k, v, do))
+    q64, k64, v64 = (t.double() for t in (q, k, v))
     s = q64 @ k64.transpose(-1, -2) * scale
     mask = A._visible(Sq, k.shape[1], causal, q_offset, k_offset, q.device)
     if mask is not None:
         s = torch.where(mask, s, -math.inf)
-    p = torch.softmax(s, dim=-1)
-    delta = ((p @ v64) * do64).sum(-1, keepdim=True)
-    ds = p * (do64 @ v64.transpose(-1, -2) - delta)
-    want = (scale * ds @ k64, scale * ds.transpose(-1, -2) @ q64,
-            p.transpose(-1, -2) @ do64)
     g4 = [t.view(1, BH, -1, D).detach().requires_grad_() for t in (q, k, v)]
     out = F.scaled_dot_product_attention(*g4, is_causal=causal)
-    sdpa = torch.autograd.grad(out, g4, do.view(1, BH, Sq, D))
+    if do is None:
+        seen = torch.isfinite(s.amax(-1))  # rows that see a key
+        p = torch.softmax(torch.where(seen[..., None], s, 0.0), dim=-1)
+        want = (p @ v64, torch.logsumexp(s, dim=-1))
+        sdpa = (out.detach().view(BH, Sq, D), None)
+        names = ("o", "lse")
+    else:
+        seen = None
+        p = torch.softmax(s, dim=-1)
+        do64 = do.double()
+        delta = ((p @ v64) * do64).sum(-1, keepdim=True)
+        ds = p * (do64 @ v64.transpose(-1, -2) - delta)
+        want = (scale * ds @ k64, scale * ds.transpose(-1, -2) @ q64,
+                p.transpose(-1, -2) @ do64)
+        sdpa = torch.autograd.grad(out, g4, do.view(1, BH, Sq, D))
+        names = ("dq", "dk", "dv")
     lines = []
-    for i, name in enumerate(("dq", "dk", "dv")):
-        errs = [(t[i].reshape(want[i].shape).double() - want[i]).abs().max()
-                .item() for t in (got, plain, sdpa)]
+    for i, name in enumerate(names):
+        errs = []
+        for t in (got, plain, sdpa):
+            if t[i] is None:
+                errs.append(None)
+                continue
+            e = (t[i].reshape(want[i].shape).double() - want[i]).abs()
+            errs.append((e[seen] if seen is not None else e).max().item())
         lines.append(f"{name} kernel {errs[0]:.3e}, float32 plain "
-                     f"{errs[1]:.3e}, sdpa {errs[2]:.3e}")
+                     f"{errs[1]:.3e}, sdpa "
+                     + ("n/a" if errs[2] is None else f"{errs[2]:.3e}"))
         if not errs[0] <= F64_ERR_RATIO * errs[1]:
             raise AssertionError(
                 f"{case} {name}: error against float64 {errs[0]:.3e} > "
@@ -497,10 +555,11 @@ def kernel_phase():
     cases = [
         # name, B, H, Sq, Sk, D, dtype, causal, q_offset, k_offset, g_lse,
         # timing ("json": timed, with the library yardstick, into the
-        # kernels line; "d256": the same as flash_*_d256; "f32": dQ and
-        # dK/dV the same as flash_*_d256_float32, with the float64 check;
-        # "sdpa": timed beside the library, printed; "ms": time printed;
-        # "": not timed).
+        # kernels line; "d256": the same as flash_*_d256; "f32": the 3xTF32
+        # kernels the same as flash_*_float32 (flash_*_d256_float32 at
+        # D = 256), with the float64 check of the forward and, where they
+        # run in 3xTF32, of dQ and dK/dV; "sdpa": timed beside the library,
+        # printed; "ms": time printed; "": not timed).
         # A.single_tile_route picks the route: Sq, Sk <=
         # A.SINGLE_TILE_MAX and D <= 128 take the single-tile kernels.
         ("bert_large_bf16", b512, 16, s512, s512, 64, bf16, False, 0, 0,
@@ -582,9 +641,15 @@ def kernel_phase():
          True, ""),
         ("d200_causal_ragged_float32", 2, 3, 200, 264, 200, f32, True, 0, 40,
          True, ""),
-        # The Gemma-like layer in full float32 (the 3xTF32 dQ and dK/dV).
+        # The Gemma-like layer in full float32 (the 3xTF32 forward, dQ and
+        # dK/dV), and the BERT-Large shapes in full float32 (the 3xTF32
+        # forwards of both routes).
         ("gemma_d256_float32_full", 8, 16, 512, 512, 256, f32, False, 0, 0,
          False, "f32"),
+        ("bert_large_float32_full", b512, 16, s512, s512, 64, f32, False, 0,
+         0, False, "f32"),
+        ("bert_large_s128_float32_full", b128, 16, s128, s128, 64, f32, False,
+         0, 0, False, "f32"),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
     measured = {}
@@ -653,33 +718,34 @@ def kernel_phase():
                     raise AssertionError(f"{case}: masked-row sentinels differ")
                 line += f" (fully masked rows: {empty})"
             if timed:
-                bounds = _bounds(name, BH, Sq, Sk, D, dname, causal, qo, ko)
-                fma = None
-                if (dname == "float32"
-                        and (name, A.kernel_head_dim(D)) in TF32X3):
-                    fma = bounds[0]
-                    bounds = _bounds_3xtf32(name, BH, Sq, Sk, D, causal, qo,
-                                            ko)
+                bounds, fma = _kernel_bounds(name, BH, Sq, Sk, D, dname,
+                                             causal, qo, ko)
                 numbers, text = _timing(kern, plain, bounds,
                                         library.get(name), fma)
                 if timing == "f32" and fma is not None:
-                    measured[f"{name}_d256_float32"] = dict(max_abs_err=err,
-                                                            **numbers)
+                    key = f"{name}{'_d256' if D == 256 else ''}_float32"
+                    measured[key] = dict(max_abs_err=err, **numbers)
                 elif timing in ("json", "d256"):
                     key = name if timing == "json" else f"{name}_d256"
                     measured[key] = dict(max_abs_err=err, **numbers)
                 line += text
             elif timing == "ms":
-                bounds = _bounds(name, BH, Sq, Sk, D, dname, causal, qo, ko)
+                bounds, _ = _kernel_bounds(name, BH, Sq, Sk, D, dname, causal,
+                                           qo, ko)
                 line += (f" ms {time_ms(kern):.4f} bound_ms {bounds[0]:.4f} "
                          f"({bounds[1]}; {bounds[2] / 1e9:.2f} GFLOP, "
                          f"{bounds[3] / 1e6:.1f} MB)")
             print(line)
         if timing == "f32":
-            got = (A.flash_dq(*bwd_args), *A.flash_dkv(*bwd_args))
-            plain = (A.flash_dq_plain(*bwd_args),
-                     *A.flash_dkv_plain(*bwd_args))
-            _f64_check(case, q, k, v, do, got, plain, causal, qo, ko)
+            fwd_name = next(n for n in runs if n.startswith("flash_fwd"))
+            kern, plain = runs[fwd_name]
+            _f64_check(f"{case} {fwd_name}", q, k, v, None, kern(), plain(),
+                       causal, qo, ko)
+            if "flash_dq" in runs and _runs_3xtf32("flash_dq", D):
+                got = (A.flash_dq(*bwd_args), *A.flash_dkv(*bwd_args))
+                plain = (A.flash_dq_plain(*bwd_args),
+                         *A.flash_dkv_plain(*bwd_args))
+                _f64_check(case, q, k, v, do, got, plain, causal, qo, ko)
         if timing == "json" and "flash_dqkv" in runs:
             # The other route on the same inputs: what the single-tile
             # kernels save over the multi-tile ones at this shape.
@@ -1020,13 +1086,13 @@ def conv_phase(card):
 
 
 _CATEGORIES = (  # first match wins; by lower-cased kernel name
-    ("flash_fwd", ("flash_fwd_kernel", "flash_fwd_f32_kernel")),
+    ("flash_fwd", ("flash_fwd_kernel", "flash_fwd_3xtf32_kernel")),
     ("flash_dq", ("flash_dq_kernel", "flash_dq_f32_kernel",
                   "flash_dq_3xtf32_kernel")),
     ("flash_dkv", ("flash_dkv_kernel", "flash_dkv_f32_kernel",
                    "flash_dkv_3xtf32_kernel")),
     ("flash_fwd_single", ("flash_fwd_single_kernel",
-                          "flash_fwd_single_f32_kernel")),
+                          "flash_fwd_single_3xtf32_kernel")),
     ("flash_dqkv", ("flash_dqkv_kernel", "flash_dqkv_f32_kernel")),
     ("flash_fwd_wide", ("flash_fwd_wide_kernel", "flash_fwd_wide_f32_kernel")),
     ("flash_dq_wide", ("flash_dq_wide_kernel", "flash_dq_wide_f32_kernel")),
@@ -1107,16 +1173,54 @@ def profile_steps(path, step, batch, card, step_ms, n=2):
 # multi-tile kernels too.
 WIDE_LAYERS = 4
 WIDE_SHAPES = ((8, 16, 512, 256), (64, 16, 128, 256))
-# Then float32 layers at the Gemma-like shape: the 3xTF32 dQ and dK/dV.
+# Then float32 layers (the 3xTF32 forwards; dQ and dK/dV in 3xTF32 at
+# D = 256): the Gemma-like shape, and BERT-Large's at S = 512 (multi-tile)
+# and S = 128 (single-tile): (B, H, S, D), the kernels each layer runs once,
+# and the kernels line's names for the forward (and dQ, dK/dV) counts.
 F32_LAYERS = 2
+F32_PATHS = (
+    ((8, 16, 512, 256), ("flash_fwd", "flash_dq", "flash_dkv"),
+     "_d256_float32", ("flash_fwd", "flash_dq", "flash_dkv")),
+    ((8, 16, 512, 64), ("flash_fwd", "flash_dq", "flash_dkv"), "_float32",
+     ("flash_fwd",)),
+    ((64, 16, 128, 64), ("flash_fwd_single", "flash_dqkv"), "_float32",
+     ("flash_fwd_single",)),
+)
+
+
+def _attention_kernels_ms(run):
+    """Device ms of the port's flash-attention kernels in one profiled
+    ``run()``, by kernel name (with its template arguments)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    ms = {}
+    for e in prof.events():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        found = re.search(r"flash_\w+(<[^>]*>)?", e.name)
+        if found:
+            ms[found.group(0)] = ms.get(found.group(0), 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3
+    return ms
 
 
 def wide_heads_phase():
     """Head dims above 128 through the entry point: each layer launches the
-    D = 256 forward, dQ and dK/dV once and no other kernel, in bf16 and then
-    in float32 (the counters set to 0 before each); the outputs are finite.
-    Returns the launch counts of this path (``flash_*_d256`` for bf16,
-    ``flash_dq_d256_float32`` and ``flash_dkv_d256_float32``)."""
+    D = 256 forward, dQ and dK/dV once and no other kernel, in bf16; then
+    float32 layers at ``F32_PATHS``' shapes, each layer launching its
+    route's kernels once (the 3xTF32 forward, and dQ and dK/dV in 3xTF32 at
+    D = 256) and no other, with a profile of the flash kernels they ran (the
+    counters set to 0 before each shape); the outputs are finite. Returns
+    the launch counts of this path (``flash_*_d256`` for bf16,
+    ``flash_*_d256_float32``, ``flash_fwd_float32`` and
+    ``flash_fwd_single_float32``)."""
     import torch
 
     from horovod_tpu_torch.ops import _kernels
@@ -1148,32 +1252,46 @@ def wide_heads_phase():
           f"and backward: launches {launches}")
     counts = {f"{k}_d256": n for k, n in launches.items()
               if k in ("flash_fwd", "flash_dq", "flash_dkv")}
-    B, H, S, D = WIDE_SHAPES[0]
-    layers = [[torch.randn(B, H, S, D, generator=gen, device="cuda")
-               .requires_grad_() for _ in range(3)]
-              for _ in range(F32_LAYERS)]
-    for k in _kernels.KERNELS:
-        k.launches = 0
-    for q, k, v in layers:
-        out, lse = A.flash_attention_lse(q, k, v, causal=True)
-        (out.square().sum() + lse.sum()).backward()
-    torch.cuda.synchronize()
-    launches = {k.name: k.launches for k in _kernels.KERNELS}
-    expected = {k.name: 0 for k in _kernels.KERNELS}
-    expected.update(flash_fwd=F32_LAYERS, flash_dq=F32_LAYERS,
-                    flash_dkv=F32_LAYERS)
-    if launches != expected:
-        raise AssertionError(f"wide heads float32: launches {launches}; "
-                             f"expected {F32_LAYERS} of each multi-tile "
-                             "kernel and no other")
-    for q, k, v in layers:
-        if not all(torch.isfinite(t.grad).all() for t in (q, k, v)):
-            raise AssertionError("wide heads float32: non-finite gradients")
-    print(f"wide heads: {F32_LAYERS} causal float32 attention layers at "
-          f"{(B, H, S, D)} (B, H, S, D), forward and backward (the 3xTF32 "
-          f"dQ and dK/dV): launches {launches}")
-    counts.update(flash_dq_d256_float32=launches["flash_dq"],
-                  flash_dkv_d256_float32=launches["flash_dkv"])
+    for (B, H, S, D), kernels, suffix, named in F32_PATHS:
+        layers = [[torch.randn(B, H, S, D, generator=gen, device="cuda")
+                   .requires_grad_() for _ in range(3)]
+                  for _ in range(F32_LAYERS)]
+
+        def run():
+            for q, k, v in layers:
+                out, lse = A.flash_attention_lse(q, k, v, causal=True)
+                (out.square().sum() + lse.sum()).backward()
+
+        for k in _kernels.KERNELS:
+            k.launches = 0
+        run()
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in _kernels.KERNELS}
+        expected = {k.name: 0 for k in _kernels.KERNELS}
+        expected.update({k: F32_LAYERS for k in kernels})
+        if launches != expected:
+            raise AssertionError(f"float32 layers {(B, H, S, D)}: launches "
+                                 f"{launches}; expected {F32_LAYERS} of each "
+                                 f"of {kernels} and no other")
+        for q, k, v in layers:
+            if not all(torch.isfinite(t.grad).all() for t in (q, k, v)):
+                raise AssertionError(f"float32 layers {(B, H, S, D)}: "
+                                     "non-finite gradients")
+        for q, k, v in layers:
+            for t in (q, k, v):
+                t.grad = None
+        kernel_ms = _attention_kernels_ms(run)
+        fwd = [n for n in kernel_ms if "fwd" in n]
+        if not fwd or not all("3xtf32" in n for n in fwd):
+            raise AssertionError(f"float32 layers {(B, H, S, D)}: forward "
+                                 f"kernels {fwd}; expected the 3xTF32 one")
+        print(f"wide heads: {F32_LAYERS} causal float32 attention layers at "
+              f"{(B, H, S, D)} (B, H, S, D), forward and backward (the 3xTF32 "
+              f"forward{', dQ and dK/dV' if D == 256 else ''}): launches "
+              f"{launches}; profiled device ms of the flash kernels: "
+              + ", ".join(f"{n} {ms:.4f}" for n, ms in sorted(
+                  kernel_ms.items(), key=lambda kv: -kv[1])))
+        counts.update({f"{k}{suffix}": launches[k] for k in named})
     return counts
 
 
@@ -2158,12 +2276,17 @@ def main() -> int:
     print(f"phase all: {time.perf_counter() - t_start:.1f} s")
 
     # Each kernel, then the D = 256 instances of the multi-tile three, then
-    # the float32 dQ and dK/dV at D = 256 (their own source).
+    # the 3xTF32 float32 kernels (their own source): the forward, dQ and
+    # dK/dV at D = 256, and both forwards at D = 64.
     rows = [(k.name, k, k.source) for k in _kernels.KERNELS] + [
         (f"{k.name}_d256", k, k.source)
         for k in (_kernels.FLASH_FWD, _kernels.FLASH_DQ, _kernels.FLASH_DKV)
-    ] + [(f"{k.name}_d256_float32", k, "flash_attention_3xtf32.cu")
-         for k in (_kernels.FLASH_DQ, _kernels.FLASH_DKV)]
+    ] + [(name, k, "flash_attention_3xtf32.cu") for name, k in (
+        ("flash_fwd_d256_float32", _kernels.FLASH_FWD),
+        ("flash_dq_d256_float32", _kernels.FLASH_DQ),
+        ("flash_dkv_d256_float32", _kernels.FLASH_DKV),
+        ("flash_fwd_float32", _kernels.FLASH_FWD),
+        ("flash_fwd_single_float32", _kernels.FLASH_FWD_SINGLE))]
     kernels = [dict(name=name, route="cuda",
                     source=f"horovod_tpu_torch/ops/csrc/{source}",
                     replaces=k.replaces, launches=launches[name],

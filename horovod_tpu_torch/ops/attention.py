@@ -45,10 +45,12 @@ agree in value, not in route.
 The kernels take float32, bfloat16 and float16, with instances at head dims
 16, 32, 64 and 128 on both routes and 256 on the multi-tile route
 (:data:`KERNEL_HEAD_DIMS`, :data:`SINGLE_TILE_HEAD_DIMS`), and any multiple
-of :data:`WIDE_CHUNK` above 256 on the wide-head route. A head dim between
-those goes to the next one (:func:`kernel_head_dim`): q, k, v and dO are
-zero-padded to it, the scale stays ``1/sqrt(D)`` of the true D, and the
-outputs are sliced back (:func:`padded_heads`).
+of :data:`WIDE_CHUNK` above 256 on the wide-head route; the float32
+forwards (3xTF32 on the tensor cores) start at :data:`F32_FWD_MIN_HEAD_DIM`
+(:func:`forward_head_dims`). A head dim between those goes to the next one
+(:func:`kernel_head_dim`): q, k, v and dO are zero-padded to it, the scale
+stays ``1/sqrt(D)`` of the true D, and the outputs are sliced back
+(:func:`padded_heads`).
 """
 
 from __future__ import annotations
@@ -75,6 +77,10 @@ _KERNEL_DTYPES = {torch.float32: _kernels.DTYPE_F32,
 # and the single-tile ones.
 KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 SINGLE_TILE_HEAD_DIMS = (16, 32, 64, 128)
+# The float32 forwards (csrc/flash_attention_3xtf32.cu) read their operands
+# in boxes of 32 fp32 columns (128-byte rows): their smallest instance, to
+# which D = 16 is zero-padded.
+F32_FWD_MIN_HEAD_DIM = 32
 # Head dims above KERNEL_HEAD_DIMS[-1] take the wide-head kernels, which
 # stream D in chunks of this many columns: D is zero-padded to a multiple.
 WIDE_CHUNK = 32
@@ -250,12 +256,21 @@ def kernel_head_dim(D: int, dims=KERNEL_HEAD_DIMS) -> int:
     for d in dims:
         if 1 <= D <= d:
             return d
-    if dims == KERNEL_HEAD_DIMS and D > dims[-1]:
+    if dims[-1] == KERNEL_HEAD_DIMS[-1] and D > dims[-1]:
         return -(-D // WIDE_CHUNK) * WIDE_CHUNK
     raise ValueError(
         f"flash attention kernels take head dims 1 to {dims[-1]} on this "
         f"route (instances at {dims}; a dim between them is zero-padded to "
         f"the next); got {D}")
+
+
+def forward_head_dims(dtype, dims=KERNEL_HEAD_DIMS):
+    """The head dims of a forward kernel's instances at ``dtype``: a route's
+    ``dims``, without those below :data:`F32_FWD_MIN_HEAD_DIM` in
+    float32."""
+    if dtype == torch.float32:
+        return tuple(d for d in dims if d >= F32_FWD_MIN_HEAD_DIM)
+    return dims
 
 
 def padded_heads(fn, seq, rows, causal, q_offset, k_offset,
@@ -418,12 +433,12 @@ def _dqkv_launch(q, k, v, do, lse, delta, glse, causal, q_offset, k_offset,
     return dq, dk, dv
 
 
-def _multi_tile(fwd_kernel, wide_kernel, launcher, D):
-    """The launch of the multi-tile route's kernel at head dim ``D``, or of
-    the wide-head route's above 256."""
+def _multi_tile(fwd_kernel, wide_kernel, launcher, D, dims=KERNEL_HEAD_DIMS):
+    """The launch of the multi-tile route's kernel at head dim ``D`` (its
+    instances ``dims``), or of the wide-head route's above 256."""
     if wide_route(D):
         return launcher(wide_kernel, None)
-    return launcher(fwd_kernel, KERNEL_HEAD_DIMS)
+    return launcher(fwd_kernel, dims)
 
 
 def flash_fwd(q, k, v, causal=False, q_offset=0, k_offset=0):
@@ -433,9 +448,10 @@ def flash_fwd(q, k, v, causal=False, q_offset=0, k_offset=0):
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, causal, q_offset, k_offset)
     _check_device(q)
+    dims = forward_head_dims(q.dtype)
     run = _multi_tile(_kernels.FLASH_FWD, _kernels.FLASH_FWD_WIDE,
-                      _fwd_launch, q.shape[-1])
-    return padded_heads(run, (q, k, v), (), causal, q_offset, k_offset)
+                      _fwd_launch, q.shape[-1], dims)
+    return padded_heads(run, (q, k, v), (), causal, q_offset, k_offset, dims)
 
 
 def flash_dq(q, k, v, do, lse, delta, glse, causal=False, q_offset=0,
@@ -481,9 +497,9 @@ def flash_fwd_single(q, k, v, causal=False, q_offset=0, k_offset=0):
     if q.device.type == "cpu":
         return flash_fwd_single_plain(q, k, v, causal, q_offset, k_offset)
     _check_device(q)
-    return padded_heads(
-        _fwd_launch(_kernels.FLASH_FWD_SINGLE, SINGLE_TILE_HEAD_DIMS),
-        (q, k, v), (), causal, q_offset, k_offset, SINGLE_TILE_HEAD_DIMS)
+    dims = forward_head_dims(q.dtype, SINGLE_TILE_HEAD_DIMS)
+    return padded_heads(_fwd_launch(_kernels.FLASH_FWD_SINGLE, dims),
+                        (q, k, v), (), causal, q_offset, k_offset, dims)
 
 
 def flash_dqkv(q, k, v, do, lse, delta, glse, causal=False, q_offset=0,

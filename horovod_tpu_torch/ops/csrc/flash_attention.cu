@@ -4,7 +4,7 @@
 // kernels of flash_attention_single.cu.
 //
 // Replaces the Pallas TPU kernels of horovod_tpu/ops/attention.py:
-//   flash_fwd_kernel  (bf16, f16), flash_fwd_f32_kernel  <- _flash_fwd_kernel (:138)
+//   flash_fwd_kernel  (bf16, f16)                        <- _flash_fwd_kernel (:138)
 //   flash_dq_kernel   (bf16, f16), flash_dq_f32_kernel   <- _flash_dq_kernel (:198)
 //   flash_dkv_kernel  (bf16, f16), flash_dkv_f32_kernel  <- _flash_dkv_kernel (:252)
 //
@@ -67,15 +67,15 @@
 // output columns per work tile, recomputing S^T and dP^T for each half (the
 // 256 columns of dK and dV do not fit the consumers' registers at once).
 // The *Smem layouts give the numbers.
-// float32 (flash_fwd_f32_kernel, flash_dq_f32_kernel, flash_dkv_f32_kernel)
-// keeps the first version at D = 16 to 128 and in the forward at D = 256:
-// 64-row tiles (32 in the forward at D = 256), four warps (two), fp32
-// accumulators in shared memory (dK/dV: in registers), FMA products (one
-// TF32 product would round operands to 10 mantissa bits), synchronous
+// float32: the forward at every head dim, and dQ and dK/dV at D = 256, run
+// on the tensor cores in 3xTF32, which holds float32's tolerance
+// (flash_attention_3xtf32.cu: launch_fwd_3xtf32, launch_dq_3xtf32,
+// launch_dkv_3xtf32). dQ and dK/dV at D = 16 to 128 (flash_dq_f32_kernel,
+// flash_dkv_f32_kernel) keep the first version: 64-row tiles, four warps,
+// fp32 accumulators in shared memory (dK/dV: in registers), FMA products
+// (one TF32 product would round operands to 10 mantissa bits), synchronous
 // loads, a block per (tile, head) with heads past grid.y's 65535 taken in a
-// loop. dQ and dK/dV at D = 256 run on the tensor cores in 3xTF32, which
-// holds float32's tolerance (flash_attention_3xtf32.cu: launch_dq_3xtf32,
-// launch_dkv_3xtf32).
+// loop.
 // P and dS are rounded to the operand dtype before the PV, P^T dO, dS K and
 // dS^T Q products, as the TPU kernels do (float32: not rounded).
 //
@@ -94,7 +94,11 @@
 
 #include "flash_hopper.cuh"
 
-// float32 at D = 256 (flash_attention_3xtf32.cu).
+// float32 on the tensor cores (flash_attention_3xtf32.cu): the forward at
+// D = 32 to 256, dQ and dK/dV at D = 256.
+int launch_fwd_3xtf32(const void* q, const void* k, const void* v, void* o, void* lse, int BH,
+                      int Sq, int Sk, int D, float scale, int causal, int qo, int ko,
+                      cudaStream_t stream);
 int launch_dq_3xtf32(const void* q, const void* k, const void* v, const void* dout,
                      const void* lse, const void* delta, const void* glse, void* dq, int BH,
                      int Sq, int Sk, float scale, int causal, int qo, int ko,
@@ -1085,16 +1089,16 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 }
 
 // ===========================================================================
-// float32: the first version (64-row tiles in shared memory, four warps of
-// 16 rows; the forward at D = 256: 32-row tiles and two warps, for shared
-// memory). dQ and dK/dV at D = 256: flash_attention_3xtf32.cu.
+// float32 dQ and dK/dV at D = 16 to 128: the first version (64-row tiles in
+// shared memory, four warps of 16 rows). The forward, and dQ and dK/dV at
+// D = 256: flash_attention_3xtf32.cu.
 // ===========================================================================
 
 constexpr int WROWS = 16;  // rows owned by one warp
 
 template <int D>
 struct F32Tile {
-  static constexpr int B = D == 256 ? 32 : 64;  // rows of a Q tile and of a K/V tile
+  static constexpr int B = 64;  // rows of a Q tile and of a K/V tile
   static constexpr int THREADS = B / WROWS * 32;  // one 16-row slice per warp
   static constexpr int KPL = B / 32;  // keys of a K/V tile per lane of a warp
 };
@@ -1108,105 +1112,6 @@ struct Layout {
   static constexpr int LDP = F32Tile<D>::B + 32 / (int)sizeof(T);   // P / dS in T
   static constexpr int LDO = D + 8;                                 // fp32 accumulators
 };
-
-// Forward, float32: one block per (bh, Q tile); loop over K/V tiles with an
-// online softmax. o [BH, Sq, D], lse [BH, Sq] fp32. At D = 128 the tiles
-// take 176,640 bytes of shared memory, at D = 256 145,664.
-template <int D>
-__global__ void __launch_bounds__(F32Tile<D>::THREADS)
-flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
-                     int BH, int Sq, int Sk, float scale, int causal, int q_offset,
-                     int k_offset) {
-  using T = float;
-  using L = Layout<T, D>;
-  constexpr int BQ = F32Tile<D>::B, BK = BQ, NTHREADS = F32Tile<D>::THREADS;
-  constexpr int KPL = F32Tile<D>::KPL;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sK = sQ + BQ * L::LDT;
-  T* sV = sK + BK * L::LDT;
-  float* sS = reinterpret_cast<float*>(sV + BK * L::LDT);
-  T* sP = reinterpret_cast<T*>(sS + BQ * L::LDS);
-  float* sO = reinterpret_cast<float*>(sP + BQ * L::LDP);
-  float* sM = sO + BQ * L::LDO;
-  float* sL = sM + BQ;
-
-  // grid.y holds at most 65535 heads: a block takes heads blockIdx.y,
-  // blockIdx.y + gridDim.y, ...
-  for (int bh = blockIdx.y; bh < BH; bh += gridDim.y) {
-    __syncthreads();  // the previous head is done with shared memory
-    const int q0 = blockIdx.x * BQ;
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int r0 = warp * WROWS;
-    const T* qb = q + (size_t)bh * Sq * D;
-    const T* kb = k + (size_t)bh * Sk * D;
-    const T* vb = v + (size_t)bh * Sk * D;
-
-    load_tile<T, D, BQ, NTHREADS>(sQ, L::LDT, qb, q0, Sq);
-    for (int i = threadIdx.x; i < BQ * L::LDO; i += NTHREADS) sO[i] = 0.f;
-    for (int i = threadIdx.x; i < BQ; i += NTHREADS) {
-      sM[i] = NEG_INF;
-      sL[i] = 0.f;
-    }
-    const int kend = key_end(Sk, q0, BQ, causal, q_offset, k_offset);
-
-    for (int k0 = 0; k0 < kend; k0 += BK) {
-      __syncthreads();  // every warp is done with the previous K, V and P
-      load_tile<T, D, BK, NTHREADS>(sK, L::LDT, kb, k0, Sk);
-      load_tile<T, D, BK, NTHREADS>(sV, L::LDT, vb, k0, Sk);
-      __syncthreads();
-
-      warp_gemm<false, true, BK, D>(sQ + r0 * L::LDT, L::LDT, sK, L::LDT, sS + r0 * L::LDS,
-                                    L::LDS, false);
-      __syncwarp();
-      for (int r = r0; r < r0 + WROWS; ++r) {
-        const int qi = q0 + r;
-        bool ok[KPL];
-        float sv[KPL];
-        float mx = NEG_INF;
-#pragma unroll
-        for (int e = 0; e < KPL; ++e) {
-          ok[e] = visible(qi, k0 + lane + 32 * e, Sq, Sk, causal, q_offset, k_offset);
-          sv[e] = ok[e] ? sS[r * L::LDS + lane + 32 * e] * scale : NEG_INF;
-          mx = fmaxf(mx, sv[e]);
-        }
-        const float m_prev = sM[r];
-        const float m_new = fmaxf(m_prev, warp_max(mx));
-        const float corr = expf(m_prev - m_new);
-        float psum = 0.f;
-#pragma unroll
-        for (int e = 0; e < KPL; ++e) {
-          const float p = ok[e] ? expf(sv[e] - m_new) : 0.f;
-          psum += p;
-          sP[r * L::LDP + lane + 32 * e] = p;
-        }
-        psum = warp_sum(psum);
-        for (int c = lane; c < D; c += 32) sO[r * L::LDO + c] *= corr;
-        if (lane == 0) {
-          sM[r] = m_new;
-          sL[r] = sL[r] * corr + psum;
-        }
-      }
-      __syncwarp();
-      warp_gemm<false, false, D, BK>(sP + r0 * L::LDP, L::LDP, sV, L::LDT, sO + r0 * L::LDO,
-                                     L::LDO, true);
-    }
-    __syncthreads();
-
-    T* ob = o + (size_t)bh * Sq * D;
-    for (int r = r0; r < r0 + WROWS; ++r) {
-      const int qi = q0 + r;
-      if (qi >= Sq) break;
-      const float l = sL[r];
-      const bool empty = l == 0.f;
-      const float safe_l = empty ? 1.f : l;
-      for (int c = lane; c < D; c += 32) ob[(size_t)qi * D + c] = sO[r * L::LDO + c] / safe_l;
-      if (lane == 0) lse[(size_t)bh * Sq + qi] = empty ? LSE_MASKED : sM[r] + logf(safe_l);
-    }
-  }
-}
 
 // P and dS for one warp's 16 rows of a (Q tile, K tile of KPL * 32 keys)
 // pair, written to shared memory in the operand dtype. Rows index Q,
@@ -1401,14 +1306,6 @@ flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // ===========================================================================
 
 template <typename T, int D>
-constexpr size_t fwd_smem() {
-  using L = Layout<T, D>;
-  constexpr int BQ = F32Tile<D>::B, BK = BQ;
-  return (size_t)(BQ + 2 * BK) * L::LDT * sizeof(T) + BQ * L::LDS * sizeof(float) +
-         BQ * L::LDP * sizeof(T) + BQ * L::LDO * sizeof(float) + 2 * BQ * sizeof(float);
-}
-
-template <typename T, int D>
 constexpr size_t dq_smem() {
   using L = Layout<T, D>;
   constexpr int BQ = F32Tile<D>::B, BK = BQ;
@@ -1446,11 +1343,7 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, 
                   FwdSmem<D>::BYTES, stream, mq, mk, mv, mo, (T*)o, (float*)lse, BH, Sq, Sk,
                   scale, causal, qo, ko);
   } else {
-    using Tile = F32Tile<D>;
-    static_assert(fwd_smem<T, D>() <= SMEM_LIMIT, "forward tiles exceed shared memory");
-    return launch(flash_fwd_f32_kernel<D>, dim3((Sq + Tile::B - 1) / Tile::B, head_blocks(BH)),
-                  Tile::THREADS, fwd_smem<T, D>(), stream, (const T*)q, (const T*)k, (const T*)v,
-                  (T*)o, (float*)lse, BH, Sq, Sk, scale, causal, qo, ko);
+    return launch_fwd_3xtf32(q, k, v, o, lse, BH, Sq, Sk, D, scale, causal, qo, ko, stream);
   }
 }
 

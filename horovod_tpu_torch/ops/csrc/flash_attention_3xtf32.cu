@@ -1,19 +1,26 @@
-// Flash attention backward in float32 at head dim 256 on Hopper's tensor
-// cores: dQ (flash_dq_3xtf32_kernel) and dK/dV (flash_dkv_3xtf32_kernel).
-// flash_attention.cu's launch_dq and launch_dkv call them for every float32
-// call at D = 256, the instance of head dims 129 to 256
-// (attention.py:padded_heads zero-pads to it).
+// Flash attention in float32 on Hopper's tensor cores (3xTF32): the
+// forwards at head dims 32 to 256 (flash_fwd_3xtf32_kernel<D>, the
+// multi-tile route, and flash_fwd_single_3xtf32_kernel<D>, Sq and Sk at most
+// 128), and the backward at head dim 256: dQ (flash_dq_3xtf32_kernel) and
+// dK/dV (flash_dkv_3xtf32_kernel). flash_attention.cu's launch_fwd,
+// launch_dq and launch_dkv and flash_attention_single.cu's launch_fwd_single
+// call them for float32 (the backward at D = 256, the instance of head dims
+// 129 to 256; attention.py:padded_heads zero-pads to it).
 //
 // Replaces the Pallas TPU kernels of horovod_tpu/ops/attention.py:
-//   flash_dq_3xtf32_kernel   <- _flash_dq_kernel (:198)
-//   flash_dkv_3xtf32_kernel  <- _flash_dkv_kernel (:252)
+//   flash_fwd_3xtf32_kernel         <- _flash_fwd_kernel (:138)
+//   flash_fwd_single_3xtf32_kernel  <- _flash_fwd_single_kernel (:310)
+//   flash_dq_3xtf32_kernel          <- _flash_dq_kernel (:198)
+//   flash_dkv_3xtf32_kernel         <- _flash_dkv_kernel (:252)
 //
 // What bounds them, against the H100 SXM data-sheet peaks at its 700 W
-// limit: at B*H = 128, S = 512 dQ needs 51.54 GFLOP of float32 products
-// (3 products of 2 S^2 D a head) over 336 MB, dK/dV 68.72 GFLOP (4
-// products) over 403 MB. On the FMA units (67 TFLOP/s) that is 0.77 and
-// 1.03 ms, against 0.10 and 0.12 ms of bytes: bound by operations, as the
-// first versions were, 33x and 47x over it.
+// limit: at B*H = 128, S = 512, D = 256 dQ needs 51.54 GFLOP of float32
+// products (3 products of 2 S^2 D a head) over 336 MB, dK/dV 68.72 GFLOP (4
+// products) over 403 MB, the forward 34.36 GFLOP (2 products) over 269 MB.
+// On the FMA units (67 TFLOP/s) that is 0.77, 1.03 and 0.51 ms, against
+// 0.10, 0.12 and 0.08 ms of bytes: bound by operations, as the first SIMT
+// versions were, 33x, 47x and 36x over it. The single-tile forward at
+// B*H = 1024, S = 128, D = 64 moves 134.7 MB (0.0402 ms) for 4.29 GFLOP.
 //
 // What the design does about it. Every product runs on the tensor cores in
 // TF32 as three products (3xTF32): an fp32 value x is the pair hi + lo, hi =
@@ -25,48 +32,66 @@
 // float32's 1e-4 against the plain version, and its error against float64
 // to that of the float32 plain version, where one TF32 product (10
 // mantissa bits) would not. P and dS go through the same split, unrounded.
-// Three TF32 products at 495 TFLOP/s make a least time of 0.31 (dQ) and
-// 0.42 ms (dK/dV): the bound these kernels are held to.
+// Three TF32 products at 495 TFLOP/s make a least time of 0.31 (dQ), 0.42
+// (dK/dV) and 0.21 ms (the forward at D = 256): the bound these kernels are
+// held to; the single-tile forward stays bound by its bytes (0.0260 ms of
+// operations).
 //   - The products are mma.sync m16n8k8 TF32 with fragments read from the
 //     tiles TMA landed in shared memory and split in registers (three
 //     instructions a value). wgmma's TF32 form takes both operands from
 //     shared memory K-major only (no transpose bit): its 3xTF32 would need a
 //     hi and a lo copy of every operand, and transposed copies of K (dQ),
-//     dO and Q (dK/dV), written to shared memory by the consumers first.
-//     mma.sync reads any layout as it lies: the score products S = Q K^T,
-//     dP = dO V^T (and their transposes in dK/dV) take their fragments by
-//     ldmatrix (a TF32 fragment is an 8 x 4 word matrix), the output
-//     products dS K, P^T dO, dS^T Q by 4-byte loads of the contraction's
-//     rows, conflict-free in the 128-byte swizzle.
+//     dO and Q (dK/dV) and V (forward), written to shared memory by the
+//     consumers first. mma.sync reads any layout as it lies: the score
+//     products S = Q K^T, dP = dO V^T (and their transposes in dK/dV) take
+//     their fragments by ldmatrix (a TF32 fragment is an 8 x 4 word
+//     matrix), the output products P V, dS K, P^T dO, dS^T Q by 4-byte
+//     loads of the contraction's rows, conflict-free in the 128-byte
+//     swizzle.
 //   - Persistent blocks of two consumer warpgroups and a producer warpgroup
 //     (one thread issues the TMA loads; setmaxnreg gives its registers to
 //     the consumers), as in flash_attention_wide.cu. Operands arrive as
 //     64-row x 32-column fp32 boxes (8 KB, 128-byte rows, the 128 B
 //     swizzle) from 3-D tensor maps (D, S, BH): rows past S read as zeros.
-//     The work tile's own pair of 64 x 256 tiles stays resident (dQ: Q and
-//     dO; dK/dV: K and V, 128 KB) and the other side streams through a ring
-//     of four 16 KB stages; the next work tile's resident pair loads once
-//     the last score product of the current one is done.
-//   - Warp w of warpgroup 0 and warp w of warpgroup 1 form a pair that owns
-//     16 rows of the 64-row work tile. dQ, per 64-key tile: the warpgroup 0
-//     warp computes S and P, the warpgroup 1 warp dP and, from P (handed
-//     over in fp32 through the pair's 4 KB buffer, named barriers), dS =
-//     P (dP - delta + g_lse), written back to the buffer in fragment order;
-//     then the first adds dS K to dQ columns 0-127, the second to columns
-//     128-255 (64 fp32 registers each), K streaming again as four 64-column
-//     items. dK/dV, per 64-row Q tile: the warpgroup 0 warp computes S^T and
-//     P^T and holds dV (all 256 columns, 128 registers), the warpgroup 1
-//     warp dP^T, dS^T (P^T handed over as in dQ; each then reads its
-//     product's A fragments from the pair's buffers) and dK: one column pass,
-//     no score product computed twice, and dV and dK each fit one warp's
-//     registers, where both would not.
+//   - Forward (FwdX, fwd_3xtf32): a work tile is 128 Q rows of one head,
+//     resident (two buffers, one at D = 256), and K and V stream past it
+//     box by box through a ring of up to 16 one-box stages, so the next
+//     key tile's (and the next work tile's, the next head's in the
+//     single-tile forward) bytes arrive while this one computes. Each
+//     consumer warp owns 16 rows across all D columns and needs no other
+//     warp: per key tile S (16 x 64 or 16 x 128) in registers, the softmax
+//     on them (online over key tiles of 64 with the correction applied to
+//     O in registers; one tile of 128 and the direct softmax in the
+//     single-tile forward), then O += P V with P split from the
+//     accumulator fragment. O stays in registers (128 a thread at
+//     D = 256, beside the scores: the products sum in two groups of
+//     n-tiles, as dK/dV does beside dV). O / l and lse = max(s) scale +
+//     log(l) leave from registers, 8 bytes a thread.
+//   - Backward: the work tile's own pair of 64 x 256 tiles stays resident
+//     (dQ: Q and dO; dK/dV: K and V, 128 KB) and the other side streams
+//     through a ring of four 16 KB stages; the next work tile's resident
+//     pair loads once the last score product of the current one is done.
+//   - Backward: warp w of warpgroup 0 and warp w of warpgroup 1 form a pair
+//     that owns 16 rows of the 64-row work tile. dQ, per 64-key tile: the
+//     warpgroup 0 warp computes S and P, the warpgroup 1 warp dP and, from P
+//     (handed over in fp32 through the pair's 4 KB buffer, named barriers),
+//     dS = P (dP - delta + g_lse), written back to the buffer in fragment
+//     order; then the first adds dS K to dQ columns 0-127, the second to
+//     columns 128-255 (64 fp32 registers each), K streaming again as four
+//     64-column items. dK/dV, per 64-row Q tile: the warpgroup 0 warp
+//     computes S^T and P^T and holds dV (all 256 columns, 128 registers),
+//     the warpgroup 1 warp dP^T, dS^T (P^T handed over as in dQ; each then
+//     reads its product's A fragments from the pair's buffers) and dK: one
+//     column pass, no score product computed twice, and dV and dK each fit
+//     one warp's registers, where both would not.
 //   - A fragment taken from an accumulator (P, dS, P^T, dS^T) keeps its
 //     columns 2 t and 2 t + 1 and stands them for k = t and t + 4; the
 //     other operand's rows are read in the same order, so no shuffle.
 // Outputs leave from registers, 8 bytes a thread. Semantics as the other
 // routes: causal masking on global positions q_offset + i >= k_offset + j,
-// rows that see no key get dQ = 0, keys past Sk are not written, and the
-// lse cotangent g_lse enters dS.
+// a row that sees no key gets O = 0, lse = LSE_MASKED and dQ = 0, rows and
+// keys past the end are masked (and not written), and the lse cotangent
+// g_lse enters dS.
 
 #include "flash_hopper.cuh"
 
@@ -207,24 +232,26 @@ __device__ __forceinline__ void scores_box(float (&s)[SEQ_TILE / 2], uint32_t a,
   }
 }
 
-// d (8 n-tiles) += A B over one output item: B is the item's two boxes (64
-// rows, the contraction, by 64 columns), A (16 x 64) an accumulator-layout
-// tile (P, dS, P^T or dS^T) whose fragment for k-step j, a0..a3, afrag(j)
-// returns (from registers, or from a buffer in fragment order). A fragment
-// takes the tile's columns 2 t and 2 t + 1 for k = t and t + 4, so b0 and b1
-// are B's rows 8 j + 2 t and 8 j + 2 t + 1: with columns 8 nt + g they fall
-// on 32 distinct banks. The item's sum starts from zero and is added to d
-// in fp32, in NG groups of n-tiles as in scores_box; AFrag::UNROLL of the
+// d (NT n-tiles, 8 or 4) += A B over one output item: B is the item's
+// boxes (64 rows, the contraction, by 32 columns each: n-tiles 0-3 in box0,
+// 4-7 in box1), A (16 x 64) an accumulator-layout tile (P, dS, P^T or
+// dS^T) whose fragment for k-step j, a0..a3, afrag(j) returns (from
+// registers, or from a buffer in fragment order). A fragment takes the
+// tile's columns 2 t and 2 t + 1 for k = t and t + 4, so b0 and b1 are B's
+// rows 8 j + 2 t and 8 j + 2 t + 1: with columns 8 nt + g they fall on 32
+// distinct banks. The item's sum starts from zero and is added to d in
+// fp32, in NG groups of n-tiles as in scores_box; AFrag::UNROLL of the
 // eight k-steps are unrolled.
-template <int NG, typename AFrag>
-__device__ __forceinline__ void product_item(float* d, uint32_t tile, AFrag afrag, int lane) {
-  constexpr int NT = 8 / NG;  // n-tiles of a group
+template <int NG, int NT = 8, typename AFrag>
+__device__ __forceinline__ void product_item(float* d, uint32_t box0, uint32_t box1, AFrag afrag,
+                                             int lane) {
+  constexpr int GT = NT / NG;  // n-tiles of a group
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int grp = 0; grp < NG; ++grp) {
-    float part[4 * NT];
+    float part[4 * GT];
 #pragma unroll
-    for (int i = 0; i < 4 * NT; ++i) part[i] = 0.f;
+    for (int i = 0; i < 4 * GT; ++i) part[i] = 0.f;
 #pragma unroll AFrag::UNROLL
     for (int j = 0; j < SEQ_TILE / 8; ++j) {
       const float4 f = afrag(j);
@@ -233,9 +260,9 @@ __device__ __forceinline__ void product_item(float* d, uint32_t tile, AFrag afra
       uint32_t ah[4], al[4];
       split(x, ah, al);
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int n = NT * grp + nt;
-        const uint32_t box = tile + (n >> 2) * X_BOX_BYTES;
+      for (int nt = 0; nt < GT; ++nt) {
+        const int n = GT * grp + nt;
+        const uint32_t box = n < 4 ? box0 : box1;
         const int col = 8 * (n & 3) + g;
         uint32_t bh0, bl0, bh1, bl1;
         split(lds_u32(box + box_at(8 * j + 2 * t, col)), bh0, bl0);
@@ -244,7 +271,7 @@ __device__ __forceinline__ void product_item(float* d, uint32_t tile, AFrag afra
       }
     }
 #pragma unroll
-    for (int i = 0; i < 4 * NT; ++i) d[4 * NT * grp + i] += part[i];
+    for (int i = 0; i < 4 * GT; ++i) d[4 * GT * grp + i] += part[i];
   }
 }
 
@@ -267,19 +294,20 @@ struct SmemFrag {
   __device__ __forceinline__ float4 operator()(int j) const { return lds_f4(a + j * 32 + lane); }
 };
 
-// Rows row, row + 8 of a 16 x W accumulator, times mul, to columns
-// [col0, col0 + W) of out (rows past nrows not written), 8 bytes a thread.
-template <int W>
-__device__ __forceinline__ void store_acc(float* out, const float (&acc)[W / 2], float mul,
-                                          int row, int nrows, int col0, int lane) {
+// Rows row, row + 8 of a 16 x W accumulator, each value x of row half h
+// as out_value(x, h), to columns [col0, col0 + W) of out (ld floats a row;
+// rows past nrows not written), 8 bytes a thread.
+template <int W, typename Out>
+__device__ __forceinline__ void store_acc(float* out, int ld, const float (&acc)[W / 2],
+                                          Out out_value, int row, int nrows, int col0, int lane) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (row + 8 * h >= nrows) continue;
-    float* o = out + (size_t)(row + 8 * h) * X_D + col0 + 2 * (lane & 3);
+    float* o = out + (size_t)(row + 8 * h) * ld + col0 + 2 * (lane & 3);
 #pragma unroll
     for (int nt = 0; nt < W / 8; ++nt)
       *reinterpret_cast<float2*>(o + 8 * nt) =
-          make_float2(mul * acc[4 * nt + 2 * h], mul * acc[4 * nt + 2 * h + 1]);
+          make_float2(out_value(acc[4 * nt + 2 * h], h), out_value(acc[4 * nt + 2 * h + 1], h));
   }
 }
 
@@ -327,10 +355,10 @@ __device__ __forceinline__ void load_item(const XSmem& x, int it, const CUtensor
   tma_load_3d(tile + X_BOX_BYTES, b, x.ring.bar(it), col_b, row0, bh);
 }
 
-// A consumer warp is done with the resident pair.
-__device__ __forceinline__ void release_resident(const XSmem& x, int lane) {
+// A consumer warp is done with a resident buffer whose empty barrier is bar.
+__device__ __forceinline__ void release_resident(uint32_t bar, int lane) {
   __syncwarp();
-  if (lane == 0) mbar_arrive(x.res_empty);
+  if (lane == 0) mbar_arrive(bar);
 }
 
 // dQ output item u (of X_ITEMS per key tile): the warpgroup that adds it,
@@ -407,7 +435,7 @@ flash_dq_3xtf32_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int i = 0; i < X_D / 4; ++i) acc[i] = 0.f;
       mbar_wait(x.res_full, n & 1);
-      if (nk == 0) release_resident(x, lane);
+      if (nk == 0) release_resident(x.res_empty, lane);
 
       for (int kt = 0; kt < nk; ++kt) {
         const int k0 = kt * SEQ_TILE;
@@ -421,7 +449,7 @@ flash_dq_3xtf32_kernel(const __grid_constant__ CUtensorMap tm_q,
                            x.ring.tile(it) + wg * X_BOX_BYTES, lane);
           x.ring.release(it, lane);
         }
-        if (kt == nk - 1) release_resident(x, lane);
+        if (kt == nk - 1) release_resident(x.res_empty, lane);
 
         // P to the partner in fp32 (thread lane's element i at i 32 + lane),
         // which forms dS = P (dP + g_lse - delta) and writes it back in
@@ -463,15 +491,17 @@ flash_dq_3xtf32_kernel(const __grid_constant__ CUtensorMap tm_q,
           x.ring.wait(it);
           if ((u & 1) == wg) {
             if (wg == 0)
-              product_item<1>(acc + 32 * (u >> 1), x.ring.tile(it),
+              product_item<1>(acc + 32 * (u >> 1), x.ring.tile(it), x.ring.tile(it) + X_BOX_BYTES,
                               SmemFrag<8>{reinterpret_cast<const float4*>(xch), lane}, lane);
             else
-              product_item<1>(acc + 32 * (u >> 1), x.ring.tile(it), RegFrag{s}, lane);
+              product_item<1>(acc + 32 * (u >> 1), x.ring.tile(it), x.ring.tile(it) + X_BOX_BYTES,
+                              RegFrag{s}, lane);
           }
           x.ring.release(it, lane);
         }
       }
-      store_acc<X_D / 2>(dq + (size_t)bh * Sq * X_D, acc, scale, row0, Sq, 128 * wg, lane);
+      store_acc<X_D / 2>(dq + (size_t)bh * Sq * X_D, X_D, acc,
+                         [scale](float x, int) { return scale * x; }, row0, Sq, 128 * wg, lane);
     }
   }
 }
@@ -539,7 +569,7 @@ flash_dkv_3xtf32_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int i = 0; i < X_D / 2; ++i) acc[i] = 0.f;
       mbar_wait(x.res_full, n & 1);
-      if (qt0 >= qtiles) release_resident(x, lane);
+      if (qt0 >= qtiles) release_resident(x.res_empty, lane);
 
       for (int qt = qt0; qt < qtiles; ++qt, ++pt) {
         const int q0 = qt * SEQ_TILE;
@@ -553,7 +583,7 @@ flash_dkv_3xtf32_kernel(const __grid_constant__ CUtensorMap tm_q,
                            x.ring.tile(it) + wg * X_BOX_BYTES, lane);
           x.ring.release(it, lane);
         }
-        if (qt == qtiles - 1) release_resident(x, lane);
+        if (qt == qtiles - 1) release_resident(x.res_empty, lane);
 
         // This thread's 16 Q columns (element i of a score tile is column
         // 8 (i / 4) + 2 tq + i % 2, value e = 2 (i / 4) + i % 2): lse
@@ -613,25 +643,345 @@ flash_dkv_3xtf32_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int u = 0; u < 2 * X_ITEMS; ++u, ++it) {
           x.ring.wait(it);
           if ((u & 1) == wg)
-            product_item<2>(acc + 32 * (u >> 1), x.ring.tile(it),
+            product_item<2>(acc + 32 * (u >> 1), x.ring.tile(it), x.ring.tile(it) + X_BOX_BYTES,
                             SmemFrag<2>{wg == 0 ? pt4 : dst4, lane}, lane);
           x.ring.release(it, lane);
         }
       }
-      store_acc<X_D>((wg == 0 ? dv : dk) + (size_t)bh * Sk * X_D, acc, wg == 0 ? 1.f : scale,
-                     key0, Sk, 0, lane);
+      const float mul = wg == 0 ? 1.f : scale;
+      store_acc<X_D>((wg == 0 ? dv : dk) + (size_t)bh * Sk * X_D, X_D, acc,
+                     [mul](float x, int) { return mul * x; }, key0, Sk, 0, lane);
     }
     // Take the partner's arrival after its last read of P^T.
     if (wg == 0 && pt > 0) named_sync(XCH_BACK + pair, 64);
   }
 }
 
-// The tensor map of a contiguous [BH, S, 256] fp32 tensor in 64-row x
+// ---------------------------------------------------------------------------
+// The forwards: flash_fwd_3xtf32_kernel<D> (the multi-tile route: an online
+// softmax over key tiles of 64) and flash_fwd_single_3xtf32_kernel<D> (Sk
+// at most 128: one key tile of 128, the direct softmax). One body,
+// fwd_3xtf32<D, BK>, serves both.
+// ---------------------------------------------------------------------------
+
+constexpr int F_ROWS = 2 * SEQ_TILE;  // Q rows of a forward work tile: 64 a warpgroup
+
+// Shared memory of the forward at head dim D and key tile BK, byte offsets
+// from a 1024-aligned base: the Q buffers (a 128-row tile as 64 x 32 boxes,
+// the rows of warpgroup h in column box c at box h D / 32 + c; two, so that
+// the next work tile's Q loads while this one runs, where they leave room
+// for 8 ring stages), each consumer warp's P buffer (16 x BK fp32 in
+// fragment order, where P_SMEM), the ring of one-box stages that K and V
+// stream through (as many as fit, at most 16), then the ring's full/empty
+// barriers and the Q buffers' full/empty barriers.
+template <int D, int BK>
+struct FwdX {
+  static constexpr int CB = D / X_BOX;                 // column boxes
+  static constexpr int TILE_Q = 2 * CB * X_BOX_BYTES;  // 16, 32, 64 or 128 KB
+  // Where O and the scores leave P's registers no room beside them (D = 256,
+  // and the single-tile tile of 128 keys at D = 128), each consumer warp
+  // hands P to its output products through a buffer of its own.
+  static constexpr bool P_SMEM = D / 2 + BK / 2 >= 128;
+  static constexpr int P_BUF = P_SMEM ? X_PAIR_ROWS * BK * 4 : 0;  // a warp's
+  static constexpr int AVAIL = (int)SMEM_LIMIT - 2048 - CONSUMER_WARPS * P_BUF;
+  static constexpr int QBUFS = 2 * TILE_Q + 8 * X_BOX_BYTES <= AVAIL ? 2 : 1;
+  static constexpr int P = QBUFS * TILE_Q;                 // + warp * P_BUF
+  static constexpr int RING = P + CONSUMER_WARPS * P_BUF;
+  static constexpr int FIT = (AVAIL - QBUFS * TILE_Q) / X_BOX_BYTES;
+  static constexpr int STAGES = FIT < 16 ? FIT : 16;
+  static constexpr int BAR = RING + STAGES * X_BOX_BYTES;
+  static constexpr int BYTES = BAR + (2 * STAGES + 2 * QBUFS) * 8 + 1024;  // + alignment slack
+  static_assert(BYTES <= (int)SMEM_LIMIT, "forward tiles exceed shared memory");
+};
+
+// The softmax of one key tile on a consumer thread's registers: the scores
+// s (KH 16 x 64 accumulator tiles; s[kb][i] is row row0 + 8 ((i / 2) % 2),
+// key k0 + 64 kb + 8 (i / 4) + 2 tq + i % 2) become P in fp32, in place;
+// the running max m (log2 units, from NEG_INF), the running max of the raw
+// scores mr (lse's, from -inf) and the partial row sums l move on. ONLINE:
+// corr is the factor that rescales O and l; else the tile is the only one
+// and the softmax is the direct one. MASK: the tile holds keys past Sk or
+// causally hidden keys for some of the rows. The scale folds into one FMA
+// before exp2.
+template <int KH, bool MASK, bool ONLINE>
+__device__ __forceinline__ void softmax_f32(float (&s)[KH][SEQ_TILE / 2], float (&m)[2],
+                                            float (&mr)[2], float (&l)[2], float (&corr)[2],
+                                            int row0, int k0, int Sk, float sl2, int causal,
+                                            int q_offset, int k_offset, int tq) {
+  auto hidden = [&](int kb, int i) {
+    const int kj = k0 + SEQ_TILE * kb + 8 * (i >> 2) + 2 * tq + (i & 1);
+    return kj >= Sk || (causal && q_offset + row0 + 8 * ((i >> 1) & 1) < k_offset + kj);
+  };
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int kb = 0; kb < KH; ++kb)
+#pragma unroll
+    for (int i = 0; i < SEQ_TILE / 2; ++i)
+      if (!MASK || !hidden(kb, i)) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[kb][i]);
+  float neg_m[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    mr[h] = fmaxf(mr[h], mx[h]);
+    const float m_new = fmaxf(m[h], mx[h] * sl2);  // m starts at NEG_INF (finite)
+    if (ONLINE) {
+      corr[h] = exp2f(m[h] - m_new);
+      l[h] *= corr[h];
+    }
+    m[h] = m_new;
+    neg_m[h] = -m_new;
+  }
+#pragma unroll
+  for (int kb = 0; kb < KH; ++kb)
+#pragma unroll
+    for (int i = 0; i < SEQ_TILE / 2; ++i) {
+      const int h = (i >> 1) & 1;
+      float p = exp2f(fmaf(s[kb][i], sl2, neg_m[h]));
+      if (MASK && hidden(kb, i)) p = 0.f;
+      s[kb][i] = p;
+      l[h] += p;
+    }
+}
+
+// The forward's work, persistent: a grid of one block per SM walks the work
+// tiles (bh, 128 Q rows) and loops over the key tiles of BK keys (64, or
+// 128 in one tile: the single-tile forward) their rows can see. Each
+// consumer warp owns 16 rows of the work tile across all D columns: per key
+// tile S = Q K^T (scores_box per 32-column box of K, each box's sum from
+// zero), the softmax in registers, O += P V (product_item per 64-key half
+// and 64 output columns, P split from the accumulator fragment), O in
+// registers (D / 2 a thread). o [BH, Sq, D] and lse [BH, Sq], fp32.
+template <int D, int BK>
+__device__ __forceinline__ void fwd_3xtf32(const CUtensorMap* tm_q, const CUtensorMap* tm_k,
+                                           const CUtensorMap* tm_v, float* __restrict__ o,
+                                           float* __restrict__ lse, int BH, int Sq, int Sk,
+                                           float scale, int causal, int q_offset, int k_offset) {
+  using L = FwdX<D, BK>;
+  constexpr int CB = L::CB;
+  constexpr int KH = BK / SEQ_TILE;    // 64-key halves of a key tile
+  constexpr int NB = CB < 2 ? CB : 2;  // V boxes of an output item: 64 columns (32 at D = 32)
+  constexpr int NU = CB / NB;          // output items across D
+  constexpr bool ONLINE = KH == 1;
+  // Beside 128 registers of O and the scores (P_SMEM), the products sum in
+  // groups of n-tiles with fewer k-steps unrolled, as dK/dV does beside dV
+  // or dK: the score product in four groups at D = 256 and in two with one
+  // k-step unrolled in the single-tile forward at D = 128 (the fastest of
+  // the choices without spills on the H100; PERF.md), the output product
+  // in two.
+  constexpr bool HEAVY = L::P_SMEM;
+  constexpr int S_NG = D == 256 ? 4 : HEAVY ? 2 : 1;
+  constexpr int S_KS = D == 256 ? 2 : HEAVY ? 1 : 4;
+  constexpr int P_NG = HEAVY ? 2 : 1;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const Ring<X_BOX_BYTES> ring =
+      make_ring<X_BOX_BYTES>(base + L::RING, L::BAR - L::RING, L::STAGES);
+  const uint32_t q_full = base + L::BAR + 16 * L::STAGES;  // buffer b at + 8 b
+  const uint32_t q_empty = q_full + 8 * L::QBUFS;          // buffer b at + 8 b
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < L::QBUFS; ++b) {
+      mbar_init(q_full + 8 * b, 1);
+      mbar_init(q_empty + 8 * b, CONSUMER_WARPS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int qtiles = (Sq + F_ROWS - 1) / F_ROWS;
+  const int nwork = BH * qtiles;  // work tile w: Q tile w % qtiles of head w / qtiles
+  // 64-key halves of a key tile that hold keys: a box wholly past Sk is
+  // never loaded (the single-tile forward at Sk <= 64).
+  const int nh = KH == 1 ? 1 : min(KH, (Sk + SEQ_TILE - 1) / SEQ_TILE);
+  const int wg = threadIdx.x / WG;
+
+  if (wg == CONSUMER_WGS) {
+    // Producer, one thread: per work tile its Q (the 64-row halves that
+    // hold rows), then per key tile its score items (K boxes: column box c,
+    // key half kb) and its output items (V boxes: output item u, key half
+    // kb, box b).
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x == CONSUMER_WGS * WG) {
+      int it = 0, n = 0;
+      for (int w = blockIdx.x; w < nwork; w += gridDim.x, ++n) {
+        const int q0 = w % qtiles * F_ROWS, bh = w / qtiles;
+        const int qh = min(2, (Sq - q0 + SEQ_TILE - 1) / SEQ_TILE);
+        const int qb = n % L::QBUFS;
+        const uint32_t bar = q_full + 8 * qb;
+        mbar_wait(q_empty + 8 * qb, ((n / L::QBUFS) & 1) ^ 1);
+        mbar_arrive_expect_tx(bar, qh * CB * X_BOX_BYTES);
+        // The loops stay rolled: unrolled, they spill in the producer's 24
+        // registers.
+#pragma unroll 1
+        for (int h = 0; h < qh; ++h)
+#pragma unroll 1
+          for (int c = 0; c < CB; ++c)
+            tma_load_3d(base + qb * L::TILE_Q + (h * CB + c) * X_BOX_BYTES, tm_q, bar, X_BOX * c,
+                        q0 + SEQ_TILE * h, bh);
+        const int nk = key_tiles<F_ROWS, BK>(q0, Sq, Sk, causal, q_offset, k_offset);
+        for (int kt = 0; kt < nk; ++kt) {
+          const int k0 = kt * BK;
+#pragma unroll 1
+          for (int c = 0; c < CB; ++c)
+#pragma unroll 1
+            for (int kb = 0; kb < nh; ++kb, ++it)
+              tma_load_3d(ring.fill(it, X_BOX_BYTES), tm_k, ring.bar(it), X_BOX * c,
+                          k0 + SEQ_TILE * kb, bh);
+#pragma unroll 1
+          for (int u = 0; u < NU; ++u)
+#pragma unroll 1
+            for (int kb = 0; kb < nh; ++kb)
+#pragma unroll 1
+              for (int b = 0; b < NB; ++b, ++it)
+                tma_load_3d(ring.fill(it, X_BOX_BYTES), tm_v, ring.bar(it), X_BOX * (NB * u + b),
+                            k0 + SEQ_TILE * kb, bh);
+        }
+      }
+    }
+  } else {
+    // Consumer warp: rows [16 (warp % 4), + 16) of warpgroup wg's 64.
+    reg_alloc<CONSUMER_REGS>();
+    const int lane = threadIdx.x & 31;
+    const int tq = lane & 3;
+    const int wrow = X_PAIR_ROWS * (threadIdx.x / 32 % 4);
+    const float sl2 = scale * LOG2E;
+    float4* const pbuf =
+        reinterpret_cast<float4*>(smem_raw + (base - smem_u32(smem_raw)) + L::P) +
+        threadIdx.x / 32 * (L::P_BUF / 16);  // this warp's P (P_SMEM)
+    int it = 0, n = 0;
+    for (int w = blockIdx.x; w < nwork; w += gridDim.x, ++n) {
+      const int q0 = w % qtiles * F_ROWS, bh = w / qtiles;
+      const int row_first = q0 + SEQ_TILE * wg + wrow;  // this warp's first row
+      const int row0 = row_first + (lane >> 2);         // this thread's rows row0, row0 + 8
+      // A warp whose rows are all past Sq (its Q box may not have been
+      // loaded) only waits for and releases the items.
+      const bool active = row_first < Sq;
+      const int qb = n % L::QBUFS;
+      const uint32_t sq = base + qb * L::TILE_Q + wg * CB * X_BOX_BYTES;  // box c at + c boxes
+      const int nk = key_tiles<F_ROWS, BK>(q0, Sq, Sk, causal, q_offset, k_offset);
+      float acc[D / 2];  // O: the warp's 16 rows by D columns
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      float m[2] = {NEG_INF, NEG_INF}, mr[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+      mbar_wait(q_full + 8 * qb, (n / L::QBUFS) & 1);
+      if (nk == 0) release_resident(q_empty + 8 * qb, lane);
+
+      for (int kt = 0; kt < nk; ++kt) {
+        const int k0 = kt * BK;
+        // Causal: the warp's rows may see no key of this tile.
+        const bool sees = active && !(causal && q_offset + row_first + 15 < k_offset + k0);
+        // S = Q K^T, 16 x BK.
+        float s[KH][SEQ_TILE / 2];
+#pragma unroll
+        for (int kb = 0; kb < KH; ++kb)
+#pragma unroll
+          for (int i = 0; i < SEQ_TILE / 2; ++i) s[kb][i] = 0.f;
+#pragma unroll 1
+        for (int c = 0; c < CB; ++c)
+#pragma unroll
+          for (int kb = 0; kb < KH; ++kb) {
+            if (kb >= nh) continue;
+            ring.wait(it);
+            if (sees)
+              scores_box<S_NG, S_KS>(s[kb], sq + c * X_BOX_BYTES, wrow, ring.tile(it), lane);
+            ring.release(it, lane);
+            ++it;
+          }
+        if (kt == nk - 1) release_resident(q_empty + 8 * qb, lane);  // the last read of this Q
+
+        if (sees) {
+          float corr[2];
+          if (k0 + BK > Sk || (causal && q_offset + row_first < k_offset + k0 + BK - 1))
+            softmax_f32<KH, true, ONLINE>(s, m, mr, l, corr, row0, k0, Sk, sl2, causal, q_offset,
+                                          k_offset, tq);
+          else
+            softmax_f32<KH, false, ONLINE>(s, m, mr, l, corr, row0, k0, Sk, sl2, causal,
+                                           q_offset, k_offset, tq);
+          if (ONLINE) {
+#pragma unroll
+            for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+          }
+          if (L::P_SMEM) {  // the last key tile's products have read it
+#pragma unroll
+            for (int kb = 0; kb < KH; ++kb)
+#pragma unroll
+              for (int j = 0; j < SEQ_TILE / 8; ++j)
+                pbuf[(SEQ_TILE / 8 * kb + j) * 32 + lane] = make_float4(
+                    s[kb][4 * j], s[kb][4 * j + 2], s[kb][4 * j + 1], s[kb][4 * j + 3]);
+          }
+        }
+
+        // O += P V, per output item (64 columns) and 64-key half.
+#pragma unroll
+        for (int u = 0; u < NU; ++u)
+#pragma unroll
+          for (int kb = 0; kb < KH; ++kb) {
+            if (kb >= nh) continue;
+            ring.wait(it);
+            if (NB == 2) ring.wait(it + 1);
+            if (sees && L::P_SMEM)
+              product_item<P_NG, 4 * NB>(acc + 16 * NB * u, ring.tile(it), ring.tile(it + NB - 1),
+                                         SmemFrag<2>{pbuf + SEQ_TILE / 8 * 32 * kb, lane}, lane);
+            else if (sees)
+              product_item<P_NG, 4 * NB>(acc + 16 * NB * u, ring.tile(it),
+                                         ring.tile(it + NB - 1), RegFrag{s[kb]}, lane);
+            ring.release(it, lane);
+            if (NB == 2) ring.release(it + 1, lane);
+            it += NB;
+          }
+      }
+
+      // O / l and lse = max s scale + log(l) from registers; a row that saw
+      // no key gets O = 0 and lse = LSE_MASKED.
+      if (active) {
+        float div[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+          l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+          const bool empty = l[h] == 0.f;
+          div[h] = empty ? 1.f : l[h];
+          const int qi = row0 + 8 * h;
+          if (tq == 0 && qi < Sq)
+            lse[(size_t)bh * Sq + qi] = empty ? LSE_MASKED : fmaf(mr[h], scale, logf(l[h]));
+        }
+        store_acc<D>(o + (size_t)bh * Sq * D, D, acc,
+                     [&div](float x, int h) { return x / div[h]; }, row0, Sq, 0, lane);
+      }
+    }
+  }
+}
+
+// The multi-tile forward: any Sq and Sk.
+template <int D>
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+flash_fwd_3xtf32_kernel(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v, float* __restrict__ o,
+                        float* __restrict__ lse, int BH, int Sq, int Sk, float scale, int causal,
+                        int q_offset, int k_offset) {
+  fwd_3xtf32<D, SEQ_TILE>(&tm_q, &tm_k, &tm_v, o, lse, BH, Sq, Sk, scale, causal, q_offset,
+                          k_offset);
+}
+
+// The single-tile forward: Sq and Sk at most 128, one work tile a head.
+template <int D>
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+flash_fwd_single_3xtf32_kernel(const __grid_constant__ CUtensorMap tm_q,
+                               const __grid_constant__ CUtensorMap tm_k,
+                               const __grid_constant__ CUtensorMap tm_v, float* __restrict__ o,
+                               float* __restrict__ lse, int BH, int Sq, int Sk, float scale,
+                               int causal, int q_offset, int k_offset) {
+  fwd_3xtf32<D, F_ROWS>(&tm_q, &tm_k, &tm_v, o, lse, BH, Sq, Sk, scale, causal, q_offset,
+                        k_offset);
+}
+
+// The tensor map of a contiguous [BH, S, D] fp32 tensor in 64-row x
 // 32-column boxes (128-byte rows, the 128 B swizzle); rows past S read as
 // zeros.
-int x_map(CUtensorMap* map, const void* base, int S, int BH) {
-  const cuuint64_t dims[3] = {(cuuint64_t)X_D, (cuuint64_t)S, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {(cuuint64_t)X_D * 4, (cuuint64_t)S * X_D * 4};
+int x_map(CUtensorMap* map, const void* base, int S, int BH, int D = X_D) {
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 4, (cuuint64_t)S * D * 4};
   const cuuint32_t box[3] = {(cuuint32_t)X_BOX, (cuuint32_t)SEQ_TILE, 1};
   return make_map<float>(map, base, 3, dims, strides, box, X_BOX * 4);
 }
@@ -647,6 +997,48 @@ int x_setup(CUtensorMap (&m)[4], const void* q, const void* k, const void* v, co
     return err;
   *grid = dim3(nwork < sms ? nwork : sms);
   return 0;
+}
+
+
+// The forward kernel at head dim D with key tiles of BK: the multi-tile
+// one at SEQ_TILE, the single-tile one at F_ROWS (only that one is
+// instantiated).
+template <int D, int BK>
+auto fwd_kernel() {
+  if constexpr (BK == SEQ_TILE)
+    return flash_fwd_3xtf32_kernel<D>;
+  else
+    return flash_fwd_single_3xtf32_kernel<D>;
+}
+
+// A forward's launch at head dim D: the three operands' tensor maps and a
+// persistent grid of min(work tiles, SMs) blocks.
+template <int D, int BK>
+int launch_fwd_x(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int Sq,
+                 int Sk, float scale, int causal, int qo, int ko, cudaStream_t stream) {
+  if (Sq == 0 || BH == 0) return cudaSuccess;
+  using L = FwdX<D, BK>;
+  CUtensorMap mq, mk, mv;
+  int err, sms = 0;
+  if ((err = x_map(&mq, q, Sq, BH, D)) || (err = x_map(&mk, k, Sk, BH, D)) ||
+      (err = x_map(&mv, v, Sk, BH, D)) || (err = sm_count(&sms)))
+    return err;
+  const int nwork = BH * ((Sq + F_ROWS - 1) / F_ROWS);
+  return launch(fwd_kernel<D, BK>(), dim3(nwork < sms ? nwork : sms), SM90_THREADS, L::BYTES,
+                stream, mq, mk, mv, (float*)o, (float*)lse, BH, Sq, Sk, scale, causal, qo, ko);
+}
+
+// The forward at head dim D: 32, 64, 128 and (multi-tile only) 256.
+template <int BK, typename... Args>
+int launch_fwd_d(int D, Args... args) {
+  switch (D) {
+    case 32: return launch_fwd_x<32, BK>(args...);
+    case 64: return launch_fwd_x<64, BK>(args...);
+    case 128: return launch_fwd_x<128, BK>(args...);
+    case 256:
+      if constexpr (BK == SEQ_TILE) return launch_fwd_x<256, BK>(args...);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -689,4 +1081,21 @@ int launch_dkv_3xtf32(const void* q, const void* k, const void* v, const void* d
   return launch(flash_dkv_3xtf32_kernel, grid, SM90_THREADS, X_BYTES, stream, m[0], m[1], m[2],
                 m[3], (float*)dk, (float*)dv, (const float*)lse, (const float*)delta,
                 (const float*)glse, BH, Sq, Sk, scale, causal, qo, ko);
+}
+
+// The forwards (flash_attention.cu's launch_fwd and flash_attention_single.cu's
+// launch_fwd_single call them for every float32 call): head dims 32, 64, 128
+// and 256 (single-tile: up to 128); D = 16 is zero-padded to 32 by the
+// wrapper (horovod_tpu_torch/ops/attention.py), since a box row is 32 fp32
+// columns.
+int launch_fwd_3xtf32(const void* q, const void* k, const void* v, void* o, void* lse, int BH,
+                      int Sq, int Sk, int D, float scale, int causal, int qo, int ko,
+                      cudaStream_t stream) {
+  return launch_fwd_d<SEQ_TILE>(D, q, k, v, o, lse, BH, Sq, Sk, scale, causal, qo, ko, stream);
+}
+
+int launch_fwd_single_3xtf32(const void* q, const void* k, const void* v, void* o, void* lse,
+                             int BH, int Sq, int Sk, int D, float scale, int causal, int qo,
+                             int ko, cudaStream_t stream) {
+  return launch_fwd_d<F_ROWS>(D, q, k, v, o, lse, BH, Sq, Sk, scale, causal, qo, ko, stream);
 }

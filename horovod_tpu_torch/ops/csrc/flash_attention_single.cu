@@ -4,7 +4,7 @@
 // longer sequences to the multi-tile kernels of flash_attention.cu).
 //
 // Replaces the Pallas TPU kernels of horovod_tpu/ops/attention.py:
-//   flash_fwd_single_kernel (bf16, f16), flash_fwd_single_f32_kernel
+//   flash_fwd_single_kernel (bf16, f16)
 //                           <- _flash_fwd_single_kernel (:310)
 //   flash_dqkv_kernel       (bf16, f16), flash_dqkv_f32_kernel
 //                           <- _flash_dqkv_fused_kernel (:343)
@@ -34,10 +34,10 @@
 //     correction factor); O = P V is an RS wgmma with V MN-major; O / l
 //     leaves through shared memory by a TMA store that runs on into the next
 //     head, and lse is written directly.
-//   Forward, float32 (flash_fwd_single_f32_kernel): the first version, one
-//     block per (bh, 64-row Q tile), four warps of 16 Q rows. Scores are
-//     computed once: m = rowmax, p = exp(s - m), l = rowsum, o = p V / l.
-//     The fp32 output reuses the score buffer.
+//   Forward, float32: on the tensor cores in 3xTF32
+//     (flash_attention_3xtf32.cu, flash_fwd_single_3xtf32_kernel): one work
+//     tile a head, the head's K and V streaming past its resident Q while
+//     the next heads' load, the direct softmax on one key tile of 128.
 //   Backward, bf16 (flash_dqkv_kernel): the Hopper design of the multi-tile
 //     dK/dV kernel (flash_attention.cu) with one work tile per head, which
 //     also writes dQ. Persistent blocks walk the heads; the producer warp
@@ -66,11 +66,11 @@
 // The Hopper kernels are templated on the 2-byte type T (bf16 or float16:
 // wgmma's kind, the tensor maps' data type, the rounding of P, dS and the
 // outputs). Products take the stored dtype (bf16 or float16 on tensor cores
-// by wgmma, fp32 accumulation; float32 on the FMA units), and P and dS are
-// rounded to the operand dtype before the PV, P^T dO, dS K and dS^T Q
-// products, as the TPU kernels do. The float32 kernels are the simple first
-// version: no TMA, no tensor cores, no pipelining of loads against compute;
-// the forward loops over heads past grid.y's 65535.
+// by wgmma, fp32 accumulation; the float32 backward on the FMA units), and
+// P and dS are rounded to the operand dtype before the PV, P^T dO, dS K and
+// dS^T Q products, as the TPU kernels do. The float32 backward is the simple
+// first version: no TMA, no tensor cores, no pipelining of loads against
+// compute.
 //
 // Semantics (identical to the TPU kernels): causal masking on global
 // positions q_offset + i >= k_offset + j; a row with no visible key gives
@@ -83,16 +83,18 @@
 
 #include "flash_hopper.cuh"
 
+// The float32 forward on the tensor cores (flash_attention_3xtf32.cu).
+int launch_fwd_single_3xtf32(const void* q, const void* k, const void* v, void* o, void* lse,
+                             int BH, int Sq, int Sk, int D, float scale, int causal, int qo,
+                             int ko, cudaStream_t stream);
+
 namespace {
 
 constexpr int SMAX = 128;  // most rows of Q or of K/V
-constexpr int FWD_BQ = 64;  // Q rows of one float32 forward block
-constexpr int FWD_THREADS = 128;  // four warps of 16 rows
 constexpr int QC = 32;  // Q rows of one backward chunk
 constexpr int BWD_WARPS = 8;  // each owns 16 of the SMAX key rows
 constexpr int BWD_THREADS = BWD_WARPS * 32;
 
-static_assert(FWD_THREADS / 32 * 16 == FWD_BQ, "one 16-row slice per forward warp");
 static_assert(BWD_WARPS * 16 == SMAX, "one 16-key slice per backward warp");
 
 // Leading dimensions in shared memory, padded by 32 bytes for T: every WMMA
@@ -245,86 +247,6 @@ flash_fwd_single_kernel(const __grid_constant__ CUtensorMap tm_q,
       store_out<T, D>(&tm_o, base + L::O + wg * L::TILE_O, acc, inv, r, tq, tid, wg, row_first, bh);
     }
     if (tid == 0) bulk_wait_read<0>();  // shared memory outlives the last store's reads
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Forward, float32: o [BH, Sq, D], lse [BH, Sq] fp32. Each warp's P replaces
-// its scores in place, and its output rows replace its rows of Q, which no
-// other warp reads: at D = 128 the tiles take 209,152 bytes of shared memory.
-// ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(FWD_THREADS)
-flash_fwd_single_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                            const float* __restrict__ v, float* __restrict__ o,
-                            float* __restrict__ lse, int BH, int Sq, int Sk, float scale,
-                            int causal, int q_offset, int k_offset) {
-  using T = float;
-  using L = SingleLayout<T, D>;
-  static_assert(L::LDO <= L::LDT, "a warp's output rows fit its rows of Q");
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);  // Q, then the output
-  T* sK = sQ + FWD_BQ * L::LDT;
-  T* sV = sK + SMAX * L::LDT;
-  float* sS = reinterpret_cast<float*>(sV + SMAX * L::LDT);  // scores, then P
-  float* sL = sS + FWD_BQ * L::LDS;
-
-  // grid.y holds at most 65535 heads: a block takes heads blockIdx.y,
-  // blockIdx.y + gridDim.y, ...
-  for (int bh = blockIdx.y; bh < BH; bh += gridDim.y) {
-    __syncthreads();  // the previous head is done with shared memory
-    const int q0 = blockIdx.x * FWD_BQ;
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int r0 = warp * 16;
-
-    load_tile<T, D, FWD_BQ, FWD_THREADS>(sQ, L::LDT, q + (size_t)bh * Sq * D, q0, Sq);
-    load_tile<T, D, SMAX, FWD_THREADS>(sK, L::LDT, k + (size_t)bh * Sk * D, 0, Sk);
-    load_tile<T, D, SMAX, FWD_THREADS>(sV, L::LDT, v + (size_t)bh * Sk * D, 0, Sk);
-    __syncthreads();
-
-    warp_gemm<false, true, SMAX, D>(sQ + r0 * L::LDT, L::LDT, sK, L::LDT, sS + r0 * L::LDS,
-                                    L::LDS, false);
-    __syncwarp();
-    for (int r = r0; r < r0 + 16; ++r) {
-      const int qi = q0 + r;
-      float s[SMAX / 32];
-      float mx = NEG_INF;
-#pragma unroll
-      for (int h = 0; h < SMAX / 32; ++h) {
-        const int c = lane + 32 * h;
-        s[h] = visible(qi, c, Sq, Sk, causal, q_offset, k_offset) ? sS[r * L::LDS + c] * scale
-                                                                  : NEG_INF;
-        mx = fmaxf(mx, s[h]);
-      }
-      const float m = warp_max(mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int h = 0; h < SMAX / 32; ++h) {
-        const int c = lane + 32 * h;
-        const float p = visible(qi, c, Sq, Sk, causal, q_offset, k_offset) ? expf(s[h] - m) : 0.f;
-        sS[r * L::LDS + c] = p;
-        sum += p;
-      }
-      const float l = warp_sum(sum);
-      if (lane == 0) {
-        sL[r] = l;
-        if (qi < Sq) lse[(size_t)bh * Sq + qi] = l == 0.f ? LSE_MASKED : m + logf(l);
-      }
-    }
-    __syncwarp();  // the warp's P is in place; its Q rows are read no more
-
-    float* sO = sQ;
-    warp_gemm<false, false, D, SMAX>(sS + r0 * L::LDS, L::LDS, sV, L::LDT, sO + r0 * L::LDO,
-                                     L::LDO, false);
-    __syncwarp();
-    T* ob = o + (size_t)bh * Sq * D;
-    for (int r = r0; r < r0 + 16; ++r) {
-      const int qi = q0 + r;
-      if (qi >= Sq) break;
-      const float safe_l = sL[r] == 0.f ? 1.f : sL[r];
-      for (int c = lane; c < D; c += 32) ob[(size_t)qi * D + c] = sO[r * L::LDO + c] / safe_l;
-    }
   }
 }
 
@@ -796,13 +718,6 @@ flash_dqkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <typename T, int D>
-constexpr size_t fwd_single_smem() {
-  using L = SingleLayout<T, D>;
-  return (size_t)(FWD_BQ + 2 * SMAX) * L::LDT * sizeof(T) + FWD_BQ * L::LDS * sizeof(float) +
-         FWD_BQ * sizeof(float);
-}
-
-template <typename T, int D>
 constexpr size_t dqkv_smem() {
   using L = SingleLayout<T, D>;
   constexpr size_t chunk = (size_t)2 * QC * L::LDT * sizeof(T) + 2 * QC * L::LDS * sizeof(float) +
@@ -831,12 +746,8 @@ int launch_fwd_single(const void* q, const void* k, const void* v, void* o, void
                   FwdSingleSmem<D>::BYTES, stream, mq, mk, mv, mo, (float*)lse, BH, Sq, Sk,
                   scale, causal, qo, ko);
   } else {
-    static_assert(fwd_single_smem<T, D>() <= SMEM_LIMIT, "forward tiles exceed shared memory");
-    // grid.y: one block per head, at most 65535 (the kernel loops over the rest).
-    return launch(flash_fwd_single_f32_kernel<D>,
-                  dim3((Sq + FWD_BQ - 1) / FWD_BQ, BH < 65535 ? BH : 65535), FWD_THREADS,
-                  fwd_single_smem<T, D>(), stream, (const T*)q, (const T*)k, (const T*)v,
-                  (T*)o, (float*)lse, BH, Sq, Sk, scale, causal, qo, ko);
+    return launch_fwd_single_3xtf32(q, k, v, o, lse, BH, Sq, Sk, D, scale, causal, qo, ko,
+                                    stream);
   }
 }
 

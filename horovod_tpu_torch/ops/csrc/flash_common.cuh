@@ -1,8 +1,8 @@
 // Device helpers shared by the port's CUDA kernels (flash_attention.cu,
-// flash_attention_single.cu, conv1x1_dw.cu): dtype conversion, warp
-// reductions, tile loads into shared memory, one warp's 16-row float32
-// matrix product and register accumulator (the float32 first versions of
-// the kernels), the causal visibility rule, and the (dtype, head dim)
+// flash_attention_single.cu, conv1x1_dw.cu): dtype conversion, tile loads
+// into shared memory, one warp's 16-row float32 matrix product and register
+// accumulator (the float32 first versions of the backward kernels and the
+// filter gradient), the causal visibility rule, and the (dtype, head dim)
 // dispatch of the C entry points.
 //
 // Everything sits in an anonymous namespace: each translation unit gets its
@@ -35,18 +35,6 @@ template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 // Copy rows [row0, row0 + ROWS) of a row-major [nrows, D] matrix into shared
 // memory (leading dimension ld), 16 bytes per thread of an NT-thread block,
@@ -139,9 +127,10 @@ __device__ __forceinline__ bool visible(int qi, int kj, int Sq, int Sk, int caus
   return qi < Sq && kj < Sk && (!causal || q_offset + qi >= k_offset + kj);
 }
 
-// Dispatch on (dtype, head dim): bf16 and float16 (the Hopper kernels) and
-// float32 (the first versions) at D = 16, 32, 64 and 128; HVD_DISPATCH_WIDE
-// (the multi-tile kernels) also at D = 256.
+// Dispatch on (dtype, head dim): bf16, float16 and float32 at D = 16, 32,
+// 64 and 128; HVD_DISPATCH_WIDE (the multi-tile kernels) also at D = 256.
+// The float32 forwards have no D = 16 instance (their launch refuses it;
+// the wrapper zero-pads D = 16 to 32).
 #define HVD_CASES_D(CALL)                                            \
   case 16: { constexpr int HD = 16; return CALL; }                   \
   case 32: { constexpr int HD = 32; return CALL; }                   \

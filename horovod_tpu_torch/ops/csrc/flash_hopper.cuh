@@ -157,13 +157,14 @@ __device__ __forceinline__ void store_rows(T* out, int ld, const float (&acc)[W 
 // flash_attention_wide.cu and flash_attention_3xtf32.cu.
 constexpr int SEQ_TILE = 64;
 
-// K/V tiles of SEQ_TILE keys that rows [q0, q0 + SEQ_TILE) of Q can see.
+// K/V tiles of BK keys that rows [q0, q0 + ROWS) of Q can see.
+template <int ROWS = SEQ_TILE, int BK = SEQ_TILE>
 __device__ __forceinline__ int key_tiles(int q0, int Sq, int Sk, int causal, int qo, int ko) {
-  const int n = (Sk + SEQ_TILE - 1) / SEQ_TILE;
+  const int n = (Sk + BK - 1) / BK;
   if (!causal) return n;
-  const int kmax = qo + min(q0 + SEQ_TILE, Sq) - 1 - ko;  // last visible key
+  const int kmax = qo + min(q0 + ROWS, Sq) - 1 - ko;  // last visible key
   if (kmax < 0) return 0;
-  return min(n, kmax / SEQ_TILE + 1);
+  return min(n, kmax / BK + 1);
 }
 
 // First Q tile of SEQ_TILE rows whose rows can see a key of the K/V tile at

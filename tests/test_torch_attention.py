@@ -345,7 +345,8 @@ def test_profile_categories_name_kernels_in_the_sources():
     kernels = _global_functions()
     assert {"flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
             "flash_fwd_single_kernel", "flash_dq_f32_kernel",
-            "flash_fwd_single_f32_kernel"} <= kernels
+            "flash_fwd_3xtf32_kernel",
+            "flash_fwd_single_3xtf32_kernel"} <= kernels
     categories = dict(smoke._CATEGORIES)
     for kern in _kernels.KERNELS:
         for key in categories[kern.name]:
@@ -383,13 +384,21 @@ _HOPPER_INSTANCES = [(k, d, t) for k in ("flash_fwd_kernel", "flash_dq_kernel",
                                                 "dw_1x1_kernel")
                          for t in _TYPES] + [
                          (k, None, None) for k in ("flash_dq_3xtf32_kernel",
-                                                   "flash_dkv_3xtf32_kernel")]
+                                                   "flash_dkv_3xtf32_kernel")
+                     ] + [("flash_fwd_3xtf32_kernel", d, None)
+                          for d in (32, 64, 128, 256)] + [
+                         ("flash_fwd_single_3xtf32_kernel", d, None)
+                         for d in (32, 64, 128)]
 
 
 def _hopper_mangled(kernel, d, t="bf16"):
     """The mangled name nvcc gives a Hopper instance of element type t
     (d None: the filter gradient or a wide-head kernel, templated on the
-    type alone; t None too: the float32 3xTF32 kernels, no template)."""
+    type alone; t None: the float32 3xTF32 kernels, the forwards templated
+    on the head dim alone, dQ and dK/dV, d None too, no template)."""
+    if t is None and d is not None:
+        return (f"_ZN12_GLOBAL__N_1{len(kernel)}{kernel}ILi{d}EEEv14"
+                "CUtensorMap_stS1_S1_PfS2_iiifiii")
     if t is None:
         return (f"_ZN12_GLOBAL__N_1{len(kernel)}{kernel}E14CUtensorMap_stS0_"
                 "S0_S0_PfPKfS3_S3_iiifiii")
@@ -403,7 +412,7 @@ def _hopper_mangled(kernel, d, t="bf16"):
 
 def _instance(kernel, d, t):
     if t is None:
-        return kernel
+        return kernel if d is None else f"{kernel}<{d}>"
     return f"{kernel}<{t}>" if d is None else f"{kernel}<{t}, {d}>"
 
 
@@ -434,12 +443,20 @@ def _hopper_log():
     ("flash_dq_wide_kernel", None, "spill"),
     ("flash_dq_wide_kernel", None, "serialize"),
     ("flash_dq_3xtf32_kernel", None, "spill"),
-    ("flash_dkv_3xtf32_kernel", None, "spill")])
+    ("flash_dkv_3xtf32_kernel", None, "spill"),
+    ("flash_fwd_3xtf32_kernel", 32, "spill"),
+    ("flash_fwd_3xtf32_kernel", 64, "spill"),
+    ("flash_fwd_3xtf32_kernel", 128, "spill"),
+    ("flash_fwd_3xtf32_kernel", 256, "spill"),
+    ("flash_fwd_single_3xtf32_kernel", 32, "spill"),
+    ("flash_fwd_single_3xtf32_kernel", 64, "spill"),
+    ("flash_fwd_single_3xtf32_kernel", 128, "spill")])
 def test_build_report_names_the_redesigned_hopper_culprit(kernel, d, fault):
     """The fused backward's, the filter gradient's and the wide-head
     forward's, dQ's and dK/dV's bf16 Hopper instances, and the float32
-    3xTF32 dQ and dK/dV, are in the build phase's list, and a spill or
-    serialized wgmma in one of them fails it, naming that instance alone."""
+    3xTF32 forwards (each head dim alone), dQ and dK/dV, are in the build
+    phase's list, and a spill or serialized wgmma in one of them fails it,
+    naming that instance alone."""
     _check_culprit(kernel, d, None if "3xtf32" in kernel else "bf16", fault)
 
 
@@ -494,16 +511,18 @@ def test_build_report_flags_spills_and_serialized_wgmma_of_hopper_kernels():
     others = (_ptxas_entry("_ZN12_GLOBAL__N_119flash_dq_f32_kernelILi64EEE"
                            "vPKfS2_S2_S2_S2_S2_S2_Pfiifiii", "8 bytes spill "
                            "stores, 8 bytes spill loads", 255)
-              + _ptxas_entry("_ZN12_GLOBAL__N_120flash_fwd_f32_kernelILi64"
-                             "EEEvPKfS2_S2_PfS3_iiifiii", registers=96)
-              + _ptxas_entry("_ZN12_GLOBAL__N_127flash_fwd_single_f32_kernel"
-                             "ILi32EEEvPKfS2_S2_PfS3_iiifiii", "4 bytes spill "
-                             "stores, 4 bytes spill loads", 128))
+              + _ptxas_entry("_ZN12_GLOBAL__N_120flash_dkv_f32_kernelILi64"
+                             "EEEvPKfS2_S2_S2_S2_S2_S2_PfS3_iiifiii",
+                             registers=96)
+              + _ptxas_entry("_ZN12_GLOBAL__N_125flash_fwd_wide_f32_kernel"
+                             "IfEEvPKT_S3_S3_PS1_Pfiiiififiii",
+                             "4 bytes spill stores, 4 bytes spill loads",
+                             128))
     clean = others + "".join(_ptxas_entry(hopper(k, d, t))
                              for k, d, t in instances)
     regs, faults = smoke.hopper_build_report(clean)
     assert sorted(regs) == sorted(smoke.HOPPER_INSTANCES)
-    assert len(regs) == 56
+    assert len(regs) == 63
     assert set(regs.values()) == {168} and faults == []
 
     def spill(log, kernel, d, t):
@@ -531,7 +550,11 @@ def test_build_report_flags_spills_and_serialized_wgmma_of_hopper_kernels():
             (spill(clean, "flash_dkv_kernel", 256, "f16"),
              "flash_dkv_kernel<f16, 256>"),
             (serialize(clean, "flash_fwd_kernel", 256, "bf16"),
-             "flash_fwd_kernel<bf16, 256>")):
+             "flash_fwd_kernel<bf16, 256>"),
+            (spill(clean, "flash_fwd_3xtf32_kernel", 256, None),
+             "flash_fwd_3xtf32_kernel<256>"),
+            (spill(clean, "flash_fwd_single_3xtf32_kernel", 64, None),
+             "flash_fwd_single_3xtf32_kernel<64>")):
         _, faults = smoke.hopper_build_report(log)
         assert len(faults) == 1 and faults[0].startswith(culprit), faults
 
@@ -565,6 +588,63 @@ def test_single_tile_instances_stop_at_128():
     assert port.kernel_head_dim(100, port.SINGLE_TILE_HEAD_DIMS) == 128
     with pytest.raises(ValueError, match="1 to 128"):
         port.kernel_head_dim(129, port.SINGLE_TILE_HEAD_DIMS)
+
+
+@pytest.mark.parametrize("single", [False, True])
+@pytest.mark.parametrize("dtype,D,want", [
+    (torch.float32, 8, 32), (torch.float32, 16, 32), (torch.float32, 48, 64),
+    (torch.bfloat16, 16, 16)])
+def test_float32_forwards_pad_head_dims_below_32(monkeypatch, single, dtype,
+                                                 D, want):
+    """The float32 forwards (3xTF32) read rows of 32 fp32 columns and have
+    no D = 16 instance: both wrappers plan D <= 16 at 32 in float32 (and
+    refuse a D = 16 operand at launch), where bf16 keeps 16. Shapes only,
+    on the meta device, with the launch replaced by the plain version."""
+    launched = []
+
+    def fake_launch(kernel, dims):
+        def run(q, k, v, causal, q_offset, k_offset, scale):
+            launched.append((kernel.name, q.shape[-1], dims))
+            return port.flash_fwd_plain(q, k, v, causal, q_offset, k_offset,
+                                        scale)
+        return run
+
+    monkeypatch.setattr(port, "_fwd_launch", fake_launch)
+    monkeypatch.setattr(port, "_check_device", lambda t: None)
+    q = torch.empty(2, 40, D, device="meta", dtype=dtype)
+    fwd = port.flash_fwd_single if single else port.flash_fwd
+    o, lse = fwd(q, q, q)
+    assert o.shape == q.shape and lse.shape == q.shape[:2]
+    (name, planned, dims), = launched
+    assert name == ("flash_fwd_single" if single else "flash_fwd")
+    assert planned == want and want in dims
+    assert (16 in dims) == (dtype != torch.float32)
+    route = port.SINGLE_TILE_HEAD_DIMS if single else port.KERNEL_HEAD_DIMS
+    assert dims == port.forward_head_dims(dtype, route)
+
+
+@pytest.mark.parametrize("operands", ["plain", "tf32"])
+def test_f64_check_of_the_forward_holds_the_plain_version_only(operands):
+    """chip_smoke.py's float64 check of a forward: the float32 plain
+    version's own O and lse pass it; O and lse computed from Q and K
+    rounded to TF32 (the low 13 bits cleared: one TF32 product, as the
+    tensor cores read an fp32 operand) fail it, far above F64_ERR_RATIO
+    times the plain version's error."""
+    smoke = _chip_smoke()
+    rng = np.random.RandomState(12)
+    q, k, v = (torch.from_numpy(rng.randn(4, 64, 64).astype(np.float32))
+               for _ in range(3))
+    plain = port.flash_fwd_plain(q, k, v, True, 0, 0)
+    if operands == "plain":
+        smoke._f64_check("plain", q, k, v, None, plain, plain, True, 0, 0)
+        return
+
+    def tf32(t):
+        return (t.view(torch.int32) & -8192).view(torch.float32)
+
+    got = port.flash_fwd_plain(tf32(q), tf32(k), v, True, 0, 0)
+    with pytest.raises(AssertionError, match="error against float64"):
+        smoke._f64_check("tf32", q, k, v, None, got, plain, True, 0, 0)
 
 
 @pytest.mark.parametrize("D", [8, 48, 96, 200])

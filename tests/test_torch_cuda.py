@@ -17,6 +17,9 @@ sums exact products in fp32 on both sides: 1e-3 for 2-byte operands, 1e-4
 for float32.
 """
 
+import importlib.util
+import os
+
 import pytest
 import torch
 
@@ -124,6 +127,79 @@ def test_float32_dq_dkv_at_head_dim_256_and_the_gemma_shape(cuda_device):
     _hold([(port.flash_dq(*args), port.flash_dq_plain(*args)),
            *zip(port.flash_dkv(*args), port.flash_dkv_plain(*args))],
           torch.float32)
+
+
+def _hold_forward(fwd, kernel, q, k, v, causal, q_offset, k_offset):
+    """A forward wrapper against the plain version (float32's 1e-4, lse
+    1e-3, the same rows masked), launching ``kernel`` once."""
+    before = kernel.launches
+    o, lse = fwd(q, k, v, causal, q_offset, k_offset)
+    assert kernel.launches == before + 1
+    o_ref, lse_ref = port.flash_fwd_plain(q, k, v, causal, q_offset, k_offset)
+    _hold([(o, o_ref)], q.dtype)
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    assert torch.equal(lse == port.LSE_MASKED, lse_ref == port.LSE_MASKED)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,Sq,Sk,causal,q_offset,k_offset", [
+    # Causal and ragged with offsets, rows 0..39 seeing no key; a query
+    # offset; a second 64-row half of Q only part full; D = 16 zero-padded
+    # to the D = 32 instance.
+    (64, 200, 264, True, 0, 40),
+    (128, 200, 264, True, 0, 40),
+    (256, 200, 264, True, 0, 40),
+    (256, 264, 200, True, 64, 0),
+    (256, 77, 100, True, 0, 23),
+    (64, 77, 100, True, 0, 23),
+    (32, 300, 300, False, 0, 0),
+    (16, 130, 96, True, 30, 0)])
+def test_float32_forward_runs_the_3xtf32_kernel(cuda_device, D, Sq, Sk,
+                                                causal, q_offset, k_offset):
+    """The multi-tile float32 forward (3xTF32 on the tensor cores) against
+    the plain version."""
+    q, k, v, _, _ = _attention_operands(cuda_device, 8, 6, Sq, Sk, D,
+                                        torch.float32)
+    _hold_forward(port.flash_fwd, _kernels.FLASH_FWD, q, k, v, causal,
+                  q_offset, k_offset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,Sq,Sk,causal,q_offset,k_offset", [
+    # One key tile of 128 (the direct softmax); ragged with rows seeing no
+    # key; keys and rows within one 64-row half (its second half never
+    # loaded); D = 16 zero-padded to 32.
+    (64, 128, 128, True, 16, 0),
+    (128, 128, 128, True, 16, 0),
+    (64, 77, 100, True, 0, 23),
+    (128, 77, 100, True, 0, 23),
+    (128, 50, 60, False, 0, 0),
+    (32, 40, 40, True, 0, 0),
+    (16, 96, 128, True, 0, 40)])
+def test_float32_single_tile_forward_runs_the_3xtf32_kernel(
+        cuda_device, D, Sq, Sk, causal, q_offset, k_offset):
+    """The single-tile float32 forward (3xTF32) against the plain
+    version."""
+    q, k, v, _, _ = _attention_operands(cuda_device, 9, 6, Sq, Sk, D,
+                                        torch.float32)
+    _hold_forward(port.flash_fwd_single, _kernels.FLASH_FWD_SINGLE, q, k, v,
+                  causal, q_offset, k_offset)
+
+
+@pytest.mark.cuda
+def test_float32_forward_holds_float64_at_the_gemma_shape(cuda_device):
+    """At the Gemma-like layer's shape (B*H = 128, S = 512, D = 256) on full
+    float32 values, the 3xTF32 forward's O and lse are within
+    chip_smoke.py's F64_ERR_RATIO of the float32 plain version's error
+    against float64 (its _f64_check raises otherwise)."""
+    path = os.path.join(os.path.dirname(__file__), os.pardir, "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    q, k, v, _, _ = _attention_operands(cuda_device, 10, 128, 512, 512, 256,
+                                        torch.float32)
+    smoke._f64_check("gemma_d256", q, k, v, None, port.flash_fwd(q, k, v),
+                     port.flash_fwd_plain(q, k, v), False, 0, 0)
 
 
 @pytest.mark.cuda
