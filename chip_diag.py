@@ -26,10 +26,13 @@ float32 values, the bf16 rows on the same values rounded to bf16); and
 the float32 instances at D = 64 (``flash_fwd_f32``, ``flash_dq_f32``,
 ``flash_dkv_f32`` at S = 512; ``flash_fwd_single_f32``,
 ``flash_dqkv_f32`` at S = 128) beside SDPA in float32 (``sdpa_*_f32``,
-``sdpa_*_s128_f32``), on full float32 values. After the times it prints
-each float32 row's bound at the float32 FMA peak, and for the 3xTF32
-kernels (the forwards; dQ and dK/dV at D = 256: chip_smoke.py's
-``TF32X3``) also their bound at the TF32 peak, then the kernels of SDPA's
+``sdpa_*_s128_f32``), and the float32 dQ and dK/dV at D = 32 and 128
+(``flash_dq_d32_f32``, ..., B*H = 128, S = 512) beside SDPA's float32
+backward at D = 128 (``sdpa_bwd_d128_f32``), on full float32 values.
+After the times it prints each float32 row's bound at the float32 FMA
+peak, and for the 3xTF32 kernels (chip_smoke.py's ``TF32X3``: all but the
+single-tile fused backward and the wide-head ones) also their bound at
+the TF32 peak, then the kernels of SDPA's
 float32 backward at D = 256 and of its float32 forward at D = 256 and
 D = 64 (``SDPA_KERNELS``). Each checkout runs in a process of its own,
 in the order other, this, this, other. Each process times every call by
@@ -113,13 +116,19 @@ CALLS = ("flash_fwd", "flash_dq", "flash_dkv", "sdpa_fwd", "sdpa_bwd",
          "sdpa_bwd_f32", "flash_fwd_single_f32", "flash_dqkv_f32",
          "sdpa_fwd_s128_f32", "sdpa_bwd_s128_f32", "flash_fwd_d256_f32",
          "flash_dq_d256_f32", "flash_dkv_d256_f32", "sdpa_fwd_d256_f32",
-         "sdpa_bwd_d256_f32", "sdpa_fwd_d512_f32", "sdpa_bwd_d512_f32")
+         "sdpa_bwd_d256_f32", "sdpa_fwd_d512_f32", "sdpa_bwd_d512_f32",
+         "flash_dq_d32_f32", "flash_dkv_d32_f32", "flash_dq_d128_f32",
+         "flash_dkv_d128_f32", "sdpa_bwd_d128_f32")
 # The float32 rows' shapes (name: kernel, B*H, S, D) for their bounds at the
 # float32 FMA peak, printed by ab beside the times.
 F32_BOUNDS = {
     "flash_fwd_f32": ("flash_fwd", 128, 512, 64),
     "flash_dq_f32": ("flash_dq", 128, 512, 64),
     "flash_dkv_f32": ("flash_dkv", 128, 512, 64),
+    "flash_dq_d32_f32": ("flash_dq", 128, 512, 32),
+    "flash_dkv_d32_f32": ("flash_dkv", 128, 512, 32),
+    "flash_dq_d128_f32": ("flash_dq", 128, 512, 128),
+    "flash_dkv_d128_f32": ("flash_dkv", 128, 512, 128),
     "flash_fwd_single_f32": ("flash_fwd_single", 1024, 128, 64),
     "flash_dqkv_f32": ("flash_dqkv", 1024, 128, 64),
     "flash_fwd_d256_f32": ("flash_fwd", 128, 512, 256),
@@ -282,8 +291,8 @@ def _worker(tree, label):
                 a[3].view(1, BHw, S, Dw)))
     # The float32 instances at D = 64 (BERT-Large S = 512 and S = 128
     # shapes) beside SDPA in float32, on full float32 values.
-    def full_f32(BHs, Ss):
-        a = [torch.randn(BHs, Ss, D, generator=gen, device="cuda")
+    def full_f32(BHs, Ss, Ds=D):
+        a = [torch.randn(BHs, Ss, Ds, generator=gen, device="cuda")
              for _ in range(4)]
         o_a, lse_a = A.flash_fwd_plain(*a[:3])
         return a, (*a, lse_a, (a[3] * o_a).sum(-1), torch.zeros_like(lse_a),
@@ -302,6 +311,17 @@ def _worker(tree, label):
     calls.update(sdpa_calls(
         "s128_f32", [t.view(B1, H, S1, D) for t in f32_1[:3]],
         f32_1[3].view(B1, H, S1, D)))
+    # The float32 dQ and dK/dV at D = 32 and 128, the latter beside SDPA's
+    # float32 backward.
+    for Dd in (32, 128):
+        fd, bd = full_f32(B * H, S, Dd)
+        calls.update({
+            f"flash_dq_d{Dd}_f32": (lambda bd=bd: A.flash_dq(*bd)),
+            f"flash_dkv_d{Dd}_f32": (lambda bd=bd: A.flash_dkv(*bd))})
+        if Dd == 128:
+            calls[f"sdpa_bwd_d{Dd}_f32"] = sdpa_calls(
+                f"d{Dd}_f32", [t.view(B, H, S, Dd) for t in fd[:3]],
+                fd[3].view(B, H, S, Dd))[f"sdpa_bwd_d{Dd}_f32"]
     result = {name: {"spin_ms": smoke.time_ms(fn),
                      "no_spin_ms": smoke.time_ms(fn, sleep_cycles=0),
                      "device_ms": _device_ms(fn)}
@@ -325,7 +345,8 @@ def ab(other):
     for label, tree in order:
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "_worker", tree,
-             label], capture_output=True, text=True, timeout=900)
+             label],
+            capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
             print(f"ab: the {label} checkout ({tree}) failed with exit code "

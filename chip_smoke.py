@@ -10,13 +10,13 @@ and prints no result line); each prints its seconds:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build of the hand-written CUDA kernels from ``horovod_tpu_torch/ops/csrc``
-   (one ``nvcc`` per source, all started together); none of the 63 Hopper
+   (one ``nvcc`` per source, all started together); none of the 69 Hopper
    instances (the bf16 and float16 forward, dQ, dK/dV, single-tile
    forward and fused backward at D=16, 32, 64, 128, the forward, dQ and
    dK/dV at D=256, the wide-head forward, dQ and dK/dV, and the bf16 and
    float16 filter gradient on wgmma; in 3xTF32 on mma.sync the float32
-   forwards, multi-tile at D=32 to 256 and single-tile at D=32 to 128, and
-   the float32 dQ and dK/dV at D=256) may spill or have its wgmma
+   forward, dQ and dK/dV at D=32 to 256 and the single-tile forward at
+   D=32 to 128) may spill or have its wgmma
    serialized, nor any of the 3 SIMT wide-head instances (the float32
    forward, dQ and dK/dV) spill;
 3. kernel phase: every kernel against its plain PyTorch version on the same
@@ -27,7 +27,8 @@ and prints no result line); each prints its seconds:
      D=64 in bf16 and float16, and in bf16 at D=128, D=16 and D=96, which
      is zero-padded to the D=128 instance; a causal D=32 case with a query
      offset; float32 cases at D=64 and D=128; B*H = 65,600 at S=129, past
-     the grid's 65,535, in float32 and bf16);
+     the grid's 65,535 (the persistent kernels walk the work tiles; float32
+     D=16 zero-padded to 32), in float32 and bf16);
    - the single-tile forward and fused backward (BERT-Large phase-1 shape,
      S=128, in bf16 and in float16; causal 96 x 128 with offsets, masked
      rows and a nonzero lse cotangent; float32 causal with an offset at
@@ -43,9 +44,9 @@ and prints no result line); each prints its seconds:
      and dK/dV (FMA and TF32), and each kernel's largest error against a
      float64 version of the function (O and lse; dQ, dK, dV) beside the
      float32 plain version's and SDPA's (at most ``F64_ERR_RATIO`` times the
-     plain version's); the same for the 3xTF32 forwards at the two
-     BERT-Large shapes in full float32 (S=512, B*H = 128 and S=128, B*H =
-     1024, D=64);
+     plain version's); the same for the 3xTF32 forward, dQ and dK/dV at
+     BERT-Large's S=512 shape (B*H = 128, D=64) and the single-tile forward
+     at its S=128 shape (B*H = 1024), in full float32;
    - the 1x1-conv filter gradient (ResNet-50 stage-1 bottleneck 64 -> 256
      in bf16 and float16; the stride-2 projection shortcut 256 -> 512,
      timed beside its own cuBLAS call; bf16 with a ragged K and ragged
@@ -57,15 +58,16 @@ and prints no result line); each prints its seconds:
    S=128) through ``flash_attention_lse``, forward and backward: the
    launch counters show the D=256 forward, dQ and dK/dV ran once per layer
    and no other kernel did; the same for float32 layers at the Gemma-like
-   shape (the 3xTF32 forward, dQ and dK/dV) and at BERT-Large's S=512 and
-   S=128 shapes (the 3xTF32 forwards of both routes), each with a profile
-   that names the forward kernel it ran; then the ``wide`` phase: the three
-   wide-head kernels (head dims above 256) against their plain versions in
-   bf16, float16 and float32 at D=512 (B*H=32, S=512; bf16 timed beside its
-   bound and the first SDPA backend that takes D=512, named), D=320 causal
-   and ragged (200 rows over 300 keys, 40 of them seeing none) and D=1024,
-   and 4 causal bf16 layers at D=512 through ``flash_attention_lse``, each
-   launching each wide kernel once and no other kernel;
+   shape and at BERT-Large's S=512 shape (the 3xTF32 forward, dQ and dK/dV)
+   and at its S=128 shape (the 3xTF32 single-tile forward), each with a
+   profile that names the 3xTF32 kernels it ran; then the ``wide`` phase:
+   the three wide-head kernels (head dims above 256) against their plain
+   versions in bf16, float16 and float32 at D=512 (B*H=32, S=512; bf16
+   timed beside its bound and the first SDPA backend that takes D=512,
+   named), D=320 causal and ragged (200 rows over 300 keys, 40 of them
+   seeing none) and D=1024, and 4 causal bf16 layers at D=512 through
+   ``flash_attention_lse``, each launching each wide kernel once and no
+   other kernel;
 5. training phase: synchronous data-parallel BERT-Large training through
    ``init`` / ``DistributedOptimizer`` / ``broadcast_parameters`` with the
    1-rank NCCL bucketed allreduce forced on, on two paths: sequence 512
@@ -130,17 +132,17 @@ import sys
 import time
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 and float16 tensor cores,
-# float32 on the FMA units (the float32 kernels other than those of TF32X3
-# run there), memory rate.
+# float32 on the FMA units (the float32 kernels other than those of TF32X3,
+# the single-tile fused backward and the wide-head kernels, run there),
+# memory rate.
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
-# The TF32 tensor-core peak. The float32 forwards and the float32 dQ and
-# dK/dV at D = 256 do every product as three TF32 products (3xTF32): their
-# bound is three times the products' operations at this rate
-# (``_bounds_3xtf32``).
+# The TF32 tensor-core peak. The float32 forwards, dQ and dK/dV do every
+# product as three TF32 products (3xTF32): their bound is three times the
+# products' operations at this rate (``_bounds_3xtf32``).
 PEAK_TF32 = 495e12
 # The float32 kernels that run in 3xTF32: (kernel, head dim of the instance).
-TF32X3 = {("flash_dq", 256), ("flash_dkv", 256)} | {
-    ("flash_fwd", d) for d in (32, 64, 128, 256)} | {
+TF32X3 = {(k, d) for k in ("flash_fwd", "flash_dq", "flash_dkv")
+          for d in (32, 64, 128, 256)} | {
     ("flash_fwd_single", d) for d in (32, 64, 128)}
 # A 3xTF32 kernel's largest error against a float64 version of the function,
 # on full-float32 inputs, may be at most this many times the float32 plain
@@ -237,10 +239,9 @@ def time_ms(fn, reps=20, warmup=3, sleep_cycles=SLEEP_CYCLES):
 # attention routes at head dims 16 to 128, the multi-tile ones also at 256,
 # the wide-head forward, dQ and dK/dV (any D above 256), and the bf16 and
 # float16 1x1-conv filter gradient (the SIMT float32 kernels are named
-# *_f32_kernel); on mma.sync in 3xTF32, the float32 forwards (templated on
-# the head dim alone) and dQ and dK/dV at D = 256 (*_3xtf32_kernel, no
-# template). nvcc's mangled names carry the element type: 13__nv_bfloat16
-# or 6__half.
+# *_f32_kernel); on mma.sync in 3xTF32, the float32 forwards, dQ and dK/dV
+# (*_3xtf32_kernel, templated on the head dim alone). nvcc's mangled names
+# carry the element type: 13__nv_bfloat16 or 6__half.
 HOPPER_TYPES = {"__nv_bfloat16": "bf16", "__half": "f16"}
 MULTI_TILE_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel",
                       "flash_dkv_kernel")
@@ -253,15 +254,13 @@ HOPPER_INSTANCES = tuple(
         for t in HOPPER_TYPES.values()) + tuple(
         f"{k}<{t}>" for k in ("flash_fwd_wide_kernel", "flash_dq_wide_kernel",
                               "flash_dkv_wide_kernel", "dw_1x1_kernel")
-        for t in HOPPER_TYPES.values()) + (
-        "flash_dq_3xtf32_kernel", "flash_dkv_3xtf32_kernel") + tuple(
-        f"{k}_3xtf32_kernel<{d}>" for k, d in sorted(TF32X3)
-        if k.startswith("flash_fwd"))
+        for t in HOPPER_TYPES.values()) + tuple(
+        f"{k}_3xtf32_kernel<{d}>" for k, d in sorted(TF32X3))
 _HOPPER_NAME = re.compile(
     r"(flash_(?:fwd_single|fwd|dqkv|dq|dkv)_kernel)I\d+(__nv_bfloat16|__half)"
     r"Li(\d+)E|\d(dw_1x1_kernel|flash_(?:fwd|dq|dkv)_wide_kernel)"
-    r"I\d+(__nv_bfloat16|__half)E|\d(flash_(?:dq|dkv)_3xtf32_kernel)E"
-    r"|\d(flash_fwd(?:_single)?_3xtf32_kernel)ILi(\d+)E")
+    r"I\d+(__nv_bfloat16|__half)E"
+    r"|\d(flash_(?:fwd_single|fwd|dq|dkv)_3xtf32_kernel)ILi(\d+)E")
 
 
 def _hopper_instance(line):
@@ -269,10 +268,8 @@ def _hopper_instance(line):
     found = _HOPPER_NAME.search(line)
     if not found:
         return None
-    if found.group(7):
-        return f"{found.group(7)}<{found.group(8)}>"
     if found.group(6):
-        return found.group(6)
+        return f"{found.group(6)}<{found.group(7)}>"
     if found.group(4):
         return f"{found.group(4)}<{HOPPER_TYPES[found.group(5)]}>"
     return (f"{found.group(1)}<{HOPPER_TYPES[found.group(2)]}, "
@@ -405,15 +402,16 @@ def _bounds_3xtf32(name, BH, Sq, Sk, D, causal, q_offset, k_offset):
 def _runs_3xtf32(name, D):
     """Whether the float32 kernel ``name`` at head dim ``D`` runs a 3xTF32
     instance (``TF32X3``): the instance's head dim is the next of its
-    route's float32 instances."""
+    route's float32 instances (the fused single-tile backward keeps
+    D = 16)."""
     import torch
 
     from horovod_tpu_torch.ops import attention as A
 
     single = name in ("flash_fwd_single", "flash_dqkv")
     dims = A.SINGLE_TILE_HEAD_DIMS if single else A.KERNEL_HEAD_DIMS
-    if name in ("flash_fwd", "flash_fwd_single"):
-        dims = A.forward_head_dims(torch.float32, dims)
+    if name != "flash_dqkv":
+        dims = A.instance_head_dims(torch.float32, dims)
     return (name, A.kernel_head_dim(D, dims)) in TF32X3
 
 
@@ -585,8 +583,8 @@ def kernel_phase():
          ""),
         ("float32", 2, 4, 200, 136, 64, f32, True, 70, 0, True, ""),
         ("d128_float32", 2, 4, 200, 136, 128, f32, True, 70, 0, True, "ms"),
-        # B*H past the 65,535 blocks of grid.y (the float32 kernels loop
-        # over the rest; the Hopper kernels are persistent).
+        # B*H past the 65,535 blocks of grid.y: the persistent kernels walk
+        # the work tiles (float32 D = 16 zero-padded to the 3xTF32 D = 32).
         ("bh65600_float32", 65600, 1, 129, 129, 16, f32, False, 0, 0, True,
          "ms"),
         ("bh65600_bf16", 65600, 1, 129, 129, 16, bf16, False, 0, 0, True,
@@ -641,9 +639,9 @@ def kernel_phase():
          True, ""),
         ("d200_causal_ragged_float32", 2, 3, 200, 264, 200, f32, True, 0, 40,
          True, ""),
-        # The Gemma-like layer in full float32 (the 3xTF32 forward, dQ and
-        # dK/dV), and the BERT-Large shapes in full float32 (the 3xTF32
-        # forwards of both routes).
+        # The Gemma-like layer and BERT-Large's S = 512 shape in full float32
+        # (the 3xTF32 forward, dQ and dK/dV), and its S = 128 shape (the
+        # 3xTF32 single-tile forward).
         ("gemma_d256_float32_full", 8, 16, 512, 512, 256, f32, False, 0, 0,
          False, "f32"),
         ("bert_large_float32_full", b512, 16, s512, s512, 64, f32, False, 0,
@@ -1087,10 +1085,8 @@ def conv_phase(card):
 
 _CATEGORIES = (  # first match wins; by lower-cased kernel name
     ("flash_fwd", ("flash_fwd_kernel", "flash_fwd_3xtf32_kernel")),
-    ("flash_dq", ("flash_dq_kernel", "flash_dq_f32_kernel",
-                  "flash_dq_3xtf32_kernel")),
-    ("flash_dkv", ("flash_dkv_kernel", "flash_dkv_f32_kernel",
-                   "flash_dkv_3xtf32_kernel")),
+    ("flash_dq", ("flash_dq_kernel", "flash_dq_3xtf32_kernel")),
+    ("flash_dkv", ("flash_dkv_kernel", "flash_dkv_3xtf32_kernel")),
     ("flash_fwd_single", ("flash_fwd_single_kernel",
                           "flash_fwd_single_3xtf32_kernel")),
     ("flash_dqkv", ("flash_dqkv_kernel", "flash_dqkv_f32_kernel")),
@@ -1173,16 +1169,16 @@ def profile_steps(path, step, batch, card, step_ms, n=2):
 # multi-tile kernels too.
 WIDE_LAYERS = 4
 WIDE_SHAPES = ((8, 16, 512, 256), (64, 16, 128, 256))
-# Then float32 layers (the 3xTF32 forwards; dQ and dK/dV in 3xTF32 at
-# D = 256): the Gemma-like shape, and BERT-Large's at S = 512 (multi-tile)
-# and S = 128 (single-tile): (B, H, S, D), the kernels each layer runs once,
-# and the kernels line's names for the forward (and dQ, dK/dV) counts.
+# Then float32 layers (the 3xTF32 forwards, dQ and dK/dV): the Gemma-like
+# shape, and BERT-Large's at S = 512 (multi-tile) and S = 128 (single-tile):
+# (B, H, S, D), the kernels each layer runs once, and the kernels line's
+# names for their counts.
 F32_LAYERS = 2
 F32_PATHS = (
     ((8, 16, 512, 256), ("flash_fwd", "flash_dq", "flash_dkv"),
      "_d256_float32", ("flash_fwd", "flash_dq", "flash_dkv")),
     ((8, 16, 512, 64), ("flash_fwd", "flash_dq", "flash_dkv"), "_float32",
-     ("flash_fwd",)),
+     ("flash_fwd", "flash_dq", "flash_dkv")),
     ((64, 16, 128, 64), ("flash_fwd_single", "flash_dqkv"), "_float32",
      ("flash_fwd_single",)),
 )
@@ -1215,11 +1211,12 @@ def wide_heads_phase():
     """Head dims above 128 through the entry point: each layer launches the
     D = 256 forward, dQ and dK/dV once and no other kernel, in bf16; then
     float32 layers at ``F32_PATHS``' shapes, each layer launching its
-    route's kernels once (the 3xTF32 forward, and dQ and dK/dV in 3xTF32 at
-    D = 256) and no other, with a profile of the flash kernels they ran (the
-    counters set to 0 before each shape); the outputs are finite. Returns
-    the launch counts of this path (``flash_*_d256`` for bf16,
-    ``flash_*_d256_float32``, ``flash_fwd_float32`` and
+    route's kernels once (the 3xTF32 forward, dQ and dK/dV on the
+    multi-tile route) and no other, with a profile of the flash kernels they
+    ran, which must be the 3xTF32 ones where they exist (the counters set
+    to 0 before each shape); the outputs are finite. Returns the launch
+    counts of this path (``flash_*_d256`` for bf16,
+    ``flash_*_d256_float32``, ``flash_*_float32`` at S = 512 and
     ``flash_fwd_single_float32``)."""
     import torch
 
@@ -1281,14 +1278,18 @@ def wide_heads_phase():
             for t in (q, k, v):
                 t.grad = None
         kernel_ms = _attention_kernels_ms(run)
-        fwd = [n for n in kernel_ms if "fwd" in n]
-        if not fwd or not all("3xtf32" in n for n in fwd):
-            raise AssertionError(f"float32 layers {(B, H, S, D)}: forward "
-                                 f"kernels {fwd}; expected the 3xTF32 one")
+        # Every kernel of the route that has a 3xTF32 instance (all but the
+        # fused single-tile backward) must have run it.
+        ran = {n.split("<")[0] for n in kernel_ms if "dqkv" not in n}
+        if ran != {f"{k}_3xtf32_kernel" for k in kernels
+                   if k != "flash_dqkv"}:
+            raise AssertionError(f"float32 layers {(B, H, S, D)}: profiled "
+                                 f"kernels {sorted(kernel_ms)}; expected the "
+                                 f"3xTF32 instances of {kernels}")
         print(f"wide heads: {F32_LAYERS} causal float32 attention layers at "
               f"{(B, H, S, D)} (B, H, S, D), forward and backward (the 3xTF32 "
-              f"forward{', dQ and dK/dV' if D == 256 else ''}): launches "
-              f"{launches}; profiled device ms of the flash kernels: "
+              f"{', '.join(k for k in kernels if k != 'flash_dqkv')}): "
+              f"launches {launches}; profiled device ms of the flash kernels: "
               + ", ".join(f"{n} {ms:.4f}" for n, ms in sorted(
                   kernel_ms.items(), key=lambda kv: -kv[1])))
         counts.update({f"{k}{suffix}": launches[k] for k in named})
@@ -2277,7 +2278,7 @@ def main() -> int:
 
     # Each kernel, then the D = 256 instances of the multi-tile three, then
     # the 3xTF32 float32 kernels (their own source): the forward, dQ and
-    # dK/dV at D = 256, and both forwards at D = 64.
+    # dK/dV at D = 256 and at D = 64, and the single-tile forward at D = 64.
     rows = [(k.name, k, k.source) for k in _kernels.KERNELS] + [
         (f"{k.name}_d256", k, k.source)
         for k in (_kernels.FLASH_FWD, _kernels.FLASH_DQ, _kernels.FLASH_DKV)
@@ -2286,6 +2287,8 @@ def main() -> int:
         ("flash_dq_d256_float32", _kernels.FLASH_DQ),
         ("flash_dkv_d256_float32", _kernels.FLASH_DKV),
         ("flash_fwd_float32", _kernels.FLASH_FWD),
+        ("flash_dq_float32", _kernels.FLASH_DQ),
+        ("flash_dkv_float32", _kernels.FLASH_DKV),
         ("flash_fwd_single_float32", _kernels.FLASH_FWD_SINGLE))]
     kernels = [dict(name=name, route="cuda",
                     source=f"horovod_tpu_torch/ops/csrc/{source}",

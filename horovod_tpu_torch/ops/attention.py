@@ -46,8 +46,9 @@ The kernels take float32, bfloat16 and float16, with instances at head dims
 16, 32, 64 and 128 on both routes and 256 on the multi-tile route
 (:data:`KERNEL_HEAD_DIMS`, :data:`SINGLE_TILE_HEAD_DIMS`), and any multiple
 of :data:`WIDE_CHUNK` above 256 on the wide-head route; the float32
-forwards (3xTF32 on the tensor cores) start at :data:`F32_FWD_MIN_HEAD_DIM`
-(:func:`forward_head_dims`). A head dim between those goes to the next one
+forwards, dQ and dK/dV (3xTF32 on the tensor cores) start at
+:data:`F32_MIN_HEAD_DIM` (:func:`instance_head_dims`). A head dim between
+those goes to the next one
 (:func:`kernel_head_dim`): q, k, v and dO are zero-padded to it, the scale
 stays ``1/sqrt(D)`` of the true D, and the outputs are sliced back
 (:func:`padded_heads`).
@@ -77,10 +78,11 @@ _KERNEL_DTYPES = {torch.float32: _kernels.DTYPE_F32,
 # and the single-tile ones.
 KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 SINGLE_TILE_HEAD_DIMS = (16, 32, 64, 128)
-# The float32 forwards (csrc/flash_attention_3xtf32.cu) read their operands
-# in boxes of 32 fp32 columns (128-byte rows): their smallest instance, to
-# which D = 16 is zero-padded.
-F32_FWD_MIN_HEAD_DIM = 32
+# The float32 forwards, dQ and dK/dV (csrc/flash_attention_3xtf32.cu) read
+# their operands in boxes of 32 fp32 columns (128-byte rows): their smallest
+# instance, to which D = 16 is zero-padded. The single-tile fused backward
+# (flash_dqkv) keeps its D = 16 instance.
+F32_MIN_HEAD_DIM = 32
 # Head dims above KERNEL_HEAD_DIMS[-1] take the wide-head kernels, which
 # stream D in chunks of this many columns: D is zero-padded to a multiple.
 WIDE_CHUNK = 32
@@ -264,12 +266,12 @@ def kernel_head_dim(D: int, dims=KERNEL_HEAD_DIMS) -> int:
         f"the next); got {D}")
 
 
-def forward_head_dims(dtype, dims=KERNEL_HEAD_DIMS):
-    """The head dims of a forward kernel's instances at ``dtype``: a route's
-    ``dims``, without those below :data:`F32_FWD_MIN_HEAD_DIM` in
-    float32."""
+def instance_head_dims(dtype, dims=KERNEL_HEAD_DIMS):
+    """The head dims of the instances at ``dtype`` of a kernel whose float32
+    runs in 3xTF32 (both forwards, dQ and dK/dV): a route's ``dims``,
+    without those below :data:`F32_MIN_HEAD_DIM` in float32."""
     if dtype == torch.float32:
-        return tuple(d for d in dims if d >= F32_FWD_MIN_HEAD_DIM)
+        return tuple(d for d in dims if d >= F32_MIN_HEAD_DIM)
     return dims
 
 
@@ -448,7 +450,7 @@ def flash_fwd(q, k, v, causal=False, q_offset=0, k_offset=0):
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, causal, q_offset, k_offset)
     _check_device(q)
-    dims = forward_head_dims(q.dtype)
+    dims = instance_head_dims(q.dtype)
     run = _multi_tile(_kernels.FLASH_FWD, _kernels.FLASH_FWD_WIDE,
                       _fwd_launch, q.shape[-1], dims)
     return padded_heads(run, (q, k, v), (), causal, q_offset, k_offset, dims)
@@ -462,10 +464,11 @@ def flash_dq(q, k, v, do, lse, delta, glse, causal=False, q_offset=0,
         return flash_dq_plain(q, k, v, do, lse, delta, glse, causal,
                               q_offset, k_offset)
     _check_device(q)
+    dims = instance_head_dims(q.dtype)
     run = _multi_tile(_kernels.FLASH_DQ, _kernels.FLASH_DQ_WIDE, _dq_launch,
-                      q.shape[-1])
+                      q.shape[-1], dims)
     return padded_heads(run, (q, k, v, do), (lse, delta, glse), causal,
-                        q_offset, k_offset)
+                        q_offset, k_offset, dims)
 
 
 def flash_dkv(q, k, v, do, lse, delta, glse, causal=False, q_offset=0,
@@ -476,10 +479,11 @@ def flash_dkv(q, k, v, do, lse, delta, glse, causal=False, q_offset=0,
         return flash_dkv_plain(q, k, v, do, lse, delta, glse, causal,
                                q_offset, k_offset)
     _check_device(q)
+    dims = instance_head_dims(q.dtype)
     run = _multi_tile(_kernels.FLASH_DKV, _kernels.FLASH_DKV_WIDE,
-                      _dkv_launch, q.shape[-1])
+                      _dkv_launch, q.shape[-1], dims)
     return padded_heads(run, (q, k, v, do), (lse, delta, glse), causal,
-                        q_offset, k_offset)
+                        q_offset, k_offset, dims)
 
 
 def _check_single_tile(Sq, Sk):
@@ -497,7 +501,7 @@ def flash_fwd_single(q, k, v, causal=False, q_offset=0, k_offset=0):
     if q.device.type == "cpu":
         return flash_fwd_single_plain(q, k, v, causal, q_offset, k_offset)
     _check_device(q)
-    dims = forward_head_dims(q.dtype, SINGLE_TILE_HEAD_DIMS)
+    dims = instance_head_dims(q.dtype, SINGLE_TILE_HEAD_DIMS)
     return padded_heads(_fwd_launch(_kernels.FLASH_FWD_SINGLE, dims),
                         (q, k, v), (), causal, q_offset, k_offset, dims)
 

@@ -5,8 +5,9 @@
 //
 // Replaces the Pallas TPU kernels of horovod_tpu/ops/attention.py:
 //   flash_fwd_kernel  (bf16, f16)                        <- _flash_fwd_kernel (:138)
-//   flash_dq_kernel   (bf16, f16), flash_dq_f32_kernel   <- _flash_dq_kernel (:198)
-//   flash_dkv_kernel  (bf16, f16), flash_dkv_f32_kernel  <- _flash_dkv_kernel (:252)
+//   flash_dq_kernel   (bf16, f16)                        <- _flash_dq_kernel (:198)
+//   flash_dkv_kernel  (bf16, f16)                        <- _flash_dkv_kernel (:252)
+// and, for float32, the 3xTF32 kernels of flash_attention_3xtf32.cu.
 //
 // What bounds them, against the H100 SXM data-sheet peaks (989 TFLOP/s bf16,
 // 3.35 TB/s, at its 700 W limit): at the BERT-Large S = 512 shape
@@ -67,15 +68,11 @@
 // output columns per work tile, recomputing S^T and dP^T for each half (the
 // 256 columns of dK and dV do not fit the consumers' registers at once).
 // The *Smem layouts give the numbers.
-// float32: the forward at every head dim, and dQ and dK/dV at D = 256, run
-// on the tensor cores in 3xTF32, which holds float32's tolerance
+// float32: the forward, dQ and dK/dV at every head dim run on the tensor
+// cores in 3xTF32, which holds float32's tolerance
 // (flash_attention_3xtf32.cu: launch_fwd_3xtf32, launch_dq_3xtf32,
-// launch_dkv_3xtf32). dQ and dK/dV at D = 16 to 128 (flash_dq_f32_kernel,
-// flash_dkv_f32_kernel) keep the first version: 64-row tiles, four warps,
-// fp32 accumulators in shared memory (dK/dV: in registers), FMA products
-// (one TF32 product would round operands to 10 mantissa bits), synchronous
-// loads, a block per (tile, head) with heads past grid.y's 65535 taken in a
-// loop.
+// launch_dkv_3xtf32; instances at D = 32 to 256, D = 16 zero-padded to 32
+// by the wrapper, so the D = 16 float32 launch is refused).
 // P and dS are rounded to the operand dtype before the PV, P^T dO, dS K and
 // dS^T Q products, as the TPU kernels do (float32: not rounded).
 //
@@ -94,18 +91,18 @@
 
 #include "flash_hopper.cuh"
 
-// float32 on the tensor cores (flash_attention_3xtf32.cu): the forward at
-// D = 32 to 256, dQ and dK/dV at D = 256.
+// float32 on the tensor cores (flash_attention_3xtf32.cu): the forward, dQ
+// and dK/dV at D = 32 to 256 (any other D: cudaErrorInvalidValue).
 int launch_fwd_3xtf32(const void* q, const void* k, const void* v, void* o, void* lse, int BH,
                       int Sq, int Sk, int D, float scale, int causal, int qo, int ko,
                       cudaStream_t stream);
 int launch_dq_3xtf32(const void* q, const void* k, const void* v, const void* dout,
                      const void* lse, const void* delta, const void* glse, void* dq, int BH,
-                     int Sq, int Sk, float scale, int causal, int qo, int ko,
+                     int Sq, int Sk, int D, float scale, int causal, int qo, int ko,
                      cudaStream_t stream);
 int launch_dkv_3xtf32(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, const void* glse, void* dk, void* dv,
-                      int BH, int Sq, int Sk, float scale, int causal, int qo, int ko,
+                      int BH, int Sq, int Sk, int D, float scale, int causal, int qo, int ko,
                       cudaStream_t stream);
 
 namespace {
@@ -1089,241 +1086,8 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 }
 
 // ===========================================================================
-// float32 dQ and dK/dV at D = 16 to 128: the first version (64-row tiles in
-// shared memory, four warps of 16 rows). The forward, and dQ and dK/dV at
-// D = 256: flash_attention_3xtf32.cu.
-// ===========================================================================
-
-constexpr int WROWS = 16;  // rows owned by one warp
-
-template <int D>
-struct F32Tile {
-  static constexpr int B = 64;  // rows of a Q tile and of a K/V tile
-  static constexpr int THREADS = B / WROWS * 32;  // one 16-row slice per warp
-  static constexpr int KPL = B / 32;  // keys of a K/V tile per lane of a warp
-};
-
-// Leading dimensions in shared memory, padded by 32 bytes: rows fall on
-// different banks.
-template <typename T, int D>
-struct Layout {
-  static constexpr int LDT = D + 32 / (int)sizeof(T);              // operand tiles
-  static constexpr int LDS = F32Tile<D>::B + 8;                     // fp32 scores
-  static constexpr int LDP = F32Tile<D>::B + 32 / (int)sizeof(T);   // P / dS in T
-  static constexpr int LDO = D + 8;                                 // fp32 accumulators
-};
-
-// P and dS for one warp's 16 rows of a (Q tile, K tile of KPL * 32 keys)
-// pair, written to shared memory in the operand dtype. Rows index Q,
-// columns index K.
-template <typename T, int KPL, int LDS, int LDP>
-__device__ __forceinline__ void probs_and_dscores(
-    const float* sS, const float* sdP, const float* sLse, const float* sDelta,
-    const float* sGlse, T* sP, T* sdS, int r0, int q0, int k0, int Sq, int Sk, float scale,
-    int causal, int q_offset, int k_offset) {
-  const int lane = threadIdx.x & 31;
-  for (int r = r0; r < r0 + WROWS; ++r) {
-    const int qi = q0 + r;
-    const float lse_r = sLse[r];
-    const float g_r = sGlse[r] - sDelta[r];
-#pragma unroll
-    for (int h = 0; h < KPL; ++h) {
-      const int c = lane + 32 * h;
-      const bool ok = visible(qi, k0 + c, Sq, Sk, causal, q_offset, k_offset);
-      const float p = ok ? expf(sS[r * LDS + c] * scale - lse_r) : 0.f;
-      const float ds = p * (sdP[r * LDS + c] + g_r);
-      if (sP != nullptr) sP[r * LDP + c] = from_f<T>(p);
-      sdS[r * LDP + c] = from_f<T>(ds);
-    }
-  }
-}
-
-// dQ, float32: one block per (bh, Q tile); loop over K/V tiles.
-// dQ = scale * sum_j dS_ij K_j. At D = 128 the tiles take 230,144 bytes of
-// shared memory, just inside the 232,448 a block may use.
-template <int D>
-__global__ void __launch_bounds__(F32Tile<D>::THREADS)
-flash_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    const float* __restrict__ glse, float* __restrict__ dq, int BH, int Sq,
-                    int Sk, float scale, int causal, int q_offset, int k_offset) {
-  using T = float;
-  using L = Layout<T, D>;
-  constexpr int BQ = F32Tile<D>::B, BK = BQ, NTHREADS = F32Tile<D>::THREADS;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sdO = sQ + BQ * L::LDT;
-  T* sK = sdO + BQ * L::LDT;
-  T* sV = sK + BK * L::LDT;
-  float* sS = reinterpret_cast<float*>(sV + BK * L::LDT);
-  float* sdP = sS + BQ * L::LDS;
-  T* sdS = reinterpret_cast<T*>(sdP + BQ * L::LDS);
-  float* sdQ = reinterpret_cast<float*>(sdS + BQ * L::LDP);
-  float* sLse = sdQ + BQ * L::LDO;
-  float* sDelta = sLse + BQ;
-  float* sGlse = sDelta + BQ;
-
-  // grid.y holds at most 65535 heads: a block takes heads blockIdx.y,
-  // blockIdx.y + gridDim.y, ...
-  for (int bh = blockIdx.y; bh < BH; bh += gridDim.y) {
-    __syncthreads();  // the previous head is done with shared memory
-    const int q0 = blockIdx.x * BQ;
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int r0 = warp * WROWS;
-    const size_t qoff = (size_t)bh * Sq * D;
-    const size_t koff = (size_t)bh * Sk * D;
-
-    load_tile<T, D, BQ, NTHREADS>(sQ, L::LDT, q + qoff, q0, Sq);
-    load_tile<T, D, BQ, NTHREADS>(sdO, L::LDT, dout + qoff, q0, Sq);
-    load_rows<BQ, NTHREADS>(sLse, lse + (size_t)bh * Sq, q0, Sq);
-    load_rows<BQ, NTHREADS>(sDelta, delta + (size_t)bh * Sq, q0, Sq);
-    load_rows<BQ, NTHREADS>(sGlse, glse + (size_t)bh * Sq, q0, Sq);
-    for (int i = threadIdx.x; i < BQ * L::LDO; i += NTHREADS) sdQ[i] = 0.f;
-    const int kend = key_end(Sk, q0, BQ, causal, q_offset, k_offset);
-
-    for (int k0 = 0; k0 < kend; k0 += BK) {
-      __syncthreads();
-      load_tile<T, D, BK, NTHREADS>(sK, L::LDT, k + koff, k0, Sk);
-      load_tile<T, D, BK, NTHREADS>(sV, L::LDT, v + koff, k0, Sk);
-      __syncthreads();
-
-      warp_gemm<false, true, BK, D>(sQ + r0 * L::LDT, L::LDT, sK, L::LDT, sS + r0 * L::LDS,
-                                    L::LDS, false);
-      warp_gemm<false, true, BK, D>(sdO + r0 * L::LDT, L::LDT, sV, L::LDT, sdP + r0 * L::LDS,
-                                    L::LDS, false);
-      __syncwarp();
-      probs_and_dscores<T, F32Tile<D>::KPL, L::LDS, L::LDP>(sS, sdP, sLse, sDelta, sGlse,
-                                                             nullptr, sdS, r0, q0, k0, Sq, Sk,
-                                                             scale, causal, q_offset, k_offset);
-      __syncwarp();
-      warp_gemm<false, false, D, BK>(sdS + r0 * L::LDP, L::LDP, sK, L::LDT, sdQ + r0 * L::LDO,
-                                     L::LDO, true);
-    }
-    __syncthreads();
-
-    T* dqb = dq + qoff;
-    for (int r = r0; r < r0 + WROWS; ++r) {
-      const int qi = q0 + r;
-      if (qi >= Sq) break;
-      for (int c = lane; c < D; c += 32) dqb[(size_t)qi * D + c] = scale * sdQ[r * L::LDO + c];
-    }
-  }
-}
-
-// dK/dV, float32: one block per (bh, K tile); loop over Q tiles. dV =
-// sum_i P_ij^T dO_i; dK = scale * sum_i dS_ij^T Q_i. Each warp holds the dK
-// and dV of its 16 key rows in registers (RowAcc), which keeps the shared
-// memory of D = 128 at 213,760 bytes; they leave through staging tiles in
-// the Q buffer.
-template <int D>
-__global__ void __launch_bounds__(F32Tile<D>::THREADS)
-flash_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     const float* __restrict__ glse, float* __restrict__ dk,
-                     float* __restrict__ dv, int BH, int Sq, int Sk, float scale, int causal,
-                     int q_offset, int k_offset) {
-  using T = float;
-  using L = Layout<T, D>;
-  constexpr int BQ = F32Tile<D>::B, BK = BQ, NTHREADS = F32Tile<D>::THREADS;
-  static_assert(L::LDO <= L::LDT, "a warp's staging tile fits its rows of the Q buffer");
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* sK = reinterpret_cast<T*>(smem);
-  T* sV = sK + BK * L::LDT;
-  T* sQ = sV + BK * L::LDT;
-  T* sdO = sQ + BQ * L::LDT;
-  float* sS = reinterpret_cast<float*>(sdO + BQ * L::LDT);
-  float* sdP = sS + BQ * L::LDS;
-  T* sP = reinterpret_cast<T*>(sdP + BQ * L::LDS);
-  T* sdS = sP + BQ * L::LDP;
-  float* sLse = reinterpret_cast<float*>(sdS + BQ * L::LDP);
-  float* sDelta = sLse + BQ;
-  float* sGlse = sDelta + BQ;
-
-  // grid.y holds at most 65535 heads: a block takes heads blockIdx.y,
-  // blockIdx.y + gridDim.y, ...
-  for (int bh = blockIdx.y; bh < BH; bh += gridDim.y) {
-    __syncthreads();  // the previous head is done with shared memory
-    const int k0 = blockIdx.x * BK;
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const int r0 = warp * WROWS;
-    const size_t qoff = (size_t)bh * Sq * D;
-    const size_t koff = (size_t)bh * Sk * D;
-
-    load_tile<T, D, BK, NTHREADS>(sK, L::LDT, k + koff, k0, Sk);
-    load_tile<T, D, BK, NTHREADS>(sV, L::LDT, v + koff, k0, Sk);
-    RowAcc<T, D> acc_dv, acc_dk;
-    acc_dv.zero();
-    acc_dk.zero();
-
-    for (int q0 = query_begin(k0, BQ, causal, q_offset, k_offset); q0 < Sq; q0 += BQ) {
-      __syncthreads();  // every warp is done with the previous Q, dO, P, dS
-      load_tile<T, D, BQ, NTHREADS>(sQ, L::LDT, q + qoff, q0, Sq);
-      load_tile<T, D, BQ, NTHREADS>(sdO, L::LDT, dout + qoff, q0, Sq);
-      load_rows<BQ, NTHREADS>(sLse, lse + (size_t)bh * Sq, q0, Sq);
-      load_rows<BQ, NTHREADS>(sDelta, delta + (size_t)bh * Sq, q0, Sq);
-      load_rows<BQ, NTHREADS>(sGlse, glse + (size_t)bh * Sq, q0, Sq);
-      __syncthreads();
-
-      // Scores for this warp's 16 Q rows against the block's 64 keys.
-      warp_gemm<false, true, BK, D>(sQ + r0 * L::LDT, L::LDT, sK, L::LDT, sS + r0 * L::LDS,
-                                    L::LDS, false);
-      warp_gemm<false, true, BK, D>(sdO + r0 * L::LDT, L::LDT, sV, L::LDT, sdP + r0 * L::LDS,
-                                    L::LDS, false);
-      __syncwarp();
-      probs_and_dscores<T, F32Tile<D>::KPL, L::LDS, L::LDP>(sS, sdP, sLse, sDelta, sGlse, sP,
-                                                             sdS, r0, q0, k0, Sq, Sk, scale,
-                                                             causal, q_offset, k_offset);
-      __syncthreads();  // the transposed products read every warp's rows
-
-      // This warp's 16 key rows: contraction over the BQ Q rows.
-      acc_dv.template add_at_b<BQ>(sP + r0, L::LDP, sdO, L::LDT);
-      acc_dk.template add_at_b<BQ>(sdS + r0, L::LDP, sQ, L::LDT);
-    }
-    __syncthreads();  // the Q buffer becomes the warps' staging tiles
-
-    float* st = sQ + r0 * L::LDT;
-    auto write = [&](const RowAcc<T, D>& acc, T* out, float mul) {
-      acc.store(st, L::LDO);
-      __syncwarp();
-      for (int e = lane; e < WROWS * D; e += 32) {
-        const int kj = k0 + r0 + e / D;
-        if (kj < Sk)
-          out[koff + (size_t)kj * D + e % D] = mul * st[(e / D) * L::LDO + e % D];
-      }
-      __syncwarp();
-    };
-    write(acc_dv, dv, 1.f);
-    write(acc_dk, dk, scale);
-  }
-}
-
-// ===========================================================================
 // Launchers.
 // ===========================================================================
-
-template <typename T, int D>
-constexpr size_t dq_smem() {
-  using L = Layout<T, D>;
-  constexpr int BQ = F32Tile<D>::B, BK = BQ;
-  return (size_t)(2 * BQ + 2 * BK) * L::LDT * sizeof(T) + 2 * BQ * L::LDS * sizeof(float) +
-         BQ * L::LDP * sizeof(T) + BQ * L::LDO * sizeof(float) + 3 * BQ * sizeof(float);
-}
-
-template <typename T, int D>
-constexpr size_t dkv_smem() {
-  using L = Layout<T, D>;
-  constexpr int BQ = F32Tile<D>::B, BK = BQ;
-  return (size_t)(2 * BQ + 2 * BK) * L::LDT * sizeof(T) + 2 * BQ * L::LDS * sizeof(float) +
-         2 * BQ * L::LDP * sizeof(T) + 3 * BQ * sizeof(float);
-}
-
-// Blocks along grid.y: one per head, at most 65535 (the kernels loop over
-// the rest).
-inline unsigned head_blocks(int BH) { return BH < 65535 ? (unsigned)BH : 65535u; }
 
 template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int Sq,
@@ -1366,16 +1130,9 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
     return launch(flash_dq_kernel<T, D>, dim3(nwork < sms ? nwork : sms), SM90_THREADS,
                   DqSmem<D>::BYTES, stream, mq, mk, mv, mdo, mdq, (T*)dq, (const float*)lse,
                   (const float*)delta, (const float*)glse, BH, Sq, Sk, scale, causal, qo, ko);
-  } else if constexpr (D == 256) {
-    return launch_dq_3xtf32(q, k, v, dout, lse, delta, glse, dq, BH, Sq, Sk, scale, causal, qo,
-                            ko, stream);
   } else {
-    using Tile = F32Tile<D>;
-    static_assert(dq_smem<T, D>() <= SMEM_LIMIT, "dQ tiles exceed shared memory");
-    return launch(flash_dq_f32_kernel<D>, dim3((Sq + Tile::B - 1) / Tile::B, head_blocks(BH)),
-                  Tile::THREADS, dq_smem<T, D>(), stream, (const T*)q, (const T*)k, (const T*)v,
-                  (const T*)dout, (const float*)lse, (const float*)delta, (const float*)glse,
-                  (T*)dq, BH, Sq, Sk, scale, causal, qo, ko);
+    return launch_dq_3xtf32(q, k, v, dout, lse, delta, glse, dq, BH, Sq, Sk, D, scale, causal, qo,
+                            ko, stream);
   }
 }
 
@@ -1401,16 +1158,9 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
                   DkvSmem<D>::BYTES, stream, mq, mk, mv, mdo, mdk, mdv, (T*)dk, (T*)dv,
                   (const float*)lse, (const float*)delta, (const float*)glse, BH, Sq, Sk, scale,
                   causal, qo, ko);
-  } else if constexpr (D == 256) {
-    return launch_dkv_3xtf32(q, k, v, dout, lse, delta, glse, dk, dv, BH, Sq, Sk, scale, causal,
-                             qo, ko, stream);
   } else {
-    using Tile = F32Tile<D>;
-    static_assert(dkv_smem<T, D>() <= SMEM_LIMIT, "dK/dV tiles exceed shared memory");
-    return launch(flash_dkv_f32_kernel<D>, dim3((Sk + Tile::B - 1) / Tile::B, head_blocks(BH)),
-                  Tile::THREADS, dkv_smem<T, D>(), stream, (const T*)q, (const T*)k, (const T*)v,
-                  (const T*)dout, (const float*)lse, (const float*)delta, (const float*)glse,
-                  (T*)dk, (T*)dv, BH, Sq, Sk, scale, causal, qo, ko);
+    return launch_dkv_3xtf32(q, k, v, dout, lse, delta, glse, dk, dv, BH, Sq, Sk, D, scale,
+                             causal, qo, ko, stream);
   }
 }
 

@@ -1,11 +1,13 @@
-// Flash attention in float32 on Hopper's tensor cores (3xTF32): the
+// Flash attention in float32 on Hopper's tensor cores (3xTF32), every
+// float32 call of the multi-tile route and the single-tile forward: the
 // forwards at head dims 32 to 256 (flash_fwd_3xtf32_kernel<D>, the
 // multi-tile route, and flash_fwd_single_3xtf32_kernel<D>, Sq and Sk at most
-// 128), and the backward at head dim 256: dQ (flash_dq_3xtf32_kernel) and
-// dK/dV (flash_dkv_3xtf32_kernel). flash_attention.cu's launch_fwd,
-// launch_dq and launch_dkv and flash_attention_single.cu's launch_fwd_single
-// call them for float32 (the backward at D = 256, the instance of head dims
-// 129 to 256; attention.py:padded_heads zero-pads to it).
+// 128), and the backward at head dims 32 to 256: dQ
+// (flash_dq_3xtf32_kernel<D>) and dK/dV (flash_dkv_3xtf32_kernel<D>).
+// flash_attention.cu's launch_fwd, launch_dq and launch_dkv and
+// flash_attention_single.cu's launch_fwd_single call them for float32
+// (attention.py:padded_heads zero-pads a head dim to the next instance, and
+// D = 16 to 32: a box row is 32 fp32 columns).
 //
 // Replaces the Pallas TPU kernels of horovod_tpu/ops/attention.py:
 //   flash_fwd_3xtf32_kernel         <- _flash_fwd_kernel (:138)
@@ -19,8 +21,10 @@
 // products) over 403 MB, the forward 34.36 GFLOP (2 products) over 269 MB.
 // On the FMA units (67 TFLOP/s) that is 0.77, 1.03 and 0.51 ms, against
 // 0.10, 0.12 and 0.08 ms of bytes: bound by operations, as the first SIMT
-// versions were, 33x, 47x and 36x over it. The single-tile forward at
-// B*H = 1024, S = 128, D = 64 moves 134.7 MB (0.0402 ms) for 4.29 GFLOP.
+// versions were, 33x, 47x and 36x over it. At D = 64 the same holds at a
+// quarter of the operations (dQ 12.88, dK/dV 17.18 GFLOP). The single-tile
+// forward at B*H = 1024, S = 128, D = 64 moves 134.7 MB (0.0402 ms) for
+// 4.29 GFLOP.
 //
 // What the design does about it. Every product runs on the tensor cores in
 // TF32 as three products (3xTF32): an fp32 value x is the pair hi + lo, hi =
@@ -33,9 +37,9 @@
 // to that of the float32 plain version, where one TF32 product (10
 // mantissa bits) would not. P and dS go through the same split, unrounded.
 // Three TF32 products at 495 TFLOP/s make a least time of 0.31 (dQ), 0.42
-// (dK/dV) and 0.21 ms (the forward at D = 256): the bound these kernels are
-// held to; the single-tile forward stays bound by its bytes (0.0260 ms of
-// operations).
+// (dK/dV) and 0.21 ms (the forward at D = 256), 0.078 and 0.104 ms (dQ,
+// dK/dV at D = 64): the bound these kernels are held to; the single-tile
+// forward stays bound by its bytes (0.0260 ms of operations).
 //   - The products are mma.sync m16n8k8 TF32 with fragments read from the
 //     tiles TMA landed in shared memory and split in registers (three
 //     instructions a value). wgmma's TF32 form takes both operands from
@@ -67,23 +71,33 @@
 //     D = 256, beside the scores: the products sum in two groups of
 //     n-tiles, as dK/dV does beside dV). O / l and lse = max(s) scale +
 //     log(l) leave from registers, 8 bytes a thread.
-//   - Backward: the work tile's own pair of 64 x 256 tiles stays resident
-//     (dQ: Q and dO; dK/dV: K and V, 128 KB) and the other side streams
-//     through a ring of four 16 KB stages; the next work tile's resident
-//     pair loads once the last score product of the current one is done.
-//   - Backward: warp w of warpgroup 0 and warp w of warpgroup 1 form a pair
-//     that owns 16 rows of the 64-row work tile. dQ, per 64-key tile: the
-//     warpgroup 0 warp computes S and P, the warpgroup 1 warp dP and, from P
-//     (handed over in fp32 through the pair's 4 KB buffer, named barriers),
-//     dS = P (dP - delta + g_lse), written back to the buffer in fragment
-//     order; then the first adds dS K to dQ columns 0-127, the second to
-//     columns 128-255 (64 fp32 registers each), K streaming again as four
-//     64-column items. dK/dV, per 64-row Q tile: the warpgroup 0 warp
-//     computes S^T and P^T and holds dV (all 256 columns, 128 registers),
-//     the warpgroup 1 warp dP^T, dS^T (P^T handed over as in dQ; each then
-//     reads its product's A fragments from the pair's buffers) and dK: one
-//     column pass, no score product computed twice, and dV and dK each fit
-//     one warp's registers, where both would not.
+//   - Backward (BwdX): a work tile's own pair (dQ: Q and dO; dK/dV: K and V)
+//     stays resident, in one of two buffers where they fit (D <= 128: the
+//     next work tile's pair lands while this one computes; one 128 KB
+//     buffer at D = 256), and the other side streams through a ring whose
+//     depth is what shared memory leaves. Two designs, by head dim (at
+//     D = 64 on the H100 the solo dQ and dK/dV were 1.21x faster than a
+//     pair design, at D = 32 dK/dV 1.64x; PERF.md):
+//     solo (D <= 64): each consumer warp owns 16 rows (dQ: Q rows; dK/dV:
+//     keys) of a 128-row work tile and forms S and dP (S^T, dP^T), P and
+//     dS in its own registers, with no exchange; a ring stage holds a
+//     whole 64-row tile of both streamed operands (K and V; Q and dO), read
+//     by the score and the output products alike. dQ holds D / 2 registers
+//     of dQ; dK/dV D / 2 of dV and D / 2 of dK, and takes dV's product
+//     before dP^T is formed, so that no more than one score tile is live
+//     beside them through a product (else they spilled).
+//     pair (D = 128, 256): warp w of
+//     warpgroup 0 and warp w of warpgroup 1 own 16 rows of a 64-row work
+//     tile. dQ, per 64-key tile: the warpgroup 0 warp computes S and P, the
+//     warpgroup 1 warp dP and, from P (handed over in fp32 through the
+//     pair's 4 KB buffer, named barriers), dS = P (dP - delta + g_lse),
+//     written back to the buffer in fragment order; then the first adds
+//     dS K to dQ's columns [0, D / 2), the second to the rest, K streaming
+//     again as 64-column items. dK/dV, per 64-row Q tile: the warpgroup 0
+//     warp computes S^T and P^T and holds dV (all D columns), the warpgroup
+//     1 warp dP^T, dS^T (P^T handed over as in dQ; each then reads its
+//     product's A fragments from the pair's buffers) and dK: dV and dK
+//     each fit one warp's registers at D = 256, where both would not.
 //   - A fragment taken from an accumulator (P, dS, P^T, dS^T) keeps its
 //     columns 2 t and 2 t + 1 and stands them for k = t and t + 4; the
 //     other operand's rows are read in the same order, so no shuffle.
@@ -97,27 +111,43 @@
 
 namespace {
 
-constexpr int X_D = 256;                           // the head dim
 constexpr int X_BOX = 32;                          // fp32 columns of a box: 128-byte rows
 constexpr int X_BOX_BYTES = SEQ_TILE * X_BOX * 4;  // 8 KB
-constexpr int X_CHUNKS = X_D / X_BOX;              // boxes across D
-constexpr int X_STAGE = 2 * X_BOX_BYTES;           // a ring stage: two boxes
-constexpr int X_STAGES = 4;
-constexpr int X_PAIRS = CONSUMER_WARPS / 2;  // warp pairs, 16 rows of the work tile each
-constexpr int X_PAIR_ROWS = SEQ_TILE / X_PAIRS;
-constexpr int X_ITEMS = 4;  // dQ's output items per key tile: 64 columns, two boxes, each
+constexpr int X_PAIRS = CONSUMER_WARPS / 2;        // warp pairs of the pair design
+constexpr int X_PAIR_ROWS = SEQ_TILE / X_PAIRS;    // 16: the rows a consumer warp owns
+constexpr int X_XCH_BYTES = X_PAIR_ROWS * SEQ_TILE * 4;  // a 16 x 64 fp32 exchange buffer
 
-// Shared memory, byte offsets from a 1024-aligned base: the resident pair of
-// 64 x 256 tiles (X_CHUNKS boxes each), the ring, two 16 x 64 fp32 exchange
-// buffers per warp pair, then the ring's full/empty barriers and the
-// resident tiles' full and empty barriers.
-constexpr int X_RES = 2 * X_CHUNKS * X_BOX_BYTES;  // 128 KB
-constexpr int X_RING = X_RES;
-constexpr int X_XCH = X_RING + X_STAGES * X_STAGE;
-constexpr int X_XCH_BYTES = X_PAIR_ROWS * SEQ_TILE * 4;
-constexpr int X_BAR = X_XCH + 2 * X_PAIRS * X_XCH_BYTES;
-constexpr int X_BYTES = X_BAR + (2 * X_STAGES + 2) * 8 + 1024;  // + alignment slack
-static_assert(X_BYTES <= (int)SMEM_LIMIT, "3xTF32 tiles exceed shared memory");
+// Shared memory of the backward at head dim D, in the solo design (D <= 64)
+// or the pair design (D = 128, 256), byte offsets from a 1024-aligned base.
+// A work tile of ROWS rows
+// (dQ: Q rows; dK/dV: keys) keeps its resident pair (operand o's 64-row
+// half h, column box c at o RES / 2 + (h CB + c) boxes) in one of RBUFS
+// buffers (two where they leave room for three ring stages), and the other
+// side streams through the ring: STAGES stages (as many as fit, at most 16)
+// of STAGE bytes, the pair design's items of two boxes or the solo design's
+// 64-row tiles of both streamed operands. Then the pair design's two
+// exchange buffers per warp pair, the ring's full/empty barriers, and the
+// resident buffers' full and empty barriers. At D = 256 (pair): one
+// 128 KB buffer and 4 stages of 16 KB.
+template <int D>
+struct BwdX {
+  static constexpr bool SOLO = D <= 64;
+  static constexpr int CB = D / X_BOX;                        // column boxes
+  static constexpr int ROWS = SOLO ? 2 * SEQ_TILE : SEQ_TILE;  // rows of a work tile
+  static constexpr int HALF = CB * X_BOX_BYTES;               // 64 rows of one operand
+  static constexpr int RES = 2 * (ROWS / SEQ_TILE) * HALF;    // the resident pair
+  static constexpr int STAGE = SOLO ? 2 * HALF : 2 * X_BOX_BYTES;
+  static constexpr int XCH_ALL = SOLO ? 0 : 2 * X_PAIRS * X_XCH_BYTES;
+  static constexpr int AVAIL = (int)SMEM_LIMIT - 2048;
+  static constexpr int RBUFS = 2 * RES + XCH_ALL + 3 * STAGE <= AVAIL ? 2 : 1;
+  static constexpr int FIT = (AVAIL - RBUFS * RES - XCH_ALL) / STAGE;
+  static constexpr int STAGES = FIT < 16 ? FIT : 16;
+  static constexpr int RING = RBUFS * RES;
+  static constexpr int XCH = RING + STAGES * STAGE;
+  static constexpr int BAR = XCH + XCH_ALL;
+  static constexpr int BYTES = BAR + (2 * STAGES + 2 * RBUFS) * 8 + 1024;  // + alignment slack
+  static_assert(BYTES <= (int)SMEM_LIMIT, "3xTF32 backward tiles exceed shared memory");
+};
 
 // Named barriers of a pair's exchange (64 threads): XCH_FULL + pair once the
 // warpgroup 0 warp has written P (P^T), XCH_BACK + pair once the warpgroup 1
@@ -200,9 +230,10 @@ __device__ __forceinline__ uint32_t box_at(int row, int col) {
 // sum they form, so a running sum through them would lose about an ulp of
 // itself at every product. NG groups of n-tiles, one after the other, keep
 // the partial sum to 32 / NG registers (A's fragments are loaded again for
-// each group), and KS_UNROLL of the four k-steps are unrolled: dK/dV takes
-// NG = 2 and 2 (its scores and 128 accumulator registers leave no room for
-// more loads in flight; ptxas spilled otherwise), dQ 1 and 4.
+// each group), and KS_UNROLL of the four k-steps are unrolled: each caller
+// picks them for its registers (the pair's dK/dV at D = 256 takes NG = 2
+// and 2, since its scores and 128 accumulator registers leave no room for
+// more loads in flight; ptxas spilled otherwise).
 template <int NG, int KS_UNROLL>
 __device__ __forceinline__ void scores_box(float (&s)[SEQ_TILE / 2], uint32_t a, int a_row0,
                                            uint32_t b, int lane) {
@@ -311,48 +342,77 @@ __device__ __forceinline__ void store_acc(float* out, int ld, const float (&acc)
   }
 }
 
-// Shared memory of a block: the ring and the resident tiles' barriers, set
-// up before the block syncs.
+// Shared memory of a backward block of layout L (BwdX): the ring and the
+// resident buffers' barriers, set up before the block syncs. Work tile n
+// (the block's n-th) keeps its pair in buffer n % RBUFS.
+template <typename L>
 struct XSmem {
-  uint32_t base, res_full, res_empty;
+  uint32_t base;
   unsigned char* smem;  // base, generic
-  Ring<X_STAGE> ring;
+  Ring<L::STAGE> ring;
+  __device__ __forceinline__ uint32_t res(int n) const { return base + (n % L::RBUFS) * L::RES; }
+  __device__ __forceinline__ uint32_t res_full(int n) const {
+    return base + L::BAR + 16 * L::STAGES + 8 * (n % L::RBUFS);
+  }
+  __device__ __forceinline__ uint32_t res_empty(int n) const { return res_full(n) + 8 * L::RBUFS; }
+  __device__ __forceinline__ int res_phase(int n) const { return (n / L::RBUFS) & 1; }
 };
 
-__device__ __forceinline__ XSmem x_smem(unsigned char* smem_raw) {
+template <typename L>
+__device__ __forceinline__ XSmem<L> x_smem(unsigned char* smem_raw) {
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
-  const uint32_t res_full = base + X_BAR + 16 * X_STAGES;
-  const XSmem x{base, res_full, res_full + 8, smem_raw + (base - raw),
-                make_ring<X_STAGE>(base + X_RING, X_BAR - X_RING, X_STAGES)};
+  const XSmem<L> x{base, smem_raw + (base - raw),
+                   make_ring<L::STAGE>(base + L::RING, L::BAR - L::RING, L::STAGES)};
   if (threadIdx.x == 0) {
-    mbar_init(x.res_full, 1);
-    mbar_init(x.res_empty, CONSUMER_WARPS);
+    for (int b = 0; b < L::RBUFS; ++b) {
+      mbar_init(x.res_full(b), 1);
+      mbar_init(x.res_empty(b), CONSUMER_WARPS);
+    }
     mbar_fence_init();
   }
   __syncthreads();
   return x;
 }
 
-// The producer's load of a work tile's resident pair (boxes of a, then of b,
-// rows row0 of head bh), once the consumers have released the last one.
-__device__ __forceinline__ void load_resident(const XSmem& x, int n, const CUtensorMap* a,
+// The producer's load of work tile n's resident pair, rows [row0, row0 +
+// L::ROWS) of a and of b of head bh, once the consumers have released its
+// buffer.
+template <typename L>
+__device__ __forceinline__ void load_resident(const XSmem<L>& x, int n, const CUtensorMap* a,
                                               const CUtensorMap* b, int row0, int bh) {
-  mbar_wait(x.res_empty, (n & 1) ^ 1);
-  mbar_arrive_expect_tx(x.res_full, X_RES);
-  for (int c = 0; c < X_CHUNKS; ++c) {
-    tma_load_3d(x.base + c * X_BOX_BYTES, a, x.res_full, X_BOX * c, row0, bh);
-    tma_load_3d(x.base + (X_CHUNKS + c) * X_BOX_BYTES, b, x.res_full, X_BOX * c, row0, bh);
-  }
+  mbar_wait(x.res_empty(n), x.res_phase(n) ^ 1);
+  const uint32_t full = x.res_full(n), dst = x.res(n);
+  mbar_arrive_expect_tx(full, L::RES);
+  for (int h = 0; h < L::ROWS / SEQ_TILE; ++h)
+    for (int c = 0; c < L::CB; ++c) {
+      const uint32_t at = dst + (h * L::CB + c) * X_BOX_BYTES;
+      tma_load_3d(at, a, full, X_BOX * c, row0 + SEQ_TILE * h, bh);
+      tma_load_3d(at + L::RES / 2, b, full, X_BOX * c, row0 + SEQ_TILE * h, bh);
+    }
 }
 
-// The producer's item of two boxes: columns col_a of a and col_b of b, rows
-// row0 of head bh.
-__device__ __forceinline__ void load_item(const XSmem& x, int it, const CUtensorMap* a, int col_a,
-                                          const CUtensorMap* b, int col_b, int row0, int bh) {
-  const uint32_t tile = x.ring.fill(it, X_STAGE);
+// The producer's ring item `it` of the pair design, two boxes: columns
+// col_a of a, then col_b of b, rows row0 of head bh.
+template <typename L>
+__device__ __forceinline__ void load_item(const XSmem<L>& x, int it, const CUtensorMap* a,
+                                          int col_a, const CUtensorMap* b, int col_b, int row0,
+                                          int bh) {
+  const uint32_t tile = x.ring.fill(it, L::STAGE);
   tma_load_3d(tile, a, x.ring.bar(it), col_a, row0, bh);
   tma_load_3d(tile + X_BOX_BYTES, b, x.ring.bar(it), col_b, row0, bh);
+}
+
+// The producer's ring item `it` of the solo design: rows [row0, row0 + 64)
+// of head bh across D, a's L::CB boxes, then b's.
+template <typename L>
+__device__ __forceinline__ void load_tiles(const XSmem<L>& x, int it, const CUtensorMap* a,
+                                           const CUtensorMap* b, int row0, int bh) {
+  const uint32_t tile = x.ring.fill(it, L::STAGE);
+  for (int c = 0; c < L::CB; ++c) {
+    tma_load_3d(tile + c * X_BOX_BYTES, a, x.ring.bar(it), X_BOX * c, row0, bh);
+    tma_load_3d(tile + (L::CB + c) * X_BOX_BYTES, b, x.ring.bar(it), X_BOX * c, row0, bh);
+  }
 }
 
 // A consumer warp is done with a resident buffer whose empty barrier is bar.
@@ -361,45 +421,50 @@ __device__ __forceinline__ void release_resident(uint32_t bar, int lane) {
   if (lane == 0) mbar_arrive(bar);
 }
 
-// dQ output item u (of X_ITEMS per key tile): the warpgroup that adds it,
-// u % 2, and its first column: warpgroup 0 holds columns 0-127, 1 128-255,
-// and the items alternate so that both work at once.
-__host__ __device__ constexpr int dq_item_col(int u) { return 128 * (u & 1) + 64 * (u >> 1); }
+// The backward kernels' arguments: the four operands' tensor maps (q, k, v,
+// dO), the outputs ([BH, S, D] fp32: dq, or dk and dv), the row vectors lse,
+// delta and g_lse ([BH, Sq] fp32), and the shape and masking.
+#define X_BWD_PARAMS                                                                        \
+  const CUtensorMap *tm_q, const CUtensorMap *tm_k, const CUtensorMap *tm_v,                \
+      const CUtensorMap *tm_do, const float *__restrict__ lse,                              \
+      const float *__restrict__ delta, const float *__restrict__ glse, int BH, int Sq, int Sk, \
+      float scale, int causal, int q_offset, int k_offset
 
-// dQ, persistent: a grid of one block per SM walks the work tiles (bh, 64
-// Q rows) and loops over the key tiles their rows can see. dq = scale *
-// sum_j dS_j K_j, [BH, Sq, 256] fp32.
-__global__ void __launch_bounds__(SM90_THREADS, 1)
-flash_dq_3xtf32_kernel(const __grid_constant__ CUtensorMap tm_q,
-                       const __grid_constant__ CUtensorMap tm_k,
-                       const __grid_constant__ CUtensorMap tm_v,
-                       const __grid_constant__ CUtensorMap tm_do, float* __restrict__ dq,
-                       const float* __restrict__ lse, const float* __restrict__ delta,
-                       const float* __restrict__ glse, int BH, int Sq, int Sk, float scale,
-                       int causal, int q_offset, int k_offset) {
+// dQ in the pair design (D = 128, 256), persistent: a grid of one block per
+// SM walks the work tiles (bh, 64 Q rows) and loops over the key tiles
+// their rows can see. dq = scale * sum_j dS_j K_j, [BH, Sq, D] fp32. Output
+// item u of a key tile (64 columns of K, two boxes) is added by warpgroup
+// u % 2, which holds columns [D / 2 wg, D / 2 (wg + 1)); the items
+// alternate so that both work at once.
+template <int D>
+__device__ __forceinline__ void dq_pair(float* __restrict__ dq, X_BWD_PARAMS) {
+  using L = BwdX<D>;
+  static_assert(!L::SOLO);
+  constexpr int CB = L::CB;
+  constexpr int NI = CB / 2;  // output items of a key tile
   extern __shared__ unsigned char smem_raw[];
-  const XSmem x = x_smem(smem_raw);
+  const XSmem<L> x = x_smem<L>(smem_raw);
   const int qtiles = (Sq + SEQ_TILE - 1) / SEQ_TILE;
   const int nwork = BH * qtiles;  // work tile w: Q tile w % qtiles of head w / qtiles
   const int wg = threadIdx.x / WG;
+  auto item_col = [](int u) { return D / 2 * (u & 1) + 2 * X_BOX * (u >> 1); };
 
   if (wg == CONSUMER_WGS) {
     // Producer, one thread: per work tile Q and dO; per key tile its score
-    // items (K and V boxes of 32 columns), then its output items (K, 64
-    // columns).
+    // items (K and V boxes of 32 columns), then its output items (K).
     reg_dealloc<PRODUCER_REGS>();
     if (threadIdx.x == CONSUMER_WGS * WG) {
       int it = 0, n = 0;
       for (int w = blockIdx.x; w < nwork; w += gridDim.x, ++n) {
         const int q0 = w % qtiles * SEQ_TILE, bh = w / qtiles;
-        load_resident(x, n, &tm_q, &tm_do, q0, bh);
+        load_resident(x, n, tm_q, tm_do, q0, bh);
         const int nk = key_tiles(q0, Sq, Sk, causal, q_offset, k_offset);
         for (int kt = 0; kt < nk; ++kt) {
           const int k0 = kt * SEQ_TILE;
-          for (int c = 0; c < X_CHUNKS; ++c, ++it)
-            load_item(x, it, &tm_k, X_BOX * c, &tm_v, X_BOX * c, k0, bh);
-          for (int u = 0; u < X_ITEMS; ++u, ++it)
-            load_item(x, it, &tm_k, dq_item_col(u), &tm_k, dq_item_col(u) + X_BOX, k0, bh);
+          for (int c = 0; c < CB; ++c, ++it)
+            load_item(x, it, tm_k, X_BOX * c, tm_v, X_BOX * c, k0, bh);
+          for (int u = 0; u < NI; ++u, ++it)
+            load_item(x, it, tm_k, item_col(u), tm_k, item_col(u) + X_BOX, k0, bh);
         }
       }
     }
@@ -412,13 +477,13 @@ flash_dq_3xtf32_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int tq = lane & 3;
     const int r = X_PAIR_ROWS * pair + (lane >> 2);  // this thread's rows r, r + 8 of the 64
     const float sl2 = scale * LOG2E;
-    float* const xch = reinterpret_cast<float*>(x.smem + X_XCH + 2 * pair * X_XCH_BYTES);
-    const uint32_t res = x.base + wg * X_CHUNKS * X_BOX_BYTES;  // Q or dO
+    float* const xch = reinterpret_cast<float*>(x.smem + L::XCH + 2 * pair * X_XCH_BYTES);
     int it = 0, n = 0;
     for (int w = blockIdx.x; w < nwork; w += gridDim.x, ++n) {
       const int q0 = w % qtiles * SEQ_TILE, bh = w / qtiles;
       const int row0 = q0 + r;  // and row0 + 8
       const int nk = key_tiles(q0, Sq, Sk, causal, q_offset, k_offset);
+      const uint32_t res = x.res(n) + wg * L::HALF;  // Q or dO
       // This thread's two rows: lse log2(e) for warpgroup 0, g_lse - delta
       // for warpgroup 1. Rows past Sq get lse = LSE_MASKED: their P is 0.
       float rv[2];
@@ -431,11 +496,11 @@ flash_dq_3xtf32_kernel(const __grid_constant__ CUtensorMap tm_q,
         else
           rv[h] = qi < Sq ? glse[at] - delta[at] : 0.f;
       }
-      float acc[X_D / 4];  // dQ: the pair's 16 rows by this warpgroup's 128 columns
+      float acc[D / 4];  // dQ: the pair's 16 rows by this warpgroup's D / 2 columns
 #pragma unroll
-      for (int i = 0; i < X_D / 4; ++i) acc[i] = 0.f;
-      mbar_wait(x.res_full, n & 1);
-      if (nk == 0) release_resident(x.res_empty, lane);
+      for (int i = 0; i < D / 4; ++i) acc[i] = 0.f;
+      mbar_wait(x.res_full(n), x.res_phase(n));
+      if (nk == 0) release_resident(x.res_empty(n), lane);
 
       for (int kt = 0; kt < nk; ++kt) {
         const int k0 = kt * SEQ_TILE;
@@ -443,13 +508,13 @@ flash_dq_3xtf32_kernel(const __grid_constant__ CUtensorMap tm_q,
         float s[SEQ_TILE / 2];
 #pragma unroll
         for (int i = 0; i < SEQ_TILE / 2; ++i) s[i] = 0.f;
-        for (int c = 0; c < X_CHUNKS; ++c, ++it) {
+        for (int c = 0; c < CB; ++c, ++it) {
           x.ring.wait(it);
           scores_box<1, 4>(s, res + c * X_BOX_BYTES, X_PAIR_ROWS * pair,
                            x.ring.tile(it) + wg * X_BOX_BYTES, lane);
           x.ring.release(it, lane);
         }
-        if (kt == nk - 1) release_resident(x.res_empty, lane);
+        if (kt == nk - 1) release_resident(x.res_empty(n), lane);
 
         // P to the partner in fp32 (thread lane's element i at i 32 + lane),
         // which forms dS = P (dP + g_lse - delta) and writes it back in
@@ -487,39 +552,165 @@ flash_dq_3xtf32_kernel(const __grid_constant__ CUtensorMap tm_q,
         // for warpgroup 0, from its registers for warpgroup 1); the other
         // warpgroup's items are waited for and released.
 #pragma unroll
-        for (int u = 0; u < X_ITEMS; ++u, ++it) {
+        for (int u = 0; u < NI; ++u, ++it) {
           x.ring.wait(it);
           if ((u & 1) == wg) {
+            float* const d = acc + 32 * (u >> 1);
+            const uint32_t t = x.ring.tile(it);
             if (wg == 0)
-              product_item<1>(acc + 32 * (u >> 1), x.ring.tile(it), x.ring.tile(it) + X_BOX_BYTES,
+              product_item<1>(d, t, t + X_BOX_BYTES,
                               SmemFrag<8>{reinterpret_cast<const float4*>(xch), lane}, lane);
             else
-              product_item<1>(acc + 32 * (u >> 1), x.ring.tile(it), x.ring.tile(it) + X_BOX_BYTES,
-                              RegFrag{s}, lane);
+              product_item<1>(d, t, t + X_BOX_BYTES, RegFrag{s}, lane);
           }
           x.ring.release(it, lane);
         }
       }
-      store_acc<X_D / 2>(dq + (size_t)bh * Sq * X_D, X_D, acc,
-                         [scale](float x, int) { return scale * x; }, row0, Sq, 128 * wg, lane);
+      store_acc<D / 2>(dq + (size_t)bh * Sq * D, D, acc,
+                       [scale](float x, int) { return scale * x; }, row0, Sq, D / 2 * wg, lane);
     }
   }
 }
 
-// dK/dV, persistent: a grid of one block per SM walks the work tiles (bh,
-// 64 keys) and loops over the Q tiles that can see the keys. dV = sum_i
-// P_ij^T dO_i (warpgroup 0), dK = scale * sum_i dS_ij^T Q_i (warpgroup 1),
-// [BH, Sk, 256] fp32.
-__global__ void __launch_bounds__(SM90_THREADS, 1)
-flash_dkv_3xtf32_kernel(const __grid_constant__ CUtensorMap tm_q,
-                        const __grid_constant__ CUtensorMap tm_k,
-                        const __grid_constant__ CUtensorMap tm_v,
-                        const __grid_constant__ CUtensorMap tm_do, float* __restrict__ dk,
-                        float* __restrict__ dv, const float* __restrict__ lse,
-                        const float* __restrict__ delta, const float* __restrict__ glse, int BH,
-                        int Sq, int Sk, float scale, int causal, int q_offset, int k_offset) {
+// dQ in the solo design (D <= 64), persistent: work tiles of 128 Q rows
+// (bh, q0), each consumer warp 16 of them. Per key tile, one ring item (K
+// and V, 64 rows each across D): the warp computes S = Q K^T and dP =
+// dO V^T (16 x 64 each), P and dS = P (dP + g_lse - delta) in registers,
+// and dQ += dS K with dS's fragments taken from them; dQ (D / 2 registers)
+// leaves as scale dQ.
+template <int D>
+__device__ __forceinline__ void dq_solo(float* __restrict__ dq, X_BWD_PARAMS) {
+  using L = BwdX<D>;
+  static_assert(L::SOLO);
+  constexpr int CB = L::CB;
+  constexpr int OB = CB >= 2 ? 2 : 1;  // K boxes of an output item: 64 columns (32 at D = 32)
+  // Groups of n-tiles and unrolled k-steps of the score products (S, dP)
+  // and the output product (scores_box, product_item): dP's with two
+  // k-steps unrolled (the fastest choice without spills on the H100;
+  // variants built side by side, PERF.md).
+  constexpr int S_NG = 1, S_KS = 4, DP_NG = 1, DP_KS = 2, P_NG = 1;
   extern __shared__ unsigned char smem_raw[];
-  const XSmem x = x_smem(smem_raw);
+  const XSmem<L> x = x_smem<L>(smem_raw);
+  const int qtiles = (Sq + L::ROWS - 1) / L::ROWS;
+  const int nwork = BH * qtiles;  // work tile w: Q tile w % qtiles of head w / qtiles
+  const int wg = threadIdx.x / WG;
+
+  if (wg == CONSUMER_WGS) {
+    // Producer, one thread: per work tile Q and dO, per key tile K and V.
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x == CONSUMER_WGS * WG) {
+      int it = 0, n = 0;
+      for (int w = blockIdx.x; w < nwork; w += gridDim.x, ++n) {
+        const int q0 = w % qtiles * L::ROWS, bh = w / qtiles;
+        load_resident(x, n, tm_q, tm_do, q0, bh);
+        const int nk = key_tiles<L::ROWS>(q0, Sq, Sk, causal, q_offset, k_offset);
+        for (int kt = 0; kt < nk; ++kt, ++it) load_tiles(x, it, tm_k, tm_v, kt * SEQ_TILE, bh);
+      }
+    }
+  } else {
+    // Consumer warp: rows [16 (warp % 4), + 16) of warpgroup wg's 64.
+    reg_alloc<CONSUMER_REGS>();
+    const int lane = threadIdx.x & 31;
+    const int tq = lane & 3;
+    const int wrow = X_PAIR_ROWS * (threadIdx.x / 32 % 4);
+    const float sl2 = scale * LOG2E;
+    int it = 0, n = 0;
+    for (int w = blockIdx.x; w < nwork; w += gridDim.x, ++n) {
+      const int q0 = w % qtiles * L::ROWS, bh = w / qtiles;
+      const int row_first = q0 + SEQ_TILE * wg + wrow;  // this warp's first row
+      const int row0 = row_first + (lane >> 2);         // this thread's rows row0, row0 + 8
+      const int nk = key_tiles<L::ROWS>(q0, Sq, Sk, causal, q_offset, k_offset);
+      const uint32_t sq = x.res(n) + wg * L::HALF;  // Q's box c at + c boxes
+      const uint32_t sdo = sq + L::RES / 2;
+      // lse log2(e) and g_lse - delta of this thread's two rows; rows past
+      // Sq get lse = LSE_MASKED: their P is 0.
+      float lse2[2], gd[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int qi = row0 + 8 * h;
+        const size_t at = (size_t)bh * Sq + qi;
+        lse2[h] = qi < Sq ? lse[at] * LOG2E : LSE_MASKED;
+        gd[h] = qi < Sq ? glse[at] - delta[at] : 0.f;
+      }
+      float acc[D / 2];  // dQ: the warp's 16 rows by D columns
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      mbar_wait(x.res_full(n), x.res_phase(n));
+      if (nk == 0) release_resident(x.res_empty(n), lane);
+
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int k0 = kt * SEQ_TILE;
+        // A warp whose rows are past Sq, or causally see no key of the
+        // tile, only waits for and releases it.
+        const bool sees =
+            row_first < Sq && !(causal && q_offset + row_first + X_PAIR_ROWS - 1 < k_offset + k0);
+        const uint32_t t = x.ring.tile(it);  // K's box c at + c boxes, V's at + CB + c
+        float s[SEQ_TILE / 2], dp[SEQ_TILE / 2];
+        x.ring.wait(it);
+        if (sees) {
+#pragma unroll
+          for (int i = 0; i < SEQ_TILE / 2; ++i) s[i] = dp[i] = 0.f;
+#pragma unroll 1
+          for (int c = 0; c < CB; ++c) {
+            scores_box<S_NG, S_KS>(s, sq + c * X_BOX_BYTES, wrow, t + c * X_BOX_BYTES, lane);
+            scores_box<DP_NG, DP_KS>(dp, sdo + c * X_BOX_BYTES, wrow,
+                                     t + (CB + c) * X_BOX_BYTES, lane);
+          }
+        }
+        if (kt == nk - 1) release_resident(x.res_empty(n), lane);  // the last read of Q and dO
+        if (sees) {
+          // dS = P (dP + g_lse - delta) in place of S; keys past Sk read
+          // zero rows of K but get P = 0.
+          const bool mask = k0 + SEQ_TILE > Sk ||
+                            (causal && q_offset + row_first < k_offset + k0 + SEQ_TILE - 1);
+#pragma unroll
+          for (int i = 0; i < SEQ_TILE / 2; ++i) {
+            const int kj = k0 + 8 * (i >> 2) + 2 * tq + (i & 1);
+            const int h = (i >> 1) & 1;
+            float pv = exp2f(fmaf(s[i], sl2, -lse2[h]));
+            if (mask && (kj >= Sk || (causal && q_offset + row0 + 8 * h < k_offset + kj)))
+              pv = 0.f;
+            s[i] = pv * (dp[i] + gd[h]);
+          }
+          // dQ += dS K, per output item of OB K boxes.
+#pragma unroll
+          for (int u = 0; u < CB / OB; ++u)
+            product_item<P_NG, 4 * OB>(acc + 16 * OB * u, t + OB * u * X_BOX_BYTES,
+                                       t + (OB * u + OB - 1) * X_BOX_BYTES, RegFrag{s}, lane);
+        }
+        x.ring.release(it, lane);
+      }
+      store_acc<D>(dq + (size_t)bh * Sq * D, D, acc, [scale](float x, int) { return scale * x; },
+                   row0, Sq, 0, lane);
+    }
+  }
+}
+
+// dK/dV in the pair design (D = 128, 256), persistent: a grid of one block
+// per SM walks the work tiles (bh, 64 keys) and loops over the Q tiles that
+// can see the keys. dV = sum_i P_ij^T dO_i (warpgroup 0), dK = scale *
+// sum_i dS_ij^T Q_i (warpgroup 1), [BH, Sk, D] fp32. Per Q tile the output
+// items (64 columns, two boxes, of dO and of Q by turns) go to warpgroup
+// u % 2.
+template <int D>
+__device__ __forceinline__ void dkv_pair(float* __restrict__ dk, float* __restrict__ dv,
+                                         X_BWD_PARAMS) {
+  using L = BwdX<D>;
+  static_assert(!L::SOLO);
+  constexpr int CB = L::CB;
+  constexpr int NI = CB;  // output items of a Q tile
+  // Beside dV's or dK's 128 registers at D = 256 the score product sums in
+  // two groups of n-tiles with two k-steps unrolled (ptxas spilled with
+  // more) and the output product reads one k-step at a time; at D = 128
+  // the score product's k-steps are all unrolled and the output product
+  // reads four ahead. The output product sums in one group of n-tiles. The
+  // fastest choices without spills on the H100 (variants built side by
+  // side, PERF.md).
+  constexpr bool HEAVY = D == 256;
+  constexpr int S_NG = HEAVY ? 2 : 1, S_KS = HEAVY ? 2 : 4;
+  constexpr int P_UNROLL = HEAVY ? 1 : 4;
+  extern __shared__ unsigned char smem_raw[];
+  const XSmem<L> x = x_smem<L>(smem_raw);
   const int ktiles = (Sk + SEQ_TILE - 1) / SEQ_TILE;
   const int qtiles = (Sq + SEQ_TILE - 1) / SEQ_TILE;
   const int nwork = BH * ktiles;  // work tile w: key tile w % ktiles of head w / ktiles
@@ -528,20 +719,20 @@ flash_dkv_3xtf32_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (wg == CONSUMER_WGS) {
     // Producer, one thread: per work tile K and V; per Q tile its score
     // items (Q and dO boxes of 32 columns), then its output items (dO and Q
-    // by turns, 64 columns each).
+    // by turns).
     reg_dealloc<PRODUCER_REGS>();
     if (threadIdx.x == CONSUMER_WGS * WG) {
       int it = 0, n = 0;
       for (int w = blockIdx.x; w < nwork; w += gridDim.x, ++n) {
         const int k0 = w % ktiles * SEQ_TILE, bh = w / ktiles;
-        load_resident(x, n, &tm_k, &tm_v, k0, bh);
+        load_resident(x, n, tm_k, tm_v, k0, bh);
         for (int qt = first_query_tile(k0, causal, q_offset, k_offset); qt < qtiles; ++qt) {
           const int q0 = qt * SEQ_TILE;
-          for (int c = 0; c < X_CHUNKS; ++c, ++it)
-            load_item(x, it, &tm_q, X_BOX * c, &tm_do, X_BOX * c, q0, bh);
-          for (int u = 0; u < 2 * X_ITEMS; ++u, ++it) {
-            const CUtensorMap* m = (u & 1) ? &tm_q : &tm_do;
-            const int col0 = 64 * (u >> 1);
+          for (int c = 0; c < CB; ++c, ++it)
+            load_item(x, it, tm_q, X_BOX * c, tm_do, X_BOX * c, q0, bh);
+          for (int u = 0; u < NI; ++u, ++it) {
+            const CUtensorMap* m = (u & 1) ? tm_q : tm_do;
+            const int col0 = 2 * X_BOX * (u >> 1);
             load_item(x, it, m, col0, m, col0 + X_BOX, q0, bh);
           }
         }
@@ -557,19 +748,19 @@ flash_dkv_3xtf32_kernel(const __grid_constant__ CUtensorMap tm_q,
     const int tq = lane & 3;
     const int r = X_PAIR_ROWS * pair + (lane >> 2);  // this thread's keys r, r + 8 of the 64
     const float sl2 = scale * LOG2E;
-    float* const xch = reinterpret_cast<float*>(x.smem + X_XCH + 2 * pair * X_XCH_BYTES);
-    const uint32_t res = x.base + wg * X_CHUNKS * X_BOX_BYTES;  // K or V
+    float* const xch = reinterpret_cast<float*>(x.smem + L::XCH + 2 * pair * X_XCH_BYTES);
     int it = 0, n = 0;
     int pt = 0;  // Q tiles so far: P^T hand-offs
     for (int w = blockIdx.x; w < nwork; w += gridDim.x, ++n) {
       const int k0 = w % ktiles * SEQ_TILE, bh = w / ktiles;
       const int key0 = k0 + r;  // and key0 + 8
       const int qt0 = first_query_tile(k0, causal, q_offset, k_offset);
-      float acc[X_D / 2];  // dV or dK: the pair's 16 keys by 256 columns
+      const uint32_t res = x.res(n) + wg * L::HALF;  // K or V
+      float acc[D / 2];  // dV or dK: the pair's 16 keys by D columns
 #pragma unroll
-      for (int i = 0; i < X_D / 2; ++i) acc[i] = 0.f;
-      mbar_wait(x.res_full, n & 1);
-      if (qt0 >= qtiles) release_resident(x.res_empty, lane);
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      mbar_wait(x.res_full(n), x.res_phase(n));
+      if (qt0 >= qtiles) release_resident(x.res_empty(n), lane);
 
       for (int qt = qt0; qt < qtiles; ++qt, ++pt) {
         const int q0 = qt * SEQ_TILE;
@@ -577,13 +768,13 @@ flash_dkv_3xtf32_kernel(const __grid_constant__ CUtensorMap tm_q,
         float s[SEQ_TILE / 2];
 #pragma unroll
         for (int i = 0; i < SEQ_TILE / 2; ++i) s[i] = 0.f;
-        for (int c = 0; c < X_CHUNKS; ++c, ++it) {
+        for (int c = 0; c < CB; ++c, ++it) {
           x.ring.wait(it);
-          scores_box<2, 2>(s, res + c * X_BOX_BYTES, X_PAIR_ROWS * pair,
-                           x.ring.tile(it) + wg * X_BOX_BYTES, lane);
+          scores_box<S_NG, S_KS>(s, res + c * X_BOX_BYTES, X_PAIR_ROWS * pair,
+                                 x.ring.tile(it) + wg * X_BOX_BYTES, lane);
           x.ring.release(it, lane);
         }
-        if (qt == qtiles - 1) release_resident(x.res_empty, lane);
+        if (qt == qtiles - 1) release_resident(x.res_empty(n), lane);
 
         // This thread's 16 Q columns (element i of a score tile is column
         // 8 (i / 4) + 2 tq + i % 2, value e = 2 (i / 4) + i % 2): lse
@@ -640,22 +831,197 @@ flash_dkv_3xtf32_kernel(const __grid_constant__ CUtensorMap tm_q,
         // this warpgroup's output items; the other's are waited for and
         // released.
 #pragma unroll
-        for (int u = 0; u < 2 * X_ITEMS; ++u, ++it) {
+        for (int u = 0; u < NI; ++u, ++it) {
           x.ring.wait(it);
           if ((u & 1) == wg)
-            product_item<2>(acc + 32 * (u >> 1), x.ring.tile(it), x.ring.tile(it) + X_BOX_BYTES,
-                            SmemFrag<2>{wg == 0 ? pt4 : dst4, lane}, lane);
+            product_item<1>(acc + 32 * (u >> 1), x.ring.tile(it), x.ring.tile(it) + X_BOX_BYTES,
+                            SmemFrag<P_UNROLL>{wg == 0 ? pt4 : dst4, lane}, lane);
           x.ring.release(it, lane);
         }
       }
       const float mul = wg == 0 ? 1.f : scale;
-      store_acc<X_D>((wg == 0 ? dv : dk) + (size_t)bh * Sk * X_D, X_D, acc,
-                     [mul](float x, int) { return mul * x; }, key0, Sk, 0, lane);
+      store_acc<D>((wg == 0 ? dv : dk) + (size_t)bh * Sk * D, D, acc,
+                   [mul](float x, int) { return mul * x; }, key0, Sk, 0, lane);
     }
     // Take the partner's arrival after its last read of P^T.
     if (wg == 0 && pt > 0) named_sync(XCH_BACK + pair, 64);
   }
 }
+
+// dK/dV in the solo design (D <= 64), persistent: work tiles of 128 keys
+// (bh, k0), each consumer warp 16 of them. Per Q tile that can see the
+// keys, one ring item (Q and dO, 64 rows each across D): the warp computes
+// S^T = K Q^T and dP^T = V dO^T (16 x 64 each), P^T and dS^T = P^T (dP^T +
+// g_lse - delta) in registers, and dV += P^T dO, dK += dS^T Q with their A
+// fragments taken from them (D / 2 registers each of dV and dK).
+template <int D>
+__device__ __forceinline__ void dkv_solo(float* __restrict__ dk, float* __restrict__ dv,
+                                         X_BWD_PARAMS) {
+  using L = BwdX<D>;
+  static_assert(L::SOLO);
+  constexpr int CB = L::CB;
+  constexpr int OB = CB >= 2 ? 2 : 1;  // boxes of an output item: 64 columns (32 at D = 32)
+  // Groups of n-tiles and unrolled k-steps of the score products (S^T;
+  // dP^T, formed beside P^T) and the output products (scores_box,
+  // product_item). At D = 64, beside dV's and dK's 64 registers, the score
+  // products unroll two k-steps (S^T) and one (dP^T): ptxas spilled with
+  // more (variants built side by side on the H100, PERF.md).
+  constexpr int S_NG = 1, S_KS = D == 64 ? 2 : 4, DP_NG = 1, DP_KS = D == 64 ? 1 : 4, P_NG = 1;
+  extern __shared__ unsigned char smem_raw[];
+  const XSmem<L> x = x_smem<L>(smem_raw);
+  const int ktiles = (Sk + L::ROWS - 1) / L::ROWS;
+  const int qtiles = (Sq + SEQ_TILE - 1) / SEQ_TILE;
+  const int nwork = BH * ktiles;  // work tile w: key tile w % ktiles of head w / ktiles
+  const int wg = threadIdx.x / WG;
+
+  if (wg == CONSUMER_WGS) {
+    // Producer, one thread: per work tile K and V, per Q tile Q and dO.
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x == CONSUMER_WGS * WG) {
+      int it = 0, n = 0;
+      for (int w = blockIdx.x; w < nwork; w += gridDim.x, ++n) {
+        const int k0 = w % ktiles * L::ROWS, bh = w / ktiles;
+        load_resident(x, n, tm_k, tm_v, k0, bh);
+        for (int qt = first_query_tile(k0, causal, q_offset, k_offset); qt < qtiles; ++qt, ++it)
+          load_tiles(x, it, tm_q, tm_do, qt * SEQ_TILE, bh);
+      }
+    }
+  } else {
+    // Consumer warp: keys [16 (warp % 4), + 16) of warpgroup wg's 64.
+    reg_alloc<CONSUMER_REGS>();
+    const int lane = threadIdx.x & 31;
+    const int tq = lane & 3;
+    const int wrow = X_PAIR_ROWS * (threadIdx.x / 32 % 4);
+    const float sl2 = scale * LOG2E;
+    int it = 0, n = 0;
+    for (int w = blockIdx.x; w < nwork; w += gridDim.x, ++n) {
+      const int k0 = w % ktiles * L::ROWS, bh = w / ktiles;
+      const int key_first = k0 + SEQ_TILE * wg + wrow;  // this warp's first key
+      const int key0 = key_first + (lane >> 2);         // this thread's keys key0, key0 + 8
+      const int qt0 = first_query_tile(k0, causal, q_offset, k_offset);
+      const uint32_t sk = x.res(n) + wg * L::HALF;  // K's box c at + c boxes
+      const uint32_t sv = sk + L::RES / 2;
+      float dv_acc[D / 2], dk_acc[D / 2];  // the warp's 16 keys by D columns
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dv_acc[i] = dk_acc[i] = 0.f;
+      mbar_wait(x.res_full(n), x.res_phase(n));
+      if (qt0 >= qtiles) release_resident(x.res_empty(n), lane);
+
+      for (int qt = qt0; qt < qtiles; ++qt, ++it) {
+        const int q0 = qt * SEQ_TILE;
+        // A warp whose keys are past Sk, or that no row of the tile sees,
+        // only waits for and releases it.
+        const bool sees = key_first < Sk && !(causal && q_offset + q0 + SEQ_TILE - 1 <
+                                                            k_offset + key_first);
+        const uint32_t t = x.ring.tile(it);  // Q's box c at + c boxes, dO's at + CB + c
+        // This thread's 16 Q columns: element i of a score tile is column
+        // 8 (i / 4) + 2 tq + i % 2, value e = 2 (i / 4) + i % 2 of rv (lse
+        // log2(e), then g_lse - delta). Rows past Sq get lse = LSE_MASKED:
+        // their P is exactly 0.
+        auto q_row = [&](int e) { return q0 + 8 * (e >> 1) + 2 * tq + (e & 1); };
+        float s[SEQ_TILE / 2], dp[SEQ_TILE / 2], rv[16];
+        x.ring.wait(it);
+        if (sees) {
+          // S^T = K Q^T, then P^T in its place: the causal mask on global
+          // positions; keys past Sk are never written, so they need none.
+#pragma unroll
+          for (int i = 0; i < SEQ_TILE / 2; ++i) s[i] = 0.f;
+#pragma unroll 1
+          for (int c = 0; c < CB; ++c)
+            scores_box<S_NG, S_KS>(s, sk + c * X_BOX_BYTES, wrow, t + c * X_BOX_BYTES, lane);
+#pragma unroll
+          for (int e = 0; e < 16; ++e)
+            rv[e] = q_row(e) < Sq ? lse[(size_t)bh * Sq + q_row(e)] * LOG2E : LSE_MASKED;
+          const bool mask = causal && q_offset + q0 < k_offset + key_first + X_PAIR_ROWS - 1;
+#pragma unroll
+          for (int i = 0; i < SEQ_TILE / 2; ++i) {
+            const int c = 8 * (i >> 2) + 2 * tq + (i & 1);
+            float pv = exp2f(fmaf(s[i], sl2, -rv[2 * (i >> 2) + (i & 1)]));
+            if (mask && q_offset + q0 + c < k_offset + key0 + 8 * ((i >> 1) & 1)) pv = 0.f;
+            s[i] = pv;
+          }
+          // dV += P^T dO before dP^T is formed: beside dV and dK, no more
+          // than one score tile is live during a product.
+#pragma unroll
+          for (int u = 0; u < CB / OB; ++u) {
+            const uint32_t b = t + (CB + OB * u) * X_BOX_BYTES;  // dO's boxes
+            product_item<P_NG, 4 * OB>(dv_acc + 16 * OB * u, b, b + (OB - 1) * X_BOX_BYTES,
+                                       RegFrag{s}, lane);
+          }
+          // dP^T = V dO^T.
+#pragma unroll
+          for (int i = 0; i < SEQ_TILE / 2; ++i) dp[i] = 0.f;
+#pragma unroll 1
+          for (int c = 0; c < CB; ++c)
+            scores_box<DP_NG, DP_KS>(dp, sv + c * X_BOX_BYTES, wrow, t + (CB + c) * X_BOX_BYTES,
+                                     lane);
+        }
+        if (qt == qtiles - 1) release_resident(x.res_empty(n), lane);  // the last read of K, V
+        if (sees) {
+          // dS^T = P^T (dP^T + g_lse - delta) in place of dP^T, then
+          // dK += dS^T Q.
+#pragma unroll
+          for (int e = 0; e < 16; ++e) {
+            const size_t at = (size_t)bh * Sq + q_row(e);
+            rv[e] = q_row(e) < Sq ? glse[at] - delta[at] : 0.f;
+          }
+#pragma unroll
+          for (int i = 0; i < SEQ_TILE / 2; ++i)
+            dp[i] = s[i] * (dp[i] + rv[2 * (i >> 2) + (i & 1)]);
+#pragma unroll
+          for (int u = 0; u < CB / OB; ++u) {
+            const uint32_t b = t + OB * u * X_BOX_BYTES;  // Q's boxes
+            product_item<P_NG, 4 * OB>(dk_acc + 16 * OB * u, b, b + (OB - 1) * X_BOX_BYTES,
+                                       RegFrag{dp}, lane);
+          }
+        }
+        x.ring.release(it, lane);
+      }
+      store_acc<D>(dv + (size_t)bh * Sk * D, D, dv_acc, [](float x, int) { return x; }, key0, Sk,
+                   0, lane);
+      store_acc<D>(dk + (size_t)bh * Sk * D, D, dk_acc, [scale](float x, int) { return scale * x; },
+                   key0, Sk, 0, lane);
+    }
+  }
+}
+
+#define X_BWD_ARGS                                                                          \
+  &tm_q, &tm_k, &tm_v, &tm_do, lse, delta, glse, BH, Sq, Sk, scale, causal, q_offset, k_offset
+
+// dQ at head dim D: the solo design at D <= 64, else the pair.
+template <int D>
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+flash_dq_3xtf32_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const __grid_constant__ CUtensorMap tm_do, float* __restrict__ dq,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       const float* __restrict__ glse, int BH, int Sq, int Sk, float scale,
+                       int causal, int q_offset, int k_offset) {
+  if constexpr (BwdX<D>::SOLO)
+    dq_solo<D>(dq, X_BWD_ARGS);
+  else
+    dq_pair<D>(dq, X_BWD_ARGS);
+}
+
+// dK/dV at head dim D: the solo design at D <= 64, else the pair.
+template <int D>
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+flash_dkv_3xtf32_kernel(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        const __grid_constant__ CUtensorMap tm_do, float* __restrict__ dk,
+                        float* __restrict__ dv, const float* __restrict__ lse,
+                        const float* __restrict__ delta, const float* __restrict__ glse, int BH,
+                        int Sq, int Sk, float scale, int causal, int q_offset, int k_offset) {
+  if constexpr (BwdX<D>::SOLO)
+    dkv_solo<D>(dk, dv, X_BWD_ARGS);
+  else
+    dkv_pair<D>(dk, dv, X_BWD_ARGS);
+}
+
+#undef X_BWD_PARAMS
+#undef X_BWD_ARGS
 
 // ---------------------------------------------------------------------------
 // The forwards: flash_fwd_3xtf32_kernel<D> (the multi-tile route: an online
@@ -979,24 +1345,88 @@ flash_fwd_single_3xtf32_kernel(const __grid_constant__ CUtensorMap tm_q,
 // The tensor map of a contiguous [BH, S, D] fp32 tensor in 64-row x
 // 32-column boxes (128-byte rows, the 128 B swizzle); rows past S read as
 // zeros.
-int x_map(CUtensorMap* map, const void* base, int S, int BH, int D = X_D) {
+int x_map(CUtensorMap* map, const void* base, int S, int BH, int D) {
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
   const cuuint64_t strides[2] = {(cuuint64_t)D * 4, (cuuint64_t)S * D * 4};
   const cuuint32_t box[3] = {(cuuint32_t)X_BOX, (cuuint32_t)SEQ_TILE, 1};
   return make_map<float>(map, base, 3, dims, strides, box, X_BOX * 4);
 }
 
-// The four operands' tensor maps and a persistent grid of min(nwork, SMs)
-// blocks.
+// The backward's four operands' tensor maps at head dim D and a persistent
+// grid of min(nwork, SMs) blocks.
 int x_setup(CUtensorMap (&m)[4], const void* q, const void* k, const void* v, const void* dout,
-            int BH, int Sq, int Sk, int nwork, dim3* grid) {
+            int BH, int Sq, int Sk, int D, int nwork, dim3* grid) {
   int err, sms = 0;
-  if ((err = x_map(&m[0], q, Sq, BH)) || (err = x_map(&m[1], k, Sk, BH)) ||
-      (err = x_map(&m[2], v, Sk, BH)) || (err = x_map(&m[3], dout, Sq, BH)) ||
+  if ((err = x_map(&m[0], q, Sq, BH, D)) || (err = x_map(&m[1], k, Sk, BH, D)) ||
+      (err = x_map(&m[2], v, Sk, BH, D)) || (err = x_map(&m[3], dout, Sq, BH, D)) ||
       (err = sm_count(&sms)))
     return err;
   *grid = dim3(nwork < sms ? nwork : sms);
   return 0;
+}
+
+// dQ's launch at head dim D: work tiles of the design's rows.
+template <int D>
+int launch_dq_x(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                const void* delta, const void* glse, void* dq, int BH, int Sq, int Sk,
+                float scale, int causal, int qo, int ko, cudaStream_t stream) {
+  using L = BwdX<D>;
+  if (Sq == 0 || BH == 0) return cudaSuccess;
+  if (Sk == 0)  // no key: dQ is 0 (and a tensor map cannot have an empty dim)
+    return cudaMemsetAsync(dq, 0, (size_t)BH * Sq * D * sizeof(float), stream);
+  CUtensorMap m[4];
+  dim3 grid;
+  const int err =
+      x_setup(m, q, k, v, dout, BH, Sq, Sk, D, BH * ((Sq + L::ROWS - 1) / L::ROWS), &grid);
+  if (err) return err;
+  return launch(flash_dq_3xtf32_kernel<D>, grid, SM90_THREADS, L::BYTES, stream, m[0], m[1], m[2],
+                m[3], (float*)dq, (const float*)lse, (const float*)delta, (const float*)glse, BH,
+                Sq, Sk, scale, causal, qo, ko);
+}
+
+// dK/dV's launch at head dim D.
+template <int D>
+int launch_dkv_x(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                 const void* delta, const void* glse, void* dk, void* dv, int BH, int Sq, int Sk,
+                 float scale, int causal, int qo, int ko, cudaStream_t stream) {
+  using L = BwdX<D>;
+  if (Sk == 0 || BH == 0) return cudaSuccess;
+  if (Sq == 0) {  // no query: dK and dV are 0
+    const size_t bytes = (size_t)BH * Sk * D * sizeof(float);
+    const cudaError_t err = cudaMemsetAsync(dk, 0, bytes, stream);
+    return err != cudaSuccess ? err : cudaMemsetAsync(dv, 0, bytes, stream);
+  }
+  CUtensorMap m[4];
+  dim3 grid;
+  const int err =
+      x_setup(m, q, k, v, dout, BH, Sq, Sk, D, BH * ((Sk + L::ROWS - 1) / L::ROWS), &grid);
+  if (err) return err;
+  return launch(flash_dkv_3xtf32_kernel<D>, grid, SM90_THREADS, L::BYTES, stream, m[0], m[1],
+                m[2], m[3], (float*)dk, (float*)dv, (const float*)lse, (const float*)delta,
+                (const float*)glse, BH, Sq, Sk, scale, causal, qo, ko);
+}
+
+// The backward at head dim D: 32, 64, 128 and 256.
+template <typename... Args>
+int launch_dq_d(int D, Args... args) {
+  switch (D) {
+    case 32: return launch_dq_x<32>(args...);
+    case 64: return launch_dq_x<64>(args...);
+    case 128: return launch_dq_x<128>(args...);
+    case 256: return launch_dq_x<256>(args...);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename... Args>
+int launch_dkv_d(int D, Args... args) {
+  switch (D) {
+    case 32: return launch_dkv_x<32>(args...);
+    case 64: return launch_dkv_x<64>(args...);
+    case 128: return launch_dkv_x<128>(args...);
+    case 256: return launch_dkv_x<256>(args...);
+  }
+  return cudaErrorInvalidValue;
 }
 
 
@@ -1041,46 +1471,27 @@ int launch_fwd_d(int D, Args... args) {
   return cudaErrorInvalidValue;
 }
 
+
 }  // namespace
 
-// The launchers flash_attention.cu calls for float32 at D = 256: on the
-// given stream, returning the cudaError_t of the launch (or
-// HVD_ERR_TENSOR_MAP + the CUresult).
+// The launchers flash_attention.cu calls for every float32 dQ and dK/dV:
+// head dims 32, 64, 128 and 256 (the wrapper zero-pads D = 16 to 32, and
+// the others to the next), on the given stream, returning the cudaError_t
+// of the launch (or HVD_ERR_TENSOR_MAP + the CUresult).
 int launch_dq_3xtf32(const void* q, const void* k, const void* v, const void* dout,
                      const void* lse, const void* delta, const void* glse, void* dq, int BH,
-                     int Sq, int Sk, float scale, int causal, int qo, int ko,
+                     int Sq, int Sk, int D, float scale, int causal, int qo, int ko,
                      cudaStream_t stream) {
-  if (Sq == 0 || BH == 0) return cudaSuccess;
-  if (Sk == 0)  // no key: dQ is 0 (and a tensor map cannot have an empty dim)
-    return cudaMemsetAsync(dq, 0, (size_t)BH * Sq * X_D * sizeof(float), stream);
-  CUtensorMap m[4];
-  dim3 grid;
-  const int err = x_setup(m, q, k, v, dout, BH, Sq, Sk, BH * ((Sq + SEQ_TILE - 1) / SEQ_TILE),
-                          &grid);
-  if (err) return err;
-  return launch(flash_dq_3xtf32_kernel, grid, SM90_THREADS, X_BYTES, stream, m[0], m[1], m[2],
-                m[3], (float*)dq, (const float*)lse, (const float*)delta, (const float*)glse, BH,
-                Sq, Sk, scale, causal, qo, ko);
+  return launch_dq_d(D, q, k, v, dout, lse, delta, glse, dq, BH, Sq, Sk, scale, causal, qo, ko,
+                     stream);
 }
 
 int launch_dkv_3xtf32(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, const void* glse, void* dk, void* dv,
-                      int BH, int Sq, int Sk, float scale, int causal, int qo, int ko,
+                      int BH, int Sq, int Sk, int D, float scale, int causal, int qo, int ko,
                       cudaStream_t stream) {
-  if (Sk == 0 || BH == 0) return cudaSuccess;
-  if (Sq == 0) {  // no query: dK and dV are 0
-    const size_t bytes = (size_t)BH * Sk * X_D * sizeof(float);
-    const cudaError_t err = cudaMemsetAsync(dk, 0, bytes, stream);
-    return err != cudaSuccess ? err : cudaMemsetAsync(dv, 0, bytes, stream);
-  }
-  CUtensorMap m[4];
-  dim3 grid;
-  const int err = x_setup(m, q, k, v, dout, BH, Sq, Sk, BH * ((Sk + SEQ_TILE - 1) / SEQ_TILE),
-                          &grid);
-  if (err) return err;
-  return launch(flash_dkv_3xtf32_kernel, grid, SM90_THREADS, X_BYTES, stream, m[0], m[1], m[2],
-                m[3], (float*)dk, (float*)dv, (const float*)lse, (const float*)delta,
-                (const float*)glse, BH, Sq, Sk, scale, causal, qo, ko);
+  return launch_dkv_d(D, q, k, v, dout, lse, delta, glse, dk, dv, BH, Sq, Sk, scale, causal, qo,
+                      ko, stream);
 }
 
 // The forwards (flash_attention.cu's launch_fwd and flash_attention_single.cu's

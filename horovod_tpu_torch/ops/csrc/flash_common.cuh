@@ -1,8 +1,8 @@
 // Device helpers shared by the port's CUDA kernels (flash_attention.cu,
 // flash_attention_single.cu, conv1x1_dw.cu): dtype conversion, tile loads
 // into shared memory, one warp's 16-row float32 matrix product and register
-// accumulator (the float32 first versions of the backward kernels and the
-// filter gradient), the causal visibility rule, and the (dtype, head dim)
+// accumulator (the single-tile float32 fused backward and the float32 filter
+// gradient), the causal visibility rule, and the (dtype, head dim)
 // dispatch of the C entry points.
 //
 // Everything sits in an anonymous namespace: each translation unit gets its
@@ -85,9 +85,9 @@ __device__ __forceinline__ void warp_gemm(const float* A, int lda, const float* 
 
 // One warp's fp32 accumulator C[16 x N], held in registers across calls:
 // C += A^T B, where A is stored [K][16] (A^T(i, k) = A[k * lda + i]) and B is
-// row-major [K x N], both in shared memory. The float32 flash backward keeps
-// dK and dV of 16 key rows in it; the float32 1x1-conv filter gradient keeps
-// 16 input channels.
+// row-major [K x N], both in shared memory. The single-tile float32 fused
+// backward keeps dK and dV of 16 key rows in it; the float32 1x1-conv filter
+// gradient keeps 16 input channels.
 template <typename T, int N>
 struct RowAcc;
 
@@ -129,8 +129,8 @@ __device__ __forceinline__ bool visible(int qi, int kj, int Sq, int Sk, int caus
 
 // Dispatch on (dtype, head dim): bf16, float16 and float32 at D = 16, 32,
 // 64 and 128; HVD_DISPATCH_WIDE (the multi-tile kernels) also at D = 256.
-// The float32 forwards have no D = 16 instance (their launch refuses it;
-// the wrapper zero-pads D = 16 to 32).
+// The float32 forwards, dQ and dK/dV have no D = 16 instance (their launch
+// refuses it; the wrapper zero-pads D = 16 to 32).
 #define HVD_CASES_D(CALL)                                            \
   case 16: { constexpr int HD = 16; return CALL; }                   \
   case 32: { constexpr int HD = 32; return CALL; }                   \

@@ -344,9 +344,12 @@ def test_profile_categories_name_kernels_in_the_sources():
     smoke = _chip_smoke()
     kernels = _global_functions()
     assert {"flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
-            "flash_fwd_single_kernel", "flash_dq_f32_kernel",
-            "flash_fwd_3xtf32_kernel",
+            "flash_fwd_single_kernel", "flash_dq_3xtf32_kernel",
+            "flash_dkv_3xtf32_kernel", "flash_fwd_3xtf32_kernel",
             "flash_fwd_single_3xtf32_kernel"} <= kernels
+    # The SIMT float32 dQ and dK/dV are gone: every float32 multi-tile
+    # backward runs in 3xTF32.
+    assert not {"flash_dq_f32_kernel", "flash_dkv_f32_kernel"} & kernels
     categories = dict(smoke._CATEGORIES)
     for kern in _kernels.KERNELS:
         for key in categories[kern.name]:
@@ -383,10 +386,10 @@ _HOPPER_INSTANCES = [(k, d, t) for k in ("flash_fwd_kernel", "flash_dq_kernel",
                                                 "flash_dkv_wide_kernel",
                                                 "dw_1x1_kernel")
                          for t in _TYPES] + [
-                         (k, None, None) for k in ("flash_dq_3xtf32_kernel",
-                                                   "flash_dkv_3xtf32_kernel")
-                     ] + [("flash_fwd_3xtf32_kernel", d, None)
-                          for d in (32, 64, 128, 256)] + [
+                         (k, d, None) for k in ("flash_fwd_3xtf32_kernel",
+                                                "flash_dq_3xtf32_kernel",
+                                                "flash_dkv_3xtf32_kernel")
+                         for d in (32, 64, 128, 256)] + [
                          ("flash_fwd_single_3xtf32_kernel", d, None)
                          for d in (32, 64, 128)]
 
@@ -394,14 +397,13 @@ _HOPPER_INSTANCES = [(k, d, t) for k in ("flash_fwd_kernel", "flash_dq_kernel",
 def _hopper_mangled(kernel, d, t="bf16"):
     """The mangled name nvcc gives a Hopper instance of element type t
     (d None: the filter gradient or a wide-head kernel, templated on the
-    type alone; t None: the float32 3xTF32 kernels, the forwards templated
-    on the head dim alone, dQ and dK/dV, d None too, no template)."""
-    if t is None and d is not None:
-        return (f"_ZN12_GLOBAL__N_1{len(kernel)}{kernel}ILi{d}EEEv14"
-                "CUtensorMap_stS1_S1_PfS2_iiifiii")
+    type alone; t None: the float32 3xTF32 kernels, templated on the head
+    dim alone: the forwards, dQ and dK/dV, each with its parameters)."""
     if t is None:
-        return (f"_ZN12_GLOBAL__N_1{len(kernel)}{kernel}E14CUtensorMap_stS0_"
-                "S0_S0_PfPKfS3_S3_iiifiii")
+        params = {"flash_dq_3xtf32_kernel": "S1_S1_S1_PfPKfS4_S4_iiifiii",
+                  "flash_dkv_3xtf32_kernel": "S1_S1_S1_PfS2_PKfS4_S4_iiifiii"}
+        return (f"_ZN12_GLOBAL__N_1{len(kernel)}{kernel}ILi{d}EEEv14"
+                "CUtensorMap_st" + params.get(kernel, "S1_S1_PfS2_iiifiii"))
     if d is None:
         return (f"_ZN12_GLOBAL__N_1{len(kernel)}{kernel}I{_TYPES[t]}EEv14"
                 "CUtensorMap_stS2_Pfiiiiiiiiiii")
@@ -442,8 +444,14 @@ def _hopper_log():
     ("flash_dkv_wide_kernel", None, "serialize"),
     ("flash_dq_wide_kernel", None, "spill"),
     ("flash_dq_wide_kernel", None, "serialize"),
-    ("flash_dq_3xtf32_kernel", None, "spill"),
-    ("flash_dkv_3xtf32_kernel", None, "spill"),
+    ("flash_dq_3xtf32_kernel", 32, "spill"),
+    ("flash_dq_3xtf32_kernel", 64, "spill"),
+    ("flash_dq_3xtf32_kernel", 128, "spill"),
+    ("flash_dq_3xtf32_kernel", 256, "spill"),
+    ("flash_dkv_3xtf32_kernel", 32, "spill"),
+    ("flash_dkv_3xtf32_kernel", 64, "spill"),
+    ("flash_dkv_3xtf32_kernel", 128, "spill"),
+    ("flash_dkv_3xtf32_kernel", 256, "spill"),
     ("flash_fwd_3xtf32_kernel", 32, "spill"),
     ("flash_fwd_3xtf32_kernel", 64, "spill"),
     ("flash_fwd_3xtf32_kernel", 128, "spill"),
@@ -454,7 +462,7 @@ def _hopper_log():
 def test_build_report_names_the_redesigned_hopper_culprit(kernel, d, fault):
     """The fused backward's, the filter gradient's and the wide-head
     forward's, dQ's and dK/dV's bf16 Hopper instances, and the float32
-    3xTF32 forwards (each head dim alone), dQ and dK/dV, are in the build
+    3xTF32 forwards, dQ and dK/dV (each head dim alone), are in the build
     phase's list, and a spill or serialized wgmma in one of them fails it,
     naming that instance alone."""
     _check_culprit(kernel, d, None if "3xtf32" in kernel else "bf16", fault)
@@ -508,11 +516,11 @@ def test_build_report_flags_spills_and_serialized_wgmma_of_hopper_kernels():
 
     hopper = _hopper_mangled
     instances = _HOPPER_INSTANCES
-    others = (_ptxas_entry("_ZN12_GLOBAL__N_119flash_dq_f32_kernelILi64EEE"
-                           "vPKfS2_S2_S2_S2_S2_S2_Pfiifiii", "8 bytes spill "
-                           "stores, 8 bytes spill loads", 255)
-              + _ptxas_entry("_ZN12_GLOBAL__N_120flash_dkv_f32_kernelILi64"
-                             "EEEvPKfS2_S2_S2_S2_S2_S2_PfS3_iiifiii",
+    others = (_ptxas_entry("_ZN12_GLOBAL__N_121flash_dqkv_f32_kernelILi64E"
+                           "EEvPKfS2_S2_S2_S2_S2_S2_PfS3_S3_iifiii",
+                           "8 bytes spill stores, 8 bytes spill loads", 255)
+              + _ptxas_entry("_ZN12_GLOBAL__N_124flash_dq_wide_f32_kernel"
+                             "IfEEvPKT_S3_S3_S3_PKfS5_S5_PS1_iiiififiii",
                              registers=96)
               + _ptxas_entry("_ZN12_GLOBAL__N_125flash_fwd_wide_f32_kernel"
                              "IfEEvPKT_S3_S3_PS1_Pfiiiififiii",
@@ -522,7 +530,7 @@ def test_build_report_flags_spills_and_serialized_wgmma_of_hopper_kernels():
                              for k, d, t in instances)
     regs, faults = smoke.hopper_build_report(clean)
     assert sorted(regs) == sorted(smoke.HOPPER_INSTANCES)
-    assert len(regs) == 63
+    assert len(regs) == 69
     assert set(regs.values()) == {168} and faults == []
 
     def spill(log, kernel, d, t):
@@ -554,7 +562,11 @@ def test_build_report_flags_spills_and_serialized_wgmma_of_hopper_kernels():
             (spill(clean, "flash_fwd_3xtf32_kernel", 256, None),
              "flash_fwd_3xtf32_kernel<256>"),
             (spill(clean, "flash_fwd_single_3xtf32_kernel", 64, None),
-             "flash_fwd_single_3xtf32_kernel<64>")):
+             "flash_fwd_single_3xtf32_kernel<64>"),
+            (spill(clean, "flash_dq_3xtf32_kernel", 64, None),
+             "flash_dq_3xtf32_kernel<64>"),
+            (spill(clean, "flash_dkv_3xtf32_kernel", 128, None),
+             "flash_dkv_3xtf32_kernel<128>")):
         _, faults = smoke.hopper_build_report(log)
         assert len(faults) == 1 and faults[0].startswith(culprit), faults
 
@@ -620,7 +632,83 @@ def test_float32_forwards_pad_head_dims_below_32(monkeypatch, single, dtype,
     assert planned == want and want in dims
     assert (16 in dims) == (dtype != torch.float32)
     route = port.SINGLE_TILE_HEAD_DIMS if single else port.KERNEL_HEAD_DIMS
-    assert dims == port.forward_head_dims(dtype, route)
+    assert dims == port.instance_head_dims(dtype, route)
+
+
+@pytest.mark.parametrize("kernel", ["flash_dq", "flash_dkv"])
+@pytest.mark.parametrize("dtype,D,want", [
+    (torch.float32, 8, 32), (torch.float32, 16, 32), (torch.float32, 100, 128),
+    (torch.bfloat16, 16, 16)])
+def test_float32_backward_pads_head_dims_below_32(monkeypatch, kernel, dtype,
+                                                  D, want):
+    """The float32 dQ and dK/dV (3xTF32) have no D = 16 instance either:
+    their wrappers plan D <= 16 at 32 in float32, where bf16 keeps 16.
+    Shapes only, on the meta device, with the launch replaced by the plain
+    version."""
+    launched = []
+    plain = {"flash_dq": port.flash_dq_plain,
+             "flash_dkv": port.flash_dkv_plain}
+
+    def fake_launch(kern, dims):
+        def run(*args):
+            launched.append((kern.name, args[0].shape[-1], dims))
+            return plain[kernel](*args)
+        return run
+
+    monkeypatch.setattr(port, "_dq_launch", fake_launch)
+    monkeypatch.setattr(port, "_dkv_launch", fake_launch)
+    monkeypatch.setattr(port, "_check_device", lambda t: None)
+    q = torch.empty(2, 40, D, device="meta", dtype=dtype)
+    rows = torch.empty(2, 40, device="meta")
+    out = getattr(port, kernel)(q, q, q, q, rows, rows, rows)
+    for t in out if isinstance(out, tuple) else (out,):
+        assert t.shape == q.shape
+    (name, planned, dims), = launched
+    assert name == kernel and planned == want and want in dims
+    assert dims == port.instance_head_dims(dtype, port.KERNEL_HEAD_DIMS)
+
+
+@pytest.mark.parametrize("D", [8, 16])
+def test_float32_backward_padding_plan_holds_jax(D):
+    """The plan of the float32 dQ and dK/dV (3xTF32, no instance below
+    F32_MIN_HEAD_DIM): padded_heads at instance_head_dims(float32) pads
+    D = 8 and 16 to 32; over the plain forward, dQ and dK/dV it gives the
+    JAX package's flash attention gradients (its Pallas multi-tile kernels
+    in interpret mode), causal with a query offset and a nonzero lse
+    cotangent, to 1e-5."""
+    shape = (1, 2, 64, 48, D)
+    q, k, v, g, g_lse = _inputs(shape, seed=40 + D)
+    causal = (True, 16, 0)
+    _, _, *want = _jax_run(q, k, v, g, g_lse, *causal, 16)
+    dims = port.instance_head_dims(torch.float32)
+    assert port.kernel_head_dim(D, dims) == 32
+
+    def flat(a):
+        return torch.from_numpy(a).reshape(2, -1, D)
+
+    qt, kt, vt, gt = (flat(a) for a in (q, k, v, g))
+    o, lse = port.padded_heads(port.flash_fwd_plain, (qt, kt, vt), (),
+                               *causal, dims)
+    rows = (lse, (gt * o).sum(-1), torch.from_numpy(g_lse).reshape(2, -1))
+    dq = port.padded_heads(port.flash_dq_plain, (qt, kt, vt, gt), rows,
+                           *causal, dims)
+    dk, dv = port.padded_heads(port.flash_dkv_plain, (qt, kt, vt, gt), rows,
+                               *causal, dims)
+    for got, w in zip((dq, dk, dv), want):
+        assert got.shape[-1] == D
+        np.testing.assert_allclose(got.numpy(), w.reshape(2, -1, D), **TOL)
+
+
+@pytest.mark.parametrize("name,D", [
+    (name, D) for name in ("flash_dq", "flash_dkv") for D in (16, 64, 100, 256)
+] + [("flash_dqkv", D) for D in (16, 64, 100)])
+def test_chip_smoke_knows_which_backward_runs_in_3xtf32(name, D):
+    """chip_smoke.py bounds and checks a float32 kernel as 3xTF32 where it
+    runs a TF32X3 instance: dQ and dK/dV at every head dim up to 256 (D = 16
+    padded to 32, 100 to 128), never the single-tile fused backward (SIMT,
+    its D = 16 instance unpadded)."""
+    smoke = _chip_smoke()
+    assert smoke._runs_3xtf32(name, D) is (name != "flash_dqkv")
 
 
 @pytest.mark.parametrize("operands", ["plain", "tf32"])

@@ -41,6 +41,8 @@ def cuda_device():
 def _hold(pairs, dtype):
     for got, want in pairs:
         assert got.shape == want.shape and got.dtype == want.dtype
+        if want.numel() == 0:
+            continue
         err = (got.float() - want.float()).abs().max().item()
         assert err <= TOL[dtype] * want.float().abs().max().item()
 
@@ -186,20 +188,94 @@ def test_float32_single_tile_forward_runs_the_3xtf32_kernel(
                   causal, q_offset, k_offset)
 
 
+def _chip_smoke():
+    """chip_smoke.py as a module (its top-level imports are the standard
+    library's)."""
+    path = os.path.join(os.path.dirname(__file__), os.pardir, "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
 @pytest.mark.cuda
 def test_float32_forward_holds_float64_at_the_gemma_shape(cuda_device):
     """At the Gemma-like layer's shape (B*H = 128, S = 512, D = 256) on full
     float32 values, the 3xTF32 forward's O and lse are within
     chip_smoke.py's F64_ERR_RATIO of the float32 plain version's error
     against float64 (its _f64_check raises otherwise)."""
-    path = os.path.join(os.path.dirname(__file__), os.pardir, "chip_smoke.py")
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke = _chip_smoke()
     q, k, v, _, _ = _attention_operands(cuda_device, 10, 128, 512, 512, 256,
                                         torch.float32)
     smoke._f64_check("gemma_d256", q, k, v, None, port.flash_fwd(q, k, v),
                      port.flash_fwd_plain(q, k, v), False, 0, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,BH,Sq,Sk,causal,q_offset,k_offset", [
+    # Causal and ragged with a query offset at every instance; D = 8 and 16
+    # zero-padded to 32, 100 to 128.
+    (8, 6, 200, 136, True, 70, 0),
+    (16, 6, 200, 136, True, 70, 0),
+    (32, 6, 200, 136, True, 70, 0),
+    (64, 6, 200, 136, True, 70, 0),
+    (100, 6, 200, 136, True, 70, 0),
+    (128, 6, 200, 136, True, 70, 0),
+    (256, 6, 200, 136, True, 70, 0),
+    # A key offset: rows 0..39 see no key (dQ = 0, lse = LSE_MASKED), and
+    # keys of the last tiles see no row of a Q tile.
+    (32, 6, 200, 264, True, 0, 40),
+    (64, 6, 200, 264, True, 0, 40),
+    (128, 6, 200, 264, True, 0, 40),
+    (64, 6, 77, 100, False, 0, 0),
+    # A part-full last wave: B*H = 70 at S = 512 (280 work tiles of 128
+    # rows, 560 of 64, over 132 SMs).
+    (64, 70, 512, 512, True, 0, 0),
+    (128, 70, 512, 512, False, 0, 0),
+    # No key or no query: dQ, or dK and dV, are zeros of the padded D
+    # (memsets, no kernel).
+    (16, 6, 100, 0, False, 0, 0),
+    (64, 6, 100, 0, False, 0, 0),
+    (128, 6, 0, 100, False, 0, 0),
+    (256, 6, 0, 100, False, 0, 0),
+    # BERT-Large's S = 512 shape, where the errors against float64 are
+    # held too.
+    (64, 128, 512, 512, False, 0, 0)])
+def test_float32_backward_runs_the_3xtf32_kernel(cuda_device, D, BH, Sq, Sk,
+                                                 causal, q_offset, k_offset):
+    """The float32 multi-tile dQ and dK/dV launch their 3xTF32 instance at
+    the planned head dim (launch counters and the profile's kernel names)
+    and hold the plain versions at float32's 1e-4; at BERT-Large's S = 512
+    shape on full float32 values their errors against float64 are within
+    chip_smoke.py's F64_ERR_RATIO of the float32 plain version's."""
+    smoke = _chip_smoke()
+    q, k, v, do, glse = _attention_operands(cuda_device, 11, BH, Sq, Sk, D,
+                                            torch.float32)
+    f64 = BH == 128
+    if f64:  # the float64 reference takes no lse cotangent
+        glse = torch.zeros_like(glse)
+    if Sk:
+        o_ref, lse = port.flash_fwd_plain(q, k, v, causal, q_offset, k_offset)
+        delta = (do * o_ref).sum(-1)
+    else:
+        lse = torch.full((BH, Sq), port.LSE_MASKED, device=cuda_device)
+        delta = torch.zeros(BH, Sq, device=cuda_device)
+    args = (q, k, v, do, lse, delta, glse, causal, q_offset, k_offset)
+    kernels = (_kernels.FLASH_DQ, _kernels.FLASH_DKV)
+    before = [kern.launches for kern in kernels]
+    got = []
+    ran = smoke._attention_kernels_ms(
+        lambda: got.extend((port.flash_dq(*args), *port.flash_dkv(*args))))
+    assert [kern.launches for kern in kernels] == [n + 1 for n in before]
+    want = (port.flash_dq_plain(*args), *port.flash_dkv_plain(*args))
+    _hold(zip(got, want), torch.float32)
+    Dk = port.kernel_head_dim(D, port.instance_head_dims(torch.float32))
+    assert Dk == {8: 32, 16: 32, 100: 128}.get(D, D)
+    assert set(ran) == (set() if Sq * Sk == 0 else {
+        f"flash_dq_3xtf32_kernel<{Dk}>", f"flash_dkv_3xtf32_kernel<{Dk}>"})
+    if f64:
+        smoke._f64_check("bert_large_s512", q, k, v, do, got, want, causal,
+                         q_offset, k_offset)
 
 
 @pytest.mark.cuda
