@@ -17,7 +17,9 @@ at S=128 (B*H = 1024); the float16 instances of those five kernels at the
 same two shapes (``*_f16``; printed only, for a checkout that has them);
 and the 1x1-conv filter gradient (dw_1x1) beside cuBLAS's x^T dy at both
 ResNet-50 shapes of chip_smoke.py (the shortcut's cuBLAS call reads a
-contiguous copy of its strided x); the multi-tile kernels at D = 256
+contiguous copy of its strided x), and at the stage-1 shape in float32
+(``dw_1x1_stage1_f32`` beside ``cublas_stage1_f32``, full float32 with
+TF32 off); the multi-tile kernels at D = 256
 (``*_d256``: B*H = 128, S = 512) and the wide-head route at D = 512
 (``*_wide``: B*H = 32, S = 512), each in bf16 and float32 (``*_f32``)
 beside the SDPA forward and backward at that shape in the same dtype
@@ -28,11 +30,15 @@ the float32 instances at D = 64 (``flash_fwd_f32``, ``flash_dq_f32``,
 ``flash_dqkv_f32`` at S = 128) beside SDPA in float32 (``sdpa_*_f32``,
 ``sdpa_*_s128_f32``), and the float32 dQ and dK/dV at D = 32 and 128
 (``flash_dq_d32_f32``, ..., B*H = 128, S = 512) beside SDPA's float32
-backward at D = 128 (``sdpa_bwd_d128_f32``), on full float32 values.
-After the times it prints each float32 row's bound at the float32 FMA
-peak, and for the 3xTF32 kernels (chip_smoke.py's ``TF32X3``: all but the
-single-tile fused backward and the wide-head ones) also their bound at
-the TF32 peak, then the kernels of SDPA's
+backward at D = 32 and 128 (``sdpa_bwd_d32_f32``, ``sdpa_bwd_d128_f32``),
+on full float32 values, and the float32 wide dQ and dK/dV at B*H = 2,
+S = 8192, D = 512 (``*_wide_long_f32``) beside SDPA's float32 backward
+there (``sdpa_bwd_d512_long_f32``), with the peak memory of the float32
+wide calls (``PEAK_CALLS``). After the times it prints each float32 row's
+bound at the float32 FMA peak, and for the 3xTF32 kernels (chip_smoke.py's
+``_runs_3xtf32``: all but the single-tile fused backward and the
+wide-head forward) also their bound at the TF32 peak, then the kernels of
+SDPA's
 float32 backward at D = 256 and of its float32 forward at D = 256 and
 D = 64 (``SDPA_KERNELS``). Each checkout runs in a process of its own,
 in the order other, this, this, other. Each process times every call by
@@ -92,6 +98,7 @@ peak memory per mode.
 
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 import multiprocessing as mp
@@ -118,7 +125,9 @@ CALLS = ("flash_fwd", "flash_dq", "flash_dkv", "sdpa_fwd", "sdpa_bwd",
          "flash_dq_d256_f32", "flash_dkv_d256_f32", "sdpa_fwd_d256_f32",
          "sdpa_bwd_d256_f32", "sdpa_fwd_d512_f32", "sdpa_bwd_d512_f32",
          "flash_dq_d32_f32", "flash_dkv_d32_f32", "flash_dq_d128_f32",
-         "flash_dkv_d128_f32", "sdpa_bwd_d128_f32")
+         "flash_dkv_d128_f32", "sdpa_bwd_d128_f32", "sdpa_bwd_d32_f32",
+         "dw_1x1_stage1_f32", "cublas_stage1_f32", "flash_dq_wide_long_f32",
+         "flash_dkv_wide_long_f32", "sdpa_bwd_d512_long_f32")
 # The float32 rows' shapes (name: kernel, B*H, S, D) for their bounds at the
 # float32 FMA peak, printed by ab beside the times.
 F32_BOUNDS = {
@@ -137,13 +146,23 @@ F32_BOUNDS = {
     "flash_fwd_wide_f32": ("flash_fwd", 32, 512, 512),
     "flash_dq_wide_f32": ("flash_dq", 32, 512, 512),
     "flash_dkv_wide_f32": ("flash_dkv", 32, 512, 512),
+    "flash_dq_wide_long_f32": ("flash_dq", 2, 8192, 512),
+    "flash_dkv_wide_long_f32": ("flash_dkv", 2, 8192, 512),
 }
+# The calls whose peak memory ab prints (MB above what was held before the
+# call, its outputs included): the float32 wide dQ and dK/dV at S = 512
+# and S = 8192.
+PEAK_CALLS = ("flash_dq_wide_f32", "flash_dkv_wide_f32",
+              "flash_dq_wide_long_f32", "flash_dkv_wide_long_f32")
+# The float32 filter gradient's row (dw_1x1_stage1_f32) is at ResNet-50's
+# stage-1 shape, chip_smoke.py's first CONV_SHAPES entry.
 METHODS = ("spin_ms", "no_spin_ms", "device_ms")
 # The SDPA calls whose kernels ab prints by device time: the float32
 # backward at D = 256 and the float32 forward at D = 256 and D = 64.
 SDPA_KERNELS = ("sdpa_bwd_d256_f32", "sdpa_fwd_d256_f32", "sdpa_fwd_f32")
 
 
+@functools.cache
 def _smoke():
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
@@ -154,20 +173,13 @@ def _smoke():
 
 def _device_events(body, reps):
     """(name, µs) of every device kernel that ``reps`` calls of ``body``
-    ran, from torch.profiler."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    ran, from a ``chip_smoke.device_profile`` session."""
+    smoke = _smoke()
+    with smoke.device_profile() as prof:
         for _ in range(reps):
             body()
-        torch.cuda.synchronize()
-    return [(e.name, e.time_range.end - e.time_range.start)
-            for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)]
+    return [(name, end - start)
+            for name, start, end in smoke.device_events(prof)]
 
 
 def _device_ms(fn, reps=20):
@@ -224,6 +236,12 @@ def _worker(tree, label):
         conv[name] = (xs, xs.contiguous().reshape(K, ci), dy)
     (xs1, x2d1, dy1), (xs2, x2d2, dy2) = (conv[c[0]]
                                           for c in smoke.CONV_SHAPES)
+    # The stage-1 shape in full float32 (cuBLAS with TF32 off).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, N, Hc, Wc, ci, co, _ = smoke.CONV_SHAPES[0]
+    xf = torch.randn(N, Hc, Wc, ci, generator=gen, device="cuda")
+    x2df, dyf = xf.reshape(-1, ci), torch.randn(N * Hc * Wc, co,
+                                                 generator=gen, device="cuda")
     o, lse = A.flash_fwd_plain(q, k, v)
     delta = (do.float() * o.float()).sum(-1)
     bwd = (q, k, v, do, lse, delta, torch.zeros_like(delta), False, 0, 0)
@@ -250,6 +268,8 @@ def _worker(tree, label):
         "cublas_stage1": lambda: torch.matmul(x2d1.T, dy1),
         "dw_1x1_shortcut": lambda: C.dw_1x1(xs2, dy2),
         "cublas_shortcut": lambda: torch.matmul(x2d2.T, dy2),
+        "dw_1x1_stage1_f32": lambda: C.dw_1x1(xf, dyf),
+        "cublas_stage1_f32": lambda: torch.matmul(x2df.T, dyf),
     }
     if torch.float16 in A._KERNEL_DTYPES:  # the float16 instances
         # q, k, v, dO in float16; lse, delta and g_lse stay float32.
@@ -311,21 +331,37 @@ def _worker(tree, label):
     calls.update(sdpa_calls(
         "s128_f32", [t.view(B1, H, S1, D) for t in f32_1[:3]],
         f32_1[3].view(B1, H, S1, D)))
-    # The float32 dQ and dK/dV at D = 32 and 128, the latter beside SDPA's
+    # The float32 dQ and dK/dV at D = 32 and 128, each beside SDPA's
     # float32 backward.
     for Dd in (32, 128):
         fd, bd = full_f32(B * H, S, Dd)
         calls.update({
             f"flash_dq_d{Dd}_f32": (lambda bd=bd: A.flash_dq(*bd)),
             f"flash_dkv_d{Dd}_f32": (lambda bd=bd: A.flash_dkv(*bd))})
-        if Dd == 128:
-            calls[f"sdpa_bwd_d{Dd}_f32"] = sdpa_calls(
-                f"d{Dd}_f32", [t.view(B, H, S, Dd) for t in fd[:3]],
-                fd[3].view(B, H, S, Dd))[f"sdpa_bwd_d{Dd}_f32"]
+        calls[f"sdpa_bwd_d{Dd}_f32"] = sdpa_calls(
+            f"d{Dd}_f32", [t.view(B, H, S, Dd) for t in fd[:3]],
+            fd[3].view(B, H, S, Dd))[f"sdpa_bwd_d{Dd}_f32"]
+    # The float32 wide dQ and dK/dV at a long sequence (B*H = 2, S = 8192,
+    # D = 512) beside SDPA's float32 backward.
+    fl, bl = full_f32(2, 8192, 512)
+    calls.update({
+        "flash_dq_wide_long_f32": lambda: A.flash_dq(*bl),
+        "flash_dkv_wide_long_f32": lambda: A.flash_dkv(*bl),
+        "sdpa_bwd_d512_long_f32": sdpa_calls(
+            "d512_long_f32", [t.view(1, 2, 8192, 512) for t in fl[:3]],
+            fl[3].view(1, 2, 8192, 512))["sdpa_bwd_d512_long_f32"]})
     result = {name: {"spin_ms": smoke.time_ms(fn),
                      "no_spin_ms": smoke.time_ms(fn, sleep_cycles=0),
                      "device_ms": _device_ms(fn)}
               for name, fn in calls.items()}
+    for name in PEAK_CALLS:
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        calls[name]()
+        torch.cuda.synchronize()
+        result[name]["peak_mb"] = (torch.cuda.max_memory_allocated()
+                                   - held) / 1e6
     # The kernels of SDPA's float32 backward at D = 256 and of its float32
     # forward at D = 256 and D = 64, by device time.
     sdpa_kernels = {}
@@ -367,18 +403,26 @@ def ab(other):
                 continue
             print(f"ab {name} {method}: other {o:.4f} ms, this {t:.4f} ms, "
                   f"other / this {o / t:.2f}")
+    for name in PEAK_CALLS:
+        o, t = (sum(r[name]["peak_mb"] for r in runs[label]) / 2
+                for label in ("other", "this"))
+        print(f"ab {name} peak_mb: other {o:.1f} MB, this {t:.1f} MB")
     smoke = _smoke()
     for name, (kernel, BH, S, D) in F32_BOUNDS.items():
         ms, by, flops, moved = smoke._bounds(kernel, BH, S, S, D, "float32",
                                              False, 0, 0)
         line = (f"bound {name}: {ms:.4f} ms ({by}: {flops / 1e9:.2f} GFLOP, "
                 f"{moved / 1e6:.1f} MB) at the FMA peak")
-        if (kernel, D) in smoke.TF32X3:
+        if smoke._runs_3xtf32(kernel, D):
             ms3, by3, flops3, _ = smoke._bounds_3xtf32(kernel, BH, S, S, D,
                                                        False, 0, 0)
             line += (f"; {ms3:.4f} ms ({by3}: {flops3 / 1e9:.2f} GFLOP of "
                      "TF32) in 3xTF32, the bound the kernel is held to")
         print(line)
+    _, N, Hc, Wc, ci, co, _ = smoke.CONV_SHAPES[0]
+    ms, by, flops, moved = smoke._dw_bounds(N * Hc * Wc, ci, co, "float32")
+    print(f"bound dw_1x1_stage1_f32: {ms:.4f} ms ({by}: {flops / 1e9:.2f} GFLOP, "
+          f"{moved / 1e6:.1f} MB) at the FMA peak")
     for call, kernels in runs["this"][0]["sdpa_kernels"].items():
         print(f"{call} kernels (device ms of one call): "
               + "; ".join(f"{n} {ms:.4f}" for n, ms in

@@ -10,15 +10,15 @@ and prints no result line); each prints its seconds:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build of the hand-written CUDA kernels from ``horovod_tpu_torch/ops/csrc``
-   (one ``nvcc`` per source, all started together); none of the 69 Hopper
+   (one ``nvcc`` per source, all started together); none of the 71 Hopper
    instances (the bf16 and float16 forward, dQ, dK/dV, single-tile
    forward and fused backward at D=16, 32, 64, 128, the forward, dQ and
    dK/dV at D=256, the wide-head forward, dQ and dK/dV, and the bf16 and
    float16 filter gradient on wgmma; in 3xTF32 on mma.sync the float32
-   forward, dQ and dK/dV at D=32 to 256 and the single-tile forward at
-   D=32 to 128) may spill or have its wgmma
-   serialized, nor any of the 3 SIMT wide-head instances (the float32
-   forward, dQ and dK/dV) spill;
+   forward, dQ and dK/dV at D=32 to 256, the single-tile forward at
+   D=32 to 128 and the wide-head dQ and dK/dV) may spill or have its wgmma
+   serialized, nor the SIMT wide-head instance (the float32 forward)
+   spill;
 3. kernel phase: every kernel against its plain PyTorch version on the same
    inputs, with times beside the bound and the library yardstick:
    - the multi-tile forward, dQ and dK/dV flash-attention kernels
@@ -64,10 +64,13 @@ and prints no result line); each prints its seconds:
    the three wide-head kernels (head dims above 256) against their plain
    versions in bf16, float16 and float32 at D=512 (B*H=32, S=512; bf16
    timed beside its bound and the first SDPA backend that takes D=512,
-   named), D=320 causal and ragged (200 rows over 300 keys, 40 of them
-   seeing none) and D=1024, and 4 causal bf16 layers at D=512 through
-   ``flash_attention_lse``, each launching each wide kernel once and no
-   other kernel;
+   named; the float32 dQ and dK/dV, 3xTF32, timed beside their bound and
+   SDPA's float32 backward, and their errors against float64 held as the
+   other 3xTF32 kernels'), D=320 causal and ragged (200 rows over 300 keys,
+   40 of them seeing none) and D=1024; 4 causal bf16 layers at D=512
+   through ``flash_attention_lse``, each launching each wide kernel once
+   and no other kernel; and 2 causal float32 layers at D=512, the same,
+   with a profile that names the 3xTF32 wide dQ and dK/dV;
 5. training phase: synchronous data-parallel BERT-Large training through
    ``init`` / ``DistributedOptimizer`` / ``broadcast_parameters`` with the
    1-rank NCCL bucketed allreduce forced on, on two paths: sequence 512
@@ -122,6 +125,7 @@ the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -132,8 +136,8 @@ import sys
 import time
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 and float16 tensor cores,
-# float32 on the FMA units (the float32 kernels other than those of TF32X3,
-# the single-tile fused backward and the wide-head kernels, run there),
+# float32 on the FMA units (the float32 kernels other than the 3xTF32 ones,
+# the single-tile fused backward and the wide-head forward, run there),
 # memory rate.
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 # The TF32 tensor-core peak. The float32 forwards, dQ and dK/dV do every
@@ -144,6 +148,9 @@ PEAK_TF32 = 495e12
 TF32X3 = {(k, d) for k in ("flash_fwd", "flash_dq", "flash_dkv")
           for d in (32, 64, 128, 256)} | {
     ("flash_fwd_single", d) for d in (32, 64, 128)}
+# The wide-head kernels (head dims above 256) whose float32 runs in 3xTF32,
+# one instance at every D.
+TF32X3_WIDE = ("flash_dq", "flash_dkv")
 # A 3xTF32 kernel's largest error against a float64 version of the function,
 # on full-float32 inputs, may be at most this many times the float32 plain
 # version's (one TF32 product, 10 mantissa bits, is about 500 times it).
@@ -240,8 +247,9 @@ def time_ms(fn, reps=20, warmup=3, sleep_cycles=SLEEP_CYCLES):
 # the wide-head forward, dQ and dK/dV (any D above 256), and the bf16 and
 # float16 1x1-conv filter gradient (the SIMT float32 kernels are named
 # *_f32_kernel); on mma.sync in 3xTF32, the float32 forwards, dQ and dK/dV
-# (*_3xtf32_kernel, templated on the head dim alone). nvcc's mangled names
-# carry the element type: 13__nv_bfloat16 or 6__half.
+# (*_3xtf32_kernel, templated on the head dim alone; the wide-head dQ and
+# dK/dV, *_wide_3xtf32_kernel, not templated). nvcc's mangled names carry
+# the element type: 13__nv_bfloat16 or 6__half.
 HOPPER_TYPES = {"__nv_bfloat16": "bf16", "__half": "f16"}
 MULTI_TILE_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel",
                       "flash_dkv_kernel")
@@ -255,12 +263,14 @@ HOPPER_INSTANCES = tuple(
         f"{k}<{t}>" for k in ("flash_fwd_wide_kernel", "flash_dq_wide_kernel",
                               "flash_dkv_wide_kernel", "dw_1x1_kernel")
         for t in HOPPER_TYPES.values()) + tuple(
-        f"{k}_3xtf32_kernel<{d}>" for k, d in sorted(TF32X3))
+        f"{k}_3xtf32_kernel<{d}>" for k, d in sorted(TF32X3)) + tuple(
+        f"{k}_wide_3xtf32_kernel" for k in TF32X3_WIDE)
 _HOPPER_NAME = re.compile(
     r"(flash_(?:fwd_single|fwd|dqkv|dq|dkv)_kernel)I\d+(__nv_bfloat16|__half)"
     r"Li(\d+)E|\d(dw_1x1_kernel|flash_(?:fwd|dq|dkv)_wide_kernel)"
     r"I\d+(__nv_bfloat16|__half)E"
-    r"|\d(flash_(?:fwd_single|fwd|dq|dkv)_3xtf32_kernel)ILi(\d+)E")
+    r"|\d(flash_(?:fwd_single|fwd|dq|dkv)_3xtf32_kernel)ILi(\d+)E"
+    r"|\d(flash_(?:dq|dkv)_wide_3xtf32_kernel)E")
 
 
 def _hopper_instance(line):
@@ -268,6 +278,8 @@ def _hopper_instance(line):
     found = _HOPPER_NAME.search(line)
     if not found:
         return None
+    if found.group(8):
+        return found.group(8)
     if found.group(6):
         return f"{found.group(6)}<{found.group(7)}>"
     if found.group(4):
@@ -298,19 +310,15 @@ def hopper_build_report(log):
     return regs, faults
 
 
-# The wide-head instances that stay SIMT: the float32 forward, dQ and
-# dK/dV.
-_WIDE_NAME = re.compile(
-    r"(flash_(?:fwd|dq|dkv)_wide_f32_kernel)I(f)E")
+# The wide-head instance that stays SIMT: the float32 forward.
+_WIDE_NAME = re.compile(r"(flash_fwd_wide_f32_kernel)I(f)E")
 WIDE_TYPES = {"f": "f32"}
-WIDE_SIMT_INSTANCES = (
-    "flash_fwd_wide_f32_kernel<f32>", "flash_dq_wide_f32_kernel<f32>",
-    "flash_dkv_wide_f32_kernel<f32>")
+WIDE_SIMT_INSTANCES = ("flash_fwd_wide_f32_kernel<f32>",)
 
 
 def wide_build_report(log):
-    """From nvcc's ``-Xptxas -v`` output: the registers per thread of each
-    SIMT wide-head instance (``WIDE_SIMT_INSTANCES``), and their spills."""
+    """From nvcc's ``-Xptxas -v`` output: the registers per thread of the
+    SIMT wide-head instance (``WIDE_SIMT_INSTANCES``), and its spills."""
     regs, faults, entry = {}, [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -353,7 +361,7 @@ def build_phase():
         raise AssertionError(f"build: SIMT wide-head instances {sorted(wide)} "
                              f"(expected {list(WIDE_SIMT_INSTANCES)}); "
                              f"spills: {faults}")
-    print(f"build: SIMT wide-head instances, registers per thread: {wide}; "
+    print(f"build: SIMT wide-head instance, registers per thread: {wide}; "
           "no spills")
     return seconds
 
@@ -387,7 +395,8 @@ def _bounds(name, BH, Sq, Sk, D, dtype_name, causal, q_offset, k_offset):
 
 
 def _bounds_3xtf32(name, BH, Sq, Sk, D, causal, q_offset, k_offset):
-    """The least time of a 3xTF32 kernel (``TF32X3``): its bytes as
+    """The least time of a 3xTF32 kernel (``TF32X3``, ``TF32X3_WIDE``): its
+    bytes as
     ``_bounds`` counts them, its operations three TF32 products for each
     float32 product at ``PEAK_TF32``. Returns what ``_bounds`` returns, the
     operations tripled."""
@@ -403,11 +412,13 @@ def _runs_3xtf32(name, D):
     """Whether the float32 kernel ``name`` at head dim ``D`` runs a 3xTF32
     instance (``TF32X3``): the instance's head dim is the next of its
     route's float32 instances (the fused single-tile backward keeps
-    D = 16)."""
+    D = 16); above 256, the wide-head dQ and dK/dV (``TF32X3_WIDE``)."""
     import torch
 
     from horovod_tpu_torch.ops import attention as A
 
+    if A.wide_route(D):
+        return name in TF32X3_WIDE
     single = name in ("flash_fwd_single", "flash_dqkv")
     dims = A.SINGLE_TILE_HEAD_DIMS if single else A.KERNEL_HEAD_DIMS
     if name != "flash_dqkv":
@@ -1091,8 +1102,9 @@ _CATEGORIES = (  # first match wins; by lower-cased kernel name
                           "flash_fwd_single_3xtf32_kernel")),
     ("flash_dqkv", ("flash_dqkv_kernel", "flash_dqkv_f32_kernel")),
     ("flash_fwd_wide", ("flash_fwd_wide_kernel", "flash_fwd_wide_f32_kernel")),
-    ("flash_dq_wide", ("flash_dq_wide_kernel", "flash_dq_wide_f32_kernel")),
-    ("flash_dkv_wide", ("flash_dkv_wide_kernel", "flash_dkv_wide_f32_kernel")),
+    ("flash_dq_wide", ("flash_dq_wide_kernel", "flash_dq_wide_3xtf32_kernel")),
+    ("flash_dkv_wide", ("flash_dkv_wide_kernel",
+                        "flash_dkv_wide_3xtf32_kernel")),
     ("dw_1x1", ("dw_1x1_kernel", "dw_1x1_partial_f32_kernel",
                 "dw_1x1_reduce_kernel")),
     # cuDNN's convolutions (implicit-GEMM xmma/cutlass kernels named for
@@ -1110,11 +1122,8 @@ def profile_steps(path, step, batch, card, step_ms, n=2):
     """Device time per step by kernel category over ``n`` profiled steps;
     the device's idle share of the unprofiled step (``step_ms``)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             step(batch)
@@ -1123,20 +1132,14 @@ def profile_steps(path, step, batch, card, step_ms, n=2):
     per_cat: dict[str, float] = {}
     other: dict[str, float] = {}
     spans = []
-    for e in prof.events():
-        # Device-side copies of host annotations (Optimizer.step, ...) span
-        # kernels counted on their own: skip them.
-        if (e.device_type != torch.autograd.DeviceType.CUDA
-                or getattr(e, "is_user_annotation", False)):
-            continue
-        start, end = e.time_range.start, e.time_range.end
+    for name, start, end in device_events(prof):
         spans.append((start, end))
-        name = e.name.lower()
+        lower = name.lower()
         cat = next((c for c, keys in _CATEGORIES
-                    if any(k in name for k in keys)), "other")
+                    if any(k in lower for k in keys)), "other")
         per_cat[cat] = per_cat.get(cat, 0.0) + (end - start) / 1e3
         if cat == "other":
-            other[e.name[:60]] = other.get(e.name[:60], 0.0) + (end - start) / 1e3
+            other[name[:60]] = other.get(name[:60], 0.0) + (end - start) / 1e3
     if not spans:
         print(f"profile {path}: the profiler recorded no device events; "
               "device breakdown not measured")
@@ -1184,26 +1187,57 @@ F32_PATHS = (
 )
 
 
-def _attention_kernels_ms(run):
-    """Device ms of the port's flash-attention kernels in one profiled
-    ``run()``, by kernel name (with its template arguments)."""
+# Spin kernels launched at the start of every profile session
+# (``device_profile``) before the work it profiles: on the H100 with torch
+# 2.11 a session often misses its first kernels, so a profile of the float32
+# dQ and dK/dV alone may hold no device event; with a few launches of its own
+# first it holds the work's kernels. ``device_events`` leaves them out.
+PROFILE_WARMUP_KERNELS = 4
+_WARMUP_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel
+
+
+@contextlib.contextmanager
+def device_profile():
+    """A torch.profiler session of the host and the card, opened with
+    ``PROFILE_WARMUP_KERNELS`` spin kernels; the work in its body ends
+    synchronized."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run()
+        for _ in range(PROFILE_WARMUP_KERNELS):
+            torch.cuda._sleep(1)
         torch.cuda.synchronize()
+        yield prof
+        torch.cuda.synchronize()
+
+
+def device_events(prof):
+    """(name, start µs, end µs) of every device kernel or copy that a
+    ``device_profile`` session recorded, its spin kernels and the device-side
+    copies of host annotations (Optimizer.step, ..., which span kernels
+    counted on their own) left out."""
+    import torch
+
+    return [(e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and _WARMUP_KERNEL not in e.name]
+
+
+def _attention_kernels_ms(run):
+    """Device ms of the port's flash-attention kernels in one profiled
+    ``run()``, by kernel name (with its template arguments)."""
+    with device_profile() as prof:
+        run()
     ms = {}
-    for e in prof.events():
-        if (e.device_type != torch.autograd.DeviceType.CUDA
-                or getattr(e, "is_user_annotation", False)):
-            continue
-        found = re.search(r"flash_\w+(<[^>]*>)?", e.name)
+    for name, start, end in device_events(prof):
+        found = re.search(r"flash_\w+(<[^>]*>)?", name)
         if found:
-            ms[found.group(0)] = ms.get(found.group(0), 0.0) + (
-                e.time_range.end - e.time_range.start) / 1e3
+            ms[found.group(0)] = ms.get(found.group(0), 0.0) + (end - start) / 1e3
     return ms
 
 
@@ -1299,15 +1333,18 @@ def wide_heads_phase():
 # Head dims above 256 (the wide-head kernels): name, B*H, Sq, Sk, D, causal,
 # q_offset, k_offset, timed. D = 512 at B*H = 32, S = 512 is timed into the
 # kernels line; D = 320 is causal and ragged (200 rows over 300 keys, rows
-# 0..39 seeing none) and D = 1024 a launch at 4 x 128, each in bf16, float16
-# and float32.
+# 0..39 seeing none), D = 1024 a launch at 4 x 128 and the long causal case
+# has 35 Q tiles (two chunks of the float32 dK/dV, whose chunk is at most
+# 32), each in bf16, float16 and float32.
 WIDE_CASES = (
     ("wide_d512", 32, 512, 512, 512, False, 0, 0, True),
     ("wide_d320_causal_ragged", 6, 200, 300, 320, True, 0, 40, False),
     ("wide_d1024", 4, 128, 128, 1024, True, 0, 0, False),
+    ("wide_d320_causal_long", 2, 2200, 300, 320, True, 0, 0, False),
 )
 # The wide-head path: a stack of causal bf16 attention layers at D = 512
-# through flash_attention_lse (B, H, S, D).
+# through flash_attention_lse (B, H, S, D), then F32_LAYERS float32 layers
+# at the same shape (the 3xTF32 dQ and dK/dV).
 WIDE_PATH_LAYERS = 4
 WIDE_PATH_SHAPE = (2, 16, 512, 512)
 WIDE_KERNELS = ("flash_fwd_wide", "flash_dq_wide", "flash_dkv_wide")
@@ -1344,9 +1381,12 @@ def _sdpa_backend(q4, k4, v4, do4):
 def wide_phase():
     """The three wide-head kernels against their plain versions in bf16,
     float16 and float32 (``WIDE_CASES``), the D = 512 bf16 case timed
-    beside its bound and SDPA; then the wide-head path, with the counters
-    set to 0 just before it: every layer launches each wide kernel once
-    and no other kernel. Returns (measurements, launches)."""
+    beside its bound and SDPA, the float32 dQ and dK/dV (3xTF32) beside
+    their bound and SDPA's float32 backward, with their errors against
+    float64; then the wide-head paths, bf16 and float32, with the counters
+    set to 0 just before each: every layer launches each wide kernel once
+    and no other kernel, and the float32 layers' profile names the 3xTF32
+    dQ and dK/dV. Returns (measurements, launches)."""
     import torch
 
     from horovod_tpu_torch.ops import _kernels
@@ -1378,7 +1418,7 @@ def wide_phase():
                                    lambda: A.flash_dkv_plain(*bwd_args)),
             }
             library = {}
-            if timed and dtype == torch.bfloat16:
+            if timed and dtype != torch.float16:
                 B, H = 1, BH
                 q4, k4, v4 = (t.view(B, H, -1, D).detach().requires_grad_()
                               for t in (q, k, v))
@@ -1387,7 +1427,8 @@ def wide_phase():
                 print(f"library {case} {dname}: SDPA backend {backend} "
                       f"(forward {fwd_ms} ms, backward dQ+dK+dV {bwd_ms} "
                       f"ms); refused by: {refusals or 'none'}")
-                library = {"flash_fwd_wide": fwd_ms}
+                if dtype == torch.bfloat16:
+                    library = {"flash_fwd_wide": fwd_ms}
             for name, (kern, plain) in runs.items():
                 got = kern()
                 want = plain()
@@ -1401,41 +1442,79 @@ def wide_phase():
                         raise AssertionError(
                             f"{case}: masked-row sentinels differ")
                     line += f" (fully masked rows: {empty})"
-                bounds = _bounds(name[:-len("_wide")], BH, Sq, Sk, D, dname,
-                                 causal, qo, ko)
-                if timed and dtype == torch.bfloat16:
+                bounds, fma = _kernel_bounds(name[:-len("_wide")], BH, Sq,
+                                             Sk, D, dname, causal, qo, ko)
+                if timed and (dtype == torch.bfloat16 or fma is not None):
                     numbers, text = _timing(kern, plain, bounds,
-                                            library.get(name))
-                    measured[name] = dict(max_abs_err=err, **numbers)
+                                            library.get(name), fma)
+                    key = name if fma is None else f"{name}_float32"
+                    measured[key] = dict(max_abs_err=err, **numbers)
                     line += text
                 elif timed:
                     line += (f" ms {time_ms(kern):.4f} bound_ms "
                              f"{bounds[0]:.4f} ({bounds[1]})")
                 print(line)
+            if timed and dtype == torch.float32:
+                # The 3xTF32 dQ and dK/dV against float64 (no lse
+                # cotangent, as _f64_check's reference).
+                rows = (lse_ref, delta, torch.zeros_like(glse), causal, qo,
+                        ko)
+                got = (A.flash_dq(q, k, v, do, *rows),
+                       *A.flash_dkv(q, k, v, do, *rows))
+                plain = (A.flash_dq_plain(q, k, v, do, *rows),
+                         *A.flash_dkv_plain(q, k, v, do, *rows))
+                _f64_check(f"{case}_float32", q, k, v, do, got, plain,
+                           causal, qo, ko)
+    launches = {}
     B, H, S, D = WIDE_PATH_SHAPE
-    layers = [[torch.randn(B, H, S, D, generator=gen, device="cuda",
-                           dtype=torch.bfloat16).requires_grad_()
-               for _ in range(3)] for _ in range(WIDE_PATH_LAYERS)]
-    for kern in _kernels.KERNELS:
-        kern.launches = 0
-    for q, k, v in layers:
-        out, lse = A.flash_attention_lse(q, k, v, causal=True)
-        (out.float().square().sum() + lse.sum()).backward()
-    torch.cuda.synchronize()
-    launches = {kern.name: kern.launches for kern in _kernels.KERNELS}
-    expected = {kern.name: 0 for kern in _kernels.KERNELS}
-    expected.update({name: WIDE_PATH_LAYERS for name in WIDE_KERNELS})
-    if launches != expected:
-        raise AssertionError(f"wide: launches {launches}; expected "
-                             f"{WIDE_PATH_LAYERS} of each wide kernel and no "
-                             "other")
-    for q, k, v in layers:
-        if not all(torch.isfinite(t.grad).all() for t in (q, k, v)):
-            raise AssertionError("wide: non-finite gradients")
-    print(f"wide: {WIDE_PATH_LAYERS} causal bf16 attention layers at "
-          f"{WIDE_PATH_SHAPE} (B, H, S, D) through flash_attention_lse, "
-          f"forward and backward: launches {launches}")
-    return measured, {name: launches[name] for name in WIDE_KERNELS}
+    for dtype, n_layers in ((torch.bfloat16, WIDE_PATH_LAYERS),
+                            (torch.float32, F32_LAYERS)):
+        layers = [[torch.randn(B, H, S, D, generator=gen, device="cuda",
+                               dtype=dtype).requires_grad_()
+                   for _ in range(3)] for _ in range(n_layers)]
+
+        def run():
+            for q, k, v in layers:
+                out, lse = A.flash_attention_lse(q, k, v, causal=True)
+                (out.float().square().sum() + lse.sum()).backward()
+
+        for kern in _kernels.KERNELS:
+            kern.launches = 0
+        run()
+        torch.cuda.synchronize()
+        counts = {kern.name: kern.launches for kern in _kernels.KERNELS}
+        expected = {kern.name: 0 for kern in _kernels.KERNELS}
+        expected.update({name: n_layers for name in WIDE_KERNELS})
+        if counts != expected:
+            raise AssertionError(f"wide {dtype}: launches {counts}; expected "
+                                 f"{n_layers} of each wide kernel and no "
+                                 "other")
+        for q, k, v in layers:
+            if not all(torch.isfinite(t.grad).all() for t in (q, k, v)):
+                raise AssertionError(f"wide {dtype}: non-finite gradients")
+        line = (f"wide: {n_layers} causal {dtype} attention layers at "
+                f"{WIDE_PATH_SHAPE} (B, H, S, D) through flash_attention_lse, "
+                f"forward and backward: launches {counts}")
+        if dtype == torch.bfloat16:
+            launches.update({name: counts[name] for name in WIDE_KERNELS})
+        else:
+            for q, k, v in layers:
+                for t in (q, k, v):
+                    t.grad = None
+            kernel_ms = _attention_kernels_ms(run)
+            want = {"flash_fwd_wide_f32_kernel", "flash_dq_wide_3xtf32_kernel",
+                    "flash_dkv_wide_3xtf32_kernel"}
+            if {n.split("<")[0] for n in kernel_ms} != want:
+                raise AssertionError(f"wide float32: profiled kernels "
+                                     f"{sorted(kernel_ms)}; expected "
+                                     f"{sorted(want)}")
+            line += ("; profiled device ms of the flash kernels: "
+                     + ", ".join(f"{n} {ms:.4f}" for n, ms in sorted(
+                         kernel_ms.items(), key=lambda kv: -kv[1])))
+            launches.update({f"{name}_float32": counts[name]
+                             for name in ("flash_dq_wide", "flash_dkv_wide")})
+        print(line)
+    return measured, launches
 
 
 def collectives_phase(card):
@@ -2214,6 +2293,29 @@ def resnet_agreement_phase():
           f"training-mode forward within 1e-4 (max abs err {err:.3e})")
 
 
+def kernel_rows():
+    """The kernels line's rows, (name, Kernel, source file under csrc/):
+    each kernel, then the D = 256 instances of the multi-tile three, then
+    the 3xTF32 float32 kernels (their own source): the forward, dQ and
+    dK/dV at D = 256 and at D = 64, the single-tile forward at D = 64, and
+    the wide-head dQ and dK/dV at D = 512."""
+    from horovod_tpu_torch.ops import _kernels
+
+    return [(k.name, k, k.source) for k in _kernels.KERNELS] + [
+        (f"{k.name}_d256", k, k.source)
+        for k in (_kernels.FLASH_FWD, _kernels.FLASH_DQ, _kernels.FLASH_DKV)
+    ] + [(name, k, "flash_attention_3xtf32.cu") for name, k in (
+        ("flash_fwd_d256_float32", _kernels.FLASH_FWD),
+        ("flash_dq_d256_float32", _kernels.FLASH_DQ),
+        ("flash_dkv_d256_float32", _kernels.FLASH_DKV),
+        ("flash_fwd_float32", _kernels.FLASH_FWD),
+        ("flash_dq_float32", _kernels.FLASH_DQ),
+        ("flash_dkv_float32", _kernels.FLASH_DKV),
+        ("flash_fwd_single_float32", _kernels.FLASH_FWD_SINGLE),
+        ("flash_dq_wide_float32", _kernels.FLASH_DQ_WIDE),
+        ("flash_dkv_wide_float32", _kernels.FLASH_DKV_WIDE))]
+
+
 def _phase(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2276,20 +2378,7 @@ def main() -> int:
     _phase("agree_resnet50", resnet_agreement_phase)
     print(f"phase all: {time.perf_counter() - t_start:.1f} s")
 
-    # Each kernel, then the D = 256 instances of the multi-tile three, then
-    # the 3xTF32 float32 kernels (their own source): the forward, dQ and
-    # dK/dV at D = 256 and at D = 64, and the single-tile forward at D = 64.
-    rows = [(k.name, k, k.source) for k in _kernels.KERNELS] + [
-        (f"{k.name}_d256", k, k.source)
-        for k in (_kernels.FLASH_FWD, _kernels.FLASH_DQ, _kernels.FLASH_DKV)
-    ] + [(name, k, "flash_attention_3xtf32.cu") for name, k in (
-        ("flash_fwd_d256_float32", _kernels.FLASH_FWD),
-        ("flash_dq_d256_float32", _kernels.FLASH_DQ),
-        ("flash_dkv_d256_float32", _kernels.FLASH_DKV),
-        ("flash_fwd_float32", _kernels.FLASH_FWD),
-        ("flash_dq_float32", _kernels.FLASH_DQ),
-        ("flash_dkv_float32", _kernels.FLASH_DKV),
-        ("flash_fwd_single_float32", _kernels.FLASH_FWD_SINGLE))]
+    rows = kernel_rows()
     kernels = [dict(name=name, route="cuda",
                     source=f"horovod_tpu_torch/ops/csrc/{source}",
                     replaces=k.replaces, launches=launches[name],

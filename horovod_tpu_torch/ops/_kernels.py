@@ -76,7 +76,8 @@ FLASH_DQKV = Kernel(
     "flash_dqkv", "hvd_flash_dqkv", (_P,) * 10 + (_I,) * 8 + (_F, _P),
     "flash_attention_single.cu", "horovod_tpu/ops/attention.py:343")
 # The wide-head route (head dims above 256): the same C signatures as the
-# multi-tile forward, dQ and dK/dV, at any head dim that is a multiple of 32.
+# multi-tile forward, dQ and dK/dV, at any head dim that is a multiple of 32;
+# dK/dV also takes the float32 kernel's scratch and its bytes after dv.
 FLASH_FWD_WIDE = Kernel(
     "flash_fwd_wide", "hvd_flash_fwd_wide", (_P,) * 5 + (_I,) * 8 + (_F, _P),
     "flash_attention_wide.cu", "horovod_tpu/ops/attention.py:138")
@@ -84,7 +85,8 @@ FLASH_DQ_WIDE = Kernel(
     "flash_dq_wide", "hvd_flash_dq_wide", (_P,) * 8 + (_I,) * 8 + (_F, _P),
     "flash_attention_wide.cu", "horovod_tpu/ops/attention.py:198")
 FLASH_DKV_WIDE = Kernel(
-    "flash_dkv_wide", "hvd_flash_dkv_wide", (_P,) * 9 + (_I,) * 8 + (_F, _P),
+    "flash_dkv_wide", "hvd_flash_dkv_wide",
+    (_P,) * 10 + (_L,) + (_I,) * 8 + (_F, _P),
     "flash_attention_wide.cu", "horovod_tpu/ops/attention.py:252")
 DW_1X1 = Kernel(
     "dw_1x1", "hvd_dw_1x1", (_P,) * 4 + (_I,) * 10 + (_L,) * 3 + (_I, _P),
@@ -179,8 +181,20 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.hvd_error_string.argtypes = [ctypes.c_int]
             lib.hvd_error_string.restype = ctypes.c_char_p
+            lib.hvd_flash_dkv_wide_scratch_bytes.argtypes = [_I] * 4
+            lib.hvd_flash_dkv_wide_scratch_bytes.restype = _L
             _lib = lib
         return _lib
+
+
+def dkv_wide_scratch_bytes(BH: int, Sq: int, Sk: int, dtype: int) -> int:
+    """Bytes of scratch :data:`FLASH_DKV_WIDE` needs on the current device
+    (the float32 kernel keeps each warp's P^T or dS^T tile there; bf16 and
+    float16 need none)."""
+    n = library().hvd_flash_dkv_wide_scratch_bytes(BH, Sq, Sk, dtype)
+    if n < 0:
+        raise RuntimeError("flash_dkv_wide: cannot query the device's SMs")
+    return n
 
 
 def launch(kernel: Kernel, *args) -> None:

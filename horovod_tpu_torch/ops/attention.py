@@ -409,11 +409,17 @@ def _dkv_launch(kernel, dims):
         Sq, Sk = q.shape[1], k.shape[1]
         dk = torch.empty_like(k)
         dv = torch.empty_like(v)
+        scratch = ()
+        if kernel is _kernels.FLASH_DKV_WIDE:  # the float32 kernel's scratch
+            with torch.cuda.device(q.device):
+                n = _kernels.dkv_wide_scratch_bytes(BH, Sq, Sk, code)
+            s = torch.empty(n, dtype=torch.uint8, device=q.device)
+            scratch = (s.data_ptr(), n)
         _launch(
             kernel, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), glse.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), BH, Sq, Sk, D, code, int(causal),
-            q_offset, k_offset, scale)
+            dk.data_ptr(), dv.data_ptr(), *scratch, BH, Sq, Sk, D, code,
+            int(causal), q_offset, k_offset, scale)
         return dk, dv
 
     return run

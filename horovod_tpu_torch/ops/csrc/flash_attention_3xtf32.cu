@@ -1,19 +1,26 @@
 // Flash attention in float32 on Hopper's tensor cores (3xTF32), every
-// float32 call of the multi-tile route and the single-tile forward: the
-// forwards at head dims 32 to 256 (flash_fwd_3xtf32_kernel<D>, the
-// multi-tile route, and flash_fwd_single_3xtf32_kernel<D>, Sq and Sk at most
-// 128), and the backward at head dims 32 to 256: dQ
-// (flash_dq_3xtf32_kernel<D>) and dK/dV (flash_dkv_3xtf32_kernel<D>).
-// flash_attention.cu's launch_fwd, launch_dq and launch_dkv and
-// flash_attention_single.cu's launch_fwd_single call them for float32
-// (attention.py:padded_heads zero-pads a head dim to the next instance, and
-// D = 16 to 32: a box row is 32 fp32 columns).
+// float32 call of the multi-tile route and the single-tile forward, and the
+// wide-head route's float32 backward: the forwards at head dims 32 to 256
+// (flash_fwd_3xtf32_kernel<D>, the multi-tile route, and
+// flash_fwd_single_3xtf32_kernel<D>, Sq and Sk at most 128), the backward
+// at head dims 32 to 256: dQ (flash_dq_3xtf32_kernel<D>) and dK/dV
+// (flash_dkv_3xtf32_kernel<D>), and the backward at any head dim above 256
+// (flash_dq_wide_3xtf32_kernel, flash_dkv_wide_3xtf32_kernel; D a multiple
+// of 32). flash_attention.cu's launch_fwd, launch_dq and launch_dkv,
+// flash_attention_single.cu's launch_fwd_single and flash_attention_wide.cu's
+// float32 dQ and dK/dV call them (attention.py:padded_heads zero-pads a
+// head dim to the next instance, D = 16 to 32: a box row is 32 fp32
+// columns, and a wide D to a multiple of 32). The fused single-tile
+// backward (flash_attention_single.cu) and the wide-head forward
+// (flash_attention_wide.cu) stay SIMT in float32.
 //
 // Replaces the Pallas TPU kernels of horovod_tpu/ops/attention.py:
 //   flash_fwd_3xtf32_kernel         <- _flash_fwd_kernel (:138)
 //   flash_fwd_single_3xtf32_kernel  <- _flash_fwd_single_kernel (:310)
 //   flash_dq_3xtf32_kernel          <- _flash_dq_kernel (:198)
 //   flash_dkv_3xtf32_kernel         <- _flash_dkv_kernel (:252)
+//   flash_dq_wide_3xtf32_kernel     <- _flash_dq_kernel (:198), D > 256
+//   flash_dkv_wide_3xtf32_kernel    <- _flash_dkv_kernel (:252), D > 256
 //
 // What bounds them, against the H100 SXM data-sheet peaks at its 700 W
 // limit: at B*H = 128, S = 512, D = 256 dQ needs 51.54 GFLOP of float32
@@ -39,7 +46,9 @@
 // Three TF32 products at 495 TFLOP/s make a least time of 0.31 (dQ), 0.42
 // (dK/dV) and 0.21 ms (the forward at D = 256), 0.078 and 0.104 ms (dQ,
 // dK/dV at D = 64): the bound these kernels are held to; the single-tile
-// forward stays bound by its bytes (0.0260 ms of operations).
+// forward stays bound by its bytes (0.0260 ms of operations). The wide
+// route at B*H = 32, S = 512, D = 512: dQ 25.77 GFLOP over 168 MB, dK/dV
+// 34.36 GFLOP over 201 MB, 0.1562 and 0.2082 ms in 3xTF32.
 //   - The products are mma.sync m16n8k8 TF32 with fragments read from the
 //     tiles TMA landed in shared memory and split in registers (three
 //     instructions a value). wgmma's TF32 form takes both operands from
@@ -98,6 +107,19 @@
 //     1 warp dP^T, dS^T (P^T handed over as in dQ; each then reads its
 //     product's A fragments from the pair's buffers) and dK: dV and dK
 //     each fit one warp's registers at D = 256, where both would not.
+//   - Wide-head backward (WideX, D > 256): the pair designs with nothing
+//     resident (64 rows of one operand are 128 KB at D = 512): per key (Q)
+//     tile D / 32 score items of four boxes (column box c of each operand),
+//     and output items of 64 columns for each warpgroup, through one ring
+//     of six 32 KB stages. dQ: per key tile its score items, P and dS
+//     through the pair's two buffers, then its output items: passes of 512
+//     columns, 256 a warpgroup in 128 registers, so the three products run
+//     once each at D <= 512. dK/dV: dV and dK of 256 columns (128 registers
+//     a warp) are a pass; rather than form S^T and dP^T again in each pass
+//     (1.5x the products at D = 512), a work tile first forms them for a
+//     chunk of up to 32 Q tiles and keeps each warp's operand (P^T or dS^T,
+//     4 KB) in a global scratch, which the passes read back: every product
+//     once; a later chunk adds the sums the last stored.
 //   - A fragment taken from an accumulator (P, dS, P^T, dS^T) keeps its
 //     columns 2 t and 2 t + 1 and stands them for k = t and t + 4; the
 //     other operand's rows are read in the same order, so no shuffle.
@@ -326,19 +348,41 @@ struct SmemFrag {
 };
 
 // Rows row, row + 8 of a 16 x W accumulator, each value x of row half h
-// as out_value(x, h), to columns [col0, col0 + W) of out (ld floats a row;
-// rows past nrows not written), 8 bytes a thread.
+// as out_value(x, h), to columns [col0, col0 + min(W, ncols)) of out (ld
+// floats a row; rows past nrows not written; ncols a multiple of 8), 8
+// bytes a thread.
 template <int W, typename Out>
 __device__ __forceinline__ void store_acc(float* out, int ld, const float (&acc)[W / 2],
-                                          Out out_value, int row, int nrows, int col0, int lane) {
+                                          Out out_value, int row, int nrows, int col0, int lane,
+                                          int ncols = W) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (row + 8 * h >= nrows) continue;
     float* o = out + (size_t)(row + 8 * h) * ld + col0 + 2 * (lane & 3);
 #pragma unroll
     for (int nt = 0; nt < W / 8; ++nt)
-      *reinterpret_cast<float2*>(o + 8 * nt) =
-          make_float2(out_value(acc[4 * nt + 2 * h], h), out_value(acc[4 * nt + 2 * h + 1], h));
+      if (8 * nt < ncols)
+        *reinterpret_cast<float2*>(o + 8 * nt) = make_float2(
+            out_value(acc[4 * nt + 2 * h], h), out_value(acc[4 * nt + 2 * h + 1], h));
+  }
+}
+
+// Adds to a 16 x W accumulator the values that store_acc with the same
+// arguments wrote (and nothing where it writes nothing).
+template <int W>
+__device__ __forceinline__ void add_stored(float (&acc)[W / 2], const float* in, int ld, int row,
+                                           int nrows, int col0, int lane, int ncols = W) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row + 8 * h >= nrows) continue;
+    const float* o = in + (size_t)(row + 8 * h) * ld + col0 + 2 * (lane & 3);
+#pragma unroll
+    for (int nt = 0; nt < W / 8; ++nt)
+      if (8 * nt < ncols) {
+        const float2 x = *reinterpret_cast<const float2*>(o + 8 * nt);
+        acc[4 * nt + 2 * h] += x.x;
+        acc[4 * nt + 2 * h + 1] += x.y;
+      }
   }
 }
 
@@ -1024,6 +1068,451 @@ flash_dkv_3xtf32_kernel(const __grid_constant__ CUtensorMap tm_q,
 #undef X_BWD_ARGS
 
 // ---------------------------------------------------------------------------
+// The wide-head backward: dQ (flash_dq_wide_3xtf32_kernel) and dK/dV
+// (flash_dkv_wide_3xtf32_kernel) at any head dim D above 256 that is a
+// multiple of X_BOX, the float32 calls of flash_attention_wide.cu. One
+// kernel each, D a runtime argument: nothing stays resident, so shared
+// memory is the same at every D.
+// ---------------------------------------------------------------------------
+
+// Shared memory of the wide-head backward, byte offsets from a 1024-aligned
+// base: a ring of STAGES stages of four boxes (32 KB) that every operand
+// streams through, each warp pair's two 4 KB buffers (16 x 64 fp32 in
+// fragment order: dQ's P and dS; dK/dV's P^T, and each warp's operand for
+// its output items, the warpgroup 0 warp's in the first), then the ring's
+// full/empty barriers. A score item holds column box c of the four operands (dQ: Q,
+// K, dO, V; dK/dV: K, Q, V, dO), so that warpgroup wg reads its product's
+// operands at boxes 2 wg and 2 wg + 1; an output item holds 64 columns (two
+// boxes) for each consumer warpgroup, warpgroup wg's at boxes 2 wg and
+// 2 wg + 1. Six stages: 230,496 B.
+struct WideX {
+  static constexpr int STAGE = 4 * X_BOX_BYTES;
+  static constexpr int XCH_ALL = 2 * X_PAIRS * X_XCH_BYTES;
+  static constexpr int STAGES = ((int)SMEM_LIMIT - 2048 - XCH_ALL) / STAGE;
+  static constexpr int XCH = STAGES * STAGE;
+  static constexpr int BAR = XCH + XCH_ALL;
+  static constexpr int BYTES = BAR + 2 * STAGES * 8 + 1024;  // + alignment slack
+  static_assert(BYTES <= (int)SMEM_LIMIT, "wide 3xTF32 backward ring exceeds shared memory");
+};
+constexpr int WIDE_OUT = 256;                      // output columns of a warpgroup: 128 registers
+constexpr int WIDE_ITEMS = WIDE_OUT / (2 * X_BOX);  // output items of a warpgroup's columns
+// Q tiles whose P^T and dS^T the float32 wide dK/dV keeps in its scratch
+// at once (2048 rows): 1 MiB a block, at most 132 MiB on 132 SMs at any Sq.
+// Each chunk after the first costs a round trip of the partial sums, more
+// on the H100 than its bytes suggest (PERF.md), so S <= 2048 takes one.
+constexpr int WIDE_QCHUNK = 32;
+
+// The producer's score item `it`: column box col of m0 (rows r0), m1 (r1),
+// m2 (r0) and m3 (r1) of head bh.
+__device__ __forceinline__ void load_wide_scores(const Ring<WideX::STAGE>& ring, int it,
+                                                 const CUtensorMap* m0, const CUtensorMap* m1,
+                                                 const CUtensorMap* m2, const CUtensorMap* m3,
+                                                 int col, int r0, int r1, int bh) {
+  const uint32_t tile = ring.fill(it, WideX::STAGE), bar = ring.bar(it);
+  tma_load_3d(tile, m0, bar, col, r0, bh);
+  tma_load_3d(tile + X_BOX_BYTES, m1, bar, col, r1, bh);
+  tma_load_3d(tile + 2 * X_BOX_BYTES, m2, bar, col, r0, bh);
+  tma_load_3d(tile + 3 * X_BOX_BYTES, m3, bar, col, r1, bh);
+}
+
+// The producer's output item `it`: columns [c0, c0 + 64) of m0 and
+// [c1, c1 + 64) of m1, rows row of head bh; boxes that start past D are not
+// loaded (their columns are never stored).
+__device__ __forceinline__ void load_wide_outputs(const Ring<WideX::STAGE>& ring, int it,
+                                                  const CUtensorMap* m0, int c0,
+                                                  const CUtensorMap* m1, int c1, int row, int bh,
+                                                  int D) {
+  const int n = (c0 < D) + (c0 + X_BOX < D) + (c1 < D) + (c1 + X_BOX < D);
+  const uint32_t tile = ring.fill(it, n * X_BOX_BYTES), bar = ring.bar(it);
+  if (c0 < D) tma_load_3d(tile, m0, bar, c0, row, bh);
+  if (c0 + X_BOX < D) tma_load_3d(tile + X_BOX_BYTES, m0, bar, c0 + X_BOX, row, bh);
+  if (c1 < D) tma_load_3d(tile + 2 * X_BOX_BYTES, m1, bar, c1, row, bh);
+  if (c1 + X_BOX < D) tma_load_3d(tile + 3 * X_BOX_BYTES, m1, bar, c1 + X_BOX, row, bh);
+}
+
+// The ring of the wide-head backward, set up by thread 0 before the block
+// syncs; smem: the same base, generic.
+__device__ __forceinline__ Ring<WideX::STAGE> wide_ring(unsigned char* smem_raw,
+                                                        unsigned char** smem) {
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  *smem = smem_raw + (base - raw);
+  const Ring<WideX::STAGE> ring = make_ring<WideX::STAGE>(base, WideX::BAR, WideX::STAGES);
+  __syncthreads();
+  return ring;
+}
+
+// dQ at head dim D > 256, persistent: a grid of one block per SM walks the
+// work tiles (bh, 64 Q rows, pass of 512 output columns) and loops over the
+// key tiles their rows can see; the pair design of dq_pair with every
+// operand streamed. Per key tile: D / 32 score items, in which the
+// warpgroup 0 warp of pair p sums S = Q K^T and the warpgroup 1 warp dP =
+// dO V^T over its 16 rows; P to the partner through the pair's buffer,
+// which forms dS = P (dP + g_lse - delta) into the second; then WIDE_ITEMS
+// output items, warpgroup wg adding dS K to dQ's columns [512 pass +
+// 256 wg, + 256) (128 registers), dS read from the buffer by both. At
+// D <= 512 one pass: the three products, each once. dq = scale * sum_j dS_j
+// K_j, [BH, Sq, D] fp32.
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+flash_dq_wide_3xtf32_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
+                            const __grid_constant__ CUtensorMap tm_do, float* __restrict__ dq,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            const float* __restrict__ glse, int BH, int Sq, int Sk, int D,
+                            float scale, int causal, int q_offset, int k_offset) {
+  // Beside dQ's 128 registers, the score product sums in two groups of
+  // n-tiles one k-step at a time and so does the output product: the
+  // fastest choice without spills on the H100 (variants built side by
+  // side; PERF.md).
+  constexpr int S_NG = 2, S_KS = 1, P_UNROLL = 1;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem;
+  const Ring<WideX::STAGE> ring = wide_ring(smem_raw, &smem);
+  const int CB = D / X_BOX;
+  const int qtiles = (Sq + SEQ_TILE - 1) / SEQ_TILE;
+  const int passes = (D + 2 * WIDE_OUT - 1) / (2 * WIDE_OUT);
+  // Work tile w: pass w % passes, Q tile (w / passes) % qtiles, head
+  // w / (passes qtiles); neighbours share a head's K and V in L2.
+  const int nwork = BH * qtiles * passes;
+  const int wg = threadIdx.x / WG;
+
+  if (wg == CONSUMER_WGS) {
+    // Producer, one thread: per key tile its score items, then its output
+    // items (K).
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x == CONSUMER_WGS * WG) {
+      int it = 0;
+      for (int w = blockIdx.x; w < nwork; w += gridDim.x) {
+        const int pass = w % passes;
+        const int q0 = (w / passes) % qtiles * SEQ_TILE, bh = w / (passes * qtiles);
+        const int nk = key_tiles(q0, Sq, Sk, causal, q_offset, k_offset);
+        for (int kt = 0; kt < nk; ++kt) {
+          const int k0 = kt * SEQ_TILE;
+#pragma unroll 1
+          for (int c = 0; c < CB; ++c, ++it)
+            load_wide_scores(ring, it, &tm_q, &tm_k, &tm_do, &tm_v, X_BOX * c, q0, k0, bh);
+#pragma unroll 1
+          for (int u = 0; u < WIDE_ITEMS; ++u, ++it) {
+            const int col = 2 * WIDE_OUT * pass + 2 * X_BOX * u;
+            load_wide_outputs(ring, it, &tm_k, col, &tm_k, col + WIDE_OUT, k0, bh, D);
+          }
+        }
+      }
+    }
+  } else {
+    // Consumer warp: pair p = warp % 4 owns rows [16 p, 16 p + 16) of the
+    // work tile; warpgroup 0 computes S and P, warpgroup 1 dP and dS.
+    reg_alloc<CONSUMER_REGS>();
+    const int pair = (threadIdx.x / 32) % X_PAIRS;
+    const int lane = threadIdx.x & 31;
+    const int tq = lane & 3;
+    const int r = X_PAIR_ROWS * pair + (lane >> 2);  // this thread's rows r, r + 8 of the 64
+    const float sl2 = scale * LOG2E;
+    float4* const pt4 = reinterpret_cast<float4*>(smem + WideX::XCH + 2 * pair * X_XCH_BYTES);
+    float4* const ds4 = pt4 + SEQ_TILE / 8 * 32;  // the pair's second buffer
+    int it = 0;
+    for (int w = blockIdx.x; w < nwork; w += gridDim.x) {
+      const int pass = w % passes;
+      const int q0 = (w / passes) % qtiles * SEQ_TILE, bh = w / (passes * qtiles);
+      const int row0 = q0 + r;                                  // and row0 + 8
+      const int col0 = 2 * WIDE_OUT * pass + WIDE_OUT * wg;  // this warpgroup's dQ columns
+      const int nk = key_tiles(q0, Sq, Sk, causal, q_offset, k_offset);
+      float acc[WIDE_OUT / 2];  // dQ: the pair's 16 rows by this warpgroup's 256 columns
+#pragma unroll
+      for (int i = 0; i < WIDE_OUT / 2; ++i) acc[i] = 0.f;
+
+      for (int kt = 0; kt < nk; ++kt) {
+        const int k0 = kt * SEQ_TILE;
+        // S = Q K^T (warpgroup 0) or dP = dO V^T (warpgroup 1), 16 x 64.
+        float s[SEQ_TILE / 2];
+#pragma unroll
+        for (int i = 0; i < SEQ_TILE / 2; ++i) s[i] = 0.f;
+        for (int c = 0; c < CB; ++c, ++it) {
+          const uint32_t a = ring.tile(it) + 2 * wg * X_BOX_BYTES;
+          ring.wait(it);
+          scores_box<S_NG, S_KS>(s, a, X_PAIR_ROWS * pair, a + X_BOX_BYTES, lane);
+          ring.release(it, lane);
+        }
+        // This thread's two rows: lse log2(e) for warpgroup 0, g_lse - delta
+        // for warpgroup 1 (read here, not held through the score product).
+        // Rows past Sq get lse = LSE_MASKED: their P is 0.
+        float rv[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int qi = row0 + 8 * h;
+          const size_t at = (size_t)bh * Sq + qi;
+          if (wg == 0)
+            rv[h] = qi < Sq ? lse[at] * LOG2E : LSE_MASKED;
+          else
+            rv[h] = qi < Sq ? glse[at] - delta[at] : 0.f;
+        }
+
+        // P to the partner in fragment order (float4 j * 32 + lane: a0..a3
+        // of k-step j), which forms dS = P (dP + g_lse - delta) into the
+        // pair's second buffer in the same order; each warp then reads its
+        // product's A fragments there (the partner's lane wrote the same
+        // fragment), so that its scores are not live through the products.
+        // Keys past Sk read zero rows of K but get P = 0.
+        if (wg == 0) {
+          const bool mask =
+              k0 + SEQ_TILE > Sk || (causal && q_offset + q0 < k_offset + k0 + SEQ_TILE - 1);
+#pragma unroll
+          for (int i = 0; i < SEQ_TILE / 2; ++i) {
+            const int kj = k0 + 8 * (i >> 2) + 2 * tq + (i & 1);
+            const int h = (i >> 1) & 1;
+            float pv = exp2f(fmaf(s[i], sl2, -rv[h]));
+            if (mask && (kj >= Sk || (causal && q_offset + row0 + 8 * h < k_offset + kj)))
+              pv = 0.f;
+            s[i] = pv;
+          }
+#pragma unroll
+          for (int j = 0; j < SEQ_TILE / 8; ++j)
+            pt4[j * 32 + lane] = make_float4(s[4 * j], s[4 * j + 2], s[4 * j + 1], s[4 * j + 3]);
+          __threadfence_block();
+          named_arrive(XCH_FULL + pair, 64);
+          named_sync(XCH_BACK + pair, 64);  // dS is in the second buffer
+        } else {
+          named_sync(XCH_FULL + pair, 64);
+#pragma unroll
+          for (int j = 0; j < SEQ_TILE / 8; ++j) {
+            const float4 p = pt4[j * 32 + lane];
+            ds4[j * 32 + lane] =
+                make_float4(p.x * (s[4 * j] + rv[0]), p.y * (s[4 * j + 2] + rv[1]),
+                            p.z * (s[4 * j + 1] + rv[0]), p.w * (s[4 * j + 3] + rv[1]));
+          }
+          __threadfence_block();
+          named_arrive(XCH_BACK + pair, 64);
+        }
+
+        // dQ += dS K over this warpgroup's halves of the output items; an
+        // item's columns past D are skipped (not loaded, not stored).
+#pragma unroll
+        for (int u = 0; u < WIDE_ITEMS; ++u, ++it) {
+          ring.wait(it);
+          if (col0 + 2 * X_BOX * u < D) {
+            const uint32_t b = ring.tile(it) + 2 * wg * X_BOX_BYTES;
+            product_item<1>(acc + 32 * u, b, b + X_BOX_BYTES, SmemFrag<P_UNROLL>{ds4, lane},
+                            lane);
+          }
+          ring.release(it, lane);
+        }
+      }
+      store_acc<WIDE_OUT>(dq + (size_t)bh * Sq * D, D, acc,
+                          [scale](float x, int) { return scale * x; }, row0, Sq, col0, lane,
+                          D - col0);
+    }
+  }
+}
+
+// dK/dV at head dim D > 256, persistent: a grid of one block per SM walks
+// the work tiles (bh, 64 keys) and the Q tiles that can see the keys in
+// chunks of WIDE_QCHUNK, each in two phases; the pair design of dkv_pair
+// with every operand streamed. Scores, once: per Q tile D / 32 score
+// items, in which the warpgroup 0 warp of pair p sums S^T = K Q^T and the
+// warpgroup 1 warp dP^T = V dO^T over its 16 keys; P^T to the partner,
+// which forms dS^T = P^T (dP^T + g_lse - delta); each warp keeps its output
+// product's operand (P^T or dS^T, 4 KB in fragment order) in the block's
+// scratch. Outputs, in passes of 256 columns: per Q tile the warp copies
+// its operand back into its own 4 KB of shared memory, then WIDE_ITEMS
+// output items: dV += P^T dO (warpgroup 0) and dK += dS^T Q (warpgroup 1),
+// 128 registers each; after the first chunk each thread adds the sums it
+// stored unscaled to dV and dK, the last chunk's scaled. Every product runs
+// once at any D, where forming S^T and dP^T again in each pass would cost
+// 1.5x the products at D = 512 (2.5x at D = 1024). The scratch (from the
+// wrapper): per block of the grid, per Q tile of a chunk, 8 warps x 4 KB.
+// dV = sum_i P_ij^T dO_i, dK = scale * sum_i dS_ij^T Q_i, [BH, Sk, D] fp32.
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+flash_dkv_wide_3xtf32_kernel(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v,
+                             const __grid_constant__ CUtensorMap tm_do, float* __restrict__ dk,
+                             float* __restrict__ dv, float4* __restrict__ scratch,
+                             const float* __restrict__ lse, const float* __restrict__ delta,
+                             const float* __restrict__ glse, int BH, int Sq, int Sk, int D,
+                             float scale, int causal, int q_offset, int k_offset) {
+  // The score product (no accumulator beside it) sums in one group of
+  // n-tiles with its four k-steps unrolled; the output product in two
+  // groups reading four k-steps ahead: the fastest choice without spills on
+  // the H100 (variants built side by side; PERF.md).
+  constexpr int S_NG = 1, S_KS = 4, P_NG = 2, P_UNROLL = 4;
+  constexpr int FRAG = SEQ_TILE / 8 * 32;  // float4 of a warp's 16 x 64 operand
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem;
+  const Ring<WideX::STAGE> ring = wide_ring(smem_raw, &smem);
+  const int CB = D / X_BOX;
+  const int ktiles = (Sk + SEQ_TILE - 1) / SEQ_TILE;
+  const int qtiles = (Sq + SEQ_TILE - 1) / SEQ_TILE;
+  const int passes = (D + WIDE_OUT - 1) / WIDE_OUT;
+  const int chunk = min(qtiles, WIDE_QCHUNK);
+  // Work tile w: key tile w % ktiles of head w / ktiles; neighbours share a
+  // head's Q and dO in L2.
+  const int nwork = BH * ktiles;
+  const int wg = threadIdx.x / WG;
+
+  if (wg == CONSUMER_WGS) {
+    // Producer, one thread: per work tile every Q tile's score items, then
+    // per pass every Q tile's output items (dO and Q).
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x == CONSUMER_WGS * WG) {
+      int it = 0;
+      for (int w = blockIdx.x; w < nwork; w += gridDim.x) {
+        const int k0 = w % ktiles * SEQ_TILE, bh = w / ktiles;
+        const int qt0 = first_query_tile(k0, causal, q_offset, k_offset);
+        for (int c0 = qt0; c0 < qtiles; c0 += WIDE_QCHUNK) {
+          const int c1 = min(c0 + WIDE_QCHUNK, qtiles);
+          for (int qt = c0; qt < c1; ++qt) {
+#pragma unroll 1
+            for (int c = 0; c < CB; ++c, ++it)
+              load_wide_scores(ring, it, &tm_k, &tm_q, &tm_v, &tm_do, X_BOX * c, k0,
+                               qt * SEQ_TILE, bh);
+          }
+          for (int pass = 0; pass < passes; ++pass)
+            for (int qt = c0; qt < c1; ++qt) {
+#pragma unroll 1
+              for (int u = 0; u < WIDE_ITEMS; ++u, ++it) {
+                const int col = WIDE_OUT * pass + 2 * X_BOX * u;
+                load_wide_outputs(ring, it, &tm_do, col, &tm_q, col, qt * SEQ_TILE, bh, D);
+              }
+            }
+        }
+      }
+    }
+  } else {
+    // Consumer warp: pair p = warp % 4 owns keys [16 p, 16 p + 16) of the
+    // work tile; warpgroup 0 computes S^T, P^T and dV, warpgroup 1 dP^T,
+    // dS^T and dK.
+    reg_alloc<CONSUMER_REGS>();
+    const int warp = threadIdx.x / 32;
+    const int pair = warp % X_PAIRS;
+    const int lane = threadIdx.x & 31;
+    const int tq = lane & 3;
+    const int r = X_PAIR_ROWS * pair + (lane >> 2);  // this thread's keys r, r + 8 of the 64
+    const float sl2 = scale * LOG2E;
+    float4* const pt4 = reinterpret_cast<float4*>(smem + WideX::XCH + 2 * pair * X_XCH_BYTES);
+    // The warp's own 4 KB of the pair's buffers (P^T's for warpgroup 0),
+    // into which it copies its operand for the output items: each lane
+    // reads back only what it wrote.
+    float4* const own = pt4 + wg * FRAG;
+    int it = 0;
+    for (int w = blockIdx.x; w < nwork; w += gridDim.x) {
+      const int k0 = w % ktiles * SEQ_TILE, bh = w / ktiles;
+      const int key0 = k0 + r;  // and key0 + 8
+      const int qt0 = first_query_tile(k0, causal, q_offset, k_offset);
+      // The warp's operand of Q tile qt of the chunk from c0 in the scratch
+      // (chunk Q tiles a block, as wide_dkv_scratch_bytes counts them).
+      auto operand = [&](int qt, int c0) {
+        return scratch + ((size_t)(blockIdx.x * chunk + qt - c0) * CONSUMER_WARPS + warp) * FRAG;
+      };
+      // One chunk at least, so that keys no Q tile sees get dK = dV = 0.
+      for (int c0 = qt0;; c0 += WIDE_QCHUNK) {
+        const int c1 = min(c0 + WIDE_QCHUNK, qtiles);
+        for (int qt = c0; qt < c1; ++qt) {
+          const int q0 = qt * SEQ_TILE;
+          // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (warpgroup 1), 16 x 64.
+          float s[SEQ_TILE / 2];
+#pragma unroll
+          for (int i = 0; i < SEQ_TILE / 2; ++i) s[i] = 0.f;
+          for (int c = 0; c < CB; ++c, ++it) {
+            const uint32_t a = ring.tile(it) + 2 * wg * X_BOX_BYTES;
+            ring.wait(it);
+            scores_box<S_NG, S_KS>(s, a, X_PAIR_ROWS * pair, a + X_BOX_BYTES, lane);
+            ring.release(it, lane);
+          }
+
+          // This thread's 16 Q columns (element i of a score tile is column
+          // 8 (i / 4) + 2 tq + i % 2, value e = 2 (i / 4) + i % 2): lse
+          // log2(e) for warpgroup 0, g_lse - delta for warpgroup 1. Rows past
+          // Sq get lse = LSE_MASKED: their P is exactly 0.
+          float rv[16];
+#pragma unroll
+          for (int e = 0; e < 16; ++e) {
+            const int qi = q0 + 8 * (e >> 1) + 2 * tq + (e & 1);
+            const size_t at = (size_t)bh * Sq + qi;
+            if (wg == 0)
+              rv[e] = qi < Sq ? lse[at] * LOG2E : LSE_MASKED;
+            else
+              rv[e] = qi < Sq ? glse[at] - delta[at] : 0.f;
+          }
+
+          // P^T to the partner in fp32, in fragment order (float4 j * 32 +
+          // lane: a0..a3 of k-step j), which forms dS^T in the same order;
+          // each writes its own to the scratch. Keys past Sk are never
+          // written, so they need no mask. The warpgroup 0 warp waits for
+          // the partner's read before its buffer is reused.
+          float4* const out = operand(qt, c0);
+          if (wg == 0) {
+            const bool mask = causal && q_offset + q0 < k_offset + k0 + SEQ_TILE - 1;
+#pragma unroll
+            for (int i = 0; i < SEQ_TILE / 2; ++i) {
+              const int c = 8 * (i >> 2) + 2 * tq + (i & 1);
+              float pv = exp2f(fmaf(s[i], sl2, -rv[2 * (i >> 2) + (i & 1)]));
+              if (mask && q_offset + q0 + c < k_offset + key0 + 8 * ((i >> 1) & 1)) pv = 0.f;
+              s[i] = pv;
+            }
+#pragma unroll
+            for (int j = 0; j < SEQ_TILE / 8; ++j) {
+              const float4 f = make_float4(s[4 * j], s[4 * j + 2], s[4 * j + 1], s[4 * j + 3]);
+              pt4[j * 32 + lane] = f;
+              out[j * 32 + lane] = f;
+            }
+            __threadfence_block();
+            named_arrive(XCH_FULL + pair, 64);
+            named_sync(XCH_BACK + pair, 64);
+          } else {
+            named_sync(XCH_FULL + pair, 64);
+#pragma unroll
+            for (int j = 0; j < SEQ_TILE / 8; ++j) {
+              const float4 p = pt4[j * 32 + lane];
+              out[j * 32 + lane] = make_float4(
+                  p.x * (s[4 * j] + rv[2 * j]), p.y * (s[4 * j + 2] + rv[2 * j]),
+                  p.z * (s[4 * j + 1] + rv[2 * j + 1]), p.w * (s[4 * j + 3] + rv[2 * j + 1]));
+            }
+            __threadfence_block();
+            named_arrive(XCH_BACK + pair, 64);
+          }
+        }
+
+        for (int pass = 0; pass < passes; ++pass) {
+          const int col0 = WIDE_OUT * pass;
+          float acc[WIDE_OUT / 2];  // dV or dK: the pair's 16 keys by the pass's 256 columns
+#pragma unroll
+          for (int i = 0; i < WIDE_OUT / 2; ++i) acc[i] = 0.f;
+          for (int qt = c0; qt < c1; ++qt) {
+            {
+              const float4* const in = operand(qt, c0);
+              float4 f[SEQ_TILE / 8];
+#pragma unroll
+              for (int j = 0; j < SEQ_TILE / 8; ++j) f[j] = in[j * 32 + lane];
+#pragma unroll
+              for (int j = 0; j < SEQ_TILE / 8; ++j) own[j * 32 + lane] = f[j];
+            }
+            // dV += P^T dO (warpgroup 0) or dK += dS^T Q (warpgroup 1) over
+            // the output items; columns past D are skipped.
+#pragma unroll
+            for (int u = 0; u < WIDE_ITEMS; ++u, ++it) {
+              ring.wait(it);
+              if (col0 + 2 * X_BOX * u < D) {
+                const uint32_t b = ring.tile(it) + 2 * wg * X_BOX_BYTES;
+                product_item<P_NG>(acc + 32 * u, b, b + X_BOX_BYTES,
+                                   SmemFrag<P_UNROLL>{own, lane}, lane);
+              }
+              ring.release(it, lane);
+            }
+          }
+          float* const o = (wg == 0 ? dv : dk) + (size_t)bh * Sk * D;
+          if (c0 != qt0) add_stored<WIDE_OUT>(acc, o, D, key0, Sk, col0, lane, D - col0);
+          const float mul = wg == 0 || c1 < qtiles ? 1.f : scale;
+          store_acc<WIDE_OUT>(o, D, acc, [mul](float x, int) { return mul * x; }, key0, Sk, col0,
+                              lane, D - col0);
+        }
+        if (c1 == qtiles) break;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // The forwards: flash_fwd_3xtf32_kernel<D> (the multi-tile route: an online
 // softmax over key tiles of 64) and flash_fwd_single_3xtf32_kernel<D> (Sk
 // at most 128: one key tile of 128, the direct softmax). One body,
@@ -1429,7 +1918,6 @@ int launch_dkv_d(int D, Args... args) {
   return cudaErrorInvalidValue;
 }
 
-
 // The forward kernel at head dim D with key tiles of BK: the multi-tile
 // one at SEQ_TILE, the single-tile one at F_ROWS (only that one is
 // instantiated).
@@ -1492,6 +1980,65 @@ int launch_dkv_3xtf32(const void* q, const void* k, const void* v, const void* d
                       cudaStream_t stream) {
   return launch_dkv_d(D, q, k, v, dout, lse, delta, glse, dk, dv, BH, Sq, Sk, scale, causal, qo,
                       ko, stream);
+}
+
+// The scratch the float32 wide-head dK/dV needs on the current device:
+// each consumer warp's 16 x 64 fp32 operand of a chunk's Q tiles (at most
+// WIDE_QCHUNK), for every block of its persistent grid of min(work tiles,
+// SMs); -1 if the device cannot be queried.
+long long wide_dkv_scratch_bytes(int BH, int Sq, int Sk) {
+  int sms = 0;
+  if (sm_count(&sms)) return -1;
+  const long long work = (long long)BH * ((Sk + SEQ_TILE - 1) / SEQ_TILE);
+  const int qtiles = (Sq + SEQ_TILE - 1) / SEQ_TILE;
+  return (work < sms ? work : sms) * (qtiles < WIDE_QCHUNK ? qtiles : WIDE_QCHUNK) *
+         CONSUMER_WARPS * X_XCH_BYTES;
+}
+
+// The launchers flash_attention_wide.cu calls for every float32 dQ and
+// dK/dV at head dims above 256: D a multiple of X_BOX (the wrapper
+// zero-pads; any other D: cudaErrorInvalidValue); a persistent grid over
+// the work tiles of every pass.
+int launch_dq_wide_3xtf32(const void* q, const void* k, const void* v, const void* dout,
+                          const void* lse, const void* delta, const void* glse, void* dq, int BH,
+                          int Sq, int Sk, int D, float scale, int causal, int qo, int ko,
+                          cudaStream_t stream) {
+  if (D <= 256 || D % X_BOX) return cudaErrorInvalidValue;
+  if (Sq == 0 || BH == 0) return cudaSuccess;
+  if (Sk == 0)  // no key: dQ is 0 (and a tensor map cannot have an empty dim)
+    return cudaMemsetAsync(dq, 0, (size_t)BH * Sq * D * sizeof(float), stream);
+  const int passes = (D + 2 * WIDE_OUT - 1) / (2 * WIDE_OUT);
+  CUtensorMap m[4];
+  dim3 grid;
+  const int err = x_setup(m, q, k, v, dout, BH, Sq, Sk, D,
+                          BH * ((Sq + SEQ_TILE - 1) / SEQ_TILE) * passes, &grid);
+  if (err) return err;
+  return launch(flash_dq_wide_3xtf32_kernel, grid, SM90_THREADS, WideX::BYTES, stream, m[0], m[1],
+                m[2], m[3], (float*)dq, (const float*)lse, (const float*)delta,
+                (const float*)glse, BH, Sq, Sk, D, scale, causal, qo, ko);
+}
+
+int launch_dkv_wide_3xtf32(const void* q, const void* k, const void* v, const void* dout,
+                           const void* lse, const void* delta, const void* glse, void* dk,
+                           void* dv, void* scratch, long long scratch_bytes, int BH, int Sq,
+                           int Sk, int D, float scale, int causal, int qo, int ko,
+                           cudaStream_t stream) {
+  if (D <= 256 || D % X_BOX) return cudaErrorInvalidValue;
+  if (Sk == 0 || BH == 0) return cudaSuccess;
+  if (Sq == 0) {  // no query: dK and dV are 0
+    const size_t bytes = (size_t)BH * Sk * D * sizeof(float);
+    const cudaError_t err = cudaMemsetAsync(dk, 0, bytes, stream);
+    return err != cudaSuccess ? err : cudaMemsetAsync(dv, 0, bytes, stream);
+  }
+  CUtensorMap m[4];
+  dim3 grid;
+  const int err = x_setup(m, q, k, v, dout, BH, Sq, Sk, D, BH * ((Sk + SEQ_TILE - 1) / SEQ_TILE),
+                          &grid);
+  if (err) return err;
+  if (scratch_bytes < wide_dkv_scratch_bytes(BH, Sq, Sk)) return cudaErrorInvalidValue;
+  return launch(flash_dkv_wide_3xtf32_kernel, grid, SM90_THREADS, WideX::BYTES, stream, m[0],
+                m[1], m[2], m[3], (float*)dk, (float*)dv, (float4*)scratch, (const float*)lse,
+                (const float*)delta, (const float*)glse, BH, Sq, Sk, D, scale, causal, qo, ko);
 }
 
 // The forwards (flash_attention.cu's launch_fwd and flash_attention_single.cu's

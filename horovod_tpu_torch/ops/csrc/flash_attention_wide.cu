@@ -59,21 +59,21 @@
 // P and dS are rounded to the operand dtype before their products, as the
 // TPU kernels do.
 //
-// float32 (flash_fwd_wide_f32_kernel, flash_dq_wide_f32_kernel,
-// flash_dkv_wide_f32_kernel) keeps the first version, SIMT on the FMA units
-// in fp32 (TF32 would not hold 1e-4), whose registers and shared memory
-// (49,408 / 50,432 / 98,816 bytes for the forward, dQ and dK/dV) are the
-// same at any D:
-//   - the scores S = Q K^T (and dP = dO V^T) are contractions over D,
-//     streamed through shared memory in chunks of W_KC columns into a
-//     64 x 64 fp32 tile held in registers (16 values per thread);
-//   - every output is written in column slices of W_SL columns, one slice at
-//     a time, each slice recomputing the scores it needs. The forward first
-//     runs one pass over the keys for the row max and sum (so lse), after
-//     which P = exp(S - lse) is final and a slice is O_slice = P V_slice
-//     with no rescaling. dQ_slice = scale * dS K_slice and, per key tile,
-//     dV_slice = P^T dO_slice, dK_slice = scale * dS^T Q_slice.
-// P and dS stay in fp32. D must be a multiple of W_KC.
+// float32 dQ and dK/dV run on the tensor cores in 3xTF32
+// (flash_attention_3xtf32.cu: flash_dq_wide_3xtf32_kernel and
+// flash_dkv_wide_3xtf32_kernel, through launch_dq_wide_3xtf32 and
+// launch_dkv_wide_3xtf32), which hold float32's tolerance. The float32
+// forward (flash_fwd_wide_f32_kernel) keeps the first version, SIMT on the
+// FMA units in fp32 (one TF32 product would not hold 1e-4), whose
+// registers and shared memory (49,408 bytes) are the same at any D:
+//   - the scores S = Q K^T are a contraction over D, streamed through
+//     shared memory in chunks of W_KC columns into a 64 x 64 fp32 tile held
+//     in registers (16 values per thread);
+//   - O is written in column slices of W_SL columns, one slice at a time,
+//     each slice recomputing the scores: a first pass over the keys for the
+//     row max and sum (so lse), after which P = exp(S - lse) is final and a
+//     slice is O_slice = P V_slice with no rescaling.
+// P stays in fp32. D must be a multiple of W_KC.
 //
 // Every kernel: D zero-padded by the wrapper to a multiple of W_KC with the
 // scale of the true D (attention.py:padded_heads); any B*H, ragged Sq and
@@ -83,6 +83,20 @@
 
 #include "flash_hopper.cuh"
 
+// float32 dQ and dK/dV on the tensor cores (flash_attention_3xtf32.cu):
+// any D above 256 that is a multiple of 32 (any other D, or a dK/dV
+// scratch smaller than wide_dkv_scratch_bytes: cudaErrorInvalidValue).
+long long wide_dkv_scratch_bytes(int BH, int Sq, int Sk);
+int launch_dq_wide_3xtf32(const void* q, const void* k, const void* v, const void* dout,
+                          const void* lse, const void* delta, const void* glse, void* dq, int BH,
+                          int Sq, int Sk, int D, float scale, int causal, int qo, int ko,
+                          cudaStream_t stream);
+int launch_dkv_wide_3xtf32(const void* q, const void* k, const void* v, const void* dout,
+                           const void* lse, const void* delta, const void* glse, void* dk,
+                           void* dv, void* scratch, long long scratch_bytes, int BH, int Sq,
+                           int Sk, int D, float scale, int causal, int qo, int ko,
+                           cudaStream_t stream);
+
 namespace {
 
 constexpr int W_BM = 64;            // Q rows of a tile
@@ -91,13 +105,13 @@ constexpr int W_KC = 32;            // columns of D per chunk of a score contrac
 constexpr int W_SL = 128;           // output columns per slice
 constexpr int W_THREADS = 256;      // 16 x 16 threads, 4 x 4 scores each
 constexpr int W_LDC = W_KC + 1;     // leading dim of a chunk in shared memory
-constexpr int W_LDP = W_BN + 1;     // leading dim of the P / dS tile
+constexpr int W_LDP = W_BN + 1;     // leading dim of the P tile
 constexpr int W_NJ = W_SL / 16;     // slice columns per thread
 constexpr int W_CHUNK = W_BM * W_LDC;  // floats of one chunk buffer
 constexpr int W_SLICE = W_BN * W_SL;   // floats of one slice buffer
-constexpr int W_TILE = W_BM * W_LDP;   // floats of one P / dS tile
+constexpr int W_TILE = W_BM * W_LDP;   // floats of one P tile
 
-// The SIMT kernels' element conversions (their only instances are float32).
+// The SIMT forward's element conversions (its only instance is float32).
 __device__ __forceinline__ float to_f(float x) { return x; }
 
 template <typename T>
@@ -130,32 +144,25 @@ __device__ __forceinline__ void load_block(float* dst, int ld, const T* __restri
   }
 }
 
-// The 64 x 64 tile S = A B^T (and, with DP, dP = C E^T) of rows [a0, a0 + 64)
-// of A, C and rows [b0, b0 + 64) of B, E, contracted over all of D in chunks
-// of W_KC columns. Thread (ty, tx) holds rows ty + 16 i and columns tx + 16 j.
-// Starts with a barrier, so the caller may reuse the chunk buffers freely
-// before it; ends without one.
-template <typename T, bool DP>
-__device__ __forceinline__ void scores(float (&s)[4][4], float (&dp)[4][4], float* buf,
-                                       const T* a, const T* b, const T* c, const T* e, int a0,
-                                       int na, int b0, int nb, int D) {
+// The 64 x 64 tile S = A B^T of rows [a0, a0 + 64) of A and rows
+// [b0, b0 + 64) of B, contracted over all of D in chunks of W_KC columns.
+// Thread (ty, tx) holds rows ty + 16 i and columns tx + 16 j. Starts with a
+// barrier, so the caller may reuse the chunk buffers freely before it; ends
+// without one.
+template <typename T>
+__device__ __forceinline__ void scores(float (&s)[4][4], float* buf, const T* a, const T* b,
+                                       int a0, int na, int b0, int nb, int D) {
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   float* sA = buf;
   float* sB = buf + W_CHUNK;
-  float* sC = buf + 2 * W_CHUNK;
-  float* sE = buf + 3 * W_CHUNK;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
   for (int c0 = 0; c0 < D; c0 += W_KC) {
     __syncthreads();
     load_block<T, W_BM, W_KC>(sA, W_LDC, a, D, a0, na, c0);
     load_block<T, W_BN, W_KC>(sB, W_LDC, b, D, b0, nb, c0);
-    if (DP) {
-      load_block<T, W_BM, W_KC>(sC, W_LDC, c, D, a0, na, c0);
-      load_block<T, W_BN, W_KC>(sE, W_LDC, e, D, b0, nb, c0);
-    }
     __syncthreads();
 #pragma unroll 8
     for (int kk = 0; kk < W_KC; ++kk) {
@@ -168,16 +175,6 @@ __device__ __forceinline__ void scores(float (&s)[4][4], float (&dp)[4][4], floa
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) s[i][j] = fmaf(x[i], y[j], s[i][j]);
-      if (DP) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) x[i] = sC[(ty + 16 * i) * W_LDC + kk];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) y[j] = sE[(tx + 16 * j) * W_LDC + kk];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) dp[i][j] = fmaf(x[i], y[j], dp[i][j]);
-      }
     }
   }
 }
@@ -196,8 +193,7 @@ __device__ __forceinline__ float row_sum(float x) {
 }
 
 // acc[i][j] += sum_kk L(row i, kk) R(kk, col j), with L read from a 64 x 64
-// fp32 tile (transposed when LT) and R from a [64][W_SL] slice.
-template <bool LT>
+// fp32 tile and R from a [64][W_SL] slice.
 __device__ __forceinline__ void slice_product(float (&acc)[4][W_NJ], const float* sL,
                                               const float* sR) {
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
@@ -205,8 +201,7 @@ __device__ __forceinline__ void slice_product(float (&acc)[4][W_NJ], const float
   for (int kk = 0; kk < 64; ++kk) {
     float x[4], y[W_NJ];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      x[i] = LT ? sL[kk * W_LDP + ty + 16 * i] : sL[(ty + 16 * i) * W_LDP + kk];
+    for (int i = 0; i < 4; ++i) x[i] = sL[(ty + 16 * i) * W_LDP + kk];
 #pragma unroll
     for (int j = 0; j < W_NJ; ++j) y[j] = sR[kk * W_SL + tx + 16 * j];
 #pragma unroll
@@ -217,8 +212,8 @@ __device__ __forceinline__ void slice_product(float (&acc)[4][W_NJ], const float
 }
 
 template <typename T>
-__device__ __forceinline__ void store_slice(T* out, const float (&acc)[4][W_NJ], float mul,
-                                            int row0, int nrows, int c0, int D) {
+__device__ __forceinline__ void store_slice(T* out, const float (&acc)[4][W_NJ], int row0,
+                                            int nrows, int c0, int D) {
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -227,7 +222,7 @@ __device__ __forceinline__ void store_slice(T* out, const float (&acc)[4][W_NJ],
 #pragma unroll
     for (int j = 0; j < W_NJ; ++j) {
       const int c = c0 + tx + 16 * j;
-      if (c < D) out[(size_t)r * D + c] = of_f<T>(mul * acc[i][j]);
+      if (c < D) out[(size_t)r * D + c] = of_f<T>(acc[i][j]);
     }
   }
 }
@@ -246,7 +241,7 @@ __global__ void __launch_bounds__(W_THREADS)
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const int q0 = blockIdx.x * W_BM;
   const int nk = key_tiles(q0, Sq, Sk, causal, qo, ko);
-  float s[4][4], unused[4][4];
+  float s[4][4];
   for (int bh = blockIdx.y; bh < BH; bh += gridDim.y) {
     const T* qh = q + (size_t)bh * Sq * D;
     const T* kh = k + (size_t)bh * Sk * D;
@@ -257,7 +252,7 @@ __global__ void __launch_bounds__(W_THREADS)
     for (int i = 0; i < 4; ++i) m[i] = NEG_INF, l[i] = 0.f;
     for (int kt = 0; kt < nk; ++kt) {
       const int k0 = kt * W_BN;
-      scores<T, false>(s, unused, buf, qh, kh, nullptr, nullptr, q0, Sq, k0, Sk, D);
+      scores<T>(s, buf, qh, kh, q0, Sq, k0, Sk, D);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int qi = q0 + ty + 16 * i;
@@ -292,7 +287,7 @@ __global__ void __launch_bounds__(W_THREADS)
         for (int j = 0; j < W_NJ; ++j) acc[i][j] = 0.f;
       for (int kt = 0; kt < nk; ++kt) {
         const int k0 = kt * W_BN;
-        scores<T, false>(s, unused, buf, qh, kh, nullptr, nullptr, q0, Sq, k0, Sk, D);
+        scores<T>(s, buf, qh, kh, q0, Sq, k0, Sk, D);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int qi = q0 + ty + 16 * i;
@@ -305,134 +300,15 @@ __global__ void __launch_bounds__(W_THREADS)
         __syncthreads();
         load_block<T, W_BN, W_SL>(buf, W_SL, vh, D, k0, Sk, c0);
         __syncthreads();
-        slice_product<false>(acc, sP, buf);
+        slice_product(acc, sP, buf);
       }
-      store_slice<T>(o + (size_t)bh * Sq * D, acc, 1.f, q0, Sq, c0, D);
-    }
-  }
-}
-
-// dQ, float32: one block per (Q tile, head). dQ = scale * dS K with
-// dS = P * (dO V^T - delta + g_lse); lse, delta, glse [BH, Sq] fp32.
-template <typename T>
-__global__ void __launch_bounds__(W_THREADS)
-    flash_dq_wide_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ dout,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         const float* __restrict__ glse, T* __restrict__ dq, int BH, int Sq,
-                         int Sk, int D, float scale, int causal, int qo, int ko) {
-  extern __shared__ float4 wide_smem[];
-  float* buf = reinterpret_cast<float*>(wide_smem);  // chunks, then a K slice
-  float* sP = buf + (4 * W_CHUNK > W_SLICE ? 4 * W_CHUNK : W_SLICE);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int q0 = blockIdx.x * W_BM;
-  const int nk = key_tiles(q0, Sq, Sk, causal, qo, ko);
-  float s[4][4], dp[4][4];
-  for (int bh = blockIdx.y; bh < BH; bh += gridDim.y) {
-    const size_t qoff = (size_t)bh * Sq * D, koff = (size_t)bh * Sk * D;
-    float L[4], dl[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty + 16 * i;
-      const size_t r = (size_t)bh * Sq + qi;
-      L[i] = qi < Sq ? lse[r] : 0.f;
-      dl[i] = qi < Sq ? glse[r] - delta[r] : 0.f;
-    }
-    for (int c0 = 0; c0 < D; c0 += W_SL) {
-      float acc[4][W_NJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < W_NJ; ++j) acc[i][j] = 0.f;
-      for (int kt = 0; kt < nk; ++kt) {
-        const int k0 = kt * W_BN;
-        scores<T, true>(s, dp, buf, q + qoff, k + koff, dout + qoff, v + koff, q0, Sq, k0, Sk,
-                        D);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int qi = q0 + ty + 16 * i;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const bool vis = visible(qi, k0 + tx + 16 * j, Sq, Sk, causal, qo, ko);
-            const float p = vis ? expf(s[i][j] * scale - L[i]) : 0.f;
-            sP[(ty + 16 * i) * W_LDP + tx + 16 * j] = p * (dp[i][j] + dl[i]);
-          }
-        }
-        __syncthreads();
-        load_block<T, W_BN, W_SL>(buf, W_SL, k + koff, D, k0, Sk, c0);
-        __syncthreads();
-        slice_product<false>(acc, sP, buf);
-      }
-      store_slice<T>(dq + qoff, acc, scale, q0, Sq, c0, D);
-    }
-  }
-}
-
-// dK, dV, float32: one block per (K/V tile, head). dV = P^T dO, dK =
-// scale * dS^T Q.
-template <typename T>
-__global__ void __launch_bounds__(W_THREADS)
-    flash_dkv_wide_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, const T* __restrict__ dout,
-                          const float* __restrict__ lse, const float* __restrict__ delta,
-                          const float* __restrict__ glse, T* __restrict__ dk,
-                          T* __restrict__ dv, int BH, int Sq, int Sk, int D, float scale,
-                          int causal, int qo, int ko) {
-  extern __shared__ float4 wide_smem[];
-  float* buf = reinterpret_cast<float*>(wide_smem);  // chunks, then dO and Q slices
-  float* sP = buf + (4 * W_CHUNK > 2 * W_SLICE ? 4 * W_CHUNK : 2 * W_SLICE);
-  float* sdS = sP + W_TILE;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int k0 = blockIdx.x * W_BN;
-  const int nq = (Sq + W_BM - 1) / W_BM;
-  const int qt0 = first_query_tile(k0, causal, qo, ko);
-  float s[4][4], dp[4][4];
-  for (int bh = blockIdx.y; bh < BH; bh += gridDim.y) {
-    const size_t qoff = (size_t)bh * Sq * D, koff = (size_t)bh * Sk * D;
-    for (int c0 = 0; c0 < D; c0 += W_SL) {
-      float acck[4][W_NJ], accv[4][W_NJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < W_NJ; ++j) acck[i][j] = accv[i][j] = 0.f;
-      for (int qt = qt0; qt < nq; ++qt) {
-        const int q0 = qt * W_BM;
-        scores<T, true>(s, dp, buf, q + qoff, k + koff, dout + qoff, v + koff, q0, Sq, k0, Sk,
-                        D);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int qi = q0 + ty + 16 * i;
-          const size_t r = (size_t)bh * Sq + qi;
-          const float Li = qi < Sq ? lse[r] : 0.f;
-          const float dl = qi < Sq ? glse[r] - delta[r] : 0.f;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const bool vis = visible(qi, k0 + tx + 16 * j, Sq, Sk, causal, qo, ko);
-            const float p = vis ? expf(s[i][j] * scale - Li) : 0.f;
-            sP[(ty + 16 * i) * W_LDP + tx + 16 * j] = p;
-            sdS[(ty + 16 * i) * W_LDP + tx + 16 * j] = p * (dp[i][j] + dl);
-          }
-        }
-        __syncthreads();
-        load_block<T, W_BM, W_SL>(buf, W_SL, dout + qoff, D, q0, Sq, c0);
-        load_block<T, W_BM, W_SL>(buf + W_SLICE, W_SL, q + qoff, D, q0, Sq, c0);
-        __syncthreads();
-        slice_product<true>(accv, sP, buf);
-        slice_product<true>(acck, sdS, buf + W_SLICE);
-      }
-      store_slice<T>(dk + koff, acck, scale, k0, Sk, c0, D);
-      store_slice<T>(dv + koff, accv, 1.f, k0, Sk, c0, D);
+      store_slice<T>(o + (size_t)bh * Sq * D, acc, q0, Sq, c0, D);
     }
   }
 }
 
 constexpr size_t FWD_WIDE_SMEM =
     ((2 * W_CHUNK > W_SLICE ? 2 * W_CHUNK : W_SLICE) + W_TILE) * sizeof(float);
-constexpr size_t DQ_WIDE_SMEM =
-    ((4 * W_CHUNK > W_SLICE ? 4 * W_CHUNK : W_SLICE) + W_TILE) * sizeof(float);
-constexpr size_t DKV_WIDE_SMEM =
-    ((4 * W_CHUNK > 2 * W_SLICE ? 4 * W_CHUNK : 2 * W_SLICE) + 2 * W_TILE) * sizeof(float);
-static_assert(DKV_WIDE_SMEM <= SMEM_LIMIT, "wide dK/dV tiles exceed shared memory");
 
 template <typename Kernel, typename... Args>
 int launch_wide(Kernel kernel, int rows, int BH, int D, size_t smem, cudaStream_t stream,
@@ -1166,17 +1042,22 @@ int hvd_flash_dq_wide(const void* q, const void* k, const void* v, const void* d
     return launch_dq_hopper<f16>(q, k, v, dout, lse, delta, glse, dq, BH, Sq, Sk, D, scale,
                                  causal, q_offset, k_offset, st);
   if (dtype == DTYPE_F32)
-    return launch_wide(flash_dq_wide_f32_kernel<float>, Sq, BH, D, DQ_WIDE_SMEM, st,
-                       (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
-                       (const float*)lse, (const float*)delta, (const float*)glse, (float*)dq,
-                       BH, Sq, Sk, D, scale, causal, q_offset, k_offset);
+    return launch_dq_wide_3xtf32(q, k, v, dout, lse, delta, glse, dq, BH, Sq, Sk, D, scale, causal,
+                                 q_offset, k_offset, st);
   return cudaErrorInvalidValue;
+}
+
+// The bytes of scratch hvd_flash_dkv_wide needs on the current device (the
+// float32 kernel's; bf16 and float16 take none), or -1.
+long long hvd_flash_dkv_wide_scratch_bytes(int BH, int Sq, int Sk, int dtype) {
+  return dtype == DTYPE_F32 ? wide_dkv_scratch_bytes(BH, Sq, Sk) : 0;
 }
 
 int hvd_flash_dkv_wide(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, const void* glse, void* dk, void* dv,
-                       int BH, int Sq, int Sk, int D, int dtype, int causal, int q_offset,
-                       int k_offset, float scale, void* stream) {
+                       void* scratch, long long scratch_bytes, int BH, int Sq, int Sk, int D,
+                       int dtype, int causal, int q_offset, int k_offset, float scale,
+                       void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   if (dtype == DTYPE_BF16)
     return launch_dkv_hopper<bf16>(q, k, v, dout, lse, delta, glse, dk, dv, BH, Sq, Sk, D, scale,
@@ -1185,10 +1066,9 @@ int hvd_flash_dkv_wide(const void* q, const void* k, const void* v, const void* 
     return launch_dkv_hopper<f16>(q, k, v, dout, lse, delta, glse, dk, dv, BH, Sq, Sk, D, scale,
                                   causal, q_offset, k_offset, st);
   if (dtype == DTYPE_F32)
-    return launch_wide(flash_dkv_wide_f32_kernel<float>, Sk, BH, D, DKV_WIDE_SMEM, st,
-                       (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
-                       (const float*)lse, (const float*)delta, (const float*)glse, (float*)dk,
-                       (float*)dv, BH, Sq, Sk, D, scale, causal, q_offset, k_offset);
+    return launch_dkv_wide_3xtf32(q, k, v, dout, lse, delta, glse, dk, dv, scratch,
+                                  scratch_bytes, BH, Sq, Sk, D, scale, causal, q_offset, k_offset,
+                                  st);
   return cudaErrorInvalidValue;
 }
 

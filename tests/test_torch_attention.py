@@ -391,14 +391,24 @@ _HOPPER_INSTANCES = [(k, d, t) for k in ("flash_fwd_kernel", "flash_dq_kernel",
                                                 "flash_dkv_3xtf32_kernel")
                          for d in (32, 64, 128, 256)] + [
                          ("flash_fwd_single_3xtf32_kernel", d, None)
-                         for d in (32, 64, 128)]
+                         for d in (32, 64, 128)] + [
+                         (k, None, None) for k in (
+                             "flash_dq_wide_3xtf32_kernel",
+                             "flash_dkv_wide_3xtf32_kernel")]
 
 
 def _hopper_mangled(kernel, d, t="bf16"):
     """The mangled name nvcc gives a Hopper instance of element type t
     (d None: the filter gradient or a wide-head kernel, templated on the
     type alone; t None: the float32 3xTF32 kernels, templated on the head
-    dim alone: the forwards, dQ and dK/dV, each with its parameters)."""
+    dim alone: the forwards, dQ and dK/dV, each with its parameters; both
+    None: the float32 wide-head dQ and dK/dV, not templated)."""
+    if t is None and d is None:
+        params = {"flash_dq_wide_3xtf32_kernel": "S0_S0_S0_PfPKfS3_S3_iiiifiii",
+                  "flash_dkv_wide_3xtf32_kernel":
+                      "S0_S0_S0_PfS2_PKfS3_S3_iiiifiii"}[kernel]
+        return (f"_ZN12_GLOBAL__N_1{len(kernel)}{kernel}E14CUtensorMap_st"
+                + params)
     if t is None:
         params = {"flash_dq_3xtf32_kernel": "S1_S1_S1_PfPKfS4_S4_iiifiii",
                   "flash_dkv_3xtf32_kernel": "S1_S1_S1_PfS2_PKfS4_S4_iiifiii"}
@@ -458,13 +468,15 @@ def _hopper_log():
     ("flash_fwd_3xtf32_kernel", 256, "spill"),
     ("flash_fwd_single_3xtf32_kernel", 32, "spill"),
     ("flash_fwd_single_3xtf32_kernel", 64, "spill"),
-    ("flash_fwd_single_3xtf32_kernel", 128, "spill")])
+    ("flash_fwd_single_3xtf32_kernel", 128, "spill"),
+    ("flash_dq_wide_3xtf32_kernel", None, "spill"),
+    ("flash_dkv_wide_3xtf32_kernel", None, "spill")])
 def test_build_report_names_the_redesigned_hopper_culprit(kernel, d, fault):
     """The fused backward's, the filter gradient's and the wide-head
     forward's, dQ's and dK/dV's bf16 Hopper instances, and the float32
-    3xTF32 forwards, dQ and dK/dV (each head dim alone), are in the build
-    phase's list, and a spill or serialized wgmma in one of them fails it,
-    naming that instance alone."""
+    3xTF32 forwards, dQ and dK/dV (each head dim alone, and the wide-head
+    dQ and dK/dV), are in the build phase's list, and a spill or
+    serialized wgmma in one of them fails it, naming that instance alone."""
     _check_culprit(kernel, d, None if "3xtf32" in kernel else "bf16", fault)
 
 
@@ -530,7 +542,7 @@ def test_build_report_flags_spills_and_serialized_wgmma_of_hopper_kernels():
                              for k, d, t in instances)
     regs, faults = smoke.hopper_build_report(clean)
     assert sorted(regs) == sorted(smoke.HOPPER_INSTANCES)
-    assert len(regs) == 69
+    assert len(regs) == 71
     assert set(regs.values()) == {168} and faults == []
 
     def spill(log, kernel, d, t):

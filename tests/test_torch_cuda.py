@@ -385,6 +385,72 @@ def test_wide_hopper_kernels_walk_more_heads_than_a_grid_dimension(
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D,BH,Sq,Sk,causal,q_offset,k_offset", [
+    # D = 288: the second warpgroup's dQ output items past D but the first
+    # box of the first; a query offset.
+    (288, 6, 200, 136, True, 70, 0),
+    # Causal and ragged with a key offset: rows 0..39 see no key (dQ = 0),
+    # keys of the last tiles see no row of a Q tile; D = 300 zero-padded to
+    # 320.
+    (320, 6, 200, 300, True, 0, 40),
+    (300, 6, 77, 100, True, 0, 23),
+    (512, 6, 130, 96, False, 0, 0),
+    # Two dQ passes and four dK/dV passes; D = 544: a second dQ pass whose
+    # second warpgroup has no column.
+    (1024, 4, 128, 128, True, 0, 0),
+    (544, 3, 100, 70, False, 0, 0),
+    # More heads than a grid dimension: the persistent grid walks them.
+    (320, 65600, 24, 24, True, 0, 0),
+    # More Q tiles than dK/dV's chunk of 32, so that a later chunk adds to
+    # the sums the last stored: 35 causal ones (key tiles start at Q tiles
+    # 0 to 4); 33 with a query offset, so that key tiles start at Q tiles 0
+    # to 32; 35 over 133 key tiles, more work tiles than SMs.
+    (320, 3, 2200, 300, True, 0, 0),
+    (320, 2, 2100, 4300, True, 2200, 0),
+    (512, 1, 2200, 8500, False, 0, 0),
+    # No key or no query: dQ, or dK and dV, are zeros (memsets, no kernel).
+    (512, 6, 100, 0, False, 0, 0),
+    (512, 6, 0, 100, False, 0, 0),
+    # The timed shape (B*H = 32, S = 512, D = 512), where the errors against
+    # float64 are held too.
+    (512, 32, 512, 512, False, 0, 0)])
+def test_float32_wide_backward_runs_the_3xtf32_kernels(
+        cuda_device, D, BH, Sq, Sk, causal, q_offset, k_offset):
+    """The float32 wide-head dQ and dK/dV launch flash_dq_wide_3xtf32_kernel
+    and flash_dkv_wide_3xtf32_kernel (launch counters and the profile's
+    kernel names) and hold the plain versions at float32's 1e-4; at
+    B*H = 32, S = 512, D = 512 on full float32 values their errors against
+    float64 are within chip_smoke.py's F64_ERR_RATIO of the float32 plain
+    version's."""
+    smoke = _chip_smoke()
+    q, k, v, do, glse = _attention_operands(cuda_device, 12, BH, Sq, Sk, D,
+                                            torch.float32)
+    f64 = BH == 32
+    if f64:  # the float64 reference takes no lse cotangent
+        glse = torch.zeros_like(glse)
+    if Sk:
+        o_ref, lse = port.flash_fwd_plain(q, k, v, causal, q_offset, k_offset)
+        delta = (do * o_ref).sum(-1)
+    else:
+        lse = torch.full((BH, Sq), port.LSE_MASKED, device=cuda_device)
+        delta = torch.zeros(BH, Sq, device=cuda_device)
+    args = (q, k, v, do, lse, delta, glse, causal, q_offset, k_offset)
+    kernels = (_kernels.FLASH_DQ_WIDE, _kernels.FLASH_DKV_WIDE)
+    before = [kern.launches for kern in kernels]
+    got = []
+    ran = smoke._attention_kernels_ms(
+        lambda: got.extend((port.flash_dq(*args), *port.flash_dkv(*args))))
+    assert [kern.launches for kern in kernels] == [n + 1 for n in before]
+    want = (port.flash_dq_plain(*args), *port.flash_dkv_plain(*args))
+    _hold(zip(got, want), torch.float32)
+    assert set(ran) == (set() if Sq * Sk == 0 else {
+        "flash_dq_wide_3xtf32_kernel", "flash_dkv_wide_3xtf32_kernel"})
+    if f64:
+        smoke._f64_check("wide_d512", q, k, v, do, got, want, causal,
+                         q_offset, k_offset)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_d256_kernels_with_a_part_full_last_wave(cuda_device, dtype):
     """B*H = 70 at S = 512, D = 256: 280 work tiles of the forward and dQ,
