@@ -17,8 +17,9 @@ at S=128 (B*H = 1024); the float16 instances of those five kernels at the
 same two shapes (``*_f16``; printed only, for a checkout that has them);
 and the 1x1-conv filter gradient (dw_1x1) beside cuBLAS's x^T dy at both
 ResNet-50 shapes of chip_smoke.py (the shortcut's cuBLAS call reads a
-contiguous copy of its strided x), and at the stage-1 shape in float32
-(``dw_1x1_stage1_f32`` beside ``cublas_stage1_f32``, full float32 with
+contiguous copy of its strided x), and at both shapes in float32
+(``dw_1x1_stage1_f32`` beside ``cublas_stage1_f32``,
+``dw_1x1_shortcut_f32`` beside ``cublas_shortcut_f32``, full float32 with
 TF32 off); the multi-tile kernels at D = 256
 (``*_d256``: B*H = 128, S = 512) and the wide-head route at D = 512
 (``*_wide``: B*H = 32, S = 512), each in bf16 and float32 (``*_f32``)
@@ -36,9 +37,9 @@ S = 8192, D = 512 (``*_wide_long_f32``) beside SDPA's float32 backward
 there (``sdpa_bwd_d512_long_f32``), with the peak memory of the float32
 wide calls (``PEAK_CALLS``). After the times it prints each float32 row's
 bound at the float32 FMA peak, and for the 3xTF32 kernels (chip_smoke.py's
-``_runs_3xtf32``: all but the single-tile fused backward and the
-wide-head forward) also their bound at the TF32 peak, then the kernels of
-SDPA's
+``_runs_3xtf32``: all but the single-tile fused backward) also their
+bound at the TF32 peak, the float32 filter gradient's two bounds at both
+shapes, then the kernels of SDPA's
 float32 backward at D = 256 and of its float32 forward at D = 256 and
 D = 64 (``SDPA_KERNELS``). Each checkout runs in a process of its own,
 in the order other, this, this, other. Each process times every call by
@@ -126,7 +127,8 @@ CALLS = ("flash_fwd", "flash_dq", "flash_dkv", "sdpa_fwd", "sdpa_bwd",
          "sdpa_bwd_d256_f32", "sdpa_fwd_d512_f32", "sdpa_bwd_d512_f32",
          "flash_dq_d32_f32", "flash_dkv_d32_f32", "flash_dq_d128_f32",
          "flash_dkv_d128_f32", "sdpa_bwd_d128_f32", "sdpa_bwd_d32_f32",
-         "dw_1x1_stage1_f32", "cublas_stage1_f32", "flash_dq_wide_long_f32",
+         "dw_1x1_stage1_f32", "cublas_stage1_f32", "dw_1x1_shortcut_f32",
+         "cublas_shortcut_f32", "flash_dq_wide_long_f32",
          "flash_dkv_wide_long_f32", "sdpa_bwd_d512_long_f32")
 # The float32 rows' shapes (name: kernel, B*H, S, D) for their bounds at the
 # float32 FMA peak, printed by ab beside the times.
@@ -154,8 +156,10 @@ F32_BOUNDS = {
 # and S = 8192.
 PEAK_CALLS = ("flash_dq_wide_f32", "flash_dkv_wide_f32",
               "flash_dq_wide_long_f32", "flash_dkv_wide_long_f32")
-# The float32 filter gradient's row (dw_1x1_stage1_f32) is at ResNet-50's
-# stage-1 shape, chip_smoke.py's first CONV_SHAPES entry.
+# The float32 filter gradient's rows (dw_1x1_stage1_f32,
+# dw_1x1_shortcut_f32) are at chip_smoke.py's CONV_SHAPES: ResNet-50's
+# stage 1 and its stride-2 shortcut (x read in place as a strided view,
+# cuBLAS reading a contiguous copy).
 METHODS = ("spin_ms", "no_spin_ms", "device_ms")
 # The SDPA calls whose kernels ab prints by device time: the float32
 # backward at D = 256 and the float32 forward at D = 256 and D = 64.
@@ -236,12 +240,16 @@ def _worker(tree, label):
         conv[name] = (xs, xs.contiguous().reshape(K, ci), dy)
     (xs1, x2d1, dy1), (xs2, x2d2, dy2) = (conv[c[0]]
                                           for c in smoke.CONV_SHAPES)
-    # The stage-1 shape in full float32 (cuBLAS with TF32 off).
+    # Both shapes in full float32 (cuBLAS with TF32 off).
     torch.backends.cuda.matmul.allow_tf32 = False
-    _, N, Hc, Wc, ci, co, _ = smoke.CONV_SHAPES[0]
-    xf = torch.randn(N, Hc, Wc, ci, generator=gen, device="cuda")
-    x2df, dyf = xf.reshape(-1, ci), torch.randn(N * Hc * Wc, co,
-                                                 generator=gen, device="cuda")
+    conv_f32 = []
+    for _, N, Hc, Wc, ci, co, strides in smoke.CONV_SHAPES:
+        xf = torch.randn(N, Hc, Wc, ci, generator=gen, device="cuda")
+        xsf = xf[:, ::strides[0], ::strides[1], :]
+        K = xsf.shape[:3].numel()
+        conv_f32.append((xsf, xsf.contiguous().reshape(K, ci),
+                         torch.randn(K, co, generator=gen, device="cuda")))
+    (xf, x2df, dyf), (xsf2, x2df2, dyf2) = conv_f32
     o, lse = A.flash_fwd_plain(q, k, v)
     delta = (do.float() * o.float()).sum(-1)
     bwd = (q, k, v, do, lse, delta, torch.zeros_like(delta), False, 0, 0)
@@ -270,6 +278,8 @@ def _worker(tree, label):
         "cublas_shortcut": lambda: torch.matmul(x2d2.T, dy2),
         "dw_1x1_stage1_f32": lambda: C.dw_1x1(xf, dyf),
         "cublas_stage1_f32": lambda: torch.matmul(x2df.T, dyf),
+        "dw_1x1_shortcut_f32": lambda: C.dw_1x1(xsf2, dyf2),
+        "cublas_shortcut_f32": lambda: torch.matmul(x2df2.T, dyf2),
     }
     if torch.float16 in A._KERNEL_DTYPES:  # the float16 instances
         # q, k, v, dO in float16; lse, delta and g_lse stay float32.
@@ -419,10 +429,13 @@ def ab(other):
             line += (f"; {ms3:.4f} ms ({by3}: {flops3 / 1e9:.2f} GFLOP of "
                      "TF32) in 3xTF32, the bound the kernel is held to")
         print(line)
-    _, N, Hc, Wc, ci, co, _ = smoke.CONV_SHAPES[0]
-    ms, by, flops, moved = smoke._dw_bounds(N * Hc * Wc, ci, co, "float32")
-    print(f"bound dw_1x1_stage1_f32: {ms:.4f} ms ({by}: {flops / 1e9:.2f} GFLOP, "
-          f"{moved / 1e6:.1f} MB) at the FMA peak")
+    for row, (_, N, Hc, Wc, ci, co, st) in zip(
+            ("dw_1x1_stage1_f32", "dw_1x1_shortcut_f32"), smoke.CONV_SHAPES):
+        K = N * -(-Hc // st[0]) * -(-Wc // st[1])
+        (ms, by, flops, moved), fma = smoke._dw_bounds(K, ci, co, "float32")
+        print(f"bound {row}: {ms:.4f} ms ({by}: {flops / 1e9:.2f} GFLOP of "
+              f"TF32, {moved / 1e6:.1f} MB) in 3xTF32, the bound the kernel "
+              f"is held to; {fma:.4f} ms at the FMA peak")
     for call, kernels in runs["this"][0]["sdpa_kernels"].items():
         print(f"{call} kernels (device ms of one call): "
               + "; ".join(f"{n} {ms:.4f}" for n, ms in

@@ -10,15 +10,14 @@ and prints no result line); each prints its seconds:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build of the hand-written CUDA kernels from ``horovod_tpu_torch/ops/csrc``
-   (one ``nvcc`` per source, all started together); none of the 71 Hopper
+   (one ``nvcc`` per source, all started together); none of the 73 Hopper
    instances (the bf16 and float16 forward, dQ, dK/dV, single-tile
    forward and fused backward at D=16, 32, 64, 128, the forward, dQ and
    dK/dV at D=256, the wide-head forward, dQ and dK/dV, and the bf16 and
    float16 filter gradient on wgmma; in 3xTF32 on mma.sync the float32
    forward, dQ and dK/dV at D=32 to 256, the single-tile forward at
-   D=32 to 128 and the wide-head dQ and dK/dV) may spill or have its wgmma
-   serialized, nor the SIMT wide-head instance (the float32 forward)
-   spill;
+   D=32 to 128, the wide-head forward, dQ and dK/dV and the filter
+   gradient) may spill or have its wgmma serialized;
 3. kernel phase: every kernel against its plain PyTorch version on the same
    inputs, with times beside the bound and the library yardstick:
    - the multi-tile forward, dQ and dK/dV flash-attention kernels
@@ -52,8 +51,11 @@ and prints no result line); each prints its seconds:
      timed beside its own cuBLAS call; bf16 with a ragged K and ragged
      channel tiles; bf16 on a stride-2 view with an odd H; bf16 with
      3 -> 12 channels, zero-padded to whole 16-byte rows; a stride-2 view
-     whose rows are 300 wide, past a TMA box; float32 with a ragged K); two
-     calls on the same inputs must agree bit for bit;
+     whose rows are 300 wide, past a TMA box; float32 with a ragged K; the
+     two ResNet-50 shapes in full float32 (3xTF32), timed beside cuBLAS's
+     float32 x^T dy with TF32 off, with both bounds (TF32 and FMA) and the
+     error against float64 held to ``F64_ERR_RATIO`` times the float32
+     plain version's); two calls on the same inputs must agree bit for bit;
 4. wide-heads phase: causal bf16 attention layers at D=256 (S=512 and
    S=128) through ``flash_attention_lse``, forward and backward: the
    launch counters show the D=256 forward, dQ and dK/dV ran once per layer
@@ -64,13 +66,14 @@ and prints no result line); each prints its seconds:
    the three wide-head kernels (head dims above 256) against their plain
    versions in bf16, float16 and float32 at D=512 (B*H=32, S=512; bf16
    timed beside its bound and the first SDPA backend that takes D=512,
-   named; the float32 dQ and dK/dV, 3xTF32, timed beside their bound and
-   SDPA's float32 backward, and their errors against float64 held as the
-   other 3xTF32 kernels'), D=320 causal and ragged (200 rows over 300 keys,
-   40 of them seeing none) and D=1024; 4 causal bf16 layers at D=512
-   through ``flash_attention_lse``, each launching each wide kernel once
-   and no other kernel; and 2 causal float32 layers at D=512, the same,
-   with a profile that names the 3xTF32 wide dQ and dK/dV;
+   named; the float32 forward, dQ and dK/dV, 3xTF32, timed beside their
+   bound and SDPA's float32 forward and backward, and their errors against
+   float64 held as the other 3xTF32 kernels'), D=320 causal and ragged
+   (200 rows over 300 keys, 40 of them seeing none) and D=1024; 4 causal
+   bf16 layers at D=512 through ``flash_attention_lse``, each launching
+   each wide kernel once and no other kernel; and 2 causal float32 layers
+   at D=512, the same, with a profile that names the 3xTF32 wide forward,
+   dQ and dK/dV;
 5. training phase: synchronous data-parallel BERT-Large training through
    ``init`` / ``DistributedOptimizer`` / ``broadcast_parameters`` with the
    1-rank NCCL bucketed allreduce forced on, on two paths: sequence 512
@@ -89,8 +92,9 @@ and prints no result line); each prints its seconds:
    launch (no Pallas counterpart is on this path);
 7. LeNet phase: 5 steps at 28x28x1, batch 64; the loss must fall;
 8. ``conv1x1`` phase: forward and backward of ``conv1x1`` through autograd
-   at the two ResNet-50 shapes, with one filter-gradient launch per
-   backward, dx and dw held against the plain counterpart;
+   at the two ResNet-50 shapes, in bf16 and then in float32 (the 3xTF32
+   filter gradient), with one filter-gradient launch per backward, dx and
+   dw held against the plain counterpart;
 9. collectives phase: at world size 1 over NCCL, on BERT-Large's gradient
    leaves (335M float32 values), reducescatter, alltoall with and without
    splits, the grouped forms, every async form with poll and synchronize,
@@ -136,21 +140,21 @@ import sys
 import time
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 and float16 tensor cores,
-# float32 on the FMA units (the float32 kernels other than the 3xTF32 ones,
-# the single-tile fused backward and the wide-head forward, run there),
-# memory rate.
+# float32 on the FMA units (the float32 kernel other than the 3xTF32 ones,
+# the single-tile fused backward, runs there), memory rate.
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
-# The TF32 tensor-core peak. The float32 forwards, dQ and dK/dV do every
-# product as three TF32 products (3xTF32): their bound is three times the
-# products' operations at this rate (``_bounds_3xtf32``).
+# The TF32 tensor-core peak. The float32 forwards, dQ and dK/dV and the
+# float32 filter gradient do every product as three TF32 products
+# (3xTF32): their bound is three times the products' operations at this
+# rate (``_bounds_3xtf32``, ``_dw_bounds``).
 PEAK_TF32 = 495e12
 # The float32 kernels that run in 3xTF32: (kernel, head dim of the instance).
 TF32X3 = {(k, d) for k in ("flash_fwd", "flash_dq", "flash_dkv")
           for d in (32, 64, 128, 256)} | {
     ("flash_fwd_single", d) for d in (32, 64, 128)}
 # The wide-head kernels (head dims above 256) whose float32 runs in 3xTF32,
-# one instance at every D.
-TF32X3_WIDE = ("flash_dq", "flash_dkv")
+# one instance at every D: all three.
+TF32X3_WIDE = ("flash_fwd", "flash_dq", "flash_dkv")
 # A 3xTF32 kernel's largest error against a float64 version of the function,
 # on full-float32 inputs, may be at most this many times the float32 plain
 # version's (one TF32 product, 10 mantissa bits, is about 500 times it).
@@ -245,11 +249,12 @@ def time_ms(fn, reps=20, warmup=3, sleep_cycles=SLEEP_CYCLES):
 # The Hopper instances: on wgmma, the bf16 and float16 kernels of both
 # attention routes at head dims 16 to 128, the multi-tile ones also at 256,
 # the wide-head forward, dQ and dK/dV (any D above 256), and the bf16 and
-# float16 1x1-conv filter gradient (the SIMT float32 kernels are named
-# *_f32_kernel); on mma.sync in 3xTF32, the float32 forwards, dQ and dK/dV
-# (*_3xtf32_kernel, templated on the head dim alone; the wide-head dQ and
-# dK/dV, *_wide_3xtf32_kernel, not templated). nvcc's mangled names carry
-# the element type: 13__nv_bfloat16 or 6__half.
+# float16 1x1-conv filter gradient (the one SIMT float32 kernel, the fused
+# single-tile backward, is named *_f32_kernel); on mma.sync in 3xTF32, the
+# float32 forwards, dQ and dK/dV (*_3xtf32_kernel, templated on the head
+# dim alone; the wide-head forward, dQ and dK/dV, *_wide_3xtf32_kernel, not
+# templated) and the float32 filter gradient (dw_1x1_3xtf32_kernel). nvcc's
+# mangled names carry the element type: 13__nv_bfloat16 or 6__half.
 HOPPER_TYPES = {"__nv_bfloat16": "bf16", "__half": "f16"}
 MULTI_TILE_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel",
                       "flash_dkv_kernel")
@@ -264,13 +269,14 @@ HOPPER_INSTANCES = tuple(
                               "flash_dkv_wide_kernel", "dw_1x1_kernel")
         for t in HOPPER_TYPES.values()) + tuple(
         f"{k}_3xtf32_kernel<{d}>" for k, d in sorted(TF32X3)) + tuple(
-        f"{k}_wide_3xtf32_kernel" for k in TF32X3_WIDE)
+        f"{k}_wide_3xtf32_kernel" for k in TF32X3_WIDE) + (
+        "dw_1x1_3xtf32_kernel",)
 _HOPPER_NAME = re.compile(
     r"(flash_(?:fwd_single|fwd|dqkv|dq|dkv)_kernel)I\d+(__nv_bfloat16|__half)"
     r"Li(\d+)E|\d(dw_1x1_kernel|flash_(?:fwd|dq|dkv)_wide_kernel)"
     r"I\d+(__nv_bfloat16|__half)E"
     r"|\d(flash_(?:fwd_single|fwd|dq|dkv)_3xtf32_kernel)ILi(\d+)E"
-    r"|\d(flash_(?:dq|dkv)_wide_3xtf32_kernel)E")
+    r"|\d(flash_(?:fwd|dq|dkv)_wide_3xtf32_kernel|dw_1x1_3xtf32_kernel)E")
 
 
 def _hopper_instance(line):
@@ -310,29 +316,6 @@ def hopper_build_report(log):
     return regs, faults
 
 
-# The wide-head instance that stays SIMT: the float32 forward.
-_WIDE_NAME = re.compile(r"(flash_fwd_wide_f32_kernel)I(f)E")
-WIDE_TYPES = {"f": "f32"}
-WIDE_SIMT_INSTANCES = ("flash_fwd_wide_f32_kernel<f32>",)
-
-
-def wide_build_report(log):
-    """From nvcc's ``-Xptxas -v`` output: the registers per thread of the
-    SIMT wide-head instance (``WIDE_SIMT_INSTANCES``), and its spills."""
-    regs, faults, entry = {}, [], None
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            found = _WIDE_NAME.search(line)
-            entry = (f"{found.group(1)}<{WIDE_TYPES[found.group(2)]}>"
-                     if found else None)
-        elif entry and "Used" in line and "registers" in line:
-            regs[entry] = int(line.split("Used ")[1].split()[0])
-        elif entry and "spill" in line and not line.strip().endswith(
-                "0 bytes spill stores, 0 bytes spill loads"):
-            faults.append(f"{entry}: {line.strip()}")
-    return regs, faults
-
-
 def build_phase():
     from horovod_tpu_torch.ops import _kernels
 
@@ -356,13 +339,6 @@ def build_phase():
             f"{list(HOPPER_INSTANCES)}); spills or serialized wgmma: {faults}")
     print(f"build: Hopper instances, registers per thread at entry: {hopper}; "
           "no spills, no serialized wgmma")
-    wide, faults = wide_build_report(log)
-    if sorted(wide) != sorted(WIDE_SIMT_INSTANCES) or faults:
-        raise AssertionError(f"build: SIMT wide-head instances {sorted(wide)} "
-                             f"(expected {list(WIDE_SIMT_INSTANCES)}); "
-                             f"spills: {faults}")
-    print(f"build: SIMT wide-head instance, registers per thread: {wide}; "
-          "no spills")
     return seconds
 
 
@@ -412,7 +388,8 @@ def _runs_3xtf32(name, D):
     """Whether the float32 kernel ``name`` at head dim ``D`` runs a 3xTF32
     instance (``TF32X3``): the instance's head dim is the next of its
     route's float32 instances (the fused single-tile backward keeps
-    D = 16); above 256, the wide-head dQ and dK/dV (``TF32X3_WIDE``)."""
+    D = 16); above 256, the wide-head forward, dQ and dK/dV
+    (``TF32X3_WIDE``)."""
     import torch
 
     from horovod_tpu_torch.ops import attention as A
@@ -499,10 +476,32 @@ def _f64_check(case, q, k, v, do, got, plain, causal, q_offset, k_offset):
 
 def _dw_bounds(K, ci, co, dtype_name):
     """The filter gradient reads x [K, Cin] and dy [K, Cout] once and writes
-    dw [Cin, Cout] in fp32: 2 K Cin Cout operations."""
+    dw [Cin, Cout] in fp32: 2 K Cin Cout operations. Returns ``(bounds,
+    fma_bound_ms or None)`` as ``_kernel_bounds``: in float32 (3xTF32) the
+    operations tripled at ``PEAK_TF32``, with the bound at the FMA peak
+    beside it."""
     item = ITEM_BYTES[dtype_name]
-    return _bound(2.0 * K * ci * co, K * (ci + co) * item + ci * co * 4,
-                  dtype_name)
+    flops, moved = 2.0 * K * ci * co, K * (ci + co) * item + ci * co * 4
+    bounds = _bound(flops, moved, dtype_name)
+    if dtype_name != "float32":
+        return bounds, None
+    t_ops, t_bytes = 3 * flops / PEAK_TF32, moved / PEAK_BYTES_PER_S
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return (max(t_ops, t_bytes) * 1e3, by, 3 * flops, moved), bounds[0]
+
+
+def _dw_f64_check(case, x2d, dy, got, plain):
+    """The float32 filter gradient's largest error against ``x2d^T dy`` in
+    float64 on the same float32 inputs, at most ``F64_ERR_RATIO`` times the
+    float32 plain version's."""
+    want = x2d.double().transpose(0, 1) @ dy.double()
+    err, perr = ((t.double() - want).abs().max().item() for t in (got, plain))
+    if not err <= F64_ERR_RATIO * perr:
+        raise AssertionError(
+            f"{case} dw: error against float64 {err:.3e} > {F64_ERR_RATIO} x "
+            f"the float32 plain version's {perr:.3e}")
+    return (f" (float64: kernel {err:.3e}, float32 plain {perr:.3e}; at most "
+            f"{F64_ERR_RATIO} x the plain version's)")
 
 
 def _bound(flops, moved, dtype_name):
@@ -768,14 +767,15 @@ def kernel_phase():
 
 def dw_kernel_phase():
     """Hold the 1x1-conv filter-gradient kernel against its plain version;
-    return the stage-1 case's measurements."""
+    return the stage-1 cases' measurements (``dw_1x1`` in bf16,
+    ``dw_1x1_float32``)."""
     import torch
 
     from horovod_tpu_torch.ops import conv_backward as C
 
     bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
-    # name, N, H, W, Cin, Cout, strides, dtype, timed (the first case's
-    # numbers are the kernel's line of the JSON).
+    # name, N, H, W, Cin, Cout, strides, dtype, timed (the first timed case
+    # of each dtype is the kernel's line of the JSON).
     cases = [(*shape, bf16, True) for shape in CONV_SHAPES]
     cases += [
         # K = 5 * 37 * 41 = 7585 rows: no multiple of any tile; Cin = 72
@@ -791,7 +791,13 @@ def dw_kernel_phase():
         ("bf16_stride2_w300", 2, 16, 600, 64, 128, (2, 2), bf16, False),
         ("float16_stage1", *CONV_SHAPES[0][1:], f16, False),
         ("float32_ragged", 5, 37, 41, 72, 40, (1, 1), f32, False),
+        # float32 W' = 150: grid rows wider than a float32 box, read in
+        # three pieces each.
+        ("float32_stride2_h_w150", 2, 8, 150, 64, 96, (2, 1), f32, False),
     ]
+    # Both ResNet-50 shapes in full float32 (3xTF32), timed.
+    cases += [(f"float32_{name}", *rest, f32, True)
+              for name, *rest in CONV_SHAPES]
     gen = torch.Generator(device="cuda").manual_seed(1)
     measured = {}
     for case, N, H, W, ci, co, strides, dtype, timed in cases:
@@ -811,21 +817,25 @@ def dw_kernel_phase():
                                  "inputs differ")
         line += (f" (K {K}, {ci} -> {co}, strides {strides}; a second call "
                  "equal bit for bit)")
-        bounds = _dw_bounds(K, ci, co, dname)
+        bounds, fma = _dw_bounds(K, ci, co, dname)
         if timed:
-            # One library call for the same function: cuBLAS, bf16 in and
-            # out (the kernel returns fp32). A strided view would make
-            # matmul copy it inside the timing, so the library reads a
-            # contiguous copy of x made before.
+            # One library call for the same function: cuBLAS, in the
+            # operands' dtype in and out (the kernel returns fp32; float32
+            # with TF32 off). A strided view would make matmul copy it
+            # inside the timing, so the library reads a contiguous copy of
+            # x made before.
             x2d = xs.reshape(K, ci) if xs.is_contiguous() else (
                 xs.contiguous().reshape(K, ci))
             library_ms = time_ms(lambda: torch.matmul(x2d.T, dy))
-            numbers, text = _timing(kern, plain, bounds, library_ms)
-            if not measured:
-                measured["dw_1x1"] = dict(max_abs_err=err, **numbers)
-            line += text + " (library output bf16" + (
+            numbers, text = _timing(kern, plain, bounds, library_ms, fma)
+            key = "dw_1x1" if dtype == bf16 else "dw_1x1_float32"
+            if key not in measured:
+                measured[key] = dict(max_abs_err=err, **numbers)
+            line += text + f" (library output {dname}" + (
                 "" if xs.is_contiguous() else
                 "; library reads a contiguous copy of x, the copy untimed") + ")"
+            if dtype == f32:
+                line += _dw_f64_check(case, x2d, dy, got[0], want[0])
         else:
             ms = time_ms(kern)
             line += (f" ms {ms:.4f} bound_ms {bounds[0]:.4f} ({bounds[1]}; "
@@ -1043,55 +1053,66 @@ def lenet_phase(card):
 
 def conv_phase(card):
     """``conv1x1`` forward and backward through autograd at the ResNet-50
-    shapes: one filter-gradient launch per backward; dx and dw against the
-    plain counterpart (plain products and ``dw_1x1_plain``). Returns the
-    launch count."""
+    shapes, in bf16 and then in float32 (the counters set to 0 before each):
+    one filter-gradient launch per backward; dx and dw against the plain
+    counterpart (plain products and ``dw_1x1_plain``). Returns the launch
+    counts (``dw_1x1``, ``dw_1x1_float32``)."""
     import torch
 
     from horovod_tpu_torch.ops import _kernels
     from horovod_tpu_torch.ops import conv_backward as C
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    _kernels.DW_1X1.launches = 0
-    results = []
-    for case, N, H, W, ci, co, strides in CONV_SHAPES:
-        x = torch.randn(N, H, W, ci, generator=gen, device="cuda").to(
-            torch.bfloat16).requires_grad_()
-        w = (torch.randn(1, 1, ci, co, generator=gen, device="cuda")
-             / math.sqrt(ci)).to(torch.bfloat16).requires_grad_()
-        out = C.conv1x1(x, w, strides)
-        dy = torch.randn(out.shape, generator=gen, device="cuda").to(
-            torch.bfloat16)
-        out.backward(dy)
-        results.append((case, N, H, W, co, x, w, dy, strides, out))
-    torch.cuda.synchronize()
-    launches = _kernels.DW_1X1.launches
-    if launches != len(CONV_SHAPES):
-        raise AssertionError(
-            f"conv1x1: dw_1x1 launched {launches} times in "
-            f"{len(CONV_SHAPES)} backward passes; expected one per backward")
-    for case, N, H, W, co, x, w, dy, strides, out in results:
-        want_out = C._conv1x1_forward(x.detach(), w.detach(), strides)
-        dx, dw = C.conv1x1_backward(x.detach(), w.detach(), dy, strides,
-                                    C.dw_1x1_plain)
-        if not (torch.equal(out, want_out) and torch.equal(x.grad, dx)):
-            raise AssertionError(f"conv1x1 {case}: output or dx differs "
-                                 "from the plain products")
-        want_shape = (N, -(-H // strides[0]), -(-W // strides[1]), co)
-        if tuple(out.shape) != want_shape:
-            raise AssertionError(f"conv1x1 {case}: output shape "
-                                 f"{tuple(out.shape)}, expected {want_shape}")
-        if not (torch.isfinite(w.grad).all() and w.grad.dtype == w.dtype
-                and w.grad.shape == w.shape):
-            raise AssertionError(f"conv1x1 {case}: dw {w.grad.dtype} "
-                                 f"{tuple(w.grad.shape)} not finite")
-        err, line = _hold(f"conv1x1 {case}", "dw", (w.grad,), (dw,),
-                          TOL["bfloat16"])
-        print(f"{line}; output and dx equal to the plain products; output "
-              f"{tuple(out.shape)} on {card}")
-    print(f"conv1x1: dw_1x1 launched {launches} times in "
-          f"{len(CONV_SHAPES)} backward passes")
-    return launches
+    counts = {}
+    for dtype, key in ((torch.bfloat16, "dw_1x1"),
+                       (torch.float32, "dw_1x1_float32")):
+        dname = str(dtype).split(".")[-1]
+        _kernels.DW_1X1.launches = 0
+        results = []
+        for case, N, H, W, ci, co, strides in CONV_SHAPES:
+            x = torch.randn(N, H, W, ci, generator=gen, device="cuda").to(
+                dtype).requires_grad_()
+            w = (torch.randn(1, 1, ci, co, generator=gen, device="cuda")
+                 / math.sqrt(ci)).to(dtype).requires_grad_()
+            out = C.conv1x1(x, w, strides)
+            dy = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+            out.backward(dy)
+            results.append((case, N, H, W, co, x, w, dy, strides, out))
+        torch.cuda.synchronize()
+        launches = _kernels.DW_1X1.launches
+        if launches != len(CONV_SHAPES):
+            raise AssertionError(
+                f"conv1x1 {dname}: dw_1x1 launched {launches} times in "
+                f"{len(CONV_SHAPES)} backward passes; expected one per "
+                "backward")
+        for case, N, H, W, co, x, w, dy, strides, out in results:
+            want_out = C._conv1x1_forward(x.detach(), w.detach(), strides)
+            dx, dw = C.conv1x1_backward(x.detach(), w.detach(), dy, strides,
+                                        C.dw_1x1_plain)
+            if not (torch.equal(out, want_out) and torch.equal(x.grad, dx)):
+                raise AssertionError(f"conv1x1 {case} {dname}: output or dx "
+                                     "differs from the plain products")
+            want_shape = (N, -(-H // strides[0]), -(-W // strides[1]), co)
+            if tuple(out.shape) != want_shape:
+                raise AssertionError(f"conv1x1 {case}: output shape "
+                                     f"{tuple(out.shape)}, expected "
+                                     f"{want_shape}")
+            if not (torch.isfinite(w.grad).all() and w.grad.dtype == w.dtype
+                    and w.grad.shape == w.shape):
+                raise AssertionError(f"conv1x1 {case}: dw {w.grad.dtype} "
+                                     f"{tuple(w.grad.shape)} not finite")
+            # dw in w's dtype: bf16 rounds it (TOL), float32 keeps the
+            # kernel's sums (TOL_DW).
+            err, line = _hold(f"conv1x1 {case} {dname}", "dw", (w.grad,),
+                              (dw,), TOL_DW[dname] if dtype == torch.float32
+                              else TOL[dname])
+            print(f"{line}; output and dx equal to the plain products; "
+                  f"output {tuple(out.shape)} on {card}")
+        print(f"conv1x1 {dname}: dw_1x1 launched {launches} times in "
+              f"{len(CONV_SHAPES)} backward passes")
+        counts[key] = launches
+        del results
+    return counts
 
 
 _CATEGORIES = (  # first match wins; by lower-cased kernel name
@@ -1101,11 +1122,12 @@ _CATEGORIES = (  # first match wins; by lower-cased kernel name
     ("flash_fwd_single", ("flash_fwd_single_kernel",
                           "flash_fwd_single_3xtf32_kernel")),
     ("flash_dqkv", ("flash_dqkv_kernel", "flash_dqkv_f32_kernel")),
-    ("flash_fwd_wide", ("flash_fwd_wide_kernel", "flash_fwd_wide_f32_kernel")),
+    ("flash_fwd_wide", ("flash_fwd_wide_kernel",
+                        "flash_fwd_wide_3xtf32_kernel")),
     ("flash_dq_wide", ("flash_dq_wide_kernel", "flash_dq_wide_3xtf32_kernel")),
     ("flash_dkv_wide", ("flash_dkv_wide_kernel",
                         "flash_dkv_wide_3xtf32_kernel")),
-    ("dw_1x1", ("dw_1x1_kernel", "dw_1x1_partial_f32_kernel",
+    ("dw_1x1", ("dw_1x1_kernel", "dw_1x1_3xtf32_kernel",
                 "dw_1x1_reduce_kernel")),
     # cuDNN's convolutions (implicit-GEMM xmma/cutlass kernels named for
     # fprop, dgrad and wgrad), ahead of matmul, whose keys they would match.
@@ -1344,7 +1366,7 @@ WIDE_CASES = (
 )
 # The wide-head path: a stack of causal bf16 attention layers at D = 512
 # through flash_attention_lse (B, H, S, D), then F32_LAYERS float32 layers
-# at the same shape (the 3xTF32 dQ and dK/dV).
+# at the same shape (the 3xTF32 forward, dQ and dK/dV).
 WIDE_PATH_LAYERS = 4
 WIDE_PATH_SHAPE = (2, 16, 512, 512)
 WIDE_KERNELS = ("flash_fwd_wide", "flash_dq_wide", "flash_dkv_wide")
@@ -1381,12 +1403,12 @@ def _sdpa_backend(q4, k4, v4, do4):
 def wide_phase():
     """The three wide-head kernels against their plain versions in bf16,
     float16 and float32 (``WIDE_CASES``), the D = 512 bf16 case timed
-    beside its bound and SDPA, the float32 dQ and dK/dV (3xTF32) beside
-    their bound and SDPA's float32 backward, with their errors against
-    float64; then the wide-head paths, bf16 and float32, with the counters
-    set to 0 just before each: every layer launches each wide kernel once
-    and no other kernel, and the float32 layers' profile names the 3xTF32
-    dQ and dK/dV. Returns (measurements, launches)."""
+    beside its bound and SDPA, the float32 forward, dQ and dK/dV (3xTF32)
+    beside their bound and SDPA's float32 forward and backward, with their
+    errors against float64; then the wide-head paths, bf16 and float32, with
+    the counters set to 0 just before each: every layer launches each wide
+    kernel once and no other kernel, and the float32 layers' profile names
+    the 3xTF32 forward, dQ and dK/dV. Returns (measurements, launches)."""
     import torch
 
     from horovod_tpu_torch.ops import _kernels
@@ -1427,8 +1449,7 @@ def wide_phase():
                 print(f"library {case} {dname}: SDPA backend {backend} "
                       f"(forward {fwd_ms} ms, backward dQ+dK+dV {bwd_ms} "
                       f"ms); refused by: {refusals or 'none'}")
-                if dtype == torch.bfloat16:
-                    library = {"flash_fwd_wide": fwd_ms}
+                library = {"flash_fwd_wide": fwd_ms}
             for name, (kern, plain) in runs.items():
                 got = kern()
                 want = plain()
@@ -1442,6 +1463,8 @@ def wide_phase():
                         raise AssertionError(
                             f"{case}: masked-row sentinels differ")
                     line += f" (fully masked rows: {empty})"
+                    if timed and dtype == torch.float32:
+                        fwd_pair = (got, want)
                 bounds, fma = _kernel_bounds(name[:-len("_wide")], BH, Sq,
                                              Sk, D, dname, causal, qo, ko)
                 if timed and (dtype == torch.bfloat16 or fma is not None):
@@ -1455,6 +1478,8 @@ def wide_phase():
                              f"{bounds[0]:.4f} ({bounds[1]})")
                 print(line)
             if timed and dtype == torch.float32:
+                _f64_check(f"{case}_float32", q, k, v, None, *fwd_pair,
+                           causal, qo, ko)
                 # The 3xTF32 dQ and dK/dV against float64 (no lse
                 # cotangent, as _f64_check's reference).
                 rows = (lse_ref, delta, torch.zeros_like(glse), causal, qo,
@@ -1502,8 +1527,7 @@ def wide_phase():
                 for t in (q, k, v):
                     t.grad = None
             kernel_ms = _attention_kernels_ms(run)
-            want = {"flash_fwd_wide_f32_kernel", "flash_dq_wide_3xtf32_kernel",
-                    "flash_dkv_wide_3xtf32_kernel"}
+            want = {f"{name}_3xtf32_kernel" for name in WIDE_KERNELS}
             if {n.split("<")[0] for n in kernel_ms} != want:
                 raise AssertionError(f"wide float32: profiled kernels "
                                      f"{sorted(kernel_ms)}; expected "
@@ -1512,7 +1536,7 @@ def wide_phase():
                      + ", ".join(f"{n} {ms:.4f}" for n, ms in sorted(
                          kernel_ms.items(), key=lambda kv: -kv[1])))
             launches.update({f"{name}_float32": counts[name]
-                             for name in ("flash_dq_wide", "flash_dkv_wide")})
+                             for name in WIDE_KERNELS})
         print(line)
     return measured, launches
 
@@ -2297,8 +2321,9 @@ def kernel_rows():
     """The kernels line's rows, (name, Kernel, source file under csrc/):
     each kernel, then the D = 256 instances of the multi-tile three, then
     the 3xTF32 float32 kernels (their own source): the forward, dQ and
-    dK/dV at D = 256 and at D = 64, the single-tile forward at D = 64, and
-    the wide-head dQ and dK/dV at D = 512."""
+    dK/dV at D = 256 and at D = 64, the single-tile forward at D = 64, the
+    wide-head forward, dQ and dK/dV at D = 512, and the filter gradient at
+    ResNet-50's stage 1."""
     from horovod_tpu_torch.ops import _kernels
 
     return [(k.name, k, k.source) for k in _kernels.KERNELS] + [
@@ -2312,8 +2337,10 @@ def kernel_rows():
         ("flash_dq_float32", _kernels.FLASH_DQ),
         ("flash_dkv_float32", _kernels.FLASH_DKV),
         ("flash_fwd_single_float32", _kernels.FLASH_FWD_SINGLE),
+        ("flash_fwd_wide_float32", _kernels.FLASH_FWD_WIDE),
         ("flash_dq_wide_float32", _kernels.FLASH_DQ_WIDE),
-        ("flash_dkv_wide_float32", _kernels.FLASH_DKV_WIDE))]
+        ("flash_dkv_wide_float32", _kernels.FLASH_DKV_WIDE))] + [
+        ("dw_1x1_float32", _kernels.DW_1X1, "conv1x1_dw.cu")]
 
 
 def _phase(name, fn, *args):
@@ -2362,7 +2389,7 @@ def main() -> int:
     _phase("guarded", guarded_phase, card)
     _phase("resnet50", resnet_phase, card)
     _phase("lenet", lenet_phase, card)
-    launches["dw_1x1"] = _phase("conv1x1", conv_phase, card)
+    launches.update(_phase("conv1x1", conv_phase, card))
     _phase("collectives", collectives_phase, card)
     modes = _phase("sync_modes", sync_modes_phase, card)
     modes["int8"] = (*_phase("int8", int8_phase, card), None)

@@ -29,7 +29,7 @@ BUILD_DIR = os.path.join(_HERE, "build")
 SOURCES = ("flash_attention.cu", "flash_attention_single.cu",
            "flash_attention_wide.cu", "flash_attention_3xtf32.cu",
            "conv1x1_dw.cu")
-HEADERS = ("flash_common.cuh", "flash_hopper.cuh", "sm90.cuh")
+HEADERS = ("flash_common.cuh", "flash_hopper.cuh", "sm90.cuh", "tf32x3.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo", "-Xcompiler", "-fPIC",

@@ -184,7 +184,9 @@ def flash_fwd_plain(q, k, v, causal=False, q_offset=0, k_offset=0,
     forward kernels: it is the plain version of the multi-tile forward and,
     as ``flash_fwd_single_plain``, of the single-tile forward."""
     s, mask, _ = _scores(q, k, causal, q_offset, k_offset, scale)
-    m = s.amax(dim=-1, keepdim=True)
+    # With no key (Sk = 0) every row sees none: O = 0, lse = LSE_MASKED.
+    m = (s.amax(dim=-1, keepdim=True) if s.shape[-1]
+         else s.new_full((*s.shape[:-1], 1), NEG_INF))
     p = torch.exp(s - m)
     if mask is not None:
         p = torch.where(mask, p, 0.0)

@@ -31,14 +31,16 @@ from . import _kernels
 _KERNEL_DTYPES = {torch.float32: _kernels.DTYPE_F32,
                   torch.bfloat16: _kernels.DTYPE_BF16,
                   torch.float16: _kernels.DTYPE_F16}
-# float32 kernel: channels of one output tile, and rows per step.
-_TILE = 64
-_BLOCKS_PER_SM = 4  # its split of K aims at this many blocks per SM
-# bf16 and float16 kernels: a block tile's input and output channels, the
-# most rows of a TMA box dimension, and wgmma's depth in rows.
+# The kernels' block tile: input and output channels; the most rows of a
+# TMA box dimension; the product's depth in rows: wgmma's 16 (bf16,
+# float16), mma.sync m16n8k8's 8 (float32, 3xTF32).
 _CI_TILE, _CO_TILE = 64, 256
 _BOX_MAX = 256
 _DEPTH = 16
+_F32_DEPTH = 8
+# float32: the most rows of a box. A row of a stage is x's 64 and dy's 256
+# channels, 1,280 bytes, so three stages of 56 rows fill shared memory.
+_F32_ROWS = 56
 
 
 def dw_1x1_plain(x2d, dy2d):
@@ -84,22 +86,47 @@ def row_grid(shape, strides):
     return RowGrid(W, H, N, sw, sh, sn)
 
 
-def box_rows(Wd):
-    """``(hb, rows)`` of the bf16 kernel's boxes for grid rows of ``Wd``: a
-    box of x is ``hb`` whole grid rows (``Wd hb`` rows of K), padded to
-    ``rows``, a multiple of wgmma's depth of 16. The largest ``hb`` whose
-    rows need no padding and number 64 to 112 (three stages of 112 rows
-    kept the most bytes in flight on an H100); where there is none, about
-    128 rows with padding (at most 256, the box limit)."""
+def box_rows(Wd, dtype=torch.bfloat16):
+    """``(hb, rows)`` of the kernel's boxes for grid rows of ``Wd``: a box
+    of x is ``hb`` whole grid rows (``Wd hb`` rows of K), padded to
+    ``rows``, a multiple of the product's depth.
+
+    bf16 and float16 (depth 16): the largest ``hb`` whose rows need no
+    padding and number 64 to 112 (three stages of 112 rows kept the most
+    bytes in flight on an H100); where there is none, about 128 rows with
+    padding (at most 256, the box limit).
+
+    float32 (depth 8, rows twice the bytes): the largest ``hb`` whose rows
+    need no padding and number 32 to 56 (three stages of 56 rows); else
+    ``56 // Wd`` grid rows with padding; a grid row wider than 56 is read in
+    ``ceil(Wd / 56)`` pieces (:func:`box_pieces`, ``hb`` = 1), each padded
+    to ``rows``."""
     if not 1 <= Wd <= _BOX_MAX:
         raise ValueError(
-            f"the bf16 dw_1x1 kernel reads at most {_BOX_MAX} rows of W at a "
+            f"the dw_1x1 kernels read at most {_BOX_MAX} rows of W at a "
             f"time; got W = {Wd}")
-    for hb in range(112 // Wd, 0, -1):
-        if Wd * hb % _DEPTH == 0 and Wd * hb >= 64:
+    if dtype == torch.float32:
+        if Wd > _F32_ROWS:  # pieces of one grid row
+            wb = -(-Wd // -(-Wd // _F32_ROWS))
+            return 1, -(-wb // _F32_DEPTH) * _F32_DEPTH
+        top, least, fallback, depth = _F32_ROWS, 32, _F32_ROWS, _F32_DEPTH
+    else:
+        top, least, fallback, depth = 112, 64, 128, _DEPTH
+    for hb in range(top // Wd, 0, -1):
+        if Wd * hb % depth == 0 and Wd * hb >= least:
             return hb, Wd * hb
-    hb = max(1, 128 // Wd)
-    return hb, -(-Wd * hb // _DEPTH) * _DEPTH
+    hb = max(1, fallback // Wd)
+    return hb, -(-Wd * hb // depth) * depth
+
+
+def box_pieces(Wd, hb, rows):
+    """How many boxes one grid row of ``Wd`` takes: 1 where ``hb`` whole
+    grid rows fit in ``rows``, else (float32, ``hb`` = 1) ``ceil(Wd /
+    rows)`` pieces of ``ceil(Wd / pieces)`` rows. The same rule as
+    ``launch_dw`` in ``csrc/conv1x1_dw.cu``, which hands the pieces to the
+    kernel and refuses a split plan that does not cover its boxes with no
+    empty split."""
+    return -(-Wd // rows) if Wd * hb > rows else 1
 
 
 def split_boxes(nboxes, tiles, sms):
@@ -114,14 +141,13 @@ def split_boxes(nboxes, tiles, sms):
 def _in_place(x) -> bool:
     """Whether the kernels can read ``x`` ([K, C] or NHWC) where it lies:
     16-byte aligned, unit channel stride, C and every row stride whole
-    16-byte vectors, and, for the 2-byte kernels, grid rows no wider than a
-    TMA box."""
+    16-byte vectors, and grid rows no wider than a TMA box dimension."""
     vec = 16 // x.element_size()
     grid = row_grid(tuple(x.shape), x.stride())
     return (x.shape[-1] % vec == 0 and x.stride(-1) == 1
             and x.data_ptr() % 16 == 0
             and all(s % vec == 0 for s in (grid.sn, grid.sh, grid.sw))
-            and (x.element_size() == 4 or grid.Wd <= _BOX_MAX))
+            and grid.Wd <= _BOX_MAX)
 
 
 def _padded(t, cols):
@@ -149,17 +175,16 @@ def dw_operands(x2d, dy2d):
 def dw_1x1(x2d, dy2d):
     """Filter gradient of a 1x1 conv: ``x2d [K, Cin]``, ``dy2d [K, Cout]``
     -> ``dw [Cin, Cout]`` float32, for float32, bfloat16 and float16
-    operands (the 2-byte kernels multiply on the tensor cores and sum in
-    fp32, as the reference does).
+    operands (the kernels multiply on the tensor cores, float32 in 3xTF32,
+    and sum in fp32, as the reference does).
 
     ``x2d`` may also be an NHWC view ``[N, H, W, Cin]``, such as the strided
     slice of a stride-2 convolution: the kernel reads its rows in place,
     with no copy, where it can (:func:`dw_operands`). Two cases take a copy
     first, and the kernel reads the copy: channel counts that are no whole
     16-byte vector (x and dy go into zero-padded ``[K, C']`` buffers and dw
-    is sliced back), and, in the 2-byte kernels, a strided view whose rows
-    are wider than a 256-row TMA box (x is copied contiguous, one grid row
-    of K rows).
+    is sliced back), and a strided view whose rows are wider than a TMA box
+    dimension of 256 (x is copied contiguous, one grid row of K rows).
     """
     if x2d.device.type == "cpu":
         return dw_1x1_plain(x2d, dy2d)
@@ -198,18 +223,11 @@ def _dw_launch(x2d, dy2d, K):
     ci, co = x2d.shape[-1], dy2d.shape[1]
     grid = row_grid(tuple(x2d.shape), x2d.stride())
     sms = torch.cuda.get_device_properties(x2d.device).multi_processor_count
-    if dtype != torch.float32:
-        hb, rows = box_rows(grid.Wd)
-        tiles = math.ceil(ci / _CI_TILE) * math.ceil(co / _CO_TILE)
-        split, nsplit = split_boxes(grid.Nd * math.ceil(grid.Hd / hb), tiles,
-                                    sms)
-    else:
-        hb, rows = 0, 0
-        tiles = math.ceil(ci / _TILE) * math.ceil(co / _TILE)
-        nsplit = max(1, min(math.ceil(_BLOCKS_PER_SM * sms / tiles),
-                            math.ceil(K / _TILE), 65535))
-        split = math.ceil(math.ceil(K / nsplit) / _TILE) * _TILE
-        nsplit = math.ceil(K / split)
+    hb, rows = box_rows(grid.Wd, dtype)
+    tiles = math.ceil(ci / _CI_TILE) * math.ceil(co / _CO_TILE)
+    nboxes = (grid.Nd * math.ceil(grid.Hd / hb)
+              * box_pieces(grid.Wd, hb, rows))
+    split, nsplit = split_boxes(nboxes, tiles, sms)
     out = torch.empty(ci, co, dtype=torch.float32, device=x2d.device)
     part = (torch.empty(nsplit, ci, co, dtype=torch.float32,
                         device=x2d.device) if nsplit > 1 else out)

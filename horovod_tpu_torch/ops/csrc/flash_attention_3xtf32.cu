@@ -1,24 +1,26 @@
 // Flash attention in float32 on Hopper's tensor cores (3xTF32), every
-// float32 call of the multi-tile route and the single-tile forward, and the
-// wide-head route's float32 backward: the forwards at head dims 32 to 256
+// float32 call of the multi-tile and wide-head routes and the single-tile
+// forward: the forwards at head dims 32 to 256
 // (flash_fwd_3xtf32_kernel<D>, the multi-tile route, and
 // flash_fwd_single_3xtf32_kernel<D>, Sq and Sk at most 128), the backward
 // at head dims 32 to 256: dQ (flash_dq_3xtf32_kernel<D>) and dK/dV
-// (flash_dkv_3xtf32_kernel<D>), and the backward at any head dim above 256
-// (flash_dq_wide_3xtf32_kernel, flash_dkv_wide_3xtf32_kernel; D a multiple
-// of 32). flash_attention.cu's launch_fwd, launch_dq and launch_dkv,
+// (flash_dkv_3xtf32_kernel<D>), and the forward and backward at any head dim
+// above 256 (flash_fwd_wide_3xtf32_kernel, flash_dq_wide_3xtf32_kernel,
+// flash_dkv_wide_3xtf32_kernel; D a multiple of 32).
+// flash_attention.cu's launch_fwd, launch_dq and launch_dkv,
 // flash_attention_single.cu's launch_fwd_single and flash_attention_wide.cu's
-// float32 dQ and dK/dV call them (attention.py:padded_heads zero-pads a
-// head dim to the next instance, D = 16 to 32: a box row is 32 fp32
-// columns, and a wide D to a multiple of 32). The fused single-tile
-// backward (flash_attention_single.cu) and the wide-head forward
-// (flash_attention_wide.cu) stay SIMT in float32.
+// float32 forward, dQ and dK/dV call them (attention.py:padded_heads
+// zero-pads a head dim to the next instance, D = 16 to 32: a box row is 32
+// fp32 columns, and a wide D to a multiple of 32). The fused single-tile
+// backward (flash_attention_single.cu) stays SIMT in float32. The split,
+// the mma.sync wrappers and the swizzle's address are in tf32x3.cuh.
 //
 // Replaces the Pallas TPU kernels of horovod_tpu/ops/attention.py:
 //   flash_fwd_3xtf32_kernel         <- _flash_fwd_kernel (:138)
 //   flash_fwd_single_3xtf32_kernel  <- _flash_fwd_single_kernel (:310)
 //   flash_dq_3xtf32_kernel          <- _flash_dq_kernel (:198)
 //   flash_dkv_3xtf32_kernel         <- _flash_dkv_kernel (:252)
+//   flash_fwd_wide_3xtf32_kernel    <- _flash_fwd_kernel (:138), D > 256
 //   flash_dq_wide_3xtf32_kernel     <- _flash_dq_kernel (:198), D > 256
 //   flash_dkv_wide_3xtf32_kernel    <- _flash_dkv_kernel (:252), D > 256
 //
@@ -48,7 +50,8 @@
 // dK/dV at D = 64): the bound these kernels are held to; the single-tile
 // forward stays bound by its bytes (0.0260 ms of operations). The wide
 // route at B*H = 32, S = 512, D = 512: dQ 25.77 GFLOP over 168 MB, dK/dV
-// 34.36 GFLOP over 201 MB, 0.1562 and 0.2082 ms in 3xTF32.
+// 34.36 GFLOP over 201 MB, 0.1562 and 0.2082 ms in 3xTF32, the forward
+// 17.18 GFLOP over 134 MB, 0.1041 ms.
 //   - The products are mma.sync m16n8k8 TF32 with fragments read from the
 //     tiles TMA landed in shared memory and split in registers (three
 //     instructions a value). wgmma's TF32 form takes both operands from
@@ -107,7 +110,7 @@
 //     1 warp dP^T, dS^T (P^T handed over as in dQ; each then reads its
 //     product's A fragments from the pair's buffers) and dK: dV and dK
 //     each fit one warp's registers at D = 256, where both would not.
-//   - Wide-head backward (WideX, D > 256): the pair designs with nothing
+//   - Wide-head route (WideX, D > 256): the pair designs with nothing
 //     resident (64 rows of one operand are 128 KB at D = 512): per key (Q)
 //     tile D / 32 score items of four boxes (column box c of each operand),
 //     and output items of 64 columns for each warpgroup, through one ring
@@ -119,7 +122,13 @@
 //     (1.5x the products at D = 512), a work tile first forms them for a
 //     chunk of up to 32 Q tiles and keeps each warp's operand (P^T or dS^T,
 //     4 KB) in a global scratch, which the passes read back: every product
-//     once; a later chunk adds the sums the last stored.
+//     once; a later chunk adds the sums the last stored. The forward: the
+//     pair design of dQ with S's column boxes split between the pair (each
+//     warp sums half of D, the partial sums cross through the pair's
+//     buffers and both warps add them in the same order), then the same
+//     online softmax in both and P V for each warpgroup's 256 columns:
+//     every product once at D <= 512, where the bf16 forward forms all of
+//     S in both warpgroups.
 //   - A fragment taken from an accumulator (P, dS, P^T, dS^T) keeps its
 //     columns 2 t and 2 t + 1 and stands them for k = t and t + 4; the
 //     other operand's rows are read in the same order, so no shuffle.
@@ -130,10 +139,10 @@
 // g_lse enters dS.
 
 #include "flash_hopper.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
-constexpr int X_BOX = 32;                          // fp32 columns of a box: 128-byte rows
 constexpr int X_BOX_BYTES = SEQ_TILE * X_BOX * 4;  // 8 KB
 constexpr int X_PAIRS = CONSUMER_WARPS / 2;        // warp pairs of the pair design
 constexpr int X_PAIR_ROWS = SEQ_TILE / X_PAIRS;    // 16: the rows a consumer warp owns
@@ -177,44 +186,6 @@ struct BwdX {
 constexpr int XCH_FULL = 1;
 constexpr int XCH_BACK = XCH_FULL + X_PAIRS;
 
-// x as the TF32 pair hi + lo, as fp32 bit patterns: hi is x rounded to TF32
-// (half an ulp of TF32 added to the bits, the low 13 bits cleared: to
-// nearest, ties away from zero), lo = x - hi, exact in fp32, which the
-// tensor cores read as TF32 (its low 13 bits dropped: at most 2^-21 of x).
-// Three integer and float instructions: cvt.rna.tf32.f32 for hi and lo
-// measured slower on the H100 for the same accuracy (PERF.md).
-__device__ __forceinline__ void split(uint32_t x, uint32_t& hi, uint32_t& lo) {
-  hi = (x + 0x1000u) & 0xFFFFE000u;
-  lo = __float_as_uint(__uint_as_float(x) - __uint_as_float(hi));
-}
-template <int N>
-__device__ __forceinline__ void split(const uint32_t (&x)[N], uint32_t (&hi)[N],
-                                      uint32_t (&lo)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) split(x[i], hi[i], lo[i]);
-}
-
-// d[0..4) += A B, one m16n8k8 TF32 product (A: a0 (g, t), a1 (g + 8, t),
-// a2 (g, t + 4), a3 (g + 8, t + 4); B: b0 (k = t, n = g), b1 (k = t + 4,
-// n = g); D: (g, 2 t), (g, 2 t + 1), (g + 8, 2 t), (g + 8, 2 t + 1), for
-// lane 4 g + t).
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += A B in 3xTF32, the small terms first.
-__device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
-                                           uint32_t bl0, uint32_t bl1) {
-  mma_tf32(d, al, bh0, bh1);
-  mma_tf32(d, ah, bl0, bl1);
-  mma_tf32(d, ah, bh0, bh1);
-}
-
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -227,19 +198,6 @@ __device__ __forceinline__ float4 lds_f4(const float4* p) {
                : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
                : "r"(smem_u32(p)));
   return v;
-}
-
-__device__ __forceinline__ uint32_t lds_u32(uint32_t addr) {
-  uint32_t v;
-  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
-  return v;
-}
-
-// Byte offset of fp32 element (row, col) in a box of 128-byte rows that
-// starts on a 1024-byte boundary, where TMA's 128 B swizzle puts it: the
-// 16-byte chunk index XORs with row % 8.
-__device__ __forceinline__ uint32_t box_at(int row, int col) {
-  return (uint32_t)(row * 128 + ((((col >> 2) ^ row) & 7) << 4) + (col & 3) * 4);
 }
 
 // s (16 x 64, the accumulator layout: s[4 nt + x] is row g + 8 (x / 2),
@@ -1831,6 +1789,204 @@ flash_fwd_single_3xtf32_kernel(const __grid_constant__ CUtensorMap tm_q,
                         k_offset);
 }
 
+// ---------------------------------------------------------------------------
+// The wide-head forward (flash_fwd_wide_3xtf32_kernel) at any head dim D
+// above 256 that is a multiple of X_BOX, the float32 call of
+// flash_attention_wide.cu: the layout of the wide-head backward (WideX,
+// nothing resident), the pair design of flash_dq_wide_3xtf32_kernel, and
+// the forward's online softmax (softmax_f32).
+// ---------------------------------------------------------------------------
+
+// The producer's score item `it` of the wide forward: column box c0 of Q
+// (rows q0) and of K (rows k0), warpgroup 0's, then column box c1 of each,
+// warpgroup 1's, where c1 < CB (else not loaded).
+__device__ __forceinline__ void load_fwd_wide_scores(const Ring<WideX::STAGE>& ring, int it,
+                                                     const CUtensorMap* q, const CUtensorMap* k,
+                                                     int c0, int c1, int CB, int q0, int k0,
+                                                     int bh) {
+  const bool two = c1 < CB;
+  const uint32_t tile = ring.fill(it, (two ? 4 : 2) * X_BOX_BYTES), bar = ring.bar(it);
+  tma_load_3d(tile, q, bar, X_BOX * c0, q0, bh);
+  tma_load_3d(tile + X_BOX_BYTES, k, bar, X_BOX * c0, k0, bh);
+  if (two) {
+    tma_load_3d(tile + 2 * X_BOX_BYTES, q, bar, X_BOX * c1, q0, bh);
+    tma_load_3d(tile + 3 * X_BOX_BYTES, k, bar, X_BOX * c1, k0, bh);
+  }
+}
+
+// The forward at head dim D > 256, persistent: a grid of one block per SM
+// walks the work tiles (bh, 64 Q rows, pass of 512 output columns) and
+// loops over the key tiles their rows can see. Warp w of warpgroup 0 and
+// warp w of warpgroup 1 (pair p = w) own the same 16 Q rows. Per key tile:
+// ceil(D / 64) score items, in which warpgroup 0 sums S = Q K^T over the
+// first ceil(D / 64) column boxes and warpgroup 1 over the rest (each box's
+// sum from zero); the two partial sums cross through the pair's two 4 KB
+// buffers (each warp writes its own, XCH_FULL + p: both are written), and
+// each warp adds them in the same order, so that both hold the same S bit
+// for bit and run the same online softmax on it; then, once the partner has
+// read its partial sum (XCH_BACK + p), each warp writes its P to its own
+// buffer in fragment order and adds P V to its warpgroup's 256 output
+// columns [512 pass + 256 wg, + 256) (128 registers) over WIDE_ITEMS output
+// items. At D <= 512 one pass: each product once. o [BH, Sq, D] and lse
+// [BH, Sq] (written by the first pass), fp32.
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+flash_fwd_wide_3xtf32_kernel(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v, float* __restrict__ o,
+                             float* __restrict__ lse, int BH, int Sq, int Sk, int D, float scale,
+                             int causal, int q_offset, int k_offset) {
+  // Beside O's 128 registers, the score product sums in two groups of
+  // n-tiles one k-step at a time and the output product reads P one k-step
+  // at a time, as in the wide dQ.
+  constexpr int S_NG = 2, S_KS = 1, P_UNROLL = 1;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem;
+  const Ring<WideX::STAGE> ring = wide_ring(smem_raw, &smem);
+  const int CB = D / X_BOX;
+  const int CH = (CB + 1) / 2;  // score items: warpgroup 0's boxes [0, CH), 1's [CH, CB)
+  const int qtiles = (Sq + SEQ_TILE - 1) / SEQ_TILE;
+  const int passes = (D + 2 * WIDE_OUT - 1) / (2 * WIDE_OUT);
+  // Work tile w: pass w % passes, Q tile (w / passes) % qtiles, head
+  // w / (passes qtiles); neighbours share a head's K and V in L2.
+  const int nwork = BH * qtiles * passes;
+  const int wg = threadIdx.x / WG;
+
+  if (wg == CONSUMER_WGS) {
+    // Producer, one thread: per key tile its score items (Q and K), then
+    // its output items (V).
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x == CONSUMER_WGS * WG) {
+      int it = 0;
+      for (int w = blockIdx.x; w < nwork; w += gridDim.x) {
+        const int pass = w % passes;
+        const int q0 = (w / passes) % qtiles * SEQ_TILE, bh = w / (passes * qtiles);
+        const int nk = key_tiles(q0, Sq, Sk, causal, q_offset, k_offset);
+        for (int kt = 0; kt < nk; ++kt) {
+          const int k0 = kt * SEQ_TILE;
+#pragma unroll 1
+          for (int c = 0; c < CH; ++c, ++it)
+            load_fwd_wide_scores(ring, it, &tm_q, &tm_k, c, c + CH, CB, q0, k0, bh);
+#pragma unroll 1
+          for (int u = 0; u < WIDE_ITEMS; ++u, ++it) {
+            const int col = 2 * WIDE_OUT * pass + 2 * X_BOX * u;
+            load_wide_outputs(ring, it, &tm_v, col, &tm_v, col + WIDE_OUT, k0, bh, D);
+          }
+        }
+      }
+    }
+  } else {
+    // Consumer warp: pair p = warp % 4 owns rows [16 p, 16 p + 16) of the
+    // work tile; warpgroup wg sums S over its column boxes and holds O for
+    // its 256 columns.
+    reg_alloc<CONSUMER_REGS>();
+    const int pair = (threadIdx.x / 32) % X_PAIRS;
+    const int lane = threadIdx.x & 31;
+    const int tq = lane & 3;
+    const float sl2 = scale * LOG2E;
+    float* const mine = reinterpret_cast<float*>(smem + WideX::XCH + (2 * pair + wg) * X_XCH_BYTES);
+    const float* const theirs =
+        reinterpret_cast<const float*>(smem + WideX::XCH + (2 * pair + 1 - wg) * X_XCH_BYTES);
+    int it = 0;
+    for (int w = blockIdx.x; w < nwork; w += gridDim.x) {
+      const int pass = w % passes;
+      const int q0 = (w / passes) % qtiles * SEQ_TILE, bh = w / (passes * qtiles);
+      const int row_first = q0 + X_PAIR_ROWS * pair;  // the pair's first row
+      const int row0 = row_first + (lane >> 2);       // this thread's rows row0, row0 + 8
+      const int col0 = 2 * WIDE_OUT * pass + WIDE_OUT * wg;  // this warpgroup's O columns
+      const int nk = key_tiles(q0, Sq, Sk, causal, q_offset, k_offset);
+      // A pair whose rows are all past Sq only waits for and releases the
+      // items (both warps alike, so the pair's barriers stay matched).
+      const bool active = row_first < Sq;
+      float acc[WIDE_OUT / 2];  // O: the pair's 16 rows by this warpgroup's 256 columns
+#pragma unroll
+      for (int i = 0; i < WIDE_OUT / 2; ++i) acc[i] = 0.f;
+      float m[2] = {NEG_INF, NEG_INF}, mr[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+      for (int kt = 0; kt < nk; ++kt) {
+        const int k0 = kt * SEQ_TILE;
+        // Causal: the pair's rows may see no key of this tile.
+        const bool sees = active && !(causal && q_offset + row_first + 15 < k_offset + k0);
+        // This warp's partial S = Q K^T over its column boxes, 16 x 64.
+        float s[1][SEQ_TILE / 2];
+#pragma unroll
+        for (int i = 0; i < SEQ_TILE / 2; ++i) s[0][i] = 0.f;
+        for (int c = 0; c < CH; ++c, ++it) {
+          const uint32_t a = ring.tile(it) + 2 * wg * X_BOX_BYTES;
+          ring.wait(it);
+          if (sees && (wg == 0 || c + CH < CB))
+            scores_box<S_NG, S_KS>(s[0], a, X_PAIR_ROWS * pair, a + X_BOX_BYTES, lane);
+          ring.release(it, lane);
+        }
+
+        if (sees) {
+          // The partial sums cross; both warps add first half + second half.
+#pragma unroll
+          for (int i = 0; i < SEQ_TILE / 2; ++i) mine[i * 32 + lane] = s[0][i];
+          __threadfence_block();
+          named_sync(XCH_FULL + pair, 64);
+#pragma unroll
+          for (int i = 0; i < SEQ_TILE / 2; ++i) {
+            const float x = theirs[i * 32 + lane];
+            s[0][i] = wg == 0 ? s[0][i] + x : x + s[0][i];
+          }
+          float corr[2];
+          if (k0 + SEQ_TILE > Sk || (causal && q_offset + row_first < k_offset + k0 + SEQ_TILE - 1))
+            softmax_f32<1, true, true>(s, m, mr, l, corr, row0, k0, Sk, sl2, causal, q_offset,
+                                       k_offset, tq);
+          else
+            softmax_f32<1, false, true>(s, m, mr, l, corr, row0, k0, Sk, sl2, causal, q_offset,
+                                        k_offset, tq);
+#pragma unroll
+          for (int i = 0; i < WIDE_OUT / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+          // P to this warp's own buffer in fragment order (float4 j * 32 +
+          // lane: a0..a3 of k-step j), once the partner has read the partial
+          // sum there, so that the scores are not live through the products.
+          named_sync(XCH_BACK + pair, 64);
+          float4* const p4 = reinterpret_cast<float4*>(mine);
+#pragma unroll
+          for (int j = 0; j < SEQ_TILE / 8; ++j)
+            p4[j * 32 + lane] =
+                make_float4(s[0][4 * j], s[0][4 * j + 2], s[0][4 * j + 1], s[0][4 * j + 3]);
+          __syncwarp();
+        }
+
+        // O += P V over this warpgroup's halves of the output items; an
+        // item's columns past D are skipped (not loaded, not stored).
+#pragma unroll
+        for (int u = 0; u < WIDE_ITEMS; ++u, ++it) {
+          ring.wait(it);
+          if (sees && col0 + 2 * X_BOX * u < D) {
+            const uint32_t b = ring.tile(it) + 2 * wg * X_BOX_BYTES;
+            product_item<1>(acc + 32 * u, b, b + X_BOX_BYTES,
+                            SmemFrag<P_UNROLL>{reinterpret_cast<const float4*>(mine), lane},
+                            lane);
+          }
+          ring.release(it, lane);
+        }
+      }
+
+      // O / l and lse = max s scale + log(l) from registers; a row that saw
+      // no key gets O = 0 and lse = LSE_MASKED.
+      if (active) {
+        float div[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+          l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+          const bool empty = l[h] == 0.f;
+          div[h] = empty ? 1.f : l[h];
+          const int qi = row0 + 8 * h;
+          if (pass == 0 && wg == 0 && tq == 0 && qi < Sq)
+            lse[(size_t)bh * Sq + qi] = empty ? LSE_MASKED : fmaf(mr[h], scale, logf(l[h]));
+        }
+        store_acc<WIDE_OUT>(o + (size_t)bh * Sq * D, D, acc,
+                            [&div](float x, int h) { return x / div[h]; }, row0, Sq, col0, lane,
+                            D - col0);
+      }
+    }
+  }
+}
+
 // The tensor map of a contiguous [BH, S, D] fp32 tensor in 64-row x
 // 32-column boxes (128-byte rows, the 128 B swizzle); rows past S read as
 // zeros.
@@ -2039,6 +2195,31 @@ int launch_dkv_wide_3xtf32(const void* q, const void* k, const void* v, const vo
   return launch(flash_dkv_wide_3xtf32_kernel, grid, SM90_THREADS, WideX::BYTES, stream, m[0],
                 m[1], m[2], m[3], (float*)dk, (float*)dv, (float4*)scratch, (const float*)lse,
                 (const float*)delta, (const float*)glse, BH, Sq, Sk, D, scale, causal, qo, ko);
+}
+
+// The launcher flash_attention_wide.cu calls for every float32 forward at
+// head dims above 256: D a multiple of X_BOX (any other D:
+// cudaErrorInvalidValue); a persistent grid over the work tiles of every
+// pass. With no key (Sk = 0) the kernel loads no K or V tile and writes
+// O = 0 and lse = LSE_MASKED; a tensor map cannot have an empty dim, so K
+// and V then take Q's map, which the kernel never reads for them.
+int launch_fwd_wide_3xtf32(const void* q, const void* k, const void* v, void* o, void* lse,
+                           int BH, int Sq, int Sk, int D, float scale, int causal, int qo, int ko,
+                           cudaStream_t stream) {
+  if (D <= 256 || D % X_BOX) return cudaErrorInvalidValue;
+  if (Sq == 0 || BH == 0) return cudaSuccess;
+  const int passes = (D + 2 * WIDE_OUT - 1) / (2 * WIDE_OUT);
+  const int nwork = BH * ((Sq + SEQ_TILE - 1) / SEQ_TILE) * passes;
+  CUtensorMap mq, mk, mv;
+  int err, sms = 0;
+  if ((err = x_map(&mq, q, Sq, BH, D)) || (err = sm_count(&sms))) return err;
+  if (Sk == 0)
+    mk = mv = mq;
+  else if ((err = x_map(&mk, k, Sk, BH, D)) || (err = x_map(&mv, v, Sk, BH, D)))
+    return err;
+  return launch(flash_fwd_wide_3xtf32_kernel, dim3(nwork < sms ? nwork : sms), SM90_THREADS,
+                WideX::BYTES, stream, mq, mk, mv, (float*)o, (float*)lse, BH, Sq, Sk, D, scale,
+                causal, qo, ko);
 }
 
 // The forwards (flash_attention.cu's launch_fwd and flash_attention_single.cu's

@@ -59,23 +59,13 @@
 // P and dS are rounded to the operand dtype before their products, as the
 // TPU kernels do.
 //
-// float32 dQ and dK/dV run on the tensor cores in 3xTF32
-// (flash_attention_3xtf32.cu: flash_dq_wide_3xtf32_kernel and
-// flash_dkv_wide_3xtf32_kernel, through launch_dq_wide_3xtf32 and
-// launch_dkv_wide_3xtf32), which hold float32's tolerance. The float32
-// forward (flash_fwd_wide_f32_kernel) keeps the first version, SIMT on the
-// FMA units in fp32 (one TF32 product would not hold 1e-4), whose
-// registers and shared memory (49,408 bytes) are the same at any D:
-//   - the scores S = Q K^T are a contraction over D, streamed through
-//     shared memory in chunks of W_KC columns into a 64 x 64 fp32 tile held
-//     in registers (16 values per thread);
-//   - O is written in column slices of W_SL columns, one slice at a time,
-//     each slice recomputing the scores: a first pass over the keys for the
-//     row max and sum (so lse), after which P = exp(S - lse) is final and a
-//     slice is O_slice = P V_slice with no rescaling.
-// P stays in fp32. D must be a multiple of W_KC.
+// The float32 forward, dQ and dK/dV run on the tensor cores in 3xTF32
+// (flash_attention_3xtf32.cu: flash_fwd_wide_3xtf32_kernel,
+// flash_dq_wide_3xtf32_kernel and flash_dkv_wide_3xtf32_kernel, through
+// launch_fwd_wide_3xtf32, launch_dq_wide_3xtf32 and launch_dkv_wide_3xtf32),
+// which hold float32's tolerance (one TF32 product would not hold 1e-4).
 //
-// Every kernel: D zero-padded by the wrapper to a multiple of W_KC with the
+// Every kernel: D zero-padded by the wrapper to a multiple of 32 with the
 // scale of the true D (attention.py:padded_heads); any B*H, ragged Sq and
 // Sk, causal masking on global positions q_offset + i >= k_offset + j,
 // LSE_MASKED for rows that see no key, and the lse cotangent g_lse as the
@@ -83,10 +73,14 @@
 
 #include "flash_hopper.cuh"
 
-// float32 dQ and dK/dV on the tensor cores (flash_attention_3xtf32.cu):
-// any D above 256 that is a multiple of 32 (any other D, or a dK/dV
-// scratch smaller than wide_dkv_scratch_bytes: cudaErrorInvalidValue).
+// float32 forward, dQ and dK/dV on the tensor cores
+// (flash_attention_3xtf32.cu): any D above 256 that is a multiple of 32
+// (any other D, or a dK/dV scratch smaller than wide_dkv_scratch_bytes:
+// cudaErrorInvalidValue).
 long long wide_dkv_scratch_bytes(int BH, int Sq, int Sk);
+int launch_fwd_wide_3xtf32(const void* q, const void* k, const void* v, void* o, void* lse,
+                           int BH, int Sq, int Sk, int D, float scale, int causal, int qo, int ko,
+                           cudaStream_t stream);
 int launch_dq_wide_3xtf32(const void* q, const void* k, const void* v, const void* dout,
                           const void* lse, const void* delta, const void* glse, void* dq, int BH,
                           int Sq, int Sk, int D, float scale, int causal, int qo, int ko,
@@ -98,230 +92,6 @@ int launch_dkv_wide_3xtf32(const void* q, const void* k, const void* v, const vo
                            cudaStream_t stream);
 
 namespace {
-
-constexpr int W_BM = 64;            // Q rows of a tile
-constexpr int W_BN = 64;            // K/V rows of a tile
-constexpr int W_KC = 32;            // columns of D per chunk of a score contraction
-constexpr int W_SL = 128;           // output columns per slice
-constexpr int W_THREADS = 256;      // 16 x 16 threads, 4 x 4 scores each
-constexpr int W_LDC = W_KC + 1;     // leading dim of a chunk in shared memory
-constexpr int W_LDP = W_BN + 1;     // leading dim of the P tile
-constexpr int W_NJ = W_SL / 16;     // slice columns per thread
-constexpr int W_CHUNK = W_BM * W_LDC;  // floats of one chunk buffer
-constexpr int W_SLICE = W_BN * W_SL;   // floats of one slice buffer
-constexpr int W_TILE = W_BM * W_LDP;   // floats of one P tile
-
-// The SIMT forward's element conversions (its only instance is float32).
-__device__ __forceinline__ float to_f(float x) { return x; }
-
-template <typename T>
-__device__ __forceinline__ T of_f(float x);
-template <>
-__device__ __forceinline__ float of_f<float>(float x) { return x; }
-
-// Rows [row0, row0 + ROWS) and columns [col0, col0 + W) of a row-major
-// [nrows, D] matrix into fp32 shared memory (leading dim ld), 16 bytes per
-// load; zero past nrows and past D (D and col0 are multiples of W_KC).
-template <typename T, int ROWS, int W>
-__device__ __forceinline__ void load_block(float* dst, int ld, const T* __restrict__ src, int D,
-                                           int row0, int nrows, int col0) {
-  constexpr int VEC = 16 / (int)sizeof(T);
-  constexpr int CH = W / VEC;
-  for (int idx = threadIdx.x; idx < ROWS * CH; idx += W_THREADS) {
-    const int r = idx / CH;
-    const int c = (idx % CH) * VEC;
-    const int gr = row0 + r, gc = col0 + c;
-    float* d = dst + r * ld + c;
-    if (gr < nrows && gc < D) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(src + (size_t)gr * D + gc);
-      const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) d[i] = to_f(e[i]);
-    } else {
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) d[i] = 0.f;
-    }
-  }
-}
-
-// The 64 x 64 tile S = A B^T of rows [a0, a0 + 64) of A and rows
-// [b0, b0 + 64) of B, contracted over all of D in chunks of W_KC columns.
-// Thread (ty, tx) holds rows ty + 16 i and columns tx + 16 j. Starts with a
-// barrier, so the caller may reuse the chunk buffers freely before it; ends
-// without one.
-template <typename T>
-__device__ __forceinline__ void scores(float (&s)[4][4], float* buf, const T* a, const T* b,
-                                       int a0, int na, int b0, int nb, int D) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float* sA = buf;
-  float* sB = buf + W_CHUNK;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-  for (int c0 = 0; c0 < D; c0 += W_KC) {
-    __syncthreads();
-    load_block<T, W_BM, W_KC>(sA, W_LDC, a, D, a0, na, c0);
-    load_block<T, W_BN, W_KC>(sB, W_LDC, b, D, b0, nb, c0);
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < W_KC; ++kk) {
-      float x[4], y[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) x[i] = sA[(ty + 16 * i) * W_LDC + kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) y[j] = sB[(tx + 16 * j) * W_LDC + kk];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(x[i], y[j], s[i][j]);
-    }
-  }
-}
-
-// Max and sum over the 16 threads that share a row (one half of a warp).
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// acc[i][j] += sum_kk L(row i, kk) R(kk, col j), with L read from a 64 x 64
-// fp32 tile and R from a [64][W_SL] slice.
-__device__ __forceinline__ void slice_product(float (&acc)[4][W_NJ], const float* sL,
-                                              const float* sR) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll 4
-  for (int kk = 0; kk < 64; ++kk) {
-    float x[4], y[W_NJ];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = sL[(ty + 16 * i) * W_LDP + kk];
-#pragma unroll
-    for (int j = 0; j < W_NJ; ++j) y[j] = sR[kk * W_SL + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < W_NJ; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void store_slice(T* out, const float (&acc)[4][W_NJ], int row0,
-                                            int nrows, int c0, int D) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty + 16 * i;
-    if (r >= nrows) continue;
-#pragma unroll
-    for (int j = 0; j < W_NJ; ++j) {
-      const int c = c0 + tx + 16 * j;
-      if (c < D) out[(size_t)r * D + c] = of_f<T>(acc[i][j]);
-    }
-  }
-}
-
-// Forward, float32: one block per (Q tile, head). o [BH, Sq, D], lse
-// [BH, Sq] fp32.
-template <typename T>
-__global__ void __launch_bounds__(W_THREADS)
-    flash_fwd_wide_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-                          int BH, int Sq, int Sk, int D, float scale, int causal, int qo,
-                          int ko) {
-  extern __shared__ float4 wide_smem[];
-  float* buf = reinterpret_cast<float*>(wide_smem);  // chunks, then a V slice
-  float* sP = buf + (2 * W_CHUNK > W_SLICE ? 2 * W_CHUNK : W_SLICE);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int q0 = blockIdx.x * W_BM;
-  const int nk = key_tiles(q0, Sq, Sk, causal, qo, ko);
-  float s[4][4];
-  for (int bh = blockIdx.y; bh < BH; bh += gridDim.y) {
-    const T* qh = q + (size_t)bh * Sq * D;
-    const T* kh = k + (size_t)bh * Sk * D;
-    const T* vh = v + (size_t)bh * Sk * D;
-    // Pass 1: the row max and sum, so lse.
-    float m[4], l[4], L[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) m[i] = NEG_INF, l[i] = 0.f;
-    for (int kt = 0; kt < nk; ++kt) {
-      const int k0 = kt * W_BN;
-      scores<T>(s, buf, qh, kh, q0, Sq, k0, Sk, D);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qi = q0 + ty + 16 * i;
-        float mx = NEG_INF;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const bool vis = visible(qi, k0 + tx + 16 * j, Sq, Sk, causal, qo, ko);
-          s[i][j] = vis ? s[i][j] * scale : NEG_INF;
-          mx = fmaxf(mx, s[i][j]);
-        }
-        const float mn = fmaxf(m[i], row_max(mx));
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (visible(qi, k0 + tx + 16 * j, Sq, Sk, causal, qo, ko)) sum += expf(s[i][j] - mn);
-        l[i] = l[i] * expf(m[i] - mn) + row_sum(sum);
-        m[i] = mn;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      L[i] = l[i] == 0.f ? LSE_MASKED : m[i] + logf(l[i]);
-      const int qi = q0 + ty + 16 * i;
-      if (tx == 0 && qi < Sq) lse[(size_t)bh * Sq + qi] = L[i];
-    }
-    // Pass 2: per column slice, O_slice = P V_slice with P = exp(S - lse).
-    for (int c0 = 0; c0 < D; c0 += W_SL) {
-      float acc[4][W_NJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < W_NJ; ++j) acc[i][j] = 0.f;
-      for (int kt = 0; kt < nk; ++kt) {
-        const int k0 = kt * W_BN;
-        scores<T>(s, buf, qh, kh, q0, Sq, k0, Sk, D);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int qi = q0 + ty + 16 * i;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const bool vis = visible(qi, k0 + tx + 16 * j, Sq, Sk, causal, qo, ko);
-            sP[(ty + 16 * i) * W_LDP + tx + 16 * j] = vis ? expf(s[i][j] * scale - L[i]) : 0.f;
-          }
-        }
-        __syncthreads();
-        load_block<T, W_BN, W_SL>(buf, W_SL, vh, D, k0, Sk, c0);
-        __syncthreads();
-        slice_product(acc, sP, buf);
-      }
-      store_slice<T>(o + (size_t)bh * Sq * D, acc, q0, Sq, c0, D);
-    }
-  }
-}
-
-constexpr size_t FWD_WIDE_SMEM =
-    ((2 * W_CHUNK > W_SLICE ? 2 * W_CHUNK : W_SLICE) + W_TILE) * sizeof(float);
-
-template <typename Kernel, typename... Args>
-int launch_wide(Kernel kernel, int rows, int BH, int D, size_t smem, cudaStream_t stream,
-                Args... args) {
-  if (D <= 0 || D % W_KC) return cudaErrorInvalidValue;
-  if (rows == 0 || BH == 0) return cudaSuccess;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((rows + 63) / 64, BH < 65535 ? BH : 65535);
-  kernel<<<grid, W_THREADS, smem, stream>>>(args...);
-  return cudaGetLastError();
-}
 
 // ===========================================================================
 // bf16 and float16 on Hopper: the forward, dQ and dK/dV, warp-specialized
@@ -1024,9 +794,8 @@ int hvd_flash_fwd_wide(const void* q, const void* k, const void* v, void* o, voi
     return launch_fwd_hopper<f16>(q, k, v, o, lse, BH, Sq, Sk, D, scale, causal, q_offset,
                                   k_offset, st);
   if (dtype == DTYPE_F32)
-    return launch_wide(flash_fwd_wide_f32_kernel<float>, Sq, BH, D, FWD_WIDE_SMEM, st,
-                       (const float*)q, (const float*)k, (const float*)v, (float*)o,
-                       (float*)lse, BH, Sq, Sk, D, scale, causal, q_offset, k_offset);
+    return launch_fwd_wide_3xtf32(q, k, v, o, lse, BH, Sq, Sk, D, scale, causal, q_offset,
+                                  k_offset, st);
   return cudaErrorInvalidValue;
 }
 

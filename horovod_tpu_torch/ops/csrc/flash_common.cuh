@@ -1,9 +1,8 @@
 // Device helpers shared by the port's CUDA kernels (flash_attention.cu,
 // flash_attention_single.cu, conv1x1_dw.cu): dtype conversion, tile loads
 // into shared memory, one warp's 16-row float32 matrix product and register
-// accumulator (the single-tile float32 fused backward and the float32 filter
-// gradient), the causal visibility rule, and the (dtype, head dim)
-// dispatch of the C entry points.
+// accumulator (the single-tile float32 fused backward), the causal
+// visibility rule, and the (dtype, head dim) dispatch of the C entry points.
 //
 // Everything sits in an anonymous namespace: each translation unit gets its
 // own copy, so the sources link into one library without clashes.
@@ -86,8 +85,7 @@ __device__ __forceinline__ void warp_gemm(const float* A, int lda, const float* 
 // One warp's fp32 accumulator C[16 x N], held in registers across calls:
 // C += A^T B, where A is stored [K][16] (A^T(i, k) = A[k * lda + i]) and B is
 // row-major [K x N], both in shared memory. The single-tile float32 fused
-// backward keeps dK and dV of 16 key rows in it; the float32 1x1-conv filter
-// gradient keeps 16 input channels.
+// backward keeps dK and dV of 16 key rows in it.
 template <typename T, int N>
 struct RowAcc;
 

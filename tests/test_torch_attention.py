@@ -205,6 +205,19 @@ def test_fully_masked_rows_give_zero_output_and_sentinel():
     assert np.all(np.isfinite(lse[:, :, 16:]))
 
 
+@pytest.mark.parametrize("D,causal", [(64, False), (64, True), (512, False)])
+def test_no_key_gives_zero_output_and_sentinel(D, causal):
+    """With no key at all (Sk = 0) every row sees none: O = 0 and lse =
+    LSE_MASKED, as the kernels write, and dQ = 0."""
+    q = torch.randn(2, 40, D, generator=torch.Generator().manual_seed(0))
+    k = q[:, :0]
+    o, lse = port.flash_fwd(q, k, k, causal)
+    assert o.shape == q.shape and torch.all(o == 0.0)
+    assert lse.shape == q.shape[:2] and torch.all(lse == port.LSE_MASKED)
+    dq = port.flash_dq(q, k, k, q, lse, lse, lse, causal)
+    assert dq.shape == q.shape and torch.all(dq == 0.0)
+
+
 def test_gradient_through_lse_only():
     """A zero output cotangent with a nonzero lse cotangent still moves
     dQ/dK (dS = P * g_lse) and leaves dV at zero."""
@@ -393,8 +406,10 @@ _HOPPER_INSTANCES = [(k, d, t) for k in ("flash_fwd_kernel", "flash_dq_kernel",
                          ("flash_fwd_single_3xtf32_kernel", d, None)
                          for d in (32, 64, 128)] + [
                          (k, None, None) for k in (
+                             "flash_fwd_wide_3xtf32_kernel",
                              "flash_dq_wide_3xtf32_kernel",
-                             "flash_dkv_wide_3xtf32_kernel")]
+                             "flash_dkv_wide_3xtf32_kernel",
+                             "dw_1x1_3xtf32_kernel")]
 
 
 def _hopper_mangled(kernel, d, t="bf16"):
@@ -402,11 +417,14 @@ def _hopper_mangled(kernel, d, t="bf16"):
     (d None: the filter gradient or a wide-head kernel, templated on the
     type alone; t None: the float32 3xTF32 kernels, templated on the head
     dim alone: the forwards, dQ and dK/dV, each with its parameters; both
-    None: the float32 wide-head dQ and dK/dV, not templated)."""
+    None: the float32 wide-head forward, dQ and dK/dV and the float32
+    filter gradient, not templated)."""
     if t is None and d is None:
-        params = {"flash_dq_wide_3xtf32_kernel": "S0_S0_S0_PfPKfS3_S3_iiiifiii",
+        params = {"flash_fwd_wide_3xtf32_kernel": "S0_S0_PfS1_iiiifiii",
+                  "flash_dq_wide_3xtf32_kernel": "S0_S0_S0_PfPKfS3_S3_iiiifiii",
                   "flash_dkv_wide_3xtf32_kernel":
-                      "S0_S0_S0_PfS2_PKfS3_S3_iiiifiii"}[kernel]
+                      "S0_S0_S0_PfS2_PKfS3_S3_iiiifiii",
+                  "dw_1x1_3xtf32_kernel": "S0_Pfiiiiiiiiiiii"}[kernel]
         return (f"_ZN12_GLOBAL__N_1{len(kernel)}{kernel}E14CUtensorMap_st"
                 + params)
     if t is None:
@@ -431,9 +449,9 @@ def _instance(kernel, d, t):
 def _hopper_log():
     """A clean ptxas log of every Hopper instance, beside float32 kernels
     that spill (which do not count against the build)."""
-    return (_ptxas_entry("_ZN12_GLOBAL__N_125dw_1x1_partial_f32_kernelEPKfS1"
-                         "_Pfiiiiiixxx", "8 bytes spill stores, 8 bytes "
-                         "spill loads", 255)
+    return (_ptxas_entry("_ZN12_GLOBAL__N_121flash_dqkv_f32_kernelILi16E"
+                         "EEvPKfS2_S2_S2_S2_S2_S2_PfS3_S3_iifiii",
+                         "8 bytes spill stores, 8 bytes spill loads", 255)
             + _ptxas_entry("_ZN12_GLOBAL__N_121flash_dqkv_f32_kernelILi64E"
                            "EEvPKfS2_S2_S2_S2_S2_S2_PfS3_S3_iifiii",
                            "4 bytes spill stores, 4 bytes spill loads", 128)
@@ -469,14 +487,17 @@ def _hopper_log():
     ("flash_fwd_single_3xtf32_kernel", 32, "spill"),
     ("flash_fwd_single_3xtf32_kernel", 64, "spill"),
     ("flash_fwd_single_3xtf32_kernel", 128, "spill"),
+    ("flash_fwd_wide_3xtf32_kernel", None, "spill"),
     ("flash_dq_wide_3xtf32_kernel", None, "spill"),
-    ("flash_dkv_wide_3xtf32_kernel", None, "spill")])
+    ("flash_dkv_wide_3xtf32_kernel", None, "spill"),
+    ("dw_1x1_3xtf32_kernel", None, "spill")])
 def test_build_report_names_the_redesigned_hopper_culprit(kernel, d, fault):
     """The fused backward's, the filter gradient's and the wide-head
     forward's, dQ's and dK/dV's bf16 Hopper instances, and the float32
     3xTF32 forwards, dQ and dK/dV (each head dim alone, and the wide-head
-    dQ and dK/dV), are in the build phase's list, and a spill or
-    serialized wgmma in one of them fails it, naming that instance alone."""
+    forward, dQ and dK/dV) and filter gradient, are in the build phase's
+    list, and a spill or serialized wgmma in one of them fails it, naming
+    that instance alone."""
     _check_culprit(kernel, d, None if "3xtf32" in kernel else "bf16", fault)
 
 
@@ -531,18 +552,17 @@ def test_build_report_flags_spills_and_serialized_wgmma_of_hopper_kernels():
     others = (_ptxas_entry("_ZN12_GLOBAL__N_121flash_dqkv_f32_kernelILi64E"
                            "EEvPKfS2_S2_S2_S2_S2_S2_PfS3_S3_iifiii",
                            "8 bytes spill stores, 8 bytes spill loads", 255)
-              + _ptxas_entry("_ZN12_GLOBAL__N_124flash_dq_wide_f32_kernel"
-                             "IfEEvPKT_S3_S3_S3_PKfS5_S5_PS1_iiiififiii",
-                             registers=96)
-              + _ptxas_entry("_ZN12_GLOBAL__N_125flash_fwd_wide_f32_kernel"
-                             "IfEEvPKT_S3_S3_PS1_Pfiiiififiii",
+              + _ptxas_entry("_ZN12_GLOBAL__N_120dw_1x1_reduce_kernel"
+                             "EPKfPfim", registers=96)
+              + _ptxas_entry("_ZN12_GLOBAL__N_121flash_dqkv_f32_kernel"
+                             "ILi16EEEvPKfS2_S2_S2_S2_S2_S2_PfS3_S3_iifiii",
                              "4 bytes spill stores, 4 bytes spill loads",
                              128))
     clean = others + "".join(_ptxas_entry(hopper(k, d, t))
                              for k, d, t in instances)
     regs, faults = smoke.hopper_build_report(clean)
     assert sorted(regs) == sorted(smoke.HOPPER_INSTANCES)
-    assert len(regs) == 71
+    assert len(regs) == 73
     assert set(regs.values()) == {168} and faults == []
 
     def spill(log, kernel, d, t):

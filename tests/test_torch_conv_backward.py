@@ -129,7 +129,21 @@ _VIEWS = {
 }
 
 
+# Views whose plans are held without their elements (meta tensors carry
+# the shape and strides): ResNet-50's stage 1 and stride-2 shortcut, and a
+# contiguous ragged K (5 * 37 * 41 rows).
+_PLAN_VIEWS = {
+    "resnet50_stage1": ((128, 56, 56, 64), (1, 1)),
+    "resnet50_shortcut_s2": ((128, 56, 56, 256), (2, 2)),
+    "ragged_k": ((5, 37, 41, 72), (1, 1)),
+}
+
+
 def _view(name):
+    if name in _PLAN_VIEWS:
+        shape, strides = _PLAN_VIEWS[name]
+        x = torch.empty(shape, device="meta")[:, ::strides[0], ::strides[1]]
+        return None, x
     shape, strides = _VIEWS[name]
     flat = torch.arange(2 * math.prod(shape), dtype=torch.float64)
     x = flat[3 * 8:3 * 8 + math.prod(shape)].view(shape)
@@ -154,34 +168,46 @@ def test_row_grid_addresses_exactly_the_elements_of_the_view(name):
     assert all(s % 8 == 0 for s in (g.sw, g.sh, g.sn))
 
 
-def _box_k_rows(grid, hb, b):
-    """The K rows that box ``b`` of the bf16 kernel holds, as its producer
-    loads them (``csrc/conv1x1_dw.cu``): grid rows [h0, h0 + hb) of image n,
-    beside dy's rows from (n Hd + h0) Wd on; grid rows past Hd read as
-    zeros."""
+def _box_k_rows(grid, hb, rows, b):
+    """The K rows that box ``b`` of the kernels holds, as their producers
+    load them (``csrc/conv1x1_dw.cu``): grid rows [h0, h0 + hb) of image n
+    (or, for a grid row wider than ``rows``, piece p of ``wb`` rows of grid
+    row h0), beside dy's rows from (n Hd + h0) Wd + p wb on; grid rows past
+    Hd and rows past the piece's W read as zeros."""
+    pieces = port.box_pieces(grid.Wd, hb, rows)
+    wb = -(-grid.Wd // pieces)
     hpb = -(-grid.Hd // hb)
-    n, h0 = divmod(b, hpb)
-    h0 *= hb
-    first = (n * grid.Hd + h0) * grid.Wd
-    return range(first, (n * grid.Hd + min(grid.Hd, h0 + hb)) * grid.Wd)
+    n, rem = divmod(b, hpb * pieces)
+    h0, w0 = rem // pieces * hb, rem % pieces * wb
+    return [(n * grid.Hd + h) * grid.Wd + w
+            for h in range(h0, min(grid.Hd, h0 + hb))
+            for w in range(w0, min(grid.Wd, w0 + wb))]
 
 
-@pytest.mark.parametrize("name", sorted(_VIEWS))
-def test_box_split_covers_every_row_once(name):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", sorted(_VIEWS) + sorted(_PLAN_VIEWS))
+def test_box_split_covers_every_row_once(name, dtype):
+    """The split of the boxes holds every row of K once, each box within
+    its rows, a multiple of the product's depth: wgmma's 16 (bf16) or
+    mma.sync's 8 (float32, whose boxes hold at most 56 rows)."""
     _, x = _view(name)
     g = port.row_grid(tuple(x.shape), x.stride())
     K = g.Wd * g.Hd * g.Nd
-    hb, rows = port.box_rows(g.Wd)
-    assert rows % 16 == 0 and g.Wd * hb <= rows <= 256
-    nboxes = g.Nd * math.ceil(g.Hd / hb)
+    hb, rows = port.box_rows(g.Wd, dtype)
+    pieces = port.box_pieces(g.Wd, hb, rows)
+    depth, most = (8, 56) if dtype == torch.float32 else (16, 256)
+    assert rows % depth == 0 and rows <= most
+    assert (pieces == 1 and g.Wd * hb <= rows) or (
+        hb == 1 and -(-g.Wd // pieces) <= rows < g.Wd)
+    nboxes = g.Nd * math.ceil(g.Hd / hb) * pieces
     for tiles, sms in ((1, 132), (8, 132), (3, 7), (200, 132)):
         split, nsplit = port.split_boxes(nboxes, tiles, sms)
         assert (nsplit - 1) * split < nboxes <= nsplit * split
         seen = []
         for sp in range(nsplit):
             for b in range(sp * split, min(nboxes, (sp + 1) * split)):
-                krows = _box_k_rows(g, hb, b)
-                assert len(krows) <= g.Wd * hb
+                krows = _box_k_rows(g, hb, rows, b)
+                assert len(krows) <= rows
                 seen.extend(krows)
         assert sorted(seen) == list(range(K)), (tiles, sms)
 
@@ -194,13 +220,33 @@ def test_box_rows_are_whole_wgmma_steps(Wd):
         assert rows == Wd * hb and 64 <= rows <= 128
 
 
+@pytest.mark.parametrize("Wd", [1, 5, 7, 14, 15, 28, 41, 56, 57, 150, 256])
+def test_float32_box_rows_are_whole_mma_steps(Wd):
+    """float32 boxes: whole m16n8k8 steps of 8 rows, at most 56 rows (three
+    stages of x's 64 and dy's 256 fp32 channels fill shared memory); the
+    ResNet-50 widths need no padding; a grid row wider than 56 is read in
+    pieces of at most 56 rows."""
+    hb, rows = port.box_rows(Wd, torch.float32)
+    pieces = port.box_pieces(Wd, hb, rows)
+    assert rows % 8 == 0 and rows <= 56
+    if Wd <= 56:
+        assert pieces == 1 and Wd * hb <= rows
+    else:
+        assert hb == 1 and pieces == -(-Wd // 56)
+        assert -(-Wd // pieces) <= rows < -(-Wd // pieces) + 8
+    if Wd in (1, 7, 14, 28, 56):
+        assert rows == Wd * hb == 56
+
+
 def test_box_rows_refuse_rows_wider_than_a_box():
     with pytest.raises(ValueError, match="at most 256"):
         port.box_rows(257)
 
 
-# Views the 2-byte kernels cannot read in place: name -> (shape, strides,
-# Cout). int16 stands for the 2-byte types: its values address exactly.
+# Views the kernels cannot read in place: name -> (shape, strides, Cout).
+# int16 stands for the 2-byte types and int32 for float32: their values
+# address exactly. 12 channels are whole 16-byte rows in float32, so that
+# view is read in place there.
 _COPIED = {
     "cin3_cout12": ((4, 5, 6, 3), (1, 1), 12),
     "cin12_stride2": ((2, 6, 8, 12), (2, 2), 20),
@@ -209,22 +255,25 @@ _COPIED = {
 }
 
 
-@pytest.mark.parametrize("name", sorted(_COPIED))
-def test_copy_plans_address_exactly_the_elements_of_the_view(name):
+@pytest.mark.parametrize("name,dtype", [
+    (name, dtype) for name in sorted(_COPIED)
+    for dtype in (torch.int16, torch.int32)
+    if (name, dtype) != ("cin12_stride2", torch.int32)])
+def test_copy_plans_address_exactly_the_elements_of_the_view(name, dtype):
     shape, strides, cout = _COPIED[name]
-    flat = torch.arange(8 + math.prod(shape), dtype=torch.int16)
+    vec = 16 // dtype.itemsize
+    flat = torch.arange(8 + math.prod(shape), dtype=dtype)
     x = flat[8:8 + math.prod(shape)].view(shape)[:, ::strides[0],
                                                  ::strides[1], :]
     C = x.shape[-1]
     rows = x.reshape(-1, C)
-    dy = torch.arange(rows.shape[0] * cout, dtype=torch.int16).reshape(
-        -1, cout)
+    dy = torch.arange(rows.shape[0] * cout, dtype=dtype).reshape(-1, cout)
     xk, dyk = port.dw_operands(x, dy)
     assert xk is not x and xk.is_contiguous()
     # The copies: every row of the view once, zero channels to a whole
     # 16-byte row, read by the kernel in place (one grid row of K rows).
-    assert xk.shape[-1] % 8 == 0 and dyk.shape[1] % 8 == 0
-    assert xk.shape[-1] - C < 8 and dyk.shape[1] - cout < 8
+    assert xk.shape[-1] % vec == 0 and dyk.shape[1] % vec == 0
+    assert xk.shape[-1] - C < vec and dyk.shape[1] - cout < vec
     g = port.row_grid(tuple(xk.shape), xk.stride())
     assert g.Wd <= 256 and g.Wd * g.Hd * g.Nd == rows.shape[0]
     n, h, w = torch.meshgrid(torch.arange(g.Nd), torch.arange(g.Hd),
@@ -235,12 +284,39 @@ def test_copy_plans_address_exactly_the_elements_of_the_view(name):
     assert torch.equal(dyk[:, :cout], dy) and not dyk[:, cout:].any()
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("name", ["contiguous_nhwc", "stride2_even_h",
                                   "stride2_odd_h", "wide_rows_stride2_h"])
-def test_views_the_kernel_reads_in_place_are_not_copied(name):
+def test_views_the_kernel_reads_in_place_are_not_copied(name, dtype):
+    """Views within 256 grid rows (W = 150 in ``wide_rows_stride2_h``) are
+    read where they lie, in bf16 and in float32."""
     shape, strides = _VIEWS[name]
-    x = torch.zeros(shape, dtype=torch.bfloat16)
+    x = torch.zeros(shape, dtype=dtype)
     x = x[:, ::strides[0], ::strides[1], :]
-    dy = torch.zeros(x.shape[:3].numel(), 64, dtype=torch.bfloat16)
+    dy = torch.zeros(x.shape[:3].numel(), 64, dtype=dtype)
     xk, dyk = port.dw_operands(x, dy)
     assert xk is x and dyk is dy
+
+
+@pytest.mark.parametrize("name,K,ci,co,bound,by,fma", [
+    # Stage 1: 513.9 MB at 3.35 TB/s; 39.45 GFLOP of TF32 would take 0.0797.
+    ("resnet50_stage1", 401408, 64, 256, 0.1534, "bytes", 0.1963),
+    # The shortcut: 78.9 GFLOP of TF32 at 495 TFLOP/s; 308.8 MB 0.0922.
+    ("resnet50_shortcut_s2", 100352, 256, 512, 0.1594, "operations",
+     0.3926)])
+def test_chip_smoke_bounds_the_float32_filter_gradient_in_3xtf32(
+        name, K, ci, co, bound, by, fma):
+    """chip_smoke.py holds the float32 filter gradient (3xTF32) to the
+    larger of its bytes over 3.35 TB/s and three TF32 products at 495
+    TFLOP/s, with its bound at the FMA peak beside it; bf16 has no second
+    bound."""
+    from test_torch_attention import _chip_smoke
+
+    smoke = _chip_smoke()
+    (ms, got_by, flops, moved), fma_ms = smoke._dw_bounds(K, ci, co,
+                                                          "float32")
+    assert round(ms, 4) == bound and got_by == by
+    assert flops == 3 * 2 * K * ci * co
+    assert moved == 4 * K * (ci + co) + 4 * ci * co
+    assert round(fma_ms, 4) == fma
+    assert smoke._dw_bounds(K, ci, co, "bfloat16")[1] is None

@@ -557,3 +557,85 @@ def test_kernel_matches_plain_version_on_the_card(cuda_device, dtype, shape,
     assert torch.equal(xg.grad, dx)
     assert (wg.grad.float() - dw.float()).abs().max().item() <= (
         TOL[dtype]) * dw.float().abs().max().item()
+
+
+def _device_kernel_names(run):
+    """The names of the device kernels one ``run()`` launched, from a
+    chip_smoke.device_profile session."""
+    smoke = _chip_smoke()
+    with smoke.device_profile() as prof:
+        run()
+    return {name for name, _, _ in smoke.device_events(prof)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,cout,strides", [
+    # ResNet-50's stage 1 and its stride-2 shortcut view (read in place).
+    ((128, 56, 56, 64), 256, (1, 1)),
+    ((128, 56, 56, 256), 512, (2, 2)),
+    # A ragged K with ragged channel tiles (72 -> 40); an odd-H stride-2
+    # view; a 300-wide stride-2 view (copied); grid rows of 150, read in
+    # three pieces each.
+    ((5, 37, 41, 72), 40, (1, 1)),
+    ((4, 37, 30, 64), 128, (2, 2)),
+    ((2, 16, 600, 64), 128, (2, 2)),
+    ((2, 8, 150, 64), 96, (2, 1))])
+def test_float32_filter_gradient_runs_the_3xtf32_kernel(cuda_device, shape,
+                                                        cout, strides):
+    """The float32 dw_1x1 launches dw_1x1_3xtf32_kernel (launch counter and
+    the profile's kernel names), holds the plain version at 1e-4, and two
+    calls on the same inputs are equal bit for bit; at stage 1 its error
+    against float64 is within chip_smoke.py's F64_ERR_RATIO of the float32
+    plain version's."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn(*shape, generator=gen, device=cuda_device)
+    xs = x[:, ::strides[0], ::strides[1], :]
+    K = xs.shape[:3].numel()
+    dy = torch.randn(K, cout, generator=gen, device=cuda_device)
+    before = _kernels.DW_1X1.launches
+    got = []
+    names = _device_kernel_names(lambda: got.append(conv.dw_1x1(xs, dy)))
+    again = conv.dw_1x1(xs, dy)
+    assert _kernels.DW_1X1.launches == before + 2
+    assert any("dw_1x1_3xtf32_kernel" in n for n in names), names
+    assert not any("dw_1x1_kernel" in n for n in names), names
+    want = conv.dw_1x1_plain(xs, dy)
+    _hold([(got[0], want)], torch.float32)
+    assert torch.equal(got[0], again)
+    if shape[0] == 128 and strides == (1, 1):
+        _chip_smoke()._dw_f64_check("stage1", xs.reshape(K, -1), dy, got[0],
+                                    want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,BH,Sq,Sk,causal,q_offset,k_offset", [
+    # Causal and ragged: 200 rows over 300 keys, rows 0..39 seeing none.
+    (320, 6, 200, 300, True, 0, 40),
+    # A query offset; two passes of 512 columns; more heads than a grid
+    # dimension.
+    (512, 6, 264, 200, True, 64, 0),
+    (1024, 4, 128, 128, True, 0, 0),
+    (320, 65600, 24, 24, True, 0, 0),
+    # No key: O = 0 and lse = LSE_MASKED for every row.
+    (512, 4, 64, 0, False, 0, 0),
+    # The timed shape, where the error against float64 is held too.
+    (512, 32, 512, 512, False, 0, 0)])
+def test_float32_wide_forward_runs_the_3xtf32_kernel(
+        cuda_device, D, BH, Sq, Sk, causal, q_offset, k_offset):
+    """The float32 wide-head forward launches flash_fwd_wide_3xtf32_kernel
+    (launch counter and the profile's kernel names) and holds the plain
+    version at 1e-4 (lse 1e-3, the same rows masked); at B*H = 32, S = 512,
+    D = 512 its error against float64 is within chip_smoke.py's
+    F64_ERR_RATIO of the float32 plain version's."""
+    smoke = _chip_smoke()
+    q, k, v, _, _ = _attention_operands(cuda_device, 13, BH, Sq, Sk, D,
+                                        torch.float32)
+    ran = smoke._attention_kernels_ms(
+        lambda: _hold_forward(port.flash_fwd, _kernels.FLASH_FWD_WIDE, q, k,
+                              v, causal, q_offset, k_offset))
+    assert set(ran) == {"flash_fwd_wide_3xtf32_kernel"}
+    if BH == 32:
+        got = port.flash_fwd(q, k, v, causal, q_offset, k_offset)
+        want = port.flash_fwd_plain(q, k, v, causal, q_offset, k_offset)
+        smoke._f64_check("wide_d512", q, k, v, None, got, want, causal,
+                         q_offset, k_offset)

@@ -92,70 +92,75 @@ def test_wide_operand_check_takes_chunk_multiples_above_256():
 def test_build_report_counts_wide_instances_and_spills():
     """chip_smoke.py's build checks of the wide-head instances, on ptxas
     lines shaped like nvcc's (mangled names as the card's build prints
-    them): the 1 that stays SIMT (the float32 forward) with its registers
-    and a spill named; the 6 bf16 and float16 forward, dQ and dK/dV
-    instances and the 2 float32 dQ and dK/dV on the tensor cores
-    (flash_*_wide_3xtf32_kernel, not templated) in the Hopper report, not
-    in the SIMT one."""
+    them): the 6 bf16 and float16 forward, dQ and dK/dV instances and the 3
+    float32 ones on the tensor cores (flash_*_wide_3xtf32_kernel, not
+    templated), with the float32 filter gradient (dw_1x1_3xtf32_kernel),
+    are all in the Hopper report; none stays SIMT, and a spill in the
+    float32 forward is named."""
     from test_torch_attention import _chip_smoke
 
     smoke = _chip_smoke()
     prefix = "_ZN56_GLOBAL__N__0aa40730_23_flash_attention_wide_cu_a3104e78"
     prefix3 = "_ZN58_GLOBAL__N__1bb51841_25_flash_attention_3xtf32_cu_b4215f89"
+    prefix_dw = "_ZN46_GLOBAL__N__58d058b5_13_conv1x1_dw_cu_fb57b3b6"
     types = {"f": "f32", "6__half": "f16", "13__nv_bfloat16": "bf16"}
-    lines = []
-    simt, hopper = [], []
+    params3 = {"flash_fwd_wide": "S0_S0_PfS1_iiiifiii",
+               "flash_dq_wide": "S0_S0_S0_PfPKfS3_S3_iiiifiii",
+               "flash_dkv_wide": "S0_S0_S0_PfS1_P6float4PKfS5_S5_iiiifiii"}
+    hopper, symbols = [], {}
     for kern in ("flash_fwd_wide", "flash_dq_wide", "flash_dkv_wide"):
         for mangled, t in types.items():
             if t != "f32":
                 name = kern + "_kernel"
                 hopper.append(f"{name}<{t}>")
-                symbol = f"{prefix}{len(name)}{name}I{mangled}EEvPKT_"
-            elif kern == "flash_fwd_wide":
-                name = kern + "_f32_kernel"
-                simt.append(f"{name}<{t}>")
-                symbol = f"{prefix}{len(name)}{name}I{mangled}EEvPKT_"
+                symbols[hopper[-1]] = f"{prefix}{len(name)}{name}I{mangled}EEvPKT_"
             else:
                 name = kern + "_3xtf32_kernel"
                 hopper.append(name)
-                symbol = (f"{prefix3}{len(name)}{name}E14CUtensorMap_stS0_"
-                          "S0_S0_PfPKfS3_S3_iiiifiii")
+                symbols[name] = (f"{prefix3}{len(name)}{name}E14CUtensorMap_st"
+                                 + params3[kern])
+    hopper.append("dw_1x1_3xtf32_kernel")
+    symbols["dw_1x1_3xtf32_kernel"] = (
+        f"{prefix_dw}20dw_1x1_3xtf32_kernelE14CUtensorMap_stS0_Pfiiiiiiiiiiii")
+
+    def log(spilling=None):
+        lines = []
+        for inst, symbol in symbols.items():
             spill = ("8 bytes spill stores, 8 bytes spill loads"
-                     if name == "flash_fwd_wide_f32_kernel"
+                     if inst == spilling
                      else "0 bytes spill stores, 0 bytes spill loads")
-            lines += [
-                f"ptxas info    : Compiling entry function "
-                f"'{symbol}' for 'sm_90a'",
-                f"    0 bytes stack frame, {spill}",
-                "ptxas info    : Used {} registers, used 1 barriers".format(
-                    128 if t == "f32" and name.endswith("_f32_kernel")
-                    else 168)]
-    log = "\n".join(lines)
-    regs, faults = smoke.wide_build_report(log)
-    assert sorted(regs) == sorted(simt) == sorted(smoke.WIDE_SIMT_INSTANCES)
-    assert len(simt) == 1 and set(regs.values()) == {128}
-    assert len(faults) == 1 and faults[0].startswith(
-        "flash_fwd_wide_f32_kernel<f32>")
-    hopper_regs, hopper_faults = smoke.hopper_build_report(log)
-    assert sorted(hopper_regs) == sorted(hopper) and len(hopper) == 8
-    assert {"flash_dq_wide_3xtf32_kernel",
-            "flash_dkv_wide_3xtf32_kernel"} <= set(smoke.HOPPER_INSTANCES)
+            lines += [f"ptxas info    : Compiling entry function "
+                      f"'{symbol}' for 'sm_90a'",
+                      f"    0 bytes stack frame, {spill}",
+                      "ptxas info    : Used 168 registers, used 1 barriers"]
+        return "\n".join(lines)
+
+    hopper_regs, hopper_faults = smoke.hopper_build_report(log())
+    assert sorted(hopper_regs) == sorted(hopper) and len(hopper) == 10
+    assert {"flash_fwd_wide_3xtf32_kernel", "flash_dq_wide_3xtf32_kernel",
+            "flash_dkv_wide_3xtf32_kernel",
+            "dw_1x1_3xtf32_kernel"} <= set(smoke.HOPPER_INSTANCES)
     assert set(hopper_regs.values()) == {168} and hopper_faults == []
+    assert not hasattr(smoke, "WIDE_SIMT_INSTANCES")
+    _, faults = smoke.hopper_build_report(log("flash_fwd_wide_3xtf32_kernel"))
+    assert len(faults) == 1 and faults[0].startswith(
+        "flash_fwd_wide_3xtf32_kernel:")
 
 
 @pytest.mark.parametrize("D", [288, 512, 1024])
 def test_chip_smoke_bounds_the_wide_float32_backward_in_3xtf32(D):
-    """chip_smoke.py holds the float32 wide-head dQ and dK/dV (3xTF32, one
-    instance at every D above 256) to three TF32 products at 495 TFLOP/s
-    with the FMA bound beside it, and the wide forward (SIMT) to the FMA
-    peak: at B*H = 32, S = 512, D = 512 dQ 0.1562 ms and dK/dV 0.2082 ms,
-    both bound by operations."""
+    """chip_smoke.py holds the float32 wide-head forward, dQ and dK/dV
+    (3xTF32, one instance each at every D above 256) to three TF32 products
+    at 495 TFLOP/s with the FMA bound beside it: at B*H = 32, S = 512,
+    D = 512 the forward 0.1041 ms, dQ 0.1562 ms and dK/dV 0.2082 ms, all
+    bound by operations."""
     from test_torch_attention import _chip_smoke
 
     smoke = _chip_smoke()
     BH, S = 32, 512
-    assert not smoke._runs_3xtf32("flash_fwd", D)
-    for name, products, at_512 in (("flash_dq", 3, 0.1562),
+    assert smoke._runs_3xtf32("flash_fwd", D)
+    for name, products, at_512 in (("flash_fwd", 2, 0.1041),
+                                   ("flash_dq", 3, 0.1562),
                                    ("flash_dkv", 4, 0.2082)):
         assert smoke._runs_3xtf32(name, D)
         ms, by, flops, moved = smoke._bounds_3xtf32(name, BH, S, S, D, False,
@@ -163,8 +168,9 @@ def test_chip_smoke_bounds_the_wide_float32_backward_in_3xtf32(D):
         assert by == "operations"
         assert flops == 3 * 2 * products * BH * S * S * D
         assert ms == pytest.approx(flops / smoke.PEAK_TF32 * 1e3)
-        assert moved == (5 if name == "flash_dq" else 6) * BH * S * D * 4 \
-            + 3 * BH * S * 4
+        operands, rows = {"flash_fwd": (4, 1), "flash_dq": (5, 3),
+                          "flash_dkv": (6, 3)}[name]
+        assert moved == operands * BH * S * D * 4 + rows * BH * S * 4
         if D == 512:
             assert round(ms, 4) == at_512
         bounds, fma = smoke._kernel_bounds(name, BH, S, S, D, "float32", False,
@@ -174,17 +180,21 @@ def test_chip_smoke_bounds_the_wide_float32_backward_in_3xtf32(D):
 
 
 def test_kernels_line_has_the_wide_float32_backward_rows():
-    """chip_smoke.py's kernels line gains flash_dq_wide_float32 and
-    flash_dkv_wide_float32, from flash_attention_3xtf32.cu, each on its
-    wrapper's launch counter; every row name is unique."""
+    """chip_smoke.py's kernels line has flash_fwd_wide_float32,
+    flash_dq_wide_float32 and flash_dkv_wide_float32, from
+    flash_attention_3xtf32.cu, and dw_1x1_float32 from conv1x1_dw.cu, each
+    on its wrapper's launch counter; every row name is unique."""
     from horovod_tpu_torch.ops import _kernels
     from test_torch_attention import _chip_smoke
 
     rows = {name: (k, source) for name, k, source in
             _chip_smoke().kernel_rows()}
     assert len(rows) == len(_chip_smoke().kernel_rows())
+    assert rows["flash_fwd_wide_float32"] == (_kernels.FLASH_FWD_WIDE,
+                                              "flash_attention_3xtf32.cu")
     assert rows["flash_dq_wide_float32"] == (_kernels.FLASH_DQ_WIDE,
                                              "flash_attention_3xtf32.cu")
+    assert rows["dw_1x1_float32"] == (_kernels.DW_1X1, "conv1x1_dw.cu")
     assert rows["flash_dkv_wide_float32"] == (_kernels.FLASH_DKV_WIDE,
                                               "flash_attention_3xtf32.cu")
     assert rows["flash_dq_wide"] == (_kernels.FLASH_DQ_WIDE,
