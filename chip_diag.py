@@ -28,17 +28,21 @@ beside the SDPA forward and backward at that shape in the same dtype
 float32 values, the bf16 rows on the same values rounded to bf16); and
 the float32 instances at D = 64 (``flash_fwd_f32``, ``flash_dq_f32``,
 ``flash_dkv_f32`` at S = 512; ``flash_fwd_single_f32``,
-``flash_dqkv_f32`` at S = 128) beside SDPA in float32 (``sdpa_*_f32``,
-``sdpa_*_s128_f32``), and the float32 dQ and dK/dV at D = 32 and 128
+``flash_dqkv_f32`` at S = 128, with the 3xTF32 dQ + dK/dV on the fused
+backward's inputs, ``flash_dq_dkv_s128_f32``) beside SDPA in float32
+(``sdpa_*_f32``, ``sdpa_*_s128_f32``), the fused backward at D = 128
+(``flash_dqkv_d128_f32``, B*H = 1024, S = 128) beside SDPA's float32
+backward there (``sdpa_bwd_s128_d128_f32``), the float32 dQ and dK/dV at
+D = 32 and 128
 (``flash_dq_d32_f32``, ..., B*H = 128, S = 512) beside SDPA's float32
 backward at D = 32 and 128 (``sdpa_bwd_d32_f32``, ``sdpa_bwd_d128_f32``),
 on full float32 values, and the float32 wide dQ and dK/dV at B*H = 2,
 S = 8192, D = 512 (``*_wide_long_f32``) beside SDPA's float32 backward
 there (``sdpa_bwd_d512_long_f32``), with the peak memory of the float32
 wide calls (``PEAK_CALLS``). After the times it prints each float32 row's
-bound at the float32 FMA peak, and for the 3xTF32 kernels (chip_smoke.py's
-``_runs_3xtf32``: all but the single-tile fused backward) also their
-bound at the TF32 peak, the float32 filter gradient's two bounds at both
+bound at the float32 FMA peak and at the TF32 peak (every float32 kernel
+runs in 3xTF32; chip_smoke.py's ``_runs_3xtf32``; a row of two kernels
+the sum of theirs), the float32 filter gradient's two bounds at both
 shapes, then the kernels of SDPA's
 float32 backward at D = 256 and of its float32 forward at D = 256 and
 D = 64 (``SDPA_KERNELS``). Each checkout runs in a process of its own,
@@ -129,9 +133,12 @@ CALLS = ("flash_fwd", "flash_dq", "flash_dkv", "sdpa_fwd", "sdpa_bwd",
          "flash_dkv_d128_f32", "sdpa_bwd_d128_f32", "sdpa_bwd_d32_f32",
          "dw_1x1_stage1_f32", "cublas_stage1_f32", "dw_1x1_shortcut_f32",
          "cublas_shortcut_f32", "flash_dq_wide_long_f32",
-         "flash_dkv_wide_long_f32", "sdpa_bwd_d512_long_f32")
-# The float32 rows' shapes (name: kernel, B*H, S, D) for their bounds at the
-# float32 FMA peak, printed by ab beside the times.
+         "flash_dkv_wide_long_f32", "sdpa_bwd_d512_long_f32",
+         "flash_dq_dkv_s128_f32", "flash_dqkv_d128_f32",
+         "sdpa_bwd_s128_d128_f32")
+# The float32 rows' shapes (name: kernel, or the kernels a row runs one
+# after the other, B*H, S, D) for their bounds, printed by ab beside the
+# times.
 F32_BOUNDS = {
     "flash_fwd_f32": ("flash_fwd", 128, 512, 64),
     "flash_dq_f32": ("flash_dq", 128, 512, 64),
@@ -142,6 +149,8 @@ F32_BOUNDS = {
     "flash_dkv_d128_f32": ("flash_dkv", 128, 512, 128),
     "flash_fwd_single_f32": ("flash_fwd_single", 1024, 128, 64),
     "flash_dqkv_f32": ("flash_dqkv", 1024, 128, 64),
+    "flash_dq_dkv_s128_f32": (("flash_dq", "flash_dkv"), 1024, 128, 64),
+    "flash_dqkv_d128_f32": ("flash_dqkv", 1024, 128, 128),
     "flash_fwd_d256_f32": ("flash_fwd", 128, 512, 256),
     "flash_dq_d256_f32": ("flash_dq", 128, 512, 256),
     "flash_dkv_d256_f32": ("flash_dkv", 128, 512, 256),
@@ -335,12 +344,21 @@ def _worker(tree, label):
         "flash_dq_f32": lambda: A.flash_dq(*b32),
         "flash_dkv_f32": lambda: A.flash_dkv(*b32),
         "flash_fwd_single_f32": lambda: A.flash_fwd_single(*f32_1[:3]),
-        "flash_dqkv_f32": lambda: A.flash_dqkv(*b32_1)})
+        "flash_dqkv_f32": lambda: A.flash_dqkv(*b32_1),
+        "flash_dq_dkv_s128_f32": lambda: (A.flash_dq(*b32_1),
+                                          A.flash_dkv(*b32_1))})
     calls.update(sdpa_calls("f32", [t.view(B, H, S, D) for t in f32[:3]],
                             f32[3].view(B, H, S, D)))
     calls.update(sdpa_calls(
         "s128_f32", [t.view(B1, H, S1, D) for t in f32_1[:3]],
         f32_1[3].view(B1, H, S1, D)))
+    # The fused backward at D = 128 (S = 128) beside SDPA's float32
+    # backward there.
+    f1d, b1d = full_f32(B1 * H, S1, 128)
+    calls["flash_dqkv_d128_f32"] = lambda: A.flash_dqkv(*b1d)
+    calls["sdpa_bwd_s128_d128_f32"] = sdpa_calls(
+        "s128_d128_f32", [t.view(B1, H, S1, 128) for t in f1d[:3]],
+        f1d[3].view(B1, H, S1, 128))["sdpa_bwd_s128_d128_f32"]
     # The float32 dQ and dK/dV at D = 32 and 128, each beside SDPA's
     # float32 backward.
     for Dd in (32, 128):
@@ -418,14 +436,19 @@ def ab(other):
                 for label in ("other", "this"))
         print(f"ab {name} peak_mb: other {o:.1f} MB, this {t:.1f} MB")
     smoke = _smoke()
-    for name, (kernel, BH, S, D) in F32_BOUNDS.items():
-        ms, by, flops, moved = smoke._bounds(kernel, BH, S, S, D, "float32",
-                                             False, 0, 0)
+    def summed(bounds):  # kernels run one after the other
+        return (sum(b[0] for b in bounds), "/".join(b[1] for b in bounds),
+                sum(b[2] for b in bounds), sum(b[3] for b in bounds))
+
+    for name, (kernels, BH, S, D) in F32_BOUNDS.items():
+        kernels = kernels if isinstance(kernels, tuple) else (kernels,)
+        ms, by, flops, moved = summed([smoke._bounds(
+            k, BH, S, S, D, "float32", False, 0, 0) for k in kernels])
         line = (f"bound {name}: {ms:.4f} ms ({by}: {flops / 1e9:.2f} GFLOP, "
                 f"{moved / 1e6:.1f} MB) at the FMA peak")
-        if smoke._runs_3xtf32(kernel, D):
-            ms3, by3, flops3, _ = smoke._bounds_3xtf32(kernel, BH, S, S, D,
-                                                       False, 0, 0)
+        if all(smoke._runs_3xtf32(k, D) for k in kernels):
+            ms3, by3, flops3, _ = summed([smoke._bounds_3xtf32(
+                k, BH, S, S, D, False, 0, 0) for k in kernels])
             line += (f"; {ms3:.4f} ms ({by3}: {flops3 / 1e9:.2f} GFLOP of "
                      "TF32) in 3xTF32, the bound the kernel is held to")
         print(line)

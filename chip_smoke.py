@@ -10,14 +10,14 @@ and prints no result line); each prints its seconds:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build of the hand-written CUDA kernels from ``horovod_tpu_torch/ops/csrc``
-   (one ``nvcc`` per source, all started together); none of the 73 Hopper
+   (one ``nvcc`` per source, all started together); none of the 76 Hopper
    instances (the bf16 and float16 forward, dQ, dK/dV, single-tile
    forward and fused backward at D=16, 32, 64, 128, the forward, dQ and
    dK/dV at D=256, the wide-head forward, dQ and dK/dV, and the bf16 and
    float16 filter gradient on wgmma; in 3xTF32 on mma.sync the float32
-   forward, dQ and dK/dV at D=32 to 256, the single-tile forward at
-   D=32 to 128, the wide-head forward, dQ and dK/dV and the filter
-   gradient) may spill or have its wgmma serialized;
+   forward, dQ and dK/dV at D=32 to 256, the single-tile forward and
+   fused backward at D=32 to 128, the wide-head forward, dQ and dK/dV and
+   the filter gradient) may spill or have its wgmma serialized;
 3. kernel phase: every kernel against its plain PyTorch version on the same
    inputs, with times beside the bound and the library yardstick:
    - the multi-tile forward, dQ and dK/dV flash-attention kernels
@@ -33,7 +33,11 @@ and prints no result line); each prints its seconds:
      rows and a nonzero lse cotangent; float32 causal with an offset at
      D=64 and D=128; bf16 at D=128; causal bf16 at D=16 and D=32; a causal
      ragged 77 x 100 case with a key offset at D=64 and at D=48, padded to
-     the D=64 instance; B*H = 65,600 at S=16 in float32 and bf16);
+     the D=64 instance; B*H = 65,600 at S=16 in float32 and bf16; the
+     float32 fused backward (3xTF32) causal and ragged with an lse
+     cotangent at D=64 and D=128, each output's error against float64,
+     over ``F64_DRAWS`` draws of the inputs, held to ``F64_ERR_RATIO``
+     times the float32 plain version's);
    - the multi-tile kernels at head dim 256: a Gemma-like layer (B*H =
      128, S=512) in bf16 (timed beside SDPA), float16 and float32; S=128
      with B*H = 1024 (the multi-tile route: no single-tile kernel has a
@@ -45,7 +49,13 @@ and prints no result line); each prints its seconds:
      float32 plain version's and SDPA's (at most ``F64_ERR_RATIO`` times the
      plain version's); the same for the 3xTF32 forward, dQ and dK/dV at
      BERT-Large's S=512 shape (B*H = 128, D=64) and the single-tile forward
-     at its S=128 shape (B*H = 1024), in full float32;
+     at its S=128 shape (B*H = 1024), in full float32, where the fused
+     backward, timed beside SDPA's float32 backward, also has its float64
+     check and flash_dq + flash_dkv are timed on the same inputs;
+   - the calls with nothing to compute: no key (Sk=0) and no query (Sq=0)
+     on each route (single-tile, multi-tile, wide) in bf16, float16 and
+     float32, each output equal to its plain version's (O = 0 and lse =
+     ``LSE_MASKED`` with no key, dQ = 0; dK = dV = 0 with no query);
    - the 1x1-conv filter gradient (ResNet-50 stage-1 bottleneck 64 -> 256
      in bf16 and float16; the stride-2 projection shortcut 256 -> 512,
      timed beside its own cuBLAS call; bf16 with a ragged K and ragged
@@ -61,8 +71,9 @@ and prints no result line); each prints its seconds:
    launch counters show the D=256 forward, dQ and dK/dV ran once per layer
    and no other kernel did; the same for float32 layers at the Gemma-like
    shape and at BERT-Large's S=512 shape (the 3xTF32 forward, dQ and dK/dV)
-   and at its S=128 shape (the 3xTF32 single-tile forward), each with a
-   profile that names the 3xTF32 kernels it ran; then the ``wide`` phase:
+   and at its S=128 shape (the 3xTF32 single-tile forward and fused
+   backward), each with a profile that names the 3xTF32 kernels it ran;
+   then the ``wide`` phase:
    the three wide-head kernels (head dims above 256) against their plain
    versions in bf16, float16 and float32 at D=512 (B*H=32, S=512; bf16
    timed beside its bound and the first SDPA backend that takes D=512,
@@ -140,18 +151,17 @@ import sys
 import time
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 and float16 tensor cores,
-# float32 on the FMA units (the float32 kernel other than the 3xTF32 ones,
-# the single-tile fused backward, runs there), memory rate.
+# float32 on the FMA units (the bound printed beside the 3xTF32 kernels'
+# own), memory rate.
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
-# The TF32 tensor-core peak. The float32 forwards, dQ and dK/dV and the
-# float32 filter gradient do every product as three TF32 products
-# (3xTF32): their bound is three times the products' operations at this
-# rate (``_bounds_3xtf32``, ``_dw_bounds``).
+# The TF32 tensor-core peak. Every float32 kernel does every product as
+# three TF32 products (3xTF32): its bound is three times the products'
+# operations at this rate (``_bounds_3xtf32``, ``_dw_bounds``).
 PEAK_TF32 = 495e12
 # The float32 kernels that run in 3xTF32: (kernel, head dim of the instance).
 TF32X3 = {(k, d) for k in ("flash_fwd", "flash_dq", "flash_dkv")
           for d in (32, 64, 128, 256)} | {
-    ("flash_fwd_single", d) for d in (32, 64, 128)}
+    (k, d) for k in ("flash_fwd_single", "flash_dqkv") for d in (32, 64, 128)}
 # The wide-head kernels (head dims above 256) whose float32 runs in 3xTF32,
 # one instance at every D: all three.
 TF32X3_WIDE = ("flash_fwd", "flash_dq", "flash_dkv")
@@ -159,6 +169,11 @@ TF32X3_WIDE = ("flash_fwd", "flash_dq", "flash_dkv")
 # on full-float32 inputs, may be at most this many times the float32 plain
 # version's (one TF32 product, 10 mantissa bits, is about 500 times it).
 F64_ERR_RATIO = 4.0
+# The ratio is one of two largest errors, and on a few small heads the plain
+# version's swings with the draw: a case that checks nothing else draws its
+# inputs this many times (the first as one draw would be) and is held over
+# the heads of all of them at once.
+F64_DRAWS = 3
 PEAK_BYTES_PER_S = 3.35e12
 ITEM_BYTES = {"bfloat16": 2, "float16": 2, "float32": 4}
 
@@ -249,12 +264,13 @@ def time_ms(fn, reps=20, warmup=3, sleep_cycles=SLEEP_CYCLES):
 # The Hopper instances: on wgmma, the bf16 and float16 kernels of both
 # attention routes at head dims 16 to 128, the multi-tile ones also at 256,
 # the wide-head forward, dQ and dK/dV (any D above 256), and the bf16 and
-# float16 1x1-conv filter gradient (the one SIMT float32 kernel, the fused
-# single-tile backward, is named *_f32_kernel); on mma.sync in 3xTF32, the
-# float32 forwards, dQ and dK/dV (*_3xtf32_kernel, templated on the head
-# dim alone; the wide-head forward, dQ and dK/dV, *_wide_3xtf32_kernel, not
-# templated) and the float32 filter gradient (dw_1x1_3xtf32_kernel). nvcc's
-# mangled names carry the element type: 13__nv_bfloat16 or 6__half.
+# float16 1x1-conv filter gradient; on mma.sync in 3xTF32, the float32
+# forwards, dQ, dK/dV and fused single-tile backward (*_3xtf32_kernel,
+# templated on the head dim alone; the wide-head forward, dQ and dK/dV,
+# *_wide_3xtf32_kernel, not templated) and the float32 filter gradient
+# (dw_1x1_3xtf32_kernel). nvcc's mangled names carry the element type:
+# 13__nv_bfloat16 or 6__half. The filter gradient's reduction and the
+# forwards' fill of lse with no key are no Hopper instances.
 HOPPER_TYPES = {"__nv_bfloat16": "bf16", "__half": "f16"}
 MULTI_TILE_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel",
                       "flash_dkv_kernel")
@@ -275,7 +291,7 @@ _HOPPER_NAME = re.compile(
     r"(flash_(?:fwd_single|fwd|dqkv|dq|dkv)_kernel)I\d+(__nv_bfloat16|__half)"
     r"Li(\d+)E|\d(dw_1x1_kernel|flash_(?:fwd|dq|dkv)_wide_kernel)"
     r"I\d+(__nv_bfloat16|__half)E"
-    r"|\d(flash_(?:fwd_single|fwd|dq|dkv)_3xtf32_kernel)ILi(\d+)E"
+    r"|\d(flash_(?:fwd_single|fwd|dqkv|dq|dkv)_3xtf32_kernel)ILi(\d+)E"
     r"|\d(flash_(?:fwd|dq|dkv)_wide_3xtf32_kernel|dw_1x1_3xtf32_kernel)E")
 
 
@@ -387,9 +403,8 @@ def _bounds_3xtf32(name, BH, Sq, Sk, D, causal, q_offset, k_offset):
 def _runs_3xtf32(name, D):
     """Whether the float32 kernel ``name`` at head dim ``D`` runs a 3xTF32
     instance (``TF32X3``): the instance's head dim is the next of its
-    route's float32 instances (the fused single-tile backward keeps
-    D = 16); above 256, the wide-head forward, dQ and dK/dV
-    (``TF32X3_WIDE``)."""
+    route's float32 instances; above 256, the wide-head forward, dQ and
+    dK/dV (``TF32X3_WIDE``)."""
     import torch
 
     from horovod_tpu_torch.ops import attention as A
@@ -397,9 +412,8 @@ def _runs_3xtf32(name, D):
     if A.wide_route(D):
         return name in TF32X3_WIDE
     single = name in ("flash_fwd_single", "flash_dqkv")
-    dims = A.SINGLE_TILE_HEAD_DIMS if single else A.KERNEL_HEAD_DIMS
-    if name != "flash_dqkv":
-        dims = A.instance_head_dims(torch.float32, dims)
+    dims = A.instance_head_dims(
+        torch.float32, A.SINGLE_TILE_HEAD_DIMS if single else A.KERNEL_HEAD_DIMS)
     return (name, A.kernel_head_dim(D, dims)) in TF32X3
 
 
@@ -414,14 +428,17 @@ def _kernel_bounds(name, BH, Sq, Sk, D, dname, causal, q_offset, k_offset):
     return bounds, None
 
 
-def _f64_check(case, q, k, v, do, got, plain, causal, q_offset, k_offset):
+def _f64_check(case, q, k, v, do, got, plain, causal, q_offset, k_offset,
+               glse=None):
     """Each float32 output's largest error against a float64 version of the
     function on the same float32 inputs, beside the float32 plain version's
-    and SDPA's (causal: top-left, offsets 0). The forward (``do`` None):
-    ``got`` and ``plain`` are (o, lse), rows that see no key left out (SDPA
-    returns no lse). The backward: (dq, dk, dv) on fp32 lse and delta (lse
-    and delta in float64 for the reference; no lse cotangent). A kernel's
-    error may be at most ``F64_ERR_RATIO`` times the plain version's."""
+    and SDPA's (causal: top-left, so only with both offsets 0; and no lse
+    cotangent). The forward (``do`` None): ``got`` and ``plain`` are
+    (o, lse), rows that see no key left out (SDPA returns no lse). The
+    backward: (dq, dk, dv) on fp32 lse and delta (lse and delta in float64
+    for the reference) and the lse cotangent ``glse`` (None: zero); rows
+    that see no key have P = 0. A kernel's error may be at most
+    ``F64_ERR_RATIO`` times the plain version's."""
     import torch
     import torch.nn.functional as F
 
@@ -434,23 +451,27 @@ def _f64_check(case, q, k, v, do, got, plain, causal, q_offset, k_offset):
     mask = A._visible(Sq, k.shape[1], causal, q_offset, k_offset, q.device)
     if mask is not None:
         s = torch.where(mask, s, -math.inf)
+    seen = torch.isfinite(s.amax(-1))  # rows that see a key
+    p = torch.softmax(torch.where(seen[..., None], s, 0.0), dim=-1)
+    p = torch.where(torch.isfinite(s), p, 0.0)
     g4 = [t.view(1, BH, -1, D).detach().requires_grad_() for t in (q, k, v)]
-    out = F.scaled_dot_product_attention(*g4, is_causal=causal)
+    with_sdpa = not (causal and (q_offset or k_offset)) and glse is None
+    out = (F.scaled_dot_product_attention(*g4, is_causal=causal)
+           if with_sdpa else None)
     if do is None:
-        seen = torch.isfinite(s.amax(-1))  # rows that see a key
-        p = torch.softmax(torch.where(seen[..., None], s, 0.0), dim=-1)
         want = (p @ v64, torch.logsumexp(s, dim=-1))
-        sdpa = (out.detach().view(BH, Sq, D), None)
+        sdpa = (out.detach().view(BH, Sq, D) if with_sdpa else None, None)
         names = ("o", "lse")
     else:
-        seen = None
-        p = torch.softmax(s, dim=-1)
         do64 = do.double()
         delta = ((p @ v64) * do64).sum(-1, keepdim=True)
-        ds = p * (do64 @ v64.transpose(-1, -2) - delta)
+        g = 0.0 if glse is None else glse.double()[..., None]
+        ds = p * (do64 @ v64.transpose(-1, -2) - delta + g)
         want = (scale * ds @ k64, scale * ds.transpose(-1, -2) @ q64,
                 p.transpose(-1, -2) @ do64)
-        sdpa = torch.autograd.grad(out, g4, do.view(1, BH, Sq, D))
+        sdpa = (torch.autograd.grad(out, g4, do.view(1, BH, Sq, D))
+                if with_sdpa else (None,) * 3)
+        seen = None
         names = ("dq", "dk", "dv")
     lines = []
     for i, name in enumerate(names):
@@ -565,9 +586,10 @@ def kernel_phase():
         # timing ("json": timed, with the library yardstick, into the
         # kernels line; "d256": the same as flash_*_d256; "f32": the 3xTF32
         # kernels the same as flash_*_float32 (flash_*_d256_float32 at
-        # D = 256), with the float64 check of the forward and, where they
-        # run in 3xTF32, of dQ and dK/dV; "sdpa": timed beside the library,
-        # printed; "ms": time printed; "": not timed).
+        # D = 256), with the float64 check of the forward and of the
+        # backward (dQ and dK/dV, or the fused backward); "f64": those
+        # float64 checks alone, over F64_DRAWS draws; "sdpa": timed beside the library, printed;
+        # "ms": time printed; "": not timed).
         # A.single_tile_route picks the route: Sq, Sk <=
         # A.SINGLE_TILE_MAX and D <= 128 take the single-tile kernels.
         ("bert_large_bf16", b512, 16, s512, s512, 64, bf16, False, 0, 0,
@@ -658,6 +680,14 @@ def kernel_phase():
          0, False, "f32"),
         ("bert_large_s128_float32_full", b128, 16, s128, s128, 64, f32, False,
          0, 0, False, "f32"),
+        # The fused backward (3xTF32) causal and ragged with a key offset
+        # (rows 0..22 see no key) and an lse cotangent, at D = 64 and
+        # D = 128 ("f64": the float64 checks alone, not timed, on
+        # F64_DRAWS draws of the inputs).
+        ("float32_single_causal_ragged", 2, 4, 77, 100, 64, f32, True, 0, 23,
+         True, "f64"),
+        ("d128_float32_single_causal_ragged", 2, 4, 77, 100, 128, f32, True, 0,
+         23, True, "f64"),
     ]
     gen = torch.Generator(device="cuda").manual_seed(0)
     measured = {}
@@ -671,12 +701,18 @@ def kernel_phase():
             return torch.randn(*shape, generator=gen, device="cuda",
                                dtype=torch.float32).to(dt)
 
-        q, k, v = rnd(BH, Sq, D), rnd(BH, Sk, D), rnd(BH, Sk, D)
-        do = rnd(BH, Sq, D)
+        draws = []
+        for _ in range(F64_DRAWS if timing == "f64" else 1):
+            q, k, v = rnd(BH, Sq, D), rnd(BH, Sk, D), rnd(BH, Sk, D)
+            do = rnd(BH, Sq, D)
+            glse = (rnd(BH, Sq, dt=torch.float32) if with_glse
+                    else torch.zeros(BH, Sq, device="cuda"))
+            draws.append((q, k, v, do, glse))
+        if len(draws) > 1:
+            q, k, v, do, glse = (torch.cat(t) for t in zip(*draws))
+            BH = q.shape[0]
         o_ref, lse_ref = A.flash_fwd_plain(q, k, v, causal, qo, ko)
         delta = (do.float() * o_ref.float()).sum(-1)
-        glse = (rnd(BH, Sq, dt=torch.float32) if with_glse
-                else torch.zeros(BH, Sq, device="cuda"))
         bwd_args = (q, k, v, do, lse_ref, delta, glse, causal, qo, ko)
         fwd_args = (q, k, v, causal, qo, ko)
         if A.single_tile_route(Sq, Sk, D):
@@ -744,17 +780,19 @@ def kernel_phase():
                          f"({bounds[1]}; {bounds[2] / 1e9:.2f} GFLOP, "
                          f"{bounds[3] / 1e6:.1f} MB)")
             print(line)
-        if timing == "f32":
+        if timing in ("f32", "f64"):
             fwd_name = next(n for n in runs if n.startswith("flash_fwd"))
             kern, plain = runs[fwd_name]
             _f64_check(f"{case} {fwd_name}", q, k, v, None, kern(), plain(),
                        causal, qo, ko)
-            if "flash_dq" in runs and _runs_3xtf32("flash_dq", D):
-                got = (A.flash_dq(*bwd_args), *A.flash_dkv(*bwd_args))
-                plain = (A.flash_dq_plain(*bwd_args),
-                         *A.flash_dkv_plain(*bwd_args))
-                _f64_check(case, q, k, v, do, got, plain, causal, qo, ko)
-        if timing == "json" and "flash_dqkv" in runs:
+            bwd_names = [n for n in runs if not n.startswith("flash_fwd")]
+            if all(_runs_3xtf32(n, D) for n in bwd_names):
+                got = tuple(t for n in bwd_names for t in runs[n][0]())
+                plain = tuple(t for n in bwd_names for t in runs[n][1]())
+                _f64_check(f"{case} {' + '.join(bwd_names)}", q, k, v, do, got,
+                           plain, causal, qo, ko,
+                           glse if with_glse else None)
+        if timing in ("json", "f32") and "flash_dqkv" in runs:
             # The other route on the same inputs: what the single-tile
             # kernels save over the multi-tile ones at this shape.
             fwd_ms = time_ms(lambda: A.flash_fwd(*fwd_args))
@@ -763,6 +801,66 @@ def kernel_phase():
             print(f"route {case}: multi-tile flash_fwd {fwd_ms:.4f} ms, "
                   f"flash_dq + flash_dkv {bwd_ms:.4f} ms on the same inputs")
     return measured
+
+
+def empty_phase():
+    """The calls with nothing to compute, on each route (single-tile,
+    multi-tile, wide) in bf16, float16 and float32: no key (Sk = 0) and no
+    query (Sq = 0). Each output of each kernel wrapper must equal its plain
+    version's (O = 0 and lse = ``LSE_MASKED`` with no key, dQ = 0; dK =
+    dV = 0 with no query; the rest empty), in memory that held NaN just
+    before (freed tensors of the outputs' sizes, which the allocator hands
+    out again)."""
+    import torch
+
+    from horovod_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    checked = []
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        for route, D, S in (("single-tile", 64, 40), ("multi-tile", 64, 200),
+                            ("wide", 320, 200)):
+            for Sq, Sk in ((S, 0), (0, S)):
+                BH = 3
+
+                def rnd(n, dt=dtype):
+                    return torch.randn(BH, n, D, generator=gen, device="cuda",
+                                       dtype=torch.float32).to(dt)
+
+                q, do, k, v = rnd(Sq), rnd(Sq), rnd(Sk), rnd(Sk)
+                lse = torch.full((BH, Sq), A.LSE_MASKED, device="cuda")
+                delta = torch.randn(BH, Sq, generator=gen, device="cuda")
+                glse = torch.randn(BH, Sq, generator=gen, device="cuda")
+                fwd, bwd = (q, k, v), (q, k, v, do, lse, delta, glse)
+                if route == "single-tile":
+                    runs = (("flash_fwd_single", A.flash_fwd_single,
+                             A.flash_fwd_single_plain, fwd),
+                            ("flash_dqkv", A.flash_dqkv, A.flash_dqkv_plain,
+                             bwd))
+                else:
+                    runs = (("flash_fwd", A.flash_fwd, A.flash_fwd_plain, fwd),
+                            ("flash_dq", A.flash_dq, A.flash_dq_plain, bwd),
+                            ("flash_dkv", A.flash_dkv, A.flash_dkv_plain,
+                             bwd))
+                for name, kern, plain, args in runs:
+                    want = plain(*args)
+                    want = want if isinstance(want, tuple) else (want,)
+                    for t in [torch.full_like(w, math.nan) for w in want]:
+                        del t
+                    got = kern(*args)
+                    got = got if isinstance(got, tuple) else (got,)
+                    torch.cuda.synchronize()
+                    if not all(g.shape == w.shape and g.dtype == w.dtype
+                               and torch.equal(g, w)
+                               for g, w in zip(got, want)):
+                        raise AssertionError(
+                            f"empty {route} {name} {dtype} Sq={Sq} Sk={Sk}: "
+                            f"{[tuple(g.shape) for g in got]} differ from the "
+                            "plain version's")
+                    checked.append(name)
+    print(f"empty: {len(checked)} calls with no key (Sk = 0) or no query "
+          "(Sq = 0), each route in bf16, float16 and float32, equal to their "
+          "plain versions")
 
 
 def dw_kernel_phase():
@@ -1116,12 +1214,13 @@ def conv_phase(card):
 
 
 _CATEGORIES = (  # first match wins; by lower-cased kernel name
-    ("flash_fwd", ("flash_fwd_kernel", "flash_fwd_3xtf32_kernel")),
+    ("flash_fwd", ("flash_fwd_kernel", "flash_fwd_3xtf32_kernel",
+                   "flash_fwd_no_key_kernel")),
     ("flash_dq", ("flash_dq_kernel", "flash_dq_3xtf32_kernel")),
     ("flash_dkv", ("flash_dkv_kernel", "flash_dkv_3xtf32_kernel")),
     ("flash_fwd_single", ("flash_fwd_single_kernel",
                           "flash_fwd_single_3xtf32_kernel")),
-    ("flash_dqkv", ("flash_dqkv_kernel", "flash_dqkv_f32_kernel")),
+    ("flash_dqkv", ("flash_dqkv_kernel", "flash_dqkv_3xtf32_kernel")),
     ("flash_fwd_wide", ("flash_fwd_wide_kernel",
                         "flash_fwd_wide_3xtf32_kernel")),
     ("flash_dq_wide", ("flash_dq_wide_kernel", "flash_dq_wide_3xtf32_kernel")),
@@ -1205,7 +1304,7 @@ F32_PATHS = (
     ((8, 16, 512, 64), ("flash_fwd", "flash_dq", "flash_dkv"), "_float32",
      ("flash_fwd", "flash_dq", "flash_dkv")),
     ((64, 16, 128, 64), ("flash_fwd_single", "flash_dqkv"), "_float32",
-     ("flash_fwd_single",)),
+     ("flash_fwd_single", "flash_dqkv")),
 )
 
 
@@ -1334,17 +1433,15 @@ def wide_heads_phase():
             for t in (q, k, v):
                 t.grad = None
         kernel_ms = _attention_kernels_ms(run)
-        # Every kernel of the route that has a 3xTF32 instance (all but the
-        # fused single-tile backward) must have run it.
-        ran = {n.split("<")[0] for n in kernel_ms if "dqkv" not in n}
-        if ran != {f"{k}_3xtf32_kernel" for k in kernels
-                   if k != "flash_dqkv"}:
+        # Every kernel of the route must have run its 3xTF32 instance.
+        ran = {n.split("<")[0] for n in kernel_ms}
+        if ran != {f"{k}_3xtf32_kernel" for k in kernels}:
             raise AssertionError(f"float32 layers {(B, H, S, D)}: profiled "
                                  f"kernels {sorted(kernel_ms)}; expected the "
                                  f"3xTF32 instances of {kernels}")
         print(f"wide heads: {F32_LAYERS} causal float32 attention layers at "
               f"{(B, H, S, D)} (B, H, S, D), forward and backward (the 3xTF32 "
-              f"{', '.join(k for k in kernels if k != 'flash_dqkv')}): "
+              f"{', '.join(kernels)}): "
               f"launches {launches}; profiled device ms of the flash kernels: "
               + ", ".join(f"{n} {ms:.4f}" for n, ms in sorted(
                   kernel_ms.items(), key=lambda kv: -kv[1])))
@@ -2321,9 +2418,9 @@ def kernel_rows():
     """The kernels line's rows, (name, Kernel, source file under csrc/):
     each kernel, then the D = 256 instances of the multi-tile three, then
     the 3xTF32 float32 kernels (their own source): the forward, dQ and
-    dK/dV at D = 256 and at D = 64, the single-tile forward at D = 64, the
-    wide-head forward, dQ and dK/dV at D = 512, and the filter gradient at
-    ResNet-50's stage 1."""
+    dK/dV at D = 256 and at D = 64, the single-tile forward and fused
+    backward at D = 64, the wide-head forward, dQ and dK/dV at D = 512, and
+    the filter gradient at ResNet-50's stage 1."""
     from horovod_tpu_torch.ops import _kernels
 
     return [(k.name, k, k.source) for k in _kernels.KERNELS] + [
@@ -2337,6 +2434,7 @@ def kernel_rows():
         ("flash_dq_float32", _kernels.FLASH_DQ),
         ("flash_dkv_float32", _kernels.FLASH_DKV),
         ("flash_fwd_single_float32", _kernels.FLASH_FWD_SINGLE),
+        ("flash_dqkv_float32", _kernels.FLASH_DQKV),
         ("flash_fwd_wide_float32", _kernels.FLASH_FWD_WIDE),
         ("flash_dq_wide_float32", _kernels.FLASH_DQ_WIDE),
         ("flash_dkv_wide_float32", _kernels.FLASH_DKV_WIDE))] + [
@@ -2371,6 +2469,7 @@ def main() -> int:
     print(f"card: {card}")
     _phase("build", build_phase)
     measured = _phase("kernels", kernel_phase)
+    _phase("empty", empty_phase)
     measured.update(_phase("dw_kernels", dw_kernel_phase))
     launches = _phase("wide_heads", wide_heads_phase)
     wide_measured, wide_launches = _phase("wide", wide_phase)

@@ -46,8 +46,8 @@ The kernels take float32, bfloat16 and float16, with instances at head dims
 16, 32, 64 and 128 on both routes and 256 on the multi-tile route
 (:data:`KERNEL_HEAD_DIMS`, :data:`SINGLE_TILE_HEAD_DIMS`), and any multiple
 of :data:`WIDE_CHUNK` above 256 on the wide-head route; the float32
-forwards, dQ and dK/dV (3xTF32 on the tensor cores) start at
-:data:`F32_MIN_HEAD_DIM` (:func:`instance_head_dims`). A head dim between
+kernels (3xTF32 on the tensor cores) start at :data:`F32_MIN_HEAD_DIM`
+(:func:`instance_head_dims`). A head dim between
 those goes to the next one
 (:func:`kernel_head_dim`): q, k, v and dO are zero-padded to it, the scale
 stays ``1/sqrt(D)`` of the true D, and the outputs are sliced back
@@ -78,10 +78,10 @@ _KERNEL_DTYPES = {torch.float32: _kernels.DTYPE_F32,
 # and the single-tile ones.
 KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 SINGLE_TILE_HEAD_DIMS = (16, 32, 64, 128)
-# The float32 forwards, dQ and dK/dV (csrc/flash_attention_3xtf32.cu) read
-# their operands in boxes of 32 fp32 columns (128-byte rows): their smallest
-# instance, to which D = 16 is zero-padded. The single-tile fused backward
-# (flash_dqkv) keeps its D = 16 instance.
+# The float32 kernels (csrc/flash_attention_3xtf32.cu: both forwards, dQ,
+# dK/dV and the fused single-tile backward) read their operands in boxes of
+# 32 fp32 columns (128-byte rows): their smallest instance, to which D = 16
+# is zero-padded.
 F32_MIN_HEAD_DIM = 32
 # Head dims above KERNEL_HEAD_DIMS[-1] take the wide-head kernels, which
 # stream D in chunks of this many columns: D is zero-padded to a multiple.
@@ -269,9 +269,9 @@ def kernel_head_dim(D: int, dims=KERNEL_HEAD_DIMS) -> int:
 
 
 def instance_head_dims(dtype, dims=KERNEL_HEAD_DIMS):
-    """The head dims of the instances at ``dtype`` of a kernel whose float32
-    runs in 3xTF32 (both forwards, dQ and dK/dV): a route's ``dims``,
-    without those below :data:`F32_MIN_HEAD_DIM` in float32."""
+    """The head dims of a kernel's instances at ``dtype`` (every float32
+    kernel runs in 3xTF32): a route's ``dims``, without those below
+    :data:`F32_MIN_HEAD_DIM` in float32."""
     if dtype == torch.float32:
         return tuple(d for d in dims if d >= F32_MIN_HEAD_DIM)
     return dims
@@ -427,20 +427,26 @@ def _dkv_launch(kernel, dims):
     return run
 
 
-def _dqkv_launch(q, k, v, do, lse, delta, glse, causal, q_offset, k_offset,
-                 scale):
-    code, BH, D = _check_kernel_operands((q, k, v, do), (lse, delta, glse),
-                                         SINGLE_TILE_HEAD_DIMS)
-    Sq, Sk = q.shape[1], k.shape[1]
-    dq = torch.empty_like(q)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    _launch(
-        _kernels.FLASH_DQKV, q.device, q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        glse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH, Sq,
-        Sk, D, code, int(causal), q_offset, k_offset, scale)
-    return dq, dk, dv
+def _dqkv_launch(dims):
+    """One launch of the fused backward at one of its instances' head
+    dims."""
+
+    def run(q, k, v, do, lse, delta, glse, causal, q_offset, k_offset,
+            scale):
+        code, BH, D = _check_kernel_operands((q, k, v, do),
+                                             (lse, delta, glse), dims)
+        Sq, Sk = q.shape[1], k.shape[1]
+        dq = torch.empty_like(q)
+        dk = torch.empty_like(k)
+        dv = torch.empty_like(v)
+        _launch(
+            _kernels.FLASH_DQKV, q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            glse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH,
+            Sq, Sk, D, code, int(causal), q_offset, k_offset, scale)
+        return dq, dk, dv
+
+    return run
 
 
 def _multi_tile(fwd_kernel, wide_kernel, launcher, D, dims=KERNEL_HEAD_DIMS):
@@ -523,8 +529,9 @@ def flash_dqkv(q, k, v, do, lse, delta, glse, causal=False, q_offset=0,
         return flash_dqkv_plain(q, k, v, do, lse, delta, glse, causal,
                                 q_offset, k_offset)
     _check_device(q)
-    return padded_heads(_dqkv_launch, (q, k, v, do), (lse, delta, glse),
-                        causal, q_offset, k_offset, SINGLE_TILE_HEAD_DIMS)
+    dims = instance_head_dims(q.dtype, SINGLE_TILE_HEAD_DIMS)
+    return padded_heads(_dqkv_launch(dims), (q, k, v, do), (lse, delta, glse),
+                        causal, q_offset, k_offset, dims)
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -80,7 +80,10 @@
 // positions q_offset + i >= k_offset + j; a row with no visible key gives
 // O = 0 and lse = 1e30; the backward takes the cotangent of lse (g_lse) into
 // dS = P * (dO V^T - delta + g_lse). Rows and keys past the sequence end are
-// masked, so any sequence length works.
+// masked, so any sequence length works. With no key (Sk = 0) the forward
+// gives O = 0 and lse = 1e30 and dQ is 0; with no query (Sq = 0) dK and dV
+// are 0 (flash_hopper.cuh: fwd_empty, zero_fill; lse by this file's one
+// fill kernel, flash_fwd_no_key_kernel), on every route.
 //
 // C interface: every entry point launches on the given stream, does not
 // synchronise, and returns the cudaError_t of the launch (0 on success), or
@@ -1092,6 +1095,8 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int Sq,
                int Sk, float scale, int causal, int qo, int ko, cudaStream_t stream) {
+  if (!BH || !Sq || !Sk)
+    return fwd_empty(o, (size_t)BH * Sq * D * sizeof(T), lse, (long long)BH * Sq, stream);
   if constexpr (!std::is_same<T, float>::value) {
     CUtensorMap mq, mk, mv, mo;
     int err;
@@ -1115,6 +1120,7 @@ template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, const void* glse, void* dq, int BH, int Sq, int Sk,
               float scale, int causal, int qo, int ko, cudaStream_t stream) {
+  if (!BH || !Sq || !Sk) return zero_fill(stream, (size_t)BH * Sq * D * sizeof(T), dq);
   if constexpr (!std::is_same<T, float>::value) {
     CUtensorMap mq, mk, mv, mdo, mdq;
     int err;
@@ -1140,6 +1146,7 @@ template <typename T, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                const void* delta, const void* glse, void* dk, void* dv, int BH, int Sq, int Sk,
                float scale, int causal, int qo, int ko, cudaStream_t stream) {
+  if (!BH || !Sq || !Sk) return zero_fill(stream, (size_t)BH * Sk * D * sizeof(T), dk, dv);
   if constexpr (!std::is_same<T, float>::value) {
     constexpr int bq = DkvSmem<D>::BQ;
     CUtensorMap mq, mk, mv, mdo, mdk, mdv;
@@ -1164,7 +1171,21 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
   }
 }
 
+// The fill kernel of fill_lse_masked.
+__global__ void flash_fwd_no_key_kernel(float* __restrict__ lse, long long rows) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < rows;
+       i += (long long)gridDim.x * blockDim.x)
+    lse[i] = LSE_MASKED;
+}
+
 }  // namespace
+
+int fill_lse_masked(float* lse, long long rows, cudaStream_t stream) {
+  const long long blocks = (rows + 255) / 256;
+  flash_fwd_no_key_kernel<<<(unsigned)(blocks < 1024 ? blocks : 1024), 256, 0, stream>>>(lse,
+                                                                                     rows);
+  return cudaGetLastError();
+}
 
 extern "C" {
 

@@ -1,25 +1,27 @@
 // Flash attention in float32 on Hopper's tensor cores (3xTF32), every
-// float32 call of the multi-tile and wide-head routes and the single-tile
-// forward: the forwards at head dims 32 to 256
+// float32 call of the three routes: the forwards at head dims 32 to 256
 // (flash_fwd_3xtf32_kernel<D>, the multi-tile route, and
 // flash_fwd_single_3xtf32_kernel<D>, Sq and Sk at most 128), the backward
 // at head dims 32 to 256: dQ (flash_dq_3xtf32_kernel<D>) and dK/dV
-// (flash_dkv_3xtf32_kernel<D>), and the forward and backward at any head dim
-// above 256 (flash_fwd_wide_3xtf32_kernel, flash_dq_wide_3xtf32_kernel,
+// (flash_dkv_3xtf32_kernel<D>), the fused single-tile backward at head dims
+// 32 to 128 (flash_dqkv_3xtf32_kernel<D>, Sq and Sk at most 128), and the
+// forward and backward at any head dim above 256
+// (flash_fwd_wide_3xtf32_kernel, flash_dq_wide_3xtf32_kernel,
 // flash_dkv_wide_3xtf32_kernel; D a multiple of 32).
 // flash_attention.cu's launch_fwd, launch_dq and launch_dkv,
-// flash_attention_single.cu's launch_fwd_single and flash_attention_wide.cu's
-// float32 forward, dQ and dK/dV call them (attention.py:padded_heads
-// zero-pads a head dim to the next instance, D = 16 to 32: a box row is 32
-// fp32 columns, and a wide D to a multiple of 32). The fused single-tile
-// backward (flash_attention_single.cu) stays SIMT in float32. The split,
-// the mma.sync wrappers and the swizzle's address are in tf32x3.cuh.
+// flash_attention_single.cu's launch_fwd_single and launch_dqkv and
+// flash_attention_wide.cu's float32 forward, dQ and dK/dV call them
+// (attention.py:padded_heads zero-pads a head dim to the next instance,
+// D = 16 to 32: a box row is 32 fp32 columns, and a wide D to a multiple
+// of 32). The split, the mma.sync wrappers and the swizzle's address are
+// in tf32x3.cuh.
 //
 // Replaces the Pallas TPU kernels of horovod_tpu/ops/attention.py:
 //   flash_fwd_3xtf32_kernel         <- _flash_fwd_kernel (:138)
 //   flash_fwd_single_3xtf32_kernel  <- _flash_fwd_single_kernel (:310)
 //   flash_dq_3xtf32_kernel          <- _flash_dq_kernel (:198)
 //   flash_dkv_3xtf32_kernel         <- _flash_dkv_kernel (:252)
+//   flash_dqkv_3xtf32_kernel        <- _flash_dqkv_fused_kernel (:343)
 //   flash_fwd_wide_3xtf32_kernel    <- _flash_fwd_kernel (:138), D > 256
 //   flash_dq_wide_3xtf32_kernel     <- _flash_dq_kernel (:198), D > 256
 //   flash_dkv_wide_3xtf32_kernel    <- _flash_dkv_kernel (:252), D > 256
@@ -33,7 +35,8 @@
 // versions were, 33x, 47x and 36x over it. At D = 64 the same holds at a
 // quarter of the operations (dQ 12.88, dK/dV 17.18 GFLOP). The single-tile
 // forward at B*H = 1024, S = 128, D = 64 moves 134.7 MB (0.0402 ms) for
-// 4.29 GFLOP.
+// 4.29 GFLOP, the fused backward there 236.5 MB (0.0706 ms) for 10.74 GFLOP
+// (0.1603 ms on the FMA units).
 //
 // What the design does about it. Every product runs on the tensor cores in
 // TF32 as three products (3xTF32): an fp32 value x is the pair hi + lo, hi =
@@ -48,7 +51,8 @@
 // Three TF32 products at 495 TFLOP/s make a least time of 0.31 (dQ), 0.42
 // (dK/dV) and 0.21 ms (the forward at D = 256), 0.078 and 0.104 ms (dQ,
 // dK/dV at D = 64): the bound these kernels are held to; the single-tile
-// forward stays bound by its bytes (0.0260 ms of operations). The wide
+// forward stays bound by its bytes (0.0260 ms of operations), and so does
+// the fused backward, near the ridge (0.0651 ms of operations). The wide
 // route at B*H = 32, S = 512, D = 512: dQ 25.77 GFLOP over 168 MB, dK/dV
 // 34.36 GFLOP over 201 MB, 0.1562 and 0.2082 ms in 3xTF32, the forward
 // 17.18 GFLOP over 134 MB, 0.1041 ms.
@@ -110,6 +114,21 @@
 //     1 warp dP^T, dS^T (P^T handed over as in dQ; each then reads its
 //     product's A fragments from the pair's buffers) and dK: dV and dK
 //     each fit one warp's registers at D = 256, where both would not.
+//   - Fused single-tile backward (DqkvX): dkv_solo with the work tile a
+//     whole head (its 128 keys; K and V resident, two buffers at D <= 64),
+//     which also writes dQ. A Q tile's dQ sums over the keys of all eight
+//     warps: each stores its dS^T in a 32 KB shared tile (swizzled so that
+//     its 4-byte stores and dQ's 8-byte fragment loads are free of bank
+//     conflicts), a named barrier joins the consumers, and each warp forms
+//     a 16-row slab of dQ = dS K from the tile and the resident K, its sum
+//     over each 64-key half from zero, written once from registers: no
+//     atomics, and the result repeats bit for bit. dQ's slab is live only
+//     after dS^T is stored. The score products sum each k-step from zero
+//     (scores_box's KSTEP), which holds the errors against float64 at
+//     S = 128 to the float32 plain version's. At D = 128 only dV stays in
+//     registers: dK of each Q tile goes through dk (the last Q tile's sum
+//     read back and added), since dV and dK together spilled beside the
+//     scores.
 //   - Wide-head route (WideX, D > 256): the pair designs with nothing
 //     resident (64 rows of one operand are 128 KB at D = 512): per key (Q)
 //     tile D / 32 score items of four boxes (column box c of each operand),
@@ -213,17 +232,21 @@ __device__ __forceinline__ float4 lds_f4(const float4* p) {
 // each group), and KS_UNROLL of the four k-steps are unrolled: each caller
 // picks them for its registers (the pair's dK/dV at D = 256 takes NG = 2
 // and 2, since its scores and 128 accumulator registers leave no room for
-// more loads in flight; ptxas spilled otherwise).
-template <int NG, int KS_UNROLL>
+// more loads in flight; ptxas spilled otherwise). KSTEP: each k-step's sum
+// starts from zero instead (8 columns, through three truncations of that
+// sum alone) and is added to s in fp32, so that no product of the box
+// truncates the box's running sum: fewer registers (no partial sum), an
+// fp32 add per value and k-step, and less error (PERF.md).
+template <int NG, int KS_UNROLL, bool KSTEP = false>
 __device__ __forceinline__ void scores_box(float (&s)[SEQ_TILE / 2], uint32_t a, int a_row0,
                                            uint32_t b, int lane) {
   constexpr int NP = SEQ_TILE / 16 / NG;  // n-tile pairs of a group
   const int r8 = lane & 7, m = lane >> 3;  // the row and matrix this lane addresses
 #pragma unroll
   for (int grp = 0; grp < NG; ++grp) {
-    float part[8 * NP];
+    float part[KSTEP ? 1 : 8 * NP];
 #pragma unroll
-    for (int i = 0; i < 8 * NP; ++i) part[i] = 0.f;
+    for (int i = 0; i < (KSTEP ? 1 : 8 * NP); ++i) part[i] = 0.f;
 #pragma unroll KS_UNROLL
     for (int ks = 0; ks < X_BOX / 8; ++ks) {
       uint32_t x[4], ah[4], al[4];
@@ -234,20 +257,30 @@ __device__ __forceinline__ void scores_box(float (&s)[SEQ_TILE / 2], uint32_t a,
         uint32_t y[4], bh[4], bl[4];
         ldsm_x4(y, b + box_at(16 * (NP * grp + np) + 8 * (m >> 1) + r8, 8 * ks + 4 * (m & 1)));
         split(y, bh, bl);
-        mma_3xtf32(part + 8 * np, ah, al, bh[0], bh[1], bl[0], bl[1]);
-        mma_3xtf32(part + 8 * np + 4, ah, al, bh[2], bh[3], bl[2], bl[3]);
+        if constexpr (KSTEP) {
+          float c[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+          mma_3xtf32(c, ah, al, bh[0], bh[1], bl[0], bl[1]);
+          mma_3xtf32(c + 4, ah, al, bh[2], bh[3], bl[2], bl[3]);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) s[8 * (NP * grp + np) + i] += c[i];
+        } else {
+          mma_3xtf32(part + 8 * np, ah, al, bh[0], bh[1], bl[0], bl[1]);
+          mma_3xtf32(part + 8 * np + 4, ah, al, bh[2], bh[3], bl[2], bl[3]);
+        }
       }
     }
+    if constexpr (!KSTEP) {
 #pragma unroll
-    for (int i = 0; i < 8 * NP; ++i) s[8 * NP * grp + i] += part[i];
+      for (int i = 0; i < 8 * NP; ++i) s[8 * NP * grp + i] += part[i];
+    }
   }
 }
 
-// d (NT n-tiles, 8 or 4) += A B over one output item: B is the item's
-// boxes (64 rows, the contraction, by 32 columns each: n-tiles 0-3 in box0,
-// 4-7 in box1), A (16 x 64) an accumulator-layout tile (P, dS, P^T or
-// dS^T) whose fragment for k-step j, a0..a3, afrag(j) returns (from
-// registers, or from a buffer in fragment order). A fragment takes the
+// d (NT n-tiles, 8, 4 or 2) += A B over one output item: B is the item's
+// boxes (64 rows, the contraction, by 32 columns each: n-tiles 0-3 in box0
+// from column col0, 4-7 in box1), A (16 x 64) an accumulator-layout tile
+// (P, dS, P^T or dS^T) whose fragment for k-step j, a0..a3, afrag(j)
+// returns (from registers, or from a buffer in fragment order). A fragment takes the
 // tile's columns 2 t and 2 t + 1 for k = t and t + 4, so b0 and b1 are B's
 // rows 8 j + 2 t and 8 j + 2 t + 1: with columns 8 nt + g they fall on 32
 // distinct banks. The item's sum starts from zero and is added to d in
@@ -255,7 +288,7 @@ __device__ __forceinline__ void scores_box(float (&s)[SEQ_TILE / 2], uint32_t a,
 // eight k-steps are unrolled.
 template <int NG, int NT = 8, typename AFrag>
 __device__ __forceinline__ void product_item(float* d, uint32_t box0, uint32_t box1, AFrag afrag,
-                                             int lane) {
+                                             int lane, int col0 = 0) {
   constexpr int GT = NT / NG;  // n-tiles of a group
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -274,7 +307,7 @@ __device__ __forceinline__ void product_item(float* d, uint32_t box0, uint32_t b
       for (int nt = 0; nt < GT; ++nt) {
         const int n = GT * grp + nt;
         const uint32_t box = n < 4 ? box0 : box1;
-        const int col = 8 * (n & 3) + g;
+        const int col = col0 + 8 * (n & 3) + g;
         uint32_t bh0, bl0, bh1, bl1;
         split(lds_u32(box + box_at(8 * j + 2 * t, col)), bh0, bl0);
         split(lds_u32(box + box_at(8 * j + 2 * t + 1, col)), bh1, bl1);
@@ -1024,6 +1057,280 @@ flash_dkv_3xtf32_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 #undef X_BWD_PARAMS
 #undef X_BWD_ARGS
+
+// ---------------------------------------------------------------------------
+// The fused single-tile backward (flash_dqkv_3xtf32_kernel): dQ, dK and dV
+// of heads whose Sq and Sk are at most 128, the float32 calls of
+// flash_attention_single.cu's launch_dqkv, at D = 32, 64 and 128.
+// ---------------------------------------------------------------------------
+
+// Shared memory of the fused backward at head dim D, byte offsets from a
+// 1024-aligned base: a head's K and V (its 128 keys, the work tile: key
+// half h, column box c of operand o at o RES / 2 + (h CB + c) boxes) in one
+// of RBUFS buffers (two where they leave room for two ring stages, so that
+// the next head's K and V land while this one computes), the ring of
+// STAGES stages of a 64-row Q tile and its dO across D (as many as fit, at
+// most 16), the dS tile of a Q tile (64 rows by the 128 keys, fp32), then
+// the ring's and the buffers' barriers. D = 64: two buffers, two stages;
+// D = 128: one buffer, one stage.
+constexpr int DQKV_KEYS = 2 * SEQ_TILE;  // keys of a head: the work tile
+template <int D>
+struct DqkvX {
+  static constexpr int CB = D / X_BOX;
+  static constexpr int ROWS = DQKV_KEYS;
+  static constexpr int HALF = CB * X_BOX_BYTES;         // 64 rows of one operand
+  static constexpr int RES = 2 * 2 * HALF;              // K and V of a head
+  static constexpr int STAGE = 2 * HALF;                // a Q tile and its dO
+  static constexpr int DS_BYTES = SEQ_TILE * ROWS * 4;  // 32 KB
+  static constexpr int AVAIL = (int)SMEM_LIMIT - 2048;
+  static constexpr int RBUFS = 2 * RES + DS_BYTES + 2 * STAGE <= AVAIL ? 2 : 1;
+  static constexpr int FIT = (AVAIL - RBUFS * RES - DS_BYTES) / STAGE;
+  static constexpr int STAGES = FIT < 16 ? FIT : 16;
+  static constexpr int RING = RBUFS * RES;
+  static constexpr int DS = RING + STAGES * STAGE;
+  static constexpr int BAR = DS + DS_BYTES;
+  static constexpr int BYTES = BAR + (2 * STAGES + 2 * RBUFS) * 8 + 1024;  // + alignment slack
+  static_assert(STAGES >= 1 && BYTES <= (int)SMEM_LIMIT,
+                "3xTF32 fused backward tiles exceed shared memory");
+};
+
+// The dS tile: Q row q of a Q tile at q DQKV_KEYS floats, its key k at
+// k ^ ds_swizzle(q). The XOR moves k within its aligned group of 32 keys
+// and keeps the pairs 2 t, 2 t + 1 together, so that both the warps that
+// store dS^T (4-byte stores: lane (g, t) at key g, row 2 t + e) and those
+// that read dS for dQ (8-byte loads of keys 2 t, 2 t + 1 at row g) hit 32
+// distinct banks in each half-warp.
+__device__ __forceinline__ int ds_swizzle(int q) { return 8 * ((q & 3) ^ ((q >> 2) & 1)); }
+
+// The A fragments of dQ = dS K over key half kh from the dS tile: k-step j
+// takes keys 64 kh + 8 j + 2 t and + 1 (as k = t and t + 4, the order in
+// which product_item reads K's rows) at Q rows row and row + 8.
+struct DsFrag {
+  static constexpr int UNROLL = SEQ_TILE / 8;
+  uint32_t row;  // the shared address of Q row `row` of the tile
+  int key0;      // 64 kh + 2 t
+  int sw;        // ds_swizzle of the two rows (they differ by 8)
+  __device__ __forceinline__ float4 operator()(int j) const {
+    const uint32_t at = row + 4 * ((key0 + 8 * j) ^ sw);
+    float2 lo, hi;
+    asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(lo.x), "=f"(lo.y) : "r"(at));
+    asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+                 : "=f"(hi.x), "=f"(hi.y)
+                 : "r"(at + 8 * DQKV_KEYS * 4));
+    return make_float4(lo.x, hi.x, lo.y, hi.y);
+  }
+};
+
+// Named barriers of the fused backward's 256 consumer threads: every warp
+// has stored its dS^T of the Q tile (DS_FULL), or has read the last Q
+// tile's dS (DS_FREE).
+constexpr int DS_FULL = 1;
+constexpr int DS_FREE = 2;
+
+// The fused backward, persistent: a grid of min(BH, SMs) blocks walks the
+// heads, each head one work tile (its 128 keys; K and V resident). Each
+// consumer warp owns 16 keys, as dkv_solo's, and for every 64-row Q tile
+// (Q and dO in one ring item) forms S^T, P^T, dV += P^T dO, dP^T, dS^T and
+// dK += dS^T Q in its own registers; it stores dS^T into the dS tile, and
+// once every warp has (DS_FULL), forms a 16-row slab of the Q tile's dQ =
+// dS K (rows 16 (warp % 4), half wg of the columns) over all 128 keys, from
+// the dS tile and the resident K, and writes it from registers: the whole
+// key range is in the block, so dQ is written once, with no atomics. At
+// D = 128, where dV and dK would take 128 registers, only dV stays in
+// registers: dK of each Q tile is added to what the last Q tile stored in
+// dk, one output item at a time (holding both spilled 524 bytes:
+// PERF.md). dv = sum_i P_ij^T dO_i, dk = scale sum_i dS_ij^T Q_i,
+// dq = scale sum_j dS_ij K_j, rows past Sq and keys past Sk masked and not
+// written.
+template <int D>
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+flash_dqkv_3xtf32_kernel(const __grid_constant__ CUtensorMap tm_q,
+                         const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v,
+                         const __grid_constant__ CUtensorMap tm_do, float* __restrict__ dq,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         const float* __restrict__ glse, int BH, int Sq, int Sk, float scale,
+                         int causal, int q_offset, int k_offset) {
+  using L = DqkvX<D>;
+  constexpr int CB = L::CB;
+  constexpr int IB = D < 64 ? 1 : 2;    // boxes of an output item
+  constexpr int NI = D / (IB * X_BOX);  // output items
+  constexpr int W = D / 2;              // columns of a warp's dQ slab
+  // dK of each Q tile added to what the last Q tile stored in dk, one
+  // output item at a time, instead of held in registers across Q tiles.
+  constexpr bool DK_STORED = D > 64;
+  // The score products sum each k-step from zero (scores_box's KSTEP:
+  // summed per box, dK's error against float64 at S = 128 passed
+  // F64_ERR_RATIO times the float32 plain version's; PERF.md),
+  // unrolling two k-steps of S^T and one of dP^T, as
+  // dkv_solo at D = 64 (beside dV and dK ptxas spilled with more).
+  extern __shared__ unsigned char smem_raw[];
+  const XSmem<L> x = x_smem<L>(smem_raw);
+  const int qtiles = (Sq + SEQ_TILE - 1) / SEQ_TILE;
+  const int wg = threadIdx.x / WG;
+
+  if (wg == CONSUMER_WGS) {
+    // Producer, one thread: per head K and V, per Q tile Q and dO.
+    reg_dealloc<PRODUCER_REGS>();
+    if (threadIdx.x == CONSUMER_WGS * WG) {
+      int it = 0, n = 0;
+      for (int bh = blockIdx.x; bh < BH; bh += gridDim.x, ++n) {
+        load_resident(x, n, &tm_k, &tm_v, 0, bh);
+        for (int qt = 0; qt < qtiles; ++qt, ++it)
+          load_tiles(x, it, &tm_q, &tm_do, qt * SEQ_TILE, bh);
+      }
+    }
+  } else {
+    // Consumer warp: keys [16 (warp % 4), + 16) of half wg of the head's
+    // 128, and dQ rows [16 (warp % 4), + 16) of each Q tile.
+    reg_alloc<CONSUMER_REGS>();
+    const int lane = threadIdx.x & 31;
+    const int tq = lane & 3;
+    const int wrow = X_PAIR_ROWS * (threadIdx.x / 32 % 4);
+    const int key_first = SEQ_TILE * wg + wrow;  // this warp's first key
+    const int key0 = key_first + (lane >> 2);     // this thread's keys key0, key0 + 8
+    const float sl2 = scale * LOG2E;
+    const int khalves = (Sk + SEQ_TILE - 1) / SEQ_TILE;  // key halves that hold a key
+    float* const ds_tile = reinterpret_cast<float*>(x.smem + L::DS);
+    const int frag_row = wrow + (lane >> 2);  // this thread's dS rows (and + 8) in the slab
+    const DsFrag ds_frag0{x.base + L::DS + 4 * frag_row * DQKV_KEYS, 2 * tq,
+                          ds_swizzle(frag_row)};
+    int it = 0, n = 0;
+    for (int bh = blockIdx.x; bh < BH; bh += gridDim.x, ++n) {
+      const uint32_t sk = x.res(n) + wg * L::HALF;  // this warp's K rows: box c at + c boxes
+      const uint32_t sv = sk + L::RES / 2;
+      float dv_acc[D / 2], dk_acc[DK_STORED ? 1 : D / 2];  // the warp's 16 keys by D columns
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dv_acc[i] = 0.f;
+#pragma unroll
+      for (int i = 0; i < (DK_STORED ? 1 : D / 2); ++i) dk_acc[i] = 0.f;
+      float* const dk_head = dk + (size_t)bh * Sk * D;
+      mbar_wait(x.res_full(n), x.res_phase(n));
+      for (int qt = 0; qt < qtiles; ++qt, ++it) {
+        const int q0 = qt * SEQ_TILE;
+        // A warp whose keys are past Sk, or that no row of the tile sees,
+        // stores zeros as its dS^T.
+        const bool sees = key_first < Sk && !(causal && q_offset + q0 + SEQ_TILE - 1 <
+                                                            k_offset + key_first);
+        const uint32_t t = x.ring.tile(it);  // Q's box c at + c boxes, dO's at + CB + c
+        // This thread's 16 Q columns: element i of a score tile is column
+        // 8 (i / 4) + 2 tq + i % 2, value e = 2 (i / 4) + i % 2 of rv (lse
+        // log2(e), then g_lse - delta). Rows past Sq get lse = LSE_MASKED:
+        // their P is exactly 0.
+        auto q_row = [&](int e) { return q0 + 8 * (e >> 1) + 2 * tq + (e & 1); };
+        float s[SEQ_TILE / 2], dp[SEQ_TILE / 2], rv[16];
+        x.ring.wait(it);
+        if (sees) {
+          // S^T = K Q^T, then P^T in its place: keys past Sk (zero rows of
+          // K, whose dS the dQ product reads) and causally hidden keys get
+          // P = 0.
+#pragma unroll
+          for (int i = 0; i < SEQ_TILE / 2; ++i) s[i] = 0.f;
+#pragma unroll 1
+          for (int c = 0; c < CB; ++c)
+            scores_box<1, 2, true>(s, sk + c * X_BOX_BYTES, wrow, t + c * X_BOX_BYTES, lane);
+#pragma unroll
+          for (int e = 0; e < 16; ++e)
+            rv[e] = q_row(e) < Sq ? lse[(size_t)bh * Sq + q_row(e)] * LOG2E : LSE_MASKED;
+          const bool mask = key_first + X_PAIR_ROWS > Sk ||
+                            (causal && q_offset + q0 < k_offset + key_first + X_PAIR_ROWS - 1);
+#pragma unroll
+          for (int i = 0; i < SEQ_TILE / 2; ++i) {
+            const int c = 8 * (i >> 2) + 2 * tq + (i & 1);
+            const int key = key0 + 8 * ((i >> 1) & 1);
+            float pv = exp2f(fmaf(s[i], sl2, -rv[2 * (i >> 2) + (i & 1)]));
+            if (mask && (key >= Sk || (causal && q_offset + q0 + c < k_offset + key))) pv = 0.f;
+            s[i] = pv;
+          }
+          // dV += P^T dO, before dP^T is formed.
+#pragma unroll
+          for (int u = 0; u < NI; ++u) {
+            const uint32_t bo = t + (CB + IB * u) * X_BOX_BYTES;  // dO's boxes
+            product_item<1, 4 * IB>(dv_acc + 16 * IB * u, bo, bo + (IB - 1) * X_BOX_BYTES,
+                                    RegFrag{s}, lane);
+          }
+        }
+        // The dS tile is free once every warp has read the last Q tile's.
+        if (qt > 0 || n > 0) named_sync(DS_FREE, CONSUMER_WGS * WG);
+        if (sees) {
+          // dP^T = V dO^T, then dS^T = P^T (dP^T + g_lse - delta) in its
+          // place.
+#pragma unroll
+          for (int i = 0; i < SEQ_TILE / 2; ++i) dp[i] = 0.f;
+#pragma unroll 1
+          for (int c = 0; c < CB; ++c)
+            scores_box<1, 1, true>(dp, sv + c * X_BOX_BYTES, wrow, t + (CB + c) * X_BOX_BYTES,
+                                   lane);
+#pragma unroll
+          for (int e = 0; e < 16; ++e) {
+            const size_t at = (size_t)bh * Sq + q_row(e);
+            rv[e] = q_row(e) < Sq ? glse[at] - delta[at] : 0.f;
+          }
+#pragma unroll
+          for (int i = 0; i < SEQ_TILE / 2; ++i)
+            dp[i] = s[i] * (dp[i] + rv[2 * (i >> 2) + (i & 1)]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < SEQ_TILE / 2; ++i) dp[i] = 0.f;
+        }
+        // dS^T into the dS tile (element i: Q row qr, key key0 + 8 ((i / 2)
+        // % 2)), then dK += dS^T Q.
+#pragma unroll
+        for (int i = 0; i < SEQ_TILE / 2; ++i) {
+          const int qr = 8 * (i >> 2) + 2 * tq + (i & 1);
+          ds_tile[qr * DQKV_KEYS + ((key0 + 8 * ((i >> 1) & 1)) ^ ds_swizzle(qr))] = dp[i];
+        }
+#pragma unroll
+        for (int u = 0; u < NI; ++u) {
+          const uint32_t bq = t + IB * u * X_BOX_BYTES;  // Q's boxes
+          if constexpr (DK_STORED) {
+            // The item's sum, plus the last Q tile's (unscaled), stored;
+            // scaled after the last Q tile.
+            float acc[16 * IB];
+#pragma unroll
+            for (int i = 0; i < 16 * IB; ++i) acc[i] = 0.f;
+            if (sees)
+              product_item<1, 4 * IB>(acc, bq, bq + (IB - 1) * X_BOX_BYTES, RegFrag{dp}, lane);
+            if (qt > 0) add_stored<32 * IB>(acc, dk_head, D, key0, Sk, 32 * IB * u, lane);
+            const float mul = qt == qtiles - 1 ? scale : 1.f;
+            store_acc<32 * IB>(dk_head, D, acc, [mul](float v, int) { return mul * v; }, key0, Sk,
+                               32 * IB * u, lane);
+          } else if (sees) {
+            product_item<1, 4 * IB>(dk_acc + 16 * IB * u, bq, bq + (IB - 1) * X_BOX_BYTES,
+                                    RegFrag{dp}, lane);
+          }
+        }
+        x.ring.release(it, lane);  // the last read of Q and dO
+        named_sync(DS_FULL, CONSUMER_WGS * WG);
+
+        // dQ = dS K: this warp's slab, Q rows [wrow, wrow + 16) of the tile
+        // by columns [W wg, W wg + W), over the key halves that hold a key
+        // (each half's sum from zero, added in fp32).
+        float dq_acc[W / 2];
+#pragma unroll
+        for (int i = 0; i < W / 2; ++i) dq_acc[i] = 0.f;
+        for (int kh = 0; kh < khalves; ++kh) {
+          const uint32_t kb = x.res(n) + (kh * CB + W * wg / X_BOX) * X_BOX_BYTES;
+          DsFrag frag = ds_frag0;
+          frag.key0 += SEQ_TILE * kh;
+          product_item<1, W / 8>(dq_acc, kb, kb + (W > X_BOX ? X_BOX_BYTES : 0), frag, lane,
+                                 W * wg % X_BOX);
+        }
+        if (qt == qtiles - 1) release_resident(x.res_empty(n), lane);  // the last read of K
+        store_acc<W>(dq + (size_t)bh * Sq * D, D, dq_acc,
+                     [scale](float v, int) { return scale * v; }, q0 + frag_row, Sq, W * wg,
+                     lane);
+      }
+      store_acc<D>(dv + (size_t)bh * Sk * D, D, dv_acc, [](float v, int) { return v; }, key0, Sk,
+                   0, lane);
+      if constexpr (!DK_STORED)
+        store_acc<D>(dk_head, D, dk_acc, [scale](float v, int) { return scale * v; }, key0, Sk, 0,
+                     lane);
+    }
+  }
+}
+
 
 // ---------------------------------------------------------------------------
 // The wide-head backward: dQ (flash_dq_wide_3xtf32_kernel) and dK/dV
@@ -2016,9 +2323,6 @@ int launch_dq_x(const void* q, const void* k, const void* v, const void* dout, c
                 const void* delta, const void* glse, void* dq, int BH, int Sq, int Sk,
                 float scale, int causal, int qo, int ko, cudaStream_t stream) {
   using L = BwdX<D>;
-  if (Sq == 0 || BH == 0) return cudaSuccess;
-  if (Sk == 0)  // no key: dQ is 0 (and a tensor map cannot have an empty dim)
-    return cudaMemsetAsync(dq, 0, (size_t)BH * Sq * D * sizeof(float), stream);
   CUtensorMap m[4];
   dim3 grid;
   const int err =
@@ -2035,12 +2339,6 @@ int launch_dkv_x(const void* q, const void* k, const void* v, const void* dout, 
                  const void* delta, const void* glse, void* dk, void* dv, int BH, int Sq, int Sk,
                  float scale, int causal, int qo, int ko, cudaStream_t stream) {
   using L = BwdX<D>;
-  if (Sk == 0 || BH == 0) return cudaSuccess;
-  if (Sq == 0) {  // no query: dK and dV are 0
-    const size_t bytes = (size_t)BH * Sk * D * sizeof(float);
-    const cudaError_t err = cudaMemsetAsync(dk, 0, bytes, stream);
-    return err != cudaSuccess ? err : cudaMemsetAsync(dv, 0, bytes, stream);
-  }
   CUtensorMap m[4];
   dim3 grid;
   const int err =
@@ -2074,6 +2372,21 @@ int launch_dkv_d(int D, Args... args) {
   return cudaErrorInvalidValue;
 }
 
+// The fused backward's launch at head dim D: one work tile a head.
+template <int D>
+int launch_dqkv_x(const void* q, const void* k, const void* v, const void* dout,
+                  const void* lse, const void* delta, const void* glse, void* dq, void* dk,
+                  void* dv, int BH, int Sq, int Sk, float scale, int causal, int qo, int ko,
+                  cudaStream_t stream) {
+  CUtensorMap m[4];
+  dim3 grid;
+  const int err = x_setup(m, q, k, v, dout, BH, Sq, Sk, D, BH, &grid);
+  if (err) return err;
+  return launch(flash_dqkv_3xtf32_kernel<D>, grid, SM90_THREADS, DqkvX<D>::BYTES, stream, m[0],
+                m[1], m[2], m[3], (float*)dq, (float*)dk, (float*)dv, (const float*)lse,
+                (const float*)delta, (const float*)glse, BH, Sq, Sk, scale, causal, qo, ko);
+}
+
 // The forward kernel at head dim D with key tiles of BK: the multi-tile
 // one at SEQ_TILE, the single-tile one at F_ROWS (only that one is
 // instantiated).
@@ -2090,7 +2403,6 @@ auto fwd_kernel() {
 template <int D, int BK>
 int launch_fwd_x(const void* q, const void* k, const void* v, void* o, void* lse, int BH, int Sq,
                  int Sk, float scale, int causal, int qo, int ko, cudaStream_t stream) {
-  if (Sq == 0 || BH == 0) return cudaSuccess;
   using L = FwdX<D, BK>;
   CUtensorMap mq, mk, mv;
   int err, sms = 0;
@@ -2138,6 +2450,28 @@ int launch_dkv_3xtf32(const void* q, const void* k, const void* v, const void* d
                       ko, stream);
 }
 
+// The launcher flash_attention_single.cu calls for every float32 fused
+// backward: Sq and Sk at most 128 and not 0 (its caller checks), head dims
+// 32, 64 and 128 (the wrapper zero-pads D = 16 to 32; any other D:
+// cudaErrorInvalidValue).
+int launch_dqkv_3xtf32(const void* q, const void* k, const void* v, const void* dout,
+                       const void* lse, const void* delta, const void* glse, void* dq, void* dk,
+                       void* dv, int BH, int Sq, int Sk, int D, float scale, int causal, int qo,
+                       int ko, cudaStream_t stream) {
+  switch (D) {
+    case 32:
+      return launch_dqkv_x<32>(q, k, v, dout, lse, delta, glse, dq, dk, dv, BH, Sq, Sk, scale,
+                               causal, qo, ko, stream);
+    case 64:
+      return launch_dqkv_x<64>(q, k, v, dout, lse, delta, glse, dq, dk, dv, BH, Sq, Sk, scale,
+                               causal, qo, ko, stream);
+    case 128:
+      return launch_dqkv_x<128>(q, k, v, dout, lse, delta, glse, dq, dk, dv, BH, Sq, Sk, scale,
+                                causal, qo, ko, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
 // The scratch the float32 wide-head dK/dV needs on the current device:
 // each consumer warp's 16 x 64 fp32 operand of a chunk's Q tiles (at most
 // WIDE_QCHUNK), for every block of its persistent grid of min(work tiles,
@@ -2160,9 +2494,7 @@ int launch_dq_wide_3xtf32(const void* q, const void* k, const void* v, const voi
                           int Sq, int Sk, int D, float scale, int causal, int qo, int ko,
                           cudaStream_t stream) {
   if (D <= 256 || D % X_BOX) return cudaErrorInvalidValue;
-  if (Sq == 0 || BH == 0) return cudaSuccess;
-  if (Sk == 0)  // no key: dQ is 0 (and a tensor map cannot have an empty dim)
-    return cudaMemsetAsync(dq, 0, (size_t)BH * Sq * D * sizeof(float), stream);
+  if (!BH || !Sq || !Sk) return zero_fill(stream, (size_t)BH * Sq * D * sizeof(float), dq);
   const int passes = (D + 2 * WIDE_OUT - 1) / (2 * WIDE_OUT);
   CUtensorMap m[4];
   dim3 grid;
@@ -2180,12 +2512,7 @@ int launch_dkv_wide_3xtf32(const void* q, const void* k, const void* v, const vo
                            int Sk, int D, float scale, int causal, int qo, int ko,
                            cudaStream_t stream) {
   if (D <= 256 || D % X_BOX) return cudaErrorInvalidValue;
-  if (Sk == 0 || BH == 0) return cudaSuccess;
-  if (Sq == 0) {  // no query: dK and dV are 0
-    const size_t bytes = (size_t)BH * Sk * D * sizeof(float);
-    const cudaError_t err = cudaMemsetAsync(dk, 0, bytes, stream);
-    return err != cudaSuccess ? err : cudaMemsetAsync(dv, 0, bytes, stream);
-  }
+  if (!BH || !Sq || !Sk) return zero_fill(stream, (size_t)BH * Sk * D * sizeof(float), dk, dv);
   CUtensorMap m[4];
   dim3 grid;
   const int err = x_setup(m, q, k, v, dout, BH, Sq, Sk, D, BH * ((Sk + SEQ_TILE - 1) / SEQ_TILE),
@@ -2200,22 +2527,19 @@ int launch_dkv_wide_3xtf32(const void* q, const void* k, const void* v, const vo
 // The launcher flash_attention_wide.cu calls for every float32 forward at
 // head dims above 256: D a multiple of X_BOX (any other D:
 // cudaErrorInvalidValue); a persistent grid over the work tiles of every
-// pass. With no key (Sk = 0) the kernel loads no K or V tile and writes
-// O = 0 and lse = LSE_MASKED; a tensor map cannot have an empty dim, so K
-// and V then take Q's map, which the kernel never reads for them.
+// pass.
 int launch_fwd_wide_3xtf32(const void* q, const void* k, const void* v, void* o, void* lse,
                            int BH, int Sq, int Sk, int D, float scale, int causal, int qo, int ko,
                            cudaStream_t stream) {
   if (D <= 256 || D % X_BOX) return cudaErrorInvalidValue;
-  if (Sq == 0 || BH == 0) return cudaSuccess;
+  if (!BH || !Sq || !Sk)
+    return fwd_empty(o, (size_t)BH * Sq * D * sizeof(float), lse, (long long)BH * Sq, stream);
   const int passes = (D + 2 * WIDE_OUT - 1) / (2 * WIDE_OUT);
   const int nwork = BH * ((Sq + SEQ_TILE - 1) / SEQ_TILE) * passes;
   CUtensorMap mq, mk, mv;
   int err, sms = 0;
-  if ((err = x_map(&mq, q, Sq, BH, D)) || (err = sm_count(&sms))) return err;
-  if (Sk == 0)
-    mk = mv = mq;
-  else if ((err = x_map(&mk, k, Sk, BH, D)) || (err = x_map(&mv, v, Sk, BH, D)))
+  if ((err = x_map(&mq, q, Sq, BH, D)) || (err = x_map(&mk, k, Sk, BH, D)) ||
+      (err = x_map(&mv, v, Sk, BH, D)) || (err = sm_count(&sms)))
     return err;
   return launch(flash_fwd_wide_3xtf32_kernel, dim3(nwork < sms ? nwork : sms), SM90_THREADS,
                 WideX::BYTES, stream, mq, mk, mv, (float*)o, (float*)lse, BH, Sq, Sk, D, scale,

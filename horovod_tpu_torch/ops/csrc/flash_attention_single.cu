@@ -6,8 +6,10 @@
 // Replaces the Pallas TPU kernels of horovod_tpu/ops/attention.py:
 //   flash_fwd_single_kernel (bf16, f16)
 //                           <- _flash_fwd_single_kernel (:310)
-//   flash_dqkv_kernel       (bf16, f16), flash_dqkv_f32_kernel
+//   flash_dqkv_kernel       (bf16, f16)
 //                           <- _flash_dqkv_fused_kernel (:343)
+// and, for float32, the 3xTF32 kernels of flash_attention_3xtf32.cu
+// (flash_fwd_single_3xtf32_kernel, flash_dqkv_3xtf32_kernel).
 //
 // What bounds them, against the H100 SXM data-sheet peaks (989 TFLOP/s bf16,
 // 3.35 TB/s, at its 700 W limit): at the BERT-Large phase-1 shape (sequence
@@ -57,25 +59,24 @@
 //     MN-major as A). The whole key range of a head is in the block, so no
 //     atomics are needed. dQ, dK and dV leave through shared memory by TMA
 //     stores (rows past Sq or Sk are not written).
-//   Backward, float32 (flash_dqkv_f32_kernel): the first version, one block
-//     per bh, eight warps. K and V stay resident; Q, dO and their row
-//     vectors come in 32-row chunks. Per chunk the block computes S = Q K^T
-//     and dP = dO V^T (16 x 16 tiles spread over the warps), then P and dS,
-//     then writes dQ = scale dS K for the chunk. Each warp owns 16 key rows
-//     and accumulates their dV = P^T dO and dK = scale dS^T Q across chunks.
-// The Hopper kernels are templated on the 2-byte type T (bf16 or float16:
-// wgmma's kind, the tensor maps' data type, the rounding of P, dS and the
-// outputs). Products take the stored dtype (bf16 or float16 on tensor cores
-// by wgmma, fp32 accumulation; the float32 backward on the FMA units), and
-// P and dS are rounded to the operand dtype before the PV, P^T dO, dS K and
-// dS^T Q products, as the TPU kernels do. The float32 backward is the simple
-// first version: no TMA, no tensor cores, no pipelining of loads against
-// compute.
+//   Backward, float32: on the tensor cores in 3xTF32
+//     (flash_attention_3xtf32.cu, flash_dqkv_3xtf32_kernel): one work tile
+//     a head, its K and V resident while its Q and dO stream past in 64-row
+//     tiles; each warp owns 16 keys (dK, dV in registers), and dQ of a Q
+//     tile sums the warps' dS through a shared tile, as here.
+// The Hopper kernels here are templated on the 2-byte type T (bf16 or
+// float16: wgmma's kind, the tensor maps' data type, the rounding of P, dS
+// and the outputs). Products take the stored dtype (bf16 or float16 on
+// tensor cores by wgmma, fp32 accumulation), and P and dS are rounded to
+// the operand dtype before the PV, P^T dO, dS K and dS^T Q products, as the
+// TPU kernels do (float32: not rounded).
 //
 // Semantics (identical to the TPU kernels): causal masking on global
 // positions q_offset + i >= k_offset + j; a row with no visible key gives
 // O = 0 and lse = 1e30; dS = P * (dO V^T - delta + g_lse). Any Sq, Sk up to
-// 128 works: rows and keys past the end are masked.
+// 128 works: rows and keys past the end are masked; with no key the forward
+// gives O = 0, lse = 1e30 and dQ = 0, with no query dK = dV = 0
+// (flash_hopper.cuh: fwd_empty, zero_fill).
 //
 // C interface: every entry point launches on the given stream, does not
 // synchronise, and returns the cudaError_t of the launch (0 on success), or
@@ -83,28 +84,20 @@
 
 #include "flash_hopper.cuh"
 
-// The float32 forward on the tensor cores (flash_attention_3xtf32.cu).
+// The float32 forward and fused backward on the tensor cores
+// (flash_attention_3xtf32.cu): D = 32, 64 and 128 (the wrapper zero-pads
+// D = 16 to 32; any other D: cudaErrorInvalidValue).
 int launch_fwd_single_3xtf32(const void* q, const void* k, const void* v, void* o, void* lse,
                              int BH, int Sq, int Sk, int D, float scale, int causal, int qo,
                              int ko, cudaStream_t stream);
+int launch_dqkv_3xtf32(const void* q, const void* k, const void* v, const void* dout,
+                       const void* lse, const void* delta, const void* glse, void* dq, void* dk,
+                       void* dv, int BH, int Sq, int Sk, int D, float scale, int causal, int qo,
+                       int ko, cudaStream_t stream);
 
 namespace {
 
 constexpr int SMAX = 128;  // most rows of Q or of K/V
-constexpr int QC = 32;  // Q rows of one backward chunk
-constexpr int BWD_WARPS = 8;  // each owns 16 of the SMAX key rows
-constexpr int BWD_THREADS = BWD_WARPS * 32;
-
-static_assert(BWD_WARPS * 16 == SMAX, "one 16-key slice per backward warp");
-
-// Leading dimensions in shared memory, padded by 32 bytes for T: every WMMA
-// fragment pointer stays 256-bit aligned and rows fall on different banks.
-template <typename T, int D>
-struct SingleLayout {
-  static constexpr int LDT = D + 32 / (int)sizeof(T);      // operand tiles
-  static constexpr int LDS = SMAX + 8;                      // fp32 scores
-  static constexpr int LDO = D + 8;                         // fp32 outputs
-};
 
 // ---------------------------------------------------------------------------
 // Forward, bf16 on Hopper: o [BH, Sq, D] bf16, lse [BH, Sq] fp32.
@@ -599,138 +592,13 @@ flash_dqkv_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// ---------------------------------------------------------------------------
-// Fused backward, float32: dq [BH, Sq, D], dk and dv [BH, Sk, D]. P and dS
-// replace S and dP in place, and dQ's 16 x 16 tiles pass through a small
-// staging tile of each warp: at D = 128 the block takes 217,472 bytes of
-// shared memory.
-// ---------------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(BWD_THREADS)
-flash_dqkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, const float* __restrict__ dout,
-                      const float* __restrict__ lse, const float* __restrict__ delta,
-                      const float* __restrict__ glse, float* __restrict__ dq,
-                      float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk, float scale,
-                      int causal, int q_offset, int k_offset) {
-  using T = float;
-  using L = SingleLayout<T, D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* sK = reinterpret_cast<T*>(smem);
-  T* sV = sK + SMAX * L::LDT;
-  // Chunk buffers; after the last chunk, each warp's dK/dV staging tile.
-  T* sQ = sV + SMAX * L::LDT;
-  T* sdO = sQ + QC * L::LDT;
-  float* sS = reinterpret_cast<float*>(sdO + QC * L::LDT);  // S, then P
-  float* sdP = sS + QC * L::LDS;                             // dP, then dS
-  float* sDQ = sdP + QC * L::LDS;  // a 16 x 16 dQ tile of each warp
-  float* sLse = sDQ + BWD_WARPS * 256;
-  float* sDelta = sLse + QC;
-  float* sGlse = sDelta + QC;
-
-  const int bh = blockIdx.x;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int key0 = warp * 16;
-  const size_t qoff = (size_t)bh * Sq * D;
-  const size_t koff = (size_t)bh * Sk * D;
-
-  load_tile<T, D, SMAX, BWD_THREADS>(sK, L::LDT, k + koff, 0, Sk);
-  load_tile<T, D, SMAX, BWD_THREADS>(sV, L::LDT, v + koff, 0, Sk);
-  RowAcc<T, D> acc_dv, acc_dk;
-  acc_dv.zero();
-  acc_dk.zero();
-
-  for (int q0 = 0; q0 < Sq; q0 += QC) {
-    __syncthreads();  // every warp is done with the previous chunk
-    load_tile<T, D, QC, BWD_THREADS>(sQ, L::LDT, q + qoff, q0, Sq);
-    load_tile<T, D, QC, BWD_THREADS>(sdO, L::LDT, dout + qoff, q0, Sq);
-    load_rows<QC, BWD_THREADS>(sLse, lse + (size_t)bh * Sq, q0, Sq);
-    load_rows<QC, BWD_THREADS>(sDelta, delta + (size_t)bh * Sq, q0, Sq);
-    load_rows<QC, BWD_THREADS>(sGlse, glse + (size_t)bh * Sq, q0, Sq);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T, as 16 x 16 tiles spread over the warps.
-    constexpr int NT = (QC / 16) * (SMAX / 16);
-    for (int t = warp; t < 2 * NT; t += BWD_WARPS) {
-      const bool grad = t >= NT;
-      const int rs = (t % NT) / (SMAX / 16);
-      const int cs = (t % NT) % (SMAX / 16);
-      warp_gemm<false, true, 16, D>((grad ? sdO : sQ) + rs * 16 * L::LDT, L::LDT,
-                                    (grad ? sV : sK) + cs * 16 * L::LDT, L::LDT,
-                                    (grad ? sdP : sS) + rs * 16 * L::LDS + cs * 16, L::LDS,
-                                    false);
-    }
-    __syncthreads();
-
-    for (int idx = threadIdx.x; idx < QC * SMAX; idx += BWD_THREADS) {
-      const int r = idx / SMAX;
-      const int c = idx % SMAX;
-      float p = 0.f, ds = 0.f;
-      if (visible(q0 + r, c, Sq, Sk, causal, q_offset, k_offset)) {
-        p = expf(sS[r * L::LDS + c] * scale - sLse[r]);
-        ds = p * (sdP[r * L::LDS + c] - sDelta[r] + sGlse[r]);
-      }
-      sS[r * L::LDS + c] = p;
-      sdP[r * L::LDS + c] = ds;
-    }
-    __syncthreads();
-    const float* sP = sS;
-    const float* sdS = sdP;
-
-    // dQ of the chunk, tile by tile, through the warp's staging tile.
-    constexpr int NQT = (QC / 16) * (D / 16);
-    float* st = sDQ + warp * 256;
-    for (int t = warp; t < NQT; t += BWD_WARPS) {
-      const int rs = t / (D / 16);
-      const int cs = t % (D / 16);
-      warp_gemm<false, false, 16, SMAX>(sdS + rs * 16 * L::LDS, L::LDS, sK + cs * 16, L::LDT, st,
-                                        16, false);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int qi = q0 + rs * 16 + e / 16;
-        if (qi < Sq) dq[qoff + (size_t)qi * D + cs * 16 + e % 16] = from_f<T>(scale * st[e]);
-      }
-      __syncwarp();  // the tile is read before the next one overwrites it
-    }
-
-    // This warp's 16 key rows: contraction over the chunk's Q rows.
-    if (key0 < Sk) {
-      acc_dv.template add_at_b<QC>(sP + key0, L::LDS, sdO, L::LDT);
-      acc_dk.template add_at_b<QC>(sdS + key0, L::LDS, sQ, L::LDT);
-    }
-  }
-  __syncthreads();  // the chunk buffers become staging tiles
-
-  if (key0 >= Sk) return;
-  float* st = reinterpret_cast<float*>(sQ) + warp * 16 * L::LDO;
-  auto write = [&](const RowAcc<T, D>& acc, T* out, float mul) {
-    acc.store(st, L::LDO);
-    __syncwarp();
-    for (int e = lane; e < 16 * D; e += 32) {
-      const int kj = key0 + e / D;
-      if (kj < Sk) out[koff + (size_t)kj * D + e % D] = from_f<T>(mul * st[(e / D) * L::LDO + e % D]);
-    }
-    __syncwarp();
-  };
-  write(acc_dv, dv, 1.f);
-  write(acc_dk, dk, scale);
-}
-
-template <typename T, int D>
-constexpr size_t dqkv_smem() {
-  using L = SingleLayout<T, D>;
-  constexpr size_t chunk = (size_t)2 * QC * L::LDT * sizeof(T) + 2 * QC * L::LDS * sizeof(float) +
-                           BWD_WARPS * 256 * sizeof(float) + 3 * QC * sizeof(float);
-  constexpr size_t staging = (size_t)BWD_WARPS * 16 * L::LDO * sizeof(float);
-  return (size_t)2 * SMAX * L::LDT * sizeof(T) + (chunk > staging ? chunk : staging);
-}
-
 template <typename T, int D>
 int launch_fwd_single(const void* q, const void* k, const void* v, void* o, void* lse, int BH,
                       int Sq, int Sk, float scale, int causal, int qo, int ko,
                       cudaStream_t stream) {
-  if (Sq < 1 || Sk < 1 || Sq > SMAX || Sk > SMAX) return cudaErrorInvalidValue;
+  if (Sq > SMAX || Sk > SMAX) return cudaErrorInvalidValue;
+  if (!BH || !Sq || !Sk)
+    return fwd_empty(o, (size_t)BH * Sq * D * sizeof(T), lse, (long long)BH * Sq, stream);
   if constexpr (!std::is_same<T, float>::value) {
     static_assert(FwdSingleSmem<D>::BYTES <= SMEM_LIMIT, "forward buffers exceed shared memory");
     CUtensorMap mq, mk, mv, mo;
@@ -755,7 +623,11 @@ template <typename T, int D>
 int launch_dqkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                 const void* delta, const void* glse, void* dq, void* dk, void* dv, int BH, int Sq,
                 int Sk, float scale, int causal, int qo, int ko, cudaStream_t stream) {
-  if (Sq < 1 || Sk < 1 || Sq > SMAX || Sk > SMAX) return cudaErrorInvalidValue;
+  if (Sq > SMAX || Sk > SMAX) return cudaErrorInvalidValue;
+  if (!BH || !Sq || !Sk) {  // dQ = 0 with no key, dK = dV = 0 with no query
+    const int err = zero_fill(stream, (size_t)BH * Sq * D * sizeof(T), dq);
+    return err ? err : zero_fill(stream, (size_t)BH * Sk * D * sizeof(T), dk, dv);
+  }
   if constexpr (!std::is_same<T, float>::value) {
     using L = DqkvSmem<D>;
     static_assert(L::BYTES <= SMEM_LIMIT, "backward buffers exceed shared memory");
@@ -775,11 +647,8 @@ int launch_dqkv(const void* q, const void* k, const void* v, const void* dout, c
                   mq, mk, mv, mdo, mdq, mdk, mdv, (const float*)lse, (const float*)delta,
                   (const float*)glse, BH, Sq, Sk, scale, causal, qo, ko);
   } else {
-    static_assert(dqkv_smem<T, D>() <= SMEM_LIMIT, "backward tiles exceed shared memory");
-    return launch(flash_dqkv_f32_kernel<D>, dim3(BH), BWD_THREADS, dqkv_smem<T, D>(), stream,
-                  (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
-                  (const float*)delta, (const float*)glse, (T*)dq, (T*)dk, (T*)dv, Sq, Sk, scale,
-                  causal, qo, ko);
+    return launch_dqkv_3xtf32(q, k, v, dout, lse, delta, glse, dq, dk, dv, BH, Sq, Sk, D, scale,
+                              causal, qo, ko, stream);
   }
 }
 

@@ -724,7 +724,8 @@ int launch_fwd_hopper(const void* q, const void* k, const void* v, void* o, void
                       int Sq, int Sk, int D, float scale, int causal, int qo, int ko,
                       cudaStream_t stream) {
   if (D <= 0 || D % 8) return cudaErrorInvalidValue;
-  if (Sq == 0 || BH == 0) return cudaSuccess;
+  if (!BH || !Sq || !Sk)
+    return fwd_empty(o, (size_t)BH * Sq * D * sizeof(T), lse, (long long)BH * Sq, stream);
   CUtensorMap mq, mk, mv;
   dim3 grid;
   int err;
@@ -743,7 +744,7 @@ int launch_dkv_hopper(const void* q, const void* k, const void* v, const void* d
                       int BH, int Sq, int Sk, int D, float scale, int causal, int qo, int ko,
                       cudaStream_t stream) {
   if (D <= 0 || D % 8) return cudaErrorInvalidValue;
-  if (Sk == 0 || BH == 0) return cudaSuccess;
+  if (!BH || !Sq || !Sk) return zero_fill(stream, (size_t)BH * Sk * D * sizeof(T), dk, dv);
   CUtensorMap mq, mk, mv, mdo;
   dim3 grid;
   int err;
@@ -763,9 +764,7 @@ int launch_dq_hopper(const void* q, const void* k, const void* v, const void* do
                      int Sq, int Sk, int D, float scale, int causal, int qo, int ko,
                      cudaStream_t stream) {
   if (D <= 0 || D % 8) return cudaErrorInvalidValue;
-  if (Sq == 0 || BH == 0) return cudaSuccess;
-  if (Sk == 0)  // no key: dQ is 0 (and a tensor map cannot have an empty dim)
-    return cudaMemsetAsync(dq, 0, (size_t)BH * Sq * D * sizeof(T), stream);
+  if (!BH || !Sq || !Sk) return zero_fill(stream, (size_t)BH * Sq * D * sizeof(T), dq);
   CUtensorMap mq, mk, mv, mdo;
   dim3 grid;
   int err;

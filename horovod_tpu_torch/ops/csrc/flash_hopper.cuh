@@ -17,6 +17,10 @@
 #include "flash_common.cuh"
 #include "sm90.cuh"
 
+// lse = LSE_MASKED for `rows` rows, queued on the stream: the library's
+// one fill kernel (flash_attention.cu), which a forward with no key runs.
+int fill_lse_masked(float* lse, long long rows, cudaStream_t stream);
+
 namespace {
 
 constexpr int WG = 128;            // threads of a warpgroup
@@ -230,6 +234,24 @@ int sm_count(int* sms) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   return err;
+}
+
+// The calls with nothing to compute (no head, no query or no key), which
+// every launcher takes as the plain versions do, before it builds a tensor
+// map (a tensor map cannot have an empty dim): a forward writes O = 0 and
+// lse = LSE_MASKED for the rows there are, dQ is 0 and dK, dV are 0 (none
+// of them for a dim that is 0). Zeros are memsets of `bytes` at each
+// output given; each returns the cudaError_t of what it queued.
+inline int zero_fill(cudaStream_t stream, size_t bytes, void* a, void* b = nullptr) {
+  cudaError_t err = cudaSuccess;
+  if (bytes) err = cudaMemsetAsync(a, 0, bytes, stream);
+  if (bytes && b && err == cudaSuccess) err = cudaMemsetAsync(b, 0, bytes, stream);
+  return err;
+}
+
+inline int fwd_empty(void* o, size_t o_bytes, void* lse, long long rows, cudaStream_t stream) {
+  const int err = zero_fill(stream, o_bytes, o);
+  return err || !rows ? err : fill_lse_masked((float*)lse, rows, stream);
 }
 
 // Allow `smem` bytes of dynamic shared memory for `kernel`, then launch it.

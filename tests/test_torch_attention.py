@@ -218,6 +218,54 @@ def test_no_key_gives_zero_output_and_sentinel(D, causal):
     assert dq.shape == q.shape and torch.all(dq == 0.0)
 
 
+@pytest.mark.parametrize("causal", [False, True])
+def test_no_key_on_the_single_tile_route(causal):
+    """The single-tile forward and fused backward with no key (Sk = 0): O = 0
+    and lse = LSE_MASKED, dQ = 0, and dK, dV empty, as every route's kernels
+    write."""
+    q = torch.randn(2, 40, 64, generator=torch.Generator().manual_seed(1))
+    k = q[:, :0]
+    o, lse = port.flash_fwd_single(q, k, k, causal)
+    assert o.shape == q.shape and torch.all(o == 0.0)
+    assert lse.shape == q.shape[:2] and torch.all(lse == port.LSE_MASKED)
+    dq, dk, dv = port.flash_dqkv(q, k, k, q, lse, lse, lse, causal)
+    assert dq.shape == q.shape and torch.all(dq == 0.0)
+    assert dk.shape == dv.shape == k.shape
+
+
+@pytest.mark.parametrize("Sq,D", [(40, 64), (200, 64), (40, 512)])
+def test_no_key_through_the_entry_point(Sq, D):
+    """flash_attention_lse with no key, forward and backward, on each route
+    (single-tile, multi-tile, wide): out = 0, lse = LSE_MASKED, and the
+    gradients of q zero and of k, v empty."""
+    gen = torch.Generator().manual_seed(Sq + D)
+    q = torch.randn(1, 2, Sq, D, generator=gen).requires_grad_()
+    k = torch.randn(1, 2, 0, D, generator=gen).requires_grad_()
+    v = torch.randn(1, 2, 0, D, generator=gen).requires_grad_()
+    out, lse = port.flash_attention_lse(q, k, v)
+    assert torch.all(out == 0.0) and torch.all(lse == port.LSE_MASKED)
+    (out.sum() + lse.sum()).backward()
+    assert torch.all(q.grad == 0.0)
+    assert k.grad.shape == k.shape and v.grad.shape == v.shape
+
+
+@pytest.mark.parametrize("kernel,D", [("flash_dkv", 64), ("flash_dkv", 512),
+                                      ("flash_dqkv", 64)])
+def test_no_query_gives_zero_key_gradients(kernel, D):
+    """With no query (Sq = 0) dK = dV = 0 (and the fused backward's dQ is
+    empty), as every route's kernels write."""
+    gen = torch.Generator().manual_seed(D)
+    k = torch.randn(2, 40, D, generator=gen)
+    q = k[:, :0]
+    rows = torch.zeros(2, 0)
+    out = getattr(port, kernel)(q, k, k, q, rows, rows, rows)
+    dk, dv = out[-2:]
+    assert dk.shape == dv.shape == k.shape
+    assert torch.all(dk == 0.0) and torch.all(dv == 0.0)
+    if kernel == "flash_dqkv":
+        assert out[0].shape == q.shape
+
+
 def test_gradient_through_lse_only():
     """A zero output cotangent with a nonzero lse cotangent still moves
     dQ/dK (dS = P * g_lse) and leaves dV at zero."""
@@ -360,9 +408,11 @@ def test_profile_categories_name_kernels_in_the_sources():
             "flash_fwd_single_kernel", "flash_dq_3xtf32_kernel",
             "flash_dkv_3xtf32_kernel", "flash_fwd_3xtf32_kernel",
             "flash_fwd_single_3xtf32_kernel"} <= kernels
-    # The SIMT float32 dQ and dK/dV are gone: every float32 multi-tile
-    # backward runs in 3xTF32.
-    assert not {"flash_dq_f32_kernel", "flash_dkv_f32_kernel"} & kernels
+    # The SIMT float32 dQ, dK/dV and fused backward are gone: every
+    # float32 backward runs in 3xTF32.
+    assert not {"flash_dq_f32_kernel", "flash_dkv_f32_kernel",
+                "flash_dqkv_f32_kernel"} & kernels
+    assert "flash_dqkv_3xtf32_kernel" in kernels
     categories = dict(smoke._CATEGORIES)
     for kern in _kernels.KERNELS:
         for key in categories[kern.name]:
@@ -403,7 +453,9 @@ _HOPPER_INSTANCES = [(k, d, t) for k in ("flash_fwd_kernel", "flash_dq_kernel",
                                                 "flash_dq_3xtf32_kernel",
                                                 "flash_dkv_3xtf32_kernel")
                          for d in (32, 64, 128, 256)] + [
-                         ("flash_fwd_single_3xtf32_kernel", d, None)
+                         (k, d, None) for k in (
+                             "flash_fwd_single_3xtf32_kernel",
+                             "flash_dqkv_3xtf32_kernel")
                          for d in (32, 64, 128)] + [
                          (k, None, None) for k in (
                              "flash_fwd_wide_3xtf32_kernel",
@@ -416,7 +468,8 @@ def _hopper_mangled(kernel, d, t="bf16"):
     """The mangled name nvcc gives a Hopper instance of element type t
     (d None: the filter gradient or a wide-head kernel, templated on the
     type alone; t None: the float32 3xTF32 kernels, templated on the head
-    dim alone: the forwards, dQ and dK/dV, each with its parameters; both
+    dim alone: the forwards, dQ, dK/dV and the fused backward, each with its
+    parameters; both
     None: the float32 wide-head forward, dQ and dK/dV and the float32
     filter gradient, not templated)."""
     if t is None and d is None:
@@ -429,7 +482,9 @@ def _hopper_mangled(kernel, d, t="bf16"):
                 + params)
     if t is None:
         params = {"flash_dq_3xtf32_kernel": "S1_S1_S1_PfPKfS4_S4_iiifiii",
-                  "flash_dkv_3xtf32_kernel": "S1_S1_S1_PfS2_PKfS4_S4_iiifiii"}
+                  "flash_dkv_3xtf32_kernel": "S1_S1_S1_PfS2_PKfS4_S4_iiifiii",
+                  "flash_dqkv_3xtf32_kernel":
+                      "S1_S1_S1_PfS2_S2_PKfS4_S4_iiifiii"}
         return (f"_ZN12_GLOBAL__N_1{len(kernel)}{kernel}ILi{d}EEEv14"
                 "CUtensorMap_st" + params.get(kernel, "S1_S1_PfS2_iiifiii"))
     if d is None:
@@ -446,15 +501,19 @@ def _instance(kernel, d, t):
     return f"{kernel}<{t}>" if d is None else f"{kernel}<{t}, {d}>"
 
 
+# Kernels of the library that are no Hopper instance: the filter
+# gradient's reduction and the forwards' fill of lse with no key.
+_REDUCE = "_ZN12_GLOBAL__N_120dw_1x1_reduce_kernelEPKfPfim"
+_NO_KEY = "_ZN12_GLOBAL__N_123flash_fwd_no_key_kernelEPfx"
+
+
 def _hopper_log():
-    """A clean ptxas log of every Hopper instance, beside float32 kernels
+    """A clean ptxas log of every Hopper instance, beside other kernels
     that spill (which do not count against the build)."""
-    return (_ptxas_entry("_ZN12_GLOBAL__N_121flash_dqkv_f32_kernelILi16E"
-                         "EEvPKfS2_S2_S2_S2_S2_S2_PfS3_S3_iifiii",
-                         "8 bytes spill stores, 8 bytes spill loads", 255)
-            + _ptxas_entry("_ZN12_GLOBAL__N_121flash_dqkv_f32_kernelILi64E"
-                           "EEvPKfS2_S2_S2_S2_S2_S2_PfS3_S3_iifiii",
-                           "4 bytes spill stores, 4 bytes spill loads", 128)
+    return (_ptxas_entry(_NO_KEY, "8 bytes spill stores, 8 bytes spill loads",
+                         255)
+            + _ptxas_entry(_REDUCE, "4 bytes spill stores, 4 bytes spill loads",
+                           128)
             + "".join(_ptxas_entry(_hopper_mangled(k, d, t))
                       for k, d, t in _HOPPER_INSTANCES))
 
@@ -487,6 +546,9 @@ def _hopper_log():
     ("flash_fwd_single_3xtf32_kernel", 32, "spill"),
     ("flash_fwd_single_3xtf32_kernel", 64, "spill"),
     ("flash_fwd_single_3xtf32_kernel", 128, "spill"),
+    ("flash_dqkv_3xtf32_kernel", 32, "spill"),
+    ("flash_dqkv_3xtf32_kernel", 64, "spill"),
+    ("flash_dqkv_3xtf32_kernel", 128, "spill"),
     ("flash_fwd_wide_3xtf32_kernel", None, "spill"),
     ("flash_dq_wide_3xtf32_kernel", None, "spill"),
     ("flash_dkv_wide_3xtf32_kernel", None, "spill"),
@@ -494,7 +556,8 @@ def _hopper_log():
 def test_build_report_names_the_redesigned_hopper_culprit(kernel, d, fault):
     """The fused backward's, the filter gradient's and the wide-head
     forward's, dQ's and dK/dV's bf16 Hopper instances, and the float32
-    3xTF32 forwards, dQ and dK/dV (each head dim alone, and the wide-head
+    3xTF32 forwards, dQ, dK/dV and fused backward (each head dim alone, and
+    the wide-head
     forward, dQ and dK/dV) and filter gradient, are in the build phase's
     list, and a spill or serialized wgmma in one of them fails it, naming
     that instance alone."""
@@ -549,20 +612,15 @@ def test_build_report_flags_spills_and_serialized_wgmma_of_hopper_kernels():
 
     hopper = _hopper_mangled
     instances = _HOPPER_INSTANCES
-    others = (_ptxas_entry("_ZN12_GLOBAL__N_121flash_dqkv_f32_kernelILi64E"
-                           "EEvPKfS2_S2_S2_S2_S2_S2_PfS3_S3_iifiii",
-                           "8 bytes spill stores, 8 bytes spill loads", 255)
-              + _ptxas_entry("_ZN12_GLOBAL__N_120dw_1x1_reduce_kernel"
-                             "EPKfPfim", registers=96)
-              + _ptxas_entry("_ZN12_GLOBAL__N_121flash_dqkv_f32_kernel"
-                             "ILi16EEEvPKfS2_S2_S2_S2_S2_S2_PfS3_S3_iifiii",
-                             "4 bytes spill stores, 4 bytes spill loads",
-                             128))
+    others = (_ptxas_entry(_NO_KEY, "8 bytes spill stores, 8 bytes spill "
+                           "loads", 255)
+              + _ptxas_entry(_REDUCE, "4 bytes spill stores, 4 bytes spill "
+                             "loads", 96))
     clean = others + "".join(_ptxas_entry(hopper(k, d, t))
                              for k, d, t in instances)
     regs, faults = smoke.hopper_build_report(clean)
     assert sorted(regs) == sorted(smoke.HOPPER_INSTANCES)
-    assert len(regs) == 73
+    assert len(regs) == 76
     assert set(regs.values()) == {168} and faults == []
 
     def spill(log, kernel, d, t):
@@ -598,7 +656,9 @@ def test_build_report_flags_spills_and_serialized_wgmma_of_hopper_kernels():
             (spill(clean, "flash_dq_3xtf32_kernel", 64, None),
              "flash_dq_3xtf32_kernel<64>"),
             (spill(clean, "flash_dkv_3xtf32_kernel", 128, None),
-             "flash_dkv_3xtf32_kernel<128>")):
+             "flash_dkv_3xtf32_kernel<128>"),
+            (spill(clean, "flash_dqkv_3xtf32_kernel", 64, None),
+             "flash_dqkv_3xtf32_kernel<64>")):
         _, faults = smoke.hopper_build_report(log)
         assert len(faults) == 1 and faults[0].startswith(culprit), faults
 
@@ -667,19 +727,20 @@ def test_float32_forwards_pad_head_dims_below_32(monkeypatch, single, dtype,
     assert dims == port.instance_head_dims(dtype, route)
 
 
-@pytest.mark.parametrize("kernel", ["flash_dq", "flash_dkv"])
+@pytest.mark.parametrize("kernel", ["flash_dq", "flash_dkv", "flash_dqkv"])
 @pytest.mark.parametrize("dtype,D,want", [
     (torch.float32, 8, 32), (torch.float32, 16, 32), (torch.float32, 100, 128),
     (torch.bfloat16, 16, 16)])
 def test_float32_backward_pads_head_dims_below_32(monkeypatch, kernel, dtype,
                                                   D, want):
-    """The float32 dQ and dK/dV (3xTF32) have no D = 16 instance either:
-    their wrappers plan D <= 16 at 32 in float32, where bf16 keeps 16.
-    Shapes only, on the meta device, with the launch replaced by the plain
-    version."""
+    """The float32 dQ, dK/dV and fused backward (3xTF32) have no D = 16
+    instance either: their wrappers plan D <= 16 at 32 in float32, where
+    bf16 keeps 16. Shapes only, on the meta device, with the launch
+    replaced by the plain version."""
     launched = []
     plain = {"flash_dq": port.flash_dq_plain,
-             "flash_dkv": port.flash_dkv_plain}
+             "flash_dkv": port.flash_dkv_plain,
+             "flash_dqkv": port.flash_dqkv_plain}
 
     def fake_launch(kern, dims):
         def run(*args):
@@ -689,6 +750,8 @@ def test_float32_backward_pads_head_dims_below_32(monkeypatch, kernel, dtype,
 
     monkeypatch.setattr(port, "_dq_launch", fake_launch)
     monkeypatch.setattr(port, "_dkv_launch", fake_launch)
+    monkeypatch.setattr(port, "_dqkv_launch",
+                        lambda dims: fake_launch(_kernels.FLASH_DQKV, dims))
     monkeypatch.setattr(port, "_check_device", lambda t: None)
     q = torch.empty(2, 40, D, device="meta", dtype=dtype)
     rows = torch.empty(2, 40, device="meta")
@@ -697,7 +760,9 @@ def test_float32_backward_pads_head_dims_below_32(monkeypatch, kernel, dtype,
         assert t.shape == q.shape
     (name, planned, dims), = launched
     assert name == kernel and planned == want and want in dims
-    assert dims == port.instance_head_dims(dtype, port.KERNEL_HEAD_DIMS)
+    route = (port.SINGLE_TILE_HEAD_DIMS if kernel == "flash_dqkv"
+             else port.KERNEL_HEAD_DIMS)
+    assert dims == port.instance_head_dims(dtype, route)
 
 
 @pytest.mark.parametrize("D", [8, 16])
@@ -733,14 +798,14 @@ def test_float32_backward_padding_plan_holds_jax(D):
 
 @pytest.mark.parametrize("name,D", [
     (name, D) for name in ("flash_dq", "flash_dkv") for D in (16, 64, 100, 256)
-] + [("flash_dqkv", D) for D in (16, 64, 100)])
+] + [("flash_dqkv", D) for D in (16, 32, 64, 100, 128)])
 def test_chip_smoke_knows_which_backward_runs_in_3xtf32(name, D):
     """chip_smoke.py bounds and checks a float32 kernel as 3xTF32 where it
-    runs a TF32X3 instance: dQ and dK/dV at every head dim up to 256 (D = 16
-    padded to 32, 100 to 128), never the single-tile fused backward (SIMT,
-    its D = 16 instance unpadded)."""
+    runs a TF32X3 instance: dQ and dK/dV at every head dim up to 256, the
+    single-tile fused backward at every head dim up to 128 (D = 16 padded
+    to 32, 100 to 128)."""
     smoke = _chip_smoke()
-    assert smoke._runs_3xtf32(name, D) is (name != "flash_dqkv")
+    assert smoke._runs_3xtf32(name, D) is True
 
 
 @pytest.mark.parametrize("operands", ["plain", "tf32"])

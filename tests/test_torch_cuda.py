@@ -616,26 +616,117 @@ def test_float32_filter_gradient_runs_the_3xtf32_kernel(cuda_device, shape,
     (512, 6, 264, 200, True, 64, 0),
     (1024, 4, 128, 128, True, 0, 0),
     (320, 65600, 24, 24, True, 0, 0),
-    # No key: O = 0 and lse = LSE_MASKED for every row.
+    # No key: O = 0 and lse = LSE_MASKED for every row, written by the
+    # launcher (a memset and the lse fill kernel), as on every route.
     (512, 4, 64, 0, False, 0, 0),
     # The timed shape, where the error against float64 is held too.
     (512, 32, 512, 512, False, 0, 0)])
 def test_float32_wide_forward_runs_the_3xtf32_kernel(
         cuda_device, D, BH, Sq, Sk, causal, q_offset, k_offset):
     """The float32 wide-head forward launches flash_fwd_wide_3xtf32_kernel
-    (launch counter and the profile's kernel names) and holds the plain
-    version at 1e-4 (lse 1e-3, the same rows masked); at B*H = 32, S = 512,
-    D = 512 its error against float64 is within chip_smoke.py's
-    F64_ERR_RATIO of the float32 plain version's."""
+    (launch counter and the profile's kernel names; with no key the lse
+    fill kernel alone) and holds the plain version at 1e-4 (lse 1e-3, the
+    same rows masked); at B*H = 32, S = 512, D = 512 its error against
+    float64 is within chip_smoke.py's F64_ERR_RATIO of the float32 plain
+    version's."""
     smoke = _chip_smoke()
     q, k, v, _, _ = _attention_operands(cuda_device, 13, BH, Sq, Sk, D,
                                         torch.float32)
     ran = smoke._attention_kernels_ms(
         lambda: _hold_forward(port.flash_fwd, _kernels.FLASH_FWD_WIDE, q, k,
                               v, causal, q_offset, k_offset))
-    assert set(ran) == {"flash_fwd_wide_3xtf32_kernel"}
+    assert set(ran) == {"flash_fwd_no_key_kernel" if Sk == 0
+                        else "flash_fwd_wide_3xtf32_kernel"}
     if BH == 32:
         got = port.flash_fwd(q, k, v, causal, q_offset, k_offset)
         want = port.flash_fwd_plain(q, k, v, causal, q_offset, k_offset)
         smoke._f64_check("wide_d512", q, k, v, None, got, want, causal,
                          q_offset, k_offset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,BH,Sq,Sk,causal,q_offset,k_offset", [
+    # Causal and ragged with an lse cotangent at every instance (D = 16
+    # and 48 zero-padded to 32 and 64, 100 to 128): a query offset; a key
+    # offset with rows 0..22 seeing no key; keys within one 64-key half;
+    # rows within one Q tile; the first Q tile seeing no key at all.
+    (16, 6, 128, 128, True, 16, 0),
+    (32, 6, 112, 128, True, 16, 0),
+    (48, 6, 77, 100, True, 0, 23),
+    (64, 6, 77, 100, True, 0, 23),
+    (64, 6, 128, 40, False, 0, 0),
+    (64, 6, 5, 128, True, 0, 0),
+    (64, 4, 128, 128, True, 0, 100),
+    (100, 6, 128, 128, True, 16, 0),
+    (128, 6, 77, 100, True, 0, 23),
+    # More heads than a grid dimension (the persistent grid walks them).
+    (16, 65600, 16, 16, False, 0, 0),
+    # BERT-Large's S = 128 shape and the same at D = 128, where the errors
+    # against float64 are held too.
+    (64, 1024, 128, 128, False, 0, 0),
+    (128, 64, 128, 128, True, 0, 0)])
+def test_float32_fused_backward_runs_the_3xtf32_kernel(
+        cuda_device, D, BH, Sq, Sk, causal, q_offset, k_offset):
+    """The float32 fused single-tile backward launches
+    flash_dqkv_3xtf32_kernel at the planned head dim (launch counter and
+    the profile's kernel names), holds the plain version at float32's 1e-4,
+    gives the same bits on a second call, and at BERT-Large's S = 128 shape
+    and at D = 128 its errors against float64 (lse cotangent included) are
+    within chip_smoke.py's F64_ERR_RATIO of the float32 plain version's."""
+    smoke = _chip_smoke()
+    q, k, v, do, glse = _attention_operands(cuda_device, 14, BH, Sq, Sk, D,
+                                            torch.float32)
+    o_ref, lse = port.flash_fwd_plain(q, k, v, causal, q_offset, k_offset)
+    delta = (do * o_ref).sum(-1)
+    args = (q, k, v, do, lse, delta, glse, causal, q_offset, k_offset)
+    before = _kernels.FLASH_DQKV.launches
+    got = []
+    ran = smoke._attention_kernels_ms(
+        lambda: got.extend(port.flash_dqkv(*args)))
+    assert _kernels.FLASH_DQKV.launches == before + 1
+    Dk = port.kernel_head_dim(
+        D, port.instance_head_dims(torch.float32, port.SINGLE_TILE_HEAD_DIMS))
+    assert Dk == {16: 32, 48: 64, 100: 128}.get(D, D)
+    assert set(ran) == {f"flash_dqkv_3xtf32_kernel<{Dk}>"}
+    want = port.flash_dqkv_plain(*args)
+    _hold(zip(got, want), torch.float32)
+    assert all(torch.equal(a, b) for a, b in zip(got, port.flash_dqkv(*args)))
+    if BH in (1024, 64):
+        smoke._f64_check(f"dqkv_d{D}", q, k, v, do, got, want, causal,
+                         q_offset, k_offset, glse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("route,D,S", [("single-tile", 64, 40),
+                                       ("multi-tile", 64, 200),
+                                       ("wide", 320, 200)])
+@pytest.mark.parametrize("no", ["key", "query"])
+def test_every_route_takes_no_key_and_no_query(cuda_device, dtype, route, D,
+                                               S, no):
+    """With no key (Sk = 0) or no query (Sq = 0) each kernel wrapper of each
+    route gives exactly its plain version: O = 0 and lse = LSE_MASKED with
+    no key, dQ = 0; dK = dV = 0 with no query; the rest empty."""
+    Sq, Sk = (S, 0) if no == "key" else (0, S)
+    q, k, v, do, glse = _attention_operands(cuda_device, 15, 3, Sq, Sk, D,
+                                            dtype)
+    lse = torch.full((3, Sq), port.LSE_MASKED, device=cuda_device)
+    bwd = (q, k, v, do, lse, torch.zeros_like(lse), glse)
+    if route == "single-tile":
+        runs = ((port.flash_fwd_single, port.flash_fwd_single_plain, (q, k, v)),
+                (port.flash_dqkv, port.flash_dqkv_plain, bwd))
+    else:
+        runs = ((port.flash_fwd, port.flash_fwd_plain, (q, k, v)),
+                (port.flash_dq, port.flash_dq_plain, bwd),
+                (port.flash_dkv, port.flash_dkv_plain, bwd))
+    for kern, plain, args in runs:
+        want = plain(*args)
+        want = want if isinstance(want, tuple) else (want,)
+        for t in [torch.full_like(w, float("nan")) for w in want]:
+            del t  # the allocator hands these blocks to the kernel's outputs
+        got = kern(*args)
+        got = got if isinstance(got, tuple) else (got,)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and g.dtype == w.dtype
+            assert torch.equal(g, w)
