@@ -78,13 +78,26 @@ last loss.
 
 ``collectives`` runs the eager surface across ranks, one process per card
 (every visible card, at least two) over NCCL, or with ``--cpu`` four
-processes over gloo: allreduce and reducescatter with every reduce op,
+processes over gloo, each started by the port's launcher (``python -m
+horovod_tpu_torch.runner.launch -np N``, ``hvdrun-torch``; ``--cpu-mode``
+with ``--cpu``): allreduce and reducescatter with every reduce op,
 alltoall with equal chunks and with a split table (empty chunks
 included), ragged allgather, broadcast, the grouped forms, async forms
 with poll and synchronize, subsets {0, 1} and {1, ..., n-1} (members'
 collectives, a non-member's refusal, removal), allgather_object and
-masked_average. Every rank holds each result to a numpy reference made
-from the same seeded inputs (float32 sums against float64, 1e-5). Then
+masked_average; Adasum over the world and over the set {1, ..., n-1} (an
+odd count at n = 4) held to the float64 tree of chip_smoke.py, every
+rank's result the same bit for bit; SyncBatchNorm over ranks holding 32,
+..., 32 and 31 images, held to one card's BatchNorm over the concatenated
+batch (y, dx, dweight and dbias summed over the ranks, the running
+statistics, which are the same bit for bit on every rank). Every rank
+holds each result to a numpy reference made from the same seeded inputs
+(float32 sums against float64, 1e-5). Then BERT-Large (``--cpu``:
+BERT_TINY) takes 3 AdamW steps under ``DistributedOptimizer(op=Adasum)`` on
+the bf16 wire, each rank on its own batch: every reduced gradient held to
+the float64 tree over the ranks' bf16-wire gradients, the parameters the
+same bit for bit on every rank, and (on the cards) the step's wire device
+ms beside the tree's. Then
 BERT-Large (``--cpu``: BERT_TINY) trains 3 AdamW steps from the same weights
 under each sync mode, each rank on its own batch: sharded and fsdp over the
 float32 wire with SGD and momentum, held to the allreduce run by
@@ -103,13 +116,13 @@ peak memory per mode.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import importlib.util
 import json
-import multiprocessing as mp
+import math
 import os
 import re
-import socket
 import subprocess
 import sys
 import time
@@ -520,9 +533,10 @@ def watchdog():
     return 0
 
 
-def _collectives_rank(rank, n, device, init_method):
-    """One rank of ``collectives``: raises AssertionError on a result that
-    differs from the numpy reference; prints how many it held."""
+def _collectives_rank(device):
+    """One rank of ``collectives``, started by the launcher (its world
+    facts and rendezvous in the env): raises AssertionError on a result
+    that differs from the numpy reference; prints how many it held."""
     import faulthandler
 
     import numpy as np
@@ -531,13 +545,11 @@ def _collectives_rank(rank, n, device, init_method):
     # A rank stuck in a collective prints its stack and exits, so a hang
     # ends the check with the culprit named instead of at the call's limit.
     faulthandler.dump_traceback_later(240, exit=True)
-    os.environ.update(HOROVOD_NUM_PROCESSES=str(n),
-                      HOROVOD_PROCESS_ID=str(rank),
-                      HOROVOD_LOCAL_RANK=str(rank), HOROVOD_LOCAL_SIZE=str(n))
     sys.path.insert(0, HERE)
     import horovod_tpu_torch as hvd
 
-    hvd.init(device=device, init_method=init_method)
+    hvd.init(device=device)
+    rank, n = hvd.rank(), hvd.size()
     dev = hvd.device()
     rng = np.random.RandomState(7)
     x = rng.randn(n, 4 * n, 3)
@@ -634,6 +646,7 @@ def _collectives_rank(rank, n, device, init_method):
         if hvd.allgather_object({"r": rank}, process_set=ps) != [
                 {"r": j} for j in s]:
             raise AssertionError(f"rank {rank}: allgather_object on {s}")
+    _adasum_and_syncbn(hvd, rank, n, sets[1], hold)
     if not hvd.remove_process_set(sets[0]):
         raise AssertionError(f"rank {rank}: remove_process_set")
     mask = np.array([float(r != 1) for r in range(n)])
@@ -644,8 +657,214 @@ def _collectives_rank(rank, n, device, init_method):
     hvd.barrier()
     print(f"rank {rank}: {len(held)} results held to the numpy reference "
           f"over {dist_backend(device)}", flush=True)
+    _adasum_trajectory(hvd, rank, n, device)
     _sync_mode_trajectories(hvd, rank, n, device)
     hvd.shutdown()
+
+
+# SyncBatchNorm across ranks: images per rank (the last rank one fewer), and
+# channels and spatial size of each image.
+SYNCBN_IMAGES, SYNCBN_SHAPE = 32, (16, 8, 8)
+
+
+def _same_on_every_rank(hvd, name, t, process_set=None):
+    """``t`` (one member's copy of a replicated result) equals every other
+    member's bit for bit."""
+    import torch
+
+    rows = hvd.allgather(t.detach().reshape(1, -1), process_set=process_set)
+    if not all(torch.equal(row, rows[0]) for row in rows):
+        raise AssertionError(f"rank {hvd.rank()} {name}: the ranks' results "
+                             "differ")
+
+
+def _adasum_and_syncbn(hvd, rank, n, tail, hold):
+    """Adasum over the world and over ``tail`` (the set {1, ..., n-1}) held
+    to the float64 tree; SyncBatchNorm over uneven batches held to one
+    card's BatchNorm over the whole batch."""
+    import numpy as np
+    import torch
+
+    dev = hvd.device()
+    rng = np.random.RandomState(11)
+    shared = rng.randn(257, 33)
+    members = [(r + 1) * (0.7 * shared + rng.randn(257, 33))
+               for r in range(n)]
+    members[1][:] = 0.0
+    members = [m.astype(np.float32) for m in members]
+    for name, ps, ranks in (("world", None, list(range(n))),
+                            (f"set {tail.ranks}", tail, tail.ranks)):
+        if rank not in ranks:
+            continue
+        want = _smoke().adasum_tree_np([members[r].astype(np.float64)
+                                        for r in ranks])
+        got = hvd.allreduce(torch.from_numpy(members[rank]).to(dev),
+                            op=hvd.Adasum, process_set=ps)
+        hold(f"adasum {name}", got, want)
+        _same_on_every_rank(hvd, f"adasum {name}", got, ps)
+
+    sizes = [SYNCBN_IMAGES] * (n - 1) + [SYNCBN_IMAGES - 1]
+    first = sum(sizes[:rank])
+    mine = slice(first, first + sizes[rank])
+    x = torch.from_numpy(rng.randn(sum(sizes), *SYNCBN_SHAPE).astype(
+        np.float32) * 2 + 0.5).to(dev)
+    g = torch.from_numpy(rng.randn(sum(sizes), *SYNCBN_SHAPE).astype(
+        np.float32)).to(dev)
+    c = SYNCBN_SHAPE[0]
+    results = []
+    for bn in (hvd.SyncBatchNorm(c), torch.nn.BatchNorm2d(c)):
+        bn.to(dev)
+        with torch.no_grad():
+            bn.weight.copy_(torch.linspace(0.5, 1.5, c))
+            bn.bias.copy_(torch.linspace(-0.5, 0.5, c))
+        xi = (x[mine] if isinstance(bn, hvd.SyncBatchNorm) else x).clone()
+        xi.requires_grad_()
+        y = bn(xi)
+        y.backward(g[mine] if isinstance(bn, hvd.SyncBatchNorm) else g)
+        results.append((y, xi.grad, bn.weight.grad, bn.bias.grad,
+                        bn.running_mean, bn.running_var))
+    (y, dx, dw, db, mean, var), (y1, dx1, dw1, db1, mean1, var1) = results
+    hold("syncbn y", y, y1[mine].detach().cpu().numpy())
+    hold("syncbn dx", dx, dx1[mine].cpu().numpy())
+    for name, local, whole in (("dweight", dw, dw1), ("dbias", db, db1)):
+        total = hvd.allreduce(local, op=hvd.Sum)
+        if not torch.allclose(total, whole, rtol=1e-4, atol=1e-4):
+            raise AssertionError(f"rank {rank} syncbn {name}: "
+                                 f"{(total - whole).abs().max().item()}")
+    hold("syncbn running mean", mean, mean1.cpu().numpy())
+    hold("syncbn running var", var, var1.cpu().numpy())
+    for name, t in (("running mean", mean), ("running var", var)):
+        _same_on_every_rank(hvd, f"syncbn {name}", t)
+
+
+def _rank_bert(hvd, rank, device):
+    """BERT-Large's configuration (``--cpu``: BERT_TINY), dropout off, and
+    this rank's own masked-LM batch: 8 sequences of 128 tokens, 20
+    predictions each."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from horovod_tpu_torch.models import bert as bert_mod
+
+    base = bert_mod.BERT_LARGE if device == "cuda" else bert_mod.BERT_TINY
+    cfg = dataclasses.replace(base, dropout_rate=0.0)
+    dev = hvd.device()
+    rng = np.random.RandomState(100 + rank)
+    B, S, P = 8, 128, 20
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, S))).to(dev)
+    pos = torch.from_numpy(np.stack([rng.choice(S, P, replace=False)
+                                     for _ in range(B)])).to(dev)
+    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, P))).to(dev)
+    mask = torch.ones(B, P, dtype=torch.int64, device=dev)
+    return cfg, (ids, pos, labels, mask)
+
+
+def _mlm_loss(model, batch):
+    from horovod_tpu_torch.models import bert as bert_mod
+
+    _, logits = model(batch[0], masked_positions=batch[1])
+    return bert_mod.mlm_loss(logits, batch[2], batch[3])
+
+
+def _adasum_pair64(a, b):
+    """The Adasum rule on two flat float64 tensors (``adasum_pair_np`` of
+    chip_smoke.py, on the device)."""
+    dot, asq, bsq = float(a @ b), float(a @ a), float(b @ b)
+    a_scale = 1.0 - dot / (2.0 * asq) if asq > 0 else 0.0
+    b_scale = 1.0 - dot / (2.0 * bsq) if bsq > 0 else 0.0
+    return a_scale * a + b_scale * b
+
+
+# The Adasum optimizer's run: its AdamW steps.
+ADASUM_OPT_STEPS = 3
+
+
+def _adasum_trajectory(hvd, rank, n, device):
+    """BERT-Large (``--cpu``: BERT_TINY) at S = 128, each rank on its own
+    batch, ``ADASUM_OPT_STEPS`` AdamW steps under
+    ``DistributedOptimizer(op=Adasum)`` on the bf16 wire (its per-bucket
+    all_gather, then the tree per leaf). At each step every reduced
+    gradient is held to the float64 tree over the ranks' bf16-wire
+    gradients (gathered here on their own), within chip_smoke.py's bf16
+    ``ADASUM_TOL`` of the leaf's largest value; each rank's loss falls; the
+    parameters end the same bit for bit on every rank. On the card, rank 0
+    prints the last step's wire device ms (its collectives) and the device
+    busy ms of the tree over the same gathered gradients."""
+    import torch
+
+    from horovod_tpu_torch.models import bert as bert_mod
+    from horovod_tpu_torch.ops.adasum import adasum_tree
+
+    smoke = _smoke()
+    cuda = device == "cuda"
+    cfg, batch = _rank_bert(hvd, rank, device)
+    torch.manual_seed(0)
+    with torch.device(hvd.device()):
+        model = bert_mod.Bert(cfg, attention_fn=bert_mod.flash_attention_fn)
+    params = list(model.parameters())
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(params, lr=MODE_LR, weight_decay=1e-4),
+        compression=hvd.Compression.bf16, op=hvd.Adasum)
+    tol = smoke.ADASUM_TOL["bfloat16"]
+    losses, worst, wire_ms, wire_ops = [], 0.0, None, None
+    for i in range(ADASUM_OPT_STEPS):
+        last = cuda and i == ADASUM_OPT_STEPS - 1
+        with (smoke.device_profile() if last
+              else contextlib.nullcontext()) as prof:
+            opt.zero_grad(set_to_none=True)
+            loss = _mlm_loss(model, batch)
+            loss.backward()
+            # The bf16 wire's values of this rank's gradients, as the hooks
+            # gathered them (the optimizer leaves .grad alone until step()).
+            wire = torch.cat([p.grad.reshape(-1).to(torch.bfloat16)
+                              for p in params])
+            opt.step()
+        if last:
+            wire_ms, wire_ops = smoke._collective_device_ms(prof)
+        losses.append(loss.item())
+        rows = hvd.allgather(wire.reshape(1, -1))
+        offset, leaves = 0, []
+        for p in params:
+            views = rows[:, offset:offset + p.numel()]
+            offset += p.numel()
+            leaves.append(views.unbind(0))
+            want = smoke.adasum_tree_np([v.double() for v in views],
+                                        _adasum_pair64)
+            err = (p.grad.reshape(-1).double() - want).abs().max().item()
+            scale = want.abs().max().item()
+            if not err <= tol * scale:
+                raise AssertionError(
+                    f"rank {rank} adasum optimizer step {i}: a {tuple(p.shape)}"
+                    f" gradient is {err:.3e} from the float64 tree (limit "
+                    f"{tol} x {scale:.3e})")
+            worst = max(worst, err / scale if scale else 0.0)
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"rank {rank} adasum optimizer: losses {losses}")
+    _same_on_every_rank(hvd, "adasum optimizer parameters",
+                        torch.cat([p.detach().reshape(-1) for p in params]))
+    print(f"rank {rank}: DistributedOptimizer(op=Adasum) over {n} ranks, "
+          f"{cfg.num_layers} layers x {cfg.hidden_size}, S=128 x 8 per rank, "
+          f"bf16 wire, {len(params)} leaves: {ADASUM_OPT_STEPS} AdamW steps, "
+          f"losses {[round(x, 4) for x in losses]}, every reduced gradient "
+          f"within {worst:.3e} x its largest value of the float64 tree "
+          f"(limit {tol}), parameters the same bit for bit on every rank",
+          flush=True)
+    if cuda and rank == 0:
+        with smoke.device_profile() as prof:
+            for views in leaves:
+                adasum_tree(views)
+        tree = smoke._busy_us([(a, b) for _, a, b in
+                               smoke.device_events(prof)]) / 1e3
+        print(f"rank 0: Adasum optimizer step over {n} ranks: wire device "
+              f"ms {wire_ms:.3f} ({wire_ops}); the tree over the "
+              f"{len(leaves)} leaves' gathered rows, device busy {tree:.3f} "
+              f"ms, on {smoke.card_line()}", flush=True)
+    opt.remove_hooks()
+    del model, opt, rows, leaves
+    if cuda:
+        torch.cuda.empty_cache()
 
 
 # The sync modes across ranks: steps per run, AdamW's learning rate, and
@@ -664,7 +883,6 @@ def _sync_mode_trajectories(hvd, rank, n, device):
     losses, and per rank the optimizer-state bytes, the fsdp resident
     parameter bytes, the step time and the peak memory over the steps
     (above what the rank held before the run)."""
-    import dataclasses
     import statistics
 
     import numpy as np
@@ -673,20 +891,10 @@ def _sync_mode_trajectories(hvd, rank, n, device):
     from horovod_tpu_torch.models import bert as bert_mod
 
     cuda = device == "cuda"
-    base = bert_mod.BERT_LARGE if cuda else bert_mod.BERT_TINY
-    cfg = dataclasses.replace(base, dropout_rate=0.0)
+    cfg, (ids, pos, labels, mask) = _rank_bert(hvd, rank, device)
     dev = hvd.device()
-    rng = np.random.RandomState(100 + rank)
-    B, S, P = 8, 128, 20
-    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, S))).to(dev)
-    pos = torch.from_numpy(np.stack([rng.choice(S, P, replace=False)
-                                     for _ in range(B)])).to(dev)
-    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, P))).to(dev)
-    mask = torch.ones(B, P, dtype=torch.int64, device=dev)
-
-    def loss_fn(model, batch):
-        _, logits = model(batch[0], masked_positions=batch[1])
-        return bert_mod.mlm_loss(logits, batch[2], batch[3])
+    loss_fn = _mlm_loss
+    S, B = ids.shape[1], ids.shape[0]
 
     smoke = _smoke()
     initial = []
@@ -795,28 +1003,20 @@ def collectives(cpu):
         print("collectives: needs at least two cards (or --cpu)",
               file=sys.stderr)
         return 1
-    with socket.socket() as sock:  # a free port on this machine
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
     device = "cpu" if cpu else "cuda"
-    ctx = mp.get_context("spawn")
     t0 = time.perf_counter()
-    procs = [ctx.Process(target=_collectives_rank,
-                         args=(r, n, device, f"tcp://localhost:{port}"))
-             for r in range(n)]
-    for proc in procs:
-        proc.start()
-    for proc in procs:
-        proc.join(timeout=600)
-    for proc in procs:
-        if proc.is_alive():
-            proc.kill()
-            proc.join()
-    codes = [proc.exitcode for proc in procs]
-    print(f"collectives: {n} ranks over {dist_backend(device)}, exit codes "
-          f"{codes}, {time.perf_counter() - t0:.1f} s"
+    # hvdrun-torch: one process per card, the first failing rank's exit
+    # code, the others terminated.
+    out = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.runner.launch", "-np",
+         str(n), *(["--cpu-mode"] if cpu else []), sys.executable,
+         os.path.abspath(__file__), "_collectives_rank", device],
+        cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE), timeout=900)
+    print(f"collectives: {n} ranks over {dist_backend(device)} started by "
+          f"hvdrun-torch, exit code {out.returncode}, "
+          f"{time.perf_counter() - t0:.1f} s"
           + ("" if cpu else f", cards: {_smoke().card_line()}"))
-    return 0 if codes == [0] * n else 1
+    return out.returncode
 
 
 def fsdp_gathers():
@@ -896,6 +1096,9 @@ def main() -> int:
         return 0
     if args in (["collectives"], ["collectives", "--cpu"]):
         return collectives(args[1:] == ["--cpu"])
+    if args[:1] == ["_collectives_rank"] and len(args) == 2:
+        _collectives_rank(args[1])
+        return 0
     import torch
 
     if not torch.cuda.is_available():

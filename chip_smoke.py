@@ -129,7 +129,26 @@ and prints no result line); each prints its seconds:
    and CPU); a 2-layer BERT-Large saved under sharded and resumed under
    allreduce, and the other way round, equal to an uninterrupted run;
    each with its step time and its peak memory above what was held before;
-11. agreement: the flash model against dense attention on small float32
+11. ``adasum``: ``ops.adasum.adasum_tree`` on the card on stacks of 2, 3,
+   4, 5 and 8 members of BERT-Large leaf shapes (1024 x 4096 and the
+   30522 x 1024 embedding, one member zero) in float32 and bf16 against a
+   float64 numpy tree; BERT-Large S=512 x 8 with
+   ``DistributedOptimizer(op=Adasum)`` on the forced wire, 3 steps: the
+   loss falls, K1, K3 and K4 launch once per layer and step, and the
+   parameters equal bit for bit those of the same steps with op=Average
+   (a one-member Adasum is the identity); the device ms of both wires'
+   collectives in a profiled step;
+12. ``syncbn``: ResNet-50 with every BatchNorm synchronized over the
+   global process set (forced wire): float32 train-mode logits and
+   running statistics against cuDNN's BatchNorm on the same batch and
+   weights; then 3 bf16 training steps, profiled beside the plain run;
+13. ``launcher``: ``python -m horovod_tpu_torch.runner.launch -np 1``
+   (``hvdrun-torch``) runs a worker on the card that calls ``init()``,
+   prints its world facts, runs one Adasum allreduce and one flash
+   attention layer forward and backward, and checks them; its exit code,
+   prefixed output and facts are held, and the seconds from the launch to
+   its import, ``init()``, first collective and check are printed;
+14. agreement: the flash model against dense attention on small float32
    inputs, on each attention route; and ResNet-50 in float32 on the card
    against the CPU on the same weights (2 images at 64x64): logits in both
    modes, and the running statistics after one training-mode forward.
@@ -1047,13 +1066,14 @@ def training_phase(card, path):
     return launches
 
 
-def resnet_phase(card):
+def resnet_phase(card, name="resnet50", process_set=None,
+                 steps=WARMUP_STEPS + TIMED_STEPS):
     """ResNet-50 data-parallel training at bench.py's headline
     configuration through the port's entry points (``init`` has run); no
-    kernel of the library may launch."""
+    kernel of the library may launch. ``process_set``: every BatchNorm
+    synchronized over it. Returns the device busy ms per profiled step."""
     import gc
 
-    import numpy as np
     import torch
 
     import horovod_tpu_torch as hvd
@@ -1067,7 +1087,7 @@ def resnet_phase(card):
     dev = hvd.device()
     torch.manual_seed(0)
     model = ResNet50(num_classes=RESNET_CLASSES, dtype=torch.bfloat16,
-                     device=dev)
+                     device=dev, process_set=process_set)
     n_params = sum(p.numel() for p in model.parameters())
     opt = hvd.DistributedOptimizer(
         torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
@@ -1080,42 +1100,53 @@ def resnet_phase(card):
         return cross_entropy_loss(model(x), y, RESNET_CLASSES)
 
     step = hvd.make_train_step(model, loss_fn, opt)
-    rng = np.random.RandomState(0)  # as bench.py:570-572 makes the batch
-    x = rng.rand(RESNET_BATCH, RESNET_IMAGE, RESNET_IMAGE, 3).astype(
-        np.float32)
-    y = rng.randint(0, RESNET_CLASSES, size=(RESNET_BATCH,)).astype(np.int32)
-    batch = (torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+    batch = _resnet_batch(dev)
 
     for k in _kernels.KERNELS:
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    steps = WARMUP_STEPS + TIMED_STEPS
-    losses, times = _train("resnet50", step, batch, steps)
+    losses, times = _train(name, step, batch, steps)
     launches = {k.name: k.launches for k in _kernels.KERNELS}
     if any(launches.values()):
         raise AssertionError(
-            f"resnet50: kernels launched {launches}; this path runs no "
+            f"{name}: kernels launched {launches}; this path runs no "
             "kernel of the library")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     step_ms = statistics.median(times)
     images_s = RESNET_BATCH / step_ms * 1e3
     mfu = images_s * RESNET50_TRAIN_FLOPS_PER_IMAGE / PEAK_FLOPS["bfloat16"]
-    print(f"train resnet50: ResNet-50 {n_params / 1e6:.1f}M params, batch "
+    sync = ("" if process_set is None else
+            f", every BatchNorm synchronized over ranks {process_set.ranks}")
+    print(f"train {name}: ResNet-50 {n_params / 1e6:.1f}M params, batch "
           f"{RESNET_BATCH}x{RESNET_IMAGE}x{RESNET_IMAGE}x3, bf16 compute, "
           f"channels_last, SGD 0.1 momentum 0.9, {len(opt._buckets)} "
-          f"allreduce buckets (bf16 wire), losses "
+          f"allreduce buckets (bf16 wire){sync}, losses "
           f"{[round(v, 4) for v in losses]}")
-    print(f"train resnet50: step_ms median {step_ms:.2f} (steps "
+    print(f"train {name}: step_ms median {step_ms:.2f} (steps "
           f"{[round(t, 2) for t in times]}), images/s {images_s:.1f}, MFU "
           f"{mfu:.4f} (24.53 GFLOP per image over 989 TFLOP/s), "
           f"max_memory_allocated {peak_gib:.2f} GiB on {card}")
-    print(f"train resnet50: launches per kernel {launches} over {steps} "
+    print(f"train {name}: launches per kernel {launches} over {steps} "
           "steps")
-    profile_steps("resnet50", step, batch, card, step_ms)
+    busy_ms = profile_steps(name, step, batch, card, step_ms)
     opt.remove_hooks()
     del model, opt, step, batch
     gc.collect()
     torch.cuda.empty_cache()
+    return busy_ms
+
+
+def _resnet_batch(dev):
+    """bench.py's synthetic ResNet-50 batch (bench.py:570-572): images and
+    labels from seed 0, on ``dev``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(0)
+    x = rng.rand(RESNET_BATCH, RESNET_IMAGE, RESNET_IMAGE, 3).astype(
+        np.float32)
+    y = rng.randint(0, RESNET_CLASSES, size=(RESNET_BATCH,)).astype(np.int32)
+    return torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
 
 
 def lenet_phase(card):
@@ -1239,9 +1270,23 @@ _CATEGORIES = (  # first match wins; by lower-cased kernel name
 )
 
 
+def _busy_us(spans):
+    """µs in which at least one of the (start, end) spans runs."""
+    busy_us, cur_start, cur_end = 0.0, None, None
+    for start, end in sorted(spans):
+        if cur_end is None or start > cur_end:
+            if cur_end is not None:
+                busy_us += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    return busy_us + (cur_end - cur_start if spans else 0.0)
+
+
 def profile_steps(path, step, batch, card, step_ms, n=2):
     """Device time per step by kernel category over ``n`` profiled steps;
-    the device's idle share of the unprofiled step (``step_ms``)."""
+    the device's idle share of the unprofiled step (``step_ms``). Returns
+    the device busy ms per step (None if the profiler recorded nothing)."""
     import torch
 
     with device_profile() as prof:
@@ -1264,17 +1309,8 @@ def profile_steps(path, step, batch, card, step_ms, n=2):
     if not spans:
         print(f"profile {path}: the profiler recorded no device events; "
               "device breakdown not measured")
-        return
-    busy_us, cur_start, cur_end = 0.0, None, None
-    for start, end in sorted(spans):
-        if cur_end is None or start > cur_end:
-            if cur_end is not None:
-                busy_us += cur_end - cur_start
-            cur_start, cur_end = start, end
-        else:
-            cur_end = max(cur_end, end)
-    busy_us += cur_end - cur_start
-    busy_ms = busy_us / 1e3
+        return None
+    busy_ms = _busy_us(spans) / 1e3
     cats = ", ".join(f"{c} {t / n:.2f}" for c, t in
                      sorted(per_cat.items(), key=lambda kv: -kv[1]))
     top = "; ".join(f"{name} {t / n:.2f}" for name, t in
@@ -1285,6 +1321,7 @@ def profile_steps(path, step, batch, card, step_ms, n=2):
           f"of the unprofiled {step_ms:.2f} ms step "
           f"{max(0.0, 1 - busy_ms / n / step_ms):.3f} (under the profiler "
           f"the step took {wall_ms / n:.2f} ms) on {card}")
+    return busy_ms / n
 
 
 # The head-dim-256 path: a Gemma-like stack of attention layers (8
@@ -2413,6 +2450,367 @@ def resnet_agreement_phase():
           f"(err/limit {worst}); {len(stats)} running statistics after one "
           f"training-mode forward within 1e-4 (max abs err {err:.3e})")
 
+# Adasum on the card: the tree over stacks of N "ranks" of two BERT-Large
+# leaf shapes (an FFN kernel and the token embedding), member 1 of each
+# stack zero, held to a float64 numpy tree (each output within ADASUM_TOL
+# of the largest float64 value: float32 differs by summation order, bf16
+# also rounds each pair's result to 8 bits, as the JAX package's does).
+ADASUM_RANKS = (2, 3, 4, 5, 8)
+ADASUM_SHAPES = ((1024, 4096), (30522, 1024))
+ADASUM_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+ADASUM_STEPS = 3
+
+
+def adasum_pair_np(a, b):
+    """The Adasum rule in float64 numpy: a copy of
+    ``horovod_tpu/process_world.py:274 adasum_pair_np``."""
+    import numpy as np
+
+    af = a.ravel().astype(np.float64)
+    bf = b.ravel().astype(np.float64)
+    dot = float(af @ bf)
+    asq = float(af @ af)
+    bsq = float(bf @ bf)
+    a_scale = 1.0 - dot / (2.0 * asq) if asq > 0 else 0.0
+    b_scale = 1.0 - dot / (2.0 * bsq) if bsq > 0 else 0.0
+    return (a_scale * af + b_scale * bf).reshape(a.shape).astype(a.dtype)
+
+
+def adasum_tree_np(parts, pair=adasum_pair_np):
+    """The pairwise tree of ``horovod_tpu/process_world.py:290``, odd
+    leftovers carried to the next round."""
+    parts = list(parts)
+    while len(parts) > 1:
+        nxt = [pair(parts[i], parts[i + 1])
+               for i in range(0, len(parts) - 1, 2)]
+        if len(parts) % 2:
+            nxt.append(parts[-1])
+        parts = nxt
+    return parts[0]
+
+
+def _adasum_stack(N, shape, seed):
+    """N members, correlated and of different scales (Adasum's case), the
+    second all zero; values exactly representable in bf16, so that the
+    float32 and bf16 runs share one float64 reference."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shared = torch.randn(shape, generator=gen, device="cuda")
+    stack = torch.stack([(r + 1) * (0.7 * shared + torch.randn(
+        shape, generator=gen, device="cuda")) for r in range(N)])
+    stack[1] = 0.0
+    return stack.bfloat16()
+
+
+def _collective_device_ms(prof):
+    """Device ms run under the profiled session's collectives: the device
+    time of each outermost host op whose name names NCCL or c10d (at one
+    rank, NCCL's all_gather is a device copy and its all_reduce may launch
+    nothing), and the ops' names."""
+    import torch
+
+    ops = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CPU
+           and ("nccl" in e.name.lower() or "c10d" in e.name.lower())]
+    ids = {id(e) for e in ops}
+
+    def outermost(e):
+        parent = e.cpu_parent
+        while parent is not None:
+            if id(parent) in ids:
+                return False
+            parent = parent.cpu_parent
+        return True
+
+    top = [e for e in ops if outermost(e)]
+    return (sum(e.device_time_total for e in top) / 1e3,
+            sorted({e.name for e in top}))
+
+
+def _bert_adasum_runs(card, ops):
+    """BERT-Large S = 512 x 8 (``BERT_PATHS[0]``) built once from seed 0;
+    for each of ``ops``, from those weights, ``ADASUM_STEPS`` AdamW steps
+    under ``DistributedOptimizer(op=...)`` on the bf16 wire, the last one
+    profiled: {op: (losses, parameters, launch counts, the collectives'
+    device ms and op names, device busy ms of the last step)}."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import bert as bert_mod
+    from horovod_tpu_torch.ops import _kernels
+
+    _, batch_size, seq, predictions, _ = BERT_PATHS[0]
+    dev = hvd.device()
+    cfg = dataclasses.replace(bert_mod.BERT_LARGE, dropout_rate=0.0)
+    torch.manual_seed(0)
+    with torch.device(dev):
+        model = bert_mod.Bert(cfg, attention_fn=bert_mod.flash_attention_fn)
+    initial = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = _bert_batch(cfg, batch_size, seq, predictions, 0, dev)
+    runs = {}
+    for op in ops:
+        model.load_state_dict(initial)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
+            named_parameters=model.named_parameters(),
+            compression=hvd.Compression.bf16, op=op)
+        step = hvd.make_train_step(model, _bert_loss, opt)
+        for k in _kernels.KERNELS:
+            k.launches = 0
+        losses = [float(step(batch)) for _ in range(ADASUM_STEPS - 1)]
+        with device_profile() as prof:
+            losses.append(float(step(batch)))
+        launches = {k.name: k.launches for k in _kernels.KERNELS}
+        busy = _busy_us([(a, b) for _, a, b in device_events(prof)]) / 1e3
+        runs[op] = (losses, [p.detach().clone() for p in model.parameters()],
+                    launches, _collective_device_ms(prof), busy)
+        opt.remove_hooks()
+        model.zero_grad(set_to_none=True)
+        del opt, step, prof
+    del model, initial, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
+def adasum_phase(card):
+    """(a) ``ops.adasum.adasum_tree`` on the card against the float64 tree
+    (``ADASUM_RANKS`` x ``ADASUM_SHAPES``, float32 and bf16); (b) BERT-Large
+    S = 512 x 8 with ``DistributedOptimizer(op=Adasum)`` on the forced wire
+    (one all_gather per bucket, then the tree: the identity at one rank):
+    the loss falls, K1, K3 and K4 launch once per layer and step, and the
+    parameters equal bit for bit those of the same steps with
+    ``op=Average``. Returns the launch counts of the Adasum run."""
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops.adasum import adasum_tree
+
+    worst = {}
+    t0 = time.perf_counter()
+    for shape in ADASUM_SHAPES:
+        full = _adasum_stack(max(ADASUM_RANKS), shape, seed=shape[0])
+        host = list(full.double().cpu().numpy())
+        # The trees over the first N members share their subtrees: each
+        # float64 pair is computed once.
+        memo = {}
+
+        def pair(a, b):
+            if (id(a), id(b)) not in memo:
+                memo[id(a), id(b)] = adasum_pair_np(a, b)
+            return memo[id(a), id(b)]
+
+        for N in ADASUM_RANKS:
+            want = adasum_tree_np(host[:N], pair)
+            scale = np.abs(want).max()
+            want = torch.from_numpy(want).to("cuda")
+            for dtype in (torch.float32, torch.bfloat16):
+                got = adasum_tree(full[:N].to(dtype))
+                name = str(dtype).split(".")[1]
+                err = (got.double() - want).abs().max().item()
+                if not (got.dtype == dtype and got.shape == shape
+                        and err <= ADASUM_TOL[name] * scale):
+                    raise AssertionError(
+                        f"adasum tree N={N} {shape} {name}: max abs err "
+                        f"{err:.3e} > {ADASUM_TOL[name]} x {scale:.3e}")
+                worst[name] = max(worst.get(name, 0.0), err / scale)
+    print(f"adasum: adasum_tree on the card, N = {ADASUM_RANKS} members of "
+          f"{ADASUM_SHAPES} (member 1 zero) against the float64 tree: "
+          f"worst max|err| / max|want| {worst} (limits {ADASUM_TOL}), "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    _, _, seq, _, kernels = BERT_PATHS[0]
+    t0 = time.perf_counter()
+    runs = _bert_adasum_runs(card, (hvd.Average, hvd.Adasum))
+    losses, params, launches, (wire_ms, wire_ops), busy = runs[hvd.Adasum]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"adasum BERT-Large: loss did not fall: {losses}")
+    for kname, n in launches.items():
+        want = 24 * ADASUM_STEPS if kname in kernels else 0
+        if n != want:
+            raise AssertionError(f"adasum BERT-Large: {kname} launched {n} "
+                                 f"times; expected {want}")
+    ref_losses, ref_params, _, (ref_ms, ref_ops), ref_busy = runs[
+        hvd.Average]
+    if losses != ref_losses or not all(
+            torch.equal(p, q) for p, q in zip(params, ref_params)):
+        raise AssertionError(
+            "adasum BERT-Large at one rank: the parameters are not those of "
+            f"op=Average bit for bit (losses {losses} vs {ref_losses})")
+    print(f"adasum BERT-Large S={seq}: {ADASUM_STEPS} AdamW steps with "
+          f"op=Adasum on the forced bf16 wire, losses "
+          f"{[round(x, 4) for x in losses]}, launches {launches}; "
+          f"{len(params)} parameters equal bit for bit to op=Average's, "
+          f"{time.perf_counter() - t0:.1f} s")
+    print(f"adasum BERT-Large S={seq}: wire device ms of the profiled step "
+          f"(its collectives): Adasum {wire_ms:.3f} ({wire_ops}), Average "
+          f"{ref_ms:.3f} ({ref_ops}); device busy {busy:.2f} ms against "
+          f"{ref_busy:.2f} on {card}")
+    return launches
+
+
+def syncbn_phase(card, plain_busy_ms):
+    """ResNet-50 with every BatchNorm synchronized over the global process
+    set (the forced wire: one allreduce per layer forward and backward).
+    First float32 (TF32 off), train-mode forward on ``_resnet_batch``: the
+    logits within 2e-3 of the largest plain logit and the running
+    statistics within 1e-4 of the plain model's (cuDNN's BatchNorm); then
+    ``resnet_phase``'s bf16 training, 3 steps with the loss falling,
+    profiled beside the plain run's device busy ``plain_busy_ms``."""
+    import gc
+
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import resnet as R
+
+    dev = hvd.device()
+    gen = torch.Generator().manual_seed(3)
+    plain = R.ResNet50(num_classes=RESNET_CLASSES)
+    plain.reset_parameters(gen)
+    with torch.no_grad():
+        for m in plain.modules():
+            if isinstance(m, R.BatchNorm):
+                m.weight.copy_(1 + 0.2 * torch.randn(m.weight.shape,
+                                                     generator=gen))
+                m.bias.copy_(0.2 * torch.randn(m.bias.shape, generator=gen))
+    synced = R.ResNet50(num_classes=RESNET_CLASSES, device=dev,
+                        process_set=hvd.global_process_set)
+    synced.load_state_dict(plain.state_dict())
+    plain.to(dev)
+    x, _ = _resnet_batch(dev)
+    with torch.no_grad():
+        want, got = plain(x), synced(x)
+    err = (got - want).abs().max().item()
+    limit = 2e-3 * want.abs().max().item()
+    stats = [(a, b) for (k, a), b in zip(plain.state_dict().items(),
+                                         synced.state_dict().values())
+             if "running" in k]
+    stat_err = max((a - b).abs().max().item() for a, b in stats)
+    if not (err <= limit and stat_err <= 1e-4):
+        raise AssertionError(
+            f"syncbn: float32 logits max abs err {err:.3e} (limit "
+            f"{limit:.3e}), running statistics {stat_err:.3e} (limit 1e-4)")
+    print(f"syncbn: ResNet-50 float32 (TF32 off), {RESNET_BATCH} images at "
+          f"{RESNET_IMAGE}x{RESNET_IMAGE}, train mode, every BatchNorm "
+          f"synchronized vs cuDNN's: logits max abs err {err:.3e} (limit "
+          f"{limit:.3e}), {len(stats)} running statistics max abs err "
+          f"{stat_err:.3e} (limit 1e-4)")
+    del plain, synced, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    busy = resnet_phase(card, "resnet50_syncbn", hvd.global_process_set,
+                        steps=3)
+    # profile_steps gives None when the profiler recorded no device event.
+    def per_step(ms):
+        return "not measured" if ms is None else f"{ms:.2f} ms"
+
+    print(f"syncbn: ResNet-50 bf16 device busy per step {per_step(busy)} "
+          f"with every BatchNorm synchronized (ATen's sync-BatchNorm "
+          f"kernels and a 1-rank NCCL allreduce per layer), "
+          f"{per_step(plain_busy_ms)} with cuDNN's BatchNorm, in this run "
+          f"on {card}")
+
+
+# The launcher phase's worker: init() on the card, its world facts, one
+# Adasum allreduce (the forced wire: gather and tree) and one BERT-Large
+# attention layer (S = 512, bf16) forward and backward through the flash
+# kernels, held to float32 math within 2e-2 of the largest value.
+LAUNCHER_CHILD = r"""
+import json, math, time
+started = time.time()
+import torch
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch.ops import _kernels, attention
+
+imported = time.time()
+hvd.init()
+initialized = time.time()
+dev = hvd.device()
+gen = torch.Generator(device=dev).manual_seed(0)
+x = torch.randn(1024, 4096, generator=gen, device=dev)
+y = hvd.allreduce(x, op=hvd.Adasum)
+torch.cuda.synchronize()
+first_collective = time.time()
+assert torch.equal(y, x), "one-member Adasum is not the identity"
+q, k, v, g = (torch.randn(8, 16, 512, 64, generator=gen, device=dev)
+              for _ in range(4))
+leaves = [t.bfloat16().requires_grad_() for t in (q, k, v)]
+for kern in _kernels.KERNELS:
+    kern.launches = 0
+out = attention.flash_attention(*leaves)
+out.backward(g.bfloat16())
+ran = {kern.name: kern.launches for kern in _kernels.KERNELS if kern.launches}
+assert ran == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}, ran
+ref = [t.detach().float().requires_grad_() for t in leaves]
+p = torch.softmax(ref[0] @ ref[1].transpose(-1, -2) / math.sqrt(64), -1)
+o = p @ ref[2]
+o.backward(g.bfloat16().float())
+for a, b in [(out, o)] + [(t.grad, r.grad) for t, r in zip(leaves, ref)]:
+    err = (a.float() - b).abs().max().item()
+    assert err <= 2e-2 * b.abs().max().item(), err
+checked = time.time()
+print("HVD_CHILD " + json.dumps(dict(
+    rank=hvd.rank(), size=hvd.size(), local_rank=hvd.local_rank(),
+    local_size=hvd.local_size(), cross_rank=hvd.cross_rank(),
+    cross_size=hvd.cross_size(), device=str(dev), started=started,
+    imported=imported, initialized=initialized,
+    first_collective=first_collective, checked=checked, launches=ran)),
+    flush=True)
+hvd.shutdown()
+"""
+
+
+def launcher_phase(card):
+    """``python -m horovod_tpu_torch.runner.launch -np 1 python CHILD``
+    without ``--cpu-mode`` (``hvdrun-torch``): the worker runs
+    ``LAUNCHER_CHILD`` on the card. Holds its exit code (0), the rank
+    prefix on every line of its output and its world facts; prints the
+    seconds from the launch to the end of its first collective."""
+    import shutil
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = os.path.join(here, "build", "chip_smoke_launcher")
+    os.makedirs(tmp, exist_ok=True)
+    child = os.path.join(tmp, "child.py")
+    with open(child, "w") as f:
+        f.write(LAUNCHER_CHILD)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    try:
+        t0 = time.time()
+        out = subprocess.run(
+            [sys.executable, "-m", "horovod_tpu_torch.runner.launch", "-np",
+             "1", sys.executable, child], cwd=here, env=env,
+            capture_output=True, text=True, timeout=300)
+        seconds = time.time() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    lines = out.stdout.splitlines()
+    facts = [json.loads(line.split("HVD_CHILD ", 1)[1]) for line in lines
+             if "HVD_CHILD " in line]
+    want = dict(rank=0, size=1, local_rank=0, local_size=1, cross_rank=0,
+                cross_size=1, device="cuda:0")
+    if not (out.returncode == 0 and lines and len(facts) == 1
+            and all(line.startswith("[0] ") for line in lines)
+            and {k: facts[0][k] for k in want} == want):
+        raise AssertionError(
+            f"launcher: exit code {out.returncode}, facts {facts}; stdout "
+            f"{out.stdout[-2000:]!r}; stderr {out.stderr[-2000:]!r}")
+    marks = {k: round(facts[0][k] - t0, 2) for k in (
+        "started", "imported", "initialized", "first_collective",
+        "checked")}
+    print(f"launcher: hvdrun-torch -np 1 ran the worker on the card: exit "
+          f"code 0, {len(lines)} lines all prefixed '[0] ', facts "
+          f"{ {k: facts[0][k] for k in want} }, launches "
+          f"{facts[0]['launches']}; seconds from the launch: worker "
+          f"{marks}, launcher's exit {seconds:.2f} on {card}")
+
 
 def kernel_rows():
     """The kernels line's rows, (name, Kernel, source file under csrc/):
@@ -2486,13 +2884,16 @@ def main() -> int:
         counts = _phase(path[0], training_phase, card, path)
         launches.update({k: counts[k] for k in path[4]})
     _phase("guarded", guarded_phase, card)
-    _phase("resnet50", resnet_phase, card)
+    plain_busy = _phase("resnet50", resnet_phase, card)
     _phase("lenet", lenet_phase, card)
     launches.update(_phase("conv1x1", conv_phase, card))
     _phase("collectives", collectives_phase, card)
     modes = _phase("sync_modes", sync_modes_phase, card)
     modes["int8"] = (*_phase("int8", int8_phase, card), None)
     _phase("checkpoint", checkpoint_phase, card)
+    _phase("adasum", adasum_phase, card)
+    _phase("syncbn", syncbn_phase, card, plain_busy)
+    _phase("launcher", launcher_phase, card)
     print("sync modes, BERT-Large S=512 x 8 at world size 1 (step ms median, "
           "max_memory_allocated GiB, optimizer-state bytes on this rank): "
           + "; ".join(f"{m} {ms:.2f} ms, {peak:.2f} GiB, {state}"

@@ -12,66 +12,82 @@ are hand-written CUDA kernels for Hopper here (``ops/csrc``). Imports
 torch, never jax or ``horovod_tpu``.
 
 Entry points run on the card unless the caller asks for the CPU
-(``init(device="cpu")``, which forms a gloo world).
+(``init(device="cpu")``, which forms a gloo world). ``op=Adasum`` and
+``SyncBatchNorm`` complete the data-parallel surface; ``hvdrun-torch``
+(``runner/``) launches one process per card.
 """
 
-from .basics import (ccl_built, cross_rank, cross_size, cuda_built,
-                     ddl_built, device, gloo_built, gloo_enabled, init,
-                     is_homogeneous, is_initialized, local_rank, local_size,
-                     mpi_built, mpi_enabled, mpi_threads_supported,
-                     nccl_built, process_count, process_rank, rank,
-                     rocm_built, shutdown, size)
-from . import checkpoint
-from .checkpoint import (load_and_broadcast, load_state_and_broadcast,
-                         save_on_rank_0, save_state_on_rank_0)
-from .compression import Compression
-from .exceptions import (CheckpointCorruptError, HorovodInternalError,
-                         HorovodTpuError, NotInitializedError,
-                         SyncModeIneligibleError)
-from .functions import (allgather_object, broadcast_object,
-                        broadcast_optimizer_state, broadcast_parameters,
-                        masked_average)
-from .ops.collective_ops import (
-    Average, Max, Min, Product, Sum, allgather, allgather_async, allreduce,
-    allreduce_async, allreduce_async_, alltoall, alltoall_async, barrier,
-    broadcast, broadcast_async, broadcast_async_, grouped_allgather,
-    grouped_allgather_async, grouped_allreduce, grouped_allreduce_async,
-    grouped_reducescatter, grouped_reducescatter_async, poll, reducescatter,
-    reducescatter_async, synchronize)
-from .optimizer import (DistributedOptimizer, gather_sharded_state,
-                        init_sharded_state, load_sharded_state,
-                        reshard_opt_state,
-                        resolve_sync_mode, unshard_opt_state)
-from .parallel.data_parallel import make_train_step
-from .parallel.param_sharding import (ShardedParams, reshard_params,
-                                      resident_param_bytes, shard_params,
-                                      unshard_params)
-from .process_sets import (ProcessSet, add_process_set, get_process_set_ids,
-                           global_process_set, remove_process_set)
+from __future__ import annotations
 
-__all__ = [
-    "init", "shutdown", "is_initialized", "rank", "size", "local_rank",
-    "local_size", "cross_rank", "cross_size", "process_rank",
-    "process_count", "is_homogeneous", "device", "mpi_enabled", "mpi_built",
-    "mpi_threads_supported", "gloo_enabled", "gloo_built", "nccl_built",
-    "cuda_built", "rocm_built", "ddl_built", "ccl_built", "Compression",
-    "HorovodTpuError", "HorovodInternalError", "NotInitializedError",
-    "allgather_object", "broadcast_object", "broadcast_optimizer_state",
-    "broadcast_parameters", "masked_average", "Average", "Sum", "Min", "Max",
-    "Product", "allreduce", "allreduce_async", "allreduce_async_",
-    "grouped_allreduce", "grouped_allreduce_async", "allgather",
-    "allgather_async", "grouped_allgather", "grouped_allgather_async",
-    "broadcast", "broadcast_async", "broadcast_async_", "alltoall",
-    "alltoall_async", "reducescatter", "reducescatter_async",
-    "grouped_reducescatter", "grouped_reducescatter_async", "synchronize",
-    "poll", "barrier", "DistributedOptimizer", "resolve_sync_mode",
-    "init_sharded_state", "gather_sharded_state", "unshard_opt_state",
-    "reshard_opt_state",
-    "load_sharded_state", "make_train_step", "ShardedParams",
-    "shard_params", "unshard_params", "reshard_params",
-    "resident_param_bytes", "ProcessSet", "global_process_set",
-    "add_process_set", "remove_process_set", "get_process_set_ids",
-    "SyncModeIneligibleError", "CheckpointCorruptError", "checkpoint",
-    "save_on_rank_0", "load_and_broadcast", "save_state_on_rank_0",
-    "load_state_and_broadcast",
-]
+import importlib
+
+# Each public name and the module it comes from. The package imports a
+# module at the first use of one of its names, so that importing the
+# package (the launcher, ``python -m horovod_tpu_torch.runner.launch``,
+# does) does not import torch: a job's workers start without waiting for
+# it.
+_EXPORTS = {
+    "basics": (
+        "ccl_built", "cross_rank", "cross_size", "cuda_built", "ddl_built",
+        "device", "gloo_built", "gloo_enabled", "init", "is_homogeneous",
+        "is_initialized", "local_rank", "local_size", "mpi_built",
+        "mpi_enabled", "mpi_threads_supported", "nccl_built",
+        "process_count", "process_rank", "rank", "rocm_built", "shutdown",
+        "size"),
+    "checkpoint": ("load_and_broadcast", "load_state_and_broadcast",
+                   "save_on_rank_0", "save_state_on_rank_0"),
+    "compression": ("Compression",),
+    "exceptions": ("CheckpointCorruptError", "HorovodInternalError",
+                   "HorovodTpuError", "NotInitializedError",
+                   "SyncModeIneligibleError"),
+    "functions": ("allgather_object", "broadcast_object",
+                  "broadcast_optimizer_state", "broadcast_parameters",
+                  "masked_average"),
+    "ops.collective_ops": (
+        "Adasum", "Average", "Max", "Min", "Product", "Sum", "allgather",
+        "allgather_async", "allreduce", "allreduce_", "allreduce_async",
+        "allreduce_async_", "alltoall", "alltoall_async", "barrier",
+        "broadcast", "broadcast_async", "broadcast_async_",
+        "grouped_allgather", "grouped_allgather_async", "grouped_allreduce",
+        "grouped_allreduce_async", "grouped_reducescatter",
+        "grouped_reducescatter_async", "poll", "reducescatter",
+        "reducescatter_async", "synchronize"),
+    "optimizer": ("DistributedOptimizer", "gather_sharded_state",
+                  "init_sharded_state", "load_sharded_state",
+                  "reshard_opt_state", "resolve_sync_mode",
+                  "unshard_opt_state"),
+    "parallel.data_parallel": ("make_train_step",),
+    "parallel.param_sharding": ("ShardedParams", "reshard_params",
+                                "resident_param_bytes", "shard_params",
+                                "unshard_params"),
+    "process_sets": ("ProcessSet", "add_process_set", "get_process_set_ids",
+                     "global_process_set", "remove_process_set"),
+    "sync_batch_norm": ("SyncBatchNorm",),
+}
+_SOURCE = {name: module for module, names in _EXPORTS.items()
+           for name in names}
+
+
+def __getattr__(name):
+    if name in _SOURCE:
+        value = getattr(importlib.import_module(f".{_SOURCE[name]}",
+                                                __name__), name)
+    else:
+        # A submodule (``hvd.checkpoint``, ``hvd.models``, ...).
+        try:
+            value = importlib.import_module(f".{name}", __name__)
+        except ModuleNotFoundError as e:
+            if e.name != f"{__name__}.{name}":
+                raise
+            raise AttributeError(
+                f"module {__name__!r} has no attribute {name!r}") from None
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))
+
+
+# The public names, and the one submodule that is public by name.
+__all__ = sorted(_SOURCE) + ["checkpoint"]

@@ -26,6 +26,11 @@ Numerics mirror the flax model, not torch's defaults:
   ``E[x^2] - E[x]^2``, torch in one pass by Welford's method: the two agree
   to float32 rounding wherever the variance is not swamped by the mean
   (the tests hold them within 1e-5).
+- ``process_set=`` makes every BatchNorm a synchronized one: its training
+  statistics span the set's members (``sync_batch_norm._SyncBatchNormFn``,
+  one allreduce per layer forward and backward), with flax's conventions
+  kept. This is flax's BatchNorm bound to an ``axis_name``
+  (``horovod_tpu/sync_batch_norm.py:26 SyncBatchNorm``).
 - Fresh parameters follow flax's initializers: ``lecun_normal`` (truncated
   normal, std 1/sqrt(fan_in)) for conv and Dense kernels, zero biases, BN
   scale 1, and 0 for the last BN of each block (:42).
@@ -44,6 +49,9 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.collective_ops import _resolve_process_set
+from ..sync_batch_norm import _SyncBatchNormFn
 
 BN_MOMENTUM = 0.9  # flax's: weight of the running average
 BN_EPS = 1e-5
@@ -89,11 +97,18 @@ class BatchNorm(nn.Module):
     do. Evaluation: the running averages normalize. The output has the
     input's dtype; statistics, scale and bias are float32. Like torch's
     ``BatchNorm2d``, training needs more than one value per channel.
+
+    With a ``process_set``, training normalizes with the statistics of the
+    batch of every member of the set: ``E[x^2] - E[x]^2`` over the
+    allreduced float32 sums, as flax reduces them (``_SyncBatchNormFn``:
+    ATen's sync-BatchNorm kernels on the card, not cuDNN's). Its running
+    averages move as above; evaluation is unchanged.
     """
 
     def __init__(self, channels: int, zero_scale: bool = False,
-                 device=None):
+                 device=None, process_set=None):
         super().__init__()
+        self.process_set = process_set
         self.weight = nn.Parameter(torch.empty(channels, device=device))
         self.bias = nn.Parameter(torch.empty(channels, device=device))
         self.register_buffer("running_mean",
@@ -114,6 +129,11 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, BN_EPS)
+        if self.process_set is not None:
+            return _SyncBatchNormFn.apply(
+                x, self.weight, self.bias, self.running_mean,
+                self.running_var, 1 - BN_MOMENTUM, BN_EPS,
+                _resolve_process_set(self.process_set), False)
         # With momentum 1 the call leaves the batch mean and the unbiased
         # batch variance in these two buffers.
         mean = torch.zeros_like(self.running_mean)
@@ -154,19 +174,21 @@ class Bottleneck(nn.Module):
     where the shapes change."""
 
     def __init__(self, cin: int, filters: int, stride: int = 1,
-                 device=None):
+                 device=None, process_set=None):
         super().__init__()
         cout = filters * 4
         self.conv1 = Conv(cin, filters, 1, device=device)
-        self.bn1 = BatchNorm(filters, device=device)
+        self.bn1 = BatchNorm(filters, device=device, process_set=process_set)
         self.conv2 = Conv(filters, filters, 3, stride, device=device)
-        self.bn2 = BatchNorm(filters, device=device)
+        self.bn2 = BatchNorm(filters, device=device, process_set=process_set)
         self.conv3 = Conv(filters, cout, 1, device=device)
-        self.bn3 = BatchNorm(cout, zero_scale=True, device=device)
+        self.bn3 = BatchNorm(cout, zero_scale=True, device=device,
+                             process_set=process_set)
         self.proj_conv = self.proj_bn = None
         if cin != cout or stride != 1:
             self.proj_conv = Conv(cin, cout, 1, stride, device=device)
-            self.proj_bn = BatchNorm(cout, device=device)
+            self.proj_bn = BatchNorm(cout, device=device,
+                                     process_set=process_set)
 
     def forward(self, x):
         y = F.relu(self.bn1(self.conv1(x)))
@@ -183,22 +205,25 @@ class ResNet(nn.Module):
     float32 logits ``[N, num_classes]``. ``model.train()`` /
     ``model.eval()`` play flax's ``train`` argument. ``dtype`` is the
     compute dtype (parameters stay float32); ``device`` places the
-    parameters."""
+    parameters; ``process_set`` synchronizes every BatchNorm's training
+    statistics over the set (:class:`BatchNorm`)."""
 
     def __init__(self, stage_sizes: Sequence[int], num_classes: int = 1000,
                  num_filters: int = 64, dtype: torch.dtype = torch.float32,
-                 device=None):
+                 device=None, process_set=None):
         super().__init__()
         self.dtype = dtype
         self.conv_init = Conv(3, num_filters, 7, 2, padding=3, device=device)
-        self.bn_init = BatchNorm(num_filters, device=device)
+        self.bn_init = BatchNorm(num_filters, device=device,
+                                 process_set=process_set)
         blocks, cin = [], num_filters
         for i, count in enumerate(stage_sizes):
             for j in range(count):
                 filters = num_filters * 2**i
                 blocks.append(Bottleneck(cin, filters,
                                          2 if i > 0 and j == 0 else 1,
-                                         device=device))
+                                         device=device,
+                                         process_set=process_set))
                 cin = filters * 4
         self.blocks = nn.ModuleList(blocks)
         self.head = nn.Linear(cin, num_classes, device=device)

@@ -1,7 +1,8 @@
 """Eager collectives on PyTorch tensors over ``torch.distributed``.
 
 Port of ``horovod_tpu/ops/collective_ops.py``: the reduce ops (:92),
-``allreduce`` with pre- and post-scale (:519), ``grouped_allreduce``
+``allreduce`` with pre- and post-scale (:519) and Adasum (:166-188,
+``ops/adasum.py``), ``grouped_allreduce``
 (:584), ``allgather`` (:658), ``broadcast`` (:700), ``alltoall`` (:736),
 ``reducescatter`` (:848), ``grouped_reducescatter`` (:906),
 ``grouped_allgather`` (:914) and ``barrier`` (:937); and the torch-idiom
@@ -33,16 +34,19 @@ import torch.distributed as dist
 
 from .. import basics
 from ..process_sets import global_process_set
+from ..utils import env
+from .adasum import adasum_reduce
 
-# -- Reduce ops (parity: horovod.torch.mpi_ops Average/Sum/Min/Max) ---------
+# -- Reduce ops (parity: horovod.torch.mpi_ops Average/Sum/Adasum/Min/Max) --
 
 Average = "average"
 Sum = "sum"
 Min = "min"
 Max = "max"
 Product = "product"
+Adasum = "adasum"
 
-_VALID_OPS = (Average, Sum, Min, Max, Product)
+_VALID_OPS = (Average, Sum, Min, Max, Product, Adasum)
 # Average reduces as a sum and divides by the set size afterwards (gloo has
 # no AVG), which is how the JAX package's pmean computes it too.
 _TORCH_OPS = {
@@ -52,6 +56,22 @@ _TORCH_OPS = {
     Max: dist.ReduceOp.MAX,
     Product: dist.ReduceOp.PRODUCT,
 }
+# Adasum is a gather and a local pairwise tree, with no async or grouped
+# form (the reference torch surface's messages,
+# horovod_tpu/torch/__init__.py:179-183 and :337-341).
+_ADASUM_NO_ASYNC = (
+    "op=Adasum has no async form on the host plane (it is a "
+    "gather + local pairwise tree); use the synchronous "
+    "hvd.allreduce or DistributedOptimizer(op=hvd.Adasum)")
+_ADASUM_NO_GROUPED = (
+    "op=Adasum has no grouped/async form on the host plane; "
+    "use hvd.allreduce per tensor or "
+    "DistributedOptimizer(op=hvd.Adasum)")
+# As the reference's reducescatter (collective_ops.py:213), the port's takes
+# no Adasum.
+_ADASUM_NO_RS = (
+    "reducescatter supports Sum/Average/Min/Max/Product, got 'adasum' "
+    "(Adasum combines whole tensors; use allreduce)")
 
 # torch 2.13 names the reduce-scatter of one tensor reduce_scatter_single and
 # deprecates reduce_scatter_tensor; older releases have only the latter.
@@ -74,6 +94,13 @@ def _resolve_op(op, average):
     if op not in _VALID_OPS:
         raise ValueError(
             f"unknown reduce op {op!r}; expected one of {_VALID_OPS}")
+    return op
+
+
+def _non_adasum_op(op, average, message):
+    op = _resolve_op(op, average)
+    if op == Adasum:
+        raise ValueError(message)
     return op
 
 
@@ -178,6 +205,21 @@ def _combined(parts: Sequence[_Launched]) -> _Launched:
 
 
 # -- Launches ---------------------------------------------------------------
+
+
+def _adasum_allreduce(tensor, prescale_factor, postscale_factor,
+                      ps) -> torch.Tensor:
+    """Adasum of ``tensor`` over the set (``ops/adasum.py``), pre- and
+    post-scaled as the reference scales it (collective_ops.py:166-188). A
+    one-member set gives the identity without the wire, unless
+    ``HOROVOD_FORCE_WIRE_MACHINERY=1`` asks for the gather and the tree."""
+    _check_device(tensor)
+    t = tensor.detach().clone()
+    _scale_(t, prescale_factor)
+    if ps.size() > 1 or env.get_str(env.FORCE_WIRE_MACHINERY) == "1":
+        t = adasum_reduce(t, ps)
+    _scale_(t, postscale_factor)
+    return t
 
 
 def _launch_allreduce(tensor, op, prescale_factor, postscale_factor, ps,
@@ -363,13 +405,35 @@ def allreduce(tensor, average: bool | None = None, op: str | None = None,
               process_set=None, name: str | None = None) -> torch.Tensor:
     """Reduce ``tensor`` across the process set; every rank gets the result.
 
-    Parity: ``hvd.allreduce``. ``name`` exists for signature parity: NCCL
-    and gloo match collectives by issue order, not by name.
+    Parity: ``hvd.allreduce``. ``op=Adasum`` gathers every member's
+    tensor and combines them by the pairwise tree (``ops/adasum.py``).
+    ``name`` exists for signature parity: NCCL and gloo match collectives
+    by issue order, not by name.
     """
     del name
-    return _launch_allreduce(tensor, _resolve_op(op, average),
-                             prescale_factor, postscale_factor,
-                             _resolve_process_set(process_set)).finish()
+    op = _resolve_op(op, average)
+    ps = _resolve_process_set(process_set)
+    if op == Adasum:
+        return _adasum_allreduce(tensor, prescale_factor, postscale_factor,
+                                 ps)
+    return _launch_allreduce(tensor, op, prescale_factor, postscale_factor,
+                             ps).finish()
+
+
+def allreduce_(tensor, average: bool | None = None, op: str | None = None,
+               prescale_factor: float = 1.0, postscale_factor: float = 1.0,
+               process_set=None, name: str | None = None) -> torch.Tensor:
+    """In-place :func:`allreduce`: ``tensor`` (contiguous) holds the result
+    and is returned."""
+    del name
+    op = _resolve_op(op, average)
+    ps = _resolve_process_set(process_set)
+    if op == Adasum:
+        tensor.data.copy_(_adasum_allreduce(tensor, prescale_factor,
+                                            postscale_factor, ps))
+        return tensor
+    return _launch_allreduce(tensor, op, prescale_factor, postscale_factor,
+                             ps, in_place=True).finish()
 
 
 def grouped_allreduce(tensors: Sequence[torch.Tensor],
@@ -380,8 +444,9 @@ def grouped_allreduce(tensors: Sequence[torch.Tensor],
     """Allreduce a list of tensors as one fused operation: same-dtype
     buckets up to the fusion threshold, one collective per bucket."""
     return _launch_grouped_allreduce(
-        tensors, _resolve_op(op, average), prescale_factor,
-        postscale_factor, _resolve_process_set(process_set)).finish()
+        tensors, _non_adasum_op(op, average, _ADASUM_NO_GROUPED),
+        prescale_factor, postscale_factor,
+        _resolve_process_set(process_set)).finish()
 
 
 def allgather(tensor, process_set=None,
@@ -443,12 +508,13 @@ def reducescatter(tensor, op: str | None = None,
 
     Parity: ``hvd.reducescatter``; ``op`` defaults to Average. The
     reference takes Sum and Average; Min, Max and Product reduce as
-    :func:`allreduce` does and keep slice r of its result.
+    :func:`allreduce` does and keep slice r of its result. Adasum raises,
+    as the reference's does.
     """
     del name
     return _launch_reducescatter(
-        tensor, _resolve_op(op, None), prescale_factor, postscale_factor,
-        _resolve_process_set(process_set)).finish()
+        tensor, _non_adasum_op(op, None, _ADASUM_NO_RS), prescale_factor,
+        postscale_factor, _resolve_process_set(process_set)).finish()
 
 
 def grouped_reducescatter(tensors: Sequence[torch.Tensor],
@@ -457,7 +523,7 @@ def grouped_reducescatter(tensors: Sequence[torch.Tensor],
                           process_set=None) -> list[torch.Tensor]:
     """:func:`reducescatter` of each tensor, all launched before the first
     is waited on."""
-    op = _resolve_op(op, None)
+    op = _non_adasum_op(op, None, _ADASUM_NO_RS)
     ps = _resolve_process_set(process_set)
     return _combined([
         _launch_reducescatter(t, op, prescale_factor, postscale_factor, ps)
@@ -489,8 +555,9 @@ def allreduce_async_(tensor, average: bool | None = None,
     which then holds the result."""
     del name
     return _submit(_launch_allreduce(
-        tensor, _resolve_op(op, average), prescale_factor, postscale_factor,
-        _resolve_process_set(process_set), in_place=True))
+        tensor, _non_adasum_op(op, average, _ADASUM_NO_ASYNC),
+        prescale_factor, postscale_factor, _resolve_process_set(process_set),
+        in_place=True))
 
 
 def allreduce_async(tensor, average: bool | None = None,
@@ -501,8 +568,8 @@ def allreduce_async(tensor, average: bool | None = None,
     tensor."""
     del name
     return _submit(_launch_allreduce(
-        tensor, _resolve_op(op, average), prescale_factor, postscale_factor,
-        _resolve_process_set(process_set)))
+        tensor, _non_adasum_op(op, average, _ADASUM_NO_ASYNC),
+        prescale_factor, postscale_factor, _resolve_process_set(process_set)))
 
 
 def allgather_async(tensor, name: str | None = None,
@@ -544,7 +611,7 @@ def reducescatter_async(tensor, name: str | None = None,
     """Async :func:`reducescatter` (default Average)."""
     del name
     return _submit(_launch_reducescatter(
-        tensor, _resolve_op(op, None), 1.0, 1.0,
+        tensor, _non_adasum_op(op, None, _ADASUM_NO_RS), 1.0, 1.0,
         _resolve_process_set(process_set)))
 
 
@@ -556,8 +623,8 @@ def grouped_allreduce_async(tensors: Sequence[torch.Tensor],
     :func:`synchronize` returns the list of results."""
     del name
     return _submit(_launch_grouped_allreduce(
-        tensors, _resolve_op(op, None), prescale_factor, postscale_factor,
-        _resolve_process_set(process_set)))
+        tensors, _non_adasum_op(op, None, _ADASUM_NO_GROUPED),
+        prescale_factor, postscale_factor, _resolve_process_set(process_set)))
 
 
 def grouped_allgather_async(tensors: Sequence[torch.Tensor],
@@ -576,7 +643,7 @@ def grouped_reducescatter_async(tensors: Sequence[torch.Tensor],
     """Async :func:`grouped_reducescatter` (default Average): one handle,
     a list of results."""
     del name
-    op = _resolve_op(op, None)
+    op = _non_adasum_op(op, None, _ADASUM_NO_RS)
     ps = _resolve_process_set(process_set)
     return _submit(_combined([_launch_reducescatter(t, op, 1.0, 1.0, ps)
                               for t in tensors]))

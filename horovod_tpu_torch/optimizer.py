@@ -3,7 +3,8 @@ arrive averaged across the process set.
 
 Port of ``horovod_tpu/optimizer.py`` in allreduce mode: the semantics of
 ``DistributedOptimizer`` (:798) and ``_reduce_grads`` (:105) -- compress,
-fused allreduce, decompress -- with ``op``, pre- and post-scale,
+fused allreduce, decompress -- with ``op`` (Adasum included), pre- and
+post-scale,
 ``backward_passes_per_step``, the fusion threshold and ``num_groups``
 (:183-187), a process set, and the non-finite tripwire of
 ``_tripwire_flag`` (:43) and ``_tripwire_guard`` (:65). The mechanism is
@@ -19,6 +20,13 @@ Buckets are ``fusion.bucket_leaves`` over the parameters in
 ``param_groups`` order and are launched last bucket first (the order a
 backward pass completes them), always in that fixed order, so every rank
 issues the same collectives in the same order.
+
+``op=Adasum`` computes its dot products per tensor, never per bucket
+(``horovod_tpu/ops/fusion.py:349-355``), but gathers per bucket: a
+bucket's packed wire is gathered from every member with one
+``all_gather_into_tensor`` launched from the hooks, and ``step()`` runs
+``ops.adasum.adasum_tree`` on each leaf's view of the gathered rows. The
+numbers are those of one gather per tensor, with one launch per bucket.
 
 ``Compression.int8`` changes the exchange itself (``_reduce_grads``
 :148-180): the gradients go through ``ops.quantization`` in ``step()``,
@@ -58,9 +66,10 @@ import torch
 from .compression import Compression
 from .exceptions import HorovodInternalError, SyncModeIneligibleError
 from .ops import fusion
-from .ops.collective_ops import (Average, Sum, _resolve_op,
-                                 _resolve_process_set, finish_allreduce,
-                                 start_allreduce)
+from .ops.adasum import adasum_tree, gather_rows
+from .ops.collective_ops import (Adasum, Average, Sum, _resolve_op,
+                                 _resolve_process_set, _scale_,
+                                 finish_allreduce, start_allreduce)
 from .ops.fusion import (all_finite, bucket_leaves, nonfinite_action, pack,
                          unpack)
 from .utils import env
@@ -135,7 +144,7 @@ class _DistributedOptimizer:
         self._short_circuit = (
             process_set.size() == 1
             and env.get_str(env.FORCE_WIRE_MACHINERY) != "1"
-            and op in (Average, Sum))
+            and op in (Average, Sum, Adasum))
         self._int8 = _is_int8(compression)
         # Updates so far: the int8 wire's rounding salt.
         self._updates = 0
@@ -206,8 +215,24 @@ class _DistributedOptimizer:
             wires.append(wire)
             ctxs.append(ctx)
         flat = pack(wires)
+        if self._op == Adasum:
+            _scale_(flat, self._prescale)
+            rows, work = gather_rows(flat, self._ps)
+            self._launched[bi] = (rows, work, ctxs)
+            return
         work = start_allreduce(flat, self._op, self._prescale, self._ps.group)
         self._launched[bi] = (flat, work, ctxs)
+
+    def _adasum_leaves(self, rows, work, shapes) -> list[torch.Tensor]:
+        """A gathered bucket's leaves, each the Adasum tree over its view in
+        every member's row, postscaled."""
+        work.wait()
+        leaves = []
+        for views in zip(*(unpack(row, shapes) for row in rows)):
+            leaf = adasum_tree(views)
+            _scale_(leaf, self._postscale)
+            leaves.append(leaf)
+        return leaves
 
     def _local_grads(self) -> list[torch.Tensor]:
         """Each parameter's gradient (zeros where none), averaged over the
@@ -250,12 +275,16 @@ class _DistributedOptimizer:
         reduced = []
         for bi in sorted(self._launched, reverse=True):
             flat, work, ctxs = self._launched[bi]
-            reduced.append(finish_allreduce(flat, work, self._op,
-                                            self._postscale, self._ps))
             params = self._buckets[bi]
-            for p, piece, ctx in zip(params,
-                                     unpack(flat, [p.shape for p in params]),
-                                     ctxs):
+            shapes = [p.shape for p in params]
+            if self._op == Adasum:
+                pieces = self._adasum_leaves(flat, work, shapes)
+                reduced.extend(pieces)
+            else:
+                reduced.append(finish_allreduce(flat, work, self._op,
+                                                self._postscale, self._ps))
+                pieces = unpack(flat, shapes)
+            for p, piece, ctx in zip(params, pieces, ctxs):
                 g = self._compression.decompress(piece, ctx)
                 if p.grad is None:
                     p.grad = g.clone()
@@ -604,11 +633,16 @@ def _check_sync_mode(sync_mode, op, k, num_groups) -> None:
     fix."""
     if sync_mode == "allreduce":
         return
+    # The reference's messages (horovod_tpu/optimizer.py:858, :870-875).
+    if op not in (Average, Sum) and sync_mode == "sharded":
+        raise SyncModeIneligibleError(
+            f"sync_mode='sharded' supports op=Average/Sum, got {op!r}")
     if op not in (Average, Sum):
         raise SyncModeIneligibleError(
-            f"sync_mode={sync_mode!r} supports op=Average/Sum, got {op!r} "
-            "(the other reductions need the full tensors on every rank - "
-            "use sync_mode='allreduce')")
+            f"sync_mode='fsdp' supports op=Average/Sum, got {op!r} "
+            "(Adasum's whole-vector dot products need the full "
+            "tensors resident on every rank — use "
+            "sync_mode='allreduce' for Adasum)")
     if k != 1:
         raise SyncModeIneligibleError(
             f"sync_mode={sync_mode!r} does not compose with "
@@ -643,6 +677,8 @@ def DistributedOptimizer(optimizer, named_parameters=None,
     each bucket at 1/num_groups of the wire's bytes, in place of the
     fusion threshold. With a ``process_set`` the buckets reduce over that
     set's group, and only its members build the optimizer and step.
+    ``op=Adasum`` combines each gradient by the Adasum tree over the
+    members (no ``num_groups``, no int8, allreduce mode only).
     ``compression=Compression.int8`` exchanges blockwise-quantized int8.
     ``sync_mode`` (argument > ``HOROVOD_SYNC_MODE`` > ``"allreduce"``)
     picks ``allreduce``, ``sharded`` (ZeRO-1) or ``fsdp`` (ZeRO-3; building
@@ -661,6 +697,11 @@ def DistributedOptimizer(optimizer, named_parameters=None,
         raise ValueError("backward_passes_per_step must be >= 1")
     if num_groups < 0:
         raise ValueError(f"num_groups must be >= 0; got {num_groups}")
+    if num_groups and op == Adasum:
+        # The reference torch surface's message
+        # (horovod_tpu/torch/__init__.py:707-709).
+        raise ValueError("num_groups/groups do not compose with "
+                         "op=Adasum (no grouped Adasum form)")
     _check_sync_mode(sync_mode, op, k, num_groups)
     if _is_int8(compression) and op not in (Average, Sum):
         raise ValueError(

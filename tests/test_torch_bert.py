@@ -243,6 +243,9 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "import horovod_tpu_torch.ops._kernels, horovod_tpu_torch.optimizer\n"
         "import horovod_tpu_torch.ops.quantization, horovod_tpu_torch.checkpoint\n"
         "import horovod_tpu_torch.parallel.param_sharding\n"
+        "import horovod_tpu_torch.ops.adasum, horovod_tpu_torch.sync_batch_norm\n"
+        "import horovod_tpu_torch.runner.launch, horovod_tpu_torch.runner.task_fn\n"
+        "import horovod_tpu_torch.runner.driver_service\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'horovod_tpu'))\n"
         "assert not bad, bad\n")

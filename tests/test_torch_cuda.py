@@ -730,3 +730,79 @@ def test_every_route_takes_no_key_and_no_query(cuda_device, dtype, route, D,
         for g, w in zip(got, want):
             assert g.shape == w.shape and g.dtype == w.dtype
             assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [2, 3, 5, 8])
+def test_adasum_tree_on_the_card_holds_float64(cuda_device, dtype, N):
+    """``ops.adasum.adasum_tree`` on the card over N members (the second
+    all zero) against chip_smoke.py's float64 numpy tree: float32 within
+    1e-5 of the largest value, bf16 (each pair's result rounded to 8 bits,
+    as the reference rounds it to its dtype) within 2e-2."""
+    from horovod_tpu_torch.ops.adasum import adasum_tree
+
+    smoke = _chip_smoke()
+    gen = torch.Generator(device=cuda_device).manual_seed(N)
+    shared = torch.randn(257, 33, generator=gen, device=cuda_device)
+    stack = torch.stack([(r + 1) * (0.7 * shared + torch.randn(
+        257, 33, generator=gen, device=cuda_device)) for r in range(N)])
+    stack[1] = 0.0
+    stack = stack.to(dtype)
+    want = smoke.adasum_tree_np(list(stack.double().cpu().numpy()))
+    got = adasum_tree(stack)
+    assert got.dtype == dtype and got.device.type == "cuda"
+    err = abs(got.double().cpu().numpy() - want).max()
+    assert err <= smoke.ADASUM_TOL[str(dtype).split(".")[1]] * abs(want).max()
+
+
+# SyncBatchNorm's card cases: dtype, layout, input shape, and the
+# tolerances of y, dx, dweight, dbias and the two running statistics.
+SYNCBN_CASES = {
+    "float32": (torch.float32, torch.contiguous_format, (6, 8, 5, 7),
+                (1e-5, 1e-5, 1e-4, 1e-4, 1e-6, 1e-6)),
+    # ResNet's case: float32 weights, bf16 outputs.
+    "bf16_channels_last": (torch.bfloat16, torch.channels_last,
+                           (16, 32, 14, 14),
+                           (2e-2, 2e-2, 1e-2, 1e-2, 1e-5, 1e-5)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SYNCBN_CASES)
+def test_sync_batch_norm_at_world_size_one_matches_batch_norm(
+        cuda_device, monkeypatch, case):
+    """SyncBatchNorm at world size 1 with the wire forced (one NCCL
+    allreduce forward and one backward, ATen's sync-BatchNorm kernels)
+    against torch's BatchNorm2d on the card, TF32 off: float32, and a bf16
+    channels_last input with float32 weights, each within its
+    ``SYNCBN_CASES`` tolerances of the largest value (at least 1)."""
+    import horovod_tpu_torch as hvd
+
+    dtype, layout, shape, tols = SYNCBN_CASES[case]
+    c = shape[1]
+    monkeypatch.setenv("HOROVOD_FORCE_WIRE_MACHINERY", "1")
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    hvd.init()
+    try:
+        gen = torch.Generator(device=cuda_device).manual_seed(4)
+        x = torch.randn(shape, generator=gen, device=cuda_device) * 3 + 1
+        g = torch.randn(shape, generator=gen, device=cuda_device)
+        x, g = (t.to(dtype).contiguous(memory_format=layout) for t in (x, g))
+        outs = []
+        for bn in (hvd.SyncBatchNorm(c).to(cuda_device),
+                   torch.nn.BatchNorm2d(c).to(cuda_device)):
+            with torch.no_grad():
+                bn.weight.copy_(torch.linspace(0.5, 1.5, c))
+                bn.bias.copy_(torch.linspace(-1, 1, c))
+            xi = x.clone().requires_grad_()
+            y = bn(xi)
+            y.backward(g)
+            assert y.dtype == xi.grad.dtype == dtype
+            outs.append((y.float(), xi.grad.float(), bn.weight.grad,
+                         bn.bias.grad, bn.running_mean, bn.running_var))
+        for i, (a, b) in enumerate(zip(*outs)):
+            assert (a - b).abs().max().item() <= tols[i] * max(
+                1.0, b.abs().max().item()), i
+    finally:
+        hvd.shutdown()
