@@ -6,6 +6,8 @@
     python3 chip_diag.py watchdog
     python3 chip_diag.py collectives [--cpu]
     python3 chip_diag.py fsdp_gathers
+    python3 chip_diag.py elastic [--cpu] [--log PATH]
+    python3 chip_diag.py ab_steps OTHER_CHECKOUT
 
 ``ab`` times the kernels of OTHER_CHECKOUT and of this checkout at
 chip_smoke.py's shapes: at its BERT-Large path shapes (D = 64, bf16,
@@ -112,6 +114,26 @@ its
 optimizer-state bytes (about 1/n of the allreduce run's in the sharded
 modes, or the check fails), fsdp's resident parameter bytes, step time and
 peak memory per mode.
+
+``elastic`` (four cards; ``--cpu``: four gloo processes and BERT_TINY)
+launches ``hvdrun-torch --min-np 2 --max-np 4 --host-discovery-script``
+over the hosts 127.0.0.1-4, one slot and one card each (the worker sets
+``CUDA_VISIBLE_DEVICES`` from its host before it imports torch), training
+BERT-Large S = 512 x 8 under ``@hvd.elastic.run``. The fourth worker
+SIGKILLs itself during step 3's backward; the survivors, waiting on it in
+the NCCL allreduce, unblock on the driver's coordinated abort, re-form at
+3 and go on; after ``ELASTIC_COOLDOWN_S`` the host returns and the world
+re-forms at 4. It holds the losses equal across ranks at every step, the
+parameters the same bit for bit on every rank at the end, and the run
+within ``ELASTIC_WALL_S``, and prints the seconds from the kill to the
+first step at 3 ranks and from the host's return to the first step at 4.
+
+``ab_steps`` trains chip_smoke.py's two BERT-Large paths (S = 512 x 8 and
+S = 128 x 64, AdamW, bf16 wire, one card with the wire forced on: its
+``training_phase``) through OTHER_CHECKOUT's package and this one's, each
+checkout in a process of its own, in the order other, this, this, other,
+and prints each path's median step ms and device busy ms per step for
+each checkout (the mean of its two processes) and the ratio.
 """
 
 from __future__ import annotations
@@ -1019,6 +1041,217 @@ def collectives(cpu):
     return out.returncode
 
 
+ELASTIC_HOSTS = ("127.0.0.1", "127.0.0.2", "127.0.0.3", "127.0.0.4")
+# The killed host's blacklist cooldown, the steps at 4 ranks after it
+# returns, and the wall limit of the whole run, in seconds. The cooldown
+# outlasts the survivors' re-formation and a few steps at 3 ranks: their
+# sync broadcasts BERT-Large's AdamW state (2.7 GB) by pickle, and with 15 s
+# the host returned before any step at 3 (4 x H100 80GB HBM3, 700 W).
+ELASTIC_COOLDOWN_S = 60
+ELASTIC_STEPS_BACK = 2
+ELASTIC_WALL_S = 480
+
+
+def _elastic_rank(device):
+    """One worker of ``elastic``: its card is the one its host names
+    (127.0.0.k: card k-1), set before torch is imported. BERT-Large
+    S = 512 x 8 (``--cpu``: BERT_TINY, S = 32 x 2), AdamW, bf16 wire on
+    the card, every rank on the same batch of each step so that their
+    losses can be compared; a ``TorchState`` committed after each step.
+    The first worker on 127.0.0.4 SIGKILLs itself during step 3's backward;
+    the rest train on until they have run ``ELASTIC_STEPS_BACK`` steps at
+    4 ranks after a step at 3, then print their parameters' digest."""
+    host = os.environ["HOROVOD_HOSTNAME"]
+    if device == "cuda":
+        os.environ["CUDA_VISIBLE_DEVICES"] = str(ELASTIC_HOSTS.index(host))
+    import dataclasses
+    import hashlib
+    import json
+    import signal
+
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import bert as bert_mod
+
+    smoke = _smoke()
+    hvd.init(device=device)
+    gen0 = os.environ["HOROVOD_WORLD_VERSION"]
+    base = bert_mod.BERT_LARGE if device == "cuda" else bert_mod.BERT_TINY
+    cfg = dataclasses.replace(base, dropout_rate=0.0)
+    B, S, P = (8, 512, 76) if device == "cuda" else (2, 32, 4)
+    dev = hvd.device()
+    torch.manual_seed(0)
+    with torch.device(dev):
+        model = bert_mod.Bert(cfg, attention_fn=bert_mod.flash_attention_fn)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
+        named_parameters=model.named_parameters(),
+        compression=(hvd.Compression.bf16 if device == "cuda"
+                     else hvd.Compression.none))
+    step = hvd.make_elastic_train_step(model, smoke._bert_loss, opt,
+                                       loss_is_averaged=False)
+    state = hvd.elastic.TorchState(model=model, optimizer=opt, step=0,
+                                   shrunk=False, back=0)
+    victim = host == ELASTIC_HOSTS[-1] and gen0 == "1"
+    if victim:
+        middle = model.layers[len(model.layers) // 2] if hasattr(
+            model, "layers") else None
+        param = next((middle or model).parameters())
+
+        def kill(_):
+            if state.step == 2:
+                print("HVD_ELASTIC_KILL " + json.dumps({"t": time.time()}),
+                      flush=True)
+                os.kill(os.getpid(), signal.SIGKILL)
+
+        param.register_post_accumulate_grad_hook(kill)
+
+    @hvd.elastic.run
+    def train(state):
+        while not state.back >= ELASTIC_STEPS_BACK:
+            if state.step >= 400:
+                raise AssertionError("elastic: 400 steps without the world "
+                                     "returning to 4 ranks")
+            batch = smoke._bert_batch(cfg, B, S, P, state.step, dev)
+            loss = float(step(batch))
+            n = hvd.size()
+            state.step += 1
+            state.back += int(n == 4 and state.shrunk)
+            state.shrunk = state.shrunk or n == 3
+            state.commit()
+            print("HVD_ELASTIC_STEP " + json.dumps(dict(
+                host=host, gen=os.environ["HOROVOD_WORLD_VERSION"],
+                rank=hvd.rank(), size=n, step=state.step, loss=loss,
+                t=time.time())), flush=True)
+        # Every rank prints before any returns: the driver ends the job
+        # at the first worker's exit.
+        hvd.allreduce(torch.zeros(1, device=dev))
+        digest = hashlib.sha256(b"".join(
+            p.detach().float().cpu().numpy().tobytes()
+            for p in model.parameters())).hexdigest()
+        print("HVD_ELASTIC_DONE " + json.dumps(dict(
+            host=host, rank=hvd.rank(), size=hvd.size(), step=state.step,
+            digest=digest)), flush=True)
+        hvd.allreduce(torch.zeros(1, device=dev))
+
+    train(state)
+
+
+def elastic(cpu, log=None):
+    """Four hosts 127.0.0.1-4, one slot and one card each, through
+    ``hvdrun-torch --min-np 2 --max-np 4 --host-discovery-script``: the
+    fourth worker SIGKILLs itself during step 3's backward while its peers
+    wait in the NCCL allreduce; the driver reaps it, blacklists the host
+    for ``ELASTIC_COOLDOWN_S`` and posts the coordinated abort; the
+    survivors unblock, re-form at 3, sync and go on; after the cooldown
+    the host returns and the world re-forms at 4 through
+    ``HostsUpdatedInterrupt``. Holds the losses equal across ranks at every
+    step, the parameters bit-identical on every rank at the end, and the
+    run within ``ELASTIC_WALL_S``; prints the seconds from the kill to the
+    first step at 3 ranks and from the host's return to the first step at
+    4. ``--cpu``: 4 gloo ranks and BERT_TINY; ``--log PATH`` writes every
+    line of the run there."""
+    import json
+    import shutil
+    import threading
+
+    import torch
+
+    if not cpu and torch.cuda.device_count() < 4:
+        print("elastic: needs four cards (or --cpu)", file=sys.stderr)
+        return 1
+    device = "cpu" if cpu else "cuda"
+    tmp = os.path.join(HERE, "build", "chip_diag_elastic")
+    os.makedirs(tmp, exist_ok=True)
+    hosts = os.path.join(tmp, "hosts.txt")
+    with open(hosts, "w") as f:
+        f.write("\n".join(ELASTIC_HOSTS) + "\n")
+    disc = os.path.join(tmp, "discover.sh")
+    with open(disc, "w") as f:
+        f.write(f"#!/bin/sh\ncat {hosts}\n")
+    os.chmod(disc, 0o755)
+    env = dict(os.environ, PYTHONPATH=HERE, HOROVOD_LOG_LEVEL="info",
+               HOROVOD_BLACKLIST_COOLDOWN=str(ELASTIC_COOLDOWN_S),
+               HOROVOD_ELASTIC_DRIVER_LOST_TIMEOUT="30")
+    t0 = time.time()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "horovod_tpu_torch.runner.launch", "-np",
+         "4", "--min-np", "2", "--max-np", "4", "--host-discovery-script",
+         disc, *(["--cpu-mode"] if cpu else []), sys.executable,
+         os.path.abspath(__file__), "_elastic_rank", device],
+        cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    lines = []
+
+    def pump():
+        for line in proc.stdout:
+            lines.append((time.time(), line.rstrip("\n")))
+
+    reader = threading.Thread(target=pump, daemon=True)
+    reader.start()
+    try:
+        rc = proc.wait(timeout=ELASTIC_WALL_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = None
+    reader.join(timeout=10)
+    shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.time() - t0
+    text = "\n".join(line for _, line in lines)
+    if log:
+        with open(log, "w") as f:
+            f.write("\n".join(f"{t - t0:9.3f} {line}" for t, line in lines))
+
+    def records(tag):
+        return [(t, json.loads(line.split(tag + " ", 1)[1]))
+                for t, line in lines if tag + " {" in line]
+
+    steps = [r for _, r in records("HVD_ELASTIC_STEP")]
+    kills = [r["t"] for _, r in records("HVD_ELASTIC_KILL")]
+    done = [r for _, r in records("HVD_ELASTIC_DONE")]
+    returned = [t for t, line in lines if "host set changed" in line]
+    by_step = {}
+    for r in steps:
+        by_step.setdefault((r["gen"], r["step"]), []).append(r)
+    # Every rank prints every step it committed, except that a rank whose
+    # commit raised HostsUpdatedInterrupt (after its snapshot) does not
+    # print it: the last step of a world that a host update ended.
+    last = {}
+    for g, n in by_step:
+        last[g] = max(last.get(g, n), n)
+    unequal = {k: [r["loss"] for r in v] for k, v in by_step.items()
+               if len({r["loss"] for r in v}) != 1
+               or (len(v) != v[0]["size"] and k[1] != last[k[0]])}
+    sizes = [v[0]["size"] for _, v in sorted(
+        by_step.items(), key=lambda kv: kv[1][0]["t"])]
+    shape = [n for i, n in enumerate(sizes) if i == 0 or n != sizes[i - 1]]
+    ok = (rc == 0 and len(kills) == 1 and shape == [4, 3, 4] and returned
+          and not unequal and len(done) == 4
+          and len({d["digest"] for d in done}) == 1)
+    at3 = [r["t"] for r in steps if r["size"] == 3]
+    first3 = min(at3) if at3 else None
+    back = [r["t"] for r in steps if r["size"] == 4 and at3
+            and r["t"] > first3]
+    print(f"elastic: {4} hosts over {dist_backend(device)}, exit code {rc}, "
+          f"wall {wall:.1f} s (limit {ELASTIC_WALL_S}), world sizes by step "
+          f"{sizes}, steps {len(by_step)}, losses equal across ranks at "
+          f"every step: {not unequal}, final digests "
+          f"{sorted({d['digest'][:16] for d in done})} on "
+          f"{len(done)} ranks")
+    if kills and first3:
+        print(f"elastic: seconds from the kill to the first step at 3 ranks "
+              f"{first3 - kills[0]:.2f}; from the host's return (the "
+              f"driver's reconfiguration) to the first step at 4 "
+              f"{(min(back) - returned[-1]) if back and returned else 'n/a'}"
+              + ("" if cpu else f"; cards: {_smoke().card_line()}"))
+    if not ok:
+        print(f"elastic: FAILED (unequal {unequal}):\n{text[-6000:]}",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
 def fsdp_gathers():
     import gc
     import statistics
@@ -1089,6 +1322,78 @@ def fsdp_gathers():
     return 0
 
 
+def _steps_worker(tree, label):
+    """Train both BERT-Large paths of ``tree``'s chip_smoke.py through
+    ``tree``'s package (its ``training_phase``: one rank, the NCCL wire
+    forced on) and print one JSON line: each path's median step ms and
+    device busy ms per step."""
+    import io
+
+    import torch
+
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(tree, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import _kernels
+
+    if not hvd.__file__.startswith(tree + os.sep):
+        raise RuntimeError(f"imported {hvd.__file__}, not the checkout {tree}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _kernels.build()
+    os.environ["HOROVOD_FORCE_WIRE_MACHINERY"] = "1"
+    card = smoke.card_line()
+    hvd.init()
+    out = dict(label=label, tree=tree, card=card)
+    for path in smoke.BERT_PATHS:
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            smoke.training_phase(card, path)
+        text = text.getvalue()
+        out[path[0]] = dict(
+            step_ms=float(re.search(r"step_ms median ([0-9.]+)", text)[1]),
+            busy_ms=float(re.search(r"device busy ([0-9.]+) ms per step",
+                                    text)[1]))
+    hvd.shutdown()
+    print(json.dumps(out))
+
+
+def ab_steps(other):
+    """BERT-Large's training step at both chip_smoke.py paths through
+    OTHER_CHECKOUT's package and this one's, each in a process of its own
+    in the order other, this, this, other; prints each process's JSON line,
+    then each path's mean step ms and busy ms per checkout."""
+    order = (("other", other), ("this", HERE), ("this", HERE),
+             ("other", other))
+    runs = {"other": [], "this": []}
+    for label, tree in order:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "_steps_worker",
+             tree, label], capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
+            print(f"ab_steps: the {label} checkout ({tree}) failed with exit "
+                  f"code {proc.returncode}", file=sys.stderr)
+            return 1
+        line = proc.stdout.strip().splitlines()[-1]
+        print(line)
+        runs[label].append(json.loads(line))
+    for path in [k for k in runs["this"][0] if k.startswith("bert_")]:
+        for metric in ("step_ms", "busy_ms"):
+            o, t = (sum(r[path][metric] for r in runs[label]) / 2
+                    for label in ("other", "this"))
+            print(f"ab_steps {path} {metric}: other {o:.2f}, this {t:.2f}, "
+                  f"this / other {t / o:.4f} (runs: other "
+                  f"{[r[path][metric] for r in runs['other']]}, this "
+                  f"{[r[path][metric] for r in runs['this']]})")
+    print(f"card: {runs['this'][0]['card']}")
+    return 0
+
+
 def main() -> int:
     args = sys.argv[1:]
     if args[:1] == ["_worker"] and len(args) == 3:
@@ -1099,6 +1404,13 @@ def main() -> int:
     if args[:1] == ["_collectives_rank"] and len(args) == 2:
         _collectives_rank(args[1])
         return 0
+    if args[:1] == ["elastic"] and set(args[1:2]) <= {"--cpu", "--log"}:
+        cpu = "--cpu" in args
+        log = args[args.index("--log") + 1] if "--log" in args else None
+        return elastic(cpu, log)
+    if args[:1] == ["_elastic_rank"] and len(args) == 2:
+        _elastic_rank(args[1])
+        return 0
     import torch
 
     if not torch.cuda.is_available():
@@ -1106,6 +1418,11 @@ def main() -> int:
         return 1
     if args[:1] == ["ab"] and len(args) == 2:
         return ab(args[1])
+    if args[:1] == ["_steps_worker"] and len(args) == 3:
+        _steps_worker(args[1], args[2])
+        return 0
+    if args[:1] == ["ab_steps"] and len(args) == 2:
+        return ab_steps(args[1])
     if args == ["watchdog"]:
         return watchdog()
     if args == ["fsdp_gathers"]:

@@ -2812,6 +2812,349 @@ def launcher_phase(card):
           f"{marks}, launcher's exit {seconds:.2f} on {card}")
 
 
+# The elastic phase's worker, run by ``hvdrun-torch
+# --host-discovery-script`` (one host, localhost:1) in one of two modes:
+#   abort: BERT-Large S = 512 x 8 (ELASTIC_LAYERS layers), bf16 wire,
+#     AdamW: two uninterrupted ELASTIC_STEPS-step runs from the seed-0
+#     weights, then the same steps under @hvd.elastic.run with a TorchState;
+#     after step 2's commit in the first world it posts the coordinated
+#     abort for its generation, its next collective raises
+#     HorovodInternalError, and the loop restores, tears the NCCL group
+#     down, forms a new one, syncs and runs steps 3-4.
+#   relaunch: the same at ELASTIC_LAYERS layers; the first process runs one
+#     uninterrupted run and saves its final parameters beside the
+#     checkpoints, then saves each commit through the Checkpointer and exits
+#     with 1 after step 2's save. The driver relaunches it after the
+#     blacklist cooldown; the new process resumes from disk and runs steps
+#     3-4, and only then runs the second uninterrupted run and reads the
+#     first's parameters, so that nothing but the relaunch lies between the
+#     exit and its first resumed step.
+# Either prints "HVD_ELASTIC <json>": its final parameters against the
+# uninterrupted run's, the flash kernels' launches per step and world, and
+# the times of the recovery's stages.
+ELASTIC_CHILD = r"""
+import dataclasses, json, os, sys, time
+t_start = time.time()
+import torch
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch import basics
+from horovod_tpu_torch.models import bert as bert_mod
+from horovod_tpu_torch.ops import _kernels
+import chip_smoke as smoke
+t_imported = time.time()
+
+MODE = os.environ["ELASTIC_SMOKE_MODE"]
+STEPS = smoke.ELASTIC_STEPS
+# Runs that repeat bit for bit where torch has a deterministic form of an
+# op (the embeddings' and the gathers' backward add with atomics
+# otherwise); an op without one warns.
+torch.use_deterministic_algorithms(True, warn_only=True)
+FLASH = ("flash_fwd", "flash_dq", "flash_dkv")
+marks, worlds = {}, [1]
+hvd.init()
+t_init = time.time()
+dev = hvd.device()
+cfg = dataclasses.replace(bert_mod.BERT_LARGE, dropout_rate=0.0,
+                          num_layers=int(os.environ["ELASTIC_SMOKE_LAYERS"]))
+torch.manual_seed(0)
+with torch.device(dev):
+    model = bert_mod.Bert(cfg, attention_fn=bert_mod.flash_attention_fn)
+initial = {k: v.clone() for k, v in model.state_dict().items()}
+_, B, S, P, _ = smoke.BERT_PATHS[0]
+batches = [smoke._bert_batch(cfg, B, S, P, seed, dev) for seed in range(STEPS)]
+t_model = time.time()
+
+
+def optimizer():
+    return hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
+        named_parameters=model.named_parameters(),
+        compression=hvd.Compression.bf16)
+
+
+def params():
+    return [p.detach().clone() for p in model.parameters()]
+
+
+def uninterrupted(keep=None):
+    model.load_state_dict(initial)
+    opt = optimizer()
+    step = hvd.make_train_step(model, smoke._bert_loss, opt)
+    for b in batches:
+        step(b)
+        if keep is not None:
+            keep.append(params())
+    torch.cuda.synchronize()
+    opt.remove_hooks()
+    return params()
+
+
+ckpt = hvd.Checkpointer(os.environ["ELASTIC_SMOKE_CKPT"], max_to_keep=2,
+                        async_save=False)
+REF_PATH = os.environ["ELASTIC_SMOKE_CKPT"] + ".ref.pt"
+resumed = MODE == "relaunch" and ckpt.latest_step() is not None
+ref = ref2 = None
+ref_steps = []
+if MODE == "abort":
+    ref, ref2 = uninterrupted(ref_steps), uninterrupted()
+elif not resumed:
+    torch.save([p.cpu() for p in uninterrupted()], REF_PATH)
+model.load_state_dict(initial)
+opt = optimizer()
+start = 0
+if resumed:
+    saved = ckpt.restore()
+    model.load_state_dict(saved["model"])
+    opt.load_state_dict(saved["opt"])
+    start = saved["step"]
+t_restored = time.time()
+
+
+def timed(name, fn):
+    def call(*a, **k):
+        marks.setdefault(name, []).append(time.perf_counter())
+        out = fn(*a, **k)
+        marks.setdefault(name + "_end", []).append(time.perf_counter())
+        return out
+    return call
+
+
+real_init = basics.init
+def init(*a, **k):
+    real_init(*a, **k)
+    worlds[0] += 1
+basics.init = timed("init", init)
+basics.shutdown = timed("shutdown", basics.shutdown)
+hooks = hvd.abort._hooks
+hooks[hooks.index(basics._abort_groups)] = timed("comm_abort",
+                                                  basics._abort_groups)
+
+
+def restore(self):
+    hvd.elastic.TorchState.restore(self)
+    if ref_steps:
+        gaps.append(("restored", max(
+            (a.float() - b.float()).abs().max().item()
+            for a, b in zip(params(), ref_steps[self.step - 1]))))
+
+
+class State(hvd.elastic.TorchState):
+    restore = timed("restore", restore)
+    sync = timed("sync", hvd.elastic.TorchState.sync)
+
+
+state = State(model=model, optimizer=opt, step=start)
+step_fn = hvd.make_elastic_train_step(model, smoke._bert_loss, opt)
+launches, losses, errors, gaps, walls = [], [], [], [], []
+posted, probe = [], []
+
+
+@hvd.elastic.run
+def train(state):
+    while state.step < STEPS:
+        if probe:
+            probe.pop()
+            try:
+                hvd.allreduce(torch.zeros(1, device=dev))
+            except hvd.HorovodInternalError as e:
+                errors.append(str(e))
+                raise
+        for k in _kernels.KERNELS:
+            k.launches = 0
+        loss = float(step_fn(batches[state.step]))
+        torch.cuda.synchronize()
+        launches.append(dict(world=worlds[0], step=state.step + 1, **{
+            k.name: k.launches for k in _kernels.KERNELS if k.name in FLASH}))
+        if ref_steps:
+            gaps.append(max((a.float() - b.float()).abs().max().item()
+                            for a, b in zip(params(), ref_steps[state.step])))
+        if len(launches) == 1 or launches[-1]["world"] != launches[-2]["world"]:
+            marks.setdefault("first_step", []).append(time.perf_counter())
+            walls.append(time.time())
+        state.step += 1
+        state.commit()
+        losses.append(loss)
+        if MODE == "relaunch":
+            ckpt.save(state.step, {"model": model.state_dict(),
+                                   "opt": opt.state_dict(),
+                                   "step": state.step}, wait=True)
+            if state.step == 2 and not resumed:
+                print(f"HVD_ELASTIC_EXIT after step 2 at {time.time()}",
+                      flush=True)
+                os._exit(1)
+        if MODE == "abort" and state.step == 2 and not posted:
+            posted.append(time.perf_counter())
+            probe.append(True)
+            hvd.abort.post("chip_smoke: abort after step 2's commit")
+
+
+train(state)
+got = params()
+if MODE == "relaunch":
+    opt.remove_hooks()
+    ref = [p.to(dev) for p in torch.load(REF_PATH)]
+    ref2 = uninterrupted()
+bitwise = all(torch.equal(a, b) for a, b in zip(ref, ref2))
+spread = max((a.float() - b.float()).abs().max().item()
+             for a, b in zip(ref, ref2))
+diff = max((a.float() - b.float()).abs().max().item()
+           for a, b in zip(got, ref))
+equal = all(torch.equal(a, b) for a, b in zip(got, ref))
+t0 = posted[0] if posted else None
+rel = {k: [round(t - t0, 4) for t in v] for k, v in marks.items()} if t0 else {}
+print("HVD_ELASTIC " + json.dumps(dict(
+    mode=MODE, generation=os.environ["HOROVOD_WORLD_VERSION"], start=start,
+    worlds=worlds[0], launches=launches, losses=losses, errors=errors,
+    bitwise_runs=bitwise, spread=spread, diff=diff, equal=equal, marks=rel,
+    gaps=gaps, t_start=t_start, t_first_step=walls[0],
+    t_stages=dict(start=t_start, imports=t_imported, init=t_init,
+                  model=t_model, restore=t_restored, first_step=walls[0]),
+    params=sum(p.numel() for p in got))), flush=True)
+"""
+
+
+def _elastic_run(tmp, mode, layers, env, limit_s):
+    """One ``hvdrun-torch --host-discovery-script`` launch of
+    ``ELASTIC_CHILD``: (exit code, stdout, the child's reports, seconds)."""
+    env = dict(env, ELASTIC_SMOKE_MODE=mode, ELASTIC_SMOKE_LAYERS=str(layers),
+               ELASTIC_SMOKE_CKPT=os.path.join(tmp, f"ckpt_{mode}"))
+    t0 = time.time()
+    out = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.runner.launch",
+         "--host-discovery-script", os.path.join(tmp, "discover.sh"),
+         "--min-np", "1", "--max-np", "1", sys.executable,
+         os.path.join(tmp, "child.py")],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        capture_output=True, text=True, timeout=limit_s)
+    reports = [json.loads(line.split("HVD_ELASTIC ", 1)[1])
+               for line in out.stdout.splitlines() if "HVD_ELASTIC {" in line]
+    return out.returncode, out.stdout + out.stderr, reports, time.time() - t0
+
+
+ELASTIC_STEPS = 4
+ELASTIC_LAYERS = {"abort": 24, "relaunch": 2}
+# Seconds each launch may take, and the whole phase.
+ELASTIC_LIMIT_S = {"abort": 120, "relaunch": 90}
+ELASTIC_PHASE_LIMIT_S = 180
+
+
+def _hold_elastic(mode, rc, text, reports):
+    """The child's report: exit code 0, one report, final parameters equal
+    to the uninterrupted run's (bit for bit if its two uninterrupted runs
+    agree bit for bit, else within their spread), and the three multi-tile
+    flash kernels launched once per layer in every step of every world."""
+    if rc != 0 or len(reports) != 1:
+        raise AssertionError(f"elastic {mode}: exit code {rc}, "
+                             f"{len(reports)} report(s):\n{text[-4000:]}")
+    r = reports[0]
+    ok = r["equal"] if r["bitwise_runs"] else r["diff"] <= r["spread"]
+    want = ELASTIC_LAYERS[mode]
+    bad = [row for row in r["launches"]
+           if any(row[k] != want for k in ("flash_fwd", "flash_dq",
+                                           "flash_dkv"))]
+    if not ok or bad:
+        raise AssertionError(f"elastic {mode}: final parameters equal "
+                             f"{r['equal']} (max diff {r['diff']}, spread "
+                             f"{r['spread']}), launches off {bad}:\n"
+                             f"{text[-4000:]}")
+    return r
+
+
+def elastic_phase(card):
+    """``hvdrun-torch --host-discovery-script <prints localhost:1> --min-np 1
+    --max-np 1 python ELASTIC_CHILD`` on the card, twice (see
+    ``ELASTIC_CHILD``): the BERT-Large worker that recovers in-process from
+    a coordinated abort (new NCCL group), and the 2-layer worker the driver
+    relaunches after it exits, which resumes from the ``Checkpointer``. Holds
+    both to the uninterrupted run's final parameters, the launches of
+    flash_fwd, flash_dq and flash_dkv in every step of both worlds, and the
+    limits ``ELASTIC_LIMIT_S`` and ``ELASTIC_PHASE_LIMIT_S``; prints the
+    seconds from the abort post to the first step of the new world, by
+    stage."""
+    import shutil
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = os.path.join(here, "build", "chip_smoke_elastic")
+    os.makedirs(tmp, exist_ok=True)
+    with open(os.path.join(tmp, "child.py"), "w") as f:
+        f.write(ELASTIC_CHILD)
+    disc = os.path.join(tmp, "discover.sh")
+    with open(disc, "w") as f:
+        f.write("#!/bin/sh\necho localhost:1\n")
+    os.chmod(disc, 0o755)
+    env = dict(os.environ, HOROVOD_FORCE_WIRE_MACHINERY="1",
+               HOROVOD_ELASTIC_DRIVER_LOST_TIMEOUT="30",
+               CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               PYTHONPATH=os.pathsep.join(
+                   [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t_phase = time.time()
+    try:
+        rc, text, reports, secs = _elastic_run(
+            tmp, "abort", ELASTIC_LAYERS["abort"], env,
+            ELASTIC_LIMIT_S["abort"])
+        r = _hold_elastic("abort", rc, text, reports)
+        worlds = sorted({row["world"] for row in r["launches"]})
+        m = r["marks"]
+        if not (r["errors"] and "coordinated abort" in r["errors"][0]
+                and worlds == [1, 2] and r["worlds"] == 2):
+            raise AssertionError(f"elastic abort: errors {r['errors']}, "
+                                 f"worlds {worlds}:\n{text[-4000:]}")
+        stages = {
+            "communicator_abort": m["comm_abort_end"][0] - m["comm_abort"][0],
+            "detection": m["restore"][0] - m["comm_abort_end"][0],
+            "restore": m["restore_end"][0] - m["restore"][0],
+            "backoff": m["shutdown"][0] - m["restore_end"][0],
+            "teardown": m["shutdown_end"][0] - m["shutdown"][0],
+            "new_group": m["init_end"][0] - m["init"][0],
+            "sync": m["sync_end"][-1] - m["sync"][-1],
+            "first_step": m["first_step"][1] - m["sync_end"][-1],
+            "total": m["first_step"][1]}
+        print(f"elastic abort: BERT-Large {r['params'] / 1e6:.1f}M params, "
+              f"S=512 x 8, bf16 wire, AdamW: {ELASTIC_STEPS} steps in 2 "
+              f"worlds of generation {r['generation']}; the step after the "
+              f"post raised {r['errors'][0]!r}; final parameters "
+              f"{'bit for bit equal to' if r['equal'] else 'within the spread of'}"
+              f" the uninterrupted run's (two uninterrupted runs "
+              f"{'agree bit for bit' if r['bitwise_runs'] else 'differ by ' + str(r['spread'])}"
+              f", max diff {r['diff']}); launches per step "
+              f"{r['launches']}; seconds from the abort post "
+              f"{ {k: round(v, 4) for k, v in stages.items()} }; "
+              f"launch to exit {secs:.1f} s on {card}")
+        rc, text, reports, secs = _elastic_run(
+            tmp, "relaunch", ELASTIC_LAYERS["relaunch"],
+            dict(env, HOROVOD_BLACKLIST_COOLDOWN="1"),
+            ELASTIC_LIMIT_S["relaunch"])
+        r = _hold_elastic("relaunch", rc, text, reports)
+        exits = [float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+                 if "HVD_ELASTIC_EXIT after step 2 at " in line]
+        if not (len(exits) == 1 and r["start"] == 2
+                and [row["step"] for row in r["launches"]] == [3, 4]
+                and int(r["generation"]) >= 2):
+            raise AssertionError(f"elastic relaunch: start {r['start']}, "
+                                 f"launches {r['launches']}:\n{text[-4000:]}")
+        print(f"elastic relaunch: BERT-Large width, {ELASTIC_LAYERS['relaunch']}"
+              f" layers: the process exited after step 2's save, the driver "
+              f"relaunched it as generation {r['generation']}, which resumed "
+              f"from the Checkpointer at step {r['start']}; seconds from the "
+              f"exit to the new process's start {r['t_start'] - exits[0]:.2f},"
+              f" to its first resumed step {r['t_first_step'] - exits[0]:.2f}"
+              f" (to the end of each stage: "
+              f"{ {k: round(t - exits[0], 2) for k, t in r['t_stages'].items()} }"
+              f"); final parameters "
+              f"{'bit for bit equal to' if r['equal'] else 'within the spread of'}"
+              f" the uninterrupted run's (two uninterrupted runs, one in each "
+              f"process, "
+              f"{'agree bit for bit' if r['bitwise_runs'] else 'differ by ' + str(r['spread'])}"
+              f", max diff {r['diff']}); launches "
+              f"{r['launches']}; launch to exit {secs:.1f} s on {card}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    took = time.time() - t_phase
+    if took > ELASTIC_PHASE_LIMIT_S:
+        raise AssertionError(f"elastic: the phase took {took:.1f} s, past its "
+                             f"limit of {ELASTIC_PHASE_LIMIT_S} s")
+
+
 def kernel_rows():
     """The kernels line's rows, (name, Kernel, source file under csrc/):
     each kernel, then the D = 256 instances of the multi-tile three, then
@@ -2894,6 +3237,7 @@ def main() -> int:
     _phase("adasum", adasum_phase, card)
     _phase("syncbn", syncbn_phase, card, plain_busy)
     _phase("launcher", launcher_phase, card)
+    _phase("elastic", elastic_phase, card)
     print("sync modes, BERT-Large S=512 x 8 at world size 1 (step ms median, "
           "max_memory_allocated GiB, optimizer-state bytes on this rank): "
           + "; ".join(f"{m} {ms:.2f} ms, {peak:.2f} GiB, {state}"

@@ -14,7 +14,9 @@ torch, never jax or ``horovod_tpu``.
 Entry points run on the card unless the caller asks for the CPU
 (``init(device="cpu")``, which forms a gloo world). ``op=Adasum`` and
 ``SyncBatchNorm`` complete the data-parallel surface; ``hvdrun-torch``
-(``runner/``) launches one process per card.
+(``runner/``) launches one process per card, statically or elastically
+(``hvd.elastic``: a world that loses a worker or gains a host and keeps
+training).
 """
 
 from __future__ import annotations
@@ -34,12 +36,14 @@ _EXPORTS = {
         "mpi_enabled", "mpi_threads_supported", "nccl_built",
         "process_count", "process_rank", "rank", "rocm_built", "shutdown",
         "size"),
-    "checkpoint": ("load_and_broadcast", "load_state_and_broadcast",
-                   "save_on_rank_0", "save_state_on_rank_0"),
+    "checkpoint": ("Checkpointer", "load_and_broadcast",
+                   "load_state_and_broadcast", "save_on_rank_0",
+                   "save_state_on_rank_0"),
     "compression": ("Compression",),
     "exceptions": ("CheckpointCorruptError", "HorovodInternalError",
-                   "HorovodTpuError", "NotInitializedError",
-                   "SyncModeIneligibleError"),
+                   "HorovodTpuError", "HostsUpdatedInterrupt",
+                   "NotInitializedError", "RecoveryExhaustedError",
+                   "RemovedFromWorldError", "SyncModeIneligibleError"),
     "functions": ("allgather_object", "broadcast_object",
                   "broadcast_optimizer_state", "broadcast_parameters",
                   "masked_average"),
@@ -56,7 +60,7 @@ _EXPORTS = {
                   "init_sharded_state", "load_sharded_state",
                   "reshard_opt_state", "resolve_sync_mode",
                   "unshard_opt_state"),
-    "parallel.data_parallel": ("make_train_step",),
+    "parallel.data_parallel": ("make_elastic_train_step", "make_train_step"),
     "parallel.param_sharding": ("ShardedParams", "reshard_params",
                                 "resident_param_bytes", "shard_params",
                                 "unshard_params"),
@@ -89,5 +93,7 @@ def __dir__():
     return sorted(set(globals()) | set(__all__))
 
 
-# The public names, and the one submodule that is public by name.
-__all__ = sorted(_SOURCE) + ["checkpoint"]
+# The public names, and the submodules that are public by name
+# (``hvd.elastic``: ``run``, ``TorchState``, ``ElasticSampler``, ...).
+_SUBMODULES = ("checkpoint", "elastic")
+__all__ = sorted(_SOURCE) + list(_SUBMODULES)

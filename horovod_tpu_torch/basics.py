@@ -8,20 +8,55 @@ come from the launcher's env contract (``HOROVOD_NUM_PROCESSES``,
 ``HOROVOD_CROSS_RANK``, ``HOROVOD_CROSS_SIZE``;
 ``horovod_tpu/process_world.py``), and the collectives run over NCCL on
 the card, or over gloo when the caller asks for the CPU.
+
+Elastic worlds (``HOROVOD_ELASTIC=1``, workers of ``hvdrun-torch
+--host-discovery-script``; ``horovod_tpu/basics.py:66-172``): ``init()``
+first fetches this worker's assignment for the newest world from the
+driver's rendezvous KV and applies it to the env, starts the worker's
+poll loop, heartbeat and abort monitor, and has rank 0 pick its TCP
+store's port on its own host and publish it under ``coord/<version>``.
+The group gets an explicit collective timeout
+(``ELASTIC_COLLECTIVE_TIMEOUT_S``). Each
+re-formation is a new group: ``shutdown()`` aborts the old one's
+communicators and destroys it, even when it is broken, and the objects
+that captured it drop it (``on_shutdown`` hooks).
 """
 
 from __future__ import annotations
 
+import datetime
+import os
 import threading
+import time
+from typing import Callable
 
 import torch
 import torch.distributed as dist
 
-from . import process_sets
+from . import abort, process_sets
 from .exceptions import NotInitializedError
 from .utils import env
+from .utils.logging import get_logger
 
 _lock = threading.Lock()
+
+# Objects that captured this world's group register a call here to drop it
+# at shutdown (the optimizer's in-flight work, ...).
+_shutdown_hooks: list[Callable[[], None]] = []
+# Objects that read facts of the world (the optimizer: is its set one
+# member?) register a call here to read them again when a world forms.
+_init_hooks: list[Callable[[], None]] = []
+
+# What a torch NCCL group does when its watchdog sees a failed or timed-out
+# collective, in an elastic world (unless the env sets it): 2 = abort the
+# communicators and keep the process alive. torch's default kills the
+# process, which is the survivor elastic recovery exists to keep.
+ELASTIC_NCCL_ERROR_HANDLING = "2"
+
+# An elastic group's collective timeout: a collective still waiting after it
+# fails (torch's default is 10 minutes). The coordinated abort ends a wait
+# on a dead peer well before; this bounds one the abort never reaches.
+ELASTIC_COLLECTIVE_TIMEOUT_S = 300.0
 
 
 class _State:
@@ -35,6 +70,12 @@ class _State:
         self.cross_rank = 0
         self.cross_size = 1
         self.device: torch.device | None = None
+        # (world version, TCP store address) of the last group this
+        # process formed in an elastic world.
+        self.last_coordinator: tuple[str, str] | None = None
+        # The device the last init() of an elastic world asked for: the
+        # elastic loop's re-init, which passes none, keeps it.
+        self.elastic_device = None
 
     def require_init(self) -> "_State":
         if not self.initialized:
@@ -61,12 +102,101 @@ def _resolve_device(device) -> torch.device:
     return device
 
 
+def on_shutdown(hook: Callable[[], None]) -> None:
+    """Run ``hook()`` at every :func:`shutdown` (errors are logged)."""
+    _shutdown_hooks.append(hook)
+
+
+def on_init(hook: Callable[[], None]) -> None:
+    """Run ``hook()`` at the end of every :func:`init` that forms a world."""
+    _init_hooks.append(hook)
+
+
+def elastic() -> bool:
+    return env.get_str("HOROVOD_ELASTIC") == "1"
+
+
+def _join_elastic_world() -> None:
+    """Fetch this worker's assignment for the newest world, apply it to
+    the env, and start the poll loop, heartbeat and abort monitor."""
+    from .runner.elastic import worker as elastic_worker
+
+    ctx = elastic_worker.get_worker_context()
+    ctx.apply_to_env(ctx.fetch_assignment())
+    ctx.start_polling()
+    ctx.start_heartbeat()
+
+
+def _exchange_coordinator_port(coord: str, rank: int) -> str:
+    """Rank 0 picks the TCP store's port ON ITS OWN HOST and publishes it
+    under ``coord/<version>`` in the rendezvous KV; the others poll for
+    it (the launcher cannot probe a free port on a remote host). A rank
+    that formed a group of this version before waits for a new address:
+    a recovery that rejoins the same generation re-forms the group too."""
+    from .runner.http.kv_server import KVClient, env_generation
+    from .runner.network import free_port
+
+    addr = env.get_str("HOROVOD_RENDEZVOUS_ADDR")
+    port = env.get_int("HOROVOD_RENDEZVOUS_PORT", -1)
+    if not addr or port < 0:
+        return coord  # manual launch: trust the env as given
+    version = env.get_str("HOROVOD_WORLD_VERSION", "static")
+    scope = f"coord/{version}"
+    # Generation-fenced: a zombie rank 0 resumed from a pre-abort world
+    # must not republish a stale endpoint.
+    kv = KVClient(addr, port, generation_fn=env_generation)
+    stale = (_state.last_coordinator[1]
+             if _state.last_coordinator
+             and _state.last_coordinator[0] == version else None)
+    if rank == 0:
+        chosen = stale
+        while chosen == stale:
+            chosen = f"{coord.rsplit(':', 1)[0]}:{free_port()}"
+        kv.put(scope, "addr", chosen.encode())
+        _state.last_coordinator = (version, chosen)
+        return chosen
+    deadline = time.time() + 60.0
+    while time.time() < deadline:
+        val = kv.get(scope, "addr")
+        if val is not None and val.decode() != stale:
+            _state.last_coordinator = (version, val.decode())
+            return val.decode()
+        time.sleep(0.05)
+    raise TimeoutError(
+        f"coordinator address not published to rendezvous KV scope {scope!r}")
+
+
+def _abort_groups(reason: str = "", generation: int = -1) -> None:
+    """Abort the communicators of every group of this world (the abort
+    hook): a collective already waiting on a dead peer then ends with an
+    error instead of hanging. Runs on the abort monitor's thread; a group
+    the main thread tears down meanwhile is skipped."""
+    del reason, generation
+    if not _state.owns_group or not dist.is_initialized():
+        return
+    from torch.distributed import distributed_c10d as c10d
+
+    try:
+        pgs = sorted(c10d._world.pg_names, key=c10d._world.pg_names.get,
+                     reverse=True)
+        for pg in pgs:
+            pg.abort()
+    except Exception as e:  # noqa: BLE001 — the flag still raises
+        get_logger().warning("aborting the process group failed: %s", e)
+
+
+abort.on_abort(_abort_groups)
+
+
 def init(device=None, init_method: str | None = None) -> None:
     """Form the world. Idempotent.
 
     ``device``: ``None`` or ``"cuda"`` runs on the card (NCCL group, and
     ``torch.cuda.set_device(local_rank)``); ``"cpu"`` runs on the CPU over
-    gloo. With no card and no explicit ``"cpu"`` this raises.
+    gloo. With no card and no explicit ``"cpu"`` this raises. In an
+    elastic world, ``None`` after an earlier ``init(device=...)`` keeps
+    that device, so the elastic loop's re-init forms the next world where
+    the first one was.
 
     ``init_method``: where the ranks meet (``tcp://host:port`` or
     ``file:///path``). Defaults to ``tcp://$HOROVOD_COORDINATOR_ADDR`` for a
@@ -76,7 +206,14 @@ def init(device=None, init_method: str | None = None) -> None:
     with _lock:
         if _state.initialized:
             return
+        elastic_world = elastic()
+        if elastic_world:
+            if device is None:
+                device = _state.elastic_device
+            _state.elastic_device = device
         device = _resolve_device(device)
+        if elastic_world:
+            _join_elastic_world()
         size = env.get_int(env.NUM_PROCESSES, 1)
         rank = env.get_int(env.PROCESS_ID, 0)
         local_rank = env.get_int(env.LOCAL_RANK, 0)
@@ -84,7 +221,6 @@ def init(device=None, init_method: str | None = None) -> None:
         if device.type == "cuda":
             device = torch.device("cuda", local_rank)
             torch.cuda.set_device(device)
-        owns = False
         if dist.is_initialized():
             rank, size = dist.get_rank(), dist.get_world_size()
         else:
@@ -95,14 +231,24 @@ def init(device=None, init_method: str | None = None) -> None:
                     raise RuntimeError(
                         f"a {size}-process world needs a rendezvous: pass "
                         f"init_method= or set {env.COORDINATOR_ADDR}=host:port")
+                if elastic_world:
+                    addr = _exchange_coordinator_port(addr, rank)
                 init_method = f"tcp://{addr}"
+            kwargs = {}
+            if elastic_world:
+                os.environ.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING",
+                                      ELASTIC_NCCL_ERROR_HANDLING)
+                kwargs["timeout"] = datetime.timedelta(
+                    seconds=ELASTIC_COLLECTIVE_TIMEOUT_S)
             if init_method is None:
                 dist.init_process_group(backend, store=dist.HashStore(),
-                                        rank=0, world_size=1)
+                                        rank=0, world_size=1, **kwargs)
             else:
                 dist.init_process_group(backend, init_method=init_method,
-                                        rank=rank, world_size=size)
-            owns = True
+                                        rank=rank, world_size=size, **kwargs)
+            # Set at once: shutdown() tears the group down even if init()
+            # fails after this point.
+            _state.owns_group = True
         _state.rank, _state.size = rank, size
         _state.local_rank, _state.local_size = local_rank, local_size
         # Hosts: the launcher's numbers, else hosts of local_size ranks each
@@ -112,21 +258,37 @@ def init(device=None, init_method: str | None = None) -> None:
         _state.cross_size = env.get_int(env.CROSS_SIZE,
                                         -(-size // max(local_size, 1)))
         _state.device = device
-        _state.owns_group = owns
         _state.initialized = True
         process_sets._reset(size)
+        for hook in list(_init_hooks):
+            hook()
 
 
 def shutdown() -> None:
-    """Tear down the world (and the process group, if ``init`` formed it)."""
+    """Tear down the world (and the process group, if ``init`` formed it).
+
+    In an elastic world the group's communicators are aborted before it
+    is destroyed, so a group broken by a dead peer tears down without
+    waiting on it; the group goes even if ``init()`` failed after forming
+    it, so that the next ``init()`` can form a new one."""
     with _lock:
+        if _state.owns_group and dist.is_initialized():
+            if elastic():
+                from torch.distributed import distributed_c10d as c10d
+
+                c10d._abort_process_group()
+            else:
+                dist.destroy_process_group()
+        _state.owns_group = False
         if not _state.initialized:
             return
-        if _state.owns_group and dist.is_initialized():
-            dist.destroy_process_group()
         process_sets._clear()
+        for hook in list(_shutdown_hooks):
+            try:
+                hook()
+            except Exception as e:  # noqa: BLE001 — the world still goes
+                get_logger().warning("shutdown hook failed: %s", e)
         _state.initialized = False
-        _state.owns_group = False
         _state.device = None
 
 

@@ -6,7 +6,8 @@ sha256), ``atomic_install`` (:55), ``atomic_read`` (:100), ``_read_verified``
 (:200, as ``_verified`` over the bytes ``atomic_read`` yields),
 ``_save_with_retries`` (:226),
 ``save_on_rank_0`` (:355), ``save_state_on_rank_0`` (:386),
-``load_state_and_broadcast`` (:423) and ``load_and_broadcast`` (:485).
+``load_state_and_broadcast`` (:423) and ``load_and_broadcast`` (:485),
+and ``Checkpointer`` (:251), the durable layer of elastic recovery.
 
 The reference idiom: rank 0 writes (``torch.save``) and every
 rank loads rank 0's copy by broadcast. A file is ``payload || sha256 ||
@@ -24,10 +25,13 @@ from __future__ import annotations
 import hashlib
 import io
 import os
+import re
+import threading
 from typing import Any
 
 import torch
 
+from . import faults
 from .exceptions import CheckpointCorruptError
 from .utils import env
 from .utils.logging import get_logger
@@ -116,9 +120,16 @@ def _verified(blob: bytes, what: str) -> Any:
 def _save_with_retries(attempt, what: str) -> None:
     """Run one write attempt under the bounded retry policy:
     ``HOROVOD_CHECKPOINT_RETRIES`` attempts (default 3), backoff from
-    ``HOROVOD_CHECKPOINT_RETRY_BACKOFF`` seconds (default 0.5)."""
+    ``HOROVOD_CHECKPOINT_RETRY_BACKOFF`` seconds (default 0.5). Every
+    attempt passes through the ``checkpoint.save`` injection point."""
+
+    def one_attempt():
+        if faults.fire(faults.CHECKPOINT_SAVE):
+            raise faults.InjectedFault(f"checkpoint save dropped: {what}")
+        return attempt()
+
     call_with_retries(
-        attempt,
+        one_attempt,
         attempts=max(1, env.get_int(env.CHECKPOINT_RETRIES, 3)),
         base_delay=env.get_float(env.CHECKPOINT_RETRY_BACKOFF, 0.5),
         on_retry=lambda n, e: get_logger().warning(
@@ -134,6 +145,137 @@ def _to_cpu(obj):
     if isinstance(obj, (list, tuple)):
         return type(obj)(_to_cpu(v) for v in obj)
     return obj
+
+
+def _host_copy(obj):
+    """``obj`` with every tensor copied to the CPU, so that training can
+    go on changing the originals while a save is in flight."""
+    if torch.is_tensor(obj):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _host_copy(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_host_copy(v) for v in obj)
+    return obj
+
+
+class Checkpointer:
+    """Step-numbered durable checkpoints in a directory (the JAX package's
+    Orbax-backed ``Checkpointer``): the durable rung of the elastic
+    recovery ladder, and what a relaunched generation resumes from.
+
+    ``save(step, state)`` copies the state's tensors to the CPU at once
+    and writes ``step_<N>.pt`` (checksum footer, ``atomic_install``) on
+    rank 0 (every rank of a one-process or uninitialized world), on a
+    background thread when ``async_save`` (one write in flight: the next
+    save waits for it), keeping the newest ``max_to_keep`` steps (None or
+    0: all). Every
+    rank restores from the directory, a shared file system's or its own.
+    """
+
+    _NAME = re.compile(r"step_(\d+)\.pt$")
+
+    def __init__(self, directory: str, max_to_keep: int = 3,
+                 async_save: bool = True):
+        self._dir = os.path.abspath(directory)
+        os.makedirs(self._dir, exist_ok=True)
+        self._max_to_keep = max_to_keep
+        self._async = async_save
+        self._thread: threading.Thread | None = None
+        self._error: BaseException | None = None
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self._dir, f"step_{step}.pt")
+
+    def _writes(self) -> bool:
+        from . import basics
+
+        return not basics.is_initialized() or basics.rank() == 0
+
+    def save(self, step: int, state: Any, wait: bool = False) -> None:
+        """Save ``state`` (tensors, dicts, lists, picklable values) as
+        step ``step``. Async by default: returns once the tensors are
+        copied to the CPU; a write error surfaces from the next ``save``
+        or :meth:`wait_until_finished`."""
+        if not self._writes():
+            return
+        self.wait_until_finished()
+        data = _host_copy(state)
+
+        def write():
+            blob = _with_footer(_dumps(data))
+            path = self._path(step)
+            _save_with_retries(lambda: atomic_install(path, blob), what=path)
+            keep = self._max_to_keep
+            for old in (self.all_steps()[:-keep] if keep else []):
+                for p in (self._path(old), f"{self._path(old)}.prev"):
+                    try:
+                        os.unlink(p)
+                    except FileNotFoundError:
+                        pass
+
+        if not self._async:
+            write()
+        else:
+            def run():
+                try:
+                    write()
+                except BaseException as e:  # noqa: BLE001 — re-raised later
+                    self._error = e
+
+            self._thread = threading.Thread(target=run, daemon=True,
+                                            name="hvd-checkpoint")
+            self._thread.start()
+        if wait:
+            self.wait_until_finished()
+
+    def restore(self, step: int | None = None) -> Any:
+        """The state saved at ``step``, or at the newest retained step.
+        A newest step that is corrupt or unreadable falls back to the
+        older retained steps, with an error logged; an explicit ``step``
+        is restored exactly or raises. Every attempt passes through the
+        ``checkpoint.restore`` injection point."""
+        self.wait_until_finished()
+        if step is not None:
+            candidates = [step]
+        else:
+            candidates = sorted(self.all_steps(), reverse=True)
+            if not candidates:
+                raise FileNotFoundError(f"no checkpoints in {self._dir}")
+        log = get_logger()
+        last_err: Exception | None = None
+        for i, s in enumerate(candidates):
+            try:
+                if faults.fire(faults.CHECKPOINT_RESTORE):
+                    raise faults.InjectedFault(
+                        f"checkpoint restore dropped: step {s}")
+                with open(self._path(s), "rb") as f:
+                    return _verified(f.read(), self._path(s))
+            except Exception as e:  # noqa: BLE001 — try the older steps
+                last_err = e
+                if i + 1 < len(candidates):
+                    log.error(
+                        "checkpoint step %d failed to restore (%s); falling "
+                        "back to previous retained step %d",
+                        s, e, candidates[i + 1])
+        assert last_err is not None
+        raise last_err
+
+    def latest_step(self) -> int | None:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def all_steps(self) -> list[int]:
+        return sorted(int(m.group(1)) for m in map(
+            self._NAME.match, os.listdir(self._dir)) if m)
+
+    def wait_until_finished(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
 
 
 def save_on_rank_0(path: str, obj: Any) -> None:

@@ -79,7 +79,9 @@ def adasum_reduce(t: torch.Tensor, process_set) -> torch.Tensor:
     gather, then :func:`adasum_tree` over the members' tensors in set-rank
     order. A new tensor of ``t``'s shape and dtype; the same on every
     member."""
+    from .collective_ops import wait
+
     rows, work = gather_rows(t.detach().reshape(-1).contiguous(),
                              process_set)
-    work.wait()
+    wait(work)
     return adasum_tree(rows).view(t.shape)

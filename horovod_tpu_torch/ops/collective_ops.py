@@ -22,17 +22,32 @@ compact); the synchronous op finishes at once, the ``*_async`` form
 returns a handle that :func:`synchronize` finishes and :func:`poll`
 tests. Ops whose sizes must be agreed first (ragged ``allgather``,
 ``alltoall`` with ``splits``) exchange them at launch, blocking.
+
+In an elastic world (``HOROVOD_ELASTIC=1``) every op and every wait
+(:func:`wait`) first raises ``HorovodInternalError`` if a coordinated
+abort is armed, as the reference's blocking sites do
+(``horovod_tpu/runtime/__init__.py:427``), and a collective that fails
+(gloo's ``RuntimeError``, NCCL's ``DistBackendError``, a ``Work`` whose
+wait errors) raises ``HorovodInternalError``: what ``@hvd.elastic.run``
+recovers from. On the CPU a wait polls the work and the abort flag, as
+gloo's wait blocks the host; on the card a wait only orders the stream,
+and an abort ends a collective stuck on a dead peer by aborting the
+communicator (``basics._abort_groups``).
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import itertools
+import time
 from typing import Any, Callable, NamedTuple, Sequence
 
 import torch
 import torch.distributed as dist
 
-from .. import basics
+from .. import abort, basics
+from ..exceptions import HorovodInternalError, HorovodTpuError
 from ..process_sets import global_process_set
 from ..utils import env
 from .adasum import adasum_reduce
@@ -81,6 +96,64 @@ _reduce_scatter = (dist.reduce_scatter_single
 # The same for the allgather of one tensor into a flat output.
 _all_gather = (dist.all_gather_single if hasattr(dist, "all_gather_single")
                else dist.all_gather_into_tensor)
+
+
+# -- Elastic worlds: aborts and failed collectives -------------------------
+
+# How long a CPU wait sleeps between polls of the work and the abort flag.
+_POLL_S = 0.001
+
+
+@contextlib.contextmanager
+def elastic_errors():
+    """In an elastic world, turn a failed collective (``RuntimeError``,
+    which NCCL's ``DistBackendError`` is) into ``HorovodInternalError``;
+    elsewhere, let it through."""
+    try:
+        yield
+    except HorovodTpuError:
+        raise
+    except RuntimeError as e:
+        if not basics.elastic():
+            raise
+        # A collective that failed because the abort hook aborted its
+        # communicator reports the abort.
+        abort.raise_if_aborted()
+        raise HorovodInternalError(f"collective failed: {e}") from e
+
+
+def guarded(fn):
+    """Decorate a blocking entry point: in an elastic world an armed abort
+    raises ``HorovodInternalError`` before it runs, and a failed
+    collective inside it raises ``HorovodInternalError``."""
+
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        if not basics.elastic():
+            return fn(*args, **kwargs)
+        abort.raise_if_aborted()
+        with elastic_errors():
+            return fn(*args, **kwargs)
+
+    return call
+
+
+def wait(work) -> None:
+    """Wait for ``work``, a launched collective. In an elastic world an
+    armed abort raises first, and on the CPU the wait polls the work and
+    the abort flag, so that a survivor blocked on a hung peer unblocks
+    when the abort is posted."""
+    if not basics.elastic():
+        work.wait()
+        return
+    abort.raise_if_aborted()
+    with elastic_errors():
+        if basics._state.device is not None and \
+                basics._state.device.type == "cpu":
+            while not work.is_completed():
+                abort.raise_if_aborted()
+                time.sleep(_POLL_S)
+        work.wait()
 
 
 def _resolve_op(op, average):
@@ -183,7 +256,7 @@ def start_allreduce(t: torch.Tensor, op: str, prescale_factor: float,
 def finish_allreduce(t: torch.Tensor, work: dist.Work, op: str,
                      postscale_factor: float, process_set) -> torch.Tensor:
     """Wait for ``work``, then apply the Average divisor and postscale."""
-    work.wait()
+    wait(work)
     if op == Average:
         _divide_(t, process_set.size())
     _scale_(t, postscale_factor)
@@ -285,13 +358,13 @@ def _launch_allgather(tensor, ps) -> _Launched:
             return _Launched([], t.clone)
         parts = [torch.empty_like(t) for _ in sizes]
         work = dist.all_gather(parts, t, group=ps.group, async_op=True)
-        return _Launched([work], lambda: (work.wait(),
+        return _Launched([work], lambda: (wait(work),
                                           torch.cat(parts, dim=0))[1])
     buf = t.new_zeros((max(sizes), *t.shape[1:]))
     buf[:t.shape[0]] = t
     parts = [torch.empty_like(buf) for _ in sizes]
     work = dist.all_gather(parts, buf, group=ps.group, async_op=True)
-    return _Launched([work], lambda: (work.wait(), torch.cat(
+    return _Launched([work], lambda: (wait(work), torch.cat(
         [p[:n] for p, n in zip(parts, sizes)], dim=0))[1])
 
 
@@ -303,7 +376,7 @@ def _launch_broadcast(tensor, root_rank, ps, in_place=False) -> _Launched:
     _check_device(tensor)
     t = tensor.detach() if in_place else tensor.detach().clone()
     work = dist.broadcast(t, src=root_rank, group=ps.group, async_op=True)
-    return _Launched([work], lambda: (work.wait(),
+    return _Launched([work], lambda: (wait(work),
                                       tensor if in_place else t)[1])
 
 
@@ -339,7 +412,7 @@ def _launch_alltoall(tensor, splits, ps) -> _Launched:
                 f"{n}; pass splits= for uneven chunks")
         out = torch.empty_like(t)
         work = dist.all_to_all_single(out, t, group=ps.group, async_op=True)
-        return _Launched([work], lambda: (work.wait(), out)[1])
+        return _Launched([work], lambda: (wait(work), out)[1])
     sent = _row_splits(splits, ps, d0)
     # The split-table exchange: row j is what set rank j sends to each.
     mine = torch.tensor(sent, dtype=torch.int64, device=t.device)
@@ -350,7 +423,7 @@ def _launch_alltoall(tensor, splits, ps) -> _Launched:
     work = dist.all_to_all_single(out, t, output_split_sizes=received.tolist(),
                                   input_split_sizes=sent, group=ps.group,
                                   async_op=True)
-    return _Launched([work], lambda: (work.wait(), (out, received))[1])
+    return _Launched([work], lambda: (wait(work), (out, received))[1])
 
 
 def _launch_reducescatter(tensor, op, prescale_factor, postscale_factor,
@@ -379,7 +452,7 @@ def _launch_reducescatter(tensor, op, prescale_factor, postscale_factor,
         out = t[ps.rank() * rows:(ps.rank() + 1) * rows]
 
     def finish():
-        work.wait()
+        wait(work)
         _average_and_postscale_(out, op, postscale_factor, n)
         return out
 
@@ -400,6 +473,7 @@ def _launch_grouped_allreduce(tensors, op, prescale_factor,
 # -- Synchronous ops --------------------------------------------------------
 
 
+@guarded
 def allreduce(tensor, average: bool | None = None, op: str | None = None,
               prescale_factor: float = 1.0, postscale_factor: float = 1.0,
               process_set=None, name: str | None = None) -> torch.Tensor:
@@ -420,6 +494,7 @@ def allreduce(tensor, average: bool | None = None, op: str | None = None,
                              ps).finish()
 
 
+@guarded
 def allreduce_(tensor, average: bool | None = None, op: str | None = None,
                prescale_factor: float = 1.0, postscale_factor: float = 1.0,
                process_set=None, name: str | None = None) -> torch.Tensor:
@@ -436,6 +511,7 @@ def allreduce_(tensor, average: bool | None = None, op: str | None = None,
                              ps, in_place=True).finish()
 
 
+@guarded
 def grouped_allreduce(tensors: Sequence[torch.Tensor],
                       average: bool | None = None, op: str | None = None,
                       prescale_factor: float = 1.0,
@@ -449,6 +525,7 @@ def grouped_allreduce(tensors: Sequence[torch.Tensor],
         _resolve_process_set(process_set)).finish()
 
 
+@guarded
 def allgather(tensor, process_set=None,
               name: str | None = None) -> torch.Tensor:
     """Concatenate every rank's tensor along dim 0 on every rank.
@@ -465,6 +542,7 @@ def allgather(tensor, process_set=None,
                              _resolve_process_set(process_set)).finish()
 
 
+@guarded
 def grouped_allgather(tensors: Sequence[torch.Tensor], process_set=None,
                       name: str | None = None) -> list[torch.Tensor]:
     """:func:`allgather` of each tensor (the ragged dim-0 contract holds
@@ -474,6 +552,7 @@ def grouped_allgather(tensors: Sequence[torch.Tensor], process_set=None,
     return _combined([_launch_allgather(t, ps) for t in tensors]).finish()
 
 
+@guarded
 def broadcast(tensor, root_rank: int, process_set=None,
               name: str | None = None) -> torch.Tensor:
     """Every rank gets rank ``root_rank``'s tensor (a global rank, which
@@ -483,6 +562,7 @@ def broadcast(tensor, root_rank: int, process_set=None,
                              _resolve_process_set(process_set)).finish()
 
 
+@guarded
 def alltoall(tensor, splits=None, process_set=None, name: str | None = None):
     """Scatter chunks of ``tensor``'s dim 0 to the set's ranks and gather
     the chunks they send, in set-rank order.
@@ -500,6 +580,7 @@ def alltoall(tensor, splits=None, process_set=None, name: str | None = None):
                             _resolve_process_set(process_set)).finish()
 
 
+@guarded
 def reducescatter(tensor, op: str | None = None,
                   prescale_factor: float = 1.0, postscale_factor: float = 1.0,
                   process_set=None, name: str | None = None) -> torch.Tensor:
@@ -517,6 +598,7 @@ def reducescatter(tensor, op: str | None = None,
         postscale_factor, _resolve_process_set(process_set)).finish()
 
 
+@guarded
 def grouped_reducescatter(tensors: Sequence[torch.Tensor],
                           op: str | None = None, prescale_factor: float = 1.0,
                           postscale_factor: float = 1.0,
@@ -530,6 +612,7 @@ def grouped_reducescatter(tensors: Sequence[torch.Tensor],
         for t in tensors]).finish()
 
 
+@guarded
 def barrier(process_set=None) -> None:
     """Block until every rank in the set reaches the barrier."""
     dist.barrier(group=_resolve_process_set(process_set).group)
@@ -547,6 +630,7 @@ def _submit(launched: _Launched) -> int:
     return h
 
 
+@guarded
 def allreduce_async_(tensor, average: bool | None = None,
                      name: str | None = None, op: str | None = None,
                      process_set=None, prescale_factor: float = 1.0,
@@ -560,6 +644,7 @@ def allreduce_async_(tensor, average: bool | None = None,
         in_place=True))
 
 
+@guarded
 def allreduce_async(tensor, average: bool | None = None,
                     name: str | None = None, op: str | None = None,
                     process_set=None, prescale_factor: float = 1.0,
@@ -572,6 +657,7 @@ def allreduce_async(tensor, average: bool | None = None,
         prescale_factor, postscale_factor, _resolve_process_set(process_set)))
 
 
+@guarded
 def allgather_async(tensor, name: str | None = None,
                     process_set=None) -> int:
     """Async ragged :func:`allgather` (the shape exchange runs at once)."""
@@ -580,6 +666,7 @@ def allgather_async(tensor, name: str | None = None,
                                      _resolve_process_set(process_set)))
 
 
+@guarded
 def broadcast_async(tensor, root_rank: int, name: str | None = None,
                     process_set=None) -> int:
     """Out-of-place async broadcast from global rank ``root_rank``."""
@@ -588,6 +675,7 @@ def broadcast_async(tensor, root_rank: int, name: str | None = None,
                                      _resolve_process_set(process_set)))
 
 
+@guarded
 def broadcast_async_(tensor, root_rank: int, name: str | None = None,
                      process_set=None) -> int:
     """In-place async broadcast from global rank ``root_rank``."""
@@ -597,6 +685,7 @@ def broadcast_async_(tensor, root_rank: int, name: str | None = None,
                                      in_place=True))
 
 
+@guarded
 def alltoall_async(tensor, splits=None, name: str | None = None,
                    process_set=None) -> int:
     """Async :func:`alltoall` (with ``splits`` the split tables are
@@ -606,6 +695,7 @@ def alltoall_async(tensor, splits=None, name: str | None = None,
                                     _resolve_process_set(process_set)))
 
 
+@guarded
 def reducescatter_async(tensor, name: str | None = None,
                         op: str | None = None, process_set=None) -> int:
     """Async :func:`reducescatter` (default Average)."""
@@ -615,6 +705,7 @@ def reducescatter_async(tensor, name: str | None = None,
         _resolve_process_set(process_set)))
 
 
+@guarded
 def grouped_allreduce_async(tensors: Sequence[torch.Tensor],
                             name: str | None = None, op: str | None = None,
                             process_set=None, prescale_factor: float = 1.0,
@@ -627,6 +718,7 @@ def grouped_allreduce_async(tensors: Sequence[torch.Tensor],
         prescale_factor, postscale_factor, _resolve_process_set(process_set)))
 
 
+@guarded
 def grouped_allgather_async(tensors: Sequence[torch.Tensor],
                             name: str | None = None,
                             process_set=None) -> int:
@@ -636,6 +728,7 @@ def grouped_allgather_async(tensors: Sequence[torch.Tensor],
     return _submit(_combined([_launch_allgather(t, ps) for t in tensors]))
 
 
+@guarded
 def grouped_reducescatter_async(tensors: Sequence[torch.Tensor],
                                 name: str | None = None,
                                 op: str | None = None,
@@ -649,6 +742,7 @@ def grouped_reducescatter_async(tensors: Sequence[torch.Tensor],
                               for t in tensors]))
 
 
+@guarded
 def synchronize(handle: int):
     """Wait for an async op and return its result: the input for the
     in-place forms, a new tensor, a list for the grouped forms, the pair

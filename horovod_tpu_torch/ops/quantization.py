@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from .collective_ops import _all_gather
+from .collective_ops import _all_gather, wait
 from .fusion import (_issue_order, _pack_shard_rows, _split_shard_row,
                      bucket_leaves, nonfinite_action, shard_ownership)
 
@@ -111,8 +111,8 @@ def _exchange_rows(q: torch.Tensor, scale: torch.Tensor, process_set):
                                 async_op=True)
     w2 = dist.all_to_all_single(recv_s, scale.contiguous(), group=group,
                                 async_op=True)
-    w1.wait()
-    w2.wait()
+    wait(w1)
+    wait(w2)
     return recv_q, recv_s
 
 
@@ -127,8 +127,8 @@ def _gather_rows(q: torch.Tensor, scale: torch.Tensor, process_set):
                                      async_op=True)
     w2 = _all_gather(gs, scale.contiguous(), group=group,
                                      async_op=True)
-    w1.wait()
-    w2.wait()
+    wait(w1)
+    wait(w2)
     return gq.view(n, -1), gs.view(n, -1)
 
 

@@ -61,15 +61,19 @@ without it.
 
 from __future__ import annotations
 
+import weakref
+
 import torch
 
+from . import abort, basics
 from .compression import Compression
 from .exceptions import HorovodInternalError, SyncModeIneligibleError
 from .ops import fusion
 from .ops.adasum import adasum_tree, gather_rows
 from .ops.collective_ops import (Adasum, Average, Sum, _resolve_op,
                                  _resolve_process_set, _scale_,
-                                 finish_allreduce, start_allreduce)
+                                 elastic_errors, finish_allreduce, guarded,
+                                 start_allreduce, wait)
 from .ops.fusion import (all_finite, bucket_leaves, nonfinite_action, pack,
                          unpack)
 from .utils import env
@@ -138,13 +142,6 @@ class _DistributedOptimizer:
                     self._params.append(p)
         self._index = {id(p): i for i, p in enumerate(self._params)}
         self._base_threshold = fusion_threshold_bytes
-        # A one-member set reduces to the identity: skip the wire and apply
-        # only the scale factors (optimizer.py:133-146), unless
-        # HOROVOD_FORCE_WIRE_MACHINERY=1 asks for the full path.
-        self._short_circuit = (
-            process_set.size() == 1
-            and env.get_str(env.FORCE_WIRE_MACHINERY) != "1"
-            and op in (Average, Sum, Adasum))
         self._int8 = _is_int8(compression)
         # Updates so far: the int8 wire's rounding salt.
         self._updates = 0
@@ -168,17 +165,37 @@ class _DistributedOptimizer:
                            for p in b}
         self._threshold = fusion_threshold_bytes
         self._hooks = []
-        if not (self._short_circuit or self._int8):
-            # The int8 exchange runs whole in step(): it has a local sum
-            # between its two collectives.
-            self._hooks = [p.register_post_accumulate_grad_hook(self._on_grad)
-                           for p in self._params]
+        self._detached = False  # remove_hooks() was called
+        self._read_world()
         self._nonfinite_action = nonfinite_action()
         self.nonfinite_steps = 0  # steps whose reduced gradients were not finite
         self._reset()
+        _live.add(self)
 
     def __getattr__(self, item):
         return getattr(self._opt, item)
+
+    def _skips_wire(self) -> bool:
+        """A one-member set reduces to the identity: skip the wire and
+        apply only the scale factors (optimizer.py:133-146), unless
+        HOROVOD_FORCE_WIRE_MACHINERY=1 asks for the full path."""
+        return (self._ps.size() == 1
+                and env.get_str(env.FORCE_WIRE_MACHINERY) != "1"
+                and self._op in (Average, Sum, Adasum))
+
+    def _read_world(self) -> None:
+        """Read what the world decides, once per world: at construction
+        and at every later ``init()`` (an elastic world may re-form at
+        another size). On the wire the buckets launch from the gradient
+        hooks during backward; the int8 exchange runs whole in step(): it
+        has a local sum between its two collectives."""
+        self._elastic = basics.elastic()
+        self._short_circuit = self._skips_wire()
+        if self._short_circuit or self._int8:
+            self._unhook()
+        elif not (self._hooks or self._detached):
+            self._hooks = [p.register_post_accumulate_grad_hook(self._on_grad)
+                           for p in self._params]
 
     def _reset(self) -> None:
         self._passes: dict[int, int] = {}
@@ -199,10 +216,20 @@ class _DistributedOptimizer:
             self._ready[bi] += 1
             while (self._next >= 0 and self._ready[self._next]
                    == len(self._buckets[self._next])):
-                self._launch(self._next)
+                if self._elastic:
+                    abort.raise_if_aborted()
+                    with elastic_errors():
+                        self._launch(self._next)
+                else:
+                    self._launch(self._next)
                 self._next -= 1
 
     def _launch(self, bi: int) -> None:
+        if self._ps.process_set_id < 0:
+            raise ValueError(
+                f"the optimizer's process set {self._ps.ranks} is not "
+                "registered (removed, or the world was re-formed): build the "
+                "optimizer again over a registered set")
         k = self.backward_passes_per_step
         wires, ctxs = [], []
         for p in self._buckets[bi]:
@@ -226,7 +253,7 @@ class _DistributedOptimizer:
     def _adasum_leaves(self, rows, work, shapes) -> list[torch.Tensor]:
         """A gathered bucket's leaves, each the Adasum tree over its view in
         every member's row, postscaled."""
-        work.wait()
+        wait(work)
         leaves = []
         for views in zip(*(unpack(row, shapes) for row in rows)):
             leaf = adasum_tree(views)
@@ -264,6 +291,7 @@ class _DistributedOptimizer:
         self._reset()
         return reduced
 
+    @guarded
     def synchronize(self) -> list[torch.Tensor]:
         """Launch the buckets not launched yet, wait for all, and write the
         reduced gradients into ``.grad``; return the reduced buckets."""
@@ -305,6 +333,7 @@ class _DistributedOptimizer:
                 p.grad.mul_(torch.tensor(scale, dtype=p.grad.dtype,
                                          device=p.grad.device))
 
+    @guarded
     def step(self, closure=None):
         if self._short_circuit:
             self._scale_local()
@@ -334,9 +363,35 @@ class _DistributedOptimizer:
         return action != "skip"
 
     def remove_hooks(self) -> None:
+        """Detach the optimizer from the model's gradients for good: no
+        later world hooks it again."""
+        self._detached = True
+        self._unhook()
+
+    def _unhook(self) -> None:
         for h in self._hooks:
             h.remove()
         self._hooks = []
+
+
+# The allreduce-mode optimizers alive: a re-formed world drops their
+# buckets and in-flight work, which belong to the group it replaced, and
+# each reads the new world.
+_live: "weakref.WeakSet[_DistributedOptimizer]" = weakref.WeakSet()
+
+
+def _drop_in_flight() -> None:
+    for opt in list(_live):
+        opt._reset()
+
+
+def _read_worlds() -> None:
+    for opt in list(_live):
+        opt._read_world()
+
+
+basics.on_shutdown(_drop_in_flight)
+basics.on_init(_read_worlds)
 
 
 class _ShardedOptimizer(_DistributedOptimizer):
@@ -354,13 +409,6 @@ class _ShardedOptimizer(_DistributedOptimizer):
         super().__init__(optimizer, op, compression, 1, prescale_factor,
                          postscale_factor, process_set, num_groups,
                          fusion_threshold_bytes)
-        if self._short_circuit:
-            # The sharded wire runs at every size, as the reference's does.
-            self._short_circuit = False
-            if not self._int8:
-                self._hooks = [
-                    p.register_post_accumulate_grad_hook(self._on_grad)
-                    for p in self._params]
         n, r = process_set.size(), process_set.rank()
         self._n, self._r = n, r
         self._sizes = fusion.shard_ownership(
@@ -389,6 +437,10 @@ class _ShardedOptimizer(_DistributedOptimizer):
                               if self._int8 else self._threshold)
         self._ag_threshold = self._capped([(p.numel(), p.dtype)
                                            for p in self._params])
+
+    def _skips_wire(self) -> bool:
+        # The sharded wire runs at every size, as the reference's does.
+        return False
 
     def _capped(self, leaves):
         if self._num_groups > 0:

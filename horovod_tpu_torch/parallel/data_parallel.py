@@ -9,6 +9,11 @@ only its shards of the parameters: each call runs the model on segments
 gathered just in time as its forward reads them
 (``param_sharding.FsdpForward``), and the optimizer updates the shards in
 place.
+
+``make_elastic_train_step`` (:1205) is the allreduce step for elastic
+worlds: it keeps working after the world re-forms at another size, and a
+posted abort or a failed collective surfaces from it as
+``HorovodInternalError``.
 """
 
 from __future__ import annotations
@@ -75,3 +80,52 @@ def make_train_step(model: torch.nn.Module,
         return loss
 
     return step
+
+
+def make_elastic_train_step(model: torch.nn.Module,
+                            loss_fn: Callable[[torch.nn.Module, Any],
+                                              torch.Tensor],
+                            optimizer, loss_is_averaged: bool = True):
+    """Build ``step(batch) -> loss`` for an elastic world
+    (``@hvd.elastic.run``).
+
+    The allreduce step of :func:`make_train_step`: gradients and the loss
+    average over the ranks in the world at each call, so the step keeps
+    working after the world re-forms at another size. An armed
+    coordinated abort raises ``HorovodInternalError`` before the step
+    runs, and a collective that fails inside it (the optimizer's, the
+    loss average's) raises ``HorovodInternalError``; each call counts as a step on the worker's
+    heartbeat. The sharded and fsdp modes are refused: their state is
+    per-rank shards, which a re-formed world cannot re-assemble without
+    the peer replica plane.
+    """
+    from .. import abort
+    from ..exceptions import SyncModeIneligibleError
+    from ..optimizer import sync_mode_of
+    from ..runner.elastic.worker import record_step
+
+    mode = sync_mode_of(optimizer)
+    if mode == "sharded":
+        raise SyncModeIneligibleError(
+            "make_elastic_train_step does not support sync_mode='sharded' "
+            "(its cross-process leg reduces on the host plane, outside the "
+            "compiled shard domain); build the compiled step with "
+            "make_train_step and let hvd.elastic.TpuState(...,"
+            "sharded_optimizer=...) re-shard state across world changes")
+    if mode == "fsdp":
+        raise SyncModeIneligibleError(
+            "make_elastic_train_step does not support sync_mode='fsdp' "
+            "(its cross-process leg reduces on the host plane, outside "
+            "the compiled shard domain where the per-segment parameter "
+            "gathers live); build the compiled step with make_train_step "
+            "and let hvd.elastic.PeerShardedState re-shard the resident "
+            "parameter and optimizer shards across world changes")
+    step = make_train_step(model, loss_fn, optimizer, loss_is_averaged)
+
+    def elastic_step(batch):
+        abort.raise_if_aborted()
+        loss = step(batch)
+        record_step()
+        return loss
+
+    return elastic_step

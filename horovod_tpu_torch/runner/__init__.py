@@ -5,7 +5,9 @@ host parsing and one-process-per-GPU rank assignment (``hosts.py``),
 LSF and Slurm detection (``schedulers.py``), worker exec with output
 multiplexing (``exec_utils.py``) and the pre-flight NIC probe
 (``driver_service.py``, ``task_fn.py``). Workers meet at rank 0's TCP
-store, so no rendezvous server runs; the elastic driver is not ported yet.
+store, so the static path runs no rendezvous server; the elastic path
+(``elastic/``: discovery, the driver, the worker context) runs one,
+``http/kv_server.py``.
 
 Programmatic entry (parity: ``horovod.run()``)::
 
@@ -33,7 +35,7 @@ def run(
     line (default: print)."""
     # Imported here, so that ``python -m horovod_tpu_torch.runner.launch``
     # finds the module unimported when it runs it.
-    from .launch import check_static, parse_args, run_static, settings_from_args
+    from .launch import parse_args, run_static, settings_from_args
     argv: list[str] = ["-np", str(np)]
     if hosts:
         argv += ["-H", hosts]
@@ -44,6 +46,9 @@ def run(
     if extra_args:
         argv += extra_args
     argv += command
-    args = parse_args(argv)
-    check_static(args)
-    return run_static(settings_from_args(args), sink=sink)
+    settings = settings_from_args(parse_args(argv))
+    if settings.elastic:
+        from .elastic.driver import run_elastic
+
+        return run_elastic(settings, sink=sink)
+    return run_static(settings, sink=sink)

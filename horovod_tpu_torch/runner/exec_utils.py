@@ -32,6 +32,8 @@ def build_worker_env(
     coordinator_port: int,
     cpu_mode: bool = False,
     extra_env: dict[str, str] | None = None,
+    rendezvous_addr: str | None = None,
+    rendezvous_port: int | None = None,
 ) -> dict[str, str]:
     """The env contract between launcher and worker: exactly what
     ``horovod_tpu_torch.basics.init`` reads.
@@ -42,7 +44,9 @@ def build_worker_env(
     ``HOROVOD_COORDINATOR_ADDR``: rank 0's host and a port, where ``init()``
     opens torch's TCP store. ``cpu_mode`` hides the cards from the worker
     (``CUDA_VISIBLE_DEVICES=``): its script calls ``init(device="cpu")``,
-    and one that does not fails in ``init()``.
+    and one that does not fails in ``init()``. An elastic worker also gets
+    the elastic driver's rendezvous KV (``HOROVOD_RENDEZVOUS_ADDR`` and
+    ``_PORT``).
     """
     a = assignment
     env = dict(base_env)
@@ -60,6 +64,9 @@ def build_worker_env(
                 f"{coordinator_addr}:{coordinator_port}",
         }
     )
+    if rendezvous_addr is not None:
+        env["HOROVOD_RENDEZVOUS_ADDR"] = rendezvous_addr
+        env["HOROVOD_RENDEZVOUS_PORT"] = str(rendezvous_port)
     # The per-job secret rides the env block even when base_env is empty.
     job_secret = os.environ.get("HOROVOD_SECRET_KEY", "")
     if job_secret and "HOROVOD_SECRET_KEY" not in env:
@@ -247,6 +254,39 @@ def _remote_kill(w: WorkerProc, timeout_s: float = 15.0) -> None:
         subprocess.run(cmd, timeout=timeout_s, capture_output=True)
     except (subprocess.TimeoutExpired, OSError):
         pass  # host unreachable: nothing more we can do
+
+
+def drain_worker(w: WorkerProc, timeout_s: float = 15.0) -> None:
+    """Deliver SIGTERM, the graceful-drain signal, to a worker, remote
+    process tree included, with no KILL escalation (the caller owns the
+    grace wait and any escalation).
+
+    A local ``killpg`` cannot drain an ssh-launched worker: it signals only
+    the local ssh client, whose death gives the remote tree SIGHUP, not
+    SIGTERM, so the worker's drain handler never runs. Remote workers get
+    an explicit ``kill -TERM`` of the pidfile-recorded group instead; the
+    pidfile stays for the eventual :func:`terminate_worker`.
+    """
+    if w.remote_host and w.kill_marker:
+        pidfile = _remote_pidfile(w.kill_marker)
+        script = (
+            f"p=$(cat {pidfile} 2>/dev/null) && "
+            "{ kill -TERM -- -$p 2>/dev/null || kill -TERM $p 2>/dev/null; }"
+        )
+        cmd = ["ssh", "-o", "StrictHostKeyChecking=no", "-o",
+               "BatchMode=yes"]
+        if w.ssh_port:
+            cmd += ["-p", str(w.ssh_port)]
+        cmd += [w.remote_host, script]
+        try:
+            subprocess.run(cmd, timeout=timeout_s, capture_output=True)
+        except (subprocess.TimeoutExpired, OSError):
+            pass  # host unreachable: the caller's grace/escalation owns it
+        return
+    try:
+        os.killpg(os.getpgid(w.popen.pid), signal.SIGTERM)
+    except (ProcessLookupError, PermissionError):
+        pass
 
 
 def terminate_worker(w: WorkerProc, grace_s: float = 5.0) -> None:

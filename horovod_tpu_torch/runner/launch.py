@@ -18,15 +18,19 @@ process per slot, one slot per GPU (``hosts.get_host_assignments``).
 needs no rendezvous server. ``--cpu-mode`` hides the cards
 (``CUDA_VISIBLE_DEVICES=``): the script calls ``init(device="cpu")``.
 
-Elastic launch (``--min-np``, ``--max-np``, ``--host-discovery-script``,
-``--elastic-timeout``) is parsed but not ported yet: it raises rather than
-run statically.
+Elastic launch (``--host-discovery-script``, with ``--min-np``,
+``--max-np`` and ``--elastic-timeout``; ``horovod_tpu/runner/launch.py:
+197-260`` and :418-421) runs the elastic driver (``elastic/driver.py``)
+instead: hosts come from the discovery script, one worker per slot, and
+the world re-forms as workers fail or hosts come and go.
 
 Usage::
 
     hvdrun-torch -np 4 python train.py              # 4 cards of this host
     hvdrun-torch -np 8 -H host1:4,host2:4 python train.py
     hvdrun-torch -np 2 --cpu-mode python train.py   # 2 gloo processes
+    hvdrun-torch -np 2 --min-np 1 --max-np 4 \
+        --host-discovery-script ./discover.sh python train.py   # elastic
 """
 
 from __future__ import annotations
@@ -53,11 +57,6 @@ from .hosts import (
 )
 from .schedulers import detect_scheduler_hosts
 
-ELASTIC_NOT_PORTED = (
-    "hvdrun-torch: elastic launch (--min-np, --max-np, "
-    "--host-discovery-script, --elastic-timeout) is not ported yet; launch "
-    "a static job with -np and -H/--hostfile")
-
 
 @dataclasses.dataclass
 class Settings:
@@ -74,6 +73,12 @@ class Settings:
     verbose: bool = False
     env: dict[str, str] = dataclasses.field(default_factory=dict)
     network_probe: bool = False
+    # Elastic:
+    elastic: bool = False
+    min_np: int | None = None
+    max_np: int | None = None
+    discovery_script: str | None = None
+    elastic_timeout: float = 600.0
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
@@ -111,12 +116,13 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--fusion-threshold-mb", type=int, default=None)
     p.add_argument("--log-level", default=None,
                    choices=["trace", "debug", "info", "warning", "error", "fatal"])
-    # Elastic: parsed, so that a command written for hvdrun is refused with
-    # a reason instead of an unknown-flag error.
     p.add_argument("--min-np", type=int, default=None)
     p.add_argument("--max-np", type=int, default=None)
-    p.add_argument("--host-discovery-script", default=None)
-    p.add_argument("--elastic-timeout", type=float, default=None)
+    p.add_argument("--host-discovery-script", default=None,
+                   help="script printing 'host:slots' per line; enables "
+                        "elastic mode")
+    p.add_argument("--elastic-timeout", type=float,
+                   default=float(os.environ.get("HOROVOD_ELASTIC_TIMEOUT", 600)))
     p.add_argument("--config-file", default=None,
                    help="YAML of long-form flag defaults (CLI wins); "
                         "parity: horovodrun --config-file")
@@ -177,20 +183,35 @@ def args_to_env(args: argparse.Namespace) -> dict[str, str]:
     return env
 
 
-def check_static(args: argparse.Namespace) -> None:
-    """Refuse the elastic flags: elastic launch is not ported yet."""
-    if (args.min_np is not None or args.max_np is not None
-            or args.host_discovery_script is not None
-            or args.elastic_timeout is not None):
-        raise SystemExit(ELASTIC_NOT_PORTED)
-
-
 def settings_from_args(args: argparse.Namespace) -> Settings:
     if args.hosts and args.hostfile:
         raise SystemExit("specify either -H/--hosts or --hostfile, not both")
     command = python_command([c for c in args.command if c != "--"])
     if not command:
         raise SystemExit("no training command given")
+    elastic = args.host_discovery_script is not None
+    common = dict(
+        command=command,
+        cpu_mode=args.cpu_mode,
+        ssh_port=args.ssh_port,
+        start_timeout=args.start_timeout,
+        verbose=args.verbose,
+        env=args_to_env(args),
+        network_probe=args.network_probe,
+    )
+    if elastic:
+        # Reference semantics: -np is the starting/target world size;
+        # min/max default to it when not given explicitly. Hosts are
+        # discovered at runtime.
+        np = args.num_proc or (args.min_np or 1)
+        if args.min_np is None:
+            args.min_np = np
+        if args.max_np is None and args.num_proc is not None:
+            args.max_np = args.num_proc
+        return Settings(
+            num_proc=np, hosts=[], elastic=True, min_np=args.min_np,
+            max_np=args.max_np, discovery_script=args.host_discovery_script,
+            elastic_timeout=args.elastic_timeout, **common)
     if args.hosts:
         hosts = parse_hosts(args.hosts)
     elif args.hostfile:
@@ -212,17 +233,7 @@ def settings_from_args(args: argparse.Namespace) -> Settings:
         raise SystemExit(
             f"-np {np} exceeds the {slots} slot(s) of the hosts; one "
             "process per slot (GPU)")
-    return Settings(
-        num_proc=np,
-        hosts=hosts,
-        command=command,
-        cpu_mode=args.cpu_mode,
-        ssh_port=args.ssh_port,
-        start_timeout=args.start_timeout,
-        verbose=args.verbose,
-        env=args_to_env(args),
-        network_probe=args.network_probe,
-    )
+    return Settings(num_proc=np, hosts=hosts, **common)
 
 
 def _network_probe(hosts, ssh_port, timeout, sink) -> dict[str, str] | None:
@@ -340,7 +351,7 @@ def check_build() -> str:
         f"    [{mark(dist.is_gloo_available())}] Gloo",
         "",
         "Available features:",
-        "    [ ] elastic",
+        "    [X] elastic",
         "    [X] process sets",
         "    [X] grouped allreduce / tensor fusion",
         "    [X] adasum",
@@ -358,8 +369,12 @@ def run_commandline(argv: list[str] | None = None) -> int:
     if args.check_build:
         print(check_build())
         return 0
-    check_static(args)
-    return run_static(settings_from_args(args))
+    settings = settings_from_args(args)
+    if settings.elastic:
+        from .elastic.driver import run_elastic
+
+        return run_elastic(settings)
+    return run_static(settings)
 
 
 def main() -> None:

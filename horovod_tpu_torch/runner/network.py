@@ -1,7 +1,7 @@
 """Small networking helpers of the launcher.
 
-The parts of ``horovod_tpu/runner/network.py`` the static launcher uses,
-copied (parity: ``horovod/runner/util/network.py``).
+The parts of ``horovod_tpu/runner/network.py`` the launcher and the
+elastic driver use, copied (parity: ``horovod/runner/util/network.py``).
 """
 
 from __future__ import annotations
@@ -26,6 +26,24 @@ def is_local(hostname: str) -> bool:
     return (hostname in LOCAL_NAMES
             or hostname.startswith("127.")
             or hostname == socket.gethostname())
+
+
+def routable_addr() -> str:
+    """This host's address as reachable from other machines."""
+    try:
+        return socket.gethostbyname(socket.gethostname())
+    except OSError:
+        return socket.gethostname()
+
+
+def driver_addr(hostnames: list[str]) -> str:
+    """The address workers use to reach services running in the launcher
+    (the elastic driver's rendezvous KV): loopback only when the world is
+    known-local (a NON-EMPTY all-local host list), else this host's
+    routable address."""
+    if hostnames and all(is_local(h) for h in hostnames):
+        return "127.0.0.1"
+    return routable_addr()
 
 
 def coordinator_addr(hostnames: list[str]) -> str:

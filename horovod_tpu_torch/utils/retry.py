@@ -33,18 +33,20 @@ def call_with_retries(
     *,
     attempts: int = 3,
     base_delay: float = 0.1,
+    give_up_on: tuple[type[BaseException], ...] = (),
     on_retry: Callable[[int, BaseException], None] | None = None,
 ) -> T:
     """Call ``fn`` up to ``attempts`` times, sleeping
     :func:`backoff_delay` between attempts; ``on_retry(attempt, error)``
-    runs before each sleep, and the last attempt's error propagates."""
+    runs before each sleep, and the last attempt's error propagates, as
+    does at once an error of a ``give_up_on`` type."""
     if attempts < 1:
         raise ValueError("attempts must be >= 1")
     for attempt in range(1, attempts + 1):
         try:
             return fn()
         except Exception as e:
-            if attempt >= attempts:
+            if attempt >= attempts or isinstance(e, give_up_on):
                 raise
             if on_retry is not None:
                 on_retry(attempt, e)

@@ -441,7 +441,14 @@ def test_init_needs_cuda_unless_cpu_is_asked():
         "hvd.init(device='cpu')\n"
         "assert hvd.is_initialized() and hvd.device().type == 'cpu'\n"
         "assert hvd.size() == 1 and hvd.rank() == 0\n"
-        "hvd.shutdown()\n")
+        "hvd.shutdown()\n"
+        "try:\n"
+        "    hvd.init()\n"
+        "except RuntimeError as e:\n"
+        "    assert \"device='cpu'\" in str(e), e\n"
+        "else:\n"
+        "    raise SystemExit('init() after a CPU world formed one on the "
+        "CPU without being asked')\n")
     env = {k: v for k, v in os.environ.items()
            if not k.startswith("HOROVOD_")}
     env["CUDA_VISIBLE_DEVICES"] = ""

@@ -806,3 +806,34 @@ def test_sync_batch_norm_at_world_size_one_matches_batch_norm(
                 1.0, b.abs().max().item()), i
     finally:
         hvd.shutdown()
+
+
+@pytest.mark.cuda
+def test_three_inits_on_the_card_give_the_same_step(cuda_device,
+                                                    monkeypatch):
+    """init -> collective -> shutdown, three times in one process on the
+    card (a new NCCL group each time, as each elastic re-formation forms
+    one), with the wire forced: every time the allreduce sums right and
+    an optimizer built on that world steps the same parameters from the
+    same weights and batch to the same values, bit for bit."""
+    import horovod_tpu_torch as hvd
+
+    monkeypatch.setenv("HOROVOD_FORCE_WIRE_MACHINERY", "1")
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    w0 = torch.randn(64, 32, generator=gen, device=cuda_device)
+    x = torch.randn(16, 64, generator=gen, device=cuda_device)
+    results = []
+    for _ in range(3):
+        hvd.init()
+        try:
+            t = torch.arange(8.0, device=cuda_device)
+            assert torch.equal(hvd.allreduce(t, op=hvd.Sum), t)
+            w = torch.nn.Parameter(w0.clone())
+            opt = hvd.DistributedOptimizer(torch.optim.SGD([w], lr=0.1))
+            (x @ w).square().mean().backward()
+            opt.step()
+            results.append(w.detach().clone())
+        finally:
+            hvd.shutdown()
+    assert not torch.equal(results[0], w0)
+    assert all(torch.equal(r, results[0]) for r in results[1:])

@@ -351,6 +351,53 @@ def test_single_rank_short_circuit_applies_only_the_scales():
     assert out.returncode == 0, out.stderr
 
 
+def test_optimizer_reads_each_new_world_once():
+    """The wire decision is read when a world forms, not per gradient: an
+    optimizer built in a short-circuited world goes on the wire (hooks,
+    buckets launched in backward) in the next world that forces it, and
+    leaves it again in a world that does not; one whose hooks the caller
+    removed is never hooked again."""
+    import subprocess
+    import sys
+
+    code = (
+        "import os, torch, horovod_tpu_torch as hvd\n"
+        "hvd.init(device='cpu')\n"
+        "w = torch.nn.Parameter(torch.tensor([1.0, -2.0, 3.0]))\n"
+        "opt = hvd.DistributedOptimizer(torch.optim.SGD([w], lr=0.0),\n"
+        "                               postscale_factor=0.5)\n"
+        "gone = hvd.DistributedOptimizer(torch.optim.SGD([w], lr=0.0))\n"
+        "gone.remove_hooks()\n"
+        "def grad():\n"
+        "    w.grad = None\n"
+        "    (w * torch.tensor([1.0, 2.0, 4.0])).sum().backward()\n"
+        "    launched = len(opt._launched)\n"
+        "    opt.step()\n"
+        "    return launched, w.grad.clone()\n"
+        "assert opt._short_circuit and not opt._hooks\n"
+        "want = torch.tensor([0.5, 1.0, 2.0])\n"
+        "n, g = grad()\n"
+        "assert n == 0 and torch.equal(g, want), (n, g)\n"
+        "hvd.shutdown()\n"
+        "os.environ['HOROVOD_FORCE_WIRE_MACHINERY'] = '1'\n"
+        "hvd.init(device='cpu')\n"
+        "assert not opt._short_circuit and opt._hooks and not gone._hooks\n"
+        "n, g = grad()\n"
+        "assert n == 1 and torch.equal(g, want), (n, g)\n"
+        "hvd.shutdown()\n"
+        "del os.environ['HOROVOD_FORCE_WIRE_MACHINERY']\n"
+        "hvd.init(device='cpu')\n"
+        "assert opt._short_circuit and not opt._hooks\n"
+        "n, g = grad()\n"
+        "assert n == 0 and torch.equal(g, want), (n, g)\n"
+        "hvd.shutdown()\n")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("HOROVOD_")}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def test_sync_modes_not_yet_ported_raise(monkeypatch):
     """The sync modes resolve from the argument, then ``HOROVOD_SYNC_MODE``,
     then the default; every mode of the reference is ported, and an unknown

@@ -271,13 +271,26 @@ def test_remote_workers_get_the_cuda_and_nccl_env(monkeypatch):
 @pytest.mark.parametrize("flag", [["--min-np", "1"], ["--max-np", "4"],
                                   ["--host-discovery-script", "d.sh"],
                                   ["--elastic-timeout", "600"]])
-def test_elastic_flags_raise(flag):
-    from horovod_tpu_torch.runner.launch import (ELASTIC_NOT_PORTED,
-                                                 run_commandline)
+def test_elastic_flags_raise(flag, monkeypatch):
+    """The elastic flags no longer raise: each parses to the elastic
+    settings the reference's ``settings_from_args`` derives (a discovery
+    script makes the launch elastic; -np is the target size, min/max
+    default to it)."""
+    from horovod_tpu.runner.launch import parse_args as ref_parse
+    from horovod_tpu.runner.launch import settings_from_args as ref_settings
+    from horovod_tpu_torch.runner.launch import (parse_args,
+                                                 settings_from_args)
 
-    with pytest.raises(SystemExit) as info:
-        run_commandline(["-np", "2", *flag, "python", "train.py"])
-    assert str(info.value) == ELASTIC_NOT_PORTED
+    monkeypatch.delenv("HOROVOD_ELASTIC_TIMEOUT", raising=False)
+    argv = ["-np", "2", "--host-discovery-script", "d.sh", *flag,
+            "python", "train.py"]
+    got, want = (settings_from_args(parse_args(argv)),
+                 ref_settings(ref_parse(argv)))
+    fields = ("num_proc", "hosts", "elastic", "min_np", "max_np",
+              "discovery_script", "elastic_timeout")
+    assert ({f: getattr(got, f) for f in fields}
+            == {f: getattr(want, f) for f in fields})
+    assert got.elastic and got.discovery_script == "d.sh"
 
 
 WORKER = textwrap.dedent("""
@@ -375,7 +388,7 @@ def test_check_build_and_version(capsys):
     assert run_commandline(["--check-build"]) == 0
     out = capsys.readouterr().out
     assert "[X] adasum" in out and "[X] sync batch norm" in out
-    assert "[ ] elastic" in out and "Gloo" in out
+    assert "[X] elastic" in out and "Gloo" in out
     assert run_commandline(["--version"]) == 0
     assert capsys.readouterr().out.startswith("horovod_tpu_torch")
 
