@@ -6,7 +6,7 @@
     python3 chip_diag.py watchdog
     python3 chip_diag.py collectives [--cpu]
     python3 chip_diag.py fsdp_gathers
-    python3 chip_diag.py elastic [--cpu] [--log PATH]
+    python3 chip_diag.py elastic [--fsdp] [--cpu] [--log PATH]
     python3 chip_diag.py ab_steps OTHER_CHECKOUT
 
 ``ab`` times the kernels of OTHER_CHECKOUT and of this checkout at
@@ -127,6 +127,22 @@ re-forms at 4. It holds the losses equal across ranks at every step, the
 parameters the same bit for bit on every rank at the end, and the run
 within ``ELASTIC_WALL_S``, and prints the seconds from the kill to the
 first step at 3 ranks and from the host's return to the first step at 4.
+
+``elastic --fsdp`` (four cards; ``--cpu``: four gloo processes and
+BERT_TINY) launches ``hvdrun-torch -np 4 --min-np 2 --max-np 4`` over the
+same hosts with BERT-Large (24 layers) S = 512 x 8 under
+``sync_mode="fsdp"``, AdamW, bf16 wire, ``make_train_step`` and an
+``hvd.elastic.PeerShardedState`` committed after each step. The fourth
+worker SIGKILLs itself during step 3's backward, in the reduce-scatters;
+its host stays blacklisted (``ELASTIC_FSDP_COOLDOWN_S``). The three
+survivors must recover on the ``peer`` rung with no durable read: the
+state each rebuilds from the replicas and the state installed at 3 ranks
+must have the sha256 of the full state gathered at step 2's commit
+(gathered by the check at the commits before the kill, never by the
+program). It holds the losses equal across ranks at every step, the
+parameters bit-identical at the end and the run within
+``ELASTIC_FSDP_WALL_S``, and prints the record bytes, the seconds of each
+commit and the seconds from the kill to the first step at 3 ranks.
 
 ``ab_steps`` trains chip_smoke.py's two BERT-Large paths (S = 512 x 8 and
 S = 128 x 64, AdamW, bf16 wire, one card with the wire forced on: its
@@ -1153,8 +1169,6 @@ def elastic(cpu, log=None):
     4. ``--cpu``: 4 gloo ranks and BERT_TINY; ``--log PATH`` writes every
     line of the run there."""
     import json
-    import shutil
-    import threading
 
     import torch
 
@@ -1162,46 +1176,11 @@ def elastic(cpu, log=None):
         print("elastic: needs four cards (or --cpu)", file=sys.stderr)
         return 1
     device = "cpu" if cpu else "cuda"
-    tmp = os.path.join(HERE, "build", "chip_diag_elastic")
-    os.makedirs(tmp, exist_ok=True)
-    hosts = os.path.join(tmp, "hosts.txt")
-    with open(hosts, "w") as f:
-        f.write("\n".join(ELASTIC_HOSTS) + "\n")
-    disc = os.path.join(tmp, "discover.sh")
-    with open(disc, "w") as f:
-        f.write(f"#!/bin/sh\ncat {hosts}\n")
-    os.chmod(disc, 0o755)
-    env = dict(os.environ, PYTHONPATH=HERE, HOROVOD_LOG_LEVEL="info",
-               HOROVOD_BLACKLIST_COOLDOWN=str(ELASTIC_COOLDOWN_S),
-               HOROVOD_ELASTIC_DRIVER_LOST_TIMEOUT="30")
-    t0 = time.time()
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "horovod_tpu_torch.runner.launch", "-np",
-         "4", "--min-np", "2", "--max-np", "4", "--host-discovery-script",
-         disc, *(["--cpu-mode"] if cpu else []), sys.executable,
-         os.path.abspath(__file__), "_elastic_rank", device],
-        cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True)
-    lines = []
-
-    def pump():
-        for line in proc.stdout:
-            lines.append((time.time(), line.rstrip("\n")))
-
-    reader = threading.Thread(target=pump, daemon=True)
-    reader.start()
-    try:
-        rc = proc.wait(timeout=ELASTIC_WALL_S)
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        rc = None
-    reader.join(timeout=10)
-    shutil.rmtree(tmp, ignore_errors=True)
-    wall = time.time() - t0
+    rc, lines, wall = _launch_elastic(
+        device, cpu, "_elastic_rank",
+        {"HOROVOD_BLACKLIST_COOLDOWN": str(ELASTIC_COOLDOWN_S),
+         "HOROVOD_ELASTIC_DRIVER_LOST_TIMEOUT": "30"}, ELASTIC_WALL_S, log)
     text = "\n".join(line for _, line in lines)
-    if log:
-        with open(log, "w") as f:
-            f.write("\n".join(f"{t - t0:9.3f} {line}" for t, line in lines))
 
     def records(tag):
         return [(t, json.loads(line.split(tag + " ", 1)[1]))
@@ -1250,6 +1229,276 @@ def elastic(cpu, log=None):
               file=sys.stderr)
         return 1
     return 0
+
+
+ELASTIC_FSDP_COOLDOWN_S = 3600
+ELASTIC_FSDP_STEPS_AT_3 = 2
+ELASTIC_FSDP_WALL_S = 900
+
+
+def _full_digest(hvd, opt):
+    """sha256 of an fsdp optimizer's full parameters and monolithic AdamW
+    state, on the set's first rank (None elsewhere): the check's own
+    gather. Collective."""
+    import hashlib
+
+    from horovod_tpu_torch.optimizer import unshard_opt_state
+
+    flat = opt.full_parameters()
+    stacked = hvd.gather_sharded_state(opt)
+    if stacked is None:
+        return None
+    return _digest(flat, unshard_opt_state(opt, stacked), hashlib)
+
+
+def _digest(flat, opt_state, hashlib):
+    h = hashlib.sha256()
+    for t in flat:
+        h.update(t.detach().float().cpu().contiguous().numpy().tobytes())
+    for i in sorted(opt_state["state"]):
+        for k in sorted(opt_state["state"][i]):
+            h.update(opt_state["state"][i][k].detach().float().cpu()
+                     .contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _elastic_fsdp_rank(device):
+    """One worker of ``elastic --fsdp`` (see the module docstring): prints
+    HVD_ELASTIC_STEP after each step, HVD_COMMIT (record bytes, seconds of
+    the replication and of the commit), HVD_GATHERED (rank 0, the full
+    state's digest at the commits before the kill), HVD_PEER (the digest of
+    the state the peer rung rebuilt), HVD_INSTALLED (the digest at the
+    first step at 3 ranks) and HVD_ELASTIC_DONE."""
+    host = os.environ["HOROVOD_HOSTNAME"]
+    if device == "cuda":
+        os.environ["CUDA_VISIBLE_DEVICES"] = str(ELASTIC_HOSTS.index(host))
+    import dataclasses
+    import hashlib
+    import json
+    import signal
+
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import bert as bert_mod
+
+    smoke = _smoke()
+    hvd.init(device=device)
+    gen0 = os.environ["HOROVOD_WORLD_VERSION"]
+    base = bert_mod.BERT_LARGE if device == "cuda" else bert_mod.BERT_TINY
+    cfg = dataclasses.replace(base, dropout_rate=0.0)
+    B, S, P = (8, 512, 76) if device == "cuda" else (2, 32, 4)
+    dev = hvd.device()
+    torch.manual_seed(0)
+    with torch.device(dev):
+        model = bert_mod.Bert(cfg, attention_fn=bert_mod.flash_attention_fn)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
+        compression=(hvd.Compression.bf16 if device == "cuda"
+                     else hvd.Compression.none), sync_mode="fsdp")
+    step = hvd.make_train_step(model, smoke._bert_loss, opt,
+                               loss_is_averaged=False)
+    state = hvd.elastic.PeerShardedState(model=model, optimizer=opt, step=0,
+                                         at3=0)
+
+    def emit(tag, **fields):
+        print(f"{tag} " + json.dumps(dict(host=host, t=time.time(),
+                                          **fields)), flush=True)
+
+    def durable():
+        emit("HVD_DURABLE")
+        raise RuntimeError("elastic --fsdp: the durable rung must not run")
+
+    state.register_durable_restore(durable)
+    peer_restore = state._restore_from_peers
+
+    def peer():
+        t0 = time.perf_counter()
+        peer_restore()
+        full = state._full
+        emit("HVD_PEER", step=state.step, seconds=time.perf_counter() - t0,
+             digest=_digest(full["flat"], full["opt"], hashlib))
+
+    state.register_peer_restore(peer)
+    rep = state._replicator
+    replicate = rep.replicate
+    spent = []
+
+    def timed_replicate(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return replicate(*a, **k)
+        finally:
+            spent.append(time.perf_counter() - t0)
+
+    rep.replicate = timed_replicate
+    if host == ELASTIC_HOSTS[-1] and gen0 == "1":
+        def kill(_):
+            if state.step == 2:
+                print("HVD_ELASTIC_KILL " + json.dumps({"t": time.time()}),
+                      flush=True)
+                os.kill(os.getpid(), signal.SIGKILL)
+
+        opt.shards[len(opt.shards) // 2].register_post_accumulate_grad_hook(
+            kill)
+    sizes = []
+
+    @hvd.elastic.run
+    def train(state):
+        while state.at3 < ELASTIC_FSDP_STEPS_AT_3:
+            n = hvd.size()
+            if sizes and sizes[-1] != n:
+                digest = _full_digest(hvd, opt)
+                if digest is not None:
+                    emit("HVD_INSTALLED", step=state.step, digest=digest)
+            sizes.append(n)
+            batch = smoke._bert_batch(cfg, B, S, P, state.step, dev)
+            loss = float(step(batch))
+            state.step += 1
+            state.at3 += int(n == 3)
+            if n == 4:
+                digest = _full_digest(hvd, opt)
+                if digest is not None:
+                    emit("HVD_GATHERED", step=state.step, digest=digest)
+            t0 = time.perf_counter()
+            state.commit()
+            emit("HVD_COMMIT", step=state.step, seconds=time.perf_counter()
+                 - t0, replicate=spent[-1],
+                 bytes=len(rep.pool.get(hvd.rank()).payload))
+            emit("HVD_ELASTIC_STEP", gen=os.environ["HOROVOD_WORLD_VERSION"],
+                 rank=hvd.rank(), size=n, step=state.step, loss=loss)
+        hvd.allreduce(torch.zeros(1, device=dev))
+        digest = hashlib.sha256(b"".join(
+            t.detach().float().cpu().numpy().tobytes()
+            for t in opt.full_parameters())).hexdigest()
+        print("HVD_ELASTIC_DONE " + json.dumps(dict(
+            host=host, rank=hvd.rank(), size=hvd.size(), step=state.step,
+            digest=digest)), flush=True)
+        hvd.allreduce(torch.zeros(1, device=dev))
+
+    train(state)
+
+
+def elastic_fsdp(cpu, log=None):
+    """``elastic --fsdp``: see the module docstring."""
+    import json
+
+    import torch
+
+    if not cpu and torch.cuda.device_count() < 4:
+        print("elastic --fsdp: needs four cards (or --cpu)", file=sys.stderr)
+        return 1
+    device = "cpu" if cpu else "cuda"
+    env = {"HOROVOD_BLACKLIST_COOLDOWN": str(ELASTIC_FSDP_COOLDOWN_S),
+           # A record is ~1.0 GB at 4 ranks (a rank's parameter shards and
+           # both moments): past the 256 MiB and 5 s defaults.
+           "HOROVOD_PEERCHECK_MAX_BYTES": str(4 << 30),
+           "HOROVOD_PEERCHECK_TIMEOUT": "300",
+           "HOROVOD_ELASTIC_DRIVER_LOST_TIMEOUT": "600"}
+    rc, lines, wall = _launch_elastic(device, cpu, "_elastic_fsdp_rank",
+                                      env, ELASTIC_FSDP_WALL_S, log)
+
+    def records(tag):
+        return [json.loads(line.split(tag + " ", 1)[1])
+                for _, line in lines if tag + " {" in line]
+
+    steps = records("HVD_ELASTIC_STEP")
+    kills = [r["t"] for r in records("HVD_ELASTIC_KILL")]
+    done = records("HVD_ELASTIC_DONE")
+    gathered = {r["step"]: r["digest"] for r in records("HVD_GATHERED")}
+    peers = records("HVD_PEER")
+    installed = records("HVD_INSTALLED")
+    commits = records("HVD_COMMIT")
+    by_step = {}
+    for r in steps:
+        by_step.setdefault((r["gen"], r["step"]), []).append(r)
+    unequal = {k: [r["loss"] for r in v] for k, v in by_step.items()
+               if len({r["loss"] for r in v}) != 1}
+    sizes = [v[0]["size"] for _, v in sorted(
+        by_step.items(), key=lambda kv: kv[1][0]["t"])]
+    shape = [n for i, n in enumerate(sizes) if i == 0 or n != sizes[i - 1]]
+    peer_ok = (len({p["host"] for p in peers}) == 3 and all(
+        p["digest"] == gathered.get(p["step"]) for p in peers))
+    installed_ok = len(installed) == 1 and (
+        installed[0]["digest"] == gathered.get(installed[0]["step"]))
+    ok = (rc == 0 and len(kills) == 1 and shape == [4, 3] and not unequal
+          and peer_ok and installed_ok and not records("HVD_DURABLE")
+          and len(done) == 3 and len({d["digest"] for d in done}) == 1)
+    at3 = [r["t"] for r in steps if r["size"] == 3]
+    card = "" if cpu else f" on {_smoke().card_line()}"
+    print(f"elastic --fsdp: 4 hosts over {dist_backend(device)}, exit code "
+          f"{rc}, wall {wall:.1f} s (limit {ELASTIC_FSDP_WALL_S}), world "
+          f"sizes by step {sizes}, losses equal across ranks at every step: "
+          f"{not unequal}, peer rung on {sorted(p['host'] for p in peers)} "
+          f"at steps {sorted({p['step'] for p in peers})}, rebuilt state = "
+          f"gathered commit: {peer_ok}, installed state = gathered commit: "
+          f"{installed_ok}, durable reads {len(records('HVD_DURABLE'))}, "
+          f"final digests {sorted({d['digest'][:16] for d in done})} on "
+          f"{len(done)} ranks")
+    if commits:
+        print(f"elastic --fsdp: record bytes per rank "
+              f"{sorted({c['bytes'] for c in commits})}; seconds of each "
+              f"commit {[round(c['seconds'], 2) for c in commits]}, of its "
+              f"replication {[round(c['replicate'], 2) for c in commits]}; "
+              f"peer rung seconds {[round(p['seconds'], 2) for p in peers]}"
+              + card)
+    if kills and at3:
+        print(f"elastic --fsdp: seconds from the kill to the first step at 3 "
+              f"ranks {min(at3) - kills[0]:.2f}" + card)
+    if not ok:
+        print(f"elastic --fsdp: FAILED (unequal {unequal}, shape {shape}):\n"
+              + "\n".join(line for _, line in lines)[-6000:],
+              file=sys.stderr)
+        return 1
+    return 0
+
+
+def _launch_elastic(device, cpu, entry, env, wall_s, log):
+    """``hvdrun-torch -np 4 --min-np 2 --max-np 4`` over ``ELASTIC_HOSTS``
+    (one slot each), each worker ``chip_diag.py <entry> <device>``, with
+    ``env`` added: (exit code or None past ``wall_s``, the timed lines of
+    its output, the wall seconds). ``log`` gets every line."""
+    import shutil
+    import threading
+
+    tmp = os.path.join(HERE, "build", "chip_diag_elastic")
+    os.makedirs(tmp, exist_ok=True)
+    hosts = os.path.join(tmp, "hosts.txt")
+    with open(hosts, "w") as f:
+        f.write("\n".join(ELASTIC_HOSTS) + "\n")
+    disc = os.path.join(tmp, "discover.sh")
+    with open(disc, "w") as f:
+        f.write(f"#!/bin/sh\ncat {hosts}\n")
+    os.chmod(disc, 0o755)
+    env = dict(os.environ, PYTHONPATH=HERE, HOROVOD_LOG_LEVEL="info", **env)
+    t0 = time.time()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "horovod_tpu_torch.runner.launch", "-np",
+         "4", "--min-np", "2", "--max-np", "4", "--host-discovery-script",
+         disc, *(["--cpu-mode"] if cpu else []), sys.executable,
+         os.path.abspath(__file__), entry, device],
+        cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    lines = []
+
+    def pump():
+        for line in proc.stdout:
+            lines.append((time.time(), line.rstrip("\n")))
+
+    reader = threading.Thread(target=pump, daemon=True)
+    reader.start()
+    try:
+        rc = proc.wait(timeout=wall_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = None
+    reader.join(timeout=10)
+    shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.time() - t0
+    if log:
+        with open(log, "w") as f:
+            f.write("\n".join(f"{t - t0:9.3f} {line}" for t, line in lines))
+    return rc, lines, wall
 
 
 def fsdp_gathers():
@@ -1404,12 +1653,17 @@ def main() -> int:
     if args[:1] == ["_collectives_rank"] and len(args) == 2:
         _collectives_rank(args[1])
         return 0
-    if args[:1] == ["elastic"] and set(args[1:2]) <= {"--cpu", "--log"}:
+    if args[:1] == ["elastic"] and set(args[1:]) - {"--cpu", "--fsdp"} <= (
+            {"--log", args[args.index("--log") + 1]} if "--log" in args
+            else set()):
         cpu = "--cpu" in args
         log = args[args.index("--log") + 1] if "--log" in args else None
-        return elastic(cpu, log)
+        return (elastic_fsdp if "--fsdp" in args else elastic)(cpu, log)
     if args[:1] == ["_elastic_rank"] and len(args) == 2:
         _elastic_rank(args[1])
+        return 0
+    if args[:1] == ["_elastic_fsdp_rank"] and len(args) == 2:
+        _elastic_fsdp_rank(args[1])
         return 0
     import torch
 

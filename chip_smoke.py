@@ -3155,6 +3155,475 @@ def elastic_phase(card):
                              f"limit of {ELASTIC_PHASE_LIMIT_S} s")
 
 
+# The elastic_peer phase's worker, run by ``hvdrun-torch
+# --host-discovery-script`` (one host, localhost:1) with
+# HOROVOD_DRIVER_STATE_DIR set. BERT-Large S = 512 x 8 at full width cut to
+# ELASTIC_PEER_LAYERS layers, bf16 wire, AdamW, sync_mode="fsdp": two
+# uninterrupted ELASTIC_PEER_STEPS-step runs from the seed-0 weights, then
+# the same steps with make_train_step under @hvd.elastic.run and a
+# PeerShardedState that commits after every step (a Checkpointer holds the
+# initial state for the durable rung, which must never read it). After
+# step 2's commit it posts the coordinated abort: the ladder takes restore
+# (pending), then peer, and the state the peer rung rebuilt, then the state
+# installed, must equal bit for bit what the worker gathered at that
+# commit (gathered for the check only). After step 4's commit it writes
+# ``step4`` and waits: the phase SIGKILLs the driver and starts a
+# successor, whose abort ends the wait; the worker follows the endpoint
+# record, joins generation g+1 and recovers on the peer rung from its own
+# pool, held to step 4's gathered state the same way. Its output goes to a
+# file (its launcher's pipe dies with the driver), ending with
+# "HVD_PEER <json>": the final parameters against the uninterrupted run's,
+# the flash kernels' launches per step and world, the rungs taken, the
+# record bytes, the seconds of each commit and replication, of each
+# recovery's stages, and the wall times of the repoint and of each world's
+# first step.
+ELASTIC_PEER_CHILD = r"""
+import dataclasses, json, os, sys, time
+t_start = time.time()
+_fd = os.open(os.environ["ELASTIC_PEER_LOG"],
+              os.O_WRONLY | os.O_CREAT | os.O_APPEND)
+os.dup2(_fd, 1)
+os.dup2(_fd, 2)
+sys.stdout = os.fdopen(1, "w", buffering=1)
+sys.stderr = os.fdopen(2, "w", buffering=1)
+print(f"pid={os.getpid()}", flush=True)
+import torch
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch import basics
+from horovod_tpu_torch.models import bert as bert_mod
+from horovod_tpu_torch.ops import _kernels
+from horovod_tpu_torch.optimizer import unshard_opt_state
+from horovod_tpu_torch.runner.elastic import worker as elastic_worker
+import chip_smoke as smoke
+
+STEPS, LAYERS = smoke.ELASTIC_PEER_STEPS, smoke.ELASTIC_PEER_LAYERS
+TMP = os.environ["ELASTIC_PEER_TMP"]
+torch.use_deterministic_algorithms(True, warn_only=True)
+FLASH = ("flash_fwd", "flash_dq", "flash_dkv")
+marks, worlds, rungs = {}, [0], []
+
+
+def mark(name):
+    marks.setdefault(name, []).append(time.time())
+
+
+def timed(name, fn):
+    def call(*a, **k):
+        mark(name)
+        try:
+            return fn(*a, **k)
+        finally:
+            mark(name + "_end")
+    return call
+
+
+hvd.init()
+dev = hvd.device()
+cfg = dataclasses.replace(bert_mod.BERT_LARGE, dropout_rate=0.0,
+                          num_layers=LAYERS)
+_, B, S, P, _ = smoke.BERT_PATHS[0]
+batches = [smoke._bert_batch(cfg, B, S, P, seed, dev) for seed in range(STEPS)]
+
+
+def build():
+    torch.manual_seed(0)
+    with torch.device(dev):
+        model = bert_mod.Bert(cfg, attention_fn=bert_mod.flash_attention_fn)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
+        compression=hvd.Compression.bf16, sync_mode="fsdp")
+    return model, opt
+
+
+def gathered(opt):
+    # Every parameter and the AdamW state in full, on the host: the check's
+    # own gather, which the program never does.
+    flat = [t.cpu() for t in opt.full_parameters()]
+    return flat, unshard_opt_state(opt, hvd.gather_sharded_state(opt))
+
+
+def same(full_flat, full_opt, want):
+    flat, opt_state = want
+    return (len(full_flat) == len(flat)
+            and all(torch.equal(a.cpu(), b) for a, b in zip(full_flat, flat))
+            and opt_state["state"].keys() == full_opt["state"].keys()
+            and all(torch.equal(full_opt["state"][i][k].cpu(), v)
+                    for i, st in opt_state["state"].items()
+                    for k, v in st.items())
+            and full_opt.get("salt_counter") == opt_state.get("salt_counter"))
+
+
+def uninterrupted():
+    model, opt = build()
+    step = hvd.make_train_step(model, smoke._bert_loss, opt)
+    for b in batches:
+        step(b)
+    torch.cuda.synchronize()
+    return [t.cpu() for t in opt.full_parameters()]
+
+
+ref, ref2 = uninterrupted(), uninterrupted()
+t_refs = time.time()
+model, opt = build()
+step_fn = hvd.make_train_step(model, smoke._bert_loss, opt)
+names = {id(p): n for n, p in model.named_parameters()}
+ckpt = hvd.Checkpointer(os.path.join(TMP, "ckpt"), max_to_keep=1,
+                        async_save=True)
+initial = gathered(opt)
+ckpt.save(0, {"params": {names[id(p)]: t
+                         for p, t in zip(opt._params, initial[0])},
+              "opt_state": initial[1]})
+durable_reads = [0]
+ckpt_restore = ckpt.restore
+
+
+def counted_restore(*a, **k):
+    durable_reads[0] += 1
+    return ckpt_restore(*a, **k)
+
+
+ckpt.restore = counted_restore
+real_init = basics.init
+
+
+def init(*a, **k):
+    real_init(*a, **k)
+    worlds[0] += 1
+
+
+basics.init = timed("init", init)
+basics.shutdown = timed("shutdown", basics.shutdown)
+hooks = hvd.abort._hooks
+hooks[hooks.index(basics._abort_groups)] = timed("comm_abort",
+                                                  basics._abort_groups)
+ctx_cls = elastic_worker.ElasticWorkerContext
+ctx_cls._repoint = timed("repoint", ctx_cls._repoint)
+worlds[0] = 1
+state = hvd.elastic.PeerShardedState(model=model, optimizer=opt, step=0)
+rep = state._replicator
+replicate_s = []
+real_replicate = rep.replicate
+
+
+def replicate(*a, **k):
+    t0 = time.perf_counter()
+    out = real_replicate(*a, **k)
+    replicate_s.append(time.perf_counter() - t0)
+    return out
+
+
+rep.replicate = replicate
+snaps, checks = {}, []
+real_restore, real_peer = state.restore, state._restore_from_peers
+
+
+def restore():
+    rungs.append("restore")
+    real_restore()
+
+
+def peer():
+    rungs.append("peer")
+    kv = rep.client()
+    on_server = len(kv.keys("peerstate")) if kv is not None else 0
+    real_peer()
+    full = state._full
+    checks.append(dict(what="peer", step=state.step, kv_records=on_server,
+                       equal=same(full["flat"], full["opt"],
+                                  snaps[state.step])))
+
+
+def durable():
+    rungs.append("durable")
+    saved = ckpt.restore()
+    state.install_full(saved["params"], saved["opt_state"], step=0)
+
+
+# Instance attributes, past ExtrasState's tracking of public names.
+object.__setattr__(state, "restore", timed("restore", restore))
+object.__setattr__(state, "sync", timed("sync", state.sync))
+state._install = timed("install", state._install)
+state.register_peer_restore(timed("peer", peer))
+state.register_durable_restore(durable)
+launches, losses, commit_s, gens, posted = [], [], [], [], []
+
+
+@hvd.elastic.run
+def train(state):
+    while state.step < STEPS:
+        if state.step == 4 and os.path.exists(os.path.join(TMP, "step4")):
+            # Wait for the successor driver: its abort of this generation
+            # ends the wait.
+            deadline = time.time() + smoke.ELASTIC_PEER_LIMIT_S
+            while os.environ["HOROVOD_WORLD_VERSION"] == gens[-1]:
+                hvd.abort.raise_if_aborted()
+                if time.time() > deadline:
+                    raise SystemExit("the successor driver never came")
+                time.sleep(0.02)
+        if launches and launches[-1]["world"] != worlds[0] and (
+                state.step in snaps):
+            flat, opt_state = gathered(opt)
+            checks.append(dict(what="installed", step=state.step,
+                               equal=same(flat, opt_state,
+                                          snaps[state.step])))
+        for k in _kernels.KERNELS:
+            k.launches = 0
+        loss = float(step_fn(batches[state.step]))
+        torch.cuda.synchronize()
+        if not launches or launches[-1]["world"] != worlds[0]:
+            mark("first_step")
+        launches.append(dict(world=worlds[0], step=state.step + 1, **{
+            k.name: k.launches for k in _kernels.KERNELS if k.name in FLASH}))
+        state.step += 1
+        if state.step in (2, 4):
+            snaps[state.step] = gathered(opt)
+        t0 = time.perf_counter()
+        state.commit()
+        commit_s.append(time.perf_counter() - t0)
+        losses.append(loss)
+        gens.append(os.environ["HOROVOD_WORLD_VERSION"])
+        if state.step == 2 and not posted:
+            posted.append(time.time())
+            hvd.abort.post("chip_smoke: abort after step 2's commit")
+        if state.step == 4 and not os.path.exists(os.path.join(TMP, "step4")):
+            with open(os.path.join(TMP, "step4"), "w") as f:
+                f.write(str(time.time()))
+
+
+train(state)
+got = [t.cpu() for t in opt.full_parameters()]
+record = rep.pool.get(0)
+ckpt.wait_until_finished()
+print("HVD_PEER " + json.dumps(dict(
+    pid=os.getpid(), launches=launches, losses=losses, rungs=rungs,
+    checks=checks, durable_reads=durable_reads[0], generations=gens,
+    bitwise_runs=all(torch.equal(a, b) for a, b in zip(ref, ref2)),
+    spread=max((a - b).abs().max().item() for a, b in zip(ref, ref2)),
+    diff=max((a - b).abs().max().item() for a, b in zip(got, ref)),
+    equal=all(torch.equal(a, b) for a, b in zip(got, ref)),
+    record_bytes=len(record.payload), commit_s=commit_s,
+    replicate_s=replicate_s, marks=marks, posted=posted[0],
+    t_start=t_start, t_refs=t_refs,
+    params=sum(t.numel() for t in got))), flush=True)
+"""
+
+ELASTIC_PEER_STEPS = 6
+ELASTIC_PEER_LAYERS = 4
+ELASTIC_PEER_LIMIT_S = 150
+# A record of this worker (one rank: its parameter shards and both AdamW
+# moments of BERT-Large cut to 4 layers, ~85M float32 values each) is
+# about 1.0 GB: the defaults, a 256 MiB bound on a record and a 5 s
+# client timeout, would turn every commit away (413) or time it out, and
+# the peer rung would quietly fall through to durable. The phase sets both
+# above the record's size and time.
+ELASTIC_PEER_MAX_BYTES = 4 << 30
+ELASTIC_PEER_TIMEOUT_S = 120
+
+
+def _stages(m, t0, i):
+    """The seconds from ``t0`` to the end of each stage of recovery ``i``
+    (0: the abort, 1: the failover): the communicator abort, the rollback
+    (rung restore), the first new group, the peer rung's rebuild, the
+    second new group (after the refused sync), the install, the installing
+    sync (with its commit), and the first step of the new world."""
+    ends = (("communicator_abort", "comm_abort_end", i),
+            ("restore", "restore_end", i), ("new_group", "init_end", 2 * i),
+            ("peer_restore", "peer_end", i),
+            ("new_group_again", "init_end", 2 * i + 1),
+            ("install", "install_end", i), ("sync", "sync_end", 2 + 2 * i),
+            ("first_step", "first_step", i + 1))
+    return {name: round(m[key][k] - t0, 3) for name, key, k in ends}
+
+
+def elastic_peer_phase(card):
+    """``hvdrun-torch --host-discovery-script <prints localhost:1> --min-np 1
+    --max-np 1 python ELASTIC_PEER_CHILD`` with a driver-state directory
+    (see ``ELASTIC_PEER_CHILD``): the peer rung after a coordinated abort,
+    then the driver SIGKILLed after step 4's commit and a successor started
+    with the same command, which adopts the worker. Holds the run to the
+    rungs restore then peer (twice), no read of the Checkpointer's
+    directory, the rebuilt and installed states equal to the gathered ones
+    bit for bit, generation g+1 after the failover, the successor's epoch
+    and adoption of the worker's pid, the final parameters equal to the
+    uninterrupted run's, the flash kernels' launches per layer in every
+    step of every world, and ELASTIC_PEER_LIMIT_S; prints the record's
+    bytes, the seconds of each commit and replication, each recovery's
+    stages, and the seconds from the driver's kill to the successor
+    serving, to the worker's repoint and to its first step."""
+    import shutil
+    import signal
+
+    from urllib.error import HTTPError
+
+    from horovod_tpu_torch import faults
+    from horovod_tpu_torch.runner.elastic import driver_state
+    from horovod_tpu_torch.runner.http.kv_server import KVClient
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = os.path.join(here, "build", "chip_smoke_elastic_peer")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    child, disc = os.path.join(tmp, "child.py"), os.path.join(tmp, "disc.sh")
+    log, sdir = os.path.join(tmp, "worker.log"), os.path.join(tmp, "state")
+    with open(child, "w") as f:
+        f.write(ELASTIC_PEER_CHILD)
+    with open(disc, "w") as f:
+        f.write("#!/bin/sh\necho localhost:1\n")
+    os.chmod(disc, 0o755)
+    env = dict(os.environ, HOROVOD_FORCE_WIRE_MACHINERY="1",
+               CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               HOROVOD_DRIVER_STATE_DIR=sdir,
+               HOROVOD_DRIVER_STATE_REFRESH="0.5",
+               HOROVOD_DRIVER_REJOIN_TIMEOUT="60",
+               HOROVOD_DRIVER_REJOIN_PROBE_INTERVAL="0.1",
+               HOROVOD_ELASTIC_DRIVER_LOST_TIMEOUT="10",
+               HOROVOD_ABORT_POLL_INTERVAL="0.1",
+               HOROVOD_RECOVERY_BACKOFF_MAX="0.1",
+               HOROVOD_PEERCHECK_MAX_BYTES=str(ELASTIC_PEER_MAX_BYTES),
+               HOROVOD_PEERCHECK_TIMEOUT=str(ELASTIC_PEER_TIMEOUT_S),
+               ELASTIC_PEER_TMP=tmp, ELASTIC_PEER_LOG=log,
+               PYTHONPATH=os.pathsep.join(
+                   [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    argv = [sys.executable, "-m", "horovod_tpu_torch.runner.launch",
+            "--host-discovery-script", disc, "--min-np", "1", "--max-np",
+            "1", sys.executable, child]
+
+    def start(name):
+        return subprocess.Popen(
+            argv, cwd=here, env=env, start_new_session=True,
+            stdout=open(os.path.join(tmp, name), "w"),
+            stderr=subprocess.STDOUT)
+
+    def text():
+        out = []
+        for name in ("driver1.txt", "driver2.txt", "worker.log"):
+            path = os.path.join(tmp, name)
+            if os.path.exists(path):
+                with open(path) as f:
+                    out.append(f"--- {name}\n" + f.read()[-4000:])
+        return "\n".join(out)
+
+    t_phase = time.time()
+    deadline = t_phase + ELASTIC_PEER_LIMIT_S
+    first = start("driver1.txt")
+    second = None
+    try:
+        marker = os.path.join(tmp, "step4")
+        while not os.path.exists(marker):
+            if first.poll() is not None or time.time() > deadline:
+                raise AssertionError(f"elastic_peer: step 4 never committed "
+                                     f"(driver rc {first.poll()}):\n{text()}")
+            time.sleep(0.02)
+        t_kill = time.time()
+        faults.kill_driver(first.pid)
+        first.wait(timeout=30)
+        second = start("driver2.txt")
+        t_serving = None
+        while t_serving is None and time.time() < deadline:
+            rec = driver_state.read_endpoint(sdir)
+            if rec is not None and rec["driver_epoch"] >= 2:
+                try:
+                    KVClient(rec["addr"], rec["port"], timeout=1.0,
+                             retries=1).world_version()
+                    t_serving = time.time()
+                except HTTPError:  # answered (403: this probe has no key)
+                    t_serving = time.time()
+                except OSError:  # not serving yet
+                    pass
+            if t_serving is None:
+                time.sleep(0.02)
+        rc = second.wait(timeout=max(1.0, deadline - time.time()))
+        with open(log) as f:
+            reports = [json.loads(line.split("HVD_PEER ", 1)[1])
+                       for line in f if line.startswith("HVD_PEER {")]
+        if rc != 0 or len(reports) != 1 or t_serving is None:
+            raise AssertionError(f"elastic_peer: successor rc {rc}, "
+                                 f"{len(reports)} report(s), serving at "
+                                 f"{t_serving}:\n{text()}")
+        r = reports[0]
+        store = driver_state.DriverStateStore(sdir, epoch=2)
+        snap = store.load()
+        adopted = list((snap or {}).get("workers", {}).values())
+        ok = r["equal"] if r["bitwise_runs"] else r["diff"] <= r["spread"]
+        bad = [row for row in r["launches"]
+               if any(row[k] != ELASTIC_PEER_LAYERS for k in
+                      ("flash_fwd", "flash_dq", "flash_dkv"))]
+        gens = [int(g) for g in r["generations"]]
+        want_checks = [("peer", 2, True), ("installed", 2, True),
+                       ("peer", 4, True), ("installed", 4, True)]
+        got_checks = [(c["what"], c["step"], c["equal"]) for c in r["checks"]]
+        if not (ok and not bad and r["rungs"] == ["restore", "peer"] * 2
+                and r["durable_reads"] == 0 and got_checks == want_checks
+                and r["checks"][2]["kv_records"] == 0
+                and [row["step"] for row in r["launches"]]
+                == list(range(1, ELASTIC_PEER_STEPS + 1))
+                and gens[4:] == [gens[3] + 1] * 2
+                and snap is not None and snap["driver_epoch"] == 2
+                and [w.get("pid") for w in adopted] == [r["pid"]]):
+            raise AssertionError(
+                f"elastic_peer: final parameters equal {r['equal']} (max "
+                f"diff {r['diff']}, spread {r['spread']}), launches off "
+                f"{bad}, rungs {r['rungs']}, durable reads "
+                f"{r['durable_reads']}, checks {r['checks']}, generations "
+                f"{gens}, snapshot epoch {(snap or {}).get('driver_epoch')} "
+                f"workers {adopted} vs pid {r['pid']}:\n{text()}")
+        m = r["marks"]
+        print(f"elastic_peer: BERT-Large {r['params'] / 1e6:.1f}M params "
+              f"({ELASTIC_PEER_LAYERS} layers), S=512 x 8, bf16 wire, AdamW, "
+              f"sync_mode=fsdp, PeerShardedState committing every step: "
+              f"rungs {r['rungs']}, Checkpointer reads {r['durable_reads']};"
+              f" the peer rung's state and the installed state equal the "
+              f"gathered commit bit for bit at steps 2 and 4 (the second "
+              f"from the worker's own pool, the successor's server holding "
+              f"{r['checks'][2]['kv_records']} records); generations "
+              f"{gens}; final parameters "
+              f"{'bit for bit equal to' if r['equal'] else 'within the spread of'}"
+              f" the uninterrupted run's (two uninterrupted runs "
+              f"{'agree bit for bit' if r['bitwise_runs'] else 'differ by ' + str(r['spread'])}"
+              f", max diff {r['diff']}); launches per step {r['launches']} "
+              f"on {card}")
+        print(f"elastic_peer: record bytes {r['record_bytes']} (one rank, "
+              f"HOROVOD_PEERCHECK_MAX_BYTES={ELASTIC_PEER_MAX_BYTES}, "
+              f"HOROVOD_PEERCHECK_TIMEOUT={ELASTIC_PEER_TIMEOUT_S}); seconds "
+              f"of each replication {[round(t, 3) for t in r['replicate_s']]}"
+              f", of each commit {[round(t, 3) for t in r['commit_s']]} on "
+              f"{card}")
+        peer_s = [round(b - a, 3) for a, b in zip(m["peer"], m["peer_end"])]
+        install_s = [round(b - a, 3)
+                     for a, b in zip(m["install"], m["install_end"])]
+        print(f"elastic_peer: seconds to assemble (peer rung) {peer_s}, to "
+              f"install (sync) {install_s}; from the abort post to the end "
+              f"of each stage {_stages(m, r['posted'], 0)} on {card}")
+        repoint = m["repoint"][0]
+        print(f"elastic_peer: seconds from the driver's SIGKILL to the "
+              f"successor serving {t_serving - t_kill:.3f}, to the worker's "
+              f"repoint {repoint - t_kill:.3f}, to its first step at "
+              f"generation {gens[-1]} {m['first_step'][2] - t_kill:.3f} "
+              f"(to the end of each stage "
+              f"{_stages(m, t_kill, 1)}); worker start to the first step "
+              f"{m['first_step'][0] - r['t_start']:.1f} s, of it the two "
+              f"uninterrupted runs {r['t_refs'] - r['t_start']:.1f} s, on "
+              f"{card}")
+    finally:
+        for proc in (first, second):
+            if proc is not None and proc.poll() is None:
+                os.killpg(os.getpgid(proc.pid), signal.SIGKILL)
+        if os.path.exists(log):
+            with open(log) as f:
+                pids = [int(line.split("=", 1)[1]) for line in f
+                        if line.startswith("pid=")]
+            for pid in pids:
+                try:
+                    os.kill(pid, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
+        shutil.rmtree(tmp, ignore_errors=True)
+    took = time.time() - t_phase
+    if took > ELASTIC_PEER_LIMIT_S:
+        raise AssertionError(f"elastic_peer: the phase took {took:.1f} s, "
+                             f"past its limit of {ELASTIC_PEER_LIMIT_S} s")
+
+
 def kernel_rows():
     """The kernels line's rows, (name, Kernel, source file under csrc/):
     each kernel, then the D = 256 instances of the multi-tile three, then
@@ -3238,6 +3707,7 @@ def main() -> int:
     _phase("syncbn", syncbn_phase, card, plain_busy)
     _phase("launcher", launcher_phase, card)
     _phase("elastic", elastic_phase, card)
+    _phase("elastic_peer", elastic_peer_phase, card)
     print("sync modes, BERT-Large S=512 x 8 at world size 1 (step ms median, "
           "max_memory_allocated GiB, optimizer-state bytes on this rank): "
           + "; ".join(f"{m} {ms:.2f} ms, {peak:.2f} GiB, {state}"

@@ -233,8 +233,14 @@ def post(reason: str, generation: int | None = None) -> None:
             # Not generation-fenced: a survivor of world g must be able to
             # post abort/<g> even after the server moved to g+1 (the
             # record is generation-keyed, so it only reaches peers still
-            # in g).
-            KVClient(addr, int(port), timeout=2.0, retries=1).put(
+            # in g). Epoch-fenced: a worker still loyal to a superseded
+            # driver plants nothing in its successor's store.
+            try:
+                epoch = int(os.environ.get("HOROVOD_DRIVER_EPOCH", "0") or 0)
+            except ValueError:
+                epoch = 0
+            KVClient(addr, int(port), timeout=2.0, retries=1,
+                     epoch_fn=(lambda: epoch) if epoch > 0 else None).put(
                 ABORT_SCOPE, str(gen), record)
         except Exception as e:  # noqa: BLE001 — local unblock still happens
             get_logger().warning(

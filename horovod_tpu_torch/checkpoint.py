@@ -5,6 +5,7 @@ Port of ``horovod_tpu/checkpoint.py``: the checksum footer
 sha256), ``atomic_install`` (:55), ``atomic_read`` (:100), ``_read_verified``
 (:200, as ``_verified`` over the bytes ``atomic_read`` yields),
 ``_save_with_retries`` (:226),
+``rotate_slots`` (:132), ``assemble_full_params`` (:154),
 ``save_on_rank_0`` (:355), ``save_state_on_rank_0`` (:386),
 ``load_state_and_broadcast`` (:423) and ``load_and_broadcast`` (:485),
 and ``Checkpointer`` (:251), the durable layer of elastic recovery.
@@ -18,6 +19,11 @@ layout does not depend on the sync mode: a sharded or fsdp job gathers its
 optimizer state (and, fsdp, its parameters) on save, and the load re-shards
 for the current world and mode, so a checkpoint resumes across modes and
 world sizes.
+
+The module imports torch only inside the functions that need it: the
+driver's rendezvous server and control-plane store
+(``runner/http/kv_server.py``, ``runner/elastic/driver_state.py``) use its
+digest, file and slot helpers, and the launcher imports no torch.
 """
 
 from __future__ import annotations
@@ -27,9 +33,7 @@ import io
 import os
 import re
 import threading
-from typing import Any
-
-import torch
+from typing import Any, MutableMapping
 
 from . import faults
 from .exceptions import CheckpointCorruptError
@@ -91,13 +95,67 @@ def atomic_read(path: str):
             continue
 
 
+def rotate_slots(store: MutableMapping, key: str, value,
+                 prev_suffix: str = ".prev", depth: int = 1) -> None:
+    """The mapping flavor of :func:`atomic_install`: install ``value`` at
+    ``key``, keeping the previous value at ``<key><prev_suffix>`` (and, for
+    ``depth`` > 1, older ones at ``<key><prev_suffix*2>``, ...). The caller
+    holds whatever lock guards ``store``; the assignments run oldest first,
+    so the current slot is never empty. The peer replica pool
+    (``peercheck.ReplicaPool``) and the rendezvous server's ``peerstate``
+    scope both rotate through it."""
+    for i in range(max(1, depth), 0, -1):
+        src = key + prev_suffix * (i - 1)
+        if src in store:
+            store[key + prev_suffix * i] = store[src]
+    store[key] = value
+
+
+def assemble_full_params(payloads: list) -> tuple:
+    """The full parameters of a complete replica set's decoded payloads
+    (``elastic.PeerShardedState``'s commit records, in rank order):
+    ``(params, template)``. An fsdp set (``param_layout == "row"``)
+    stacks every record's parameter shard row into a
+    ``parallel.param_sharding.ShardedParams`` and gathers it with
+    ``unshard_params`` (host math): ``params`` is then the list of full
+    tensors and ``template`` the ``ShardedParams``. Otherwise the one
+    record that carries ``params`` (rank 0's) gives both. ``ValueError``
+    on a gap: a record without its row, no shard metadata, no
+    parameters."""
+    if any(p.get("param_layout") == "row" for p in payloads):
+        from .parallel.param_sharding import stack_param_rows, unshard_params
+
+        bad = [i for i, p in enumerate(payloads)
+               if p.get("param_layout") != "row"
+               or p.get("param_row") is None]
+        if bad:
+            raise ValueError(
+                f"records at positions {bad} carry no param shard row")
+        meta = next((p["param_meta"] for p in payloads
+                     if p.get("param_meta") is not None), None)
+        if meta is None:
+            raise ValueError("no record carries the fsdp shard metadata")
+        sp = stack_param_rows([p["param_row"] for p in payloads], meta)
+        return unshard_params(sp), sp
+    params = next((p["params"] for p in payloads
+                   if p.get("params") is not None), None)
+    if params is None:
+        raise ValueError(
+            "no record in the replica set carries the parameters")
+    return params, params
+
+
 def _dumps(obj: Any) -> bytes:
+    import torch
+
     buf = io.BytesIO()
     torch.save(obj, buf)
     return buf.getvalue()
 
 
 def _loads(payload: bytes) -> Any:
+    import torch
+
     return torch.load(io.BytesIO(payload), map_location="cpu",
                       weights_only=False)
 
@@ -138,6 +196,8 @@ def _save_with_retries(attempt, what: str) -> None:
 
 
 def _to_cpu(obj):
+    import torch
+
     if torch.is_tensor(obj):
         return obj.detach().cpu()
     if isinstance(obj, dict):
@@ -150,6 +210,8 @@ def _to_cpu(obj):
 def _host_copy(obj):
     """``obj`` with every tensor copied to the CPU, so that training can
     go on changing the originals while a save is in flight."""
+    import torch
+
     if torch.is_tensor(obj):
         return obj.detach().to("cpu", copy=True)
     if isinstance(obj, dict):
@@ -318,12 +380,12 @@ def load_and_broadcast(path: str, root_rank: int = 0) -> Any:
     return broadcast_object(obj, root_rank=root_rank)
 
 
-def _param_names(model: torch.nn.Module, optimizer) -> list[str]:
+def _param_names(model, optimizer) -> list[str]:
     names_of = {id(p): name for name, p in model.named_parameters()}
     return [names_of[id(p)] for p in optimizer._params]
 
 
-def save_state_on_rank_0(path: str, optimizer, model: torch.nn.Module,
+def save_state_on_rank_0(path: str, optimizer, model,
                          **extras: Any) -> None:
     """Rank-0 train-state checkpoint (``params``: the model's state dict;
     ``opt_state``: the wrapped optimizer's state dict over the full
@@ -358,7 +420,7 @@ def save_state_on_rank_0(path: str, optimizer, model: torch.nn.Module,
                           **extras})
 
 
-def load_state_and_broadcast(path: str, optimizer, model: torch.nn.Module,
+def load_state_and_broadcast(path: str, optimizer, model,
                              root_rank: int = 0) -> Any | None:
     """Resume from :func:`save_state_on_rank_0`'s file into ``model`` and
     ``optimizer``, whatever mode and world size wrote it: rank 0 loads,
@@ -366,6 +428,8 @@ def load_state_and_broadcast(path: str, optimizer, model: torch.nn.Module,
     the state re-sharded for the current world (fsdp: its parameter shards
     too). Returns the loaded dict, or None when no checkpoint is
     readable."""
+    import torch
+
     from .optimizer import load_sharded_state, reshard_opt_state, sync_mode_of
 
     obj = load_and_broadcast(path, root_rank)

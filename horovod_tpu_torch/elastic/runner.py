@@ -16,6 +16,10 @@ Each re-formation is a new process group (``basics.shutdown()`` aborts and
 destroys the old one, ``basics.init()`` forms the next from the KV's
 assignment).
 
+The ladder's ``peer`` rung (``horovod_tpu/elastic/runner.py:380-440``)
+restores a ``PeerShardedState`` from the peer replica plane; a failed peer
+restore falls through to the durable rung in the same attempt.
+
 Not ported yet: the loss-spike rewind (it needs the integrity plane), so a
 ``LossSpikeError`` takes the ordinary ladder; and the goodput, event
 journal and stall-inspector hooks.
@@ -105,8 +109,11 @@ def run(func):
     1. ``restore`` — in-memory ``state.restore()`` to the last commit;
     2. ``rendezvous`` — full re-rendezvous + ``state.sync()`` from rank
        0, *skipping* the local restore;
-    3. ``peer`` — the peer replica rung; no state of the port arms it
-       (``peer_restore_armed()`` is False), so it falls through to
+    3. ``peer`` — :meth:`State.restore_peer`, the peer replica plane
+       (``PeerShardedState`` arms it); a state that reports
+       ``peer_restore_pending()`` comes here from its second failure, an
+       unarmed one goes on to durable, and a failed peer restore falls
+       through to durable in the same attempt;
     4. ``durable`` — :meth:`State.restore_durable` when registered, else
        rung 1 again.
 
@@ -161,7 +168,9 @@ def run(func):
                         state.on_reset()
                         needs_reset = False
                 first_init_failure = None
-                if not skip_sync:
+                # A state whose layout is shaped by the world (sharded
+                # rows) syncs even after a host update that skips it.
+                if not skip_sync or state.needs_world_sync():
                     state.sync()
                 from ..runner.elastic.worker import _counters
 
@@ -195,11 +204,14 @@ def run(func):
                         f"{consecutive_failures} consecutive recovery "
                         f"attempts failed with no progress (last: {e})"
                     ) from e
-                # The peer rung: no state of the port arms it (the replica
-                # plane is not ported), so it falls through to durable, as
-                # the reference's does when peer_restore_armed() is False.
-                rung = _RUNGS[min(consecutive_failures, 2)
-                              if consecutive_failures < 3 else 4]
+                rung_n = min(consecutive_failures, 4)
+                if rung_n == 2 and state.peer_restore_pending():
+                    # The state's own snapshot cannot re-form the world (a
+                    # shard-local commit): rank 0's sync cannot help either.
+                    rung_n = 3
+                if rung_n == 3 and not state.peer_restore_armed():
+                    rung_n = 4  # no replica plane: durable is next
+                rung = _RUNGS[rung_n]
                 if rung == "restore":
                     log.warning(
                         "elastic: internal failure (%s); restoring last "
@@ -212,17 +224,28 @@ def run(func):
                         "re-rendezvous + sync from rank 0, skipping local "
                         "restore (recovery rung 'rendezvous')", e)
                 else:
-                    log.warning(
-                        "elastic: internal failure (%s); escalating to "
-                        "durable checkpoint restore (recovery rung "
-                        "'durable')", e)
                     restored = False
-                    try:
-                        restored = state.restore_durable()
-                    except Exception as ce:  # noqa: BLE001
-                        log.error(
-                            "elastic: durable restore failed (%s); falling "
-                            "back to the in-memory commit", ce)
+                    if rung == "peer":
+                        log.warning(
+                            "elastic: internal failure (%s); escalating to "
+                            "peer-replica restore (recovery rung 'peer')", e)
+                        try:
+                            restored = state.restore_peer()
+                        except Exception as pe:  # noqa: BLE001
+                            log.error(
+                                "elastic: peer-replica restore failed (%s); "
+                                "falling through to the durable rung", pe)
+                    if not restored:
+                        log.warning(
+                            "elastic: internal failure (%s); escalating to "
+                            "durable checkpoint restore (recovery rung "
+                            "'durable')", e)
+                        try:
+                            restored = state.restore_durable()
+                        except Exception as ce:  # noqa: BLE001
+                            log.error(
+                                "elastic: durable restore failed (%s); "
+                                "falling back to the in-memory commit", ce)
                     if not restored and basics.is_initialized():
                         state.restore()
                 skip_sync = False

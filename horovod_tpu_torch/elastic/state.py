@@ -2,8 +2,9 @@
 workers.
 
 Port of ``horovod_tpu/elastic/state.py``'s framework-agnostic state
-machine (``State``, ``ObjectState`` :38-170, ``ExtrasState`` :850-893),
-itself the reference's ``horovod/common/elastic.py``. The contract:
+machine (``State`` with its peer-rung API :73-100 and ``needs_world_sync``,
+``ObjectState`` :38-170, ``ExtrasState`` :850-893), itself the
+reference's ``horovod/common/elastic.py``. The contract:
 
 - ``commit()``: snapshot training state in host memory (cheap, frequent):
   the rollback point when a peer dies mid-step.
@@ -13,7 +14,8 @@ itself the reference's ``horovod/common/elastic.py``. The contract:
 - reset callbacks: user hooks run after the world re-forms.
 
 The JAX package's ``TpuState`` holds jax pytrees and has no counterpart;
-``TorchState`` (``elastic/__init__.py``) takes its role.
+``TorchState`` and, for the sharded and fsdp modes, ``PeerShardedState``
+(``elastic/__init__.py``) take its role.
 
 The port's own step in every ``commit()``: after the snapshot is taken and
 before it replaces the last one, an armed coordinated abort raises
@@ -42,6 +44,7 @@ class State:
     def __init__(self, **kwargs):
         self._reset_callbacks: list[Callable[[], None]] = []
         self._durable_restore_fn: Callable[[], None] | None = None
+        self._peer_restore_fn: Callable[[], None] | None = None
         self._kwargs = kwargs
 
     def register_reset_callbacks(self, callbacks) -> None:
@@ -69,6 +72,37 @@ class State:
             return False
         self._durable_restore_fn()
         return True
+
+    def register_peer_restore(self, fn: Callable[[], None]) -> None:
+        """Arm the ladder's ``peer`` rung (between the re-rendezvous and
+        the durable restore): ``fn`` rebuilds this state from the peer
+        replica plane (``horovod_tpu_torch.peercheck``), reading no
+        storage. ``fn`` raising (a gap, a bad checksum) makes the ladder
+        fall through to the durable rung. ``PeerShardedState`` arms it."""
+        self._peer_restore_fn = fn
+
+    def restore_peer(self) -> bool:
+        """Run the registered peer restore; False when none is armed (the
+        ladder then goes on to the durable rung)."""
+        if self._peer_restore_fn is None:
+            return False
+        self._peer_restore_fn()
+        return True
+
+    def peer_restore_armed(self) -> bool:
+        return self._peer_restore_fn is not None
+
+    def peer_restore_pending(self) -> bool:
+        """True when this state knows that its own snapshot cannot re-form
+        the world (a shard-local commit after a failure): the ladder then
+        goes straight to the peer rung."""
+        return False
+
+    def needs_world_sync(self) -> bool:
+        """True when this state's layout does not fit the current world,
+        so the loop must ``sync()`` even after a host update that skips
+        it (``HostsUpdatedInterrupt.skip_sync``)."""
+        return False
 
     def on_reset(self) -> None:
         for cb in self._reset_callbacks:

@@ -16,6 +16,15 @@ the points the port's modules fire:
   simulate delayed abort propagation
 - ``checkpoint.save``    — every durable checkpoint write attempt
 - ``checkpoint.restore`` — every durable checkpoint read/restore attempt
+- ``peer.replicate``     — every peer-replica publish (``drop``/``raise``
+  lose the replica; training goes on and the peer rung degrades)
+- ``peer.verify``        — every replica checksum verification (firing
+  fails it: the record is rejected as corrupt)
+- ``peer.corrupt``       — the encoded replica blob on the wire
+  (``corrupt`` flips bits after the digest is computed: the server's
+  install-time verification must reject it)
+- ``driver.snapshot``    — every control-plane snapshot save of the driver
+- ``driver.takeover``    — a restarted driver's takeover from the snapshot
 
 Each point can be armed (via API or env) to **drop**, **delay**, **raise**,
 or **hang** on the Nth hit, for a window of consecutive hits, so chaos
@@ -38,9 +47,10 @@ Points are cheap no-ops when nothing is armed. ``corrupt`` acts only
 through :func:`corrupt_payload`; at a plain :func:`fire` site it is a
 no-op.
 
-Process-level helpers (``suspend``/``resume``/``kill_process``) wrap the
-signals subprocess chaos tests need: SIGSTOP simulates a hung-but-alive
-host (invisible to ``popen.poll``), SIGKILL a crashed one.
+Process-level helpers (``suspend``/``resume``/``kill_process``/
+``kill_driver``) wrap the signals subprocess chaos tests need: SIGSTOP
+simulates a hung-but-alive host (invisible to ``popen.poll``), SIGKILL a
+crashed one.
 """
 
 from __future__ import annotations
@@ -63,6 +73,11 @@ HEARTBEAT_SEND = "heartbeat.send"
 ABORT_POLL = "abort.poll"
 CHECKPOINT_SAVE = "checkpoint.save"
 CHECKPOINT_RESTORE = "checkpoint.restore"
+PEER_REPLICATE = "peer.replicate"
+PEER_VERIFY = "peer.verify"
+PEER_CORRUPT = "peer.corrupt"
+DRIVER_SNAPSHOT = "driver.snapshot"
+DRIVER_TAKEOVER = "driver.takeover"
 
 _MODES = ("drop", "delay", "raise", "hang", "corrupt")
 _DEFAULT_HANG_S = 3600.0
@@ -302,3 +317,12 @@ def kill_process(pid: int, sig: int = signal.SIGKILL) -> None:
 def self_suspend() -> None:
     """A worker SIGSTOPs itself: a hung host at an exact step."""
     os.kill(os.getpid(), signal.SIGSTOP)
+
+
+def kill_driver(pid: int) -> None:
+    """SIGKILL the elastic driver: its rendezvous server dies mid-request
+    with no cleanup, and its workers, in sessions of their own, live on as
+    orphans until a relaunched driver takes over from the durable snapshot
+    (``runner/elastic/driver_state.py``). The signal is
+    :func:`kill_process`'s; the name says what a test kills."""
+    os.kill(pid, signal.SIGKILL)

@@ -250,6 +250,15 @@ def start_shard_reducescatter(tensors: Sequence[torch.Tensor], shard_sizes,
     flat = _pack_shard_rows([t.detach() for t in tensors], shard_sizes,
                             n).reshape(-1)
     _scale_(flat, prescale_factor)
+    if flat.device.type == "cpu":
+        import torch.distributed as dist
+
+        # gloo's reduce-scatter work never reports completion, so an elastic
+        # wait could not poll it (collective_ops.reducescatter): reduce the
+        # whole row grid and keep this rank's row, the same values.
+        work = dist.all_reduce(flat, op=_TORCH_OPS[Sum],
+                               group=process_set.group, async_op=True)
+        return flat.view(n, -1)[process_set.rank()], work
     row = flat.new_empty(flat.numel() // n)
     work = _reduce_scatter(row, flat, op=_TORCH_OPS[Sum],
                            group=process_set.group, async_op=True)
@@ -263,9 +272,9 @@ def finish_shard_reducescatter(row: torch.Tensor, work, op: str,
     row one multiply by ``postscale / n`` for Average, ``postscale`` for
     Sum; an integer row rounds Average's ``1 / n`` and the postscale apart
     (``collective_ops._average_and_postscale_``)."""
-    from .collective_ops import _average_and_postscale_
+    from .collective_ops import _average_and_postscale_, wait
 
-    work.wait()
+    wait(work)
     _average_and_postscale_(row, op, postscale_factor, world_size)
     return row
 
@@ -314,7 +323,7 @@ def fused_allgather_shards(shards: Sequence[torch.Tensor],
     shards' dtype; callers cast). One allgather per bucket of
     ``bucket_leaves(templates)``, so the grouping comes from the same
     static facts on every rank. ``templates`` may be meta tensors."""
-    from .collective_ops import _all_gather, _resolve_process_set
+    from .collective_ops import _all_gather, _resolve_process_set, wait
 
     ps = _resolve_process_set(process_set)
     n = ps.size()
@@ -329,7 +338,7 @@ def fused_allgather_shards(shards: Sequence[torch.Tensor],
             full, row, group=ps.group, async_op=True)))
     out: list = [None] * len(templates)
     for bucket, full, work in launched:
-        work.wait()
+        wait(work)
         # Leaf i is column block i of the (n, R) grid of owned runs.
         grid, offset = full.view(n, -1), 0
         for i in bucket:

@@ -409,26 +409,16 @@ class _ShardedOptimizer(_DistributedOptimizer):
         super().__init__(optimizer, op, compression, 1, prescale_factor,
                          postscale_factor, process_set, num_groups,
                          fusion_threshold_bytes)
-        n, r = process_set.size(), process_set.rank()
-        self._n, self._r = n, r
-        self._sizes = fusion.shard_ownership(
-            [p.numel() for p in self._params], n)
-        self._shard_of = {}
-        groups = []
+        # Each param group's parameters, by index (a parameter in two
+        # groups counts in the first).
+        seen: set[int] = set()
+        self._groups: list[list[int]] = []
         for group in optimizer.param_groups:
-            shards = []
-            for p in group["params"]:
-                i = self._index.get(id(p))
-                if i is None or id(p) in self._shard_of:
-                    continue
-                shard = torch.nn.Parameter(
-                    _own_slice(p, self._sizes[i], n, r))
-                self._shard_of[id(p)] = shard
-                shards.append(shard)
-            groups.append({**{k: v for k, v in group.items()
-                              if k != "params"}, "params": shards})
-        self._shards = [self._shard_of[id(p)] for p in self._params]
-        self._opt = _rebuild_over(optimizer, groups)
+            idx = [self._index[id(p)] for p in group["params"]
+                   if id(p) in self._index and id(p) not in seen]
+            seen.update(id(p) for p in group["params"])
+            self._groups.append(idx)
+        self._own_shards(optimizer)
         # Bucket caps: the reduce-scatter's over the leaves (int8: in their
         # own dtype, as the reference sizes its float32 exchange), the
         # allgather's over the parameters.
@@ -441,6 +431,29 @@ class _ShardedOptimizer(_DistributedOptimizer):
     def _skips_wire(self) -> bool:
         # The sharded wire runs at every size, as the reference's does.
         return False
+
+    def _own_shards(self, like) -> None:
+        """Own this rank's shards in the process set's current world, with
+        a new wrapped optimizer of ``like``'s class over them (the
+        hyperparameters of ``like``'s groups, no state)."""
+        n, r = self._ps.size(), self._ps.rank()
+        self._n, self._r = n, r
+        self._sizes = fusion.shard_ownership(
+            [p.numel() for p in self._params], n)
+        self._shards = [torch.nn.Parameter(_own_slice(p, s, n, r))
+                        for p, s in zip(self._params, self._sizes)]
+        self._opt = _rebuild_over(like, [
+            {**{k: v for k, v in g.items() if k != "params"},
+             "params": [self._shards[i] for i in idx]}
+            for g, idx in zip(like.param_groups, self._groups)])
+
+    def _reform(self) -> None:
+        """Re-own the shards for the world the process set has now (an
+        elastic world re-formed at another size), with empty state:
+        ``load_sharded_state`` fills it. The parameters stay as they
+        are."""
+        self._reset()
+        self._own_shards(self._opt)
 
     def _capped(self, leaves):
         if self._num_groups > 0:
@@ -577,14 +590,10 @@ class _FsdpOptimizer:
                     members.append(p)
             groups.append((group, members))
         self.meta = shard_meta(self._params, n)
-        shard_of = {}
-        for p, s in zip(self._params, self.meta.shard_sizes):
-            shard_of[id(p)] = torch.nn.Parameter(_own_slice(p, s, n, r))
-        self.shards = [shard_of[id(p)] for p in self._params]
-        self._opt = _rebuild_over(optimizer, [
-            {**{k: v for k, v in g.items() if k != "params"},
-             "params": [shard_of[id(p)] for p in members]}
-            for g, members in groups])
+        index = {id(p): i for i, p in enumerate(self._params)}
+        self._groups = [[index[id(p)] for p in members]
+                        for _, members in groups]
+        self._own_shards([p.detach() for p in self._params], optimizer)
         with torch.no_grad():
             for p in self._params:
                 p.data = torch.empty(0, dtype=p.dtype, device=p.device)
@@ -594,6 +603,29 @@ class _FsdpOptimizer:
 
     def __getattr__(self, item):
         return getattr(self._opt, item)
+
+    def _own_shards(self, full, like) -> None:
+        """Own this rank's shards of the ``full`` parameters in the
+        process set's current world, on the parameters' device, with a new
+        wrapped optimizer of ``like``'s class over them (the
+        hyperparameters of ``like``'s groups, no state)."""
+        n, r = self._ps.size(), self._ps.rank()
+        self._n, self._r = n, r
+        self.meta = self.meta._replace(world_size=n)
+        self.shards = [
+            torch.nn.Parameter(_own_slice(t, s, n, r).to(p.device))
+            for t, s, p in zip(full, self.meta.shard_sizes, self._params)]
+        self._opt = _rebuild_over(like, [
+            {**{k: v for k, v in g.items() if k != "params"},
+             "params": [self.shards[i] for i in idx]}
+            for g, idx in zip(like.param_groups, self._groups)])
+
+    def _reform(self, full_params) -> None:
+        """Re-own the shards of ``full_params`` (the full tensors, in
+        ``param_groups`` order) for the world the process set has now (an
+        elastic world re-formed at another size), with empty state:
+        ``load_sharded_state`` fills it."""
+        self._own_shards(full_params, self._opt)
 
     @property
     def salt(self) -> int:

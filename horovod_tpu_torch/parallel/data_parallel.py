@@ -13,7 +13,8 @@ place.
 ``make_elastic_train_step`` (:1205) is the allreduce step for elastic
 worlds: it keeps working after the world re-forms at another size, and a
 posted abort or a failed collective surfaces from it as
-``HorovodInternalError``.
+``HorovodInternalError``. The sharded and fsdp modes train elastically
+with ``make_train_step`` and ``hvd.elastic.PeerShardedState``.
 """
 
 from __future__ import annotations
@@ -53,7 +54,9 @@ def make_train_step(model: torch.nn.Module,
     the optimizer's process set when ``loss_is_averaged``. With an fsdp
     ``DistributedOptimizer`` (built over ``model.parameters()``) the model
     runs on parameters gathered from the optimizer's shards, a segment at a
-    time (``param_sharding.FsdpForward``).
+    time (``param_sharding.FsdpForward``). In an elastic world an armed
+    abort or a failed collective raises ``HorovodInternalError`` from the
+    step, as from :func:`make_elastic_train_step`'s.
     """
     from ..optimizer import _FsdpOptimizer
 
@@ -67,6 +70,26 @@ def make_train_step(model: torch.nn.Module,
     calls = 0
 
     def step(batch):
+        from .. import basics
+
+        if not basics.elastic():
+            return run(batch)
+        # An elastic world (the sharded and fsdp modes under
+        # PeerShardedState): an armed abort raises before the step, a
+        # failed collective inside it (in the backward's reduce-scatters
+        # too) raises HorovodInternalError, and the step counts on the
+        # worker's heartbeat.
+        from .. import abort
+        from ..ops.collective_ops import elastic_errors
+        from ..runner.elastic.worker import record_step
+
+        abort.raise_if_aborted()
+        with elastic_errors():
+            loss = run(batch)
+        record_step()
+        return loss
+
+    def run(batch):
         nonlocal calls
         loss = compute(batch)
         loss.backward()
@@ -95,23 +118,22 @@ def make_elastic_train_step(model: torch.nn.Module,
     coordinated abort raises ``HorovodInternalError`` before the step
     runs, and a collective that fails inside it (the optimizer's, the
     loss average's) raises ``HorovodInternalError``; each call counts as a step on the worker's
-    heartbeat. The sharded and fsdp modes are refused: their state is
-    per-rank shards, which a re-formed world cannot re-assemble without
-    the peer replica plane.
+    heartbeat. The sharded and fsdp modes are refused, as the reference
+    refuses them (:1238-1250): their step is ``make_train_step``'s, under
+    ``hvd.elastic.PeerShardedState``, whose peer rung re-assembles the
+    per-rank shards of a re-formed world.
     """
-    from .. import abort
     from ..exceptions import SyncModeIneligibleError
     from ..optimizer import sync_mode_of
-    from ..runner.elastic.worker import record_step
 
     mode = sync_mode_of(optimizer)
     if mode == "sharded":
         raise SyncModeIneligibleError(
             "make_elastic_train_step does not support sync_mode='sharded' "
             "(its cross-process leg reduces on the host plane, outside the "
-            "compiled shard domain); build the compiled step with "
-            "make_train_step and let hvd.elastic.TpuState(...,"
-            "sharded_optimizer=...) re-shard state across world changes")
+            "compiled shard domain); build the step with make_train_step "
+            "and let hvd.elastic.PeerShardedState(model=..., optimizer=...) "
+            "re-shard the optimizer state across world changes")
     if mode == "fsdp":
         raise SyncModeIneligibleError(
             "make_elastic_train_step does not support sync_mode='fsdp' "
@@ -120,12 +142,4 @@ def make_elastic_train_step(model: torch.nn.Module,
             "gathers live); build the compiled step with make_train_step "
             "and let hvd.elastic.PeerShardedState re-shard the resident "
             "parameter and optimizer shards across world changes")
-    step = make_train_step(model, loss_fn, optimizer, loss_is_averaged)
-
-    def elastic_step(batch):
-        abort.raise_if_aborted()
-        loss = step(batch)
-        record_step()
-        return loss
-
-    return elastic_step
+    return make_train_step(model, loss_fn, optimizer, loss_is_averaged)

@@ -2,7 +2,8 @@
 
 Port of ``horovod_tpu/parallel/param_sharding.py``: ``ShardedParams``
 (:75), ``shard_params`` (:183), ``unshard_params`` (:228),
-``reshard_params`` (:251), ``resident_param_bytes`` (:274),
+``reshard_params`` (:251), ``stack_param_rows`` (:259),
+``resident_param_bytes`` (:274),
 ``reshard_after_forward`` (:279) and ``gather_params`` (:410) with its
 per-segment boundary (``_gather_boundary`` :319), and :class:`FsdpForward`,
 the just-in-time placement of those boundaries in an eager forward.
@@ -134,6 +135,22 @@ def reshard_params(params, world_size: int) -> ShardedParams:
     """Re-shard (a full dict or list, or a ShardedParams) for a possibly new
     world size: ownership follows from the size alone."""
     return shard_params(params, world_size)
+
+
+def stack_param_rows(rows_by_rank: Sequence[Any],
+                     meta: ShardMeta) -> ShardedParams:
+    """A :class:`ShardedParams` from each rank's row (what
+    :meth:`ShardedParams.row` gives: 1-D shards on the original structure)
+    in rank order: the peer replica plane's way back to the layout. The
+    stack must be whole, ``meta.world_size`` rows."""
+    if len(rows_by_rank) != meta.world_size:
+        raise ValueError(
+            f"stack_param_rows needs {meta.world_size} rows (one per rank "
+            f"of the recorded world), got {len(rows_by_rank)}")
+    leaves = [list(r.values()) if isinstance(r, dict) else list(r)
+              for r in rows_by_rank]
+    return ShardedParams([torch.stack([row[i] for row in leaves])
+                          for i in range(len(meta.shapes))], meta)
 
 
 def resident_param_bytes(params) -> int:

@@ -16,6 +16,11 @@ EXIT_REMOVED = 202
 # "the driver vanished" at a glance.
 EXIT_DRIVER_LOST = 203
 
+# Exit code of a driver that found a successor with a higher driver epoch
+# in its state directory (it was stopped, or cut off, through a takeover):
+# it stands down without touching the workers its successor adopted.
+EXIT_DRIVER_SUPERSEDED = 205
+
 # Consecutive KV poll failures before the worker escalates its logging
 # from debug to warning (the first couple of blips are routine — a driver
 # mid-reconfiguration answers late; a streak is a signal).

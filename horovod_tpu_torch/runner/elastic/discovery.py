@@ -2,11 +2,13 @@
 
 A copy of ``horovod_tpu/runner/elastic/discovery.py`` (``HostDiscovery``,
 ``HostDiscoveryScript``, ``FixedHostDiscovery``, ``snap_to_topology`` :77,
-``HostManager`` :114), itself the analog of upstream's
-``horovod/runner/elastic/discovery.py``: the driver periodically asks a
-user-provided source which hosts exist; the manager diffs successive views,
-keeps the failure blacklist (with an optional cooldown), and answers which
-hosts may run workers now. A host's slots are its GPUs.
+``HostManager`` :114, with ``export_blacklist`` :216 and
+``restore_blacklist`` :225 for the driver's takeover), itself the analog
+of upstream's ``horovod/runner/elastic/discovery.py``: the driver
+periodically asks a user-provided source which hosts exist; the manager
+diffs successive views, keeps the failure blacklist (with an optional
+cooldown), and answers which hosts may run workers now. A host's slots
+are its GPUs.
 
 The warm-spare tier of the reference (``HOROVOD_WARM_SPARES``) is not
 ported yet: a positive count raises.
@@ -186,6 +188,29 @@ class HostManager:
             # monotonic: a wall-clock step must not stretch or collapse the
             # cooldown window.
             self._blacklist[hostname] = time.monotonic()
+
+    def export_blacklist(self) -> dict[str, float]:
+        """The blacklist as {host: age in seconds}: ages, because monotonic
+        stamps do not survive a driver restart (the durable snapshot,
+        ``driver_state.py``)."""
+        now = time.monotonic()
+        with self._lock:
+            self._prune_blacklist_locked()
+            return {h: now - t for h, t in self._blacklist.items()}
+
+    def restore_blacklist(self, ages) -> None:
+        """A takeover's resume: the exported entries with their ages on
+        this process's monotonic clock, so cooldowns go on counting across
+        the crash."""
+        if not isinstance(ages, dict):
+            return
+        now = time.monotonic()
+        with self._lock:
+            for host, age in ages.items():
+                try:
+                    self._blacklist[str(host)] = now - max(float(age), 0.0)
+                except (TypeError, ValueError):
+                    continue
 
     def is_blacklisted(self, hostname: str) -> bool:
         with self._lock:

@@ -24,15 +24,26 @@ loop counts consecutive KV failures and, once they have lasted
 ``HOROVOD_ELASTIC_DRIVER_LOST_TIMEOUT`` seconds, exits the process with
 ``EXIT_DRIVER_LOST``.
 
-Not ported yet: the warm-spare wait (``wait_for_assignment``) and the
-rejoin after a driver takeover (``rejoin_timeout``, ``_try_rejoin``,
-``_repoint``).
+Driver takeover (with ``HOROVOD_DRIVER_STATE_DIR`` set; the reference's
+``driver_epoch`` :104-107, ``rejoin_timeout`` :324, ``_try_rejoin`` :337
+and ``_repoint`` :362): once the rendezvous server stops answering, the
+poll loop reads the state directory's endpoint record every
+``HOROVOD_DRIVER_REJOIN_PROBE_INTERVAL`` seconds (jittered) and follows a
+record of a higher driver epoch whose server answers: it rebuilds its
+clients, takes the new epoch (``HOROVOD_DRIVER_EPOCH``) and repoints the
+peer replicator, and the successor's abort and generation bump bring the
+worker into the new world. It exits with ``EXIT_DRIVER_LOST`` only after
+the loss timeout and ``HOROVOD_DRIVER_REJOIN_TIMEOUT`` more seconds.
+Without a state directory the driver-lost path is the one above.
+
+Not ported yet: the warm-spare wait (``wait_for_assignment``).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import random
 import threading
 import time
 
@@ -78,6 +89,11 @@ class ElasticWorkerContext:
     def __init__(self, on_driver_lost=None):
         self.hostname = os.environ.get("HOROVOD_HOSTNAME", "localhost")
         self.name = os.environ.get(WORKER_ENV) or worker_name(self.hostname, 0)
+        # The serving driver's epoch, stamped on writes
+        # (``X-Hvd-Driver-Epoch``); re-resolving the endpoint raises it,
+        # never lowers it.
+        self.driver_epoch = int(
+            os.environ.get("HOROVOD_DRIVER_EPOCH", "0") or 0)
         self._build_clients(os.environ["HOROVOD_RENDEZVOUS_ADDR"],
                             int(os.environ["HOROVOD_RENDEZVOUS_PORT"]))
         self.version = int(os.environ.get("HOROVOD_WORLD_VERSION", "0"))
@@ -91,6 +107,7 @@ class ElasticWorkerContext:
         self._heartbeater: threading.Thread | None = None
         self._abort_poller: threading.Thread | None = None
         self._stop = threading.Event()
+        self._next_rejoin_probe = 0.0
 
     def _build_clients(self, addr: str, port: int) -> None:
         """The three KV clients. Every client stamps writes with this
@@ -100,11 +117,15 @@ class ElasticWorkerContext:
         and a beat or poll that inherited the full retry budget could
         outlast the deadline it serves."""
         gen_fn = lambda: self.version  # noqa: E731
-        self.client = KVClient(addr, port, generation_fn=gen_fn)
+        epoch_fn = lambda: (  # noqa: E731
+            self.driver_epoch if self.driver_epoch > 0 else None)
+        self.client = KVClient(addr, port, generation_fn=gen_fn,
+                               epoch_fn=epoch_fn)
         self._hb_client = KVClient(addr, port, timeout=2.0, retries=1,
-                                   generation_fn=gen_fn)
+                                   generation_fn=gen_fn, epoch_fn=epoch_fn)
         self._abort_client = KVClient(addr, port, timeout=2.0, retries=1,
-                                      generation_fn=gen_fn)
+                                      generation_fn=gen_fn,
+                                      epoch_fn=epoch_fn)
 
     def fetch_assignment(self, version: int | None = None) -> dict:
         """Read this worker's assignment for a world version (JSON dict with
@@ -185,6 +206,63 @@ class ElasticWorkerContext:
         # the driver.
         os._exit(EXIT_DRIVER_LOST)
 
+    def rejoin_timeout(self) -> float:
+        """How long past the driver-loss deadline an orphan keeps
+        re-resolving the endpoint before it exits ``EXIT_DRIVER_LOST``
+        (``HOROVOD_DRIVER_REJOIN_TIMEOUT``, default 600 s); 0, the orphan
+        loop off, without a state directory."""
+        from . import driver_state
+
+        if driver_state.state_dir() is None:
+            return 0.0
+        return get_float("HOROVOD_DRIVER_REJOIN_TIMEOUT", 600.0)
+
+    def _try_rejoin(self) -> bool:
+        """One re-resolution, at most every
+        ``HOROVOD_DRIVER_REJOIN_PROBE_INTERVAL`` seconds (times 1 to 2,
+        at random): follow the endpoint record to a successor, a strictly
+        higher driver epoch whose server answers, and repoint at it. True
+        when it repointed."""
+        from . import driver_state
+
+        now = time.monotonic()
+        if now < self._next_rejoin_probe:
+            return False
+        base = get_float("HOROVOD_DRIVER_REJOIN_PROBE_INTERVAL", 1.0)
+        self._next_rejoin_probe = now + base * (1.0 + random.random())
+        record = driver_state.read_endpoint()
+        if record is None or record["driver_epoch"] <= self.driver_epoch:
+            return False  # the dead driver's own record, or none yet
+        probe = KVClient(record["addr"], record["port"], timeout=2.0,
+                         retries=1)
+        try:
+            probe.world_version()
+        except Exception:  # noqa: BLE001 — the successor is not up yet
+            return False
+        self._repoint(record["addr"], record["port"],
+                      record["driver_epoch"])
+        return True
+
+    def _repoint(self, addr: str, port: int, epoch: int) -> None:
+        """Take a successor driver's endpoint and epoch: rebuild the
+        clients, refresh the env (``abort.post`` and the peer replicator
+        read the endpoint there) and drop the replicator's client, so the
+        next commit puts this rank's record to the new server."""
+        get_logger().warning(
+            "elastic: rendezvous endpoint re-resolved to %s:%d (driver "
+            "epoch %d > %d) — rejoining the restarted driver",
+            addr, port, epoch, self.driver_epoch)
+        self.driver_epoch = epoch
+        os.environ["HOROVOD_RENDEZVOUS_ADDR"] = addr
+        os.environ["HOROVOD_RENDEZVOUS_PORT"] = str(port)
+        os.environ["HOROVOD_DRIVER_EPOCH"] = str(epoch)
+        self._build_clients(addr, port)
+        from ... import peercheck
+
+        rep = peercheck.active_replicator()
+        if rep is not None:
+            rep.repoint()
+
     def start_polling(self, interval: float = 1.0) -> None:
         if self._poller is not None:
             return
@@ -194,6 +272,7 @@ class ElasticWorkerContext:
         def loop():
             log = get_logger()
             first_failure: float | None = None
+            orphaned = False
             while not self._stop.wait(interval):
                 try:
                     self.check_for_update()
@@ -211,8 +290,33 @@ class ElasticWorkerContext:
                         )
                     else:
                         log.debug("elastic poll failed: %s", e)
-                    if (lost_timeout > 0
+                    budget = self.rejoin_timeout()
+                    if budget <= 0:
+                        if (lost_timeout > 0
+                                and now - first_failure >= lost_timeout):
+                            self._on_driver_lost(now - first_failure)
+                        continue
+                    # The orphan loop: a supervisor may be starting a
+                    # successor; follow its endpoint record, and give up
+                    # only at the loss timeout plus the rejoin budget.
+                    try:
+                        if self._try_rejoin():
+                            first_failure = None
+                            orphaned = False
+                            self.consecutive_poll_failures = 0
+                            continue
+                    except Exception as re:  # noqa: BLE001
+                        log.debug("elastic rejoin probe failed: %s", re)
+                    if (lost_timeout > 0 and not orphaned
                             and now - first_failure >= lost_timeout):
+                        orphaned = True
+                        log.warning(
+                            "elastic: driver lost for %.0fs — waiting "
+                            "another %.0fs for a successor's endpoint "
+                            "before exit %d", now - first_failure, budget,
+                            EXIT_DRIVER_LOST)
+                    if (lost_timeout > 0 and now - first_failure
+                            >= lost_timeout + budget):
                         self._on_driver_lost(now - first_failure)
                 else:
                     if self.consecutive_poll_failures >= \
@@ -223,6 +327,7 @@ class ElasticWorkerContext:
                         )
                     self.consecutive_poll_failures = 0
                     first_failure = None
+                    orphaned = False
 
         self._poller = threading.Thread(
             target=loop, name="hvd-elastic-poll", daemon=True

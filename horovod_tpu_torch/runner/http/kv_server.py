@@ -2,7 +2,9 @@
 
 The rendezvous core of ``horovod_tpu/runner/http/kv_server.py``
 (``_KVHandler`` :229, ``RendezvousServer`` :1227, ``KVClient`` :1639,
-``env_generation`` :213), the analog of upstream's launcher-side KV store
+``env_generation`` :213), its ``peerstate`` scope (:455-510) and its
+driver-epoch fence (:112, :346-364, ``RendezvousServer.seed`` :1301), the
+analog of upstream's launcher-side KV store
 (``horovod/runner/http/http_server.py``). The elastic driver owns one; its
 workers read their world assignment, publish heartbeats, poll the world
 generation and the coordinated-abort record, and exchange rank 0's TCP
@@ -12,7 +14,9 @@ run over NCCL or gloo.
 Protocol: ``PUT /scope/key`` (body = value bytes), ``GET /scope/key``
 (200 + bytes, or 404), ``DELETE /scope`` (drop a scope),
 ``GET /_scope/scope`` (list keys, newline separated), ``GET /_version``
-(the world generation) and ``GET /_epoch`` (the driver epoch, 0 here).
+(the world generation) and ``GET /_epoch`` (the driver epoch: 0 unless
+the driver keeps durable control-plane state,
+``runner/elastic/driver_state.py``).
 Scopes may contain slashes (``world/3``); the key is the last component.
 
 World generation & coordinated abort: the epoch ``version`` doubles as the
@@ -27,6 +31,24 @@ monotonic world generation.
   ``X-Hvd-Generation`` older than the current generation is rejected with
   409 and counted (``fenced_writes``), so a zombie worker from a pre-abort
   world corrupts nothing. Writes without the header are not fenced.
+- **Driver-epoch fencing**: a write carrying ``X-Hvd-Driver-Epoch`` older
+  than the serving driver's epoch comes from a driver that a successor
+  has superseded (or a worker still loyal to it) and is rejected with 409
+  too; headerless writes are not fenced.
+
+Peer replicas (``PUT /peerstate/<rank>``, ``horovod_tpu_torch.peercheck``):
+a record longer than ``peercheck.max_record_bytes()`` is read, discarded
+and answered 413; one that fails ``peercheck.verify_wire`` is answered
+422 before anything is installed; a fenced one 409. An accepted record is
+rotated in with ``checkpoint.rotate_slots`` (``<rank>`` and
+``<rank>.prev``), so the previous good commit stays until the new one is
+in, and ``GET /_scope/peerstate`` lists both slots. The scope outlives the
+world's epochs: generation g's records are what generation g+1's peer
+rung assembles.
+
+Not ported yet: the ``modelstate`` scope (with ``serving.py``), the
+integrity quarantine and the live-vote fence of ``peerstate`` writes
+(with ``integrity.py``).
 
 Authentication: with ``HOROVOD_SECRET_KEY`` set (the launcher makes one per
 job), every request carries ``X-Hvd-Auth: HMAC-SHA256(method\\npath\\n
@@ -50,12 +72,15 @@ from urllib.error import HTTPError
 from urllib.request import Request, urlopen
 
 from ... import faults
+from ... import peercheck as _peercheck
+from ...checkpoint import rotate_slots
 from ...utils.env import get_float, get_int
 from ...utils.retry import call_with_retries
 from .. import secret as _secret
 
 AUTH_HEADER = "X-Hvd-Auth"
 GENERATION_HEADER = "X-Hvd-Generation"
+DRIVER_EPOCH_HEADER = "X-Hvd-Driver-Epoch"
 
 # Liveness scope: workers PUT /heartbeat/<worker>; the server records the
 # RECEIVE time.
@@ -65,8 +90,13 @@ HEARTBEAT_SCOPE = "heartbeat"
 ABORT_SCOPE = "abort"
 
 # Completion scope: an elastic worker whose training function RETURNED
-# announces it here (``PUT /done/<worker>``) before exiting 0.
+# announces it here (``PUT /done/<worker>``) before exiting 0. A driver
+# that adopted the worker across a takeover cannot read its exit code,
+# and learns its completion from this record.
 DONE_SCOPE = "done"
+
+# Peer-replica scope (see the module docstring).
+PEERSTATE_SCOPE = _peercheck.PEERSTATE_SCOPE
 
 
 def env_generation() -> int | None:
@@ -149,7 +179,8 @@ class _KVHandler(BaseHTTPRequestHandler):
         proceed. Writes without the header are unfenced."""
         raw = self.headers.get(GENERATION_HEADER)
         if raw is None:
-            return None
+            # Epoch-only writes (``abort.post``) are fenced on the epoch.
+            return self._epoch_fence_locked()
         try:
             gen = int(raw)
         except ValueError:
@@ -159,7 +190,38 @@ class _KVHandler(BaseHTTPRequestHandler):
             self.server.fenced += 1  # type: ignore[attr-defined]
             return (f"stale generation {gen} rejected "
                     f"(world at generation {current})").encode()
+        return self._epoch_fence_locked()
+
+    def _epoch_fence_locked(self) -> bytes | None:
+        """Driver-epoch fence (under the server lock): a write stamped with
+        an epoch older than the serving driver's is answered 409, so a
+        driver that was stopped through its successor's takeover cannot
+        change the successor's world. Headerless writes are unfenced."""
+        raw = self.headers.get(DRIVER_EPOCH_HEADER)
+        if raw is None:
+            return None
+        try:
+            epoch = int(raw)
+        except ValueError:
+            return b"bad driver-epoch header"
+        current = self.server.driver_epoch  # type: ignore[attr-defined]
+        if epoch < current:
+            self.server.fenced += 1  # type: ignore[attr-defined]
+            return (f"stale driver epoch {epoch} rejected "
+                    f"(world owned by driver epoch {current})").encode()
         return None
+
+    def _drain_and_413(self, length: int, reason: bytes):
+        """Refuse an oversize body without holding it: read it in small
+        chunks and drop them (so the client reads a clean 413, not a reset
+        connection mid-upload)."""
+        remaining = length
+        while remaining > 0:
+            chunk = self.rfile.read(min(remaining, 1 << 16))
+            if not chunk:
+                break
+            remaining -= len(chunk)
+        return self._reply(413, reason)
 
     def do_PUT(self):  # noqa: N802
         if self._serve_fault():
@@ -168,13 +230,29 @@ class _KVHandler(BaseHTTPRequestHandler):
         if key is None:
             return self._reply(400, b"missing key")
         length = int(self.headers.get("Content-Length", 0))
+        if (scope == PEERSTATE_SCOPE
+                and length > _peercheck.max_record_bytes()):
+            return self._drain_and_413(length, b"replica record too large")
         body = self.rfile.read(length)
         if not self._authenticate(body):
             return
+        if scope == PEERSTATE_SCOPE:
+            # Install-time gate: a torn (a sender killed mid-PUT) or
+            # corrupt record is refused before it touches the store; the
+            # previous good record and its .prev stay.
+            why = _peercheck.verify_wire(body)
+            if why is not None:
+                return self._reply(422, why.encode())
         with self.server.lock:  # type: ignore[attr-defined]
             rejected = self._fence_check_locked()
             if rejected is None:
-                self.server.store.setdefault(scope, {})[key] = body  # type: ignore[attr-defined]
+                if scope == PEERSTATE_SCOPE:
+                    rotate_slots(
+                        self.server.store.setdefault(scope, {}),  # type: ignore[attr-defined]
+                        key, body, prev_suffix=_peercheck.PREV_SUFFIX,
+                        depth=_peercheck.retention_depth())
+                else:
+                    self.server.store.setdefault(scope, {})[key] = body  # type: ignore[attr-defined]
                 if scope == HEARTBEAT_SCOPE:
                     self.server.hb_times[key] = time.monotonic()  # type: ignore[attr-defined]
         if rejected is not None:
@@ -216,7 +294,7 @@ class RendezvousServer:
         self._httpd.version = 0  # type: ignore[attr-defined]
         self._httpd.fenced = 0  # type: ignore[attr-defined]
         self._httpd.hb_times = {}  # type: ignore[attr-defined]
-        # No driver-state plane yet: the epoch stays 0.
+        # 0 until a driver with durable control-plane state seeds its own.
         self._httpd.driver_epoch = 0  # type: ignore[attr-defined]
         # Key snapshot at construction: the job's secret must not drift
         # under a live server.
@@ -245,6 +323,31 @@ class RendezvousServer:
     @property
     def driver_epoch(self) -> int:
         return self._httpd.driver_epoch  # type: ignore[attr-defined]
+
+    def seed(self, generation: int | None = None,
+             driver_epoch: int | None = None) -> None:
+        """A restarted driver's takeover: start the fresh server at the
+        snapshot's world generation (so the takeover world publishes at
+        g+1 and the generation fence stays monotonic across the crash) and
+        at the driver's own epoch (arming the epoch fence). Call before
+        :meth:`start`."""
+        with self._httpd.lock:  # type: ignore[attr-defined]
+            if generation is not None:
+                self._httpd.version = int(generation)  # type: ignore[attr-defined]
+            if driver_epoch is not None:
+                self._httpd.driver_epoch = int(driver_epoch)  # type: ignore[attr-defined]
+
+    def done_records(self) -> dict[str, dict]:
+        """The completion records, by worker name."""
+        with self._httpd.lock:  # type: ignore[attr-defined]
+            raw = dict(self._httpd.store.get(DONE_SCOPE, {}))  # type: ignore[attr-defined]
+        out = {}
+        for name, body in raw.items():
+            try:
+                out[name] = json.loads(body)
+            except ValueError:
+                out[name] = {}
+        return out
 
     def start(self) -> int:
         self._thread = threading.Thread(
@@ -329,13 +432,15 @@ class KVClient:
 
     ``generation_fn`` (elastic workers pass their live world-generation
     view) stamps every write with ``X-Hvd-Generation`` so the server's
-    fence can reject zombies from a pre-abort world. ``None`` (or a fn
-    returning ``None``) leaves writes unfenced.
+    fence can reject zombies from a pre-abort world; ``epoch_fn`` stamps
+    ``X-Hvd-Driver-Epoch`` likewise. ``None`` (or a fn returning ``None``)
+    leaves writes unfenced.
     """
 
     def __init__(self, addr: str, port: int, timeout: float = 10.0,
                  retries: int | None = None, backoff: float | None = None,
-                 generation_fn: Callable[[], int | None] | None = None):
+                 generation_fn: Callable[[], int | None] | None = None,
+                 epoch_fn: Callable[[], int | None] | None = None):
         self._base = f"http://{addr}:{port}"
         self._timeout = timeout
         self._retries = (get_int("HOROVOD_KV_RETRIES", 3)
@@ -343,6 +448,7 @@ class KVClient:
         self._backoff = (get_float("HOROVOD_KV_RETRY_BACKOFF", 0.1)
                          if backoff is None else backoff)
         self._generation_fn = generation_fn
+        self._epoch_fn = epoch_fn
 
     def _request(self, method: str, path: str, body: bytes | None = None):
         def attempt():
@@ -363,6 +469,10 @@ class KVClient:
                         # world — the server must 409 this write.
                         gen -= 1
                     req.add_header(GENERATION_HEADER, str(gen))
+            if self._epoch_fn is not None and method in ("PUT", "DELETE"):
+                epoch = self._epoch_fn()
+                if epoch is not None:
+                    req.add_header(DRIVER_EPOCH_HEADER, str(epoch))
             return urlopen(req, timeout=self._timeout)
 
         return call_with_retries(
@@ -401,7 +511,8 @@ class KVClient:
             return int(r.read())
 
     def driver_epoch(self) -> int:
-        """The serving driver's epoch (``GET /_epoch``)."""
+        """The serving driver's epoch (``GET /_epoch``; 0 when the driver
+        keeps no control-plane state)."""
         with self._request("GET", "/_epoch") as r:
             return int(r.read())
 

@@ -837,3 +837,68 @@ def test_three_inits_on_the_card_give_the_same_step(cuda_device,
             hvd.shutdown()
     assert not torch.equal(results[0], w0)
     assert all(torch.equal(r, results[0]) for r in results[1:])
+
+
+@pytest.mark.cuda
+def test_peer_restore_of_a_card_resident_fsdp_state(cuda_device,
+                                                    monkeypatch):
+    """An fsdp state on the card (one rank, AdamW, two steps) committed
+    through ``PeerShardedState`` into its replicator's pool: the commit's
+    record holds host tensors only; the peer rung rebuilds the full
+    parameters and optimizer state equal to what was gathered at the
+    commit, and the next ``sync()`` installs them as card tensors, equal
+    bit for bit."""
+    import pickle
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import peercheck
+    from horovod_tpu_torch.optimizer import unshard_opt_state
+
+    for name in ("HOROVOD_RENDEZVOUS_ADDR", "HOROVOD_RENDEZVOUS_PORT"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setenv("HOROVOD_FORCE_WIRE_MACHINERY", "1")
+    hvd.init()
+    try:
+        torch.manual_seed(0)
+        model = torch.nn.Sequential(torch.nn.Linear(64, 96), torch.nn.Tanh(),
+                                    torch.nn.Linear(96, 8)).to(cuda_device)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=1e-2), sync_mode="fsdp")
+        step = hvd.make_train_step(model, lambda m, x: m(x).square().mean(),
+                                   opt)
+        state = hvd.elastic.PeerShardedState(
+            model=model, optimizer=opt, replicator=peercheck.PeerReplicator(
+                rank=0, world_size_fn=lambda: 1), epoch=0)
+        gen = torch.Generator(device=cuda_device).manual_seed(3)
+        for _ in range(2):
+            step(torch.randn(32, 64, generator=gen, device=cuda_device))
+            state.epoch += 1
+            state.commit()
+        record = pickle.loads(state._replicator.pool.get(0).payload)
+        tensors = [t for t in record["param_row"]] + [
+            v for st in record["row"]["state"].values() for v in st.values()
+            if torch.is_tensor(v)]
+        assert tensors and all(t.device.type == "cpu" for t in tensors)
+        flat = [t.cpu() for t in opt.full_parameters()]
+        full_opt = unshard_opt_state(opt, hvd.gather_sharded_state(opt))
+        state.restore()
+        assert state.peer_restore_pending()
+        assert state.restore_peer()
+        assert all(torch.equal(a, b) for a, b in zip(state._full["flat"],
+                                                     flat))
+        state.sync()
+        assert all(s.device.type == "cuda" for s in opt.shards)
+        assert all(torch.equal(a.cpu(), b)
+                   for a, b in zip(opt.full_parameters(), flat))
+        installed = opt._opt.state_dict()["state"]
+        for i, st in full_opt["state"].items():
+            for k, v in st.items():
+                got = installed[i][k]
+                if got.dim() > 0:
+                    assert got.device.type == "cuda"
+                    assert torch.equal(got.cpu(), v.reshape(-1))
+                else:
+                    assert torch.equal(got.cpu(), v)
+        assert state.epoch == 2
+    finally:
+        hvd.shutdown()
