@@ -6,7 +6,7 @@
     python3 chip_diag.py watchdog
     python3 chip_diag.py collectives [--cpu]
     python3 chip_diag.py fsdp_gathers
-    python3 chip_diag.py elastic [--fsdp] [--cpu] [--log PATH]
+    python3 chip_diag.py elastic [--fsdp | --straggler] [--cpu] [--log PATH]
     python3 chip_diag.py ab_steps OTHER_CHECKOUT
 
 ``ab`` times the kernels of OTHER_CHECKOUT and of this checkout at
@@ -143,6 +143,19 @@ program). It holds the losses equal across ranks at every step, the
 parameters bit-identical at the end and the run within
 ``ELASTIC_FSDP_WALL_S``, and prints the record bytes, the seconds of each
 commit and the seconds from the kill to the first step at 3 ranks.
+
+``elastic --straggler`` (four cards; ``--cpu``: four gloo processes and
+BERT_TINY) launches ``hvdrun-torch -np 4`` over the same hosts with
+BERT-Large S = 512 x 8, AdamW, bf16 wire, every step traced and shipped
+(``HOROVOD_TRACE_SAMPLE=1``) and watched (``HOROVOD_STALL_CHECK_STEPS=1``),
+and ``worker.step=delay:1.5@1x999999`` armed on the worker of
+``STRAGGLER_HOST`` only, so that it enters every step 1.5 s late. After
+``STRAGGLER_STEPS`` steps rank 0 reads the driver's ``/stragglers``,
+``/criticalpath`` and ``/timeline``: it holds that both name the delayed
+rank as the gating one (the worst skew's last rank, the critical path's
+suspect in every step after the first, whose first-call work swamps the
+delay) and that the timeline has 4 tracks, and prints
+the skew, the critical path of the last step and each rank's phases.
 
 ``ab_steps`` trains chip_smoke.py's two BERT-Large paths (S = 512 x 8 and
 S = 128 x 64, AdamW, bf16 wire, one card with the wire forced on: its
@@ -1236,6 +1249,140 @@ ELASTIC_FSDP_STEPS_AT_3 = 2
 ELASTIC_FSDP_WALL_S = 900
 
 
+# The straggler diagnostic: the delayed worker's host, its delay per
+# watched step, the steps run, and the run's wall limit in seconds.
+STRAGGLER_HOST = ELASTIC_HOSTS[2]
+STRAGGLER_DELAY_S = 1.5
+STRAGGLER_STEPS = 6
+STRAGGLER_WALL_S = 420
+
+
+def _straggler_rank(device):
+    """One worker of ``elastic --straggler`` (see the module docstring)."""
+    host = os.environ["HOROVOD_HOSTNAME"]
+    if device == "cuda":
+        os.environ["CUDA_VISIBLE_DEVICES"] = str(ELASTIC_HOSTS.index(host))
+    if host == STRAGGLER_HOST:
+        os.environ["HOROVOD_FAULTS"] = (
+            f"worker.step=delay:{STRAGGLER_DELAY_S}@1x999999")
+    import dataclasses
+    import json
+    from urllib.request import urlopen
+
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import bert as bert_mod
+
+    smoke = _smoke()
+    hvd.init(device=device)
+    base = bert_mod.BERT_LARGE if device == "cuda" else bert_mod.BERT_TINY
+    cfg = dataclasses.replace(base, dropout_rate=0.0)
+    B, S, P = (8, 512, 76) if device == "cuda" else (2, 32, 4)
+    dev = hvd.device()
+    torch.manual_seed(0)
+    with torch.device(dev):
+        model = bert_mod.Bert(cfg, attention_fn=bert_mod.flash_attention_fn)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
+        named_parameters=model.named_parameters(),
+        compression=(hvd.Compression.bf16 if device == "cuda"
+                     else hvd.Compression.none))
+    step = hvd.make_elastic_train_step(model, smoke._bert_loss, opt)
+    state = hvd.elastic.TorchState(model=model, optimizer=opt, step=0)
+    kv = (f"http://{os.environ['HOROVOD_RENDEZVOUS_ADDR']}:"
+          f"{os.environ['HOROVOD_RENDEZVOUS_PORT']}")
+
+    def read(route):
+        return json.loads(urlopen(kv + route).read())
+
+    @hvd.elastic.run
+    def train(state):
+        while state.step < STRAGGLER_STEPS:
+            batch = smoke._bert_batch(cfg, B, S, P, state.step, dev)
+            t0 = time.time()
+            loss = float(step(batch))
+            state.step += 1
+            state.commit()
+            print("HVD_STRAGGLER_STEP " + json.dumps(dict(
+                host=host, rank=hvd.rank(), step=state.step, loss=loss,
+                s=time.time() - t0)), flush=True)
+        if hvd.rank() == 0:
+            # Every rank's traces of the last steps, shipped.
+            deadline = time.time() + 60
+            while True:
+                cp = read("/criticalpath")
+                full = [g for g in cp["groups"] if len(g["ranks"]) == 4]
+                if len(full) >= 2 or time.time() > deadline:
+                    break
+                time.sleep(0.5)
+            timeline = read("/timeline?steps=4")
+            print("HVD_STRAGGLER " + json.dumps(dict(
+                stragglers=read("/stragglers"), groups=full,
+                tracks=sorted({e["pid"] for e in timeline["traceEvents"]
+                               if e["ph"] == "X"}),
+                hosts=timeline["metadata"]["ranks"])), flush=True)
+        # Every rank waits for rank 0's read: the driver ends the job at
+        # the first worker's exit.
+        hvd.allreduce(torch.zeros(1, device=dev))
+
+    train(state)
+
+
+def elastic_straggler(cpu, log=None):
+    """``elastic --straggler``: see the module docstring."""
+    import json
+
+    import torch
+
+    if not cpu and torch.cuda.device_count() < 4:
+        print("elastic --straggler: needs four cards (or --cpu)",
+              file=sys.stderr)
+        return 1
+    device = "cpu" if cpu else "cuda"
+    rc, lines, wall = _launch_elastic(
+        device, cpu, "_straggler_rank",
+        {"HOROVOD_TRACE_SAMPLE": "1", "HOROVOD_STALL_CHECK_STEPS": "1",
+         "HOROVOD_ELASTIC_HEARTBEAT_INTERVAL": "0.5",
+         "HOROVOD_ELASTIC_DRIVER_LOST_TIMEOUT": "30"}, STRAGGLER_WALL_S, log)
+    text = "\n".join(line for _, line in lines)
+    steps = [json.loads(line.split("HVD_STRAGGLER_STEP ", 1)[1])
+             for _, line in lines if "HVD_STRAGGLER_STEP {" in line]
+    reports = [json.loads(line.split("HVD_STRAGGLER ", 1)[1])
+               for _, line in lines if "HVD_STRAGGLER {" in line]
+    slow = {s["rank"] for s in steps if s["host"] == STRAGGLER_HOST}
+    r = reports[0] if reports else {}
+    worst = (r.get("stragglers") or {}).get("worst") or {}
+    suspects = {g["step"]: g["suspect_rank"] for g in r.get("groups", ())}
+    # The first step's first-call work (about 30 s on the card) swamps the
+    # delay: the steps after it must name the delayed rank.
+    held = [x for step, x in suspects.items() if step > 1]
+    ok = (rc == 0 and len(slow) == 1 and r.get("tracks") == [0, 1, 2, 3]
+          and str(worst.get("last_rank")) in {str(x) for x in slow}
+          and len(held) >= 2 and all(x in {str(y) for y in slow}
+                                     for x in held))
+    late = {k: v["mean_lateness_s"]
+            for k, v in (r.get("stragglers") or {}).get("ranks", {}).items()}
+    print(f"elastic --straggler: 4 hosts over {dist_backend(device)}, exit "
+          f"code {rc}, wall {wall:.1f} s; {STRAGGLER_HOST} (rank "
+          f"{sorted(slow)}) delayed {STRAGGLER_DELAY_S} s per watched step; "
+          f"/stragglers worst {worst}, mean lateness by rank {late}; "
+          f"/criticalpath suspects by step {suspects}; /timeline tracks "
+          f"{r.get('tracks')}"
+          + ("" if cpu else f"; cards: {_smoke().card_line()}"))
+    if r.get("groups"):
+        g = r["groups"][-1]
+        print(f"elastic --straggler: step {g['step']}: critical path "
+              f"{[(n['kind'], n.get('name'), n.get('gating_rank', n.get('rank')), n['dur_s']) for n in g['critical_path']]}"
+              f"; phases by rank (s) "
+              f"{ {k: d['phases'] for k, d in g['ranks'].items()} }")
+    if not ok:
+        print(f"elastic --straggler: FAILED:\n{text[-6000:]}",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
 def _full_digest(hvd, opt):
     """sha256 of an fsdp optimizer's full parameters and monolithic AdamW
     state, on the set's first rank (None elsewhere): the check's own
@@ -1653,12 +1800,18 @@ def main() -> int:
     if args[:1] == ["_collectives_rank"] and len(args) == 2:
         _collectives_rank(args[1])
         return 0
-    if args[:1] == ["elastic"] and set(args[1:]) - {"--cpu", "--fsdp"} <= (
+    if args[:1] == ["elastic"] and set(args[1:]) - {
+            "--cpu", "--fsdp", "--straggler"} <= (
             {"--log", args[args.index("--log") + 1]} if "--log" in args
             else set()):
         cpu = "--cpu" in args
         log = args[args.index("--log") + 1] if "--log" in args else None
-        return (elastic_fsdp if "--fsdp" in args else elastic)(cpu, log)
+        run = (elastic_fsdp if "--fsdp" in args else elastic_straggler
+               if "--straggler" in args else elastic)
+        return run(cpu, log)
+    if args[:1] == ["_straggler_rank"] and len(args) == 2:
+        _straggler_rank(args[1])
+        return 0
     if args[:1] == ["_elastic_rank"] and len(args) == 2:
         _elastic_rank(args[1])
         return 0

@@ -148,6 +148,21 @@ and prints no result line); each prints its seconds:
    attention layer forward and backward, and checks them; its exit code,
    prefixed output and facts are held, and the seconds from the launch to
    its import, ``init()``, first collective and check are printed;
+13b. ``observability``: BERT-Large S=512 x 8 (24 layers, bf16, forced
+   NCCL wire) from seed 0, 10 AdamW steps with every observability plane
+   off, then from the same weights with all of them on (timeline with
+   cycle marks, event journal, ``HOROVOD_TRACE_SAMPLE=4``,
+   ``HOROVOD_STALL_CHECK_STEPS=4``, the model's FLOPs declared, two steps
+   under ``hvd.profiler.trace``): parameters and AdamW state equal bit for
+   bit, K1, K3 and K4 launched 24 times a step, the trace naming the flash
+   kernels and the ``hvd.*`` bucket ranges, the timeline loadable with
+   step, phase, collective and cycle events, the scrape valid with its
+   dispatch, grad-sync and phase families non-zero, ``hvd_mfu_ratio`` in
+   (0, 1), and the device busy of an unsampled step within
+   ``OBS_BUSY_TOL`` of the planes-off run's; then a stall inspector with a
+   1 s warning names an ``allreduce[...]`` queued behind a ~3 s spin after
+   the host has returned from the call, and an ``hvd.fetch`` behind the
+   same spin;
 14. agreement: the flash model against dense attention on small float32
    inputs, on each attention route; and ResNet-50 in float32 on the card
    against the CPU on the same weights (2 images at 64x64): logits in both
@@ -2889,6 +2904,34 @@ def uninterrupted(keep=None):
     return params()
 
 
+def scrape():
+    # The driver's four observability routes, once this rank's heartbeat
+    # since the commit and its shipped trace have reached them.
+    from urllib.request import urlopen
+    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch.runner.elastic import worker
+
+    base = (f"http://{os.environ['HOROVOD_RENDEZVOUS_ADDR']}:"
+            f"{os.environ['HOROVOD_RENDEZVOUS_PORT']}")
+    deadline = time.time() + 20
+    while True:
+        worker.get_worker_context().send_heartbeat()
+        text = urlopen(base + "/metrics").read().decode()
+        timeline = json.loads(urlopen(base + "/timeline").read())
+        tracks = sorted({e["pid"] for e in timeline["traceEvents"]
+                         if e["ph"] == "X"})
+        parsed = metrics.validate_prometheus_text(text)
+        flushes = parsed["hvd_grad_sync_flushes_total"]["samples"]
+        if (tracks and flushes) or time.time() > deadline:
+            break
+        time.sleep(0.2)
+    cp = json.loads(urlopen(base + "/criticalpath").read())
+    return dict(tracks=tracks, families=len(parsed),
+                ranks=sorted({lb.get("rank") for lb, _ in flushes}),
+                criticalpath=cp["status"], groups=len(cp["groups"]),
+                stragglers=json.loads(urlopen(base + "/stragglers").read()))
+
+
 ckpt = hvd.Checkpointer(os.environ["ELASTIC_SMOKE_CKPT"], max_to_keep=2,
                         async_save=False)
 REF_PATH = os.environ["ELASTIC_SMOKE_CKPT"] + ".ref.pt"
@@ -2946,7 +2989,7 @@ class State(hvd.elastic.TorchState):
 state = State(model=model, optimizer=opt, step=start)
 step_fn = hvd.make_elastic_train_step(model, smoke._bert_loss, opt)
 launches, losses, errors, gaps, walls = [], [], [], [], []
-posted, probe = [], []
+posted, probe, scraped = [], [], {}
 
 
 @hvd.elastic.run
@@ -2983,6 +3026,7 @@ def train(state):
                       flush=True)
                 os._exit(1)
         if MODE == "abort" and state.step == 2 and not posted:
+            scraped.update(scrape())
             posted.append(time.perf_counter())
             probe.append(True)
             hvd.abort.post("chip_smoke: abort after step 2's commit")
@@ -3006,7 +3050,7 @@ print("HVD_ELASTIC " + json.dumps(dict(
     mode=MODE, generation=os.environ["HOROVOD_WORLD_VERSION"], start=start,
     worlds=worlds[0], launches=launches, losses=losses, errors=errors,
     bitwise_runs=bitwise, spread=spread, diff=diff, equal=equal, marks=rel,
-    gaps=gaps, t_start=t_start, t_first_step=walls[0],
+    gaps=gaps, t_start=t_start, t_first_step=walls[0], scrape=scraped,
     t_stages=dict(start=t_start, imports=t_imported, init=t_init,
                   model=t_model, restore=t_restored, first_step=walls[0]),
     params=sum(p.numel() for p in got))), flush=True)
@@ -3015,9 +3059,13 @@ print("HVD_ELASTIC " + json.dumps(dict(
 
 def _elastic_run(tmp, mode, layers, env, limit_s):
     """One ``hvdrun-torch --host-discovery-script`` launch of
-    ``ELASTIC_CHILD``: (exit code, stdout, the child's reports, seconds)."""
+    ``ELASTIC_CHILD``, every step traced and shipped, the lifecycle journal
+    in ``<tmp>/events_<mode>.jsonl``: (exit code, stdout, the child's
+    reports, seconds)."""
     env = dict(env, ELASTIC_SMOKE_MODE=mode, ELASTIC_SMOKE_LAYERS=str(layers),
-               ELASTIC_SMOKE_CKPT=os.path.join(tmp, f"ckpt_{mode}"))
+               ELASTIC_SMOKE_CKPT=os.path.join(tmp, f"ckpt_{mode}"),
+               HOROVOD_TRACE_SAMPLE="1",
+               HOROVOD_EVENT_LOG=os.path.join(tmp, f"events_{mode}.jsonl"))
     t0 = time.time()
     out = subprocess.run(
         [sys.executable, "-m", "horovod_tpu_torch.runner.launch",
@@ -3060,6 +3108,36 @@ def _hold_elastic(mode, rc, text, reports):
     return r
 
 
+def _hold_observed(tmp, r, text):
+    """The abort run's scrape of the driver's routes (valid Prometheus text
+    with this rank's label, one timeline track, an attributed step, the
+    skew) and its journal: ``abort_posted``, then ``abort_consumed``, then
+    ``world_synced``, generations not falling, and the consumed abort's
+    flight record."""
+    sc = r["scrape"]
+    with open(os.path.join(tmp, "events_abort.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    names = [e["event"] for e in events]
+    chain = []
+    if "abort_posted" in names:
+        chain.append(names.index("abort_posted"))
+        if "abort_consumed" in names[chain[0]:]:
+            chain.append(names.index("abort_consumed", chain[0]))
+            if "world_synced" in names[chain[1]:]:
+                chain.append(names.index("world_synced", chain[1]))
+    gens = [events[i]["generation"] for i in chain]
+    flight = [e for e in events if e["event"] == "flight_record"
+              and e.get("reason") == "abort_consumed"]
+    if not (sc.get("tracks") == [0] and sc.get("ranks") == ["0"]
+            and sc.get("criticalpath") == "ok" and sc.get("groups")
+            and "matched" in sc.get("stragglers", {})
+            and len(chain) == 3 and gens == sorted(gens) and flight):
+        raise AssertionError(f"elastic abort: scrape {sc}, journal "
+                             f"{[(e['event'], e['generation']) for e in events]}"
+                             f":\n{text[-4000:]}")
+    return sc, [(names[i], gens[k]) for k, i in enumerate(chain)]
+
+
 def elastic_phase(card):
     """``hvdrun-torch --host-discovery-script <prints localhost:1> --min-np 1
     --max-np 1 python ELASTIC_CHILD`` on the card, twice (see
@@ -3099,6 +3177,7 @@ def elastic_phase(card):
                 and worlds == [1, 2] and r["worlds"] == 2):
             raise AssertionError(f"elastic abort: errors {r['errors']}, "
                                  f"worlds {worlds}:\n{text[-4000:]}")
+        scraped, chain = _hold_observed(tmp, r, text)
         stages = {
             "communicator_abort": m["comm_abort_end"][0] - m["comm_abort"][0],
             "detection": m["restore"][0] - m["comm_abort_end"][0],
@@ -3120,6 +3199,12 @@ def elastic_phase(card):
               f"{r['launches']}; seconds from the abort post "
               f"{ {k: round(v, 4) for k, v in stages.items()} }; "
               f"launch to exit {secs:.1f} s on {card}")
+        print(f"elastic abort: the driver's routes while the world ran: "
+              f"/metrics {scraped['families']} families valid with rank "
+              f"labels {scraped['ranks']}, /timeline tracks "
+              f"{scraped['tracks']}, /criticalpath {scraped['criticalpath']} "
+              f"over {scraped['groups']} steps, /stragglers "
+              f"{scraped['stragglers']}; journal {chain}")
         rc, text, reports, secs = _elastic_run(
             tmp, "relaunch", ELASTIC_LAYERS["relaunch"],
             dict(env, HOROVOD_BLACKLIST_COOLDOWN="1"),
@@ -3624,6 +3709,349 @@ def elastic_peer_phase(card):
                              f"past its limit of {ELASTIC_PEER_LIMIT_S} s")
 
 
+# The observability phase (see the module docstring): steps per run, the
+# sampling and watch cadence of the planes-on run, the steps it profiles
+# for the device busy (unsampled ones) and traces with hvd.profiler, and
+# the largest relative difference of the busy with the planes on.
+OBS_STEPS = 10
+OBS_EVERY = 4
+OBS_BUSY_STEPS = (5, 6, 7)
+OBS_TRACED_STEPS = (9, 10)
+OBS_BUSY_TOL = 0.01
+# The stall check: seconds of device spin ahead of the collective, and the
+# inspector's warning time.
+OBS_SPIN_S = 3.0
+OBS_WARN_S = 1.0
+OBS_PLANE_ENV = ("HOROVOD_TIMELINE", "HOROVOD_TIMELINE_MARK_CYCLES",
+                 "HOROVOD_EVENT_LOG", "HOROVOD_TRACE_SAMPLE",
+                 "HOROVOD_STALL_CHECK_STEPS", "HOROVOD_STALL_CHECK_TIME")
+
+
+def bert_flops_per_token(cfg, seq_len, num_predictions):
+    """BERT's analytic training FLOPs per token (``bench.py:393``): the
+    layers' matmuls, attention's two S x S products and the masked-position
+    head, times 3 for the backward."""
+    H, I, L, V = (cfg.hidden_size, cfg.intermediate_size, cfg.num_layers,
+                  cfg.vocab_size)
+    layer_matmuls = 2.0 * L * (4 * H * H + 2 * H * I)
+    attention = 4.0 * L * seq_len * H
+    head = 2.0 * (H * H + V * H) * (num_predictions / seq_len)
+    return 3.0 * (layer_matmuls + attention + head)
+
+
+class _LogLines:
+    """A handler that keeps the port's log messages (the stall warnings)."""
+
+    def __init__(self):
+        import logging
+
+        from horovod_tpu_torch.utils.logging import get_logger
+
+        class Keep(logging.Handler):
+            def emit(inner, record):
+                self.lines.append(record.getMessage())
+
+        self.lines = []
+        self._handler = Keep()
+        self._logger = get_logger()
+
+    def __enter__(self):
+        self._logger.addHandler(self._handler)
+        return self
+
+    def __exit__(self, *exc):
+        self._logger.removeHandler(self._handler)
+        return False
+
+
+def _timeline_events(path):
+    """The timeline file as it is on disk once the events emitted so far
+    are written (``Timeline.drain``; a read racing a write can see the old
+    length with the new event's first bytes): it must load."""
+    from horovod_tpu_torch import timeline
+
+    tl = timeline.get_timeline()
+    if tl is not None:
+        tl.drain()
+    with open(path) as f:
+        return json.load(f)
+
+
+def _obs_run(cfg, model, initial, batch, tmp, planes):
+    """One run of ``OBS_STEPS`` steps from ``initial``: the parameters, the
+    AdamW state, the kernels' launches, the device busy ms per unsampled
+    step, host ms of each step call, and (planes on) what the planes
+    recorded."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import attribution, metrics, stall, tracing
+    from horovod_tpu_torch.ops import _kernels
+
+    for key in OBS_PLANE_ENV:
+        os.environ.pop(key, None)
+    attribution.reset_for_testing()
+    tracing.reset_for_testing()
+    stall.reset_for_testing()
+    metrics.reset_for_testing()
+    out = {}
+    if planes:
+        os.environ.update(HOROVOD_EVENT_LOG=os.path.join(tmp, "events.jsonl"),
+                          HOROVOD_TRACE_SAMPLE=str(OBS_EVERY),
+                          HOROVOD_STALL_CHECK_STEPS=str(OBS_EVERY))
+        hvd.start_timeline(os.path.join(tmp, "timeline.json"),
+                           mark_cycles=True)
+        _, B, S, P, _ = BERT_PATHS[0]
+        hvd.set_model_flops_per_step(bert_flops_per_token(cfg, S, P) * B * S)
+    model.load_state_dict(initial)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
+        named_parameters=model.named_parameters(),
+        compression=hvd.Compression.bf16)
+    step = hvd.make_train_step(model, _bert_loss, opt)
+    for k in _kernels.KERNELS:
+        k.launches = 0
+    torch.cuda.synchronize()
+    # Host ms of each step call outside the profilers, by step.
+    host_ms, busy, losses, loads = {}, None, [], []
+    for i in range(1, OBS_STEPS + 1):
+        if i == OBS_BUSY_STEPS[0]:
+            torch.cuda.synchronize()
+            with device_profile() as prof:
+                for _ in OBS_BUSY_STEPS:
+                    losses.append(step(batch))
+            spans = [(a, b) for _, a, b in device_events(prof)]
+            busy = _busy_us(spans) / 1e3 / len(OBS_BUSY_STEPS)
+            continue
+        if OBS_BUSY_STEPS[0] < i <= OBS_BUSY_STEPS[-1]:
+            continue
+        if planes and i == OBS_TRACED_STEPS[0]:
+            with hvd.profiler.trace(os.path.join(tmp, "prof")) as traced:
+                for _ in OBS_TRACED_STEPS:
+                    losses.append(step(batch))
+                torch.cuda.synchronize()
+            out["trace"] = traced.path
+            continue
+        if OBS_TRACED_STEPS[0] < i <= OBS_TRACED_STEPS[-1] and planes:
+            continue
+        t0 = time.perf_counter()
+        losses.append(step(batch))
+        host_ms[i] = round((time.perf_counter() - t0) * 1e3, 2)
+        if planes and i in (3, 4):
+            loads.append(len(_timeline_events(
+                os.path.join(tmp, "timeline.json"))))
+    torch.cuda.synchronize()
+    out.update(
+        params=[p.detach().clone() for p in model.parameters()],
+        state=opt.state_dict()["state"], busy=busy, host_ms=host_ms,
+        losses=[float(x) for x in losses],
+        launches={k.name: k.launches for k in _kernels.KERNELS})
+    opt.remove_hooks()
+    if planes:
+        out["loads"] = loads
+        out["text"] = metrics.render()
+        out["mfu"] = metrics.MFU_RATIO.labels().get()
+        out["attribution"] = attribution.summary()["last_step"]
+        hvd.stop_timeline()
+        out["timeline"] = _timeline_events(os.path.join(tmp, "timeline.json"))
+        hvd.set_model_flops_per_step(None)
+    for key in OBS_PLANE_ENV:
+        os.environ.pop(key, None)
+    return out
+
+
+def _equal_runs(a, b):
+    """Parameters and AdamW state of two runs equal bit for bit."""
+    import torch
+
+    def same(x, y):
+        return torch.equal(x, y) if torch.is_tensor(x) else x == y
+
+    return (all(same(x, y) for x, y in zip(a["params"], b["params"]))
+            and all(same(x, b["state"][i][k])
+                    for i in a["state"] for k, x in a["state"][i].items()))
+
+
+def _stall_check(card):
+    """An allreduce queued behind ``OBS_SPIN_S`` of device spin, then an
+    ``hvd.fetch`` behind another: with a warning time of ``OBS_WARN_S`` the
+    inspector must warn by name while the host waits (after the allreduce
+    call returned; inside the fetch)."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import metrics, stall
+
+    cycles = int(OBS_SPIN_S * 1.98e9)  # the H100's highest SM clock
+    os.environ["HOROVOD_STALL_CHECK_TIME"] = str(OBS_WARN_S)
+    stall.reset_for_testing()
+    x = torch.ones(1 << 20, device=hvd.device())
+    try:
+        with _LogLines() as log:
+            warned = metrics.STALL_WARNINGS.labels().get()
+            # The first spin of a process may not spin (a card run saw
+            # one end at once): launch one first.
+            torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(cycles)
+            t0 = time.perf_counter()
+            y = hvd.allreduce(x, op=hvd.Sum)
+            returned_s = time.perf_counter() - t0
+            time.sleep(OBS_WARN_S * 2.5)
+            allreduce_warned = [line for line in log.lines
+                                if "allreduce[" in line]
+            torch.cuda.synchronize()
+            warned_after_allreduce = metrics.STALL_WARNINGS.labels().get()
+            torch.cuda._sleep(cycles)
+            z = x * 2
+            t0 = time.perf_counter()
+            hvd.fetch(z, name="spin")
+            fetch_s = time.perf_counter() - t0
+            fetch_warned = [line for line in log.lines if "fetch[spin]" in line]
+        stall.get_inspector().reap()
+        left = len(stall.get_inspector()._outstanding)
+    finally:
+        os.environ.pop("HOROVOD_STALL_CHECK_TIME", None)
+        stall.reset_for_testing()
+    if not (returned_s < OBS_SPIN_S / 3 and allreduce_warned
+            and warned_after_allreduce > warned and fetch_warned
+            and fetch_s > OBS_WARN_S and left == 0
+            and torch.equal(y, x)):
+        raise AssertionError(
+            f"observability: stall check: allreduce returned after "
+            f"{returned_s:.3f} s, warnings {allreduce_warned} (count "
+            f"{warned} -> {warned_after_allreduce}), fetch waited "
+            f"{fetch_s:.3f} s, warnings {fetch_warned}, {left} tickets left")
+    print(f"observability: stall inspector (warning at {OBS_WARN_S} s): an "
+          f"allreduce queued behind a {OBS_SPIN_S} s spin returned to the "
+          f"host after {returned_s * 1e3:.2f} ms and its ticket stayed open: "
+          f"{allreduce_warned[0]!r}; hvd.fetch behind the same spin waited "
+          f"{fetch_s:.3f} s: {fetch_warned[0]!r} on {card}")
+
+
+def observability_phase(card):
+    """BERT-Large S=512 x 8 with the observability planes off and on (see
+    the module docstring, 13b)."""
+    import dataclasses
+    import gc
+    import shutil
+
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch.models import bert as bert_mod
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = os.path.join(here, "build", "chip_smoke_observability")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    name, B, S, P, kernels = BERT_PATHS[0]
+    dev = hvd.device()
+    cfg = dataclasses.replace(bert_mod.BERT_LARGE, dropout_rate=0.0)
+    torch.manual_seed(0)
+    with torch.device(dev):
+        model = bert_mod.Bert(cfg, attention_fn=bert_mod.flash_attention_fn)
+    initial = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = _bert_batch(cfg, B, S, P, 0, dev)
+    # The embeddings' backward adds with atomics otherwise: runs that
+    # repeat bit for bit need torch's deterministic forms.
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    t_phase = time.perf_counter()
+    try:
+        off = _obs_run(cfg, model, initial, batch, tmp, False)
+        on = _obs_run(cfg, model, initial, batch, tmp, True)
+        if not _equal_runs(off, on):
+            again = _obs_run(cfg, model, initial, batch, tmp, False)
+            raise AssertionError(
+                f"observability: parameters or AdamW state differ with the "
+                f"planes on (losses off {off['losses']}, on {on['losses']}; "
+                f"a second planes-off run "
+                f"{'equals' if _equal_runs(off, again) else 'differs from'}"
+                f" the first)")
+        for run, which in ((off, "off"), (on, "on")):
+            for kname, n in run["launches"].items():
+                want = cfg.num_layers * OBS_STEPS if kname in kernels else 0
+                if n != want:
+                    raise AssertionError(
+                        f"observability: planes {which}: {kname} launched "
+                        f"{n} times in {OBS_STEPS} steps, expected {want}")
+        with open(on["trace"]) as f:
+            traced = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        flash = {k: any(f"{k}_kernel" in n for n in traced)
+                 for k in ("flash_fwd", "flash_dq", "flash_dkv")}
+        buckets = sorted(n for n in traced if n.startswith("hvd.allreduce."))
+        if not all(flash.values()) or not buckets:
+            raise AssertionError(f"observability: the profiler trace names "
+                                 f"flash kernels {flash}, hvd ranges "
+                                 f"{buckets[:4]}")
+        cats = {}
+        for e in on["timeline"]:
+            cats.setdefault(e.get("cat"), set()).add(e["name"])
+        if not (len(on["loads"]) == 2 and all(on["loads"])
+                and "train_step" in cats.get("step", ())
+                and {"forward_backward", "optimizer_update"}
+                <= cats.get("phase", set())
+                and {"collective", "allreduce"} <= cats.get("collective",
+                                                            set())
+                and cats.get("cycle")):
+            raise AssertionError(f"observability: timeline loads "
+                                 f"{on['loads']}, events by category "
+                                 f"{ {k: sorted(v)[:6] for k, v in cats.items()} }")
+        parsed = metrics.validate_prometheus_text(on["text"])
+
+        def total(fam):
+            return sum(v for _, v in parsed[fam]["samples"])
+
+        fams = {f: total(f) for f in ("hvd_collective_dispatch_total",
+                                      "hvd_grad_sync_flushes_total",
+                                      "hvd_step_phase_seconds")}
+        if not all(fams.values()):
+            raise AssertionError(f"observability: families {fams}")
+        if not 0 < on["mfu"] < 1:
+            raise AssertionError(f"observability: hvd_mfu_ratio {on['mfu']}")
+        rel = abs(on["busy"] - off["busy"]) / off["busy"]
+        if rel > OBS_BUSY_TOL:
+            raise AssertionError(
+                f"observability: device busy per unsampled step "
+                f"{off['busy']:.3f} ms with the planes off, {on['busy']:.3f} "
+                f"ms on: {rel:.4f} apart, above {OBS_BUSY_TOL}")
+        a = on["attribution"]
+        print(f"observability: BERT-Large S=512 x 8, {OBS_STEPS} AdamW steps "
+              f"from seed 0, planes off and on: parameters and AdamW state "
+              f"equal bit for bit; K1, K3, K4 launched {cfg.num_layers} "
+              f"times a step in both; losses {on['losses']}")
+        print(f"observability: device busy per unsampled step (profiler, "
+              f"steps {OBS_BUSY_STEPS}) {off['busy']:.3f} ms planes off, "
+              f"{on['busy']:.3f} ms planes on ({rel * 100:.3f}% apart); host "
+              f"ms of each step call outside the profilers, by step (planes "
+              f"on: steps {list(range(OBS_EVERY, OBS_STEPS + 1, OBS_EVERY))}"
+              f" synced), off "
+              f"{off['host_ms']}, on {on['host_ms']} on {card}")
+        print(f"observability: attribution of synced step {a['step']}: wall "
+              f"{a['wall_s'] * 1e3:.3f} ms, phases (ms) "
+              f"{ {k: round(v * 1e3, 3) for k, v in a['phases'].items()} }, "
+              f"collectives {len(a['collectives'])}, overlap hidden ratio "
+              f"{a['overlap_hidden_ratio']}; hvd_mfu_ratio {on['mfu']:.4f} "
+              f"(model FLOPs {bert_flops_per_token(cfg, S, P) * B * S:.4g} "
+              f"a step over 989 TFLOP/s) on {card}")
+        print(f"observability: scrape families {fams}; timeline "
+              f"{len(on['timeline'])} events ({ {k: len(v) for k, v in cats.items()} }"
+              f" names by category); profiler trace "
+              f"{os.path.getsize(on['trace']) / 2**20:.1f} MiB with "
+              f"{len(buckets)} hvd.* bucket range names")
+        _stall_check(card)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(tmp, ignore_errors=True)
+        del model, initial
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"observability: the phase took {time.perf_counter() - t_phase:.1f}"
+          f" s on {card}")
+
+
+
 def kernel_rows():
     """The kernels line's rows, (name, Kernel, source file under csrc/):
     each kernel, then the D = 256 instances of the multi-tile three, then
@@ -3708,6 +4136,7 @@ def main() -> int:
     _phase("launcher", launcher_phase, card)
     _phase("elastic", elastic_phase, card)
     _phase("elastic_peer", elastic_peer_phase, card)
+    _phase("observability", observability_phase, card)
     print("sync modes, BERT-Large S=512 x 8 at world size 1 (step ms median, "
           "max_memory_allocated GiB, optimizer-state bytes on this rank): "
           + "; ".join(f"{m} {ms:.2f} ms, {peak:.2f} GiB, {state}"

@@ -16,7 +16,10 @@ Entry points run on the card unless the caller asks for the CPU
 ``SyncBatchNorm`` complete the data-parallel surface; ``hvdrun-torch``
 (``runner/``) launches one process per card, statically or elastically
 (``hvd.elastic``: a world that loses a worker or gains a host and keeps
-training).
+training). The observability plane (``metrics``, ``tracing``,
+``timeline``, ``stall``, ``profiler``, ``attribution``) counts and times
+what the job does, on each rank and, through the elastic driver's
+rendezvous server, across the cluster.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import importlib
 # does) does not import torch: a job's workers start without waiting for
 # it.
 _EXPORTS = {
+    "attribution": ("set_model_flops_per_step",),
     "basics": (
         "ccl_built", "cross_rank", "cross_size", "cuda_built", "ddl_built",
         "device", "gloo_built", "gloo_enabled", "init", "is_homogeneous",
@@ -54,8 +58,8 @@ _EXPORTS = {
         "broadcast", "broadcast_async", "broadcast_async_",
         "grouped_allgather", "grouped_allgather_async", "grouped_allreduce",
         "grouped_allreduce_async", "grouped_reducescatter",
-        "grouped_reducescatter_async", "poll", "reducescatter",
-        "reducescatter_async", "synchronize"),
+        "grouped_reducescatter_async", "cache_stats", "poll",
+        "reducescatter", "reducescatter_async", "synchronize"),
     "optimizer": ("DistributedOptimizer", "gather_sharded_state",
                   "init_sharded_state", "load_sharded_state",
                   "reshard_opt_state", "resolve_sync_mode",
@@ -66,7 +70,9 @@ _EXPORTS = {
                                 "unshard_params"),
     "process_sets": ("ProcessSet", "add_process_set", "get_process_set_ids",
                      "global_process_set", "remove_process_set"),
+    "stall": ("fetch",),
     "sync_batch_norm": ("SyncBatchNorm",),
+    "timeline": ("start_timeline", "stop_timeline"),
 }
 _SOURCE = {name: module for module, names in _EXPORTS.items()
            for name in names}
@@ -95,5 +101,6 @@ def __dir__():
 
 # The public names, and the submodules that are public by name
 # (``hvd.elastic``: ``run``, ``TorchState``, ``ElasticSampler``, ...).
-_SUBMODULES = ("checkpoint", "elastic")
+_SUBMODULES = ("attribution", "checkpoint", "elastic", "metrics",
+               "profiler", "tracing")
 __all__ = sorted(_SOURCE) + list(_SUBMODULES)

@@ -158,8 +158,21 @@ reset = _state.reset
 
 def consume() -> None:
     """Eat the armed abort (the elastic loop caught its
-    HorovodInternalError)."""
+    HorovodInternalError). Counts (``hvd_abort_consumed_total``), journals
+    ``abort_consumed`` and dumps the flight record only when something was
+    armed: the elastic loop calls this on every internal failure."""
+    armed = _state.is_aborted()
+    reason, gen = _state.snapshot()
     _state.consume()
+    if armed:
+        from . import metrics, tracing
+
+        metrics.ABORT_CONSUMES.inc()
+        metrics.event("abort_consumed", generation=gen, reason=reason)
+        # The postmortem of each recovery: this rank's last K steps, open
+        # spans included, beside the abort_consumed event.
+        tracing.dump_flight_record("abort_consumed", generation=gen,
+                                   detail=reason)
 
 
 def trigger_local(reason: str, generation: int | None = None) -> None:
@@ -224,6 +237,11 @@ def post(reason: str, generation: int | None = None) -> None:
         "host": os.environ.get("HOROVOD_HOSTNAME", socket.gethostname()),
         "time": time.time(),
     }).encode()
+    from . import metrics
+
+    metrics.ABORT_POSTS.inc()
+    metrics.event("abort_posted", generation=gen, reason=reason,
+                  source="worker")
     addr = os.environ.get("HOROVOD_RENDEZVOUS_ADDR", "")
     port = os.environ.get("HOROVOD_RENDEZVOUS_PORT", "")
     if addr and port:

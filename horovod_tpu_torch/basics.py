@@ -262,6 +262,11 @@ def init(device=None, init_method: str | None = None) -> None:
         process_sets._reset(size)
         for hook in list(_init_hooks):
             hook()
+        # HOROVOD_PROFILER_LOGDIR: a torch.profiler capture from init on
+        # (the reference's NVTX-activation-by-env contract).
+        from . import profiler
+
+        profiler.maybe_start_from_env()
 
 
 def shutdown() -> None:
@@ -290,6 +295,19 @@ def shutdown() -> None:
                 get_logger().warning("shutdown hook failed: %s", e)
         _state.initialized = False
         _state.device = None
+
+
+def sync_stream(device=None) -> None:
+    """Wait on the host for the work queued so far on the current CUDA
+    stream of ``device`` (default: the world's device), and for nothing
+    else: not a device-wide synchronize, so a collective still running on
+    its own stream is not waited for unless that stream was made to wait
+    for it. A no-op on the CPU, where the work is done when its call
+    returns."""
+    device = _state.device if device is None else torch.device(device)
+    if device is None or device.type != "cuda":
+        return
+    torch.cuda.current_stream(device).synchronize()
 
 
 def is_initialized() -> bool:

@@ -5,7 +5,8 @@ Port of ``horovod_tpu/checkpoint.py``: the checksum footer
 sha256), ``atomic_install`` (:55), ``atomic_read`` (:100), ``_read_verified``
 (:200, as ``_verified`` over the bytes ``atomic_read`` yields),
 ``_save_with_retries`` (:226),
-``rotate_slots`` (:132), ``assemble_full_params`` (:154),
+``rotate_file`` (:116), ``rotate_slots`` (:132), ``assemble_full_params``
+(:154),
 ``save_on_rank_0`` (:355), ``save_state_on_rank_0`` (:386),
 ``load_state_and_broadcast`` (:423) and ``load_and_broadcast`` (:485),
 and ``Checkpointer`` (:251), the durable layer of elastic recovery.
@@ -18,7 +19,8 @@ which every write keeps at ``<path>.prev``. The train-state checkpoint's
 layout does not depend on the sync mode: a sharded or fsdp job gathers its
 optimizer state (and, fsdp, its parameters) on save, and the load re-shards
 for the current world and mode, so a checkpoint resumes across modes and
-world sizes.
+world sizes. Every save and restore observes ``hvd_checkpoint_seconds``
+(``rung="durable"``).
 
 The module imports torch only inside the functions that need it: the
 driver's rendezvous server and control-plane store
@@ -33,9 +35,10 @@ import io
 import os
 import re
 import threading
+import time
 from typing import Any, MutableMapping
 
-from . import faults
+from . import faults, metrics
 from .exceptions import CheckpointCorruptError
 from .utils import env
 from .utils.logging import get_logger
@@ -93,6 +96,17 @@ def atomic_read(path: str):
                 yield f.read(), which
         except OSError:
             continue
+
+
+def rotate_file(path: str, prev_suffix: str = ".prev") -> None:
+    """Retire the file at ``path`` to ``<path><prev_suffix>`` (an atomic
+    rename; a missing file is a no-op): the file flavor of the one-``.prev``
+    rotation, which the lifecycle journal (``metrics.EventJournal``) uses
+    when ``HOROVOD_EVENT_LOG_MAX_BYTES`` caps it."""
+    try:
+        os.replace(path, path + prev_suffix)
+    except FileNotFoundError:
+        pass
 
 
 def rotate_slots(store: MutableMapping, key: str, value,
@@ -265,9 +279,12 @@ class Checkpointer:
         data = _host_copy(state)
 
         def write():
+            t0 = time.perf_counter()
             blob = _with_footer(_dumps(data))
             path = self._path(step)
             _save_with_retries(lambda: atomic_install(path, blob), what=path)
+            metrics.CHECKPOINT_SECONDS.observe(
+                time.perf_counter() - t0, kind="save", rung="durable")
             keep = self._max_to_keep
             for old in (self.all_steps()[:-keep] if keep else []):
                 for p in (self._path(old), f"{self._path(old)}.prev"):
@@ -306,13 +323,17 @@ class Checkpointer:
                 raise FileNotFoundError(f"no checkpoints in {self._dir}")
         log = get_logger()
         last_err: Exception | None = None
+        t0 = time.perf_counter()
         for i, s in enumerate(candidates):
             try:
                 if faults.fire(faults.CHECKPOINT_RESTORE):
                     raise faults.InjectedFault(
                         f"checkpoint restore dropped: step {s}")
                 with open(self._path(s), "rb") as f:
-                    return _verified(f.read(), self._path(s))
+                    out = _verified(f.read(), self._path(s))
+                metrics.CHECKPOINT_SECONDS.observe(
+                    time.perf_counter() - t0, kind="restore", rung="durable")
+                return out
             except Exception as e:  # noqa: BLE001 — try the older steps
                 last_err = e
                 if i + 1 < len(candidates):
@@ -349,7 +370,10 @@ def save_on_rank_0(path: str, obj: Any) -> None:
     if basics.rank() != 0:
         return
     data = _with_footer(_dumps(_to_cpu(obj)))
+    t0 = time.perf_counter()
     _save_with_retries(lambda: atomic_install(path, data), what=path)
+    metrics.CHECKPOINT_SECONDS.observe(
+        time.perf_counter() - t0, kind="save", rung="durable")
 
 
 def load_and_broadcast(path: str, root_rank: int = 0) -> Any:
@@ -362,6 +386,7 @@ def load_and_broadcast(path: str, root_rank: int = 0) -> Any:
     obj = None
     if basics.rank() == root_rank:
         log = get_logger()
+        t0 = time.perf_counter()
         for blob, which in atomic_read(path):
             try:
                 obj = _verified(blob, f"{path} ({which})")
@@ -372,6 +397,8 @@ def load_and_broadcast(path: str, root_rank: int = 0) -> Any:
             if which == "prev":
                 log.warning("resumed from the previous checkpoint %s.prev: "
                             "one save of progress was lost", path)
+            metrics.CHECKPOINT_SECONDS.observe(
+                time.perf_counter() - t0, kind="restore", rung="durable")
             break
         else:
             if os.path.exists(path) or os.path.exists(f"{path}.prev"):

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import copy
 import pickle
+import time
 from typing import Any, Iterator
 
 import numpy as np
@@ -373,9 +374,10 @@ class PeerShardedState(ExtrasState):
         full parameters and optimizer state from it, on the host, for the
         next ``sync()`` to install. ``ReplicaUnavailableError`` on a gap,
         which the ladder turns into the durable rung."""
-        from .. import checkpoint, peercheck
+        from .. import checkpoint, metrics, peercheck
         from ..optimizer import unshard_opt_state
 
+        t0 = time.perf_counter()
         records = self._replicator.assemble()
         payloads = [pickle.loads(rec.payload) for rec in records]
         try:
@@ -408,6 +410,13 @@ class PeerShardedState(ExtrasState):
             if k in self._extras:
                 setattr(self, k, v)
         self._peer_dirty = False
+        rec = records[0]
+        metrics.CHECKPOINT_SECONDS.observe(
+            time.perf_counter() - t0, kind="restore", rung="peer")
+        metrics.event(
+            "peer_restore", generation=rec.generation, step=rec.step,
+            world_size=rec.world_size,
+            bytes=sum(len(r.payload) for r in records))
 
 
 class ElasticSampler(torch.utils.data.Sampler):

@@ -20,9 +20,16 @@ The ladder's ``peer`` rung (``horovod_tpu/elastic/runner.py:380-440``)
 restores a ``PeerShardedState`` from the peer replica plane; a failed peer
 restore falls through to the durable rung in the same attempt.
 
+Observability (``horovod_tpu/elastic/runner.py:160-500``): the goodput
+clock (``metrics.goodput()``: formation and sync as ``rendezvous``, the
+restores, the backoff, a failed attempt's tail after its last commit as
+``failed_attempt``), ``hvd_recoveries_total{rung}``, the journal's
+``elastic_run_start``, ``world_synced``, ``recovery``, ``peer_fallback``,
+``checkpoint_fallback``, ``hosts_updated``, ``removed_from_world`` and
+``drain_requested``, and the flight records of a peer restore and a drain.
+
 Not ported yet: the loss-spike rewind (it needs the integrity plane), so a
-``LossSpikeError`` takes the ordinary ladder; and the goodput, event
-journal and stall-inspector hooks.
+``LossSpikeError`` takes the ordinary ladder.
 """
 
 from __future__ import annotations
@@ -33,7 +40,7 @@ import sys
 import threading
 import time
 
-from .. import abort, basics
+from .. import abort, basics, metrics, tracing
 from ..exceptions import (
     HorovodInternalError,
     HostsUpdatedInterrupt,
@@ -67,6 +74,9 @@ def _install_drain_handler() -> None:
     def _on_sigterm(signum, frame):
         if not _drain.is_set():
             _drain.set()
+            metrics.event("drain_requested")
+            # What this rank was doing when the notice landed.
+            tracing.dump_flight_record("drain_requested")
             log.info(
                 "elastic: SIGTERM (preemption notice) — draining: final "
                 "commit, then clean EXIT_REMOVED"
@@ -139,8 +149,12 @@ def run(func):
         recovery_backoff_max = get_float("HOROVOD_RECOVERY_BACKOFF_MAX", 5.0)
         consecutive_failures = 0
         commits_before_attempt = 0
+        goodput = metrics.goodput()
+        metrics.event("elastic_run_start")
 
         while True:
+            t_attempt = time.perf_counter()
+            run_started = None
             # World (re-)formation runs INSIDE the retry scope: init() can
             # itself fail transiently during a reconfiguration (driver
             # mid-publish, KV briefly unreachable) and must retry.
@@ -172,19 +186,54 @@ def run(func):
                 # rows) syncs even after a host update that skips it.
                 if not skip_sync or state.needs_world_sync():
                     state.sync()
+                metrics.event("world_synced",
+                              generation=abort.current_generation(),
+                              np=basics.size(), skip_sync=skip_sync)
                 from ..runner.elastic.worker import _counters
 
                 # Snapshot taken AFTER sync (which commits internally):
                 # only commits the training function itself lands count as
                 # progress for the storm breaker.
                 commits_before_attempt = _counters.commits
-                result = func(state, *args, **kwargs)
+                # Formation + sync is rendezvous loss; the attempt's own
+                # time is booked by how it ends: up to the last commit is
+                # productive, a failed attempt's tail after it (its work
+                # replays) is lost to failed_attempt.
+                goodput.add_lost("rendezvous",
+                                 time.perf_counter() - t_attempt)
+                run_started = time.perf_counter()
+                try:
+                    result = func(state, *args, **kwargs)
+                except HorovodInternalError:
+                    now = time.perf_counter()
+                    last = _counters.last_commit_pc
+                    if (_counters.commits > commits_before_attempt
+                            and last is not None
+                            and run_started <= last <= now):
+                        goodput.add_productive(last - run_started)
+                        goodput.add_lost("failed_attempt", now - last)
+                    else:
+                        goodput.add_lost("failed_attempt",
+                                         now - run_started)
+                    raise
+                except BaseException:
+                    # Host updates, drains and user errors end at a
+                    # consistent point: their time is kept work.
+                    goodput.add_productive(time.perf_counter() - run_started)
+                    raise
+                goodput.add_productive(time.perf_counter() - run_started)
                 from ..runner.elastic.worker import announce_done
 
                 announce_done()
                 return result
             except HorovodInternalError as e:
+                from .. import stall
                 from ..runner.elastic.worker import _counters
+
+                if run_started is None:
+                    # Died in formation or sync: rendezvous loss.
+                    goodput.add_lost("rendezvous",
+                                     time.perf_counter() - t_attempt)
 
                 # Progress (a commit landed inside the attempt) resets the
                 # storm breaker.
@@ -192,14 +241,20 @@ def run(func):
                     consecutive_failures = 0
                 consecutive_failures += 1
                 commits_before_attempt = _counters.commits
-                # This failure consumed any armed coordinated abort.
+                # This failure consumed any armed coordinated abort, and the
+                # stall inspector's verdict with it.
                 abort.consume()
+                stall.get_inspector().failed = False
                 if max_recovery > 0 and consecutive_failures >= max_recovery:
                     log.error(
                         "elastic: %d consecutive recovery attempts with no "
                         "progress (HOROVOD_RECOVERY_MAX_ATTEMPTS=%d); "
                         "giving up", consecutive_failures, max_recovery,
                     )
+                    metrics.event("recovery_exhausted",
+                                  generation=abort.current_generation(),
+                                  failures=consecutive_failures,
+                                  error=str(e)[:300])
                     raise RecoveryExhaustedError(
                         f"{consecutive_failures} consecutive recovery "
                         f"attempts failed with no progress (last: {e})"
@@ -212,6 +267,12 @@ def run(func):
                 if rung_n == 3 and not state.peer_restore_armed():
                     rung_n = 4  # no replica plane: durable is next
                 rung = _RUNGS[rung_n]
+                metrics.RECOVERIES.inc(rung=rung)
+                metrics.event("recovery",
+                              generation=abort.current_generation(),
+                              rung=rung, failures=consecutive_failures,
+                              error=str(e)[:300])
+                t_restore = time.perf_counter()
                 if rung == "restore":
                     log.warning(
                         "elastic: internal failure (%s); restoring last "
@@ -235,6 +296,15 @@ def run(func):
                             log.error(
                                 "elastic: peer-replica restore failed (%s); "
                                 "falling through to the durable rung", pe)
+                        if restored:
+                            tracing.dump_flight_record(
+                                "peer_restore",
+                                generation=abort.current_generation())
+                        else:
+                            metrics.event(
+                                "peer_fallback",
+                                generation=abort.current_generation())
+                            metrics.RECOVERIES.inc(rung="durable")
                     if not restored:
                         log.warning(
                             "elastic: internal failure (%s); escalating to "
@@ -246,15 +316,27 @@ def run(func):
                             log.error(
                                 "elastic: durable restore failed (%s); "
                                 "falling back to the in-memory commit", ce)
+                        metrics.event("checkpoint_fallback",
+                                      generation=abort.current_generation(),
+                                      durable_restored=bool(restored))
                     if not restored and basics.is_initialized():
                         state.restore()
+                goodput.add_lost("restore", time.perf_counter() - t_restore)
                 skip_sync = False
+                t_backoff = time.perf_counter()
                 time.sleep(min(
                     0.5 * (2 ** (consecutive_failures - 1)),
                     recovery_backoff_max,
                 ))
+                goodput.add_lost("backoff", time.perf_counter() - t_backoff)
             except HostsUpdatedInterrupt as e:
                 log.info("elastic: hosts updated; re-syncing")
+                if run_started is None:
+                    goodput.add_lost("rendezvous",
+                                     time.perf_counter() - t_attempt)
+                metrics.event("hosts_updated",
+                              generation=abort.current_generation(),
+                              skip_sync=e.skip_sync)
                 skip_sync = e.skip_sync
                 _leave_generation()
             except RemovedFromWorldError:
@@ -262,6 +344,8 @@ def run(func):
                 # sentinel code (not success, not a blacklisting failure).
                 from ..runner.elastic.constants import EXIT_REMOVED
 
+                metrics.event("removed_from_world",
+                              generation=abort.current_generation())
                 log.info("elastic: removed from world; exiting")
                 sys.exit(EXIT_REMOVED)
             # Tear down; the next iteration re-forms the world.

@@ -11,6 +11,9 @@ the points the port's modules fire:
 - ``kv.serve``           — every request the rendezvous KV server
   handles; firing (drop semantics) closes the connection unanswered
 - ``discovery.poll``     — every ``HostManager.update_available_hosts`` poll
+- ``worker.step``        — every stall-watched step or fetch
+  (``stall.watch``); ``HOROVOD_FAULTS="worker.step=delay:1.5@1x999999"``
+  makes a rank enter every watched step 1.5 s late: a straggler
 - ``heartbeat.send``     — every worker heartbeat publish
 - ``abort.poll``         — every coordinated-abort flag poll; drop/delay
   simulate delayed abort propagation
@@ -69,6 +72,9 @@ KV_REQUEST = "kv.request"
 KV_FENCE = "kv.fence"
 KV_SERVE = "kv.serve"
 DISCOVERY_POLL = "discovery.poll"
+# Fired on every stall-watched step (``stall.watch``): ``delay`` makes one
+# rank a straggler, ``hang`` wedges it.
+WORKER_STEP = "worker.step"
 HEARTBEAT_SEND = "heartbeat.send"
 ABORT_POLL = "abort.poll"
 CHECKPOINT_SAVE = "checkpoint.save"

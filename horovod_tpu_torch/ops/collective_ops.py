@@ -33,10 +33,28 @@ recovers from. On the CPU a wait polls the work and the abort flag, as
 gloo's wait blocks the host; on the card a wait only orders the stream,
 and an abort ends a collective stuck on a dead peer by aborting the
 communicator (``basics._abort_groups``).
+
+Observability (``horovod_tpu/ops/collective_ops.py:402-497``): every entry
+point counts a dispatch by kind (:func:`cache_stats`,
+``hvd_collective_dispatch_total``, ``hvd_collective_payload_bytes``: the
+set's total payload, the JAX package's stacked-rank bytes), marks a
+timeline cycle, records a ``collective`` span (a ``record_function``
+range too) and holds a stall ticket until the collective has finished.
+On the CPU gloo's wait blocks, so the host clock from launch to finish is
+the latency and the ticket closes at finish. On the card NCCL's wait only
+orders the current stream after the collective, so the latency
+(``hvd_collective_latency_seconds``, ``hvd_alltoall_latency_seconds``) is
+the device time between CUDA events recorded before the launch and after
+the wait, and the ticket closes when the second event has completed: the
+stall inspector reaps it (``stall.StallInspector.end_when``). No
+collective synchronizes the device; inside a sampled or watched training
+step (``tracing.StepTracer.syncing``) a finish waits for the current
+stream, so the step's span covers the collective.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import itertools
@@ -46,7 +64,7 @@ from typing import Any, Callable, NamedTuple, Sequence
 import torch
 import torch.distributed as dist
 
-from .. import abort, basics
+from .. import abort, basics, metrics, tracing
 from ..exceptions import HorovodInternalError, HorovodTpuError
 from ..process_sets import global_process_set
 from ..utils import env
@@ -96,6 +114,137 @@ _reduce_scatter = (dist.reduce_scatter_single
 # The same for the allgather of one tensor into a flat output.
 _all_gather = (dist.all_gather_single if hasattr(dist, "all_gather_single")
                else dist.all_gather_into_tensor)
+
+
+# -- Observability ----------------------------------------------------------
+
+# Per-kind eager-dispatch counts, read by cache_stats().
+_dispatch_counts: "collections.Counter[str]" = collections.Counter()
+
+
+def cache_stats(reset: bool = False) -> dict:
+    """Eager-dispatch counters, in the JAX package's layout::
+
+        {"executable_cache": {"hits", "misses", "size", "capacity",
+                              "bytes"},
+         "eager_dispatch": {kind: count, ...}}
+
+    The port launches NCCL and gloo collectives directly and compiles no
+    executable per collective, so it has no executable cache: that entry
+    holds zeros, kept so that a reader of the JAX package's
+    ``profiler.summary()`` finds the same keys. ``reset=True`` zeroes the
+    dispatch counts after reading them."""
+    stats = {
+        "executable_cache": {"hits": 0, "misses": 0, "size": 0,
+                             "capacity": 0, "bytes": 0},
+        "eager_dispatch": dict(_dispatch_counts),
+    }
+    if reset:
+        _dispatch_counts.clear()
+    return stats
+
+
+def _link_class(ps) -> str:
+    """``intra_host`` when every member of the set is on this rank's host
+    (ranks are laid out ``local_size`` to a host, in rank order), else
+    ``inter_host``: the span's ``link_class``, until the port's topology
+    names the links (NVLink, the network)."""
+    st = basics._state
+    per_host = max(st.local_size, 1)
+    return ("intra_host" if len({r // per_host for r in ps.ranks}) == 1
+            else "inter_host")
+
+
+def _observe_latency(kind: str, seconds: float) -> None:
+    metrics.COLLECTIVE_LATENCY.observe(seconds, kind=kind)
+    if kind == "alltoall":
+        metrics.ALLTOALL_LATENCY.observe(seconds, algorithm="flat")
+
+
+class _Dispatch:
+    """One eager collective's instruments, from its launch to its finish:
+    the dispatch counts, the stall ticket, the tracer span and the
+    latency (see the module docstring)."""
+
+    def __init__(self, kind: str, tensors: Sequence[torch.Tensor], ps):
+        from ..stall import get_inspector
+        from ..timeline import mark_cycle
+
+        self.kind = kind
+        n = ps.size()
+        nbytes = n * sum(t.numel() * t.element_size() for t in tensors)
+        shape = tuple(tensors[0].shape) if len(tensors) == 1 else \
+            tuple(tuple(t.shape) for t in tensors)
+        mark_cycle()
+        _dispatch_counts[kind] += 1
+        metrics.COLLECTIVE_DISPATCH.inc(kind=kind)
+        metrics.COLLECTIVE_BYTES.observe(nbytes, kind=kind)
+        self.args = {
+            "shape": list(shape),
+            "dtype": str(tensors[0].dtype) if tensors else "",
+            "bytes": nbytes,
+            "op": kind,
+            "algorithm": "flat",
+            "link_class": _link_class(ps),
+        }
+        self._inspector = get_inspector()
+        self._ticket = self._inspector.begin(f"{kind}[{shape}]")
+        self._tracer = tracing.get_tracer()
+        self._span = self._tracer.begin_span(kind, "collective")
+        self._cuda = basics._state.device.type == "cuda"
+        if self._cuda:
+            self._start = torch.cuda.Event(enable_timing=True)
+            self._start.record()
+        self._t0 = time.perf_counter()
+
+    def fail(self) -> None:
+        """The launch or the finish raised: close the ticket and span."""
+        self._inspector.end(self._ticket)
+        self._tracer.end_span(self._span, self.args)
+
+    def finished(self) -> None:
+        """The finish returned: take the latency and close the ticket, at
+        once on the CPU, when the device has finished on the card."""
+        if not self._cuda:
+            _observe_latency(self.kind, time.perf_counter() - self._t0)
+            self._inspector.end(self._ticket)
+        else:
+            if self._tracer.syncing():
+                basics.sync_stream()
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            start, kind = self._start, self.kind
+            self._inspector.end_when(
+                self._ticket, end.query,
+                lambda: _observe_latency(kind,
+                                         start.elapsed_time(end) / 1e3))
+        self._tracer.end_span(self._span, self.args)
+
+
+def _run(kind, tensors, ps, compute):
+    """A synchronous op: ``compute()`` (its launch and finish) inside its
+    dispatch's instruments and a ``kind`` activity."""
+    from ..timeline import activity
+
+    d = _Dispatch(kind, tensors, ps)
+    with activity(kind, "collective", d.args):
+        try:
+            out = compute()
+        except BaseException:
+            d.fail()
+            raise
+        d.finished()
+    return out
+
+
+def _reap_collectives() -> None:
+    from ..stall import get_inspector
+
+    get_inspector().reap()
+
+
+# A snapshot sees the latencies of collectives the card has finished.
+metrics.add_collector(_reap_collectives)
 
 
 # -- Elastic worlds: aborts and failed collectives -------------------------
@@ -488,10 +637,10 @@ def allreduce(tensor, average: bool | None = None, op: str | None = None,
     op = _resolve_op(op, average)
     ps = _resolve_process_set(process_set)
     if op == Adasum:
-        return _adasum_allreduce(tensor, prescale_factor, postscale_factor,
-                                 ps)
-    return _launch_allreduce(tensor, op, prescale_factor, postscale_factor,
-                             ps).finish()
+        return _run("allreduce", [tensor], ps, lambda: _adasum_allreduce(
+            tensor, prescale_factor, postscale_factor, ps))
+    return _run("allreduce", [tensor], ps, lambda: _launch_allreduce(
+        tensor, op, prescale_factor, postscale_factor, ps).finish())
 
 
 @guarded
@@ -504,11 +653,15 @@ def allreduce_(tensor, average: bool | None = None, op: str | None = None,
     op = _resolve_op(op, average)
     ps = _resolve_process_set(process_set)
     if op == Adasum:
-        tensor.data.copy_(_adasum_allreduce(tensor, prescale_factor,
-                                            postscale_factor, ps))
-        return tensor
-    return _launch_allreduce(tensor, op, prescale_factor, postscale_factor,
-                             ps, in_place=True).finish()
+        def compute():
+            tensor.data.copy_(_adasum_allreduce(tensor, prescale_factor,
+                                                postscale_factor, ps))
+            return tensor
+
+        return _run("allreduce", [tensor], ps, compute)
+    return _run("allreduce", [tensor], ps, lambda: _launch_allreduce(
+        tensor, op, prescale_factor, postscale_factor, ps,
+        in_place=True).finish())
 
 
 @guarded
@@ -519,10 +672,12 @@ def grouped_allreduce(tensors: Sequence[torch.Tensor],
                       process_set=None) -> list[torch.Tensor]:
     """Allreduce a list of tensors as one fused operation: same-dtype
     buckets up to the fusion threshold, one collective per bucket."""
-    return _launch_grouped_allreduce(
-        tensors, _non_adasum_op(op, average, _ADASUM_NO_GROUPED),
-        prescale_factor, postscale_factor,
-        _resolve_process_set(process_set)).finish()
+    op = _non_adasum_op(op, average, _ADASUM_NO_GROUPED)
+    ps = _resolve_process_set(process_set)
+    return _run("allreduce", list(tensors), ps,
+                lambda: _launch_grouped_allreduce(
+                    tensors, op, prescale_factor, postscale_factor,
+                    ps).finish())
 
 
 @guarded
@@ -538,8 +693,9 @@ def allgather(tensor, process_set=None,
     largest dim 0, gathered, and compacted.
     """
     del name
-    return _launch_allgather(tensor,
-                             _resolve_process_set(process_set)).finish()
+    ps = _resolve_process_set(process_set)
+    return _run("allgather", [tensor], ps,
+                lambda: _launch_allgather(tensor, ps).finish())
 
 
 @guarded
@@ -549,7 +705,8 @@ def grouped_allgather(tensors: Sequence[torch.Tensor], process_set=None,
     for each), all launched before the first is waited on."""
     del name
     ps = _resolve_process_set(process_set)
-    return _combined([_launch_allgather(t, ps) for t in tensors]).finish()
+    return _run("allgather", list(tensors), ps, lambda: _combined(
+        [_launch_allgather(t, ps) for t in tensors]).finish())
 
 
 @guarded
@@ -558,8 +715,9 @@ def broadcast(tensor, root_rank: int, process_set=None,
     """Every rank gets rank ``root_rank``'s tensor (a global rank, which
     must belong to the set)."""
     del name
-    return _launch_broadcast(tensor, root_rank,
-                             _resolve_process_set(process_set)).finish()
+    ps = _resolve_process_set(process_set)
+    return _run("broadcast", [tensor], ps,
+                lambda: _launch_broadcast(tensor, root_rank, ps).finish())
 
 
 @guarded
@@ -576,8 +734,9 @@ def alltoall(tensor, splits=None, process_set=None, name: str | None = None):
     one ``all_to_all_single`` with split sizes runs.
     """
     del name
-    return _launch_alltoall(tensor, splits,
-                            _resolve_process_set(process_set)).finish()
+    ps = _resolve_process_set(process_set)
+    return _run("alltoall", [tensor], ps,
+                lambda: _launch_alltoall(tensor, splits, ps).finish())
 
 
 @guarded
@@ -593,9 +752,10 @@ def reducescatter(tensor, op: str | None = None,
     as the reference's does.
     """
     del name
-    return _launch_reducescatter(
-        tensor, _non_adasum_op(op, None, _ADASUM_NO_RS), prescale_factor,
-        postscale_factor, _resolve_process_set(process_set)).finish()
+    op = _non_adasum_op(op, None, _ADASUM_NO_RS)
+    ps = _resolve_process_set(process_set)
+    return _run("reducescatter", [tensor], ps, lambda: _launch_reducescatter(
+        tensor, op, prescale_factor, postscale_factor, ps).finish())
 
 
 @guarded
@@ -607,15 +767,16 @@ def grouped_reducescatter(tensors: Sequence[torch.Tensor],
     is waited on."""
     op = _non_adasum_op(op, None, _ADASUM_NO_RS)
     ps = _resolve_process_set(process_set)
-    return _combined([
+    return _run("reducescatter", list(tensors), ps, lambda: _combined([
         _launch_reducescatter(t, op, prescale_factor, postscale_factor, ps)
-        for t in tensors]).finish()
+        for t in tensors]).finish())
 
 
 @guarded
 def barrier(process_set=None) -> None:
     """Block until every rank in the set reaches the barrier."""
-    dist.barrier(group=_resolve_process_set(process_set).group)
+    ps = _resolve_process_set(process_set)
+    _run("barrier", [], ps, lambda: dist.barrier(group=ps.group))
 
 
 # -- The async API (horovod_tpu/torch/__init__.py) ---------------------------
@@ -624,9 +785,32 @@ _handles: dict[int, _Launched] = {}
 _handle_ids = itertools.count(1)
 
 
-def _submit(launched: _Launched) -> int:
+def _submit(kind: str, tensors: Sequence[torch.Tensor], ps,
+            launch: Callable[[], _Launched]) -> int:
+    """Launch an async op inside its dispatch's instruments and a ``kind``
+    activity (the launch only: the op's span and ticket stay open until
+    :func:`synchronize` finishes it) and return its handle."""
+    from ..timeline import activity
+
+    d = _Dispatch(kind, tensors, ps)
+    with activity(kind, "collective", d.args):
+        try:
+            launched = launch()
+        except BaseException:
+            d.fail()
+            raise
+
+    def finish():
+        try:
+            out = launched.finish()
+        except BaseException:
+            d.fail()
+            raise
+        d.finished()
+        return out
+
     h = next(_handle_ids)
-    _handles[h] = launched
+    _handles[h] = _Launched(launched.works, finish)
     return h
 
 
@@ -638,10 +822,10 @@ def allreduce_async_(tensor, average: bool | None = None,
     """In-place async allreduce; :func:`synchronize` returns ``tensor``,
     which then holds the result."""
     del name
-    return _submit(_launch_allreduce(
-        tensor, _non_adasum_op(op, average, _ADASUM_NO_ASYNC),
-        prescale_factor, postscale_factor, _resolve_process_set(process_set),
-        in_place=True))
+    op = _non_adasum_op(op, average, _ADASUM_NO_ASYNC)
+    ps = _resolve_process_set(process_set)
+    return _submit("allreduce", [tensor], ps, lambda: _launch_allreduce(
+        tensor, op, prescale_factor, postscale_factor, ps, in_place=True))
 
 
 @guarded
@@ -652,9 +836,10 @@ def allreduce_async(tensor, average: bool | None = None,
     """Out-of-place async allreduce; :func:`synchronize` returns a new
     tensor."""
     del name
-    return _submit(_launch_allreduce(
-        tensor, _non_adasum_op(op, average, _ADASUM_NO_ASYNC),
-        prescale_factor, postscale_factor, _resolve_process_set(process_set)))
+    op = _non_adasum_op(op, average, _ADASUM_NO_ASYNC)
+    ps = _resolve_process_set(process_set)
+    return _submit("allreduce", [tensor], ps, lambda: _launch_allreduce(
+        tensor, op, prescale_factor, postscale_factor, ps))
 
 
 @guarded
@@ -662,8 +847,9 @@ def allgather_async(tensor, name: str | None = None,
                     process_set=None) -> int:
     """Async ragged :func:`allgather` (the shape exchange runs at once)."""
     del name
-    return _submit(_launch_allgather(tensor,
-                                     _resolve_process_set(process_set)))
+    ps = _resolve_process_set(process_set)
+    return _submit("allgather", [tensor], ps,
+                   lambda: _launch_allgather(tensor, ps))
 
 
 @guarded
@@ -671,8 +857,9 @@ def broadcast_async(tensor, root_rank: int, name: str | None = None,
                     process_set=None) -> int:
     """Out-of-place async broadcast from global rank ``root_rank``."""
     del name
-    return _submit(_launch_broadcast(tensor, root_rank,
-                                     _resolve_process_set(process_set)))
+    ps = _resolve_process_set(process_set)
+    return _submit("broadcast", [tensor], ps,
+                   lambda: _launch_broadcast(tensor, root_rank, ps))
 
 
 @guarded
@@ -680,9 +867,9 @@ def broadcast_async_(tensor, root_rank: int, name: str | None = None,
                      process_set=None) -> int:
     """In-place async broadcast from global rank ``root_rank``."""
     del name
-    return _submit(_launch_broadcast(tensor, root_rank,
-                                     _resolve_process_set(process_set),
-                                     in_place=True))
+    ps = _resolve_process_set(process_set)
+    return _submit("broadcast", [tensor], ps, lambda: _launch_broadcast(
+        tensor, root_rank, ps, in_place=True))
 
 
 @guarded
@@ -691,8 +878,9 @@ def alltoall_async(tensor, splits=None, name: str | None = None,
     """Async :func:`alltoall` (with ``splits`` the split tables are
     exchanged at once); :func:`synchronize` returns what it returns."""
     del name
-    return _submit(_launch_alltoall(tensor, splits,
-                                    _resolve_process_set(process_set)))
+    ps = _resolve_process_set(process_set)
+    return _submit("alltoall", [tensor], ps,
+                   lambda: _launch_alltoall(tensor, splits, ps))
 
 
 @guarded
@@ -700,9 +888,10 @@ def reducescatter_async(tensor, name: str | None = None,
                         op: str | None = None, process_set=None) -> int:
     """Async :func:`reducescatter` (default Average)."""
     del name
-    return _submit(_launch_reducescatter(
-        tensor, _non_adasum_op(op, None, _ADASUM_NO_RS), 1.0, 1.0,
-        _resolve_process_set(process_set)))
+    op = _non_adasum_op(op, None, _ADASUM_NO_RS)
+    ps = _resolve_process_set(process_set)
+    return _submit("reducescatter", [tensor], ps,
+                   lambda: _launch_reducescatter(tensor, op, 1.0, 1.0, ps))
 
 
 @guarded
@@ -713,9 +902,11 @@ def grouped_allreduce_async(tensors: Sequence[torch.Tensor],
     """Async :func:`grouped_allreduce`: one handle for the group;
     :func:`synchronize` returns the list of results."""
     del name
-    return _submit(_launch_grouped_allreduce(
-        tensors, _non_adasum_op(op, None, _ADASUM_NO_GROUPED),
-        prescale_factor, postscale_factor, _resolve_process_set(process_set)))
+    op = _non_adasum_op(op, None, _ADASUM_NO_GROUPED)
+    ps = _resolve_process_set(process_set)
+    return _submit("allreduce", list(tensors), ps,
+                   lambda: _launch_grouped_allreduce(
+                       tensors, op, prescale_factor, postscale_factor, ps))
 
 
 @guarded
@@ -725,7 +916,8 @@ def grouped_allgather_async(tensors: Sequence[torch.Tensor],
     """Async :func:`grouped_allgather`: one handle, a list of results."""
     del name
     ps = _resolve_process_set(process_set)
-    return _submit(_combined([_launch_allgather(t, ps) for t in tensors]))
+    return _submit("allgather", list(tensors), ps, lambda: _combined(
+        [_launch_allgather(t, ps) for t in tensors]))
 
 
 @guarded
@@ -738,8 +930,8 @@ def grouped_reducescatter_async(tensors: Sequence[torch.Tensor],
     del name
     op = _non_adasum_op(op, None, _ADASUM_NO_RS)
     ps = _resolve_process_set(process_set)
-    return _submit(_combined([_launch_reducescatter(t, op, 1.0, 1.0, ps)
-                              for t in tensors]))
+    return _submit("reducescatter", list(tensors), ps, lambda: _combined(
+        [_launch_reducescatter(t, op, 1.0, 1.0, ps) for t in tensors]))
 
 
 @guarded

@@ -19,6 +19,10 @@ the concatenation of rank r's owned slice of every leaf (rank r owns
 ``[r*s, (r+1)*s)`` of each leaf's zero-padded flat view, ``s =
 ceil(numel/n)``), and one ``all_gather_into_tensor`` of the owned slices
 back to full tensors.
+
+Each bucket's launch and finish run inside a ``hvd.<op>.bucket<k>`` range
+(``profiler.annotate_collective``), and :func:`segment_leaves` sets
+``hvd_overlap_segments``.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ from typing import Sequence
 
 import torch
 
+from .. import metrics
+from ..profiler import annotate_collective
 from ..utils import env
 
 
@@ -61,6 +67,7 @@ def segment_leaves(leaves: Sequence[tuple[int, torch.dtype]],
         return []
     total = sum(sizes)
     if total <= 0 or k == 1:
+        metrics.OVERLAP_SEGMENTS.set(1)
         return [list(range(len(sizes)))]
     segments: list[list[int]] = [[] for _ in range(k)]
     cum = 0
@@ -68,7 +75,9 @@ def segment_leaves(leaves: Sequence[tuple[int, torch.dtype]],
         mid = cum + nbytes / 2.0
         segments[min(k - 1, int(mid * k / total))].append(i)
         cum += nbytes
-    return [seg for seg in segments if seg]
+    out = [seg for seg in segments if seg]
+    metrics.OVERLAP_SEGMENTS.set(len(out))
+    return out
 
 
 def nonfinite_action() -> str | None:
@@ -167,16 +176,18 @@ def start_fused_allreduce(tensors: Sequence[torch.Tensor], op,
                             threshold_bytes)
     order = list(reversed(buckets)) if issue_reversed else buckets
     launched = []
-    for bucket in order:
-        flat = pack([tensors[i].detach() for i in bucket])
-        launched.append((bucket, flat,
-                         start_allreduce(flat, op, prescale_factor,
-                                         ps.group)))
+    for k, bucket in enumerate(order):
+        with annotate_collective(f"allreduce.bucket{k}"):
+            flat = pack([tensors[i].detach() for i in bucket])
+            launched.append((bucket, flat,
+                             start_allreduce(flat, op, prescale_factor,
+                                             ps.group)))
 
     def finish():
         out: list = [None] * len(tensors)
-        for bucket, flat, work in launched:
-            finish_allreduce(flat, work, op, postscale_factor, ps)
+        for k, (bucket, flat, work) in enumerate(launched):
+            with annotate_collective(f"allreduce.bucket{k}.finish"):
+                finish_allreduce(flat, work, op, postscale_factor, ps)
             for i, piece in zip(
                     bucket, unpack(flat, [tensors[i].shape for i in bucket])):
                 out[i] = piece
@@ -300,13 +311,16 @@ def fused_reducescatter(tensors: Sequence[torch.Tensor], op,
     sizes = shard_ownership([t.numel() for t in tensors], n)
     buckets = bucket_leaves([(t.numel(), t.dtype) for t in tensors],
                             threshold_bytes)
-    launched = [(bucket, start_shard_reducescatter(
-        [tensors[i] for i in bucket], [sizes[i] for i in bucket],
-        prescale_factor, ps)) for _, bucket in _issue_order(buckets,
-                                                          issue_reversed)]
+    launched = []
+    for k, bucket in _issue_order(buckets, issue_reversed):
+        with annotate_collective(f"reducescatter.bucket{k}"):
+            launched.append((k, bucket, start_shard_reducescatter(
+                [tensors[i] for i in bucket], [sizes[i] for i in bucket],
+                prescale_factor, ps)))
     out: list = [None] * len(tensors)
-    for bucket, (row, work) in launched:
-        finish_shard_reducescatter(row, work, op, postscale_factor, n)
+    for k, bucket, (row, work) in launched:
+        with annotate_collective(f"reducescatter.bucket{k}.finish"):
+            finish_shard_reducescatter(row, work, op, postscale_factor, n)
         for i, shard in zip(bucket, _split_shard_row(
                 row, [sizes[i] for i in bucket])):
             out[i] = shard
@@ -331,14 +345,16 @@ def fused_allgather_shards(shards: Sequence[torch.Tensor],
     buckets = bucket_leaves([(t.numel(), t.dtype) for t in templates],
                             threshold_bytes)
     launched = []
-    for _, bucket in _issue_order(buckets, issue_reversed):
-        row = torch.cat([shards[i].reshape(-1) for i in bucket])
-        full = row.new_empty(n * row.numel())
-        launched.append((bucket, full, _all_gather(
-            full, row, group=ps.group, async_op=True)))
+    for k, bucket in _issue_order(buckets, issue_reversed):
+        with annotate_collective(f"allgather.bucket{k}"):
+            row = torch.cat([shards[i].reshape(-1) for i in bucket])
+            full = row.new_empty(n * row.numel())
+            launched.append((k, bucket, full, _all_gather(
+                full, row, group=ps.group, async_op=True)))
     out: list = [None] * len(templates)
-    for bucket, full, work in launched:
-        wait(work)
+    for k, bucket, full, work in launched:
+        with annotate_collective(f"allgather.bucket{k}.finish"):
+            wait(work)
         # Leaf i is column block i of the (n, R) grid of owned runs.
         grid, offset = full.view(n, -1), 0
         for i in bucket:

@@ -57,6 +57,17 @@ steps; ``skip`` also leaves the parameters and the wrapped optimizer's
 state as they were; ``abort`` raises ``HorovodInternalError`` on every
 rank. Unset, nothing is checked and the step launches what it did
 without it.
+
+``step()`` is the collective half, :meth:`_reduce` (the reduced
+gradients), in a ``collective`` phase, then the update, :meth:`_apply`, in
+an ``optimizer_update`` phase (``tracing.phase``: the spans that step-time
+attribution decomposes). Each update that crosses the wire counts one
+flush in ``hvd_grad_sync_flushes_total`` and observes its wire bytes and
+buckets (``hvd_grad_sync_bytes``, ``hvd_grad_sync_buckets``; the JAX
+package counts one per trace, the port, which has no trace, one per
+update). Each bucket's launch and finish run inside a
+``hvd.<op>.bucket<k>`` range (``profiler.annotate_collective``). The
+sharded and fsdp modes set ``hvd_resident_state_bytes``.
 """
 
 from __future__ import annotations
@@ -65,7 +76,9 @@ import weakref
 
 import torch
 
-from . import abort, basics
+from . import abort, basics, metrics
+from .attribution import (CAT_COLLECTIVE, CAT_PHASE, SPAN_COLLECTIVE,
+                          SPAN_OPTIMIZER_UPDATE)
 from .compression import Compression
 from .exceptions import HorovodInternalError, SyncModeIneligibleError
 from .ops import fusion
@@ -76,6 +89,8 @@ from .ops.collective_ops import (Adasum, Average, Sum, _resolve_op,
                                  start_allreduce, wait)
 from .ops.fusion import (all_finite, bucket_leaves, nonfinite_action, pack,
                          unpack)
+from .profiler import annotate_collective
+from .tracing import phase
 from .utils import env
 from .utils.logging import get_logger
 
@@ -96,6 +111,28 @@ def resolve_sync_mode(sync_mode: str | None = None) -> str:
 
 def _is_int8(compression) -> bool:
     return getattr(compression, "marker", None) == "int8"
+
+
+def _phased_step(opt, closure=None):
+    """:meth:`_reduce` and then :meth:`_apply` of a sync-mode optimizer,
+    each in its step phase."""
+    with phase(SPAN_COLLECTIVE, CAT_COLLECTIVE):
+        reduced = opt._reduce()
+    with phase(SPAN_OPTIMIZER_UPDATE, CAT_PHASE):
+        return opt._apply(reduced, closure)
+
+
+def _note_flush(sync_mode: str, nbytes: int, nbuckets: int) -> None:
+    """One gradient flush: ``hvd_grad_sync_*`` by sync mode."""
+    metrics.GRAD_SYNC_FLUSHES.inc(sync_mode=sync_mode)
+    metrics.GRAD_SYNC_BYTES.observe(nbytes, sync_mode=sync_mode)
+    metrics.GRAD_SYNC_BUCKETS.observe(nbuckets, sync_mode=sync_mode)
+
+
+def _state_bytes(opt) -> int:
+    """Bytes of the tensors in a ``torch.optim.Optimizer``'s state."""
+    return sum(v.numel() * v.element_size() for st in opt.state.values()
+               for v in st.values() if torch.is_tensor(v))
 
 
 def _rebuild_over(optimizer, groups):
@@ -161,6 +198,10 @@ class _DistributedOptimizer:
             for b in bucket_leaves(
                 [(p.numel(), d) for p, d in zip(self._params, wire_dtypes)],
                 fusion_threshold_bytes)]
+        # A flush's wire bytes (int8: one byte an element).
+        self._wire_bytes = sum(
+            p.numel() * (1 if self._int8 else d.itemsize)
+            for p, d in zip(self._params, wire_dtypes))
         self._bucket_of = {id(p): bi for bi, b in enumerate(self._buckets)
                            for p in b}
         self._threshold = fusion_threshold_bytes
@@ -230,25 +271,27 @@ class _DistributedOptimizer:
                 f"the optimizer's process set {self._ps.ranks} is not "
                 "registered (removed, or the world was re-formed): build the "
                 "optimizer again over a registered set")
-        k = self.backward_passes_per_step
-        wires, ctxs = [], []
-        for p in self._buckets[bi]:
-            g = p.grad if p.grad is not None else torch.zeros_like(p)
-            if k > 1:
-                # The mean over microbatches, taken before the wire cast so
-                # an fp16 wire keeps its headroom.
-                g = g / k
-            wire, ctx = self._compression.compress(g)
-            wires.append(wire)
-            ctxs.append(ctx)
-        flat = pack(wires)
-        if self._op == Adasum:
-            _scale_(flat, self._prescale)
-            rows, work = gather_rows(flat, self._ps)
-            self._launched[bi] = (rows, work, ctxs)
-            return
-        work = start_allreduce(flat, self._op, self._prescale, self._ps.group)
-        self._launched[bi] = (flat, work, ctxs)
+        with annotate_collective(f"allreduce.bucket{bi}"):
+            k = self.backward_passes_per_step
+            wires, ctxs = [], []
+            for p in self._buckets[bi]:
+                g = p.grad if p.grad is not None else torch.zeros_like(p)
+                if k > 1:
+                    # The mean over microbatches, taken before the wire
+                    # cast so an fp16 wire keeps its headroom.
+                    g = g / k
+                wire, ctx = self._compression.compress(g)
+                wires.append(wire)
+                ctxs.append(ctx)
+            flat = pack(wires)
+            if self._op == Adasum:
+                _scale_(flat, self._prescale)
+                rows, work = gather_rows(flat, self._ps)
+                self._launched[bi] = (rows, work, ctxs)
+                return
+            work = start_allreduce(flat, self._op, self._prescale,
+                                   self._ps.group)
+            self._launched[bi] = (flat, work, ctxs)
 
     def _adasum_leaves(self, rows, work, shapes) -> list[torch.Tensor]:
         """A gathered bucket's leaves, each the Adasum tree over its view in
@@ -305,13 +348,14 @@ class _DistributedOptimizer:
             flat, work, ctxs = self._launched[bi]
             params = self._buckets[bi]
             shapes = [p.shape for p in params]
-            if self._op == Adasum:
-                pieces = self._adasum_leaves(flat, work, shapes)
-                reduced.extend(pieces)
-            else:
-                reduced.append(finish_allreduce(flat, work, self._op,
-                                                self._postscale, self._ps))
-                pieces = unpack(flat, shapes)
+            with annotate_collective(f"allreduce.bucket{bi}.finish"):
+                if self._op == Adasum:
+                    pieces = self._adasum_leaves(flat, work, shapes)
+                    reduced.extend(pieces)
+                else:
+                    reduced.append(finish_allreduce(
+                        flat, work, self._op, self._postscale, self._ps))
+                    pieces = unpack(flat, shapes)
             for p, piece, ctx in zip(params, pieces, ctxs):
                 g = self._compression.decompress(piece, ctx)
                 if p.grad is None:
@@ -335,11 +379,22 @@ class _DistributedOptimizer:
 
     @guarded
     def step(self, closure=None):
+        return _phased_step(self, closure)
+
+    def _reduce(self) -> list[torch.Tensor]:
+        """The collective half of :meth:`step`: the reduced gradients,
+        written into ``.grad`` (a one-member set short-circuits to the
+        local gradients, scaled)."""
         if self._short_circuit:
             self._scale_local()
-            reduced = [p.grad for p in self._params if p.grad is not None]
-        else:
-            reduced = self.synchronize()
+            return [p.grad for p in self._params if p.grad is not None]
+        reduced = self.synchronize()
+        _note_flush("allreduce", self._wire_bytes, len(self._buckets))
+        return reduced
+
+    def _apply(self, reduced, closure=None):
+        """The update half of :meth:`step`: the tripwire over ``reduced``,
+        then the wrapped optimizer's step."""
         self._updates += 1
         if (self._nonfinite_action is not None
                 and not self._tripwire(all_finite(reduced))):
@@ -442,6 +497,7 @@ class _ShardedOptimizer(_DistributedOptimizer):
             [p.numel() for p in self._params], n)
         self._shards = [torch.nn.Parameter(_own_slice(p, s, n, r))
                         for p, s in zip(self._params, self._sizes)]
+        self._state_noted = False
         self._opt = _rebuild_over(like, [
             {**{k: v for k, v in g.items() if k != "params"},
              "params": [self._shards[i] for i in idx]}
@@ -469,8 +525,9 @@ class _ShardedOptimizer(_DistributedOptimizer):
             wires.append(wire)
             ctxs.append(ctx)
         sizes = [self._sizes[self._index[id(p)]] for p in self._buckets[bi]]
-        self._launched[bi] = (fusion.start_shard_reducescatter(
-            wires, sizes, self._prescale, self._ps), ctxs)
+        with annotate_collective(f"reducescatter.bucket{bi}"):
+            self._launched[bi] = (fusion.start_shard_reducescatter(
+                wires, sizes, self._prescale, self._ps), ctxs)
 
     def _grad_shards(self) -> list[torch.Tensor]:
         """This rank's reduced gradient shard of every parameter."""
@@ -487,8 +544,9 @@ class _ShardedOptimizer(_DistributedOptimizer):
         out: list = [None] * len(self._params)
         for bi in sorted(self._launched, reverse=True):
             (row, work), ctxs = self._launched[bi]
-            fusion.finish_shard_reducescatter(row, work, self._op,
-                                              self._postscale, self._n)
+            with annotate_collective(f"reducescatter.bucket{bi}.finish"):
+                fusion.finish_shard_reducescatter(row, work, self._op,
+                                                  self._postscale, self._n)
             params = self._buckets[bi]
             sizes = [self._sizes[self._index[id(p)]] for p in params]
             for p, piece, ctx in zip(
@@ -504,8 +562,20 @@ class _ShardedOptimizer(_DistributedOptimizer):
         return shards
 
     def step(self, closure=None):
-        del closure
+        return _phased_step(self, closure)
+
+    def _reduce(self) -> list[torch.Tensor]:
+        """The reduce-scatters' half of :meth:`step`: the gradient
+        shards."""
         grads = self.synchronize()
+        _note_flush("sharded", self._wire_bytes, len(self._buckets))
+        return grads
+
+    def _apply(self, grads, closure=None):
+        """The update half of :meth:`step`: the tripwire, the wrapped
+        optimizer's step on the owned shards, and the allgather of the
+        updated parameters."""
+        del closure
         salt = self._updates
         self._updates += 1
         if self._nonfinite_action is not None and not self._tripwire(
@@ -519,6 +589,11 @@ class _ShardedOptimizer(_DistributedOptimizer):
                 shard.copy_(_own_slice(p, s, self._n, self._r))
                 shard.grad = g.to(shard.dtype).reshape(shard.shape)
         self._opt.step()
+        if not self._state_noted:
+            # The state's size is set by its first step.
+            self._state_noted = True
+            metrics.RESIDENT_BYTES.set(_state_bytes(self._opt),
+                                       kind="opt_state", sync_mode="sharded")
         with torch.no_grad():
             for p, full in zip(self._params, self._gather(salt)):
                 p.copy_(full)
@@ -590,6 +665,12 @@ class _FsdpOptimizer:
                     members.append(p)
             groups.append((group, members))
         self.meta = shard_meta(self._params, n)
+        self._itemsize: dict[torch.dtype, int] = {}
+        self._wire_bytes = sum(p.numel() * self.wire_itemsize(p.dtype)
+                               for p in self._params)
+        self._nbuckets = len(bucket_leaves(
+            [(p.numel(), p.dtype) for p in self._params],
+            fusion_threshold_bytes))
         index = {id(p): i for i, p in enumerate(self._params)}
         self._groups = [[index[id(p)] for p in members]
                         for _, members in groups]
@@ -603,6 +684,14 @@ class _FsdpOptimizer:
 
     def __getattr__(self, item):
         return getattr(self._opt, item)
+
+    def wire_itemsize(self, dtype: torch.dtype) -> int:
+        """Bytes an element of a ``dtype`` leaf takes on the wire."""
+        if dtype not in self._itemsize:
+            self._itemsize[dtype] = 1 if self._int8 else \
+                self._compression.compress(
+                    torch.empty(0, dtype=dtype))[0].element_size()
+        return self._itemsize[dtype]
 
     def _own_shards(self, full, like) -> None:
         """Own this rank's shards of the ``full`` parameters in the
@@ -619,6 +708,10 @@ class _FsdpOptimizer:
             {**{k: v for k, v in g.items() if k != "params"},
              "params": [self.shards[i] for i in idx]}
             for g, idx in zip(like.param_groups, self._groups)])
+        metrics.RESIDENT_BYTES.set(
+            sum(s.numel() * s.element_size() for s in self.shards),
+            kind="params", sync_mode="fsdp")
+        self._state_noted = False
 
     def _reform(self, full_params) -> None:
         """Re-own the shards of ``full_params`` (the full tensors, in
@@ -691,16 +784,31 @@ class _FsdpOptimizer:
         return [s.to(self.shards[i].dtype) for i, s in zip(idx, shards)]
 
     def step(self, closure=None):
-        del closure
+        return _phased_step(self, closure)
+
+    def _reduce(self) -> list[torch.Tensor]:
+        """The shards' reduced gradients (the reduce-scatters ran in the
+        backward; a shard without one gets zeros)."""
         for s in self.shards:
             if s.grad is None:
                 s.grad = torch.zeros_like(s)
+        _note_flush("fsdp", self._wire_bytes, self._nbuckets)
+        return [s.grad for s in self.shards]
+
+    def _apply(self, grads, closure=None):
+        """The tripwire, then the wrapped optimizer's step on the shards."""
+        del closure
         self._updates += 1
         if self._nonfinite_action is not None and not self._tripwire(
-                fusion.psum_flag(fusion.finite_flag(
-                    [s.grad for s in self.shards]), self._ps)):
+                fusion.psum_flag(fusion.finite_flag(grads), self._ps)):
             return None
-        return self._opt.step()
+        out = self._opt.step()
+        if not self._state_noted:
+            # The state's size is set by its first step.
+            self._state_noted = True
+            metrics.RESIDENT_BYTES.set(_state_bytes(self._opt),
+                                       kind="opt_state", sync_mode="fsdp")
+        return out
 
     _tripwire = _DistributedOptimizer._tripwire
 

@@ -15,6 +15,18 @@ worlds: it keeps working after the world re-forms at another size, and a
 posted abort or a failed collective surfaces from it as
 ``HorovodInternalError``. The sharded and fsdp modes train elastically
 with ``make_train_step`` and ``hvd.elastic.PeerShardedState``.
+
+Both return a :class:`_StallWatchedStep` (:22-180), the step traced and
+stall-watched: every call opens a step record in the tracer's ring, with
+the phases ``forward_backward`` here and ``collective`` and
+``optimizer_update`` in the ``DistributedOptimizer``'s step. Every
+``HOROVOD_STALL_CHECK_STEPS``-th call (default 50) runs under a stall
+ticket (``stall.watch``) and every ``HOROVOD_TRACE_SAMPLE``-th call is
+shipped to the rendezvous server; those calls are synced: each phase ends
+after the work it queued on the current CUDA stream has run
+(``tracing.phase``), so the phase spans time the card and a synced step
+feeds step-time attribution (``attribution.note_step``). The other calls
+add no synchronization: their spans time the launch.
 """
 
 from __future__ import annotations
@@ -23,7 +35,57 @@ from typing import Any, Callable
 
 import torch
 
+from .. import tracing
+from ..attribution import CAT_PHASE, SPAN_FORWARD_BACKWARD
 from ..ops.collective_ops import Average, allreduce
+from ..utils import env
+
+
+class _StallWatchedStep:
+    """A training step, traced and stall-watched (see the module
+    docstring). The JAX package's wrapper drains the pipeline with
+    ``jax.block_until_ready`` on watched and sampled calls; this one waits
+    for the current CUDA stream at the end of each phase
+    (``tracing.phase``) and of the step. The cross-rank stallwatch
+    announcement is not ported yet: a watched call holds the local ticket
+    only."""
+
+    def __init__(self, fn, name_prefix: str):
+        self._fn = fn
+        self._prefix = name_prefix
+        self._every = env.get_int("HOROVOD_STALL_CHECK_STEPS", 50)
+        self._calls = 0
+        self._trace_calls = 0
+
+    def __call__(self, *args, **kwargs):
+        from .. import basics
+        from ..stall import watch
+        from ..timeline import activity, mark_cycle
+
+        mark_cycle("step")
+        watch_due = False
+        if self._every > 0:
+            self._calls += 1
+            watch_due = self._calls % self._every == 0
+        # Sampling counts this wrapper's calls, so that two interleaved
+        # steps (train and eval) cannot alias one out of sampling.
+        self._trace_calls += 1
+        sample = tracing.sample_every()
+        sample_due = sample > 0 and self._trace_calls % sample == 0
+        with activity(self._prefix, "step"), \
+                tracing.get_tracer().step_scope(self._prefix) as rec:
+            rec.sync = watch_due or sample_due
+            if watch_due:
+                with watch(name=f"{self._prefix}.{self._calls}"):
+                    out = self._fn(*args, **kwargs)
+                    basics.sync_stream()
+            else:
+                out = self._fn(*args, **kwargs)
+                if sample_due:
+                    basics.sync_stream()
+            rec.synced = rec.sync
+            rec.ship = sample_due
+        return out
 
 
 def _fsdp_loss(model, loss_fn, optimizer):
@@ -91,8 +153,9 @@ def make_train_step(model: torch.nn.Module,
 
     def run(batch):
         nonlocal calls
-        loss = compute(batch)
-        loss.backward()
+        with tracing.phase(SPAN_FORWARD_BACKWARD, CAT_PHASE):
+            loss = compute(batch)
+            loss.backward()
         calls += 1
         if calls % k == 0:
             optimizer.step()
@@ -102,7 +165,7 @@ def make_train_step(model: torch.nn.Module,
             loss = allreduce(loss, op=Average, process_set=process_set)
         return loss
 
-    return step
+    return _StallWatchedStep(step, "train_step")
 
 
 def make_elastic_train_step(model: torch.nn.Module,

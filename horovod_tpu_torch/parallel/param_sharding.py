@@ -18,7 +18,9 @@ it and frees it two segments on, the backward gathers it again where
 autograd saved one of its tensors, and the segment's reduce-scatter turns
 its gradients into shard gradients inside backprop (a
 ``torch.autograd.Function``). The update then writes back to the resident
-shards with no trailing allgather. The JAX package leaves the placement of
+shards with no trailing allgather. Each segment's gather records a
+``param_allgather`` span and one ``hvd_param_gather_bytes`` observation
+(per gather, so per step: the port has no trace). The JAX package leaves the placement of
 its per-segment gathers to XLA; eager PyTorch places them itself.
 
 :class:`ShardedParams` is the global, host-math view of the layout (every
@@ -201,8 +203,16 @@ class _Record:
         self.freed = False
 
     def gather(self, shards) -> list[torch.Tensor]:
-        full = [_owned(t) for t in self.opt.gather_shards(
-            self.idx, shards, self.salt)]
+        from .. import metrics, tracing
+
+        nbytes = sum(self.opt.meta.template(i).numel()
+                     * self.opt.wire_itemsize(self.opt.meta.dtypes[i])
+                     for i in self.idx)
+        metrics.PARAM_GATHER_BYTES.observe(nbytes, axis="batch")
+        with tracing.span("param_allgather", "collective",
+                          args={"bytes": nbytes, "leaves": len(self.idx)}):
+            full = [_owned(t) for t in self.opt.gather_shards(
+                self.idx, shards, self.salt)]
         self.full = dict(zip(self.idx, full))
         return full
 

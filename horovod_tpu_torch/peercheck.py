@@ -36,8 +36,11 @@ imports no torch.
 Not ported yet: the integrity quarantine (``quarantined()`` returns an
 empty map until ``integrity.py`` is ported; :func:`assemble_records` takes
 a quarantine map all the same), the 2-D mesh coordinates of a record
-(none until ``parallel/mesh.py`` is ported), and the metrics and events
-of each replication and restore (with ``metrics.py``).
+(none until ``parallel/mesh.py`` is ported).
+
+Each publication observes ``hvd_peer_replication_bytes`` / ``_seconds``
+and ``hvd_checkpoint_seconds{kind="save", rung="peer"}`` and journals
+``peer_replicate``; the pool sets ``hvd_peer_pool_replicas``.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from __future__ import annotations
 import json
 import os
 import threading
+import time
 from typing import Callable, Mapping
 
 from . import faults
@@ -226,6 +230,10 @@ class ReplicaPool:
                 return existing
             rotate_slots(self._slots, str(record.rank), record,
                          prev_suffix=PREV_SUFFIX, depth=retention_depth())
+            count = len(self._slots)
+        from . import metrics
+
+        metrics.PEER_POOL_REPLICAS.set(count)
         return record
 
     def records(self) -> list[ReplicaRecord]:
@@ -355,6 +363,7 @@ class PeerReplicator:
         # (422). The local pool installs the record as it was encoded.
         blob = faults.corrupt_payload(faults.PEER_CORRUPT, blob)
         shipped = False
+        t0 = time.perf_counter()
         try:
             if faults.fire(faults.PEER_REPLICATE):
                 raise faults.InjectedFault(
@@ -371,6 +380,16 @@ class PeerReplicator:
                 "peercheck: replication of step %d failed (%s); the peer "
                 "recovery rung degrades to durable until the next commit",
                 step, e)
+        from . import metrics
+
+        dt = time.perf_counter() - t0
+        metrics.PEER_REPLICATION_BYTES.observe(len(blob))
+        metrics.PEER_REPLICATION_SECONDS.observe(dt)
+        metrics.CHECKPOINT_SECONDS.observe(dt, kind="save", rung="peer")
+        metrics.event(
+            "peer_replicate", generation=record.generation,
+            rank=record.rank, step=step, bytes=len(blob),
+            world_size=record.world_size, shipped=shipped)
         return shipped
 
     def _pull_neighbors(self, client) -> None:
@@ -533,6 +552,13 @@ _active: PeerReplicator | None = None
 def active_replicator() -> PeerReplicator | None:
     """The process's most recently built replicator."""
     return _active
+
+
+def pool_summary() -> dict | None:
+    """The replica pool's state for flight-record dumps, or None when no
+    replicator exists in this process."""
+    rep = active_replicator()
+    return None if rep is None else rep.pool.summary()
 
 
 def reset_for_testing() -> None:

@@ -16,6 +16,13 @@ EXIT_REMOVED = 202
 # "the driver vanished" at a glance.
 EXIT_DRIVER_LOST = 203
 
+# Exit code of a worker whose stall inspector fired its shutdown (posted
+# the coordinated abort and interrupted the main thread) but whose main
+# thread never surfaced it within HOROVOD_STALL_EXIT_GRACE: it is wedged in
+# a call no signal breaks, so it exits and the driver re-forms the world
+# without it.
+EXIT_STALL_ABANDONED = 204
+
 # Exit code of a driver that found a successor with a higher driver epoch
 # in its state directory (it was stopped, or cut off, through a takeover):
 # it stands down without touching the workers its successor adopted.

@@ -45,6 +45,14 @@ touches no worker. The snapshot holds what the port's driver has: the
 world, the blacklist, the workers, the driver-lost counts, the generation
 and the epoch.
 
+Observability: the driver journals ``driver_start``, ``world_published``,
+``driver_takeover``, ``driver_superseded``, ``abort_posted``,
+``blacklist``, ``worker_exit``, ``driver_lost``, ``worker_hung`` and
+``job_complete`` (``HOROVOD_EVENT_LOG``), sets ``hvd_driver_epoch`` and
+counts ``hvd_driver_lost_total`` and ``hvd_driver_takeovers_total``, and
+keeps its server's scrape gauges (world size, blacklisted hosts,
+driver-lost counts) current.
+
 Not ported yet: the warm spares, preemption notices, integrity tick and
 self-healing policy (and with them the policy and integrity parts of the
 snapshot), with the host drain (``_drain_host`` :852) that only the
@@ -59,7 +67,7 @@ import signal
 import threading
 import time
 
-from ... import faults
+from ... import faults, metrics
 from ...exceptions import HostDiscoveryFailedError
 from ...utils.env import get_float
 from ...utils.logging import get_logger
@@ -306,6 +314,7 @@ class ElasticDriver:
         if self._store is None or snap is None:
             if self._store is not None:
                 self._server.seed(driver_epoch=self._store.epoch)
+                metrics.DRIVER_EPOCH.set(self._store.epoch)
             return False
         if faults.fire(faults.DRIVER_TAKEOVER):
             raise faults.InjectedFault("driver takeover dropped (injected)")
@@ -315,6 +324,7 @@ class ElasticDriver:
             generation = 0
         self._server.seed(generation=generation,
                           driver_epoch=self._store.epoch)
+        metrics.DRIVER_EPOCH.set(self._store.epoch)
         self._manager.restore_blacklist(snap.get("blacklist"))
         counts = snap.get("driver_lost_counts")
         if isinstance(counts, dict):
@@ -323,6 +333,8 @@ class ElasticDriver:
                     self._driver_lost_counts[str(name)] = int(n)
                 except (TypeError, ValueError):
                     continue
+            # The scrape's counts resume with the cap's.
+            self._server.seed_driver_lost(self._driver_lost_counts)
         # The snapshot's membership first, for stable ranks.
         world = []
         for entry in snap.get("world") or []:
@@ -336,6 +348,7 @@ class ElasticDriver:
             "(world %s, %d blacklisted)", self._store.epoch - 1,
             generation, [h.hostname for h in world],
             self._manager.blacklist_count())
+        metrics.DRIVER_TAKEOVERS.inc()
         return True
 
     # -- world formation -----------------------------------------------------
@@ -405,6 +418,13 @@ class ElasticDriver:
         }
         version = self._server.publish_epoch(WORLD_SCOPE, data)
         self._world_hosts = hosts
+        self._server.set_cluster_info(
+            world_np=len(hosts),
+            blacklisted=self._manager.blacklist_count())
+        metrics.event(
+            "world_published", generation=version, np=len(hosts),
+            hosts=[h.hostname for h in hosts],
+            driver_epoch=self.driver_epoch)
         # Every world refreshes the endpoint record and the snapshot.
         self._publish_endpoint()
         self._save_state()
@@ -486,6 +506,9 @@ class ElasticDriver:
 
     def run(self) -> int:
         takeover = self._prepare_takeover()
+        metrics.event("driver_start", generation=self._server.generation,
+                      min_np=self._min_np, max_np=self._max_np,
+                      driver_epoch=self.driver_epoch, takeover=takeover)
         hosts = self._wait_for_available_slots(
             self._min_np, self._settings.elastic_timeout
         )
@@ -498,6 +521,10 @@ class ElasticDriver:
         # resumed predecessor's writes are fenced and it stands down.
         self._save_state()
         if takeover:
+            metrics.event(
+                "driver_takeover", generation=self._server.generation,
+                driver_epoch=self.driver_epoch, adopted=sorted(self._workers),
+                world=[h.hostname for h in self._world_hosts])
             # The old world's state is unknowable (a worker may wait in a
             # collective on a peer that died with the driver): abort the
             # restored generation, so every survivor rolls back and joins
@@ -563,6 +590,8 @@ class ElasticDriver:
         wedged in a collective with the dead peer turn the wedge into
         HorovodInternalError instead of blocking forever."""
         gen = self._server.post_abort(reason)
+        metrics.event("abort_posted", generation=gen, reason=reason,
+                      source="driver")
         self._log.warning(
             "elastic: posting coordinated abort for world generation %d "
             "(%s)", gen, reason,
@@ -571,6 +600,10 @@ class ElasticDriver:
     def _blacklist(self, name: str, why: str) -> None:
         host = _host_of(name)
         self._manager.blacklist(host)
+        self._server.set_cluster_info(
+            blacklisted=self._manager.blacklist_count())
+        metrics.event("blacklist", generation=self._server.generation,
+                      host=host, reason=why)
         self._log.warning("elastic: blacklisting host %s (%s)", host, why)
         self._save_state()
 
@@ -602,6 +635,9 @@ class ElasticDriver:
         while True:
             if self._superseded:
                 # A fenced write: a driver of a higher epoch owns the world.
+                metrics.event("driver_superseded",
+                              generation=self._server.generation,
+                              driver_epoch=self.driver_epoch)
                 return EXIT_DRIVER_SUPERSEDED
             # 1. Reap exited workers.
             finished = {
@@ -614,6 +650,10 @@ class ElasticDriver:
                 del self._workers[name]
                 self._launched_at.pop(name, None)
                 self._server.clear_heartbeat(name)
+                metrics.event("worker_exit",
+                              generation=self._server.generation,
+                              host=name, rc=rc,
+                              adopted=isinstance(w.popen, _AdoptedPopen))
                 if isinstance(w.popen, _AdoptedPopen):
                     # An adopted worker's exit code cannot be read: its
                     # done record says it completed; anything else is an
@@ -622,6 +662,9 @@ class ElasticDriver:
                     if name in self._server.done_records():
                         self._log.info("elastic: adopted worker %s finished "
                                        "ok (done record)", name)
+                        metrics.event("job_complete",
+                                      generation=self._server.generation,
+                                      host=name)
                         return 0
                     self._log.warning(
                         "elastic: adopted worker %s exited with an "
@@ -635,6 +678,9 @@ class ElasticDriver:
                     # Success on any worker ⇒ the job completed (reference
                     # semantics: the training function returned).
                     self._log.info("elastic: worker %s finished ok", name)
+                    metrics.event("job_complete",
+                                  generation=self._server.generation,
+                                  host=name)
                     return 0
                 if rc == EXIT_REMOVED:
                     # Clean self-exit of a worker dropped from the world.
@@ -645,6 +691,11 @@ class ElasticDriver:
                     # without blacklisting, up to 3 consecutive times.
                     n = self._driver_lost_counts.get(name, 0) + 1
                     self._driver_lost_counts[name] = n
+                    self._server.record_driver_lost(name)
+                    metrics.DRIVER_LOST.inc(host=name)
+                    metrics.event(
+                        "driver_lost", generation=self._server.generation,
+                        host=name, consecutive=n, capped=n > 3)
                     if n <= 3:
                         self._log.error(
                             "elastic: worker %s lost the rendezvous KV "
@@ -680,6 +731,9 @@ class ElasticDriver:
                     "blacklisting", name, why,
                 )
                 self._post_abort(f"worker {name} is hung ({why}); killed")
+                metrics.event("worker_hung",
+                              generation=self._server.generation,
+                              host=name, reason=why)
                 terminate_worker(self._workers.pop(name))
                 self._launched_at.pop(name, None)
                 self._server.clear_heartbeat(name)

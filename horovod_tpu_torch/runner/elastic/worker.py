@@ -36,6 +36,18 @@ worker into the new world. It exits with ``EXIT_DRIVER_LOST`` only after
 the loss timeout and ``HOROVOD_DRIVER_REJOIN_TIMEOUT`` more seconds.
 Without a state directory the driver-lost path is the one above.
 
+Observability (``horovod_tpu/runner/elastic/worker.py:203``,
+``:517-606``): each heartbeat carries this process's metrics snapshot
+(``"metrics"``, unless ``HOROVOD_METRICS_PIGGYBACK=0``), which the
+driver's ``GET /metrics`` renders with per-rank labels; its send and
+receive stamps and the server's reply clock feed ``tracing.ClockSync``;
+after a beat the tracer's window ships on the heartbeat cadence when
+``HOROVOD_TRACE_SAMPLE`` is set. Joining a world rebases the tracer's step
+counter, so every member of a generation counts steps from the same join
+(the journal's generation stamp follows ``HOROVOD_WORLD_VERSION``, which
+:meth:`ElasticWorkerContext.apply_to_env` sets). Following a successor
+driver journals ``driver_rejoin``.
+
 Not ported yet: the warm-spare wait (``wait_for_assignment``).
 """
 
@@ -47,7 +59,7 @@ import random
 import threading
 import time
 
-from ... import abort, faults
+from ... import abort, faults, metrics, tracing
 from ...elastic.runner import notification_manager
 from ...utils.env import get_float
 from ...utils.logging import get_logger
@@ -165,6 +177,9 @@ class ElasticWorkerContext:
         except Exception:  # noqa: BLE001 — best-effort staleness marking
             stale = None
         abort.joined_generation(v, stale_record=stale)
+        # Every member of this generation counts steps from its join:
+        # skew and attribution match spans on (generation, step, name).
+        tracing.get_tracer().rebase()
         return json.loads(raw)
 
     def apply_to_env(self, assignment: dict) -> None:
@@ -262,6 +277,9 @@ class ElasticWorkerContext:
         rep = peercheck.active_replicator()
         if rep is not None:
             rep.repoint()
+        metrics.event("driver_rejoin", generation=self.version,
+                      host=self.hostname, driver_epoch=epoch,
+                      endpoint=f"{addr}:{port}")
 
     def start_polling(self, interval: float = 1.0) -> None:
         if self._poller is not None:
@@ -368,21 +386,36 @@ class ElasticWorkerContext:
     def send_heartbeat(self) -> bool:
         """Publish one heartbeat; returns False when dropped/failed.
         Failures are swallowed: the poll loop owns driver-loss escalation,
-        and a missed heartbeat only matters to the driver's deadline."""
+        and a missed heartbeat only matters to the driver's deadline.
+
+        The beat carries the metrics snapshot (the cluster scrape), and
+        its round trip is a clock-offset sample (``tracing.ClockSync``:
+        the server's reply carries its wall clock); after it the tracer's
+        window ships, at most every ``HOROVOD_TRACE_SHIP_SECONDS``, when
+        shipping is on."""
         if faults.fire(faults.HEARTBEAT_SEND):
             return False  # injected drop: silence, exactly like a hang
+        clock = tracing.clock_sync()
         body = {
             "steps": _counters.steps,
             "commits": _counters.commits,
             "rank": os.environ.get("HOROVOD_RANK", "0"),
-            "time": time.time(),
+            "time": clock.now(),
         }
+        if os.environ.get("HOROVOD_METRICS_PIGGYBACK", "1") != "0":
+            body["metrics"] = metrics.snapshot()
         try:
-            self._hb_client.put(HEARTBEAT_SCOPE, self.name,
-                                json.dumps(body).encode())
+            t_send = clock.now()
+            reply = self._hb_client.put(HEARTBEAT_SCOPE, self.name,
+                                        json.dumps(body).encode())
+            t_recv = clock.now()
         except Exception as e:
             get_logger().debug("elastic: heartbeat send failed: %s", e)
             return False
+        t_server = json.loads(reply or b"{}").get("t_server")
+        if t_server is not None:
+            clock.observe(t_send, t_recv, float(t_server))
+        tracing.maybe_ship_heartbeat()
         return True
 
     def start_heartbeat(self, interval: float | None = None) -> None:

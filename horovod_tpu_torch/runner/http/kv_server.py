@@ -46,9 +46,35 @@ in, and ``GET /_scope/peerstate`` lists both slots. The scope outlives the
 world's epochs: generation g's records are what generation g+1's peer
 rung assembles.
 
+Observability (``:267-283``, ``:553-854``, ``:1051-1226``): workers put
+sampled step traces to ``PUT /trace/<worker>`` (the ``trace`` scope,
+at most 1 MiB a payload, replaced per worker) and piggyback their metrics
+snapshots on their heartbeats. Four read-only routes are exempt from the
+HMAC (a Prometheus scraper or Perfetto cannot sign):
+
+- ``GET /metrics``: Prometheus text of the driver's gauges (generation,
+  world size, blacklisted hosts, fenced writes, heartbeat ages, driver
+  epoch and driver-lost counts, worker steps and commits) and every
+  worker's snapshot with ``rank`` and ``host`` labels, plus the skew
+  gauges from the traces; each scrape also folds new sampled steps into
+  the server's regression sentinel;
+- ``GET /timeline``: the merged Chrome/Perfetto trace, one track per rank
+  on the server's timebase (each rank's clock offset applied);
+  ``?steps=N`` / ``?rank=R`` bound it, and an unbounded body past
+  ``HOROVOD_TIMELINE_MAX_EVENTS`` spans answers 413;
+- ``GET /criticalpath``: the per-step attribution
+  (``attribution.analyze_cluster``) with the sentinel's state;
+- ``GET /stragglers``: the arrival-skew attribution
+  (``tracing.compute_skew``).
+
+The policy, spare and integrity families of the scrape are rendered at
+zero, as the JAX package's are before those planes act, so a scrape
+renders the same families.
+
 Not ported yet: the ``modelstate`` scope (with ``serving.py``), the
 integrity quarantine and the live-vote fence of ``peerstate`` writes
-(with ``integrity.py``).
+(with ``integrity.py``), and the ``/comms``, ``/memory``, ``/integrity``
+and ``/model`` routes (with their modules).
 
 Authentication: with ``HOROVOD_SECRET_KEY`` set (the launcher makes one per
 job), every request carries ``X-Hvd-Auth: HMAC-SHA256(method\\npath\\n
@@ -69,10 +95,14 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable
 from urllib.error import HTTPError
+from urllib.parse import parse_qs, urlsplit
 from urllib.request import Request, urlopen
 
+from ... import attribution as _attribution
 from ... import faults
+from ... import metrics as _metrics
 from ... import peercheck as _peercheck
+from ... import tracing as _tracing
 from ...checkpoint import rotate_slots
 from ...utils.env import get_float, get_int
 from ...utils.retry import call_with_retries
@@ -97,6 +127,57 @@ DONE_SCOPE = "done"
 
 # Peer-replica scope (see the module docstring).
 PEERSTATE_SCOPE = _peercheck.PEERSTATE_SCOPE
+
+# Tracing scope: workers PUT /trace/<worker> with sampled step spans and
+# their measured clock offset; one payload per worker (replaced each ship).
+TRACE_SCOPE = _tracing.TRACE_SCOPE
+
+#: The self-healing policy's action vocabulary (the ``action`` label values
+#: of hvd_policy_decisions_total, rendered at zero until the port has the
+#: policy plane).
+POLICY_ACTIONS = ("drain", "promote", "preempt")
+
+# Payload bound for /trace PUTs: the worker caps spans/steps at the
+# source; this is the server-side backstop against a misbehaving client.
+_TRACE_MAX_BYTES = 1 << 20
+
+
+def timeline_max_events() -> int:
+    """Span-event cap for UNFILTERED ``GET /timeline`` bodies
+    (``HOROVOD_TIMELINE_MAX_EVENTS``, default 200000; 0 disables): a
+    large world's full merge can run to hundreds of MB, so past the cap
+    the server answers **413** and the caller must bound the request
+    with ``?steps=N`` / ``?rank=R``. Filtered requests are never capped
+    (the caller already bounded them), and ``/criticalpath`` is never
+    capped (its body is the small per-group analysis, not the raw
+    spans). Documented in docs/timeline.md."""
+    return get_int("HOROVOD_TIMELINE_MAX_EVENTS", 200000)
+
+
+def _trace_query(query: str) -> tuple[int | None, str | None] | None:
+    """Parse the shared ``?steps=N&rank=R`` trace-route filters.
+    Returns (steps, rank), or None when a value is malformed (400)."""
+    try:
+        q = parse_qs(query, keep_blank_values=False)
+    except ValueError:
+        return None
+    steps = None
+    rank = None
+    if "steps" in q:
+        try:
+            steps = int(q["steps"][-1])
+        except (ValueError, IndexError):
+            return None
+        if steps <= 0:
+            return None
+    if "rank" in q:
+        rank = q["rank"][-1]
+    unknown = set(q) - {"steps", "rank"}
+    if unknown:
+        return None
+    return steps, rank
+
+
 
 
 def env_generation() -> int | None:
@@ -152,6 +233,17 @@ class _KVHandler(BaseHTTPRequestHandler):
     def do_GET(self):  # noqa: N802
         if self._serve_fault():
             return
+        route = urlsplit(self.path)
+        if self.path == "/metrics":
+            # Unauthenticated by design: Prometheus scrapers can't HMAC.
+            return self._serve_metrics()
+        if route.path in ("/timeline", "/criticalpath"):
+            # Same exemption: Perfetto/curl can't sign; read-only.
+            return self._serve_trace_route(route.path, route.query)
+        if self.path == "/stragglers":
+            return self._serve_json(
+                lambda httpd: _compute_cluster_skew(httpd)[0],
+                "application/json")
         if not self._authenticate():
             return
         store = self.server.store  # type: ignore[attr-defined]
@@ -233,6 +325,8 @@ class _KVHandler(BaseHTTPRequestHandler):
         if (scope == PEERSTATE_SCOPE
                 and length > _peercheck.max_record_bytes()):
             return self._drain_and_413(length, b"replica record too large")
+        if scope == TRACE_SCOPE and length > _TRACE_MAX_BYTES:
+            return self._drain_and_413(length, b"trace payload too large")
         body = self.rfile.read(length)
         if not self._authenticate(body):
             return
@@ -253,6 +347,10 @@ class _KVHandler(BaseHTTPRequestHandler):
                         depth=_peercheck.retention_depth())
                 else:
                     self.server.store.setdefault(scope, {})[key] = body  # type: ignore[attr-defined]
+                if scope == TRACE_SCOPE:
+                    # The attribution cache's key: /criticalpath and the
+                    # sentinel re-analyze when new spans arrive.
+                    self.server.trace_version += 1  # type: ignore[attr-defined]
                 if scope == HEARTBEAT_SCOPE:
                     self.server.hb_times[key] = time.monotonic()  # type: ignore[attr-defined]
         if rejected is not None:
@@ -282,6 +380,464 @@ class _KVHandler(BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(body)
 
+    def _serve_trace_route(self, path: str, query: str):
+        parsed = _trace_query(query)
+        if parsed is None:
+            return self._reply(
+                400, b"bad query: use ?steps=N (positive int) "
+                     b"and/or ?rank=R")
+        steps, rank = parsed
+        if path == "/timeline" and steps is None and rank is None:
+            # The cap guards /timeline only: its body scales with the
+            # raw span count. /criticalpath serves the small per-group
+            # analysis (computed cached on every scrape regardless), so
+            # capping it would deny the route while protecting nothing.
+            cap = timeline_max_events()
+            if cap > 0:
+                count = _timeline_span_count(self.server)
+                if count > cap:
+                    return self._reply(
+                        413,
+                        (f"merged trace holds {count} span events > cap "
+                         f"{cap} (HOROVOD_TIMELINE_MAX_EVENTS); bound "
+                         f"the request with ?steps=N and/or ?rank=R"
+                         ).encode())
+        if path == "/criticalpath":
+            render = (lambda httpd:
+                      _render_criticalpath(httpd, steps=steps, rank=rank))
+        else:
+            render = (lambda httpd:
+                      _render_timeline(httpd, steps=steps, rank=rank))
+        return self._serve_json(render, "application/json")
+
+    def _serve_metrics(self):
+        try:
+            body = _render_cluster_metrics(self.server).encode()
+        except Exception as e:  # noqa: BLE001 — scrape must not kill the KV
+            return self._reply(500, f"metrics render failed: {e}".encode())
+        self.send_response(200)
+        self.send_header("Content-Type",
+                         "text/plain; version=0.0.4; charset=utf-8")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _serve_json(self, render, content_type: str):
+        try:
+            body = json.dumps(render(self.server)).encode()
+        except Exception as e:  # noqa: BLE001 — must not kill the KV
+            return self._reply(500, f"render failed: {e}".encode())
+        self.send_response(200)
+        self.send_header("Content-Type", content_type)
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+
+def _trace_payloads(httpd) -> dict[str, dict]:
+    """Parsed ``PUT /trace`` payloads by host (malformed ones dropped —
+    a broken worker must not break the merge for everyone else)."""
+    with httpd.lock:
+        raw = dict(httpd.store.get(TRACE_SCOPE, {}))
+    out: dict[str, dict] = {}
+    for host, body in raw.items():
+        try:
+            payload = json.loads(body)
+        except (ValueError, UnicodeDecodeError):
+            continue
+        if isinstance(payload, dict):
+            out[host] = payload
+    return out
+
+
+def _timeline_span_count(httpd) -> int:
+    """Span events an unfiltered /timeline body would carry (the 413
+    cap's cheap estimate — no JSON re-render)."""
+    total = 0
+    for payload in _trace_payloads(httpd).values():
+        for steprec in payload.get("steps", ()) or ():
+            if isinstance(steprec, dict):
+                total += len(steprec.get("spans", ()) or ())
+    return total
+
+
+def _render_timeline(httpd, steps: int | None = None,
+                     rank: str | None = None) -> dict:
+    """The merged cross-rank trace: every shipped payload's spans on one
+    server timebase (each rank's measured clock offset applied), one
+    Chrome-trace process track per rank. Loadable directly in Perfetto /
+    chrome://tracing. ``steps`` keeps only each rank's last N buffered
+    steps; ``rank`` keeps one rank's track — the ``?steps=N`` /
+    ``?rank=R`` query filters that keep large-world scrapes bounded."""
+    payloads = _trace_payloads(httpd)
+    events: list[dict] = []
+    for host, payload in sorted(payloads.items()):
+        if rank is not None and str(payload.get("rank", "?")) != str(rank):
+            continue
+        try:
+            pid = int(payload.get("rank", 0))
+        except (TypeError, ValueError):
+            pid = 0
+        try:
+            offset = float(payload.get("clock_offset_s", 0.0) or 0.0)
+        except (TypeError, ValueError):
+            offset = 0.0
+        events.append({"name": "process_name", "ph": "M", "pid": pid,
+                       "args": {"name": f"rank {pid} ({host})"}})
+        events.append({"name": "process_sort_index", "ph": "M", "pid": pid,
+                       "args": {"sort_index": pid}})
+        steprecs = list(payload.get("steps", ()) or ())
+        if steps is not None and steps > 0:
+            steprecs = steprecs[-steps:]  # ring order: oldest first
+        for steprec in steprecs:
+            if not isinstance(steprec, dict):
+                continue
+            for sp in steprec.get("spans", ()) or ():
+                if not isinstance(sp, dict):
+                    continue
+                try:
+                    ts_us = (float(sp["t"]) + offset) * 1e6
+                    dur_us = max(float(sp.get("dur", 0.0)), 0.0) * 1e6
+                except (KeyError, TypeError, ValueError):
+                    continue
+                events.append({
+                    "name": str(sp.get("name", "?")),
+                    "cat": str(sp.get("cat", "phase")),
+                    "ph": "X",
+                    "ts": ts_us,
+                    "dur": dur_us,
+                    "pid": pid,
+                    "tid": 0,
+                    "args": {
+                        "step": steprec.get("step"),
+                        "host": host,
+                        **(sp.get("args") or {}),
+                    },
+                })
+    return {
+        "traceEvents": events,
+        "displayTimeUnit": "ms",
+        "metadata": {
+            "timebase": "rendezvous-server wall clock (offsets applied)",
+            "ranks": sorted(
+                str(p.get("rank", "?")) for p in payloads.values()),
+        },
+    }
+
+
+def _compute_cluster_skew(httpd) -> tuple[dict, dict[str, dict]]:
+    """Arrival-skew attribution over the shipped payloads, plus the
+    payloads themselves (so /metrics renders offsets without re-parsing).
+    Journals a throttled ``straggler_detected`` event when the worst
+    matched instance crosses ``HOROVOD_STRAGGLER_WARN_SKEW``."""
+    payloads = _trace_payloads(httpd)
+    skew = _tracing.compute_skew(payloads)
+    worst = skew.get("worst")
+    # Threshold on skew MINUS the combined clock-error bound: congested
+    # heartbeats widen each rank's offset uncertainty (up to ~RTT/2), and
+    # that uncertainty must never journal a healthy host as a straggler.
+    if worst and (worst["skew_s"] - worst.get("err_s", 0.0)
+                  >= _tracing.straggler_warn_skew()):
+        with httpd.lock:
+            version = httpd.version
+            logged = httpd.straggler_logged
+            key = (version, worst["last_rank"])
+            fresh = key not in logged
+            logged.add(key)
+        if fresh:
+            _metrics.event(
+                "straggler_detected", generation=version,
+                rank=worst["last_rank"], host=worst["last_host"],
+                skew_s=worst["skew_s"], collective=worst["name"],
+                step=worst["step"])
+    return skew, payloads
+
+
+def _cluster_attribution(httpd) -> dict:
+    """The full-cluster step attribution (``attribution.analyze_cluster``
+    over the shipped payloads), cached per trace-store mutation
+    (``trace_version``) so repeated scrapes and replica polls cost one
+    integer compare. A cache MISS additionally folds any new
+    (generation, step) groups into the server's regression sentinel —
+    the one place the sentinel ticks, so it advances exactly once per
+    new sampled step no matter how many routes render it."""
+    with httpd.lock:
+        version = httpd.trace_version
+        cached = httpd.attrib_cache
+    if cached is not None and cached[0] == version:
+        return cached[1]
+    analysis = _attribution.analyze_cluster(_trace_payloads(httpd))
+    _sentinel_fold(httpd, analysis)
+    with httpd.lock:
+        httpd.attrib_cache = (version, analysis)
+    return analysis
+
+
+def _sentinel_fold(httpd, analysis: dict) -> None:
+    """Feed NEW (generation, step) groups into the server's regression
+    sentinel (EWMA baseline per phase over the cluster-mean
+    decomposition), journal a ``step_regression`` event for each phase
+    that newly crosses the drift threshold — naming the suspect rank the
+    group's critical path gated on — and refresh the advisory
+    ``regression_suspects`` map ({host: excess seconds}) the self-healing
+    policy may consult (``HOROVOD_POLICY_STEP_REGRESSION``)."""
+    sentinel = httpd.attrib_sentinel
+    with httpd.lock:
+        folded = httpd.attrib_folded
+        new = [g for g in analysis.get("groups", ())
+               if (g["generation"], g["step"]) not in folded]
+        folded.update((g["generation"], g["step"]) for g in new)
+        if len(folded) > 4096:
+            # Evict the OLDEST keys only: the per-rank ring advances
+            # monotonically, so a low (generation, step) can never
+            # reappear in the payloads — while an arbitrary set.pop()
+            # could evict a still-buffered group and double-fold it
+            # into the sentinel on the next mutation.
+            for key in sorted(folded)[:len(folded) - 2048]:
+                folded.discard(key)
+    suspects: dict[str, float] = {}
+    for g in new:
+        ranks = g.get("ranks") or {}
+        if not ranks:
+            continue
+        phases = {
+            p: sum(d["phases"].get(p, 0.0) for d in ranks.values())
+            / len(ranks)
+            for p in _attribution.STEP_PHASES
+        }
+        verdict = sentinel.observe(phases, wall=g.get("wall_s"))
+        alarmed = sorted(sentinel.snapshot()["alarmed"])
+        if verdict["alarms"]:
+            _metrics.event(
+                "step_regression",
+                generation=g["generation"], step=g["step"],
+                phases=verdict["alarms"],
+                scores={p: verdict["scores"].get(p)
+                        for p in verdict["alarms"]},
+                excess_s={p: verdict["excess_s"].get(p)
+                          for p in verdict["alarms"]},
+                suspect_rank=g.get("suspect_rank"),
+                suspect_host=g.get("suspect_host"))
+        # Advisory policy channel: while ANY phase is in alarm, the
+        # latest group's critical-path suspect carries the worst
+        # alarmed excess (seconds — directly comparable to the skew
+        # and comms-residual lateness channels). No alarm = empty map.
+        if alarmed and g.get("suspect_host"):
+            suspects = {
+                str(g["suspect_host"]): max(
+                    (verdict["excess_s"].get(p, 0.0) for p in alarmed),
+                    default=0.0)
+            }
+        elif not alarmed:
+            suspects = {}
+    if new:
+        with httpd.lock:
+            httpd.regression_suspects = suspects
+
+
+def _render_criticalpath(httpd, steps: int | None = None,
+                         rank: str | None = None) -> dict:
+    """``GET /criticalpath``: the merged per-step attribution — per-rank
+    phase decomposition (phases sum to each rank's step wall time), the
+    cluster critical path with a named gating rank per collective
+    barrier, per-rank MFU where the model declared its FLOPs, and the
+    regression sentinel's state. A world with no synced samples yet
+    (cold start, ``HOROVOD_TRACE_SAMPLE=0``) serves an explicit
+    ``insufficient_samples`` body — never a 500. ``steps``/``rank`` are
+    the bounding query filters (applied to the cached full analysis)."""
+    analysis = _cluster_attribution(httpd)
+    groups = list(analysis.get("groups", ()))
+    if steps is not None and steps > 0:
+        groups = groups[-steps:]
+    if rank is not None:
+        groups = [
+            dict(g, ranks={r: d for r, d in g.get("ranks", {}).items()
+                           if r == str(rank)})
+            for g in groups
+        ]
+        groups = [g for g in groups if g["ranks"]]
+    with httpd.lock:
+        generation = httpd.version
+        sentinel = httpd.attrib_sentinel
+        suspects = dict(httpd.regression_suspects)
+    return {
+        "status": "ok" if groups else "insufficient_samples",
+        "generation": generation,
+        "groups": groups,
+        "regression": {
+            "sentinel": (sentinel.snapshot()
+                         if sentinel is not None else None),
+            "suspects": suspects,
+        },
+    }
+
+
+def _render_cluster_metrics(httpd) -> str:
+    """The driver's cluster-wide scrape: driver-plane gauges built from
+    live server state, then every worker snapshot found piggybacked on a
+    heartbeat payload, rendered with per-rank/host labels."""
+    with httpd.lock:
+        version = httpd.version
+        fenced = httpd.fenced
+        world_np = httpd.world_np
+        blacklisted = httpd.blacklisted
+        driver_epoch = httpd.driver_epoch
+        driver_lost = dict(httpd.driver_lost)
+        now = time.monotonic()
+        ages = {h: now - t for h, t in httpd.hb_times.items()}
+        payloads = dict(httpd.store.get(HEARTBEAT_SCOPE, {}))
+    driver_families = [
+        _metrics.make_family(
+            "hvd_world_generation", "gauge",
+            "Monotonic world generation (the rendezvous epoch version).",
+            [({}, version)]),
+        _metrics.make_family(
+            "hvd_world_size", "gauge",
+            "Hosts in the current world epoch (0 before the first "
+            "elastic publish).", [({}, world_np)]),
+        _metrics.make_family(
+            "hvd_blacklisted_hosts", "gauge",
+            "Hosts currently blacklisted by the elastic driver.",
+            [({}, blacklisted)]),
+        _metrics.make_family(
+            "hvd_fenced_writes_total", "counter",
+            "Stale-generation writes rejected by the generation fence.",
+            [({}, fenced)]),
+        _metrics.make_family(
+            "hvd_heartbeat_age_seconds", "gauge",
+            "Seconds since each host's last heartbeat (server clock).",
+            [({"host": h}, age) for h, age in sorted(ages.items())]),
+        # Self-healing policy plane: at zero until the port has it (the
+        # JAX package's scrape shows these before any decision too).
+        _metrics.make_family(
+            "hvd_policy_spare_hosts", "gauge",
+            "Warm spare hosts currently launched, heartbeating, and held "
+            "out of the world by the elastic driver.",
+            [({}, 0)]),
+        _metrics.make_family(
+            "hvd_policy_decisions_total", "counter",
+            "Self-healing policy actions taken by the elastic driver "
+            "(drain|promote|preempt).",
+            [({"action": a}, 0)
+             for a in POLICY_ACTIONS]),
+        # Control-plane fault tolerance: the driver epoch (split-brain
+        # fence identity; 0 = no driver-state plane) and per-host
+        # EXIT_DRIVER_LOST reap counts. The unlabeled sample is the
+        # job-wide total, zero-materialized so the scrape gate can
+        # assert the instrument before any flap.
+        _metrics.make_family(
+            "hvd_driver_epoch", "gauge",
+            "Monotonic driver epoch: bumped on every driver (re)start; "
+            "stale-epoch writes are 409-fenced.",
+            [({}, driver_epoch)]),
+        _metrics.make_family(
+            "hvd_driver_lost_total", "counter",
+            "Workers reaped with EXIT_DRIVER_LOST (rendezvous KV "
+            "unreachable past the deadline) — control-plane flaps, by "
+            "host, plus the unlabeled job-wide total.",
+            [({}, sum(driver_lost.values()))]
+            + [({"host": h}, n) for h, n in sorted(driver_lost.items())]),
+        # Integrity defense plane (driver-side vote outcomes): the
+        # unlabeled sample is the job-wide total, zero-materialized so
+        # the scrape gate can assert the instrument before any
+        # corruption ever happens.
+        _metrics.make_family(
+            "hvd_integrity_divergence_total", "counter",
+            "Cross-rank integrity votes that named a host's replica "
+            "state divergent (silent data corruption evidence), by "
+            "host, plus the unlabeled job-wide total.",
+            [({}, 0)]),
+        _metrics.make_family(
+            "hvd_integrity_quarantined_ranks", "gauge",
+            "Ranks whose peer-replica PUTs are currently fenced by an "
+            "integrity-vote quarantine.", [({}, 0)]),
+    ]
+    # Multi-tenant pod: a driver serving one job of a shared pool
+    # (HOROVOD_JOB_ID set per job process tree by the scheduler) stamps
+    # every family on its scrape with the job dimension, so N per-job
+    # scrape targets merge in PromQL without relabeling. Unset (every
+    # single-job path) the scrape is bit-for-bit the HEAD body.
+    job = os.environ.get("HOROVOD_JOB_ID") or ""
+    job_labels = {"job": job} if job else {}
+    groups: list = [(job_labels, driver_families)]
+    steps_samples: list = []
+    commit_samples: list = []
+    for host, raw in sorted(payloads.items()):
+        try:
+            payload = json.loads(raw)
+        except (ValueError, UnicodeDecodeError):
+            continue
+        if not isinstance(payload, dict):
+            continue
+        labels = {"host": host, **job_labels}
+        rank = payload.get("rank")
+        if rank is not None:
+            labels["rank"] = str(rank)
+        if isinstance(payload.get("steps"), (int, float)):
+            steps_samples.append((labels, payload["steps"]))
+        if isinstance(payload.get("commits"), (int, float)):
+            commit_samples.append((labels, payload["commits"]))
+        families = payload.get("metrics")
+        if isinstance(families, list):
+            families = [f for f in families
+                        if isinstance(f, dict) and "name" in f]
+            if families:
+                groups.append((labels, families))
+    driver_families.append(_metrics.make_family(
+        "hvd_worker_steps_total", "counter",
+        "Watched steps reported on each worker's last heartbeat.",
+        steps_samples))
+    driver_families.append(_metrics.make_family(
+        "hvd_worker_commits_total", "counter",
+        "State commits reported on each worker's last heartbeat.",
+        commit_samples))
+    # Tick the step-attribution plane on every scrape (cached per trace
+    # mutation, so an idle poll costs one integer compare): the
+    # regression sentinel must advance on the operator's regular
+    # /metrics cadence even when nobody fetches /criticalpath.
+    try:
+        _cluster_attribution(httpd)
+    except Exception:  # noqa: BLE001 — attribution must not kill the scrape
+        pass
+    # Straggler attribution from the tracing plane: per-rank arrival skew
+    # against the earliest rank on matched collectives/steps (shipped
+    # trace payloads, offset-corrected), and a per-host score the
+    # autoscaler (ROADMAP item 3) can threshold on. Empty when no traces
+    # have shipped (HOROVOD_TRACE_SAMPLE=0) — absent series, not zeros,
+    # so dashboards can tell "no stragglers" from "not measuring".
+    skew, payloads = _compute_cluster_skew(httpd)
+    skew_samples = []
+    host_lateness: dict[str, list[float]] = {}
+    for rank, info in sorted(skew.get("ranks", {}).items()):
+        labels = {"rank": rank, "host": info.get("host", "")}
+        skew_samples.append((labels, info["max_lateness_s"]))
+        host_lateness.setdefault(info.get("host", ""), []).append(
+            info["mean_lateness_s"])
+    if skew_samples:
+        driver_families.append(_metrics.make_family(
+            "hvd_collective_skew_seconds", "gauge",
+            "Max arrival lateness of each rank behind the earliest rank "
+            "on matched collectives (offset-corrected trace spans).",
+            skew_samples))
+        driver_families.append(_metrics.make_family(
+            "hvd_straggler_score", "gauge",
+            "Mean arrival lateness per host across its ranks' matched "
+            "collectives — the straggler-replacement signal.",
+            [({"host": h}, sum(ls) / len(ls))
+             for h, ls in sorted(host_lateness.items())]))
+    offset_samples = [
+        ({"rank": str(p.get("rank", "?")), "host": h},
+         float(p.get("clock_offset_s", 0.0) or 0.0))
+        for h, p in sorted(payloads.items())
+    ]
+    if offset_samples:
+        driver_families.append(_metrics.make_family(
+            "hvd_trace_clock_offset_seconds", "gauge",
+            "Each rank's measured wall-clock offset vs the rendezvous "
+            "server (server - local), as shipped with its trace.",
+            offset_samples))
+    return _metrics.render_families(groups)
+
 
 class RendezvousServer:
     """In-memory scoped KV over HTTP, owned by the launcher."""
@@ -296,6 +852,21 @@ class RendezvousServer:
         self._httpd.hb_times = {}  # type: ignore[attr-defined]
         # 0 until a driver with durable control-plane state seeds its own.
         self._httpd.driver_epoch = 0  # type: ignore[attr-defined]
+        # Driver-side scrape gauges (set_cluster_info, record_driver_lost).
+        self._httpd.world_np = 0  # type: ignore[attr-defined]
+        self._httpd.blacklisted = 0  # type: ignore[attr-defined]
+        self._httpd.driver_lost = {}  # type: ignore[attr-defined]
+        self._httpd.straggler_logged = set()  # type: ignore[attr-defined]
+        # Step-attribution plane: the analysis cache (keyed by the trace
+        # mutation counter), the regression sentinel, the (generation,
+        # step) groups already folded into it, and the {host: excess
+        # seconds} suspect map.
+        self._httpd.trace_version = 0  # type: ignore[attr-defined]
+        self._httpd.attrib_cache = None  # type: ignore[attr-defined]
+        self._httpd.attrib_sentinel = (  # type: ignore[attr-defined]
+            _attribution.RegressionSentinel())
+        self._httpd.attrib_folded = set()  # type: ignore[attr-defined]
+        self._httpd.regression_suspects = {}  # type: ignore[attr-defined]
         # Key snapshot at construction: the job's secret must not drift
         # under a live server.
         self._httpd.secret = _secret.current_key()  # type: ignore[attr-defined]
@@ -336,6 +907,56 @@ class RendezvousServer:
                 self._httpd.version = int(generation)  # type: ignore[attr-defined]
             if driver_epoch is not None:
                 self._httpd.driver_epoch = int(driver_epoch)  # type: ignore[attr-defined]
+
+    def seed_driver_lost(self, counts: dict) -> None:
+        """Takeover resume: carry the predecessor's per-worker
+        EXIT_DRIVER_LOST counts into the scrape's
+        ``hvd_driver_lost_total``."""
+        with self._httpd.lock:  # type: ignore[attr-defined]
+            table = self._httpd.driver_lost  # type: ignore[attr-defined]
+            for host, n in (counts or {}).items():
+                table[str(host)] = max(table.get(str(host), 0), int(n))
+
+    def record_driver_lost(self, host: str) -> None:
+        """Count one EXIT_DRIVER_LOST reap into ``hvd_driver_lost_total``."""
+        with self._httpd.lock:  # type: ignore[attr-defined]
+            counts = self._httpd.driver_lost  # type: ignore[attr-defined]
+            counts[host] = counts.get(host, 0) + 1
+
+    def set_cluster_info(self, world_np: int | None = None,
+                         blacklisted: int | None = None) -> None:
+        """Driver-side gauges for the ``/metrics`` scrape, which only the
+        driver knows: the world's hosts and the blacklisted hosts."""
+        with self._httpd.lock:  # type: ignore[attr-defined]
+            if world_np is not None:
+                self._httpd.world_np = int(world_np)  # type: ignore[attr-defined]
+            if blacklisted is not None:
+                self._httpd.blacklisted = int(blacklisted)  # type: ignore[attr-defined]
+
+    def metrics_text(self) -> str:
+        """The scrape body, rendered in-process (what ``GET /metrics``
+        serves over HTTP)."""
+        return _render_cluster_metrics(self._httpd)
+
+    def timeline_json(self) -> dict:
+        """The merged cross-rank Chrome trace (what ``GET /timeline``
+        serves), rendered in-process."""
+        return _render_timeline(self._httpd)
+
+    def criticalpath_summary(self, steps: int | None = None,
+                             rank: str | None = None) -> dict:
+        """The merged step attribution (what ``GET /criticalpath``
+        serves), rendered in-process."""
+        return _render_criticalpath(self._httpd, steps=steps, rank=rank)
+
+    def straggler_summary(self) -> dict:
+        """The arrival-skew attribution (what ``GET /stragglers``
+        serves), rendered in-process."""
+        return _compute_cluster_skew(self._httpd)[0]
+
+    def trace_payload(self, host: str) -> dict | None:
+        """The last trace payload a worker shipped, parsed, or None."""
+        return _trace_payloads(self._httpd).get(host)
 
     def done_records(self) -> dict[str, dict]:
         """The completion records, by worker name."""
@@ -407,11 +1028,15 @@ class RendezvousServer:
     def clear_heartbeat(self, name: str) -> None:
         """Forget a worker's liveness record (relaunch/removal): a stale
         timestamp must neither mask a hung relaunch nor instantly condemn
-        a fresh one."""
+        a fresh one. Its trace payload goes too: a departed rank's spans
+        must not skew the merged timeline against the re-formed world."""
         with self._httpd.lock:  # type: ignore[attr-defined]
             self._httpd.hb_times.pop(name, None)  # type: ignore[attr-defined]
             self._httpd.store.get(  # type: ignore[attr-defined]
                 HEARTBEAT_SCOPE, {}).pop(name, None)
+            self._httpd.store.get(  # type: ignore[attr-defined]
+                TRACE_SCOPE, {}).pop(name, None)
+            self._httpd.trace_version += 1  # type: ignore[attr-defined]
 
     def stop(self) -> None:
         self._httpd.shutdown()

@@ -5,10 +5,12 @@ Port of ``horovod_tpu/runner/launch.py`` (``parse_args``, ``args_to_env``,
 ``run_commandline``, ``main``), itself a re-design of upstream's
 ``horovodrun`` (``horovod/runner/launch.py``). The flags keep the
 reference's names; the runtime flags the port reads
-(``--fusion-threshold-mb``, ``--log-level``) become the ``HOROVOD_*`` env
-vars the workers read. The reference's other runtime flags (cycle time,
-cache, timeline, autotune, hierarchical allreduce, stall checks) have no
-counterpart in the port and are refused as unknown flags.
+(``--fusion-threshold-mb``, ``--log-level``, ``--timeline-filename``,
+``--timeline-mark-cycles``, ``--stall-check-time``,
+``--stall-shutdown-time``) become the ``HOROVOD_*`` env vars the workers
+read. The reference's other runtime flags (cycle time, cache, autotune,
+hierarchical allreduce) have no counterpart in the port yet and are
+refused as unknown flags.
 
 The process model is upstream Horovod's, not the JAX package's: one
 process per slot, one slot per GPU (``hosts.get_host_assignments``).
@@ -114,8 +116,12 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     # The runtime knobs the port reads → env for children (the reference
     # CLI's names).
     p.add_argument("--fusion-threshold-mb", type=int, default=None)
+    p.add_argument("--timeline-filename", default=None)
+    p.add_argument("--timeline-mark-cycles", action="store_true")
     p.add_argument("--log-level", default=None,
                    choices=["trace", "debug", "info", "warning", "error", "fatal"])
+    p.add_argument("--stall-check-time", type=float, default=None)
+    p.add_argument("--stall-shutdown-time", type=float, default=None)
     p.add_argument("--min-np", type=int, default=None)
     p.add_argument("--max-np", type=int, default=None)
     p.add_argument("--host-discovery-script", default=None,
@@ -178,8 +184,16 @@ def args_to_env(args: argparse.Namespace) -> dict[str, str]:
     env: dict[str, str] = {}
     if args.fusion_threshold_mb is not None:
         env["HOROVOD_FUSION_THRESHOLD"] = str(args.fusion_threshold_mb * 1024 * 1024)
+    if args.timeline_filename:
+        env["HOROVOD_TIMELINE"] = args.timeline_filename
+    if args.timeline_mark_cycles:
+        env["HOROVOD_TIMELINE_MARK_CYCLES"] = "1"
     if args.log_level:
         env["HOROVOD_LOG_LEVEL"] = args.log_level
+    if args.stall_check_time is not None:
+        env["HOROVOD_STALL_CHECK_TIME"] = str(args.stall_check_time)
+    if args.stall_shutdown_time is not None:
+        env["HOROVOD_STALL_SHUTDOWN_TIME"] = str(args.stall_shutdown_time)
     return env
 
 

@@ -48,6 +48,9 @@ def call_with_retries(
         except Exception as e:
             if attempt >= attempts or isinstance(e, give_up_on):
                 raise
+            from .. import metrics
+
+            metrics.RETRIES.inc()
             if on_retry is not None:
                 on_retry(attempt, e)
             time.sleep(backoff_delay(attempt, base_delay))

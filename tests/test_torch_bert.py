@@ -246,6 +246,11 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "import horovod_tpu_torch.ops.adasum, horovod_tpu_torch.sync_batch_norm\n"
         "import horovod_tpu_torch.runner.launch, horovod_tpu_torch.runner.task_fn\n"
         "import horovod_tpu_torch.runner.driver_service\n"
+        "import horovod_tpu_torch.attribution, horovod_tpu_torch.metrics\n"
+        "import horovod_tpu_torch.tracing, horovod_tpu_torch.timeline\n"
+        "import horovod_tpu_torch.profiler, horovod_tpu_torch.stall\n"
+        "import horovod_tpu_torch.runner.http.kv_server\n"
+        "import horovod_tpu_torch.runner.elastic.driver\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'horovod_tpu'))\n"
         "assert not bad, bad\n")

@@ -19,6 +19,7 @@ for float32.
 
 import importlib.util
 import os
+import time
 
 import pytest
 import torch
@@ -902,3 +903,92 @@ def test_peer_restore_of_a_card_resident_fsdp_state(cuda_device,
         assert state.epoch == 2
     finally:
         hvd.shutdown()
+
+
+@pytest.mark.cuda
+def test_nccl_allreduce_ticket_and_latency_close_after_the_card(
+        cuda_device, monkeypatch):
+    """An NCCL allreduce queued behind ~0.5 s of device work: the host
+    returns from ``hvd.allreduce`` at once, with its stall ticket still
+    open and no latency sample taken; once the card has run the
+    collective, the reaper closes the ticket and the sample is the
+    collective's device time. Neither the call nor the step made around
+    it synchronizes the device."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import metrics, stall
+
+    monkeypatch.setenv("HOROVOD_FORCE_WIRE_MACHINERY", "1")
+    hvd.init()
+    synchronized = []
+    real = torch.cuda.synchronize
+    try:
+        monkeypatch.setattr(torch.cuda, "synchronize",
+                            lambda *a: synchronized.append(a))
+        t = torch.ones(1 << 20, device=cuda_device)
+        hvd.allreduce(t)  # the communicator forms at the first collective
+        # The first spin of a process may not spin: launch one first.
+        torch.cuda._sleep(1)
+        real()
+        count = metrics.COLLECTIVE_LATENCY.labels(kind="allreduce")
+        ins = stall.get_inspector()
+        ins.reap()
+        before, seconds = count.count, count.sum
+        torch.cuda._sleep(int(0.5 * 1.7e9))  # ~0.5 s at H100 clocks
+        t0 = time.perf_counter()
+        out = hvd.allreduce(t, op=hvd.Sum)
+        host_s = time.perf_counter() - t0
+        ins.reap()
+        assert host_s < 0.2
+        assert len(ins._outstanding) == 1 and count.count == before
+        assert synchronized == []
+        monkeypatch.setattr(torch.cuda, "synchronize", real)
+        real()
+        ins.reap()
+        assert len(ins._outstanding) == 0 and count.count == before + 1
+        assert 0 < count.sum - seconds < 1.0
+        assert torch.equal(out, t)
+    finally:
+        monkeypatch.setattr(torch.cuda, "synchronize", real)
+        hvd.shutdown()
+
+
+@pytest.mark.cuda
+def test_fetch_behind_a_spin_warns_by_name(cuda_device, monkeypatch):
+    """``hvd.fetch`` of a tensor queued behind ~3 s of device work waits
+    on the host inside its ticket, and an inspector whose warning time is
+    1 s names ``fetch[spin]``."""
+    import logging
+
+    from horovod_tpu_torch import metrics, stall
+    from horovod_tpu_torch.utils.logging import get_logger
+
+    class Keep(logging.Handler):
+        def __init__(self):
+            super().__init__()
+            self.lines = []
+
+        def emit(self, record):
+            self.lines.append(record.getMessage())
+
+    keep = Keep()
+    get_logger().addHandler(keep)
+    monkeypatch.setenv("HOROVOD_STALL_CHECK_TIME", "1")
+    stall.reset_for_testing()
+    try:
+        warned = metrics.STALL_WARNINGS.labels().get()
+        x = torch.ones(4, device=cuda_device)
+        # The first spin of a process may not spin: launch one first.
+        torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(3 * 1.98e9))  # ~3 s at the highest SM clock
+        y = x * 2
+        t0 = time.perf_counter()
+        assert stall.fetch(y, name="spin") is y
+        waited = time.perf_counter() - t0
+        assert waited > 1.5, waited
+        assert metrics.STALL_WARNINGS.labels().get() > warned, (
+            waited, keep.lines)
+        assert any("fetch[spin]" in line for line in keep.lines)
+    finally:
+        get_logger().removeHandler(keep)
+        stall.reset_for_testing()

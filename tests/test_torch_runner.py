@@ -31,14 +31,17 @@ FLAG_SETS = [
     [],
     ["--fusion-threshold-mb", "32", "--log-level", "debug"],
     ["--log-level", "error", "--fusion-threshold-mb", "0"],
+    # The observability plane's flags.
+    ["--timeline-filename", "t.json"],
+    ["--timeline-filename", "t.json", "--timeline-mark-cycles"],
+    ["--stall-check-time", "30"],
+    ["--stall-check-time", "1.5", "--stall-shutdown-time", "60"],
 ]
 # The reference's runtime flags with no counterpart in the port.
 UNREAD_FLAGS = [
     ["--cycle-time-ms", "2.5"], ["--cache-capacity", "0"],
-    ["--timeline-filename", "t.json"], ["--timeline-mark-cycles"],
     ["--autotune"], ["--autotune-log-file", "a.csv"],
-    ["--hierarchical-allreduce"], ["--stall-check-time", "30"],
-    ["--stall-shutdown-time", "60"],
+    ["--hierarchical-allreduce"],
 ]
 SCHEDULER_ENVS = [
     {"LSB_JOBID": "7", "LSB_MCPU_HOSTS": "batch1 1 gpu01 4 gpu02 4"},

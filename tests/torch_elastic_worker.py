@@ -9,6 +9,10 @@ server). ``ELASTIC_TEST_MODE`` picks the scenario:
   resumes from the ``Checkpointer`` that rank 0 saves at each commit.
 - ``scale``: trains until it has run two epochs in a world of two (the
   test adds the second host).
+- ``observe``: after epoch 2's commit rank 0 scrapes the driver's
+  ``/metrics``, ``/timeline``, ``/criticalpath`` and ``/stragglers``
+  (waiting until both ranks show in them) into files, then posts the
+  coordinated abort; both ranks recover and finish.
 - ``blocked``: rank 1 dies (``ELASTIC_TEST_PEER=dead``) or stops itself
   (``hung``) after one allreduce; rank 0 enters a second allreduce and
   reports the error it gets.
@@ -58,6 +62,38 @@ def blocked() -> None:
     print("survivor's allreduce returned", flush=True)
 
 
+def scrape(tmp: str) -> None:
+    """Rank 0's view of the driver's four observability routes, once both
+    ranks' heartbeats since their third step and their traces have reached
+    it."""
+    import json
+    import re
+    import time
+    from urllib.request import urlopen
+
+    base = (f"http://{os.environ['HOROVOD_RENDEZVOUS_ADDR']}:"
+            f"{os.environ['HOROVOD_RENDEZVOUS_PORT']}")
+    deadline = time.time() + 30
+    while True:
+        metrics = urlopen(f"{base}/metrics").read().decode()
+        timeline = json.loads(urlopen(f"{base}/timeline").read())
+        tracks = {e["pid"] for e in timeline["traceEvents"]
+                  if e["ph"] == "X"}
+        steps = re.findall(r'^hvd_worker_steps_total\{.*\} (\d+)', metrics,
+                           re.M)
+        if (len(steps) == 2 and min(map(int, steps)) >= 3
+                and tracks == {0, 1}) or time.time() > deadline:
+            break
+        time.sleep(0.2)
+    bodies = {"metrics.txt": metrics.encode(),
+              "timeline.json": json.dumps(timeline).encode(),
+              "criticalpath.json": urlopen(f"{base}/criticalpath").read(),
+              "stragglers.json": urlopen(f"{base}/stragglers").read()}
+    for name, body in bodies.items():
+        with open(os.path.join(tmp, name), "wb") as f:
+            f.write(body)
+
+
 def main() -> None:
     hvd.init(device="cpu")
     gen = os.environ["HOROVOD_WORLD_VERSION"]
@@ -105,6 +141,12 @@ def main() -> None:
 
                 time.sleep(0.2)
             state.commit()
+            marker = os.path.join(TMP, "observed")
+            if MODE == "observe" and state.epoch == 3 and r == 0 \
+                    and not os.path.exists(marker):
+                open(marker, "w").close()
+                scrape(TMP)
+                hvd.abort.post("observe: abort after epoch 2's commit")
             if MODE == "relaunch" and r == 0:
                 ckpt.save(state.epoch, {"model": model.state_dict(),
                                         "epoch": state.epoch}, wait=True)
