@@ -5,6 +5,7 @@
     python3 chip_diag.py ab OTHER_CHECKOUT
     python3 chip_diag.py watchdog
     python3 chip_diag.py collectives [--cpu]
+    python3 chip_diag.py comms [--cpu]
     python3 chip_diag.py fsdp_gathers
     python3 chip_diag.py elastic [--fsdp | --straggler] [--cpu] [--log PATH]
     python3 chip_diag.py ab_steps OTHER_CHECKOUT
@@ -33,10 +34,12 @@ the float32 instances at D = 64 (``flash_fwd_f32``, ``flash_dq_f32``,
 ``flash_dqkv_f32`` at S = 128, with the 3xTF32 dQ + dK/dV on the fused
 backward's inputs, ``flash_dq_dkv_s128_f32``) beside SDPA in float32
 (``sdpa_*_f32``, ``sdpa_*_s128_f32``), the fused backward at D = 128
-(``flash_dqkv_d128_f32``, B*H = 1024, S = 128) beside SDPA's float32
+(``flash_dqkv_d128_f32``, B*H = 1024, S = 128; its plain version
+``plain_dqkv_d128_f32``) beside SDPA's float32
 backward there (``sdpa_bwd_s128_d128_f32``), the float32 dQ and dK/dV at
 D = 32 and 128
-(``flash_dq_d32_f32``, ..., B*H = 128, S = 512) beside SDPA's float32
+(``flash_dq_d32_f32``, ..., B*H = 128, S = 512; at 128 the plain dQ and
+dK/dV, ``plain_dq_dkv_d128_f32``) beside SDPA's float32
 backward at D = 32 and 128 (``sdpa_bwd_d32_f32``, ``sdpa_bwd_d128_f32``),
 on full float32 values, and the float32 wide dQ and dK/dV at B*H = 2,
 S = 8192, D = 512 (``*_wide_long_f32``) beside SDPA's float32 backward
@@ -114,6 +117,20 @@ its
 optimizer-state bytes (about 1/n of the allreduce run's in the sharded
 modes, or the check fails), fsdp's resident parameter bytes, step time and
 peak memory per mode.
+
+``comms`` seeds the comms model (``horovod_tpu_torch/comms_model.py``)
+across ranks, one process per visible card over NCCL (``--cpu``: four gloo
+processes), each started by ``hvdrun-torch`` as ``collectives`` starts
+them: ``hvd.run_comms_microprobe`` over the world at ``COMMS_PROBE_SIZES``
+(4 KB to 256 MB a rank, by fours; 3 timed calls each) of allreduce,
+reducescatter, allgather and alltoall. Each rank prints every timed
+call's microseconds (``comms samples``) and its alpha-beta fit
+of each op under its world's link class (``intra_host`` on one host) as a
+``comms rank`` JSON line; rank 0 then prints ``comms_model.merge_payloads``
+of the ranks' payloads (gathered with ``allgather_object``) as a
+``comms merged`` JSON line, and the cards' name and power limit. The bytes
+of a sample are the world's total payload (a rank's tensor times the world
+size), as every eager collective counts them.
 
 ``elastic`` (four cards; ``--cpu``: four gloo processes and BERT_TINY)
 launches ``hvdrun-torch --min-np 2 --max-np 4 --host-discovery-script``
@@ -199,7 +216,8 @@ CALLS = ("flash_fwd", "flash_dq", "flash_dkv", "sdpa_fwd", "sdpa_bwd",
          "cublas_shortcut_f32", "flash_dq_wide_long_f32",
          "flash_dkv_wide_long_f32", "sdpa_bwd_d512_long_f32",
          "flash_dq_dkv_s128_f32", "flash_dqkv_d128_f32",
-         "sdpa_bwd_s128_d128_f32")
+         "sdpa_bwd_s128_d128_f32", "plain_dqkv_d128_f32",
+         "plain_dq_dkv_d128_f32")
 # The float32 rows' shapes (name: kernel, or the kernels a row runs one
 # after the other, B*H, S, D) for their bounds, printed by ab beside the
 # times.
@@ -420,6 +438,7 @@ def _worker(tree, label):
     # backward there.
     f1d, b1d = full_f32(B1 * H, S1, 128)
     calls["flash_dqkv_d128_f32"] = lambda: A.flash_dqkv(*b1d)
+    calls["plain_dqkv_d128_f32"] = lambda: A.flash_dqkv_plain(*b1d)
     calls["sdpa_bwd_s128_d128_f32"] = sdpa_calls(
         "s128_d128_f32", [t.view(B1, H, S1, 128) for t in f1d[:3]],
         f1d[3].view(B1, H, S1, 128))["sdpa_bwd_s128_d128_f32"]
@@ -430,6 +449,9 @@ def _worker(tree, label):
         calls.update({
             f"flash_dq_d{Dd}_f32": (lambda bd=bd: A.flash_dq(*bd)),
             f"flash_dkv_d{Dd}_f32": (lambda bd=bd: A.flash_dkv(*bd))})
+        if Dd == 128:
+            calls["plain_dq_dkv_d128_f32"] = lambda bd=bd: (
+                A.flash_dq_plain(*bd), A.flash_dkv_plain(*bd))
         calls[f"sdpa_bwd_d{Dd}_f32"] = sdpa_calls(
             f"d{Dd}_f32", [t.view(B, H, S, Dd) for t in fd[:3]],
             fd[3].view(B, H, S, Dd))[f"sdpa_bwd_d{Dd}_f32"]
@@ -1040,6 +1062,83 @@ def _sync_mode_trajectories(hvd, rank, n, device):
           "a run: the SGD runs' parameters and losses and the AdamW runs' "
           "losses held to the allreduce run's; "
           f"per rank {json.dumps(report)}", flush=True)
+
+
+# The comms microprobe's payloads a rank: 4 KB to 256 MB, by fours.
+COMMS_PROBE_SIZES = tuple(4 ** k for k in range(6, 15))
+
+
+def _comms_rank(device):
+    """One rank of ``comms``, started by the launcher: the microprobe, this
+    rank's fits, and on rank 0 the merge of every rank's payload."""
+    import faulthandler
+
+    faulthandler.dump_traceback_later(600, exit=True)
+    sys.path.insert(0, HERE)
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import basics, comms_model
+
+    hvd.init(device=device)
+    rank, n = hvd.rank(), hvd.size()
+    link = basics._state.topology.set_link_class(range(n))
+    t0 = time.perf_counter()
+    probe = hvd.run_comms_microprobe(sizes=COMMS_PROBE_SIZES, repeats=3)
+    seconds = time.perf_counter() - t0
+    # Each timed call's microseconds, by op and the world's payload.
+    print("comms samples " + json.dumps(dict(rank=rank, us={
+        op: {nbytes: [round(x * 1e6, 1) for x in xs]
+             for nbytes, xs in per_op.items()}
+        for op, per_op in probe.items()})), flush=True)
+    payload = comms_model.get_model().payload()
+    fits = {key.split("|")[0]: {k: fit.get(k) for k in (
+        "alpha_s", "beta_s_per_byte", "bandwidth_bytes_per_second",
+        "alpha_ci95_s", "beta_ci95", "r2", "samples", "ready")}
+        for key, fit in payload["fits"].items()
+        if key.endswith(f"|flat|{link}")}
+    unfitted = [op for op in ("allreduce", "reducescatter", "allgather",
+                              "alltoall") if not fits.get(op, {}).get("ready")]
+    print("comms rank " + json.dumps(dict(
+        rank=rank, world=n, link_class=link, probe_s=round(seconds, 3),
+        fits=fits)), flush=True)
+    payloads = hvd.allgather_object(payload)
+    if rank == 0:
+        # What the memory plane's span-close hook costs on the host.
+        from horovod_tpu_torch import memory
+
+        costs = {}
+        for name, fn in (("device_memory_stats", memory.device_memory_stats),
+                         ("note_phase", lambda: memory.note_phase("other"))):
+            fn()
+            t1 = time.perf_counter()
+            for _ in range(1000):
+                fn()
+            costs[name] = round((time.perf_counter() - t1) * 1e3, 3)
+        print(f"comms: host us per call {costs}", flush=True)
+        merged = comms_model.merge_payloads(
+            {f"rank{r}": p for r, p in enumerate(payloads)})
+        print("comms merged " + json.dumps(merged), flush=True)
+        if device == "cuda":
+            print(f"comms: cards {_smoke().card_line()}", flush=True)
+    hvd.shutdown()
+    if unfitted:
+        raise AssertionError(f"rank {rank}: no ready fit of {unfitted}")
+
+
+def comms(cpu):
+    import torch
+
+    n = 4 if cpu else torch.cuda.device_count()
+    device = "cpu" if cpu else "cuda"
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.runner.launch", "-np",
+         str(n), *(["--cpu-mode"] if cpu else []), sys.executable,
+         os.path.abspath(__file__), "_comms_rank", device],
+        cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE), timeout=900)
+    print(f"comms: {n} ranks over {dist_backend(device)} started by "
+          f"hvdrun-torch, exit code {out.returncode}, "
+          f"{time.perf_counter() - t0:.1f} s")
+    return out.returncode
 
 
 def dist_backend(device):
@@ -1799,6 +1898,11 @@ def main() -> int:
         return collectives(args[1:] == ["--cpu"])
     if args[:1] == ["_collectives_rank"] and len(args) == 2:
         _collectives_rank(args[1])
+        return 0
+    if args in (["comms"], ["comms", "--cpu"]):
+        return comms(args[1:] == ["--cpu"])
+    if args[:1] == ["_comms_rank"] and len(args) == 2:
+        _comms_rank(args[1])
         return 0
     if args[:1] == ["elastic"] and set(args[1:]) - {
             "--cpu", "--fsdp", "--straggler"} <= (

@@ -123,7 +123,9 @@ and prints no result line); each prints its seconds:
    the parameters rounded to bf16 (fsdp); with AdamW on the bf16 wire,
    timed and profiled, its losses; fsdp with 1 segment for its peak memory
    beside 4; the optimizer-state bytes per rank (the whole at world size
-   1) and fsdp's resident parameter bytes;
+   1) and fsdp's resident parameter bytes; after every run,
+   ``memory.footprint_of``'s resident parameters and optimizer state equal
+   to what the run holds (``_hold_footprint``);
    the int8 wire in allreduce mode (losses fall; one step's gradients
    round-trip within a quantum of each block; ``_sround`` equal on card
    and CPU); a 2-layer BERT-Large saved under sharded and resumed under
@@ -159,7 +161,16 @@ and prints no result line); each prints its seconds:
    step, phase, collective and cycle events, the scrape valid with its
    dispatch, grad-sync and phase families non-zero, ``hvd_mfu_ratio`` in
    (0, 1), and the device busy of an unsampled step within
-   ``OBS_BUSY_TOL`` of the planes-off run's; then a stall inspector with a
+   ``OBS_BUSY_TOL`` of the planes-off run's. Between the two runs
+   ``hvd.run_comms_microprobe`` sweeps ``OBS_PROBE_SIZES`` (4 KB to 256
+   MB) over the one-rank world; the planes-on run then holds every op of
+   the sweep fitted, a predicted exposed comm, ``footprint_of`` equal to
+   the resident bytes the optimizer noted, the allocator read live, and
+   the ``forward_backward`` and ``optimizer_update`` watermarks above the
+   noted resident total and at most ``max_memory_allocated``, and
+   prints the fits, the predicted and observed exposed comm, the
+   footprint by kind and the watermarks (``_hold_comms_and_memory``);
+   then a stall inspector with a
    1 s warning names an ``allreduce[...]`` queued behind a ~3 s spin after
    the host has returned from the call, and an ``hvd.fetch`` behind the
    same spin;
@@ -1401,11 +1412,35 @@ def device_events(prof):
             and _WARMUP_KERNEL not in e.name]
 
 
+# A session that recorded no device event at all, not even its warm-up
+# spins, is the profiler's miss (ROADMAP C8): ``_attention_kernels_ms`` runs
+# it again, at most this many times. A session that recorded other kernels
+# is never retried.
+PROFILE_RETRIES = 2
+
+
+def _recorded_nothing(prof):
+    """Whether a ``device_profile`` session holds no device event at all,
+    its warm-up spins included."""
+    import torch
+
+    return not any(e.device_type == torch.autograd.DeviceType.CUDA
+                   for e in prof.events())
+
+
 def _attention_kernels_ms(run):
     """Device ms of the port's flash-attention kernels in one profiled
-    ``run()``, by kernel name (with its template arguments)."""
-    with device_profile() as prof:
-        run()
+    ``run()``, by kernel name (with its template arguments). A session
+    that recorded no device event at all runs ``run()`` again in a new
+    one, at most ``PROFILE_RETRIES`` times, and says so."""
+    for attempt in range(PROFILE_RETRIES + 1):
+        with device_profile() as prof:
+            run()
+        if not _recorded_nothing(prof) or attempt == PROFILE_RETRIES:
+            break
+        print(f"profile: the session recorded no device event, not even its "
+              f"{PROFILE_WARMUP_KERNELS} warm-up spins; running it again "
+              f"({attempt + 1} of {PROFILE_RETRIES})", flush=True)
     ms = {}
     for name, start, end in device_events(prof):
         found = re.search(r"flash_\w+(<[^>]*>)?", name)
@@ -1925,6 +1960,28 @@ def _state_bytes(opt) -> int:
                for v in st.values() if torch.is_tensor(v) and v.dim() > 0)
 
 
+def _hold_footprint(name, mode, model, opt):
+    """``memory.footprint_of(opt)``'s resident parameters and optimizer
+    state against what the run holds on the card: the parameters (sharded:
+    and the shard copies its inner optimizer steps; fsdp: the shards) and
+    ``_state_bytes``. Returns the two byte counts."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import memory
+
+    fp = memory.footprint_of(opt, model.parameters())
+    tensors = (list(model.parameters())
+               + (list(opt._shards) if mode == "sharded" else []))
+    held = (hvd.resident_param_bytes(opt) if mode == "fsdp" else
+            sum(t.numel() * t.element_size() for t in tensors))
+    state = _state_bytes(opt)
+    if (fp["resident"]["params"], fp["resident"]["opt_state"]) != (held,
+                                                                   state):
+        raise AssertionError(f"{name}: footprint_of priced {fp['resident']}, "
+                             f"the run holds parameters {held} bytes and "
+                             f"optimizer state {state} bytes")
+    return held, state
+
+
 def _gap(params, ref, initial):
     """||params - ref|| / ||ref - initial|| over all parameters, the
     parameter whose own such ratio is the largest (index, ratio), and the
@@ -2052,13 +2109,14 @@ def sync_modes_phase(card):
     def run(name, mode, comp, **kw):
         model, opt, losses, ms, peak = _bert_mode_run(card, name, mode, comp,
                                                       **kw)
+        priced[name] = _hold_footprint(name, mode, model, opt)
         out = (params_of(model, opt), losses, ms, peak, _state_bytes(opt),
                hvd.resident_param_bytes(opt) if mode == "fsdp" else None)
         free(model, opt)
         return out
 
     none, bf16 = hvd.Compression.none, hvd.Compression.bf16
-    initial, names = [], []
+    initial, names, priced = [], [], {}
 
     def keep_initial(model, opt, step):
         initial.extend(p.detach().clone() for p in model.parameters())
@@ -2136,6 +2194,10 @@ def sync_modes_phase(card):
               f"to lr): gap {gap:.6g}, largest single parameter {names[i]} "
               f"at {worst:.6g}, largest difference of one value "
               f"{largest:.6g}")
+    for run_name, (params, state) in priced.items():
+        print(f"{run_name}: memory.footprint_of priced the resident "
+              f"parameters at {params} bytes and the optimizer state at "
+              f"{state} bytes, equal to what the run holds")
     print(f"sync fsdp peak above what the phase held: {stats['fsdp'][1]:.3f} "
           f"GiB with {FSDP_SEGMENTS} segments, {peak1:.3f} GiB with 1, "
           f"allreduce {stats['allreduce'][1]:.3f}, sharded "
@@ -2905,7 +2967,7 @@ def uninterrupted(keep=None):
 
 
 def scrape():
-    # The driver's four observability routes, once this rank's heartbeat
+    # The driver's six observability routes, once this rank's heartbeat
     # since the commit and its shipped trace have reached them.
     from urllib.request import urlopen
     from horovod_tpu_torch import metrics
@@ -2926,10 +2988,20 @@ def scrape():
             break
         time.sleep(0.2)
     cp = json.loads(urlopen(base + "/criticalpath").read())
+    merged = {}
+    for route in ("comms", "memory"):
+        with urlopen(base + "/" + route) as r:
+            body = json.loads(r.read())
+            merged[route] = dict(http=r.status, status=body["status"],
+                                 ranks=sorted(body["ranks"]),
+                                 generation=body["generation"])
+        if route == "memory":
+            merged[route]["resident"] = body["cluster"]["resident_bytes"]
     return dict(tracks=tracks, families=len(parsed),
                 ranks=sorted({lb.get("rank") for lb, _ in flushes}),
                 criticalpath=cp["status"], groups=len(cp["groups"]),
-                stragglers=json.loads(urlopen(base + "/stragglers").read()))
+                stragglers=json.loads(urlopen(base + "/stragglers").read()),
+                **merged)
 
 
 ckpt = hvd.Checkpointer(os.environ["ELASTIC_SMOKE_CKPT"], max_to_keep=2,
@@ -3111,7 +3183,8 @@ def _hold_elastic(mode, rc, text, reports):
 def _hold_observed(tmp, r, text):
     """The abort run's scrape of the driver's routes (valid Prometheus text
     with this rank's label, one timeline track, an attributed step, the
-    skew) and its journal: ``abort_posted``, then ``abort_consumed``, then
+    skew, ``/comms`` and ``/memory`` answering 200 with rank 0, the memory
+    view measured) and its journal: ``abort_posted``, then ``abort_consumed``, then
     ``world_synced``, generations not falling, and the consumed abort's
     flight record."""
     sc = r["scrape"]
@@ -3128,9 +3201,13 @@ def _hold_observed(tmp, r, text):
     gens = [events[i]["generation"] for i in chain]
     flight = [e for e in events if e["event"] == "flight_record"
               and e.get("reason") == "abort_consumed"]
+    merged = [sc.get(route, {}) for route in ("comms", "memory")]
     if not (sc.get("tracks") == [0] and sc.get("ranks") == ["0"]
             and sc.get("criticalpath") == "ok" and sc.get("groups")
             and "matched" in sc.get("stragglers", {})
+            and all(m.get("http") == 200 and m.get("ranks") == ["0"]
+                    for m in merged)
+            and merged[1].get("status") == "ok"
             and len(chain) == 3 and gens == sorted(gens) and flight):
         raise AssertionError(f"elastic abort: scrape {sc}, journal "
                              f"{[(e['event'], e['generation']) for e in events]}"
@@ -3204,7 +3281,10 @@ def elastic_phase(card):
               f"labels {scraped['ranks']}, /timeline tracks "
               f"{scraped['tracks']}, /criticalpath {scraped['criticalpath']} "
               f"over {scraped['groups']} steps, /stragglers "
-              f"{scraped['stragglers']}; journal {chain}")
+              f"{scraped['stragglers']}, /comms {scraped['comms']} (status "
+              f"insufficient_samples when the worker's only eager "
+              f"collective, the loss average, has one payload size), "
+              f"/memory {scraped['memory']}; journal {chain}")
         rc, text, reports, secs = _elastic_run(
             tmp, "relaunch", ELASTIC_LAYERS["relaunch"],
             dict(env, HOROVOD_BLACKLIST_COOLDOWN="1"),
@@ -3725,6 +3805,9 @@ OBS_WARN_S = 1.0
 OBS_PLANE_ENV = ("HOROVOD_TIMELINE", "HOROVOD_TIMELINE_MARK_CYCLES",
                  "HOROVOD_EVENT_LOG", "HOROVOD_TRACE_SAMPLE",
                  "HOROVOD_STALL_CHECK_STEPS", "HOROVOD_STALL_CHECK_TIME")
+# The comms microprobe before the planes-on run: payloads from 4 KB to
+# 256 MB, by fours, three timed calls of each op at each.
+OBS_PROBE_SIZES = tuple(4 ** k for k in range(6, 15))
 
 
 def bert_flops_per_token(cfg, seq_len, num_predictions):
@@ -3785,7 +3868,8 @@ def _obs_run(cfg, model, initial, batch, tmp, planes):
     import torch
 
     import horovod_tpu_torch as hvd
-    from horovod_tpu_torch import attribution, metrics, stall, tracing
+    from horovod_tpu_torch import (attribution, comms_model, memory, metrics,
+                                   stall, tracing)
     from horovod_tpu_torch.ops import _kernels
 
     for key in OBS_PLANE_ENV:
@@ -3794,6 +3878,8 @@ def _obs_run(cfg, model, initial, batch, tmp, planes):
     tracing.reset_for_testing()
     stall.reset_for_testing()
     metrics.reset_for_testing()
+    memory.reset_for_testing()
+    torch.cuda.reset_peak_memory_stats()
     out = {}
     if planes:
         os.environ.update(HOROVOD_EVENT_LOG=os.path.join(tmp, "events.jsonl"),
@@ -3846,18 +3932,91 @@ def _obs_run(cfg, model, initial, batch, tmp, planes):
         state=opt.state_dict()["state"], busy=busy, host_ms=host_ms,
         losses=[float(x) for x in losses],
         launches={k.name: k.launches for k in _kernels.KERNELS})
+    if planes:
+        # The comms and memory planes: the fitted model and its price of
+        # the step's wire beside the synced step's exposed comm; the
+        # footprint model beside what the optimizer noted, the watermarks
+        # and the allocator's peak.
+        footprint = memory.footprint_of(opt, model.parameters())
+        memory.get_observatory().note_predicted(footprint)
+        summary = attribution.summary()
+        out.update(footprint=footprint, memory=memory.summary(),
+                   comms=comms_model.summary(), summary=summary,
+                   leaves=len(comms_model.get_model().leaf_sizes()),
+                   device_stats=memory.device_memory_stats(),
+                   max_allocated=torch.cuda.max_memory_allocated())
     opt.remove_hooks()
     if planes:
         out["loads"] = loads
         out["text"] = metrics.render()
         out["mfu"] = metrics.MFU_RATIO.labels().get()
-        out["attribution"] = attribution.summary()["last_step"]
+        out["attribution"] = summary["last_step"]
         hvd.stop_timeline()
         out["timeline"] = _timeline_events(os.path.join(tmp, "timeline.json"))
         hvd.set_model_flops_per_step(None)
     for key in OBS_PLANE_ENV:
         os.environ.pop(key, None)
     return out
+
+
+def _hold_comms_and_memory(on, probe, probe_s, card):
+    """The comms and memory planes of the planes-on run: every op of the
+    microprobe fitted, a predicted exposed comm, the footprint model equal
+    to what the optimizer noted, the allocator read live
+    (``device_memory_stats``), and the forward_backward and
+    optimizer_update watermarks above the noted resident total (the
+    gradients and activations that only the allocator's bytes in use
+    hold) and at most the allocator's peak; each printed."""
+    comms, mem, fp = on["comms"], on["memory"], on["footprint"]
+    summary = on["summary"]
+    fits = {key: fit for key, fit in comms["fits"].items()
+            if key.endswith("|flat|intra_host")}
+    unfitted = [op for op in probe if not fits.get(
+        f"{op}|flat|intra_host", {}).get("ready")]
+    predicted = summary["exposed_comm_predicted_s"]
+    resident = mem["resident_total"]
+    marks = mem["watermarks"]
+    stats = on["device_stats"]
+    bad_marks = {phase: marks.get(phase) for phase in
+                 ("forward_backward", "optimizer_update")
+                 if not resident < marks.get(phase, -1)
+                 <= on["max_allocated"]}
+    if (unfitted or predicted is None or mem["residual_bytes"] != 0
+            or bad_marks or not resident or stats is None):
+        raise AssertionError(
+            f"observability: comms and memory planes: unfitted ops "
+            f"{unfitted}, exposed_comm_predicted_s {predicted}, noted "
+            f"resident {mem['resident']} against the footprint's "
+            f"{fp['resident']} (residual {mem['residual_bytes']}), "
+            f"device_memory_stats {stats}, watermarks {marks} outside "
+            f"({resident}, {on['max_allocated']}]: {bad_marks}")
+    print(f"observability: comms microprobe over the one-rank world, "
+          f"{len(OBS_PROBE_SIZES)} payloads from {OBS_PROBE_SIZES[0]} to "
+          f"{OBS_PROBE_SIZES[-1]} bytes, 3 timed calls each, {probe_s:.2f} "
+          f"s; fitted alpha-beta per op (flat, intra_host): "
+          + "; ".join(f"{key.split('|')[0]} alpha {fit['alpha_s'] * 1e6:.3f}"
+                      f" us, beta {fit['beta_s_per_byte']:.4e} s/B "
+                      f"({(fit['bandwidth_bytes_per_second'] or 0) / 1e9:.1f}"
+                      f" GB/s), r2 {fit.get('r2')}, {fit['samples']} samples"
+                      for key, fit in sorted(fits.items()))
+          + f"; {comms['samples_total']} samples in all on {card}")
+    print(f"observability: attribution of synced step "
+          f"{summary['last_step']['step']}: exposed comm observed "
+          f"{(summary['last_step']['phases']['exposed_comm'] + summary['last_step']['phases']['straggler_wait']) * 1e3:.3f}"
+          f" ms, exposed_comm_predicted_s {predicted:.6f}, "
+          f"exposed_comm_residual_s {summary['exposed_comm_residual_s']} "
+          f"(the alpha-beta price of the step's bf16 wire, "
+          f"{on['leaves']} leaves, at the fitted allreduce) "
+          f"on {card}")
+    print(f"observability: memory: footprint_of (per rank, allreduce, "
+          f"AdamW, bf16 wire) resident {fp['resident']}, transient "
+          f"{fp['transient']}, opt_state_host {fp['opt_state_host']}, "
+          f"peak_total {fp['peak_total']} bytes; noted resident "
+          f"{mem['resident']} (residual {mem['residual_bytes']}); "
+          f"watermarks by phase {marks}; device_memory_stats {stats}; "
+          f"max_memory_allocated "
+          f"{on['max_allocated']} bytes; capacity {mem['capacity_bytes']}, "
+          f"headroom {mem['headroom_ratio']} on {card}")
 
 
 def _equal_runs(a, b):
@@ -3939,7 +4098,7 @@ def observability_phase(card):
     import torch
 
     import horovod_tpu_torch as hvd
-    from horovod_tpu_torch import metrics
+    from horovod_tpu_torch import comms_model, metrics
     from horovod_tpu_torch.models import bert as bert_mod
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -3960,6 +4119,12 @@ def observability_phase(card):
     t_phase = time.perf_counter()
     try:
         off = _obs_run(cfg, model, initial, batch, tmp, False)
+        # The comms model's seed: a flat sweep over the one-rank world
+        # (HOROVOD_FORCE_WIRE_MACHINERY=1: NCCL runs every collective).
+        comms_model.reset_for_testing()
+        t_probe = time.perf_counter()
+        probe = hvd.run_comms_microprobe(sizes=OBS_PROBE_SIZES, repeats=3)
+        probe_s = time.perf_counter() - t_probe
         on = _obs_run(cfg, model, initial, batch, tmp, True)
         if not _equal_runs(off, on):
             again = _obs_run(cfg, model, initial, batch, tmp, False)
@@ -4035,6 +4200,7 @@ def observability_phase(card):
               f"{a['overlap_hidden_ratio']}; hvd_mfu_ratio {on['mfu']:.4f} "
               f"(model FLOPs {bert_flops_per_token(cfg, S, P) * B * S:.4g} "
               f"a step over 989 TFLOP/s) on {card}")
+        _hold_comms_and_memory(on, probe, probe_s, card)
         print(f"observability: scrape families {fams}; timeline "
               f"{len(on['timeline'])} events ({ {k: len(v) for k, v in cats.items()} }"
               f" names by category); profiler trace "

@@ -19,7 +19,10 @@ Entry points run on the card unless the caller asks for the CPU
 training). The observability plane (``metrics``, ``tracing``,
 ``timeline``, ``stall``, ``profiler``, ``attribution``) counts and times
 what the job does, on each rank and, through the elastic driver's
-rendezvous server, across the cluster.
+rendezvous server, across the cluster; the comms and memory observatories
+(``comms_model``, with the link classes of ``topology``, and ``memory``)
+fit an alpha-beta price to the collectives and account the card's bytes
+(``run_comms_microprobe`` seeds the first).
 """
 
 from __future__ import annotations
@@ -59,7 +62,8 @@ _EXPORTS = {
         "grouped_allgather", "grouped_allgather_async", "grouped_allreduce",
         "grouped_allreduce_async", "grouped_reducescatter",
         "grouped_reducescatter_async", "cache_stats", "poll",
-        "reducescatter", "reducescatter_async", "synchronize"),
+        "reducescatter", "reducescatter_async", "run_comms_microprobe",
+        "synchronize"),
     "optimizer": ("DistributedOptimizer", "gather_sharded_state",
                   "init_sharded_state", "load_sharded_state",
                   "reshard_opt_state", "resolve_sync_mode",
@@ -101,6 +105,6 @@ def __dir__():
 
 # The public names, and the submodules that are public by name
 # (``hvd.elastic``: ``run``, ``TorchState``, ``ElasticSampler``, ...).
-_SUBMODULES = ("attribution", "checkpoint", "elastic", "metrics",
-               "profiler", "tracing")
+_SUBMODULES = ("attribution", "checkpoint", "comms_model", "elastic",
+               "memory", "metrics", "profiler", "topology", "tracing")
 __all__ = sorted(_SOURCE) + list(_SUBMODULES)

@@ -27,8 +27,8 @@ decomposition :func:`decompose_step` (:191), the cluster merge
 
 Differences from the JAX module: :func:`detect_peak_flops` reads the card
 through torch (one card per process), and the chip table has the H100;
-:func:`predicted_exposed_comm_s` returns None until the port has the
-alpha-beta model (``comms_model.py``).
+:func:`predicted_exposed_comm_s` prices the wire on the link class of the
+world's process set (``topology.py``).
 
 Stdlib-only at import: the rendezvous server imports this module on the
 driver, where torch is never imported; torch is imported only inside
@@ -668,11 +668,25 @@ def note_step(steprec: Mapping) -> dict | None:
 
 
 def predicted_exposed_comm_s() -> float | None:
-    """The alpha-beta model's price for this process's gradient wire (the
-    JAX package's ``comms_model.predict_step_comm_s``). The port has no
-    such model yet, so this is None, as the JAX one is before its model
-    has fitted."""
-    return None
+    """The alpha-beta model's price for this process's gradient wire under
+    the live fusion configuration (:func:`comms_model.predict_step_comm_s`),
+    on the link class of the world's process set: the roofline the
+    observed exposed comm is compared against. None until the model has a
+    ready fit and a noted leaf layout."""
+    try:
+        import sys
+
+        from . import comms_model
+
+        # The world's topology, where this process formed one (never
+        # imports torch: on the driver there is no world).
+        basics = sys.modules.get(f"{__package__}.basics")
+        topo = getattr(getattr(basics, "_state", None), "topology", None)
+        link = (topo.set_link_class(range(topo.size)) if topo is not None
+                else comms_model.DEFAULT_LINK_CLASS)
+        return comms_model.predict_step_comm_s(link_class=link)
+    except Exception:  # noqa: BLE001 — prediction is advisory
+        return None
 
 
 def summary() -> dict:

@@ -7,7 +7,10 @@ come from the launcher's env contract (``HOROVOD_NUM_PROCESSES``,
 ``HOROVOD_PROCESS_ID``, ``HOROVOD_LOCAL_RANK``, ``HOROVOD_LOCAL_SIZE``,
 ``HOROVOD_CROSS_RANK``, ``HOROVOD_CROSS_SIZE``;
 ``horovod_tpu/process_world.py``), and the collectives run over NCCL on
-the card, or over gloo when the caller asks for the CPU.
+the card, or over gloo when the caller asks for the CPU. ``init()`` also
+gathers every rank's host, through the store the group was formed on,
+into the world's ``topology.Topology`` (``_state.topology``, the link
+classes of the comms model), as the reference builds its own at init.
 
 Elastic worlds (``HOROVOD_ELASTIC=1``, workers of ``hvdrun-torch
 --host-discovery-script``; ``horovod_tpu/basics.py:66-172``): ``init()``
@@ -35,6 +38,7 @@ import torch.distributed as dist
 
 from . import abort, process_sets
 from .exceptions import NotInitializedError
+from .topology import Topology
 from .utils import env
 from .utils.logging import get_logger
 
@@ -70,6 +74,8 @@ class _State:
         self.cross_rank = 0
         self.cross_size = 1
         self.device: torch.device | None = None
+        # The world's link structure (topology.Topology): each rank's host.
+        self.topology = None
         # (world version, TCP store address) of the last group this
         # process formed in an elastic world.
         self.last_coordinator: tuple[str, str] | None = None
@@ -188,6 +194,20 @@ def _abort_groups(reason: str = "", generation: int = -1) -> None:
 abort.on_abort(_abort_groups)
 
 
+def _gather_hosts(cross_rank: int, rank: int, size: int) -> list[int]:
+    """Every rank's host index (its ``cross_rank``), in rank order,
+    through the store the group was formed on: a key per rank, no
+    collective on the card (none at all on one rank)."""
+    if size == 1:
+        return [cross_rank]
+    from torch.distributed import distributed_c10d as c10d
+
+    store = c10d._get_default_store()
+    prefix = f"hvd_hosts/{env.get_str('HOROVOD_WORLD_VERSION', 'static')}"
+    store.set(f"{prefix}/{rank}", str(cross_rank))
+    return [int(store.get(f"{prefix}/{r}")) for r in range(size)]
+
+
 def init(device=None, init_method: str | None = None) -> None:
     """Form the world. Idempotent.
 
@@ -258,6 +278,8 @@ def init(device=None, init_method: str | None = None) -> None:
         _state.cross_size = env.get_int(env.CROSS_SIZE,
                                         -(-size // max(local_size, 1)))
         _state.device = device
+        _state.topology = Topology(
+            _gather_hosts(_state.cross_rank, rank, size), rank)
         _state.initialized = True
         process_sets._reset(size)
         for hook in list(_init_hooks):
@@ -295,6 +317,7 @@ def shutdown() -> None:
                 get_logger().warning("shutdown hook failed: %s", e)
         _state.initialized = False
         _state.device = None
+        _state.topology = None
 
 
 def sync_stream(device=None) -> None:

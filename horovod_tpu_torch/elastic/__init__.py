@@ -44,7 +44,7 @@ from ..checkpoint import _host_copy
 from ..functions import (broadcast_object, broadcast_optimizer_state,
                          broadcast_parameters)
 from .runner import run  # noqa: F401
-from .state import ExtrasState, ObjectState, State  # noqa: F401
+from .state import ExtrasState, ObjectState, State, note_memory  # noqa: F401
 
 SHARDED_STATE_REFUSED = (
     "TorchState does not take a sync_mode={mode!r} optimizer: its commits "
@@ -62,7 +62,9 @@ class TorchState(ExtrasState):
     copy; EVERY plain attribute (incl. ones assigned after construction)
     is tracked; ``sync()`` broadcasts everything from rank 0. ``restore()``
     also drops the ``DistributedOptimizer``'s buckets and in-flight work
-    and the parameters' gradients, which belong to the failed step.
+    and the parameters' gradients, which belong to the failed step. Built,
+    it notes the model's parameters and the optimizer's state on the
+    memory observatory (``state.note_memory``).
     """
 
     def __init__(self, model=None, optimizer=None, **extras: Any):
@@ -76,6 +78,7 @@ class TorchState(ExtrasState):
         self.optimizer = optimizer
         self._saved_model = None
         self._saved_opt = None
+        note_memory(model, optimizer)
         self.commit()
 
     def commit(self) -> None:

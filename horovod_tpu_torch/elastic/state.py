@@ -38,6 +38,31 @@ from ..exceptions import RemovedFromWorldError
 from ..functions import broadcast_object
 
 
+def note_memory(model, optimizer) -> None:
+    """Note the live training state on the memory observatory, as the
+    reference's ``TpuState._note_memory`` does (``elastic/state.py:237``):
+    the model's parameters, each named for the forensics table, as
+    ``params``, and the optimizer's state on the parameters' device as
+    ``opt_state`` (empty before its first step; the
+    ``DistributedOptimizer`` notes it again after that step). Never
+    raises."""
+    try:
+        from .. import memory
+
+        if model is not None:
+            memory.note_named("params", memory.named_leaf_bytes(model))
+        if optimizer is not None:
+            from ..optimizer import _state_bytes
+
+            inner = getattr(optimizer, "_opt", optimizer)
+            params = [p for g in inner.param_groups for p in g["params"]]
+            if params:
+                memory.note_resident(
+                    "opt_state", _state_bytes(inner, params[0].device))
+    except Exception:  # noqa: BLE001 — instrumentation only
+        pass
+
+
 class State:
     """Base elastic state with reset-callback plumbing."""
 

@@ -28,6 +28,11 @@ the points the port's modules fire:
   install-time verification must reject it)
 - ``driver.snapshot``    — every control-plane snapshot save of the driver
 - ``driver.takeover``    — a restarted driver's takeover from the snapshot
+- ``comms.link``         — every comms-model observation of a measured
+  collective (``delay`` inflates the observed latency: a degraded link)
+- ``memory.pressure``    — every traced step's entry (``drop`` raises a
+  synthetic out-of-memory error at the step boundary: the memory
+  observatory's forensics dump it and re-raise)
 
 Each point can be armed (via API or env) to **drop**, **delay**, **raise**,
 or **hang** on the Nth hit, for a window of consecutive hits, so chaos
@@ -84,6 +89,14 @@ PEER_VERIFY = "peer.verify"
 PEER_CORRUPT = "peer.corrupt"
 DRIVER_SNAPSHOT = "driver.snapshot"
 DRIVER_TAKEOVER = "driver.takeover"
+# Every comms-model observation of a measured collective
+# (``comms_model.CommsModel.observe``): ``delay`` inflates the observed
+# latency (a degraded link), ``drop`` loses the sample, never the op.
+COMMS_LINK = "comms.link"
+# Every traced step's entry (``parallel/data_parallel.py``): ``drop`` raises
+# a synthetic out-of-memory error at the step boundary, which dumps the
+# memory flight record and re-raises.
+MEMORY_PRESSURE = "memory.pressure"
 
 _MODES = ("drop", "delay", "raise", "hang", "corrupt")
 _DEFAULT_HANG_S = 3600.0

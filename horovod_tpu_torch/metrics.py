@@ -21,12 +21,16 @@ consumers:
    the wall and monotonic clocks (``HOROVOD_EVENT_LOG_MAX_BYTES`` rotates
    it to ``<path>.prev``).
 
-Families whose feeders come with later modules (the comms and memory
-observatories, the policy, integrity and planner planes, MoE, serving) are
-defined and not fed. Where the port's sensors differ: the gradient-flush
-families count one observation per update (the port has no trace), and
-on the card an eager collective's latency is its device time from CUDA
-events (``ops/collective_ops.py``).
+The comms and memory observatories (``comms_model.py``, ``memory.py``)
+feed the ``hvd_link_*``, ``hvd_collective_efficiency_ratio``,
+``hvd_comms_residual_seconds`` and ``hvd_hbm_*`` families; their zero
+cells carry the port's link classes, ``intra_host`` and ``inter_host``
+(``topology.py``), where the JAX module's carry ``ici`` and ``dcn``.
+Families whose feeders come with later modules (the policy, integrity and
+planner planes, MoE, serving) are defined and not fed. Where the port's
+sensors differ: the gradient-flush families count one observation per
+update (the port has no trace), and on the card an eager collective's
+latency is its device time from CUDA events (``ops/collective_ops.py``).
 
 Everything is per-process; the scrape aggregates by per-rank labels.
 Counters only go up (until :func:`reset_for_testing`), gauges hold the
@@ -946,7 +950,7 @@ def _materialize_checkpoint_cells() -> None:
     # still reports the roofline series at 0, so the premerge scrape
     # gate can assert the instruments exist and dashboards can tell
     # "no model yet" from "not measuring".
-    for lc in ("ici", "dcn"):
+    for lc in ("intra_host", "inter_host"):  # the port's link classes
         LINK_LATENCY.labels(link_class=lc, op="allreduce")
         LINK_BANDWIDTH.labels(link_class=lc, op="allreduce",
                               algorithm="flat")

@@ -46,7 +46,13 @@ orders the current stream after the collective, so the latency
 (``hvd_collective_latency_seconds``, ``hvd_alltoall_latency_seconds``) is
 the device time between CUDA events recorded before the launch and after
 the wait, and the ticket closes when the second event has completed: the
-stall inspector reaps it (``stall.StallInspector.end_when``). No
+stall inspector reaps it (``stall.StallInspector.end_when``). The same
+latency is one sample of the alpha-beta model
+(``comms_model.observe(kind, "flat", link_class, bytes, seconds)``, as
+``horovod_tpu/ops/collective_ops.py:484-495`` feeds it), taken when the
+latency is, so a sample adds no synchronization; the set's link class
+comes from the world's topology (``topology.py``).
+:func:`run_comms_microprobe` sweeps payload sizes to seed the model. No
 collective synchronizes the device; inside a sampled or watched training
 step (``tracing.StepTracer.syncing``) a finish waits for the current
 stream, so the step's span covers the collective.
@@ -64,7 +70,7 @@ from typing import Any, Callable, NamedTuple, Sequence
 import torch
 import torch.distributed as dist
 
-from .. import abort, basics, metrics, tracing
+from .. import abort, basics, comms_model, metrics, tracing
 from ..exceptions import HorovodInternalError, HorovodTpuError
 from ..process_sets import global_process_set
 from ..utils import env
@@ -145,20 +151,25 @@ def cache_stats(reset: bool = False) -> dict:
 
 
 def _link_class(ps) -> str:
-    """``intra_host`` when every member of the set is on this rank's host
-    (ranks are laid out ``local_size`` to a host, in rank order), else
-    ``inter_host``: the span's ``link_class``, until the port's topology
-    names the links (NVLink, the network)."""
-    st = basics._state
-    per_host = max(st.local_size, 1)
-    return ("intra_host" if len({r // per_host for r in ps.ranks}) == 1
-            else "inter_host")
+    """The worst link the set's ranks span (``topology.Topology``'s
+    ``set_link_class``: ``intra_host`` or ``inter_host``): the span's and
+    the comms model's ``link_class``."""
+    return basics._state.topology.set_link_class(ps.ranks)
 
 
-def _observe_latency(kind: str, seconds: float) -> None:
+def _observe_latency(kind: str, seconds: float, nbytes: int = 0,
+                     link_class: str | None = None) -> None:
+    """The latency histograms, and (``link_class`` given) one alpha-beta
+    sample of the collective: ``nbytes`` over the set's worst link took
+    ``seconds`` (``comms_model.observe``)."""
     metrics.COLLECTIVE_LATENCY.observe(seconds, kind=kind)
     if kind == "alltoall":
         metrics.ALLTOALL_LATENCY.observe(seconds, algorithm="flat")
+    if link_class is not None:
+        try:
+            comms_model.observe(kind, "flat", link_class, nbytes, seconds)
+        except Exception:  # noqa: BLE001 — the model is advisory
+            pass
 
 
 class _Dispatch:
@@ -166,7 +177,8 @@ class _Dispatch:
     the dispatch counts, the stall ticket, the tracer span and the
     latency (see the module docstring)."""
 
-    def __init__(self, kind: str, tensors: Sequence[torch.Tensor], ps):
+    def __init__(self, kind: str, tensors: Sequence[torch.Tensor], ps,
+                 sample: bool = True):
         from ..stall import get_inspector
         from ..timeline import mark_cycle
 
@@ -187,6 +199,8 @@ class _Dispatch:
             "algorithm": "flat",
             "link_class": _link_class(ps),
         }
+        # Whether the latency is an alpha-beta sample.
+        self._link = self.args["link_class"] if sample else None
         self._inspector = get_inspector()
         self._ticket = self._inspector.begin(f"{kind}[{shape}]")
         self._tracer = tracing.get_tracer()
@@ -205,8 +219,10 @@ class _Dispatch:
     def finished(self) -> None:
         """The finish returned: take the latency and close the ticket, at
         once on the CPU, when the device has finished on the card."""
+        nbytes, link = self.args["bytes"], self._link
         if not self._cuda:
-            _observe_latency(self.kind, time.perf_counter() - self._t0)
+            _observe_latency(self.kind, time.perf_counter() - self._t0,
+                             nbytes, link)
             self._inspector.end(self._ticket)
         else:
             if self._tracer.syncing():
@@ -217,16 +233,18 @@ class _Dispatch:
             self._inspector.end_when(
                 self._ticket, end.query,
                 lambda: _observe_latency(kind,
-                                         start.elapsed_time(end) / 1e3))
+                                         start.elapsed_time(end) / 1e3,
+                                         nbytes, link))
         self._tracer.end_span(self._span, self.args)
 
 
-def _run(kind, tensors, ps, compute):
+def _run(kind, tensors, ps, compute, sample: bool = True):
     """A synchronous op: ``compute()`` (its launch and finish) inside its
-    dispatch's instruments and a ``kind`` activity."""
+    dispatch's instruments and a ``kind`` activity; ``sample=False``
+    keeps its latency out of the comms model."""
     from ..timeline import activity
 
-    d = _Dispatch(kind, tensors, ps)
+    d = _Dispatch(kind, tensors, ps, sample)
     with activity(kind, "collective", d.args):
         try:
             out = compute()
@@ -953,3 +971,86 @@ def poll(handle: int) -> bool:
     if launched is None:
         raise ValueError(f"unknown handle {handle}")
     return all(w.is_completed() for w in launched.works)
+
+
+# -- The comms model's microprobe --------------------------------------------
+
+
+# Cycles of the spin (``torch.cuda._sleep``) queued on the card ahead of
+# each size's timed microprobe calls: about 10 ms at an H100's clock,
+# longer than the eager path's host dispatch of those calls, so their CUDA
+# events bracket the device's work on a busy stream and not the host's
+# launches on an idle one.
+PROBE_HOLD_CYCLES = 20_000_000
+
+
+def run_comms_microprobe(process_set=None, sizes=None,
+                         repeats: int = 3) -> dict:
+    """Seed the comms model (``comms_model.py``) with a sweep of payload
+    sizes over a process set: at each size a warm-up call and then
+    ``repeats`` timed calls of ``allreduce``, ``reducescatter``,
+    ``allgather`` and ``alltoall`` (Sum, float32). Each timed call's
+    latency reaches the model as every eager collective's does, under the
+    set's link class and algorithm ``flat``. The warm-up calls feed none
+    (``sample=False``): a communicator's first collective of a kind sets
+    it up, and a process's first dispatch sets up its instruments. On the
+    card the timed calls of a size are queued back to back behind a spin
+    of ``PROBE_HOLD_CYCLES`` and a second warm-up call, which lines the
+    ranks' streams up: each call's events then hold its device time, not
+    the host's dispatch nor the ranks' skew. Collective: every member
+    calls it at the same point. Returns ``{op: {nbytes: [seconds, ...]}}``:
+    each timed call's device time on the card, its host time on the CPU,
+    under the bytes as dispatched (the set's total payload,
+    ``hvd_collective_payload_bytes``'s).
+
+    Port of ``horovod_tpu/ops/collective_ops.py:966``: its one flat pass
+    (the reference's per-algorithm passes run with its comms planner on,
+    which is not ported)."""
+    ps = _resolve_process_set(process_set)
+    n = ps.size()
+    sizes = [int(s) for s in (sizes or comms_model.DEFAULT_PROBE_SIZES)]
+    device = basics._state.device
+    cuda = device.type == "cuda"
+    out: dict[str, dict] = {}
+    for op_name, launch in (
+        ("allreduce", lambda a: _launch_allreduce(a, Sum, 1.0, 1.0, ps)),
+        ("reducescatter",
+         lambda a: _launch_reducescatter(a, Sum, 1.0, 1.0, ps)),
+        ("allgather", lambda a: _launch_allgather(a, ps)),
+        ("alltoall", lambda a: _launch_alltoall(a, None, ps)),
+    ):
+        def run(a, sample=True, op_name=op_name, launch=launch):
+            return _run(op_name, [a], ps, lambda: launch(a).finish(),
+                        sample)
+
+        per_op: dict[int, list] = {}
+        for nbytes in sizes:
+            # Rows of a multiple of n float32 elements, so that
+            # reducescatter's and alltoall's dim 0 divides by the set size.
+            elems = max(n, (nbytes // 4 // n) * n)
+            x = torch.ones(elems, dtype=torch.float32, device=device)
+            seconds = per_op.setdefault(n * elems * 4, [])
+            run(x, sample=False)
+            basics.sync_stream()
+            if cuda:
+                torch.cuda._sleep(PROBE_HOLD_CYCLES)
+                run(x, sample=False)
+            events = []
+            for _ in range(max(1, int(repeats))):
+                if cuda:
+                    events.append((torch.cuda.Event(enable_timing=True),
+                                   torch.cuda.Event(enable_timing=True)))
+                    events[-1][0].record()
+                    run(x)
+                    events[-1][1].record()
+                else:
+                    t0 = time.perf_counter()
+                    run(x)
+                    seconds.append(time.perf_counter() - t0)
+            basics.sync_stream()
+            seconds.extend(a.elapsed_time(b) / 1e3 for a, b in events)
+        out[op_name] = per_op
+    # The card's samples land when the inspector reaps their end events.
+    _reap_collectives()
+    comms_model.get_model().note_probe()
+    return out

@@ -21,8 +21,9 @@ ceil(numel/n)``), and one ``all_gather_into_tensor`` of the owned slices
 back to full tensors.
 
 Each bucket's launch and finish run inside a ``hvd.<op>.bucket<k>`` range
-(``profiler.annotate_collective``), and :func:`segment_leaves` sets
-``hvd_overlap_segments``.
+(``profiler.annotate_collective``), :func:`segment_leaves` sets
+``hvd_overlap_segments``, and each bucket plan notes its leaf layout on
+the comms and memory observatories (:func:`note_leaf_layout`).
 """
 
 from __future__ import annotations
@@ -144,6 +145,31 @@ def bucket_leaves(leaves: Sequence[tuple[int, torch.dtype]],
     return buckets
 
 
+def note_leaf_layout(leaves: Sequence[tuple[int, torch.dtype]],
+                     wire_dtypes: Sequence[torch.dtype] | None = None
+                     ) -> None:
+    """Note a bucket plan's leaf layout on the observatories, as the
+    reference's fusion pass does (``horovod_tpu/ops/fusion.py:236-262``):
+    the wire's ``[(nbytes, dtype)]`` on the comms model (the input of
+    ``comms_model.predict_flush_cost``) and the parameters' ``[(numel,
+    itemsize, dtype)]`` on the memory observatory (the autotune memory
+    guard's). ``leaves`` are ``(numel, dtype)`` pairs, ``wire_dtypes``
+    the dtype each crosses the wire in (default: its own). Called where a
+    bucket plan is made (the optimizer's constructor, each grouped
+    allreduce), never per step. Never raises."""
+    try:
+        wire_dtypes = list(wire_dtypes or [d for _, d in leaves])
+        from .. import comms_model, memory
+
+        comms_model.get_model().note_leaf_sizes([
+            (int(m) * w.itemsize, memory.dtype_name(w))
+            for (m, _), w in zip(leaves, wire_dtypes)])
+        memory.get_observatory().note_layout([
+            (int(m), d.itemsize, memory.dtype_name(d)) for m, d in leaves])
+    except Exception:  # noqa: BLE001 — instrumentation is best-effort
+        pass
+
+
 def pack(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     """One new flat buffer holding the tensors back to back."""
     return torch.cat([t.reshape(-1) for t in tensors])
@@ -172,8 +198,9 @@ def start_fused_allreduce(tensors: Sequence[torch.Tensor], op,
                                  start_allreduce)
 
     ps = _resolve_process_set(process_set)
-    buckets = bucket_leaves([(t.numel(), t.dtype) for t in tensors],
-                            threshold_bytes)
+    leaves = [(t.numel(), t.dtype) for t in tensors]
+    buckets = bucket_leaves(leaves, threshold_bytes)
+    note_leaf_layout(leaves)
     order = list(reversed(buckets)) if issue_reversed else buckets
     launched = []
     for k, bucket in enumerate(order):

@@ -67,7 +67,13 @@ buckets (``hvd_grad_sync_bytes``, ``hvd_grad_sync_buckets``; the JAX
 package counts one per trace, the port, which has no trace, one per
 update). Each bucket's launch and finish run inside a
 ``hvd.<op>.bucket<k>`` range (``profiler.annotate_collective``). The
-sharded and fsdp modes set ``hvd_resident_state_bytes``.
+sharded and fsdp modes set ``hvd_resident_state_bytes``. Building the
+buckets notes their leaf layout on the comms and memory observatories
+(``fusion.note_leaf_layout``: once per bucket plan, not per step); every
+mode notes the parameters it holds (sharded: with its shard copies; fsdp:
+the shards) when it is built, and the wrapped optimizer's state on the
+parameters' device after its first update, as ``params`` and
+``opt_state`` (``memory.note_named`` and ``note_resident``).
 """
 
 from __future__ import annotations
@@ -76,7 +82,7 @@ import weakref
 
 import torch
 
-from . import abort, basics, metrics
+from . import abort, basics, memory, metrics
 from .attribution import (CAT_COLLECTIVE, CAT_PHASE, SPAN_COLLECTIVE,
                           SPAN_OPTIMIZER_UPDATE)
 from .compression import Compression
@@ -129,10 +135,21 @@ def _note_flush(sync_mode: str, nbytes: int, nbuckets: int) -> None:
     metrics.GRAD_SYNC_BUCKETS.observe(nbuckets, sync_mode=sync_mode)
 
 
-def _state_bytes(opt) -> int:
-    """Bytes of the tensors in a ``torch.optim.Optimizer``'s state."""
+def _state_bytes(opt, device: torch.device | None = None) -> int:
+    """Bytes of the tensors in a ``torch.optim.Optimizer``'s state; with
+    ``device``, of those on it only (Adam's ``step`` scalars stay on the
+    host unless ``capturable`` or ``fused``)."""
     return sum(v.numel() * v.element_size() for st in opt.state.values()
-               for v in st.values() if torch.is_tensor(v))
+               for v in st.values() if torch.is_tensor(v)
+               and (device is None or v.device == device))
+
+
+def _note_opt_state(opt, params) -> None:
+    """Note the wrapped optimizer's state (set by its first step) on its
+    ``params``' device as this rank's resident ``opt_state``."""
+    if params:
+        memory.note_resident("opt_state",
+                             _state_bytes(opt, params[0].device))
 
 
 def _rebuild_over(optimizer, groups):
@@ -161,7 +178,7 @@ class _DistributedOptimizer:
 
     def __init__(self, optimizer, op, compression, backward_passes_per_step,
                  prescale_factor, postscale_factor, process_set, num_groups,
-                 fusion_threshold_bytes):
+                 fusion_threshold_bytes, names=None):
         self._opt = optimizer
         self._op = op
         self._compression = compression
@@ -178,6 +195,10 @@ class _DistributedOptimizer:
                     seen.add(id(p))
                     self._params.append(p)
         self._index = {id(p): i for i, p in enumerate(self._params)}
+        # Each parameter's name (named_parameters), for the memory
+        # observatory's forensics.
+        self._names = [(names or {}).get(id(p), f"param{i}")
+                       for i, p in enumerate(self._params)]
         self._base_threshold = fusion_threshold_bytes
         self._int8 = _is_int8(compression)
         # Updates so far: the int8 wire's rounding salt.
@@ -205,6 +226,11 @@ class _DistributedOptimizer:
         self._bucket_of = {id(p): bi for bi, b in enumerate(self._buckets)
                            for p in b}
         self._threshold = fusion_threshold_bytes
+        fusion.note_leaf_layout(
+            [(p.numel(), p.dtype) for p in self._params],
+            [torch.int8] * len(self._params) if self._int8 else wire_dtypes)
+        self._note_params()
+        self._state_noted = False
         self._hooks = []
         self._detached = False  # remove_hooks() was called
         self._read_world()
@@ -215,6 +241,11 @@ class _DistributedOptimizer:
 
     def __getattr__(self, item):
         return getattr(self._opt, item)
+
+    def _note_params(self) -> None:
+        """Note the parameters this rank holds on the memory
+        observatory."""
+        memory.note_named("params", zip(self._names, self._params))
 
     def _skips_wire(self) -> bool:
         """A one-member set reduces to the identity: skip the wire and
@@ -399,7 +430,12 @@ class _DistributedOptimizer:
         if (self._nonfinite_action is not None
                 and not self._tripwire(all_finite(reduced))):
             return None
-        return self._opt.step(closure)
+        out = self._opt.step(closure)
+        if not self._state_noted:
+            # The state's size is set by its first step.
+            self._state_noted = True
+            _note_opt_state(self._opt, self._params)
+        return out
 
     def _tripwire(self, finite: bool) -> bool:
         """Count, log, and raise or report what the step should do: False
@@ -460,10 +496,10 @@ class _ShardedOptimizer(_DistributedOptimizer):
 
     def __init__(self, optimizer, op, compression, prescale_factor,
                  postscale_factor, process_set, num_groups,
-                 fusion_threshold_bytes):
+                 fusion_threshold_bytes, names=None):
         super().__init__(optimizer, op, compression, 1, prescale_factor,
                          postscale_factor, process_set, num_groups,
-                         fusion_threshold_bytes)
+                         fusion_threshold_bytes, names)
         # Each param group's parameters, by index (a parameter in two
         # groups counts in the first).
         seen: set[int] = set()
@@ -487,6 +523,14 @@ class _ShardedOptimizer(_DistributedOptimizer):
         # The sharded wire runs at every size, as the reference's does.
         return False
 
+    def _note_params(self) -> None:
+        """The full parameters and this rank's flat shard copies (the
+        Parameters the wrapped optimizer steps), once both exist."""
+        if hasattr(self, "_shards"):
+            memory.note_named("params", zip(
+                self._names + [f"{n} (shard)" for n in self._names],
+                self._params + self._shards))
+
     def _own_shards(self, like) -> None:
         """Own this rank's shards in the process set's current world, with
         a new wrapped optimizer of ``like``'s class over them (the
@@ -497,6 +541,7 @@ class _ShardedOptimizer(_DistributedOptimizer):
             [p.numel() for p in self._params], n)
         self._shards = [torch.nn.Parameter(_own_slice(p, s, n, r))
                         for p, s in zip(self._params, self._sizes)]
+        self._note_params()
         self._state_noted = False
         self._opt = _rebuild_over(like, [
             {**{k: v for k, v in g.items() if k != "params"},
@@ -594,6 +639,7 @@ class _ShardedOptimizer(_DistributedOptimizer):
             self._state_noted = True
             metrics.RESIDENT_BYTES.set(_state_bytes(self._opt),
                                        kind="opt_state", sync_mode="sharded")
+            _note_opt_state(self._opt, self._shards)
         with torch.no_grad():
             for p, full in zip(self._params, self._gather(salt)):
                 p.copy_(full)
@@ -640,7 +686,8 @@ class _FsdpOptimizer:
     place, with no allgather."""
 
     def __init__(self, optimizer, op, compression, prescale_factor,
-                 postscale_factor, process_set, fusion_threshold_bytes):
+                 postscale_factor, process_set, fusion_threshold_bytes,
+                 names=None):
         from .parallel.param_sharding import shard_meta
 
         self._op = op
@@ -668,9 +715,14 @@ class _FsdpOptimizer:
         self._itemsize: dict[torch.dtype, int] = {}
         self._wire_bytes = sum(p.numel() * self.wire_itemsize(p.dtype)
                                for p in self._params)
-        self._nbuckets = len(bucket_leaves(
-            [(p.numel(), p.dtype) for p in self._params],
-            fusion_threshold_bytes))
+        leaves = [(p.numel(), p.dtype) for p in self._params]
+        self._nbuckets = len(bucket_leaves(leaves, fusion_threshold_bytes))
+        fusion.note_leaf_layout(leaves, [
+            torch.int8 if self._int8 else compression.compress(
+                torch.empty(0, dtype=d, device="meta"))[0].dtype
+            for _, d in leaves])
+        self._names = [(names or {}).get(id(p), f"param{i}")
+                       for i, p in enumerate(self._params)]
         index = {id(p): i for i, p in enumerate(self._params)}
         self._groups = [[index[id(p)] for p in members]
                         for _, members in groups]
@@ -711,6 +763,8 @@ class _FsdpOptimizer:
         metrics.RESIDENT_BYTES.set(
             sum(s.numel() * s.element_size() for s in self.shards),
             kind="params", sync_mode="fsdp")
+        memory.note_named("params", zip(
+            [f"{n} (shard)" for n in self._names], self.shards))
         self._state_noted = False
 
     def _reform(self, full_params) -> None:
@@ -808,6 +862,7 @@ class _FsdpOptimizer:
             self._state_noted = True
             metrics.RESIDENT_BYTES.set(_state_bytes(self._opt),
                                        kind="opt_state", sync_mode="fsdp")
+            _note_opt_state(self._opt, self.shards)
         return out
 
     _tripwire = _DistributedOptimizer._tripwire
@@ -877,11 +932,12 @@ def DistributedOptimizer(optimizer, named_parameters=None,
     it releases the parameters' full storage, see ``_FsdpOptimizer``); the
     latter two take op Average or Sum and ``backward_passes_per_step=1``,
     and fsdp no ``num_groups > 1``, raising ``SyncModeIneligibleError``
-    otherwise. ``named_parameters`` exists for signature parity and is
-    unused: collectives are matched by their fixed issue order. ``init()``
-    must have run.
+    otherwise. ``named_parameters`` names the parameters in the memory
+    observatory's forensics only: collectives are matched by their fixed
+    issue order. ``init()`` must have run.
     """
-    del named_parameters
+    names = ({id(p): n for n, p in named_parameters}
+             if named_parameters is not None else None)
     sync_mode = resolve_sync_mode(sync_mode)
     op = _resolve_op(op, None)
     k = int(backward_passes_per_step)
@@ -902,13 +958,15 @@ def DistributedOptimizer(optimizer, named_parameters=None,
     if sync_mode == "sharded":
         return _ShardedOptimizer(optimizer, op, compression, prescale_factor,
                                  postscale_factor, ps, int(num_groups),
-                                 fusion_threshold_bytes)
+                                 fusion_threshold_bytes, names)
     if sync_mode == "fsdp":
         return _FsdpOptimizer(optimizer, op, compression, prescale_factor,
-                              postscale_factor, ps, fusion_threshold_bytes)
+                              postscale_factor, ps, fusion_threshold_bytes,
+                              names)
     return _DistributedOptimizer(optimizer, op, compression, k,
                                  prescale_factor, postscale_factor, ps,
-                                 int(num_groups), fusion_threshold_bytes)
+                                 int(num_groups), fusion_threshold_bytes,
+                                 names)
 
 
 

@@ -26,7 +26,10 @@ shipped to the rendezvous server; those calls are synced: each phase ends
 after the work it queued on the current CUDA stream has run
 (``tracing.phase``), so the phase spans time the card and a synced step
 feeds step-time attribution (``attribution.note_step``). The other calls
-add no synchronization: their spans time the launch.
+add no synchronization: their spans time the launch. An out-of-memory
+error (``torch.cuda.OutOfMemoryError``, ``memory.is_oom_error``) out of a
+call dumps the memory observatory's flight record and is raised again
+unchanged (:150-180); the ``memory.pressure`` fault point injects one.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ from typing import Any, Callable
 
 import torch
 
-from .. import tracing
+from .. import faults, memory, tracing
 from ..attribution import CAT_PHASE, SPAN_FORWARD_BACKWARD
 from ..ops.collective_ops import Average, allreduce
 from ..utils import env
@@ -72,19 +75,34 @@ class _StallWatchedStep:
         self._trace_calls += 1
         sample = tracing.sample_every()
         sample_due = sample > 0 and self._trace_calls % sample == 0
-        with activity(self._prefix, "step"), \
-                tracing.get_tracer().step_scope(self._prefix) as rec:
-            rec.sync = watch_due or sample_due
-            if watch_due:
-                with watch(name=f"{self._prefix}.{self._calls}"):
+        try:
+            if faults.fire(faults.MEMORY_PRESSURE):
+                # drop: a synthetic out-of-memory error at the step
+                # boundary, caught and dumped just below as a real one is.
+                raise torch.cuda.OutOfMemoryError(
+                    "out of memory: injected memory pressure (fault point "
+                    "memory.pressure)")
+            with activity(self._prefix, "step"), \
+                    tracing.get_tracer().step_scope(self._prefix) as rec:
+                rec.sync = watch_due or sample_due
+                if watch_due:
+                    with watch(name=f"{self._prefix}.{self._calls}"):
+                        out = self._fn(*args, **kwargs)
+                        basics.sync_stream()
+                else:
                     out = self._fn(*args, **kwargs)
-                    basics.sync_stream()
-            else:
-                out = self._fn(*args, **kwargs)
-                if sample_due:
-                    basics.sync_stream()
-            rec.synced = rec.sync
-            rec.ship = sample_due
+                    if sample_due:
+                        basics.sync_stream()
+                rec.synced = rec.sync
+                rec.ship = sample_due
+        except Exception as exc:
+            # The step boundary is the memory observatory's forensics
+            # consumer: an out-of-memory error dumps the memory flight
+            # record (the largest resident leaves, the model's drift) and
+            # goes on up untouched; recovering is the elastic loop's.
+            if memory.is_oom_error(exc):
+                memory.dump_oom_record(exc, step=self._prefix)
+            raise
         return out
 
 

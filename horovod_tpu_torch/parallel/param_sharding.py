@@ -99,7 +99,8 @@ class ShardedParams:
 def shard_params(params, world_size: int | None = None) -> ShardedParams:
     """Shard a dict or list of full tensors into the fsdp layout for
     ``world_size`` ranks (default: the world's size); an already-sharded
-    input is re-sharded. Host math, no collective."""
+    input is re-sharded. Host math, no collective. Notes a rank's resident
+    bytes (one row of each leaf) on the memory observatory."""
     if isinstance(params, ShardedParams):
         return shard_params(unshard_params(params), world_size)
     if world_size is None:
@@ -117,7 +118,21 @@ def shard_params(params, world_size: int | None = None) -> ShardedParams:
     rows = [torch.nn.functional.pad(t.detach().reshape(-1),
                                     (0, n * s - t.numel())).view(n, s)
             for t, s in zip(leaves, meta.shard_sizes)]
+    _note_param_rows(meta)
     return ShardedParams(rows, meta)
+
+
+def _note_param_rows(meta: ShardMeta) -> None:
+    """Note the per-rank resident bytes of a sharded layout (one
+    ``ceil(size/n)`` row of every leaf) on the memory observatory, each
+    leaf named for its forensics table, as the reference's
+    ``_note_param_leaves`` does."""
+    from .. import memory
+
+    names = meta.names or tuple(f"param{i}" for i in range(len(meta.shapes)))
+    memory.note_named("params", (
+        (name, s * dtype.itemsize)
+        for name, s, dtype in zip(names, meta.shard_sizes, meta.dtypes)))
 
 
 def unshard_params(sp: ShardedParams):

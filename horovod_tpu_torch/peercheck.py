@@ -207,6 +207,12 @@ class ReplicaPool:
     def __init__(self):
         self._lock = threading.Lock()
         self._slots: dict[str, ReplicaRecord] = {}
+        # The memory observatory polls the pool's bytes live
+        # (hvd_hbm_bytes{kind="peer_pool"}): replicas arrive from peers
+        # outside any noting call site.
+        from . import memory
+
+        memory.get_observatory().register_supplier("peer_pool", self.nbytes)
 
     def nbytes(self) -> int:
         """Payload bytes held in the pool (all slots)."""

@@ -92,11 +92,14 @@ def summary() -> dict:
     goodput ledger, the checkpoint and replication ledger, the straggler
     view (this rank's clock offset and, with a rendezvous server, the
     cluster's skew), the parameter-sharding ledger, the step-time
-    attribution plane (the last synced step's decomposition and MFU) and
-    ``cache_stats()`` (per-kind eager dispatches). The JAX package's
-    ``comms``, ``memory`` and ``integrity`` sections come with their
-    modules."""
-    from . import attribution, metrics, tracing
+    attribution plane (the last synced step's decomposition and MFU), the
+    communication observatory (``comms``: the fitted alpha-beta model, its
+    samples and residual), the memory observatory (``memory``: resident
+    bytes by kind, phase watermarks, the predicted footprint and its
+    drift, the largest leaves) and ``cache_stats()`` (per-kind eager
+    dispatches). The JAX package's ``integrity`` section comes with its
+    module."""
+    from . import attribution, comms_model, memory, metrics, tracing
     from .ops.collective_ops import cache_stats
 
     return {
@@ -107,6 +110,8 @@ def summary() -> dict:
         "stragglers": tracing.straggler_summary(),
         "fsdp": metrics.fsdp_summary(),
         "attribution": attribution.summary(),
+        "comms": comms_model.summary(),
+        "memory": memory.summary(),
         **cache_stats(),
     }
 

@@ -59,7 +59,7 @@ import random
 import threading
 import time
 
-from ... import abort, faults, metrics, tracing
+from ... import abort, comms_model, faults, memory, metrics, tracing
 from ...elastic.runner import notification_manager
 from ...utils.env import get_float
 from ...utils.logging import get_logger
@@ -388,8 +388,9 @@ class ElasticWorkerContext:
         Failures are swallowed: the poll loop owns driver-loss escalation,
         and a missed heartbeat only matters to the driver's deadline.
 
-        The beat carries the metrics snapshot (the cluster scrape), and
-        its round trip is a clock-offset sample (``tracing.ClockSync``:
+        The beat carries the metrics snapshot (the cluster scrape) and the
+        comms-model and memory payloads (``GET /comms``, ``GET /memory``),
+        and its round trip is a clock-offset sample (``tracing.ClockSync``:
         the server's reply carries its wall clock); after it the tracer's
         window ships, at most every ``HOROVOD_TRACE_SHIP_SECONDS``, when
         shipping is on."""
@@ -404,6 +405,14 @@ class ElasticWorkerContext:
         }
         if os.environ.get("HOROVOD_METRICS_PIGGYBACK", "1") != "0":
             body["metrics"] = metrics.snapshot()
+            # The comms and memory observatories ride the same beat (a
+            # handful of fits, a few ints), so the rendezvous server's
+            # GET /comms and GET /memory serve cluster-merged views.
+            try:
+                body["comms"] = comms_model.get_model().payload()
+                body["memory"] = memory.get_observatory().payload()
+            except Exception:  # noqa: BLE001 — liveness beats observability
+                pass
         try:
             t_send = clock.now()
             reply = self._hb_client.put(HEARTBEAT_SCOPE, self.name,

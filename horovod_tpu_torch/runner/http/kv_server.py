@@ -49,8 +49,9 @@ rung assembles.
 Observability (``:267-283``, ``:553-854``, ``:1051-1226``): workers put
 sampled step traces to ``PUT /trace/<worker>`` (the ``trace`` scope,
 at most 1 MiB a payload, replaced per worker) and piggyback their metrics
-snapshots on their heartbeats. Four read-only routes are exempt from the
-HMAC (a Prometheus scraper or Perfetto cannot sign):
+snapshots, comms-model payloads and memory payloads on their heartbeats.
+Six read-only routes are exempt from the HMAC (a Prometheus scraper or
+Perfetto cannot sign):
 
 - ``GET /metrics``: Prometheus text of the driver's gauges (generation,
   world size, blacklisted hosts, fenced writes, heartbeat ages, driver
@@ -65,7 +66,13 @@ HMAC (a Prometheus scraper or Perfetto cannot sign):
 - ``GET /criticalpath``: the per-step attribution
   (``attribution.analyze_cluster``) with the sentinel's state;
 - ``GET /stragglers``: the arrival-skew attribution
-  (``tracing.compute_skew``).
+  (``tracing.compute_skew``);
+- ``GET /comms``: the cluster-merged alpha-beta link cost model
+  (``comms_model.merge_payloads`` over the ``comms`` section of each
+  worker's heartbeat);
+- ``GET /memory``: the cluster-merged device-memory breakdown
+  (``memory.merge_payloads`` over the heartbeats' ``memory`` sections).
+  Both bodies carry the world generation.
 
 The policy, spare and integrity families of the scrape are rendered at
 zero, as the JAX package's are before those planes act, so a scrape
@@ -73,8 +80,8 @@ renders the same families.
 
 Not ported yet: the ``modelstate`` scope (with ``serving.py``), the
 integrity quarantine and the live-vote fence of ``peerstate`` writes
-(with ``integrity.py``), and the ``/comms``, ``/memory``, ``/integrity``
-and ``/model`` routes (with their modules).
+(with ``integrity.py``), and the ``/integrity`` and ``/model`` routes
+(with their modules).
 
 Authentication: with ``HOROVOD_SECRET_KEY`` set (the launcher makes one per
 job), every request carries ``X-Hvd-Auth: HMAC-SHA256(method\\npath\\n
@@ -99,7 +106,9 @@ from urllib.parse import parse_qs, urlsplit
 from urllib.request import Request, urlopen
 
 from ... import attribution as _attribution
+from ... import comms_model as _comms_model
 from ... import faults
+from ... import memory as _memory
 from ... import metrics as _metrics
 from ... import peercheck as _peercheck
 from ... import tracing as _tracing
@@ -244,6 +253,15 @@ class _KVHandler(BaseHTTPRequestHandler):
             return self._serve_json(
                 lambda httpd: _compute_cluster_skew(httpd)[0],
                 "application/json")
+        if self.path == "/comms":
+            # Same exemption as /metrics: read-only operational
+            # telemetry (the cluster-merged alpha-beta link cost model).
+            return self._serve_json(_render_comms, "application/json")
+        if self.path == "/memory":
+            # Same exemption: the cluster-merged device-memory breakdown
+            # (per-rank resident bytes by kind, phase watermarks,
+            # headroom, model drift).
+            return self._serve_json(_render_memory, "application/json")
         if not self._authenticate():
             return
         store = self.server.store  # type: ignore[attr-defined]
@@ -672,6 +690,49 @@ def _render_criticalpath(httpd, steps: int | None = None,
     }
 
 
+def _heartbeat_sections(httpd, key: str) -> dict[str, dict]:
+    """The ``key`` section (``"comms"``, ``"memory"``) of each worker's
+    last heartbeat body, by worker name. Malformed heartbeats are skipped,
+    as the metrics piggyback's are."""
+    with httpd.lock:
+        raw = dict(httpd.store.get(HEARTBEAT_SCOPE, {}))
+    out: dict[str, dict] = {}
+    for host, body in raw.items():
+        try:
+            hb = json.loads(body)
+        except (ValueError, UnicodeDecodeError):
+            continue
+        if not isinstance(hb, dict):
+            continue
+        section = hb.get(key)
+        if isinstance(section, dict):
+            out[host] = section
+    return out
+
+
+def _render_comms(httpd) -> dict:
+    """``GET /comms``: the cluster-merged alpha-beta link cost model. A
+    world where nothing fitted yet serves an explicit
+    ``insufficient_samples`` body, never a 500
+    (``comms_model.merge_payloads``). The body carries the world
+    generation, so a reader can discard a merge across generations."""
+    merged = _comms_model.merge_payloads(_heartbeat_sections(httpd, "comms"))
+    with httpd.lock:
+        merged["generation"] = httpd.version
+    return merged
+
+
+def _render_memory(httpd) -> dict:
+    """``GET /memory``: the cluster-merged device-memory breakdown. A
+    world where nothing was measured yet serves an explicit
+    ``insufficient_samples`` body, never a 500
+    (``memory.merge_payloads``); generation-stamped like ``/comms``."""
+    merged = _memory.merge_payloads(_heartbeat_sections(httpd, "memory"))
+    with httpd.lock:
+        merged["generation"] = httpd.version
+    return merged
+
+
 def _render_cluster_metrics(httpd) -> str:
     """The driver's cluster-wide scrape: driver-plane gauges built from
     live server state, then every worker snapshot found piggybacked on a
@@ -953,6 +1014,20 @@ class RendezvousServer:
         """The arrival-skew attribution (what ``GET /stragglers``
         serves), rendered in-process."""
         return _compute_cluster_skew(self._httpd)[0]
+
+    def comms_summary(self) -> dict:
+        """The cluster-merged alpha-beta link cost model (what ``GET
+        /comms`` serves), rendered in-process. Its ``"residuals"`` map
+        (host -> worst predicted-vs-observed residual seconds) is the
+        reference's second straggler-evidence channel."""
+        return _render_comms(self._httpd)
+
+    def memory_summary(self) -> dict:
+        """The cluster-merged device-memory breakdown (what ``GET
+        /memory`` serves), rendered in-process: per-rank resident bytes by
+        kind, phase watermark maxes, the minimum headroom ratio and the
+        worst model drift."""
+        return _render_memory(self._httpd)
 
     def trace_payload(self, host: str) -> dict | None:
         """The last trace payload a worker shipped, parsed, or None."""

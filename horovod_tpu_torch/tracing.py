@@ -22,8 +22,11 @@ shipping (:func:`ship_async`, :func:`maybe_ship_heartbeat`),
    /timeline`` merges all ranks on one timebase and ``GET /criticalpath``
    and ``GET /stragglers`` analyse them.
 4. **Flight recorder**: the ring is dumped through the lifecycle journal
-   (``flight_record``) on abort consume, stall shutdown, deadman exit and
-   SIGTERM drain.
+   (``flight_record``) on abort consume, stall shutdown, deadman exit,
+   SIGTERM drain and an out-of-memory error at the step boundary, with the
+   memory observatory's section (``memory.flight_summary``).
+5. **Memory watermarks**: every span close, and each step's end, calls
+   ``memory.note_phase`` (the reference's span-exit hook).
 
 On the card a host span around a step's phase measures its launch unless
 the step is synced: ``make_train_step`` syncs the compute stream at the end
@@ -52,6 +55,7 @@ import threading
 import time
 from typing import Any, Callable, Mapping
 
+from . import memory
 from .utils.env import get_float, get_int
 
 #: KV scope trace payloads ship to (``PUT /trace/<host>``).
@@ -239,6 +243,10 @@ class StepTracer:
                 return
             name, cat, t0 = opened
             self._record_locked(name, cat, t0, now - t0, args)
+        # The memory observatory's watermark hook: every span close folds
+        # the resident total and the card's bytes in use into its phase's
+        # high-water mark (cheap, never synchronizes, never raises).
+        memory.note_phase(name, cat)
 
     def record(self, name: str, cat: str, t_start: float, dur: float,
                args: Mapping[str, Any] | None = None) -> None:
@@ -330,6 +338,7 @@ class StepTracer:
                 "args": {"synced": rec.synced},
             })
             self._ring.append(rec.as_dict())
+        memory.note_phase(rec.kind, "step")
         if rec.synced:
             # Synced steps carry REAL wall time, so they feed the
             # attribution plane: phase decomposition, exposed-comm and
@@ -687,6 +696,11 @@ def dump_flight_record(reason: str, generation: int | None = None,
         asum = attribution.flight_summary(snap)
         if asum is not None:
             snap["attribution"] = asum
+        # Memory rides every dump too: per-kind resident bytes, the phase
+        # watermarks and the footprint model's drift.
+        msum = memory.flight_summary()
+        if msum is not None:
+            snap["memory"] = msum
         metrics.FLIGHT_DUMPS.inc(reason=reason)
         metrics.event(
             "flight_record", generation=generation, reason=reason,

@@ -251,6 +251,8 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "import horovod_tpu_torch.profiler, horovod_tpu_torch.stall\n"
         "import horovod_tpu_torch.runner.http.kv_server\n"
         "import horovod_tpu_torch.runner.elastic.driver\n"
+        "import horovod_tpu_torch.comms_model, horovod_tpu_torch.memory\n"
+        "import horovod_tpu_torch.topology\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'horovod_tpu'))\n"
         "assert not bad, bad\n")

@@ -128,15 +128,39 @@ def _drive(m, seed):
         g.add_lost(cause, float(rng.uniform(0, 5)))
 
 
+# The JAX package's link classes and the port's (topology.py): the comms
+# families' zero cells carry them.
+_PORT_LINK_CLASSES = {"ici": "intra_host", "dcn": "inter_host"}
+
+
+def _port_classes(snapshot):
+    """A snapshot of the JAX module with its link-class labels renamed to
+    the port's."""
+    out = []
+    for fam in snapshot:
+        fam = dict(fam)
+        fam["samples"] = [
+            dict(s, labels={k: _PORT_LINK_CLASSES.get(v, v)
+                            if k == "link_class" else v
+                            for k, v in s["labels"].items()})
+            for s in fam["samples"]]
+        out.append(fam)
+    return out
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_same_instrument_operations_render_the_same(both_metrics, seed):
     jm, pm = both_metrics
     _drive(jm, seed)
     _drive(pm, seed)
-    assert pm.snapshot() == jm.snapshot()
+    assert pm.snapshot() == _port_classes(jm.snapshot())
     labels = {"rank": "3", "host": "gpu-7:3"}
     text = pm.render(labels)
-    assert text == jm.render(labels)
+    want = jm.render(labels)
+    for jax_class, port_class in _PORT_LINK_CLASSES.items():
+        want = want.replace(f'link_class="{jax_class}"',
+                            f'link_class="{port_class}"')
+    assert text == want
     parsed = jm.validate_prometheus_text(text)
     assert parsed == pm.validate_prometheus_text(text)
     assert parsed["hvd_collective_dispatch_total"]["samples"]
@@ -584,8 +608,8 @@ def test_profiler_from_the_env_and_its_summary(tmp_path):
         "print('CACHE', s['executable_cache'], s['eager_dispatch'])\n")
     out = _run(code, {"HOROVOD_PROFILER_LOGDIR": str(tmp_path / "prof")})
     assert out.returncode == 0, out.stderr
-    assert "KEYS ['attribution', 'checkpoint', 'eager_dispatch', " \
-           "'executable_cache', 'fsdp', 'goodput', 'stragglers', " \
+    assert "KEYS ['attribution', 'checkpoint', 'comms', 'eager_dispatch', " \
+           "'executable_cache', 'fsdp', 'goodput', 'memory', 'stragglers', " \
            "'trace_active', 'trace_logdir']" in out.stdout, out.stdout
     assert str(tmp_path / "prof" / "rank0.trace.json") in out.stdout
     assert "CACHE {'hits': 0, 'misses': 0, 'size': 0, 'capacity': 0, " \
