@@ -6,6 +6,8 @@
     python3 chip_diag.py watchdog
     python3 chip_diag.py collectives [--cpu]
     python3 chip_diag.py comms [--cpu]
+    python3 chip_diag.py planner [--cpu]
+    python3 chip_diag.py spins
     python3 chip_diag.py fsdp_gathers
     python3 chip_diag.py elastic [--fsdp | --straggler] [--cpu] [--log PATH]
     python3 chip_diag.py ab_steps OTHER_CHECKOUT
@@ -1141,6 +1143,379 @@ def comms(cpu):
     return out.returncode
 
 
+# The planner diagnostic's fabric: two islands of two ranks each, declared
+# on one host of four cards (their "cross" leg is NVLink, fitted under the
+# inter_host name).
+PLANNER_MAP = "0-1;2-3"
+PLANNER_ALGORITHMS = ("flat", "rhd", "two_level")
+# Steps of each run of the int8 wire, and of the busy profile of each
+# autotune candidate (after one settle call).
+PLANNER_INT8_STEPS = 3
+PLANNER_BUSY_STEPS = 2
+
+
+def _planner_batch(hvd, rank, device):
+    """BERT-Large (``--cpu``: BERT_TINY) and this rank's S = 512 (128)
+    masked-LM batch of 8 (4) sequences, 20 predictions each."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from horovod_tpu_torch.models import bert as bert_mod
+
+    cuda = device == "cuda"
+    base = bert_mod.BERT_LARGE if cuda else bert_mod.BERT_TINY
+    cfg = dataclasses.replace(base, dropout_rate=0.0)
+    B, S, P = (8, 512, 20) if cuda else (4, 128, 20)
+    dev = hvd.device()
+    rng = np.random.RandomState(200 + rank)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, S))).to(dev)
+    pos = torch.from_numpy(np.stack([rng.choice(S, P, replace=False)
+                                     for _ in range(B)])).to(dev)
+    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, P))).to(dev)
+    mask = torch.ones(B, P, dtype=torch.int64, device=dev)
+    return cfg, (ids, pos, labels, mask)
+
+
+def _planner_schedules(hvd, rank, n, device):
+    """Each op under each eligible schedule on integer-valued float32
+    payloads (exact) and on random ones: every result equal to flat's
+    bit for bit on integers, and the largest relative gap on randoms."""
+    import torch
+
+    from horovod_tpu_torch.ops import comms_planner as cp
+
+    g = torch.Generator().manual_seed(300 + rank)
+    dev = hvd.device()
+    payloads = {
+        "int": torch.randint(-8, 9, (n * 4099,), generator=g).float().to(
+            dev),
+        "rnd": torch.randn(n * 4099, generator=g).to(dev)}
+    ops = {
+        "allreduce": lambda x: hvd.allreduce(x, op=hvd.Sum),
+        "reducescatter": lambda x: hvd.reducescatter(x, op=hvd.Sum),
+        "allgather": lambda x: hvd.allgather(x),
+        "alltoall": lambda x: hvd.alltoall(x),
+    }
+    out = {}
+    islands = cp._islands_for(n)
+    for op, run in ops.items():
+        for kind, x in payloads.items():
+            with cp.forced("flat"):
+                flat = run(x)
+            for algo in cp.eligible_algorithms(op, n, islands):
+                with cp.forced(algo):
+                    got = run(x)
+                if kind == "int":
+                    if not torch.equal(got, flat):
+                        raise AssertionError(
+                            f"rank {rank}: {op} under {algo} differs from "
+                            f"flat on integer-valued payloads")
+                    out[f"{op}|{algo}|int"] = "equal"
+                else:
+                    gap = ((got - flat).abs().max()
+                           / flat.abs().max()).item()
+                    out[f"{op}|{algo}|rnd"] = float(f"{gap:.3g}")
+    return out
+
+
+def _busy_ms(smoke, hvd, step, batch):
+    """Device busy per step over ``PLANNER_BUSY_STEPS`` steps (one settle
+    call first), from the profiler. The ranks line up inside the session
+    first (an allreduce and a stream sync), and only device work that
+    starts after that counts: a rank's first NCCL kernel would otherwise
+    count the time the others took to open their sessions."""
+    import torch
+
+    float(step(batch))
+    with smoke.device_profile() as prof:
+        hvd.allreduce(torch.zeros(1, device=hvd.device()), op=hvd.Sum)
+        torch.cuda.synchronize()
+        with torch.profiler.record_function("planner_busy_window"):
+            for _ in range(PLANNER_BUSY_STEPS):
+                step(batch)
+    start = min(e.time_range.start for e in prof.events()
+                if e.name == "planner_busy_window")
+    spans = [(a, b) for _, a, b in smoke.device_events(prof) if a >= start]
+    return round(smoke._busy_us(spans) / 1e3 / PLANNER_BUSY_STEPS, 3)
+
+
+def _planner_rank(device):
+    """One rank of ``planner``, started by the launcher under
+    ``HOROVOD_COMMS_PLANNER=auto`` and ``HOROVOD_LINK_CLASS_MAP``."""
+    import faulthandler
+
+    faulthandler.dump_traceback_later(1200, exit=True)
+    sys.path.insert(0, HERE)
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import autotune, basics, comms_model
+    from horovod_tpu_torch.ops import collective_ops
+    from horovod_tpu_torch.ops import comms_planner as cp
+
+    cuda = device == "cuda"
+    if cuda:
+        from horovod_tpu_torch.utils.spin import Spin
+
+        torch.cuda.set_device(int(os.environ.get("HOROVOD_LOCAL_RANK", 0)))
+        first = Spin(20_000_000)
+        first_spin = [round(first.ms(), 3), round(first.least_ms(), 3),
+                      first.short()]
+    else:
+        first_spin = None
+    hvd.init(device=device)
+    rank, n = hvd.rank(), hvd.size()
+    smoke = _smoke()
+
+    def say(tag, obj):
+        print(f"planner {tag} " + json.dumps(dict(rank=rank, **obj)),
+              flush=True)
+
+    islands = cp._islands_for(n)
+    link = basics._state.topology.set_link_class(range(n))
+    say("world", dict(world=n, islands=islands, link_class=link,
+                      first_spin_ms=first_spin))
+    # 1. The per-algorithm microprobe, each sample the model takes, and the
+    # fits.
+    samples = {}
+    observe = comms_model.observe
+
+    def keep(op, algorithm, link_class, nbytes, seconds):
+        samples.setdefault(f"{op}|{algorithm}", {}).setdefault(
+            int(nbytes), []).append(round(seconds * 1e6, 1))
+        return observe(op, algorithm, link_class, nbytes, seconds)
+
+    comms_model.observe = keep
+    t0 = time.perf_counter()
+    hvd.run_comms_microprobe(
+        sizes=COMMS_PROBE_SIZES if cuda else COMMS_PROBE_SIZES[:4],
+        repeats=3)
+    fits = {key: {k: fit.get(k) for k in (
+        "alpha_s", "beta_s_per_byte", "bandwidth_bytes_per_second", "r2",
+        "samples", "ready")}
+        for key, fit in comms_model.get_model().payload()["fits"].items()
+        if key.split("|")[1] in PLANNER_ALGORITHMS}
+    comms_model.observe = observe
+    say("fits", dict(probe_s=round(time.perf_counter() - t0, 2), fits=fits,
+                     short_spins=collective_ops.probe_short_spins))
+    if rank == 0:
+        say("samples_us", dict(samples=samples))
+    # 2. Each schedule's result beside flat's.
+    say("schedules", dict(results=_planner_schedules(hvd, rank, n, device)))
+    # 3. The plans of BERT-Large's buckets (the bf16 wire, 64 MiB).
+    cfg, batch = _planner_batch(hvd, rank, device)
+    from horovod_tpu_torch.models import bert as bert_mod
+
+    torch.manual_seed(0)
+    with torch.device(hvd.device()):
+        model = bert_mod.Bert(cfg, attention_fn=bert_mod.flash_attention_fn)
+    initial = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def optimizer(**kw):
+        return hvd.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=1e-4,
+                              weight_decay=1e-4),
+            named_parameters=model.named_parameters(), **kw)
+
+    opt = optimizer(compression=hvd.Compression.bf16)
+    plans = [(sum(p.numel() * 2 for p in b), cp.plan_bucket(
+        "allreduce", sum(p.numel() * 2 for p in b), n)) for b in opt._buckets]
+    plans = [(nb, p.algorithm, p.provenance) for nb, p in plans]
+    opt.remove_hooks()
+    every = hvd.allgather_object(plans)
+    if any(p != plans for p in every):
+        raise AssertionError(f"ranks planned differently: {every}")
+    say("plans", dict(buckets=len(plans), plans=plans,
+                      describe=basics._state.topology.describe()))
+    # 4. The joint (threshold x algorithm) warmup under HOROVOD_AUTOTUNE=1.
+    os.environ["HOROVOD_AUTOTUNE"] = "1"
+    autotune.reset_for_testing()
+    model.load_state_dict(initial)
+    opt = optimizer(compression=hvd.Compression.bf16)
+    step = hvd.make_train_step(model, _mlm_loss, opt)
+    grid = list(step._fn._cands)
+    t0 = time.perf_counter()
+    losses = [float(step(batch)) for _ in range(len(grid) * 4 + 2)]
+    os.environ.pop("HOROVOD_AUTOTUNE")
+    state = autotune.autotune_state()
+    decision = (autotune.tuned_threshold(), autotune.tuned_algorithm())
+    every = hvd.allgather_object(decision)
+    if any(d != decision for d in every):
+        raise AssertionError(f"ranks pinned differently: {every}")
+    say("autotune", dict(grid=grid, samples=state["history"],
+                         decision=decision, losses=losses[-3:],
+                         seconds=round(time.perf_counter() - t0, 2)))
+    busy = {}
+    if cuda:
+        for threshold, algorithm in grid:
+            autotune.set_tuned_threshold(threshold)
+            autotune.set_tuned_algorithm(algorithm)
+            step.rebucket()
+            busy[f"{threshold}|{algorithm}"] = _busy_ms(smoke, hvd, step,
+                                                        batch)
+        autotune.set_tuned_threshold(decision[0])
+        autotune.set_tuned_algorithm(decision[1])
+        step.rebucket()
+    say("busy", dict(busy_ms_per_step=busy))
+    opt.remove_hooks()
+    autotune.reset_for_testing()
+    # 5. The int8 wire, flat and two-level, from the same weights.
+    int8 = {}
+    for algo in ("flat", "two_level"):
+        model.load_state_dict(initial)
+        opt = optimizer(compression=hvd.Compression.int8)
+        step = hvd.make_train_step(model, _mlm_loss, opt)
+        with cp.forced(algo):
+            t0 = time.perf_counter()
+            losses = [float(step(batch)) for _ in range(PLANNER_INT8_STEPS)]
+            ms = (time.perf_counter() - t0) / PLANNER_INT8_STEPS * 1e3
+            int8[algo] = dict(losses=losses, host_ms=round(ms, 2),
+                              busy_ms=_busy_ms(smoke, hvd, step, batch)
+                              if cuda else None)
+        opt.remove_hooks()
+    gap = max(abs(a - b) for a, b in zip(int8["flat"]["losses"],
+                                         int8["two_level"]["losses"]))
+    say("int8", dict(runs=int8, loss_gap=gap))
+    # 6. The sync-mode sweep: each mode's optimizer and step built anew.
+    made = []
+
+    def build(mode):
+        for o in made:
+            o.remove_hooks()
+        made.clear()
+        torch.manual_seed(0)
+        with torch.device(hvd.device()):
+            m = bert_mod.Bert(cfg, attention_fn=bert_mod.flash_attention_fn)
+        o = hvd.DistributedOptimizer(
+            torch.optim.AdamW(m.parameters(), lr=1e-4),
+            compression=hvd.Compression.bf16, sync_mode=mode)
+        made.append(o)
+        s = hvd.make_train_step(m, _mlm_loss, o)
+        return lambda: s(batch)
+
+    del model, initial
+    t0 = time.perf_counter()
+    mode = autotune.tune_step_sync_mode(build)
+    every = hvd.allgather_object(mode)
+    if any(m != mode for m in every):
+        raise AssertionError(f"ranks pinned sync modes {every}")
+    say("sync_mode", dict(pinned=mode,
+                          seconds=round(time.perf_counter() - t0, 2)))
+    for o in made:
+        o.remove_hooks()
+    if rank == 0 and cuda:
+        print(f"planner: cards {smoke.card_line()}", flush=True)
+    hvd.shutdown()
+
+
+def planner(cpu):
+    import torch
+
+    n = 4 if cpu else torch.cuda.device_count()
+    if n != 4:
+        print("planner: needs four cards (or --cpu)", file=sys.stderr)
+        return 1
+    device = "cpu" if cpu else "cuda"
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.runner.launch", "-np",
+         str(n), *(["--cpu-mode"] if cpu else []), sys.executable,
+         os.path.abspath(__file__), "_planner_rank", device],
+        cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE,
+                           HOROVOD_COMMS_PLANNER="auto",
+                           HOROVOD_LINK_CLASS_MAP=PLANNER_MAP),
+        timeout=1500)
+    print(f"planner: {n} ranks over {dist_backend(device)} started by "
+          f"hvdrun-torch under HOROVOD_COMMS_PLANNER=auto, "
+          f"HOROVOD_LINK_CLASS_MAP={PLANNER_MAP}, exit code "
+          f"{out.returncode}, {time.perf_counter() - t0:.1f} s")
+    return out.returncode
+
+
+SPINS_CHILD = r"""
+import sys, time, torch
+x = torch.randn(8192, 8192, device="cuda")
+torch.cuda.synchronize()
+print("ready", flush=True)
+t0 = time.time()
+while time.time() - t0 < 60:
+    if sys.argv[1] == "busy":
+        for _ in range(20):
+            x @ x
+        torch.cuda.synchronize()
+    else:
+        time.sleep(0.05)
+"""
+
+LAZY_CHILD = r"""
+import sys, time, torch
+sys.path.insert(0, sys.argv[1])
+from horovod_tpu_torch.utils.spin import Spin
+x = torch.ones(4, device="cuda")
+torch.cuda.synchronize()
+rows = []
+for which in ("first launch", "loaded"):
+    spin = Spin(int(2 * 1.98e9))
+    t0 = time.perf_counter()
+    y = x * 2
+    t1 = time.perf_counter()
+    torch.cuda.current_stream().synchronize()
+    t2 = time.perf_counter()
+    rows.append(dict(case=which, launch_s=round(t1 - t0, 4),
+                     sync_s=round(t2 - t1, 4), spin_ms=round(spin.ms(), 1)))
+print(rows, flush=True)
+"""
+
+
+def spins():
+    """C9: ``torch.cuda._sleep`` spins timed by CUDA events (30 of ~10 ms
+    and 3 of ~1 s) with this process alone on the card, beside a process
+    holding an idle CUDA context, and beside one running matmuls; then,
+    in fresh processes under each ``CUDA_MODULE_LOADING``, the host
+    seconds of a kernel's first launch behind a 2 s spin and of the sync
+    after it, beside a launch of the loaded kernel."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    from horovod_tpu_torch.utils.spin import Spin
+
+    first = Spin(20_000_000)
+    print(f"spins: first spin of this process {first.ms():.3f} ms, at "
+          f"least {first.least_ms():.3f}, short {first.short()}", flush=True)
+    short_total = 0
+    for setting in ("alone", "idle", "busy"):
+        child = None
+        if setting != "alone":
+            child = subprocess.Popen([sys.executable, "-c", SPINS_CHILD,
+                                      setting], stdout=subprocess.PIPE,
+                                     text=True)
+            if child.stdout.readline().strip() != "ready":
+                raise RuntimeError("spins: the second process did not start")
+        ms, short = [], 0
+        for cycles in [20_000_000] * 30 + [2_000_000_000] * 3:
+            s = Spin(cycles)
+            torch.cuda.synchronize()
+            ms.append(round(s.ms(), 3))
+            short += s.short()
+        if child is not None:
+            child.kill()
+            child.wait()
+        short_total += short
+        print(f"spins: {setting}: {short} short of {len(ms)}; ms {ms}",
+              flush=True)
+    for loading in ("LAZY", "EAGER"):
+        out = subprocess.run(
+            [sys.executable, "-c", LAZY_CHILD, HERE], capture_output=True,
+            text=True, timeout=120, check=True,
+            env=dict(os.environ, CUDA_MODULE_LOADING=loading))
+        print(f"spins: CUDA_MODULE_LOADING={loading}: {out.stdout.strip()}",
+              flush=True)
+    print(f"spins: cards {_smoke().card_line()}, torch {torch.__version__}")
+    return 1 if short_total else 0
+
+
 def dist_backend(device):
     return "nccl" if device == "cuda" else "gloo"
 
@@ -1904,6 +2279,11 @@ def main() -> int:
     if args[:1] == ["_comms_rank"] and len(args) == 2:
         _comms_rank(args[1])
         return 0
+    if args in (["planner"], ["planner", "--cpu"]):
+        return planner(args[1:] == ["--cpu"])
+    if args[:1] == ["_planner_rank"] and len(args) == 2:
+        _planner_rank(args[1])
+        return 0
     if args[:1] == ["elastic"] and set(args[1:]) - {
             "--cpu", "--fsdp", "--straggler"} <= (
             {"--log", args[args.index("--log") + 1]} if "--log" in args
@@ -1938,6 +2318,8 @@ def main() -> int:
         return watchdog()
     if args == ["fsdp_gathers"]:
         return fsdp_gathers()
+    if args == ["spins"]:
+        return spins()
     print(__doc__, file=sys.stderr)
     return 2
 

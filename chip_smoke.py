@@ -173,7 +173,21 @@ and prints no result line); each prints its seconds:
    then a stall inspector with a
    1 s warning names an ``allreduce[...]`` queued behind a ~3 s spin after
    the host has returned from the call, and an ``hvd.fetch`` behind the
-   same spin;
+   same spin; each spin is timed by CUDA events (``utils.spin.Spin``) and
+   a short one fails the check;
+13c. ``autotune``: BERT-Large S=512 x 8 (24 layers, bf16, forced NCCL wire)
+   from seed 0, 14 AdamW steps through ``make_train_step`` untuned, then
+   14 from the same weights under ``HOROVOD_AUTOTUNE=1`` and
+   ``HOROVOD_AUTOTUNE_LOG``: three windows of 1 + 3 calls sweep 256 KiB,
+   4 MiB and 64 MiB, the fastest is pinned, rank 0 writes one JSON line,
+   the optimizer re-buckets; the losses equal the untuned run's bit for
+   bit (deterministic algorithms), K1, K3 and K4 launch 24 times a step;
+   prints each window's seconds, the pin, the log line and the bucket
+   counts. Then the Bayesian optimizer (``csrc/bayes_opt.cc``, built with
+   g++) runs ``tune_fusion_threshold`` for 4 rounds on the same step, and
+   model-guided pruning (``HOROVOD_AUTOTUNE_MODEL_GUIDED=1``) prices the
+   grid with the fits the ``observability`` phase's microprobe left and
+   prints the kept and pruned candidates;
 14. agreement: the flash model against dense attention on small float32
    inputs, on each attention route; and ResNet-50 in float32 on the card
    against the CPU on the same weights (2 images at 64x64): logits in both
@@ -3808,6 +3822,10 @@ OBS_PLANE_ENV = ("HOROVOD_TIMELINE", "HOROVOD_TIMELINE_MARK_CYCLES",
 # The comms microprobe before the planes-on run: payloads from 4 KB to
 # 256 MB, by fours, three timed calls of each op at each.
 OBS_PROBE_SIZES = tuple(4 ** k for k in range(6, 15))
+# The first spin of this process, timed by CUDA events and printed by
+# main() (C9: checks behind a spin once saw no wait; the spin held, and the
+# host's first launch of a kernel behind it waited for it).
+FIRST_SPIN_CYCLES = 20_000_000
 
 
 def bert_flops_per_token(cfg, seq_len, num_predictions):
@@ -4040,19 +4058,23 @@ def _stall_check(card):
 
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch import metrics, stall
+    from horovod_tpu_torch.utils.spin import MAX_SM_HZ, Spin
 
-    cycles = int(OBS_SPIN_S * 1.98e9)  # the H100's highest SM clock
+    cycles = int(OBS_SPIN_S * MAX_SM_HZ)
     os.environ["HOROVOD_STALL_CHECK_TIME"] = str(OBS_WARN_S)
     stall.reset_for_testing()
     x = torch.ones(1 << 20, device=hvd.device())
     try:
         with _LogLines() as log:
-            warned = metrics.STALL_WARNINGS.labels().get()
-            # The first spin of a process may not spin (a card run saw
-            # one end at once): launch one first.
-            torch.cuda._sleep(1)
+            # Load the kernels of the work queued behind the spins first:
+            # under CUDA's lazy loading the first launch of a kernel waits
+            # until the card is idle, so behind a spin its call would return
+            # only after the spin (C9). Each spin is timed.
+            hvd.allreduce(x, op=hvd.Sum)
+            x * 2
             torch.cuda.synchronize()
-            torch.cuda._sleep(cycles)
+            warned = metrics.STALL_WARNINGS.labels().get()
+            spins = [Spin(cycles)]
             t0 = time.perf_counter()
             y = hvd.allreduce(x, op=hvd.Sum)
             returned_s = time.perf_counter() - t0
@@ -4061,7 +4083,7 @@ def _stall_check(card):
                                 if "allreduce[" in line]
             torch.cuda.synchronize()
             warned_after_allreduce = metrics.STALL_WARNINGS.labels().get()
-            torch.cuda._sleep(cycles)
+            spins.append(Spin(cycles))
             z = x * 2
             t0 = time.perf_counter()
             hvd.fetch(z, name="spin")
@@ -4072,6 +4094,11 @@ def _stall_check(card):
     finally:
         os.environ.pop("HOROVOD_STALL_CHECK_TIME", None)
         stall.reset_for_testing()
+    spin_ms = [round(sp.ms(), 3) for sp in spins]
+    if any(sp.short() for sp in spins):
+        raise AssertionError(
+            f"observability: stall check: a spin ended early: "
+            f"{spin_ms} ms, each at least {spins[0].least_ms():.1f}")
     if not (returned_s < OBS_SPIN_S / 3 and allreduce_warned
             and warned_after_allreduce > warned and fetch_warned
             and fetch_s > OBS_WARN_S and left == 0
@@ -4085,7 +4112,9 @@ def _stall_check(card):
           f"allreduce queued behind a {OBS_SPIN_S} s spin returned to the "
           f"host after {returned_s * 1e3:.2f} ms and its ticket stayed open: "
           f"{allreduce_warned[0]!r}; hvd.fetch behind the same spin waited "
-          f"{fetch_s:.3f} s: {fetch_warned[0]!r} on {card}")
+          f"{fetch_s:.3f} s: {fetch_warned[0]!r}; the two spins took "
+          f"{spin_ms} ms by CUDA events (at least "
+          f"{spins[0].least_ms():.1f} each) on {card}")
 
 
 def observability_phase(card):
@@ -4218,6 +4247,209 @@ def observability_phase(card):
 
 
 
+# The autotune phase: untuned and tuned runs of AUTOTUNE_STEPS steps (three
+# windows of 1 + 3 calls, then two tuned steps), and the Bayesian
+# optimizer's rounds, each one settle call and AUTOTUNE_BO_ITERS timed.
+AUTOTUNE_STEPS = 14
+AUTOTUNE_BO_ROUNDS = 4
+AUTOTUNE_BO_ITERS = 3
+
+
+def _autotune_run(cfg, model, initial, batch, tmp, tuned):
+    """``AUTOTUNE_STEPS`` AdamW steps from ``initial`` through
+    ``make_train_step``, under ``HOROVOD_AUTOTUNE=1`` when ``tuned``: the
+    losses, the launches, the bucket counts before and after, and the
+    model, optimizer and step (for the Bayesian rounds)."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import autotune
+    from horovod_tpu_torch.ops import _kernels
+
+    autotune.reset_for_testing()
+    log = os.path.join(tmp, "autotune.jsonl")
+    if tuned:
+        os.environ.update(HOROVOD_AUTOTUNE="1", HOROVOD_AUTOTUNE_LOG=log)
+    model.load_state_dict(initial)
+    try:
+        opt = hvd.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=1e-4,
+                              weight_decay=1e-4),
+            named_parameters=model.named_parameters(),
+            compression=hvd.Compression.bf16)
+        buckets_before = len(opt._buckets)
+        step = hvd.make_train_step(model, _bert_loss, opt)
+        for k in _kernels.KERNELS:
+            k.launches = 0
+        torch.cuda.synchronize()
+        losses = [float(step(batch)) for _ in range(AUTOTUNE_STEPS)]
+    finally:
+        os.environ.pop("HOROVOD_AUTOTUNE", None)
+        os.environ.pop("HOROVOD_AUTOTUNE_LOG", None)
+    torch.cuda.synchronize()
+    out = dict(losses=losses, buckets=(buckets_before, len(opt._buckets)),
+               launches={k.name: k.launches for k in _kernels.KERNELS},
+               state=autotune.autotune_state(), opt=opt, step=step)
+    if tuned:
+        with open(log) as f:
+            out["log"] = f.read().splitlines()
+    return out
+
+
+def _bo_rounds(step, batch):
+    """``tune_fusion_threshold`` for ``AUTOTUNE_BO_ROUNDS`` rounds on the
+    tuned step: each round pins the suggested threshold, re-buckets, runs
+    one settle call and times ``AUTOTUNE_BO_ITERS`` calls ended by one
+    read of the loss. Returns (best threshold, [(threshold, s), ...],
+    seconds to build the optimizer)."""
+    from horovod_tpu_torch import autotune
+
+    rounds = []
+
+    def build(threshold):
+        autotune.set_tuned_threshold(threshold)
+        step.rebucket()
+        return step
+
+    def time_step(s):
+        float(s(batch))
+        t0 = time.perf_counter()
+        for _ in range(AUTOTUNE_BO_ITERS):
+            loss = s(batch)
+        float(loss)
+        seconds = (time.perf_counter() - t0) / AUTOTUNE_BO_ITERS
+        rounds.append((autotune.tuned_threshold(), round(seconds, 5)))
+        return seconds
+
+    t0 = time.perf_counter()
+    autotune.build_bayes_library()
+    build_s = time.perf_counter() - t0
+    best = autotune.tune_fusion_threshold(build, time_step,
+                                          rounds=AUTOTUNE_BO_ROUNDS)
+    return best, rounds, build_s
+
+
+def _model_guided(step):
+    """Model-guided pruning of the default grid with this process's fits
+    (the observability phase's microprobe) and the noted leaf layout:
+    the tuner's own ``_maybe_prune``, outside a sweep. Returns (kept,
+    pruned, prices of the tail)."""
+    from horovod_tpu_torch import autotune, comms_model
+    from horovod_tpu_torch.ops.collective_ops import _link_class
+    from horovod_tpu_torch.process_sets import global_process_set
+
+    os.environ["HOROVOD_AUTOTUNE_MODEL_GUIDED"] = "1"
+    try:
+        autotune.reset_for_testing()
+        tuner = autotune.AutotuneStep(step)
+        tuner._maybe_prune()
+    finally:
+        os.environ.pop("HOROVOD_AUTOTUNE_MODEL_GUIDED", None)
+    model = comms_model.get_model()
+    prices = comms_model.prune_candidates(
+        list(autotune.DEFAULT_THRESHOLDS[1:]), model.leaf_sizes(),
+        _link_class(global_process_set))["costs"]
+    pruned = autotune.autotune_state()["pruned"]
+    autotune.reset_for_testing()
+    return tuner._cands, pruned, prices, model.ready()
+
+
+def autotune_phase(card):
+    """BERT-Large S=512 x 8 untuned and under ``HOROVOD_AUTOTUNE=1`` (see
+    the module docstring, 13c)."""
+    import dataclasses
+    import gc
+    import shutil
+
+    import torch
+
+    from horovod_tpu_torch import autotune
+    from horovod_tpu_torch.models import bert as bert_mod
+    from horovod_tpu_torch.ops.fusion import bucket_leaves
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = os.path.join(here, "build", "chip_smoke_autotune")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    _, B, S, P, kernels = BERT_PATHS[0]
+    cfg = dataclasses.replace(bert_mod.BERT_LARGE, dropout_rate=0.0)
+    import horovod_tpu_torch as hvd
+
+    dev = hvd.device()
+    torch.manual_seed(0)
+    with torch.device(dev):
+        model = bert_mod.Bert(cfg, attention_fn=bert_mod.flash_attention_fn)
+    initial = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = _bert_batch(cfg, B, S, P, 0, dev)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    t_phase = time.perf_counter()
+    runs = []
+    try:
+        plain = _autotune_run(cfg, model, initial, batch, tmp, False)
+        runs.append(plain)
+        plain["opt"].remove_hooks()
+        tuned = _autotune_run(cfg, model, initial, batch, tmp, True)
+        runs.append(tuned)
+        state, pin = tuned["state"], autotune.tuned_threshold()
+        samples = state["history"]
+        layout = [(p.numel(), torch.bfloat16) for p in model.parameters()]
+        want_buckets = len(bucket_leaves(layout, pin))
+        if not (pin in autotune.DEFAULT_THRESHOLDS and len(samples) == 3
+                and len(tuned["log"]) == 1
+                and json.loads(tuned["log"][0])["decision"] == pin
+                and tuned["buckets"][1] == want_buckets):
+            raise AssertionError(
+                f"autotune: pin {pin}, samples {samples}, log "
+                f"{tuned.get('log')}, buckets {tuned['buckets']} (want "
+                f"{want_buckets} after)")
+        if tuned["losses"] != plain["losses"]:
+            raise AssertionError(
+                f"autotune: tuned losses {tuned['losses']} differ from the "
+                f"untuned run's {plain['losses']}")
+        for run, which in ((plain, "untuned"), (tuned, "tuned")):
+            for kname, n in run["launches"].items():
+                want = (cfg.num_layers * AUTOTUNE_STEPS if kname in kernels
+                        else 0)
+                if n != want:
+                    raise AssertionError(
+                        f"autotune: {which}: {kname} launched {n} times in "
+                        f"{AUTOTUNE_STEPS} steps, expected {want}")
+        print(f"autotune: BERT-Large S=512 x {B}, bf16 wire, "
+              f"{AUTOTUNE_STEPS} AdamW steps from seed 0 under "
+              f"HOROVOD_AUTOTUNE=1: windows (threshold, s a step over 3 "
+              f"calls ended by one read of the loss) {samples}; pinned "
+              f"{pin} bytes; buckets {tuned['buckets'][0]} before, "
+              f"{tuned['buckets'][1]} after; losses equal the untuned "
+              f"run's bit for bit ({tuned['losses'][-1]:.6f} last); K1, "
+              f"K3, K4 launched {cfg.num_layers} times a step in both "
+              f"({ {k: tuned['launches'][k] for k in kernels} }) on {card}")
+        print(f"autotune: HOROVOD_AUTOTUNE_LOG: {tuned['log'][0]}")
+        best, rounds, build_s = _bo_rounds(tuned["step"], batch)
+        print(f"autotune: Bayesian optimizer built with g++ in "
+              f"{build_s:.2f} s; tune_fusion_threshold, "
+              f"{AUTOTUNE_BO_ROUNDS} rounds (threshold, s a step): "
+              f"{rounds}; best {best} bytes on {card}")
+        kept, pruned, prices, ready = _model_guided(tuned["step"])
+        if not ready:
+            raise AssertionError("autotune: the comms model has no ready "
+                                 "fit for model-guided pruning")
+        print(f"autotune: model-guided pruning of "
+              f"{list(autotune.DEFAULT_THRESHOLDS)} with the microprobe's "
+              f"fits: kept {kept}, pruned {pruned}; predicted wire s of "
+              f"{list(autotune.DEFAULT_THRESHOLDS[1:])}: {prices}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        autotune.reset_for_testing()
+        for run in runs:
+            run["opt"].remove_hooks()
+        shutil.rmtree(tmp, ignore_errors=True)
+        del model, initial, runs
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"autotune: the phase took {time.perf_counter() - t_phase:.1f} s "
+          f"on {card}")
+
+
 def kernel_rows():
     """The kernels line's rows, (name, Kernel, source file under csrc/):
     each kernel, then the D = 256 instances of the multi-tile three, then
@@ -4271,6 +4503,12 @@ def main() -> int:
     t_start = time.perf_counter()
     card = card_line()
     print(f"card: {card}")
+    # The first spin of this process, timed (C9).
+    from horovod_tpu_torch.utils.spin import Spin
+
+    first = Spin(FIRST_SPIN_CYCLES)
+    print(f"first spin: {first.ms():.3f} ms by CUDA events, at least "
+          f"{first.least_ms():.3f}: {'SHORT' if first.short() else 'held'}")
     _phase("build", build_phase)
     measured = _phase("kernels", kernel_phase)
     _phase("empty", empty_phase)
@@ -4303,6 +4541,7 @@ def main() -> int:
     _phase("elastic", elastic_phase, card)
     _phase("elastic_peer", elastic_peer_phase, card)
     _phase("observability", observability_phase, card)
+    _phase("autotune", autotune_phase, card)
     print("sync modes, BERT-Large S=512 x 8 at world size 1 (step ms median, "
           "max_memory_allocated GiB, optimizer-state bytes on this rank): "
           + "; ".join(f"{m} {ms:.2f} ms, {peak:.2f} GiB, {state}"

@@ -105,6 +105,7 @@ def __dir__():
 
 # The public names, and the submodules that are public by name
 # (``hvd.elastic``: ``run``, ``TorchState``, ``ElasticSampler``, ...).
-_SUBMODULES = ("attribution", "checkpoint", "comms_model", "elastic",
-               "memory", "metrics", "profiler", "topology", "tracing")
+_SUBMODULES = ("attribution", "autotune", "checkpoint", "comms_model",
+               "elastic", "memory", "metrics", "profiler", "topology",
+               "tracing")
 __all__ = sorted(_SOURCE) + list(_SUBMODULES)

@@ -28,11 +28,13 @@ fitted online per key ``(op, algorithm, link_class)``:
   planner (:func:`prune_candidates`, :meth:`CommsModel.predict_exact`).
 
 The link classes are the port's (``topology.py``): ``intra_host`` and
-``inter_host`` where the JAX package has ``ici`` and ``dcn``. The
-reference's planner legs (``payload()``'s plan table and
-:func:`_planned_wire_algorithm`) answer as the reference's do with its
-comms planner off, which is not ported: ``{"enabled": False}``, and the
-sync mode's own label. :func:`predict_step_comm_s` resolves the fusion
+``inter_host`` where the JAX package has ``ici`` and ``dcn``. The comms
+planner (``ops/comms_planner.py``) reads the model's exact keys
+(:meth:`CommsModel.predict_exact`, :meth:`CommsModel.fit_snapshot`);
+``payload()`` carries its plan table, and :func:`_planned_wire_algorithm`
+prices a bucket under the schedule it would plan. The planner is
+imported only when asked, and answers off in a process that never
+formed a world (the driver). :func:`predict_step_comm_s` resolves the fusion
 threshold and the segment count as the port's wire uses them: one run of
 buckets over all leaves in the allreduce and sharded modes (the port does
 not segment them), ``HOROVOD_FSDP_SEGMENTS`` in fsdp.
@@ -516,9 +518,9 @@ class CommsModel:
             "samples_total": sum(d["samples"] for d in fit_dicts.values()),
             "probes": probes,
             "fits": fit_dicts,
-            # The reference's plan table, as it reads with its comms
-            # planner off (the planner is not ported).
-            "planner": {"enabled": False},
+            # The comms planner's plan table, so that GET /comms shows why
+            # buckets get their schedules.
+            "planner": _planner_summary(),
         }
 
     def summary(self) -> dict:
@@ -796,16 +798,38 @@ _MODE_WIRE = {
 PLANNER_ALGORITHM_NAMES = ("flat", "rhd", "two_level", "auto")
 
 
+def _planner_summary() -> dict:
+    """``ops.comms_planner.summary()``; ``{"enabled": False}`` where the
+    planner cannot be asked."""
+    try:
+        from .ops.comms_planner import summary
+
+        return summary()
+    except Exception:  # noqa: BLE001 — GET /comms must never fail on it
+        return {"enabled": False}
+
+
 def _planned_wire_algorithm(op: str, label: str, bucket_bytes: int,
                             algorithm: str | None) -> str:
     """The fit key a bucket's collective half is priced under: an explicit
     planner ``algorithm`` names its own key (``flat`` keeps the mode's
     label: ``flat``, ``rs_ag`` or ``fsdp``, whose fits are the flat
-    schedule's samples); None or ``auto`` gives the mode's label, as the
-    reference's does with its comms planner off (the port has none)."""
-    del op, bucket_bytes
+    schedule's samples); None or ``auto`` asks the live planner what it
+    would schedule for the bucket (rank-locally: ``sync=False`` never
+    enters its exchange), the mode's label when it is off or flat."""
     if algorithm is not None and algorithm != "auto":
         return label if algorithm == "flat" else algorithm
+    try:
+        from .ops.comms_planner import (default_world_size, enabled,
+                                        planned_algorithm)
+
+        if enabled():
+            planned = planned_algorithm(op, bucket_bytes,
+                                        default_world_size(), sync=False)
+            if planned != "flat":
+                return planned
+    except Exception:  # noqa: BLE001 — the planner is advisory here
+        pass
     return label
 
 

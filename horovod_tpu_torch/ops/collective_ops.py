@@ -51,8 +51,15 @@ latency is one sample of the alpha-beta model
 (``comms_model.observe(kind, "flat", link_class, bytes, seconds)``, as
 ``horovod_tpu/ops/collective_ops.py:484-495`` feeds it), taken when the
 latency is, so a sample adds no synchronization; the set's link class
-comes from the world's topology (``topology.py``).
-:func:`run_comms_microprobe` sweeps payload sizes to seed the model. No
+comes from the world's topology (``topology.py``), the algorithm is the
+schedule the op ran. :func:`run_comms_microprobe` sweeps payload sizes to
+seed the model.
+
+With ``HOROVOD_COMMS_PLANNER`` set, an allreduce, reducescatter (Sum or
+Average), equal-size allgather or equal-chunk alltoall on the global set
+runs the schedule ``ops/comms_planner.py`` plans for its payload (the
+reference's ``collective_ops.py:369-416``); unset, every op launches what
+it launched before the planner. No
 collective synchronizes the device; inside a sampled or watched training
 step (``tracing.StepTracer.syncing``) a finish waits for the current
 stream, so the step's span covers the collective.
@@ -71,6 +78,7 @@ import torch
 import torch.distributed as dist
 
 from .. import abort, basics, comms_model, metrics, tracing
+from . import comms_planner
 from ..exceptions import HorovodInternalError, HorovodTpuError
 from ..process_sets import global_process_set
 from ..utils import env
@@ -158,16 +166,19 @@ def _link_class(ps) -> str:
 
 
 def _observe_latency(kind: str, seconds: float, nbytes: int = 0,
-                     link_class: str | None = None) -> None:
+                     link_class: str | None = None,
+                     algorithm: str = "flat") -> None:
     """The latency histograms, and (``link_class`` given) one alpha-beta
     sample of the collective: ``nbytes`` over the set's worst link took
-    ``seconds`` (``comms_model.observe``)."""
+    ``seconds`` under ``algorithm``, the schedule it ran
+    (``comms_model.observe``)."""
     metrics.COLLECTIVE_LATENCY.observe(seconds, kind=kind)
     if kind == "alltoall":
-        metrics.ALLTOALL_LATENCY.observe(seconds, algorithm="flat")
+        metrics.ALLTOALL_LATENCY.observe(seconds, algorithm=algorithm)
     if link_class is not None:
         try:
-            comms_model.observe(kind, "flat", link_class, nbytes, seconds)
+            comms_model.observe(kind, algorithm, link_class, nbytes,
+                                seconds)
         except Exception:  # noqa: BLE001 — the model is advisory
             pass
 
@@ -211,6 +222,11 @@ class _Dispatch:
             self._start.record()
         self._t0 = time.perf_counter()
 
+    def ran(self, algorithm: str) -> None:
+        """The launch ran the comms planner's ``algorithm``: the span's
+        label and the model's fit key."""
+        self.args["algorithm"] = algorithm
+
     def fail(self) -> None:
         """The launch or the finish raised: close the ticket and span."""
         self._inspector.end(self._ticket)
@@ -220,9 +236,10 @@ class _Dispatch:
         """The finish returned: take the latency and close the ticket, at
         once on the CPU, when the device has finished on the card."""
         nbytes, link = self.args["bytes"], self._link
+        algorithm = self.args["algorithm"]
         if not self._cuda:
             _observe_latency(self.kind, time.perf_counter() - self._t0,
-                             nbytes, link)
+                             nbytes, link, algorithm)
             self._inspector.end(self._ticket)
         else:
             if self._tracer.syncing():
@@ -234,20 +251,24 @@ class _Dispatch:
                 self._ticket, end.query,
                 lambda: _observe_latency(kind,
                                          start.elapsed_time(end) / 1e3,
-                                         nbytes, link))
+                                         nbytes, link, algorithm))
         self._tracer.end_span(self._span, self.args)
 
 
 def _run(kind, tensors, ps, compute, sample: bool = True):
-    """A synchronous op: ``compute()`` (its launch and finish) inside its
-    dispatch's instruments and a ``kind`` activity; ``sample=False``
-    keeps its latency out of the comms model."""
+    """A synchronous op: ``compute()`` (its result, or its launch, a
+    :class:`_Launched`, which is then finished) inside its dispatch's
+    instruments and a ``kind`` activity; ``sample=False`` keeps its
+    latency out of the comms model."""
     from ..timeline import activity
 
     d = _Dispatch(kind, tensors, ps, sample)
     with activity(kind, "collective", d.args):
         try:
             out = compute()
+            if isinstance(out, _Launched):
+                d.ran(out.algorithm)
+                out = out.finish()
         except BaseException:
             d.fail()
             raise
@@ -413,11 +434,23 @@ def _average_and_postscale_(t: torch.Tensor, op: str, postscale_factor: float,
 
 
 def start_allreduce(t: torch.Tensor, op: str, prescale_factor: float,
-                    group=None) -> dist.Work:
+                    group=None, plan=None, process_set=None) -> dist.Work:
     """Prescale ``t`` and launch its in-place allreduce over ``group`` (a
-    process set's; None: the world) asynchronously."""
+    process set's; None: the world) asynchronously; with a comms-planner
+    ``plan`` (a Sum or Average on ``process_set``), its schedule's sum
+    instead (``comms_planner.start_allreduce_sum_``)."""
     _scale_(t, prescale_factor)
+    if plan is not None:
+        return comms_planner.start_allreduce_sum_(plan, t, process_set)
     return dist.all_reduce(t, op=_TORCH_OPS[op], group=group, async_op=True)
+
+
+def _plan(op_name: str, t: torch.Tensor, ps, reduce_op: str | None = None):
+    """The comms planner's plan for an eager collective of ``t`` on
+    ``ps``, priced at the set's payload (the JAX package's stacked bytes),
+    or None for the flat path (``comms_planner.dispatch_plan``)."""
+    return comms_planner.dispatch_plan(
+        op_name, ps.size() * t.numel() * t.element_size(), ps, reduce_op)
 
 
 def finish_allreduce(t: torch.Tensor, work: dist.Work, op: str,
@@ -431,11 +464,12 @@ def finish_allreduce(t: torch.Tensor, work: dist.Work, op: str,
 
 
 class _Launched(NamedTuple):
-    """An op in flight: its collectives, and the call that waits for them
-    and returns the op's result."""
+    """An op in flight: its collectives, the call that waits for them and
+    returns the op's result, and the comms planner's algorithm it ran."""
 
     works: list
     finish: Callable[[], Any]
+    algorithm: str = "flat"
 
 
 def _combined(parts: Sequence[_Launched]) -> _Launched:
@@ -472,13 +506,17 @@ def _launch_allreduce(tensor, op, prescale_factor, postscale_factor, ps,
         t = tensor.detach()
     else:
         t = tensor.detach().clone()
-    work = start_allreduce(t, op, prescale_factor, ps.group)
+    plan = _plan("allreduce", t, ps, op)
+    if plan is not None and not t.is_contiguous():
+        t = t.contiguous()
+    work = start_allreduce(t, op, prescale_factor, ps.group, plan, ps)
 
     def finish():
         finish_allreduce(t, work, op, postscale_factor, ps)
         return tensor if in_place else t
 
-    return _Launched([work], finish)
+    return _Launched([work], finish,
+                     "flat" if plan is None else plan.algorithm)
 
 
 # The dtypes a rank can name to the others in allgather's shape exchange, in
@@ -523,6 +561,13 @@ def _launch_allgather(tensor, ps) -> _Launched:
     if len(set(sizes)) == 1:
         if sizes[0] == 0:
             return _Launched([], t.clone)
+        # Equal sizes on every rank (the shapes were just exchanged): the
+        # payload, and so the plan, is the same everywhere.
+        plan = _plan("allgather", t, ps)
+        if plan is not None:
+            full = comms_planner.apply_allgather_row(plan, t.reshape(-1), ps)
+            return _Launched([], lambda: full.view(
+                ps.size() * t.shape[0], *t.shape[1:]), plan.algorithm)
         parts = [torch.empty_like(t) for _ in sizes]
         work = dist.all_gather(parts, t, group=ps.group, async_op=True)
         return _Launched([work], lambda: (wait(work),
@@ -577,6 +622,10 @@ def _launch_alltoall(tensor, splits, ps) -> _Launched:
             raise ValueError(
                 f"alltoall needs dim 0 ({d0}) divisible by the set size "
                 f"{n}; pass splits= for uneven chunks")
+        plan = _plan("alltoall", t, ps)
+        if plan is not None:
+            out = comms_planner.apply_alltoall(plan, t, ps)
+            return _Launched([], lambda: out, plan.algorithm)
         out = torch.empty_like(t)
         work = dist.all_to_all_single(out, t, group=ps.group, async_op=True)
         return _Launched([work], lambda: (wait(work), out)[1])
@@ -602,6 +651,18 @@ def _launch_reducescatter(tensor, op, prescale_factor, postscale_factor,
             f"reducescatter needs dim 0 divisible by the set size {n}; got "
             f"shape {tuple(tensor.shape)}")
     rows = tensor.shape[0] // n
+    plan = _plan("reducescatter", tensor, ps, op)
+    if plan is not None:
+        t = tensor.detach().clone().contiguous()
+        _scale_(t, prescale_factor)
+        out = comms_planner.apply_reducescatter_sum(
+            plan, t.view(-1), ps).view(rows, *t.shape[1:])
+
+        def finish_planned():
+            _average_and_postscale_(out, op, postscale_factor, n)
+            return out
+
+        return _Launched([], finish_planned, plan.algorithm)
     if basics._state.device.type == "cuda":
         t = tensor.detach()
         t = t.clone() if prescale_factor != 1.0 else t.contiguous()
@@ -658,7 +719,7 @@ def allreduce(tensor, average: bool | None = None, op: str | None = None,
         return _run("allreduce", [tensor], ps, lambda: _adasum_allreduce(
             tensor, prescale_factor, postscale_factor, ps))
     return _run("allreduce", [tensor], ps, lambda: _launch_allreduce(
-        tensor, op, prescale_factor, postscale_factor, ps).finish())
+        tensor, op, prescale_factor, postscale_factor, ps))
 
 
 @guarded
@@ -679,7 +740,7 @@ def allreduce_(tensor, average: bool | None = None, op: str | None = None,
         return _run("allreduce", [tensor], ps, compute)
     return _run("allreduce", [tensor], ps, lambda: _launch_allreduce(
         tensor, op, prescale_factor, postscale_factor, ps,
-        in_place=True).finish())
+        in_place=True))
 
 
 @guarded
@@ -713,7 +774,7 @@ def allgather(tensor, process_set=None,
     del name
     ps = _resolve_process_set(process_set)
     return _run("allgather", [tensor], ps,
-                lambda: _launch_allgather(tensor, ps).finish())
+                lambda: _launch_allgather(tensor, ps))
 
 
 @guarded
@@ -754,7 +815,7 @@ def alltoall(tensor, splits=None, process_set=None, name: str | None = None):
     del name
     ps = _resolve_process_set(process_set)
     return _run("alltoall", [tensor], ps,
-                lambda: _launch_alltoall(tensor, splits, ps).finish())
+                lambda: _launch_alltoall(tensor, splits, ps))
 
 
 @guarded
@@ -773,7 +834,7 @@ def reducescatter(tensor, op: str | None = None,
     op = _non_adasum_op(op, None, _ADASUM_NO_RS)
     ps = _resolve_process_set(process_set)
     return _run("reducescatter", [tensor], ps, lambda: _launch_reducescatter(
-        tensor, op, prescale_factor, postscale_factor, ps).finish())
+        tensor, op, prescale_factor, postscale_factor, ps))
 
 
 @guarded
@@ -814,6 +875,7 @@ def _submit(kind: str, tensors: Sequence[torch.Tensor], ps,
     with activity(kind, "collective", d.args):
         try:
             launched = launch()
+            d.ran(launched.algorithm)
         except BaseException:
             d.fail()
             raise
@@ -982,6 +1044,69 @@ def poll(handle: int) -> bool:
 # events bracket the device's work on a busy stream and not the host's
 # launches on an idle one.
 PROBE_HOLD_CYCLES = 20_000_000
+# Times a size's timed calls run again when the spin ahead of them ended
+# early (``utils.spin.Spin.short``), before the probe raises.
+PROBE_SPIN_RETRIES = 2
+# Each hold of this process that ended early: (op, algorithm, bytes, ms).
+probe_short_spins: list[tuple[str, str, int, float]] = []
+
+
+def _probe_size(op_name, launch, x, ps, repeats, algorithm, link):
+    """One payload size of the microprobe: a warm-up call, then
+    ``repeats`` timed calls; their seconds. On the card the timed calls
+    queue behind a :class:`~horovod_tpu_torch.utils.spin.Spin` of
+    ``PROBE_HOLD_CYCLES`` and a second warm-up call, and their samples
+    reach the comms model only once the spin is seen to have held the
+    stream on every member; a short spin on any member runs the size
+    again on all, at most ``PROBE_SPIN_RETRIES`` times, then raises."""
+    n = ps.size()
+
+    def run(sample=True):
+        return _run(op_name, [x], ps, lambda: launch(x), sample)
+
+    run(sample=False)
+    basics.sync_stream()
+    if basics._state.device.type != "cuda":
+        seconds = []
+        for _ in range(max(1, int(repeats))):
+            t0 = time.perf_counter()
+            run()
+            seconds.append(time.perf_counter() - t0)
+        return seconds
+    from ..utils.spin import Spin
+
+    nbytes = n * x.numel() * x.element_size()
+    for _ in range(PROBE_SPIN_RETRIES + 1):
+        hold = Spin(PROBE_HOLD_CYCLES)
+        run(sample=False)
+        events = []
+        for _ in range(max(1, int(repeats))):
+            events.append((torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True)))
+            events[-1][0].record()
+            run(sample=False)
+            events[-1][1].record()
+        basics.sync_stream()
+        # Every member runs the size again if any member's spin was short.
+        short = torch.tensor([float(hold.short())], device=x.device)
+        if n > 1:
+            dist.all_reduce(short, op=dist.ReduceOp.MAX, group=ps.group)
+        if not short.item():
+            seconds = [a.elapsed_time(b) / 1e3 for a, b in events]
+            for sec in seconds:
+                try:
+                    comms_model.observe(op_name, algorithm, link, nbytes,
+                                        sec)
+                except Exception:  # noqa: BLE001 — the model is advisory
+                    pass
+            return seconds
+        probe_short_spins.append((op_name, algorithm, nbytes, hold.ms()))
+    raise RuntimeError(
+        f"run_comms_microprobe: the spin ahead of the timed {op_name} "
+        f"({algorithm}, {nbytes} bytes) ended early "
+        f"{PROBE_SPIN_RETRIES + 1} times ({probe_short_spins[-1][3]:.3f} "
+        f"ms of at least {hold.least_ms():.3f}): its calls would have been "
+        "timed from the host's dispatch")
 
 
 def run_comms_microprobe(process_set=None, sizes=None,
@@ -989,28 +1114,34 @@ def run_comms_microprobe(process_set=None, sizes=None,
     """Seed the comms model (``comms_model.py``) with a sweep of payload
     sizes over a process set: at each size a warm-up call and then
     ``repeats`` timed calls of ``allreduce``, ``reducescatter``,
-    ``allgather`` and ``alltoall`` (Sum, float32). Each timed call's
-    latency reaches the model as every eager collective's does, under the
-    set's link class and algorithm ``flat``. The warm-up calls feed none
-    (``sample=False``): a communicator's first collective of a kind sets
-    it up, and a process's first dispatch sets up its instruments. On the
-    card the timed calls of a size are queued back to back behind a spin
-    of ``PROBE_HOLD_CYCLES`` and a second warm-up call, which lines the
+    ``allgather`` and ``alltoall`` (Sum, float32), each call's latency a
+    sample of the model under the set's link class. The warm-up calls
+    feed none: a communicator's first collective of a kind sets it up,
+    and a process's first dispatch sets up its instruments. On the card
+    the timed calls of a size are queued back to back behind a spin of
+    ``PROBE_HOLD_CYCLES`` and a second warm-up call, which lines the
     ranks' streams up: each call's events then hold its device time, not
-    the host's dispatch nor the ranks' skew. Collective: every member
-    calls it at the same point. Returns ``{op: {nbytes: [seconds, ...]}}``:
-    each timed call's device time on the card, its host time on the CPU,
-    under the bytes as dispatched (the set's total payload,
+    the host's dispatch nor the ranks' skew (see :func:`_probe_size`).
+    Collective: every member calls it at the same point.
+
+    With the comms planner on (``HOROVOD_COMMS_PLANNER``) and the global
+    set of two or more ranks, the sweep runs once per algorithm eligible
+    for each op, under ``comms_planner.forced``, so that each schedule
+    seeds its own ``(op, algorithm, link_class)`` fit; planner off, one
+    flat pass. Returns ``{op: {nbytes: [seconds, ...]}}`` of the flat
+    pass only: each timed call's device time on the card, its host time
+    on the CPU, under the bytes as dispatched (the set's total payload,
     ``hvd_collective_payload_bytes``'s).
 
-    Port of ``horovod_tpu/ops/collective_ops.py:966``: its one flat pass
-    (the reference's per-algorithm passes run with its comms planner on,
-    which is not ported)."""
+    Port of ``horovod_tpu/ops/collective_ops.py:966``."""
     ps = _resolve_process_set(process_set)
     n = ps.size()
     sizes = [int(s) for s in (sizes or comms_model.DEFAULT_PROBE_SIZES)]
     device = basics._state.device
-    cuda = device.type == "cuda"
+    link = _link_class(ps)
+    planner_live = (comms_planner.enabled() and n > 1
+                    and ps.process_set_id == 0)
+    islands = comms_planner._islands_for(n) if planner_live else None
     out: dict[str, dict] = {}
     for op_name, launch in (
         ("allreduce", lambda a: _launch_allreduce(a, Sum, 1.0, 1.0, ps)),
@@ -1019,38 +1150,26 @@ def run_comms_microprobe(process_set=None, sizes=None,
         ("allgather", lambda a: _launch_allgather(a, ps)),
         ("alltoall", lambda a: _launch_alltoall(a, None, ps)),
     ):
-        def run(a, sample=True, op_name=op_name, launch=launch):
-            return _run(op_name, [a], ps, lambda: launch(a).finish(),
-                        sample)
-
+        algorithms = (comms_planner.eligible_algorithms(op_name, n, islands)
+                      if planner_live else ("flat",))
         per_op: dict[int, list] = {}
-        for nbytes in sizes:
-            # Rows of a multiple of n float32 elements, so that
-            # reducescatter's and alltoall's dim 0 divides by the set size.
-            elems = max(n, (nbytes // 4 // n) * n)
-            x = torch.ones(elems, dtype=torch.float32, device=device)
-            seconds = per_op.setdefault(n * elems * 4, [])
-            run(x, sample=False)
-            basics.sync_stream()
-            if cuda:
-                torch.cuda._sleep(PROBE_HOLD_CYCLES)
-                run(x, sample=False)
-            events = []
-            for _ in range(max(1, int(repeats))):
-                if cuda:
-                    events.append((torch.cuda.Event(enable_timing=True),
-                                   torch.cuda.Event(enable_timing=True)))
-                    events[-1][0].record()
-                    run(x)
-                    events[-1][1].record()
-                else:
-                    t0 = time.perf_counter()
-                    run(x)
-                    seconds.append(time.perf_counter() - t0)
-            basics.sync_stream()
-            seconds.extend(a.elapsed_time(b) / 1e3 for a, b in events)
+        for algorithm in algorithms:
+            ctx = (comms_planner.forced(algorithm) if planner_live
+                   else contextlib.nullcontext())
+            with ctx:
+                for nbytes in sizes:
+                    # Rows of a multiple of n float32 elements, so that
+                    # reducescatter's and alltoall's dim 0 divides by the
+                    # set size.
+                    elems = max(n, (nbytes // 4 // n) * n)
+                    x = torch.ones(elems, dtype=torch.float32,
+                                   device=device)
+                    seconds = _probe_size(op_name, launch, x, ps, repeats,
+                                          algorithm, link)
+                    if algorithm == "flat":
+                        per_op.setdefault(n * elems * 4, []).extend(seconds)
         out[op_name] = per_op
-    # The card's samples land when the inspector reaps their end events.
+    # The card's latencies land when the inspector reaps their end events.
     _reap_collectives()
     comms_model.get_model().note_probe()
     return out

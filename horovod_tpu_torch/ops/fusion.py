@@ -24,6 +24,13 @@ Each bucket's launch and finish run inside a ``hvd.<op>.bucket<k>`` range
 (``profiler.annotate_collective``), :func:`segment_leaves` sets
 ``hvd_overlap_segments``, and each bucket plan notes its leaf layout on
 the comms and memory observatories (:func:`note_leaf_layout`).
+
+The threshold and the segment count read the autotuner's pins first
+(``autotune.tuned_threshold``, ``tuned_segments``; reference :32, :52).
+Each bucket's collective asks the comms planner for its schedule
+(``comms_planner.dispatch_plan``, reference :282-320, :555, :607), which
+answers None at once with ``HOROVOD_COMMS_PLANNER`` unset: the bucket
+then launches the flat collective it launched before the planner.
 """
 
 from __future__ import annotations
@@ -35,16 +42,34 @@ import torch
 from .. import metrics
 from ..profiler import annotate_collective
 from ..utils import env
+from .comms_planner import (_Done, apply_allgather_row,
+                            apply_reducescatter_sum, dispatch_plan)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def fusion_threshold_bytes() -> int:
-    """``HOROVOD_FUSION_THRESHOLD`` (default 64 MiB)."""
+    """The pinned autotune threshold (``autotune.tuned_threshold``), else
+    ``HOROVOD_FUSION_THRESHOLD`` (default 64 MiB)."""
+    from ..autotune import tuned_threshold
+
+    tuned = tuned_threshold()
+    if tuned is not None:
+        return tuned
     return env.get_int(env.FUSION_THRESHOLD, env.DEFAULT_FUSION_THRESHOLD)
 
 
 def overlap_segments() -> int:
-    """``HOROVOD_OVERLAP_SEGMENTS`` (default 4, at least 1): the number of
-    contiguous leaf segments a step's parameters are split into."""
+    """The pinned autotune segment count (``autotune.tuned_segments``),
+    else ``HOROVOD_OVERLAP_SEGMENTS`` (default 4); at least 1: the number
+    of contiguous leaf segments a step's parameters are split into."""
+    from ..autotune import tuned_segments
+
+    tuned = tuned_segments()
+    if tuned is not None:
+        return max(1, tuned)
     return max(1, env.get_int(env.OVERLAP_SEGMENTS, 4))
 
 
@@ -206,9 +231,9 @@ def start_fused_allreduce(tensors: Sequence[torch.Tensor], op,
     for k, bucket in enumerate(order):
         with annotate_collective(f"allreduce.bucket{k}"):
             flat = pack([tensors[i].detach() for i in bucket])
-            launched.append((bucket, flat,
-                             start_allreduce(flat, op, prescale_factor,
-                                             ps.group)))
+            launched.append((bucket, flat, start_allreduce(
+                flat, op, prescale_factor, ps.group,
+                dispatch_plan("allreduce", _nbytes(flat), ps, op), ps)))
 
     def finish():
         out: list = [None] * len(tensors)
@@ -288,6 +313,10 @@ def start_shard_reducescatter(tensors: Sequence[torch.Tensor], shard_sizes,
     flat = _pack_shard_rows([t.detach() for t in tensors], shard_sizes,
                             n).reshape(-1)
     _scale_(flat, prescale_factor)
+    plan = dispatch_plan("reducescatter",
+                         sum(_nbytes(t) for t in tensors), process_set)
+    if plan is not None:
+        return apply_reducescatter_sum(plan, flat, process_set), _Done()
     if flat.device.type == "cpu":
         import torch.distributed as dist
 
@@ -375,6 +404,11 @@ def fused_allgather_shards(shards: Sequence[torch.Tensor],
     for k, bucket in _issue_order(buckets, issue_reversed):
         with annotate_collective(f"allgather.bucket{k}"):
             row = torch.cat([shards[i].reshape(-1) for i in bucket])
+            plan = dispatch_plan("allgather", n * _nbytes(row), ps)
+            if plan is not None:
+                launched.append((k, bucket, apply_allgather_row(
+                    plan, row, ps), _Done()))
+                continue
             full = row.new_empty(n * row.numel())
             launched.append((k, bucket, full, _all_gather(
                 full, row, group=ps.group, async_op=True)))

@@ -2,7 +2,8 @@
 
 Port of ``horovod_tpu/ops/quantization.py``: ``BLOCK`` (:42), ``_sround``
 (:45), ``_quantize_blocks`` (:84), ``int8_allreduce_flat`` (:120),
-``_reduce_scattered_rows`` (:180), ``int8_alltoall_rows`` (:265),
+``_reduce_scattered_rows`` (:180), ``int8_two_level_allreduce_flat``
+(:204), ``int8_alltoall_rows`` (:265),
 ``int8_fused_reducescatter`` (:318), ``int8_fused_allgather_shards``
 (:383) and ``int8_fused_allreduce`` (:444). Summing int8 contributions on
 the wire would overflow, so the exchange changes shape:
@@ -27,6 +28,7 @@ import torch
 import torch.distributed as dist
 
 from .collective_ops import _all_gather, wait
+from .comms_planner import dispatch_plan
 from .fusion import (_issue_order, _pack_shard_rows, _split_shard_row,
                      bucket_leaves, nonfinite_action, shard_ownership)
 
@@ -178,6 +180,47 @@ def _reduce_scattered_rows(rows: torch.Tensor, process_set, n: int, op: str,
                              process_set)
 
 
+def int8_two_level_allreduce_flat(flat: torch.Tensor, process_set, islands,
+                                  op: str = "average",
+                                  prescale_factor: float = 1.0,
+                                  postscale_factor: float = 1.0, salt=None):
+    """Two-level int8 allreduce of a flat tensor, quantized per leg: the
+    comms planner's ``two_level`` schedule for the int8 wire (reference
+    ``horovod_tpu/ops/quantization.py:204``), on the planner's subgroups
+    (``comms_planner._two_level_groups``).
+
+    1. A quantized reduce-scatter within the island (int8 all-to-all over
+       the island, dequantize and sum): each rank keeps 1/L of the
+       payload.
+    2. A quantized allreduce of that shard across islands
+       (:func:`int8_allreduce_flat` over the ranks of its position).
+    3. A quantized allgather within the island.
+
+    Each leg quantizes its own input with its own block scales, so the
+    wire is int8 end to end. Returns float32 of ``flat``'s shape."""
+    from .comms_planner import _two_level_groups
+
+    g = _two_level_groups(islands)
+    local, cross = g.local[g.island], g.cross[g.position]
+    L, G = local.size(), cross.size()
+    m = flat.numel()
+    x = flat.reshape(-1).to(torch.float32)
+    if prescale_factor != 1.0:
+        x = x * prescale_factor
+    chunk = -(-m // (L * BLOCK)) * BLOCK
+    shard = _reduce_scattered_rows(_pad(x, L * chunk - m).view(L, chunk),
+                                   local, L, "sum", salt)
+    shard = int8_allreduce_flat(shard, cross, op="sum", salt=salt)
+    if op == "average":
+        shard = shard / (L * G)
+    q, scale = _quantize_blocks(shard, salt)
+    gq, gs = _gather_rows(q, scale, local)
+    out = _dequantize(gq, gs).reshape(-1)[:m]
+    if postscale_factor != 1.0:
+        out = out * postscale_factor
+    return out
+
+
 def int8_alltoall_rows(rows: torch.Tensor, process_set, salt=None,
                        extra: torch.Tensor | None = None):
     """Quantized all-to-all of per-destination rows: ``rows`` is ``(n, R)``
@@ -307,9 +350,20 @@ def int8_fused_allreduce(tensors, process_set, op: str = "average",
                             threshold_bytes)
     for _, bucket in _issue_order(buckets, issue_reversed):
         packed = torch.cat([floats[j] for j in bucket])
-        reduced = int8_allreduce_flat(packed, process_set, op,
-                                      prescale_factor, postscale_factor,
-                                      salt)
+        # The comms planner may take the two-level schedule (quantized per
+        # leg) on a layout of several islands; rhd is no candidate: the
+        # exchange is an all-to-all and an allgather, not a ring. The
+        # bytes priced are the wire's, ~2 an element (int8 out and back).
+        plan = dispatch_plan("allreduce", 2 * packed.numel(), process_set,
+                             op, ("flat", "two_level"))
+        if plan is not None:
+            reduced = int8_two_level_allreduce_flat(
+                packed, process_set, plan.islands, op, prescale_factor,
+                postscale_factor, salt)
+        else:
+            reduced = int8_allreduce_flat(packed, process_set, op,
+                                          prescale_factor, postscale_factor,
+                                          salt)
         offset = 0
         for j in bucket:
             t = tensors[float_idx[j]]

@@ -19,7 +19,14 @@ runs the wrapped optimizer.
 Buckets are ``fusion.bucket_leaves`` over the parameters in
 ``param_groups`` order and are launched last bucket first (the order a
 backward pass completes them), always in that fixed order, so every rank
-issues the same collectives in the same order.
+issues the same collectives in the same order. Without an explicit
+``fusion_threshold_bytes`` or ``num_groups`` the threshold is the live
+one (the autotune pin, else ``HOROVOD_FUSION_THRESHOLD``), and
+``rebucket()`` re-derives the buckets from it at a step boundary: the
+autotuner's counterpart of the JAX package's re-trace. The comms planner
+(``ops/comms_planner.py``) schedules each bucket's collective when
+``HOROVOD_COMMS_PLANNER`` is set; its exchange happens where the
+optimizer reads its world, never inside a gradient hook.
 
 ``op=Adasum`` computes its dot products per tensor, never per bucket
 (``horovod_tpu/ops/fusion.py:349-355``), but gathers per bucket: a
@@ -89,6 +96,7 @@ from .compression import Compression
 from .exceptions import HorovodInternalError, SyncModeIneligibleError
 from .ops import fusion
 from .ops.adasum import adasum_tree, gather_rows
+from .ops.comms_planner import dispatch_plan
 from .ops.collective_ops import (Adasum, Average, Sum, _resolve_op,
                                  _resolve_process_set, _scale_,
                                  elastic_errors, finish_allreduce, guarded,
@@ -104,8 +112,14 @@ _VALID_SYNC_MODES = ("allreduce", "sharded", "fsdp")
 
 
 def resolve_sync_mode(sync_mode: str | None = None) -> str:
-    """Explicit argument > ``HOROVOD_SYNC_MODE`` > ``"allreduce"``; one
-    of ``allreduce``, ``sharded`` and ``fsdp``."""
+    """Explicit argument > the pinned autotune decision
+    (``autotune.tuned_sync_mode``) > ``HOROVOD_SYNC_MODE`` >
+    ``"allreduce"``; one of ``allreduce``, ``sharded`` and ``fsdp``. Read
+    when an optimizer is built: the mode fixes the state's layout."""
+    if sync_mode is None:
+        from .autotune import tuned_sync_mode
+
+        sync_mode = tuned_sync_mode()
     if sync_mode is None:
         sync_mode = env.get_str(env.SYNC_MODE).strip().lower() or "allreduce"
     if sync_mode not in _VALID_SYNC_MODES:
@@ -204,31 +218,16 @@ class _DistributedOptimizer:
         # Updates so far: the int8 wire's rounding salt.
         self._updates = 0
         # The int8 exchange buckets the float32 view of the gradients.
-        wire_dtypes = [
+        self._wire_dtypes = [
             torch.float32 if self._int8 else compression.compress(
                 torch.empty(0, dtype=p.dtype, device=p.device))[0].dtype
             for p in self._params]
-        if num_groups > 0:
-            # The reference's num_groups: cap each bucket at total /
-            # num_groups bytes of the wire.
-            total = sum(p.numel() * d.itemsize
-                        for p, d in zip(self._params, wire_dtypes))
-            fusion_threshold_bytes = max(1, total // num_groups)
-        self._buckets = [
-            [self._params[i] for i in b]
-            for b in bucket_leaves(
-                [(p.numel(), d) for p, d in zip(self._params, wire_dtypes)],
-                fusion_threshold_bytes)]
         # A flush's wire bytes (int8: one byte an element).
         self._wire_bytes = sum(
             p.numel() * (1 if self._int8 else d.itemsize)
-            for p, d in zip(self._params, wire_dtypes))
-        self._bucket_of = {id(p): bi for bi, b in enumerate(self._buckets)
-                           for p in b}
-        self._threshold = fusion_threshold_bytes
-        fusion.note_leaf_layout(
-            [(p.numel(), p.dtype) for p in self._params],
-            [torch.int8] * len(self._params) if self._int8 else wire_dtypes)
+            for p, d in zip(self._params, self._wire_dtypes))
+        self._plan_buckets()
+        self._rebucket_due = False
         self._note_params()
         self._state_noted = False
         self._hooks = []
@@ -241,6 +240,49 @@ class _DistributedOptimizer:
 
     def __getattr__(self, item):
         return getattr(self._opt, item)
+
+    def _plan_buckets(self) -> None:
+        """The buckets: ``bucket_leaves`` of the wire layout under the
+        threshold (``num_groups``' share of the wire, else an explicit
+        ``fusion_threshold_bytes``, else ``fusion.fusion_threshold_bytes``:
+        the autotune pin or ``HOROVOD_FUSION_THRESHOLD``), and the layout
+        noted on the comms and memory observatories."""
+        leaves = [(p.numel(), d)
+                  for p, d in zip(self._params, self._wire_dtypes)]
+        if self._num_groups > 0:
+            # The reference's num_groups: cap each bucket at total /
+            # num_groups bytes of the wire.
+            threshold = max(1, sum(m * d.itemsize for m, d in leaves)
+                            // self._num_groups)
+        elif self._base_threshold is not None:
+            threshold = self._base_threshold
+        else:
+            threshold = fusion.fusion_threshold_bytes()
+        self._threshold = threshold
+        self._buckets = [[self._params[i] for i in b]
+                         for b in bucket_leaves(leaves, threshold)]
+        self._bucket_of = {id(p): bi for bi, b in enumerate(self._buckets)
+                           for p in b}
+        fusion.note_leaf_layout(
+            [(p.numel(), p.dtype) for p in self._params],
+            [torch.int8] * len(self._params) if self._int8
+            else self._wire_dtypes)
+
+    def rebucket(self) -> None:
+        """Re-derive the buckets from the live fusion threshold (the
+        autotune pin): the port's counterpart of the JAX package's
+        re-trace of the step (``autotune.AutotuneStep``). An optimizer
+        built with ``num_groups`` or an explicit ``fusion_threshold_bytes``
+        keeps its buckets. Applied at once at a step boundary; with a
+        gradient counted or a bucket in flight, after that step's
+        ``synchronize``, so no hook is left on a stale bucket."""
+        if self._num_groups > 0 or self._base_threshold is not None:
+            return
+        if self._passes or self._launched:
+            self._rebucket_due = True
+            return
+        self._plan_buckets()
+        self._reset()
 
     def _note_params(self) -> None:
         """Note the parameters this rank holds on the memory
@@ -263,6 +305,13 @@ class _DistributedOptimizer:
         has a local sum between its two collectives."""
         self._elastic = basics.elastic()
         self._short_circuit = self._skips_wire()
+        # The comms planner's exchange and subgroups for this world, here
+        # where every rank builds and re-reads its optimizers in one order,
+        # never inside the backward's hooks (it plans the global set only).
+        if self._ps.process_set_id == 0:
+            from .ops import comms_planner
+
+            comms_planner.prepare()
         if self._short_circuit or self._int8:
             self._unhook()
         elif not (self._hooks or self._detached):
@@ -270,6 +319,9 @@ class _DistributedOptimizer:
                            for p in self._params]
 
     def _reset(self) -> None:
+        if self._rebucket_due:
+            self._rebucket_due = False
+            self._plan_buckets()
         self._passes: dict[int, int] = {}
         self._ready = [0] * len(self._buckets)
         self._launched: dict[int, tuple] = {}
@@ -320,8 +372,11 @@ class _DistributedOptimizer:
                 rows, work = gather_rows(flat, self._ps)
                 self._launched[bi] = (rows, work, ctxs)
                 return
-            work = start_allreduce(flat, self._op, self._prescale,
-                                   self._ps.group)
+            work = start_allreduce(
+                flat, self._op, self._prescale, self._ps.group,
+                dispatch_plan("allreduce", flat.numel() * flat.element_size(),
+                              self._ps, self._op),
+                self._ps)
             self._launched[bi] = (flat, work, ctxs)
 
     def _adasum_leaves(self, rows, work, shapes) -> list[torch.Tensor]:
@@ -510,6 +565,9 @@ class _ShardedOptimizer(_DistributedOptimizer):
             seen.update(id(p) for p in group["params"])
             self._groups.append(idx)
         self._own_shards(optimizer)
+
+    def _plan_buckets(self) -> None:
+        super()._plan_buckets()
         # Bucket caps: the reduce-scatter's over the leaves (int8: in their
         # own dtype, as the reference sizes its float32 exchange), the
         # allgather's over the parameters.
@@ -560,7 +618,7 @@ class _ShardedOptimizer(_DistributedOptimizer):
         if self._num_groups > 0:
             total = sum(m * d.itemsize for m, d in leaves)
             return max(1, total // self._num_groups)
-        return self._base_threshold
+        return self._threshold
 
     def _launch(self, bi: int) -> None:
         wires, ctxs = [], []
@@ -696,7 +754,7 @@ class _FsdpOptimizer:
         self._prescale = prescale_factor
         self._postscale = postscale_factor
         self._ps = process_set
-        self._threshold = fusion_threshold_bytes
+        self._base_threshold = fusion_threshold_bytes
         self.backward_passes_per_step = 1
         n, r = process_set.size(), process_set.rank()
         self._n, self._r = n, r
@@ -715,12 +773,7 @@ class _FsdpOptimizer:
         self._itemsize: dict[torch.dtype, int] = {}
         self._wire_bytes = sum(p.numel() * self.wire_itemsize(p.dtype)
                                for p in self._params)
-        leaves = [(p.numel(), p.dtype) for p in self._params]
-        self._nbuckets = len(bucket_leaves(leaves, fusion_threshold_bytes))
-        fusion.note_leaf_layout(leaves, [
-            torch.int8 if self._int8 else compression.compress(
-                torch.empty(0, dtype=d, device="meta"))[0].dtype
-            for _, d in leaves])
+        self._plan_buckets()
         self._names = [(names or {}).get(id(p), f"param{i}")
                        for i, p in enumerate(self._params)]
         index = {id(p): i for i, p in enumerate(self._params)}
@@ -730,12 +783,38 @@ class _FsdpOptimizer:
         with torch.no_grad():
             for p in self._params:
                 p.data = torch.empty(0, dtype=p.dtype, device=p.device)
+        self._prepare_planner()
         self._nonfinite_action = nonfinite_action()
         self.nonfinite_steps = 0
         self._updates = 0
 
     def __getattr__(self, item):
         return getattr(self._opt, item)
+
+    def _plan_buckets(self) -> None:
+        """The threshold of the per-segment gathers and reduce-scatters
+        (an explicit ``fusion_threshold_bytes``, else
+        ``fusion.fusion_threshold_bytes``), their bucket count over all
+        leaves, and the layout noted on the observatories."""
+        self._threshold = (self._base_threshold
+                           if self._base_threshold is not None
+                           else fusion.fusion_threshold_bytes())
+        # The full shapes (the parameters hold no data once built).
+        leaves = [(torch.Size(s).numel(), d)
+                  for s, d in zip(self.meta.shapes, self.meta.dtypes)]
+        self._nbuckets = len(bucket_leaves(leaves, self._threshold))
+        fusion.note_leaf_layout(leaves, [
+            torch.int8 if self._int8 else self._compression.compress(
+                torch.empty(0, dtype=d, device="meta"))[0].dtype
+            for _, d in leaves])
+
+    def rebucket(self) -> None:
+        """Re-derive the threshold from the autotune pin (see
+        ``_DistributedOptimizer.rebucket``); the gathers and
+        reduce-scatters of the next step use it. An explicit
+        ``fusion_threshold_bytes`` wins."""
+        if self._base_threshold is None:
+            self._plan_buckets()
 
     def wire_itemsize(self, dtype: torch.dtype) -> int:
         """Bytes an element of a ``dtype`` leaf takes on the wire."""
@@ -773,6 +852,15 @@ class _FsdpOptimizer:
         elastic world re-formed at another size), with empty state:
         ``load_sharded_state`` fills it."""
         self._own_shards(full_params, self._opt)
+        self._prepare_planner()
+
+    def _prepare_planner(self) -> None:
+        """The comms planner's exchange and subgroups for this world (see
+        ``_DistributedOptimizer._read_world``)."""
+        if self._ps.process_set_id == 0:
+            from .ops import comms_planner
+
+            comms_planner.prepare()
 
     @property
     def salt(self) -> int:

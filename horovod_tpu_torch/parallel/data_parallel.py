@@ -16,8 +16,16 @@ posted abort or a failed collective surfaces from it as
 ``HorovodInternalError``. The sharded and fsdp modes train elastically
 with ``make_train_step`` and ``hvd.elastic.PeerShardedState``.
 
+With ``HOROVOD_AUTOTUNE=1`` the step is wrapped in the warmup tuner
+(``autotune.maybe_autotune_step``, :486-536): its first calls sample the
+fusion threshold (and, with ``HOROVOD_COMMS_PLANNER=auto``, the planner's
+algorithm axis) and pin the fastest; the step carries the optimizer's
+``rebucket``, the port's counterpart of the JAX step's re-trace.
+
 Both return a :class:`_StallWatchedStep` (:22-180), the step traced and
-stall-watched: every call opens a step record in the tracer's ring, with
+stall-watched (outside the tuner; watch and sampling defer while a window
+samples, and every call raises after a mid-warmup abort, :88-103): every
+call opens a step record in the tracer's ring, with
 the phases ``forward_backward`` here and ``collective`` and
 ``optimizer_update`` in the ``DistributedOptimizer``'s step. Every
 ``HOROVOD_STALL_CHECK_STEPS``-th call (default 50) runs under a stall
@@ -60,21 +68,37 @@ class _StallWatchedStep:
         self._calls = 0
         self._trace_calls = 0
 
+    @staticmethod
+    def _tuning_live() -> bool:
+        """Whether an autotune warmup is sampling in this process (its
+        own step or another's): a watched or sampled call's syncs would
+        bias its windows, so both defer."""
+        from ..autotune import _active_tuner
+
+        return bool(_active_tuner and _active_tuner[0]._hvd_tuning)
+
     def __call__(self, *args, **kwargs):
         from .. import basics
+        from ..autotune import _poison_error, warmup_aborted
         from ..stall import watch
         from ..timeline import activity, mark_cycle
 
+        if warmup_aborted():
+            # A mid-warmup autotune abort poisons every factory step of
+            # the process: its peers may have pinned another decision.
+            raise _poison_error()
         mark_cycle("step")
+        tuning = self._tuning_live()
         watch_due = False
-        if self._every > 0:
+        if self._every > 0 and not tuning:
             self._calls += 1
             watch_due = self._calls % self._every == 0
         # Sampling counts this wrapper's calls, so that two interleaved
         # steps (train and eval) cannot alias one out of sampling.
         self._trace_calls += 1
         sample = tracing.sample_every()
-        sample_due = sample > 0 and self._trace_calls % sample == 0
+        sample_due = (not tuning and sample > 0
+                      and self._trace_calls % sample == 0)
         try:
             if faults.fire(faults.MEMORY_PRESSURE):
                 # drop: a synthetic out-of-memory error at the step
@@ -104,6 +128,26 @@ class _StallWatchedStep:
                 memory.dump_oom_record(exc, step=self._prefix)
             raise
         return out
+
+    @property
+    def _hvd_unwatched(self):
+        """The bare step: ``autotune.tune_step_fusion`` times it, so that
+        a watched call's syncs cannot bias a candidate."""
+        return self._fn
+
+    def __getattr__(self, item):
+        if item == "_fn":  # lookup before __init__ must not recurse
+            raise AttributeError(item)
+        return getattr(self._fn, item)
+
+
+def _planner_autotune_candidates():
+    """The comms planner's algorithm axis for the warmup tuner (non-None
+    only with ``HOROVOD_COMMS_PLANNER=auto`` and more than one algorithm
+    eligible in this world: ``comms_planner.autotune_candidates``)."""
+    from ..ops.comms_planner import autotune_candidates
+
+    return autotune_candidates()
 
 
 def _fsdp_loss(model, loss_fn, optimizer):
@@ -183,7 +227,18 @@ def make_train_step(model: torch.nn.Module,
             loss = allreduce(loss, op=Average, process_set=process_set)
         return loss
 
-    return _StallWatchedStep(step, "train_step")
+    # The warmup tuner's re-trace: re-bucket the optimizer from the pins.
+    rebucket = getattr(optimizer, "rebucket", None)
+    if rebucket is not None:
+        step.rebucket = rebucket
+    # Stall watch outside the autotuner (HOROVOD_AUTOTUNE=1), which owns
+    # the re-bucketing; the watch defers while a window samples.
+    from ..autotune import maybe_autotune_step
+
+    return _StallWatchedStep(
+        maybe_autotune_step(
+            step, algorithm_candidates=_planner_autotune_candidates()),
+        "train_step")
 
 
 def make_elastic_train_step(model: torch.nn.Module,

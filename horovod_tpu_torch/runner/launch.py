@@ -7,10 +7,14 @@ Port of ``horovod_tpu/runner/launch.py`` (``parse_args``, ``args_to_env``,
 reference's names; the runtime flags the port reads
 (``--fusion-threshold-mb``, ``--log-level``, ``--timeline-filename``,
 ``--timeline-mark-cycles``, ``--stall-check-time``,
-``--stall-shutdown-time``) become the ``HOROVOD_*`` env vars the workers
-read. The reference's other runtime flags (cycle time, cache, autotune,
-hierarchical allreduce) have no counterpart in the port yet and are
-refused as unknown flags.
+``--stall-shutdown-time``, ``--autotune``, ``--autotune-log-file``) become
+the ``HOROVOD_*`` env vars the workers read. The reference's other runtime
+flags are refused as unknown flags: ``--cycle-time-ms`` and
+``--cache-capacity`` feed a background negotiation loop's cadence and
+response cache, which the port does not have yet, and
+``--hierarchical-allreduce`` feeds a hierarchical 2-D mesh, not ported
+yet either (the comms planner's ``two_level`` schedule,
+``HOROVOD_COMMS_PLANNER``, composes the same legs per bucket).
 
 The process model is upstream Horovod's, not the JAX package's: one
 process per slot, one slot per GPU (``hosts.get_host_assignments``).
@@ -122,6 +126,12 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                    choices=["trace", "debug", "info", "warning", "error", "fatal"])
     p.add_argument("--stall-check-time", type=float, default=None)
     p.add_argument("--stall-shutdown-time", type=float, default=None)
+    p.add_argument("--autotune", action="store_true",
+                   help="tune the fusion threshold (and the comms "
+                        "planner's algorithm) in the first training steps")
+    p.add_argument("--autotune-log-file", default=None,
+                   help="rank 0 appends the autotune decision here as a "
+                        "JSON line")
     p.add_argument("--min-np", type=int, default=None)
     p.add_argument("--max-np", type=int, default=None)
     p.add_argument("--host-discovery-script", default=None,
@@ -188,6 +198,10 @@ def args_to_env(args: argparse.Namespace) -> dict[str, str]:
         env["HOROVOD_TIMELINE"] = args.timeline_filename
     if args.timeline_mark_cycles:
         env["HOROVOD_TIMELINE_MARK_CYCLES"] = "1"
+    if args.autotune:
+        env["HOROVOD_AUTOTUNE"] = "1"
+    if args.autotune_log_file:
+        env["HOROVOD_AUTOTUNE_LOG"] = args.autotune_log_file
     if args.log_level:
         env["HOROVOD_LOG_LEVEL"] = args.log_level
     if args.stall_check_time is not None:

@@ -27,9 +27,8 @@ No counterpart: ``sorted_devices``, ``_device_sort_key`` and
 ``device_coords``, which order TPU chips by their torus coordinates into
 the rank order. A port rank is a process that the launcher placed on one
 card; the launcher's order is the rank order. ``describe`` renders no mesh
-lines (they wait for a port of the 2-D mesh) and no plan lines (they wait
-for the comms planner); the reference renders none either with no mesh
-configured and the planner off.
+lines (they wait for a port of the 2-D mesh); its plan lines are the comms
+planner's (``ops.comms_planner.describe_plans``).
 
 Stdlib-only at import.
 """
@@ -217,6 +216,14 @@ class Topology:
                 "islands (HOROVOD_LINK_CLASS_MAP): "
                 + " ".join("[" + ",".join(map(str, isl)) + "]"
                            for isl in self.ici_islands()))
+        # The comms planner's view: the algorithm it plans per op at two
+        # payloads over these islands (rank-local; one line when off).
+        try:
+            from .ops.comms_planner import describe_plans
+
+            lines.extend(describe_plans(self))
+        except Exception:  # noqa: BLE001 — describe never raises
+            pass
         for r, h in enumerate(self.hosts):
             lines.append(f"  rank {r}: host={h}")
         return "\n".join(lines)

@@ -35,11 +35,15 @@ def _fresh(monkeypatch):
                 "HOROVOD_FUSION_THRESHOLD", "HOROVOD_FSDP_SEGMENTS",
                 "HOROVOD_AUTOTUNE_PRUNE_MARGIN", "HOROVOD_FAULTS"):
         monkeypatch.delenv(key, raising=False)
-    jcm.reset_for_testing()
-    pcm.reset_for_testing()
+    monkeypatch.delenv("HOROVOD_COMMS_PLANNER", raising=False)
+    from horovod_tpu.ops import comms_planner as jcp
+    from horovod_tpu_torch.ops import comms_planner as pcp
+
+    for mod in (jcm, pcm, jcp, pcp):
+        mod.reset_for_testing()
     yield
-    jcm.reset_for_testing()
-    pcm.reset_for_testing()
+    for mod in (jcm, pcm, jcp, pcp):
+        mod.reset_for_testing()
 
 
 def _close(got, want, path="$"):
@@ -142,7 +146,6 @@ def _to_port_key(key):
 def _port_payload(p):
     p = _untimed(p)
     p["fits"] = {_to_port_key(k): v for k, v in p["fits"].items()}
-    p["planner"] = {"enabled": False}
     return p
 
 

@@ -924,6 +924,7 @@ def test_nccl_allreduce_ticket_and_latency_close_after_the_card(
     it synchronizes the device."""
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch import metrics, stall
+    from horovod_tpu_torch.utils.spin import Spin
 
     monkeypatch.setenv("HOROVOD_FORCE_WIRE_MACHINERY", "1")
     hvd.init()
@@ -933,15 +934,16 @@ def test_nccl_allreduce_ticket_and_latency_close_after_the_card(
         monkeypatch.setattr(torch.cuda, "synchronize",
                             lambda *a: synchronized.append(a))
         t = torch.ones(1 << 20, device=cuda_device)
-        hvd.allreduce(t)  # the communicator forms at the first collective
-        # The first spin of a process may not spin: launch one first.
-        torch.cuda._sleep(1)
+        # The communicator forms, and the allreduce's kernels load (under
+        # CUDA's lazy loading a first launch behind the spin would wait for
+        # it: C9), at the first collective.
+        hvd.allreduce(t, op=hvd.Sum)
         real()
         count = metrics.COLLECTIVE_LATENCY.labels(kind="allreduce")
         ins = stall.get_inspector()
         ins.reap()
         before, seconds = count.count, count.sum
-        torch.cuda._sleep(int(0.5 * 1.7e9))  # ~0.5 s at H100 clocks
+        spin = Spin(int(0.5 * 1.7e9))  # ~0.5 s at H100 clocks, timed
         t0 = time.perf_counter()
         out = hvd.allreduce(t, op=hvd.Sum)
         host_s = time.perf_counter() - t0
@@ -955,6 +957,9 @@ def test_nccl_allreduce_ticket_and_latency_close_after_the_card(
         assert len(ins._outstanding) == 0 and count.count == before + 1
         assert 0 < count.sum - seconds < 1.0
         assert torch.equal(out, t)
+        # The spin held the stream (C9: a short one would let the
+        # allreduce run before the host looked).
+        assert not spin.short(), (spin.ms(), spin.least_ms())
     finally:
         monkeypatch.setattr(torch.cuda, "synchronize", real)
         hvd.shutdown()
@@ -969,6 +974,7 @@ def test_fetch_behind_a_spin_warns_by_name(cuda_device, monkeypatch):
 
     from horovod_tpu_torch import metrics, stall
     from horovod_tpu_torch.utils.logging import get_logger
+    from horovod_tpu_torch.utils.spin import MAX_SM_HZ, Spin
 
     class Keep(logging.Handler):
         def __init__(self):
@@ -985,14 +991,20 @@ def test_fetch_behind_a_spin_warns_by_name(cuda_device, monkeypatch):
     try:
         warned = metrics.STALL_WARNINGS.labels().get()
         x = torch.ones(4, device=cuda_device)
-        # The first spin of a process may not spin: launch one first.
-        torch.cuda._sleep(1)
+        # Load the kernel of the work queued behind the spin first: under
+        # CUDA's lazy loading the first launch of a kernel waits until the
+        # card is idle, so behind a spin it would return only after it
+        # (C9).
+        x * 2
         torch.cuda.synchronize()
-        torch.cuda._sleep(int(3 * 1.98e9))  # ~3 s at the highest SM clock
+        spin = Spin(int(3 * MAX_SM_HZ))  # ~3 s at the highest SM clock
         y = x * 2
         t0 = time.perf_counter()
         assert stall.fetch(y, name="spin") is y
         waited = time.perf_counter() - t0
+        # The spin held the stream (C9), else the fetch had nothing to
+        # wait for.
+        assert not spin.short(), (spin.ms(), spin.least_ms(), waited)
         assert waited > 1.5, waited
         assert metrics.STALL_WARNINGS.labels().get() > warned, (
             waited, keep.lines)
@@ -1145,3 +1157,156 @@ def test_microprobe_times_the_card_behind_its_hold(cuda_device,
         seconds = [s for v in per_op.values() for s in v]
         assert len(seconds) == 4 and 0 < max(seconds) < 2e-3, (op, seconds)
         assert payload["fits"][f"{op}|flat|intra_host"]["samples"] == 4
+
+
+@pytest.mark.cuda
+def test_first_spin_of_a_process_is_timed(cuda_device):
+    """C9: the first ``torch.cuda._sleep`` of a fresh process, timed by
+    CUDA events, holds the stream for its cycles (the child prints its
+    milliseconds; a short one fails here and names itself). What looked
+    like a spin that did not spin was the host: the first launch of a
+    kernel behind a spin returns only when the spin ends."""
+    import subprocess
+    import sys
+
+    code = ("import torch; from horovod_tpu_torch.utils.spin import Spin; "
+            "s = Spin(20_000_000); print(s.ms(), s.least_ms(), s.short())")
+    out = subprocess.run([sys.executable, "-c", code], check=True,
+                         capture_output=True, text=True, timeout=120,
+                         cwd=os.path.dirname(os.path.dirname(__file__)))
+    ms, least, short = out.stdout.split()
+    assert short == "False", f"the first spin took {ms} ms of {least}"
+
+
+@pytest.mark.cuda
+def test_bayesian_optimizer_builds_with_gxx_here(cuda_device):
+    """The autotuner's Bayesian optimizer (host C++) builds with g++ on
+    the card's machine and suggests the same points for the same seed and
+    scores."""
+    from horovod_tpu_torch import autotune
+
+    runs = []
+    for _ in range(2):
+        tuner = autotune.BayesianTuner([64 * 1024.0], [128.0 * 2**20],
+                                       seed=3)
+        points = []
+        for r in range(8):
+            (x,) = tuner.suggest()
+            points.append(x)
+            tuner.add_sample([x], 1.0 / (1.0 + abs(x - 2**23) / 2**20))
+        runs.append((points, tuner.best()))
+        tuner.close()
+    assert runs[0] == runs[1]
+    assert all(64 * 1024 <= x <= 128 * 2**20 for x in runs[0][0])
+
+
+def _tiny_bert_step(hvd, cuda_device, seed=0):
+    import dataclasses
+
+    from horovod_tpu_torch.models import bert
+
+    cfg = dataclasses.replace(bert.BERT_TINY, dropout_rate=0.0)
+    torch.manual_seed(seed)
+    with torch.device(cuda_device):
+        model = bert.Bert(cfg, attention_fn=bert.flash_attention_fn)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.1),
+        named_parameters=model.named_parameters(),
+        compression=hvd.Compression.bf16)
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, cfg.vocab_size, (4, 128), generator=g)
+    positions = torch.stack([torch.randperm(128, generator=g)[:8]
+                             for _ in range(4)])
+    labels = torch.randint(0, cfg.vocab_size, (4, 8), generator=g)
+    batch = tuple(t.to(cuda_device) for t in
+                  (ids, positions, labels, torch.ones(4, 8)))
+
+    def loss_fn(m, b):
+        _, logits = m(b[0], masked_positions=b[1])
+        return bert.mlm_loss(logits, b[2], b[3])
+
+    return cfg, model, opt, hvd.make_train_step(model, loss_fn, opt), batch
+
+
+@pytest.mark.cuda
+def test_tiny_bert_autotunes_and_rebuckets_on_the_card(cuda_device,
+                                                       tmp_path,
+                                                       monkeypatch):
+    """Under ``HOROVOD_AUTOTUNE=1`` a tiny BERT's step pins a threshold
+    after three windows, re-buckets its optimizer to it, and every step
+    still launches its attention kernels once a layer."""
+    import json
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import autotune
+    from horovod_tpu_torch.ops.fusion import bucket_leaves
+
+    monkeypatch.setenv("HOROVOD_FORCE_WIRE_MACHINERY", "1")
+    monkeypatch.setenv("HOROVOD_AUTOTUNE", "1")
+    log = tmp_path / "autotune.jsonl"
+    monkeypatch.setenv("HOROVOD_AUTOTUNE_LOG", str(log))
+    autotune.reset_for_testing()
+    hvd.init()
+    try:
+        cfg, model, opt, step, batch = _tiny_bert_step(hvd, cuda_device)
+        for k in _kernels.KERNELS:
+            k.launches = 0
+        steps = 3 * 4 + 2
+        losses = [float(step(batch)) for _ in range(steps)]
+        pin = autotune.tuned_threshold()
+        assert pin in autotune.DEFAULT_THRESHOLDS
+        assert json.loads(log.read_text())["decision"] == pin
+        layout = [(p.numel(), torch.bfloat16) for p in model.parameters()]
+        assert len(opt._buckets) == len(bucket_leaves(layout, pin))
+        launched = {k.name: k.launches for k in _kernels.KERNELS
+                    if k.launches}
+        assert launched and all(n == cfg.num_layers * steps
+                                for n in launched.values()), launched
+        assert all(torch.isfinite(torch.tensor(losses)))
+        opt.remove_hooks()
+    finally:
+        hvd.shutdown()
+        autotune.reset_for_testing()
+
+
+@pytest.mark.cuda
+def test_planner_unset_leaves_the_flush_launches(cuda_device, monkeypatch):
+    """With ``HOROVOD_COMMS_PLANNER`` unset a step launches one NCCL
+    allreduce per bucket and one for the loss, and the planner never
+    plans (``comms_planner.dispatch_plan`` answers before
+    ``plan_bucket``); pinned flat, it plans and the launches are the
+    same."""
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import comms_planner
+
+    monkeypatch.setenv("HOROVOD_FORCE_WIRE_MACHINERY", "1")
+    monkeypatch.delenv("HOROVOD_COMMS_PLANNER", raising=False)
+    hvd.init()
+    real_allreduce = dist.all_reduce
+    launches, asked = [], []
+    real_plan = comms_planner.plan_bucket
+    monkeypatch.setattr(dist, "all_reduce", lambda *a, **k: (
+        launches.append(1), real_allreduce(*a, **k))[1])
+    monkeypatch.setattr(comms_planner, "plan_bucket", lambda *a, **k: (
+        asked.append(1), real_plan(*a, **k))[1])
+    try:
+        counts = []
+        for mode in (None, "flat"):
+            if mode:
+                monkeypatch.setenv("HOROVOD_COMMS_PLANNER", mode)
+            _, _, opt, step, batch = _tiny_bert_step(hvd, cuda_device)
+            step(batch)
+            launches.clear()
+            asked.clear()
+            step(batch)
+            counts.append((len(launches), len(asked)))
+            assert len(launches) == len(opt._buckets) + 1
+            opt.remove_hooks()
+        # Unset: never planned. Pinned flat: planned, and the launches
+        # equal (a one-rank world plans nothing but flat).
+        assert counts[0][1] == 0 and counts[1][1] > 0
+        assert counts[1][0] == counts[0][0]
+    finally:
+        hvd.shutdown()

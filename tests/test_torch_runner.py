@@ -36,11 +36,16 @@ FLAG_SETS = [
     ["--timeline-filename", "t.json", "--timeline-mark-cycles"],
     ["--stall-check-time", "30"],
     ["--stall-check-time", "1.5", "--stall-shutdown-time", "60"],
+    # The autotuner's flags.
+    ["--autotune"],
+    ["--autotune-log-file", "a.csv"],
+    ["--autotune", "--autotune-log-file", "tune.jsonl",
+     "--fusion-threshold-mb", "4"],
 ]
-# The reference's runtime flags with no counterpart in the port.
+# The reference's runtime flags with no counterpart in the port: the
+# negotiation loop's cadence and cache, and the hierarchical 2-D mesh.
 UNREAD_FLAGS = [
     ["--cycle-time-ms", "2.5"], ["--cache-capacity", "0"],
-    ["--autotune"], ["--autotune-log-file", "a.csv"],
     ["--hierarchical-allreduce"],
 ]
 SCHEDULER_ENVS = [
