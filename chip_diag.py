@@ -1434,6 +1434,249 @@ def planner(cpu):
     return out.returncode
 
 
+# The negotiation diagnostic: BERT-Large's gradient leaves (--cpu:
+# BERT_TINY's) through the negotiated runtime on four ranks.
+NEG_STALL_CHECK_S = 2.0
+# How long rank 2 holds back the leaf it skipped, and its stall watch.
+NEG_STALL_HOLD_S = 3 * NEG_STALL_CHECK_S
+NEG_CACHE_CAPACITY = 64
+NEG_JOIN_STEPS = 3
+
+
+def _neg_payload(rank, i, n=8):
+    """An integer payload: rank- and leaf-dependent, exact under Sum."""
+    import torch
+
+    return (torch.arange(n, dtype=torch.int64) * 1000003 + 7919 * i
+            + 104729 * rank)
+
+
+def _neg_allreduce_leaves(world, grads, ints, prefix, reverse=False,
+                          skip=None, hold_s=0.0):
+    """Every leaf's gradient (Average, in place on a copy) and integer
+    payload (Sum) as named async allreduces, in leaf order or reversed;
+    ``skip`` (a leaf index) is enqueued ``hold_s`` after the others.
+    Returns the results in leaf order."""
+    names = list(grads)
+    order = list(range(len(names)))
+    if reverse:
+        order.reverse()
+    handles = {}
+
+    def enqueue(i):
+        name = names[i]
+        handles[i] = (
+            world.allreduce_async_(grads[name].clone(),
+                                   name=f"{prefix}.{name}", op="average"),
+            world.allreduce_async_(ints[i].clone(),
+                                   name=f"{prefix}.int.{i}", op="sum"))
+
+    for i in order:
+        if i != skip:
+            enqueue(i)
+    if skip is not None:
+        time.sleep(hold_s)
+        enqueue(skip)
+    return [(world.synchronize(handles[i][0]),
+             world.synchronize(handles[i][1])) for i in range(len(names))]
+
+
+def _neg_reform(hvd, env):
+    """A new negotiated world over this world's ranks under ``env`` (read
+    at its formation); the old one is shut down first."""
+    import torch.distributed as dist
+
+    from horovod_tpu_torch import basics
+    from horovod_tpu_torch.runner.network import free_port
+    from horovod_tpu_torch.runtime import NativeWorld
+
+    basics._state.negotiated.shutdown()
+    box = [f"127.0.0.1:{free_port()}" if hvd.rank() == 0 else None]
+    dist.broadcast_object_list(box, src=0)
+    host, port = box[0].rsplit(":", 1)
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        world = NativeWorld(hvd.rank(), hvd.size(), host, int(port))
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    basics._state.negotiated = world
+    return world
+
+
+def _negotiation_rank(device):
+    """One rank of ``negotiation``, started by the launcher."""
+    import faulthandler
+
+    faulthandler.dump_traceback_later(900, exit=True)
+    sys.path.insert(0, HERE)
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import bert as bert_mod
+
+    hvd.init(device=device)
+    rank, n = hvd.rank(), hvd.size()
+    world = hvd.basics.negotiated_world()
+    cfg, batch = _planner_batch(hvd, rank, device)
+    torch.manual_seed(0)
+    with torch.device(hvd.device()):
+        model = bert_mod.Bert(cfg, attention_fn=bert_mod.flash_attention_fn)
+    _mlm_loss(model, batch).backward()
+    grads = {name: p.grad.detach().clone()
+             for name, p in model.named_parameters()}
+    ints = [_neg_payload(rank, i).to(hvd.device()) for i in range(len(grads))]
+    # The bound of two float32 summation orders of n gradients: a few
+    # roundings of the largest sum of magnitudes.
+    mag = {name: hvd.allreduce(g.abs(), op=hvd.Sum, name=f"mag.{name}")
+           for name, g in grads.items()}
+    want_ints = [sum(_neg_payload(r, i) for r in range(n)).to(hvd.device())
+                 for i in range(len(grads))]
+    report = dict(rank=rank, leaves=len(grads))
+
+    def hold(label, got, ref):
+        worst = 0.0
+        for (g, iv), (rg, riv), name, wi in zip(got, ref, grads, want_ints):
+            if not torch.equal(iv, wi):
+                raise AssertionError(f"{label}: integer payload of {name} "
+                                     f"differs: {iv} against {wi}")
+            err = ((g - rg).abs() / (mag[name] / n).clamp_min(1e-30)).max()
+            worst = max(worst, float(err))
+        if worst > 8 * n * 2.0 ** -24:
+            raise AssertionError(f"{label}: gradients differ from the "
+                                 f"in-order run by {worst:.3g} of their "
+                                 "mean magnitude")
+        return worst
+
+    t0 = time.perf_counter()
+    in_order = _neg_allreduce_leaves(world, grads, ints, "io")
+    report["in_order_s"] = round(time.perf_counter() - t0, 3)
+    t0 = time.perf_counter()
+    ooo = _neg_allreduce_leaves(world, grads, ints, "ooo",
+                                reverse=rank % 2 == 1)
+    report["out_of_order_s"] = round(time.perf_counter() - t0, 3)
+    report["out_of_order_worst"] = hold("out of order", ooo, in_order)
+    report["cycles"], report["hits"], report["misses"] = (
+        world.cycles, world.cache_hits, world.cache_misses)
+
+    # Stall: rank 2 holds one leaf back; then a stall watch it enters late.
+    skip = len(grads) // 2 if rank == 2 else None
+    held = _neg_allreduce_leaves(world, grads, ints, "st", skip=skip,
+                                 hold_s=NEG_STALL_HOLD_S)
+    report["stall_leaf"] = f"st.{list(grads)[len(grads) // 2]}"
+    report["stall_worst"] = hold("stall", held, in_order)
+    if rank == 2:
+        time.sleep(NEG_STALL_HOLD_S)
+    with hvd.stall.watch("diag.late"):
+        pass
+    print(f"[rank {rank}] negotiation: stall released", flush=True)
+
+    # The cache at 64 entries: two rounds of every leaf evict and give the
+    # in-order run's results.
+    world = _neg_reform(hvd, {"HOROVOD_CACHE_CAPACITY":
+                              str(NEG_CACHE_CAPACITY)})
+    counts = []
+    for k in range(2):
+        evicted = _neg_allreduce_leaves(world, grads, ints, "ev")
+        report[f"evict_worst_{k}"] = hold("eviction", evicted, in_order)
+        counts.append((world.cache_hits, world.cache_misses))
+    # A name still cached hits at every announcement: a miss in the
+    # second round is a name the LRU evicted.
+    report["evict_hits"], report["evict_misses"] = (
+        [counts[0][0], counts[1][0] - counts[0][0]],
+        [counts[0][1], counts[1][1] - counts[0][1]])
+    if report["evict_misses"][1] == 0:
+        raise AssertionError(f"eviction: no miss in the second round of "
+                             f"{2 * len(grads)} names at capacity "
+                             f"{NEG_CACHE_CAPACITY}")
+
+    # Join: rank r runs NEG_JOIN_STEPS + r steps, each a negotiated
+    # average of every leaf and of an integer payload, then joins.
+    for i in range(NEG_JOIN_STEPS + rank):
+        _neg_allreduce_leaves(world, grads, ints, f"join{i}")
+        got = world.synchronize(world.allreduce_async_(
+            torch.tensor([7 * rank + i, -3 * rank, 1000], dtype=torch.int64,
+                         device=hvd.device()), name=f"join.int{i}",
+            op="average"))
+        rows = torch.tensor([[7 * q + i, -3 * q, 1000] for q in range(n)
+                             if NEG_JOIN_STEPS + q > i], dtype=torch.float64)
+        s = rows.sum(0) / len(rows)
+        want = (s.sign() * (s.abs() + 0.5).floor()).to(torch.int64)
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"join step {i}: {got.tolist()} against "
+                                 f"the {len(rows)} contributors' mean "
+                                 f"{want.tolist()}")
+    report["join"] = hvd.join()
+    if report["join"] != n - 1:
+        raise AssertionError(f"join returned {report['join']}, expected "
+                             f"{n - 1}")
+    report["join_steps"] = NEG_JOIN_STEPS + rank
+    print("negotiation rank " + json.dumps(report), flush=True)
+    if rank == 0 and device == "cuda":
+        print(f"negotiation: cards {_smoke().card_line()}", flush=True)
+    hvd.shutdown()
+
+
+def negotiation(cpu):
+    import torch
+
+    n = 4 if cpu else torch.cuda.device_count()
+    if n != 4:
+        print("negotiation: needs four cards (or --cpu)", file=sys.stderr)
+        return 1
+    device = "cpu" if cpu else "cuda"
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.runner.launch", "-np",
+         str(n), *(["--cpu-mode"] if cpu else []), sys.executable,
+         os.path.abspath(__file__), "_negotiation_rank", device],
+        cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE,
+                           HOROVOD_STALL_CHECK_TIME=str(NEG_STALL_CHECK_S)),
+        timeout=1500, capture_output=True, text=True)
+    text = out.stdout
+    sys.stdout.write(text)
+    sys.stderr.write(out.stderr[-8000:])
+    print(f"negotiation: {n} ranks over {dist_backend(device)} started by "
+          f"hvdrun-torch, exit code {out.returncode}, "
+          f"{time.perf_counter() - t0:.1f} s")
+    if out.returncode != 0:
+        return out.returncode
+    reports = [json.loads(ln.split("negotiation rank ", 1)[1])
+               for ln in text.splitlines() if "negotiation rank " in ln]
+    rank0 = [ln for ln in text.splitlines() if ln.startswith("[0]")]
+    released = next(i for i, ln in enumerate(rank0)
+                    if "negotiation: stall released" in ln)
+    leaf = reports[0]["stall_leaf"]
+    warned = [ln for ln in rank0[:released] if "stall detected" in ln]
+    named = {
+        "leaf": any(f"tensor {leaf} " in ln and "rank(s) [2]" in ln
+                    for ln in warned),
+        "watch": any("tensor stallwatch/diag.late " in ln
+                     and "rank(s) [2]" in ln for ln in warned),
+    }
+    print(f"negotiation: rank 0's stall warnings before the release: "
+          f"{warned}")
+    if len(reports) != n or not all(named.values()):
+        print(f"negotiation: FAILED: {len(reports)} rank reports; named "
+              f"{named}", file=sys.stderr)
+        return 1
+    print(f"negotiation: ok: out of order equal (integers exact, gradients "
+          f"within {max(r['out_of_order_worst'] for r in reports):.3g} of "
+          f"their mean magnitude), join() = "
+          f"{sorted({r['join'] for r in reports})} on every rank after "
+          f"{[r['join_steps'] for r in reports]} steps, the held leaf "
+          f"{leaf} and stallwatch/diag.late named with rank 2 within "
+          f"{NEG_STALL_HOLD_S} s (check time {NEG_STALL_CHECK_S} s), "
+          f"capacity {NEG_CACHE_CAPACITY}: (first, second) round misses "
+          f"{[r['evict_misses'] for r in reports]}, hits "
+          f"{[r['evict_hits'] for r in reports]}, results equal")
+    return 0
+
+
 SPINS_CHILD = r"""
 import sys, time, torch
 x = torch.randn(8192, 8192, device="cuda")
@@ -2278,6 +2521,11 @@ def main() -> int:
         return comms(args[1:] == ["--cpu"])
     if args[:1] == ["_comms_rank"] and len(args) == 2:
         _comms_rank(args[1])
+        return 0
+    if args in (["negotiation"], ["negotiation", "--cpu"]):
+        return negotiation(args[1:] == ["--cpu"])
+    if args[:1] == ["_negotiation_rank"] and len(args) == 2:
+        _negotiation_rank(args[1])
         return 0
     if args in (["planner"], ["planner", "--cpu"]):
         return planner(args[1:] == ["--cpu"])

@@ -188,6 +188,20 @@ and prints no result line); each prints its seconds:
    model-guided pruning (``HOROVOD_AUTOTUNE_MODEL_GUIDED=1``) prices the
    grid with the fits the ``observability`` phase's microprobe left and
    prints the kept and pruned candidates;
+13d. ``negotiation``: BERT-Large S=512 x 8 (24 layers, bf16, AdamW, seed
+   0, deterministic algorithms) for 6 steps through the negotiated runtime
+   (``horovod_tpu_torch.runtime.NativeWorld`` built at size 1 on the
+   card, its control plane built with g++): a
+   ``register_post_accumulate_grad_hook`` on each parameter enqueues its
+   gradient as the named ``allreduce_async_`` ``grad.<name>`` (Average)
+   in backward order, and every handle is synchronized before AdamW. The
+   parameters equal bit for bit those of the same 6 steps under the
+   ``DistributedOptimizer`` on the float32 wire (forced NCCL); K1, K3 and
+   K4 launch 24 times a step in both; from step 2 on every leaf is a
+   cache hit. Prints the fused responses, cycles and executor host ms a
+   step, and step ms and device busy beside the direct path's. Then 20
+   steps with ``HOROVOD_AUTOTUNE=1`` (the ParameterManager on the loop):
+   the knobs move, and ``autotune_state()`` is printed;
 14. agreement: the flash model against dense attention on small float32
    inputs, on each attention route; and ResNet-50 in float32 on the card
    against the CPU on the same weights (2 images at 64x64): logits in both
@@ -4450,6 +4464,219 @@ def autotune_phase(card):
           f"on {card}")
 
 
+NEG_STEPS = 6
+NEG_AUTOTUNE_STEPS = 20
+NEG_PROFILED_STEPS = 2
+
+
+class _NegotiatedStep:
+    """A training step whose gradients are averaged by the negotiated
+    runtime: each parameter's post-accumulate hook enqueues its gradient
+    as the named in-place ``allreduce_async_`` ``grad.<name>`` in backward
+    order; the step synchronizes every handle, then runs the plain
+    optimizer."""
+
+    def __init__(self, world, model, opt):
+        self.world, self.model, self.opt = world, model, opt
+        self.handles = []
+        names = {p: n for n, p in model.named_parameters()}
+        self.leaves = len(names)
+        self.hooks = [p.register_post_accumulate_grad_hook(
+            lambda p, name=names[p]: self.handles.append(
+                self.world.allreduce_async_(p.grad, name=f"grad.{name}",
+                                            op="average")))
+            for p in model.parameters()]
+
+    def __call__(self, batch):
+        loss = _bert_loss(self.model, batch)
+        loss.backward()
+        for h in self.handles:
+            self.world.synchronize(h)
+        self.handles.clear()
+        self.opt.step()
+        self.opt.zero_grad(set_to_none=True)
+        return loss.detach()
+
+    def remove(self):
+        for h in self.hooks:
+            h.remove()
+
+
+def _neg_run(model, initial, batch, steps, world=None):
+    """``steps`` AdamW steps from ``initial``: through the negotiated
+    ``world``, or (None) through the ``DistributedOptimizer`` on the
+    float32 wire and ``make_train_step``. Returns the losses, each step's
+    host ms (ended by a synchronize), the launches, the negotiation's
+    counters after each step and the device busy ms a step of
+    ``NEG_PROFILED_STEPS`` more profiled steps."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import _kernels
+
+    model.load_state_dict(initial)
+    adamw = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4)
+    if world is None:
+        opt = hvd.DistributedOptimizer(
+            adamw, named_parameters=model.named_parameters(),
+            compression=hvd.Compression.none)
+        step = hvd.make_train_step(model, _bert_loss, opt)
+    else:
+        opt, step = adamw, _NegotiatedStep(world, model, adamw)
+    for k in _kernels.KERNELS:
+        k.launches = 0
+    torch.cuda.synchronize()
+    losses, times, counters = [], [], []
+    try:
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            losses.append(float(step(batch)))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if world is not None:
+                counters.append(dict(
+                    hits=world.cache_hits, misses=world.cache_misses,
+                    cycles=world.cycles, responses=world.responses,
+                    host_s=world.executor_seconds))
+        launches = {k.name: k.launches for k in _kernels.KERNELS}
+        params = [p.detach().clone() for p in model.parameters()]
+        busy = None
+        with device_profile() as prof:
+            for _ in range(NEG_PROFILED_STEPS):
+                step(batch)
+        spans = [(a, b) for _, a, b in device_events(prof)]
+        if spans:
+            busy = _busy_us(spans) / 1e3 / NEG_PROFILED_STEPS
+    finally:
+        if world is None:
+            opt.remove_hooks()
+        else:
+            step.remove()
+    return dict(losses=losses, times=times, launches=launches, params=params,
+                counters=counters, busy=busy,
+                leaves=getattr(step, "leaves", None))
+
+
+def _neg_world(dev):
+    from horovod_tpu_torch.runner.network import free_port
+    from horovod_tpu_torch.runtime import NativeWorld
+
+    return NativeWorld(0, 1, "127.0.0.1", free_port(), device=dev)
+
+
+def negotiation_phase(card):
+    """BERT-Large S=512 x 8 through the negotiated runtime (see the module
+    docstring, 13d)."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import runtime
+    from horovod_tpu_torch.models import bert as bert_mod
+
+    _, B, S, P, kernels = BERT_PATHS[0]
+    cfg = dataclasses.replace(bert_mod.BERT_LARGE, dropout_rate=0.0)
+    dev = hvd.device()
+    t0 = time.perf_counter()
+    runtime.load_library()
+    build_s = time.perf_counter() - t0
+    torch.manual_seed(0)
+    with torch.device(dev):
+        model = bert_mod.Bert(cfg, attention_fn=bert_mod.flash_attention_fn)
+    initial = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = _bert_batch(cfg, B, S, P, 0, dev)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    world = tuned = None
+    try:
+        direct = _neg_run(model, initial, batch, NEG_STEPS)
+        world = _neg_world(dev)
+        neg = _neg_run(model, initial, batch, NEG_STEPS, world)
+        for run, which in ((direct, "direct"), (neg, "negotiated")):
+            for kname, n in run["launches"].items():
+                want = cfg.num_layers * NEG_STEPS if kname in kernels else 0
+                if n != want:
+                    raise AssertionError(
+                        f"negotiation: {which}: {kname} launched {n} times "
+                        f"in {NEG_STEPS} steps, expected {want}")
+        unequal = sum(not torch.equal(a, b)
+                      for a, b in zip(neg["params"], direct["params"]))
+        if unequal or neg["losses"] != direct["losses"]:
+            raise AssertionError(
+                f"negotiation: {unequal} of {len(neg['params'])} parameters "
+                f"differ from the direct path's after {NEG_STEPS} steps "
+                f"(losses {neg['losses']} against {direct['losses']})")
+        c = neg["counters"]
+        leaves = neg["leaves"]
+        if not (c[0]["misses"] == leaves
+                and all(x["misses"] == leaves for x in c)
+                and all(c[i]["hits"] - c[i - 1]["hits"] == leaves
+                        for i in range(1, len(c)))):
+            raise AssertionError(
+                f"negotiation: {leaves} leaves, cache counters per step "
+                f"{[(x['hits'], x['misses']) for x in c]}: every leaf must "
+                "miss in step 1 and hit from step 2 on")
+        per = [{k: c[i][k] - (c[i - 1][k] if i else 0)
+                for k in ("responses", "cycles", "host_s")}
+               for i in range(len(c))]
+        late = per[1:]
+        mean = {k: statistics.mean(x[k] for x in late) for k in late[0]}
+        print(f"negotiation: BERT-Large S=512 x {B}, {leaves} gradient "
+              f"leaves as named allreduce_async_ from post-accumulate "
+              f"hooks, {NEG_STEPS} AdamW steps from seed 0: parameters "
+              f"equal the DistributedOptimizer's (float32 wire) bit for "
+              f"bit, losses {[round(x, 6) for x in neg['losses']]}; K1, "
+              f"K3, K4 launched {cfg.num_layers} times a step in both; "
+              f"control plane built with g++ in {build_s:.2f} s")
+        print(f"negotiation: cache hits/misses after each step "
+              f"{[(x['hits'], x['misses']) for x in c]}; per step "
+              f"(responses, cycles, executor host ms) "
+              f"{[(x['responses'], x['cycles'], round(x['host_s'] * 1e3, 3)) for x in per]}; "
+              f"steps 2-{NEG_STEPS} mean: {mean['responses']:.1f} fused "
+              f"responses, {mean['cycles']:.1f} cycles, "
+              f"{mean['host_s'] * 1e3:.3f} executor host ms on {card}")
+        d_ms = statistics.median(direct["times"][WARMUP_STEPS:])
+        n_ms = statistics.median(neg["times"][WARMUP_STEPS:])
+        busy = {k: (f"{r['busy']:.2f}" if r["busy"] is not None
+                    else "not measured")
+                for k, r in (("direct", direct), ("negotiated", neg))}
+        print(f"negotiation: step ms median (steps {WARMUP_STEPS + 1}-"
+              f"{NEG_STEPS}) negotiated {n_ms:.2f}, direct {d_ms:.2f}; "
+              f"device busy ms a step (profiled) negotiated "
+              f"{busy['negotiated']}, direct {busy['direct']} on {card}")
+        world.shutdown()
+        world = None
+        os.environ["HOROVOD_AUTOTUNE"] = "1"
+        try:
+            tuned = _neg_world(dev)
+        finally:
+            os.environ.pop("HOROVOD_AUTOTUNE", None)
+        before = tuned.autotune_state()
+        run = _neg_run(model, initial, batch, NEG_AUTOTUNE_STEPS, tuned)
+        after = tuned.autotune_state()
+        if not (before["active"] and after["samples"] > 0 and (
+                after["fusion_threshold"] != before["fusion_threshold"]
+                or after["cycle_time_ms"] != before["cycle_time_ms"])):
+            raise AssertionError(
+                f"negotiation: HOROVOD_AUTOTUNE=1 did not move the knobs in "
+                f"{NEG_AUTOTUNE_STEPS} steps: {before} -> {after}")
+        if not all(math.isfinite(x) for x in run["losses"]):
+            raise AssertionError(f"negotiation: autotuned losses "
+                                 f"{run['losses']}")
+        print(f"negotiation: HOROVOD_AUTOTUNE=1, {NEG_AUTOTUNE_STEPS} "
+              f"steps: autotune_state() {before} -> {after}; cycles "
+              f"{tuned.cycles}, responses {tuned.responses} on {card}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        for w in (world, tuned):
+            if w is not None:
+                w.shutdown()
+        del model, initial
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def kernel_rows():
     """The kernels line's rows, (name, Kernel, source file under csrc/):
     each kernel, then the D = 256 instances of the multi-tile three, then
@@ -4542,6 +4769,7 @@ def main() -> int:
     _phase("elastic_peer", elastic_peer_phase, card)
     _phase("observability", observability_phase, card)
     _phase("autotune", autotune_phase, card)
+    _phase("negotiation", negotiation_phase, card)
     print("sync modes, BERT-Large S=512 x 8 at world size 1 (step ms median, "
           "max_memory_allocated GiB, optimizer-state bytes on this rank): "
           + "; ".join(f"{m} {ms:.2f} ms, {peak:.2f} GiB, {state}"

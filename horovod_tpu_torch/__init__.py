@@ -22,7 +22,11 @@ what the job does, on each rank and, through the elastic driver's
 rendezvous server, across the cluster; the comms and memory observatories
 (``comms_model``, with the link classes of ``topology``, and ``memory``)
 fit an alpha-beta price to the collectives and account the card's bytes
-(``run_comms_microprobe`` seeds the first).
+(``run_comms_microprobe`` seeds the first). In a world of more than one
+rank the eager collectives are named requests to the negotiated runtime
+(``runtime``): a rank-0 controller puts them in one order for every rank,
+caches and fuses them, names a rank that holds the others back, and lets a
+rank that ran out of data ``join``.
 """
 
 from __future__ import annotations
@@ -52,7 +56,7 @@ _EXPORTS = {
                    "NotInitializedError", "RecoveryExhaustedError",
                    "RemovedFromWorldError", "SyncModeIneligibleError"),
     "functions": ("allgather_object", "broadcast_object",
-                  "broadcast_optimizer_state", "broadcast_parameters",
+                  "broadcast_optimizer_state", "broadcast_parameters", "join",
                   "masked_average"),
     "ops.collective_ops": (
         "Adasum", "Average", "Max", "Min", "Product", "Sum", "allgather",
@@ -106,6 +110,6 @@ def __dir__():
 # The public names, and the submodules that are public by name
 # (``hvd.elastic``: ``run``, ``TorchState``, ``ElasticSampler``, ...).
 _SUBMODULES = ("attribution", "autotune", "checkpoint", "comms_model",
-               "elastic", "memory", "metrics", "profiler", "topology",
-               "tracing")
+               "elastic", "memory", "metrics", "profiler", "runtime",
+               "topology", "tracing")
 __all__ = sorted(_SOURCE) + list(_SUBMODULES)

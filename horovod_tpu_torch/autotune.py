@@ -25,9 +25,11 @@ loss), so a window pays one synchronization, not one per call.
 Left out: the 2-D mesh-shape pin (``tuned_mesh_shape``) waits for a port
 of ``parallel/mesh.py``; the segments axis has its pin, which
 ``ops.fusion.overlap_segments`` reads, but no factory passes segment
-candidates until the overlapped step is ported. The native runtime's
-online ``ParameterManager`` (its background loop's cycle time and fusion
-buffer) has no counterpart: the port has no such loop.
+candidates until the overlapped step is ported. The negotiated runtime's
+online ``ParameterManager`` (its cycle time and fusion threshold) is C++
+in ``csrc/runtime/autotune.cc``, armed by the same ``HOROVOD_AUTOTUNE=1``
+(``runtime.NativeWorld.autotune_state()``), on this module's Gaussian
+process: ``csrc/bayes_opt.h`` declares it for both libraries.
 
 Stdlib at import.
 """
@@ -46,6 +48,7 @@ from .utils.logging import get_logger
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BAYES_SOURCE = os.path.join(_HERE, "csrc", "bayes_opt.cc")
+BAYES_HEADER = os.path.join(_HERE, "csrc", "bayes_opt.h")
 GXX = "g++"
 GXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared")
 
@@ -60,8 +63,10 @@ def build_bayes_library() -> str:
     fails."""
     from .ops._kernels import BUILD_DIR
 
-    with open(BAYES_SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(GXX_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    for path in (BAYES_SOURCE, BAYES_HEADER):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     lib_path = os.path.join(BUILD_DIR,
                             f"libhvd_bayes_{digest.hexdigest()[:16]}.so")
     os.makedirs(BUILD_DIR, exist_ok=True)

@@ -82,6 +82,9 @@ class _State:
         # The device the last init() of an elastic world asked for: the
         # elastic loop's re-init, which passes none, keeps it.
         self.elastic_device = None
+        # The negotiated runtime's world (runtime.NativeWorld) of a
+        # multi-rank world: the eager collectives' plane.
+        self.negotiated = None
 
     def require_init(self) -> "_State":
         if not self.initialized:
@@ -282,6 +285,11 @@ def init(device=None, init_method: str | None = None) -> None:
             _gather_hosts(_state.cross_rank, rank, size), rank)
         _state.initialized = True
         process_sets._reset(size)
+        try:
+            _form_negotiated_world(init_method)
+        except BaseException:
+            _state.initialized = False
+            raise
         for hook in list(_init_hooks):
             hook()
         # HOROVOD_PROFILER_LOGDIR: a torch.profiler capture from init on
@@ -299,6 +307,12 @@ def shutdown() -> None:
     waiting on it; the group goes even if ``init()`` failed after forming
     it, so that the next ``init()`` can form a new one."""
     with _lock:
+        world, _state.negotiated = _state.negotiated, None
+        if world is not None:
+            try:
+                world.shutdown(wait_s=0.0 if abort.is_aborted() else None)
+            except Exception as e:  # noqa: BLE001 — the world still goes
+                get_logger().warning("negotiated world shutdown: %s", e)
         if _state.owns_group and dist.is_initialized():
             if elastic():
                 from torch.distributed import distributed_c10d as c10d
@@ -318,6 +332,40 @@ def shutdown() -> None:
         _state.initialized = False
         _state.device = None
         _state.topology = None
+
+
+def _form_negotiated_world(init_method: str | None) -> None:
+    """In a world of two or more ranks, form the negotiated runtime's
+    world (``runtime.NativeWorld``) over it: the star to rank 0 and a
+    process group of its own over the same ranks. Rank 0 listens on
+    ``HOROVOD_NATIVE_PORT`` (the launcher's) or a free port on its host,
+    and sends the address to the others over the default group."""
+    if _state.size < 2:
+        return
+    from .runner.network import free_port
+    from .runtime import NativeWorld
+
+    box = [None]
+    if _state.rank == 0:
+        host = "127.0.0.1"
+        if init_method and init_method.startswith("tcp://"):
+            host = init_method[len("tcp://"):].rsplit(":", 1)[0]
+        elif env.get_str(env.COORDINATOR_ADDR):
+            host = env.get_str(env.COORDINATOR_ADDR).rsplit(":", 1)[0]
+        port = env.get_int("HOROVOD_NATIVE_PORT", 0) or free_port()
+        box = [f"{host}:{port}"]
+    dist.broadcast_object_list(box, src=0)
+    host, port = box[0].rsplit(":", 1)
+    _state.negotiated = NativeWorld(
+        _state.rank, _state.size, host, int(port),
+        timeout_s=env.get_float("HOROVOD_NATIVE_INIT_TIMEOUT", 30.0),
+        device=_state.device)
+
+
+def negotiated_world():
+    """The negotiated runtime's world of this multi-rank world
+    (``runtime.NativeWorld``), or None on one rank."""
+    return _state.require_init().negotiated
 
 
 def sync_stream(device=None) -> None:

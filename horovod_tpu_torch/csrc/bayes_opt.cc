@@ -9,6 +9,8 @@
 // the port's names: the same arithmetic and the same generator, so that the
 // same scores give the same suggestions bit for bit.
 
+#include "bayes_opt.h"
+
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
@@ -19,26 +21,6 @@
 #include <vector>
 
 namespace hvdtorch {
-
-class GaussianProcess {
- public:
-  // Fit on normalized inputs X in [0,1]^d with targets y (standardized
-  // internally).
-  void Fit(const std::vector<std::vector<double>>& x,
-           const std::vector<double>& y);
-  // Posterior mean and standard deviation at a point.
-  void Predict(const std::vector<double>& x, double* mu, double* sigma) const;
-  bool fitted() const { return !x_.empty(); }
-
- private:
-  double Kernel(const std::vector<double>& a,
-                const std::vector<double>& b) const;
-  std::vector<std::vector<double>> x_;
-  std::vector<double> alpha_;           // K^-1 (y - mean)
-  std::vector<std::vector<double>> l_;  // Cholesky factor of K + noise I
-  double y_mean_ = 0.0, y_std_ = 1.0;
-  double length_scale_ = 0.2, signal_var_ = 1.0, noise_var_ = 1e-4;
-};
 
 double GaussianProcess::Kernel(const std::vector<double>& a,
                                const std::vector<double>& b) const {
@@ -116,30 +98,6 @@ void GaussianProcess::Predict(const std::vector<double>& x, double* mu,
   *mu = mean * y_std_ + y_mean_;
   *sigma = std::sqrt(std::max(var, 1e-12)) * y_std_;
 }
-
-class BayesianOptimizer {
- public:
-  BayesianOptimizer(std::vector<double> lows, std::vector<double> highs,
-                    uint64_t seed)
-      : lows_(std::move(lows)), highs_(std::move(highs)), rng_(seed) {}
-  void AddSample(const std::vector<double>& params, double score);
-  // The next point to try (denormalized): the first `warmup_` suggestions
-  // are uniform draws, then argmax-EI over 256 random draws.
-  std::vector<double> Suggest();
-  const std::vector<double>& best_params() const { return best_params_; }
-  double best_score() const { return best_score_; }
-
- private:
-  std::vector<double> Denormalize(const std::vector<double>& unit) const;
-  std::vector<double> lows_, highs_;
-  std::vector<std::vector<double>> x_;  // normalized
-  std::vector<double> y_;
-  std::vector<double> best_params_;
-  double best_score_ = -1e300;
-  GaussianProcess gp_;
-  std::mt19937_64 rng_;
-  int warmup_ = 5;
-};
 
 std::vector<double> BayesianOptimizer::Denormalize(
     const std::vector<double>& unit) const {

@@ -3,8 +3,9 @@ gather objects, and average over the ranks that have data.
 
 Port of ``horovod_tpu/functions.py``: ``broadcast_parameters`` (:30),
 ``broadcast_optimizer_state`` (:46), ``broadcast_object`` (:52),
-``allgather_object`` (:99) and ``masked_average`` (:180). One-process
-worlds return at once from the broadcasts, as in the JAX package.
+``allgather_object`` (:99), ``join`` (:153) and ``masked_average`` (:180).
+One-process worlds return at once from the broadcasts and from ``join``,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -85,6 +86,24 @@ def allgather_object(obj: Any, process_set=None,
         out.append(pickle.loads(data[offset:offset + n].numpy().tobytes()))
         offset += n
     return out
+
+
+def join(timeout_s: float = 600.0) -> int:
+    """Uneven-data termination: call when this rank has run out of data.
+
+    In a world of more than one rank it blocks until every rank has
+    joined, and meanwhile this rank serves its peers' negotiated
+    allreduces with zeros (Average divides by the ranks that contributed;
+    a subset gather or broadcast with a joined member raises). Returns the
+    last rank to join. Outstanding async collectives must be synchronized
+    first. At one rank it returns ``size() - 1`` at once. Parity:
+    ``hvd.join()`` (the reference's JoinOp, through the negotiated
+    runtime's controller).
+    """
+    world = basics._state.require_init().negotiated
+    if world is None:
+        return basics.size() - 1
+    return world.join(timeout_s)
 
 
 def masked_average(value, mask, process_set=None):

@@ -71,6 +71,7 @@ import collections
 import contextlib
 import functools
 import itertools
+import threading
 import time
 from typing import Any, Callable, NamedTuple, Sequence
 
@@ -189,7 +190,7 @@ class _Dispatch:
     latency (see the module docstring)."""
 
     def __init__(self, kind: str, tensors: Sequence[torch.Tensor], ps,
-                 sample: bool = True):
+                 sample: bool = True, timed: bool = True):
         from ..stall import get_inspector
         from ..timeline import mark_cycle
 
@@ -210,8 +211,11 @@ class _Dispatch:
             "algorithm": "flat",
             "link_class": _link_class(ps),
         }
-        # Whether the latency is an alpha-beta sample.
+        # Whether the latency is an alpha-beta sample, and whether this
+        # dispatch takes it at all (a negotiated collective's latency is
+        # its data plane's, which the executor takes).
         self._link = self.args["link_class"] if sample else None
+        self._timed = timed
         self._inspector = get_inspector()
         self._ticket = self._inspector.begin(f"{kind}[{shape}]")
         self._tracer = tracing.get_tracer()
@@ -238,8 +242,9 @@ class _Dispatch:
         nbytes, link = self.args["bytes"], self._link
         algorithm = self.args["algorithm"]
         if not self._cuda:
-            _observe_latency(self.kind, time.perf_counter() - self._t0,
-                             nbytes, link, algorithm)
+            if self._timed:
+                _observe_latency(self.kind, time.perf_counter() - self._t0,
+                                 nbytes, link, algorithm)
             self._inspector.end(self._ticket)
         else:
             if self._tracer.syncing():
@@ -249,9 +254,10 @@ class _Dispatch:
             start, kind = self._start, self.kind
             self._inspector.end_when(
                 self._ticket, end.query,
-                lambda: _observe_latency(kind,
-                                         start.elapsed_time(end) / 1e3,
-                                         nbytes, link, algorithm))
+                (lambda: _observe_latency(kind,
+                                          start.elapsed_time(end) / 1e3,
+                                          nbytes, link, algorithm))
+                if self._timed else None)
         self._tracer.end_span(self._span, self.args)
 
 
@@ -642,14 +648,18 @@ def _launch_alltoall(tensor, splits, ps) -> _Launched:
     return _Launched([work], lambda: (wait(work), (out, received))[1])
 
 
-def _launch_reducescatter(tensor, op, prescale_factor, postscale_factor,
-                          ps) -> _Launched:
-    _check_device(tensor)
-    n = ps.size()
+def _check_reducescatter(tensor, n) -> None:
     if tensor.dim() == 0 or tensor.shape[0] % n:
         raise ValueError(
             f"reducescatter needs dim 0 divisible by the set size {n}; got "
             f"shape {tuple(tensor.shape)}")
+
+
+def _launch_reducescatter(tensor, op, prescale_factor, postscale_factor,
+                          ps) -> _Launched:
+    _check_device(tensor)
+    n = ps.size()
+    _check_reducescatter(tensor, n)
     rows = tensor.shape[0] // n
     plan = _plan("reducescatter", tensor, ps, op)
     if plan is not None:
@@ -698,180 +708,217 @@ def _launch_grouped_allreduce(tensors, op, prescale_factor,
         postscale_factor=postscale_factor, process_set=ps))
 
 
+# -- The negotiated plane --------------------------------------------------
+#
+# In a world of more than one rank every eager collective below (sync,
+# async, grouped, barrier) is a named request to the negotiated runtime
+# (``runtime.NativeWorld``, ``basics.negotiated_world()``): the reference's
+# per-process idiom (``horovod_tpu/ops/collective_ops.py:232-260``). Ranks
+# may then enqueue named tensors in different orders. A set maps to the
+# controller's id it got when it was added (``process_sets``). At one rank
+# the call stays direct, as the reference's does. The optimizer's bucket
+# flushes, its sharded and fsdp halves, ``make_train_step``'s loss and the
+# microprobe's timed launches stay direct: they call the launches above, or
+# run under :func:`direct`.
+
+_direct_local = threading.local()
+
+
+@contextlib.contextmanager
+def direct():
+    """Run this thread's eager collectives on the direct plane (the
+    default group, in call order) even in a negotiated world: the
+    training step's own collectives, as the reference's compiled step is
+    not negotiated either."""
+    prev = getattr(_direct_local, "on", False)
+    _direct_local.on = True
+    try:
+        yield
+    finally:
+        _direct_local.on = prev
+
+
+def _negotiated():
+    """The negotiated world the eager collectives go through, or None (one
+    rank, or inside :func:`direct`)."""
+    if getattr(_direct_local, "on", False):
+        return None
+    return basics._state.negotiated
+
+
+def _set_id(ps) -> int:
+    """The controller's id of a registered set (0: the global set)."""
+    return 0 if ps.process_set_id == 0 else ps.native_id
+
+
+class _NativeWork:
+    """A negotiated handle as a ``Work``: :func:`poll` asks the world."""
+
+    def __init__(self, world, handle: int):
+        self._world, self._handle = world, handle
+
+    def is_completed(self) -> bool:
+        return self._world.poll(self._handle)
+
+
+def _native(world, handles, finish) -> _Launched:
+    return _Launched([_NativeWork(world, h) for h in handles], finish)
+
+
+def _neg_allreduce(world, tensor, op, prescale_factor, postscale_factor, ps,
+                   name, in_place=False) -> _Launched:
+    _check_device(tensor)
+    enqueue = world.allreduce_async_ if in_place else world.allreduce_async
+    h = enqueue(tensor.detach(), name, op, prescale_factor, postscale_factor,
+                _set_id(ps))
+    if in_place:
+        return _native(world, [h], lambda: (world.synchronize(h), tensor)[1])
+    return _native(world, [h], lambda: world.synchronize(h))
+
+
+def _neg_grouped_allreduce(world, tensors, op, prescale_factor,
+                           postscale_factor, ps, name) -> _Launched:
+    from .fusion import note_leaf_layout
+
+    for t in tensors:
+        _check_device(t)
+    # A grouped allreduce is a bucket plan (the controller fuses it).
+    note_leaf_layout([(t.numel(), t.dtype) for t in tensors])
+    hs = world.grouped_allreduce_async(
+        [t.detach() for t in tensors], name, op, _set_id(ps),
+        prescale_factor, postscale_factor)
+    return _native(world, hs, lambda: [world.synchronize(h) for h in hs])
+
+
+def _neg_heads(world, ts, ps, base) -> list[list[list[int]]]:
+    """Every member's shape head of each tensor (:func:`_shape_head`), by
+    one negotiated grouped allgather, checked as :func:`_launch_allgather`
+    checks them."""
+    n = ps.size()
+    sid = _set_id(ps)
+    hs = world.grouped_allgather_async([_shape_head(t) for t in ts],
+                                       name=f"{base}.sz", process_set_id=sid)
+    out = []
+    for h in hs:
+        heads = world.synchronize(h).view(n, -1).tolist()
+        for r, hd in enumerate(heads):
+            if hd[:2] + hd[3:] != heads[0][:2] + heads[0][3:]:
+                raise ValueError(
+                    "allgather needs the same trailing dims and dtype on "
+                    f"every rank; rank 0 sends {_describe(heads[0])}, rank "
+                    f"{r} sends {_describe(hd)}")
+        out.append(heads)
+    return out
+
+
+def _neg_allgather(world, tensors, ps, name, grouped=False) -> _Launched:
+    """The ragged allgather of each tensor: the heads' exchange (blocking),
+    then one negotiated grouped allgather of the tensors padded to the
+    largest dim 0, then each compacted (the reference's
+    ``grouped_allgather_v``)."""
+    from ..runtime import compact_ranks, pad_rows
+
+    ts = []
+    for t in tensors:
+        _check_device(t)
+        if t.dim() == 0:
+            raise ValueError("allgather needs a tensor with at least one dim")
+        ts.append(t.detach().contiguous())
+    sid = _set_id(ps)
+    base = name or world.reserve_name("gagv" if grouped else "agv", sid)
+    sizes = [[hd[2] for hd in heads]
+             for heads in _neg_heads(world, ts, ps, base)]
+    padded = [pad_rows(t, max(1, max(sz))) for t, sz in zip(ts, sizes)]
+    hs = world.grouped_allgather_async(padded, name=f"{base}.data",
+                                       process_set_id=sid)
+    n = ps.size()
+
+    def finish():
+        out = []
+        for h, t, sz in zip(hs, padded, sizes):
+            g = world.synchronize(h)
+            out.append(compact_ranks(g.view((n,) + tuple(t.shape)), sz))
+        return out if grouped else out[0]
+
+    return _native(world, hs, finish)
+
+
+def _neg_broadcast(world, tensor, root_rank, ps, name,
+                   in_place=False) -> _Launched:
+    if root_rank not in ps.ranks:
+        raise ValueError(
+            f"root_rank {root_rank} (a global rank) is not a member of "
+            f"process set {ps.ranks}")
+    _check_device(tensor)
+    h = world.broadcast_async(tensor.detach(), root_rank, name, _set_id(ps),
+                              in_place=in_place)
+    if in_place:
+        return _native(world, [h], lambda: (world.synchronize(h), tensor)[1])
+    return _native(world, [h], lambda: world.synchronize(h))
+
+
+def _neg_alltoall(world, tensor, splits, ps, name) -> _Launched:
+    """Equal chunks: one negotiated alltoall. With ``splits``: the split
+    tables' negotiated allgather (blocking), the chunks padded to the
+    largest, one negotiated alltoall, compacted (the reference's
+    ``alltoall_v``)."""
+    from ..runtime import compact_chunks, pad_chunks
+
+    _check_device(tensor)
+    if tensor.dim() == 0:
+        raise ValueError("alltoall needs a tensor with at least one dim")
+    t = tensor.detach().contiguous()
+    n, d0, sid = ps.size(), t.shape[0], _set_id(ps)
+    if splits is None:
+        if d0 % n:
+            raise ValueError(
+                f"alltoall needs dim 0 ({d0}) divisible by the set size "
+                f"{n}; pass splits= for uneven chunks")
+        h = world.alltoall_async(t, name, sid)
+        return _native(world, [h], lambda: world.synchronize(h))
+    sent = _row_splits(splits, ps, d0)
+    base = name or world.reserve_name("atv", sid)
+    table = world.allgather(torch.tensor(sent, dtype=torch.int64,
+                                         device=t.device),
+                            name=f"{base}.sp", process_set_id=sid)
+    table = table.view(n, n).cpu()
+    received = table[:, ps.rank()].clone()
+    max_c = max(1, int(table.max()))
+    h = world.alltoall_async(pad_chunks(t, sent, max_c), f"{base}.data", sid)
+    return _native(world, [h], lambda: (compact_chunks(
+        world.synchronize(h), received.tolist(), max_c), received))
+
+
+def _neg_reducescatter(world, tensors, op, prescale_factor,
+                       postscale_factor, ps, name,
+                       grouped=False) -> _Launched:
+    for t in tensors:
+        _check_device(t)
+        _check_reducescatter(t, ps.size())
+    ts = [t.detach() for t in tensors]
+    if grouped:
+        hs = world.grouped_reducescatter_async(
+            ts, name, op, _set_id(ps), prescale_factor, postscale_factor)
+        return _native(world, hs,
+                       lambda: [world.synchronize(h) for h in hs])
+    h = world.reducescatter_async(ts[0], name, op, _set_id(ps),
+                                  prescale_factor, postscale_factor)
+    return _native(world, [h], lambda: world.synchronize(h))
+
+
 # -- Synchronous ops --------------------------------------------------------
 
 
-@guarded
-def allreduce(tensor, average: bool | None = None, op: str | None = None,
-              prescale_factor: float = 1.0, postscale_factor: float = 1.0,
-              process_set=None, name: str | None = None) -> torch.Tensor:
-    """Reduce ``tensor`` across the process set; every rank gets the result.
-
-    Parity: ``hvd.allreduce``. ``op=Adasum`` gathers every member's
-    tensor and combines them by the pairwise tree (``ops/adasum.py``).
-    ``name`` exists for signature parity: NCCL and gloo match collectives
-    by issue order, not by name.
-    """
-    del name
-    op = _resolve_op(op, average)
-    ps = _resolve_process_set(process_set)
-    if op == Adasum:
-        return _run("allreduce", [tensor], ps, lambda: _adasum_allreduce(
-            tensor, prescale_factor, postscale_factor, ps))
-    return _run("allreduce", [tensor], ps, lambda: _launch_allreduce(
-        tensor, op, prescale_factor, postscale_factor, ps))
-
-
-@guarded
-def allreduce_(tensor, average: bool | None = None, op: str | None = None,
-               prescale_factor: float = 1.0, postscale_factor: float = 1.0,
-               process_set=None, name: str | None = None) -> torch.Tensor:
-    """In-place :func:`allreduce`: ``tensor`` (contiguous) holds the result
-    and is returned."""
-    del name
-    op = _resolve_op(op, average)
-    ps = _resolve_process_set(process_set)
-    if op == Adasum:
-        def compute():
-            tensor.data.copy_(_adasum_allreduce(tensor, prescale_factor,
-                                                postscale_factor, ps))
-            return tensor
-
-        return _run("allreduce", [tensor], ps, compute)
-    return _run("allreduce", [tensor], ps, lambda: _launch_allreduce(
-        tensor, op, prescale_factor, postscale_factor, ps,
-        in_place=True))
-
-
-@guarded
-def grouped_allreduce(tensors: Sequence[torch.Tensor],
-                      average: bool | None = None, op: str | None = None,
-                      prescale_factor: float = 1.0,
-                      postscale_factor: float = 1.0,
-                      process_set=None) -> list[torch.Tensor]:
-    """Allreduce a list of tensors as one fused operation: same-dtype
-    buckets up to the fusion threshold, one collective per bucket."""
-    op = _non_adasum_op(op, average, _ADASUM_NO_GROUPED)
-    ps = _resolve_process_set(process_set)
-    return _run("allreduce", list(tensors), ps,
-                lambda: _launch_grouped_allreduce(
-                    tensors, op, prescale_factor, postscale_factor,
-                    ps).finish())
-
-
-@guarded
-def allgather(tensor, process_set=None,
-              name: str | None = None) -> torch.Tensor:
-    """Concatenate every rank's tensor along dim 0 on every rank.
-
-    Ranks may send different dim-0 sizes, 0 included (the reference's
-    ``allgather_v``); the trailing dims and the dtype must agree. One small
-    ``all_gather`` of every rank's shape and dtype comes first: if they
-    disagree, every rank raises ``ValueError`` naming the shapes. Equal
-    sizes then take one ``all_gather``; ragged ones are padded to the
-    largest dim 0, gathered, and compacted.
-    """
-    del name
-    ps = _resolve_process_set(process_set)
-    return _run("allgather", [tensor], ps,
-                lambda: _launch_allgather(tensor, ps))
-
-
-@guarded
-def grouped_allgather(tensors: Sequence[torch.Tensor], process_set=None,
-                      name: str | None = None) -> list[torch.Tensor]:
-    """:func:`allgather` of each tensor (the ragged dim-0 contract holds
-    for each), all launched before the first is waited on."""
-    del name
-    ps = _resolve_process_set(process_set)
-    return _run("allgather", list(tensors), ps, lambda: _combined(
-        [_launch_allgather(t, ps) for t in tensors]).finish())
-
-
-@guarded
-def broadcast(tensor, root_rank: int, process_set=None,
-              name: str | None = None) -> torch.Tensor:
-    """Every rank gets rank ``root_rank``'s tensor (a global rank, which
-    must belong to the set)."""
-    del name
-    ps = _resolve_process_set(process_set)
-    return _run("broadcast", [tensor], ps,
-                lambda: _launch_broadcast(tensor, root_rank, ps).finish())
-
-
-@guarded
-def alltoall(tensor, splits=None, process_set=None, name: str | None = None):
-    """Scatter chunks of ``tensor``'s dim 0 to the set's ranks and gather
-    the chunks they send, in set-rank order.
-
-    Without ``splits`` the chunks are equal (dim 0 divisible by the set
-    size) and the result is a tensor. With ``splits`` (this rank's ``(n,)``
-    send sizes, summing to its dim 0, or an ``(n, n)`` table whose row r is
-    set rank r's) the result is the reference's pair ``(output,
-    received_splits)``, ``received_splits[j]`` the rows set rank j sent
-    here (int64, on the CPU): the split tables are exchanged first, then
-    one ``all_to_all_single`` with split sizes runs.
-    """
-    del name
-    ps = _resolve_process_set(process_set)
-    return _run("alltoall", [tensor], ps,
-                lambda: _launch_alltoall(tensor, splits, ps))
-
-
-@guarded
-def reducescatter(tensor, op: str | None = None,
-                  prescale_factor: float = 1.0, postscale_factor: float = 1.0,
-                  process_set=None, name: str | None = None) -> torch.Tensor:
-    """Reduce across the set and scatter: set rank r keeps slice r of dim 0
-    (dim 0 divisible by the set size, else ``ValueError``).
-
-    Parity: ``hvd.reducescatter``; ``op`` defaults to Average. The
-    reference takes Sum and Average; Min, Max and Product reduce as
-    :func:`allreduce` does and keep slice r of its result. Adasum raises,
-    as the reference's does.
-    """
-    del name
-    op = _non_adasum_op(op, None, _ADASUM_NO_RS)
-    ps = _resolve_process_set(process_set)
-    return _run("reducescatter", [tensor], ps, lambda: _launch_reducescatter(
-        tensor, op, prescale_factor, postscale_factor, ps))
-
-
-@guarded
-def grouped_reducescatter(tensors: Sequence[torch.Tensor],
-                          op: str | None = None, prescale_factor: float = 1.0,
-                          postscale_factor: float = 1.0,
-                          process_set=None) -> list[torch.Tensor]:
-    """:func:`reducescatter` of each tensor, all launched before the first
-    is waited on."""
-    op = _non_adasum_op(op, None, _ADASUM_NO_RS)
-    ps = _resolve_process_set(process_set)
-    return _run("reducescatter", list(tensors), ps, lambda: _combined([
-        _launch_reducescatter(t, op, prescale_factor, postscale_factor, ps)
-        for t in tensors]).finish())
-
-
-@guarded
-def barrier(process_set=None) -> None:
-    """Block until every rank in the set reaches the barrier."""
-    ps = _resolve_process_set(process_set)
-    _run("barrier", [], ps, lambda: dist.barrier(group=ps.group))
-
-
-# -- The async API (horovod_tpu/torch/__init__.py) ---------------------------
-
-_handles: dict[int, _Launched] = {}
-_handle_ids = itertools.count(1)
-
-
-def _submit(kind: str, tensors: Sequence[torch.Tensor], ps,
-            launch: Callable[[], _Launched]) -> int:
-    """Launch an async op inside its dispatch's instruments and a ``kind``
+def _instrumented(kind: str, tensors: Sequence[torch.Tensor], ps,
+                  launch: Callable[[], _Launched],
+                  timed: bool = True) -> _Launched:
+    """Launch an op inside its dispatch's instruments and a ``kind``
     activity (the launch only: the op's span and ticket stay open until
-    :func:`synchronize` finishes it) and return its handle."""
+    its finish) and return it, its finish closing them. ``timed=False``
+    (a negotiated op) leaves the latency to the plane that performs it."""
     from ..timeline import activity
 
-    d = _Dispatch(kind, tensors, ps)
+    d = _Dispatch(kind, tensors, ps, timed=timed)
     with activity(kind, "collective", d.args):
         try:
             launched = launch()
@@ -889,8 +936,225 @@ def _submit(kind: str, tensors: Sequence[torch.Tensor], ps,
         d.finished()
         return out
 
+    return _Launched(launched.works, finish)
+
+
+def _call(kind, tensors, ps, negotiated, launch):
+    """A synchronous op: ``negotiated(world)`` through the negotiated
+    world when there is one, else ``launch()`` (a :class:`_Launched`)
+    directly, finished at once."""
+    world = _negotiated()
+    if world is not None:
+        return _instrumented(kind, tensors, ps, lambda: negotiated(world),
+                             timed=False).finish()
+    return _run(kind, tensors, ps, launch)
+
+
+@guarded
+def allreduce(tensor, average: bool | None = None, op: str | None = None,
+              prescale_factor: float = 1.0, postscale_factor: float = 1.0,
+              process_set=None, name: str | None = None) -> torch.Tensor:
+    """Reduce ``tensor`` across the process set; every rank gets the result.
+
+    Parity: ``hvd.allreduce``. ``op=Adasum`` gathers every member's
+    tensor and combines them by the pairwise tree (``ops/adasum.py``).
+    ``name`` names the request in a negotiated world (ranks may then
+    enqueue named tensors in any order); unnamed ops match in call order.
+    """
+    op = _resolve_op(op, average)
+    ps = _resolve_process_set(process_set)
+    if op == Adasum:
+        return _run("allreduce", [tensor], ps, lambda: _adasum_allreduce(
+            tensor, prescale_factor, postscale_factor, ps))
+    return _call("allreduce", [tensor], ps,
+                 lambda w: _neg_allreduce(w, tensor, op, prescale_factor,
+                                          postscale_factor, ps, name),
+                 lambda: _launch_allreduce(tensor, op, prescale_factor,
+                                           postscale_factor, ps))
+
+
+@guarded
+def allreduce_(tensor, average: bool | None = None, op: str | None = None,
+               prescale_factor: float = 1.0, postscale_factor: float = 1.0,
+               process_set=None, name: str | None = None) -> torch.Tensor:
+    """In-place :func:`allreduce`: ``tensor`` (contiguous) holds the result
+    and is returned."""
+    op = _resolve_op(op, average)
+    ps = _resolve_process_set(process_set)
+    if op == Adasum:
+        def compute():
+            tensor.data.copy_(_adasum_allreduce(tensor, prescale_factor,
+                                                postscale_factor, ps))
+            return tensor
+
+        return _run("allreduce", [tensor], ps, compute)
+    return _call("allreduce", [tensor], ps,
+                 lambda w: _neg_allreduce(w, tensor, op, prescale_factor,
+                                          postscale_factor, ps, name,
+                                          in_place=True),
+                 lambda: _launch_allreduce(tensor, op, prescale_factor,
+                                           postscale_factor, ps,
+                                           in_place=True))
+
+
+@guarded
+def grouped_allreduce(tensors: Sequence[torch.Tensor],
+                      average: bool | None = None, op: str | None = None,
+                      prescale_factor: float = 1.0,
+                      postscale_factor: float = 1.0,
+                      process_set=None) -> list[torch.Tensor]:
+    """Allreduce a list of tensors as one fused operation: same-dtype
+    buckets up to the fusion threshold, one collective per bucket (in a
+    negotiated world, one atomic group that the controller fuses)."""
+    op = _non_adasum_op(op, average, _ADASUM_NO_GROUPED)
+    ps = _resolve_process_set(process_set)
+    return _call("allreduce", list(tensors), ps,
+                 lambda w: _neg_grouped_allreduce(
+                     w, list(tensors), op, prescale_factor,
+                     postscale_factor, ps, None),
+                 lambda: _launch_grouped_allreduce(
+                     tensors, op, prescale_factor, postscale_factor, ps))
+
+
+@guarded
+def allgather(tensor, process_set=None,
+              name: str | None = None) -> torch.Tensor:
+    """Concatenate every rank's tensor along dim 0 on every rank.
+
+    Ranks may send different dim-0 sizes, 0 included (the reference's
+    ``allgather_v``); the trailing dims and the dtype must agree. One small
+    ``all_gather`` of every rank's shape and dtype comes first: if they
+    disagree, every rank raises ``ValueError`` naming the shapes. Equal
+    sizes then take one ``all_gather``; ragged ones are padded to the
+    largest dim 0, gathered, and compacted.
+    """
+    ps = _resolve_process_set(process_set)
+    return _call("allgather", [tensor], ps,
+                 lambda w: _neg_allgather(w, [tensor], ps, name),
+                 lambda: _launch_allgather(tensor, ps))
+
+
+@guarded
+def grouped_allgather(tensors: Sequence[torch.Tensor], process_set=None,
+                      name: str | None = None) -> list[torch.Tensor]:
+    """:func:`allgather` of each tensor (the ragged dim-0 contract holds
+    for each), all launched before the first is waited on."""
+    ps = _resolve_process_set(process_set)
+    return _call("allgather", list(tensors), ps,
+                 lambda w: _neg_allgather(w, list(tensors), ps, name,
+                                          grouped=True),
+                 lambda: _combined([_launch_allgather(t, ps)
+                                    for t in tensors]))
+
+
+@guarded
+def broadcast(tensor, root_rank: int, process_set=None,
+              name: str | None = None) -> torch.Tensor:
+    """Every rank gets rank ``root_rank``'s tensor (a global rank, which
+    must belong to the set)."""
+    ps = _resolve_process_set(process_set)
+    return _call("broadcast", [tensor], ps,
+                 lambda w: _neg_broadcast(w, tensor, root_rank, ps, name),
+                 lambda: _launch_broadcast(tensor, root_rank, ps))
+
+
+@guarded
+def alltoall(tensor, splits=None, process_set=None, name: str | None = None):
+    """Scatter chunks of ``tensor``'s dim 0 to the set's ranks and gather
+    the chunks they send, in set-rank order.
+
+    Without ``splits`` the chunks are equal (dim 0 divisible by the set
+    size) and the result is a tensor. With ``splits`` (this rank's ``(n,)``
+    send sizes, summing to its dim 0, or an ``(n, n)`` table whose row r is
+    set rank r's) the result is the reference's pair ``(output,
+    received_splits)``, ``received_splits[j]`` the rows set rank j sent
+    here (int64, on the CPU): the split tables are exchanged first, then
+    one ``all_to_all_single`` with split sizes runs (in a negotiated
+    world, the chunks padded to the largest, as the reference's
+    ``alltoall_v``).
+    """
+    ps = _resolve_process_set(process_set)
+    return _call("alltoall", [tensor], ps,
+                 lambda w: _neg_alltoall(w, tensor, splits, ps, name),
+                 lambda: _launch_alltoall(tensor, splits, ps))
+
+
+@guarded
+def reducescatter(tensor, op: str | None = None,
+                  prescale_factor: float = 1.0, postscale_factor: float = 1.0,
+                  process_set=None, name: str | None = None) -> torch.Tensor:
+    """Reduce across the set and scatter: set rank r keeps slice r of dim 0
+    (dim 0 divisible by the set size, else ``ValueError``).
+
+    Parity: ``hvd.reducescatter``; ``op`` defaults to Average. The
+    reference takes Sum and Average; Min, Max and Product reduce as
+    :func:`allreduce` does and keep slice r of its result. Adasum raises,
+    as the reference's does.
+    """
+    op = _non_adasum_op(op, None, _ADASUM_NO_RS)
+    ps = _resolve_process_set(process_set)
+    return _call("reducescatter", [tensor], ps,
+                 lambda w: _neg_reducescatter(
+                     w, [tensor], op, prescale_factor, postscale_factor, ps,
+                     name),
+                 lambda: _launch_reducescatter(
+                     tensor, op, prescale_factor, postscale_factor, ps))
+
+
+@guarded
+def grouped_reducescatter(tensors: Sequence[torch.Tensor],
+                          op: str | None = None, prescale_factor: float = 1.0,
+                          postscale_factor: float = 1.0,
+                          process_set=None) -> list[torch.Tensor]:
+    """:func:`reducescatter` of each tensor, all launched before the first
+    is waited on."""
+    op = _non_adasum_op(op, None, _ADASUM_NO_RS)
+    ps = _resolve_process_set(process_set)
+    return _call("reducescatter", list(tensors), ps,
+                 lambda w: _neg_reducescatter(
+                     w, list(tensors), op, prescale_factor,
+                     postscale_factor, ps, None, grouped=True),
+                 lambda: _combined([
+                     _launch_reducescatter(t, op, prescale_factor,
+                                           postscale_factor, ps)
+                     for t in tensors]))
+
+
+@guarded
+def barrier(process_set=None) -> None:
+    """Block until every rank in the set reaches the barrier."""
+    ps = _resolve_process_set(process_set)
+
+    def negotiated(world):
+        h = world.barrier_async(_set_id(ps))
+        return _native(world, [h], lambda: (world.synchronize(h), None)[1])
+
+    def launch():
+        dist.barrier(group=ps.group)
+        return _Launched([], lambda: None)
+
+    _call("barrier", [], ps, negotiated, launch)
+
+
+# -- The async API (horovod_tpu/torch/__init__.py) ---------------------------
+
+_handles: dict[int, _Launched] = {}
+_handle_ids = itertools.count(1)
+
+
+def _submit(kind: str, tensors: Sequence[torch.Tensor], ps, negotiated,
+            launch: Callable[[], _Launched]) -> int:
+    """Launch an async op (through the negotiated world when there is one,
+    else directly) inside its dispatch's instruments and return its
+    handle; :func:`synchronize` finishes it."""
+    world = _negotiated()
+    if world is not None:
+        launched = _instrumented(kind, tensors, ps,
+                                 lambda: negotiated(world), timed=False)
+    else:
+        launched = _instrumented(kind, tensors, ps, launch)
     h = next(_handle_ids)
-    _handles[h] = _Launched(launched.works, finish)
+    _handles[h] = launched
     return h
 
 
@@ -901,11 +1165,15 @@ def allreduce_async_(tensor, average: bool | None = None,
                      postscale_factor: float = 1.0) -> int:
     """In-place async allreduce; :func:`synchronize` returns ``tensor``,
     which then holds the result."""
-    del name
     op = _non_adasum_op(op, average, _ADASUM_NO_ASYNC)
     ps = _resolve_process_set(process_set)
-    return _submit("allreduce", [tensor], ps, lambda: _launch_allreduce(
-        tensor, op, prescale_factor, postscale_factor, ps, in_place=True))
+    return _submit("allreduce", [tensor], ps,
+                   lambda w: _neg_allreduce(w, tensor, op, prescale_factor,
+                                            postscale_factor, ps, name,
+                                            in_place=True),
+                   lambda: _launch_allreduce(
+                       tensor, op, prescale_factor, postscale_factor, ps,
+                       in_place=True))
 
 
 @guarded
@@ -915,20 +1183,22 @@ def allreduce_async(tensor, average: bool | None = None,
                     postscale_factor: float = 1.0) -> int:
     """Out-of-place async allreduce; :func:`synchronize` returns a new
     tensor."""
-    del name
     op = _non_adasum_op(op, average, _ADASUM_NO_ASYNC)
     ps = _resolve_process_set(process_set)
-    return _submit("allreduce", [tensor], ps, lambda: _launch_allreduce(
-        tensor, op, prescale_factor, postscale_factor, ps))
+    return _submit("allreduce", [tensor], ps,
+                   lambda w: _neg_allreduce(w, tensor, op, prescale_factor,
+                                            postscale_factor, ps, name),
+                   lambda: _launch_allreduce(
+                       tensor, op, prescale_factor, postscale_factor, ps))
 
 
 @guarded
 def allgather_async(tensor, name: str | None = None,
                     process_set=None) -> int:
     """Async ragged :func:`allgather` (the shape exchange runs at once)."""
-    del name
     ps = _resolve_process_set(process_set)
     return _submit("allgather", [tensor], ps,
+                   lambda w: _neg_allgather(w, [tensor], ps, name),
                    lambda: _launch_allgather(tensor, ps))
 
 
@@ -936,9 +1206,9 @@ def allgather_async(tensor, name: str | None = None,
 def broadcast_async(tensor, root_rank: int, name: str | None = None,
                     process_set=None) -> int:
     """Out-of-place async broadcast from global rank ``root_rank``."""
-    del name
     ps = _resolve_process_set(process_set)
     return _submit("broadcast", [tensor], ps,
+                   lambda w: _neg_broadcast(w, tensor, root_rank, ps, name),
                    lambda: _launch_broadcast(tensor, root_rank, ps))
 
 
@@ -946,10 +1216,12 @@ def broadcast_async(tensor, root_rank: int, name: str | None = None,
 def broadcast_async_(tensor, root_rank: int, name: str | None = None,
                      process_set=None) -> int:
     """In-place async broadcast from global rank ``root_rank``."""
-    del name
     ps = _resolve_process_set(process_set)
-    return _submit("broadcast", [tensor], ps, lambda: _launch_broadcast(
-        tensor, root_rank, ps, in_place=True))
+    return _submit("broadcast", [tensor], ps,
+                   lambda w: _neg_broadcast(w, tensor, root_rank, ps, name,
+                                            in_place=True),
+                   lambda: _launch_broadcast(tensor, root_rank, ps,
+                                             in_place=True))
 
 
 @guarded
@@ -957,9 +1229,9 @@ def alltoall_async(tensor, splits=None, name: str | None = None,
                    process_set=None) -> int:
     """Async :func:`alltoall` (with ``splits`` the split tables are
     exchanged at once); :func:`synchronize` returns what it returns."""
-    del name
     ps = _resolve_process_set(process_set)
     return _submit("alltoall", [tensor], ps,
+                   lambda w: _neg_alltoall(w, tensor, splits, ps, name),
                    lambda: _launch_alltoall(tensor, splits, ps))
 
 
@@ -967,10 +1239,11 @@ def alltoall_async(tensor, splits=None, name: str | None = None,
 def reducescatter_async(tensor, name: str | None = None,
                         op: str | None = None, process_set=None) -> int:
     """Async :func:`reducescatter` (default Average)."""
-    del name
     op = _non_adasum_op(op, None, _ADASUM_NO_RS)
     ps = _resolve_process_set(process_set)
     return _submit("reducescatter", [tensor], ps,
+                   lambda w: _neg_reducescatter(w, [tensor], op, 1.0, 1.0,
+                                                ps, name),
                    lambda: _launch_reducescatter(tensor, op, 1.0, 1.0, ps))
 
 
@@ -981,10 +1254,12 @@ def grouped_allreduce_async(tensors: Sequence[torch.Tensor],
                             postscale_factor: float = 1.0) -> int:
     """Async :func:`grouped_allreduce`: one handle for the group;
     :func:`synchronize` returns the list of results."""
-    del name
     op = _non_adasum_op(op, None, _ADASUM_NO_GROUPED)
     ps = _resolve_process_set(process_set)
     return _submit("allreduce", list(tensors), ps,
+                   lambda w: _neg_grouped_allreduce(
+                       w, list(tensors), op, prescale_factor,
+                       postscale_factor, ps, name),
                    lambda: _launch_grouped_allreduce(
                        tensors, op, prescale_factor, postscale_factor, ps))
 
@@ -994,10 +1269,12 @@ def grouped_allgather_async(tensors: Sequence[torch.Tensor],
                             name: str | None = None,
                             process_set=None) -> int:
     """Async :func:`grouped_allgather`: one handle, a list of results."""
-    del name
     ps = _resolve_process_set(process_set)
-    return _submit("allgather", list(tensors), ps, lambda: _combined(
-        [_launch_allgather(t, ps) for t in tensors]))
+    return _submit("allgather", list(tensors), ps,
+                   lambda w: _neg_allgather(w, list(tensors), ps, name,
+                                            grouped=True),
+                   lambda: _combined([_launch_allgather(t, ps)
+                                      for t in tensors]))
 
 
 @guarded
@@ -1007,11 +1284,14 @@ def grouped_reducescatter_async(tensors: Sequence[torch.Tensor],
                                 process_set=None) -> int:
     """Async :func:`grouped_reducescatter` (default Average): one handle,
     a list of results."""
-    del name
     op = _non_adasum_op(op, None, _ADASUM_NO_RS)
     ps = _resolve_process_set(process_set)
-    return _submit("reducescatter", list(tensors), ps, lambda: _combined(
-        [_launch_reducescatter(t, op, 1.0, 1.0, ps) for t in tensors]))
+    return _submit("reducescatter", list(tensors), ps,
+                   lambda w: _neg_reducescatter(w, list(tensors), op, 1.0,
+                                                1.0, ps, name, grouped=True),
+                   lambda: _combined([
+                       _launch_reducescatter(t, op, 1.0, 1.0, ps)
+                       for t in tensors]))
 
 
 @guarded

@@ -534,6 +534,95 @@ def dispatch_plan(op: str, nbytes: int, process_set,
     return None if plan.algorithm == "flat" else plan
 
 
+# -- Another plane's group -----------------------------------------------------
+
+# The group (and two-level subgroups) the schedules run on in this thread:
+# unset, the default group and the world's subgroups (the direct plane);
+# the negotiated runtime's executor sets its own world's.
+_plane_local = threading.local()
+
+
+class on_plane:
+    """Run the schedules of this thread on ``group`` (its point-to-point
+    rounds) and ``two_level`` (a :func:`plane_two_level_groups` result,
+    its two-level legs) instead of the default group's: the negotiated
+    runtime's executor, whose collectives must never interleave with the
+    direct launches."""
+
+    def __init__(self, group, two_level=None):
+        self._plane = (group, two_level)
+
+    def __enter__(self):
+        self._prev = getattr(_plane_local, "plane", None)
+        _plane_local.plane = self._plane
+        return self
+
+    def __exit__(self, *exc):
+        _plane_local.plane = self._prev
+        return False
+
+
+def _plane_group():
+    plane = getattr(_plane_local, "plane", None)
+    return None if plane is None else plane[0]
+
+
+def plane_two_level_groups():
+    """A second set of two-level subgroups of the world, for another plane
+    than the direct one (None with the planner off, on one rank, or on an
+    irregular layout). Collective: every rank calls it at one point."""
+    n = default_world_size()
+    if not enabled() or n is None or n < 2:
+        return None
+    islands = _islands_for(n)
+    if _regular_factors(islands, n) is None:
+        return None
+    return _make_two_level_groups(tuple(tuple(sorted(isl))
+                                        for isl in islands))
+
+
+def exchange_snapshot() -> dict:
+    """Rank 0's ready fits on every rank, exchanged now (collective, on
+    the default group): the negotiated runtime's own snapshot, taken where
+    every rank forms its world. The direct plane's stays the one
+    :func:`prepare` exchanges, so that fits taken after the world formed
+    (a microprobe before the optimizer) still price its buckets."""
+    try:
+        local = _local_snapshot()
+    except Exception:  # noqa: BLE001 — {} is a valid (seeded) snapshot
+        local = {}
+    snap = _broadcast_decision(local)
+    return snap if isinstance(snap, dict) else {}
+
+
+def plane_plan(op: str, nbytes: int, process_set, reduce_op,
+               snapshot: dict, mode: str | None) -> BucketPlan | None:
+    """The plan of one response of the negotiated runtime's executor, a
+    thread that must plan alike on every rank without entering an
+    exchange: priced from ``snapshot`` (:func:`exchange_snapshot`) under
+    ``mode``, the :func:`planner_mode` its tensors were enqueued under
+    (the forced and autotune pins are set by the training thread at its
+    own point, which the executor's responses do not line up with on
+    every rank). None with the planner off, on a set other than the global
+    one, or for a reduction other than Sum or Average; otherwise the
+    plan, flat included."""
+    if mode is None or process_set.process_set_id != 0 or reduce_op not in (
+            None, "sum", "average") or op not in PLANNER_OPS:
+        return None
+    n = process_set.size()
+    if n < 2:
+        return None
+    islands = _islands_for(n)
+    if mode in PLANNER_ALGORITHMS:
+        algo, provenance, costs = mode, "env_pin", {}
+        if algo not in eligible_algorithms(op, n, islands):
+            algo, provenance = "flat", "env_pin:ineligible"
+    else:
+        algo, provenance, costs = _decide(op, int(nbytes), n, islands,
+                                          snapshot, None)
+    return BucketPlan(op, algo, int(nbytes), n, islands, provenance, costs)
+
+
 def autotune_candidates(world_size: int | None = None
                         ) -> tuple[str, ...] | None:
     """The autotune algorithm axis (``"auto"`` first, then every
@@ -662,16 +751,26 @@ class _TwoLevelGroups(NamedTuple):
 def _two_level_groups(islands) -> _TwoLevelGroups:
     """The layout's subgroups, made once per generation: every rank calls
     ``dist.new_group`` for every island and every cross group, in one
-    order."""
-    import torch.distributed as dist
-
-    from .. import basics
-
+    order. Under :class:`on_plane`, that plane's subgroups."""
+    plane = getattr(_plane_local, "plane", None)
+    if plane is not None and plane[1] is not None:
+        return plane[1]
     key = tuple(tuple(sorted(isl)) for isl in islands)
     with _lock:
         made = _groups.get(key)
     if made is not None:
         return made
+    made = _make_two_level_groups(key)
+    with _lock:
+        _groups.setdefault(key, made)
+        return _groups[key]
+
+
+def _make_two_level_groups(key) -> _TwoLevelGroups:
+    import torch.distributed as dist
+
+    from .. import basics
+
     local_ranks = [list(isl) for isl in key]
     L = len(local_ranks[0])
     cross_ranks = [[isl[j] for isl in local_ranks] for j in range(L)]
@@ -679,11 +778,8 @@ def _two_level_groups(islands) -> _TwoLevelGroups:
     cross = [_Group(r, dist.new_group(r)) for r in cross_ranks]
     me = basics.rank()
     island = next(i for i, isl in enumerate(local_ranks) if me in isl)
-    made = _TwoLevelGroups(local, cross, island,
+    return _TwoLevelGroups(local, cross, island,
                            local_ranks[island].index(me))
-    with _lock:
-        _groups.setdefault(key, made)
-        return _groups[key]
 
 
 def _wait_all(works) -> None:
@@ -701,8 +797,10 @@ def _exchange(send, partner: int):
 
     send = send.contiguous()
     recv = torch.empty_like(send)
-    _wait_all(dist.batch_isend_irecv([dist.P2POp(dist.isend, send, partner),
-                                      dist.P2POp(dist.irecv, recv, partner)]))
+    g = _plane_group()
+    _wait_all(dist.batch_isend_irecv(
+        [dist.P2POp(dist.isend, send, partner, group=g),
+         dist.P2POp(dist.irecv, recv, partner, group=g)]))
     return recv
 
 
@@ -710,7 +808,8 @@ def _send(t, partner: int) -> None:
     import torch.distributed as dist
 
     _wait_all(dist.batch_isend_irecv(
-        [dist.P2POp(dist.isend, t.contiguous(), partner)]))
+        [dist.P2POp(dist.isend, t.contiguous(), partner,
+                    group=_plane_group())]))
 
 
 def _recv_like(t, partner: int):
@@ -718,7 +817,8 @@ def _recv_like(t, partner: int):
     import torch.distributed as dist
 
     out = torch.empty_like(t)
-    _wait_all(dist.batch_isend_irecv([dist.P2POp(dist.irecv, out, partner)]))
+    _wait_all(dist.batch_isend_irecv(
+        [dist.P2POp(dist.irecv, out, partner, group=_plane_group())]))
     return out
 
 

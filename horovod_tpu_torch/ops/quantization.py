@@ -256,7 +256,7 @@ def int8_fused_reducescatter(tensors, process_set, op: str = "average",
     ownership map of ``fusion.fused_reducescatter``, each bucket one
     quantized exchange. Returns this rank's owned 1-D shards as float32
     (callers cast); non-float leaves are allreduced and sliced."""
-    from .collective_ops import allreduce
+    from .collective_ops import allreduce, direct
 
     n = process_set.size()
     sizes = shard_ownership([t.numel() for t in tensors], n)
@@ -264,9 +264,10 @@ def int8_fused_reducescatter(tensors, process_set, op: str = "average",
     float_idx = [i for i, t in enumerate(tensors) if t.is_floating_point()]
     for i, t in enumerate(tensors):
         if not t.is_floating_point():
-            full = allreduce(t, op=op, prescale_factor=prescale_factor,
-                             postscale_factor=postscale_factor,
-                             process_set=process_set)
+            with direct():  # the optimizer's wire: never negotiated
+                full = allreduce(t, op=op, prescale_factor=prescale_factor,
+                                 postscale_factor=postscale_factor,
+                                 process_set=process_set)
             out[i] = _own_row(full, sizes[i], process_set)
     floats = [tensors[i].detach().reshape(-1).to(torch.float32)
               for i in float_idx]
@@ -335,15 +336,17 @@ def int8_fused_allreduce(tensors, process_set, op: str = "average",
     ``fusion.fused_allreduce`` over the float32 view of the float leaves,
     each one :func:`int8_allreduce_flat`; results in the leaves' dtypes.
     Non-float leaves ride an uncompressed allreduce."""
-    from .collective_ops import allreduce
+    from .collective_ops import allreduce, direct
 
     out: list = [None] * len(tensors)
     float_idx = [i for i, t in enumerate(tensors) if t.is_floating_point()]
     for i, t in enumerate(tensors):
         if not t.is_floating_point():
-            out[i] = allreduce(t, op=op, prescale_factor=prescale_factor,
-                               postscale_factor=postscale_factor,
-                               process_set=process_set)
+            with direct():  # the optimizer's wire: never negotiated
+                out[i] = allreduce(t, op=op,
+                                   prescale_factor=prescale_factor,
+                                   postscale_factor=postscale_factor,
+                                   process_set=process_set)
     floats = [tensors[i].detach().reshape(-1).to(torch.float32)
               for i in float_idx]
     buckets = bucket_leaves([(f.numel(), f.dtype) for f in floats],

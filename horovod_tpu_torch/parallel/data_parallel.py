@@ -48,7 +48,7 @@ import torch
 
 from .. import faults, memory, tracing
 from ..attribution import CAT_PHASE, SPAN_FORWARD_BACKWARD
-from ..ops.collective_ops import Average, allreduce
+from ..ops.collective_ops import Average, allreduce, direct
 from ..utils import env
 
 
@@ -57,9 +57,10 @@ class _StallWatchedStep:
     docstring). The JAX package's wrapper drains the pipeline with
     ``jax.block_until_ready`` on watched and sampled calls; this one waits
     for the current CUDA stream at the end of each phase
-    (``tracing.phase``) and of the step. The cross-rank stallwatch
-    announcement is not ported yet: a watched call holds the local ticket
-    only."""
+    (``tracing.phase``) and of the step; in a multi-rank world a watched
+    call's ``stall.watch`` also announces ``stallwatch/<prefix>.<call>``
+    on the negotiated runtime, so rank 0's controller names a rank that
+    does not reach it."""
 
     def __init__(self, fn, name_prefix: str):
         self._fn = fn
@@ -224,7 +225,9 @@ def make_train_step(model: torch.nn.Module,
             optimizer.zero_grad(set_to_none=True)
         loss = loss.detach()
         if loss_is_averaged:
-            loss = allreduce(loss, op=Average, process_set=process_set)
+            # The step's own collective: direct, never negotiated.
+            with direct():
+                loss = allreduce(loss, op=Average, process_set=process_set)
         return loss
 
     # The warmup tuner's re-trace: re-bucket the optimizer from the pins.

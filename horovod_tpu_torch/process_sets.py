@@ -12,7 +12,9 @@ order, members or not. So every rank calls ``add_process_set`` and
 ``remove_process_set`` with the same sets in the same order, as the
 reference's per-process host surfaces require (``process_world.py:106``).
 Only members call a set's collectives; a non-member's call raises, as the
-reference's native runtime refuses it.
+reference's native runtime refuses it. In a multi-rank world every set is
+also registered with the negotiated runtime's controller when it is added
+(``native_id``), the id its eager collectives are negotiated under.
 """
 
 from __future__ import annotations
@@ -36,6 +38,8 @@ class ProcessSet:
         # The set's torch.distributed group (None: the default group, or a
         # set that is not registered).
         self.group = None
+        # The negotiated runtime's id of the set (multi-rank worlds).
+        self.native_id = 0
 
     def size(self) -> int:
         return len(self.ranks)
@@ -110,6 +114,10 @@ def add_process_set(process_set: ProcessSet | Sequence[int]) -> ProcessSet:
                     f"{existing}")
         group = dist.new_group(ranks)
         process_set.group = group if st.rank in ranks else None
+        # Every rank registers every set with the negotiated runtime here,
+        # in one order, so the controller's ids agree on every rank.
+        if st.negotiated is not None:
+            process_set.native_id = st.negotiated.register_process_set(ranks)
         process_set.process_set_id = _next_id
         _table[_next_id] = process_set
         _next_id += 1

@@ -34,6 +34,7 @@ def build_worker_env(
     extra_env: dict[str, str] | None = None,
     rendezvous_addr: str | None = None,
     rendezvous_port: int | None = None,
+    native_port: int | None = None,
 ) -> dict[str, str]:
     """The env contract between launcher and worker: exactly what
     ``horovod_tpu_torch.basics.init`` reads.
@@ -46,7 +47,9 @@ def build_worker_env(
     (``CUDA_VISIBLE_DEVICES=``): its script calls ``init(device="cpu")``,
     and one that does not fails in ``init()``. An elastic worker also gets
     the elastic driver's rendezvous KV (``HOROVOD_RENDEZVOUS_ADDR`` and
-    ``_PORT``).
+    ``_PORT``). ``native_port`` becomes ``HOROVOD_NATIVE_PORT``: the port
+    rank 0 listens on for the negotiated runtime's star, on its host
+    (``horovod_tpu/runner/exec_utils.py:77-82``).
     """
     a = assignment
     env = dict(base_env)
@@ -71,6 +74,8 @@ def build_worker_env(
     job_secret = os.environ.get("HOROVOD_SECRET_KEY", "")
     if job_secret and "HOROVOD_SECRET_KEY" not in env:
         env["HOROVOD_SECRET_KEY"] = job_secret
+    if native_port is not None:
+        env["HOROVOD_NATIVE_PORT"] = str(native_port)
     if cpu_mode:
         env["CUDA_VISIBLE_DEVICES"] = ""
     if extra_env:

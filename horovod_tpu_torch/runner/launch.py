@@ -5,16 +5,16 @@ Port of ``horovod_tpu/runner/launch.py`` (``parse_args``, ``args_to_env``,
 ``run_commandline``, ``main``), itself a re-design of upstream's
 ``horovodrun`` (``horovod/runner/launch.py``). The flags keep the
 reference's names; the runtime flags the port reads
-(``--fusion-threshold-mb``, ``--log-level``, ``--timeline-filename``,
-``--timeline-mark-cycles``, ``--stall-check-time``,
-``--stall-shutdown-time``, ``--autotune``, ``--autotune-log-file``) become
-the ``HOROVOD_*`` env vars the workers read. The reference's other runtime
-flags are refused as unknown flags: ``--cycle-time-ms`` and
-``--cache-capacity`` feed a background negotiation loop's cadence and
-response cache, which the port does not have yet, and
-``--hierarchical-allreduce`` feeds a hierarchical 2-D mesh, not ported
-yet either (the comms planner's ``two_level`` schedule,
-``HOROVOD_COMMS_PLANNER``, composes the same legs per bucket).
+(``--fusion-threshold-mb``, ``--cycle-time-ms``, ``--cache-capacity``,
+``--log-level``, ``--timeline-filename``, ``--timeline-mark-cycles``,
+``--stall-check-time``, ``--stall-shutdown-time``, ``--autotune``,
+``--autotune-log-file``) become the ``HOROVOD_*`` env vars the workers
+read; the cycle time and the cache capacity are the negotiated runtime's
+(``runtime``). Each worker also gets ``HOROVOD_NATIVE_PORT``, the port its
+rank 0 listens on for the negotiated runtime's star. The reference's
+``--hierarchical-allreduce`` is refused as an unknown flag: it feeds a
+hierarchical 2-D mesh, not ported yet (the comms planner's ``two_level``
+schedule, ``HOROVOD_COMMS_PLANNER``, composes the same legs per bucket).
 
 The process model is upstream Horovod's, not the JAX package's: one
 process per slot, one slot per GPU (``hosts.get_host_assignments``).
@@ -120,6 +120,8 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     # The runtime knobs the port reads → env for children (the reference
     # CLI's names).
     p.add_argument("--fusion-threshold-mb", type=int, default=None)
+    p.add_argument("--cycle-time-ms", type=float, default=None)
+    p.add_argument("--cache-capacity", type=int, default=None)
     p.add_argument("--timeline-filename", default=None)
     p.add_argument("--timeline-mark-cycles", action="store_true")
     p.add_argument("--log-level", default=None,
@@ -194,6 +196,10 @@ def args_to_env(args: argparse.Namespace) -> dict[str, str]:
     env: dict[str, str] = {}
     if args.fusion_threshold_mb is not None:
         env["HOROVOD_FUSION_THRESHOLD"] = str(args.fusion_threshold_mb * 1024 * 1024)
+    if args.cycle_time_ms is not None:
+        env["HOROVOD_CYCLE_TIME"] = str(args.cycle_time_ms)
+    if args.cache_capacity is not None:
+        env["HOROVOD_CACHE_CAPACITY"] = str(args.cache_capacity)
     if args.timeline_filename:
         env["HOROVOD_TIMELINE"] = args.timeline_filename
     if args.timeline_mark_cycles:
@@ -334,6 +340,7 @@ def run_static(settings: Settings, sink=None) -> int:
             # hostname may resolve to an unreachable management NIC.
             coord_addr = probed[hostnames[0]]
     coord_port = network.free_port()
+    native_port = network.free_port()
     workers = []
     try:
         for a in assignments:
@@ -347,6 +354,7 @@ def run_static(settings: Settings, sink=None) -> int:
                 coordinator_port=coord_port,
                 cpu_mode=settings.cpu_mode,
                 extra_env=settings.env,
+                native_port=native_port,
             )
             workers.append(launch_worker(
                 a, settings.command, env, ssh_port=settings.ssh_port,
@@ -373,6 +381,7 @@ def check_build() -> str:
         "",
         "Available controllers:",
         "    [X] torch.distributed TCP store",
+        "    [X] negotiated runtime (rank-0 controller, response cache)",
         "",
         "Available collective backends:",
         f"    [{mark(dist.is_nccl_available())}] NCCL",

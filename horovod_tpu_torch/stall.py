@@ -25,10 +25,14 @@ NCCL communicators (``basics._abort_groups``): that is what ends a main
 thread waiting on the card for a collective that never completes, so the
 SIGINT can surface as ``HorovodInternalError`` from :func:`watch`.
 
-Not ported yet: the cross-rank ``stallwatch/<name>`` announcement, which
-rides the native controller's negotiation; until then :func:`watch` keeps
-the local ticket in every world, and its ``cross_rank`` and ``timeout_s``
-(which bound that announcement) have nothing to act on.
+Across ranks (``horovod_tpu/stall.py:243-300``): in a world of more than
+one rank a watched region first announces a one-scalar
+``stallwatch/<name>`` allreduce on the negotiated runtime
+(``runtime.NativeWorld``) and collects it when the body ends, so a rank
+that never reaches the region is named by rank 0's controller
+(``controller.cc``'s stall inspector: ``tensor stallwatch/<name> ...
+still missing from rank(s) [r]``), and the body's ranks wait for each
+other at its end, bounded by ``timeout_s``.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from __future__ import annotations
 import contextlib
 import os
 import signal
+import sys
 import threading
 import time
 from typing import Callable
@@ -276,42 +281,85 @@ def reset_for_testing() -> None:
         ins.stop()
 
 
+def _negotiated_world():
+    """The negotiated runtime's world of an initialized multi-rank world,
+    or None (this module imports no torch: a process that never formed a
+    world, the elastic driver, has none)."""
+    basics = sys.modules.get(f"{__package__}.basics")
+    if basics is None or not basics.is_initialized():
+        return None
+    return basics._state.negotiated
+
+
 @contextlib.contextmanager
 def watch(name: str | None = None, timeout_s: float | None = None,
           label: str = "watch", cross_rank: bool = True):
-    """Stall-inspect a region that must run in rank lockstep: a local
-    inspector ticket ``<label>[<name>]`` is open while the body runs.
+    """Stall-inspect a region that must run in rank lockstep.
+
+    On entry a local inspector ticket ``<label>[<name>]`` opens and, in a
+    world of more than one rank (and ``cross_rank``), a one-scalar
+    ``stallwatch/<name>`` allreduce is announced on the negotiated
+    runtime; the announcement comes before the body, so a peer that never
+    reaches the region is named by rank 0's controller either way. On exit
+    the announcement is collected (the ranks wait for each other there)
+    and the ticket closes. ``timeout_s=None`` waits for it without end
+    (the controller reports the stall meanwhile) unless
+    ``HOROVOD_STALL_SHUTDOWN_TIME`` is set, which then bounds the wait;
+    ``cross_rank=False`` keeps the local ticket only.
 
     A pending coordinated abort raises ``HorovodInternalError`` before the
     body runs, and the ``worker.step`` fault point fires on entry. The
     inspector's shutdown interrupt (or one concurrent with an armed abort)
     surfaces as ``HorovodInternalError``, so ``@hvd.elastic.run``
-    recovers; a user's own Ctrl-C passes through. ``timeout_s`` and
-    ``cross_rank`` bound and enable the cross-rank announcement, which the
-    port does not have yet (see the module docstring).
+    recovers; a user's own Ctrl-C passes through.
 
     The body must wait for its device work (as :func:`fetch` and
     ``make_train_step``'s watched steps do) for the ticket to cover it.
     """
-    del timeout_s, cross_rank
     abort.raise_if_aborted()
     faults.fire(faults.WORKER_STEP)
+    if timeout_s is None:
+        shutdown_s = get_float("HOROVOD_STALL_SHUTDOWN_TIME", 0.0)
+        timeout_s = shutdown_s if shutdown_s > 0 else 1e9
     inspector = get_inspector()
-    ticket = inspector.begin(f"{label}[{name or 'step'}]")
-    try:
-        yield
-    except KeyboardInterrupt:
-        if inspector.failed or abort.is_aborted():
-            from .exceptions import HorovodInternalError
+    world = _negotiated_world() if cross_rank else None
+    handle = None
+    if world is not None:
+        import torch
 
-            raise HorovodInternalError(
-                "stall shutdown: "
-                + (inspector.failure_reason
-                   or "stall exceeded the shutdown deadline")
-            ) from None
-        raise
+        tag = name or world.reserve_name("step")
+        handle = world.allreduce_async(
+            torch.ones(1, dtype=torch.float32, device=world.device),
+            name=f"stallwatch/{tag}", op="sum")
+    else:
+        tag = name or "step"
+    ticket = inspector.begin(f"{label}[{tag}]")
+    try:
+        try:
+            yield
+            if handle is not None:
+                world.synchronize(handle, timeout_s=timeout_s)
+                handle = None
+        except KeyboardInterrupt:
+            if inspector.failed or abort.is_aborted():
+                from .exceptions import HorovodInternalError
+
+                raise HorovodInternalError(
+                    "stall shutdown: "
+                    + (inspector.failure_reason
+                       or "stall exceeded the shutdown deadline")
+                ) from None
+            raise
     finally:
         inspector.end(ticket)
+        if handle is not None:
+            # The body raised with the announcement in flight: collect it
+            # if it completed; otherwise the world's teardown fails it.
+            try:
+                if world.poll(handle):
+                    world.synchronize(handle, timeout_s=1.0)
+            except Exception:  # noqa: BLE001 — cleanup is best-effort
+                pass
 
 
 def _cuda_devices(tree, out: set) -> set:
@@ -337,8 +385,9 @@ def fetch(tree, name: str | None = None, timeout_s: float = 600.0):
     waiting for the current stream of each device they are on (work a
     collective leaves on its own stream is ordered before it by the
     collective's wait). The wait runs inside a :func:`watch` ticket named
-    ``fetch[<name>]``, so a step hung on the card is reported by name.
-    ``timeout_s`` bounds the cross-rank announcement (not ported yet).
+    ``fetch[<name>]``, so a step hung on the card is reported by name, and
+    a rank that never fetches it is named by rank 0's controller.
+    ``timeout_s`` bounds the cross-rank announcement.
     Returns ``tree``::
 
         loss = hvd.fetch(step(batch), name=f"step.{i}")

@@ -271,9 +271,9 @@ def mark_cycles_enabled() -> bool:
 
 
 def mark_cycle(label: str = "cycle") -> None:
-    """Emit a cycle marker if enabled. A "cycle" is a dispatched eager
-    collective or training step: the port has no background negotiation
-    loop to tick."""
+    """Emit a cycle marker if enabled: a dispatched eager collective, a
+    training step, or a cycle of the negotiated runtime that carried a
+    response (``runtime.NativeWorld``'s executor)."""
     global _cycle_count
     if not mark_cycles_enabled():
         return

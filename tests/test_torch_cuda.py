@@ -1310,3 +1310,101 @@ def test_planner_unset_leaves_the_flush_launches(cuda_device, monkeypatch):
         assert counts[1][0] == counts[0][0]
     finally:
         hvd.shutdown()
+
+
+def _negotiated_world(monkeypatch, cycle_ms=None):
+    """A one-rank negotiated world on the card (``hvd.init()`` has run)."""
+    from horovod_tpu_torch.runner.network import free_port
+    from horovod_tpu_torch.runtime import NativeWorld
+
+    if cycle_ms is not None:
+        monkeypatch.setenv("HOROVOD_CYCLE_TIME", str(cycle_ms))
+    return NativeWorld(0, 1, "127.0.0.1", free_port())
+
+
+@pytest.mark.cuda
+def test_negotiated_allreduce_behind_a_spin_reduces_the_value_after_it(
+        cuda_device, monkeypatch):
+    """A tensor written behind ~0.5 s of device work and enqueued at once:
+    the executor's stream waits on the enqueuing stream's event, so the
+    reduction sees the value written after the spin, and the host returns
+    from the enqueue and the synchronize before the spin ends."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.utils.spin import Spin
+
+    hvd.init()
+    world = _negotiated_world(monkeypatch)
+    try:
+        x = torch.ones(1 << 20, device=cuda_device)
+        # Load the fill and the collective's kernels before the spin (C9).
+        x.fill_(1.0)
+        world.synchronize(world.allreduce_async_(x, name="warm", op="sum"))
+        torch.cuda.synchronize()
+        spin = Spin(int(0.5 * 1.7e9))
+        x.fill_(3.0)
+        t0 = time.perf_counter()
+        out = world.synchronize(world.allreduce_async_(x, name="spun",
+                                                       op="sum"))
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        assert not spin.short(), (spin.ms(), spin.least_ms())
+        assert host_s < 0.25, host_s
+        assert out is x and torch.equal(x, torch.full_like(x, 3.0))
+    finally:
+        world.shutdown()
+        hvd.shutdown()
+
+
+@pytest.mark.cuda
+def test_a_fused_response_is_one_nccl_launch_on_a_device_buffer(
+        cuda_device, monkeypatch):
+    """Eight tensors enqueued within one (200 ms) cycle: one fused
+    response, one NCCL allreduce on the world's device fusion buffer, and
+    every tensor's average back in place."""
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+
+    hvd.init()
+    world = _negotiated_world(monkeypatch, cycle_ms=200)
+    launched = []
+    real = dist.all_reduce
+    monkeypatch.setattr(dist, "all_reduce", lambda t, *a, **k: (
+        launched.append((t.device.type, t.numel())), real(t, *a, **k))[1])
+    try:
+        xs = [torch.full((1000 + i,), float(i), device=cuda_device)
+              for i in range(8)]
+        time.sleep(0.05)
+        before = world.responses
+        hs = [world.allreduce_async_(x, name=f"fused.{i}", op="average")
+              for i, x in enumerate(xs)]
+        outs = [world.synchronize(h) for h in hs]
+        torch.cuda.synchronize()
+        assert world.responses - before == 1
+        assert launched == [("cuda", sum(x.numel() for x in xs))]
+        assert world._fusion[torch.float32].device.type == "cuda"
+        for i, (x, out) in enumerate(zip(xs, outs)):
+            assert out is x and torch.equal(x, torch.full_like(x, float(i)))
+    finally:
+        world.shutdown()
+        hvd.shutdown()
+
+
+@pytest.mark.cuda
+def test_a_failed_gxx_build_raises_rather_than_falling_back(cuda_device,
+                                                            monkeypatch):
+    """A control plane that does not build raises at the world's
+    formation: there is no direct path to fall back to."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import runtime
+
+    monkeypatch.setattr(runtime, "_lib", None)
+    monkeypatch.setattr(runtime, "GXX", "false")
+    monkeypatch.setattr(runtime, "GXX_FLAGS",
+                        runtime.GXX_FLAGS + ("-DHVD_FAILED_BUILD_PROBE",))
+    hvd.init()
+    try:
+        with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+            _negotiated_world(monkeypatch)
+    finally:
+        hvd.shutdown()

@@ -41,11 +41,14 @@ FLAG_SETS = [
     ["--autotune-log-file", "a.csv"],
     ["--autotune", "--autotune-log-file", "tune.jsonl",
      "--fusion-threshold-mb", "4"],
+    # The negotiated runtime's cadence and response cache.
+    ["--cycle-time-ms", "2.5"],
+    ["--cache-capacity", "0"],
+    ["--cycle-time-ms", "5", "--cache-capacity", "64", "--autotune"],
 ]
 # The reference's runtime flags with no counterpart in the port: the
-# negotiation loop's cadence and cache, and the hierarchical 2-D mesh.
+# hierarchical 2-D mesh.
 UNREAD_FLAGS = [
-    ["--cycle-time-ms", "2.5"], ["--cache-capacity", "0"],
     ["--hierarchical-allreduce"],
 ]
 SCHEDULER_ENVS = [
@@ -245,6 +248,21 @@ def test_worker_env_is_what_init_reads(monkeypatch):
                 "CUDA_VISIBLE_DEVICES"} & set(env)
     cpu = build_worker_env(a, base, "a", 1234, cpu_mode=True)
     assert cpu["CUDA_VISIBLE_DEVICES"] == ""
+
+
+def test_worker_env_carries_the_native_port_as_the_reference():
+    from horovod_tpu.runner.exec_utils import build_worker_env as ref_env
+    from horovod_tpu.runner.hosts import (get_host_assignments as ref_assign,
+                                          parse_hosts as ref_parse)
+    from horovod_tpu_torch.runner.exec_utils import build_worker_env
+    from horovod_tpu_torch.runner.hosts import (get_host_assignments,
+                                                parse_hosts)
+
+    a = get_host_assignments(parse_hosts("a:2,b:2"))[2]
+    ref_a = ref_assign(ref_parse("a:2,b:2"))[0]
+    got = build_worker_env(a, {}, "a", 1234, native_port=4321)
+    want = ref_env(ref_a, {}, "a", 99, "a", 1234, native_port=4321)
+    assert got["HOROVOD_NATIVE_PORT"] == want["HOROVOD_NATIVE_PORT"] == "4321"
 
 
 def test_remote_workers_get_the_cuda_and_nccl_env(monkeypatch):
