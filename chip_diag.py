@@ -11,6 +11,7 @@
     python3 chip_diag.py fsdp_gathers
     python3 chip_diag.py elastic [--fsdp | --straggler] [--cpu] [--log PATH]
     python3 chip_diag.py ab_steps OTHER_CHECKOUT
+    python3 chip_diag.py overlap [--cpu]
 
 ``ab`` times the kernels of OTHER_CHECKOUT and of this checkout at
 chip_smoke.py's shapes: at its BERT-Large path shapes (D = 64, bf16,
@@ -182,6 +183,31 @@ S = 128 x 64, AdamW, bf16 wire, one card with the wire forced on: its
 checkout in a process of its own, in the order other, this, this, other,
 and prints each path's median step ms and device busy ms per step for
 each checkout (the mean of its two processes) and the ratio.
+
+``overlap`` (four cards; ``--cpu``: four gloo processes and BERT_TINY)
+launches ``hvdrun-torch -np 4`` with BERT-Large S = 512 x 8 a rank, SGD
+with momentum (AdamW would turn the rounding of near-zero gradients into
+moves of up to lr), float32 wire, from seed 0: ``make_train_step`` and
+``make_overlapped_train_step`` at 1, 2, 4 and 8 segments in allreduce
+mode, then in sharded mode ``make_train_step`` with and without
+``deferred_param_gather`` and the overlapped step at 4 segments;
+every model built first, then ``OVERLAP_STEPS`` rounds of one step of
+each run in turn (so the host's spread falls on every run alike), then
+``OVERLAP_PROFILED_STEPS`` profiled steps of each.
+At 1 segment the buckets are ``make_train_step``'s, and so are the losses,
+bit for bit, as in sharded mode (each rank's reduce-scatter row sums in
+the same order whatever the buckets) and with the deferred gather. At 2
+segments and more every loss must lie within ``OVERLAP_LOSS_RTOL`` of
+``make_train_step``'s: the ring sums an element in an order set by its
+place in its bucket, segments move the bucket boundaries, and parameters
+a float32 rounding apart flip roundings of the bf16 forward (parameter
+noise of 1e-8 moves BERT_TINY's loss by 2.6e-5 to 8.6e-5 of itself).
+Each rank prints, per run, its step ms (median after the first round),
+its device busy ms a step, its NCCL kernels' device ms a step (a rank
+that arrives first waits inside them), the part of those that ran beside
+no compute kernel, and the share that ran while a compute kernel ran
+(from the profile's intervals; the ranks line up inside the session
+first).
 """
 
 from __future__ import annotations
@@ -1677,6 +1703,188 @@ def negotiation(cpu):
     return 0
 
 
+# The overlap diagnostic: steps a run before the profiled ones, profiled
+# steps, and the loss agreement across factories in float32 roundings of
+# the loss.
+OVERLAP_STEPS = 6
+OVERLAP_PROFILED_STEPS = 2
+OVERLAP_LOSS_RTOL = 1e-3
+# The runs whose buckets, and so losses, are make_train_step's.
+OVERLAP_EXACT = ("allreduce.k1", "sharded.deferred", "sharded.k4")
+OVERLAP_RUNS = (
+    # name, sync mode, factory, keyword arguments
+    ("allreduce.make_train_step", "allreduce", "make_train_step", {}),
+    *((f"allreduce.k{k}", "allreduce", "make_overlapped_train_step",
+       {"num_segments": k}) for k in (1, 2, 4, 8)),
+    ("sharded.make_train_step", "sharded", "make_train_step", {}),
+    ("sharded.deferred", "sharded", "make_train_step",
+     {"deferred_param_gather": True}),
+    ("sharded.k4", "sharded", "make_overlapped_train_step",
+     {"num_segments": 4}),
+)
+
+
+def _concurrent_share(events):
+    """Of the device time of the NCCL kernels among ``events`` ((name,
+    start, end)), the share during which a compute kernel also ran; None
+    without NCCL kernels."""
+    def merged(spans):
+        out = []
+        for a, b in sorted(spans):
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        return out
+
+    comm = merged([(a, b) for n, a, b in events if "nccl" in n.lower()])
+    compute = merged([(a, b) for n, a, b in events
+                      if "nccl" not in n.lower()])
+    total = sum(b - a for a, b in comm)
+    if not total:
+        return None
+    both, j = 0.0, 0
+    for a, b in comm:
+        while j < len(compute) and compute[j][1] <= a:
+            j += 1
+        k = j
+        while k < len(compute) and compute[k][0] < b:
+            both += min(b, compute[k][1]) - max(a, compute[k][0])
+            k += 1
+    return both / total
+
+
+def _overlap_rank(device):
+    """One rank of ``overlap``, started by the launcher. Every run's model
+    is built first; the runs then take their steps in turns, one step each
+    a round, so that the host's spread falls on all of them alike."""
+    import faulthandler
+
+    faulthandler.dump_traceback_later(1200, exit=True)
+    sys.path.insert(0, HERE)
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import bert as bert_mod
+
+    smoke = _smoke()
+    hvd.init(device=device)
+    rank = hvd.rank()
+    cfg, batch = _planner_batch(hvd, rank, device)
+    cuda = device == "cuda"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    steps = {}
+    for name, mode, factory, kw in OVERLAP_RUNS:
+        torch.manual_seed(0)
+        with torch.device(hvd.device()):
+            model = bert_mod.Bert(cfg,
+                                  attention_fn=bert_mod.flash_attention_fn)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=1e-2, momentum=0.9),
+            sync_mode=mode)
+        steps[name] = getattr(hvd, factory)(model, _mlm_loss, opt, **kw)
+    report = {"rank": rank, "runs": {name: {"losses": [], "times": []}
+                                     for name in steps}}
+    for _ in range(OVERLAP_STEPS):
+        for name, step in steps.items():
+            t0 = time.perf_counter()
+            report["runs"][name]["losses"].append(float(step(batch)))
+            if cuda:
+                torch.cuda.synchronize()
+            report["runs"][name]["times"].append(
+                (time.perf_counter() - t0) * 1e3)
+    for name, step in steps.items():
+        run = report["runs"][name]
+        times = sorted(run["times"][1:])
+        run["step_ms"] = round(times[len(times) // 2], 2)
+        run.update(busy_ms=None, nccl_ms=None, nccl_exposed_ms=None,
+                   nccl_concurrent=None)
+        if not cuda:
+            continue
+        with smoke.device_profile() as prof:
+            hvd.allreduce(torch.zeros(1, device=hvd.device()), op=hvd.Sum)
+            torch.cuda.synchronize()
+            with torch.profiler.record_function("overlap_window"):
+                for _ in range(OVERLAP_PROFILED_STEPS):
+                    step(batch)
+        start = min(e.time_range.start for e in prof.events()
+                    if e.name == "overlap_window")
+        events = [(n, a, b) for n, a, b in smoke.device_events(prof)
+                  if a >= start]
+        per = 1e3 * OVERLAP_PROFILED_STEPS
+        run["busy_ms"] = round(smoke._busy_us(
+            [(a, b) for _, a, b in events]) / per, 3)
+        nccl = smoke._busy_us([(a, b) for n, a, b in events
+                               if "nccl" in n.lower()]) / per
+        share = _concurrent_share(events)
+        run["nccl_ms"] = round(nccl, 3)
+        if share is not None:
+            run["nccl_concurrent"] = round(share, 4)
+            run["nccl_exposed_ms"] = round(nccl * (1 - share), 3)
+    torch.use_deterministic_algorithms(False)
+    print("overlap rank " + json.dumps(report), flush=True)
+    hvd.shutdown()
+
+
+def overlap(cpu):
+    import torch
+
+    n = 4 if cpu else torch.cuda.device_count()
+    if n != 4:
+        print("overlap: needs four cards (or --cpu)", file=sys.stderr)
+        return 1
+    device = "cpu" if cpu else "cuda"
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.runner.launch", "-np",
+         str(n), *(["--cpu-mode"] if cpu else []), sys.executable,
+         os.path.abspath(__file__), "_overlap_rank", device],
+        cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
+        timeout=1500, capture_output=True, text=True)
+    text = out.stdout
+    sys.stdout.write(text[-16000:])
+    sys.stderr.write(out.stderr[-8000:])
+    card = "" if cpu else f", cards: {_smoke().card_line()}"
+    print(f"overlap: {n} ranks over {dist_backend(device)} started by "
+          f"hvdrun-torch, exit code {out.returncode}, "
+          f"{time.perf_counter() - t0:.1f} s{card}")
+    if out.returncode != 0:
+        return out.returncode
+    reports = sorted((json.loads(ln.split("overlap rank ", 1)[1])
+                      for ln in text.splitlines() if "overlap rank " in ln),
+                     key=lambda r: r["rank"])
+    if len(reports) != n:
+        print(f"overlap: FAILED: {len(reports)} rank reports",
+              file=sys.stderr)
+        return 1
+    worst = {}
+    for name, mode, _, _ in OVERLAP_RUNS:
+        ref = reports[0]["runs"][f"{mode}.make_train_step"]["losses"]
+        for r in reports:
+            got = r["runs"][name]["losses"]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(got, ref))
+            worst[name] = max(worst.get(name, 0.0), rel)
+    for name, _, _, _ in OVERLAP_RUNS:
+        runs = [r["runs"][name] for r in reports]
+        print(f"overlap: {name}: losses {runs[0]['losses']}, within "
+              f"{worst[name]:.3g} of make_train_step's (relative); "
+              f"per rank step ms median {[x['step_ms'] for x in runs]}, "
+              f"busy ms {[x['busy_ms'] for x in runs]}, NCCL ms "
+              f"{[x['nccl_ms'] for x in runs]}, of it beside no compute "
+              f"kernel {[x['nccl_exposed_ms'] for x in runs]}, share "
+              f"concurrent with compute "
+              f"{[x['nccl_concurrent'] for x in runs]}{card}")
+    bad = {k: v for k, v in worst.items()
+           if v > (0.0 if k in OVERLAP_EXACT else OVERLAP_LOSS_RTOL)}
+    if bad:
+        print(f"overlap: FAILED: losses apart from make_train_step's "
+              f"(relative; {OVERLAP_EXACT} bit for bit, the others within "
+              f"{OVERLAP_LOSS_RTOL}): {bad}", file=sys.stderr)
+        return 1
+    print("overlap: ok")
+    return 0
+
+
 SPINS_CHILD = r"""
 import sys, time, torch
 x = torch.randn(8192, 8192, device="cuda")
@@ -2526,6 +2734,11 @@ def main() -> int:
         return negotiation(args[1:] == ["--cpu"])
     if args[:1] == ["_negotiation_rank"] and len(args) == 2:
         _negotiation_rank(args[1])
+        return 0
+    if args in (["overlap"], ["overlap", "--cpu"]):
+        return overlap(args[1:] == ["--cpu"])
+    if args[:1] == ["_overlap_rank"] and len(args) == 2:
+        _overlap_rank(args[1])
         return 0
     if args in (["planner"], ["planner", "--cpu"]):
         return planner(args[1:] == ["--cpu"])

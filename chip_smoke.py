@@ -202,6 +202,23 @@ and prints no result line); each prints its seconds:
    step, and step ms and device busy beside the direct path's. Then 20
    steps with ``HOROVOD_AUTOTUNE=1`` (the ParameterManager on the loop):
    the knobs move, and ``autotune_state()`` is printed;
+13e. ``overlap``: BERT-Large S=512 x 8 (24 layers, bf16, AdamW, seed 0,
+   deterministic algorithms, forced NCCL wire) through
+   ``make_overlapped_train_step`` in each sync mode (allreduce, sharded,
+   fsdp) at 1 and 4 segments beside ``make_train_step``, 5 steps each:
+   losses and parameters equal bit for bit (at one rank the wire is a
+   copy and the update elementwise); then sharded with
+   ``deferred_param_gather`` against sharded without it (bit for bit, the
+   parameters read through ``step.deferred_params``); K1, K3 and K4 launch
+   24 times a step in every run. Two more steps of the allreduce runs
+   (``make_train_step`` and 4 segments) are profiled for their device
+   busy ms; at 4 segments each segment's ``hvd.overlap.segment<i>`` range
+   runs once a step, and the last segment's reduction is launched before
+   the backward's last autograd node runs. Then the overlapped step with
+   no segment count under ``HOROVOD_AUTOTUNE=1``: the joint grid of 3
+   thresholds x 3 segment counts (36 calls) pins one pair, and the step's
+   segments follow the pin. Prints step ms, device busy ms a step, the
+   segments and the pin, beside the card's name and power limit;
 14. agreement: the flash model against dense attention on small float32
    inputs, on each attention route; and ResNet-50 in float32 on the card
    against the CPU on the same weights (2 images at 64x64): logits in both
@@ -4677,6 +4694,232 @@ def negotiation_phase(card):
         torch.cuda.empty_cache()
 
 
+# The overlap phase: steps a run, the segment counts held to
+# make_train_step, and the steps profiled after the allreduce run at the
+# largest count.
+OVERLAP_STEPS = 5
+OVERLAP_SEGMENTS = (1, 4)
+OVERLAP_PROFILED_STEPS = 2
+
+
+def _overlap_run(card, name, mode, factory, steps=OVERLAP_STEPS,
+                 profile=False, **kw):
+    """BERT-Large S = 512 x 8 from seed 0 (``BERT_PATHS[0]``), AdamW, under
+    ``sync_mode=mode``: ``steps`` steps of ``factory(model, _bert_loss,
+    optimizer, **kw)`` on one batch, the counters set to 0 just before
+    them. K1, K3 and K4 must launch once a layer a step and no other
+    kernel. Returns (losses, the full parameters after them, each step's
+    ms, the step, and with ``profile`` the profile of
+    ``OVERLAP_PROFILED_STEPS`` more steps, else None)."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import bert as bert_mod
+    from horovod_tpu_torch.ops import _kernels
+
+    _, B, S, P, kernels = BERT_PATHS[0]
+    cfg = dataclasses.replace(bert_mod.BERT_LARGE, dropout_rate=0.0)
+    dev = hvd.device()
+    torch.manual_seed(0)
+    with torch.device(dev):
+        model = bert_mod.Bert(cfg, attention_fn=bert_mod.flash_attention_fn)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
+        named_parameters=model.named_parameters(), sync_mode=mode)
+    step = factory(model, _bert_loss, opt, **kw)
+    batch = _bert_batch(cfg, B, S, P, 0, dev)
+    for k in _kernels.KERNELS:
+        k.launches = 0
+    torch.cuda.synchronize()
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(step(batch)))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    for kname, n in ((k.name, k.launches) for k in _kernels.KERNELS):
+        want = cfg.num_layers * steps if kname in kernels else 0
+        if n != want:
+            raise AssertionError(f"overlap {name}: {kname} launched {n} "
+                                 f"times in {steps} steps, expected {want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"overlap {name}: losses {losses}")
+    deferred = getattr(step, "deferred_params", None)
+    if mode == "fsdp":
+        params = opt.full_parameters()
+    elif deferred is not None:
+        params = [p.detach().clone() for p in deferred.params]
+    else:
+        params = [p.detach().clone() for p in model.parameters()]
+    prof = None
+    if profile:
+        with device_profile() as prof:
+            for _ in range(OVERLAP_PROFILED_STEPS):
+                step(batch)
+    opt.remove_hooks()
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, params, times, step, prof
+
+
+def _same(name, ref, got):
+    """Losses and parameters bit for bit ``ref``'s."""
+    import torch
+
+    unequal = sum(not torch.equal(a, b) for a, b in zip(ref[1], got[1]))
+    if unequal or ref[0] != got[0]:
+        raise AssertionError(
+            f"overlap {name}: {unequal} of {len(ref[1])} parameters differ "
+            f"from make_train_step's (losses {got[0]} against {ref[0]})")
+
+
+def _segment_order(prof, segments):
+    """From a profile of overlapped steps: how many times each segment's
+    ``hvd.overlap.segment<i>`` range ran; for each step, the ms by which the
+    last segment's launch came before the start of the backward's last
+    autograd node (a step's nodes: those after the previous step's
+    segment 0, which launches last, up to its own; the accumulators' nodes,
+    whose hooks launch the segments, left out); and the device busy ms a
+    step."""
+    import torch
+
+    ranges = {i: [] for i in range(segments)}
+    nodes = []
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        m = re.fullmatch(r"hvd\.overlap\.segment(\d+)", e.name)
+        if m:
+            ranges[int(m.group(1))].append(e.time_range.start)
+        elif (e.name.startswith("autograd::engine::evaluate_function")
+              and "AccumulateGrad" not in e.name):
+            nodes.append(e.time_range.start)
+    counts = {i: len(v) for i, v in ranges.items()}
+    first, last = sorted(ranges[0]), sorted(ranges[segments - 1])
+    leads = []
+    for k, (t, end) in enumerate(zip(last, first)):
+        begin = first[k - 1] if k else float("-inf")
+        step_nodes = [n for n in nodes if begin < n < end]
+        leads.append((max(step_nodes) - t) / 1e3 if step_nodes else None)
+    spans = [(a, b) for _, a, b in device_events(prof)]
+    busy = (_busy_us(spans) / 1e3 / OVERLAP_PROFILED_STEPS if spans
+            else None)
+    return counts, leads, busy
+
+
+def overlap_phase(card):
+    """BERT-Large S=512 x 8 through the overlapped step (see the module
+    docstring, 13e)."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import autotune
+    from horovod_tpu_torch.ops.fusion import overlap_segments
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        times, ref_busy = {}, None
+        for mode in ("allreduce", "sharded", "fsdp"):
+            ref = _overlap_run(card, f"{mode}.make_train_step", mode,
+                               hvd.make_train_step,
+                               profile=mode == "allreduce")
+            times[f"{mode} make_train_step"] = statistics.median(ref[2][1:])
+            if ref[4] is not None:
+                spans = [(a, b) for _, a, b in device_events(ref[4])]
+                ref_busy = (_busy_us(spans) / 1e3 / OVERLAP_PROFILED_STEPS
+                            if spans else None)
+            for k in OVERLAP_SEGMENTS:
+                top = mode == "allreduce" and k == max(OVERLAP_SEGMENTS)
+                run = _overlap_run(card, f"{mode}.k{k}", mode,
+                                   hvd.make_overlapped_train_step,
+                                   profile=top, num_segments=k)
+                _same(f"{mode} at {k} segments", ref, run)
+                times[f"{mode} overlapped k={k}"] = statistics.median(
+                    run[2][1:])
+                if top:
+                    segments = len(run[3].segments())
+                    counts, leads, busy = _segment_order(run[4], segments)
+            print(f"overlap: {mode}: make_overlapped_train_step at "
+                  f"{OVERLAP_SEGMENTS} segments equals make_train_step bit "
+                  f"for bit over {OVERLAP_STEPS} steps (losses "
+                  f"{[round(x, 6) for x in ref[0]]}); K1, K3, K4 launched "
+                  f"once a layer a step in each run")
+            del ref
+        if any(n != OVERLAP_PROFILED_STEPS for n in counts.values()) or \
+                not all(x is not None and x > 0 for x in leads):
+            raise AssertionError(
+                f"overlap: profile of {OVERLAP_PROFILED_STEPS} allreduce "
+                f"steps at {segments} segments: segment ranges {counts}, "
+                f"last segment's launch before the backward's last node by "
+                f"{leads} ms: every range must run once a step and the last "
+                "segment launch before the backward ends")
+        ref = _overlap_run(card, "sharded.make_train_step", "sharded",
+                           hvd.make_train_step)
+        run = _overlap_run(card, "sharded.deferred", "sharded",
+                           hvd.make_train_step, deferred_param_gather=True)
+        _same("sharded with deferred_param_gather", ref, run)
+        times["sharded deferred_param_gather"] = statistics.median(
+            run[2][1:])
+        del ref, run
+        print(f"overlap: sharded make_train_step(deferred_param_gather="
+              f"True) equals the step without it bit for bit over "
+              f"{OVERLAP_STEPS} steps (parameters read through "
+              f"step.deferred_params)")
+        print(f"overlap: profile, allreduce at {segments} segments: "
+              f"segment ranges run {counts} times in "
+              f"{OVERLAP_PROFILED_STEPS} steps; the last segment's "
+              f"reduction launched {[round(x, 3) for x in leads]} ms before "
+              f"the backward's last autograd node; device busy "
+              + (f"{busy:.2f}" if busy is not None else "not measured")
+              + " ms a step, make_train_step's "
+              + (f"{ref_busy:.2f}" if ref_busy is not None
+                 else "not measured") + f" on {card}")
+        print(f"overlap: step ms median (steps 2-{OVERLAP_STEPS}), "
+              "BERT-Large S=512 x 8 at "
+              "world size 1: " + "; ".join(
+                  f"{k} {v:.2f}" for k, v in times.items()) + f" on {card}")
+        autotune.reset_for_testing()
+        os.environ["HOROVOD_AUTOTUNE"] = "1"
+        try:
+            tuner_steps = (len(autotune.DEFAULT_THRESHOLDS)
+                           * len(autotune.DEFAULT_SEGMENT_CANDIDATES)
+                           * (1 + 3))
+            losses, _, tuned_ms, step, _ = _overlap_run(
+                card, "allreduce.autotune", "allreduce",
+                hvd.make_overlapped_train_step, steps=tuner_steps + 2)
+        finally:
+            os.environ.pop("HOROVOD_AUTOTUNE", None)
+        state = autotune.autotune_state()
+        pinned = autotune.tuned_segments()
+        tuner = step._fn
+        if (tuner._hvd_tuning or pinned not in
+                autotune.DEFAULT_SEGMENT_CANDIDATES
+                or overlap_segments() != pinned
+                or state["overlap_segments"] != pinned
+                or len(step.segments()) > pinned):
+            raise AssertionError(
+                f"overlap: HOROVOD_AUTOTUNE=1: after {tuner_steps} calls "
+                f"tuning={tuner._hvd_tuning}, pinned segments {pinned}, "
+                f"overlap_segments() {overlap_segments()}, state {state}, "
+                f"the step's segments {len(step.segments())}")
+        print(f"overlap: HOROVOD_AUTOTUNE=1, joint grid of "
+              f"{len(tuner._cands)} (threshold, segments) candidates in "
+              f"{tuner_steps} calls: pinned threshold "
+              f"{state['fusion_threshold']} bytes, "
+              f"{pinned} segments (the step runs {len(step.segments())}); "
+              f"windows (candidate, s a call) "
+              f"{[(c, round(t, 5)) for c, t in tuner._samples]}; "
+              f"step ms after the pin {[round(t, 2) for t in tuned_ms[tuner_steps:]]}; "
+              f"losses finite on {card}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        autotune.reset_for_testing()
+
+
 def kernel_rows():
     """The kernels line's rows, (name, Kernel, source file under csrc/):
     each kernel, then the D = 256 instances of the multi-tile three, then
@@ -4770,6 +5013,7 @@ def main() -> int:
     _phase("observability", observability_phase, card)
     _phase("autotune", autotune_phase, card)
     _phase("negotiation", negotiation_phase, card)
+    _phase("overlap", overlap_phase, card)
     print("sync modes, BERT-Large S=512 x 8 at world size 1 (step ms median, "
           "max_memory_allocated GiB, optimizer-state bytes on this rank): "
           + "; ".join(f"{m} {ms:.2f} ms, {peak:.2f} GiB, {state}"

@@ -68,11 +68,14 @@ _EXPORTS = {
         "grouped_reducescatter_async", "cache_stats", "poll",
         "reducescatter", "reducescatter_async", "run_comms_microprobe",
         "synchronize"),
-    "optimizer": ("DistributedOptimizer", "gather_sharded_state",
-                  "init_sharded_state", "load_sharded_state",
+    "optimizer": ("DistributedOptimizer", "ReduceSpec",
+                  "gather_sharded_state", "init_sharded_state",
+                  "load_sharded_state", "reduce_spec_of",
                   "reshard_opt_state", "resolve_sync_mode",
                   "unshard_opt_state"),
-    "parallel.data_parallel": ("make_elastic_train_step", "make_train_step"),
+    "parallel.data_parallel": ("DeferredParams", "make_elastic_train_step",
+                               "make_overlapped_train_step",
+                               "make_train_step", "overlap_gradient_sync"),
     "parallel.param_sharding": ("ShardedParams", "reshard_params",
                                 "resident_param_bytes", "shard_params",
                                 "unshard_params"),

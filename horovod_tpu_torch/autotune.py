@@ -22,10 +22,13 @@ pinned threshold at the next step boundary (``optimizer.py``). A window's
 time ends in one host read of the step's smallest output tensor (the
 loss), so a window pays one synchronization, not one per call.
 
-Left out: the 2-D mesh-shape pin (``tuned_mesh_shape``) waits for a port
-of ``parallel/mesh.py``; the segments axis has its pin, which
-``ops.fusion.overlap_segments`` reads, but no factory passes segment
-candidates until the overlapped step is ported. The negotiated runtime's
+The segments axis: ``make_overlapped_train_step`` with no explicit
+segment count passes :data:`DEFAULT_SEGMENT_CANDIDATES`, so its warmup
+sweeps the joint (threshold, segments) grid; its ``rebucket`` re-derives
+the segments from the pin (``ops.fusion.overlap_segments``) as well as the
+optimizer's buckets. Left out: the 2-D mesh-shape pin
+(``tuned_mesh_shape``) waits for a port of ``parallel/mesh.py``. The
+negotiated runtime's
 online ``ParameterManager`` (its cycle time and fusion threshold) is C++
 in ``csrc/runtime/autotune.cc``, armed by the same ``HOROVOD_AUTOTUNE=1``
 (``runtime.NativeWorld.autotune_state()``), on this module's Gaussian

@@ -34,6 +34,7 @@ import hashlib
 import io
 import os
 import re
+import sys
 import threading
 import time
 from typing import Any, MutableMapping
@@ -221,6 +222,14 @@ def _to_cpu(obj):
     return obj
 
 
+def _wait_deferred_gathers() -> None:
+    """``optimizer.wait_deferred_gathers`` where the optimizer module is
+    loaded (a process that trains); this module imports no torch."""
+    opt = sys.modules.get(f"{__package__}.optimizer")
+    if opt is not None:
+        opt.wait_deferred_gathers()
+
+
 def _host_copy(obj):
     """``obj`` with every tensor copied to the CPU, so that training can
     go on changing the originals while a save is in flight."""
@@ -276,6 +285,7 @@ class Checkpointer:
         if not self._writes():
             return
         self.wait_until_finished()
+        _wait_deferred_gathers()
         data = _host_copy(state)
 
         def write():
@@ -422,9 +432,10 @@ def save_state_on_rank_0(path: str, optimizer, model,
     the shards. Collective in those modes: every rank calls it."""
     from . import basics
     from .optimizer import (_gather_rows, gather_sharded_state, sync_mode_of,
-                            unshard_opt_state)
+                            unshard_opt_state, wait_deferred_gathers)
     from .parallel.param_sharding import ShardedParams, unshard_params
 
+    wait_deferred_gathers()
     mode = sync_mode_of(optimizer)
     if mode == "allreduce":
         opt_state = dict(optimizer.state_dict())
@@ -457,8 +468,11 @@ def load_state_and_broadcast(path: str, optimizer, model,
     readable."""
     import torch
 
-    from .optimizer import load_sharded_state, reshard_opt_state, sync_mode_of
+    from .optimizer import (load_sharded_state, reshard_opt_state,
+                            sync_mode_of, wait_deferred_gathers)
 
+    # A gather in flight would write the old parameters over the loaded.
+    wait_deferred_gathers()
     obj = load_and_broadcast(path, root_rank)
     if obj is None:
         return None

@@ -82,6 +82,9 @@ class TorchState(ExtrasState):
         self.commit()
 
     def commit(self) -> None:
+        from ..optimizer import wait_deferred_gathers
+
+        wait_deferred_gathers()
         saved_model = saved_opt = None
         if self.model is not None:
             saved_model = {
@@ -227,6 +230,9 @@ class PeerShardedState(ExtrasState):
 
     def commit(self) -> None:
         opt = self.optimizer
+        settle = getattr(opt, "settle", None)
+        if settle is not None:  # a deferred parameter gather in flight
+            settle()
         r = opt._ps.rank()
         row = _host_copy(opt._opt.state_dict())
         row["salt_counter"] = opt._updates

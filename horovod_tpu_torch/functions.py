@@ -32,9 +32,13 @@ def broadcast_parameters(params, root_rank: int = 0) -> None:
     """Overwrite every rank's tensors, in place, with ``root_rank``'s.
 
     ``params``: a ``state_dict()``, ``named_parameters()`` or an iterable
-    of tensors.
+    of tensors. A sharded optimizer's deferred parameter allgather in
+    flight finishes first.
     """
+    from .optimizer import wait_deferred_gathers
+
     _check_root(root_rank)
+    wait_deferred_gathers()
     if basics.size() == 1:
         return
     items = params.values() if hasattr(params, "values") else params

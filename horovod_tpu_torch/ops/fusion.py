@@ -8,7 +8,8 @@ Port of ``horovod_tpu/ops/fusion.py``: ``fusion_threshold_bytes`` (:28),
 (:154), ``bucket_leaves`` (:206), ``fused_allreduce`` (:320),
 ``shard_ownership`` (:434), ``_pack_shard_rows`` (:480),
 ``_split_shard_row`` (:493), ``fused_reducescatter`` (:504) and
-``fused_allgather_shards`` (:569). Each collective has a fixed launch
+``fused_allgather_shards`` (:569, with ``start_fused_allgather_shards``,
+which returns with its buckets in flight). Each collective has a fixed launch
 cost, so tensors are packed in order into same-dtype buckets of at most
 ``HOROVOD_FUSION_THRESHOLD`` bytes, reduced with one collective per bucket,
 and unpacked.
@@ -393,6 +394,18 @@ def fused_allgather_shards(shards: Sequence[torch.Tensor],
     shards' dtype; callers cast). One allgather per bucket of
     ``bucket_leaves(templates)``, so the grouping comes from the same
     static facts on every rank. ``templates`` may be meta tensors."""
+    return start_fused_allgather_shards(shards, templates, threshold_bytes,
+                                        issue_reversed, process_set)[1]()
+
+
+def start_fused_allgather_shards(shards: Sequence[torch.Tensor],
+                                 templates: Sequence[torch.Tensor],
+                                 threshold_bytes: int | None = None,
+                                 issue_reversed: bool = False,
+                                 process_set=None):
+    """Launch :func:`fused_allgather_shards`' buckets; return ``(works,
+    finish)``: the collectives in flight, and the call that waits for them
+    and returns the full tensors."""
     from .collective_ops import _all_gather, _resolve_process_set, wait
 
     ps = _resolve_process_set(process_set)
@@ -412,15 +425,19 @@ def fused_allgather_shards(shards: Sequence[torch.Tensor],
             full = row.new_empty(n * row.numel())
             launched.append((k, bucket, full, _all_gather(
                 full, row, group=ps.group, async_op=True)))
-    out: list = [None] * len(templates)
-    for k, bucket, full, work in launched:
-        with annotate_collective(f"allgather.bucket{k}.finish"):
-            wait(work)
-        # Leaf i is column block i of the (n, R) grid of owned runs.
-        grid, offset = full.view(n, -1), 0
-        for i in bucket:
-            t, s = templates[i], sizes[i]
-            out[i] = grid[:, offset:offset + s].reshape(-1)[:t.numel()].view(
-                t.shape)
-            offset += s
-    return out
+
+    def finish() -> list[torch.Tensor]:
+        out: list = [None] * len(templates)
+        for k, bucket, full, work in launched:
+            with annotate_collective(f"allgather.bucket{k}.finish"):
+                wait(work)
+            # Leaf i is column block i of the (n, R) grid of owned runs.
+            grid, offset = full.view(n, -1), 0
+            for i in bucket:
+                t, s = templates[i], sizes[i]
+                out[i] = grid[:, offset:offset + s].reshape(-1)[
+                    :t.numel()].view(t.shape)
+                offset += s
+        return out
+
+    return [work for _, _, _, work in launched], finish

@@ -65,6 +65,19 @@ state as they were; ``abort`` raises ``HorovodInternalError`` on every
 rank. Unset, nothing is checked and the step launches what it did
 without it.
 
+:class:`ReduceSpec` (:func:`reduce_spec_of`, reference :527, :554) names
+an optimizer's wire and its wrapped optimizer, for schedulers that reduce
+the gradients themselves: :func:`reduce_segment` launches one segment's
+buckets on that wire (the direct path: ``start_allreduce`` with the comms
+planner's schedule, the shard reduce-scatter, or the int8 exchange salted
+by the caller) and returns the call that finishes them; the overlapped
+step (``parallel.data_parallel.make_overlapped_train_step``) launches it
+from the backward and updates a segment at a time
+(``_apply_segment``). The sharded optimizer can leave its updated-parameter
+allgather in flight (``make_train_step(..., deferred_param_gather=True)``):
+:meth:`_ShardedOptimizer.settle` finishes it, and whatever reads the
+parameters calls :func:`wait_deferred_gathers` first.
+
 ``step()`` is the collective half, :meth:`_reduce` (the reduced
 gradients), in a ``collective`` phase, then the update, :meth:`_apply`, in
 an ``optimizer_update`` phase (``tracing.phase``: the spans that step-time
@@ -86,6 +99,7 @@ parameters' device after its first update, as ``params`` and
 from __future__ import annotations
 
 import weakref
+from typing import Any, Callable, NamedTuple
 
 import torch
 
@@ -183,6 +197,86 @@ def _own_slice(t: torch.Tensor, s: int, n: int, r: int) -> torch.Tensor:
     if hi > r * s:
         out[:hi - r * s] = flat[r * s:hi]
     return out
+
+
+def _skips_wire(process_set, op) -> bool:
+    """A one-member set reduces to the identity: skip the wire and apply
+    only the scale factors (reference optimizer.py:133-146), unless
+    HOROVOD_FORCE_WIRE_MACHINERY=1 asks for the full path."""
+    return (process_set.size() == 1
+            and env.get_str(env.FORCE_WIRE_MACHINERY) != "1"
+            and op in (Average, Sum, Adasum))
+
+
+def _launch_allreduce_bucket(grads, op, compression, prescale, ps):
+    """Compress and pack one bucket's gradients and launch its collective
+    on the direct path: the in-place allreduce (the comms planner's
+    schedule where it has one), or Adasum's gather of every member's row.
+    Returns what :func:`_finish_allreduce_bucket` takes."""
+    wires, ctxs = [], []
+    for g in grads:
+        wire, ctx = compression.compress(g)
+        wires.append(wire)
+        ctxs.append(ctx)
+    flat = pack(wires)
+    if op == Adasum:
+        _scale_(flat, prescale)
+        rows, work = gather_rows(flat, ps)
+        return rows, work, ctxs
+    work = start_allreduce(
+        flat, op, prescale, ps.group,
+        dispatch_plan("allreduce", flat.numel() * flat.element_size(), ps,
+                      op), ps)
+    return flat, work, ctxs
+
+
+def _adasum_leaves(rows, work, shapes, postscale) -> list[torch.Tensor]:
+    """A gathered bucket's leaves, each the Adasum tree over its view in
+    every member's row, postscaled."""
+    wait(work)
+    leaves = []
+    for views in zip(*(unpack(row, shapes) for row in rows)):
+        leaf = adasum_tree(views)
+        _scale_(leaf, postscale)
+        leaves.append(leaf)
+    return leaves
+
+
+def _finish_allreduce_bucket(launched, shapes, op, compression, postscale,
+                             ps):
+    """Wait for a bucket of :func:`_launch_allreduce_bucket`: (its reduced
+    gradients, decompressed, in order; what the tripwire reads of it: the
+    reduced flat bucket, or Adasum's leaves)."""
+    flat, work, ctxs = launched
+    if op == Adasum:
+        pieces = _adasum_leaves(flat, work, shapes, postscale)
+        checked = pieces
+    else:
+        checked = [finish_allreduce(flat, work, op, postscale, ps)]
+        pieces = unpack(flat, shapes)
+    return ([compression.decompress(piece, ctx)
+             for piece, ctx in zip(pieces, ctxs)], checked)
+
+
+def _launch_shard_bucket(grads, sizes, compression, prescale, ps):
+    """Compress one bucket's gradients and launch its reduce-scatter of
+    the owned slices (``fusion.start_shard_reducescatter``)."""
+    wires, ctxs = [], []
+    for g in grads:
+        wire, ctx = compression.compress(g)
+        wires.append(wire)
+        ctxs.append(ctx)
+    return fusion.start_shard_reducescatter(wires, sizes, prescale, ps), ctxs
+
+
+def _finish_shard_bucket(launched, sizes, op, compression, postscale,
+                         n) -> list[torch.Tensor]:
+    """Wait for a bucket of :func:`_launch_shard_bucket`: this rank's
+    reduced shard of each of its gradients, decompressed."""
+    (row, work), ctxs = launched
+    fusion.finish_shard_reducescatter(row, work, op, postscale, n)
+    return [compression.decompress(piece, ctx) for piece, ctx in
+            zip(fusion._split_shard_row(row, sizes), ctxs)]
 
 
 class _DistributedOptimizer:
@@ -290,12 +384,7 @@ class _DistributedOptimizer:
         memory.note_named("params", zip(self._names, self._params))
 
     def _skips_wire(self) -> bool:
-        """A one-member set reduces to the identity: skip the wire and
-        apply only the scale factors (optimizer.py:133-146), unless
-        HOROVOD_FORCE_WIRE_MACHINERY=1 asks for the full path."""
-        return (self._ps.size() == 1
-                and env.get_str(env.FORCE_WIRE_MACHINERY) != "1"
-                and self._op in (Average, Sum, Adasum))
+        return _skips_wire(self._ps, self._op)
 
     def _read_world(self) -> None:
         """Read what the world decides, once per world: at construction
@@ -356,39 +445,16 @@ class _DistributedOptimizer:
                 "optimizer again over a registered set")
         with annotate_collective(f"allreduce.bucket{bi}"):
             k = self.backward_passes_per_step
-            wires, ctxs = [], []
+            grads = []
             for p in self._buckets[bi]:
                 g = p.grad if p.grad is not None else torch.zeros_like(p)
                 if k > 1:
                     # The mean over microbatches, taken before the wire
                     # cast so an fp16 wire keeps its headroom.
                     g = g / k
-                wire, ctx = self._compression.compress(g)
-                wires.append(wire)
-                ctxs.append(ctx)
-            flat = pack(wires)
-            if self._op == Adasum:
-                _scale_(flat, self._prescale)
-                rows, work = gather_rows(flat, self._ps)
-                self._launched[bi] = (rows, work, ctxs)
-                return
-            work = start_allreduce(
-                flat, self._op, self._prescale, self._ps.group,
-                dispatch_plan("allreduce", flat.numel() * flat.element_size(),
-                              self._ps, self._op),
-                self._ps)
-            self._launched[bi] = (flat, work, ctxs)
-
-    def _adasum_leaves(self, rows, work, shapes) -> list[torch.Tensor]:
-        """A gathered bucket's leaves, each the Adasum tree over its view in
-        every member's row, postscaled."""
-        wait(work)
-        leaves = []
-        for views in zip(*(unpack(row, shapes) for row in rows)):
-            leaf = adasum_tree(views)
-            _scale_(leaf, self._postscale)
-            leaves.append(leaf)
-        return leaves
+                grads.append(g)
+            self._launched[bi] = _launch_allreduce_bucket(
+                grads, self._op, self._compression, self._prescale, self._ps)
 
     def _local_grads(self) -> list[torch.Tensor]:
         """Each parameter's gradient (zeros where none), averaged over the
@@ -431,19 +497,13 @@ class _DistributedOptimizer:
             self._next -= 1
         reduced = []
         for bi in sorted(self._launched, reverse=True):
-            flat, work, ctxs = self._launched[bi]
             params = self._buckets[bi]
-            shapes = [p.shape for p in params]
             with annotate_collective(f"allreduce.bucket{bi}.finish"):
-                if self._op == Adasum:
-                    pieces = self._adasum_leaves(flat, work, shapes)
-                    reduced.extend(pieces)
-                else:
-                    reduced.append(finish_allreduce(
-                        flat, work, self._op, self._postscale, self._ps))
-                    pieces = unpack(flat, shapes)
-            for p, piece, ctx in zip(params, pieces, ctxs):
-                g = self._compression.decompress(piece, ctx)
+                grads, checked = _finish_allreduce_bucket(
+                    self._launched[bi], [p.shape for p in params], self._op,
+                    self._compression, self._postscale, self._ps)
+            reduced.extend(checked)
+            for p, g in zip(params, grads):
                 if p.grad is None:
                     p.grad = g.clone()
                 else:
@@ -492,6 +552,27 @@ class _DistributedOptimizer:
             _note_opt_state(self._opt, self._params)
         return out
 
+    def _apply_segment(self, idx, grads) -> None:
+        """The overlapped step's update of parameters ``idx`` (indices into
+        ``_params``) from their reduced gradients: only they carry a
+        ``.grad``, so the wrapped optimizer steps them alone (``torch.optim``
+        skips a parameter without one) and its state of the others stays
+        as it is."""
+        for i, g in zip(idx, grads):
+            self._params[i].grad = g
+        self._opt.step()
+        for i in idx:
+            self._params[i].grad = None
+
+    def _end_segments(self, nbuckets: int) -> None:
+        """After the overlapped step's last segment: one update counted
+        (the int8 wire's salt) and one flush noted."""
+        self._updates += 1
+        _note_flush(sync_mode_of(self), self._wire_bytes, nbuckets)
+        if not self._state_noted:
+            self._state_noted = True
+            _note_opt_state(self._opt, self._params)
+
     def _tripwire(self, finite: bool) -> bool:
         """Count, log, and raise or report what the step should do: False
         when it is to be skipped."""
@@ -529,6 +610,8 @@ _live: "weakref.WeakSet[_DistributedOptimizer]" = weakref.WeakSet()
 def _drop_in_flight() -> None:
     for opt in list(_live):
         opt._reset()
+        if getattr(opt, "_in_flight", None) is not None:
+            opt._in_flight = None  # a gather on the group being left
 
 
 def _read_worlds() -> None:
@@ -565,6 +648,11 @@ class _ShardedOptimizer(_DistributedOptimizer):
             seen.update(id(p) for p in group["params"])
             self._groups.append(idx)
         self._own_shards(optimizer)
+        # The deferred updated-parameter allgather (make_train_step's
+        # deferred_param_gather): whether to leave it in flight, and the
+        # call that finishes the one in flight.
+        self._defer_gather = False
+        self._in_flight: Callable[[], None] | None = None
 
     def _plan_buckets(self) -> None:
         super()._plan_buckets()
@@ -621,16 +709,12 @@ class _ShardedOptimizer(_DistributedOptimizer):
         return self._threshold
 
     def _launch(self, bi: int) -> None:
-        wires, ctxs = [], []
-        for p in self._buckets[bi]:
-            g = p.grad if p.grad is not None else torch.zeros_like(p)
-            wire, ctx = self._compression.compress(g)
-            wires.append(wire)
-            ctxs.append(ctx)
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in self._buckets[bi]]
         sizes = [self._sizes[self._index[id(p)]] for p in self._buckets[bi]]
         with annotate_collective(f"reducescatter.bucket{bi}"):
-            self._launched[bi] = (fusion.start_shard_reducescatter(
-                wires, sizes, self._prescale, self._ps), ctxs)
+            self._launched[bi] = _launch_shard_bucket(
+                grads, sizes, self._compression, self._prescale, self._ps)
 
     def _grad_shards(self) -> list[torch.Tensor]:
         """This rank's reduced gradient shard of every parameter."""
@@ -646,16 +730,14 @@ class _ShardedOptimizer(_DistributedOptimizer):
             self._next -= 1
         out: list = [None] * len(self._params)
         for bi in sorted(self._launched, reverse=True):
-            (row, work), ctxs = self._launched[bi]
-            with annotate_collective(f"reducescatter.bucket{bi}.finish"):
-                fusion.finish_shard_reducescatter(row, work, self._op,
-                                                  self._postscale, self._n)
             params = self._buckets[bi]
             sizes = [self._sizes[self._index[id(p)]] for p in params]
-            for p, piece, ctx in zip(
-                    params, fusion._split_shard_row(row, sizes), ctxs):
-                out[self._index[id(p)]] = self._compression.decompress(
-                    piece, ctx)
+            with annotate_collective(f"reducescatter.bucket{bi}.finish"):
+                shards = _finish_shard_bucket(
+                    self._launched[bi], sizes, self._op, self._compression,
+                    self._postscale, self._n)
+            for p, shard in zip(params, shards):
+                out[self._index[id(p)]] = shard
         return out
 
     def synchronize(self):
@@ -679,49 +761,102 @@ class _ShardedOptimizer(_DistributedOptimizer):
         optimizer's step on the owned shards, and the allgather of the
         updated parameters."""
         del closure
+        self.settle()
         salt = self._updates
         self._updates += 1
         if self._nonfinite_action is not None and not self._tripwire(
                 fusion.psum_flag(fusion.finite_flag(grads), self._ps)):
             return None
+        self._step_shards(range(len(self._params)), grads)
+        self._note_state()
+        gather = self._start_gather(salt, range(len(self._params)))
+        if self._defer_gather:
+            # make_train_step(deferred_param_gather=True): the step returns
+            # with the gather in flight; settle() finishes it.
+            self._in_flight = gather
+        else:
+            gather()
+        return None
+
+    def _step_shards(self, idx, grads) -> None:
+        """The wrapped optimizer's step on the shards of parameters
+        ``idx`` (only they may carry a ``.grad``) from their reduced
+        gradient shards."""
         with torch.no_grad():
-            for p, shard, g, s in zip(self._params, self._shards, grads,
-                                      self._sizes):
+            for i, g in zip(idx, grads):
+                shard = self._shards[i]
                 # The shard is taken from the parameter each step, so writes
                 # to the parameters between steps (a broadcast) are seen.
-                shard.copy_(_own_slice(p, s, self._n, self._r))
+                shard.copy_(_own_slice(self._params[i], self._sizes[i],
+                                       self._n, self._r))
                 shard.grad = g.to(shard.dtype).reshape(shard.shape)
         self._opt.step()
+
+    def _note_state(self) -> None:
         if not self._state_noted:
             # The state's size is set by its first step.
             self._state_noted = True
             metrics.RESIDENT_BYTES.set(_state_bytes(self._opt),
                                        kind="opt_state", sync_mode="sharded")
             _note_opt_state(self._opt, self._shards)
-        with torch.no_grad():
-            for p, full in zip(self._params, self._gather(salt)):
-                p.copy_(full)
-        return None
 
-    def _gather(self, salt) -> list[torch.Tensor]:
-        """The updated parameters from every rank's shards, through the
-        wire (a cast wire gathers in its dtype; int8 the quantized
-        allgather)."""
-        templates = [p.detach() for p in self._params]
+    def _apply_segment(self, idx, grads) -> None:
+        """The overlapped step's update of parameters ``idx`` from their
+        reduced gradient shards, and the allgather of their updated
+        parameters (salted, int8, by the update count before this
+        update's)."""
+        idx = list(idx)
+        self._step_shards(idx, grads)
+        for i in idx:
+            # The next segment's step must not step these shards again.
+            self._shards[i].grad = None
+        self._start_gather(self._updates, idx)()
+
+    def _end_segments(self, nbuckets: int) -> None:
+        self._updates += 1
+        _note_flush("sharded", self._wire_bytes, nbuckets)
+        self._note_state()
+
+    def _start_gather(self, salt, idx) -> Callable[[], None]:
+        """Launch the allgather of the updated parameters ``idx`` from
+        every rank's shards, through the wire (a cast wire gathers in its
+        dtype; int8 the quantized allgather, salted by ``salt``); returns
+        the call that waits for it and writes them into the parameters."""
+        idx = list(idx)
+        params = [self._params[i] for i in idx]
+        shards = [self._shards[i].detach() for i in idx]
+        templates = [p.detach() for p in params]
         if self._int8:
             from .ops.quantization import int8_fused_allgather_shards
 
             full = int8_fused_allgather_shards(
-                [s.detach() for s in self._shards], templates, self._ps,
-                self._ag_threshold, salt=salt)
-            return [f.to(p.dtype) for f, p in zip(full, self._params)]
-        compressed = [self._compression.compress(s.detach())
-                      for s in self._shards]
-        full = fusion.fused_allgather_shards(
-            [c[0] for c in compressed], templates, self._ag_threshold,
-            process_set=self._ps)
-        return [self._compression.decompress(f, c[1]).to(p.dtype)
-                for f, c, p in zip(full, compressed, self._params)]
+                shards, templates, self._ps, self._ag_threshold, salt=salt)
+
+            def finish():
+                return full
+        else:
+            compressed = [self._compression.compress(s) for s in shards]
+            _, gathered = fusion.start_fused_allgather_shards(
+                [c[0] for c in compressed], templates, self._ag_threshold,
+                process_set=self._ps)
+
+            def finish():
+                return [self._compression.decompress(f, c[1])
+                        for f, c in zip(gathered(), compressed)]
+
+        def write() -> None:
+            with torch.no_grad():
+                for p, f in zip(params, finish()):
+                    p.copy_(f)  # in the parameter's dtype
+
+        return write
+
+    def settle(self) -> None:
+        """Finish the updated-parameter allgather that a deferred step left
+        in flight, if any: the parameters then hold the last update."""
+        gather, self._in_flight = self._in_flight, None
+        if gather is not None:
+            gather()
 
     def zero_grad(self, set_to_none: bool = True) -> None:
         for p in self._params + self._shards:
@@ -1056,6 +1191,151 @@ def DistributedOptimizer(optimizer, named_parameters=None,
                                  int(num_groups), fusion_threshold_bytes,
                                  names)
 
+
+class ReduceSpec(NamedTuple):
+    """The wire a ``DistributedOptimizer`` was built with, and its wrapped
+    optimizer (reference ``horovod_tpu/optimizer.py:527``): what a scheduler
+    that reduces the gradients itself -- the overlap scheduler, per segment
+    inside the backward -- needs to issue the same collectives (op,
+    compression, scaling, bucketing, process set) and to apply the bare
+    update. Read it with :func:`reduce_spec_of`. ``inner`` is the wrapped
+    ``torch.optim.Optimizer`` (sharded and fsdp: over this rank's shards);
+    ``fusion_threshold_bytes`` None means the live threshold
+    (``fusion.fusion_threshold_bytes``: the autotune pin or
+    ``HOROVOD_FUSION_THRESHOLD``)."""
+
+    inner: Any
+    op: str
+    compression: Any
+    prescale_factor: float
+    postscale_factor: float
+    process_set: Any
+    num_groups: int
+    fusion_threshold_bytes: int | None
+    backward_passes_per_step: int
+    sync_mode: str = "allreduce"
+
+
+def reduce_spec_of(optimizer) -> ReduceSpec | None:
+    """The :class:`ReduceSpec` of a ``DistributedOptimizer``, or None for a
+    bare optimizer."""
+    if isinstance(optimizer, _FsdpOptimizer):
+        groups = 0
+    elif isinstance(optimizer, _DistributedOptimizer):
+        groups = optimizer._num_groups
+    else:
+        return None
+    return ReduceSpec(optimizer._opt, optimizer._op, optimizer._compression,
+                      optimizer._prescale, optimizer._postscale,
+                      optimizer._ps, groups, optimizer._base_threshold,
+                      optimizer.backward_passes_per_step,
+                      sync_mode_of(optimizer))
+
+
+def _segment_threshold(spec: ReduceSpec, leaves) -> int:
+    """The bucket cap of one segment's wire: ``num_groups``' share of the
+    segment's ``(numel, dtype)`` leaves (as the reference caps each
+    reduction it is handed), else the spec's threshold, else the live
+    one."""
+    if spec.num_groups > 0:
+        return max(1, sum(m * d.itemsize for m, d in leaves)
+                   // spec.num_groups)
+    if spec.fusion_threshold_bytes is not None:
+        return spec.fusion_threshold_bytes
+    return fusion.fusion_threshold_bytes()
+
+
+def reduce_segment(spec: ReduceSpec, grads, salt=None):
+    """Launch the reduction of one segment's gradients on ``spec``'s wire
+    and return ``(finish, buckets)``: ``finish()`` waits for it and returns,
+    in allreduce mode, the reduced gradients (their shapes and dtypes) and,
+    in sharded mode, this rank's reduced shard of each (1-D,
+    ``fusion.shard_ownership``); ``buckets`` is how many collectives it
+    launched. The buckets are ``bucket_leaves`` of the segment's wire,
+    launched last first on the direct path (``start_allreduce`` with the
+    comms planner's schedule, Adasum's gather, the shard reduce-scatter),
+    never as negotiated requests. The int8 wire runs its exchange here,
+    salted by ``salt`` (the update count). A one-member set in allreduce
+    mode only scales, as the optimizer's step does."""
+    grads = list(grads)
+    ps, op, comp = spec.process_set, spec.op, spec.compression
+    pre, post = spec.prescale_factor, spec.postscale_factor
+    if spec.sync_mode not in ("allreduce", "sharded"):
+        raise ValueError(
+            f"reduce_segment reduces allreduce- and sharded-mode wires; "
+            f"sync_mode={spec.sync_mode!r} reduces inside its gathers' "
+            "backward")
+    sharded = spec.sync_mode == "sharded"
+    if not sharded and _skips_wire(ps, op):
+        scale = pre * post
+        out = [g if scale == 1.0 else g * torch.tensor(
+            scale, dtype=g.dtype, device=g.device) for g in grads]
+        return (lambda: out), 0
+    if _is_int8(comp):
+        from .ops.quantization import (int8_fused_allreduce,
+                                       int8_fused_reducescatter)
+
+        # Buckets over the float32 exchange view (allreduce) or the leaves'
+        # own dtype (the sharded reduce-scatter), as the optimizer sizes
+        # them.
+        view = [(g.numel(), g.dtype if sharded else torch.float32)
+                for g in grads]
+        threshold = _segment_threshold(spec, view)
+        exchange = int8_fused_reducescatter if sharded else \
+            int8_fused_allreduce
+        out = exchange(grads, ps, op, threshold, pre, post, salt=salt,
+                       issue_reversed=True)
+        if sharded:
+            out = [t.to(g.dtype) for t, g in zip(out, grads)]
+        return (lambda: out), len(bucket_leaves(view, threshold))
+    wire: dict[torch.dtype, torch.dtype] = {}
+    for g in grads:
+        if g.dtype not in wire:
+            wire[g.dtype] = comp.compress(torch.empty(
+                0, dtype=g.dtype, device=g.device))[0].dtype
+    leaves = [(g.numel(), wire[g.dtype]) for g in grads]
+    buckets = bucket_leaves(leaves, _segment_threshold(spec, leaves))
+    n = ps.size()
+    sizes = fusion.shard_ownership([g.numel() for g in grads], n)
+    launched = []
+    for bucket in reversed(buckets):
+        bgrads = [grads[i] for i in bucket]
+        if sharded:
+            launched.append((bucket, _launch_shard_bucket(
+                bgrads, [sizes[i] for i in bucket], comp, pre, ps)))
+        else:
+            launched.append((bucket, _launch_allreduce_bucket(
+                bgrads, op, comp, pre, ps)))
+    shapes = [g.shape for g in grads]
+
+    def finish() -> list[torch.Tensor]:
+        out: list = [None] * len(grads)
+        for bucket, bucket_launched in launched:
+            if sharded:
+                pieces = _finish_shard_bucket(
+                    bucket_launched, [sizes[i] for i in bucket], op, comp,
+                    post, n)
+            else:
+                pieces, _ = _finish_allreduce_bucket(
+                    bucket_launched, [shapes[i] for i in bucket], op, comp,
+                    post, ps)
+            for i, piece in zip(bucket, pieces):
+                out[i] = piece
+        return out
+
+    return finish, len(buckets)
+
+
+def wait_deferred_gathers() -> None:
+    """Finish every sharded optimizer's deferred updated-parameter
+    allgather in flight (``make_train_step(..., deferred_param_gather=
+    True)``), so the parameters hold the last update: what reads the
+    parameters between steps (``broadcast_parameters``, the checkpoint
+    functions, the elastic states' commits) calls it first."""
+    for opt in list(_live):
+        settle = getattr(opt, "settle", None)
+        if settle is not None:
+            settle()
 
 
 # ---------------------------------------------------------------------------

@@ -47,7 +47,8 @@ from typing import Any, Callable
 import torch
 
 from .. import faults, memory, tracing
-from ..attribution import CAT_PHASE, SPAN_FORWARD_BACKWARD
+from ..attribution import (CAT_COLLECTIVE, CAT_PHASE, SPAN_COLLECTIVE,
+                           SPAN_FORWARD_BACKWARD, SPAN_OPTIMIZER_UPDATE)
 from ..ops.collective_ops import Average, allreduce, direct
 from ..utils import env
 
@@ -151,12 +152,12 @@ def _planner_autotune_candidates():
     return autotune_candidates()
 
 
-def _fsdp_loss(model, loss_fn, optimizer):
+def _fsdp_loss(model, loss_fn, optimizer, num_segments=None):
     """``loss(batch)`` on just-in-time gathers of the fsdp optimizer's
-    shards (``param_sharding.FsdpForward``)."""
+    shards (``param_sharding.FsdpForward``, ``num_segments`` segments)."""
     from .param_sharding import FsdpForward
 
-    forward = FsdpForward(model, optimizer)
+    forward = FsdpForward(model, optimizer, num_segments)
 
     def loss(batch):
         with forward.gathering():
@@ -165,9 +166,73 @@ def _fsdp_loss(model, loss_fn, optimizer):
     return loss
 
 
+class DeferredParams:
+    """Handle over the sharded step's updated-parameter allgather, left in
+    flight by ``make_train_step(..., deferred_param_gather=True)``
+    (reference :234). The gather's collectives are launched when the step
+    returns and run while the host does other work between steps; the
+    next call of the step, the model's forward (a pre-hook) and whatever
+    else reads the parameters (``broadcast_parameters``, the checkpoint
+    functions, the elastic states' commits:
+    ``optimizer.wait_deferred_gathers``) finish it first.
+    :attr:`params` finishes it and returns the parameters;
+    :meth:`block_until_ready` also waits for the card."""
+
+    def __init__(self, optimizer):
+        self._opt = optimizer
+
+    @property
+    def params(self) -> list[torch.Tensor]:
+        self._opt.settle()
+        return list(self._opt._params)
+
+    def block_until_ready(self) -> list[torch.Tensor]:
+        from .. import basics
+
+        params = self.params
+        basics.sync_stream()
+        return params
+
+
+def _guarded_run(run):
+    """``run`` as a step: in an elastic world (the sharded and fsdp modes
+    under PeerShardedState) an armed abort raises before the step, a
+    failed collective inside it (in the backward's launches too) raises
+    HorovodInternalError, and the step counts on the worker's
+    heartbeat."""
+
+    def step(batch):
+        from .. import basics
+
+        if not basics.elastic():
+            return run(batch)
+        from .. import abort
+        from ..ops.collective_ops import elastic_errors
+        from ..runner.elastic.worker import record_step
+
+        abort.raise_if_aborted()
+        with elastic_errors():
+            loss = run(batch)
+        record_step()
+        return loss
+
+    return step
+
+
+def _averaged(loss, loss_is_averaged, process_set):
+    """The step's returned loss: detached, and averaged over the process
+    set (the step's own collective: direct, never negotiated)."""
+    loss = loss.detach()
+    if loss_is_averaged:
+        with direct():
+            loss = allreduce(loss, op=Average, process_set=process_set)
+    return loss
+
+
 def make_train_step(model: torch.nn.Module,
                     loss_fn: Callable[[torch.nn.Module, Any], torch.Tensor],
-                    optimizer, loss_is_averaged: bool = True):
+                    optimizer, loss_is_averaged: bool = True,
+                    deferred_param_gather: bool = False):
     """Build ``step(batch) -> loss``.
 
     ``loss_fn(model, batch)`` returns this rank's scalar mean loss. Each
@@ -182,40 +247,60 @@ def make_train_step(model: torch.nn.Module,
     time (``param_sharding.FsdpForward``). In an elastic world an armed
     abort or a failed collective raises ``HorovodInternalError`` from the
     step, as from :func:`make_elastic_train_step`'s.
+
+    ``deferred_param_gather`` (sharded mode only, reference :408-414): the
+    step returns with the updated-parameter allgather in flight, and
+    ``step.deferred_params`` (a :class:`DeferredParams`) finishes it; the
+    model's next forward and the next call finish it first. The int8 wire
+    salts that gather with the update count before the update's increment,
+    as the gather in the step does. Such a step is not wrapped in the
+    warmup tuner (reference :601-603).
     """
+    from ..exceptions import SyncModeIneligibleError
+    from ..optimizer import sync_mode_of
+
+    mode = sync_mode_of(optimizer)
+    if deferred_param_gather and mode == "fsdp":
+        raise SyncModeIneligibleError(
+            "deferred_param_gather does not apply to sync_mode='fsdp': "
+            "fsdp has NO trailing parameter allgather to defer — the "
+            "shard-local update writes back to the resident shard, and "
+            "the next forward's per-segment gathers are the only "
+            "re-materialization")
+    if deferred_param_gather and mode != "sharded":
+        raise ValueError(
+            "deferred_param_gather requires a DistributedOptimizer built "
+            "with sync_mode='sharded' (there is no parameter allgather to "
+            "defer in allreduce mode)")
+    return _make_train_step(model, loss_fn, optimizer, loss_is_averaged,
+                            deferred=deferred_param_gather)
+
+
+def _make_train_step(model, loss_fn, optimizer, loss_is_averaged,
+                     deferred=False, num_segments=None,
+                     name_prefix="train_step"):
+    """:func:`make_train_step`'s step; ``num_segments`` sets fsdp's segment
+    count (None: ``fusion.fsdp_segments()``), ``name_prefix`` the stall
+    watch's and the tracer's name."""
     from ..optimizer import _FsdpOptimizer
 
     k = getattr(optimizer, "backward_passes_per_step", 1)
     process_set = getattr(optimizer, "_ps", None)
     if isinstance(optimizer, _FsdpOptimizer):
-        compute = _fsdp_loss(model, loss_fn, optimizer)
+        compute = _fsdp_loss(model, loss_fn, optimizer, num_segments)
     else:
         def compute(batch):
             return loss_fn(model, batch)
+    if deferred:
+        optimizer._defer_gather = True
+        # The forward reads the parameters: the gather in flight ends first.
+        model.register_forward_pre_hook(lambda *_: optimizer.settle())
     calls = 0
-
-    def step(batch):
-        from .. import basics
-
-        if not basics.elastic():
-            return run(batch)
-        # An elastic world (the sharded and fsdp modes under
-        # PeerShardedState): an armed abort raises before the step, a
-        # failed collective inside it (in the backward's reduce-scatters
-        # too) raises HorovodInternalError, and the step counts on the
-        # worker's heartbeat.
-        from .. import abort
-        from ..ops.collective_ops import elastic_errors
-        from ..runner.elastic.worker import record_step
-
-        abort.raise_if_aborted()
-        with elastic_errors():
-            loss = run(batch)
-        record_step()
-        return loss
 
     def run(batch):
         nonlocal calls
+        if deferred:
+            optimizer.settle()
         with tracing.phase(SPAN_FORWARD_BACKWARD, CAT_PHASE):
             loss = compute(batch)
             loss.backward()
@@ -223,13 +308,14 @@ def make_train_step(model: torch.nn.Module,
         if calls % k == 0:
             optimizer.step()
             optimizer.zero_grad(set_to_none=True)
-        loss = loss.detach()
-        if loss_is_averaged:
-            # The step's own collective: direct, never negotiated.
-            with direct():
-                loss = allreduce(loss, op=Average, process_set=process_set)
-        return loss
+        return _averaged(loss, loss_is_averaged, process_set)
 
+    step = _guarded_run(run)
+    if deferred:
+        step.deferred_params = DeferredParams(optimizer)
+        # No warmup tuner: the step leaves its gather in flight, and the
+        # tuner's windows end in a read of the step's output alone.
+        return _StallWatchedStep(step, name_prefix)
     # The warmup tuner's re-trace: re-bucket the optimizer from the pins.
     rebucket = getattr(optimizer, "rebucket", None)
     if rebucket is not None:
@@ -241,7 +327,314 @@ def make_train_step(model: torch.nn.Module,
     return _StallWatchedStep(
         maybe_autotune_step(
             step, algorithm_candidates=_planner_autotune_candidates()),
-        "train_step")
+        name_prefix)
+
+
+class _Overlap:
+    """One backward's segment reductions (reference ``_segment_sync``,
+    :829). The model runs on proxies of the leaves: each a new leaf tensor
+    over its leaf's storage (the identity forward). A proxy's
+    post-accumulate hook counts its gradient in; once a segment's proxies
+    all hold theirs, the segment's reduction is launched on the wire.
+
+    The reference's boundary is a custom-vjp node. Here a
+    ``torch.autograd.Function`` would be created before the forward and
+    run last: the engine runs the ready node created latest first, so it
+    would launch every segment after the whole backward. Autograd runs a
+    leaf's accumulator as soon as its gradient is complete, so the proxies'
+    hooks launch each segment where its gradients finish.
+
+    Segments launch in one fixed order, last segment first, so that every
+    rank issues the same collectives in the same order whatever order its
+    backward completes them in: a segment complete before the segment
+    above it has launched waits for it. When the backward ends (a callback
+    queued on autograd's engine) every segment not launched yet launches,
+    on zeros where a proxy got no gradient, as the reference's cotangents
+    are zeros. A launch and a finish only queue the collective and its
+    wait: nothing here waits for the card, so the backward's later kernels
+    run while a segment reduces."""
+
+    def __init__(self, spec, leaves, segments, salt, write_grads):
+        self.spec, self.leaves, self.segments = spec, leaves, segments
+        self.salt, self.write_grads = salt, write_grads
+        self.seg_of = {i: si for si, idx in enumerate(segments)
+                       for i in idx}
+        self.waiting = [len(idx) for idx in segments]
+        self.finishers: list = [None] * len(segments)
+        self.next = len(segments) - 1
+        self.buckets = 0
+        self.queued = False
+        self.proxies: list[torch.Tensor] = []
+        self.hooks: list = []
+
+    def proxy(self) -> list[torch.Tensor]:
+        """The leaves' proxies, hooked."""
+        for i, leaf in enumerate(self.leaves):
+            q = leaf.detach().requires_grad_(True)
+            self.hooks.append(q.register_post_accumulate_grad_hook(
+                lambda _, i=i: self._ready(i)))
+            self.proxies.append(q)
+        return self.proxies
+
+    def _ready(self, i: int) -> None:
+        si = self.seg_of[i]
+        if si > self.next:
+            raise RuntimeError(
+                "overlap_gradient_sync: a gradient reached a segment that "
+                "was already reduced; wrap the parameters once per "
+                "backward pass")
+        self.waiting[si] -= 1
+        if not self.queued:
+            self.queued = True
+            torch.autograd.Variable._execution_engine.queue_callback(
+                self._backward_end)
+        while self.next >= 0 and self.waiting[self.next] == 0:
+            self._launch(self.next)
+
+    def _launch(self, si: int) -> None:
+        from ..optimizer import reduce_segment
+        from ..profiler import annotate_collective
+
+        grads = []
+        for i in self.segments[si]:
+            q = self.proxies[i]
+            grads.append(q.grad if q.grad is not None
+                         else torch.zeros_like(q))
+            q.grad = None
+        with annotate_collective(f"overlap.segment{si}"):
+            self.finishers[si], n = reduce_segment(self.spec, grads,
+                                                   self.salt)
+        self.buckets += n
+        self.next -= 1
+
+    def flush(self) -> None:
+        """Launch every segment not launched yet, in order, and unhook the
+        proxies: a hook holds this object, which holds the proxies, and
+        the garbage collector does not see through a tensor's hooks."""
+        while self.next >= 0:
+            self._launch(self.next)
+        for h in self.hooks:
+            h.remove()
+        self.hooks, self.proxies = [], []
+
+    def finish(self, si: int) -> list[torch.Tensor]:
+        """Segment ``si``'s reduced gradients (sharded: this rank's
+        shards); its wire buffers are let go."""
+        from ..profiler import annotate_collective
+
+        finish, self.finishers[si] = self.finishers[si], None
+        with annotate_collective(f"overlap.segment{si}.finish"):
+            return finish()
+
+    def _backward_end(self) -> None:
+        self.flush()
+        if not self.write_grads:
+            return
+        sharded = self.spec.sync_mode == "sharded"
+        ps = self.spec.process_set
+        for si in reversed(range(len(self.segments))):
+            for i, g in zip(self.segments[si], self.finish(si)):
+                leaf = self.leaves[i]
+                if sharded:
+                    # The reference's zero background with the shard at
+                    # its owner's offset (optimizer._embed_shards).
+                    full = g.new_zeros(ps.size() * g.numel())
+                    r = ps.rank()
+                    full[r * g.numel():(r + 1) * g.numel()] = g
+                    g = full[:leaf.numel()].view(leaf.shape)
+                with torch.no_grad():
+                    if leaf.grad is None:
+                        leaf.grad = g.clone()
+                    else:
+                        leaf.grad.copy_(g)
+
+
+def _unique_leaves(leaves):
+    """``(unique, where)``: the leaves once each (a tied tensor appears
+    once), and each input's index among them."""
+    unique, index, where = [], {}, []
+    for t in leaves:
+        if id(t) not in index:
+            index[id(t)] = len(unique)
+            unique.append(t)
+        where.append(index[id(t)])
+    return unique, where
+
+
+def overlap_gradient_sync(params, spec, num_segments: int | None = None,
+                          salt=None):
+    """Wrap parameters so that their gradients are reduced segment by
+    segment inside the backward pass: the overlap scheduler's primitive
+    (reference :926).
+
+    ``params`` is a dict or a list of parameter tensors; the result has the
+    same structure. Its leaves (a tied tensor counted once) are split into
+    ``num_segments`` contiguous byte-balanced segments
+    (``fusion.segment_leaves``; default ``fusion.overlap_segments()``: the
+    autotune pin or ``HOROVOD_OVERLAP_SEGMENTS``). The result holds a proxy
+    of each leaf (a new leaf tensor over its storage: the identity
+    forward); once the backward has formed the gradients of a segment's
+    proxies, the segment's reduction is launched on ``spec``'s wire
+    (``optimizer.reduce_segment``, salted by ``salt`` on the int8 wire),
+    last segment first, while the rest of the backward runs. No gradient
+    reaches the leaves through autograd, so a ``DistributedOptimizer``'s
+    own hooks on them never fire. When ``backward()`` returns, each leaf's
+    ``.grad`` holds
+    its reduced gradient (sharded: this rank's shard at its offset on a
+    zero background, as the reference's boundary leaves it). Use it inside
+    the differentiated function, once per backward::
+
+        spec = hvd.reduce_spec_of(dist_optimizer)
+        synced = hvd.overlap_gradient_sync(dict(model.named_parameters()),
+                                           spec)
+        loss = loss_fn(torch.func.functional_call(model, synced, (x,)), y)
+        loss.backward()      # .grad reduced
+        spec.inner.step()    # the bare update
+
+    Every rank must reach ``backward()`` through the result (a rank whose
+    loss reads no leaf launches nothing). The whole leaf layout is noted on
+    the observatories first, as the reference notes it.
+    """
+    from ..ops.fusion import note_leaf_layout, overlap_segments, segment_leaves
+
+    names = list(params) if isinstance(params, dict) else None
+    given = list(params.values()) if names is not None else list(params)
+    leaves, where = _unique_leaves(given)
+    layout = [(t.numel(), t.dtype) for t in leaves]
+    note_leaf_layout(layout)
+    k = num_segments if num_segments is not None else overlap_segments()
+    overlap = _Overlap(spec, leaves, segment_leaves(layout, k), salt,
+                       write_grads=True)
+    proxies = overlap.proxy()
+    out = [proxies[j] for j in where]
+    return dict(zip(names, out)) if names is not None else out
+
+
+class _LossOf(torch.nn.Module):
+    """``loss_fn(model, batch)`` as a module, so that
+    ``torch.func.functional_call`` can run it on other tensors in place of
+    the model's parameters (their names prefixed ``model.``)."""
+
+    def __init__(self, model, loss_fn):
+        super().__init__()
+        self.model = model
+        self.loss_fn = loss_fn
+
+    def forward(self, batch):
+        return self.loss_fn(self.model, batch)
+
+
+def make_overlapped_train_step(model: torch.nn.Module,
+                               loss_fn: Callable[[torch.nn.Module, Any],
+                                                 torch.Tensor],
+                               optimizer, num_segments: int | None = None,
+                               loss_is_averaged: bool = True):
+    """Build ``step(batch) -> loss`` whose gradient reductions overlap the
+    backward pass: Horovod's headline optimization (reference :996).
+
+    ``optimizer`` must be a ``DistributedOptimizer``: its wire
+    (:class:`~horovod_tpu_torch.optimizer.ReduceSpec`) is issued per
+    segment. In allreduce and sharded mode the model runs on its
+    parameters through :func:`overlap_gradient_sync`'s proxies
+    (``torch.func.functional_call``), so the last segment's reduction
+    (reduce-scatter, sharded) launches while the earlier layers still
+    differentiate; then the segments are finished and updated one at a
+    time, last first, with the wrapped optimizer applied to the reduced
+    gradients (sharded: to this rank's shards, each segment's updated
+    parameters gathered after its update), so segment i's update is queued
+    while segment i-1 still reduces. The step applies the bare update, as
+    the reference's does: ``HOROVOD_NONFINITE_ACTION`` is not read. fsdp
+    mode is :func:`make_train_step`'s fsdp step with ``num_segments``
+    honored (its gather boundaries already reduce-scatter inside the
+    backward).
+
+    ``num_segments`` fixes the segment count; None follows
+    ``fusion.overlap_segments()``, and under ``HOROVOD_AUTOTUNE=1`` the
+    warmup tuner sweeps the joint (threshold, segments) grid
+    (``autotune.DEFAULT_SEGMENT_CANDIDATES``): the step's ``rebucket``
+    re-derives the segments from the pin at a step boundary. An explicit
+    count tunes the threshold only. Refused, with the reference's words:
+    a bare optimizer, and ``backward_passes_per_step > 1``.
+    """
+    from ..optimizer import reduce_spec_of
+
+    spec = reduce_spec_of(optimizer)
+    if spec is None:
+        raise ValueError(
+            "make_overlapped_train_step requires a DistributedOptimizer-"
+            "wrapped optimizer (its ReduceSpec tells the scheduler which "
+            "wire to issue per segment); got a bare optimizer")
+    if spec.backward_passes_per_step != 1:
+        raise ValueError(
+            "the overlap scheduler does not compose with "
+            "backward_passes_per_step > 1: accumulation defers the "
+            "reduction to every k-th microstep, so most steps have no "
+            "communication to overlap — use make_train_step")
+    if spec.sync_mode == "fsdp":
+        return _make_train_step(model, loss_fn, optimizer, loss_is_averaged,
+                                num_segments=num_segments,
+                                name_prefix="overlapped_train_step")
+    from ..ops.fusion import overlap_segments, segment_leaves
+    from ..optimizer import _is_int8
+
+    leaves = optimizer._params
+    names_of: dict[int, str] = {}
+    for name, p in model.named_parameters():
+        names_of.setdefault(id(p), name)
+    missing = [i for i, p in enumerate(leaves) if id(p) not in names_of]
+    if missing:
+        raise ValueError(
+            "make_overlapped_train_step: the DistributedOptimizer holds "
+            "parameters that are not the model's: build it over "
+            "model.parameters()")
+    names = [f"model.{names_of[id(p)]}" for p in leaves]
+    layout = [(p.numel(), p.dtype) for p in leaves]
+    wrapped = _LossOf(model, loss_fn)
+    int8 = _is_int8(spec.compression)
+    plan = {"segments": segment_leaves(
+        layout, num_segments if num_segments is not None
+        else overlap_segments())}
+
+    def run(batch):
+        segments = plan["segments"]
+        optimizer.zero_grad(set_to_none=True)
+        overlap = _Overlap(reduce_spec_of(optimizer), leaves, segments,
+                           optimizer._updates if int8 else None,
+                           write_grads=False)
+        with tracing.phase(SPAN_FORWARD_BACKWARD, CAT_PHASE):
+            loss = torch.func.functional_call(
+                wrapped, dict(zip(names, overlap.proxy())), (batch,))
+            loss.backward()
+            # Segments that no gradient reached (none on this rank).
+            overlap.flush()
+        for si in reversed(range(len(segments))):
+            with tracing.phase(SPAN_COLLECTIVE, CAT_COLLECTIVE):
+                grads = overlap.finish(si)
+            with tracing.phase(SPAN_OPTIMIZER_UPDATE, CAT_PHASE):
+                optimizer._apply_segment(segments[si], grads)
+        optimizer._end_segments(overlap.buckets)
+        return _averaged(loss, loss_is_averaged, spec.process_set)
+
+    step = _guarded_run(run)
+    step.segments = lambda: [list(s) for s in plan["segments"]]
+
+    def rebucket():
+        # The warmup tuner's re-trace: the optimizer's buckets, and the
+        # segments from the pinned count (an explicit count stays).
+        optimizer.rebucket()
+        if num_segments is None:
+            plan["segments"] = segment_leaves(layout, overlap_segments())
+
+    step.rebucket = rebucket
+    from ..autotune import DEFAULT_SEGMENT_CANDIDATES, maybe_autotune_step
+
+    return _StallWatchedStep(
+        maybe_autotune_step(
+            step,
+            segment_candidates=(None if num_segments is not None
+                                else DEFAULT_SEGMENT_CANDIDATES),
+            algorithm_candidates=_planner_autotune_candidates()),
+        "overlapped_train_step")
 
 
 def make_elastic_train_step(model: torch.nn.Module,

@@ -1408,3 +1408,139 @@ def test_a_failed_gxx_build_raises_rather_than_falling_back(cuda_device,
             _negotiated_world(monkeypatch)
     finally:
         hvd.shutdown()
+
+
+def _tiny_bert_run(hvd, cuda_device, mode, factory, steps=3, **kw):
+    """A 2-layer tiny BERT from seed 0, SGD with momentum on the float32
+    wire under ``sync_mode=mode``: ``steps`` steps of ``factory`` on one
+    batch. Returns (losses, full parameters after them, step, model)."""
+    import dataclasses
+
+    from horovod_tpu_torch.models import bert
+
+    cfg = dataclasses.replace(bert.BERT_TINY, dropout_rate=0.0, num_layers=2)
+    torch.manual_seed(0)
+    with torch.device(cuda_device):
+        model = bert.Bert(cfg, attention_fn=bert.flash_attention_fn)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9),
+        sync_mode=mode)
+    g = torch.Generator().manual_seed(0)
+    ids = torch.randint(0, cfg.vocab_size, (4, 128), generator=g)
+    positions = torch.stack([torch.randperm(128, generator=g)[:8]
+                             for _ in range(4)])
+    labels = torch.randint(0, cfg.vocab_size, (4, 8), generator=g)
+    batch = tuple(t.to(cuda_device) for t in
+                  (ids, positions, labels, torch.ones(4, 8)))
+
+    def loss_fn(m, b):
+        _, logits = m(b[0], masked_positions=b[1])
+        return bert.mlm_loss(logits, b[2], b[3])
+
+    step = factory(model, loss_fn, opt, **kw)
+    losses = [float(step(batch)) for _ in range(steps)]
+    deferred = getattr(step, "deferred_params", None)
+    if mode == "fsdp":
+        params = opt.full_parameters()
+    elif deferred is not None:
+        params = [p.detach().clone() for p in deferred.block_until_ready()]
+    else:
+        params = [p.detach().clone() for p in model.parameters()]
+    opt.remove_hooks()
+    return losses, params, step, model
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["allreduce", "sharded", "fsdp"])
+def test_overlapped_step_equals_make_train_step_on_the_card(
+        cuda_device, monkeypatch, mode):
+    """At world size 1 on the forced NCCL wire the overlapped step (4
+    segments) computes make_train_step's numbers bit for bit: the wire is
+    a copy and the update elementwise; deterministic algorithms make the
+    embedding's backward repeat."""
+    import horovod_tpu_torch as hvd
+
+    monkeypatch.setenv("HOROVOD_FORCE_WIRE_MACHINERY", "1")
+    hvd.init()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ref = _tiny_bert_run(hvd, cuda_device, mode, hvd.make_train_step)
+        got = _tiny_bert_run(hvd, cuda_device, mode,
+                             hvd.make_overlapped_train_step, num_segments=4)
+        assert got[0] == ref[0]
+        assert all(torch.equal(a, b) for a, b in zip(got[1], ref[1]))
+        assert ref[0][-1] < ref[0][0]
+    finally:
+        torch.use_deterministic_algorithms(False)
+        hvd.shutdown()
+
+
+@pytest.mark.cuda
+def test_deferred_gather_on_the_card_settles_before_the_forward(
+        cuda_device, monkeypatch):
+    """The sharded step with its parameter allgather deferred equals the
+    step without it; between steps the gather is in flight until the
+    model's forward (a pre-hook) or the handle finishes it."""
+    import horovod_tpu_torch as hvd
+
+    monkeypatch.setenv("HOROVOD_FORCE_WIRE_MACHINERY", "1")
+    hvd.init()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ref = _tiny_bert_run(hvd, cuda_device, "sharded",
+                             hvd.make_train_step)
+        got = _tiny_bert_run(hvd, cuda_device, "sharded",
+                             hvd.make_train_step, deferred_param_gather=True)
+        assert got[0] == ref[0]
+        assert all(torch.equal(a, b) for a, b in zip(got[1], ref[1]))
+        assert isinstance(got[2].deferred_params, hvd.DeferredParams)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        hvd.shutdown()
+
+
+@pytest.mark.cuda
+def test_overlap_gradient_sync_leaves_the_reduced_grads_on_the_card(
+        cuda_device, monkeypatch):
+    """``overlap_gradient_sync`` through ``functional_call`` on the forced
+    NCCL wire: after ``backward()`` each parameter's ``.grad`` is the plain
+    backward's gradient bit for bit (a one-rank Average), and the
+    optimizer's own hooks reduced nothing."""
+    import dataclasses
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import bert
+
+    monkeypatch.setenv("HOROVOD_FORCE_WIRE_MACHINERY", "1")
+    hvd.init()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        cfg = dataclasses.replace(bert.BERT_TINY, dropout_rate=0.0,
+                                  num_layers=2)
+        torch.manual_seed(0)
+        with torch.device(cuda_device):
+            model = bert.Bert(cfg, attention_fn=bert.flash_attention_fn)
+        ids = torch.randint(0, cfg.vocab_size, (4, 128),
+                            generator=torch.Generator().manual_seed(1))
+        ids = ids.to(cuda_device)
+
+        def loss_of(params):
+            _, logits = torch.func.functional_call(model, params, (ids,))
+            return logits.float().square().mean()
+
+        loss_of(dict(model.named_parameters())).backward()
+        want = [p.grad.clone() for p in model.parameters()]
+        model.zero_grad(set_to_none=True)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1))
+        synced = hvd.overlap_gradient_sync(
+            dict(model.named_parameters()), hvd.reduce_spec_of(opt),
+            num_segments=3)
+        loss_of(synced).backward()
+        assert opt._passes == {} and opt._launched == {}
+        assert all(torch.equal(p.grad, w)
+                   for p, w in zip(model.parameters(), want))
+        opt.remove_hooks()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        hvd.shutdown()

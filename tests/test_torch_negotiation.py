@@ -248,8 +248,16 @@ WORKER = textwrap.dedent(r'''
             w.barrier()
         if "cache" in modes:
             # Steps that the cycles see whole: a barrier, then the step's
-            # tensors enqueued while every rank's loop sleeps its (50 ms)
-            # cycle, so each tensor is announced once on every rank.
+            # tensors enqueued while every rank's loop sleeps its (250 ms)
+            # cycle, so each tensor is announced once on every rank. A
+            # tensor that one rank announces a cycle before another is
+            # announced again, and counted again, in the next cycle: the
+            # first call of the enqueue path (imports, conversions) once
+            # took rank 0 past a 50 ms cycle, so the path is warmed first
+            # (the warm name is the least recent entry when step 0 fills
+            # the cache, so it leaves every step's hits and misses as
+            # they were).
+            w.allreduce(np.zeros(4, np.float32), "ev.warm", op="sum")
             for step in range(6):
                 w.barrier()
                 time.sleep(0.01)
@@ -530,7 +538,7 @@ def test_eager_api_negotiates_by_name(battery2):
 def cache2(tmp_path_factory):
     return ok(spawn(tmp_path_factory.mktemp("c2"), 2, "cache",
                     extra_env={"HOROVOD_CACHE_CAPACITY": "3",
-                               "HOROVOD_CYCLE_TIME": "50"}))
+                               "HOROVOD_CYCLE_TIME": "250"}))
 
 
 @pytest.mark.parametrize("step", range(6))
