@@ -12,6 +12,8 @@
     python3 chip_diag.py elastic [--fsdp | --straggler] [--cpu] [--log PATH]
     python3 chip_diag.py ab_steps OTHER_CHECKOUT
     python3 chip_diag.py overlap [--cpu]
+    python3 chip_diag.py integrity [--cpu] [--log PATH]
+    python3 chip_diag.py policy [--cpu] [--log PATH]
 
 ``ab`` times the kernels of OTHER_CHECKOUT and of this checkout at
 chip_smoke.py's shapes: at its BERT-Large path shapes (D = 64, bf16,
@@ -176,6 +178,33 @@ rank as the gating one (the worst skew's last rank, the critical path's
 suspect in every step after the first, whose first-call work swamps the
 delay) and that the timeline has 4 tracks, and prints
 the skew, the critical path of the last step and each rank's phases.
+
+``integrity`` and ``policy`` (four cards; ``--cpu``: four gloo processes
+and BERT_TINY) launch ``hvdrun-torch`` over ``ELASTIC_HOSTS`` with three
+hosts in the world and the fourth a warm spare (``HOROVOD_WARM_SPARES=1``),
+BERT-Large S = 512 x 8 a rank at full width cut to ``ROBUST_LAYERS``
+layers, the journal in ``build/``. ``integrity``: sharded mode under
+``hvd.elastic.PeerShardedState``, SGD with momentum, float32 wire,
+``HOROVOD_INTEGRITY_INTERVAL=1``, ``grad.corrupt`` armed on
+``CORRUPT_HOST`` from its third commit (each committed snapshot corrupted,
+its live state clean); the first world runs the uninterrupted
+``INTEGRITY_EPOCHS`` steps first. It holds that exactly one unambiguous
+``integrity_divergence`` (a digest majority of 3 voters) names that host,
+that ``policy_drain`` and ``blacklist`` follow, that the spare is promoted
+at the next generation, that the survivors recover on the peer rung (no
+durable read, no ``peer_fallback``), and that every rank's final
+parameters equal the uninterrupted run's; prints the chain, the condemned
+records dropped at assembly and the seconds from the vote to the spare's
+first step. ``policy``: ``elastic --straggler``'s delayed host under
+``HOROVOD_TARGET_GOODPUT=0.9`` (allreduce, ``TorchState``, every step
+traced and stall-watched, the delay fired where ``elastic --straggler``'s
+is: at the watch's entry; a step that has not ended ``POLICY_HANG_S``
+seconds after it began dumps every thread's stack): the policy
+drains it and promotes the spare, one
+``policy_decision`` carries the predicted and realized goodput; then rank
+0 puts ``PUT /preempt/<host of rank 1>``, which drains that host to a
+world of 2; prints the seconds from each drain to the first step of the
+new world.
 
 ``ab_steps`` trains chip_smoke.py's two BERT-Large paths (S = 512 x 8 and
 S = 128 x 64, AdamW, bf16 wire, one card with the wire forced on: its
@@ -2525,11 +2554,12 @@ def elastic_fsdp(cpu, log=None):
     return 0
 
 
-def _launch_elastic(device, cpu, entry, env, wall_s, log):
-    """``hvdrun-torch -np 4 --min-np 2 --max-np 4`` over ``ELASTIC_HOSTS``
-    (one slot each), each worker ``chip_diag.py <entry> <device>``, with
-    ``env`` added: (exit code or None past ``wall_s``, the timed lines of
-    its output, the wall seconds). ``log`` gets every line."""
+def _launch_elastic(device, cpu, entry, env, wall_s, log, np=(4, 2, 4)):
+    """``hvdrun-torch -np N --min-np A --max-np B`` (``np``: 4, 2, 4 unless
+    given) over ``ELASTIC_HOSTS`` (one slot each), each worker
+    ``chip_diag.py <entry> <device>``, with ``env`` added: (exit code or
+    None past ``wall_s``, the timed lines of its output, the wall
+    seconds). ``log`` gets every line."""
     import shutil
     import threading
 
@@ -2546,9 +2576,9 @@ def _launch_elastic(device, cpu, entry, env, wall_s, log):
     t0 = time.time()
     proc = subprocess.Popen(
         [sys.executable, "-m", "horovod_tpu_torch.runner.launch", "-np",
-         "4", "--min-np", "2", "--max-np", "4", "--host-discovery-script",
-         disc, *(["--cpu-mode"] if cpu else []), sys.executable,
-         os.path.abspath(__file__), entry, device],
+         str(np[0]), "--min-np", str(np[1]), "--max-np", str(np[2]),
+         "--host-discovery-script", disc, *(["--cpu-mode"] if cpu else []),
+         sys.executable, os.path.abspath(__file__), entry, device],
         cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True)
     lines = []
@@ -2563,6 +2593,7 @@ def _launch_elastic(device, cpu, entry, env, wall_s, log):
         rc = proc.wait(timeout=wall_s)
     except subprocess.TimeoutExpired:
         proc.kill()
+        _kill_workers(entry)
         rc = None
     reader.join(timeout=10)
     shutil.rmtree(tmp, ignore_errors=True)
@@ -2571,6 +2602,407 @@ def _launch_elastic(device, cpu, entry, env, wall_s, log):
         with open(log, "w") as f:
             f.write("\n".join(f"{t - t0:9.3f} {line}" for t, line in lines))
     return rc, lines, wall
+
+
+def _kill_workers(entry):
+    """SIGKILL every process running this script's ``entry`` (each
+    worker and spare leads a session of its own, out of reach of the
+    launcher's kill), so that a diagnostic cut at its wall leaves no
+    worker on a card for the next one."""
+    import signal
+
+    argv_of = (os.path.abspath(__file__).encode(), entry.encode())
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                argv = f.read().split(b"\0")
+            if all(a in argv for a in argv_of):
+                os.kill(int(pid), signal.SIGKILL)
+        except OSError:
+            pass
+
+
+# The robustness diagnostics (``integrity``, ``policy``): three of
+# ELASTIC_HOSTS in the world and the fourth a warm spare
+# (HOROVOD_WARM_SPARES=1), BERT-Large at full width cut to ROBUST_LAYERS
+# layers (each commit of ``integrity`` replicates its shards through the
+# driver's Python server, ~150 MB/s), S = 512 x 8 a rank (``--cpu``:
+# BERT_TINY, S = 32 x 2), float32 wire, every rank on its own batch of each
+# step (seed 1000 step + rank).
+ROBUST_LAYERS = 2
+ROBUST_WALL_S = 420
+# ``integrity``: the host whose commits grad.corrupt corrupts from its
+# third commit on (48 bits each), and the steps of the run.
+CORRUPT_HOST = ELASTIC_HOSTS[1]
+INTEGRITY_EPOCHS = 6
+INTEGRITY_PAUSE_S = 1.0
+# ``policy``: the straggler is chip_diag.py elastic --straggler's host
+# with its delay; the third world runs POLICY_STEPS_AFTER steps.
+POLICY_STEPS_AFTER = 3
+POLICY_MAX_STEPS = 400
+POLICY_WALL_S = 240
+# Seconds into the healed world before rank 0 sends the preemption notice
+# (past the policy's realization window, HOROVOD_POLICY_REALIZE_WINDOW).
+POLICY_NOTICE_AFTER_S = 10
+# Seconds after which a step of ``policy`` that has not ended dumps every
+# thread's stack (the process's first step, with its builds, and a later
+# one).
+POLICY_FIRST_HANG_S = 150
+POLICY_HANG_S = 45
+
+
+def _robust_model(device):
+    """(config, model, batch maker) of the robustness diagnostics."""
+    import dataclasses
+
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import bert as bert_mod
+
+    smoke = _smoke()
+    base = bert_mod.BERT_LARGE if device == "cuda" else bert_mod.BERT_TINY
+    cfg = dataclasses.replace(base, dropout_rate=0.0,
+                              num_layers=(ROBUST_LAYERS if device == "cuda"
+                                          else base.num_layers))
+    B, S, P = (8, 512, 76) if device == "cuda" else (2, 32, 4)
+    dev = hvd.device()
+    torch.manual_seed(0)
+    with torch.device(dev):
+        model = bert_mod.Bert(cfg, attention_fn=bert_mod.flash_attention_fn)
+
+    def batch(step, rank):
+        return smoke._bert_batch(cfg, B, S, P, 1000 * step + rank, dev)
+
+    return cfg, model, batch, smoke._bert_loss
+
+
+def _digest(tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().float().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _integrity_rank(device):
+    """One worker of ``integrity`` (see the module docstring)."""
+    host = os.environ["HOROVOD_HOSTNAME"]
+    if device == "cuda":
+        os.environ["CUDA_VISIBLE_DEVICES"] = str(ELASTIC_HOSTS.index(host))
+    import json
+
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import faults
+
+    if host == CORRUPT_HOST:
+        faults.inject(faults.GRAD_CORRUPT, "corrupt", arg=48, at=3,
+                      count=10 ** 9)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    hvd.init(device=device)
+    cfg, model, batch, loss_fn = _robust_model(device)
+    initial = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def sgd():
+        return hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=1e-3, momentum=0.9),
+            sync_mode="sharded")
+
+    want = None
+    if os.environ.get("HOROVOD_SPARE") != "1":
+        # The uninterrupted run, in the first world (the spare joins
+        # later and takes the survivors' word for it).
+        opt = sgd()
+        step = hvd.make_train_step(model, loss_fn, opt,
+                                   loss_is_averaged=False)
+        for e in range(INTEGRITY_EPOCHS):
+            step(batch(e, hvd.rank()))
+        want = _digest(model.parameters())
+        opt.remove_hooks()
+        model.load_state_dict(initial)
+    opt = sgd()
+    step = hvd.make_train_step(model, loss_fn, opt, loss_is_averaged=False)
+    state = hvd.elastic.PeerShardedState(model=model, optimizer=opt,
+                                         epoch=0)
+
+    def durable():
+        print("DURABLE_RESTORE_USED", flush=True)
+        raise RuntimeError("the durable rung must not run here")
+
+    state.register_durable_restore(durable)
+
+    @hvd.elastic.run
+    def train(state):
+        while state.epoch < INTEGRITY_EPOCHS:
+            e = state.epoch
+            loss = float(step(batch(e, hvd.rank())))
+            print("HVD_ROBUST_STEP " + json.dumps(dict(
+                host=host, rank=hvd.rank(), np=hvd.size(), epoch=e,
+                gen=int(os.environ["HOROVOD_WORLD_VERSION"]), loss=loss,
+                t=time.time())), flush=True)
+            state.epoch = e + 1
+            state.commit()
+            # Each commit's fingerprint reaches the driver's vote before
+            # the next (the heartbeat's cadence): the vote then condemns
+            # the first corrupted commit, and the last clean one is still
+            # in every rank's replica slots.
+            time.sleep(INTEGRITY_PAUSE_S)
+        return _digest(model.parameters())
+
+    got = train(state)
+    digests = hvd.allgather_object(got)
+    print("HVD_ROBUST " + json.dumps(dict(
+        host=host, rank=hvd.rank(), final=got, want=want,
+        ranks=digests)), flush=True)
+
+
+def _robust_lines(lines, tag):
+    import json
+
+    return [json.loads(line.split(tag + " ", 1)[1])
+            for _, line in lines if tag + " {" in line]
+
+
+def _journal(path):
+    import json
+
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def integrity(cpu, log=None):
+    """``integrity``: see the module docstring."""
+    import torch
+
+    if not cpu and torch.cuda.device_count() < 4:
+        print("integrity: needs four cards (or --cpu)", file=sys.stderr)
+        return 1
+    device = "cpu" if cpu else "cuda"
+    journal = os.path.join(HERE, "build", "chip_diag_integrity.jsonl")
+    os.makedirs(os.path.dirname(journal), exist_ok=True)
+    if os.path.exists(journal):
+        os.remove(journal)
+    rc, lines, wall = _launch_elastic(
+        device, cpu, "_integrity_rank",
+        {"HOROVOD_INTEGRITY_INTERVAL": "1", "HOROVOD_WARM_SPARES": "1",
+         "HOROVOD_EVENT_LOG": journal,
+         "HOROVOD_ELASTIC_HEARTBEAT_INTERVAL": "0.5",
+         "HOROVOD_BLACKLIST_COOLDOWN": "3600",
+         "HOROVOD_POLICY_DRAIN_GRACE": "30",
+         "HOROVOD_RECOVERY_BACKOFF_MAX": "0.5",
+         "HOROVOD_ELASTIC_DRIVER_LOST_TIMEOUT": "60",
+         "HOROVOD_PEERCHECK_MAX_BYTES": str(4 << 30),
+         "HOROVOD_PEERCHECK_TIMEOUT": "120",
+         "CUBLAS_WORKSPACE_CONFIG": ":4096:8"},
+        ROBUST_WALL_S, log, np=(3, 3, 3))
+    text = "\n".join(line for _, line in lines)
+    events = _journal(journal)
+    by = {}
+    for e in events:
+        by.setdefault(e["event"], []).append(e)
+    steps = _robust_lines(lines, "HVD_ROBUST_STEP")
+    reports = _robust_lines(lines, "HVD_ROBUST")
+    bad = f"{CORRUPT_HOST}:0"
+    div = by.get("integrity_divergence", [])
+    promoted = by.get("spare_promoted", [])
+    rungs = [e["rung"] for e in by.get("recovery", [])]
+    condemned = [line for _, line in lines
+                 if "integrity-quarantined since" in line]
+    ref = next((r for r in reports if r["want"] is not None
+                and r["rank"] == 0), {})
+    finals = {r["final"] for r in reports}
+    ok = (rc == 0 and len(div) == 1 and div[0]["host"] == bad
+          and not div[0]["ambiguous"] and div[0]["method"] == "majority"
+          and div[0]["voters"] == 3
+          and any(e["host"] == CORRUPT_HOST for e in by.get("policy_drain",
+                                                            ()))
+          and any(e["host"] == CORRUPT_HOST for e in by.get("blacklist", ()))
+          and promoted and promoted[0]["generation"] >= 2
+          and "peer" in rungs and "durable" not in rungs
+          and "DURABLE_RESTORE_USED" not in text
+          and "peer_fallback" not in by and len(reports) == 3
+          and ref and finals == {ref["want"]}
+          and all(set(r["ranks"]) == finals for r in reports))
+    t_vote = div[0]["t_wall"] if div else None
+    first_new = min((s["t"] for s in steps
+                     if promoted and s["gen"] >= promoted[0]["generation"]),
+                    default=None)
+    print(f"integrity: {dist_backend(device)}, hosts {ELASTIC_HOSTS[:3]} in "
+          f"the world and {ELASTIC_HOSTS[3]} a warm spare, sharded mode "
+          f"under PeerShardedState, HOROVOD_INTEGRITY_INTERVAL=1, "
+          f"grad.corrupt on {CORRUPT_HOST} from its third commit; exit code "
+          f"{rc}, wall {wall:.1f} s; divergence votes "
+          f"{[(e['host'], e['method'], e['voters'], e['step'], e['ambiguous']) for e in div]}"
+          f"; journal chain "
+          f"{[e['event'] for e in events if e['event'] in ('integrity_divergence', 'policy_drain', 'blacklist', 'world_published', 'spare_promoted', 'peer_restore', 'rewind')]}"
+          f"; recovery rungs {rungs}; condemned records dropped at assembly "
+          f"{len(condemned)}; final parameters of ranks "
+          f"{[(r['host'], r['final'][:12]) for r in reports]} against the "
+          f"uninterrupted run's {ref.get('want', '')[:12]}; seconds from the "
+          f"vote to the spare's first step "
+          f"{(first_new - t_vote) if t_vote and first_new else None}"
+          + ("" if cpu else f"; cards: {_smoke().card_line()}"))
+    if not ok:
+        print(f"integrity: FAILED:\n{text[-8000:]}", file=sys.stderr)
+        return 1
+    return 0
+
+
+def _policy_rank(device):
+    """One worker of ``policy`` (see the module docstring)."""
+    host = os.environ["HOROVOD_HOSTNAME"]
+    if device == "cuda":
+        os.environ["CUDA_VISIBLE_DEVICES"] = str(ELASTIC_HOSTS.index(host))
+    if host == STRAGGLER_HOST:
+        os.environ["HOROVOD_FAULTS"] = (
+            f"worker.step=delay:{STRAGGLER_DELAY_S}@1x999999")
+    import faulthandler
+    import json
+
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.runner.http.kv_server import (PREEMPT_SCOPE,
+                                                         KVClient)
+
+    hvd.init(device=device)
+    cfg, model, batch, loss_fn = _robust_model(device)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=1e-3),
+        named_parameters=model.named_parameters())
+    step = hvd.make_elastic_train_step(model, loss_fn, opt)
+    state = hvd.elastic.TorchState(model=model, optimizer=opt, step=0)
+    seen = {"gen": None, "k": 0, "noticed": False}
+
+    @hvd.elastic.run
+    def train(state):
+        while state.step < POLICY_MAX_STEPS:
+            gen = int(os.environ["HOROVOD_WORLD_VERSION"])
+            if gen != seen["gen"]:
+                # Each world learns its hosts (a collective of the world).
+                seen.update(gen=gen, k=0, t0=time.time(),
+                            hosts=hvd.allgather_object(host))
+            if gen >= 3 and seen["k"] >= POLICY_STEPS_AFTER:
+                break
+            # A step that hangs dumps every thread's stack (the process's
+            # first, with its builds, is given longer).
+            faulthandler.dump_traceback_later(
+                POLICY_HANG_S if seen.get("stepped") else POLICY_FIRST_HANG_S)
+            loss = float(step(batch(state.step, hvd.rank())))
+            faulthandler.cancel_dump_traceback_later()
+            seen["stepped"] = True
+            print("HVD_ROBUST_STEP " + json.dumps(dict(
+                host=host, rank=hvd.rank(), np=hvd.size(), epoch=state.step,
+                gen=gen, loss=loss, t=time.time())), flush=True)
+            state.step += 1
+            seen["k"] += 1
+            if (gen == 2 and hvd.rank() == 0 and not seen["noticed"]
+                    and time.time() - seen["t0"] > POLICY_NOTICE_AFTER_S):
+                # The external notice, once the policy's realization
+                # window is over: the host of rank 1 is to be reclaimed.
+                seen["noticed"] = True
+                victim = seen["hosts"][1]
+                KVClient(os.environ["HOROVOD_RENDEZVOUS_ADDR"],
+                         int(os.environ["HOROVOD_RENDEZVOUS_PORT"])).put(
+                    PREEMPT_SCOPE, victim, b"{}")
+                print("HVD_ROBUST_NOTICE " + json.dumps(dict(
+                    host=victim, t=time.time())), flush=True)
+            state.commit()
+        return state.step
+
+    train(state)
+
+
+def policy(cpu, log=None):
+    """``policy``: see the module docstring."""
+    import torch
+
+    if not cpu and torch.cuda.device_count() < 4:
+        print("policy: needs four cards (or --cpu)", file=sys.stderr)
+        return 1
+    device = "cpu" if cpu else "cuda"
+    journal = os.path.join(HERE, "build", "chip_diag_policy.jsonl")
+    os.makedirs(os.path.dirname(journal), exist_ok=True)
+    if os.path.exists(journal):
+        os.remove(journal)
+    rc, lines, wall = _launch_elastic(
+        device, cpu, "_policy_rank",
+        {"HOROVOD_TARGET_GOODPUT": "0.9", "HOROVOD_WARM_SPARES": "1",
+         "HOROVOD_EVENT_LOG": journal, "HOROVOD_TRACE_SAMPLE": "1",
+         "HOROVOD_TRACE_SHIP_SECONDS": "0.5",
+         "HOROVOD_STALL_CHECK_STEPS": "1",
+         "HOROVOD_ELASTIC_HEARTBEAT_INTERVAL": "0.5",
+         "HOROVOD_STRAGGLER_WINDOW": "3", "HOROVOD_POLICY_DRAIN_SKEW": "0.1",
+         "HOROVOD_POLICY_INTERVAL": "1", "HOROVOD_POLICY_REALIZE_WINDOW": "8",
+         "HOROVOD_POLICY_COOLDOWN": "600",
+         "HOROVOD_POLICY_RESIZE_COST": "5",
+         "HOROVOD_BLACKLIST_COOLDOWN": "3600",
+         "HOROVOD_RECOVERY_BACKOFF_MAX": "0.5",
+         "HOROVOD_ELASTIC_DRIVER_LOST_TIMEOUT": "60"},
+        POLICY_WALL_S, log, np=(3, 2, 3))
+    text = "\n".join(line for _, line in lines)
+    events = _journal(journal)
+    by = {}
+    for e in events:
+        by.setdefault(e["event"], []).append(e)
+    steps = _robust_lines(lines, "HVD_ROBUST_STEP")
+    notices = _robust_lines(lines, "HVD_ROBUST_NOTICE")
+    drains = by.get("policy_drain", [])
+    decisions = by.get("policy_decision", [])
+    promoted = by.get("spare_promoted", [])
+    published = by.get("world_published", [])
+
+    def first_step_after(t, gen_at_least):
+        return min((s["t"] for s in steps
+                    if s["t"] > t and s["gen"] >= gen_at_least), default=None)
+
+    # From each drain's start (its flight record, written when the
+    # decision or the notice is acted on) to the first step of the world
+    # published after it.
+    starts = [e for e in by.get("flight_record", ())
+              if e.get("reason") == "policy_drain"]
+    seconds = []
+    for d in drains:
+        t0 = max((e["t_wall"] for e in starts if e["host"] == d["host"]
+                  and e["t_wall"] <= d["t_wall"]), default=d["t_wall"])
+        gen = min((p["generation"] for p in published
+                   if p["t_wall"] >= d["t_wall"]), default=None)
+        first = first_step_after(t0, gen) if gen else None
+        seconds.append((d["action"], d["host"],
+                        None if first is None else first - t0))
+    ok = (rc == 0 and len(drains) == 2
+          and (drains[0]["host"], drains[0]["action"]) == (STRAGGLER_HOST,
+                                                           "drain")
+          and drains[1]["action"] == "preempt" and notices
+          and drains[1]["host"] == notices[0]["host"]
+          and promoted and len(decisions) == 1
+          and decisions[0]["host"] == f"{STRAGGLER_HOST}:0"
+          and decisions[0]["predicted"].get("predicted_gain_s") is not None
+          and decisions[0]["realized"].get("realized_rate_commits_s")
+          is not None
+          and all(s[2] is not None for s in seconds))
+    print(f"policy: {dist_backend(device)}, hosts {ELASTIC_HOSTS[:3]} in the "
+          f"world and {ELASTIC_HOSTS[3]} a warm spare, {STRAGGLER_HOST} "
+          f"delayed {STRAGGLER_DELAY_S} s per step, "
+          f"HOROVOD_TARGET_GOODPUT=0.9; exit code {rc}, wall {wall:.1f} s; "
+          f"drains {[(d['host'], d['action'], d['rc']) for d in drains]}; "
+          f"spare promoted {[(p['host'], p['generation']) for p in promoted]}"
+          f"; worlds {[(p['generation'], p['np']) for p in published]}; "
+          f"decision {[(d['host'], d['predicted'], d['realized']) for d in decisions]}"
+          f"; seconds from each drain to the first step of the new world "
+          f"{seconds}"
+          + ("" if cpu else f"; cards: {_smoke().card_line()}"))
+    if not ok:
+        print(f"policy: FAILED:\n{text[-8000:]}", file=sys.stderr)
+        return 1
+    return 0
 
 
 def fsdp_gathers():
@@ -2757,6 +3189,17 @@ def main() -> int:
     if args[:1] == ["_straggler_rank"] and len(args) == 2:
         _straggler_rank(args[1])
         return 0
+    for name, run, rank in (("integrity", integrity, _integrity_rank),
+                            ("policy", policy, _policy_rank)):
+        if args[:1] == [name] and set(args[1:]) - {"--cpu"} <= (
+                {"--log", args[args.index("--log") + 1]} if "--log" in args
+                else set()):
+            return run("--cpu" in args,
+                       args[args.index("--log") + 1] if "--log" in args
+                       else None)
+        if args[:1] == [f"_{name}_rank"] and len(args) == 2:
+            rank(args[1])
+            return 0
     if args[:1] == ["_elastic_rank"] and len(args) == 2:
         _elastic_rank(args[1])
         return 0

@@ -155,13 +155,16 @@ and prints no result line); each prints its seconds:
    off, then from the same weights with all of them on (timeline with
    cycle marks, event journal, ``HOROVOD_TRACE_SAMPLE=4``,
    ``HOROVOD_STALL_CHECK_STEPS=4``, the model's FLOPs declared, two steps
-   under ``hvd.profiler.trace``): parameters and AdamW state equal bit for
-   bit, K1, K3 and K4 launched 24 times a step, the trace naming the flash
-   kernels and the ``hvd.*`` bucket ranges, the timeline loadable with
-   step, phase, collective and cycle events, the scrape valid with its
-   dispatch, grad-sync and phase families non-zero, ``hvd_mfu_ratio`` in
-   (0, 1), and the device busy of an unsampled step within
-   ``OBS_BUSY_TOL`` of the planes-off run's. Between the two runs
+   under ``hvd.profiler.trace``), then off and on in turn, seven runs in
+   all (``OBS_MORE_RUNS``): parameters and AdamW state of the first two
+   runs equal bit for bit, K1, K3 and K4 launched 24 times a step, the trace
+   naming the flash kernels and the ``hvd.*`` bucket ranges, the timeline
+   loadable with step, phase, collective and cycle events, the scrape
+   valid with its dispatch, grad-sync and phase families non-zero,
+   ``hvd_mfu_ratio`` in (0, 1), and the device busy of an unsampled step
+   (three a run, each parted from the next by a spin kernel), the median
+   over the planes-on runs' steps within ``OBS_BUSY_TOL`` of the median
+   over the planes-off runs'. Between the first two runs
    ``hvd.run_comms_microprobe`` sweeps ``OBS_PROBE_SIZES`` (4 KB to 256
    MB) over the one-rank world; the planes-on run then holds every op of
    the sweep fitted, a predicted exposed comm, ``footprint_of`` equal to
@@ -219,6 +222,22 @@ and prints no result line); each prints its seconds:
    thresholds x 3 segment counts (36 calls) pins one pair, and the step's
    segments follow the pin. Prints step ms, device busy ms a step, the
    segments and the pin, beside the card's name and power limit;
+13f. ``integrity``: three ``hvdrun-torch --min-np 1 --max-np 1`` launches
+   of a BERT-Large S=512 x 8 worker (24 layers, bf16 wire, AdamW,
+   deterministic algorithms, ``TorchState`` under ``@hvd.elastic.run``,
+   see ``INTEGRITY_CHILD``): under ``HOROVOD_NONFINITE_ACTION=abort`` a
+   NaN gradient in step 3 posts the coordinated abort and the step is
+   redone in a new group (journal ``nonfinite_step``, ``abort_posted``,
+   ``abort_consumed``, ``world_synced``); under
+   ``HOROVOD_LOSS_SPIKE_SIGMA`` a poison batch trips the detector, the
+   loop rewinds with no ladder step at the same generation
+   (``hvd_rewinds_total{reason="loss_spike"}`` 1) and skips it; under
+   ``HOROVOD_INTEGRITY_INTERVAL=2`` two commits are fingerprinted and the
+   last record reaches ``GET /integrity`` with the uninterrupted run's
+   digest. Each run ends bit for bit on its uninterrupted run, K1, K3 and
+   K4 launch 24 times in every step of every world; prints the seconds
+   from the abort post and from the spike to the next step, and of each
+   fingerprint of the ~4 GB state;
 14. agreement: the flash model against dense attention on small float32
    inputs, on each attention route; and ResNet-50 in float32 on the card
    against the CPU on the same weights (2 images at 64x64): logits in both
@@ -3843,6 +3862,9 @@ OBS_EVERY = 4
 OBS_BUSY_STEPS = (5, 6, 7)
 OBS_TRACED_STEPS = (9, 10)
 OBS_BUSY_TOL = 0.01
+# The runs after the first planes-off and planes-on ones, by their planes:
+# off and on in turn, seven runs in all.
+OBS_MORE_RUNS = (False, True, False, True, False)
 # The stall check: seconds of device spin ahead of the collective, and the
 # inspector's warning time.
 OBS_SPIN_S = 3.0
@@ -3909,6 +3931,29 @@ def _timeline_events(path):
         return json.load(f)
 
 
+def _busy_by_step(prof, n):
+    """Device busy ms and device events of each of the ``n`` steps of a
+    ``device_profile`` session in which every step is followed by a
+    synchronize and one spin kernel: the last ``n`` spin kernels part the
+    steps (the session's own opening spins come before them)."""
+    import torch
+
+    marks = sorted(e.time_range.start for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and _WARMUP_KERNEL in e.name)[-n:]
+    if len(marks) < n:
+        raise AssertionError(f"observability: the profile holds "
+                             f"{len(marks)} spin kernels, {n} part its steps")
+    events = device_events(prof)
+    busy, counts = [], []
+    for k, mark in enumerate(marks):
+        begin = marks[k - 1] if k else float("-inf")
+        spans = [(a, b) for _, a, b in events if begin < a < mark]
+        busy.append(_busy_us(spans) / 1e3)
+        counts.append(len(spans))
+    return busy, counts
+
+
 def _obs_run(cfg, model, initial, batch, tmp, planes):
     """One run of ``OBS_STEPS`` steps from ``initial``: the parameters, the
     AdamW state, the kernels' launches, the device busy ms per unsampled
@@ -3955,8 +4000,11 @@ def _obs_run(cfg, model, initial, batch, tmp, planes):
             with device_profile() as prof:
                 for _ in OBS_BUSY_STEPS:
                     losses.append(step(batch))
-            spans = [(a, b) for _, a, b in device_events(prof)]
-            busy = _busy_us(spans) / 1e3 / len(OBS_BUSY_STEPS)
+                    torch.cuda.synchronize()
+                    torch.cuda._sleep(1)
+            out["busy_steps"], out["events"] = _busy_by_step(
+                prof, len(OBS_BUSY_STEPS))
+            busy = statistics.median(out["busy_steps"])
             continue
         if OBS_BUSY_STEPS[0] < i <= OBS_BUSY_STEPS[-1]:
             continue
@@ -4186,14 +4234,34 @@ def observability_phase(card):
         probe = hvd.run_comms_microprobe(sizes=OBS_PROBE_SIZES, repeats=3)
         probe_s = time.perf_counter() - t_probe
         on = _obs_run(cfg, model, initial, batch, tmp, True)
+        # More runs with the planes off and on in turn (OBS_MORE_RUNS): the
+        # median step of the planes-on runs is held against that of the
+        # planes-off runs around them, so a shift of one run's kernel times
+        # does not decide the check.
+        runs = [(False, off), (True, on)]
+        for k, planes in enumerate(OBS_MORE_RUNS):
+            run_tmp = os.path.join(tmp, f"run{k + 3}")
+            os.makedirs(run_tmp)
+            r = _obs_run(cfg, model, initial, batch, run_tmp, planes)
+            runs.append((planes, dict(busy=r["busy"],
+                                      busy_steps=r["busy_steps"],
+                                      events=r["events"],
+                                      equal=_equal_runs(off, r))))
+            del r
         if not _equal_runs(off, on):
-            again = _obs_run(cfg, model, initial, batch, tmp, False)
             raise AssertionError(
                 f"observability: parameters or AdamW state differ with the "
                 f"planes on (losses off {off['losses']}, on {on['losses']}; "
-                f"a second planes-off run "
-                f"{'equals' if _equal_runs(off, again) else 'differs from'}"
-                f" the first)")
+                f"the later runs (planes {[p for p, _ in runs[2:]]}) "
+                f"{['equal' if r['equal'] else 'differ' for _, r in runs[2:]]}"
+                f" to the first)")
+        busy_off, busy_on = (statistics.median(
+            v for p, r in runs if p == planes for v in r["busy_steps"])
+            for planes in (False, True))
+        busy_line = "; ".join(
+            f"planes {'on' if p else 'off'} {r['busy']:.3f} ms (by step "
+            f"{[round(v, 3) for v in r['busy_steps']]}, device events "
+            f"{r['events']})" for p, r in runs)
         for run, which in ((off, "off"), (on, "on")):
             for kname, n in run["launches"].items():
                 want = cfg.num_layers * OBS_STEPS if kname in kernels else 0
@@ -4235,20 +4303,25 @@ def observability_phase(card):
             raise AssertionError(f"observability: families {fams}")
         if not 0 < on["mfu"] < 1:
             raise AssertionError(f"observability: hvd_mfu_ratio {on['mfu']}")
-        rel = abs(on["busy"] - off["busy"]) / off["busy"]
+        rel = abs(busy_on - busy_off) / busy_off
         if rel > OBS_BUSY_TOL:
             raise AssertionError(
-                f"observability: device busy per unsampled step "
-                f"{off['busy']:.3f} ms with the planes off, {on['busy']:.3f} "
-                f"ms on: {rel:.4f} apart, above {OBS_BUSY_TOL}")
+                f"observability: device busy per unsampled step (each run's "
+                f"median step, in run order) {busy_line}: the planes-on runs'"
+                f" median step {busy_on:.3f} ms {rel:.4f} from the planes-off"
+                f" runs' {busy_off:.3f} ms, above {OBS_BUSY_TOL}")
         a = on["attribution"]
         print(f"observability: BERT-Large S=512 x 8, {OBS_STEPS} AdamW steps "
               f"from seed 0, planes off and on: parameters and AdamW state "
               f"equal bit for bit; K1, K3, K4 launched {cfg.num_layers} "
               f"times a step in both; losses {on['losses']}")
         print(f"observability: device busy per unsampled step (profiler, "
-              f"steps {OBS_BUSY_STEPS}) {off['busy']:.3f} ms planes off, "
-              f"{on['busy']:.3f} ms planes on ({rel * 100:.3f}% apart); host "
+              f"steps {OBS_BUSY_STEPS}, each run's median step, in run "
+              f"order) {busy_line}; the planes-on runs' median step "
+              f"{busy_on:.3f} ms {rel * 100:.3f}% from the planes-off runs' "
+              f"{busy_off:.3f} ms; runs 3-{len(runs)} bit for bit equal to "
+              f"the first: "
+              f"{[r['equal'] for _, r in runs[2:]]}; host "
               f"ms of each step call outside the profilers, by step (planes "
               f"on: steps {list(range(OBS_EVERY, OBS_STEPS + 1, OBS_EVERY))}"
               f" synced), off "
@@ -4954,6 +5027,446 @@ def _phase(name, fn, *args):
     return out
 
 
+# The integrity phase's worker, run by ``hvdrun-torch --host-discovery-script``
+# (one host, localhost:1) three times, ``INTEGRITY_SMOKE_MODE`` naming the
+# run: BERT-Large S = 512 x 8 at full width and depth, bf16 wire, AdamW,
+# deterministic algorithms, a ``TorchState`` committed after every step of
+# ``make_elastic_train_step`` under ``@hvd.elastic.run``; first two
+# uninterrupted runs from the seed-0 weights, then the run of the mode:
+#
+# - ``abort`` (``HOROVOD_NONFINITE_ACTION=abort``): a one-shot gradient hook
+#   makes the token embedding's gradient NaN in step INTEGRITY_POISON_STEP;
+#   the tripwire posts the coordinated abort, the step raises, the ladder
+#   restores the last commit, re-forms the group and redoes the step.
+# - ``rewind`` (``HOROVOD_LOSS_SPIKE_SIGMA``): batch INTEGRITY_POISON_STEP is
+#   the poison batch (its loss scaled by INTEGRITY_POISON_SCALE): the
+#   detector trips, the loop rewinds to the last commit with no ladder step
+#   (the generation stays), skips the batch through
+#   ``hvd.elastic.consume_skip_ahead()`` and trains on; the uninterrupted
+#   runs never see that batch.
+# - ``fingerprint`` (``HOROVOD_INTEGRITY_INTERVAL=2``): two commits are
+#   fingerprinted (parameters and AdamW state); the last record reaches the
+#   driver's ``GET /integrity`` through the heartbeat, and its digest must
+#   equal the uninterrupted run's state at that step. With
+#   ``INTEGRITY_SMOKE_STAGES=1`` in the environment it also times a
+#   fingerprint's stages apart (copy, sha256, sums).
+#
+# Its last line: "HVD_INTEGRITY <json>".
+INTEGRITY_CHILD = r"""
+import copy, dataclasses, json, os, time
+import torch
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch import abort, basics, integrity, metrics
+from horovod_tpu_torch.models import bert as bert_mod
+from horovod_tpu_torch.ops import _kernels
+import chip_smoke as smoke
+
+MODE = os.environ["INTEGRITY_SMOKE_MODE"]
+DEVICE = os.environ.get("INTEGRITY_SMOKE_DEVICE", "cuda")
+STEPS, POISON = smoke.INTEGRITY_STEPS, smoke.INTEGRITY_POISON_STEP
+torch.use_deterministic_algorithms(True, warn_only=True)
+FLASH = ("flash_fwd", "flash_dq", "flash_dkv")
+worlds = [1]
+hvd.init(**({} if DEVICE == "cuda" else {"device": "cpu"}))
+dev = hvd.device()
+base = bert_mod.BERT_LARGE if DEVICE == "cuda" else bert_mod.BERT_TINY
+cfg = dataclasses.replace(base, dropout_rate=0.0,
+                          num_layers=int(os.environ["INTEGRITY_SMOKE_LAYERS"]))
+torch.manual_seed(0)
+with torch.device(dev):
+    model = bert_mod.Bert(cfg, attention_fn=bert_mod.flash_attention_fn)
+initial = {k: v.clone() for k, v in model.state_dict().items()}
+_, B, S, P, _ = smoke.BERT_PATHS[0]
+if DEVICE != "cuda":
+    B, S, P = 2, 32, 4
+one = torch.ones((), device=dev)
+data = [(*smoke._bert_batch(cfg, B, S, P, seed, dev), one)
+        for seed in range(STEPS + 1)]
+if MODE == "rewind":
+    # The poison batch sits at POISON in the stream; the clean runs skip it.
+    stream = list(data)
+    stream[POISON] = (*data[POISON][:4], one * smoke.INTEGRITY_POISON_SCALE)
+    clean = [b for i, b in enumerate(stream) if i != POISON][:STEPS]
+else:
+    stream = clean = data[:STEPS]
+
+
+def loss_fn(model, batch):
+    return smoke._bert_loss(model, batch[:4]) * batch[4]
+
+
+def optimizer():
+    return hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
+        named_parameters=model.named_parameters(),
+        compression=hvd.Compression.bf16)
+
+
+def params():
+    return [p.detach().clone() for p in model.parameters()]
+
+
+def uninterrupted(keep=None):
+    model.load_state_dict(initial)
+    opt = optimizer()
+    step = hvd.make_train_step(model, loss_fn, opt)
+    for i, b in enumerate(clean):
+        step(b)
+        if keep is not None and i + 1 == keep[0]:
+            keep.append(integrity.digest_tree((
+                {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                copy.deepcopy(opt.state_dict()))))
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    opt.remove_hooks()
+    return params()
+
+
+# The fingerprint run's records are at commits 2 and 4 of its counter (the
+# state's construction is commit 1): after steps 1 and 3.
+keep = [3]
+ref, ref2 = uninterrupted(keep if MODE == "fingerprint" else None), \
+    uninterrupted()
+model.load_state_dict(initial)
+opt = optimizer()
+marks = {}
+
+
+def timed(name, fn):
+    def call(*a, **k):
+        marks.setdefault(name, []).append(time.perf_counter())
+        return fn(*a, **k)
+    return call
+
+
+real_init = basics.init
+def init(*a, **k):
+    real_init(*a, **k)
+    worlds[0] += 1
+basics.init = init
+abort.post = timed("posted", abort.post)
+state = hvd.elastic.TorchState(model=model, optimizer=opt, step=0, cursor=0)
+step_fn = hvd.make_elastic_train_step(model, loss_fn, opt)
+launches, losses, errors, fingerprints = [], [], [], []
+poison = [True] if MODE == "abort" else []
+
+
+@hvd.elastic.run
+def train(state):
+    while state.step < STEPS:
+        state.cursor += hvd.elastic.consume_skip_ahead()
+        for k in _kernels.KERNELS:
+            k.launches = 0
+        hook = None
+        if poison and state.step == POISON:
+            poison.pop()
+            hook = model.token_embeddings.weight.register_hook(
+                lambda g: g * float("nan"))
+        done = False
+        try:
+            loss = float(step_fn(stream[state.cursor]))
+            done = True
+        except hvd.HorovodInternalError as e:
+            errors.append(str(e)[:200])
+            raise
+        finally:
+            if hook is not None:
+                hook.remove()
+            if DEVICE == "cuda":
+                torch.cuda.synchronize()
+            launches.append(dict(world=worlds[0], step=state.step + 1,
+                                 done=done, **{k.name: k.launches
+                                               for k in _kernels.KERNELS
+                                               if k.name in FLASH}))
+        if worlds[0] > 1 and "first_step" not in marks:
+            marks["first_step"] = [time.perf_counter()]
+        try:
+            hvd.elastic.observe_loss(loss)
+        except hvd.HorovodInternalError as e:
+            errors.append(str(e)[:200])
+            raise
+        losses.append(loss)
+        state.step += 1
+        state.cursor += 1
+        checks = integrity.summary()["checks"]
+        state.commit()
+        if integrity.summary()["checks"] > checks:
+            fingerprints.append(integrity.last_fingerprint_seconds())
+
+
+gen0 = os.environ["HOROVOD_WORLD_VERSION"]
+train(state)
+got = params()
+view = None
+if MODE == "fingerprint":
+    # The staged record reaches the driver's GET /integrity with a beat.
+    from urllib.request import urlopen
+    from horovod_tpu_torch.runner.elastic import worker
+
+    worker.get_worker_context().send_heartbeat()
+    view = json.loads(urlopen(
+        f"http://{os.environ['HOROVOD_RENDEZVOUS_ADDR']}:"
+        f"{os.environ['HOROVOD_RENDEZVOUS_PORT']}/integrity").read())
+    rec = view["records"].get("0", {})
+    view = dict(status=view["status"], step=rec.get("step"),
+                digest=rec.get("digest"),
+                staged=integrity.heartbeat_payload()["digest"],
+                want=keep[1], summaries=len(rec.get("summaries", ())))
+stages = None
+if MODE == "fingerprint" and os.environ.get("INTEGRITY_SMOKE_STAGES") == "1":
+    # The fingerprint's stages, timed apart on the last committed state:
+    # the leaves' bytes copied to the host, their sha256, their float64
+    # sums (the host copy of the model through numpy, the optimizer
+    # state's on the card). Off by default: ~7 s of the phase's limit.
+    import hashlib
+
+    leaves = integrity._leaf_arrays((state._saved_model, state._saved_opt))
+    t0 = time.perf_counter()
+    hosts = [a.host_bytes() if isinstance(a, integrity._TensorLeaf)
+             else a.tobytes() for a in leaves]
+    t1 = time.perf_counter()
+    h = hashlib.sha256()
+    for x in hosts:
+        h.update(x)
+    t2 = time.perf_counter()
+    for a in leaves:
+        if isinstance(a, integrity._TensorLeaf) and a.is_numeric():
+            a.stats()
+    t3 = time.perf_counter()
+    stages = dict(copy=t1 - t0, sha256=t2 - t1, summaries=t3 - t2)
+    del hosts
+rewinds = [line for line in metrics.render().splitlines()
+           if line.startswith('hvd_rewinds_total{reason="loss_spike"}')]
+bitwise = all(torch.equal(a, b) for a, b in zip(ref, ref2))
+spread = max((a.float() - b.float()).abs().max().item()
+             for a, b in zip(ref, ref2))
+diff = max((a.float() - b.float()).abs().max().item()
+           for a, b in zip(got, ref))
+t0 = marks.get("posted", [None])[0]
+print("HVD_INTEGRITY " + json.dumps(dict(
+    mode=MODE, generation=[gen0, os.environ["HOROVOD_WORLD_VERSION"]],
+    worlds=worlds[0], launches=launches, losses=losses, errors=errors,
+    bitwise_runs=bitwise, spread=spread, diff=diff,
+    equal=all(torch.equal(a, b) for a, b in zip(got, ref)),
+    post_to_first_step=(marks["first_step"][0] - t0
+                        if t0 is not None and "first_step" in marks
+                        else None),
+    fingerprints=fingerprints, stages=stages, view=view, rewinds=rewinds,
+    summary=integrity.summary(),
+    state_bytes=sum(p.numel() * p.element_size() for p in got)
+    + sum(t.numel() * t.element_size() for s in opt.state_dict()["state"]
+          .values() for t in s.values() if torch.is_tensor(t)),
+    params=sum(p.numel() for p in got))), flush=True)
+"""
+
+INTEGRITY_STEPS = 4
+INTEGRITY_POISON_STEP = 2
+INTEGRITY_POISON_SCALE = 1000.0
+INTEGRITY_LAYERS = 24
+# Each run's knobs; every run also journals to its own file.
+INTEGRITY_RUNS = {
+    "abort": {"HOROVOD_NONFINITE_ACTION": "abort"},
+    "rewind": {"HOROVOD_LOSS_SPIKE_SIGMA": "6",
+               "HOROVOD_LOSS_SPIKE_WARMUP": "2"},
+    "fingerprint": {"HOROVOD_INTEGRITY_INTERVAL": "2"},
+}
+# Seconds each launch may take, and the whole phase.
+INTEGRITY_LIMIT_S = 90
+INTEGRITY_PHASE_LIMIT_S = 150
+
+
+def _integrity_run(tmp, mode, env, device="cuda", layers=INTEGRITY_LAYERS):
+    """One ``hvdrun-torch`` launch of ``INTEGRITY_CHILD``: (exit code,
+    output, the report, the journal's events, seconds)."""
+    env = dict(env, **INTEGRITY_RUNS[mode], INTEGRITY_SMOKE_MODE=mode,
+               INTEGRITY_SMOKE_DEVICE=device,
+               INTEGRITY_SMOKE_LAYERS=str(layers),
+               HOROVOD_EVENT_LOG=os.path.join(tmp, f"events_{mode}.jsonl"))
+    t0 = time.time()
+    out = subprocess.run(
+        [sys.executable, "-m", "horovod_tpu_torch.runner.launch",
+         "--host-discovery-script", os.path.join(tmp, "discover.sh"),
+         "--min-np", "1", "--max-np", "1",
+         *([] if device == "cuda" else ["--cpu-mode"]), sys.executable,
+         os.path.join(tmp, "child.py")],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        capture_output=True, text=True, timeout=INTEGRITY_LIMIT_S)
+    reports = [json.loads(line.split("HVD_INTEGRITY ", 1)[1])
+               for line in out.stdout.splitlines()
+               if "HVD_INTEGRITY {" in line]
+    events = []
+    path = env["HOROVOD_EVENT_LOG"]
+    if os.path.exists(path):
+        with open(path) as f:
+            events = [json.loads(line) for line in f if line.strip()]
+    text = out.stdout + out.stderr
+    if out.returncode != 0 or len(reports) != 1:
+        raise AssertionError(f"integrity {mode}: exit code "
+                             f"{out.returncode}, {len(reports)} report(s):"
+                             f"\n{text[-4000:]}")
+    return reports[0], events, text, time.time() - t0
+
+
+def _chain(events, names):
+    """Indices of ``names`` in order in the journal (a shorter list when
+    the chain breaks)."""
+    seen, at = [], 0
+    order = [e["event"] for e in events]
+    for name in names:
+        if name not in order[at:]:
+            break
+        at = order.index(name, at)
+        seen.append(at)
+    return seen
+
+
+def _hold_integrity(mode, r, text, launches):
+    """Final parameters equal to the uninterrupted run's (bit for bit when
+    its two runs agree bit for bit, else within their spread) and K1, K3,
+    K4 launched ``launches`` times (once per layer on the card) in every
+    step of every world, the failed step included."""
+    ok = r["equal"] if r["bitwise_runs"] else r["diff"] <= r["spread"]
+    bad = [row for row in r["launches"]
+           if any(row[k] != launches for k in ("flash_fwd", "flash_dq",
+                                               "flash_dkv"))]
+    if not ok or bad or len([x for x in r["launches"] if x["done"]]) < \
+            INTEGRITY_STEPS:
+        raise AssertionError(
+            f"integrity {mode}: final parameters equal {r['equal']} (max "
+            f"diff {r['diff']}, spread {r['spread']}), launches off {bad} "
+            f"of {r['launches']}:\n{text[-4000:]}")
+
+
+def integrity_phase(card, device="cuda", layers=INTEGRITY_LAYERS):
+    """The robustness plane on BERT-Large S = 512 x 8 at full width and
+    depth (see ``INTEGRITY_CHILD``): the non-finite abort, the loss-spike
+    rewind and two fingerprinted commits, each an ``hvdrun-torch`` launch
+    held to its uninterrupted run's final parameters and to 24 launches of
+    K1, K3 and K4 in every step of every world; the journal of the abort
+    run holds ``nonfinite_step``, ``abort_posted``, ``abort_consumed``,
+    ``world_synced`` in order, the rewind run's a ``rewind`` and no
+    ``recovery``, at one generation, with ``hvd_rewinds_total{reason=
+    "loss_spike"} 1``. Prints the seconds from the abort post and from the
+    spike to the first step after it, and of each fingerprint of the state
+    (about 1.3 GB of parameters and 2.7 GB of AdamW moments), beside the
+    card; within ``INTEGRITY_PHASE_LIMIT_S``. ``device="cpu"`` rehearses
+    it on gloo with BERT_TINY, where no kernel launches."""
+    import shutil
+
+    want = layers if device == "cuda" else 0
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = os.path.join(here, "build", "chip_smoke_integrity")
+    os.makedirs(tmp, exist_ok=True)
+    with open(os.path.join(tmp, "child.py"), "w") as f:
+        f.write(INTEGRITY_CHILD)
+    disc = os.path.join(tmp, "discover.sh")
+    with open(disc, "w") as f:
+        f.write("#!/bin/sh\necho localhost:1\n")
+    os.chmod(disc, 0o755)
+    env = dict(os.environ, HOROVOD_FORCE_WIRE_MACHINERY="1",
+               HOROVOD_ELASTIC_DRIVER_LOST_TIMEOUT="30",
+               HOROVOD_ELASTIC_HEARTBEAT_INTERVAL="0.5",
+               CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               PYTHONPATH=os.pathsep.join(
+                   [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    for knob in ("HOROVOD_NONFINITE_ACTION", "HOROVOD_LOSS_SPIKE_SIGMA",
+                 "HOROVOD_INTEGRITY_INTERVAL"):
+        env.pop(knob, None)
+    t_phase = time.time()
+    try:
+        r, events, text, secs = _integrity_run(tmp, "abort", env, device,
+                                               layers)
+        _hold_integrity("abort", r, text, want)
+        chain = _chain(events, ["nonfinite_step", "abort_posted",
+                                "abort_consumed", "world_synced"])
+        if not (len(chain) == 4 and r["worlds"] == 2
+                and r["summary"]["nonfinite_detections"] == 1
+                and "non-finite" in r["errors"][0]
+                and r["post_to_first_step"] is not None):
+            raise AssertionError(
+                f"integrity abort: journal {[e['event'] for e in events]}, "
+                f"worlds {r['worlds']}, errors {r['errors']}:"
+                f"\n{text[-4000:]}")
+        print(f"integrity abort: BERT-Large {r['params'] / 1e6:.1f}M params "
+              f"({layers} layers), S=512 x 8, bf16 wire, AdamW, "
+              f"HOROVOD_NONFINITE_ACTION=abort: step {INTEGRITY_POISON_STEP + 1}"
+              f"'s NaN gradient posted the abort ({r['errors'][0]!r}); "
+              f"journal {[events[i]['event'] for i in chain]}; "
+              f"{r['worlds']} worlds of generation {r['generation']}; final "
+              f"parameters "
+              f"{'bit for bit equal to' if r['equal'] else 'within the spread of'}"
+              f" the uninterrupted run's (max diff {r['diff']}, two "
+              f"uninterrupted runs "
+              f"{'agree bit for bit' if r['bitwise_runs'] else 'differ by ' + str(r['spread'])}"
+              f"); launches {r['launches']}; seconds from the abort post "
+              f"to the first step of the new group "
+              f"{r['post_to_first_step']:.3f}; launch to exit {secs:.1f} s "
+              f"on {card}")
+        r, events, text, secs = _integrity_run(tmp, "rewind", env, device,
+                                               layers)
+        _hold_integrity("rewind", r, text, want)
+        names = [e["event"] for e in events]
+        rewinds = [e for e in events if e["event"] == "rewind"]
+        if not (len(rewinds) == 1 and rewinds[0]["reason"] == "loss_spike"
+                and "recovery" not in names
+                and r["generation"][0] == r["generation"][1]
+                and r["rewinds"] == ['hvd_rewinds_total{reason="loss_spike"}'
+                                     ' 1']
+                and r["summary"]["rewinds"] == 1
+                and r["post_to_first_step"] is not None):
+            raise AssertionError(
+                f"integrity rewind: journal {names}, generation "
+                f"{r['generation']}, metric {r['rewinds']}:\n{text[-4000:]}")
+        print(f"integrity rewind: the same worker under "
+              f"HOROVOD_LOSS_SPIKE_SIGMA={INTEGRITY_RUNS['rewind']['HOROVOD_LOSS_SPIKE_SIGMA']}"
+              f": batch {INTEGRITY_POISON_STEP} scaled by "
+              f"{INTEGRITY_POISON_SCALE:g} tripped the detector "
+              f"({r['errors'][0]!r}); one rewind (reason loss_spike, "
+              f"{rewinds[0]['consecutive']} consecutive), no ladder step, "
+              f"generation {r['generation'][0]} throughout ({r['worlds']} "
+              f"groups formed: the spike's abort ends the communicators); "
+              f"the batch skipped; final parameters "
+              f"{'bit for bit equal to' if r['equal'] else 'within the spread of'}"
+              f" the uninterrupted run without that batch (max diff "
+              f"{r['diff']}); losses {r['losses']}; launches "
+              f"{r['launches']}; seconds from the spike to the next step "
+              f"{r['post_to_first_step']:.3f}; launch to exit {secs:.1f} s "
+              f"on {card}")
+        r, events, text, secs = _integrity_run(tmp, "fingerprint", env,
+                                               device, layers)
+        _hold_integrity("fingerprint", r, text, want)
+        v = r["view"] or {}
+        if not (len(r["fingerprints"]) == 2 and r["summary"]["checks"] == 2
+                and v.get("status") == "ok" and v.get("step") == 4
+                and v.get("digest") == v.get("staged") == v.get("want")
+                and v.get("summaries")):
+            raise AssertionError(
+                f"integrity fingerprint: {r['fingerprints']}, view {v}, "
+                f"summary {r['summary']}:\n{text[-4000:]}")
+        print(f"integrity fingerprint: HOROVOD_INTEGRITY_INTERVAL=2 over "
+              f"{INTEGRITY_STEPS} steps: {len(r['fingerprints'])} "
+              f"fingerprints of the committed state "
+              f"({r['state_bytes'] / 1e9:.2f} GB of parameters and AdamW "
+              f"state), seconds each {r['fingerprints']}"
+              + (f" (stages timed apart on the last commit, s: "
+                 f"{r['stages']})" if r["stages"] else "")
+              + f"; GET /integrity "
+              f"serves the step-4 record through the heartbeat, its digest "
+              f"the uninterrupted run's state after step 3 "
+              f"({v['digest'][:16]}...), {v['summaries']} summary buckets; "
+              f"final parameters "
+              f"{'bit for bit equal to' if r['equal'] else 'within the spread of'}"
+              f" the uninterrupted run's; launch to exit {secs:.1f} s on "
+              f"{card}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    took = time.time() - t_phase
+    if took > INTEGRITY_PHASE_LIMIT_S:
+        raise AssertionError(f"integrity: the phase took {took:.1f} s, past "
+                             f"its limit of {INTEGRITY_PHASE_LIMIT_S} s")
+
+
 def main() -> int:
     import torch
 
@@ -5014,6 +5527,7 @@ def main() -> int:
     _phase("autotune", autotune_phase, card)
     _phase("negotiation", negotiation_phase, card)
     _phase("overlap", overlap_phase, card)
+    _phase("integrity", integrity_phase, card)
     print("sync modes, BERT-Large S=512 x 8 at world size 1 (step ms median, "
           "max_memory_allocated GiB, optimizer-state bytes on this rank): "
           + "; ".join(f"{m} {ms:.2f} ms, {peak:.2f} GiB, {state}"

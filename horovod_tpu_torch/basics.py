@@ -127,10 +127,17 @@ def elastic() -> bool:
 
 def _join_elastic_world() -> None:
     """Fetch this worker's assignment for the newest world, apply it to
-    the env, and start the poll loop, heartbeat and abort monitor."""
+    the env, and start the poll loop, heartbeat and abort monitor. A warm
+    spare starts its poll loop and heartbeat first and parks until a
+    world assigns it (``worker.wait_for_assignment``)."""
     from .runner.elastic import worker as elastic_worker
 
     ctx = elastic_worker.get_worker_context()
+    if elastic_worker.spare_mode():
+        ctx.start_polling()
+        ctx.start_heartbeat()
+        ctx.apply_to_env(ctx.wait_for_assignment())
+        return
     ctx.apply_to_env(ctx.fetch_assignment())
     ctx.start_polling()
     ctx.start_heartbeat()
@@ -176,22 +183,54 @@ def _exchange_coordinator_port(coord: str, rank: int) -> str:
 
 
 def _abort_groups(reason: str = "", generation: int = -1) -> None:
-    """Abort the communicators of every group of this world (the abort
-    hook): a collective already waiting on a dead peer then ends with an
-    error instead of hanging. Runs on the abort monitor's thread; a group
-    the main thread tears down meanwhile is skipped."""
-    del reason, generation
+    """Abort the communicators of every group of this world, then fail the
+    negotiated runtime's pending handles (the abort hook): a collective
+    already waiting on a peer that left then ends with an error instead
+    of hanging, and so does a wait on its handle. Runs on the abort
+    monitor's thread; a group the main thread tears down meanwhile is
+    skipped.
+
+    Every group's abort starts at once, each on a thread of its own: a
+    group's abort waits, up to the group's timeout, for its NCCL
+    communicator's teardown, which waits for the card, so aborting the
+    groups in turn waits behind a collective of a later group that only
+    that group's abort ends (torch aborts its groups inside one NCCL
+    group call for the same reason,
+    ``distributed_c10d._abort_process_group``)."""
     if not _state.owns_group or not dist.is_initialized():
         return
     from torch.distributed import distributed_c10d as c10d
 
-    try:
-        pgs = sorted(c10d._world.pg_names, key=c10d._world.pg_names.get,
-                     reverse=True)
-        for pg in pgs:
+    from .exceptions import HorovodInternalError
+
+    def one(pg, name):
+        t0 = time.monotonic()
+        try:
             pg.abort()
-    except Exception as e:  # noqa: BLE001 — the flag still raises
-        get_logger().warning("aborting the process group failed: %s", e)
+        except Exception as e:  # noqa: BLE001 — the flag still raises
+            get_logger().warning("aborting process group %s failed: %s",
+                                 name, e)
+            return
+        get_logger().info("aborted process group %s in %.3f s", name,
+                          time.monotonic() - t0)
+
+    try:
+        pgs = dict(c10d._world.pg_names)
+    except Exception as e:  # noqa: BLE001 — torn down meanwhile
+        get_logger().warning("listing the process groups failed: %s", e)
+        pgs = {}
+    threads = [threading.Thread(target=one, args=(pg, name), daemon=True,
+                                name=f"hvd-abort-{name}")
+               for pg, name in pgs.items()]
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + ELASTIC_COLLECTIVE_TIMEOUT_S
+    for t in threads:
+        t.join(max(0.0, deadline - time.monotonic()))
+    world = _state.negotiated
+    if world is not None:
+        world._fail_all(HorovodInternalError(
+            f"coordinated abort (world generation {generation}): {reason}"))
 
 
 abort.on_abort(_abort_groups)

@@ -28,8 +28,14 @@ restores, the backoff, a failed attempt's tail after its last commit as
 ``checkpoint_fallback``, ``hosts_updated``, ``removed_from_world`` and
 ``drain_requested``, and the flight records of a peer restore and a drain.
 
-Not ported yet: the loss-spike rewind (it needs the integrity plane), so a
-``LossSpikeError`` takes the ordinary ladder.
+The storage-free rewind (``horovod_tpu/elastic/runner.py:296-360``): a
+``LossSpikeError`` (``integrity.observe_loss``) is a voluntary rollback,
+not a failure of the world: ``state.restore()`` to the last commit,
+completed through the peer rung when the commit is shard-local, with no
+step of the ladder, counted in ``hvd_rewinds_total{reason="loss_spike"}``
+and journaled (``rewind``, a flight record). ``HOROVOD_REWIND_MAX``
+consecutive rewinds without a landed commit trip the storm breaker
+(``rewind_storm``): the spike then takes the ladder like any failure.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from .. import abort, basics, metrics, tracing
 from ..exceptions import (
     HorovodInternalError,
     HostsUpdatedInterrupt,
+    LossSpikeError,
     RecoveryExhaustedError,
     RemovedFromWorldError,
 )
@@ -148,6 +155,7 @@ def run(func):
         max_recovery = get_int("HOROVOD_RECOVERY_MAX_ATTEMPTS", 10)
         recovery_backoff_max = get_float("HOROVOD_RECOVERY_BACKOFF_MAX", 5.0)
         consecutive_failures = 0
+        consecutive_rewinds = 0
         commits_before_attempt = 0
         goodput = metrics.goodput()
         metrics.event("elastic_run_start")
@@ -235,16 +243,31 @@ def run(func):
                     goodput.add_lost("rendezvous",
                                      time.perf_counter() - t_attempt)
 
-                # Progress (a commit landed inside the attempt) resets the
-                # storm breaker.
+                # Progress (a commit landed inside the attempt) resets both
+                # storm breakers.
                 if _counters.commits > commits_before_attempt:
                     consecutive_failures = 0
+                    consecutive_rewinds = 0
                 consecutive_failures += 1
                 commits_before_attempt = _counters.commits
                 # This failure consumed any armed coordinated abort, and the
                 # stall inspector's verdict with it.
                 abort.consume()
                 stall.get_inspector().failed = False
+                if isinstance(e, LossSpikeError):
+                    rewound, consecutive_rewinds = _rewind(
+                        state, e, consecutive_rewinds, goodput, log)
+                    if rewound:
+                        # Voluntary: not a ladder step, not storm evidence.
+                        # The world re-forms at the same generation (the
+                        # abort the spike posted ended its communicators).
+                        consecutive_failures -= 1
+                        skip_sync = False
+                        _backoff(consecutive_failures, recovery_backoff_max,
+                                 goodput)
+                        _teardown(log)
+                        needs_reset = True
+                        continue
                 if max_recovery > 0 and consecutive_failures >= max_recovery:
                     log.error(
                         "elastic: %d consecutive recovery attempts with no "
@@ -323,12 +346,7 @@ def run(func):
                         state.restore()
                 goodput.add_lost("restore", time.perf_counter() - t_restore)
                 skip_sync = False
-                t_backoff = time.perf_counter()
-                time.sleep(min(
-                    0.5 * (2 ** (consecutive_failures - 1)),
-                    recovery_backoff_max,
-                ))
-                goodput.add_lost("backoff", time.perf_counter() - t_backoff)
+                _backoff(consecutive_failures, recovery_backoff_max, goodput)
             except HostsUpdatedInterrupt as e:
                 log.info("elastic: hosts updated; re-syncing")
                 if run_started is None:
@@ -349,13 +367,70 @@ def run(func):
                 log.info("elastic: removed from world; exiting")
                 sys.exit(EXIT_REMOVED)
             # Tear down; the next iteration re-forms the world.
-            try:
-                basics.shutdown()
-            except Exception as e:  # keep retrying even if teardown is dirty
-                log.warning("elastic: shutdown during reset failed: %s", e)
+            _teardown(log)
             needs_reset = True
 
     return wrapper
+
+
+def _backoff(failures: int, cap: float, goodput) -> None:
+    """Sleep 0.5 s x 2^(failures - 1), at most ``cap``, booked as lost."""
+    t0 = time.perf_counter()
+    time.sleep(min(0.5 * (2 ** (failures - 1)), cap))
+    goodput.add_lost("backoff", time.perf_counter() - t0)
+
+
+def _teardown(log) -> None:
+    try:
+        basics.shutdown()
+    except Exception as e:  # keep retrying even if teardown is dirty
+        log.warning("elastic: shutdown during reset failed: %s", e)
+
+
+def _rewind(state, e, consecutive: int, goodput, log) -> tuple[bool, int]:
+    """The storage-free rewind of a ``LossSpikeError`` (the JAX package's
+    ``runner.py:296-360``): ``state.restore()``, completed through the peer
+    rung when the state's commit is shard-local, unless
+    ``HOROVOD_REWIND_MAX`` consecutive rewinds found no commit in between
+    (the storm breaker, journaled ``rewind_storm``). Returns (rewound, the
+    consecutive count); not rewound, the spike takes the ladder."""
+    from .. import integrity
+
+    cap = integrity.rewind_max()
+    if cap > 0 and consecutive >= cap:
+        log.error(
+            "elastic: loss-spike rewind storm breaker tripped (%d "
+            "consecutive rewinds with no commit; HOROVOD_REWIND_MAX=%d) — "
+            "escalating through the normal recovery ladder",
+            consecutive, cap)
+        metrics.event("rewind_storm",
+                      generation=abort.current_generation(),
+                      consecutive=consecutive)
+        return False, consecutive
+    consecutive += 1
+    log.warning(
+        "elastic: %s — storage-free rewind to the last commit (%d "
+        "consecutive; HOROVOD_REWIND_MAX=%d)", e, consecutive, cap)
+    t_restore = time.perf_counter()
+    try:
+        if basics.is_initialized():
+            state.restore()
+        rewound = True
+        if state.peer_restore_pending():
+            # A shard-local snapshot: the peer rung completes the rewind.
+            rewound = bool(state.restore_peer())
+    except Exception as pe:  # noqa: BLE001
+        log.error("elastic: spike rewind could not restore (%s); falling "
+                  "through to the recovery ladder", pe)
+        rewound = False
+    goodput.add_lost("restore", time.perf_counter() - t_restore)
+    if rewound:
+        integrity.record_rewind("loss_spike",
+                                generation=abort.current_generation(),
+                                consecutive=consecutive, detail=str(e))
+        tracing.dump_flight_record("rewind",
+                                   generation=abort.current_generation())
+    return rewound, consecutive
 
 
 class _NotificationManager:

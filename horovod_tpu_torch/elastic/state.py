@@ -17,6 +17,14 @@ The JAX package's ``TpuState`` holds jax pytrees and has no counterpart;
 ``TorchState`` and, for the sharded and fsdp modes, ``PeerShardedState``
 (``elastic/__init__.py``) take its role.
 
+With a defence plane armed (``integrity.py``), ``TorchState`` and
+``PeerShardedState`` commits run the reference's hooks (:315-360,
+:639-660): an armed abort refuses the commit before its snapshot
+(``State._integrity_precommit``), the ``grad.corrupt`` injector may
+corrupt the saved copy (never the live state), and every
+``HOROVOD_INTEGRITY_INTERVAL``-th commit of the world-aligned counter is
+fingerprinted for the cross-rank vote.
+
 The port's own step in every ``commit()``: after the snapshot is taken and
 before it replaces the last one, an armed coordinated abort raises
 ``HorovodInternalError``. On the card an aborted NCCL communicator ends
@@ -150,6 +158,25 @@ class State:
                 "SIGTERM drain: state committed; leaving the world cleanly"
             )
         notification_manager.check_host_updates()
+
+    def _integrity_precommit(self) -> None:
+        """The defence planes' commit prologue
+        (``horovod_tpu/elastic/state.py:315``; inert with every knob
+        unset): an abort armed while a plane that posts aborts is live
+        (voting, the non-finite tripwire, the spike detector) may mean the
+        state reaching this commit is condemned, so raise BEFORE the
+        snapshot rotates and keep the last good one for the rewind. The
+        SIGTERM drain still wins (a draining worker must reach its clean
+        EXIT_REMOVED)."""
+        from .. import integrity
+        from ..ops import fusion
+        from .runner import drain_requested
+
+        armed = (integrity.enabled()
+                 or fusion.nonfinite_action() is not None
+                 or integrity.loss_spike_sigma() is not None)
+        if armed and not drain_requested():
+            abort.raise_if_aborted()
 
     def commit(self) -> None:
         raise NotImplementedError

@@ -26,6 +26,15 @@ the points the port's modules fire:
 - ``peer.corrupt``       — the encoded replica blob on the wire
   (``corrupt`` flips bits after the digest is computed: the server's
   install-time verification must reject it)
+- ``grad.corrupt``       — every elastic state commit's host snapshot
+  (``corrupt[:nbits]`` flips seeded bits in the committed copy: a host
+  that silently computed wrong answers, which only the cross-rank
+  integrity vote of ``integrity.py`` can see)
+- ``policy.decide``      — every self-healing policy evaluation of the
+  elastic driver (``raise`` proves a broken policy cannot take the driver
+  down; ``delay`` defers decisions)
+- ``spare.promote``      — every warm-spare promotion into the world
+  (``raise`` forces the cold-launch fallback)
 - ``driver.snapshot``    — every control-plane snapshot save of the driver
 - ``driver.takeover``    — a restarted driver's takeover from the snapshot
 - ``comms.link``         — every comms-model observation of a measured
@@ -87,6 +96,14 @@ CHECKPOINT_RESTORE = "checkpoint.restore"
 PEER_REPLICATE = "peer.replicate"
 PEER_VERIFY = "peer.verify"
 PEER_CORRUPT = "peer.corrupt"
+# The silent-data-corruption injector of the integrity plane: mutates a
+# rank's committed state snapshot (its digests stay self-consistent, so
+# only the cross-rank vote can see it).
+GRAD_CORRUPT = "grad.corrupt"
+# The elastic driver's self-healing policy evaluation and its warm-spare
+# promotion.
+POLICY_DECIDE = "policy.decide"
+SPARE_PROMOTE = "spare.promote"
 DRIVER_SNAPSHOT = "driver.snapshot"
 DRIVER_TAKEOVER = "driver.takeover"
 # Every comms-model observation of a measured collective

@@ -549,6 +549,7 @@ def _describe(head) -> str:
 
 
 def _launch_allgather(tensor, ps) -> _Launched:
+    """Exchange the ranks' shapes (a blocking host read), then gather."""
     _check_device(tensor)
     if tensor.dim() == 0:
         raise ValueError("allgather needs a tensor with at least one dim")
@@ -567,23 +568,27 @@ def _launch_allgather(tensor, ps) -> _Launched:
     if len(set(sizes)) == 1:
         if sizes[0] == 0:
             return _Launched([], t.clone)
-        # Equal sizes on every rank (the shapes were just exchanged): the
-        # payload, and so the plan, is the same everywhere.
-        plan = _plan("allgather", t, ps)
-        if plan is not None:
-            full = comms_planner.apply_allgather_row(plan, t.reshape(-1), ps)
-            return _Launched([], lambda: full.view(
-                ps.size() * t.shape[0], *t.shape[1:]), plan.algorithm)
-        parts = [torch.empty_like(t) for _ in sizes]
-        work = dist.all_gather(parts, t, group=ps.group, async_op=True)
-        return _Launched([work], lambda: (wait(work),
-                                          torch.cat(parts, dim=0))[1])
+        return _gather_equal(t, ps)
     buf = t.new_zeros((max(sizes), *t.shape[1:]))
     buf[:t.shape[0]] = t
     parts = [torch.empty_like(buf) for _ in sizes]
     work = dist.all_gather(parts, buf, group=ps.group, async_op=True)
     return _Launched([work], lambda: (wait(work), torch.cat(
         [p[:n] for p, n in zip(parts, sizes)], dim=0))[1])
+
+
+def _gather_equal(t, ps) -> _Launched:
+    """The gather of a shape that every rank sends: the payload, and so
+    the plan, is the same everywhere."""
+    plan = _plan("allgather", t, ps)
+    if plan is not None:
+        full = comms_planner.apply_allgather_row(plan, t.reshape(-1), ps)
+        return _Launched([], lambda: full.view(
+            ps.size() * t.shape[0], *t.shape[1:]), plan.algorithm)
+    parts = [torch.empty_like(t) for _ in range(ps.size())]
+    work = dist.all_gather(parts, t, group=ps.group, async_op=True)
+    return _Launched([work], lambda: (wait(work),
+                                      torch.cat(parts, dim=0))[1])
 
 
 def _launch_broadcast(tensor, root_rank, ps, in_place=False) -> _Launched:
@@ -1389,6 +1394,23 @@ def _probe_size(op_name, launch, x, ps, repeats, algorithm, link):
         "timed from the host's dispatch")
 
 
+def _probe_allgather(ps):
+    """The microprobe's allgather launch: the first call of a shape (the
+    size's warm-up) exchanges the ranks' shapes; later calls of it launch
+    on the equal-size path, so no host read of an exchange stands between
+    a timed call's events and the fit prices the collective alone."""
+    checked = set()
+
+    def launch(a):
+        key = (tuple(a.shape), a.dtype)
+        if key in checked:
+            return _gather_equal(a, ps)
+        checked.add(key)
+        return _launch_allgather(a, ps)
+
+    return launch
+
+
 def run_comms_microprobe(process_set=None, sizes=None,
                          repeats: int = 3) -> dict:
     """Seed the comms model (``comms_model.py``) with a sweep of payload
@@ -1401,7 +1423,9 @@ def run_comms_microprobe(process_set=None, sizes=None,
     the timed calls of a size are queued back to back behind a spin of
     ``PROBE_HOLD_CYCLES`` and a second warm-up call, which lines the
     ranks' streams up: each call's events then hold its device time, not
-    the host's dispatch nor the ranks' skew (see :func:`_probe_size`).
+    the host's dispatch nor the ranks' skew (see :func:`_probe_size`); the
+    allgather exchanges its shapes in the warm-up call only
+    (:func:`_probe_allgather`).
     Collective: every member calls it at the same point.
 
     With the comms planner on (``HOROVOD_COMMS_PLANNER``) and the global
@@ -1427,7 +1451,7 @@ def run_comms_microprobe(process_set=None, sizes=None,
         ("allreduce", lambda a: _launch_allreduce(a, Sum, 1.0, 1.0, ps)),
         ("reducescatter",
          lambda a: _launch_reducescatter(a, Sum, 1.0, 1.0, ps)),
-        ("allgather", lambda a: _launch_allgather(a, ps)),
+        ("allgather", _probe_allgather(ps)),
         ("alltoall", lambda a: _launch_alltoall(a, None, ps)),
     ):
         algorithms = (comms_planner.eligible_algorithms(op_name, n, islands)

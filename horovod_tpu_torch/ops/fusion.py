@@ -110,7 +110,8 @@ def segment_leaves(leaves: Sequence[tuple[int, torch.dtype]],
 def nonfinite_action() -> str | None:
     """The non-finite tripwire: ``HOROVOD_NONFINITE_ACTION`` = ``warn``
     (log and count), ``skip`` (drop the step's update on every rank) or
-    ``abort`` (raise ``HorovodInternalError`` on every rank). Unset or
+    ``abort`` (drop it and post the coordinated abort, so every rank
+    enters the elastic ladder: ``integrity.note_nonfinite``). Unset or
     another value: None, and no check runs at all."""
     action = env.get_str(env.NONFINITE_ACTION).strip().lower()
     return action if action in ("warn", "skip", "abort") else None

@@ -61,9 +61,12 @@ one ``isfinite`` reduction per bucket and one host read. The reduced
 buckets are the same on every rank, so every rank decides alike with no
 extra collective. ``warn`` logs and counts (``nonfinite_steps``) and
 steps; ``skip`` also leaves the parameters and the wrapped optimizer's
-state as they were; ``abort`` raises ``HorovodInternalError`` on every
-rank. Unset, nothing is checked and the step launches what it did
-without it.
+state as they were; ``abort`` skips the update too and posts the
+coordinated abort (``integrity.note_nonfinite``, which counts every
+detection in ``hvd_nonfinite_steps_total`` and journals
+``nonfinite_step``), so every blocking site of every rank then raises
+``HorovodInternalError`` into the elastic ladder. Unset, nothing is
+checked and the step launches what it did without it.
 
 :class:`ReduceSpec` (:func:`reduce_spec_of`, reference :527, :554) names
 an optimizer's wire and its wrapped optimizer, for schedulers that reduce
@@ -574,20 +577,17 @@ class _DistributedOptimizer:
             _note_opt_state(self._opt, self._params)
 
     def _tripwire(self, finite: bool) -> bool:
-        """Count, log, and raise or report what the step should do: False
-        when it is to be skipped."""
+        """Report the checked step to the integrity plane (which counts,
+        journals and, under ``abort``, posts the coordinated abort) and
+        say what the step should do: False when its update is to be
+        skipped (``skip``, and ``abort``, whose rollback discards it)."""
+        from . import integrity
+
+        integrity.note_nonfinite(self._nonfinite_action, finite, 0)
         if finite:
             return True
         self.nonfinite_steps += 1
-        action = self._nonfinite_action
-        get_logger().warning(
-            "non-finite reduced gradients (HOROVOD_NONFINITE_ACTION=%s, "
-            "detection #%d)", action, self.nonfinite_steps)
-        if action == "abort":
-            raise HorovodInternalError(
-                "non-finite reduced gradients with "
-                "HOROVOD_NONFINITE_ACTION=abort")
-        return action != "skip"
+        return self._nonfinite_action == "warn"
 
     def remove_hooks(self) -> None:
         """Detach the optimizer from the model's gradients for good: no

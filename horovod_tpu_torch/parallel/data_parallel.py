@@ -53,6 +53,15 @@ from ..ops.collective_ops import Average, allreduce, direct
 from ..utils import env
 
 
+# Worlds formed by this process (``basics.on_init``): a step counts its
+# calls from its first call in each world.
+_worlds = [0]
+
+
+def _count_world() -> None:
+    _worlds[0] += 1
+
+
 class _StallWatchedStep:
     """A training step, traced and stall-watched (see the module
     docstring). The JAX package's wrapper drains the pipeline with
@@ -61,14 +70,21 @@ class _StallWatchedStep:
     (``tracing.phase``) and of the step; in a multi-rank world a watched
     call's ``stall.watch`` also announces ``stallwatch/<prefix>.<call>``
     on the negotiated runtime, so rank 0's controller names a rank that
-    does not reach it."""
+    does not reach it. The calls count from the step's first call in the
+    current world, so that a rank that joined it (a replacement, a
+    promoted spare) names its watched calls as its peers do."""
 
     def __init__(self, fn, name_prefix: str):
+        from .. import basics
+
         self._fn = fn
         self._prefix = name_prefix
         self._every = env.get_int("HOROVOD_STALL_CHECK_STEPS", 50)
         self._calls = 0
         self._trace_calls = 0
+        if _count_world not in basics._init_hooks:
+            basics.on_init(_count_world)
+        self._world = _worlds[0]
 
     @staticmethod
     def _tuning_live() -> bool:
@@ -90,6 +106,9 @@ class _StallWatchedStep:
             # the process: its peers may have pinned another decision.
             raise _poison_error()
         mark_cycle("step")
+        if self._world != _worlds[0]:
+            self._world = _worlds[0]
+            self._calls = self._trace_calls = 0
         tuning = self._tuning_live()
         watch_due = False
         if self._every > 0 and not tuning:

@@ -33,10 +33,14 @@ rung in ``elastic/runner.py``. The module imports the standard library
 only: the rendezvous server verifies records with it in the driver, which
 imports no torch.
 
-Not ported yet: the integrity quarantine (``quarantined()`` returns an
-empty map until ``integrity.py`` is ported; :func:`assemble_records` takes
-a quarantine map all the same), the 2-D mesh coordinates of a record
-(none until ``parallel/mesh.py`` is ported).
+With the integrity plane armed (``HOROVOD_INTEGRITY_INTERVAL``), the
+replicator reads the server's quarantine map (``GET /integrity``) at
+assembly and :func:`assemble_records` drops every record of a condemned
+rank inside its condemned range, and each slot keeps two ``.prev``
+generations (the vote lags the condemned commit by up to one commit).
+
+Not ported yet: the 2-D mesh coordinates of a record (none until
+``parallel/mesh.py`` is ported).
 
 Each publication observes ``hvd_peer_replication_bytes`` / ``_seconds``
 and ``hvd_checkpoint_seconds{kind="save", rung="peer"}`` and journals
@@ -77,10 +81,15 @@ def max_record_bytes() -> int:
 
 def retention_depth() -> int:
     """How many ``.prev`` generations a slot rotation keeps, in the pool
-    and on the server: ``HOROVOD_PEER_RETAIN``, 1 by default (the
-    reference keeps 2 only with its integrity plane armed, which the port
-    does not have yet)."""
-    return get_int("HOROVOD_PEER_RETAIN", 1)
+    and on the server: ``HOROVOD_PEER_RETAIN``, by default 1, and 2 with
+    the integrity plane armed: its vote lags the condemned commit by up to
+    one commit (heartbeat cadence and driver tick), so the condemned
+    commit and the one a racing rank lands meanwhile may both be
+    quarantined, and assembly still needs a clean complete group under
+    them."""
+    from . import integrity
+
+    return get_int("HOROVOD_PEER_RETAIN", 2 if integrity.enabled() else 1)
 
 
 class ReplicaCorruptError(ValueError):
@@ -455,9 +464,27 @@ class PeerReplicator:
         return max(steps, default=0)
 
     def quarantined(self) -> Mapping[str, Mapping]:
-        """The integrity quarantine map, rank to condemned range: empty
-        until the integrity plane is ported."""
-        return {}
+        """The server's integrity quarantine map (rank to
+        ``{generation, step, from_generation, from_step, host}``), read at
+        assembly so a condemned rank's records leave this rank's local
+        pool too. Empty when the voting plane is unarmed (no request at
+        all), no server is reachable, or nothing is quarantined; an
+        unreachable server assembles unfiltered, as before the plane."""
+        from . import integrity
+
+        if not integrity.enabled():
+            return {}
+        client = self.client()
+        if client is None:
+            return {}
+        try:
+            quarantine = client.integrity_view().get("quarantined")
+            return quarantine if isinstance(quarantine, Mapping) else {}
+        except Exception as e:  # noqa: BLE001 — the filter is best-effort
+            self._log.warning(
+                "peercheck: cannot read the integrity quarantine (%s); "
+                "assembling unfiltered", e)
+            return {}
 
     def assemble(self, current_generation: int | None = None
                  ) -> list[ReplicaRecord]:

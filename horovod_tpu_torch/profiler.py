@@ -96,10 +96,12 @@ def summary() -> dict:
     communication observatory (``comms``: the fitted alpha-beta model, its
     samples and residual), the memory observatory (``memory``: resident
     bytes by kind, phase watermarks, the predicted footprint and its
-    drift, the largest leaves) and ``cache_stats()`` (per-kind eager
-    dispatches). The JAX package's ``integrity`` section comes with its
-    module."""
-    from . import attribution, comms_model, memory, metrics, tracing
+    drift, the largest leaves), the integrity plane's ledger
+    (``integrity``: armed, interval, fingerprints, commits, the latest
+    digest, non-finite detections, rewinds, pending skip-ahead) and
+    ``cache_stats()`` (per-kind eager dispatches)."""
+    from . import (attribution, comms_model, integrity, memory, metrics,
+                   tracing)
     from .ops.collective_ops import cache_stats
 
     return {
@@ -111,6 +113,7 @@ def summary() -> dict:
         "fsdp": metrics.fsdp_summary(),
         "attribution": attribution.summary(),
         "comms": comms_model.summary(),
+        "integrity": integrity.summary(),
         "memory": memory.summary(),
         **cache_stats(),
     }

@@ -10,8 +10,13 @@ diffs successive views, keeps the failure blacklist (with an optional
 cooldown), and answers which hosts may run workers now. A host's slots
 are its GPUs.
 
-The warm-spare tier of the reference (``HOROVOD_WARM_SPARES``) is not
-ported yet: a positive count raises.
+The warm-spare tier (``HOROVOD_WARM_SPARES``, :346-357): up to that many
+usable hosts are held out of the world (``spare_hosts``), where the driver
+keeps warm workers parked on the assignment wait, and a host whose
+blacklist cooldown expired re-enters as a spare before the world needs it.
+The port's ``max_np`` counts slots, so the spare-aware pick fills the
+world up to ``max_np`` slots (the JAX package's counts hosts, one worker
+each).
 """
 
 from __future__ import annotations
@@ -25,11 +30,6 @@ from ... import faults
 from ...exceptions import HostDiscoveryFailedError
 from ...utils.env import get_float, get_int
 from ..hosts import HostInfo
-
-WARM_SPARES_NOT_PORTED = (
-    "HOROVOD_WARM_SPARES > 0: the warm-spare tier is not ported yet; "
-    "unset it or set it to 0")
-
 
 class HostDiscovery:
     """Interface: return the current world as {hostname: slots}."""
@@ -117,11 +117,17 @@ class HostManager:
         max_discovery_failures: int | None = None,
         warm_spares: int | None = None,
     ):
-        spares = (get_int("HOROVOD_WARM_SPARES", 0)
-                  if warm_spares is None else warm_spares)
-        if spares > 0:
-            raise NotImplementedError(WARM_SPARES_NOT_PORTED)
         self._discovery = discovery
+        # The warm-spare tier: up to this many usable hosts held OUT of the
+        # world, launched and heartbeating, so a replacement costs one
+        # re-rendezvous instead of a cold launch. 0 (default): no tier.
+        self._warm_spares = (get_int("HOROVOD_WARM_SPARES", 0)
+                             if warm_spares is None else warm_spares)
+        self._spares: set[str] = set()
+        # Hosts whose cooldown expired while still discovered: with the
+        # tier on they come back as spares, and leave that state when the
+        # world needs them (a shrink below its budget).
+        self._cooldown_returned: set[str] = set()
         # A single discovery blip is routine (script timeout, cloud API
         # hiccup) and the driver retries it; a STREAK of
         # HOROVOD_ELASTIC_DISCOVERY_FAILURES consecutive failures means
@@ -233,6 +239,8 @@ class HostManager:
             # Only a host discovery STILL lists is a usable-set change.
             if h in self._current:
                 self._expired_pending = True
+                if self._warm_spares > 0:
+                    self._cooldown_returned.add(h)
 
     def _usable_locked(self) -> dict[str, int]:
         self._prune_blacklist_locked()
@@ -250,9 +258,18 @@ class HostManager:
         """Choose the next world's hosts: keep ``preferred`` (current
         workers) first for rank stability, append new hosts, cap at
         ``max_np`` hosts, snap to a valid shape (:func:`snap_to_topology`),
-        then snap down to the largest valid host count."""
+        then snap down to the largest valid host count.
+
+        With the warm-spare tier on, the pick also holds up to
+        ``warm_spares`` surplus hosts out of the world (``spare_hosts``):
+        the world takes hosts until it holds ``max_np`` slots (without
+        ``max_np``: all hosts but ``warm_spares``), hosts back from a
+        cooldown last; a blacklisted host is in neither."""
         with self._lock:
             usable = self._usable_locked()
+            # A returned host that left discovery sheds the flag.
+            self._cooldown_returned &= set(usable)
+            returned = set(self._cooldown_returned)
         ordered: list[HostInfo] = []
         for h in preferred:
             if h in usable:
@@ -260,7 +277,55 @@ class HostManager:
         for h, s in sorted(usable.items()):
             if all(o.hostname != h for o in ordered):
                 ordered.append(HostInfo(h, s))
-        ordered = snap_to_topology(ordered, max_hosts=max_np)
-        while ordered and not self._valid(len(ordered)):
-            ordered.pop()
-        return ordered
+        if self._warm_spares <= 0:
+            ordered = snap_to_topology(ordered, max_hosts=max_np)
+            while ordered and not self._valid(len(ordered)):
+                ordered.pop()
+            with self._lock:
+                self._spares = set()
+            return ordered
+        world = _fill(
+            [h for h in ordered if h.hostname not in returned]
+            + [h for h in ordered if h.hostname in returned],
+            max_np, max(len(ordered) - self._warm_spares, 1))
+        promoted = {h.hostname for h in world} & returned
+        # Back to the preferred-first order (rank stability).
+        index = {h.hostname: i for i, h in enumerate(ordered)}
+        world.sort(key=lambda h: index[h.hostname])
+        world = snap_to_topology(world)
+        while world and not self._valid(len(world)):
+            world.pop()
+        names = {h.hostname for h in world}
+        spares = [h for h in ordered
+                  if h.hostname not in names][: self._warm_spares]
+        with self._lock:
+            self._cooldown_returned -= promoted & names
+            self._spares = {h.hostname for h in spares}
+        return world
+
+    def spare_hosts(self) -> list[HostInfo]:
+        """The spare tier: usable hosts the last ``pick_world`` held out
+        of the world (empty with the tier off)."""
+        with self._lock:
+            usable = self._usable_locked()
+            return [HostInfo(h, usable[h])
+                    for h in sorted(self._spares) if h in usable]
+
+    @property
+    def warm_spares_target(self) -> int:
+        return self._warm_spares
+
+
+def _fill(hosts: list[HostInfo], max_slots: int | None,
+          max_hosts: int) -> list[HostInfo]:
+    """Hosts in order until they hold ``max_slots`` slots (or, without it,
+    the first ``max_hosts``)."""
+    if max_slots is None:
+        return list(hosts[:max_hosts])
+    out, slots = [], 0
+    for h in hosts:
+        if slots >= max_slots:
+            break
+        out.append(h)
+        slots += h.slots
+    return out

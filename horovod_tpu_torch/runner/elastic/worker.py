@@ -48,7 +48,15 @@ counter, so every member of a generation counts steps from the same join
 :meth:`ElasticWorkerContext.apply_to_env` sets). Following a successor
 driver journals ``driver_rejoin``.
 
-Not ported yet: the warm-spare wait (``wait_for_assignment``).
+A warm spare (``HOROVOD_SPARE=1``, launched by the driver's spare tier;
+:meth:`ElasticWorkerContext.wait_for_assignment`, the reference's :208)
+starts its poll loop and heartbeat, registers at ``PUT /spare/<worker>``
+after its first miss, and parks until a world assigns it: its card and
+NCCL group form only then, in ``init()``. A parked spare's heartbeat
+carries no comms, memory or integrity payload and it ships no trace (its
+launch rank would shadow a real rank's). The heartbeat of a world member
+carries its latest integrity fingerprint (``"integrity"``) when
+``HOROVOD_INTEGRITY_INTERVAL`` is set.
 """
 
 from __future__ import annotations
@@ -59,17 +67,24 @@ import random
 import threading
 import time
 
-from ... import abort, comms_model, faults, memory, metrics, tracing
+from ... import (abort, comms_model, faults, integrity, memory, metrics,
+                  tracing)
 from ...elastic.runner import notification_manager
 from ...utils.env import get_float
 from ...utils.logging import get_logger
-from ..http.kv_server import ABORT_SCOPE, DONE_SCOPE, HEARTBEAT_SCOPE, KVClient
+from ..http.kv_server import (ABORT_SCOPE, CLOSING_SCOPE, DONE_SCOPE,
+                              HEARTBEAT_SCOPE, KVClient)
 from .constants import (EXIT_DRIVER_LOST, POLL_FAILURE_WARN_AFTER,
                         WORKER_ENV, worker_name)
 
 
 def elastic_enabled() -> bool:
     return os.environ.get("HOROVOD_ELASTIC", "") == "1"
+
+
+def spare_mode() -> bool:
+    """True in a worker the driver launched as a warm spare."""
+    return os.environ.get("HOROVOD_SPARE", "") == "1"
 
 
 class _HeartbeatCounters:
@@ -120,6 +135,8 @@ class ElasticWorkerContext:
         self._abort_poller: threading.Thread | None = None
         self._stop = threading.Event()
         self._next_rejoin_probe = 0.0
+        # True while a warm spare is parked on the assignment wait.
+        self.parked = False
 
     def _build_clients(self, addr: str, port: int) -> None:
         """The three KV clients. Every client stamps writes with this
@@ -157,7 +174,11 @@ class ElasticWorkerContext:
             v = self.client.world_version() if version is None else version
             if v < self.version:
                 v = self.version
+            if version is None:
+                v = self._past_closing(v)
             raw = self.client.get(f"world/{v}", self.name)
+        except RemovedFromWorldError:
+            raise
         except Exception as e:
             raise HorovodInternalError(f"rendezvous KV unreachable: {e}") from e
         if raw is None:
@@ -181,6 +202,94 @@ class ElasticWorkerContext:
         # skew and attribution match spans on (generation, step, name).
         tracing.get_tracer().rebase()
         return json.loads(raw)
+
+    def _past_closing(self, v: int) -> int:
+        """The generation to join: ``v``, unless the driver marked it
+        closing (``closing/<v>``: it aborts that world or drains a host of
+        it, and publishes the next one after); then the next one, once
+        published (within ``HOROVOD_ELASTIC_TIMEOUT``). A worker that
+        re-joined the closing generation would wait in its group's
+        formation for peers that are leaving it. A drained worker leaves
+        here (``RemovedFromWorldError``)."""
+        from ...elastic.runner import drain_requested
+        from ...exceptions import RemovedFromWorldError
+
+        deadline = time.monotonic() + get_float("HOROVOD_ELASTIC_TIMEOUT",
+                                                600.0)
+        while (time.monotonic() < deadline
+               and self.client.get(CLOSING_SCOPE, str(v)) is not None):
+            if drain_requested():
+                raise RemovedFromWorldError(
+                    f"drained while world v{v} re-forms without "
+                    f"{self.name!r}")
+            time.sleep(0.1)
+            v = max(v, self.client.world_version())
+        return v
+
+    def wait_for_assignment(self, poll_s: float | None = None) -> dict:
+        """A warm spare's wait: register as a spare, then poll until the
+        driver publishes a world that assigns this worker (every
+        ``HOROVOD_SPARE_POLL_INTERVAL`` seconds, default 0.5). The caller
+        starts the poll loop (which keeps the generation fence current)
+        and the heartbeat first. A SIGTERM drain while parked raises
+        ``RemovedFromWorldError`` (a clean ``EXIT_REMOVED``); a KV failure
+        raises ``HorovodInternalError`` and the elastic loop waits again
+        (registration is idempotent)."""
+        if poll_s is None:
+            poll_s = get_float("HOROVOD_SPARE_POLL_INTERVAL", 0.5)
+        self.parked = True
+        try:
+            return self._wait_parked(poll_s)
+        finally:
+            self.parked = False
+
+    def _wait_parked(self, poll_s: float) -> dict:
+        from ...elastic.runner import drain_requested
+        from ...exceptions import RemovedFromWorldError
+        from ..http.kv_server import SPARE_SCOPE
+
+        announced = registered = False
+        while True:
+            try:
+                assignment = self.fetch_assignment()
+            except RemovedFromWorldError:
+                if drain_requested():
+                    raise RemovedFromWorldError(
+                        "spare drained (SIGTERM) while waiting for an "
+                        "assignment") from None
+                if not announced:
+                    # Parked only after the first miss: a promoted spare
+                    # re-entering init() after a recovery finds its
+                    # assignment at once and must not register again.
+                    announced = True
+                    get_logger().info(
+                        "elastic: warm spare %s — ready, waiting for a "
+                        "world assignment", self.name)
+                    metrics.event("spare_wait", generation=self.version,
+                                  host=self.name)
+                if not registered:
+                    # Retried each poll until it lands (a KV blip, or a
+                    # fence 409 while the world re-formed during the
+                    # imports), so a warm spare never stays invisible.
+                    try:
+                        self.client.put(SPARE_SCOPE, self.name, json.dumps({
+                            "host": self.hostname, "pid": os.getpid(),
+                            "t": time.time()}).encode())
+                        registered = True
+                    except Exception as e:  # noqa: BLE001 — advisory
+                        get_logger().debug(
+                            "elastic: spare registration failed (will "
+                            "retry): %s", e)
+                time.sleep(poll_s)
+                continue
+            if announced:
+                metrics.event("spare_joined", generation=self.version,
+                              host=self.name,
+                              rank=assignment.get("process_id"))
+                get_logger().info(
+                    "elastic: spare %s promoted into world v%d (rank %s)",
+                    self.name, self.version, assignment.get("process_id"))
+            return assignment
 
     def apply_to_env(self, assignment: dict) -> None:
         """Refresh the env contract so re-init picks up the new world."""
@@ -407,12 +516,20 @@ class ElasticWorkerContext:
             body["metrics"] = metrics.snapshot()
             # The comms and memory observatories ride the same beat (a
             # handful of fits, a few ints), so the rendezvous server's
-            # GET /comms and GET /memory serve cluster-merged views.
+            # GET /comms and GET /memory serve cluster-merged views; a
+            # parked spare has no world rank and sends neither.
             try:
-                body["comms"] = comms_model.get_model().payload()
-                body["memory"] = memory.get_observatory().payload()
+                if not self.parked:
+                    body["comms"] = comms_model.get_model().payload()
+                    body["memory"] = memory.get_observatory().payload()
             except Exception:  # noqa: BLE001 — liveness beats observability
                 pass
+        # The integrity plane's latest fingerprint (one digest and a few
+        # summaries) rides the beat, armed by its own knob: the driver's
+        # vote sees every rank's record with no route of its own.
+        rec = None if self.parked else integrity.heartbeat_payload()
+        if rec is not None:
+            body["integrity"] = rec
         try:
             t_send = clock.now()
             reply = self._hb_client.put(HEARTBEAT_SCOPE, self.name,
@@ -424,7 +541,8 @@ class ElasticWorkerContext:
         t_server = json.loads(reply or b"{}").get("t_server")
         if t_server is not None:
             clock.observe(t_send, t_recv, float(t_server))
-        tracing.maybe_ship_heartbeat()
+        if not self.parked:
+            tracing.maybe_ship_heartbeat()
         return True
 
     def start_heartbeat(self, interval: float | None = None) -> None:

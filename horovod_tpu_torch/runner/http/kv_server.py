@@ -74,14 +74,33 @@ Perfetto cannot sign):
   (``memory.merge_payloads`` over the heartbeats' ``memory`` sections).
   Both bodies carry the world generation.
 
-The policy, spare and integrity families of the scrape are rendered at
-zero, as the JAX package's are before those planes act, so a scrape
-renders the same families.
+- ``GET /integrity``: the integrity fingerprints the workers' heartbeats
+  carry (``"integrity"``, keyed by the record's rank), the newest
+  complete group's vote (``integrity.vote_latest``, cached per heartbeat
+  mutation and world size), the quarantine map and the divergence counts;
+  ``no_records`` while nothing fingerprinted.
 
-Not ported yet: the ``modelstate`` scope (with ``serving.py``), the
-integrity quarantine and the live-vote fence of ``peerstate`` writes
-(with ``integrity.py``), and the ``/integrity`` and ``/model`` routes
-(with their modules).
+The robustness plane (``:127``, ``:293``, ``:366-440``, ``:921-1000``,
+``:1381-1480``): a warm spare registers at ``PUT /spare/<worker>`` and
+an external agent announces a host's reclaim at ``PUT /preempt/<host>``
+(the driver reads and clears both). The driver marks a generation it is
+about to replace at ``closing/<g>`` (its aborts and drains), which a worker
+re-joining reads before it joins that generation. The driver quarantines a rank the
+vote named (:meth:`RendezvousServer.quarantine_rank`): its ``peerstate``
+PUTs are answered 409 until one comes from a strictly newer generation
+(the entry then stays as a tombstone whose condemned range still filters
+assembly), and its current record is evicted, its ``.prev`` kept. Before
+the driver's tick lands, the live-vote fence answers 409 to a PUT from
+the named outlier of the cached complete, unambiguous divergent vote
+(nothing is parsed until a heartbeat has carried a fingerprint). The
+scrape's policy, spare and integrity families count what the driver
+reports (``record_policy_action``, ``set_cluster_info(spares=...)``,
+``record_integrity_divergence``, the quarantine map);
+:meth:`RendezvousServer.regression_suspects` serves the attribution
+sentinel's suspects to the policy's ``step_regression`` channel.
+
+Not ported yet: the ``modelstate`` scope and ``GET /model`` (with
+``serving.py``).
 
 Authentication: with ``HOROVOD_SECRET_KEY`` set (the launcher makes one per
 job), every request carries ``X-Hvd-Auth: HMAC-SHA256(method\\npath\\n
@@ -108,6 +127,7 @@ from urllib.request import Request, urlopen
 from ... import attribution as _attribution
 from ... import comms_model as _comms_model
 from ... import faults
+from ... import integrity as _integrity
 from ... import memory as _memory
 from ... import metrics as _metrics
 from ... import peercheck as _peercheck
@@ -137,13 +157,26 @@ DONE_SCOPE = "done"
 # Peer-replica scope (see the module docstring).
 PEERSTATE_SCOPE = _peercheck.PEERSTATE_SCOPE
 
+# Closing generations: the driver marks a generation it is about to
+# replace (``closing/<g>``, ``RendezvousServer.close_generation``).
+CLOSING_SCOPE = "closing"
+
+# Warm-spare registration scope: a spare worker (launched with
+# HOROVOD_SPARE=1, waiting for an assignment) puts /spare/<worker> once its
+# imports are done; the driver counts it warm while it also heartbeats.
+SPARE_SCOPE = "spare"
+
+# Preemption-notice scope: an external agent puts /preempt/<host> to
+# announce that the host is about to be reclaimed; the driver drains it
+# through the SIGTERM final-commit path and clears the notice.
+PREEMPT_SCOPE = "preempt"
+
 # Tracing scope: workers PUT /trace/<worker> with sampled step spans and
 # their measured clock offset; one payload per worker (replaced each ship).
 TRACE_SCOPE = _tracing.TRACE_SCOPE
 
 #: The self-healing policy's action vocabulary (the ``action`` label values
-#: of hvd_policy_decisions_total, rendered at zero until the port has the
-#: policy plane).
+#: of hvd_policy_decisions_total; every one rendered on every scrape).
 POLICY_ACTIONS = ("drain", "promote", "preempt")
 
 # Payload bound for /trace PUTs: the worker caps spans/steps at the
@@ -262,6 +295,10 @@ class _KVHandler(BaseHTTPRequestHandler):
             # (per-rank resident bytes by kind, phase watermarks,
             # headroom, model drift).
             return self._serve_json(_render_memory, "application/json")
+        if self.path == "/integrity":
+            # Same exemption: the collected fingerprints, the live vote
+            # and the quarantine map.
+            return self._serve_json(_render_integrity, "application/json")
         if not self._authenticate():
             return
         store = self.server.store  # type: ignore[attr-defined]
@@ -321,6 +358,70 @@ class _KVHandler(BaseHTTPRequestHandler):
                     f"(world owned by driver epoch {current})").encode()
         return None
 
+    def _integrity_quarantine_locked(self, key: str) -> bytes | None:
+        """The integrity fence of the ``peerstate`` scope (under the
+        server lock): a rank the vote named has its replica PUTs answered
+        409 until one arrives from a STRICTLY newer generation (the
+        re-formed world gives the rank id to a healthy worker), so a
+        corrupt shard never displaces a good replica. Headerless writes
+        from a quarantined rank are refused too."""
+        base = key
+        while base.endswith(_peercheck.PREV_SUFFIX):
+            base = base[:-len(_peercheck.PREV_SUFFIX)]
+        raw = self.headers.get(GENERATION_HEADER)
+        try:
+            gen = int(raw) if raw is not None else None
+        except ValueError:
+            gen = None
+        entry = self.server.integrity_quarantine.get(base)  # type: ignore[attr-defined]
+        if entry is not None:
+            if entry.get("lifted"):
+                # A tombstone: the PUT fence is down (the condemned range
+                # still filters assembly), the live-vote fence is not.
+                return self._live_vote_fence_locked(base, gen)
+            if gen is not None and gen > int(entry.get("generation", 0)):
+                # The new world owns the rank id: lift the fence, keep the
+                # entry, whose condemned range still filters the peer
+                # rung until the new generation's replica set completes.
+                entry["lifted"] = True
+                return None
+            self.server.fenced += 1  # type: ignore[attr-defined]
+            return (f"integrity quarantine: rank {base} was voted "
+                    f"divergent at generation {entry.get('generation')} "
+                    f"step {entry.get('step')} (host "
+                    f"{entry.get('host')}); replica PUTs are fenced "
+                    "until a newer generation").encode()
+        return self._live_vote_fence_locked(base, gen)
+
+    def _live_vote_fence_locked(self, base: str, gen: int | None
+                                ) -> bytes | None:
+        """The quarantine lands on the driver's next tick, which a corrupt
+        rank's next commit can race, rotating the last good ``.prev``
+        away. The server holds every rank's fingerprint already, so it
+        votes inline: a replica PUT from the named outlier of a complete,
+        unambiguous divergent vote is refused unless it comes from a
+        strictly newer generation. Until a heartbeat has carried a
+        fingerprint (``integrity_seen``) nothing is parsed; after, the
+        vote is cached per heartbeat mutation."""
+        if not self.server.integrity_seen:  # type: ignore[attr-defined]
+            return None
+        _records, voted = _cached_integrity_vote(self.server, locked=True)
+        if voted is None:
+            return None
+        (vgen, vstep), verdict = voted
+        if not verdict.get("divergent") or verdict.get("ambiguous"):
+            return None
+        try:
+            outlier = int(verdict["outlier_rank"])
+        except (KeyError, TypeError, ValueError):
+            return None
+        if str(outlier) != base or (gen is not None and gen > vgen):
+            return None
+        self.server.fenced += 1  # type: ignore[attr-defined]
+        return (f"integrity live-vote fence: rank {base} is the outlier "
+                f"of a divergent vote at generation {vgen} step {vstep}; "
+                "replica PUT rejected pending driver quarantine").encode()
+
     def _drain_and_413(self, length: int, reason: bytes):
         """Refuse an oversize body without holding it: read it in small
         chunks and drop them (so the client reads a clean 413, not a reset
@@ -357,6 +458,8 @@ class _KVHandler(BaseHTTPRequestHandler):
                 return self._reply(422, why.encode())
         with self.server.lock:  # type: ignore[attr-defined]
             rejected = self._fence_check_locked()
+            if rejected is None and scope == PEERSTATE_SCOPE:
+                rejected = self._integrity_quarantine_locked(key)
             if rejected is None:
                 if scope == PEERSTATE_SCOPE:
                     rotate_slots(
@@ -371,6 +474,12 @@ class _KVHandler(BaseHTTPRequestHandler):
                     self.server.trace_version += 1  # type: ignore[attr-defined]
                 if scope == HEARTBEAT_SCOPE:
                     self.server.hb_times[key] = time.monotonic()  # type: ignore[attr-defined]
+                    # The vote cache's key, and the live-vote fence's
+                    # latch (a substring scan, no parse).
+                    self.server.hb_version += 1  # type: ignore[attr-defined]
+                    if (not self.server.integrity_seen  # type: ignore[attr-defined]
+                            and b'"integrity"' in body):
+                        self.server.integrity_seen = True  # type: ignore[attr-defined]
         if rejected is not None:
             return self._reply(409, rejected)
         if scope == HEARTBEAT_SCOPE:
@@ -733,6 +842,87 @@ def _render_memory(httpd) -> dict:
     return merged
 
 
+def _integrity_records(httpd, locked: bool = False) -> dict[int, dict]:
+    """The integrity fingerprints the heartbeats carry (their
+    ``"integrity"`` section), keyed by each record's own rank; malformed
+    heartbeats are skipped. ``locked=True`` from a caller holding
+    ``httpd.lock`` (it is not reentrant)."""
+    if locked:
+        raw = dict(httpd.store.get(HEARTBEAT_SCOPE, {}))
+    else:
+        with httpd.lock:
+            raw = dict(httpd.store.get(HEARTBEAT_SCOPE, {}))
+    out: dict[int, dict] = {}
+    for body in raw.values():
+        try:
+            hb = json.loads(body)
+        except (ValueError, UnicodeDecodeError):
+            continue
+        if not isinstance(hb, dict):
+            continue
+        rec = hb.get("integrity")
+        if not isinstance(rec, dict):
+            continue
+        try:
+            rank = int(rec.get("rank", 0))
+        except (TypeError, ValueError):
+            continue
+        # Colliding ranks: the freshest record wins, so a zombie's stale
+        # payload cannot shadow the live rank's.
+        held = out.get(rank)
+        if held is None or rec.get("t", 0) >= held.get("t", 0):
+            out[rank] = rec
+    return out
+
+
+def _vote_world(server) -> int:
+    """The ranks a complete vote group needs: the world's slots as the
+    driver set them (``set_cluster_info(ranks=...)``), else its hosts."""
+    return server.world_ranks or server.world_np
+
+
+def _cached_integrity_vote(server, locked: bool = False):
+    """(records, voted) for the current heartbeats, cached per
+    (``hb_version``, world size): replica PUTs and idle ``GET /integrity``
+    polls cost one compare, not a parse of every heartbeat and a vote."""
+    world = _vote_world(server)
+    key = (server.hb_version, world)
+    cached = server.integrity_vote_cache
+    if cached is not None and cached[0] == key:
+        return cached[1], cached[2]
+    records = _integrity_records(server, locked=locked)
+    voted = (_integrity.vote_latest(records, world or len(records))
+             if records else None)
+    server.integrity_vote_cache = (key, records, voted)
+    return records, voted
+
+
+def _render_integrity(httpd) -> dict:
+    """``GET /integrity``: the collected fingerprints, the newest complete
+    group's vote, the quarantine map and the divergence counts; a world
+    where nothing fingerprinted yet serves ``no_records``, never a 500."""
+    records, voted = _cached_integrity_vote(httpd)
+    with httpd.lock:
+        generation = httpd.version
+        world = _vote_world(httpd)
+        quarantined = {r: dict(e)
+                       for r, e in httpd.integrity_quarantine.items()}
+        divergence = dict(httpd.integrity_divergence)
+    out = {
+        "status": "ok" if records else "no_records",
+        "generation": generation,
+        "world_size": world,
+        "records": {str(r): rec for r, rec in sorted(records.items())},
+        "quarantined": quarantined,
+        "divergence_counts": divergence,
+        "vote": None,
+    }
+    if voted is not None:
+        (gen, step), verdict = voted
+        out["vote"] = {"group": [gen, step], **verdict}
+    return out
+
+
 def _render_cluster_metrics(httpd) -> str:
     """The driver's cluster-wide scrape: driver-plane gauges built from
     live server state, then every worker snapshot found piggybacked on a
@@ -744,6 +934,11 @@ def _render_cluster_metrics(httpd) -> str:
         blacklisted = httpd.blacklisted
         driver_epoch = httpd.driver_epoch
         driver_lost = dict(httpd.driver_lost)
+        spares = httpd.spare_count
+        policy_actions = dict(httpd.policy_actions)
+        integrity_div = dict(httpd.integrity_divergence)
+        quarantined = sum(1 for e in httpd.integrity_quarantine.values()
+                          if not e.get("lifted"))
         now = time.monotonic()
         ages = {h: now - t for h, t in httpd.hb_times.items()}
         payloads = dict(httpd.store.get(HEARTBEAT_SCOPE, {}))
@@ -768,18 +963,18 @@ def _render_cluster_metrics(httpd) -> str:
             "hvd_heartbeat_age_seconds", "gauge",
             "Seconds since each host's last heartbeat (server clock).",
             [({"host": h}, age) for h, age in sorted(ages.items())]),
-        # Self-healing policy plane: at zero until the port has it (the
-        # JAX package's scrape shows these before any decision too).
+        # Self-healing policy plane: every action label on every scrape,
+        # at zero before the first decision.
         _metrics.make_family(
             "hvd_policy_spare_hosts", "gauge",
             "Warm spare hosts currently launched, heartbeating, and held "
             "out of the world by the elastic driver.",
-            [({}, 0)]),
+            [({}, spares)]),
         _metrics.make_family(
             "hvd_policy_decisions_total", "counter",
             "Self-healing policy actions taken by the elastic driver "
             "(drain|promote|preempt).",
-            [({"action": a}, 0)
+            [({"action": a}, policy_actions.get(a, 0))
              for a in POLICY_ACTIONS]),
         # Control-plane fault tolerance: the driver epoch (split-brain
         # fence identity; 0 = no driver-state plane) and per-host
@@ -807,11 +1002,12 @@ def _render_cluster_metrics(httpd) -> str:
             "Cross-rank integrity votes that named a host's replica "
             "state divergent (silent data corruption evidence), by "
             "host, plus the unlabeled job-wide total.",
-            [({}, 0)]),
+            [({}, sum(integrity_div.values()))]
+            + [({"host": h}, n) for h, n in sorted(integrity_div.items())]),
         _metrics.make_family(
             "hvd_integrity_quarantined_ranks", "gauge",
             "Ranks whose peer-replica PUTs are currently fenced by an "
-            "integrity-vote quarantine.", [({}, 0)]),
+            "integrity-vote quarantine.", [({}, quarantined)]),
     ]
     # Multi-tenant pod: a driver serving one job of a shared pool
     # (HOROVOD_JOB_ID set per job process tree by the scheduler) stamps
@@ -915,8 +1111,19 @@ class RendezvousServer:
         self._httpd.driver_epoch = 0  # type: ignore[attr-defined]
         # Driver-side scrape gauges (set_cluster_info, record_driver_lost).
         self._httpd.world_np = 0  # type: ignore[attr-defined]
+        self._httpd.world_ranks = 0  # type: ignore[attr-defined]
         self._httpd.blacklisted = 0  # type: ignore[attr-defined]
         self._httpd.driver_lost = {}  # type: ignore[attr-defined]
+        # The robustness plane: warm spares, policy actions, the vote's
+        # divergence counts and quarantine map; the live-vote fence's
+        # latch and the vote cache (keyed by the heartbeat mutation count).
+        self._httpd.spare_count = 0  # type: ignore[attr-defined]
+        self._httpd.policy_actions = {}  # type: ignore[attr-defined]
+        self._httpd.integrity_divergence = {}  # type: ignore[attr-defined]
+        self._httpd.integrity_quarantine = {}  # type: ignore[attr-defined]
+        self._httpd.integrity_seen = False  # type: ignore[attr-defined]
+        self._httpd.hb_version = 0  # type: ignore[attr-defined]
+        self._httpd.integrity_vote_cache = None  # type: ignore[attr-defined]
         self._httpd.straggler_logged = set()  # type: ignore[attr-defined]
         # Step-attribution plane: the analysis cache (keyed by the trace
         # mutation counter), the regression sentinel, the (generation,
@@ -985,14 +1192,139 @@ class RendezvousServer:
             counts[host] = counts.get(host, 0) + 1
 
     def set_cluster_info(self, world_np: int | None = None,
-                         blacklisted: int | None = None) -> None:
-        """Driver-side gauges for the ``/metrics`` scrape, which only the
-        driver knows: the world's hosts and the blacklisted hosts."""
+                         blacklisted: int | None = None,
+                         spares: int | None = None,
+                         ranks: int | None = None) -> None:
+        """Driver-side facts, which only the driver knows: the world's
+        hosts, the blacklisted hosts and the warm spares (scrape gauges),
+        and the world's ranks (the size of a complete vote group; the
+        port runs a worker per slot, so a host may hold several)."""
         with self._httpd.lock:  # type: ignore[attr-defined]
             if world_np is not None:
                 self._httpd.world_np = int(world_np)  # type: ignore[attr-defined]
             if blacklisted is not None:
                 self._httpd.blacklisted = int(blacklisted)  # type: ignore[attr-defined]
+            if spares is not None:
+                self._httpd.spare_count = int(spares)  # type: ignore[attr-defined]
+            if ranks is not None:
+                self._httpd.world_ranks = int(ranks)  # type: ignore[attr-defined]
+
+    def record_policy_action(self, action: str) -> None:
+        """Count one self-healing action into the scrape's
+        ``hvd_policy_decisions_total{action}``."""
+        with self._httpd.lock:  # type: ignore[attr-defined]
+            counts = self._httpd.policy_actions  # type: ignore[attr-defined]
+            counts[action] = counts.get(action, 0) + 1
+
+    # -- warm spares and preemption notices ----------------------------------
+
+    def _scope_records(self, scope: str) -> dict[str, dict]:
+        with self._httpd.lock:  # type: ignore[attr-defined]
+            raw = dict(self._httpd.store.get(scope, {}))  # type: ignore[attr-defined]
+        out: dict[str, dict] = {}
+        for key, body in raw.items():
+            try:
+                rec = json.loads(body)
+            except (ValueError, UnicodeDecodeError):
+                rec = {}
+            out[key] = rec if isinstance(rec, dict) else {}
+        return out
+
+    def spare_records(self) -> dict[str, dict]:
+        """The warm spares that registered (``PUT /spare/<worker>``)."""
+        return self._scope_records(SPARE_SCOPE)
+
+    def clear_spare(self, name: str) -> None:
+        """Drop a spare's registration (promotion, or its teardown)."""
+        with self._httpd.lock:  # type: ignore[attr-defined]
+            self._httpd.store.get(SPARE_SCOPE, {}).pop(name, None)  # type: ignore[attr-defined]
+
+    def preempt_notices(self) -> dict[str, dict]:
+        """Outstanding preemption notices by host (``PUT
+        /preempt/<host>``)."""
+        return self._scope_records(PREEMPT_SCOPE)
+
+    def consume_preempt(self, host: str) -> None:
+        """Drop a handled notice, so the drain fires once."""
+        with self._httpd.lock:  # type: ignore[attr-defined]
+            self._httpd.store.get(PREEMPT_SCOPE, {}).pop(host, None)  # type: ignore[attr-defined]
+
+    # -- the integrity plane -------------------------------------------------
+
+    def heartbeat_version(self) -> int:
+        """The heartbeat store's mutation count (every heartbeat PUT and
+        ``clear_heartbeat``): pollers skip a re-parse when it is
+        unchanged."""
+        return self._httpd.hb_version  # type: ignore[attr-defined]
+
+    def integrity_records(self) -> dict[int, dict]:
+        """The fingerprints the heartbeats carry, by rank."""
+        return _integrity_records(self._httpd)
+
+    def integrity_vote_cached(self):
+        """(records, voted) through the cache shared with the live-vote
+        fence and ``GET /integrity``."""
+        return _cached_integrity_vote(self._httpd)
+
+    def integrity_summary(self) -> dict:
+        """What ``GET /integrity`` serves, rendered in-process."""
+        return _render_integrity(self._httpd)
+
+    def record_integrity_divergence(self, host: str) -> None:
+        """Count one vote against ``host`` into the scrape's
+        ``hvd_integrity_divergence_total{host}``."""
+        with self._httpd.lock:  # type: ignore[attr-defined]
+            counts = self._httpd.integrity_divergence  # type: ignore[attr-defined]
+            counts[host] = counts.get(host, 0) + 1
+
+    def quarantine_rank(self, rank, host: str, generation: int,
+                        step: int, from_generation: int | None = None,
+                        from_step: int | None = None) -> None:
+        """Fence a divergent rank's replica PUTs and evict its current
+        ``peerstate`` record (the corrupt shard); its ``.prev`` slots stay,
+        so assembly falls back a commit. ``generation``/``step`` are the
+        vote's group (the fence lifts on a write of a strictly newer
+        generation); ``from_generation``/``from_step`` (default: the
+        same) start the condemned range, earlier when the vote back-dated
+        the corruption to the outlier's previous fingerprint."""
+        with self._httpd.lock:  # type: ignore[attr-defined]
+            self._httpd.integrity_quarantine[str(rank)] = {  # type: ignore[attr-defined]
+                "host": str(host),
+                "generation": int(generation),
+                "step": int(step),
+                "from_generation": int(generation if from_generation is None
+                                       else from_generation),
+                "from_step": int(step if from_step is None else from_step),
+                "t": time.time(),
+            }
+            self._httpd.store.get(  # type: ignore[attr-defined]
+                PEERSTATE_SCOPE, {}).pop(str(rank), None)
+
+    def quarantine_export(self) -> dict:
+        """The quarantine map (tombstones included) for the driver's
+        snapshot, so a successor's server fences the same ranks."""
+        with self._httpd.lock:  # type: ignore[attr-defined]
+            return {r: dict(e) for r, e in
+                    self._httpd.integrity_quarantine.items()}  # type: ignore[attr-defined]
+
+    def restore_quarantine(self, entries) -> None:
+        if not isinstance(entries, dict):
+            return
+        with self._httpd.lock:  # type: ignore[attr-defined]
+            for r, e in entries.items():
+                if isinstance(e, dict):
+                    self._httpd.integrity_quarantine[str(r)] = dict(e)  # type: ignore[attr-defined]
+
+    def regression_suspects(self) -> dict[str, float]:
+        """The regression sentinel's {worker: excess seconds} suspects,
+        non-empty only while a phase's baseline is in alarm: the policy's
+        ``step_regression`` channel. Ticks the cached analysis first."""
+        try:
+            _cluster_attribution(self._httpd)
+        except Exception:  # noqa: BLE001 — an advisory channel
+            pass
+        with self._httpd.lock:  # type: ignore[attr-defined]
+            return dict(self._httpd.regression_suspects)  # type: ignore[attr-defined]
 
     def metrics_text(self) -> str:
         """The scrape body, rendered in-process (what ``GET /metrics``
@@ -1081,12 +1413,32 @@ class RendezvousServer:
                 ABORT_SCOPE, {})[str(gen)] = record
         return gen
 
+    def close_generation(self, reason: str) -> int:
+        """Mark the current generation as closing (``closing/<g>``): the
+        driver is about to publish the next world (it drains a host, or
+        aborts this world), and a worker re-joining waits for that one
+        instead of forming a group of the closing generation with peers
+        that are leaving it. Returns the generation."""
+        record = json.dumps({"reason": reason, "time": time.time()}).encode()
+        with self._httpd.lock:  # type: ignore[attr-defined]
+            gen = self._httpd.version  # type: ignore[attr-defined]
+            self._httpd.store.setdefault(  # type: ignore[attr-defined]
+                CLOSING_SCOPE, {})[str(gen)] = record
+        return gen
+
     def abort_record(self, generation: int) -> bytes | None:
         with self._httpd.lock:  # type: ignore[attr-defined]
             return self._httpd.store.get(  # type: ignore[attr-defined]
                 ABORT_SCOPE, {}).get(str(generation))
 
     # -- heartbeat liveness plane -------------------------------------------
+
+    def heartbeat_ages(self) -> dict[str, float]:
+        """Seconds since each worker's last heartbeat (server clock)."""
+        now = time.monotonic()
+        with self._httpd.lock:  # type: ignore[attr-defined]
+            return {h: now - t
+                    for h, t in self._httpd.hb_times.items()}  # type: ignore[attr-defined]
 
     def heartbeat_age(self, name: str) -> float | None:
         """Seconds since ``name``'s last heartbeat, or None if never seen."""
@@ -1112,6 +1464,8 @@ class RendezvousServer:
             self._httpd.store.get(  # type: ignore[attr-defined]
                 TRACE_SCOPE, {}).pop(name, None)
             self._httpd.trace_version += 1  # type: ignore[attr-defined]
+            # Its fingerprint left the record set: no vote over it.
+            self._httpd.hb_version += 1  # type: ignore[attr-defined]
 
     def stop(self) -> None:
         self._httpd.shutdown()
@@ -1196,6 +1550,13 @@ class KVClient:
             if e.code == 404:
                 return None
             raise
+
+    def integrity_view(self) -> dict:
+        """``GET /integrity`` (no HMAC): the fingerprints, the live vote
+        and the quarantine map, which peer-replica assembly reads so that
+        a condemned rank's records leave its local pool too."""
+        with self._request("GET", "/integrity") as r:
+            return json.loads(r.read().decode())
 
     def keys(self, scope: str) -> list[str]:
         with self._request("GET", f"/_scope/{scope}") as r:

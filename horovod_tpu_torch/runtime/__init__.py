@@ -983,7 +983,10 @@ class NativeWorld:
         with self._done:
             for e in entries:
                 if e is not None:
-                    e.error = error
+                    # An entry the coordinated abort failed
+                    # (``basics._abort_groups``) keeps that error.
+                    if not e.done:
+                        e.error = error
                     e.done = True
             self._done.notify_all()
 

@@ -686,6 +686,13 @@ def dump_flight_record(reason: str, generation: int | None = None,
         pool = peercheck.pool_summary()
         if pool is not None:
             snap["peer_pool"] = pool
+        # The integrity plane's state, once it engaged: the last staged
+        # fingerprint and the tripwire and rewind counts.
+        from . import integrity
+
+        isum = integrity.flight_summary()
+        if isum is not None:
+            snap["integrity"] = isum
         # Attribution rides too: the last synced step's phase
         # decomposition (where DID the wall time go before the wedge),
         # and — for a wedged collective still open — the gating rank

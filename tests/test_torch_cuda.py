@@ -1544,3 +1544,85 @@ def test_overlap_gradient_sync_leaves_the_reduced_grads_on_the_card(
     finally:
         torch.use_deterministic_algorithms(False)
         hvd.shutdown()
+
+
+@pytest.mark.cuda
+def test_integrity_summaries_on_the_card_equal_the_host_sums(cuda_device):
+    """A tree of card tensors (float32, bfloat16 with NaN and Inf, int64)
+    digests as its host copy does, bit for bit, and summarizes on the
+    card: the finite counts exact, the L2 within 1e-12 of the host's
+    float64 numpy sums."""
+    from horovod_tpu_torch import integrity
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    tree = {"w": torch.randn(3000, 700, generator=gen, device=cuda_device),
+            "b": torch.randn(5000, generator=gen,
+                             device=cuda_device).to(torch.bfloat16),
+            "n": torch.arange(17, device=cuda_device),
+            "s": torch.tensor(2.5, device=cuda_device)}
+    tree["b"][7] = float("nan")
+    tree["b"][9] = float("inf")
+    host = {k: v.cpu() for k, v in tree.items()}
+    assert integrity.digest_tree(tree) == integrity.digest_tree(host)
+    got = integrity.summarize_tree(tree, buckets=4)
+    want = integrity.summarize_tree(host, buckets=4)
+    assert [(b["n"], b["finite"]) for b in got] == \
+        [(b["n"], b["finite"]) for b in want]
+    for g, w in zip(got, want):
+        assert abs(g["l2"] - w["l2"]) <= 1e-12 * w["l2"]
+
+
+@pytest.mark.cuda
+def test_integrity_corrupts_a_card_snapshot_not_the_live_tensor(
+        cuda_device):
+    """grad.corrupt on a snapshot of card tensors: the corrupted leaf is a
+    new tensor on the card with the host path's bytes, and the tensor the
+    snapshot was taken from is untouched."""
+    from horovod_tpu_torch import faults, integrity
+
+    live = torch.ones(4096, device=cuda_device)
+    faults.reset()
+    try:
+        for tree in ({"w": live}, {"w": live.cpu()}):
+            faults.reset()
+            faults.inject(faults.GRAD_CORRUPT, "corrupt", arg=64, at=1,
+                          count=1)
+            out = integrity.maybe_corrupt_snapshot({"params": tree})
+            if tree["w"].is_cuda:
+                card = out["params"]["w"]
+            else:
+                host = out["params"]["w"]
+    finally:
+        faults.reset()
+    assert card.is_cuda and card.data_ptr() != live.data_ptr()
+    assert torch.equal(card.cpu(), host) and not torch.equal(host,
+                                                             live.cpu())
+    assert torch.equal(live, torch.ones(4096, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_the_abort_tripwire_on_the_card(cuda_device, monkeypatch):
+    """HOROVOD_NONFINITE_ACTION=abort on the card, one rank, the wire
+    forced: the NaN step's update is skipped, the detection counted, and
+    the coordinated abort armed (the next guarded site raises)."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import abort, integrity
+
+    monkeypatch.setenv("HOROVOD_FORCE_WIRE_MACHINERY", "1")
+    monkeypatch.setenv("HOROVOD_NONFINITE_ACTION", "abort")
+    integrity.reset_for_testing()
+    hvd.init()
+    try:
+        w = torch.nn.Parameter(torch.ones(1024, device=cuda_device))
+        opt = hvd.DistributedOptimizer(torch.optim.SGD([w], lr=1.0))
+        (w * torch.full_like(w, float("nan"))).sum().backward()
+        opt.step()
+        assert torch.equal(w.detach(), torch.ones_like(w))
+        assert opt.nonfinite_steps == 1
+        assert integrity.summary()["nonfinite_detections"] == 1
+        with pytest.raises(hvd.HorovodInternalError, match="non-finite"):
+            abort.raise_if_aborted()
+        opt.remove_hooks()
+    finally:
+        abort.reset()
+        hvd.shutdown()

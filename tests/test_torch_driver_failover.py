@@ -201,8 +201,11 @@ def test_a_fenced_driver_stands_down(tmp_path, monkeypatch):
     snap = port_ds.DriverStateStore(d, epoch=1).load()
     assert snap["secret_key"] == os.environ["HOROVOD_SECRET_KEY"]
     assert sorted(snap) == sorted(
-        ["generation", "min_np", "max_np", "world", "workers", "blacklist",
-         "driver_lost_counts", "secret_key", "driver_epoch", "t_wall"])
+        ["generation", "min_np", "max_np", "world", "workers", "spares",
+         "blacklist", "driver_lost_counts", "integrity_strikes",
+         "integrity_acted_group", "integrity_last_outlier",
+         "integrity_quarantine", "policy", "secret_key", "driver_epoch",
+         "t_wall"])
     successor, _ = port_ds.DriverStateStore.open(d)
     successor.save({"generation": 0})
     drv._save_state()

@@ -238,12 +238,60 @@ def test_discovery_script_and_fixed_discovery_match(tmp_path):
             [RefHostInfo(*h) for h in fixed]).find_available_hosts_and_slots())
 
 
-def test_warm_spares_are_not_ported_yet(monkeypatch):
+def test_the_spare_tier_launches_and_promotes_a_spare(monkeypatch):
+    """HOROVOD_WARM_SPARES=1 over two one-slot hosts at max_np=1: the host
+    manager holds the same host out of the world as the JAX package's, the
+    driver launches a worker on it with HOROVOD_SPARE=1 (named by its
+    slot), and when the world host is blacklisted the next world promotes
+    that very process instead of a cold launch."""
+    from horovod_tpu_torch.runner.elastic import driver as port_driver
+    from horovod_tpu_torch.runner.launch import Settings
+
     monkeypatch.setenv("HOROVOD_WARM_SPARES", "1")
-    with pytest.raises(NotImplementedError, match="warm-spare"):
-        port_discovery.HostManager(_Mutable({"a": 1}))
-    monkeypatch.setenv("HOROVOD_WARM_SPARES", "0")
-    port_discovery.HostManager(_Mutable({"a": 1}))
+    monkeypatch.setenv("HOROVOD_SECRET_KEY", SECRET)
+    hosts = {"a": 1, "b": 1}
+    ref = ref_discovery.HostManager(_Mutable(hosts), warm_spares=1)
+    ref.update_available_hosts()
+    ref_world = [h.hostname for h in ref.pick_world([], 1)]
+    launched = []
+
+    class _Popen:
+        pid = 0
+        returncode = None
+
+        def poll(self):
+            return None
+
+    def launch(a, command, env, ssh_port=None, sink=None):
+        launched.append(env)
+        return port_driver.WorkerProc(a, _Popen(), None)
+
+    monkeypatch.setattr(port_driver, "launch_worker", launch)
+    monkeypatch.setattr(port_driver, "terminate_workers", lambda ws: None)
+    monkeypatch.setattr(port_driver, "terminate_worker", lambda w: None)
+    settings = Settings(num_proc=1, hosts=[], command=["true"],
+                        elastic=True, min_np=1, max_np=1)
+    drv = port_driver.ElasticDriver(settings, discovery=_Mutable(hosts))
+    drv._manager.update_available_hosts()
+    version = drv._publish_world(drv._pick())
+    drv._launch_missing_workers(version)
+    drv._ensure_spares(version)
+    assert [h.hostname for h in drv._world_hosts] == ref_world == ["a"]
+    assert ([h.hostname for h in drv._manager.spare_hosts()]
+            == [h.hostname for h in ref.spare_hosts()] == ["b"])
+    assert sorted(drv._workers) == ["a:0"]
+    assert sorted(drv._spare_procs) == ["b:0"]
+    spare_env = launched[-1]
+    assert (spare_env["HOROVOD_SPARE"], spare_env["HOROVOD_ELASTIC_WORKER"],
+            spare_env["HOROVOD_HOSTNAME"]) == ("1", "b:0", "b")
+    assert "HOROVOD_SPARE" not in launched[0]
+    spare = drv._spare_procs["b:0"]
+    drv._blacklist("a:0", "test")
+    drv._reconfigure()
+    assert drv._workers == {"b:0": spare} and not drv._spare_procs
+    assert len(launched) == 2  # promoted, not launched cold
+    assert 'hvd_policy_decisions_total{action="promote"} 1' in \
+        drv._server.metrics_text()
 
 
 # -- Faults ---------------------------------------------------------------
@@ -343,6 +391,8 @@ def test_every_port_module_imports_without_jax():
         "import importlib, pkgutil, sys\n"
         "import horovod_tpu_torch.runner.elastic\n"
         "import horovod_tpu_torch.runner.http.kv_server\n"
+        "import horovod_tpu_torch.integrity\n"
+        "import horovod_tpu_torch.elastic.policy\n"
         "assert 'torch' not in sys.modules, 'launcher side imported torch'\n"
         "import horovod_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
@@ -351,6 +401,9 @@ def test_every_port_module_imports_without_jax():
         "    importlib.import_module(n)\n"
         "for n in ('horovod_tpu_torch.elastic', "
         "'horovod_tpu_torch.abort', 'horovod_tpu_torch.faults', "
+        "'horovod_tpu_torch.integrity', "
+        "'horovod_tpu_torch.elastic.policy', "
+        "'horovod_tpu_torch.elastic.torch_state', "
         "'horovod_tpu_torch.runner.elastic.worker', "
         "'horovod_tpu_torch.runner.elastic.driver'):\n"
         "    assert n in names, n\n"

@@ -11,7 +11,7 @@ import torch
 
 import horovod_tpu.elastic.state as ref_state
 import horovod_tpu.torch.elastic as ref_elastic
-import horovod_tpu_torch.elastic as port_elastic
+import horovod_tpu_torch.elastic.torch_state as port_elastic
 from horovod_tpu_torch.elastic import state as port_state
 
 

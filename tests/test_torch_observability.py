@@ -449,7 +449,17 @@ def test_timeline_stays_loadable_after_sigkill(tmp_path):
                             stdout=subprocess.PIPE, text=True)
     try:
         assert proc.stdout.readline().strip() == "ready"
-        time.sleep(0.3)
+        # The writer thread trails the emitter: the kill lands once it has
+        # written the 600 events emitted before "ready" (at most 30 s; a
+        # read that catches a write half done is read again).
+        deadline = time.monotonic() + 30.0
+        while time.monotonic() < deadline:
+            try:
+                if len(json.loads(path.read_text())) >= 600:
+                    break
+            except ValueError:
+                pass
+            time.sleep(0.05)
     finally:
         proc.kill()
         proc.wait(timeout=30)
@@ -609,8 +619,9 @@ def test_profiler_from_the_env_and_its_summary(tmp_path):
     out = _run(code, {"HOROVOD_PROFILER_LOGDIR": str(tmp_path / "prof")})
     assert out.returncode == 0, out.stderr
     assert "KEYS ['attribution', 'checkpoint', 'comms', 'eager_dispatch', " \
-           "'executable_cache', 'fsdp', 'goodput', 'memory', 'stragglers', " \
-           "'trace_active', 'trace_logdir']" in out.stdout, out.stdout
+           "'executable_cache', 'fsdp', 'goodput', 'integrity', 'memory', " \
+           "'stragglers', 'trace_active', 'trace_logdir']" in out.stdout, \
+        out.stdout
     assert str(tmp_path / "prof" / "rank0.trace.json") in out.stdout
     assert "CACHE {'hits': 0, 'misses': 0, 'size': 0, 'capacity': 0, " \
            "'bytes': 0} {'allreduce': 1}" in out.stdout

@@ -277,9 +277,10 @@ def test_num_groups_bucket_plan_matches_jax(problem, monkeypatch, num_groups,
 
 
 def test_nonfinite_warn_and_abort():
-    """warn logs, counts and steps; abort raises HorovodInternalError before
-    the step; unset checks nothing. One rank, on the short-circuit path and
-    with the wire forced on."""
+    """warn logs, counts and steps; abort skips the update and posts the
+    coordinated abort (armed locally: the next guarded site raises
+    HorovodInternalError); unset checks nothing. One rank, on the
+    short-circuit path and with the wire forced on."""
     import subprocess
     import sys
 
@@ -296,7 +297,9 @@ def test_nonfinite_warn_and_abort():
         "    (w * torch.tensor([float('nan'), 1.0])).sum().backward()\n"
         "    try:\n"
         "        opt.step()\n"
+        "        hvd.abort.raise_if_aborted()\n"
         "    except hvd.HorovodInternalError as e:\n"
+        "        hvd.abort.consume()\n"
         "        return 'raised', opt.nonfinite_steps, w.detach().clone()\n"
         "    return 'stepped', opt.nonfinite_steps, w.detach().clone()\n"
         "for force in ('0', '1'):\n"
